@@ -1,0 +1,15 @@
+"""``import hector_torch`` — the front door to the PyTorch/CUDA port.
+
+Re-exports the authoring DSL (``@hector_torch.model`` + the edge/node
+operations) and ``hector_torch.compile()`` from ``repro_torch.frontend``::
+
+    import hector_torch
+
+    compiled = hector_torch.compile("rgat", graph, layers=2, sample=5)
+    params = compiled.init(0)
+    logits = compiled.apply_blocks(params, mb, feats)
+
+Entry points run on the CUDA card unless given ``device="cpu"``.
+"""
+from repro_torch.frontend import *  # noqa: F401,F403
+from repro_torch.frontend import __all__  # noqa: F401

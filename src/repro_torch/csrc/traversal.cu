@@ -1,0 +1,220 @@
+// K2 and K3: the fused edge-softmax + aggregation of the traversal template
+// (Hector Algorithm 2) over the blocked destination CSR.
+//
+// K2, seg_stats_f32 — per-destination softmax statistics:
+//     mx[v]  = max(-1e30, max_{e->v} s_e),  den[v] = sum_{e->v} exp(s_e - mx[v])
+//   Replaces repro/kernels/traversal.py::seg_stats_padded (_stats_kernel).
+// K3, seg_softmax_agg_gather_f32 — gather-fused softmax aggregation:
+//     out[v] = sum_{e->v} exp(s_e - mx[v]) / max(den[v], 1e-38) * msg[mmap[e]]
+//   Replaces traversal.py::seg_softmax_agg_gather_padded
+//   (_softmax_agg_gather_kernel, _gather_msg_tile).
+//
+// Bound on the H100: bytes (a few FLOPs per byte). K2 reads each slot's
+// score and local destination once and writes two floats per node; K3
+// reads each slot's score, destination and message index, one message row
+// of d floats per real slot, the node stats, and writes d floats per node.
+//
+// Design: the TPU kernels run their grid in order and accumulate a node
+// block's consecutive edge tiles into one VMEM output block, scattering with
+// a one-hot [node_block x tile] matmul. Here blocks run in parallel, so one
+// thread block owns one node block and walks that block's contiguous tile
+// range [block_tile_ptr[b], block_tile_ptr[b+1]) (derived from the
+// non-decreasing tile -> block map when the layout is built) with a loop
+// in place of the sequential grid. Each tile's slots are staged in shared
+// memory. K2 gives every destination node of the block to one thread,
+// which takes the exact max in a first pass over the slots and the sum of
+// exponentials in a second. K3 first turns each staged slot into its
+// attention weight, then every (node, column) accumulator in shared memory
+// is owned by exactly one thread, which adds the slots of its node in slot
+// order; the message rows are gathered from global memory by index
+// (-1 contributes nothing), coalesced along the columns. No float atomics:
+// both results are deterministic. Node blocks that own no tile are written
+// too (mx = -1e30, den = 0, out = 0), which the TPU kernels never visit.
+//
+// Inputs and outputs are fp32; den and out accumulate in fp64. Bucketing
+// routes every pad edge to one pad node, which then sums tens of thousands
+// of slots (about 97K at 1024 seeds on bgs): a sequential fp32 sum of that
+// length drifts by about 1e-5 of its value, an fp64 one stays within the
+// final fp32 rounding. FP64 adds cost nothing here beside the slot walk.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kAggThreads = 256;
+
+__global__ void seg_stats_kernel(const float* __restrict__ scores,
+                                 const int* __restrict__ local_dst,
+                                 const int* __restrict__ block_tile_ptr,
+                                 float* __restrict__ mx,
+                                 float* __restrict__ den, int node_block,
+                                 int tile) {
+  extern __shared__ float smem[];
+  float* s_score = smem;                                  // [tile]
+  int* s_dst = reinterpret_cast<int*>(smem + tile);       // [tile]
+  const int b = blockIdx.x;
+  const int t0 = block_tile_ptr[b];
+  const int t1 = block_tile_ptr[b + 1];
+  const int j = threadIdx.x;
+
+  float m = kNegInf;
+  for (int t = t0; t < t1; ++t) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+      s_score[i] = scores[(size_t)t * tile + i];
+      s_dst[i] = local_dst[(size_t)t * tile + i];
+    }
+    __syncthreads();
+    if (j < node_block) {
+      for (int i = 0; i < tile; ++i) {
+        if (s_dst[i] == j) m = fmaxf(m, s_score[i]);
+      }
+    }
+  }
+  double d = 0.0;
+  for (int t = t0; t < t1; ++t) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+      s_score[i] = scores[(size_t)t * tile + i];
+      s_dst[i] = local_dst[(size_t)t * tile + i];
+    }
+    __syncthreads();
+    if (j < node_block) {
+      for (int i = 0; i < tile; ++i) {
+        if (s_dst[i] == j) d += static_cast<double>(expf(s_score[i] - m));
+      }
+    }
+  }
+  if (j < node_block) {
+    mx[(size_t)b * node_block + j] = m;
+    den[(size_t)b * node_block + j] = static_cast<float>(d);
+  }
+}
+
+__global__ void __launch_bounds__(kAggThreads)
+seg_softmax_agg_gather_kernel(const float* __restrict__ scores,
+                              const float* __restrict__ msg,
+                              const int* __restrict__ mmap,
+                              const int* __restrict__ local_dst,
+                              const int* __restrict__ block_tile_ptr,
+                              const float* __restrict__ mx,
+                              const float* __restrict__ den,
+                              float* __restrict__ out, int d, int node_block,
+                              int tile, int groups, int colw) {
+  extern __shared__ double smem_acc[];
+  double* acc = smem_acc;                                     // [NB][d]
+  float* s_att =
+      reinterpret_cast<float*>(acc + (size_t)node_block * d); // [tile]
+  int* s_row = reinterpret_cast<int*>(s_att + tile);          // [tile]
+  int* s_dst = s_row + tile;                                  // [tile]
+  const int b = blockIdx.x;
+  const int t0 = block_tile_ptr[b];
+  const int t1 = block_tile_ptr[b + 1];
+  const float* mxb = mx + (size_t)b * node_block;
+  const float* denb = den + (size_t)b * node_block;
+  const int g = threadIdx.x / colw;
+  const int cx = threadIdx.x - g * colw;
+
+  for (int i = threadIdx.x; i < node_block * d; i += blockDim.x) acc[i] = 0.0;
+  for (int t = t0; t < t1; ++t) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+      const size_t slot = (size_t)t * tile + i;
+      const int v = local_dst[slot];
+      float a = 0.f;
+      int row = -1;
+      if (v < node_block) {
+        a = expf(scores[slot] - mxb[v]) / fmaxf(denb[v], 1e-38f);
+        row = mmap[slot];
+      }
+      s_att[i] = a;
+      s_row[i] = row;
+      s_dst[i] = v;
+    }
+    __syncthreads();
+    if (g < groups) {
+      for (int i = 0; i < tile; ++i) {
+        const int row = s_row[i];
+        const int v = s_dst[i];
+        if (row < 0 || v % groups != g) continue;
+        const double a = s_att[i];
+        const float* mr = msg + (size_t)row * d;
+        double* av = acc + (size_t)v * d;
+        for (int c = cx; c < d; c += colw) av[c] = fma(a, (double)mr[c], av[c]);
+      }
+    }
+  }
+  __syncthreads();
+  float* ob = out + (size_t)b * node_block * d;
+  for (int i = threadIdx.x; i < node_block * d; i += blockDim.x) {
+    ob[i] = static_cast<float>(acc[i]);
+  }
+}
+
+// Opt a kernel in to more than the default 48 KB of dynamic shared memory.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, long long bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace
+
+extern "C" const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" long long seg_stats_smem_bytes(int tile) {
+  return (long long)tile * (sizeof(float) + sizeof(int));
+}
+
+extern "C" long long seg_softmax_agg_smem_bytes(int d, int node_block,
+                                                int tile) {
+  return (long long)node_block * d * sizeof(double) +
+         (long long)tile * (sizeof(float) + 2 * sizeof(int));
+}
+
+// scores, local_dst [T * tile]; block_tile_ptr [num_node_blocks + 1];
+// mx, den [num_node_blocks * node_block]. node_block <= 1024.
+extern "C" int seg_stats_f32(const float* scores, const int* local_dst,
+                             const int* block_tile_ptr, float* mx, float* den,
+                             int num_node_blocks, int node_block, int tile,
+                             void* stream) {
+  if (num_node_blocks <= 0 || node_block <= 0 || node_block > 1024 ||
+      tile <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long smem = seg_stats_smem_bytes(tile);
+  cudaError_t e = allow_smem(seg_stats_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int threads = (node_block + 31) / 32 * 32;
+  seg_stats_kernel<<<num_node_blocks, threads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      scores, local_dst, block_tile_ptr, mx, den, node_block, tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// msg [em, d]; mmap, scores, local_dst [T * tile]; mx, den from
+// seg_stats_f32; out [num_node_blocks * node_block, d].
+extern "C" int seg_softmax_agg_gather_f32(
+    const float* scores, const float* msg, const int* mmap,
+    const int* local_dst, const int* block_tile_ptr, const float* mx,
+    const float* den, float* out, int d, int num_node_blocks, int node_block,
+    int tile, void* stream) {
+  if (num_node_blocks <= 0 || node_block <= 0 || d <= 0 || tile <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int colw = d < kAggThreads ? d : kAggThreads;
+  int groups = kAggThreads / colw;
+  if (groups > node_block) groups = node_block;
+  const long long smem = seg_softmax_agg_smem_bytes(d, node_block, tile);
+  cudaError_t e = allow_smem(seg_softmax_agg_gather_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  seg_softmax_agg_gather_kernel<<<num_node_blocks, colw * groups, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      scores, msg, mmap, local_dst, block_tile_ptr, mx, den, out, d,
+      node_block, tile, groups, colw);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,302 @@
+"""Operators the code generator instantiates, over the kernel wrappers.
+
+The counterpart of ``repro.kernels.ops`` without its three backends: each
+op dispatches on the device of its tensors. On the CPU it runs the plain
+PyTorch versions (the CPU tests' path); on a CUDA card it launches the
+hand-written kernels (``segment_mm.py``, ``traversal.py``), and an op whose
+kernel is not ported yet raises ``NotImplementedError`` naming that kernel.
+Forward only: the backward kernels come with training.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import to_device
+from repro_torch.kernels import layout as L
+from repro_torch.kernels import ref as R
+from repro_torch.kernels import segment_mm as SK
+from repro_torch.kernels import traversal as TK
+from repro_torch.kernels.segment_mm import segment_mm_gather_padded
+from repro_torch.kernels.traversal import (seg_softmax_agg_gather_padded,
+                                           seg_stats_padded)
+
+
+# ---------------------------------------------------------------------------
+# device-side layout bundles
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True, eq=False)
+class PaddedSegmentsDev:
+    row_map: torch.Tensor      # [Rp]
+    inv_map: torch.Tensor      # [M]
+    t2g: torch.Tensor          # [max(1, T)]
+    tile: int
+    num_groups: int
+
+    def to(self, device, non_blocking: bool = False) -> "PaddedSegmentsDev":
+        return _move(self, ("row_map", "inv_map", "t2g"), device,
+                     non_blocking)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BlockedCSRDev:
+    edge_map: torch.Tensor         # [Ep] canonical edge index or -1
+    edge_map_unique: torch.Tensor  # [Ep] compact (unique-pair) row or -1
+    local_dst: torch.Tensor        # [T, tile]
+    t2b: torch.Tensor              # [max(1, T)]
+    block_tile_ptr: torch.Tensor   # [num_node_blocks + 1] tile range per block
+    edge_tile: int
+    node_block: int
+    num_node_blocks: int
+    num_nodes: int
+
+    def to(self, device, non_blocking: bool = False) -> "BlockedCSRDev":
+        return _move(self, ("edge_map", "edge_map_unique", "local_dst",
+                            "t2b", "block_tile_ptr"), device, non_blocking)
+
+
+def _move(obj, fields, device, non_blocking):
+    return dataclasses.replace(obj, **{
+        f: to_device(getattr(obj, f), device, non_blocking) for f in fields})
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+
+def padded_segments_dev(ps: L.PaddedSegments) -> PaddedSegmentsDev:
+    """Host tensors of a ``PaddedSegments`` (``.to(device)`` moves them)."""
+    return PaddedSegmentsDev(
+        row_map=_tensor(ps.row_map), inv_map=_tensor(ps.inv_map),
+        t2g=_tensor(ps.tile_to_group), tile=ps.tile,
+        num_groups=ps.num_groups)
+
+
+def block_tile_ptr(t2b: np.ndarray, num_tiles: int,
+                   num_node_blocks: int) -> np.ndarray:
+    """[num_node_blocks + 1] offsets of each node block's tile range, from
+    the non-decreasing tile -> block map (its first ``num_tiles`` entries).
+    A block that owns no tile gets an empty range."""
+    counts = np.bincount(np.asarray(t2b[:num_tiles], dtype=np.int64),
+                         minlength=num_node_blocks)
+    ptr = np.zeros(num_node_blocks + 1, dtype=np.int32)
+    np.cumsum(counts, out=ptr[1:])
+    return ptr
+
+
+def blocked_csr_dev(
+    bc: L.BlockedCSR, perm_dst: np.ndarray,
+    edge_to_unique: Optional[np.ndarray] = None,
+) -> BlockedCSRDev:
+    """Compose dst-sorted edge_map with perm_dst -> canonical edge indices;
+    with ``edge_to_unique``, also the slot -> compact-row map. Host tensors
+    (``.to(device)`` moves them)."""
+    edge_map = np.where(
+        bc.edge_map >= 0, np.asarray(perm_dst)[np.maximum(bc.edge_map, 0)], -1
+    ).astype(np.int32)
+    if edge_to_unique is None:
+        edge_map_u = edge_map
+    else:
+        e2u = np.asarray(edge_to_unique)
+        edge_map_u = np.where(
+            edge_map >= 0, e2u[np.maximum(edge_map, 0)], -1
+        ).astype(np.int32)
+    t = bc.num_tiles
+    return BlockedCSRDev(
+        edge_map=_tensor(edge_map),
+        edge_map_unique=_tensor(edge_map_u),
+        local_dst=_tensor(bc.local_dst.reshape(t, bc.edge_tile)),
+        t2b=_tensor(bc.tile_to_block),
+        block_tile_ptr=_tensor(block_tile_ptr(bc.tile_to_block, t,
+                                              bc.num_node_blocks)),
+        edge_tile=bc.edge_tile,
+        node_block=bc.node_block,
+        num_node_blocks=bc.num_node_blocks,
+        num_nodes=bc.num_nodes,
+    )
+
+
+def pad_rows(x: torch.Tensor, row_map: torch.Tensor,
+             fill: float = 0.0) -> torch.Tensor:
+    """Gather rows into the padded layout; pad rows get ``fill``."""
+    valid = row_map >= 0
+    xp = x[row_map.clamp(min=0).long()]
+    if x.dim() == 1:
+        return torch.where(valid, xp, fill)
+    return torch.where(valid[:, None], xp, fill)
+
+
+def _not_ported(kernel: str, what: str, device: torch.device):
+    return NotImplementedError(
+        f"{what} on {device} needs the kernel {kernel!r}, which is not "
+        f"ported to the card yet (run on the CPU with device='cpu')")
+
+
+# ---------------------------------------------------------------------------
+# segment MM (the GEMM template)
+# ---------------------------------------------------------------------------
+def segment_mm(
+    x_sorted: torch.Tensor,                  # [M, k] type-sorted rows
+    w: torch.Tensor,                         # [R, k, n]
+    lay: PaddedSegmentsDev,
+    row_scale: Optional[torch.Tensor] = None,  # [M]
+) -> torch.Tensor:
+    """Y = X @ W[type] (+ per-row scale), X presorted by type. -> [M, n].
+
+    CPU only for now: the card needs ``segment_mm_padded``."""
+    if x_sorted.shape[0] == 0:
+        return x_sorted.new_zeros((0, w.shape[-1]))
+    if x_sorted.device.type != "cpu":
+        raise _not_ported("segment_mm_padded", "segment_mm",
+                          x_sorted.device)
+    x_p = pad_rows(x_sorted, lay.row_map)
+    t = x_p.shape[0] // lay.tile
+    y_p = torch.bmm(x_p.view(t, lay.tile, -1), w[lay.t2g[:t].long()])
+    y_p = y_p.reshape(x_p.shape[0], -1)
+    if row_scale is not None:
+        y_p = y_p * pad_rows(row_scale, lay.row_map)[:, None]
+    return y_p[lay.inv_map.long()]
+
+
+def segment_mm_gather(
+    x_src: torch.Tensor,                     # [Nx, k] ungathered source rows
+    w: torch.Tensor,                         # [R, k, n]
+    lay: PaddedSegmentsDev,
+    gather_rows: torch.Tensor,               # [Rp] slot -> source row, or -1
+    row_scale: Optional[torch.Tensor] = None,  # [M] canonical per-row scale
+) -> torch.Tensor:
+    """Y = X[G] @ W[type] with the gather inside K1. -> [M, n].
+
+    ``gather_rows`` is the padded gather-index layout
+    (``layout.compose_gather_rows``), so no ``[Rp, k]`` copy of the input
+    exists outside the kernel."""
+    n = w.shape[-1]
+    if lay.inv_map.shape[0] == 0:
+        # empty block (e.g. a sampled hop with no edges): no tiles to sweep
+        return x_src.new_zeros((0, n))
+    scale_p = None
+    if row_scale is not None:
+        scale_p = pad_rows(row_scale, lay.row_map)[:, None]
+    y_p = segment_mm_gather_padded(x_src, w, gather_rows, lay.t2g,
+                                      scale_p, tile=lay.tile)
+    return y_p[lay.inv_map.long()]
+
+
+# ---------------------------------------------------------------------------
+# traversal ops
+# ---------------------------------------------------------------------------
+def _padded_scores(scores: torch.Tensor, bc: BlockedCSRDev) -> torch.Tensor:
+    """Canonical per-edge scores -> [T, tile] dst-sorted slots (pads -1e30)."""
+    valid = bc.edge_map >= 0
+    sp = torch.where(valid, scores[bc.edge_map.clamp(min=0).long()],
+                     TK.NEG_INF)
+    return sp.reshape(-1, bc.edge_tile)
+
+
+def _stats(scores: torch.Tensor, bc: BlockedCSRDev):
+    scores_p = _padded_scores(scores, bc)
+    mx, den = seg_stats_padded(
+        scores_p, bc.local_dst, bc.t2b, bc.block_tile_ptr,
+        node_block=bc.node_block, num_node_blocks=bc.num_node_blocks)
+    return scores_p, mx, den
+
+
+def _msg_slot_map(bc: BlockedCSRDev,
+                  msg_rows: Optional[torch.Tensor]) -> torch.Tensor:
+    """Padded slot -> message-row map for in-kernel message gathers."""
+    if msg_rows is None:
+        return bc.edge_map
+    return torch.where(bc.edge_map >= 0,
+                       msg_rows[bc.edge_map.clamp(min=0).long()],
+                       -1).to(torch.int32)
+
+
+def edge_softmax_agg(
+    scores: torch.Tensor,        # [E] canonical order
+    msg: torch.Tensor,           # [Em, d] in storage order (see msg_rows)
+    dst: torch.Tensor,           # [E] canonical destination ids
+    num_nodes: int,
+    bc: Optional[BlockedCSRDev] = None,
+    msg_rows: Optional[torch.Tensor] = None,    # [E] edge -> msg row
+    msg_slot_map: Optional[torch.Tensor] = None,  # [Ep] precomposed map
+) -> torch.Tensor:
+    """out[v] = Σ_{e→v} softmax(scores)_e · msg_e — the fused traversal
+    region, K2 then K3.
+
+    ``msg_rows`` lets messages live in a compact storage (the unique
+    (src, etype) table with ``edge_to_unique`` as the map); K3 gathers them
+    per slot, so no dst-sorted ``[Ep, d]`` copy is materialized."""
+    if dst.shape[0] == 0:
+        return msg.new_zeros((num_nodes, msg.shape[-1]))
+    if bc is None:
+        if msg.device.type != "cpu":
+            raise ValueError("edge_softmax_agg on CUDA needs the blocked "
+                             "CSR layout (bc)")
+        msg_e = msg if msg_rows is None else msg[msg_rows.long()]
+        return R.softmax_agg_ref(scores, msg_e, dst, num_nodes)
+    if msg_slot_map is None:
+        msg_slot_map = _msg_slot_map(bc, msg_rows)
+    scores_p, mx, den = _stats(scores, bc)
+    out = seg_softmax_agg_gather_padded(
+        scores_p, msg, msg_slot_map, bc.local_dst, bc.t2b, bc.block_tile_ptr,
+        mx, den, node_block=bc.node_block,
+        num_node_blocks=bc.num_node_blocks)
+    return out[:num_nodes]
+
+
+def edge_softmax(scores: torch.Tensor, dst: torch.Tensor, num_nodes: int,
+                 bc: Optional[BlockedCSRDev] = None) -> torch.Tensor:
+    """Per-edge stabilized softmax over incoming-edge groups.
+
+    On the CPU, the oracle; on CUDA the statistics come from K2 over ``bc``
+    (deterministic, no atomics)."""
+    if scores.device.type == "cpu":
+        return R.edge_softmax_ref(scores, dst, num_nodes)
+    if bc is None:
+        raise ValueError("edge_softmax on CUDA needs the blocked CSR "
+                         "layout (bc)")
+    if dst.shape[0] == 0:
+        return scores.new_zeros((0,))
+    _, mx, den = _stats(scores, bc)
+    d = dst.long()
+    return (torch.exp(scores - mx.reshape(-1)[d])
+            / torch.clamp(den.reshape(-1)[d], min=1e-38))
+
+
+def weighted_agg(
+    scale: Optional[torch.Tensor],   # [E] or None
+    msg: torch.Tensor,               # [Em, d] in storage order
+    dst: torch.Tensor,
+    num_nodes: int,
+    bc: Optional[BlockedCSRDev] = None,
+    msg_rows: Optional[torch.Tensor] = None,
+    msg_slot_map: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """out[v] = Σ_{e→v} scale_e · msg_e. CPU only for now: the card needs
+    ``seg_weighted_agg_gather_padded``."""
+    if dst.shape[0] == 0:
+        return msg.new_zeros((num_nodes, msg.shape[-1]))
+    if msg.device.type != "cpu":
+        raise _not_ported("seg_weighted_agg_gather_padded", "weighted_agg",
+                          msg.device)
+    msg_e = msg if msg_rows is None else msg[msg_rows.long()]
+    return R.weighted_agg_ref(scale, msg_e, dst, num_nodes)
+
+
+def launch_counts() -> dict:
+    """Launches of each ported kernel so far in this process."""
+    return {
+        "segment_mm_gather_padded": SK.segment_mm_gather_padded.launches,
+        "seg_stats_padded": TK.seg_stats_padded.launches,
+        "seg_softmax_agg_gather_padded":
+            TK.seg_softmax_agg_gather_padded.launches,
+    }
+
+
+def reset_launch_counts() -> None:
+    for fn in (SK.segment_mm_gather_padded, TK.seg_stats_padded,
+               TK.seg_softmax_agg_gather_padded):
+        fn.launches = 0

@@ -1,0 +1,202 @@
+"""Traversal-template kernels K2 and K3 (Hector Algorithm 2) and their
+plain versions, over the blocked destination CSR (``BlockedCSR``).
+
+``seg_stats_padded``               per-destination softmax max and Σexp
+``seg_softmax_agg_gather_padded``  out[v] = Σ_e softmax(score)_e · msg[mmap[e]]
+                                   with the message gather inside the kernel
+
+Each wrapper dispatches on the tensors' device: CPU runs the plain PyTorch
+version, CUDA launches the hand-written kernel in ``csrc/traversal.cu``
+(replacing ``repro/kernels/traversal.py::seg_stats_padded`` and
+``::seg_softmax_agg_gather_padded``). Nothing falls back; ``.launches``
+on each wrapper counts its kernel launches.
+
+The plain versions index nodes through the tile -> block map ``t2b``; the
+kernels walk each node block's tile range from ``block_tile_ptr``. Pad
+slots carry ``local_dst == node_block`` and contribute nothing. A node
+without edges, and every node of a block that owns no tile, gets
+``mx = -1e30``, ``den = 0`` and a zero output row. Inputs and outputs are
+fp32; kernels and plain versions alike accumulate ``den`` and the output in
+fp64, so the long sums of the bucketing pad node stay within fp32 rounding
+and the two agree at any length.
+
+``seg_softmax_agg_padded``, ``seg_weighted_agg_gather_padded`` and
+``seg_weighted_agg_padded`` are not ported yet.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "seg_stats_f32": [_P] * 5 + [_I] * 3 + [_P],
+    "seg_softmax_agg_gather_f32": [_P] * 8 + [_I] * 4 + [_P],
+    "seg_softmax_agg_smem_bytes": [_I] * 3,
+}
+
+
+def _library() -> ctypes.CDLL:
+    return build.load("traversal", _SIGNATURES,
+                      sizes=("seg_softmax_agg_smem_bytes",))
+
+
+def _slot_nodes(local_dst_p: torch.Tensor, t2b: torch.Tensor,
+                node_block: int):
+    """Flat padded slots -> (valid mask, global node row) via ``t2b``."""
+    num_tiles, tile = local_dst_p.shape
+    ld = local_dst_p.reshape(-1).long()
+    valid = ld < node_block
+    blk = t2b[:num_tiles].long().repeat_interleave(tile)
+    return valid, blk * node_block + torch.where(valid, ld, 0)
+
+
+# ---------------------------------------------------------------------------
+# K2: per-destination softmax statistics
+# ---------------------------------------------------------------------------
+def seg_stats_padded_plain(scores_p, local_dst_p, t2b, block_tile_ptr=None,
+                           *, node_block: int, num_node_blocks: int):
+    """Plain version of K2 -> (mx, den), each [num_node_blocks, node_block].
+
+    ``block_tile_ptr`` is accepted for a signature equal to the kernel's;
+    the plain version reads ``t2b``."""
+    valid, node = _slot_nodes(local_dst_p, t2b, node_block)
+    s = scores_p.reshape(-1)[valid].float()
+    node = node[valid]
+    total = num_node_blocks * node_block
+    mx = s.new_full((total,), NEG_INF).scatter_reduce(
+        0, node, s, "amax", include_self=True)
+    den = torch.zeros(total, dtype=torch.float64, device=s.device)
+    den.index_add_(0, node, torch.exp(s - mx[node]).double())
+    return (mx.view(num_node_blocks, node_block),
+            den.float().view(num_node_blocks, node_block))
+
+
+def seg_stats_padded(scores_p, local_dst_p, t2b, block_tile_ptr, *,
+                     node_block: int, num_node_blocks: int):
+    """K2: per-destination max and Σexp over dst-sorted edge tiles.
+
+    scores_p, local_dst_p: [T, tile] (pad slots: local_dst == node_block);
+    t2b: [>= T] tile -> node block; block_tile_ptr: [num_node_blocks + 1].
+    """
+    if scores_p.device.type == "cpu":
+        return seg_stats_padded_plain(
+            scores_p, local_dst_p, t2b, block_tile_ptr,
+            node_block=node_block, num_node_blocks=num_node_blocks)
+    if scores_p.device.type != "cuda":
+        raise ValueError(f"seg_stats_padded: no kernel for device "
+                         f"{scores_p.device}")
+    dev = scores_p.device
+    build.check_args("seg_stats_padded", dev,
+                     scores_p=(scores_p, torch.float32),
+                     local_dst_p=(local_dst_p, torch.int32),
+                     block_tile_ptr=(block_tile_ptr, torch.int32))
+    _check_ptr(block_tile_ptr, num_node_blocks, "seg_stats_padded")
+    if not 0 < node_block <= 1024:
+        raise ValueError(f"seg_stats_padded: node_block={node_block} "
+                         f"outside (0, 1024]")
+    tile = int(local_dst_p.shape[-1])
+    mx = torch.empty((num_node_blocks, node_block), dtype=torch.float32,
+                     device=dev)
+    den = torch.empty_like(mx)
+    if num_node_blocks == 0:
+        return mx, den            # an empty grid is never launched
+    scores_p, local_dst_p = scores_p.contiguous(), local_dst_p.contiguous()
+    block_tile_ptr = block_tile_ptr.contiguous()
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.seg_stats_f32(
+            scores_p.data_ptr(), local_dst_p.data_ptr(),
+            block_tile_ptr.data_ptr(), mx.data_ptr(), den.data_ptr(),
+            num_node_blocks, node_block, tile,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, rc, "seg_stats_padded")
+    seg_stats_padded.launches += 1
+    return mx, den
+
+
+seg_stats_padded.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: gather-fused softmax aggregation
+# ---------------------------------------------------------------------------
+def seg_softmax_agg_gather_padded_plain(scores_p, msg, mmap, local_dst_p,
+                                        t2b, block_tile_ptr, mx, den, *,
+                                        node_block: int,
+                                        num_node_blocks: int):
+    """Plain version of K3 -> [num_node_blocks * node_block, d]."""
+    valid, node = _slot_nodes(local_dst_p, t2b, node_block)
+    rows = mmap.long()
+    keep = valid & (rows >= 0)
+    node, rows = node[keep], rows[keep]
+    s = scores_p.reshape(-1)[keep].float()
+    mxf, denf = mx.reshape(-1), den.reshape(-1)
+    att = torch.exp(s - mxf[node]) / torch.clamp(denf[node], min=1e-38)
+    out = torch.zeros((num_node_blocks * node_block, msg.shape[-1]),
+                      dtype=torch.float64, device=msg.device)
+    out.index_add_(0, node, att.double()[:, None] * msg[rows].double())
+    return out.float()
+
+
+def seg_softmax_agg_gather_padded(scores_p, msg, mmap, local_dst_p, t2b,
+                                  block_tile_ptr, mx, den, *,
+                                  node_block: int, num_node_blocks: int):
+    """K3: softmax-weighted aggregation with the message gather in-kernel.
+
+    msg: [Em, d] in storage order (canonical edges or the compact
+    unique-pair table); mmap: [T * tile] slot -> msg row, or -1; mx, den:
+    K2's outputs."""
+    if scores_p.device.type == "cpu":
+        return seg_softmax_agg_gather_padded_plain(
+            scores_p, msg, mmap, local_dst_p, t2b, block_tile_ptr, mx, den,
+            node_block=node_block, num_node_blocks=num_node_blocks)
+    if scores_p.device.type != "cuda":
+        raise ValueError(f"seg_softmax_agg_gather_padded: no kernel for "
+                         f"device {scores_p.device}")
+    dev = scores_p.device
+    build.check_args("seg_softmax_agg_gather_padded", dev,
+                     scores_p=(scores_p, torch.float32),
+                     msg=(msg, torch.float32), mmap=(mmap, torch.int32),
+                     local_dst_p=(local_dst_p, torch.int32),
+                     block_tile_ptr=(block_tile_ptr, torch.int32),
+                     mx=(mx, torch.float32), den=(den, torch.float32))
+    _check_ptr(block_tile_ptr, num_node_blocks,
+               "seg_softmax_agg_gather_padded")
+    tile = int(local_dst_p.shape[-1])
+    d = int(msg.shape[-1])
+    out = torch.empty((num_node_blocks * node_block, d), dtype=torch.float32,
+                      device=dev)
+    if num_node_blocks == 0 or d == 0:
+        return out                # an empty grid is never launched
+    lib = _library()
+    smem = lib.seg_softmax_agg_smem_bytes(d, node_block, tile)
+    if smem > build.MAX_SMEM_BYTES:
+        raise ValueError(f"seg_softmax_agg_gather_padded: node_block="
+                         f"{node_block}, d={d} needs {smem} bytes of shared "
+                         f"memory per block (limit {build.MAX_SMEM_BYTES})")
+    args = [t.contiguous() for t in (scores_p, msg, mmap, local_dst_p,
+                                     block_tile_ptr, mx, den)]
+    with torch.cuda.device(dev):
+        rc = lib.seg_softmax_agg_gather_f32(
+            *(t.data_ptr() for t in args), out.data_ptr(), d,
+            num_node_blocks, node_block, tile,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, rc, "seg_softmax_agg_gather_padded")
+    seg_softmax_agg_gather_padded.launches += 1
+    return out
+
+
+seg_softmax_agg_gather_padded.launches = 0
+
+
+def _check_ptr(block_tile_ptr, num_node_blocks: int, kernel: str) -> None:
+    if block_tile_ptr.shape[0] != num_node_blocks + 1:
+        raise ValueError(f"{kernel}: block_tile_ptr has "
+                         f"{block_tile_ptr.shape[0]} entries for "
+                         f"{num_node_blocks} node blocks")

@@ -1,0 +1,235 @@
+"""Prefetching mini-batch loader for sampled RGNN blocks (host mode).
+
+The counterpart of ``repro.sampling.loader``: a background thread pulls
+seed batches from a deterministic stream, runs the fanout sampler, builds
+every block's ``KernelLayouts`` in NumPy and copies the tensors to the
+device without blocking (pinned host buffers), so sampling, layout build
+and the host-to-device copies overlap the consumer's forward passes. The
+consumer only dequeues device-ready ``MiniBatch`` bundles.
+
+Failure contract (as in the reference): an exception anywhere in the
+producer is re-raised in the consumer on its next ``__next__``, after the
+batches already built, with the worker thread stopped and joined first.
+
+Not ported yet: the LRU block/layout caches, device-sampling mode and
+graph partitions.
+"""
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+from typing import Callable, List, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import codegen
+from repro_torch.core.graph import GraphTensors, HeteroGraph, to_device
+from repro_torch.kernels.layout import pow2ceil
+from repro_torch.sampling.bucketing import pad_block_graph, pad_index
+from repro_torch.sampling.sampler import BlockSequence, FanoutSampler
+
+# batches the producer thread builds ahead of the consumer
+PREFETCH_DEPTH = 2
+
+
+class SeedStream:
+    """Deterministic seed-node request stream: step -> seed ID batch.
+
+    The port's own copy of ``repro.sampling.loader.SeedStream`` (uniform
+    draws): the same seeds for the same (seed, step), drawn with
+    replacement, fresh for every step. Repeat traffic and the Zipf-skewed
+    and id-restricted streams come with the cache and feature-store slices.
+    """
+
+    def __init__(self, num_nodes: int, batch_size: int = 32, seed: int = 0):
+        self.num_nodes = int(num_nodes)
+        self.batch_size = batch_size
+        self.seed = seed
+
+    def batch(self, step: int) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, step))
+        return rng.integers(0, self.num_nodes, size=self.batch_size,
+                            dtype=np.int32)
+
+
+@dataclasses.dataclass
+class MiniBatch:
+    """Device-ready bundle for one sampled batch: per-hop graph tensors and
+    kernel layouts, plus the gather maps that chain hops and restore the
+    requested seed order."""
+
+    step: int
+    seq: BlockSequence
+    tensors: List[GraphTensors]
+    layouts: List[codegen.KernelLayouts]
+    input_ids: torch.Tensor          # [n_input] global IDs feeding hop 0
+    dst_locals: List[torch.Tensor]   # per hop: local rows of the out frontier
+    seed_perm: torch.Tensor          # final-frontier row of each seed
+
+    @property
+    def num_hops(self) -> int:
+        return len(self.tensors)
+
+
+def build_minibatch(seq: BlockSequence, step: int = 0, tile: int = 128,
+                    node_block: int = 128, bucket: bool = False,
+                    shape_floors=None, device="cpu") -> MiniBatch:
+    """Host-side assembly of a ``MiniBatch`` from a sampled ``BlockSequence``,
+    its tensors copied to ``device`` without blocking.
+
+    With ``bucket=True`` each block graph, its kernel layouts and every
+    gather-index vector are padded to power-of-two buckets (numerically
+    inert: pad nodes/edges only feed pad rows, which the hop-chaining
+    gathers never read). ``shape_floors`` (a ``bucketing.ShapeFloors``)
+    pads each hop up to the largest bucket seen for this seed count.
+    """
+    graphs = [b.graph for b in seq.blocks]
+    input_ids = seq.input_node_ids
+    dst_locals = [b.dst_local for b in seq.blocks]
+    key = int(seq.seed_perm.shape[0])
+    if bucket:
+        if shape_floors is not None:
+            graphs = [shape_floors.pad_graph(key, i, g)
+                      for i, g in enumerate(graphs)]
+        else:
+            graphs = [pad_block_graph(g) for g in graphs]
+        input_ids = pad_index(input_ids, graphs[0].num_nodes)
+        # hop l's output rows become hop l+1's (padded) node-feature rows;
+        # the last hop only needs to cover the seed gather
+        dst_locals = [
+            pad_index(d, graphs[i + 1].num_nodes if i + 1 < len(graphs)
+                      else (shape_floors.pad_tail(key, d.shape[0])
+                            if shape_floors is not None
+                            else pow2ceil(d.shape[0])))
+            for i, d in enumerate(dst_locals)
+        ]
+
+    def layouts_for(hop: int, g: HeteroGraph) -> codegen.KernelLayouts:
+        rf = (shape_floors.layout_floors(key, hop)
+              if bucket and shape_floors is not None else None)
+        return codegen.build_kernel_layouts(
+            g, tile=tile, node_block=node_block, bucket=bucket,
+            row_floors=rf)
+
+    def dev(a: np.ndarray) -> torch.Tensor:
+        return to_device(torch.from_numpy(np.ascontiguousarray(a)), device,
+                         non_blocking=True)
+
+    return MiniBatch(
+        step=step,
+        seq=seq,
+        tensors=[g.to_tensors().to(device, non_blocking=True)
+                 for g in graphs],
+        layouts=[layouts_for(i, g).to(device, non_blocking=True)
+                 for i, g in enumerate(graphs)],
+        input_ids=dev(input_ids),
+        dst_locals=[dev(d) for d in dst_locals],
+        seed_perm=dev(seq.seed_perm),
+    )
+
+
+class MiniBatchLoader:
+    """Background-thread prefetch of sampled mini-batches.
+
+    ``seed_source`` is a ``SeedStream`` or any ``step -> np.ndarray``
+    callable. Iteration yields ``MiniBatch`` in step order; with
+    ``num_batches`` set the loader raises ``StopIteration`` afterwards.
+    ``close()`` stops and joins the worker.
+    """
+
+    _SENTINEL = object()
+
+    def __init__(
+        self,
+        sampler: FanoutSampler,
+        seed_source: Union[SeedStream, Callable[[int], np.ndarray]],
+        *,
+        tile: int = 128,
+        node_block: int = 128,
+        bucket: bool = False,
+        num_batches: Optional[int] = None,
+        device="cpu",
+    ):
+        self.sampler = sampler
+        self._seeds_for = (seed_source.batch
+                           if hasattr(seed_source, "batch") else seed_source)
+        self.tile = tile
+        self.node_block = node_block
+        self.bucket = bucket
+        self.num_batches = num_batches
+        self.device = torch.device(device)
+        self.host_builds = 0
+        self._done = False
+        self.q: queue.Queue = queue.Queue(maxsize=PREFETCH_DEPTH)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._fill, daemon=True)
+        self._thread.start()
+
+    def _build(self, step: int) -> MiniBatch:
+        seeds = self._seeds_for(step)
+        self.host_builds += 1
+        seq = self.sampler.sample(seeds, batch_index=step)
+        return build_minibatch(seq, step=step, tile=self.tile,
+                               node_block=self.node_block,
+                               bucket=self.bucket, device=self.device)
+
+    def _fill(self):
+        step = 0
+        item = None
+        while not self._stop.is_set():
+            if item is None:
+                if self.num_batches is not None and step >= self.num_batches:
+                    item = self._SENTINEL
+                else:
+                    try:
+                        item = self._build(step)
+                    except BaseException as e:  # surface in the consumer
+                        item = e
+                    step += 1
+            try:
+                self.q.put(item, timeout=0.5)
+            except queue.Full:
+                continue
+            if item is self._SENTINEL or isinstance(item, BaseException):
+                break
+            item = None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> MiniBatch:
+        if self._done:
+            raise StopIteration
+        while True:
+            try:
+                item = self.q.get(timeout=0.5)
+                break
+            except queue.Empty:
+                # a worker that died without enqueuing anything must
+                # surface as an error, not as an iterator that blocks
+                if not self._thread.is_alive():
+                    self._done = True
+                    raise RuntimeError(
+                        "MiniBatchLoader worker thread died without "
+                        "reporting a batch or an exception") from None
+        if item is self._SENTINEL:
+            self._done = True
+            raise StopIteration
+        if isinstance(item, BaseException):
+            self._done = True
+            self._stop.set()
+            self._thread.join(timeout=2)
+            raise item
+        return item
+
+    def close(self):
+        self._stop.set()
+        # drain so a blocked producer can observe the stop flag
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2)

@@ -1,0 +1,318 @@
+"""Kernels K1-K3 of the port (their plain versions, the CPU path) against the
+reference's Pallas kernels run in interpret mode, on the same seeded numpy
+inputs, with the edge cases the card check also drives: gather index -1,
+groups and node blocks that own no tile, pow2 pad tiles, the scale
+epilogue on and off, and empty layouts.
+
+Tolerance 1e-5 (the reference's own kernel-vs-oracle bound for fp32,
+``tests/test_kernels.py``)."""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from repro.kernels import layout as RL
+from repro.kernels import ops as rops
+from repro.kernels import ref as RR
+from repro.kernels import segment_mm as RSK
+from repro.kernels import traversal as RTK
+from repro_torch.kernels import layout as L
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as R
+from repro_torch.kernels import segment_mm as SK
+from repro_torch.kernels import traversal as TK
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _segments(rng, n_groups, max_size, empty=(1, 3)):
+    sizes = rng.integers(1, max_size, n_groups)
+    sizes[list(empty)] = 0                      # groups that own no tile
+    ptr = np.zeros(n_groups + 1, np.int64)
+    np.cumsum(sizes, out=ptr[1:])
+    return ptr, int(sizes.sum())
+
+
+# ---------------------------------------------------------------------------
+# K1: gather-fused segment GEMM
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n", [64, 16, 1])
+@pytest.mark.parametrize("with_scale", [False, True])
+@pytest.mark.parametrize("grow", [False, True])
+def test_k1_matches_pallas_interpret(n, with_scale, grow):
+    rng = np.random.default_rng(n * 7 + with_scale * 3 + grow)
+    k, tile, r, nx = 64, 8, 6, 40
+    ptr, m = _segments(rng, r, 19)
+    ps = L.pad_segments(ptr, tile)
+    if grow:                                   # pow2 bucket pad tiles
+        ps = L.pad_segments_rows(ps, L.pow2ceil(ps.padded_rows) * 2)
+    gidx = L.compose_gather_rows(ps, rng.integers(0, nx, m))
+    gidx[np.flatnonzero(gidx >= 0)[::5]] = -1  # real slots gathering -1
+    x = rng.normal(size=(nx, k)).astype(np.float32)
+    w = rng.normal(size=(r, k, n)).astype(np.float32)
+    scale = (rng.normal(size=(ps.padded_rows, 1)).astype(np.float32)
+             if with_scale else None)
+    t2g = ps.tile_to_group
+    ref = RSK.segment_mm_gather_padded(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(gidx), jnp.asarray(t2g),
+        None if scale is None else jnp.asarray(scale), tile_rows=tile,
+        tile_n=min(n, 128), interpret=True)
+    ours = SK.segment_mm_gather_padded(
+        _t(x), _t(w), _t(gidx), _t(t2g),
+        None if scale is None else _t(scale), tile=tile)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
+    assert np.all(ours.numpy()[gidx < 0] == 0.0)
+
+
+def test_k1_cpu_path_never_counts_a_launch():
+    before = SK.segment_mm_gather_padded.launches
+    ps = L.pad_segments(np.array([0, 3, 8]), 4)
+    SK.segment_mm_gather_padded(
+        torch.ones(5, 4), torch.ones(2, 4, 2),
+        _t(L.compose_gather_rows(ps, np.arange(8) % 5)),
+        _t(ps.tile_to_group), tile=4)
+    assert SK.segment_mm_gather_padded.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3: softmax stats and gather-fused softmax aggregation
+# ---------------------------------------------------------------------------
+def _blocked(rng, n_nodes=70, n_edges=260, tile=8, nb=8, grow=False):
+    """Blocked CSR over random destinations; nodes 16..39 get no edge, so
+    node blocks 2-4 own no tile."""
+    pool = np.concatenate([np.arange(16), np.arange(40, n_nodes)])
+    dst = rng.choice(pool, n_edges).astype(np.int32)
+    perm = np.argsort(dst, kind="stable").astype(np.int32)
+    ptr = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n_nodes), out=ptr[1:])
+    bc = L.block_csr(ptr, tile, nb)
+    if grow:
+        bc = L.pad_blocked_csr(bc, L.pow2ceil(bc.padded_edges) * 2)
+    return dst, perm, bc
+
+
+def _owned(bc):
+    """Per node row: does its node block own at least one tile?"""
+    t2b = bc.tile_to_block[: bc.num_tiles]
+    owns = np.bincount(t2b, minlength=bc.num_node_blocks) > 0
+    return np.repeat(owns, bc.node_block)
+
+
+@pytest.mark.parametrize("grow", [False, True])
+@pytest.mark.parametrize("d,compact", [(64, True), (16, False)])
+def test_k2_k3_match_pallas_interpret(grow, d, compact):
+    rng = np.random.default_rng(d + grow)
+    n_nodes, nb = 70, 8
+    dst, perm, bc = _blocked(rng, n_nodes=n_nodes, nb=nb, grow=grow)
+    e = dst.shape[0]
+    scores = rng.normal(size=e).astype(np.float32) * 3
+    em = e // 3 if compact else e
+    msg = rng.normal(size=(em, d)).astype(np.float32)
+    rows = rng.integers(0, em, e).astype(np.int32) if compact else None
+    bcd = ops.blocked_csr_dev(bc, perm)
+    mmap = ops._msg_slot_map(bcd, None if rows is None else _t(rows))
+    scores_p = ops._padded_scores(_t(scores), bcd)
+    kw = dict(node_block=nb, num_node_blocks=bc.num_node_blocks)
+
+    rmx, rden = RTK.seg_stats_padded(
+        jnp.asarray(scores_p.numpy()), jnp.asarray(bcd.local_dst.numpy()),
+        jnp.asarray(bcd.t2b.numpy()), interpret=True, **kw)
+    mx, den = TK.seg_stats_padded(scores_p, bcd.local_dst, bcd.t2b,
+                                  bcd.block_tile_ptr, **kw)
+    owned = _owned(bc)
+    mx, den = mx.numpy().reshape(-1), den.numpy().reshape(-1)
+    np.testing.assert_array_equal(mx[owned], np.asarray(rmx).reshape(-1)[owned])
+    np.testing.assert_allclose(den[owned], np.asarray(rden).reshape(-1)[owned],
+                               rtol=1e-5)
+    # blocks without a tile: the oracle's empty sum, and the -1e30 max the
+    # TPU kernel gives every edgeless node of the blocks it visits
+    _, ref_den = R.segment_softmax_stats_ref(_t(scores), _t(dst),
+                                             bc.num_node_blocks * nb)
+    assert np.all(den[~owned] == ref_den.numpy()[~owned])
+    assert np.all(mx[~owned] == np.float32(TK.NEG_INF))
+
+    rout = RTK.seg_softmax_agg_gather_padded(
+        jnp.asarray(scores_p.numpy()), jnp.asarray(msg),
+        jnp.asarray(mmap.numpy()), jnp.asarray(bcd.local_dst.numpy()),
+        jnp.asarray(bcd.t2b.numpy()), rmx, rden, interpret=True, **kw)
+    out = TK.seg_softmax_agg_gather_padded(
+        scores_p, _t(msg), mmap, bcd.local_dst, bcd.t2b, bcd.block_tile_ptr,
+        _t(mx.reshape(-1, nb)), _t(den.reshape(-1, nb)), **kw).numpy()
+    np.testing.assert_allclose(out[owned], np.asarray(rout)[owned], **TOL)
+    msg_e = msg if rows is None else msg[rows]
+    ref_out = R.softmax_agg_ref(_t(scores), _t(msg_e), _t(dst),
+                                bc.num_node_blocks * nb).numpy()
+    np.testing.assert_array_equal(out[~owned], ref_out[~owned])
+    np.testing.assert_allclose(out, ref_out, rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the ops over the kernels, against the reference's ops (Pallas interpret)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_op_segment_mm_gather_matches_reference(with_scale):
+    rng = np.random.default_rng(11 + with_scale)
+    ptr, m = _segments(rng, 5, 17)
+    nx, k, n = 30, 16, 24
+    src = rng.integers(0, nx, m).astype(np.int32)
+    x = rng.normal(size=(nx, k)).astype(np.float32)
+    w = rng.normal(size=(5, k, n)).astype(np.float32)
+    scale = rng.normal(size=m).astype(np.float32) if with_scale else None
+    ps = L.pad_segments(ptr, 8)
+    gmap = L.compose_gather_rows(ps, src)
+    ours = ops.segment_mm_gather(
+        _t(x), _t(w), ops.padded_segments_dev(ps), _t(gmap),
+        row_scale=None if scale is None else _t(scale))
+    ref = rops.segment_mm_gather(
+        jnp.asarray(x), jnp.asarray(w),
+        rops.padded_segments_dev(RL.pad_segments(ptr, 8)), jnp.asarray(gmap),
+        row_scale=None if scale is None else jnp.asarray(scale),
+        backend="pallas_interpret")
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
+    seg_ids = np.repeat(np.arange(5), np.diff(ptr))
+    oracle = R.gather_mm_ref(_t(x), _t(w), _t(src), _t(seg_ids),
+                             None if scale is None else _t(scale))
+    np.testing.assert_allclose(ours.numpy(), oracle.numpy(), **TOL)
+
+
+def test_op_edge_softmax_agg_compact_matches_reference():
+    rng = np.random.default_rng(5)
+    n_nodes, e, u, d = 50, 200, 60, 16
+    dst = rng.integers(0, n_nodes - 10, e).astype(np.int32)
+    e2u = rng.integers(0, u, e).astype(np.int32)
+    scores = rng.normal(size=e).astype(np.float32)
+    msg = rng.normal(size=(u, d)).astype(np.float32)
+    perm = np.argsort(dst, kind="stable").astype(np.int32)
+    ptr = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n_nodes), out=ptr[1:])
+    bc = L.block_csr(ptr, 8, 8)
+    ours = ops.edge_softmax_agg(
+        _t(scores), _t(msg), _t(dst), n_nodes,
+        bc=ops.blocked_csr_dev(bc, perm, e2u), msg_rows=_t(e2u))
+    ref = rops.edge_softmax_agg(
+        jnp.asarray(scores), jnp.asarray(msg), jnp.asarray(dst), n_nodes,
+        bc=rops.blocked_csr_dev(RL.block_csr(ptr, 8, 8), perm, e2u),
+        backend="pallas_interpret", msg_rows=jnp.asarray(e2u))
+    # the Pallas kernel never writes node blocks that own no tile (nodes
+    # 40-49 here), so only the others are compared with it
+    owned = _owned(bc)[:n_nodes]
+    assert not owned.all()
+    np.testing.assert_allclose(ours.numpy()[owned], np.asarray(ref)[owned],
+                               **TOL)
+    oracle = RR.softmax_agg_ref(jnp.asarray(scores), jnp.asarray(msg[e2u]),
+                                jnp.asarray(dst), n_nodes)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(oracle), **TOL)
+    att = ops.edge_softmax(_t(scores), _t(dst), n_nodes)
+    np.testing.assert_allclose(
+        att.numpy(), np.asarray(RR.edge_softmax_ref(
+            jnp.asarray(scores), jnp.asarray(dst), n_nodes)), **TOL)
+
+
+def test_ops_empty_layouts_return_without_a_kernel():
+    ps = L.pad_segments(np.zeros(4, np.int64), 8)       # no rows at all
+    y = ops.segment_mm_gather(torch.ones(3, 4), torch.ones(3, 4, 5),
+                              ops.padded_segments_dev(ps),
+                              _t(L.compose_gather_rows(ps, np.zeros(0))))
+    assert y.shape == (0, 5)
+    bc = ops.blocked_csr_dev(L.block_csr(np.zeros(5, np.int64), 8, 8),
+                             np.zeros(0, np.int32))
+    out = ops.edge_softmax_agg(torch.zeros(0), torch.ones(0, 3),
+                               torch.zeros(0, dtype=torch.int32), 4, bc=bc)
+    assert out.shape == (4, 3) and not out.any()
+    assert bc.local_dst.shape == (0, 8)
+    assert bc.block_tile_ptr.tolist() == [0, 0]
+
+
+def test_block_tile_ptr_of_bucketed_csr():
+    bc = L.pad_blocked_csr(
+        L.block_csr(np.array([0, 3, 3, 3, 20]), 4, 2), 32)
+    ptr = ops.block_tile_ptr(bc.tile_to_block, bc.num_tiles,
+                             bc.num_node_blocks)
+    # block 0: one tile; block 1: its 5 tiles plus the 2 bucket pad tiles
+    assert ptr.tolist() == [0, 1, 8]
+
+
+# ---------------------------------------------------------------------------
+# segment reductions and device dispatch
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(40,), (40, 3)])
+def test_compat_segment_reductions_match_reference(shape):
+    from repro import compat as rcompat
+    from repro_torch import compat
+
+    rng = np.random.default_rng(3)
+    data = rng.normal(size=shape).astype(np.float32)
+    ids = rng.integers(0, 9, shape[0]).astype(np.int32)
+    ids[ids == 4] = 5                           # segment 4 stays empty
+    for ours_fn, ref_fn in ((compat.segment_sum, rcompat.segment_sum),
+                            (compat.segment_max, rcompat.segment_max)):
+        ours = ours_fn(_t(data), _t(ids), 10).numpy()
+        ref = np.asarray(ref_fn(jnp.asarray(data), jnp.asarray(ids), 10))
+        np.testing.assert_allclose(ours, ref, rtol=1e-6, atol=1e-6)
+    assert np.all(compat.segment_max(_t(data), _t(ids), 10).numpy()[4]
+                  == -np.inf)
+
+
+def test_off_cpu_tensors_never_take_the_plain_path():
+    """Tensors that are not on the CPU get the kernel or an error: the ops
+    whose kernel is not ported name it, and the kernel wrappers refuse a
+    device they have no kernel for (here ``meta``, which needs no card)."""
+    meta = torch.device("meta")
+    ps = L.pad_segments(np.array([0, 5, 9]), 4)
+    lay = ops.padded_segments_dev(ps).to(meta)
+    with pytest.raises(NotImplementedError, match="segment_mm_padded"):
+        ops.segment_mm(torch.ones(9, 4, device=meta),
+                       torch.ones(2, 4, 3, device=meta), lay)
+    with pytest.raises(NotImplementedError,
+                       match="seg_weighted_agg_gather_padded"):
+        ops.weighted_agg(None, torch.ones(6, 3, device=meta),
+                         torch.zeros(6, dtype=torch.int32, device=meta), 4)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        SK.segment_mm_gather_padded(
+            torch.ones(5, 4, device=meta), torch.ones(2, 4, 3, device=meta),
+            torch.zeros(12, dtype=torch.int32, device=meta),
+            torch.zeros(3, dtype=torch.int32, device=meta), tile=4)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        TK.seg_stats_padded(
+            torch.ones(2, 4, device=meta),
+            torch.zeros(2, 4, dtype=torch.int32, device=meta),
+            torch.zeros(2, dtype=torch.int32, device=meta),
+            torch.zeros(2, dtype=torch.int32, device=meta),
+            node_block=4, num_node_blocks=1)
+
+
+# ---------------------------------------------------------------------------
+# the kernel build (no nvcc here: what can be checked without one)
+# ---------------------------------------------------------------------------
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from repro_torch.kernels import build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_all()
+
+
+def test_library_name_follows_the_source_hash(monkeypatch, tmp_path):
+    from repro_torch.kernels import build
+
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", src)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    assert build.sources() == ["k"]
+    first = build._library_path("k")
+    assert first.parent == tmp_path / "b"
+    assert build._library_path("k") == first
+    (src / "k.cu").write_text("// v2\n")
+    second = build._library_path("k")
+    assert second != first
+    (src / "common.cuh").write_text("// header\n")      # headers count too
+    assert build._library_path("k") not in (first, second)
+    assert build.sources() == ["k"]
