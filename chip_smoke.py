@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Card check of the PyTorch/CUDA port: build, kernel-vs-plain, serve.
+"""Card check of the PyTorch/CUDA port: build, kernel-vs-plain, serve, train.
 
-    python3 chip_smoke.py            # one CUDA card; ~1-2 minutes
+    python3 chip_smoke.py            # one CUDA card; a few minutes
 
 Drives the port (``src/repro_torch``, never JAX nor the reference package)
 on one CUDA card, in phases; any failure exits non-zero:
@@ -9,34 +9,54 @@ on one CUDA card, in phases; any failure exits non-zero:
 1. card and build: the card's name and power limit, TF32 off, every kernel
    in ``src/repro_torch/csrc`` built from source (one ``nvcc`` per file,
    all at once), with the build seconds and ptxas's register report;
-2. kernels against their plain PyTorch versions on the card, at the shapes
-   one served mini-batch of phase 3 and one of phase 4 give them (captured
-   from real forwards), plus edge cases (gather index -1, groups and node
-   blocks without tiles, pow2 pad tiles, the scale epilogue, the CUDA
-   ``edge_softmax``, empty layouts that must not launch). Tolerances: K1
-   rtol = atol = 1e-5 (fp32 sums of 64 terms); K2 ``mx`` exact, ``den``
-   rtol 1e-5; K3 rtol = atol = 2e-5 (the reference's own fused-vs-oracle
-   bound). At the phase-3 shapes, each kernel's device time (mean of 20
-   launches under ``torch.profiler``), the wrapper's time per call (CUDA
-   events, median of 25 runs of 10 calls: host cost included), its plain
-   version's time and its bound;
+2. kernels against their plain PyTorch versions on the card: K1-K3 at the
+   shapes one served mini-batch of phase 3 and one of phase 4 give them,
+   K4 and K5 at the shapes one sampled training step of phase 6 gives them
+   (all captured from real runs), plus edge cases (gather index -1, groups
+   and node blocks without tiles, pow2 pad tiles, the scale epilogue, k = 1
+   and n = 1, a transposed W, a group long enough for many K5 chunks, the
+   CUDA ``edge_softmax``, empty layouts that must not launch). Tolerances:
+   K1 and K4 rtol = atol = 1e-5 (fp32 sums of at most 64 terms); K2 ``mx``
+   exact, ``den`` rtol 1e-5; K3 rtol = atol = 2e-5 (the reference's own
+   fused-vs-oracle bound); K5 rtol = atol = 1e-6 (kernel and plain version
+   both sum in fp64, so they agree to the final fp32 rounding). At those
+   shapes, each kernel's device time (mean of 20 calls under
+   ``torch.profiler``), the wrapper's time per call (CUDA events, median of
+   25 runs of 10 calls: host cost included), its plain version's time, its
+   bound and, for K4, ``torch.bmm`` on the same tiles;
 3. serving at the driver's defaults (RGAT, 2 layers, 64 wide, aifb at
    scale 1.0, fanout 5, 32 seeds x 8 batches) through
-   ``repro_torch.launch.serve_rgnn.serve``: every kernel must launch, every
-   batch's logits be finite and match the same mini-batch run through the
-   port on the CPU (rtol = atol = 1e-4);
+   ``repro_torch.launch.serve_rgnn.serve``: every serving kernel (K1-K3)
+   must launch, every batch's logits be finite and match the same
+   mini-batch run through the port on the CPU (rtol = atol = 1e-4);
 4. the same at a larger size (bgs at scale 1.0, 1024 seeds x 4 batches);
 5. both serve runs again under ``torch.profiler``: each kernel's device
-   time per launch and per batch, and the device's busy share of the loop.
+   time per launch and per batch, and the device's busy share of the loop;
+6. sampled training through ``repro_torch.launch.train_rgnn.train`` (aifb
+   at scale 1.0, RGAT, 2 layers, 64 wide, 8 classes, fanout 5, batch 64,
+   1 epoch, lr 1e-2): K1-K5 launch at RGAT's per-step counts (K1 x 6,
+   K2 x 2, K3 x 2, K4 x 3, K5 x 6, plus the full-graph forwards' K1-K3),
+   the loss is finite and falls (mean of the last 10 steps below the mean
+   of the first 10); then one ``grad_and_update`` on the card and on the
+   CPU from one state (after 5 card steps; see ``TrainTask``) on one
+   mini-batch: loss rtol 1e-5, params and ``mu`` rtol 1e-4 / atol 1e-6
+   (the reference's own step-parity bounds);
+7. full-graph training (``FullGraphTrainer``): aifb, one step on the card
+   against the CPU from phase 6's state, at its bounds; bgs at scale 1.0, 3 steps
+   with a finite loss, timed;
+8. one sampled step and one bgs full-graph step under ``torch.profiler``:
+   device time per kernel and per step, the device's busy share, and the
+   split between the ``forward`` / ``backward`` / ``optimizer`` ranges.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every number
-as JSON.
+as JSON, ``--trace-dir DIR`` the phase-8 Chrome traces.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -56,9 +76,23 @@ SERVE_DEFAULTS = dict(model="rgat", dataset="aifb", scale=1.0, layers=2,
                       seed=0)
 SERVE_LARGE = dict(SERVE_DEFAULTS, dataset="bgs", batch_size=1024,
                    num_batches=4)
+TRAIN = dict(model="rgat", dataset="aifb", scale=1.0, layers=2, dim=64,
+             hidden=64, classes=8, fanouts=[5, 5], batch_size=64, epochs=1,
+             lr=1e-2, tile=32, node_block=32, seed=0)
+# RGAT's launches per sampled training step (2 layers; 3 GEMMs and one
+# fused softmax + aggregation per layer; layer 0's input needs no dX) and
+# per full-graph forward
+TRAIN_STEP_LAUNCHES = {"segment_mm_gather_padded": 6, "seg_stats_padded": 2,
+                       "seg_softmax_agg_gather_padded": 2,
+                       "segment_mm_padded": 3, "segment_outer_padded": 6}
+FULL_FORWARD_LAUNCHES = {"segment_mm_gather_padded": 6,
+                         "seg_stats_padded": 2,
+                         "seg_softmax_agg_gather_padded": 2,
+                         "segment_mm_padded": 0, "segment_outer_padded": 0}
 
-# each ported kernel: its source, the TPU kernel it replaces, and the
-# name of its ``__global__`` function as the profiler reports it
+# each ported kernel: its source, the TPU kernel it replaces, the name of
+# its ``__global__`` function(s) as the profiler reports them, and how many
+# kernels one call launches
 KERNELS = {
     "segment_mm_gather_padded": dict(
         source="src/repro_torch/csrc/segment_mm.cu",
@@ -72,7 +106,18 @@ KERNELS = {
         source="src/repro_torch/csrc/traversal.cu",
         replaces="src/repro/kernels/traversal.py:224",
         symbol="seg_softmax_agg_gather_kernel"),
+    "segment_mm_padded": dict(
+        source="src/repro_torch/csrc/segment_mm.cu",
+        replaces="src/repro/kernels/segment_mm.py:44",
+        symbol="segment_mm_padded_kernel"),
+    "segment_outer_padded": dict(
+        source="src/repro_torch/csrc/segment_mm.cu",
+        replaces="src/repro/kernels/segment_mm.py:194",
+        symbol="segment_outer_", per_call=2),     # partial + combine
 }
+# the kernels of the serving path (phases 3-5); training runs all five
+SERVE_KERNELS = ("segment_mm_gather_padded", "seg_stats_padded",
+                 "seg_softmax_agg_gather_padded")
 
 
 def log(msg: str) -> None:
@@ -114,9 +159,11 @@ def _device_us(event) -> float:
     return event.self_cuda_time_total if t is None else t
 
 
-def device_ms(torch, fn, symbol: str, reps: int = 20) -> float:
-    """Mean device time of one launch of the kernel ``symbol`` over ``reps``
-    calls of ``fn`` under ``torch.profiler`` (the host's share excluded).
+def device_ms(torch, fn, symbol: str, reps: int = 20,
+              per_call: int = 1) -> float:
+    """Mean device time of one call of ``fn`` (``per_call`` kernels named
+    ``symbol``...) over ``reps`` calls under ``torch.profiler`` (the host's
+    share excluded).
 
     Back-to-back profiler sessions sometimes drop kernel records (seen: 7
     of 20 delivered), so the mean is over the launches it recorded."""
@@ -137,10 +184,10 @@ def device_ms(torch, fn, symbol: str, reps: int = 20) -> float:
             count += e.count
     check(count > 0, f"{symbol}: the profiler recorded none of {reps} "
           f"launches")
-    if count != reps:
-        log(f"[phase 2] {symbol}: the profiler recorded {count} of {reps} "
-            f"launches; timing the recorded ones")
-    return total_us / count / 1e3
+    if count != reps * per_call:
+        log(f"[phase 2] {symbol}: the profiler recorded {count} of "
+            f"{reps * per_call} launches; timing the recorded ones")
+    return total_us / count * per_call / 1e3
 
 
 def bound(nbytes: float, flops: float):
@@ -186,13 +233,69 @@ def k3_work(torch, args, kw):
     return nbytes, float(keep.sum()) * (2.0 * d + 4)
 
 
+def k4_work(torch, args, kw):
+    """K4: each nonzero row of X_p and each W slice used read once, Y
+    written once; 2*k*n FLOPs per nonzero row (pad rows are zero)."""
+    x_p, w, t2g = args[:3]
+    scale = args[3] if len(args) > 3 else kw.get("row_scale_p")
+    rp, kd = x_p.shape
+    n = w.shape[1] if kw.get("transpose_w") else w.shape[2]
+    tile = kw["tile"]
+    rows = int((x_p != 0).any(dim=1).sum())
+    groups = int(torch.unique(t2g[: rp // tile]).numel())
+    nbytes = (rows * kd + groups * kd * n + rp * n) * 4 + (rp // tile) * 4 \
+        + (rp * 4 if scale is not None else 0)
+    return nbytes, 2.0 * rows * kd * n
+
+
+def k5_work(torch, args, kw):
+    """K5: the rows of the real tiles of X_p and dY_p read once, dW written
+    once; 2*k*n FLOPs per row (fp32 inputs; the sums run in fp64)."""
+    x_p, dy_p, gtp, gcp = args[:4]
+    k, n = x_p.shape[1], dy_p.shape[1]
+    rows = int(gtp[-1]) * kw["tile"]
+    nbytes = rows * (k + n) * 4 + kw["num_groups"] * k * n * 4 \
+        + 2 * (kw["num_groups"] + 1) * 4
+    return nbytes, 2.0 * rows * k * n
+
+
+def k4_library(torch, args, kw):
+    """One ``torch.bmm`` over the same tiles, W's slices gathered (and
+    transposed) beforehand: the yardstick of K4, used nowhere in the port."""
+    x_p, w, t2g = args[:3]
+    tile = kw["tile"]
+    t = x_p.shape[0] // tile
+    wt = w.detach()[t2g[:t].long()]
+    if kw.get("transpose_w"):
+        wt = wt.transpose(1, 2)
+    wt = wt.contiguous()
+    xt = x_p.detach().reshape(t, tile, x_p.shape[1])
+    return lambda: torch.bmm(xt, wt)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions on the card
 # ---------------------------------------------------------------------------
+def _recording(module, names, calls):
+    """Wrap ``module``'s functions ``names`` so that every call's inputs
+    are appended to ``calls[name]``; returns the originals."""
+    originals = {name: getattr(module, name) for name in names}
+
+    def recorder(name, fn):
+        def rec(*args, **kw):
+            calls[name].append((args, kw))
+            return fn(*args, **kw)
+        return rec
+
+    for name, fn in originals.items():
+        setattr(module, name, recorder(name, fn))
+    return originals
+
+
 def capture_main_path_calls(torch, hector_torch, cfg):
     """Run the first mini-batch that ``serve(**cfg)`` serves (same graph,
-    seeds, weights and features) on the card and record every kernel
-    call's inputs."""
+    seeds, weights and features) on the card and record every serving
+    kernel call's inputs."""
     import numpy as np
 
     from repro_torch.core.graph import table3_graph
@@ -217,17 +320,8 @@ def capture_main_path_calls(torch, hector_torch, cfg):
     # the ops call the kernel wrappers through their own module names:
     # wrap those for one forward to record every call's inputs
     from repro_torch.kernels import ops
-    calls = {name: [] for name in KERNELS}
-    originals = {name: getattr(ops, name) for name in KERNELS}
-
-    def recorder(name, fn):
-        def rec(*args, **kw):
-            calls[name].append((args, kw))
-            return fn(*args, **kw)
-        return rec
-
-    for name, fn in originals.items():
-        setattr(ops, name, recorder(name, fn))
+    calls = {name: [] for name in SERVE_KERNELS}
+    originals = _recording(ops, SERVE_KERNELS, calls)
     try:
         out = engine.apply_blocks(params, mb, feats)
         torch.cuda.synchronize()
@@ -236,6 +330,106 @@ def capture_main_path_calls(torch, hector_torch, cfg):
             setattr(ops, name, fn)
     check(bool(torch.isfinite(out).all()), "captured batch has non-finite "
           "logits")
+    return calls
+
+
+class TrainTask:
+    """Phase 6's task on the card (the driver's ``build_task``: graph,
+    features, teacher labels, split), a CPU engine over the same graph, and
+    one mid-training state: 5 sampled steps on the card over the first
+    batches of the epoch stream, copied to the CPU as well. The card-vs-CPU
+    steps start from it on the next batch. (From the initial state, Adam's
+    first update divides each gradient entry by its own magnitude plus
+    1e-8, so entries near 1e-9 turn fp32 rounding noise into parameter
+    changes of 1e-5: the CPU port and the JAX reference already differ by
+    that much there.)"""
+
+    WARM_STEPS = 5
+
+    def __init__(self, torch, hector_torch, cfg):
+        import dataclasses
+
+        from repro_torch.launch import train_rgnn
+        from repro_torch.optim import AdamW, cosine_schedule
+        from repro_torch.optim.adamw import tree_map
+        from repro_torch.sampling import EpochSeedStream, build_minibatch
+        from repro_torch.train import EngineConfig
+
+        ecfg = EngineConfig(model=cfg["model"], layers=cfg["layers"],
+                            dim=cfg["dim"], hidden=cfg["hidden"],
+                            classes=cfg["classes"], fanouts=cfg["fanouts"],
+                            tile=cfg["tile"], node_block=cfg["node_block"],
+                            seed=cfg["seed"], device="cuda")
+        (self.engine, self.feats, self.labels, self.train_ids,
+         self.val_ids) = train_rgnn.build_task(cfg["dataset"], cfg["scale"],
+                                               ecfg, cfg["seed"])
+        self.cpu = hector_torch.compile(
+            None, self.engine.graph,
+            config=dataclasses.replace(ecfg, device="cpu"))
+        stream = EpochSeedStream(self.train_ids, cfg["batch_size"],
+                                 seed=cfg["seed"])
+        # the driver's optimizer for this many steps
+        self.opt = AdamW(learning_rate=cosine_schedule(
+            cfg["lr"], 5, cfg["epochs"] * stream.batches_per_epoch),
+            weight_decay=0.0)
+        self.x_cpu = torch.from_numpy(self.feats)
+        self.x = self.x_cpu.cuda()
+        mbkw = dict(tile=cfg["tile"], node_block=cfg["node_block"],
+                    bucket=True)
+
+        def batch(step, device):
+            seq = self.engine.sampler.sample(stream.batch(step),
+                                             batch_index=step, epoch=0)
+            return (build_minibatch(seq, step=step, device=device, **mbkw),
+                    torch.from_numpy(seq.slice_labels(self.labels)))
+
+        ex = self.engine.train_executor(self.opt)
+        state = self.opt.init(self.engine.init(cfg["seed"]))
+        for step in range(self.WARM_STEPS):
+            mb, labels = batch(step, "cuda")
+            state, _ = ex.grad_and_update(
+                state, mb, labels.cuda(),
+                {"feature": self.x[mb.input_ids.long()]})
+        self.state = state
+        self.state_cpu = tree_map(lambda t: t.cpu(), state)
+        self.mb, self.batch_labels_cpu = batch(self.WARM_STEPS, "cuda")
+        self.mb_cpu, _ = batch(self.WARM_STEPS, "cpu")
+
+    def step(self, torch):
+        """One sampled ``grad_and_update`` on the card from the state."""
+        return self.engine.train_executor(self.opt).grad_and_update(
+            self.state, self.mb, self.batch_labels_cpu.cuda(),
+            {"feature": self.x[self.mb.input_ids.long()]})
+
+    def cpu_step(self, torch):
+        return self.cpu.train_executor(self.opt).grad_and_update(
+            self.state_cpu, self.mb_cpu, self.batch_labels_cpu,
+            {"feature": self.x_cpu[self.mb_cpu.input_ids.long()]})
+
+
+def capture_train_calls(torch, task):
+    """Record the K4 and K5 calls of one sampled training step of phase
+    6's configuration on the card. The GEMM backward calls them through
+    ``ops.SK``; a stand-in namespace with recording wrappers takes its
+    place for the step (the module's own functions stay as they are)."""
+    import types
+
+    from repro_torch.kernels import ops, segment_mm
+    names = ("segment_mm_padded", "segment_outer_padded")
+    calls = {name: [] for name in names}
+    ops.SK = types.SimpleNamespace(**vars(segment_mm))
+    _recording(ops.SK, names, calls)
+    try:
+        _, metrics = task.step(torch)
+        torch.cuda.synchronize()
+    finally:
+        ops.SK = segment_mm
+    check(bool(torch.isfinite(metrics["loss"])), "captured training step has "
+          "a non-finite loss")
+    for name in names:
+        want = TRAIN_STEP_LAUNCHES[name]
+        check(len(calls[name]) == want, f"{name}: {len(calls[name])} calls "
+              f"in one training step, expected {want}")
     return calls
 
 
@@ -253,32 +447,69 @@ def compare(torch, name, got, want, rtol, atol, exact=False):
     return err
 
 
-def phase_kernels(torch, hector_torch, SK, TK, L, R, ops):
+# tolerance of each kernel against its plain version (see the docstring)
+TOLERANCE = {"segment_mm_gather_padded": 1e-5, "segment_mm_padded": 1e-5,
+             "seg_softmax_agg_gather_padded": 2e-5,
+             "segment_outer_padded": 1e-6}
+
+
+def _shape(name, args, kw) -> str:
+    if name == "segment_mm_gather_padded":
+        return (f"Rp={args[2].shape[0]} real={int((args[2] >= 0).sum())} "
+                f"k={args[1].shape[1]} n={args[1].shape[2]} "
+                f"R={args[1].shape[0]}")
+    if name == "seg_stats_padded":
+        return f"slots={args[0].numel()} blocks={kw['num_node_blocks']}"
+    if name == "seg_softmax_agg_gather_padded":
+        return (f"slots={args[0].numel()} d={args[1].shape[1]} "
+                f"Em={args[1].shape[0]} blocks={kw['num_node_blocks']}")
+    if name == "segment_mm_padded":
+        return (f"Rp={args[0].shape[0]} k={args[0].shape[1]} "
+                f"w={tuple(args[1].shape)} "
+                f"transposed={bool(kw.get('transpose_w'))}")
+    return (f"Rp={args[0].shape[0]} real tiles={int(args[2][-1])} "
+            f"k={args[0].shape[1]} n={args[1].shape[1]} "
+            f"R={kw['num_groups']} chunks={kw['num_chunks']}")
+
+
+def phase_kernels(torch, hector_torch, SK, TK, L, R, ops, task):
     results = {name: dict(calls=[], max_abs_err=0.0) for name in KERNELS}
     captured = {}
     for tag, cfg in (("aifb", SERVE_DEFAULTS), ("bgs", SERVE_LARGE)):
         captured[tag] = capture_main_path_calls(torch, hector_torch, cfg)
-        for name in KERNELS:
+        for name in SERVE_KERNELS:
             check(len(captured[tag][name]) > 0,
                   f"{name}: not reached on the {tag} path")
         log(f"[phase 2] captured {tag} batch 0: "
             + ", ".join(f"{k} x{len(v)}"
                         for k, v in captured[tag].items()))
-    calls = captured["aifb"]
+    train_calls = capture_train_calls(torch, task)
+    log("[phase 2] captured one aifb-b64 training step: "
+        + ", ".join(f"{k} x{len(v)}" for k, v in train_calls.items()))
+    calls = dict(captured["aifb"], **train_calls)
 
     plain = {
         "segment_mm_gather_padded": SK.segment_mm_gather_padded_plain,
         "seg_stats_padded": TK.seg_stats_padded_plain,
         "seg_softmax_agg_gather_padded":
             TK.seg_softmax_agg_gather_padded_plain,
+        "segment_mm_padded": SK.segment_mm_padded_plain,
+        "segment_outer_padded": SK.segment_outer_padded_plain,
     }
     kernel = {
         "segment_mm_gather_padded": SK.segment_mm_gather_padded,
         "seg_stats_padded": TK.seg_stats_padded,
         "seg_softmax_agg_gather_padded": TK.seg_softmax_agg_gather_padded,
+        "segment_mm_padded": SK.segment_mm_padded,
+        "segment_outer_padded": SK.segment_outer_padded,
     }
     work = {"segment_mm_gather_padded": k1_work, "seg_stats_padded": k2_work,
-            "seg_softmax_agg_gather_padded": k3_work}
+            "seg_softmax_agg_gather_padded": k3_work,
+            "segment_mm_padded": k4_work, "segment_outer_padded": k5_work}
+    # the training captures hold parameter leaves: compare and time without
+    # recording gradients
+    plain = {k: torch.no_grad()(f) for k, f in plain.items()}
+    kernel = {k: torch.no_grad()(f) for k, f in kernel.items()}
 
     def run_compare(name, args, kw):
         got = kernel[name](*args, **kw)
@@ -289,43 +520,40 @@ def phase_kernels(torch, hector_torch, SK, TK, L, R, ops):
                          exact=True)
             e2 = compare(torch, name + ".den", got[1], want[1], 1e-5, 0)
             return max(e1, e2)
-        tol = 1e-5 if name == "segment_mm_gather_padded" else 2e-5
+        tol = TOLERANCE[name]
         return compare(torch, name, got, want, tol, tol)
 
     for name, lst in calls.items():
         r = results[name]
+        meta = KERNELS[name]
         for i, (args, kw) in enumerate(lst):
             err = run_compare(name, args, kw)
-            ms = device_ms(torch, lambda: kernel[name](*args, **kw),
-                           KERNELS[name]["symbol"])
-            wrapper_ms = time_ms(torch, lambda: kernel[name](*args, **kw))
+            fn = lambda: kernel[name](*args, **kw)           # noqa: E731
+            per_call = meta.get("per_call", 1)
+            if name == "segment_outer_padded" and kw["num_chunks"] == 0:
+                per_call = 1
+            ms = device_ms(torch, fn, meta["symbol"], per_call=per_call)
+            wrapper_ms = time_ms(torch, fn)
             plain_ms = time_ms(torch, lambda: plain[name](*args, **kw))
+            library_ms = (time_ms(torch, k4_library(torch, args, kw))
+                          if name == "segment_mm_padded" else None)
             nbytes, flops = work[name](torch, args, kw)
             b_ms, b_by = bound(nbytes, flops)
-            shape = {
-                "segment_mm_gather_padded":
-                    lambda: f"Rp={args[2].shape[0]} "
-                            f"real={int((args[2] >= 0).sum())} "
-                            f"k={args[1].shape[1]} n={args[1].shape[2]} "
-                            f"R={args[1].shape[0]}",
-                "seg_stats_padded":
-                    lambda: f"slots={args[0].numel()} "
-                            f"blocks={kw['num_node_blocks']}",
-                "seg_softmax_agg_gather_padded":
-                    lambda: f"slots={args[0].numel()} d={args[1].shape[1]} "
-                            f"Em={args[1].shape[0]} "
-                            f"blocks={kw['num_node_blocks']}",
-            }[name]()
+            shape = _shape(name, args, kw)
             r["calls"].append(dict(shape=shape, ms=ms,
                                    wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                                   library_ms=library_ms,
                                    bound_ms=b_ms, bound_by=b_by,
                                    bytes=nbytes, flops=flops,
                                    max_abs_err=err))
             r["max_abs_err"] = max(r["max_abs_err"], err)
             log(f"[phase 2] {name}[{i}] {shape}: max abs err {err:.3g}; "
                 f"kernel {ms:.5f} ms on the device, wrapper {wrapper_ms:.4f}"
-                f" ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
-                f"({b_by}, {nbytes} B, {flops:.0f} FLOP)")
+                f" ms, plain {plain_ms:.4f} ms"
+                + (f", torch.bmm {library_ms:.4f} ms"
+                   if library_ms is not None else "")
+                + f", bound {b_ms:.5f} ms ({b_by}, {nbytes} B, "
+                f"{flops:.0f} FLOP)")
     # the bgs batch's calls, at the same tolerances (not timed)
     for name, lst in captured["bgs"].items():
         r = results[name]
@@ -336,19 +564,23 @@ def phase_kernels(torch, hector_torch, SK, TK, L, R, ops):
             f"version (max abs err {r['max_abs_err_bgs']:.3g})")
     edge_cases(torch, SK, TK, L, ops, R, run_compare, results)
     for name, r in results.items():
-        r["ms"] = sum(c["ms"] for c in r["calls"])
-        r["wrapper_ms"] = sum(c["wrapper_ms"] for c in r["calls"])
-        r["plain_ms"] = sum(c["plain_ms"] for c in r["calls"])
-        r["bound_ms"] = sum(c["bound_ms"] for c in r["calls"])
+        unit = "served aifb batch" if name in SERVE_KERNELS \
+            else "aifb-b64 training step"
+        for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms"):
+            r[key] = sum(c[key] for c in r["calls"])
+        r["library_ms"] = (sum(c["library_ms"] for c in r["calls"])
+                           if name == "segment_mm_padded" else None)
         by_bytes = sum(c["bound_ms"] for c in r["calls"]
                        if c["bound_by"] == "bytes")
         r["bound_by"] = "bytes" if by_bytes >= r["bound_ms"] / 2 \
             else "operations"
-        log(f"[phase 2] {name}: {len(r['calls'])} calls per served aifb "
-            f"batch, kernel {r['ms']:.5f} ms on the device, wrapper "
-            f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.5f} ms ({r['bound_by']}), max abs err "
-            f"{r['max_abs_err']:.3g}")
+        log(f"[phase 2] {name}: {len(r['calls'])} calls per {unit}, kernel "
+            f"{r['ms']:.5f} ms on the device, wrapper "
+            f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+            + (f", torch.bmm {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else "")
+            + f", bound {r['bound_ms']:.5f} ms ({r['bound_by']}), max abs "
+            f"err {r['max_abs_err']:.3g}")
     return results
 
 
@@ -469,6 +701,57 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
         results["seg_softmax_agg_gather_padded"]["max_abs_err"] = max(
             results["seg_softmax_agg_gather_padded"]["max_abs_err"], err)
     n_err += 3
+    # K4: k = 1 (the transposed dX of an n = 1 GEMM) and n = 1, W as
+    # stored and transposed, groups without tiles, pow2 pad tiles, scale
+    # on and off; K5 on the same layouts, plus one group of 40,000 rows
+    # (79 chunks of 16 tiles, summed in fp64)
+    for grow in (False, True):
+        ps = L.pad_segments(ptr, 32)
+        if grow:
+            ps = L.pad_segments_rows(ps, L.pow2ceil(ps.padded_rows) * 2)
+        lay = ops.padded_segments_dev(ps).to(dev)
+        pad = t(ps.row_map < 0)
+        for kd, n, transpose in ((64, 64, False), (64, 1, False),
+                                 (1, 64, True), (64, 64, True),
+                                 (30, 70, True)):
+            x_p = t(rng.normal(size=(ps.padded_rows, kd)).astype(np.float32))
+            x_p[pad] = 0.0
+            w = t(rng.normal(size=(10, n, kd) if transpose else (10, kd, n))
+                  .astype(np.float32))
+            for with_scale in (False, True):
+                args = [x_p, w, lay.t2g]
+                if with_scale:
+                    args.append(t(rng.normal(size=(ps.padded_rows, 1))
+                                  .astype(np.float32)))
+                err = run_compare("segment_mm_padded", args,
+                                  dict(tile=32, transpose_w=transpose))
+                results["segment_mm_padded"]["max_abs_err"] = max(
+                    results["segment_mm_padded"]["max_abs_err"], err)
+                n_err += 1
+            dy = t(rng.normal(size=(ps.padded_rows, n)).astype(np.float32))
+            kw5 = dict(num_groups=10, num_chunks=lay.num_chunks, tile=32)
+            kargs = (x_p, dy, lay.group_tile_ptr, lay.group_chunk_ptr)
+            err = run_compare("segment_outer_padded", kargs, kw5)
+            dw = SK.segment_outer_padded(*kargs, **kw5)
+            check(bool((dw[[1, 4, 7]] == 0).all()), "segment_outer_padded: "
+                  "groups without tiles not zero")
+            results["segment_outer_padded"]["max_abs_err"] = max(
+                results["segment_outer_padded"]["max_abs_err"], err)
+            n_err += 1
+    long_ps = L.pad_segments(np.array([0, 5, 40005, 40100]), 32)
+    long_lay = ops.padded_segments_dev(long_ps).to(dev)
+    check(long_lay.num_chunks == 1 + 79 + 1, "long group: chunk count")
+    x_p = t(rng.normal(size=(long_ps.padded_rows, 64)).astype(np.float32))
+    x_p[t(long_ps.row_map < 0)] = 0.0
+    err = run_compare(
+        "segment_outer_padded",
+        (x_p, t(rng.normal(size=(long_ps.padded_rows, 64))
+                .astype(np.float32)),
+         long_lay.group_tile_ptr, long_lay.group_chunk_ptr),
+        dict(num_groups=3, num_chunks=long_lay.num_chunks, tile=32))
+    results["segment_outer_padded"]["max_abs_err"] = max(
+        results["segment_outer_padded"]["max_abs_err"], err)
+    n_err += 1
     # empty layouts: the ops return without launching a grid of 0
     before = ops.launch_counts()
     ps = L.pad_segments(np.zeros(5, np.int64), 32)
@@ -486,14 +769,29 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
         torch.ones(4, 64, device=dev), torch.ones(4, 64, 8, device=dev),
         torch.zeros(0, dtype=torch.int32, device=dev),
         torch.zeros(1, dtype=torch.int32, device=dev), tile=32)
+    y4 = ops.segment_mm(torch.ones(0, 64, device=dev),
+                        torch.ones(4, 64, 8, device=dev),
+                        ops.padded_segments_dev(ps).to(dev))
+    y4k = SK.segment_mm_padded(torch.ones(0, 64, device=dev),
+                               torch.ones(4, 8, 64, device=dev),
+                               torch.zeros(1, dtype=torch.int32, device=dev),
+                               tile=32, transpose_w=True)
+    lay0 = ops.padded_segments_dev(ps).to(dev)
+    dw0 = SK.segment_outer_padded(
+        torch.ones(0, 64, device=dev), torch.ones(0, 8, device=dev),
+        lay0.group_tile_ptr, lay0.group_chunk_ptr, num_groups=4,
+        num_chunks=lay0.num_chunks, tile=32)
     torch.cuda.synchronize()
     check(y.shape == (0, 8) and z.shape == (8, 16) and not z.any()
-          and yk.shape == (0, 8), "empty layouts: wrong outputs")
+          and yk.shape == (0, 8) and y4.shape == (0, 8)
+          and y4k.shape == (0, 8) and dw0.shape == (4, 64, 8)
+          and not dw0.any(), "empty layouts: wrong outputs")
     check(ops.launch_counts() == before, "an empty layout launched a kernel")
     log(f"[phase 2] edge cases: {n_err + 4} kernel-vs-plain checks passed "
         f"(-1 gathers, empty groups and node blocks, pow2 pad tiles, scale "
         f"on/off, CUDA edge_softmax, k = 30 and 7, 8-row tiles and node "
-        f"blocks, d = 5 and 300); empty layouts launched nothing")
+        f"blocks, d = 5 and 300, K4 k = 1 / n = 1 / transposed W, a K5 "
+        f"group of 40,000 rows); empty layouts launched nothing")
 
 
 # ---------------------------------------------------------------------------
@@ -518,8 +816,9 @@ def phase_serve(torch, hector_torch, ops, serve_rgnn, cfg, tag):
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     log(f"[{tag}] launches on the served path: {json.dumps(launches)}")
-    for name, count in launches.items():
-        check(count > 0, f"{tag}: {name} never launched on the served path")
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"{tag}: {name} never launched on the served path")
     check(len(batches) == cfg["num_batches"], f"{tag}: batches missing")
     for _, step, logits in batches:
         check(logits.shape == (cfg["batch_size"], cfg["classes"]),
@@ -582,13 +881,13 @@ def phase_profile(torch, serve_rgnn, cfg, tag):
         t = _device_us(e)
         busy_us += t
         top[e.key[:60]] = (t, e.count)
-        for name, meta in KERNELS.items():
-            if meta["symbol"] in e.key:
+        for name in SERVE_KERNELS:
+            if KERNELS[name]["symbol"] in e.key:
                 n0, t0 = per_kernel.get(name, (0, 0.0))
                 per_kernel[name] = (n0 + e.count, t0 + t)
     check(busy_us > 0, f"{tag}: the profiler recorded no device time")
     out = {}
-    for name in KERNELS:
+    for name in SERVE_KERNELS:
         count, t_us = per_kernel.get(name, (0, 0.0))
         check(count > 0, f"{tag}: profiler saw no {name} launch")
         out[name] = dict(launches=count, device_ms_per_launch=t_us / count
@@ -607,10 +906,225 @@ def phase_profile(torch, serve_rgnn, cfg, tag):
                 loop_ms=loop_s * 1e3, busy_share=busy_share)
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: training
+# ---------------------------------------------------------------------------
+def compare_states(torch, tag, state, state_cpu, metrics, metrics_cpu):
+    """Card against CPU after one step: loss rtol 1e-5, params and mu rtol
+    1e-4 / atol 1e-6; returns the largest differences."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    loss, loss_cpu = float(metrics["loss"]), float(metrics_cpu["loss"])
+    check(abs(loss - loss_cpu) <= 1e-5 * abs(loss_cpu),
+          f"{tag}: loss {loss!r} on the card vs {loss_cpu!r} on the CPU")
+    worst = {}
+    for part in ("params", "mu"):
+        err = 0.0
+        for a, b in zip(tree_leaves(getattr(state, part)),
+                        tree_leaves(getattr(state_cpu, part))):
+            a = a.cpu()
+            err = max(err, float((a - b).abs().max()))
+            check(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-6)),
+                  f"{tag}: {part} differ from the CPU step (max abs err "
+                  f"{float((a - b).abs().max()):.3g})")
+        worst[part] = err
+    worst["loss"] = abs(loss - loss_cpu)
+    log(f"[{tag}] one step on the card equals the CPU step: loss "
+        f"{loss:.6f} vs {loss_cpu:.6f}, max abs err params "
+        f"{worst['params']:.3g}, mu {worst['mu']:.3g}")
+    return worst
+
+
+def phase_train(torch, ops, train_rgnn, task, cfg):
+    """Phase 6: sampled training through the driver, then one step on the
+    card against the CPU."""
+    import numpy as np
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = train_rgnn.train(**cfg, eval_every_epochs=0, device="cuda",
+                             log=lambda m: log(f"[phase 6] {m}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    steps = stats["steps"]
+    # full-graph forwards in train(): the teacher's labels and the final
+    # train and validation evaluations
+    full = 3
+    want = {name: TRAIN_STEP_LAUNCHES[name] * steps
+            + FULL_FORWARD_LAUNCHES[name] * full for name in KERNELS}
+    log(f"[phase 6] launches: {json.dumps(launches)} over {steps} steps and "
+        f"{full} full-graph forwards")
+    check(launches == want, f"phase 6: launches {launches}, expected {want}")
+    losses = np.asarray(stats["losses"])
+    check(bool(np.isfinite(losses).all()), "phase 6: non-finite loss")
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(last < first, f"phase 6: loss did not fall (first 10 steps "
+          f"{first:.4f}, last 10 {last:.4f})")
+    log(f"[phase 6] {steps} steps: loss {first:.4f} (mean of the first 10) "
+        f"-> {last:.4f} (last 10); step p50 {stats['step_ms_p50']:.3f} ms, "
+        f"p99 {stats['step_ms_p99']:.3f} ms, {stats['seeds_per_s']:.1f} "
+        f"seeds/s; full-graph eval: val loss {stats['full_val_loss']:.4f} "
+        f"acc {stats['full_val_acc']:.4f}, train loss "
+        f"{stats['full_train_loss']:.4f} acc {stats['full_train_acc']:.4f} "
+        f"(phase wall {wall:.2f} s)")
+    state, metrics = task.step(torch)
+    state_cpu, metrics_cpu = task.cpu_step(torch)
+    worst = compare_states(torch, "phase 6", state, state_cpu, metrics,
+                           metrics_cpu)
+    keys = ("steps", "step_ms_p50", "step_ms_p99", "seeds_per_s",
+            "full_val_loss", "full_val_acc", "full_train_loss",
+            "full_train_acc", "executor_compiled")
+    return dict({k: stats[k] for k in keys}, launches=launches,
+                loss_first10=first, loss_last10=last, wall_s=wall,
+                step_parity=worst)
+
+
+def phase_full_graph(torch, task, train_rgnn, cfg):
+    """Phase 7: full-graph steps — aifb on the card against the CPU, then
+    bgs at scale 1.0 for 3 timed steps."""
+    import dataclasses
+
+    from repro_torch.train import FullGraphTrainer
+
+    out = {}
+    fg = FullGraphTrainer(task.engine, task.feats, task.labels,
+                          task.train_ids, opt=task.opt, log=None)
+    fg_cpu = FullGraphTrainer(task.cpu, task.feats, task.labels,
+                              task.train_ids, opt=task.opt, log=None)
+    t0 = time.perf_counter()
+    state, metrics = fg.step(task.state)
+    torch.cuda.synchronize()
+    out["aifb_first_step_ms"] = (time.perf_counter() - t0) * 1e3
+    state_cpu, metrics_cpu = fg_cpu.step(task.state_cpu)
+    out["aifb_step_parity"] = compare_states(
+        torch, "phase 7 aifb", state, state_cpu, metrics, metrics_cpu)
+
+    bcfg = dataclasses.replace(task.engine.cfg, device="cuda")
+    t0 = time.perf_counter()
+    engine, feats, labels, train_ids, _ = train_rgnn.build_task(
+        "bgs", 1.0, bcfg, cfg["seed"])
+    torch.cuda.synchronize()
+    out["bgs_build_s"] = time.perf_counter() - t0
+    fg = FullGraphTrainer(engine, feats, labels, train_ids, opt=task.opt,
+                          log=None)
+    state = fg.init_state(engine.init(cfg["seed"]))
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, metrics = fg.step(state)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    check(all(math.isfinite(x) for x in losses),
+          f"phase 7 bgs: non-finite loss {losses}")
+    out.update(bgs_step_ms=step_ms, bgs_losses=losses,
+               bgs_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               bgs_nodes=engine.graph.num_nodes,
+               bgs_edges=engine.graph.num_edges,
+               bgs_train_nodes=len(train_ids))
+    log(f"[phase 7 bgs] {engine.graph.num_nodes} nodes, "
+        f"{engine.graph.num_edges} edges, loss over {len(train_ids)} train "
+        f"nodes {losses}; step ms {[round(x, 3) for x in step_ms]} (the "
+        f"first builds the full-graph layouts); peak device memory "
+        f"{out['bgs_peak_gib']:.2f} GiB; task build {out['bgs_build_s']:.2f}"
+        f" s")
+    out["bgs_trainer"], out["bgs_state"] = fg, state
+    return out
+
+
+RANGES = ("forward", "backward", "optimizer")
+
+
+def phase_train_profile(torch, task, full, trace_dir):
+    """Phase 8: one sampled step (aifb-b64) and one bgs full-graph step
+    under ``torch.profiler``: device time per kernel and per step (kernels
+    and copies; the profiler's GPU-side range annotations are not device
+    work), the device's busy share of the step, and the device time of the
+    kernels of the ``forward`` range, of the backward and of the
+    ``optimizer`` range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fg, state = full.pop("bgs_trainer"), full.pop("bgs_state")
+    runs = {"sampled aifb-b64": lambda: task.step(torch),
+            "full-graph bgs": lambda: fg.step(state)}
+    out = {}
+    for tag, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # device events: kernels, copies, and one span per record_function
+        # range that launched work (the profiler's GPU-side annotations,
+        # which cover the range's kernels and the gaps between them)
+        dev_events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = {e.name: (e.time_range.start, e.time_range.end)
+                 for e in dev_events if e.name in RANGES}
+        busy_us, per_kernel = 0.0, {}
+        ranges = dict.fromkeys(RANGES, 0.0)
+        for e in dev_events:
+            if e.name in RANGES:
+                continue
+            t = e.time_range.elapsed_us()
+            busy_us += t
+            for name, meta in KERNELS.items():
+                if meta["symbol"] in e.name:
+                    c0, d0 = per_kernel.get(name, (0, 0.0))
+                    per_kernel[name] = (c0 + 1, d0 + t)
+            # one stream: forward's kernels, then the backward's (launched
+            # by the autograd engine's thread, outside the "backward" range
+            # of the calling thread), then the optimizer's
+            where = "backward"
+            for rng in ("forward", "optimizer"):
+                lo, hi = spans.get(rng, (1, 0))
+                if lo <= e.time_range.start <= hi:
+                    where = rng
+            ranges[where] += t
+        check(busy_us > 0, f"phase 8 {tag}: no device time recorded")
+        host = dict.fromkeys(RANGES, 0.0)
+        for e in prof.events():
+            if e.name in RANGES and \
+                    e.device_type == torch.autograd.DeviceType.CPU:
+                host[e.name] += e.cpu_time_total
+        res = dict(step_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+                   busy_share=busy_us / wall_us,
+                   kernels={k: dict(launches=c, device_ms=t / 1e3)
+                            for k, (c, t) in per_kernel.items()},
+                   range_device_ms={k: v / 1e3 for k, v in ranges.items()},
+                   range_host_ms={k: v / 1e3 for k, v in host.items()})
+        out[tag] = res
+        log(f"[phase 8 {tag}] step {res['step_ms']:.3f} ms under the "
+            f"profiler, device busy {res['device_busy_ms']:.3f} ms (busy "
+            f"share {res['busy_share']:.4f})")
+        for k, v in res["kernels"].items():
+            log(f"[phase 8 {tag}]   {k}: {v['launches']} launches, "
+                f"{v['device_ms']:.5f} ms")
+        log(f"[phase 8 {tag}]   device ms by range "
+            + json.dumps({k: round(v, 5)
+                          for k, v in res["range_device_ms"].items()})
+            + ", host ms by range "
+            + json.dumps({k: round(v, 3)
+                          for k, v in res["range_host_ms"].items()}))
+        if trace_dir:
+            path = pathlib.Path(trace_dir)
+            path.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(
+                str(path / (tag.replace(" ", "_") + ".json")))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every number as JSON to this path")
+    ap.add_argument("--trace-dir", default=None,
+                    help="write phase 8's Chrome traces into this directory")
     args = ap.parse_args(argv)
 
     import torch
@@ -625,13 +1139,14 @@ def main(argv=None) -> int:
         from repro_torch.kernels import ref as R
         from repro_torch.kernels import segment_mm as SK
         from repro_torch.kernels import traversal as TK
-        from repro_torch.launch import serve_rgnn
+        from repro_torch.launch import serve_rgnn, train_rgnn
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT}: {e}",
               file=sys.stderr)
         return 2
 
     # phase 1: card and build
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -650,8 +1165,13 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"[phase 1] ptxas {stem}: {line.strip()}")
 
+    seconds = {}
     try:
-        kernels = phase_kernels(torch, hector_torch, SK, TK, L, R, ops)
+        t0 = time.perf_counter()
+        task = TrainTask(torch, hector_torch, TRAIN)
+        kernels = phase_kernels(torch, hector_torch, SK, TK, L, R, ops, task)
+        seconds["phase 2"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         serve = phase_serve(torch, hector_torch, ops, serve_rgnn,
                             SERVE_DEFAULTS, "phase 3")
         large = phase_serve(torch, hector_torch, ops, serve_rgnn,
@@ -659,29 +1179,45 @@ def main(argv=None) -> int:
         prof = {tag: phase_profile(torch, serve_rgnn, cfg, "phase 5 " + tag)
                 for tag, cfg in (("aifb", SERVE_DEFAULTS),
                                  ("bgs", SERVE_LARGE))}
+        seconds["phases 3-5"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train = phase_train(torch, ops, train_rgnn, task, TRAIN)
+        seconds["phase 6"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        full = phase_full_graph(torch, task, train_rgnn, TRAIN)
+        seconds["phase 7"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train_prof = phase_train_profile(torch, task, full, args.trace_dir)
+        seconds["phase 8"] = time.perf_counter() - t0
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    seconds["total"] = time.perf_counter() - t_start
+    log(f"[timing] seconds per phase: "
+        + json.dumps({k: round(v, 2) for k, v in seconds.items()}))
 
     rows = []
     for name, meta in KERNELS.items():
         r = kernels[name]
+        served = prof["aifb"]["kernels"].get(name)
         rows.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=serve["launches"][name],
+            replaces=meta["replaces"], launches=train["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None,
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
             wrapper_ms=r["wrapper_ms"],
-            served_device_ms=prof["aifb"]["kernels"][name]
-            ["device_ms_per_batch"]))
+            served_launches=serve["launches"][name],
+            served_device_ms=(served["device_ms_per_batch"]
+                              if served is not None else None)))
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(
-            card=card, build_s=build_s, kernels=kernels, serve=serve,
-            serve_large=large, profile=prof, torch=torch.__version__,
-            cuda=torch.version.cuda), indent=1))
+            card=card, build_s=build_s, seconds=seconds, kernels=kernels,
+            serve=serve, serve_large=large, profile=prof, train=train,
+            full_graph=full, train_profile=train_prof,
+            torch=torch.__version__, cuda=torch.version.cuda), indent=1))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,10 @@ operations) and ``hector_torch.compile()`` from ``repro_torch.frontend``::
 
     compiled = hector_torch.compile("rgat", graph, layers=2, sample=5)
     params = compiled.init(0)
-    logits = compiled.apply_blocks(params, mb, feats)
+    logits = compiled.apply_blocks(params, mb, feats)    # sampled batch
+    logits = compiled.apply(params, feats)                # full graph
+    state = compiled.init_state(params)
+    state, metrics = compiled.train_step(state, mb, labels, feats)
 
 Entry points run on the CUDA card unless given ``device="cpu"``.
 """

@@ -9,8 +9,10 @@ their torch counterparts for the plain (CPU) paths and the oracles:
   value only where no row lands). Callers map non-finite values to 0
   where the reference does (``core/codegen.py``, ``kernels/ref.py``).
 
-On a CUDA tensor both reduce with atomics, so the main path never calls
-them there: its per-destination reductions run in the traversal kernels.
+On a CUDA tensor both reduce with atomics. The forward never calls them
+there (its per-destination reductions run in the traversal kernels); the
+softmax VJP's ``segment_sum`` does, as the reference leaves it to XLA, so
+that gradient is deterministic on the card only to the ulp.
 """
 from __future__ import annotations
 

@@ -13,9 +13,14 @@ Two departures from the reference, both for the card:
   padded gather map. The reference's ``_fits_vmem`` budget guarded a TPU
   source block that had to stay resident in VMEM; the Hopper kernels gather
   rows from global memory, so no such limit exists (``tune/`` is not used);
-* under ``torch.no_grad()`` the per-edge attention that the fused region
-  also names is not computed unless it is a plan output: JAX's ``jit``
-  drops it as dead code, eager PyTorch would not.
+* the per-edge attention that the fused softmax + aggregation region also
+  names is computed only when a plan output or another statement reads it
+  (with or without autograd): JAX's ``jit`` drops it as dead code, eager
+  PyTorch would not.
+
+Everything here runs under autograd: the ops are differentiable
+(``kernels/ops.py``), so the train executors call ``execute_plan`` and
+``execute_block_sequence`` as they are.
 """
 from __future__ import annotations
 
@@ -401,6 +406,25 @@ def _edge_msg(env: _Env, gt: GraphTensors, kl: KernelLayouts, name: str):
     return v, None, kl.blocked.edge_map
 
 
+def _read_elsewhere(plan: O.Plan, region: O.TraversalSpec, fused_at: int,
+                    name: str) -> bool:
+    """Is ``name`` a plan output, or read by any statement or GEMM other
+    than the fused aggregation ``region.stmts[fused_at]``?"""
+    if name in plan.outputs:
+        return True
+    for op in plan.ops:
+        if isinstance(op, O.TraversalSpec):
+            for j, s in enumerate(op.stmts):
+                if op is region and j == fused_at:
+                    continue
+                if name in s.ins or s.scale == name:
+                    return True
+        elif isinstance(op, O.GemmSpec):
+            if name in (op.x_source.split(":", 1)[-1], op.per_row_scale):
+                return True
+    return False
+
+
 def _exec_traversal(op: O.TraversalSpec, env: _Env, gt: GraphTensors,
                     kl: KernelLayouts):
     """Execute a fused traversal region, fusing the canonical softmax(+agg)
@@ -429,7 +453,7 @@ def _exec_traversal(op: O.TraversalSpec, env: _Env, gt: GraphTensors,
                     scores, msg, gt.dst, gt.num_nodes, bc=kl.blocked,
                     msg_rows=msg_rows, msg_slot_map=slot_map)
                 env.set(nxt.out, out)
-                if torch.is_grad_enabled() or att_name in env.plan.outputs:
+                if _read_elsewhere(env.plan, op, i + 7, att_name):
                     env.set(att_name, K.edge_softmax(
                         scores, gt.dst, gt.num_nodes, bc=kl.blocked))
                 i += 8

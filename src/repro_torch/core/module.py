@@ -1,14 +1,20 @@
-"""HectorStack — the multi-layer unit under ``hector_torch.compile()``;
-sampled forward only in this slice (full-graph ``apply``, the per-layer
-``HectorModule`` and training come later).
+"""HectorModule / HectorStack — the single-layer / multi-layer compilation
+units under ``hector_torch.compile()``.
 
-    stack = HectorStack([rgat_program(64, 64), rgat_program(64, 16)], graph)
+    stack = HectorStack([rgat_program(64, 64), rgat_program(64, 16)], graph,
+                        device="cuda")
     params = stack.init(torch.Generator().manual_seed(0))
-    logits = stack.apply_blocks(params, mb, feats)
+    logits = stack.apply(params, {"feature": x})          # full graph
+    logits = stack.apply_blocks(params, mb, x)             # sampled batch
+
+The full-graph ``GraphTensors`` and ``KernelLayouts`` (unbucketed, at the
+stack's tile and node block) are built on the first full-graph call and
+moved to the stack's device once, shared by every layer: a serving process
+that only runs sampled batches never builds them.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -18,40 +24,144 @@ from repro_torch.core.ir import inter_op as I
 from repro_torch.core.ir.passes import lower_program
 
 
+class FullGraph:
+    """Lazily built full-graph tensors and kernel layouts on one device."""
+
+    def __init__(self, graph: HeteroGraph, *, tile: int, node_block: int,
+                 device):
+        self.graph = graph
+        self.tile = tile
+        self.node_block = node_block
+        self.device = torch.device(device)
+        self._gt = None
+        self._layouts: Optional[codegen.KernelLayouts] = None
+
+    @property
+    def gt(self):
+        if self._gt is None:
+            self._gt = self.graph.to_tensors().to(self.device)
+        return self._gt
+
+    @property
+    def layouts(self) -> codegen.KernelLayouts:
+        if self._layouts is None:
+            self._layouts = codegen.build_kernel_layouts(
+                self.graph, tile=self.tile,
+                node_block=self.node_block).to(self.device)
+        return self._layouts
+
+
+class HectorModule:
+    """One lowered Hector layer over the full graph."""
+
+    def __init__(
+        self,
+        program: I.Program,
+        graph: HeteroGraph,
+        *,
+        tile: int = 128,
+        node_block: int = 128,
+        device="cpu",
+        full: Optional[FullGraph] = None,
+    ):
+        self.program = program
+        self.graph = graph
+        self.plan = lower_program(program)
+        self.device = torch.device(device)
+        # shared across the layers of a stack (HectorStack passes its own)
+        self.full = full if full is not None else FullGraph(
+            graph, tile=tile, node_block=node_block, device=self.device)
+        self.executor = executor.PlanExecutor(self.plan)
+
+    @property
+    def gt(self):
+        return self.full.gt
+
+    @property
+    def layouts(self) -> codegen.KernelLayouts:
+        return self.full.layouts
+
+    def init(self, generator: torch.Generator,
+             dtype=torch.float32) -> Dict[str, torch.Tensor]:
+        return codegen.init_params(self.plan, self.graph.num_etypes,
+                                   self.graph.num_ntypes, generator, dtype,
+                                   self.device)
+
+    def apply(self, params, feats: Dict[str, torch.Tensor]):
+        """The layer's outputs over the full graph (autograd records it
+        when grad is enabled)."""
+        return self.executor(params, self.gt, self.layouts, feats)
+
+    def describe(self) -> str:
+        return self.plan.describe()
+
+
 class HectorStack:
     """A multi-layer RGNN: one lowered Hector plan per layer, an
-    elementwise activation between layers. ``apply_blocks`` runs one layer
-    per hop of a sampled ``MiniBatch`` and returns the rows of the requested
-    seeds in request order."""
+    elementwise activation between layers.
+
+    * ``apply(params, feats)`` — full-graph forward over all nodes;
+    * ``apply_blocks(params, mb, x)`` — sampled forward over a
+      ``MiniBatch``, one layer per hop, returning the rows of the requested
+      seeds in request order.
+
+    With full-neighborhood fanout the two agree on the seed rows."""
 
     def __init__(
         self,
         programs: Sequence[I.Program],
         graph: HeteroGraph,
         *,
+        tile: int = 128,
+        node_block: int = 128,
         activation: str = "relu",
         device="cpu",
     ):
         if not programs:
             raise ValueError("need at least one layer program")
         self.graph = graph
-        self.plans = [lower_program(p) for p in programs]
         self.device = torch.device(device)
+        self.full = FullGraph(graph, tile=tile, node_block=node_block,
+                              device=self.device)
+        self.layers = [HectorModule(p, graph, device=self.device,
+                                    full=self.full) for p in programs]
+        self.activation = activation
+        self._act = codegen._ACTIVATIONS[activation]
         self.block_executor = executor.BlockExecutor(self.plans,
                                                      activation=activation)
 
     @property
     def num_layers(self) -> int:
-        return len(self.plans)
+        return len(self.layers)
+
+    @property
+    def plans(self):
+        return [layer.plan for layer in self.layers]
+
+    @property
+    def gt(self):
+        return self.full.gt
+
+    @property
+    def layouts(self) -> codegen.KernelLayouts:
+        return self.full.layouts
 
     def init(self, generator: torch.Generator,
              dtype=torch.float32) -> List[Dict[str, torch.Tensor]]:
         """Per-layer parameters, drawn layer after layer from
         ``generator``."""
-        return [codegen.init_params(plan, self.graph.num_etypes,
-                                    self.graph.num_ntypes, generator, dtype,
-                                    self.device)
-                for plan in self.plans]
+        return [layer.init(generator, dtype) for layer in self.layers]
+
+    def apply(self, params: Sequence[Dict[str, torch.Tensor]],
+              feats: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Full-graph forward; returns the last layer's primary output."""
+        cur = dict(feats)
+        h = None
+        for i, (layer, p) in enumerate(zip(self.layers, params)):
+            h = layer.apply(p, cur)[layer.plan.outputs[0]]
+            if i < self.num_layers - 1:
+                cur = {"feature": self._act(h)}
+        return h
 
     def apply_blocks(self, params: Sequence[Dict[str, torch.Tensor]], mb,
                      global_feats: torch.Tensor) -> torch.Tensor:

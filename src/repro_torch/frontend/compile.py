@@ -4,10 +4,11 @@ One call takes a model (a DSL ``ModelSpec``, a registry name like
 ``"rgat"``, or any ``prog_fn(in_dim, out_dim, **kw) -> Program``) plus a
 ``HeteroGraph`` and builds the stack: per-layer traced programs ->
 validated/lowered plans -> ``HectorStack`` -> fanout sampler, on one
-device. The returned ``CompiledRGNN`` exposes ``init`` / ``apply_blocks``
-(sampled mini-batch) / ``describe`` and delegates every other attribute to
-the underlying ``RGNNEngine``. Full-graph ``apply`` and ``train_step`` come
-with later slices.
+device. The returned ``CompiledRGNN`` exposes ``init`` / ``apply`` (full
+graph) / ``apply_blocks`` (sampled mini-batch) / ``init_state`` /
+``train_step`` (one sampled SGD step) / ``describe`` and delegates every
+other attribute to the underlying ``RGNNEngine``, so it drops into the
+trainers unchanged.
 
 ``device=None`` means the CUDA card, and raises without one: pass
 ``device="cpu"`` to run the plain versions on the CPU.
@@ -27,6 +28,7 @@ class CompiledRGNN:
 
     def __init__(self, engine):
         self.engine = engine
+        self._opt = None
 
     def __getattr__(self, name):
         return getattr(self.engine, name)
@@ -47,10 +49,45 @@ class CompiledRGNN:
             num_etypes=self.engine.graph.num_etypes,
             num_ntypes=self.engine.graph.num_ntypes)
 
+    def apply(self, params, feats) -> torch.Tensor:
+        """Full-graph forward; ``feats`` is the [N, dim] input feature
+        table (or a ``{"feature": table}`` dict) on the engine's device."""
+        if isinstance(feats, dict):
+            feats = feats["feature"]
+        return self.engine.forward_full(params, feats)
+
     def apply_blocks(self, params, mb, global_feats) -> torch.Tensor:
         """Sampled mini-batch forward over a ``sampling.MiniBatch``;
         returns one row per requested seed."""
         return self.engine.forward_minibatch(params, mb, global_feats)
+
+    def init_state(self, params_or_seed, opt=None):
+        """Optimizer state for ``train_step`` from per-layer params (or a
+        seed / generator for ``init``). ``opt`` (a
+        ``repro_torch.optim.AdamW``, default lr 3e-3) is bound on first
+        use."""
+        if opt is not None:
+            self._opt = opt
+        params = params_or_seed
+        if isinstance(params_or_seed, (int, torch.Generator)):
+            params = self.init(params_or_seed)
+        return self._optimizer().init(params)
+
+    def train_step(self, state, mb, labels, global_feats):
+        """One neighbor-sampled SGD step (block forward -> per-seed
+        cross-entropy -> backward -> optimizer update). ``labels`` align
+        with the requested seed order (``mb.seq.slice_labels``); returns
+        ``(new_state, {"loss", "accuracy"})``."""
+        labels = torch.as_tensor(labels).to(self.engine.device)
+        feats = {"feature": global_feats[mb.input_ids.long()]}
+        return self.engine.train_executor(self._optimizer()).grad_and_update(
+            state, mb, labels, feats)
+
+    def _optimizer(self):
+        if self._opt is None:
+            from repro_torch.optim import AdamW
+            self._opt = AdamW(learning_rate=3e-3)
+        return self._opt
 
     def describe(self) -> str:
         """The generated plans, one per layer."""
@@ -76,6 +113,7 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
     activation: str = "relu",
     seed: int = 0,
     device=None,
+    config=None,
 ) -> CompiledRGNN:
     """Compile ``model`` for ``graph`` on ``device`` (``None``: the CUDA
     card) and return a ``CompiledRGNN``.
@@ -84,13 +122,22 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
     ``ModelSpec`` or any ``prog_fn(in_dim, out_dim) -> Program``.
     ``sample``: per-hop neighbor fanout of the mini-batch path — an int
     (every hop), a per-layer sequence, or ``-1`` for full neighborhoods.
+    ``config``: a prebuilt ``train.engine.EngineConfig`` (overrides every
+    other compilation keyword; ``model`` still wins if not ``None``).
     """
+    import dataclasses
+
     from repro_torch.train.engine import EngineConfig, RGNNEngine
 
-    if isinstance(sample, (int, np.integer)):
-        sample = [int(sample)] * layers
-    cfg = EngineConfig(
-        model=model, layers=layers, dim=dim, hidden=hidden, classes=classes,
-        fanouts=sample, tile=tile, node_block=node_block,
-        activation=activation, seed=seed, device=device)
+    if config is not None:
+        cfg = config if model is None else \
+            dataclasses.replace(config, model=model)
+    else:
+        if isinstance(sample, (int, np.integer)):
+            sample = [int(sample)] * layers
+        cfg = EngineConfig(
+            model=model, layers=layers, dim=dim, hidden=hidden,
+            classes=classes, fanouts=sample, tile=tile,
+            node_block=node_block, activation=activation, seed=seed,
+            device=device)
     return CompiledRGNN(RGNNEngine(graph, cfg))

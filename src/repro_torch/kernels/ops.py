@@ -5,7 +5,21 @@ op dispatches on the device of its tensors. On the CPU it runs the plain
 PyTorch versions (the CPU tests' path); on a CUDA card it launches the
 hand-written kernels (``segment_mm.py``, ``traversal.py``), and an op whose
 kernel is not ported yet raises ``NotImplementedError`` naming that kernel.
-Forward only: the backward kernels come with training.
+
+Every ``custom_vjp`` of the reference on the ported path is a
+``torch.autograd.Function`` here, with the same backward on both devices:
+
+* ``segment_mm_gather`` — forward K1; dX by K4 with W transposed and a
+  scatter-add to the source rows, dW by K5, ``dscale = Σ dy · y_pre``;
+* ``segment_mm`` — forward K4; the same backward without the scatter;
+* ``edge_softmax_agg`` — forward K2 + K3; the backward is the reference's
+  plain ops, with the attention rebuilt from K2's saved statistics;
+* ``edge_softmax`` — forward K2 and its epilogue; backward the softmax VJP.
+
+The backward's scatter-adds (``dx``, the compact ``dmsg``, the softmax
+VJP's ``segment_sum``) are ``index_add_``, as the reference leaves them to
+XLA: on the card they use atomics, so gradients there are deterministic
+only up to the order of fp32 additions.
 """
 from __future__ import annotations
 
@@ -15,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import compat
 from repro_torch.core.graph import to_device
 from repro_torch.kernels import layout as L
 from repro_torch.kernels import ref as R
@@ -30,15 +45,18 @@ from repro_torch.kernels.traversal import (seg_softmax_agg_gather_padded,
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True, eq=False)
 class PaddedSegmentsDev:
-    row_map: torch.Tensor      # [Rp]
-    inv_map: torch.Tensor      # [M]
-    t2g: torch.Tensor          # [max(1, T)]
+    row_map: torch.Tensor          # [Rp]
+    inv_map: torch.Tensor          # [M]
+    t2g: torch.Tensor              # [max(1, T)]
+    group_tile_ptr: torch.Tensor   # [R + 1] each group's run of real tiles
+    group_chunk_ptr: torch.Tensor  # [R + 1] each group's K5 chunks
     tile: int
     num_groups: int
+    num_chunks: int
 
     def to(self, device, non_blocking: bool = False) -> "PaddedSegmentsDev":
-        return _move(self, ("row_map", "inv_map", "t2g"), device,
-                     non_blocking)
+        return _move(self, ("row_map", "inv_map", "t2g", "group_tile_ptr",
+                            "group_chunk_ptr"), device, non_blocking)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -68,11 +86,15 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 
 def padded_segments_dev(ps: L.PaddedSegments) -> PaddedSegmentsDev:
-    """Host tensors of a ``PaddedSegments`` (``.to(device)`` moves them)."""
+    """Host tensors of a ``PaddedSegments`` (``.to(device)`` moves them),
+    with K5's work split: the real-tile run of every group and its chunks."""
+    gtp = SK.outer_tile_ptr(ps.seg_sizes, ps.tile)
+    gcp = SK.outer_chunk_ptr(gtp)
     return PaddedSegmentsDev(
         row_map=_tensor(ps.row_map), inv_map=_tensor(ps.inv_map),
-        t2g=_tensor(ps.tile_to_group), tile=ps.tile,
-        num_groups=ps.num_groups)
+        t2g=_tensor(ps.tile_to_group), group_tile_ptr=_tensor(gtp),
+        group_chunk_ptr=_tensor(gcp), tile=ps.tile,
+        num_groups=ps.num_groups, num_chunks=int(gcp[-1]))
 
 
 def block_tile_ptr(t2b: np.ndarray, num_tiles: int,
@@ -138,6 +160,94 @@ def _not_ported(kernel: str, what: str, device: torch.device):
 # ---------------------------------------------------------------------------
 # segment MM (the GEMM template)
 # ---------------------------------------------------------------------------
+def _gemm_backward(needs, dy, x, w, scale_p, y_pre, lay: PaddedSegmentsDev,
+                   gidx: Optional[torch.Tensor] = None):
+    """(dx, dw, dscale) of ``Y_p = X_p @ W[t2g]`` (x ``scale_p``) for the
+    inputs ``needs`` flags; ``X_p = x[gidx]`` when ``gidx`` is given, else
+    ``x`` itself. dX is K4 over dY with W transposed (then, for a gather, a
+    scatter-add to the source rows), dW is K5 over the padded rows."""
+    dys = dy if scale_p is None else dy * scale_p
+    dx = dw = dscale = None
+    if needs[0]:
+        dxg = SK.segment_mm_padded(dys, w, lay.t2g, tile=lay.tile,
+                                   transpose_w=True)
+        if gidx is None:
+            dx = dxg
+        else:
+            valid = (gidx >= 0)[:, None]
+            dx = torch.zeros_like(x).index_add_(
+                0, gidx.clamp(min=0).long(),
+                torch.where(valid, dxg, dxg.new_zeros(())))
+    if needs[1]:
+        x_p = x if gidx is None else pad_rows(x, gidx)
+        dw = SK.segment_outer_padded(
+            x_p, dys, lay.group_tile_ptr, lay.group_chunk_ptr,
+            num_groups=lay.num_groups, num_chunks=lay.num_chunks,
+            tile=lay.tile)
+        # groups that own no tile: exact zeros (the reference's mask; K5
+        # already writes them so)
+        num_tiles = x_p.shape[0] // lay.tile
+        present = torch.zeros(lay.num_groups, dtype=torch.bool,
+                              device=dw.device).index_fill_(
+            0, lay.t2g[:num_tiles].long(), True)
+        dw = torch.where(present[:, None, None], dw, dw.new_zeros(()))
+    if needs[2]:
+        dscale = torch.sum(dy * y_pre, dim=1, keepdim=True)
+    return dx, dw, dscale
+
+
+def _gemm_forward(ctx, kernel, scale_p):
+    """The forward of both GEMM Functions: ``kernel(scale)`` with the scale
+    as its epilogue or, when the scale needs a gradient, without it, so
+    that the pre-scale ``y_pre`` can be saved."""
+    if scale_p is not None and ctx.needs_input_grad[2]:
+        y_pre = kernel(None)
+        return y_pre * scale_p, y_pre
+    return kernel(scale_p), None
+
+
+def _recording(*tensors) -> bool:
+    """Will autograd record an op on these inputs?"""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+class _SegmentMM(torch.autograd.Function):
+    """``Y_p = X_p @ W[t2g]`` (x scale) over pre-padded rows: K4 forward."""
+
+    @staticmethod
+    def forward(ctx, x_p, w, scale_p, lay):
+        y, y_pre = _gemm_forward(ctx, lambda s: SK.segment_mm_padded(
+            x_p, w, lay.t2g, s, tile=lay.tile), scale_p)
+        ctx.lay = lay
+        ctx.save_for_backward(x_p, w, scale_p, y_pre)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x_p, w, scale_p, y_pre = ctx.saved_tensors
+        return (*_gemm_backward(ctx.needs_input_grad, dy, x_p, w, scale_p,
+                                y_pre, ctx.lay), None)
+
+
+class _SegmentMMGather(torch.autograd.Function):
+    """``Y_p = X[gidx] @ W[t2g]`` (x scale): K1 forward."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale_p, gidx, lay):
+        y, y_pre = _gemm_forward(ctx, lambda s: segment_mm_gather_padded(
+            x, w, gidx, lay.t2g, s, tile=lay.tile), scale_p)
+        ctx.lay = lay
+        ctx.save_for_backward(x, w, scale_p, gidx, y_pre)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, scale_p, gidx, y_pre = ctx.saved_tensors
+        return (*_gemm_backward(ctx.needs_input_grad, dy, x, w, scale_p,
+                                y_pre, ctx.lay, gidx), None, None)
+
+
 def segment_mm(
     x_sorted: torch.Tensor,                  # [M, k] type-sorted rows
     w: torch.Tensor,                         # [R, k, n]
@@ -146,18 +256,17 @@ def segment_mm(
 ) -> torch.Tensor:
     """Y = X @ W[type] (+ per-row scale), X presorted by type. -> [M, n].
 
-    CPU only for now: the card needs ``segment_mm_padded``."""
+    K4 over the padded rows; differentiable (K4 and K5 backward)."""
     if x_sorted.shape[0] == 0:
         return x_sorted.new_zeros((0, w.shape[-1]))
-    if x_sorted.device.type != "cpu":
-        raise _not_ported("segment_mm_padded", "segment_mm",
-                          x_sorted.device)
     x_p = pad_rows(x_sorted, lay.row_map)
-    t = x_p.shape[0] // lay.tile
-    y_p = torch.bmm(x_p.view(t, lay.tile, -1), w[lay.t2g[:t].long()])
-    y_p = y_p.reshape(x_p.shape[0], -1)
+    scale_p = None
     if row_scale is not None:
-        y_p = y_p * pad_rows(row_scale, lay.row_map)[:, None]
+        scale_p = pad_rows(row_scale, lay.row_map)[:, None]
+    if _recording(x_p, w, scale_p):
+        y_p = _SegmentMM.apply(x_p, w, scale_p, lay)
+    else:
+        y_p = SK.segment_mm_padded(x_p, w, lay.t2g, scale_p, tile=lay.tile)
     return y_p[lay.inv_map.long()]
 
 
@@ -172,7 +281,8 @@ def segment_mm_gather(
 
     ``gather_rows`` is the padded gather-index layout
     (``layout.compose_gather_rows``), so no ``[Rp, k]`` copy of the input
-    exists outside the kernel."""
+    exists outside the kernel on the forward; the backward builds it for
+    K5 only. Differentiable in ``x_src``, ``w`` and ``row_scale``."""
     n = w.shape[-1]
     if lay.inv_map.shape[0] == 0:
         # empty block (e.g. a sampled hop with no edges): no tiles to sweep
@@ -180,8 +290,11 @@ def segment_mm_gather(
     scale_p = None
     if row_scale is not None:
         scale_p = pad_rows(row_scale, lay.row_map)[:, None]
-    y_p = segment_mm_gather_padded(x_src, w, gather_rows, lay.t2g,
-                                      scale_p, tile=lay.tile)
+    if _recording(x_src, w, scale_p):
+        y_p = _SegmentMMGather.apply(x_src, w, scale_p, gather_rows, lay)
+    else:
+        y_p = segment_mm_gather_padded(x_src, w, gather_rows, lay.t2g,
+                                       scale_p, tile=lay.tile)
     return y_p[lay.inv_map.long()]
 
 
@@ -204,6 +317,20 @@ def _stats(scores: torch.Tensor, bc: BlockedCSRDev):
     return scores_p, mx, den
 
 
+def _attention(scores, dst, mx, den):
+    """Per-edge softmax weights from K2's per-destination statistics."""
+    d = dst.long()
+    return (torch.exp(scores - mx.reshape(-1)[d])
+            / torch.clamp(den.reshape(-1)[d], min=1e-38))
+
+
+def _softmax_vjp(att, datt, dst, num_nodes):
+    """dscores of ``att = edge_softmax(scores)`` given ``datt``."""
+    d = dst.long()
+    c = compat.segment_sum(att * datt, d, num_nodes)
+    return att * (datt - c[d])
+
+
 def _msg_slot_map(bc: BlockedCSRDev,
                   msg_rows: Optional[torch.Tensor]) -> torch.Tensor:
     """Padded slot -> message-row map for in-kernel message gathers."""
@@ -212,6 +339,62 @@ def _msg_slot_map(bc: BlockedCSRDev,
     return torch.where(bc.edge_map >= 0,
                        msg_rows[bc.edge_map.clamp(min=0).long()],
                        -1).to(torch.int32)
+
+
+class _EdgeSoftmaxAgg(torch.autograd.Function):
+    """The fused softmax + aggregation: K2 then K3 forward; the backward
+    is the reference's plain ops on the attention rebuilt from K2's saved
+    ``mx``/``den`` (no second K2 launch)."""
+
+    @staticmethod
+    def forward(ctx, scores, msg, dst, msg_rows, num_nodes, bc,
+                msg_slot_map):
+        scores_p, mx, den = _stats(scores, bc)
+        out = seg_softmax_agg_gather_padded(
+            scores_p, msg, msg_slot_map, bc.local_dst, bc.t2b,
+            bc.block_tile_ptr, mx, den, node_block=bc.node_block,
+            num_node_blocks=bc.num_node_blocks)
+        ctx.num_nodes = num_nodes
+        ctx.save_for_backward(scores, msg, dst, msg_rows, mx, den)
+        return out[:num_nodes]
+
+    @staticmethod
+    def backward(ctx, dout):
+        scores, msg, dst, msg_rows, mx, den = ctx.saved_tensors
+        att = _attention(scores, dst, mx, den)
+        g = dout[dst.long()]                            # [E, d]
+        dscores = dmsg = None
+        if msg_rows is None:
+            msg_e = msg
+            if ctx.needs_input_grad[1]:
+                dmsg = att[:, None] * g
+        else:                                           # compact messages
+            rows = msg_rows.long()
+            msg_e = msg[rows]
+            if ctx.needs_input_grad[1]:
+                dmsg = torch.zeros_like(msg).index_add_(0, rows,
+                                                        att[:, None] * g)
+        if ctx.needs_input_grad[0]:
+            datt = torch.sum(msg_e * g, dim=-1)
+            dscores = _softmax_vjp(att, datt, dst, ctx.num_nodes)
+        return dscores, dmsg, None, None, None, None, None
+
+
+class _EdgeSoftmax(torch.autograd.Function):
+    """Per-edge softmax from K2's statistics; backward the softmax VJP."""
+
+    @staticmethod
+    def forward(ctx, scores, dst, num_nodes, bc):
+        _, mx, den = _stats(scores, bc)
+        att = _attention(scores, dst, mx, den)
+        ctx.num_nodes = num_nodes
+        ctx.save_for_backward(att, dst)
+        return att
+
+    @staticmethod
+    def backward(ctx, datt):
+        att, dst = ctx.saved_tensors
+        return _softmax_vjp(att, datt, dst, ctx.num_nodes), None, None, None
 
 
 def edge_softmax_agg(
@@ -224,7 +407,7 @@ def edge_softmax_agg(
     msg_slot_map: Optional[torch.Tensor] = None,  # [Ep] precomposed map
 ) -> torch.Tensor:
     """out[v] = Σ_{e→v} softmax(scores)_e · msg_e — the fused traversal
-    region, K2 then K3.
+    region, K2 then K3; differentiable in ``scores`` and ``msg``.
 
     ``msg_rows`` lets messages live in a compact storage (the unique
     (src, etype) table with ``edge_to_unique`` as the map); K3 gathers them
@@ -239,31 +422,24 @@ def edge_softmax_agg(
         return R.softmax_agg_ref(scores, msg_e, dst, num_nodes)
     if msg_slot_map is None:
         msg_slot_map = _msg_slot_map(bc, msg_rows)
-    scores_p, mx, den = _stats(scores, bc)
-    out = seg_softmax_agg_gather_padded(
-        scores_p, msg, msg_slot_map, bc.local_dst, bc.t2b, bc.block_tile_ptr,
-        mx, den, node_block=bc.node_block,
-        num_node_blocks=bc.num_node_blocks)
-    return out[:num_nodes]
+    return _EdgeSoftmaxAgg.apply(scores, msg, dst, msg_rows, num_nodes, bc,
+                                 msg_slot_map)
 
 
 def edge_softmax(scores: torch.Tensor, dst: torch.Tensor, num_nodes: int,
                  bc: Optional[BlockedCSRDev] = None) -> torch.Tensor:
     """Per-edge stabilized softmax over incoming-edge groups.
 
-    On the CPU, the oracle; on CUDA the statistics come from K2 over ``bc``
-    (deterministic, no atomics)."""
-    if scores.device.type == "cpu":
-        return R.edge_softmax_ref(scores, dst, num_nodes)
-    if bc is None:
-        raise ValueError("edge_softmax on CUDA needs the blocked CSR "
-                         "layout (bc)")
+    With ``bc`` the statistics come from K2 (deterministic, no atomics) and
+    the backward is the softmax VJP; without it, the CPU oracle."""
     if dst.shape[0] == 0:
         return scores.new_zeros((0,))
-    _, mx, den = _stats(scores, bc)
-    d = dst.long()
-    return (torch.exp(scores - mx.reshape(-1)[d])
-            / torch.clamp(den.reshape(-1)[d], min=1e-38))
+    if bc is None:
+        if scores.device.type != "cpu":
+            raise ValueError("edge_softmax on CUDA needs the blocked CSR "
+                             "layout (bc)")
+        return R.edge_softmax_ref(scores, dst, num_nodes)
+    return _EdgeSoftmax.apply(scores, dst, num_nodes, bc)
 
 
 def weighted_agg(
@@ -286,17 +462,16 @@ def weighted_agg(
     return R.weighted_agg_ref(scale, msg_e, dst, num_nodes)
 
 
+_COUNTED = (SK.segment_mm_gather_padded, TK.seg_stats_padded,
+            TK.seg_softmax_agg_gather_padded, SK.segment_mm_padded,
+            SK.segment_outer_padded)
+
+
 def launch_counts() -> dict:
     """Launches of each ported kernel so far in this process."""
-    return {
-        "segment_mm_gather_padded": SK.segment_mm_gather_padded.launches,
-        "seg_stats_padded": TK.seg_stats_padded.launches,
-        "seg_softmax_agg_gather_padded":
-            TK.seg_softmax_agg_gather_padded.launches,
-    }
+    return {fn.__name__: fn.launches for fn in _COUNTED}
 
 
 def reset_launch_counts() -> None:
-    for fn in (SK.segment_mm_gather_padded, TK.seg_stats_padded,
-               TK.seg_softmax_agg_gather_padded):
+    for fn in _COUNTED:
         fn.launches = 0

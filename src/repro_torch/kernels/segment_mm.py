@@ -1,40 +1,75 @@
-"""GEMM-template kernel K1 (Hector Algorithm 1) and its plain version.
+"""GEMM-template kernels K1, K4, K5 (Hector Algorithm 1 and its backward)
+and their plain versions.
 
-``segment_mm_gather_padded``  Y_p[slot] = X[gidx[slot]] @ W[t2g[tile]]
+``segment_mm_gather_padded``  K1: Y_p[slot] = X[gidx[slot]] @ W[t2g[tile]]
                               (x the fused per-row scale), over the
                               tile-aligned ``PaddedSegments`` layout.
+``segment_mm_padded``         K4: Y_p = X_p @ W[t2g[tile]] (or W^T with
+                              ``transpose_w``) over pre-padded rows: the
+                              forward of ungathered GEMMs and the dX of
+                              every GEMM's backward.
+``segment_outer_padded``      K5: dW[g] = Σ_{tiles t of g} X_tᵀ dY_t, the dW
+                              of every GEMM's backward.
 
-The wrapper dispatches on the tensors' device: a CPU tensor runs the plain
+Each wrapper dispatches on the tensors' device: a CPU tensor runs the plain
 PyTorch version, a CUDA tensor launches the hand-written Hopper kernel in
-``csrc/segment_mm.cu`` (which replaces the Pallas kernel
-``repro/kernels/segment_mm.py::segment_mm_gather_padded``). Nothing falls
-back: a failed build or launch raises. ``segment_mm_gather_padded.launches``
-counts the kernel launches.
-
-``segment_mm_padded`` (GEMM over pre-padded rows), ``segment_outer_padded``
-(the dW backward) are not ported yet.
+``csrc/segment_mm.cu`` (which replaces the Pallas kernels of the same names
+in ``repro/kernels/segment_mm.py``). Nothing falls back: a failed build or
+launch raises. ``<wrapper>.launches`` counts each wrapper's kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
 
+# K5 splits each group's run of real tiles into chunks of at most this many
+# tiles, one thread block each (``outer_chunk_ptr``)
+K5_CHUNK_TILES = 16
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "segment_mm_gather_f32": [_P] * 6 + [_I] * 5 + [_P],
-    "segment_mm_gather_smem_bytes": [_I] * 3,
+    "segment_mm_padded_f32": [_P] * 5 + [_I] * 7 + [_P],
+    "segment_outer_f32": [_P] * 6 + [_I] * 6 + [_P],
+    "segment_mm_smem_bytes": [_I] * 3,
+    "segment_outer_smem_bytes": [_I] * 3,
 }
 
 
 def _library() -> ctypes.CDLL:
     return build.load("segment_mm", _SIGNATURES,
-                      sizes=("segment_mm_gather_smem_bytes",))
+                      sizes=("segment_mm_smem_bytes",
+                             "segment_outer_smem_bytes"))
 
 
+def _device_or_raise(kernel: str, t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the plain version), False for CUDA (the
+    kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {t.device}")
+    return False
+
+
+def _check_smem(kernel: str, smem: int, what: str) -> None:
+    if smem > build.MAX_SMEM_BYTES:
+        raise ValueError(f"{kernel}: {what} needs {smem} bytes of shared "
+                         f"memory per block (limit {build.MAX_SMEM_BYTES})")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K1: gather-fused segment GEMM
+# ---------------------------------------------------------------------------
 def segment_mm_gather_padded_plain(
     x: torch.Tensor,                 # [Nx, k] source rows
     w: torch.Tensor,                 # [R, k, n]
@@ -80,12 +115,9 @@ def segment_mm_gather_padded(
         raise ValueError(f"x has k={k} but w has k={k2}")
     if rp % tile:
         raise ValueError(f"{rp} padded rows is not a multiple of tile {tile}")
-    if x.device.type == "cpu":
+    if _device_or_raise("segment_mm_gather_padded", x):
         return segment_mm_gather_padded_plain(x, w, gidx, t2g, row_scale_p,
                                               tile=tile)
-    if x.device.type != "cuda":
-        raise ValueError(f"segment_mm_gather_padded: no kernel for device "
-                         f"{x.device}")
     build.check_args("segment_mm_gather_padded", x.device,
                      x=(x, torch.float32), w=(w, torch.float32),
                      gidx=(gidx, torch.int32), t2g=(t2g, torch.int32),
@@ -102,18 +134,14 @@ def segment_mm_gather_padded(
     scale = (row_scale_p.reshape(rp).contiguous()
              if row_scale_p is not None else None)
     lib = _library()
-    smem = lib.segment_mm_gather_smem_bytes(k, n, tile)
-    if smem > build.MAX_SMEM_BYTES:
-        raise ValueError(f"segment_mm_gather_padded: tile={tile}, k={k} "
-                         f"needs {smem} bytes of shared memory per block "
-                         f"(limit {build.MAX_SMEM_BYTES})")
+    _check_smem("segment_mm_gather_padded",
+                lib.segment_mm_smem_bytes(k, n, tile), f"tile={tile}, k={k}")
     vec4 = int(k % 4 == 0 and x.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.segment_mm_gather_f32(
             x.data_ptr(), w.data_ptr(), gidx.data_ptr(), t2g.data_ptr(),
             scale.data_ptr() if scale is not None else None, y.data_ptr(),
-            k, n, num_tiles, tile, vec4, stream)
+            k, n, num_tiles, tile, vec4, _stream(x.device))
     build.check(lib, rc, "segment_mm_gather_padded")
     segment_mm_gather_padded.launches += 1
     return y
@@ -121,3 +149,198 @@ def segment_mm_gather_padded(
 
 segment_mm_gather_padded.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# K4: segment GEMM over pre-padded rows
+# ---------------------------------------------------------------------------
+def segment_mm_padded_plain(
+    x_p: torch.Tensor,               # [Rp, kd] padded, type-sorted rows
+    w: torch.Tensor,                 # [R, kd, n], or [R, n, kd] transposed
+    t2g: torch.Tensor,               # [>= Rp/tile] int32 tile -> group
+    row_scale_p: Optional[torch.Tensor] = None,   # [Rp, 1] or [Rp]
+    *,
+    tile: int,
+    transpose_w: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch version of K4: one batched product per tile."""
+    rp, kd = x_p.shape
+    num_tiles = rp // tile
+    wt = w[t2g[:num_tiles].long()]
+    if transpose_w:
+        wt = wt.transpose(1, 2)
+    y = torch.bmm(x_p.reshape(num_tiles, tile, kd), wt).reshape(
+        rp, wt.shape[2])
+    if row_scale_p is not None:
+        y = y * row_scale_p.reshape(rp, 1)
+    return y
+
+
+def segment_mm_padded(
+    x_p: torch.Tensor,
+    w: torch.Tensor,
+    t2g: torch.Tensor,
+    row_scale_p: Optional[torch.Tensor] = None,
+    *,
+    tile: int,
+    transpose_w: bool = False,
+) -> torch.Tensor:
+    """K4: ``Y_p = X_p @ W[t2g[tile]]`` (x ``row_scale_p``) -> [Rp, n].
+
+    With ``transpose_w`` the product is with ``W[g]ᵀ`` of a ``w`` of shape
+    [R, n, kd], read by stride inside the kernel (no transposed copy)."""
+    rp, kd = x_p.shape
+    r, a, b = w.shape
+    wk, n = (b, a) if transpose_w else (a, b)
+    if kd != wk:
+        raise ValueError(f"x_p has k={kd} but w{'ᵀ' if transpose_w else ''} "
+                         f"has k={wk}")
+    if rp % tile:
+        raise ValueError(f"{rp} padded rows is not a multiple of tile {tile}")
+    if _device_or_raise("segment_mm_padded", x_p):
+        return segment_mm_padded_plain(x_p, w, t2g, row_scale_p, tile=tile,
+                                       transpose_w=transpose_w)
+    build.check_args("segment_mm_padded", x_p.device,
+                     x_p=(x_p, torch.float32), w=(w, torch.float32),
+                     t2g=(t2g, torch.int32),
+                     row_scale_p=(row_scale_p, torch.float32))
+    num_tiles = rp // tile
+    if t2g.shape[0] < num_tiles:
+        raise ValueError(f"t2g has {t2g.shape[0]} entries for {num_tiles} "
+                         f"tiles")
+    y = torch.empty((rp, n), dtype=torch.float32, device=x_p.device)
+    if num_tiles == 0 or n == 0:
+        return y                  # an empty grid is never launched
+    x_p, w, t2g = x_p.contiguous(), w.contiguous(), t2g.contiguous()
+    scale = (row_scale_p.reshape(rp).contiguous()
+             if row_scale_p is not None else None)
+    w_sr, w_sc = (1, kd) if transpose_w else (n, 1)
+    lib = _library()
+    _check_smem("segment_mm_padded",
+                lib.segment_mm_smem_bytes(kd, n, tile), f"tile={tile}, k={kd}")
+    vec4 = int(kd % 4 == 0 and x_p.data_ptr() % 16 == 0)
+    with torch.cuda.device(x_p.device):
+        rc = lib.segment_mm_padded_f32(
+            x_p.data_ptr(), w.data_ptr(), t2g.data_ptr(),
+            scale.data_ptr() if scale is not None else None, y.data_ptr(),
+            kd, n, num_tiles, tile, vec4, w_sr, w_sc, _stream(x_p.device))
+    build.check(lib, rc, "segment_mm_padded")
+    segment_mm_padded.launches += 1
+    return y
+
+
+segment_mm_padded.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: per-group outer-product sum (dW)
+# ---------------------------------------------------------------------------
+def outer_tile_ptr(seg_sizes: np.ndarray, tile: int) -> np.ndarray:
+    """[R + 1] offsets of each group's run of real tiles (tiles that hold
+    at least one row of the group): the tile-aligned layout gives group g
+    ``ceil(seg_sizes[g] / tile)`` of them, in group order, and bucketing
+    only appends pure-pad tiles after the last."""
+    counts = (np.asarray(seg_sizes, np.int64) + tile - 1) // tile
+    ptr = np.zeros(len(counts) + 1, dtype=np.int32)
+    np.cumsum(counts, out=ptr[1:])
+    return ptr
+
+
+def outer_chunk_ptr(group_tile_ptr: np.ndarray,
+                    chunk_tiles: int = K5_CHUNK_TILES) -> np.ndarray:
+    """[R + 1] offsets of each group's K5 chunks: its run of real tiles cut
+    into pieces of at most ``chunk_tiles`` tiles."""
+    counts = (np.diff(np.asarray(group_tile_ptr, np.int64))
+              + chunk_tiles - 1) // chunk_tiles
+    ptr = np.zeros(len(counts) + 1, dtype=np.int32)
+    np.cumsum(counts, out=ptr[1:])
+    return ptr
+
+
+def segment_outer_padded_plain(
+    x_p: torch.Tensor,               # [Rp, k]
+    dy_p: torch.Tensor,              # [Rp, n]
+    group_tile_ptr: torch.Tensor,    # [R + 1] real-tile runs per group
+    group_chunk_ptr: Optional[torch.Tensor] = None,
+    *,
+    num_groups: int,
+    num_chunks: int = 0,
+    tile: int,
+) -> torch.Tensor:
+    """Plain version of K5 -> [R, k, n]: each real tile's ``X_tᵀ dY_t``
+    summed into its group, in fp64 (as the kernel), returned in the input
+    dtype. ``group_chunk_ptr`` / ``num_chunks`` are the kernel's work split
+    and do not change the result."""
+    k, n = int(x_p.shape[1]), int(dy_p.shape[1])
+    counts = torch.diff(group_tile_ptr.long())
+    real = int(counts.sum())
+    dw = torch.zeros((num_groups, k, n), dtype=torch.float64,
+                     device=x_p.device)
+    if real:
+        xt = x_p[: real * tile].reshape(real, tile, k).double()
+        dt = dy_p[: real * tile].reshape(real, tile, n).double()
+        group = torch.repeat_interleave(
+            torch.arange(num_groups, device=x_p.device), counts)
+        dw.index_add_(0, group, torch.bmm(xt.transpose(1, 2), dt))
+    return dw.to(x_p.dtype)
+
+
+def segment_outer_padded(
+    x_p: torch.Tensor,
+    dy_p: torch.Tensor,
+    group_tile_ptr: torch.Tensor,
+    group_chunk_ptr: torch.Tensor,
+    *,
+    num_groups: int,
+    num_chunks: int,
+    tile: int,
+) -> torch.Tensor:
+    """K5: ``dW[g] = Σ_{real tiles t of g} X_tᵀ dY_t`` -> [R, k, n] fp32.
+
+    Only the tiles in ``group_tile_ptr``'s runs are read (the pure-pad
+    tiles bucketing appends hold zero rows); a group without real tiles
+    gets zeros. ``group_chunk_ptr`` (``outer_chunk_ptr`` at
+    ``K5_CHUNK_TILES``) splits the runs over thread blocks."""
+    rp, k = x_p.shape
+    rp2, n = dy_p.shape
+    if rp != rp2:
+        raise ValueError(f"x_p has {rp} rows but dy_p {rp2}")
+    if rp % tile:
+        raise ValueError(f"{rp} padded rows is not a multiple of tile {tile}")
+    if group_tile_ptr.shape[0] != num_groups + 1:
+        raise ValueError(f"group_tile_ptr has {group_tile_ptr.shape[0]} "
+                         f"entries for {num_groups} groups")
+    if _device_or_raise("segment_outer_padded", x_p):
+        return segment_outer_padded_plain(
+            x_p, dy_p, group_tile_ptr, group_chunk_ptr,
+            num_groups=num_groups, num_chunks=num_chunks, tile=tile)
+    dev = x_p.device
+    build.check_args("segment_outer_padded", dev,
+                     x_p=(x_p, torch.float32), dy_p=(dy_p, torch.float32),
+                     group_tile_ptr=(group_tile_ptr, torch.int32),
+                     group_chunk_ptr=(group_chunk_ptr, torch.int32))
+    if group_chunk_ptr.shape[0] != num_groups + 1:
+        raise ValueError(f"group_chunk_ptr has {group_chunk_ptr.shape[0]} "
+                         f"entries for {num_groups} groups")
+    if num_groups == 0 or k == 0 or n == 0 or rp == 0 or num_chunks == 0:
+        # nothing to sum: no kernel is launched
+        return torch.zeros((num_groups, k, n), dtype=torch.float32,
+                           device=dev)
+    dw = torch.empty((num_groups, k, n), dtype=torch.float32, device=dev)
+    partial = torch.empty((num_chunks, k, n), dtype=torch.float64,
+                          device=dev)
+    args = [t.contiguous() for t in (x_p, dy_p, group_tile_ptr,
+                                     group_chunk_ptr)]
+    lib = _library()
+    _check_smem("segment_outer_padded",
+                lib.segment_outer_smem_bytes(k, n, tile), f"tile={tile}")
+    with torch.cuda.device(dev):
+        rc = lib.segment_outer_f32(
+            *(t.data_ptr() for t in args), partial.data_ptr(),
+            dw.data_ptr(), k, n, tile, num_groups, num_chunks,
+            K5_CHUNK_TILES, _stream(dev))
+    build.check(lib, rc, "segment_outer_padded")
+    segment_outer_padded.launches += 1
+    return dw
+
+
+segment_outer_padded.launches = 0

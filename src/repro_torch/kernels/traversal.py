@@ -16,8 +16,8 @@ kernels walk each node block's tile range from ``block_tile_ptr``. Pad
 slots carry ``local_dst == node_block`` and contribute nothing. A node
 without edges, and every node of a block that owns no tile, gets
 ``mx = -1e30``, ``den = 0`` and a zero output row. Inputs and outputs are
-fp32; kernels and plain versions alike accumulate ``den`` and the output in
-fp64, so the long sums of the bucketing pad node stay within fp32 rounding
+fp32 (the plain versions keep their inputs' dtype); kernels and plain
+versions alike accumulate ``den`` and the output in fp64, so the long sums of the bucketing pad node stay within fp32 rounding
 and the two agree at any length.
 
 ``seg_softmax_agg_padded``, ``seg_weighted_agg_gather_padded`` and
@@ -66,7 +66,7 @@ def seg_stats_padded_plain(scores_p, local_dst_p, t2b, block_tile_ptr=None,
     ``block_tile_ptr`` is accepted for a signature equal to the kernel's;
     the plain version reads ``t2b``."""
     valid, node = _slot_nodes(local_dst_p, t2b, node_block)
-    s = scores_p.reshape(-1)[valid].float()
+    s = scores_p.reshape(-1)[valid]
     node = node[valid]
     total = num_node_blocks * node_block
     mx = s.new_full((total,), NEG_INF).scatter_reduce(
@@ -74,7 +74,7 @@ def seg_stats_padded_plain(scores_p, local_dst_p, t2b, block_tile_ptr=None,
     den = torch.zeros(total, dtype=torch.float64, device=s.device)
     den.index_add_(0, node, torch.exp(s - mx[node]).double())
     return (mx.view(num_node_blocks, node_block),
-            den.float().view(num_node_blocks, node_block))
+            den.to(s.dtype).view(num_node_blocks, node_block))
 
 
 def seg_stats_padded(scores_p, local_dst_p, t2b, block_tile_ptr, *,
@@ -135,13 +135,13 @@ def seg_softmax_agg_gather_padded_plain(scores_p, msg, mmap, local_dst_p,
     rows = mmap.long()
     keep = valid & (rows >= 0)
     node, rows = node[keep], rows[keep]
-    s = scores_p.reshape(-1)[keep].float()
+    s = scores_p.reshape(-1)[keep]
     mxf, denf = mx.reshape(-1), den.reshape(-1)
     att = torch.exp(s - mxf[node]) / torch.clamp(denf[node], min=1e-38)
     out = torch.zeros((num_node_blocks * node_block, msg.shape[-1]),
                       dtype=torch.float64, device=msg.device)
     out.index_add_(0, node, att.double()[:, None] * msg[rows].double())
-    return out.float()
+    return out.to(msg.dtype)
 
 
 def seg_softmax_agg_gather_padded(scores_p, msg, mmap, local_dst_p, t2b,

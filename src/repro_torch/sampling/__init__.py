@@ -6,6 +6,7 @@ Device-native sampling (``repro.sampling.device_sampler``) is not ported
 yet.
 """
 from repro_torch.sampling.loader import (  # noqa: F401
+    EpochSeedStream,
     MiniBatch,
     MiniBatchLoader,
     SeedStream,

@@ -11,6 +11,11 @@ Failure contract (as in the reference): an exception anywhere in the
 producer is re-raised in the consumer on its next ``__next__``, after the
 batches already built, with the worker thread stopped and joined first.
 
+Training streams (``EpochSeedStream``) expose ``epoch_of(step)``: the
+loader then passes the epoch to the sampler, so the same seed batch in a
+later epoch draws a fresh neighborhood. ``start_step`` starts the stream
+mid-way (a resumed run replays the exact remaining batches).
+
 Not ported yet: the LRU block/layout caches, device-sampling mode and
 graph partitions.
 """
@@ -52,6 +57,53 @@ class SeedStream:
         rng = np.random.default_rng((self.seed, step))
         return rng.integers(0, self.num_nodes, size=self.batch_size,
                             dtype=np.int32)
+
+
+class EpochSeedStream:
+    """Epoch-aware training seed stream: shuffled, without replacement.
+
+    The port's own copy of ``repro.sampling.loader.EpochSeedStream``
+    (array-identical batches): each epoch is an independent permutation of
+    ``ids`` (rng keyed by ``(seed, epoch)``) cut into fixed-size batches;
+    ``drop_last`` keeps the batch shape fixed. ``batch(step)`` is a pure
+    function of ``(seed, step)``, so a trainer resumed mid-epoch replays
+    the exact remaining batches of that epoch. ``epoch_of(step)`` is the
+    loader's epoch hook.
+    """
+
+    def __init__(self, ids: np.ndarray, batch_size: int, seed: int = 0,
+                 drop_last: bool = True):
+        self.ids = np.asarray(ids, dtype=np.int32)
+        if self.ids.ndim != 1 or self.ids.size == 0:
+            raise ValueError("ids must be a non-empty 1-D int array")
+        if batch_size <= 0:
+            raise ValueError("batch_size must be positive")
+        self.batch_size = min(batch_size, self.ids.size)
+        self.seed = seed
+        self.drop_last = drop_last
+        n = self.ids.size
+        self.batches_per_epoch = (n // self.batch_size if drop_last
+                                  else -(-n // self.batch_size))
+        self._perm_cache = (-1, None)   # (epoch, permutation) memo
+
+    @property
+    def num_ids(self) -> int:
+        return int(self.ids.size)
+
+    def epoch_of(self, step: int) -> int:
+        return step // self.batches_per_epoch
+
+    def steps_for(self, epochs: int) -> int:
+        return epochs * self.batches_per_epoch
+
+    def batch(self, step: int) -> np.ndarray:
+        epoch, k = divmod(step, self.batches_per_epoch)
+        if self._perm_cache[0] != epoch:
+            self._perm_cache = (epoch, np.random.default_rng(
+                (self.seed, epoch)).permutation(self.ids.size))
+        perm = self._perm_cache[1]
+        lo = k * self.batch_size
+        return self.ids[perm[lo:lo + self.batch_size]]
 
 
 @dataclasses.dataclass
@@ -133,10 +185,11 @@ def build_minibatch(seq: BlockSequence, step: int = 0, tile: int = 128,
 class MiniBatchLoader:
     """Background-thread prefetch of sampled mini-batches.
 
-    ``seed_source`` is a ``SeedStream`` or any ``step -> np.ndarray``
-    callable. Iteration yields ``MiniBatch`` in step order; with
-    ``num_batches`` set the loader raises ``StopIteration`` afterwards.
-    ``close()`` stops and joins the worker.
+    ``seed_source`` is a ``SeedStream``, an ``EpochSeedStream`` or any
+    ``step -> np.ndarray`` callable. Iteration yields ``MiniBatch`` in step
+    order from ``start_step``; with ``num_batches`` set the loader raises
+    ``StopIteration`` after that many. A source with ``epoch_of(step)``
+    keys the sampler by epoch. ``close()`` stops and joins the worker.
     """
 
     _SENTINEL = object()
@@ -144,17 +197,22 @@ class MiniBatchLoader:
     def __init__(
         self,
         sampler: FanoutSampler,
-        seed_source: Union[SeedStream, Callable[[int], np.ndarray]],
+        seed_source: Union[SeedStream, EpochSeedStream,
+                           Callable[[int], np.ndarray]],
         *,
         tile: int = 128,
         node_block: int = 128,
         bucket: bool = False,
+        start_step: int = 0,
         num_batches: Optional[int] = None,
         device="cpu",
     ):
         self.sampler = sampler
         self._seeds_for = (seed_source.batch
                            if hasattr(seed_source, "batch") else seed_source)
+        # training streams expose epoch_of(step); serving streams don't
+        self._epoch_of = getattr(seed_source, "epoch_of", None)
+        self._start_step = start_step
         self.tile = tile
         self.node_block = node_block
         self.bucket = bucket
@@ -170,17 +228,19 @@ class MiniBatchLoader:
     def _build(self, step: int) -> MiniBatch:
         seeds = self._seeds_for(step)
         self.host_builds += 1
-        seq = self.sampler.sample(seeds, batch_index=step)
+        epoch = self._epoch_of(step) if self._epoch_of is not None else None
+        seq = self.sampler.sample(seeds, batch_index=step, epoch=epoch)
         return build_minibatch(seq, step=step, tile=self.tile,
                                node_block=self.node_block,
                                bucket=self.bucket, device=self.device)
 
     def _fill(self):
-        step = 0
+        step = self._start_step
         item = None
         while not self._stop.is_set():
             if item is None:
-                if self.num_batches is not None and step >= self.num_batches:
+                if (self.num_batches is not None
+                        and step - self._start_step >= self.num_batches):
                     item = self._SENTINEL
                 else:
                     try:

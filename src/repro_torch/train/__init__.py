@@ -1,3 +1,6 @@
-"""RGNN execution engine of the port (serving subset; training is a later
-slice)."""
-from repro_torch.train.engine import EngineConfig, RGNNEngine  # noqa: F401
+"""RGNN execution engine and trainers of the port."""
+from repro_torch.train.engine import (EngineConfig, MODEL_PROGRAMS,  # noqa: F401
+                                      RGNNEngine, parse_fanout,
+                                      resolve_device)
+from repro_torch.train.trainer import (FullGraphTrainer,  # noqa: F401
+                                       SampledTrainer)

@@ -1,11 +1,13 @@
-"""Shared RGNN execution engine of the port (serving subset): graph +
-stack + sampler + loader wiring, as in ``repro.train.engine``.
+"""Shared RGNN execution engine of the port: graph + stack + sampler +
+loader wiring, as in ``repro.train.engine``; both drivers (serving and
+training) build one.
 
 The engine owns what is a pure function of (graph, model config, device):
-the lowered per-layer plans, the block executor, and the fanout sampler.
-Seed streams and loaders are made per driver through ``make_loader``.
-Training, tuning, device sampling, feature stores and data parallelism
-are later slices.
+the lowered per-layer plans, the block executor, the full-graph tensors
+and kernel layouts (built on first use), the fanout sampler, and one
+sampled train-step executor per optimizer. Seed streams and loaders are
+made per driver through ``make_loader``. Tuning, device sampling, feature
+stores and data parallelism are later slices.
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ def resolve_device(device) -> torch.device:
 
 @dataclasses.dataclass
 class EngineConfig:
-    """Model/compilation configuration of the serving path.
+    """Model/compilation configuration shared by serving and training.
 
     ``model`` is a registry name (``MODEL_PROGRAMS``), a DSL-authored
     ``frontend.ModelSpec``, or any ``prog_fn(in_dim, out_dim) -> Program``.
@@ -63,6 +65,7 @@ class EngineConfig:
     fanouts: Optional[Sequence] = None   # default: [5] * layers
     tile: int = 32
     node_block: int = 32
+    bucket: bool = True
     activation: str = "relu"
     seed: int = 0
     device: Optional[str] = None         # None: the CUDA card
@@ -95,7 +98,10 @@ class EngineConfig:
 
 
 class RGNNEngine:
-    """One multi-layer RGNN compiled for one graph on one device."""
+    """One multi-layer RGNN compiled for one graph on one device, for both
+    execution modes: full graph (``forward_full``, ``StackTrainExecutor``)
+    and sampled mini-batches (``forward_minibatch``,
+    ``train_executor(opt)``), sharing plans and parameters."""
 
     def __init__(self, graph: HeteroGraph, cfg: EngineConfig):
         self.graph = graph
@@ -105,9 +111,14 @@ class RGNNEngine:
             else cfg.model
         dims = cfg.dims
         programs = [prog_fn(dims[i], dims[i + 1]) for i in range(cfg.layers)]
-        self.stack = HectorStack(programs, graph, activation=cfg.activation,
+        self.stack = HectorStack(programs, graph, tile=cfg.tile,
+                                 node_block=cfg.node_block,
+                                 activation=cfg.activation,
                                  device=self.device)
         self.sampler = FanoutSampler(graph, cfg.fanouts, seed=cfg.seed)
+        # sampled train-step executors, one per optimizer instance (shared
+        # by the compile facade and SampledTrainer)
+        self._train_execs = {}
 
     @property
     def plans(self):
@@ -117,24 +128,55 @@ class RGNNEngine:
     def block_executor(self):
         return self.stack.block_executor
 
+    @property
+    def gt(self):
+        """Full-graph tensors on the engine's device (shared by layers)."""
+        return self.stack.gt
+
+    @property
+    def layouts(self):
+        """Full-graph kernel layouts on the engine's device."""
+        return self.stack.layouts
+
     def init_params(self, generator: torch.Generator):
         return self.stack.init(generator)
+
+    def train_executor(self, opt):
+        """The sampled SGD step (``BlockTrainExecutor``) for this engine's
+        plans and ``opt``, cached per optimizer instance (the oldest of
+        more than 4 is dropped)."""
+        from repro_torch.core import executor
+        ex = self._train_execs.get(id(opt))
+        if ex is None:
+            ex = executor.BlockTrainExecutor(
+                self.plans, opt, activation=self.cfg.activation)
+            self._train_execs[id(opt)] = ex
+            while len(self._train_execs) > 4:   # insertion-ordered
+                self._train_execs.pop(next(iter(self._train_execs)))
+        return ex
 
     def make_loader(
         self,
         seed_source: Union[object, Callable[[int], np.ndarray]],
         *,
         num_batches: Optional[int] = None,
+        start_step: int = 0,
     ) -> MiniBatchLoader:
         """A prefetching loader over this engine's sampler/layout config,
-        delivering bucketed mini-batches on the engine's device."""
+        delivering (bucketed, unless ``cfg.bucket`` is off) mini-batches on
+        the engine's device from ``start_step`` on."""
         return MiniBatchLoader(
             self.sampler, seed_source,
             tile=self.cfg.tile, node_block=self.cfg.node_block,
-            bucket=True, num_batches=num_batches,
-            device=self.device,
+            bucket=self.cfg.bucket, start_step=start_step,
+            num_batches=num_batches, device=self.device,
         )
 
     def forward_minibatch(self, params, mb, global_feats) -> torch.Tensor:
         """Sampled forward: per-seed outputs for a ``MiniBatch``."""
         return self.stack.apply_blocks(params, mb, global_feats)
+
+    def forward_full(self, params, feats: torch.Tensor) -> torch.Tensor:
+        """Full-graph forward over all nodes, without gradients."""
+        with torch.no_grad():
+            return self.stack.apply(params, {"feature": feats})

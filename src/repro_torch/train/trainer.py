@@ -1,0 +1,273 @@
+"""RGNN trainers of the port, as in ``repro.train.trainer``.
+
+``SampledTrainer`` is neighbor-sampled SGD: an ``EpochSeedStream`` shuffles
+the train ids without replacement every epoch, the prefetching
+``MiniBatchLoader`` samples blocks and builds their layouts on a
+background thread (epoch-keyed), and every mini-batch runs one
+``BlockTrainExecutor.grad_and_update`` — block forward through the
+gather-fused kernels, per-seed cross-entropy, backward through the
+kernels' autograd Functions (K4, K5 and the traversal VJP), AdamW.
+Periodic evaluation runs full-graph and sampled; checkpoints save
+``(global step, TrainState)`` and resume mid-epoch bit for bit on the CPU
+(the seed stream and the sampler are pure functions of the global step;
+on the card the backward's scatter-adds use atomics).
+
+``FullGraphTrainer`` is the dense baseline on ``StackTrainExecutor``: one
+full-graph step per call. With full-neighborhood fanout the sampled step
+reproduces its loss and gradients.
+
+Not ported yet: feature stores and the Zipf-skewed seed stream (``skew``).
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.core import executor
+from repro_torch.optim import AdamW, TrainState
+from repro_torch.sampling import EpochSeedStream, build_minibatch
+from repro_torch.train.engine import RGNNEngine
+
+
+def _quiet(*_a, **_k):
+    pass
+
+
+class FullGraphTrainer:
+    """Full-graph SGD over ``StackTrainExecutor``."""
+
+    def __init__(self, engine: RGNNEngine, feats, labels, train_ids,
+                 *, opt: Optional[AdamW] = None, log=print):
+        self.engine = engine
+        self.opt = opt or AdamW(learning_rate=3e-3, weight_decay=0.01)
+        self.feats = torch.as_tensor(feats).to(engine.device)
+        self.labels = np.asarray(labels)
+        self.train_ids = np.asarray(train_ids, dtype=np.int32)
+        self.log = log or _quiet
+        self.step_exec = executor.StackTrainExecutor(
+            engine.plans, self.opt, activation=engine.cfg.activation)
+        self._idx = self._device(self.train_ids)
+        self._labels_train = self._device(self.labels[self.train_ids])
+
+    def _device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.engine.device)
+
+    def init_state(self, params) -> TrainState:
+        return self.opt.init(params)
+
+    def step(self, state: TrainState):
+        return self.step_exec.grad_and_update(
+            state, self.engine.gt, self.engine.layouts, self._idx,
+            self._labels_train, {"feature": self.feats})
+
+    def train(self, state: TrainState, steps: int, log_every: int = 0):
+        losses: List[float] = []
+        for i in range(steps):
+            state, metrics = self.step(state)
+            losses.append(float(metrics["loss"]))
+            if log_every and (i + 1) % log_every == 0:
+                self.log(f"[train_full] step {i+1:4d} loss {losses[-1]:.4f} "
+                         f"acc {float(metrics['accuracy']):.2%}")
+        return state, losses
+
+    def evaluate(self, params, ids=None) -> Dict[str, float]:
+        ids = self.train_ids if ids is None else np.asarray(ids, np.int32)
+        m = self.step_exec.evaluate(
+            params, self.engine.gt, self.engine.layouts, self._device(ids),
+            self._device(self.labels[ids]), {"feature": self.feats})
+        return {k: float(v) for k, v in m.items()}
+
+
+class SampledTrainer:
+    """Neighbor-sampled SGD on the block executor's train step."""
+
+    def __init__(
+        self,
+        engine: RGNNEngine,
+        feats,
+        labels,
+        train_ids,
+        val_ids=None,
+        *,
+        opt: Optional[AdamW] = None,
+        ckpt_dir: Optional[str] = None,
+        log=print,
+    ):
+        self.engine = engine
+        self.opt = opt or AdamW(learning_rate=3e-3, weight_decay=0.01)
+        self.feats = torch.as_tensor(feats).to(engine.device)
+        self.labels = np.asarray(labels)
+        self.train_ids = np.asarray(train_ids, dtype=np.int32)
+        # an empty val split means "no validation", not a zero-row eval
+        self.val_ids = (np.asarray(val_ids, dtype=np.int32)
+                        if val_ids is not None and len(val_ids) else None)
+        self.log = log or _quiet
+        self.ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
+        # shared with the compile facade: same opt -> same executor
+        self.step_exec = engine.train_executor(self.opt)
+        self._full = None
+
+    @property
+    def full(self) -> FullGraphTrainer:
+        """The full-graph evaluator, built on first use."""
+        if self._full is None:
+            self._full = FullGraphTrainer(
+                self.engine, self.feats, self.labels, self.train_ids,
+                opt=self.opt, log=self.log)
+        return self._full
+
+    def init_state(self, params) -> TrainState:
+        return self.opt.init(params)
+
+    def resume(self, state: TrainState):
+        """Restore the latest checkpoint (if any) into ``state``'s
+        structure; returns ``(state, start_step)``."""
+        if self.ckpt is None or self.ckpt.latest_step() is None:
+            return state, 0
+        step = self.ckpt.latest_step()
+        return self.ckpt.restore(state), step
+
+    def _labels_of(self, mb) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(
+            mb.seq.slice_labels(self.labels))).to(self.engine.device)
+
+    def train(
+        self,
+        state: TrainState,
+        *,
+        epochs: int = 1,
+        batch_size: int = 32,
+        start_step: int = 0,
+        ckpt_every: int = 0,
+        eval_every_epochs: int = 0,
+        warmup_epochs: int = 1,
+        log_every: int = 0,
+    ):
+        """Run ``epochs`` of neighbor-sampled SGD; returns
+        ``(state, stats)``. ``start_step`` (a global step, e.g. from
+        ``resume``) may land mid-epoch: the stream replays the exact
+        remaining batches of that epoch."""
+        stream = EpochSeedStream(self.train_ids, batch_size,
+                                 seed=self.engine.cfg.seed)
+        bpe = stream.batches_per_epoch
+        total_steps = epochs * bpe
+        if start_step >= total_steps:
+            raise ValueError(f"start_step {start_step} beyond "
+                             f"{epochs} epochs x {bpe} batches")
+        warmup_steps = start_step + min(warmup_epochs * bpe,
+                                        total_steps - start_step)
+        loader = self.engine.make_loader(
+            stream, start_step=start_step,
+            num_batches=total_steps - start_step)
+
+        ex = self.step_exec
+        sync = (torch.cuda.synchronize if self.engine.device.type == "cuda"
+                else (lambda: None))
+        losses: List[float] = []
+        accs: List[float] = []
+        step_times: List[float] = []
+        evals: List[Dict] = []
+        traces_at_warmup = None
+        t_train0 = time.perf_counter()
+        try:
+            for mb in loader:
+                step = mb.step
+                if traces_at_warmup is None and step >= warmup_steps:
+                    traces_at_warmup = ex.trace_count
+                labels_b = self._labels_of(mb)
+                feats_b = {"feature": self.feats[mb.input_ids.long()]}
+                t0 = time.perf_counter()
+                state, metrics = ex.grad_and_update(state, mb, labels_b,
+                                                    feats_b)
+                sync()
+                dt = time.perf_counter() - t0
+                loss = float(metrics["loss"])
+                step_times.append(dt)
+                losses.append(loss)
+                accs.append(float(metrics["accuracy"]))
+                if log_every and (step + 1) % log_every == 0:
+                    self.log(f"[train_rgnn] step {step+1:5d} "
+                             f"loss {loss:.4f} acc {accs[-1]:.2%} "
+                             f"({step_times[-1]*1e3:.1f} ms)")
+                if self.ckpt is not None and ckpt_every \
+                        and (step + 1) % ckpt_every == 0:
+                    self.ckpt.save(step + 1, state)
+                if (step + 1) % bpe == 0:
+                    epoch = (step + 1) // bpe
+                    span = losses[-min(len(losses), bpe):]
+                    self.log(f"[train_rgnn] epoch {epoch}/{epochs}: "
+                             f"mean loss {np.mean(span):.4f}")
+                    if eval_every_epochs and epoch % eval_every_epochs == 0:
+                        evals.append(self._periodic_eval(state, epoch))
+        finally:
+            loader.close()
+        t_total = time.perf_counter() - t_train0
+        if traces_at_warmup is None:
+            traces_at_warmup = ex.trace_count
+        if self.ckpt is not None:
+            self.ckpt.wait()
+
+        n = len(losses)
+        stats = {
+            "steps": n,
+            "start_step": start_step,
+            "batches_per_epoch": bpe,
+            "epochs": epochs,
+            "batch_size": stream.batch_size,
+            "losses": losses,
+            "accuracies": accs,
+            "final_loss": losses[-1] if losses else float("nan"),
+            "step_ms_p50": float(np.percentile(step_times, 50) * 1e3)
+            if step_times else float("nan"),
+            "step_ms_p99": float(np.percentile(step_times, 99) * 1e3)
+            if step_times else float("nan"),
+            "seeds_per_s": stream.batch_size * n / max(t_total, 1e-9),
+            "executor_traces": ex.trace_count,
+            "executor_cache_hits": ex.cache_hits,
+            "executor_compiled": ex.num_compiled,
+            "retraces_after_warmup": ex.trace_count - traces_at_warmup,
+            "warmup_steps": warmup_steps,
+            "evals": evals,
+        }
+        return state, stats
+
+    def _periodic_eval(self, state: TrainState, epoch: int) -> Dict:
+        out = {"epoch": epoch}
+        ids = self.val_ids if self.val_ids is not None else self.train_ids
+        split = "val" if self.val_ids is not None else "train"
+        full = self.full.evaluate(state.params, ids)
+        out[f"full_{split}"] = full
+        sampled = self.evaluate_sampled(state.params, ids, epoch=epoch)
+        out[f"sampled_{split}"] = sampled
+        self.log(f"[train_rgnn]   eval@{epoch}: full-graph {split} "
+                 f"loss {full['loss']:.4f} acc {full['accuracy']:.2%} | "
+                 f"sampled loss {sampled['loss']:.4f} "
+                 f"acc {sampled['accuracy']:.2%}")
+        return out
+
+    def evaluate_sampled(self, params, ids, *, batch_size: int = 64,
+                         epoch: int = 0) -> Dict[str, float]:
+        """Sampled-forward loss and accuracy over ``ids`` with the engine's
+        fanouts (batched, in id order, fresh neighborhoods)."""
+        ids = np.asarray(ids, dtype=np.int32)
+        cfg = self.engine.cfg
+        tot_loss, tot_acc, nb = 0.0, 0.0, 0
+        for lo in range(0, len(ids), batch_size):
+            chunk = ids[lo:lo + batch_size]
+            seq = self.engine.sampler.sample(chunk, batch_index=lo,
+                                             epoch=epoch)
+            mb = build_minibatch(seq, step=lo, tile=cfg.tile,
+                                 node_block=cfg.node_block, bucket=cfg.bucket,
+                                 device=self.engine.device)
+            logits = self.engine.forward_minibatch(params, mb, self.feats)
+            loss, acc = executor.softmax_xent(logits, torch.from_numpy(
+                self.labels[chunk]).to(self.engine.device))
+            tot_loss += float(loss) * len(chunk)
+            tot_acc += float(acc) * len(chunk)
+            nb += len(chunk)
+        return {"loss": tot_loss / max(nb, 1),
+                "accuracy": tot_acc / max(nb, 1)}

@@ -1,13 +1,17 @@
-"""Kernels K1-K3 of the port (their plain versions, the CPU path) against the
+"""Kernels K1-K5 of the port (their plain versions, the CPU path) against the
 reference's Pallas kernels run in interpret mode, on the same seeded numpy
 inputs, with the edge cases the card check also drives: gather index -1,
 groups and node blocks that own no tile, pow2 pad tiles, the scale
-epilogue on and off, and empty layouts.
+epilogue on and off, k = 1 and n = 1, a transposed W, and empty layouts.
+The autograd Functions of the ops against ``jax.grad`` of the reference's
+``custom_vjp`` ops (Pallas interpret), and ``gradcheck`` in fp64.
 
-Tolerance 1e-5 (the reference's own kernel-vs-oracle bound for fp32,
-``tests/test_kernels.py``)."""
+Tolerances: 1e-5 for kernels (the reference's own kernel-vs-oracle bound
+for fp32, ``tests/test_kernels.py``), 1e-4 for gradients (its gradient
+bound)."""
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -69,13 +73,16 @@ def test_k1_matches_pallas_interpret(n, with_scale, grow):
 
 
 def test_k1_cpu_path_never_counts_a_launch():
-    before = SK.segment_mm_gather_padded.launches
+    before = ops.launch_counts()
     ps = L.pad_segments(np.array([0, 3, 8]), 4)
-    SK.segment_mm_gather_padded(
-        torch.ones(5, 4), torch.ones(2, 4, 2),
-        _t(L.compose_gather_rows(ps, np.arange(8) % 5)),
-        _t(ps.tile_to_group), tile=4)
-    assert SK.segment_mm_gather_padded.launches == before
+    lay = ops.padded_segments_dev(ps)
+    x = torch.ones(5, 4, requires_grad=True)
+    w = torch.ones(2, 4, 2, requires_grad=True)
+    y = ops.segment_mm_gather(x, w, lay,
+                              _t(L.compose_gather_rows(ps, np.arange(8) % 5)))
+    y.sum().backward()                           # K4 and K5's plain versions
+    assert x.grad is not None and w.grad is not None
+    assert ops.launch_counts() == before
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +244,232 @@ def test_block_tile_ptr_of_bucketed_csr():
 
 
 # ---------------------------------------------------------------------------
+# K4: segment GEMM over pre-padded rows; K5: per-group outer products (dW)
+# ---------------------------------------------------------------------------
+def _padded_rows(rng, ps, k):
+    """Rows in the padded layout: pad slots (row_map -1) hold zeros, as
+    ``ops.pad_rows`` gives them."""
+    x = rng.normal(size=(ps.padded_rows, k)).astype(np.float32)
+    x[ps.row_map < 0] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("kd,n,transpose", [(64, 64, False), (64, 1, False),
+                                            (1, 64, True), (16, 24, True)])
+@pytest.mark.parametrize("with_scale", [False, True])
+@pytest.mark.parametrize("grow", [False, True])
+def test_k4_matches_pallas_interpret(kd, n, transpose, with_scale, grow):
+    """k = 1 with W transposed is the dX of the n = 1 attention GEMMs."""
+    rng = np.random.default_rng(kd + n + 2 * with_scale + grow)
+    tile, r = 8, 6
+    ptr, _ = _segments(rng, r, 19)
+    ps = L.pad_segments(ptr, tile)
+    if grow:
+        ps = L.pad_segments_rows(ps, L.pow2ceil(ps.padded_rows) * 2)
+    x_p = _padded_rows(rng, ps, kd)
+    w = rng.normal(size=(r, n, kd) if transpose else (r, kd, n)
+                   ).astype(np.float32)
+    scale = (rng.normal(size=(ps.padded_rows, 1)).astype(np.float32)
+             if with_scale else None)
+    w_ref = np.swapaxes(w, 1, 2) if transpose else w
+    ref = RSK.segment_mm_padded(
+        jnp.asarray(x_p), jnp.asarray(w_ref), jnp.asarray(ps.tile_to_group),
+        None if scale is None else jnp.asarray(scale), tile_rows=tile,
+        tile_n=min(n, 128), interpret=True)
+    ours = SK.segment_mm_padded(
+        _t(x_p), _t(w), _t(ps.tile_to_group),
+        None if scale is None else _t(scale), tile=tile,
+        transpose_w=transpose)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("k,n", [(64, 64), (64, 1), (1, 64), (16, 24)])
+@pytest.mark.parametrize("grow", [False, True])
+def test_k5_matches_pallas_interpret(k, n, grow):
+    rng = np.random.default_rng(3 * k + n + grow)
+    tile, r = 8, 6
+    ptr, _ = _segments(rng, r, 40)
+    ps = L.pad_segments(ptr, tile)
+    if grow:                                   # pure-pad tiles, last group
+        ps = L.pad_segments_rows(ps, L.pow2ceil(ps.padded_rows) * 2)
+    x_p = _padded_rows(rng, ps, k)
+    dy_p = rng.normal(size=(ps.padded_rows, n)).astype(np.float32)
+    lay = ops.padded_segments_dev(ps)
+    ref = np.asarray(RSK.segment_outer_padded(
+        jnp.asarray(x_p), jnp.asarray(dy_p), jnp.asarray(ps.tile_to_group),
+        num_groups=r, tile_rows=tile, interpret=True))
+    ours = SK.segment_outer_padded(
+        _t(x_p), _t(dy_p), lay.group_tile_ptr, lay.group_chunk_ptr,
+        num_groups=r, num_chunks=lay.num_chunks, tile=tile).numpy()
+    owns = np.diff(lay.group_tile_ptr.numpy()) > 0
+    assert not owns.all()                      # groups 1 and 3 are empty
+    # the Pallas kernel never visits a group without tiles; K5 zeroes it
+    np.testing.assert_allclose(ours[owns], ref[owns], **TOL)
+    assert np.all(ours[~owns] == 0.0)
+
+
+def test_k5_chunks_cover_only_real_tiles():
+    """Each group's run of real tiles, cut into chunks of at most
+    ``K5_CHUNK_TILES``; bucketing's pure-pad tiles are in no run."""
+    c = SK.K5_CHUNK_TILES
+    sizes = np.array([0, 3, c * 8 * 2 + 1, 0, 8 * c])   # tile 8
+    ps = L.pad_segments(np.concatenate([[0], np.cumsum(sizes)]), 8)
+    ps = L.pad_segments_rows(ps, L.pow2ceil(ps.padded_rows) * 4)
+    lay = ops.padded_segments_dev(ps)
+    assert lay.group_tile_ptr.tolist() == [0, 0, 1, 2 * c + 2, 2 * c + 2,
+                                           3 * c + 2]
+    assert lay.group_chunk_ptr.tolist() == [0, 0, 1, 4, 4, 5]
+    assert lay.num_chunks == 5
+    assert ps.padded_rows // 8 > 3 * c + 2     # pad tiles outside the runs
+
+
+# ---------------------------------------------------------------------------
+# gradients of the ops' autograd Functions against jax.grad of the
+# reference's custom_vjp ops (Pallas interpret)
+# ---------------------------------------------------------------------------
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _torch_grads(fn, *arrays):
+    ts = [_t(a).requires_grad_(True) for a in arrays]
+    fn(*ts).backward()
+    return [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("n", [24, 1])
+def test_segment_mm_gather_grads_match_reference(n):
+    rng = np.random.default_rng(21 + n)
+    ptr, m = _segments(rng, 5, 17)
+    nx, k = 30, 16
+    src = rng.integers(0, nx, m).astype(np.int32)
+    x = rng.normal(size=(nx, k)).astype(np.float32)
+    w = rng.normal(size=(5, k, n)).astype(np.float32)
+    scale = rng.normal(size=m).astype(np.float32)
+    ps = L.pad_segments(ptr, 8)
+    gmap = L.compose_gather_rows(ps, src)
+    lay, rlay = ops.padded_segments_dev(ps), rops.padded_segments_dev(
+        RL.pad_segments(ptr, 8))
+
+    def ours(x, w, s):
+        return torch.sum(torch.sin(ops.segment_mm_gather(
+            x, w, lay, _t(gmap), row_scale=s)))
+
+    def ref(x, w, s):
+        return jnp.sum(jnp.sin(rops.segment_mm_gather(
+            x, w, rlay, jnp.asarray(gmap), row_scale=s,
+            backend="pallas_interpret")))
+
+    got = _torch_grads(ours, x, w, scale)
+    want = jax.grad(ref, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w),
+                                            jnp.asarray(scale))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(b), **GRAD_TOL)
+
+
+def test_segment_mm_grads_match_reference():
+    rng = np.random.default_rng(31)
+    ptr, m = _segments(rng, 5, 13)
+    x = rng.normal(size=(m, 16)).astype(np.float32)
+    w = rng.normal(size=(5, 16, 24)).astype(np.float32)
+    scale = rng.normal(size=m).astype(np.float32)
+    ps = L.pad_segments(ptr, 8)
+    ps = L.pad_segments_rows(ps, L.pow2ceil(ps.padded_rows) * 2)
+    lay = ops.padded_segments_dev(ps)
+    rlay = rops.padded_segments_dev(ps)
+
+    def ours(x, w, s):
+        return torch.sum(torch.sin(ops.segment_mm(x, w, lay, row_scale=s)))
+
+    def ref(x, w, s):
+        return jnp.sum(jnp.sin(rops.segment_mm(
+            x, w, rlay, row_scale=s, backend="pallas_interpret")))
+
+    got = _torch_grads(ours, x, w, scale)
+    want = jax.grad(ref, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w),
+                                            jnp.asarray(scale))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(b), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_edge_softmax_agg_grads_match_reference(compact):
+    rng = np.random.default_rng(41 + compact)
+    n_nodes, d = 48, 16
+    # every node receives an edge, so every node block owns a tile (the
+    # Pallas kernel leaves blocks without one unwritten)
+    dst = np.concatenate([np.arange(n_nodes),
+                          rng.integers(0, n_nodes, 150)]).astype(np.int32)
+    e = dst.shape[0]
+    scores = (rng.normal(size=e) * 2).astype(np.float32)
+    perm = np.argsort(dst, kind="stable").astype(np.int32)
+    ptr = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n_nodes), out=ptr[1:])
+    e2u = rng.integers(0, 60, e).astype(np.int32) if compact else None
+    msg = rng.normal(size=(60 if compact else e, d)).astype(np.float32)
+    cot = rng.normal(size=(n_nodes, d)).astype(np.float32)
+    bc = ops.blocked_csr_dev(L.block_csr(ptr, 8, 8), perm, e2u)
+    rbc = rops.blocked_csr_dev(RL.block_csr(ptr, 8, 8), perm, e2u)
+
+    def ours(s, m):
+        out = ops.edge_softmax_agg(
+            s, m, _t(dst), n_nodes, bc=bc,
+            msg_rows=None if e2u is None else _t(e2u))
+        return torch.sum(out * _t(cot))
+
+    def ref(s, m):
+        out = rops.edge_softmax_agg(
+            s, m, jnp.asarray(dst), n_nodes, bc=rbc,
+            backend="pallas_interpret",
+            msg_rows=None if e2u is None else jnp.asarray(e2u))
+        return jnp.sum(out * cot)
+
+    got = _torch_grads(ours, scores, msg)
+    want = jax.grad(ref, argnums=(0, 1))(jnp.asarray(scores),
+                                         jnp.asarray(msg))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(b), **GRAD_TOL)
+
+
+def test_gradcheck_fp64_plain_paths():
+    """``torch.autograd.gradcheck`` of every autograd Function on the CPU
+    (the plain versions keep fp64)."""
+    rng = np.random.default_rng(51)
+
+    def t64(a):
+        return torch.from_numpy(np.asarray(a, np.float64)).requires_grad_()
+
+    ptr, m = _segments(rng, 4, 9, empty=(1,))
+    ps = L.pad_segments(ptr, 4)
+    ps = L.pad_segments_rows(ps, L.pow2ceil(ps.padded_rows) * 2)
+    lay = ops.padded_segments_dev(ps)
+    gmap = _t(L.compose_gather_rows(ps, rng.integers(0, 7, m)))
+    x_src, x = t64(rng.normal(size=(7, 3))), t64(rng.normal(size=(m, 3)))
+    w, s = t64(rng.normal(size=(4, 3, 2))), t64(rng.normal(size=m))
+    assert torch.autograd.gradcheck(
+        lambda x, w, s: ops.segment_mm_gather(x, w, lay, gmap, row_scale=s),
+        (x_src, w, s))
+    assert torch.autograd.gradcheck(
+        lambda x, w, s: ops.segment_mm(x, w, lay, row_scale=s), (x, w, s))
+
+    n_nodes = 20
+    dst = np.concatenate([np.arange(n_nodes - 4),
+                          rng.integers(0, n_nodes, 30)]).astype(np.int32)
+    perm = np.argsort(dst, kind="stable").astype(np.int32)
+    dptr = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n_nodes), out=dptr[1:])
+    e2u = rng.integers(0, 11, dst.shape[0]).astype(np.int32)
+    bc = ops.blocked_csr_dev(L.block_csr(dptr, 4, 4), perm, e2u)
+    scores, msg = t64(rng.normal(size=dst.shape[0])), t64(
+        rng.normal(size=(11, 3)))
+    assert torch.autograd.gradcheck(
+        lambda sc, mg: ops.edge_softmax_agg(sc, mg, _t(dst), n_nodes, bc=bc,
+                                            msg_rows=_t(e2u)),
+        (scores, msg))
+    assert torch.autograd.gradcheck(
+        lambda sc: ops.edge_softmax(sc, _t(dst), n_nodes, bc=bc), (scores,))
+
+
+# ---------------------------------------------------------------------------
 # segment reductions and device dispatch
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("shape", [(40,), (40, 3)])
@@ -259,12 +492,14 @@ def test_compat_segment_reductions_match_reference(shape):
 
 def test_off_cpu_tensors_never_take_the_plain_path():
     """Tensors that are not on the CPU get the kernel or an error: the ops
-    whose kernel is not ported name it, and the kernel wrappers refuse a
-    device they have no kernel for (here ``meta``, which needs no card)."""
+    whose kernel is not ported name it, and the kernel wrappers (K1-K5, and
+    the GEMM backward that runs K4 and K5) refuse a device they have no
+    kernel for (here ``meta``, which needs no card)."""
     meta = torch.device("meta")
     ps = L.pad_segments(np.array([0, 5, 9]), 4)
     lay = ops.padded_segments_dev(ps).to(meta)
-    with pytest.raises(NotImplementedError, match="segment_mm_padded"):
+    with pytest.raises(ValueError, match="segment_mm_padded: no kernel for "
+                                         "device meta"):
         ops.segment_mm(torch.ones(9, 4, device=meta),
                        torch.ones(2, 4, 3, device=meta), lay)
     with pytest.raises(NotImplementedError,
@@ -277,12 +512,30 @@ def test_off_cpu_tensors_never_take_the_plain_path():
             torch.zeros(12, dtype=torch.int32, device=meta),
             torch.zeros(3, dtype=torch.int32, device=meta), tile=4)
     with pytest.raises(ValueError, match="no kernel for device meta"):
+        SK.segment_mm_padded(
+            torch.ones(12, 4, device=meta), torch.ones(2, 3, 4, device=meta),
+            torch.zeros(3, dtype=torch.int32, device=meta), tile=4,
+            transpose_w=True)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        SK.segment_outer_padded(
+            torch.ones(12, 4, device=meta), torch.ones(12, 3, device=meta),
+            lay.group_tile_ptr, lay.group_chunk_ptr, num_groups=2,
+            num_chunks=lay.num_chunks, tile=4)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         TK.seg_stats_padded(
             torch.ones(2, 4, device=meta),
             torch.zeros(2, 4, dtype=torch.int32, device=meta),
             torch.zeros(2, dtype=torch.int32, device=meta),
             torch.zeros(2, dtype=torch.int32, device=meta),
             node_block=4, num_node_blocks=1)
+    # the GEMM backward: dX through K4, dW through K5, never a plain path
+    gidx = torch.zeros(12, dtype=torch.int32, device=meta)
+    args = (torch.ones(12, 3, device=meta), torch.ones(5, 4, device=meta),
+            torch.ones(2, 4, 3, device=meta), None, None, lay, gidx)
+    with pytest.raises(ValueError, match="segment_mm_padded: no kernel"):
+        ops._gemm_backward((True, False, False), *args)
+    with pytest.raises(ValueError, match="segment_outer_padded: no kernel"):
+        ops._gemm_backward((False, True, False), *args)
 
 
 # ---------------------------------------------------------------------------

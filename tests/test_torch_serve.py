@@ -166,9 +166,11 @@ def test_block_executor_counts_new_and_repeated_signatures(compiled_pair):
 
 
 def test_fused_region_returns_attention_when_it_is_an_output():
-    """The fused softmax+aggregate region skips the per-edge attention under
-    ``no_grad`` unless the plan returns it; here the plan does, and both
-    outputs equal the reference's (Pallas interpret)."""
+    """The fused softmax+aggregate region computes the per-edge attention
+    only when something reads it; here the plan returns it, so both outputs
+    equal the reference's (Pallas interpret), and so do the gradients of a
+    loss over both, taken through the attention's own autograd Function
+    (K2's statistics, the softmax VJP) and the fused region's."""
     from repro.core import codegen as rcodegen
     from repro.core.ir.passes import lower_program as ref_lower
     from repro_torch.core import codegen
@@ -194,17 +196,59 @@ def test_fused_region_returns_attention_when_it_is_an_output():
     params = codegen.init_params(plan, g.num_etypes, g.num_ntypes,
                                  torch.Generator().manual_seed(0))
     x = np.random.default_rng(1).normal(size=(40, 6)).astype(np.float32)
+    kl = codegen.build_kernel_layouts(g, tile=8, node_block=8)
+    rkl = rcodegen.build_kernel_layouts(rg, tile=8, node_block=8)
     with torch.no_grad():
         out = codegen.execute_plan(
             plan, params, g.to_tensors(), {"feature": torch.from_numpy(x)},
-            codegen.build_kernel_layouts(g, tile=8, node_block=8))
-    rout = rcodegen.execute_plan(
-        rplan, {k: jax.numpy.asarray(v.numpy()) for k, v in params.items()},
-        rg.to_tensors(), {"feature": jax.numpy.asarray(x)},
-        rcodegen.build_kernel_layouts(rg, tile=8, node_block=8),
-        backend="pallas_interpret")
+            kl)
+    rparams = {k: jax.numpy.asarray(v.numpy()) for k, v in params.items()}
+
+    def rrun(p):
+        return rcodegen.execute_plan(
+            rplan, p, rg.to_tensors(), {"feature": jax.numpy.asarray(x)},
+            rkl, backend="pallas_interpret")
+
+    rout = rrun(rparams)
     assert set(out) == set(rout) == {"h", "att"}
     np.testing.assert_allclose(out["att"].numpy(), np.asarray(rout["att"]),
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(out["h"].numpy(), np.asarray(rout["h"]),
                                rtol=1e-4, atol=1e-4)
+
+    rng = np.random.default_rng(2)
+    c_h = rng.normal(size=out["h"].shape).astype(np.float32)
+    c_att = rng.normal(size=out["att"].shape).astype(np.float32)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    o = codegen.execute_plan(plan, leaves, g.to_tensors(),
+                             {"feature": torch.from_numpy(x)}, kl)
+    (torch.sum(o["h"] * torch.from_numpy(c_h))
+     + torch.sum(o["att"] * torch.from_numpy(c_att))).backward()
+
+    def rloss(p):
+        r = rrun(p)
+        return jax.numpy.sum(r["h"] * c_h) + jax.numpy.sum(r["att"] * c_att)
+
+    rgrads = jax.grad(rloss)(rparams)
+    assert set(rgrads) == set(leaves)
+    for name, t in leaves.items():
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(rgrads[name]),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_attention_is_computed_only_when_read():
+    """RGAT's plan never reads the attention tensor outside its fused
+    aggregation, so the executor skips it (with or without autograd)."""
+    from repro_torch.core import codegen
+    from repro_torch.core.ir import intra_op as O
+    from repro_torch.core.ir.passes import lower_program
+    from repro_torch.models import rgat_program
+
+    plan = lower_program(rgat_program(8, 8))
+    (trav,) = [op for op in plan.ops if isinstance(op, O.TraversalSpec)]
+    fused = [j for j, s in enumerate(trav.stmts)
+             if s.kind == "segment_sum" and s.scale is not None]
+    assert len(fused) == 1
+    att = trav.stmts[fused[0]].scale
+    assert not codegen._read_elsewhere(plan, trav, fused[0], att)
+    assert codegen._read_elsewhere(plan, trav, fused[0] - 1, att)
