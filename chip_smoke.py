@@ -4,57 +4,71 @@
     python3 chip_smoke.py            # one CUDA card; a few minutes
 
 Drives the port (``src/repro_torch``, never JAX nor the reference package)
-on one CUDA card, in phases; any failure exits non-zero:
+on one CUDA card, in phases, for the registry's models (RGAT, RGCN, HGT,
+rgcn_cat); any failure exits non-zero:
 
 1. card and build: the card's name and power limit, TF32 off, every kernel
    in ``src/repro_torch/csrc`` built from source (one ``nvcc`` per file,
    all at once), with the build seconds and ptxas's register report;
-2. kernels against their plain PyTorch versions on the card: K1-K3 at the
-   shapes one served mini-batch of phase 3 and one of phase 4 give them,
-   K4 and K5 at the shapes one sampled training step of phase 6 gives them
-   (all captured from real runs), plus edge cases (gather index -1, groups
-   and node blocks without tiles, pow2 pad tiles, the scale epilogue, k = 1
-   and n = 1, a transposed W, a group long enough for many K5 chunks, the
-   CUDA ``edge_softmax``, empty layouts that must not launch). Tolerances:
-   K1 and K4 rtol = atol = 1e-5 (fp32 sums of at most 64 terms); K2 ``mx``
-   exact, ``den`` rtol 1e-5; K3 rtol = atol = 2e-5 (the reference's own
-   fused-vs-oracle bound); K5 rtol = atol = 1e-6 (kernel and plain version
-   both sum in fp64, so they agree to the final fp32 rounding). At those
-   shapes, each kernel's device time (mean of 20 calls under
-   ``torch.profiler``), the wrapper's time per call (CUDA events, median of
-   25 runs of 10 calls: host cost included), its plain version's time, its
-   bound and, for K4, ``torch.bmm`` on the same tiles;
-3. serving at the driver's defaults (RGAT, 2 layers, 64 wide, aifb at
-   scale 1.0, fanout 5, 32 seeds x 8 batches) through
-   ``repro_torch.launch.serve_rgnn.serve``: every serving kernel (K1-K3)
-   must launch, every batch's logits be finite and match the same
-   mini-batch run through the port on the CPU (rtol = atol = 1e-4);
-4. the same at a larger size (bgs at scale 1.0, 1024 seeds x 4 batches);
-5. both serve runs again under ``torch.profiler``: each kernel's device
+2. kernels against their plain PyTorch versions on the card, at the shapes
+   real runs give them (all captured): one served mini-batch of each serve
+   phase (RGAT aifb-b32 and bgs-b1024: K1-K3; RGCN aifb-b32 and bgs-b1024:
+   K1, K7; HGT aifb-b32: K1-K4, K4 on the node-type segments) and one
+   sampled training step of RGAT, RGCN and HGT (aifb-b64: K1-K5, K7),
+   plus edge cases (gather index -1, groups and node blocks without tiles,
+   pow2 pad tiles, the scale epilogue, k = 1 and n = 1, a transposed W, a
+   group long enough for many K5 chunks, the CUDA ``edge_softmax``, K7
+   with ``scale=None``, compact rows with -1, d = 1, empty layouts that
+   must not launch). Tolerances: K1 and K4 rtol = atol = 1e-5 (fp32 sums
+   of at most 64 terms); K2 ``mx`` exact, ``den`` rtol 1e-5; K3 rtol = atol
+   = 2e-5 (the reference's own fused-vs-oracle bound); K5 rtol = atol =
+   1e-6 and K7 rtol = atol = 1e-5 (the reference's ``test_weighted_agg``
+   bound; kernel and plain version both sum in fp64, so they agree to the
+   final fp32 rounding). At the RGAT aifb served batch (K1-K3), the RGAT
+   training step (K4, K5) and the RGCN aifb served batch (K7): each
+   kernel's device time (mean of 20 calls under ``torch.profiler``), the
+   wrapper's time per call (CUDA events, median of 25 runs of 10 calls:
+   host cost included), its plain version's time, its bound and, for K4,
+   ``torch.bmm`` on the same tiles, for K7 ``torch.sparse.mm`` of the
+   scales as a CSR matrix;
+3. serving at the driver's defaults (2 layers, 64 wide, aifb at scale 1.0,
+   fanout 5, 32 seeds x 8 batches) through
+   ``repro_torch.launch.serve_rgnn.serve``, for RGAT, RGCN, HGT and
+   rgcn_cat: each model's kernels (RGAT K1-K3, RGCN and rgcn_cat K1 + K7,
+   HGT K1-K4) must launch and no other, every batch's logits be finite
+   and match the same mini-batch run through the port on the CPU
+   (rtol = atol = 1e-4);
+4. the same at a larger size (bgs at scale 1.0, 1024 seeds x 4 batches),
+   for RGAT and RGCN;
+5. every serve run again under ``torch.profiler``: each kernel's device
    time per launch and per batch, and the device's busy share of the loop;
 6. sampled training through ``repro_torch.launch.train_rgnn.train`` (aifb
-   at scale 1.0, RGAT, 2 layers, 64 wide, 8 classes, fanout 5, batch 64,
-   1 epoch, lr 1e-2): K1-K5 launch at RGAT's per-step counts (K1 x 6,
-   K2 x 2, K3 x 2, K4 x 3, K5 x 6, plus the full-graph forwards' K1-K3),
-   the loss is finite and falls (mean of the last 10 steps below the mean
-   of the first 10); then one ``grad_and_update`` on the card and on the
-   CPU from one state (after 5 card steps; see ``TrainTask``) on one
-   mini-batch: loss rtol 1e-5, params and ``mu`` rtol 1e-4 / atol 1e-6
-   (the reference's own step-parity bounds);
-7. full-graph training (``FullGraphTrainer``): aifb, one step on the card
-   against the CPU from phase 6's state, at its bounds; bgs at scale 1.0, 3 steps
-   with a finite loss, timed;
-8. one sampled step and one bgs full-graph step under ``torch.profiler``:
-   device time per kernel and per step, the device's busy share, and the
-   split between the ``forward`` / ``backward`` / ``optimizer`` ranges.
+   at scale 1.0, 2 layers, 64 wide, 8 classes, fanout 5, batch 64, 1
+   epoch, HGT 2, lr 1e-2) of RGAT, RGCN and HGT: the kernels launch at each
+   model's per-step counts (``STEP_LAUNCHES``, plus the full-graph
+   forwards' ``FORWARD_LAUNCHES``), the loss is finite and falls (mean of
+   the last 10 steps below the mean of the first 10); then one
+   ``grad_and_update`` on the card and on the CPU from one state (after 5
+   card steps; see ``TrainTask``) on one mini-batch: loss rtol 1e-5,
+   params and ``mu`` rtol 1e-4 / atol 1e-6 (the reference's own
+   step-parity bounds);
+7. full-graph training (``FullGraphTrainer``) of each: aifb, one step on
+   the card against the CPU from phase 6's state, at its bounds; bgs at
+   scale 1.0, 3 steps with a finite loss, timed;
+8. one sampled step and one bgs full-graph step of each under
+   ``torch.profiler``: device time per kernel and per step, the device's
+   busy share, the split between the ``forward`` / ``backward`` /
+   ``optimizer`` ranges, and the device ops that take the most time.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every number
-as JSON, ``--trace-dir DIR`` the phase-8 Chrome traces.
+The line before the last is ``{"kernels": [...]}`` (``launches``: phase
+6's runs of all three models); the last line is ``{"ok": true, "device":
+{...}}``. ``--out PATH`` also writes every number as JSON, ``--trace-dir
+DIR`` the phase-8 Chrome traces.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import pathlib
@@ -62,6 +76,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -70,54 +85,80 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
+# the kernel wrappers, as ``ops.launch_counts()`` names them
+K1, K2, K3 = ("segment_mm_gather_padded", "seg_stats_padded",
+              "seg_softmax_agg_gather_padded")
+K4, K5, K7 = ("segment_mm_padded", "segment_outer_padded",
+              "seg_weighted_agg_gather_padded")
+
 SERVE_DEFAULTS = dict(model="rgat", dataset="aifb", scale=1.0, layers=2,
                       dim=64, hidden=64, classes=16, fanouts=[5, 5],
                       batch_size=32, num_batches=8, tile=32, node_block=32,
                       seed=0)
 SERVE_LARGE = dict(SERVE_DEFAULTS, dataset="bgs", batch_size=1024,
                    num_batches=4)
+# phases 3-5: (tag, config) of every serve run, in order
+SERVE_RUNS = (
+    ("rgat aifb", SERVE_DEFAULTS), ("rgat bgs", SERVE_LARGE),
+    ("rgcn aifb", dict(SERVE_DEFAULTS, model="rgcn")),
+    ("hgt aifb", dict(SERVE_DEFAULTS, model="hgt")),
+    ("rgcn_cat aifb", dict(SERVE_DEFAULTS, model="rgcn_cat")),
+    ("rgcn bgs", dict(SERVE_LARGE, model="rgcn")))
 TRAIN = dict(model="rgat", dataset="aifb", scale=1.0, layers=2, dim=64,
              hidden=64, classes=8, fanouts=[5, 5], batch_size=64, epochs=1,
              lr=1e-2, tile=32, node_block=32, seed=0)
-# RGAT's launches per sampled training step (2 layers; 3 GEMMs and one
-# fused softmax + aggregation per layer; layer 0's input needs no dX) and
-# per full-graph forward
-TRAIN_STEP_LAUNCHES = {"segment_mm_gather_padded": 6, "seg_stats_padded": 2,
-                       "seg_softmax_agg_gather_padded": 2,
-                       "segment_mm_padded": 3, "segment_outer_padded": 6}
-FULL_FORWARD_LAUNCHES = {"segment_mm_gather_padded": 6,
-                         "seg_stats_padded": 2,
-                         "seg_softmax_agg_gather_padded": 2,
-                         "segment_mm_padded": 0, "segment_outer_padded": 0}
+# the trained models and their epochs: HGT's sampled loss rises over its
+# first epoch at these settings (the same arithmetic on the CPU) and falls
+# in the second, so it trains for two
+TRAIN_EPOCHS = {"rgat": 1, "rgcn": 1, "hgt": 2}
+# launches per sampled training step (2 layers; layer 0's input needs no
+# dX). RGAT: 3 gathered GEMMs (K1) and one fused softmax + aggregation
+# (K2 + K3) per layer; dX by K4 of the 3 GEMMs of layer 1, dW by K5 of
+# all 6. RGCN: one gathered GEMM (K1) and one mean aggregation (K7) per
+# layer (W_self is untyped: a plain matmul). HGT: 3 node-typed GEMMs (K4)
+# and 2 gathered ones (K1) and the fused softmax tail (K2 + K3) per layer;
+# dX by K4 of the 4 gathered GEMMs and of layer 1's 3 node-typed ones,
+# dW by K5 of all 10.
+STEP_LAUNCHES = {
+    "rgat": {K1: 6, K2: 2, K3: 2, K4: 3, K5: 6},
+    "rgcn": {K1: 2, K7: 2, K4: 1, K5: 2},
+    "hgt": {K1: 4, K2: 2, K3: 2, K4: 13, K5: 10},
+}
+# launches per 2-layer forward (a full-graph forward; every served batch)
+FORWARD_LAUNCHES = {
+    "rgat": {K1: 6, K2: 2, K3: 2},
+    "rgcn": {K1: 2, K7: 2},
+    "rgcn_cat": {K1: 2, K7: 2},
+    "hgt": {K1: 4, K2: 2, K3: 2, K4: 6},
+}
 
 # each ported kernel: its source, the TPU kernel it replaces, the name of
 # its ``__global__`` function(s) as the profiler reports them, and how many
 # kernels one call launches
 KERNELS = {
-    "segment_mm_gather_padded": dict(
-        source="src/repro_torch/csrc/segment_mm.cu",
-        replaces="src/repro/kernels/segment_mm.py:120",
-        symbol="segment_mm_gather_kernel"),
-    "seg_stats_padded": dict(
-        source="src/repro_torch/csrc/traversal.cu",
-        replaces="src/repro/kernels/traversal.py:75",
-        symbol="seg_stats_kernel"),
-    "seg_softmax_agg_gather_padded": dict(
-        source="src/repro_torch/csrc/traversal.cu",
-        replaces="src/repro/kernels/traversal.py:224",
-        symbol="seg_softmax_agg_gather_kernel"),
-    "segment_mm_padded": dict(
-        source="src/repro_torch/csrc/segment_mm.cu",
-        replaces="src/repro/kernels/segment_mm.py:44",
-        symbol="segment_mm_padded_kernel"),
-    "segment_outer_padded": dict(
-        source="src/repro_torch/csrc/segment_mm.cu",
-        replaces="src/repro/kernels/segment_mm.py:194",
-        symbol="segment_outer_", per_call=2),     # partial + combine
+    K1: dict(source="src/repro_torch/csrc/segment_mm.cu",
+             replaces="src/repro/kernels/segment_mm.py:120",
+             symbol="segment_mm_gather_kernel"),
+    K2: dict(source="src/repro_torch/csrc/traversal.cu",
+             replaces="src/repro/kernels/traversal.py:75",
+             symbol="seg_stats_kernel"),
+    K3: dict(source="src/repro_torch/csrc/traversal.cu",
+             replaces="src/repro/kernels/traversal.py:224",
+             symbol="seg_softmax_agg_gather_kernel"),
+    K4: dict(source="src/repro_torch/csrc/segment_mm.cu",
+             replaces="src/repro/kernels/segment_mm.py:44",
+             symbol="segment_mm_padded_kernel"),
+    K5: dict(source="src/repro_torch/csrc/segment_mm.cu",
+             replaces="src/repro/kernels/segment_mm.py:194",
+             symbol="segment_outer_", per_call=2),     # partial + combine
+    K7: dict(source="src/repro_torch/csrc/traversal.cu",
+             replaces="src/repro/kernels/traversal.py:294",
+             symbol="seg_weighted_agg_gather_kernel"),
 }
-# the kernels of the serving path (phases 3-5); training runs all five
-SERVE_KERNELS = ("segment_mm_gather_padded", "seg_stats_padded",
-                 "seg_softmax_agg_gather_padded")
+# where each kernel is timed in phase 2: the captured calls of one served
+# batch ("<model> aifb") or one training step ("<model> step")
+TIMED_AT = {K1: "rgat aifb", K2: "rgat aifb", K3: "rgat aifb",
+            K4: "rgat step", K5: "rgat step", K7: "rgcn aifb"}
 
 
 def log(msg: str) -> None:
@@ -273,6 +314,43 @@ def k4_library(torch, args, kw):
     return lambda: torch.bmm(xt, wt)
 
 
+def k7_work(torch, args, kw):
+    """K7: each slot's scale, destination and message index read once, each
+    distinct message row used read once, the output written once; 2*d
+    FLOPs per slot that adds a row."""
+    scale_p, msg, mmap, local_dst = args[:4]
+    d = msg.shape[-1]
+    slots = scale_p.numel()
+    nodes = kw["num_node_blocks"] * kw["node_block"]
+    keep = (local_dst.reshape(-1) < kw["node_block"]) & (mmap >= 0)
+    rows = int(torch.unique(mmap[keep]).numel())
+    nbytes = slots * 12 + rows * d * 4 + (kw["num_node_blocks"] + 1) * 4 \
+        + nodes * d * 4
+    return nbytes, float(keep.sum()) * 2.0 * d
+
+
+def k7_library(torch, args, kw):
+    """One ``torch.sparse.mm`` of the slots' scales as a CSR
+    [nodes, Em] matrix (built beforehand, duplicates summed, not timed)
+    times the messages: the yardstick of K7, used nowhere in the port."""
+    scale_p, msg, mmap, local_dst, t2b = args[:5]
+    nb = kw["node_block"]
+    tile = local_dst.shape[-1]
+    ld = local_dst.reshape(-1).long()
+    keep = (ld < nb) & (mmap >= 0)
+    node = t2b[:local_dst.shape[0]].long().repeat_interleave(tile) * nb + ld
+    a = torch.sparse_coo_tensor(
+        torch.stack([node[keep], mmap[keep].long()]),
+        scale_p.detach().reshape(-1)[keep],
+        (kw["num_node_blocks"] * nb, msg.shape[0])).coalesce()
+    a = a.to_sparse_csr()
+    m = msg.detach()
+    return lambda: torch.sparse.mm(a, m)
+
+
+LIBRARY = {K4: ("torch.bmm", k4_library), K7: ("torch.sparse.mm", k7_library)}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions on the card
 # ---------------------------------------------------------------------------
@@ -292,10 +370,31 @@ def _recording(module, names, calls):
     return originals
 
 
+@contextlib.contextmanager
+def recorded_kernel_calls():
+    """Record the inputs of every kernel wrapper call inside the block:
+    ``{name: [(args, kw), ...]}``. The ops call K1-K3 and K7 through their
+    own module's names, which are wrapped for the block; they call K4 and
+    K5 through ``ops.SK``, which a stand-in namespace with recording
+    wrappers replaces for the block (the modules' own functions stay as
+    they are)."""
+    from repro_torch.kernels import ops, segment_mm
+    calls = {name: [] for name in KERNELS}
+    originals = _recording(ops, (K1, K2, K3, K7), calls)
+    ops.SK = types.SimpleNamespace(**vars(segment_mm))
+    _recording(ops.SK, (K4, K5), calls)
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(ops, name, fn)
+        ops.SK = segment_mm
+
+
 def capture_main_path_calls(torch, hector_torch, cfg):
     """Run the first mini-batch that ``serve(**cfg)`` serves (same graph,
-    seeds, weights and features) on the card and record every serving
-    kernel call's inputs."""
+    seeds, weights and features) on the card and record every kernel
+    call's inputs."""
     import numpy as np
 
     from repro_torch.core.graph import table3_graph
@@ -317,17 +416,9 @@ def capture_main_path_calls(torch, hector_torch, cfg):
         mb = next(loader)
     finally:
         loader.close()
-    # the ops call the kernel wrappers through their own module names:
-    # wrap those for one forward to record every call's inputs
-    from repro_torch.kernels import ops
-    calls = {name: [] for name in SERVE_KERNELS}
-    originals = _recording(ops, SERVE_KERNELS, calls)
-    try:
+    with recorded_kernel_calls() as calls:
         out = engine.apply_blocks(params, mb, feats)
         torch.cuda.synchronize()
-    finally:
-        for name, fn in originals.items():
-            setattr(ops, name, fn)
     check(bool(torch.isfinite(out).all()), "captured batch has non-finite "
           "logits")
     return calls
@@ -407,29 +498,20 @@ class TrainTask:
             {"feature": self.x_cpu[self.mb_cpu.input_ids.long()]})
 
 
-def capture_train_calls(torch, task):
-    """Record the K4 and K5 calls of one sampled training step of phase
-    6's configuration on the card. The GEMM backward calls them through
-    ``ops.SK``; a stand-in namespace with recording wrappers takes its
-    place for the step (the module's own functions stay as they are)."""
-    import types
-
-    from repro_torch.kernels import ops, segment_mm
-    names = ("segment_mm_padded", "segment_outer_padded")
-    calls = {name: [] for name in names}
-    ops.SK = types.SimpleNamespace(**vars(segment_mm))
-    _recording(ops.SK, names, calls)
-    try:
+def capture_train_calls(torch, task, model):
+    """Record every kernel call of one sampled training step of phase 6's
+    configuration on the card; one step calls each kernel as many times
+    as ``STEP_LAUNCHES`` says."""
+    with recorded_kernel_calls() as calls:
         _, metrics = task.step(torch)
         torch.cuda.synchronize()
-    finally:
-        ops.SK = segment_mm
-    check(bool(torch.isfinite(metrics["loss"])), "captured training step has "
-          "a non-finite loss")
-    for name in names:
-        want = TRAIN_STEP_LAUNCHES[name]
-        check(len(calls[name]) == want, f"{name}: {len(calls[name])} calls "
-              f"in one training step, expected {want}")
+    check(bool(torch.isfinite(metrics["loss"])), f"{model}: captured "
+          f"training step has a non-finite loss")
+    for name in KERNELS:
+        want = STEP_LAUNCHES[model].get(name, 0)
+        check(len(calls[name]) == want, f"{model}: {name}: "
+              f"{len(calls[name])} calls in one training step, expected "
+              f"{want}")
     return calls
 
 
@@ -448,22 +530,20 @@ def compare(torch, name, got, want, rtol, atol, exact=False):
 
 
 # tolerance of each kernel against its plain version (see the docstring)
-TOLERANCE = {"segment_mm_gather_padded": 1e-5, "segment_mm_padded": 1e-5,
-             "seg_softmax_agg_gather_padded": 2e-5,
-             "segment_outer_padded": 1e-6}
+TOLERANCE = {K1: 1e-5, K4: 1e-5, K3: 2e-5, K5: 1e-6, K7: 1e-5}
 
 
 def _shape(name, args, kw) -> str:
-    if name == "segment_mm_gather_padded":
+    if name == K1:
         return (f"Rp={args[2].shape[0]} real={int((args[2] >= 0).sum())} "
                 f"k={args[1].shape[1]} n={args[1].shape[2]} "
                 f"R={args[1].shape[0]}")
-    if name == "seg_stats_padded":
+    if name == K2:
         return f"slots={args[0].numel()} blocks={kw['num_node_blocks']}"
-    if name == "seg_softmax_agg_gather_padded":
+    if name in (K3, K7):
         return (f"slots={args[0].numel()} d={args[1].shape[1]} "
                 f"Em={args[1].shape[0]} blocks={kw['num_node_blocks']}")
-    if name == "segment_mm_padded":
+    if name == K4:
         return (f"Rp={args[0].shape[0]} k={args[0].shape[1]} "
                 f"w={tuple(args[1].shape)} "
                 f"transposed={bool(kw.get('transpose_w'))}")
@@ -472,40 +552,47 @@ def _shape(name, args, kw) -> str:
             f"R={kw['num_groups']} chunks={kw['num_chunks']}")
 
 
-def phase_kernels(torch, hector_torch, SK, TK, L, R, ops, task):
-    results = {name: dict(calls=[], max_abs_err=0.0) for name in KERNELS}
-    captured = {}
-    for tag, cfg in (("aifb", SERVE_DEFAULTS), ("bgs", SERVE_LARGE)):
-        captured[tag] = capture_main_path_calls(torch, hector_torch, cfg)
-        for name in SERVE_KERNELS:
-            check(len(captured[tag][name]) > 0,
-                  f"{name}: not reached on the {tag} path")
-        log(f"[phase 2] captured {tag} batch 0: "
-            + ", ".join(f"{k} x{len(v)}"
-                        for k, v in captured[tag].items()))
-    train_calls = capture_train_calls(torch, task)
-    log("[phase 2] captured one aifb-b64 training step: "
-        + ", ".join(f"{k} x{len(v)}" for k, v in train_calls.items()))
-    calls = dict(captured["aifb"], **train_calls)
+# the serve runs whose first batch phase 2 captures (RGAT's and RGCN's at
+# both sizes, HGT's at aifb), then the training step of each model
+CAPTURED_SERVE = ("rgat aifb", "rgat bgs", "rgcn aifb", "rgcn bgs",
+                  "hgt aifb")
 
-    plain = {
-        "segment_mm_gather_padded": SK.segment_mm_gather_padded_plain,
-        "seg_stats_padded": TK.seg_stats_padded_plain,
-        "seg_softmax_agg_gather_padded":
-            TK.seg_softmax_agg_gather_padded_plain,
-        "segment_mm_padded": SK.segment_mm_padded_plain,
-        "segment_outer_padded": SK.segment_outer_padded_plain,
-    }
-    kernel = {
-        "segment_mm_gather_padded": SK.segment_mm_gather_padded,
-        "seg_stats_padded": TK.seg_stats_padded,
-        "seg_softmax_agg_gather_padded": TK.seg_softmax_agg_gather_padded,
-        "segment_mm_padded": SK.segment_mm_padded,
-        "segment_outer_padded": SK.segment_outer_padded,
-    }
-    work = {"segment_mm_gather_padded": k1_work, "seg_stats_padded": k2_work,
-            "seg_softmax_agg_gather_padded": k3_work,
-            "segment_mm_padded": k4_work, "segment_outer_padded": k5_work}
+
+def phase_kernels(torch, hector_torch, SK, TK, L, R, ops, tasks):
+    results = {name: dict(calls=[], max_abs_err=0.0, max_abs_err_by={})
+               for name in KERNELS}
+    captured = {}
+    runs = dict(SERVE_RUNS)
+    for tag in CAPTURED_SERVE:
+        cfg = runs[tag]
+        captured[tag] = capture_main_path_calls(torch, hector_torch, cfg)
+        for name in KERNELS:
+            n = len(captured[tag][name])
+            if FORWARD_LAUNCHES[cfg["model"]].get(name, 0):
+                check(n > 0, f"{name}: not reached on the {tag} path")
+            else:
+                check(n == 0, f"{name}: {n} calls on the {tag} path")
+        log(f"[phase 2] captured {tag} batch 0: "
+            + ", ".join(f"{k} x{len(v)}" for k, v in captured[tag].items()
+                        if v))
+    for model, task in tasks.items():
+        captured[f"{model} step"] = capture_train_calls(torch, task, model)
+        log(f"[phase 2] captured one {model} aifb-b64 training step: "
+            + ", ".join(f"{k} x{len(v)}"
+                        for k, v in captured[f"{model} step"].items() if v))
+
+    plain = {K1: SK.segment_mm_gather_padded_plain,
+             K2: TK.seg_stats_padded_plain,
+             K3: TK.seg_softmax_agg_gather_padded_plain,
+             K4: SK.segment_mm_padded_plain,
+             K5: SK.segment_outer_padded_plain,
+             K7: TK.seg_weighted_agg_gather_padded_plain}
+    kernel = {K1: SK.segment_mm_gather_padded, K2: TK.seg_stats_padded,
+              K3: TK.seg_softmax_agg_gather_padded,
+              K4: SK.segment_mm_padded, K5: SK.segment_outer_padded,
+              K7: TK.seg_weighted_agg_gather_padded}
+    work = {K1: k1_work, K2: k2_work, K3: k3_work, K4: k4_work,
+            K5: k5_work, K7: k7_work}
     # the training captures hold parameter leaves: compare and time without
     # recording gradients
     plain = {k: torch.no_grad()(f) for k, f in plain.items()}
@@ -515,7 +602,7 @@ def phase_kernels(torch, hector_torch, SK, TK, L, R, ops, task):
         got = kernel[name](*args, **kw)
         want = plain[name](*args, **kw)
         torch.cuda.synchronize()
-        if name == "seg_stats_padded":
+        if name == K2:
             e1 = compare(torch, name + ".mx", got[0], want[0], 0, 0,
                          exact=True)
             e2 = compare(torch, name + ".den", got[1], want[1], 1e-5, 0)
@@ -523,61 +610,73 @@ def phase_kernels(torch, hector_torch, SK, TK, L, R, ops, task):
         tol = TOLERANCE[name]
         return compare(torch, name, got, want, tol, tol)
 
-    for name, lst in calls.items():
-        r = results[name]
-        meta = KERNELS[name]
-        for i, (args, kw) in enumerate(lst):
-            err = run_compare(name, args, kw)
-            fn = lambda: kernel[name](*args, **kw)           # noqa: E731
-            per_call = meta.get("per_call", 1)
-            if name == "segment_outer_padded" and kw["num_chunks"] == 0:
-                per_call = 1
-            ms = device_ms(torch, fn, meta["symbol"], per_call=per_call)
-            wrapper_ms = time_ms(torch, fn)
-            plain_ms = time_ms(torch, lambda: plain[name](*args, **kw))
-            library_ms = (time_ms(torch, k4_library(torch, args, kw))
-                          if name == "segment_mm_padded" else None)
-            nbytes, flops = work[name](torch, args, kw)
-            b_ms, b_by = bound(nbytes, flops)
-            shape = _shape(name, args, kw)
-            r["calls"].append(dict(shape=shape, ms=ms,
-                                   wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                                   library_ms=library_ms,
-                                   bound_ms=b_ms, bound_by=b_by,
-                                   bytes=nbytes, flops=flops,
-                                   max_abs_err=err))
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            log(f"[phase 2] {name}[{i}] {shape}: max abs err {err:.3g}; "
-                f"kernel {ms:.5f} ms on the device, wrapper {wrapper_ms:.4f}"
-                f" ms, plain {plain_ms:.4f} ms"
-                + (f", torch.bmm {library_ms:.4f} ms"
-                   if library_ms is not None else "")
-                + f", bound {b_ms:.5f} ms ({b_by}, {nbytes} B, "
-                f"{flops:.0f} FLOP)")
-    # the bgs batch's calls, at the same tolerances (not timed)
-    for name, lst in captured["bgs"].items():
-        r = results[name]
-        r["max_abs_err_bgs"] = max(run_compare(name, args, kw)
-                                   for args, kw in lst)
-        r["max_abs_err"] = max(r["max_abs_err"], r["max_abs_err_bgs"])
-        log(f"[phase 2] {name}: {len(lst)} bgs calls match the plain "
-            f"version (max abs err {r['max_abs_err_bgs']:.3g})")
+    # every captured call against the plain version; the calls of TIMED_AT
+    # are timed too
+    for tag, calls in captured.items():
+        for name, lst in calls.items():
+            if not lst:
+                continue
+            r = results[name]
+            timed = TIMED_AT[name] == tag
+            errs = []
+            for i, (args, kw) in enumerate(lst):
+                err = run_compare(name, args, kw)
+                errs.append(err)
+                if not timed:
+                    continue
+                fn = lambda: kernel[name](*args, **kw)       # noqa: E731
+                per_call = KERNELS[name].get("per_call", 1)
+                if name == K5 and kw["num_chunks"] == 0:
+                    per_call = 1
+                ms = device_ms(torch, fn, KERNELS[name]["symbol"],
+                               per_call=per_call)
+                wrapper_ms = time_ms(torch, fn)
+                plain_ms = time_ms(torch, lambda: plain[name](*args, **kw))
+                library_ms = None
+                if name in LIBRARY:
+                    lib_name, make = LIBRARY[name]
+                    library_ms = time_ms(torch, make(torch, args, kw))
+                nbytes, flops = work[name](torch, args, kw)
+                b_ms, b_by = bound(nbytes, flops)
+                shape = _shape(name, args, kw)
+                r["calls"].append(dict(shape=shape, ms=ms,
+                                       wrapper_ms=wrapper_ms,
+                                       plain_ms=plain_ms,
+                                       library_ms=library_ms,
+                                       bound_ms=b_ms, bound_by=b_by,
+                                       bytes=nbytes, flops=flops,
+                                       max_abs_err=err))
+                log(f"[phase 2] {name}[{i}] ({tag}) {shape}: max abs err "
+                    f"{err:.3g}; kernel {ms:.5f} ms on the device, wrapper "
+                    f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms"
+                    + (f", {LIBRARY[name][0]} {library_ms:.4f} ms"
+                       if library_ms is not None else "")
+                    + f", bound {b_ms:.5f} ms ({b_by}, {nbytes} B, "
+                    f"{flops:.0f} FLOP)")
+            r["max_abs_err_by"][tag] = max(errs)
+            r["max_abs_err"] = max(r["max_abs_err"], max(errs))
+            if not timed:
+                log(f"[phase 2] {name}: {len(lst)} {tag} calls match the "
+                    f"plain version (max abs err {max(errs):.3g})")
     edge_cases(torch, SK, TK, L, ops, R, run_compare, results)
     for name, r in results.items():
-        unit = "served aifb batch" if name in SERVE_KERNELS \
-            else "aifb-b64 training step"
+        check(bool(r["calls"]), f"{name}: no timed call")
         for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms"):
             r[key] = sum(c[key] for c in r["calls"])
         r["library_ms"] = (sum(c["library_ms"] for c in r["calls"])
-                           if name == "segment_mm_padded" else None)
+                           if name in LIBRARY else None)
         by_bytes = sum(c["bound_ms"] for c in r["calls"]
                        if c["bound_by"] == "bytes")
         r["bound_by"] = "bytes" if by_bytes >= r["bound_ms"] / 2 \
             else "operations"
-        log(f"[phase 2] {name}: {len(r['calls'])} calls per {unit}, kernel "
-            f"{r['ms']:.5f} ms on the device, wrapper "
+        r["timed_at"] = TIMED_AT[name]
+        model, unit = TIMED_AT[name].split()
+        unit = "aifb-b64 training step" if unit == "step" \
+            else "served aifb batch"
+        log(f"[phase 2] {name}: {len(r['calls'])} calls per {model} {unit}"
+            f", kernel {r['ms']:.5f} ms on the device, wrapper "
             f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
-            + (f", torch.bmm {r['library_ms']:.4f} ms"
+            + (f", {LIBRARY[name][0]} {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "")
             + f", bound {r['bound_ms']:.5f} ms ({r['bound_by']}), max abs "
             f"err {r['max_abs_err']:.3g}")
@@ -587,8 +686,9 @@ def phase_kernels(torch, hector_torch, SK, TK, L, R, ops, task):
 def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
     """Inputs the served batches may not produce, held to the same
     tolerances: -1 gathers in real slots, groups and node blocks without
-    tiles, pow2 pad tiles, the scale epilogue, ``ops.edge_softmax`` on the
-    card (K2 and its epilogue) against the oracle, and empty layouts."""
+    tiles, pow2 pad tiles, the scale epilogue, ``ops.edge_softmax`` (K2
+    and its epilogue) and ``ops.weighted_agg`` (K7) on the card against
+    the oracles, K7 with ``scale=None`` and d = 1, and empty layouts."""
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -667,6 +767,34 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
                   "seg_softmax_agg_gather_padded: blocks without tiles not "
                   "zero")
             n_err += 2
+        # K7: scale=None (ones) and a scale, identity and compact rows, a
+        # real slot in nine without a message row, d = 64 / 16 / 1
+        for d, compact, with_scale in ((64, False, False), (64, True, True),
+                                       (16, False, True), (1, True, False)):
+            em = 700 if compact else 2000
+            msg = t(rng.normal(size=(em, d)).astype(np.float32))
+            rows = (t(rng.integers(0, em, 2000).astype(np.int32))
+                    if compact else None)
+            mmap = ops._msg_slot_map(bcd, rows).clone()
+            mmap[::9] = -1
+            scale = (t(rng.normal(size=2000).astype(np.float32))
+                     if with_scale else None)
+            kargs = (ops._padded_scale(scale, bcd, msg), msg, mmap,
+                     bcd.local_dst, bcd.t2b, bcd.block_tile_ptr)
+            err = run_compare(K7, kargs, kw)
+            results[K7]["max_abs_err"] = max(results[K7]["max_abs_err"], err)
+            out = TK.seg_weighted_agg_gather_padded(*kargs, **kw)
+            check(bool((out[empty] == 0).all()),
+                  "seg_weighted_agg_gather_padded: blocks without tiles not "
+                  "zero")
+            # the op on the card (K7 and the slot maps) against the oracle
+            agg = ops.weighted_agg(scale, msg, t(dst), n_nodes, bc=bcd,
+                                   msg_rows=rows)
+            err = compare(torch, "weighted_agg", agg, R.weighted_agg_ref(
+                scale, msg if rows is None else msg[rows.long()],
+                t(dst).long(), n_nodes), 1e-5, 1e-5)
+            results[K7]["max_abs_err"] = max(results[K7]["max_abs_err"], err)
+            n_err += 2
         n_err += 1
     # launch shapes the main path does not use: K1's scalar gather (k not a
     # multiple of 4), 8-row tiles and node blocks, K3 rows narrower than a
@@ -700,7 +828,11 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
         err = run_compare("seg_softmax_agg_gather_padded", kargs, kw)
         results["seg_softmax_agg_gather_padded"]["max_abs_err"] = max(
             results["seg_softmax_agg_gather_padded"]["max_abs_err"], err)
-    n_err += 3
+        kargs = (ops._padded_scale(None, bcd, msg), msg, bcd.edge_map,
+                 bcd.local_dst, bcd.t2b, bcd.block_tile_ptr)
+        err = run_compare(K7, kargs, kw)
+        results[K7]["max_abs_err"] = max(results[K7]["max_abs_err"], err)
+    n_err += 5
     # K4: k = 1 (the transposed dX of an n = 1 GEMM) and n = 1, W as
     # stored and transposed, groups without tiles, pow2 pad tiles, scale
     # on and off; K5 on the same layouts, plus one group of 40,000 rows
@@ -765,6 +897,15 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
                              torch.ones(0, 16, device=dev),
                              torch.zeros(0, dtype=torch.int32, device=dev),
                              8, bc=bce)
+    z7 = ops.weighted_agg(None, torch.ones(0, 16, device=dev),
+                          torch.zeros(0, dtype=torch.int32, device=dev), 8,
+                          bc=bce)
+    i32 = dict(dtype=torch.int32, device=dev)
+    z7k = TK.seg_weighted_agg_gather_padded(
+        torch.zeros(0, 32, device=dev), torch.ones(4, 16, device=dev),
+        torch.zeros(0, **i32), torch.zeros(0, 32, **i32),
+        torch.zeros(1, **i32), torch.zeros(1, **i32), node_block=32,
+        num_node_blocks=0)
     yk = SK.segment_mm_gather_padded(
         torch.ones(4, 64, device=dev), torch.ones(4, 64, 8, device=dev),
         torch.zeros(0, dtype=torch.int32, device=dev),
@@ -782,6 +923,8 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
         lay0.group_tile_ptr, lay0.group_chunk_ptr, num_groups=4,
         num_chunks=lay0.num_chunks, tile=32)
     torch.cuda.synchronize()
+    check(z7.shape == (8, 16) and not z7.any() and z7k.shape == (0, 16),
+          "empty layouts: wrong K7 outputs")
     check(y.shape == (0, 8) and z.shape == (8, 16) and not z.any()
           and yk.shape == (0, 8) and y4.shape == (0, 8)
           and y4k.shape == (0, 8) and dw0.shape == (4, 64, 8)
@@ -791,7 +934,8 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
         f"(-1 gathers, empty groups and node blocks, pow2 pad tiles, scale "
         f"on/off, CUDA edge_softmax, k = 30 and 7, 8-row tiles and node "
         f"blocks, d = 5 and 300, K4 k = 1 / n = 1 / transposed W, a K5 "
-        f"group of 40,000 rows); empty layouts launched nothing")
+        f"group of 40,000 rows, K7 scale=None, compact rows with -1, d = 1,"
+        f" the CUDA weighted_agg); empty layouts launched nothing")
 
 
 # ---------------------------------------------------------------------------
@@ -816,9 +960,13 @@ def phase_serve(torch, hector_torch, ops, serve_rgnn, cfg, tag):
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     log(f"[{tag}] launches on the served path: {json.dumps(launches)}")
-    for name in SERVE_KERNELS:
-        check(launches[name] > 0,
-              f"{tag}: {name} never launched on the served path")
+    for name in KERNELS:
+        if FORWARD_LAUNCHES[cfg["model"]].get(name, 0):
+            check(launches[name] > 0,
+                  f"{tag}: {name} never launched on the served path")
+        else:
+            check(launches[name] == 0, f"{tag}: {name} launched "
+                  f"{launches[name]} times on the served path")
     check(len(batches) == cfg["num_batches"], f"{tag}: batches missing")
     for _, step, logits in batches:
         check(logits.shape == (cfg["batch_size"], cfg["classes"]),
@@ -874,6 +1022,8 @@ def phase_profile(torch, serve_rgnn, cfg, tag):
         stats = serve_rgnn.serve(**cfg, device="cuda", log=lambda m: None)
         torch.cuda.synchronize()
     loop_s = stats["batches"] * stats["batch_size"] / stats["seeds_per_s"]
+    served = [name for name in KERNELS
+              if FORWARD_LAUNCHES[cfg["model"]].get(name, 0)]
     busy_us, per_kernel, top = 0.0, {}, {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -881,13 +1031,13 @@ def phase_profile(torch, serve_rgnn, cfg, tag):
         t = _device_us(e)
         busy_us += t
         top[e.key[:60]] = (t, e.count)
-        for name in SERVE_KERNELS:
+        for name in served:
             if KERNELS[name]["symbol"] in e.key:
                 n0, t0 = per_kernel.get(name, (0, 0.0))
                 per_kernel[name] = (n0 + e.count, t0 + t)
     check(busy_us > 0, f"{tag}: the profiler recorded no device time")
     out = {}
-    for name in SERVE_KERNELS:
+    for name in served:
         count, t_us = per_kernel.get(name, (0, 0.0))
         check(count > 0, f"{tag}: profiler saw no {name} launch")
         out[name] = dict(launches=count, device_ms_per_launch=t_us / count
@@ -936,14 +1086,16 @@ def compare_states(torch, tag, state, state_cpu, metrics, metrics_cpu):
 
 
 def phase_train(torch, ops, train_rgnn, task, cfg):
-    """Phase 6: sampled training through the driver, then one step on the
-    card against the CPU."""
+    """Phase 6: sampled training of ``cfg["model"]`` through the driver,
+    then one step on the card against the CPU."""
     import numpy as np
 
+    model = cfg["model"]
+    tag = f"phase 6 {model}"
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     stats = train_rgnn.train(**cfg, eval_every_epochs=0, device="cuda",
-                             log=lambda m: log(f"[phase 6] {m}"))
+                             log=lambda m: log(f"[{tag}] {m}"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -951,17 +1103,18 @@ def phase_train(torch, ops, train_rgnn, task, cfg):
     # full-graph forwards in train(): the teacher's labels and the final
     # train and validation evaluations
     full = 3
-    want = {name: TRAIN_STEP_LAUNCHES[name] * steps
-            + FULL_FORWARD_LAUNCHES[name] * full for name in KERNELS}
-    log(f"[phase 6] launches: {json.dumps(launches)} over {steps} steps and "
+    want = {name: STEP_LAUNCHES[model].get(name, 0) * steps
+            + FORWARD_LAUNCHES[model].get(name, 0) * full
+            for name in KERNELS}
+    log(f"[{tag}] launches: {json.dumps(launches)} over {steps} steps and "
         f"{full} full-graph forwards")
-    check(launches == want, f"phase 6: launches {launches}, expected {want}")
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
     losses = np.asarray(stats["losses"])
-    check(bool(np.isfinite(losses).all()), "phase 6: non-finite loss")
+    check(bool(np.isfinite(losses).all()), f"{tag}: non-finite loss")
     first, last = float(losses[:10].mean()), float(losses[-10:].mean())
-    check(last < first, f"phase 6: loss did not fall (first 10 steps "
+    check(last < first, f"{tag}: loss did not fall (first 10 steps "
           f"{first:.4f}, last 10 {last:.4f})")
-    log(f"[phase 6] {steps} steps: loss {first:.4f} (mean of the first 10) "
+    log(f"[{tag}] {steps} steps: loss {first:.4f} (mean of the first 10) "
         f"-> {last:.4f} (last 10); step p50 {stats['step_ms_p50']:.3f} ms, "
         f"p99 {stats['step_ms_p99']:.3f} ms, {stats['seeds_per_s']:.1f} "
         f"seeds/s; full-graph eval: val loss {stats['full_val_loss']:.4f} "
@@ -970,7 +1123,7 @@ def phase_train(torch, ops, train_rgnn, task, cfg):
         f"(phase wall {wall:.2f} s)")
     state, metrics = task.step(torch)
     state_cpu, metrics_cpu = task.cpu_step(torch)
-    worst = compare_states(torch, "phase 6", state, state_cpu, metrics,
+    worst = compare_states(torch, tag, state, state_cpu, metrics,
                            metrics_cpu)
     keys = ("steps", "step_ms_p50", "step_ms_p99", "seeds_per_s",
             "full_val_loss", "full_val_acc", "full_train_loss",
@@ -981,12 +1134,13 @@ def phase_train(torch, ops, train_rgnn, task, cfg):
 
 
 def phase_full_graph(torch, task, train_rgnn, cfg):
-    """Phase 7: full-graph steps — aifb on the card against the CPU, then
-    bgs at scale 1.0 for 3 timed steps."""
+    """Phase 7: full-graph steps of the task's model — aifb on the card
+    against the CPU, then bgs at scale 1.0 for 3 timed steps."""
     import dataclasses
 
     from repro_torch.train import FullGraphTrainer
 
+    tag = f"phase 7 {task.engine.cfg.model}"
     out = {}
     fg = FullGraphTrainer(task.engine, task.feats, task.labels,
                           task.train_ids, opt=task.opt, log=None)
@@ -998,7 +1152,7 @@ def phase_full_graph(torch, task, train_rgnn, cfg):
     out["aifb_first_step_ms"] = (time.perf_counter() - t0) * 1e3
     state_cpu, metrics_cpu = fg_cpu.step(task.state_cpu)
     out["aifb_step_parity"] = compare_states(
-        torch, "phase 7 aifb", state, state_cpu, metrics, metrics_cpu)
+        torch, f"{tag} aifb", state, state_cpu, metrics, metrics_cpu)
 
     bcfg = dataclasses.replace(task.engine.cfg, device="cuda")
     t0 = time.perf_counter()
@@ -1018,13 +1172,13 @@ def phase_full_graph(torch, task, train_rgnn, cfg):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
     check(all(math.isfinite(x) for x in losses),
-          f"phase 7 bgs: non-finite loss {losses}")
+          f"{tag} bgs: non-finite loss {losses}")
     out.update(bgs_step_ms=step_ms, bgs_losses=losses,
                bgs_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                bgs_nodes=engine.graph.num_nodes,
                bgs_edges=engine.graph.num_edges,
                bgs_train_nodes=len(train_ids))
-    log(f"[phase 7 bgs] {engine.graph.num_nodes} nodes, "
+    log(f"[{tag} bgs] {engine.graph.num_nodes} nodes, "
         f"{engine.graph.num_edges} edges, loss over {len(train_ids)} train "
         f"nodes {losses}; step ms {[round(x, 3) for x in step_ms]} (the "
         f"first builds the full-graph layouts); peak device memory "
@@ -1041,14 +1195,16 @@ def phase_train_profile(torch, task, full, trace_dir):
     """Phase 8: one sampled step (aifb-b64) and one bgs full-graph step
     under ``torch.profiler``: device time per kernel and per step (kernels
     and copies; the profiler's GPU-side range annotations are not device
-    work), the device's busy share of the step, and the device time of the
+    work), the device's busy share of the step, the device time of the
     kernels of the ``forward`` range, of the backward and of the
-    ``optimizer`` range."""
+    ``optimizer`` range, and the 8 device ops that take the most time,
+    with their range."""
     from torch.profiler import ProfilerActivity, profile
 
     fg, state = full.pop("bgs_trainer"), full.pop("bgs_state")
-    runs = {"sampled aifb-b64": lambda: task.step(torch),
-            "full-graph bgs": lambda: fg.step(state)}
+    model = task.engine.cfg.model
+    runs = {f"{model} sampled aifb-b64": lambda: task.step(torch),
+            f"{model} full-graph bgs": lambda: fg.step(state)}
     out = {}
     for tag, fn in runs.items():
         fn()
@@ -1066,7 +1222,7 @@ def phase_train_profile(torch, task, full, trace_dir):
                       if e.device_type == torch.autograd.DeviceType.CUDA]
         spans = {e.name: (e.time_range.start, e.time_range.end)
                  for e in dev_events if e.name in RANGES}
-        busy_us, per_kernel = 0.0, {}
+        busy_us, per_kernel, top = 0.0, {}, {}
         ranges = dict.fromkeys(RANGES, 0.0)
         for e in dev_events:
             if e.name in RANGES:
@@ -1086,6 +1242,8 @@ def phase_train_profile(torch, task, full, trace_dir):
                 if lo <= e.time_range.start <= hi:
                     where = rng
             ranges[where] += t
+            c0, d0 = top.get((where, e.name[:60]), (0, 0.0))
+            top[(where, e.name[:60])] = (c0 + 1, d0 + t)
         check(busy_us > 0, f"phase 8 {tag}: no device time recorded")
         host = dict.fromkeys(RANGES, 0.0)
         for e in prof.events():
@@ -1097,6 +1255,9 @@ def phase_train_profile(torch, task, full, trace_dir):
                    kernels={k: dict(launches=c, device_ms=t / 1e3)
                             for k, (c, t) in per_kernel.items()},
                    range_device_ms={k: v / 1e3 for k, v in ranges.items()},
+                   top=[dict(range=w, name=n, launches=c, device_ms=t / 1e3)
+                        for (w, n), (c, t) in sorted(
+                            top.items(), key=lambda kv: -kv[1][1])[:8]],
                    range_host_ms={k: v / 1e3 for k, v in host.items()})
         out[tag] = res
         log(f"[phase 8 {tag}] step {res['step_ms']:.3f} ms under the "
@@ -1111,6 +1272,9 @@ def phase_train_profile(torch, task, full, trace_dir):
             + ", host ms by range "
             + json.dumps({k: round(v, 3)
                           for k, v in res["range_host_ms"].items()}))
+        for op in res["top"]:
+            log(f"[phase 8 {tag}]   {op['device_ms']:9.3f} ms  "
+                f"x{op['launches']:<5d} {op['range']:9s} {op['name']}")
         if trace_dir:
             path = pathlib.Path(trace_dir)
             path.mkdir(parents=True, exist_ok=True)
@@ -1168,27 +1332,41 @@ def main(argv=None) -> int:
     seconds = {}
     try:
         t0 = time.perf_counter()
-        task = TrainTask(torch, hector_torch, TRAIN)
-        kernels = phase_kernels(torch, hector_torch, SK, TK, L, R, ops, task)
+        train_cfg = {m: dict(TRAIN, model=m, epochs=e)
+                     for m, e in TRAIN_EPOCHS.items()}
+        tasks = {m: TrainTask(torch, hector_torch, cfg)
+                 for m, cfg in train_cfg.items()}
+        kernels = phase_kernels(torch, hector_torch, SK, TK, L, R, ops,
+                                tasks)
         seconds["phase 2"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        serve = phase_serve(torch, hector_torch, ops, serve_rgnn,
-                            SERVE_DEFAULTS, "phase 3")
-        large = phase_serve(torch, hector_torch, ops, serve_rgnn,
-                            SERVE_LARGE, "phase 4")
+        serve = {}
+        for tag, cfg in SERVE_RUNS:
+            phase = "phase 4" if cfg["dataset"] == "bgs" else "phase 3"
+            serve[tag] = phase_serve(torch, hector_torch, ops, serve_rgnn,
+                                     cfg, f"{phase} {tag}")
         prof = {tag: phase_profile(torch, serve_rgnn, cfg, "phase 5 " + tag)
-                for tag, cfg in (("aifb", SERVE_DEFAULTS),
-                                 ("bgs", SERVE_LARGE))}
+                for tag, cfg in SERVE_RUNS}
         seconds["phases 3-5"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        train = phase_train(torch, ops, train_rgnn, task, TRAIN)
-        seconds["phase 6"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        full = phase_full_graph(torch, task, train_rgnn, TRAIN)
-        seconds["phase 7"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        train_prof = phase_train_profile(torch, task, full, args.trace_dir)
-        seconds["phase 8"] = time.perf_counter() - t0
+        train, full, train_prof = {}, {}, {}
+        for model, task in tasks.items():
+            t0 = time.perf_counter()
+            train[model] = phase_train(torch, ops, train_rgnn, task,
+                                       train_cfg[model])
+            seconds[f"phase 6 {model}"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            full[model] = phase_full_graph(torch, task, train_rgnn, TRAIN)
+            seconds[f"phase 7 {model}"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            train_prof[model] = phase_train_profile(torch, task, full[model],
+                                                    args.trace_dir)
+            seconds[f"phase 8 {model}"] = time.perf_counter() - t0
+        # the main path's launches: phase 6 of every model, each run from
+        # counts set to 0 just before it
+        launches = {name: sum(t["launches"][name] for t in train.values())
+                    for name in KERNELS}
+        for name, n in launches.items():
+            check(n > 0, f"{name} never launched on the main path")
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1199,15 +1377,17 @@ def main(argv=None) -> int:
     rows = []
     for name, meta in KERNELS.items():
         r = kernels[name]
-        served = prof["aifb"]["kernels"].get(name)
+        served = next((p["kernels"][name] for p in prof.values()
+                       if name in p["kernels"]), None)
         rows.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=train["launches"][name],
+            replaces=meta["replaces"], launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            wrapper_ms=r["wrapper_ms"],
-            served_launches=serve["launches"][name],
+            wrapper_ms=r["wrapper_ms"], timed_at=r["timed_at"],
+            served_launches=sum(v["launches"][name]
+                                for v in serve.values()),
             served_device_ms=(served["device_ms_per_batch"]
                               if served is not None else None)))
     if args.out:
@@ -1215,9 +1395,9 @@ def main(argv=None) -> int:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(
             card=card, build_s=build_s, seconds=seconds, kernels=kernels,
-            serve=serve, serve_large=large, profile=prof, train=train,
-            full_graph=full, train_profile=train_prof,
-            torch=torch.__version__, cuda=torch.version.cuda), indent=1))
+            serve=serve, profile=prof, train=train, full_graph=full,
+            train_profile=train_prof, torch=torch.__version__,
+            cuda=torch.version.cuda), indent=1))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

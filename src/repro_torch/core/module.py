@@ -52,13 +52,17 @@ class FullGraph:
 
 
 class HectorModule:
-    """One lowered Hector layer over the full graph."""
+    """One lowered Hector layer over the full graph. ``reorder`` and
+    ``compact`` select the lowering passes (linear-operator reordering,
+    compact materialization), both on by default as in the paper."""
 
     def __init__(
         self,
         program: I.Program,
         graph: HeteroGraph,
         *,
+        reorder: bool = True,
+        compact: bool = True,
         tile: int = 128,
         node_block: int = 128,
         device="cpu",
@@ -66,7 +70,7 @@ class HectorModule:
     ):
         self.program = program
         self.graph = graph
-        self.plan = lower_program(program)
+        self.plan = lower_program(program, reorder=reorder, compact=compact)
         self.device = torch.device(device)
         # shared across the layers of a stack (HectorStack passes its own)
         self.full = full if full is not None else FullGraph(
@@ -112,6 +116,8 @@ class HectorStack:
         programs: Sequence[I.Program],
         graph: HeteroGraph,
         *,
+        reorder: bool = True,
+        compact: bool = True,
         tile: int = 128,
         node_block: int = 128,
         activation: str = "relu",
@@ -123,7 +129,8 @@ class HectorStack:
         self.device = torch.device(device)
         self.full = FullGraph(graph, tile=tile, node_block=node_block,
                               device=self.device)
-        self.layers = [HectorModule(p, graph, device=self.device,
+        self.layers = [HectorModule(p, graph, reorder=reorder,
+                                    compact=compact, device=self.device,
                                     full=self.full) for p in programs]
         self.activation = activation
         self._act = codegen._ACTIVATIONS[activation]

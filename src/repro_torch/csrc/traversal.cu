@@ -1,5 +1,5 @@
-// K2 and K3: the fused edge-softmax + aggregation of the traversal template
-// (Hector Algorithm 2) over the blocked destination CSR.
+// K2, K3 and K7: the aggregations of the traversal template (Hector
+// Algorithm 2) over the blocked destination CSR.
 //
 // K2, seg_stats_f32 — per-destination softmax statistics:
 //     mx[v]  = max(-1e30, max_{e->v} s_e),  den[v] = sum_{e->v} exp(s_e - mx[v])
@@ -8,11 +8,17 @@
 //     out[v] = sum_{e->v} exp(s_e - mx[v]) / max(den[v], 1e-38) * msg[mmap[e]]
 //   Replaces traversal.py::seg_softmax_agg_gather_padded
 //   (_softmax_agg_gather_kernel, _gather_msg_tile).
+// K7, seg_weighted_agg_gather_f32 — gather-fused weighted aggregation (the
+// numerator of RGCN's mean; the division by the in-degree stays outside):
+//     out[v] = sum_{e->v} scale_e * msg[mmap[e]]
+//   Replaces traversal.py::seg_weighted_agg_gather_padded
+//   (_weighted_agg_gather_kernel).
 //
 // Bound on the H100: bytes (a few FLOPs per byte). K2 reads each slot's
 // score and local destination once and writes two floats per node; K3
 // reads each slot's score, destination and message index, one message row
-// of d floats per real slot, the node stats, and writes d floats per node.
+// of d floats per real slot, the node stats, and writes d floats per node;
+// K7 reads the same without the stats, a scale in place of the score.
 //
 // Design: the TPU kernels run their grid in order and accumulate a node
 // block's consecutive edge tiles into one VMEM output block, scattering with
@@ -23,13 +29,16 @@
 // in place of the sequential grid. Each tile's slots are staged in shared
 // memory. K2 gives every destination node of the block to one thread,
 // which takes the exact max in a first pass over the slots and the sum of
-// exponentials in a second. K3 first turns each staged slot into its
-// attention weight, then every (node, column) accumulator in shared memory
-// is owned by exactly one thread, which adds the slots of its node in slot
-// order; the message rows are gathered from global memory by index
-// (-1 contributes nothing), coalesced along the columns. No float atomics:
-// both results are deterministic. Node blocks that own no tile are written
-// too (mx = -1e30, den = 0, out = 0), which the TPU kernels never visit.
+// exponentials in a second. K3 and K7 share one body (agg_gather_body):
+// each staged slot gets its weight (K3: the attention from the score and
+// K2's stats; K7: the slot's scale), then every (node, column)
+// accumulator in shared memory is owned by exactly one thread, which adds
+// the slots of its node in slot order; the message rows are gathered from
+// global memory by index (-1 contributes nothing), coalesced along the
+// columns. No float atomics: the results are deterministic. Node blocks
+// that own no tile are written too (mx = -1e30, den = 0, out = 0), which
+// the TPU kernels never visit. Pad slots (local_dst == node_block) add
+// nothing, as the TPU kernels' zero scale for them does.
 //
 // Inputs and outputs are fp32; den and out accumulate in fp64. Bucketing
 // routes every pad edge to one pad node, which then sums tens of thousands
@@ -91,16 +100,17 @@ __global__ void seg_stats_kernel(const float* __restrict__ scores,
   }
 }
 
-__global__ void __launch_bounds__(kAggThreads)
-seg_softmax_agg_gather_kernel(const float* __restrict__ scores,
-                              const float* __restrict__ msg,
-                              const int* __restrict__ mmap,
-                              const int* __restrict__ local_dst,
-                              const int* __restrict__ block_tile_ptr,
-                              const float* __restrict__ mx,
-                              const float* __restrict__ den,
-                              float* __restrict__ out, int d, int node_block,
-                              int tile, int groups, int colw) {
+// One thread block per node block: stage each tile's (weight, message row,
+// destination), then every (node, column) accumulator has one owning
+// thread that adds in slot order. kSoftmax: the weight is the attention
+// exp(score - mx[v]) / max(den[v], 1e-38) (K3); else the slot's scale (K7).
+template <bool kSoftmax>
+__device__ __forceinline__ void agg_gather_body(
+    const float* __restrict__ weight, const float* __restrict__ msg,
+    const int* __restrict__ mmap, const int* __restrict__ local_dst,
+    const int* __restrict__ block_tile_ptr, const float* __restrict__ mx,
+    const float* __restrict__ den, float* __restrict__ out, int d,
+    int node_block, int tile, int groups, int colw) {
   extern __shared__ double smem_acc[];
   double* acc = smem_acc;                                     // [NB][d]
   float* s_att =
@@ -110,8 +120,6 @@ seg_softmax_agg_gather_kernel(const float* __restrict__ scores,
   const int b = blockIdx.x;
   const int t0 = block_tile_ptr[b];
   const int t1 = block_tile_ptr[b + 1];
-  const float* mxb = mx + (size_t)b * node_block;
-  const float* denb = den + (size_t)b * node_block;
   const int g = threadIdx.x / colw;
   const int cx = threadIdx.x - g * colw;
 
@@ -124,7 +132,12 @@ seg_softmax_agg_gather_kernel(const float* __restrict__ scores,
       float a = 0.f;
       int row = -1;
       if (v < node_block) {
-        a = expf(scores[slot] - mxb[v]) / fmaxf(denb[v], 1e-38f);
+        if (kSoftmax) {
+          const size_t nv = (size_t)b * node_block + v;
+          a = expf(weight[slot] - mx[nv]) / fmaxf(den[nv], 1e-38f);
+        } else {
+          a = weight[slot];
+        }
         row = mmap[slot];
       }
       s_att[i] = a;
@@ -151,6 +164,32 @@ seg_softmax_agg_gather_kernel(const float* __restrict__ scores,
   }
 }
 
+__global__ void __launch_bounds__(kAggThreads)
+seg_softmax_agg_gather_kernel(const float* __restrict__ scores,
+                              const float* __restrict__ msg,
+                              const int* __restrict__ mmap,
+                              const int* __restrict__ local_dst,
+                              const int* __restrict__ block_tile_ptr,
+                              const float* __restrict__ mx,
+                              const float* __restrict__ den,
+                              float* __restrict__ out, int d, int node_block,
+                              int tile, int groups, int colw) {
+  agg_gather_body<true>(scores, msg, mmap, local_dst, block_tile_ptr, mx, den,
+                        out, d, node_block, tile, groups, colw);
+}
+
+__global__ void __launch_bounds__(kAggThreads)
+seg_weighted_agg_gather_kernel(const float* __restrict__ scale,
+                               const float* __restrict__ msg,
+                               const int* __restrict__ mmap,
+                               const int* __restrict__ local_dst,
+                               const int* __restrict__ block_tile_ptr,
+                               float* __restrict__ out, int d, int node_block,
+                               int tile, int groups, int colw) {
+  agg_gather_body<false>(scale, msg, mmap, local_dst, block_tile_ptr, nullptr,
+                         nullptr, out, d, node_block, tile, groups, colw);
+}
+
 // Opt a kernel in to more than the default 48 KB of dynamic shared memory.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel* kernel, long long bytes) {
@@ -170,8 +209,9 @@ extern "C" long long seg_stats_smem_bytes(int tile) {
   return (long long)tile * (sizeof(float) + sizeof(int));
 }
 
-extern "C" long long seg_softmax_agg_smem_bytes(int d, int node_block,
-                                                int tile) {
+// K3's and K7's dynamic shared memory: the fp64 accumulators and one
+// tile's staged slots.
+extern "C" long long seg_agg_smem_bytes(int d, int node_block, int tile) {
   return (long long)node_block * d * sizeof(double) +
          (long long)tile * (sizeof(float) + 2 * sizeof(int));
 }
@@ -196,6 +236,27 @@ extern "C" int seg_stats_f32(const float* scores, const int* local_dst,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launch K3 or K7 with one thread block per node block: colw consecutive
+// threads cover a row's columns, `groups` such groups take the block's
+// nodes in turn. `args` are the kernel's pointer arguments.
+template <typename Kernel, typename... Args>
+int launch_agg(Kernel* kernel, int d, int num_node_blocks, int node_block,
+               int tile, void* stream, Args... args) {
+  if (num_node_blocks <= 0 || node_block <= 0 || d <= 0 || tile <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int colw = d < kAggThreads ? d : kAggThreads;
+  int groups = kAggThreads / colw;
+  if (groups > node_block) groups = node_block;
+  const long long smem = seg_agg_smem_bytes(d, node_block, tile);
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<num_node_blocks, colw * groups, smem,
+           static_cast<cudaStream_t>(stream)>>>(args..., d, node_block, tile,
+                                                groups, colw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // msg [em, d]; mmap, scores, local_dst [T * tile]; mx, den from
 // seg_stats_f32; out [num_node_blocks * node_block, d].
 extern "C" int seg_softmax_agg_gather_f32(
@@ -203,18 +264,18 @@ extern "C" int seg_softmax_agg_gather_f32(
     const int* local_dst, const int* block_tile_ptr, const float* mx,
     const float* den, float* out, int d, int num_node_blocks, int node_block,
     int tile, void* stream) {
-  if (num_node_blocks <= 0 || node_block <= 0 || d <= 0 || tile <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int colw = d < kAggThreads ? d : kAggThreads;
-  int groups = kAggThreads / colw;
-  if (groups > node_block) groups = node_block;
-  const long long smem = seg_softmax_agg_smem_bytes(d, node_block, tile);
-  cudaError_t e = allow_smem(seg_softmax_agg_gather_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  seg_softmax_agg_gather_kernel<<<num_node_blocks, colw * groups, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      scores, msg, mmap, local_dst, block_tile_ptr, mx, den, out, d,
-      node_block, tile, groups, colw);
-  return static_cast<int>(cudaGetLastError());
+  return launch_agg(seg_softmax_agg_gather_kernel, d, num_node_blocks,
+                    node_block, tile, stream, scores, msg, mmap, local_dst,
+                    block_tile_ptr, mx, den, out);
+}
+
+// scale_p (pad slots 0), mmap, local_dst [T * tile]; msg [em, d];
+// out [num_node_blocks * node_block, d].
+extern "C" int seg_weighted_agg_gather_f32(
+    const float* scale, const float* msg, const int* mmap,
+    const int* local_dst, const int* block_tile_ptr, float* out, int d,
+    int num_node_blocks, int node_block, int tile, void* stream) {
+  return launch_agg(seg_weighted_agg_gather_kernel, d, num_node_blocks,
+                    node_block, tile, stream, scale, msg, mmap, local_dst,
+                    block_tile_ptr, out);
 }

@@ -1,10 +1,10 @@
 """The ``hector_torch.compile()`` front door.
 
 One call takes a model (a DSL ``ModelSpec``, a registry name like
-``"rgat"``, or any ``prog_fn(in_dim, out_dim, **kw) -> Program``) plus a
-``HeteroGraph`` and builds the stack: per-layer traced programs ->
-validated/lowered plans -> ``HectorStack`` -> fanout sampler, on one
-device. The returned ``CompiledRGNN`` exposes ``init`` / ``apply`` (full
+``"rgcn"`` or ``"hgt"``, or any ``prog_fn(in_dim, out_dim, **kw) ->
+Program``) plus a ``HeteroGraph`` and builds the stack: per-layer traced
+programs -> validated/lowered plans -> ``HectorStack`` -> fanout sampler,
+on one device. The returned ``CompiledRGNN`` exposes ``init`` / ``apply`` (full
 graph) / ``apply_blocks`` (sampled mini-batch) / ``init_state`` /
 ``train_step`` (one sampled SGD step) / ``describe`` and delegates every
 other attribute to the underlying ``RGNNEngine``, so it drops into the
@@ -114,14 +114,20 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
     seed: int = 0,
     device=None,
     config=None,
+    model_args: Optional[dict] = None,
+    **model_kwargs,
 ) -> CompiledRGNN:
     """Compile ``model`` for ``graph`` on ``device`` (``None``: the CUDA
     card) and return a ``CompiledRGNN``.
 
-    ``model``: a registry name (``"rgat"``), a ``@hector_torch.model``
-    ``ModelSpec`` or any ``prog_fn(in_dim, out_dim) -> Program``.
+    ``model``: a registry name (``"rgcn" | "rgat" | "hgt" | "rgcn_cat"``),
+    a ``@hector_torch.model`` ``ModelSpec`` or any
+    ``prog_fn(in_dim, out_dim, **hparams) -> Program``.
     ``sample``: per-hop neighbor fanout of the mini-batch path — an int
     (every hop), a per-layer sequence, or ``-1`` for full neighborhoods.
+    Model hyperparameters ride along as extra keyword arguments, or in
+    ``model_args={...}`` where a name collides with a compile keyword
+    (e.g. RGCN's ``activation``).
     ``config``: a prebuilt ``train.engine.EngineConfig`` (overrides every
     other compilation keyword; ``model`` still wins if not ``None``).
     """
@@ -135,8 +141,21 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
     else:
         if isinstance(sample, (int, np.integer)):
             sample = [int(sample)] * layers
+        prog_fn = model
+        model_kwargs = {**(model_args or {}), **model_kwargs}
+        if model_kwargs:
+            import functools
+
+            from repro_torch.train.engine import MODEL_PROGRAMS
+            if isinstance(model, str) and model not in MODEL_PROGRAMS:
+                raise ValueError(f"unknown model {model!r}; "
+                                 f"have {sorted(MODEL_PROGRAMS)}")
+            base = MODEL_PROGRAMS[model] if isinstance(model, str) else model
+            prog_fn = functools.partial(base, **model_kwargs)
+            prog_fn.name = getattr(base, "name",
+                                   getattr(base, "__name__", "custom"))
         cfg = EngineConfig(
-            model=model, layers=layers, dim=dim, hidden=hidden,
+            model=prog_fn, layers=layers, dim=dim, hidden=hidden,
             classes=classes, fanouts=sample, tile=tile,
             node_block=node_block, activation=activation, seed=seed,
             device=device)

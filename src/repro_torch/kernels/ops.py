@@ -3,8 +3,7 @@
 The counterpart of ``repro.kernels.ops`` without its three backends: each
 op dispatches on the device of its tensors. On the CPU it runs the plain
 PyTorch versions (the CPU tests' path); on a CUDA card it launches the
-hand-written kernels (``segment_mm.py``, ``traversal.py``), and an op whose
-kernel is not ported yet raises ``NotImplementedError`` naming that kernel.
+hand-written kernels (``segment_mm.py``, ``traversal.py``) or raises.
 
 Every ``custom_vjp`` of the reference on the ported path is a
 ``torch.autograd.Function`` here, with the same backward on both devices:
@@ -14,7 +13,9 @@ Every ``custom_vjp`` of the reference on the ported path is a
 * ``segment_mm`` — forward K4; the same backward without the scatter;
 * ``edge_softmax_agg`` — forward K2 + K3; the backward is the reference's
   plain ops, with the attention rebuilt from K2's saved statistics;
-* ``edge_softmax`` — forward K2 and its epilogue; backward the softmax VJP.
+* ``edge_softmax`` — forward K2 and its epilogue; backward the softmax VJP;
+* ``weighted_agg`` — forward K7; the backward is the reference's plain
+  ops (``dmsg = scale · g``, scattered into a compact table; ``dscale``).
 
 The backward's scatter-adds (``dx``, the compact ``dmsg``, the softmax
 VJP's ``segment_sum``) are ``index_add_``, as the reference leaves them to
@@ -37,7 +38,8 @@ from repro_torch.kernels import segment_mm as SK
 from repro_torch.kernels import traversal as TK
 from repro_torch.kernels.segment_mm import segment_mm_gather_padded
 from repro_torch.kernels.traversal import (seg_softmax_agg_gather_padded,
-                                           seg_stats_padded)
+                                           seg_stats_padded,
+                                           seg_weighted_agg_gather_padded)
 
 
 # ---------------------------------------------------------------------------
@@ -149,12 +151,6 @@ def pad_rows(x: torch.Tensor, row_map: torch.Tensor,
     if x.dim() == 1:
         return torch.where(valid, xp, fill)
     return torch.where(valid[:, None], xp, fill)
-
-
-def _not_ported(kernel: str, what: str, device: torch.device):
-    return NotImplementedError(
-        f"{what} on {device} needs the kernel {kernel!r}, which is not "
-        f"ported to the card yet (run on the CPU with device='cpu')")
 
 
 # ---------------------------------------------------------------------------
@@ -442,8 +438,55 @@ def edge_softmax(scores: torch.Tensor, dst: torch.Tensor, num_nodes: int,
     return _EdgeSoftmax.apply(scores, dst, num_nodes, bc)
 
 
+def _padded_scale(scale: Optional[torch.Tensor], bc: BlockedCSRDev,
+                  like: torch.Tensor) -> torch.Tensor:
+    """Canonical per-edge scales -> [T, tile] dst-sorted slots (pads 0;
+    ``None`` means ones, as the reference's op takes it)."""
+    valid = bc.edge_map >= 0
+    if scale is None:
+        sp = valid.to(like.dtype)
+    else:
+        sp = torch.where(valid, scale[bc.edge_map.clamp(min=0).long()],
+                         scale.new_zeros(()))
+    return sp.reshape(-1, bc.edge_tile)
+
+
+class _WeightedAgg(torch.autograd.Function):
+    """``out[v] = Σ_{e→v} scale_e · msg_e``: K7 forward; the backward is the
+    reference's plain VJP (no second K7 launch)."""
+
+    @staticmethod
+    def forward(ctx, scale, msg, dst, msg_rows, num_nodes, bc,
+                msg_slot_map):
+        out = seg_weighted_agg_gather_padded(
+            _padded_scale(scale, bc, msg), msg, msg_slot_map, bc.local_dst,
+            bc.t2b, bc.block_tile_ptr, node_block=bc.node_block,
+            num_node_blocks=bc.num_node_blocks)
+        ctx.save_for_backward(scale, msg, dst, msg_rows)
+        return out[:num_nodes]
+
+    @staticmethod
+    def backward(ctx, dout):
+        scale, msg, dst, msg_rows = ctx.saved_tensors
+        g = dout[dst.long()]                            # [E, d]
+        contrib = g if scale is None else scale[:, None] * g
+        dscale = dmsg = None
+        if msg_rows is None:
+            msg_e = msg
+            if ctx.needs_input_grad[1]:
+                dmsg = contrib
+        else:                                           # compact messages
+            rows = msg_rows.long()
+            msg_e = msg[rows] if ctx.needs_input_grad[0] else None
+            if ctx.needs_input_grad[1]:
+                dmsg = torch.zeros_like(msg).index_add_(0, rows, contrib)
+        if ctx.needs_input_grad[0]:
+            dscale = torch.sum(msg_e * g, dim=-1)
+        return dscale, dmsg, None, None, None, None, None
+
+
 def weighted_agg(
-    scale: Optional[torch.Tensor],   # [E] or None
+    scale: Optional[torch.Tensor],   # [E] or None (ones)
     msg: torch.Tensor,               # [Em, d] in storage order
     dst: torch.Tensor,
     num_nodes: int,
@@ -451,20 +494,26 @@ def weighted_agg(
     msg_rows: Optional[torch.Tensor] = None,
     msg_slot_map: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """out[v] = Σ_{e→v} scale_e · msg_e. CPU only for now: the card needs
-    ``seg_weighted_agg_gather_padded``."""
+    """out[v] = Σ_{e→v} scale_e · msg_e (gather semantics as
+    ``edge_softmax_agg``) — K7 over the blocked CSR ``bc``; differentiable
+    in ``scale`` and ``msg``. Without ``bc``, the CPU oracle."""
     if dst.shape[0] == 0:
         return msg.new_zeros((num_nodes, msg.shape[-1]))
-    if msg.device.type != "cpu":
-        raise _not_ported("seg_weighted_agg_gather_padded", "weighted_agg",
-                          msg.device)
-    msg_e = msg if msg_rows is None else msg[msg_rows.long()]
-    return R.weighted_agg_ref(scale, msg_e, dst, num_nodes)
+    if bc is None:
+        if msg.device.type != "cpu":
+            raise ValueError("weighted_agg on CUDA needs the blocked CSR "
+                             "layout (bc)")
+        msg_e = msg if msg_rows is None else msg[msg_rows.long()]
+        return R.weighted_agg_ref(scale, msg_e, dst, num_nodes)
+    if msg_slot_map is None:
+        msg_slot_map = _msg_slot_map(bc, msg_rows)
+    return _WeightedAgg.apply(scale, msg, dst, msg_rows, num_nodes, bc,
+                              msg_slot_map)
 
 
 _COUNTED = (SK.segment_mm_gather_padded, TK.seg_stats_padded,
             TK.seg_softmax_agg_gather_padded, SK.segment_mm_padded,
-            SK.segment_outer_padded)
+            SK.segment_outer_padded, TK.seg_weighted_agg_gather_padded)
 
 
 def launch_counts() -> dict:

@@ -1,27 +1,33 @@
-"""Traversal-template kernels K2 and K3 (Hector Algorithm 2) and their
+"""Traversal-template kernels K2, K3 and K7 (Hector Algorithm 2) and their
 plain versions, over the blocked destination CSR (``BlockedCSR``).
 
-``seg_stats_padded``               per-destination softmax max and Σexp
-``seg_softmax_agg_gather_padded``  out[v] = Σ_e softmax(score)_e · msg[mmap[e]]
-                                   with the message gather inside the kernel
+``seg_stats_padded``                per-destination softmax max and Σexp
+``seg_softmax_agg_gather_padded``   out[v] = Σ_e softmax(score)_e · msg[mmap[e]]
+                                    with the message gather inside the kernel
+``seg_weighted_agg_gather_padded``  out[v] = Σ_e scale_e · msg[mmap[e]],
+                                    the same walk with a per-slot scale
 
 Each wrapper dispatches on the tensors' device: CPU runs the plain PyTorch
 version, CUDA launches the hand-written kernel in ``csrc/traversal.cu``
-(replacing ``repro/kernels/traversal.py::seg_stats_padded`` and
-``::seg_softmax_agg_gather_padded``). Nothing falls back; ``.launches``
+(replacing ``repro/kernels/traversal.py::seg_stats_padded``,
+``::seg_softmax_agg_gather_padded`` and
+``::seg_weighted_agg_gather_padded``). Nothing falls back; ``.launches``
 on each wrapper counts its kernel launches.
 
 The plain versions index nodes through the tile -> block map ``t2b``; the
 kernels walk each node block's tile range from ``block_tile_ptr``. Pad
-slots carry ``local_dst == node_block`` and contribute nothing. A node
-without edges, and every node of a block that owns no tile, gets
-``mx = -1e30``, ``den = 0`` and a zero output row. Inputs and outputs are
-fp32 (the plain versions keep their inputs' dtype); kernels and plain
-versions alike accumulate ``den`` and the output in fp64, so the long sums of the bucketing pad node stay within fp32 rounding
-and the two agree at any length.
+slots carry ``local_dst == node_block`` and contribute nothing (the
+reference gives them scale 0); a message index of -1 contributes nothing.
+A node without edges, and every node of a block that owns no tile, gets
+``mx = -1e30``, ``den = 0`` and a zero output row: the Pallas kernels never
+write the blocks without tiles. Inputs and outputs are fp32 (the plain
+versions keep their inputs' dtype); kernels and plain versions alike
+accumulate ``den`` and the outputs in fp64, so the long sums of the
+bucketing pad node stay within fp32 rounding and the two agree at any
+length.
 
-``seg_softmax_agg_padded``, ``seg_weighted_agg_gather_padded`` and
-``seg_weighted_agg_padded`` are not ported yet.
+``seg_softmax_agg_padded`` and ``seg_weighted_agg_padded`` (the
+materialized-gather baselines) are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,13 +43,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "seg_stats_f32": [_P] * 5 + [_I] * 3 + [_P],
     "seg_softmax_agg_gather_f32": [_P] * 8 + [_I] * 4 + [_P],
-    "seg_softmax_agg_smem_bytes": [_I] * 3,
+    "seg_weighted_agg_gather_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "seg_agg_smem_bytes": [_I] * 3,
 }
 
 
 def _library() -> ctypes.CDLL:
     return build.load("traversal", _SIGNATURES,
-                      sizes=("seg_softmax_agg_smem_bytes",))
+                      sizes=("seg_agg_smem_bytes",))
 
 
 def _slot_nodes(local_dst_p: torch.Tensor, t2b: torch.Tensor,
@@ -175,11 +182,7 @@ def seg_softmax_agg_gather_padded(scores_p, msg, mmap, local_dst_p, t2b,
     if num_node_blocks == 0 or d == 0:
         return out                # an empty grid is never launched
     lib = _library()
-    smem = lib.seg_softmax_agg_smem_bytes(d, node_block, tile)
-    if smem > build.MAX_SMEM_BYTES:
-        raise ValueError(f"seg_softmax_agg_gather_padded: node_block="
-                         f"{node_block}, d={d} needs {smem} bytes of shared "
-                         f"memory per block (limit {build.MAX_SMEM_BYTES})")
+    _check_smem(lib, d, node_block, tile, "seg_softmax_agg_gather_padded")
     args = [t.contiguous() for t in (scores_p, msg, mmap, local_dst_p,
                                      block_tile_ptr, mx, den)]
     with torch.cuda.device(dev):
@@ -193,6 +196,80 @@ def seg_softmax_agg_gather_padded(scores_p, msg, mmap, local_dst_p, t2b,
 
 
 seg_softmax_agg_gather_padded.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: gather-fused weighted aggregation
+# ---------------------------------------------------------------------------
+def seg_weighted_agg_gather_padded_plain(scale_p, msg, mmap, local_dst_p,
+                                         t2b, block_tile_ptr=None, *,
+                                         node_block: int,
+                                         num_node_blocks: int):
+    """Plain version of K7 -> [num_node_blocks * node_block, d]: K3's plain
+    version with the slot's scale in place of the attention."""
+    valid, node = _slot_nodes(local_dst_p, t2b, node_block)
+    rows = mmap.long()
+    keep = valid & (rows >= 0)
+    node, rows = node[keep], rows[keep]
+    s = scale_p.reshape(-1)[keep]
+    out = torch.zeros((num_node_blocks * node_block, msg.shape[-1]),
+                      dtype=torch.float64, device=msg.device)
+    out.index_add_(0, node, s.double()[:, None] * msg[rows].double())
+    return out.to(msg.dtype)
+
+
+def seg_weighted_agg_gather_padded(scale_p, msg, mmap, local_dst_p, t2b,
+                                   block_tile_ptr, *, node_block: int,
+                                   num_node_blocks: int):
+    """K7: scale-weighted aggregation with the message gather in-kernel.
+
+    scale_p: [T, tile] per-slot scale (pad slots 0); msg: [Em, d] in
+    storage order; mmap: [T * tile] slot -> msg row, or -1."""
+    if scale_p.device.type == "cpu":
+        return seg_weighted_agg_gather_padded_plain(
+            scale_p, msg, mmap, local_dst_p, t2b, block_tile_ptr,
+            node_block=node_block, num_node_blocks=num_node_blocks)
+    if scale_p.device.type != "cuda":
+        raise ValueError(f"seg_weighted_agg_gather_padded: no kernel for "
+                         f"device {scale_p.device}")
+    dev = scale_p.device
+    build.check_args("seg_weighted_agg_gather_padded", dev,
+                     scale_p=(scale_p, torch.float32),
+                     msg=(msg, torch.float32), mmap=(mmap, torch.int32),
+                     local_dst_p=(local_dst_p, torch.int32),
+                     block_tile_ptr=(block_tile_ptr, torch.int32))
+    _check_ptr(block_tile_ptr, num_node_blocks,
+               "seg_weighted_agg_gather_padded")
+    tile = int(local_dst_p.shape[-1])
+    d = int(msg.shape[-1])
+    out = torch.empty((num_node_blocks * node_block, d), dtype=torch.float32,
+                      device=dev)
+    if num_node_blocks == 0 or d == 0:
+        return out                # an empty grid is never launched
+    lib = _library()
+    _check_smem(lib, d, node_block, tile, "seg_weighted_agg_gather_padded")
+    args = [t.contiguous() for t in (scale_p, msg, mmap, local_dst_p,
+                                     block_tile_ptr)]
+    with torch.cuda.device(dev):
+        rc = lib.seg_weighted_agg_gather_f32(
+            *(t.data_ptr() for t in args), out.data_ptr(), d,
+            num_node_blocks, node_block, tile,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, rc, "seg_weighted_agg_gather_padded")
+    seg_weighted_agg_gather_padded.launches += 1
+    return out
+
+
+seg_weighted_agg_gather_padded.launches = 0
+
+
+def _check_smem(lib, d: int, node_block: int, tile: int,
+                kernel: str) -> None:
+    smem = lib.seg_agg_smem_bytes(d, node_block, tile)
+    if smem > build.MAX_SMEM_BYTES:
+        raise ValueError(f"{kernel}: node_block={node_block}, d={d} needs "
+                         f"{smem} bytes of shared memory per block (limit "
+                         f"{build.MAX_SMEM_BYTES})")
 
 
 def _check_ptr(block_tile_ptr, num_node_blocks: int, kernel: str) -> None:

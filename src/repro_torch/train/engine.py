@@ -19,10 +19,12 @@ import torch
 
 from repro_torch.core.graph import HeteroGraph
 from repro_torch.core.module import HectorStack
-from repro_torch.models import rgat_program
+from repro_torch.models import (hgt_program, rgat_program, rgcn_cat_program,
+                                rgcn_program)
 from repro_torch.sampling import FanoutSampler, MiniBatchLoader
 
-MODEL_PROGRAMS = {"rgat": rgat_program}
+MODEL_PROGRAMS = {"rgcn": rgcn_program, "rgat": rgat_program,
+                  "hgt": hgt_program, "rgcn_cat": rgcn_cat_program}
 
 
 def parse_fanout(spec: str, layers: int) -> List[int]:

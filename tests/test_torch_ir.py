@@ -1,6 +1,6 @@
-"""The port's own IR, DSL and RGAT model against the reference's: equal
-program renderings and plan fingerprints, and DSL diagnostics that name
-the offending model line."""
+"""The port's own IR, DSL and models (RGCN, RGAT, HGT, rgcn_cat) against
+the reference's: equal program renderings and plan fingerprints, and DSL
+diagnostics that name the offending model line."""
 import pytest
 
 import hector_torch
@@ -25,6 +25,50 @@ def test_rgat_plan_fingerprint_equal(reorder, compact):
     ref = ref_lower(ref_rgat(64, 16), reorder=reorder, compact=compact)
     assert ours.describe() == ref.describe()
     assert ours.fingerprint() == ref.fingerprint()
+
+
+@pytest.mark.parametrize("name", ["rgcn", "hgt", "rgcn_cat"])
+@pytest.mark.parametrize("dims", [(64, 64), (8, 4)])
+def test_new_model_programs_describe_and_fingerprint_equal(name, dims):
+    from repro.train.engine import MODEL_PROGRAMS as REF
+    from repro_torch.train.engine import MODEL_PROGRAMS
+
+    ours, ref = MODEL_PROGRAMS[name](*dims), REF[name](*dims)
+    assert ours.describe() == ref.describe()
+    assert ours.fingerprint() == ref.fingerprint()
+
+
+@pytest.mark.parametrize("name", ["rgcn", "hgt", "rgcn_cat"])
+@pytest.mark.parametrize("reorder", [True, False])
+@pytest.mark.parametrize("compact", [True, False])
+def test_new_model_plan_fingerprints_equal(name, reorder, compact):
+    from repro.train.engine import MODEL_PROGRAMS as REF
+    from repro_torch.train.engine import MODEL_PROGRAMS
+
+    ours = lower_program(MODEL_PROGRAMS[name](64, 16), reorder=reorder,
+                         compact=compact)
+    ref = ref_lower(REF[name](64, 16), reorder=reorder, compact=compact)
+    assert ours.describe() == ref.describe()
+    assert ours.fingerprint() == ref.fingerprint()
+
+
+def test_rgcn_activation_binds_as_the_reference():
+    from repro.models import rgcn_program as ref_rgcn
+    from repro_torch.models import rgcn_program
+
+    ours, ref = rgcn_program(8, 4, "tanh"), ref_rgcn(8, 4, "tanh")
+    assert ours.fingerprint() == ref.fingerprint()
+    assert ours.fingerprint() != rgcn_program(8, 4).fingerprint()
+
+
+def test_model_registries_agree():
+    from repro.models import DSL_MODELS as REF_DSL
+    from repro.train.engine import MODEL_PROGRAMS as REF
+    from repro_torch.models import DSL_MODELS
+    from repro_torch.train.engine import MODEL_PROGRAMS
+
+    assert sorted(MODEL_PROGRAMS) == sorted(REF) == sorted(DSL_MODELS) \
+        == sorted(REF_DSL) == ["hgt", "rgat", "rgcn", "rgcn_cat"]
 
 
 def test_rgat_plan_reaches_the_three_kernels():

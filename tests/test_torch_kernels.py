@@ -1,8 +1,9 @@
-"""Kernels K1-K5 of the port (their plain versions, the CPU path) against the
-reference's Pallas kernels run in interpret mode, on the same seeded numpy
-inputs, with the edge cases the card check also drives: gather index -1,
-groups and node blocks that own no tile, pow2 pad tiles, the scale
-epilogue on and off, k = 1 and n = 1, a transposed W, and empty layouts.
+"""Kernels K1-K5 and K7 of the port (their plain versions, the CPU path)
+against the reference's Pallas kernels run in interpret mode, on the same
+seeded numpy inputs, with the edge cases the card check also drives: gather
+index -1, groups and node blocks that own no tile, pow2 pad tiles, the
+scale epilogue on and off (K7: ``scale=None``), k = 1 and n = 1, d = 1, a
+transposed W, and empty layouts.
 The autograd Functions of the ops against ``jax.grad`` of the reference's
 ``custom_vjp`` ops (Pallas interpret), and ``gradcheck`` in fp64.
 
@@ -158,6 +159,97 @@ def test_k2_k3_match_pallas_interpret(grow, d, compact):
 
 
 # ---------------------------------------------------------------------------
+# K7: gather-fused weighted aggregation
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("grow", [False, True])
+@pytest.mark.parametrize("d,compact", [(64, True), (16, False), (1, True)])
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_k7_matches_pallas_interpret(grow, d, compact, with_scale):
+    rng = np.random.default_rng(100 + d + 2 * grow + with_scale)
+    nb = 8
+    dst, perm, bc = _blocked(rng, nb=nb, grow=grow)
+    e = dst.shape[0]
+    em = e // 3 if compact else e
+    msg = rng.normal(size=(em, d)).astype(np.float32)
+    rows = rng.integers(0, em, e).astype(np.int32) if compact else None
+    bcd = ops.blocked_csr_dev(bc, perm)
+    mmap = ops._msg_slot_map(bcd, None if rows is None
+                             else _t(rows)).clone()
+    mmap[torch.nonzero(mmap >= 0)[::7, 0]] = -1      # real slots with no row
+    scale = rng.normal(size=e).astype(np.float32) if with_scale else None
+    scale_p = ops._padded_scale(None if scale is None else _t(scale), bcd,
+                                _t(msg))
+    assert np.all(scale_p.numpy().reshape(-1)[bcd.edge_map.numpy() < 0] == 0)
+    kw = dict(node_block=nb, num_node_blocks=bc.num_node_blocks)
+
+    rout = RTK.seg_weighted_agg_gather_padded(
+        jnp.asarray(scale_p.numpy()), jnp.asarray(msg),
+        jnp.asarray(mmap.numpy()), jnp.asarray(bcd.local_dst.numpy()),
+        jnp.asarray(bcd.t2b.numpy()), interpret=True, **kw)
+    out = TK.seg_weighted_agg_gather_padded(
+        scale_p, _t(msg), mmap, bcd.local_dst, bcd.t2b, bcd.block_tile_ptr,
+        **kw).numpy()
+    assert out.shape == (bc.num_node_blocks * nb, d)
+    owned = _owned(bc)
+    assert not owned.all()
+    np.testing.assert_allclose(out[owned], np.asarray(rout)[owned], **TOL)
+    assert np.all(out[~owned] == 0.0)          # blocks without a tile
+    # the oracle over the slots that carry a message row
+    ld = bcd.local_dst.numpy().reshape(-1)
+    slot_node = np.repeat(bc.tile_to_block[:bc.num_tiles], bc.edge_tile) * nb
+    keep = (ld < nb) & (mmap.numpy() >= 0)
+    want = np.zeros_like(out, dtype=np.float64)
+    np.add.at(want, (slot_node + ld)[keep],
+              scale_p.numpy().reshape(-1)[keep, None].astype(np.float64)
+              * msg[mmap.numpy()[keep]])
+    np.testing.assert_allclose(out, want, **TOL)
+
+
+def _all_nodes_dst(rng, n_nodes, n_extra):
+    """Destinations where every node receives an edge, so every node block
+    owns a tile (the Pallas kernels leave blocks without one unwritten)."""
+    dst = np.concatenate([np.arange(n_nodes),
+                          rng.integers(0, n_nodes, n_extra)]).astype(np.int32)
+    dst = rng.permutation(dst)
+    perm = np.argsort(dst, kind="stable").astype(np.int32)
+    ptr = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n_nodes), out=ptr[1:])
+    return dst, perm, ptr
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_op_weighted_agg_matches_reference(compact, with_scale):
+    rng = np.random.default_rng(51 + 2 * compact + with_scale)
+    n_nodes, d = 40, 5
+    dst, perm, ptr = _all_nodes_dst(rng, n_nodes, 160)
+    e = dst.shape[0]
+    e2u = rng.integers(0, 17, e).astype(np.int32) if compact else None
+    msg = rng.normal(size=(17 if compact else e, d)).astype(np.float32)
+    scale = rng.normal(size=e).astype(np.float32) if with_scale else None
+    bc = ops.blocked_csr_dev(L.block_csr(ptr, 8, 8), perm, e2u)
+    rbc = rops.blocked_csr_dev(RL.block_csr(ptr, 8, 8), perm, e2u)
+    ours = ops.weighted_agg(
+        None if scale is None else _t(scale), _t(msg), _t(dst), n_nodes,
+        bc=bc, msg_rows=None if e2u is None else _t(e2u))
+    ref = rops.weighted_agg(
+        None if scale is None else jnp.asarray(scale), jnp.asarray(msg),
+        jnp.asarray(dst), n_nodes, bc=rbc, backend="pallas_interpret",
+        msg_rows=None if e2u is None else jnp.asarray(e2u))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
+    msg_e = msg if e2u is None else msg[e2u]
+    oracle = RR.weighted_agg_ref(
+        None if scale is None else jnp.asarray(scale), jnp.asarray(msg_e),
+        jnp.asarray(dst), n_nodes)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(oracle), **TOL)
+    # without the layout: the CPU oracle itself
+    plain = ops.weighted_agg(None if scale is None else _t(scale), _t(msg),
+                             _t(dst), n_nodes,
+                             msg_rows=None if e2u is None else _t(e2u))
+    np.testing.assert_allclose(plain.numpy(), np.asarray(oracle), **TOL)
+
+
+# ---------------------------------------------------------------------------
 # the ops over the kernels, against the reference's ops (Pallas interpret)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("with_scale", [False, True])
@@ -229,6 +321,9 @@ def test_ops_empty_layouts_return_without_a_kernel():
                              np.zeros(0, np.int32))
     out = ops.edge_softmax_agg(torch.zeros(0), torch.ones(0, 3),
                                torch.zeros(0, dtype=torch.int32), 4, bc=bc)
+    assert out.shape == (4, 3) and not out.any()
+    out = ops.weighted_agg(None, torch.ones(0, 3),
+                           torch.zeros(0, dtype=torch.int32), 4, bc=bc)
     assert out.shape == (4, 3) and not out.any()
     assert bc.local_dst.shape == (0, 8)
     assert bc.block_tile_ptr.tolist() == [0, 0]
@@ -430,6 +525,71 @@ def test_edge_softmax_agg_grads_match_reference(compact):
         np.testing.assert_allclose(a, np.asarray(b), **GRAD_TOL)
 
 
+@pytest.mark.parametrize("compact", [False, True])
+def test_weighted_agg_grads_match_reference(compact):
+    """The gradients of ``ops.weighted_agg`` (K7 forward, the plain VJP)
+    against ``jax.grad`` of the reference op (Pallas interpret), as the
+    reference's own ``test_weighted_agg_gather_fused_compact_and_grads``."""
+    rng = np.random.default_rng(61 + compact)
+    n_nodes, d = 9, 5
+    dst, perm, ptr = _all_nodes_dst(rng, n_nodes, 41)
+    e = dst.shape[0]
+    e2u = rng.integers(0, 17, e).astype(np.int32) if compact else None
+    scale = rng.normal(size=e).astype(np.float32)
+    msg = rng.normal(size=(17 if compact else e, d)).astype(np.float32)
+    bc = ops.blocked_csr_dev(L.block_csr(ptr, 8, 8), perm, e2u)
+    rbc = rops.blocked_csr_dev(RL.block_csr(ptr, 8, 8), perm, e2u)
+
+    def ours(s, m):
+        return torch.sum(torch.cos(ops.weighted_agg(
+            s, m, _t(dst), n_nodes, bc=bc,
+            msg_rows=None if e2u is None else _t(e2u))))
+
+    def ref(s, m):
+        return jnp.sum(jnp.cos(rops.weighted_agg(
+            s, m, jnp.asarray(dst), n_nodes, bc=rbc,
+            backend="pallas_interpret",
+            msg_rows=None if e2u is None else jnp.asarray(e2u))))
+
+    got = _torch_grads(ours, scale, msg)
+    want = jax.grad(ref, argnums=(0, 1))(jnp.asarray(scale),
+                                         jnp.asarray(msg))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(b), **GRAD_TOL)
+    # scale=None: ones, and the message gradient alone
+    m = _t(msg).requires_grad_(True)
+    torch.sum(torch.cos(ops.weighted_agg(
+        None, m, _t(dst), n_nodes, bc=bc,
+        msg_rows=None if e2u is None else _t(e2u)))).backward()
+    want = jax.grad(lambda m: jnp.sum(jnp.cos(rops.weighted_agg(
+        None, m, jnp.asarray(dst), n_nodes, bc=rbc,
+        backend="pallas_interpret",
+        msg_rows=None if e2u is None else jnp.asarray(e2u)))))(
+        jnp.asarray(msg))
+    np.testing.assert_allclose(m.grad.numpy(), np.asarray(want), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_weighted_agg_gradcheck_fp64(compact):
+    rng = np.random.default_rng(71 + compact)
+    n_nodes = 20
+    dst = np.concatenate([np.arange(n_nodes - 4),
+                          rng.integers(0, n_nodes, 30)]).astype(np.int32)
+    perm = np.argsort(dst, kind="stable").astype(np.int32)
+    dptr = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n_nodes), out=dptr[1:])
+    e2u = rng.integers(0, 11, dst.shape[0]).astype(np.int32) \
+        if compact else None
+    bc = ops.blocked_csr_dev(L.block_csr(dptr, 4, 4), perm, e2u)
+    scale = torch.from_numpy(rng.normal(size=dst.shape[0])).requires_grad_()
+    msg = torch.from_numpy(rng.normal(
+        size=(11 if compact else dst.shape[0], 3))).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda sc, mg: ops.weighted_agg(
+            sc, mg, _t(dst), n_nodes, bc=bc,
+            msg_rows=None if e2u is None else _t(e2u)), (scale, msg))
+
+
 def test_gradcheck_fp64_plain_paths():
     """``torch.autograd.gradcheck`` of every autograd Function on the CPU
     (the plain versions keep fp64)."""
@@ -491,10 +651,11 @@ def test_compat_segment_reductions_match_reference(shape):
 
 
 def test_off_cpu_tensors_never_take_the_plain_path():
-    """Tensors that are not on the CPU get the kernel or an error: the ops
-    whose kernel is not ported name it, and the kernel wrappers (K1-K5, and
-    the GEMM backward that runs K4 and K5) refuse a device they have no
-    kernel for (here ``meta``, which needs no card)."""
+    """Tensors that are not on the CPU get the kernel or an error: the
+    kernel wrappers (K1-K5 and K7, through ``ops.weighted_agg``, and the
+    GEMM backward that runs K4 and K5) refuse a device they have no kernel
+    for (here ``meta``, which needs no card), and an op without its layout
+    refuses to run its oracle there."""
     meta = torch.device("meta")
     ps = L.pad_segments(np.array([0, 5, 9]), 4)
     lay = ops.padded_segments_dev(ps).to(meta)
@@ -502,8 +663,14 @@ def test_off_cpu_tensors_never_take_the_plain_path():
                                          "device meta"):
         ops.segment_mm(torch.ones(9, 4, device=meta),
                        torch.ones(2, 4, 3, device=meta), lay)
-    with pytest.raises(NotImplementedError,
-                       match="seg_weighted_agg_gather_padded"):
+    bc = ops.blocked_csr_dev(L.block_csr(np.array([0, 2, 6, 6, 6]), 4, 4),
+                             np.arange(6, dtype=np.int32)).to(meta)
+    with pytest.raises(ValueError, match="seg_weighted_agg_gather_padded: "
+                                         "no kernel for device meta"):
+        ops.weighted_agg(None, torch.ones(6, 3, device=meta),
+                         torch.zeros(6, dtype=torch.int32, device=meta), 4,
+                         bc=bc)
+    with pytest.raises(ValueError, match="needs the blocked CSR layout"):
         ops.weighted_agg(None, torch.ones(6, 3, device=meta),
                          torch.zeros(6, dtype=torch.int32, device=meta), 4)
     with pytest.raises(ValueError, match="no kernel for device meta"):

@@ -63,6 +63,81 @@ def test_compile_apply_blocks_matches_reference(compiled_pair, bucket):
     assert ours.describe() == ref.describe()
 
 
+@pytest.mark.parametrize("model", ["rgcn", "hgt", "rgcn_cat"])
+def test_new_models_apply_blocks_match_reference(model):
+    """RGCN (K1 + K7), HGT (K4 on node types, K1, K2 + K3) and rgcn_cat:
+    a sampled, bucketed mini-batch through the port on the CPU against the
+    reference (Pallas interpret) with the same weights."""
+    kw = dict(num_nodes=200, num_edges=1400, num_ntypes=3, num_etypes=6,
+              seed=2)
+    g, rg = synthetic_heterograph(**kw), ref_graph(**kw)
+    ref = hector.compile(model, rg, layers=2, sample=3, tile=8,
+                         node_block=8, backend="pallas_interpret", **DIMS)
+    ours = hector_torch.compile(model, g, layers=2, sample=3, tile=8,
+                                node_block=8, device="cpu", **DIMS)
+    assert ours.describe() == ref.describe()
+    rparams = ref.init(jax.random.key(0))
+    params = ours.params_from_reference(_np_params(rparams))
+    feats = np.random.default_rng(1).normal(
+        size=(g.num_nodes, DIMS["dim"])).astype(np.float32)
+    seeds = np.array([3, 17, 17, 150, 42, 99, 0, 199], np.int32)
+    mb = build_minibatch(ours.sampler.sample(seeds, batch_index=4), tile=8,
+                         node_block=8, bucket=True)
+    rmb = ref_build(ref.sampler.sample(seeds, batch_index=4), tile=8,
+                    node_block=8, bucket=True)
+    out = ours.apply_blocks(params, mb, torch.from_numpy(feats))
+    rout = ref.apply_blocks(rparams, rmb, jax.numpy.asarray(feats))
+    assert out.shape == (len(seeds), DIMS["classes"])
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(out.numpy(), np.asarray(rout),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_compile_model_args_bind_and_reject_as_the_reference():
+    g = synthetic_heterograph(60, 300, 2, 4, seed=0)
+    rg = ref_graph(60, 300, 2, 4, seed=0)
+    kw = dict(layers=1, tile=8, node_block=8, **DIMS)
+    ours = hector_torch.compile("rgcn", g, device="cpu",
+                                model_args={"activation": "tanh"}, **kw)
+    ref = hector.compile("rgcn", rg, model_args={"activation": "tanh"},
+                         **kw)
+    assert ours.describe() == ref.describe()
+    assert "tanh" in ours.describe()
+    assert ours.engine.cfg.model_name == ref.engine.cfg.model_name
+    plain = hector_torch.compile("rgcn", g, device="cpu", **kw)
+    assert "tanh" not in plain.describe()
+    # a model hyperparameter as a plain keyword (no collision)
+    rgat = hector_torch.compile("rgat", g, device="cpu", slope=0.2, **kw)
+    assert rgat.describe() == hector.compile("rgat", rg, slope=0.2,
+                                             **kw).describe()
+    for fn, kwargs in ((hector_torch.compile, dict(device="cpu")),
+                       (hector.compile, {})):
+        graph = g if fn is hector_torch.compile else rg
+        with pytest.raises(ValueError, match="unknown model 'gcn'"):
+            fn("gcn", graph, model_args={"activation": "tanh"}, **kwargs,
+               **kw)
+        with pytest.raises(ValueError, match="unknown model 'gcn'"):
+            fn("gcn", graph, **kwargs, **kw)
+
+
+@pytest.mark.parametrize("model", ["rgcn", "hgt", "rgcn_cat"])
+def test_serve_driver_runs_every_model_on_the_cpu(model):
+    logits = []
+    stats = serve_rgnn.serve(
+        model=model, dataset="aifb", scale=0.05, layers=2, fanouts=[3, 3],
+        batch_size=8, num_batches=2, tile=8, node_block=8, seed=0,
+        device="cpu", log=lambda *a: None,
+        on_batch=lambda mb, y: logits.append(y), **DIMS)
+    assert stats["batches"] == 2 and len(logits) == 2
+    assert all(y.shape == (8, DIMS["classes"]) and torch.isfinite(y).all()
+               for y in logits)
+    assert serve_rgnn.main(["--model", model, "--device", "cpu",
+                            "--scale", "0.05", "--num-batches", "1",
+                            "--dim", "8", "--hidden", "8", "--classes", "3",
+                            "--batch-size", "4", "--tile", "8",
+                            "--node-block", "8"])["batches"] == 1
+
+
 def test_params_from_reference_checks_the_weight_table(compiled_pair):
     ours, _, _, rparams, _ = compiled_pair
     bad = _np_params(rparams)

@@ -48,11 +48,11 @@ def task():
     return feats, labels
 
 
-def _pair(fanouts):
+def _pair(fanouts, model="rgat"):
     """The reference engine (xla backend) and the port's on the CPU, over
     the same graph, with the reference's weights carried to the port."""
-    ref = hector.compile("rgat", ref_graph(**GRAPH), sample=fanouts, **DIMS)
-    ours = hector_torch.compile("rgat", synthetic_heterograph(**GRAPH),
+    ref = hector.compile(model, ref_graph(**GRAPH), sample=fanouts, **DIMS)
+    ours = hector_torch.compile(model, synthetic_heterograph(**GRAPH),
                                 sample=fanouts, device="cpu", **DIMS)
     rparams = ref.init(jax.random.key(0))
     return ref, ours, rparams, ours.params_from_reference(
@@ -168,6 +168,60 @@ def test_train_steps_match_reference_executors(task):
     _assert_state_close(state, rstate)
 
 
+@pytest.mark.parametrize("model", ["rgcn", "hgt"])
+def test_new_model_train_steps_match_reference_executors(task, model):
+    """RGCN and HGT: one sampled and one full-graph step against the
+    reference's executors (Pallas interpret, so the reference runs its
+    weighted aggregation, node-typed GEMMs and softmax kernels), at the
+    same bounds as RGAT's."""
+    feats, labels = task
+    ref = hector.compile(model, ref_graph(**GRAPH), sample=[3, 3],
+                         backend="pallas_interpret", **DIMS)
+    ours = hector_torch.compile(model, synthetic_heterograph(**GRAPH),
+                                sample=[3, 3], device="cpu", **DIMS)
+    rparams = ref.init(jax.random.key(0))
+    params = ours.params_from_reference(_np_params(rparams))
+    opt, ropt = (AdamW(learning_rate=1e-2, weight_decay=0.01),
+                 RAdamW(learning_rate=1e-2, weight_decay=0.01))
+
+    seq = ours.sampler.sample(SEEDS, batch_index=2, epoch=0)
+    rseq = ref.sampler.sample(SEEDS, batch_index=2, epoch=0)
+    mb = build_minibatch(seq, tile=8, node_block=8, bucket=True)
+    rmb = ref_build(rseq, tile=8, node_block=8, bucket=True)
+    x = torch.from_numpy(feats)
+    state, m = ours.train_step(ours.init_state(params, opt=opt), mb,
+                               seq.slice_labels(labels), x)
+    rstate, rm = ref.train_executor(ropt).grad_and_update(
+        ropt.init(rparams), rmb, jnp.asarray(rseq.slice_labels(labels)),
+        {"feature": jnp.asarray(feats)[rmb.input_ids]})
+    np.testing.assert_allclose(float(m["loss"]), float(rm["loss"]),
+                               rtol=1e-5)
+    _assert_state_close(state, rstate)
+
+    idx = np.arange(0, GRAPH["num_nodes"], 3, dtype=np.int32)
+    state, m = executor.StackTrainExecutor(ours.plans, opt).grad_and_update(
+        opt.init(params), ours.gt, ours.layouts, torch.from_numpy(idx),
+        torch.from_numpy(labels[idx]), {"feature": x})
+    rstate, rm = rexecutor.StackTrainExecutor(
+        ref.plans, ropt, backend="pallas_interpret").grad_and_update(
+        ropt.init(rparams), ref.gt, ref.layouts, jnp.asarray(idx),
+        jnp.asarray(labels[idx]), {"feature": jnp.asarray(feats)})
+    np.testing.assert_allclose(float(m["loss"]), float(rm["loss"]),
+                               rtol=1e-5)
+    _assert_state_close(state, rstate)
+
+
+@pytest.mark.parametrize("model", ["rgcn", "hgt", "rgcn_cat"])
+def test_new_models_full_graph_apply_matches_reference(task, model):
+    feats, _ = task
+    ref, ours, rparams, params = _pair([3, 3], model)
+    out = ours.apply(params, torch.from_numpy(feats))
+    rout = ref.apply(rparams, jnp.asarray(feats))
+    assert out.shape == (GRAPH["num_nodes"], DIMS["classes"])
+    np.testing.assert_allclose(out.numpy(), np.asarray(rout), rtol=1e-4,
+                               atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # inside the port
 # ---------------------------------------------------------------------------
@@ -237,6 +291,20 @@ def test_train_rgnn_driver_end_to_end(tmp_path):
     assert stats["losses"][-1] < stats["losses"][0]
     assert np.isfinite(stats["full_val_loss"]) and len(stats["evals"]) == 1
     assert Checkpointer(str(tmp_path / "ckpt")).latest_step() is not None
+
+
+@pytest.mark.parametrize("model", ["rgcn", "hgt", "rgcn_cat"])
+def test_train_rgnn_driver_trains_every_model(model):
+    from repro_torch.launch import train_rgnn
+
+    stats = train_rgnn.train(
+        model=model, dataset="synthetic", scale=0.05, layers=2, dim=16,
+        hidden=16, classes=6, fanouts=[3, 3], batch_size=32, epochs=2,
+        lr=1e-2, tile=8, node_block=8, seed=0, val_frac=0.2,
+        device="cpu", log=lambda *a, **k: None)
+    assert stats["steps"] == stats["epochs"] * stats["batches_per_epoch"]
+    assert np.all(np.isfinite(stats["losses"]))
+    assert np.isfinite(stats["full_val_loss"])
 
 
 def test_train_driver_defaults_to_the_card(monkeypatch):
