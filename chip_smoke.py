@@ -13,19 +13,26 @@ rgcn_cat); any failure exits non-zero:
 2. kernels against their plain PyTorch versions on the card, at the shapes
    real runs give them (all captured): one served mini-batch of each serve
    phase (RGAT aifb-b32 and bgs-b1024: K1-K3; RGCN aifb-b32 and bgs-b1024:
-   K1, K7; HGT aifb-b32: K1-K4, K4 on the node-type segments) and one
-   sampled training step of RGAT, RGCN and HGT (aifb-b64: K1-K5, K7),
+   K1, K7; HGT aifb-b32: K1-K4, K4 on the node-type segments), the device
+   sampling and forward of RGAT's first device-sampled batch at aifb-b32
+   and bgs-b1024 (K9 at every window, K1-K3 on the device-built layouts)
+   and one sampled training step of RGAT, RGCN and HGT (aifb-b64: K1-K5,
+   K7),
    plus edge cases (gather index -1, groups and node blocks without tiles,
    pow2 pad tiles, the scale epilogue, k = 1 and n = 1, a transposed W, a
    group long enough for many K5 chunks, the CUDA ``edge_softmax``, K7
    with ``scale=None``, compact rows with -1, d = 1, empty layouts that
-   must not launch). Tolerances: K1 and K4 rtol = atol = 1e-5 (fp32 sums
-   of at most 64 terms); K2 ``mx`` exact, ``den`` rtol 1e-5; K3 rtol = atol
-   = 2e-5 (the reference's own fused-vs-oracle bound); K5 rtol = atol =
-   1e-6 and K7 rtol = atol = 1e-5 (the reference's ``test_weighted_agg``
-   bound; kernel and plain version both sum in fp64, so they agree to the
-   final fp32 rounding). At the RGAT aifb served batch (K1-K3), the RGAT
-   training step (K4, K5) and the RGCN aifb served batch (K7): each
+   must not launch; K9 with counts 0 and C, C = 1, odd row counts and
+   high-bit base keys; K5 with the static chunk bound of device-built
+   layouts). K9 is held bit for bit, decoded, to its plain version and to
+   numpy's ``edge_sample_keys``. Tolerances: K1 and K4 rtol = atol = 1e-5
+   (fp32 sums of at most 64 terms); K2 ``mx`` exact, ``den`` rtol 1e-5;
+   K3 rtol = atol = 2e-5 (the reference's own fused-vs-oracle bound); K5
+   rtol = atol = 1e-6 and K7 rtol = atol = 1e-5 (the reference's
+   ``test_weighted_agg`` bound; kernel and plain version both sum in fp64,
+   so they agree to the final fp32 rounding). At the RGAT aifb served
+   batch (K1-K3), the RGAT training step (K4, K5), the RGCN aifb served
+   batch (K7) and RGAT's first device-sampled aifb batch (K9): each
    kernel's device time (mean of 20 calls under ``torch.profiler``), the
    wrapper's time per call (CUDA events, median of 25 runs of 10 calls:
    host cost included), its plain version's time, its bound and, for K4,
@@ -58,12 +65,25 @@ rgcn_cat); any failure exits non-zero:
 8. one sampled step and one bgs full-graph step of each under
    ``torch.profiler``: device time per kernel and per step, the device's
    busy share, the split between the ``forward`` / ``backward`` /
-   ``optimizer`` ranges, and the device ops that take the most time.
+   ``optimizer`` ranges, and the device ops that take the most time;
+9. device-sampled serving (``sampler="device"``) of RGAT and RGCN at
+   aifb-b32 (8 batches) and RGAT at bgs-b1024 (4 batches), the seeds of
+   phases 3 and 4: every batch's logits equal the host-sampled ones
+   within rtol = atol = 2e-4 (the reference's own device-vs-host bound),
+   no host build, no count sync after warmup, every batch that outgrew a
+   shrunken bucket rebuilt, every sampling call after the first under
+   ``torch.cuda.set_sync_debug_mode("error")``, K9 launched; latency,
+   wait, compute, seeds/s, peak memory and bucket shrinks beside the
+   host-sampled run's;
+10. phase 6's RGAT training with ``sampler="device"``: the first loss
+   equal to the host-sampled run's (rtol 1e-4), a falling loss, the
+   kernels at their per-step counts (K5 with its static chunk bound), K9
+   twice a sampled batch.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: phase
-6's runs of all three models); the last line is ``{"ok": true, "device":
-{...}}``. ``--out PATH`` also writes every number as JSON, ``--trace-dir
-DIR`` the phase-8 Chrome traces.
+6's runs of all three models for K1-K7, phases 9 and 10 for K9); the last
+line is ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes
+every number as JSON, ``--trace-dir DIR`` the phase-8 Chrome traces.
 """
 from __future__ import annotations
 
@@ -90,6 +110,7 @@ K1, K2, K3 = ("segment_mm_gather_padded", "seg_stats_padded",
               "seg_softmax_agg_gather_padded")
 K4, K5, K7 = ("segment_mm_padded", "segment_outer_padded",
               "seg_weighted_agg_gather_padded")
+K9 = "candidate_keys"
 
 SERVE_DEFAULTS = dict(model="rgat", dataset="aifb", scale=1.0, layers=2,
                       dim=64, hidden=64, classes=16, fanouts=[5, 5],
@@ -154,11 +175,27 @@ KERNELS = {
     K7: dict(source="src/repro_torch/csrc/traversal.cu",
              replaces="src/repro/kernels/traversal.py:294",
              symbol="seg_weighted_agg_gather_kernel"),
+    K9: dict(source="src/repro_torch/csrc/sampling.cu",
+             replaces="src/repro/kernels/sampling_ops.py:77",
+             symbol="candidate_keys_kernel"),
 }
 # where each kernel is timed in phase 2: the captured calls of one served
-# batch ("<model> aifb") or one training step ("<model> step")
+# batch ("<model> aifb"), one training step ("<model> step") or the device
+# sampling of one served batch ("<model> aifb device")
 TIMED_AT = {K1: "rgat aifb", K2: "rgat aifb", K3: "rgat aifb",
-            K4: "rgat step", K5: "rgat step", K7: "rgcn aifb"}
+            K4: "rgat step", K5: "rgat step", K7: "rgcn aifb",
+            K9: "rgat aifb device"}
+# phase 9: the serve runs repeated with ``sampler="device"``; phase 2
+# captures the first device-sampled batch of the RGAT ones
+DEVICE_SERVE_RUNS = (
+    ("rgat aifb", SERVE_DEFAULTS), ("rgcn aifb", dict(SERVE_DEFAULTS,
+                                                      model="rgcn")),
+    ("rgat bgs", SERVE_LARGE))
+CAPTURED_DEVICE = ("rgat aifb", "rgat bgs")
+# the bound of device-sampled logits against host-sampled ones (the
+# reference's test_device_minibatch_forward_matches_host in
+# tests/test_sampling.py)
+DEVICE_TOL = 2e-4
 
 
 def log(msg: str) -> None:
@@ -207,24 +244,31 @@ def device_ms(torch, fn, symbol: str, reps: int = 20,
     share excluded).
 
     Back-to-back profiler sessions sometimes drop kernel records (seen: 7
-    of 20 delivered), so the mean is over the launches it recorded."""
+    of 20 delivered, and once none), so the mean is over the launches it
+    recorded, and a session that recorded none is run again (at most
+    three sessions)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and \
-                symbol in e.key:
-            total_us += _device_us(e)
-            count += e.count
+    for session in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and \
+                    symbol in e.key:
+                total_us += _device_us(e)
+                count += e.count
+        if count:
+            break
+        log(f"[phase 2] {symbol}: profiler session {session + 1} recorded "
+            f"none of {reps} launches")
     check(count > 0, f"{symbol}: the profiler recorded none of {reps} "
-          f"launches")
+          f"launches in three sessions")
     if count != reps * per_call:
         log(f"[phase 2] {symbol}: the profiler recorded {count} of "
             f"{reps * per_call} launches; timing the recorded ones")
@@ -348,7 +392,57 @@ def k7_library(torch, args, kw):
     return lambda: torch.sparse.mm(a, m)
 
 
+def k9_work(torch, args, kw):
+    """K9: each row's start and count read once, each candidate's key
+    written once (int32); no floating-point work."""
+    starts, width = args[0], args[3]
+    rows = starts.numel()
+    return rows * 8 + rows * width * 4, 0.0
+
+
 LIBRARY = {K4: ("torch.bmm", k4_library), K7: ("torch.sparse.mm", k7_library)}
+
+# K9 is held to its plain version in slices of at most this many
+# candidates (the int64 plain version needs several temporaries of 8 bytes
+# a candidate), and to numpy's ``edge_sample_keys`` on at most this many
+# rows of each call
+K9_SLICE = 1 << 26
+K9_NUMPY_ROWS = 4096
+
+
+def k9_compare(torch, SO, args, kw):
+    """K9 against its plain version, bit for bit, over row slices; then the
+    decoded keys of a sample of rows against numpy's ``edge_sample_keys``
+    (the reference's oracle). Returns the max abs error (0)."""
+    import numpy as np
+
+    from repro_torch.sampling.sampler import edge_sample_keys
+
+    starts, cnts, base, width = args
+    starts, cnts = starts.reshape(-1), cnts.reshape(-1)
+    rows = starts.numel()
+    step = max(1, K9_SLICE // width)
+    for lo in range(0, rows, step):
+        got = SO.candidate_keys(starts[lo:lo + step], cnts[lo:lo + step],
+                                base, width)
+        want = SO.candidate_keys_plain(starts[lo:lo + step],
+                                       cnts[lo:lo + step], base, width)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got, want)), f"{K9}: kernel disagrees with "
+              f"its plain version (rows {lo}..{lo + step} of {rows}, width "
+              f"{width})")
+    pick = np.random.default_rng(rows).choice(
+        rows, min(rows, K9_NUMPY_ROWS), replace=False)
+    pick_t = torch.from_numpy(pick).to(starts.device)
+    got = SO.decode_keys(SO.candidate_keys(starts[pick_t], cnts[pick_t],
+                                           base, width)).cpu().numpy()
+    s_np, c_np = starts[pick_t].cpu().numpy(), cnts[pick_t].cpu().numpy()
+    col = np.arange(width)
+    keys = edge_sample_keys(np.uint32(base), s_np[:, None] + col)
+    want = np.where(col < c_np[:, None], keys.astype(np.int64), 0xFFFFFFFF)
+    check(bool(np.array_equal(got, want)), f"{K9}: decoded keys differ from "
+          f"numpy's edge_sample_keys")
+    return 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -377,18 +471,25 @@ def recorded_kernel_calls():
     own module's names, which are wrapped for the block; they call K4 and
     K5 through ``ops.SK``, which a stand-in namespace with recording
     wrappers replaces for the block (the modules' own functions stay as
-    they are)."""
+    they are). Stage A calls K9 through ``sampling_ops``'s own name, which
+    is wrapped for the block; the wrapper carries its own ``launches``,
+    which K9 counts on while it is in place, so the recorded launches
+    stay out of the main path's count."""
     from repro_torch.kernels import ops, segment_mm
+    from repro_torch.kernels import sampling_ops as SO
     calls = {name: [] for name in KERNELS}
     originals = _recording(ops, (K1, K2, K3, K7), calls)
     ops.SK = types.SimpleNamespace(**vars(segment_mm))
     _recording(ops.SK, (K4, K5), calls)
+    k9 = _recording(SO, (K9,), calls)[K9]
+    SO.candidate_keys.launches = 0
     try:
         yield calls
     finally:
         for name, fn in originals.items():
             setattr(ops, name, fn)
         ops.SK = segment_mm
+        SO.candidate_keys = k9
 
 
 def capture_main_path_calls(torch, hector_torch, cfg):
@@ -421,6 +522,36 @@ def capture_main_path_calls(torch, hector_torch, cfg):
         torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "captured batch has non-finite "
           "logits")
+    return calls
+
+
+def capture_device_calls(torch, hector_torch, cfg):
+    """Sample the first mini-batch that ``serve(**cfg, sampler="device")``
+    serves on the card and run its forward, recording every kernel call's
+    inputs (K9 in the sampling, the model's kernels on the device-built
+    layouts)."""
+    import numpy as np
+
+    from repro_torch.core.graph import table3_graph
+    from repro_torch.sampling import SeedStream
+
+    graph = table3_graph(cfg["dataset"], cfg["scale"], cfg["seed"])
+    engine = hector_torch.compile(
+        cfg["model"], graph, layers=cfg["layers"], dim=cfg["dim"],
+        hidden=cfg["hidden"], classes=cfg["classes"], sample=cfg["fanouts"],
+        tile=cfg["tile"], node_block=cfg["node_block"], seed=cfg["seed"],
+        device="cuda", sampler="device")
+    params = engine.init(cfg["seed"])
+    feats = torch.from_numpy(np.random.default_rng(cfg["seed"]).normal(
+        size=(graph.num_nodes, cfg["dim"])).astype(np.float32)).cuda()
+    seeds = SeedStream(graph.num_nodes, cfg["batch_size"],
+                       seed=cfg["seed"]).batch(0)
+    with recorded_kernel_calls() as calls:
+        mb = engine.device_sampler.sample_minibatch(seeds, batch_index=0)
+        out = engine.apply_blocks(params, mb, feats)
+        torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "captured device-sampled batch "
+          "has non-finite logits")
     return calls
 
 
@@ -534,6 +665,9 @@ TOLERANCE = {K1: 1e-5, K4: 1e-5, K3: 2e-5, K5: 1e-6, K7: 1e-5}
 
 
 def _shape(name, args, kw) -> str:
+    if name == K9:
+        return (f"rows={args[0].numel()} width={args[3]} "
+                f"candidates={args[0].numel() * args[3]}")
     if name == K1:
         return (f"Rp={args[2].shape[0]} real={int((args[2] >= 0).sum())} "
                 f"k={args[1].shape[1]} n={args[1].shape[2]} "
@@ -558,7 +692,7 @@ CAPTURED_SERVE = ("rgat aifb", "rgat bgs", "rgcn aifb", "rgcn bgs",
                   "hgt aifb")
 
 
-def phase_kernels(torch, hector_torch, SK, TK, L, R, ops, tasks):
+def phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops, tasks):
     results = {name: dict(calls=[], max_abs_err=0.0, max_abs_err_by={})
                for name in KERNELS}
     captured = {}
@@ -575,6 +709,20 @@ def phase_kernels(torch, hector_torch, SK, TK, L, R, ops, tasks):
         log(f"[phase 2] captured {tag} batch 0: "
             + ", ".join(f"{k} x{len(v)}" for k, v in captured[tag].items()
                         if v))
+    for tag in CAPTURED_DEVICE:
+        cfg = runs[tag]
+        calls = capture_device_calls(torch, hector_torch, cfg)
+        captured[f"{tag} device"] = calls
+        for name in KERNELS:
+            n = len(calls[name])
+            if name == K9 or FORWARD_LAUNCHES[cfg["model"]].get(name, 0):
+                check(n > 0, f"{name}: not reached on the device-sampled "
+                      f"{tag} path")
+            else:
+                check(n == 0, f"{name}: {n} calls on the device-sampled "
+                      f"{tag} path")
+        log(f"[phase 2] captured {tag} device-sampled batch 0: "
+            + ", ".join(f"{k} x{len(v)}" for k, v in calls.items() if v))
     for model, task in tasks.items():
         captured[f"{model} step"] = capture_train_calls(torch, task, model)
         log(f"[phase 2] captured one {model} aifb-b64 training step: "
@@ -586,19 +734,23 @@ def phase_kernels(torch, hector_torch, SK, TK, L, R, ops, tasks):
              K3: TK.seg_softmax_agg_gather_padded_plain,
              K4: SK.segment_mm_padded_plain,
              K5: SK.segment_outer_padded_plain,
-             K7: TK.seg_weighted_agg_gather_padded_plain}
+             K7: TK.seg_weighted_agg_gather_padded_plain,
+             K9: SO.candidate_keys_plain}
     kernel = {K1: SK.segment_mm_gather_padded, K2: TK.seg_stats_padded,
               K3: TK.seg_softmax_agg_gather_padded,
               K4: SK.segment_mm_padded, K5: SK.segment_outer_padded,
-              K7: TK.seg_weighted_agg_gather_padded}
+              K7: TK.seg_weighted_agg_gather_padded,
+              K9: SO.candidate_keys}
     work = {K1: k1_work, K2: k2_work, K3: k3_work, K4: k4_work,
-            K5: k5_work, K7: k7_work}
+            K5: k5_work, K7: k7_work, K9: k9_work}
     # the training captures hold parameter leaves: compare and time without
     # recording gradients
     plain = {k: torch.no_grad()(f) for k, f in plain.items()}
     kernel = {k: torch.no_grad()(f) for k, f in kernel.items()}
 
     def run_compare(name, args, kw):
+        if name == K9:
+            return k9_compare(torch, SO, args, kw)
         got = kernel[name](*args, **kw)
         want = plain[name](*args, **kw)
         torch.cuda.synchronize()
@@ -659,6 +811,7 @@ def phase_kernels(torch, hector_torch, SK, TK, L, R, ops, tasks):
                 log(f"[phase 2] {name}: {len(lst)} {tag} calls match the "
                     f"plain version (max abs err {max(errs):.3g})")
     edge_cases(torch, SK, TK, L, ops, R, run_compare, results)
+    k9_edge_cases(torch, ops, run_compare, results)
     for name, r in results.items():
         check(bool(r["calls"]), f"{name}: no timed call")
         for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms"):
@@ -670,9 +823,10 @@ def phase_kernels(torch, hector_torch, SK, TK, L, R, ops, tasks):
         r["bound_by"] = "bytes" if by_bytes >= r["bound_ms"] / 2 \
             else "operations"
         r["timed_at"] = TIMED_AT[name]
-        model, unit = TIMED_AT[name].split()
-        unit = "aifb-b64 training step" if unit == "step" \
-            else "served aifb batch"
+        model, unit = TIMED_AT[name].split(maxsplit=1)
+        unit = {"step": "aifb-b64 training step",
+                "aifb device": "device-sampled aifb batch"}.get(
+                    unit, "served aifb batch")
         log(f"[phase 2] {name}: {len(r['calls'])} calls per {model} {unit}"
             f", kernel {r['ms']:.5f} ms on the device, wrapper "
             f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
@@ -938,6 +1092,67 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
         f" the CUDA weighted_agg); empty layouts launched nothing")
 
 
+def k9_edge_cases(torch, ops, run_compare, results):
+    """K9 at shapes the captured calls may not give it: rows with count 0
+    and with count C, row and candidate counts that are not multiples of a
+    thread block or of the four keys a thread stores, C = 1, base keys
+    with the high bit set, starts near 2^31. Then K5 on a layout built on
+    the card as device sampling builds it, whose static chunk count
+    exceeds ``group_chunk_ptr[R]``: the surplus chunks must not change
+    dW."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    dev = torch.device("cuda")
+    n = 0
+    for rows, width, base in ((1, 1, 0x80000000), (3, 1, 0xFFFFFFFF),
+                              (1001, 7, 0x9E3779B9), (4099, 222, 0xC0FFEE01),
+                              (65537, 31, 0), (257, 3, 0x7FFFFFFF)):
+        starts = rng.integers(0, 2**31 - width, rows).astype(np.int32)
+        cnts = rng.integers(0, width + 1, rows).astype(np.int32)
+        cnts[0], cnts[-1] = width, 0
+        if rows > 2:
+            cnts[1] = width
+        args = (torch.from_numpy(starts).to(dev),
+                torch.from_numpy(cnts).to(dev), base, width)
+        results[K9]["max_abs_err"] = max(results[K9]["max_abs_err"],
+                                         run_compare(K9, args, {}))
+        n += 1
+    from repro_torch.kernels import sampling_ops as SO
+    before = ops.launch_counts()[K9]
+    out = SO.candidate_keys(torch.zeros(0, 5, dtype=torch.int32, device=dev),
+                            torch.zeros(0, 5, dtype=torch.int32, device=dev),
+                            1, 7)
+    check(out.shape == (0, 5, 7) and ops.launch_counts()[K9] == before,
+          f"{K9}: an empty window launched a kernel")
+    sizes = rng.integers(1, 400, 10)
+    sizes[[2, 6]] = 0
+    ptr = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    group = np.repeat(np.arange(10, dtype=np.int32), sizes)
+    cap = 1 << (int(sizes.sum()) + 10 * 32 - 1).bit_length()
+    lay = ops.device_padded_segments(torch.from_numpy(ptr).to(dev),
+                                     torch.from_numpy(group).to(dev), 32,
+                                     cap)
+    check(lay.num_chunks > int(lay.group_chunk_ptr[-1]),
+          "K5 edge case: the static chunk bound is not above the exact "
+          "count")
+    x_p = torch.from_numpy(rng.normal(size=(cap, 64)).astype(np.float32)
+                           ).to(dev)
+    x_p[lay.row_map < 0] = 0.0
+    dy = torch.from_numpy(rng.normal(size=(cap, 48)).astype(np.float32)
+                          ).to(dev)
+    err = run_compare(K5, (x_p, dy, lay.group_tile_ptr, lay.group_chunk_ptr),
+                      dict(num_groups=10, num_chunks=lay.num_chunks,
+                           tile=32))
+    results[K5]["max_abs_err"] = max(results[K5]["max_abs_err"], err)
+    log(f"[phase 2] K9 edge cases: {n} windows bit-equal to the plain "
+        f"version and to numpy (count 0 and C, C = 1 and 3, odd row "
+        f"counts, high-bit bases), an empty window launched nothing; K5 "
+        f"with {lay.num_chunks} chunks for "
+        f"{int(lay.group_chunk_ptr[-1])} needed equals its plain version "
+        f"(max abs err {err:.3g})")
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: serving through the driver
 # ---------------------------------------------------------------------------
@@ -953,11 +1168,13 @@ def phase_serve(torch, hector_torch, ops, serve_rgnn, cfg, tag):
         batches.append((mb.seq, mb.step, logits.detach().cpu()))
 
     ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     stats = serve_rgnn.serve(**cfg, device="cuda", on_batch=keep,
                              log=lambda m: log(f"[{tag}] {m}"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
     launches = ops.launch_counts()
     log(f"[{tag}] launches on the served path: {json.dumps(launches)}")
     for name in KERNELS:
@@ -998,13 +1215,186 @@ def phase_serve(torch, hector_torch, ops, serve_rgnn, cfg, tag):
         f"(max abs err {worst:.3g}); latency p50 "
         f"{stats['latency_ms_p50']:.3f} ms, p95 "
         f"{stats['latency_ms_p95']:.3f} ms, {stats['seeds_per_s']:.1f} "
-        f"seeds/s, {stats['edges_per_batch']:.0f} edges/batch "
-        f"(phase wall {wall:.2f} s)")
+        f"seeds/s, {stats['edges_per_batch']:.0f} edges/batch, peak "
+        f"{peak:.3f} GiB (phase wall {wall:.2f} s)")
     keys = ("latency_ms_p50", "latency_ms_p95", "latency_ms_p99",
             "latency_ms_mean", "wait_ms_mean", "compute_ms_mean",
             "seeds_per_s", "edges_per_batch")
+    return (dict({k: stats[k] for k in keys}, launches=launches,
+                 max_abs_err_vs_cpu=worst, batches=len(batches),
+                 peak_mem_gib=peak),
+            {step: logits for _, step, logits in batches})
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: device sampling (``--sampler device``)
+# ---------------------------------------------------------------------------
+def phase_device_serve(torch, ops, serve_rgnn, cfg, tag, host, host_logits):
+    """Serve ``cfg`` again with ``sampler="device"``: every batch's logits
+    against the host-sampled run's (phases 3 and 4, same seeds), no host
+    build, no count sync after warmup, every batch that outgrew a shrunken
+    bucket rebuilt before it was served, every sampling call after the
+    first under ``torch.cuda.set_sync_debug_mode("error")``
+    (any device-to-host synchronization inside it raises), K9 launched;
+    the peak device memory of each sampling call (allocations are made
+    when the work is dispatched, so no synchronization is needed to read
+    them) and of the whole run."""
+    from repro_torch.sampling import DeviceSampler
+
+    batches = []
+    guarded = []
+    mem = dict(overall=0, sampling=[])
+    orig = DeviceSampler.sample_minibatch
+
+    def sample(self, seeds, batch_index=0, **kw):
+        mem["overall"] = max(mem["overall"], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        if batch_index >= 1:
+            torch.cuda.set_sync_debug_mode("error")
+            guarded.append(batch_index)
+        try:
+            return orig(self, seeds, batch_index=batch_index, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            mem["sampling"].append(torch.cuda.max_memory_allocated())
+
+    def keep(mb, logits):
+        batches.append((mb.step, logits.detach().cpu()))
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    DeviceSampler.sample_minibatch = sample
+    t0 = time.perf_counter()
+    try:
+        stats = serve_rgnn.serve(**cfg, device="cuda", sampler="device",
+                                 on_batch=keep,
+                                 log=lambda m: log(f"[{tag}] {m}"))
+        torch.cuda.synchronize()
+    finally:
+        DeviceSampler.sample_minibatch = orig
+    wall = time.perf_counter() - t0
+    peak = max(mem["overall"], torch.cuda.max_memory_allocated()) / 2**30
+    launches = ops.launch_counts()
+    log(f"[{tag}] launches on the device-sampled path: "
+        f"{json.dumps(launches)}")
+    for name in KERNELS:
+        if name == K9 or FORWARD_LAUNCHES[cfg["model"]].get(name, 0):
+            check(launches[name] > 0, f"{tag}: {name} never launched")
+        else:
+            check(launches[name] == 0, f"{tag}: {name} launched "
+                  f"{launches[name]} times")
+    nb = cfg["num_batches"]
+    check(len(batches) == nb, f"{tag}: batches missing")
+    check(sorted(set(guarded)) == list(range(1, nb)), f"{tag}: sampling "
+          f"calls under the sync check: {guarded}")
+    check(stats["sampler"] == "device" and stats["host_builds"] == 0
+          and stats["device_builds"] == nb,
+          f"{tag}: builds host {stats['host_builds']} / device "
+          f"{stats['device_builds']}")
+    check(stats["sampler_count_syncs_after_warmup"] == 0,
+          f"{tag}: {stats['sampler_count_syncs_after_warmup']} count syncs "
+          f"after warmup")
+    # a batch that outgrew its buckets is rebuilt before it is served
+    # (``DeviceSampler.settle``; the drain counts each hop that overflowed)
+    check(stats["sampler_bucket_overflows"] == 0
+          or stats["sampler_overflow_rebuilds"] > 0,
+          f"{tag}: {stats['sampler_bucket_overflows']} bucket overflows but "
+          f"no batch rebuilt")
+    worst = 0.0
+    for step, logits in batches:
+        want = host_logits[step]
+        check(logits.shape == want.shape and
+              bool(torch.isfinite(logits).all()),
+              f"{tag}: batch {step} logits shape or values")
+        err = float((logits - want).abs().max())
+        worst = max(worst, err)
+        check(bool(torch.allclose(logits, want, rtol=DEVICE_TOL,
+                                  atol=DEVICE_TOL)),
+              f"{tag}: batch {step} device-sampled logits differ from the "
+              f"host-sampled ones (max abs err {err:.3g})")
+    sampling_gib = [m / 2**30 for m in mem["sampling"]]
+    log(f"[{tag}] all {nb} batches match the host-sampled run (max abs "
+        f"err {worst:.3g}); every sampling call after the first ran under "
+        f"the sync check; {stats['sampler_bucket_shrinks']} bucket shrinks, "
+        f"{stats['sampler_bucket_overflows']} overflows "
+        f"({stats['sampler_overflow_rebuilds']} batches rebuilt), 0 count "
+        f"syncs after warmup, K9 x{launches[K9]}")
+    log(f"[{tag}] device vs host sampling: latency p50 "
+        f"{stats['latency_ms_p50']:.3f} vs {host['latency_ms_p50']:.3f} ms, "
+        f"p95 {stats['latency_ms_p95']:.3f} vs "
+        f"{host['latency_ms_p95']:.3f} ms, wait "
+        f"{stats['wait_ms_mean']:.3f} vs {host['wait_ms_mean']:.3f} ms, "
+        f"compute {stats['compute_ms_mean']:.3f} vs "
+        f"{host['compute_ms_mean']:.3f} ms, {stats['seeds_per_s']:.1f} vs "
+        f"{host['seeds_per_s']:.1f} seeds/s, peak {peak:.3f} vs "
+        f"{host['peak_mem_gib']:.3f} GiB (phase wall {wall:.2f} s)")
+    log(f"[{tag}] peak device memory while sampling each batch (GiB): "
+        + ", ".join(f"{g:.3f}" for g in sampling_gib))
+    keys = ("latency_ms_p50", "latency_ms_p95", "latency_ms_p99",
+            "latency_ms_mean", "wait_ms_mean", "compute_ms_mean",
+            "seeds_per_s", "edges_per_batch", "sampler_traces",
+            "sampler_bucket_shrinks", "sampler_bucket_overflows",
+            "sampler_overflow_rebuilds", "sampler_count_syncs")
     return dict({k: stats[k] for k in keys}, launches=launches,
-                max_abs_err_vs_cpu=worst, batches=len(batches))
+                max_abs_err_vs_host=worst, batches=nb, peak_mem_gib=peak,
+                sampling_peak_gib=sampling_gib, host=host)
+
+
+def phase_device_train(torch, ops, train_rgnn, cfg, host):
+    """Phase 10: the sampled training of phase 6 (RGAT) with
+    ``sampler="device"``: the kernels of each step on the device-built
+    layouts (K5 with its static chunk bound), K9 twice a sampled batch
+    (one window a hop), the first step's loss equal to the host-sampled
+    run's (the same batch, the same initial weights), a falling loss, every
+    batch that outgrew its buckets rebuilt."""
+    import numpy as np
+
+    model = cfg["model"]
+    tag = f"phase 10 {model}"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = train_rgnn.train(**cfg, eval_every_epochs=0, device="cuda",
+                             sampler="device",
+                             log=lambda m: log(f"[{tag}] {m}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    steps = stats["steps"]
+    want = {name: STEP_LAUNCHES[model].get(name, 0) * steps
+            + FORWARD_LAUNCHES[model].get(name, 0) * 3 for name in KERNELS}
+    # one window a hop, for every batch sampled (a rebuilt batch twice)
+    want[K9] = 2 * stats["sampler_batches_sampled"]
+    log(f"[{tag}] launches: {json.dumps(launches)} over {steps} steps")
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    losses = np.asarray(stats["losses"])
+    check(bool(np.isfinite(losses).all()), f"{tag}: non-finite loss")
+    rel = abs(losses[0] - host["loss_first"]) / abs(host["loss_first"])
+    check(rel <= 1e-4, f"{tag}: first loss {losses[0]:.6f} vs host-sampled "
+          f"{host['loss_first']:.6f} (rel {rel:.3g})")
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(last < first, f"{tag}: loss did not fall (first 10 steps "
+          f"{first:.4f}, last 10 {last:.4f})")
+    check(stats["sampler_bucket_overflows"] == 0
+          or stats["sampler_overflow_rebuilds"] > 0,
+          f"{tag}: {stats['sampler_bucket_overflows']} bucket overflows but "
+          f"no batch rebuilt")
+    log(f"[{tag}] first loss {losses[0]:.6f} vs host-sampled "
+        f"{host['loss_first']:.6f} (rel {rel:.3g}); loss {first:.4f} -> "
+        f"{last:.4f}; step p50 {stats['step_ms_p50']:.3f} vs "
+        f"{host['step_ms_p50']:.3f} ms, p99 {stats['step_ms_p99']:.3f} vs "
+        f"{host['step_ms_p99']:.3f} ms, {stats['seeds_per_s']:.1f} vs "
+        f"{host['seeds_per_s']:.1f} seeds/s; "
+        f"{stats['sampler_bucket_shrinks']} bucket shrinks, "
+        f"{stats['sampler_bucket_overflows']} overflows "
+        f"({stats['sampler_overflow_rebuilds']} batches rebuilt) (phase "
+        f"wall {wall:.2f} s)")
+    keys = ("steps", "step_ms_p50", "step_ms_p99", "seeds_per_s",
+            "sampler_bucket_shrinks", "sampler_bucket_overflows",
+            "sampler_overflow_rebuilds", "sampler_trace_count")
+    return dict({k: stats[k] for k in keys}, launches=launches,
+                loss_first=float(losses[0]), loss_first10=first,
+                loss_last10=last, wall_s=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -1129,8 +1519,8 @@ def phase_train(torch, ops, train_rgnn, task, cfg):
             "full_val_loss", "full_val_acc", "full_train_loss",
             "full_train_acc", "executor_compiled")
     return dict({k: stats[k] for k in keys}, launches=launches,
-                loss_first10=first, loss_last10=last, wall_s=wall,
-                step_parity=worst)
+                loss_first=float(losses[0]), loss_first10=first,
+                loss_last10=last, wall_s=wall, step_parity=worst)
 
 
 def phase_full_graph(torch, task, train_rgnn, cfg):
@@ -1301,6 +1691,7 @@ def main(argv=None) -> int:
         from repro_torch.kernels import build, ops
         from repro_torch.kernels import layout as L
         from repro_torch.kernels import ref as R
+        from repro_torch.kernels import sampling_ops as SO
         from repro_torch.kernels import segment_mm as SK
         from repro_torch.kernels import traversal as TK
         from repro_torch.launch import serve_rgnn, train_rgnn
@@ -1336,15 +1727,15 @@ def main(argv=None) -> int:
                      for m, e in TRAIN_EPOCHS.items()}
         tasks = {m: TrainTask(torch, hector_torch, cfg)
                  for m, cfg in train_cfg.items()}
-        kernels = phase_kernels(torch, hector_torch, SK, TK, L, R, ops,
+        kernels = phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops,
                                 tasks)
         seconds["phase 2"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        serve = {}
+        serve, serve_logits = {}, {}
         for tag, cfg in SERVE_RUNS:
             phase = "phase 4" if cfg["dataset"] == "bgs" else "phase 3"
-            serve[tag] = phase_serve(torch, hector_torch, ops, serve_rgnn,
-                                     cfg, f"{phase} {tag}")
+            serve[tag], serve_logits[tag] = phase_serve(
+                torch, hector_torch, ops, serve_rgnn, cfg, f"{phase} {tag}")
         prof = {tag: phase_profile(torch, serve_rgnn, cfg, "phase 5 " + tag)
                 for tag, cfg in SERVE_RUNS}
         seconds["phases 3-5"] = time.perf_counter() - t0
@@ -1361,10 +1752,24 @@ def main(argv=None) -> int:
             train_prof[model] = phase_train_profile(torch, task, full[model],
                                                     args.trace_dir)
             seconds[f"phase 8 {model}"] = time.perf_counter() - t0
-        # the main path's launches: phase 6 of every model, each run from
-        # counts set to 0 just before it
+        t0 = time.perf_counter()
+        device_serve = {
+            tag: phase_device_serve(torch, ops, serve_rgnn, cfg,
+                                    f"phase 9 {tag}", serve[tag],
+                                    serve_logits[tag])
+            for tag, cfg in DEVICE_SERVE_RUNS}
+        seconds["phase 9"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        device_train = phase_device_train(torch, ops, train_rgnn,
+                                          train_cfg["rgat"], train["rgat"])
+        seconds["phase 10"] = time.perf_counter() - t0
+        # the main path's launches, each run from counts set to 0 just
+        # before it: phase 6 of every model (K1-K7), phases 9 and 10 (K9,
+        # the device-sampling path)
         launches = {name: sum(t["launches"][name] for t in train.values())
                     for name in KERNELS}
+        launches[K9] = (sum(r["launches"][K9] for r in device_serve.values())
+                        + device_train["launches"][K9])
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on the main path")
     except Failed as e:
@@ -1396,7 +1801,8 @@ def main(argv=None) -> int:
         out.write_text(json.dumps(dict(
             card=card, build_s=build_s, seconds=seconds, kernels=kernels,
             serve=serve, profile=prof, train=train, full_graph=full,
-            train_profile=train_prof, torch=torch.__version__,
+            train_profile=train_prof, device_serve=device_serve,
+            device_train=device_train, torch=torch.__version__,
             cuda=torch.version.cuda), indent=1))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

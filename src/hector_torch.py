@@ -12,7 +12,10 @@ operations) and ``hector_torch.compile()`` from ``repro_torch.frontend``::
     state = compiled.init_state(params)
     state, metrics = compiled.train_step(state, mb, labels, feats)
 
-Entry points run on the CUDA card unless given ``device="cpu"``.
+``sampler="device"`` samples mini-batches and builds their layouts on the
+device (``repro_torch.sampling.DeviceSampler``) in place of the host
+loader thread. Entry points run on the CUDA card unless given
+``device="cpu"``.
 """
 from repro_torch.frontend import *  # noqa: F401,F403
 from repro_torch.frontend import __all__  # noqa: F401

@@ -16,8 +16,9 @@ same arrays as torch tensors for the generated code.
 
 The port's own copy of ``repro.core.graph``: ``HeteroGraph``,
 ``synthetic_heterograph`` and ``table3_graph`` make the same NumPy draws, so
-one seed gives one graph in both packages. ``DeviceGraph`` (device-side
-sampling) is not ported yet.
+one seed gives one graph in both packages. ``DeviceGraph`` is the
+per-(destination, etype) CSC that device sampling keys its candidates on,
+copied to the device once (``HeteroGraph.to_device_graph``).
 """
 from __future__ import annotations
 
@@ -138,6 +139,39 @@ class HeteroGraph:
         )
 
     # ------------------------------------------------------------------
+    def to_device_graph(self, device) -> "DeviceGraph":
+        """The per-(dst, etype) CSC for device sampling, on ``device``.
+
+        The destination-sorted edge view is already (dst-major,
+        etype-minor) lexicographic (``perm_dst`` is a stable sort of the
+        etype-sorted canonical edges), so the CSC needs only a bincount
+        over ``dst * R + etype`` bins; ``csc_src`` is ``src[perm_dst]``,
+        and a candidate's position in it is the destination-sorted
+        position the host sampler keys its counter-based randomness on.
+        Built once on the host and copied to the device once.
+        """
+        n, r = self.num_nodes, self.num_etypes
+        if n * r >= 2**31:
+            raise ValueError(
+                f"device sampling needs num_nodes*num_etypes < 2^31 "
+                f"(got {n}*{r}); shard the graph first")
+        etype_d = self.etype[self.perm_dst]
+        bins = self.dst_sorted.astype(np.int64) * r + etype_d
+        counts = np.bincount(bins, minlength=n * r)
+        indptr = np.zeros(n * r + 1, dtype=np.int32)
+        np.cumsum(counts, out=indptr[1:])
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32))
+
+        return DeviceGraph(
+            csc_indptr=t(indptr), csc_src=t(self.src[self.perm_dst]),
+            node_type=t(self.node_type), ntype_ptr=t(self.ntype_ptr),
+            num_nodes=n, num_ntypes=self.num_ntypes, num_etypes=r,
+            max_bin=int(counts.max()) if counts.size else 0,
+        ).to(device)
+
+    # ------------------------------------------------------------------
     def to_tensors(self) -> "GraphTensors":
         """The graph's index arrays as int32 CPU tensors (sharing the NumPy
         buffers); ``GraphTensors.to`` moves them."""
@@ -204,6 +238,41 @@ class GraphTensors:
         return dataclasses.replace(self, **{
             f: to_device(getattr(self, f), device, non_blocking)
             for f in _ARRAY_FIELDS})
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceGraph:
+    """Full-graph CSC for device fanout sampling.
+
+    One (indptr, indices) pair at per-(destination, etype) granularity:
+    ``csc_indptr[v*R + r] : csc_indptr[v*R + r + 1]`` spans node ``v``'s
+    in-edges of type ``r`` inside ``csc_src`` (destination-sorted order, so
+    positions double as the sampler's randomness counters). ``node_type``
+    / ``ntype_ptr`` ride along for the blocks' node types. ``max_bin``
+    (the largest per-(dst, etype) in-degree) is the static width of the
+    candidate window that K9 keys."""
+
+    csc_indptr: torch.Tensor   # [N*R + 1] int32
+    csc_src: torch.Tensor      # [E] int32 source node per dst-sorted edge
+    node_type: torch.Tensor    # [N] int32, non-decreasing
+    ntype_ptr: torch.Tensor    # [T+1] int32
+    num_nodes: int
+    num_ntypes: int
+    num_etypes: int
+    max_bin: int
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.csc_src.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.csc_src.device
+
+    def to(self, device, non_blocking: bool = False) -> "DeviceGraph":
+        return dataclasses.replace(self, **{
+            f: to_device(getattr(self, f), device, non_blocking)
+            for f in ("csc_indptr", "csc_src", "node_type", "ntype_ptr")})
 
 
 # ----------------------------------------------------------------------

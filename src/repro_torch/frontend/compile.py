@@ -113,6 +113,7 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
     activation: str = "relu",
     seed: int = 0,
     device=None,
+    sampler: str = "host",
     config=None,
     model_args: Optional[dict] = None,
     **model_kwargs,
@@ -125,6 +126,9 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
     ``prog_fn(in_dim, out_dim, **hparams) -> Program``.
     ``sample``: per-hop neighbor fanout of the mini-batch path — an int
     (every hop), a per-layer sequence, or ``-1`` for full neighborhoods.
+    ``sampler``: ``"host"`` (NumPy sampling and layouts on a loader
+    thread) or ``"device"`` (``DeviceSampler``: selection and layouts on
+    the device; the same edges for the same stream position).
     Model hyperparameters ride along as extra keyword arguments, or in
     ``model_args={...}`` where a name collides with a compile keyword
     (e.g. RGCN's ``activation``).
@@ -158,5 +162,5 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
             model=prog_fn, layers=layers, dim=dim, hidden=hidden,
             classes=classes, fanouts=sample, tile=tile,
             node_block=node_block, activation=activation, seed=seed,
-            device=device)
+            device=device, sampler=sampler)
     return CompiledRGNN(RGNNEngine(graph, cfg))

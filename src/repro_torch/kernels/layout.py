@@ -18,16 +18,18 @@ adaptation moves irregularity to **block granularity**:
 Both are computed once per graph on the host (NumPy) and are *data layout
 choices* in the sense of §3.2.2 — the inter-op IR never sees them.
 
-The port's own copy of the host (NumPy) half of ``repro.kernels.layout``;
-the arrays are identical (``tests/test_torch_sampling.py``). The
-reference's jit-traceable ``device_*`` builders belong to the
-device-sampling slice and are not ported yet.
+The port's own copy of ``repro.kernels.layout``: the host (NumPy)
+builders, whose arrays are identical (``tests/test_torch_sampling.py``),
+and the ``device_*`` builders of device sampling: fixed-shape torch code
+that reads nothing back from the device, array-equal to the reference's
+(``tests/test_torch_device_sampling.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,3 +218,128 @@ def block_csr(dst_ptr: np.ndarray, edge_tile: int, node_block: int) -> BlockedCS
         padded_edges=ep, edge_map=edge_map, local_dst=local_dst,
         tile_to_block=t2b, num_node_blocks=nb,
     )
+
+
+# ---------------------------------------------------------------------------
+# device-side (fixed-shape, sync-free) layout builders
+# ---------------------------------------------------------------------------
+def scatter_drop(size: int, fill: int, idx: torch.Tensor,
+                 vals: torch.Tensor) -> torch.Tensor:
+    """``full(size, fill).at[idx].set(vals, mode="drop")``: writes whose
+    index lies outside ``[0, size)`` land in one trash slot past the end,
+    which is sliced off (``scatter_`` would fault on them)."""
+    out = torch.full((size + 1,), fill, dtype=vals.dtype,
+                     device=vals.device)
+    idx = idx.long()
+    idx = torch.where((idx < 0) | (idx > size), size, idx)
+    return out.scatter_(0, idx, vals)[:size]
+
+
+def ptr_of_sorted(sorted_vals: torch.Tensor, num: int) -> torch.Tensor:
+    """[num + 1] segment offsets of the values ``0..num-1`` in a
+    non-decreasing int32 array: the cumulative counts, by binary search
+    (a bincount reads its maximum back to the host)."""
+    return torch.searchsorted(
+        sorted_vals, torch.arange(num + 1, dtype=sorted_vals.dtype,
+                                  device=sorted_vals.device),
+        out_int32=True)
+
+
+def exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """[0, x0, x0+x1, ...] as int32: offsets from sizes."""
+    return torch.cat([x.new_zeros(1), torch.cumsum(x, 0, dtype=torch.int32)])
+
+
+def _device_tile_runs(pstart: torch.Tensor, tile: int, num_tiles: int,
+                      num_groups: int) -> torch.Tensor:
+    """tile -> group map from tile-aligned padded group starts [G+1].
+
+    Tiles past the populated prefix extend the **last** group's run (the
+    ``pad_segments_rows`` growth rule: accumulating kernels need the map
+    non-decreasing, and trailing pad tiles must not open a new group).
+    """
+    boundaries = (pstart[1:] // tile).contiguous()      # [G] end tile of g
+    t = torch.arange(num_tiles, dtype=boundaries.dtype,
+                     device=boundaries.device)
+    t2g = torch.searchsorted(boundaries, t, right=True, out_int32=True)
+    return t2g.clamp(0, num_groups - 1)
+
+
+def device_pad_segments(seg_ptr: torch.Tensor, group_of_row: torch.Tensor,
+                        tile: int, padded_rows: int):
+    """``pad_segments`` (+ ``pad_segments_rows`` growth) at fixed shapes.
+
+    ``seg_ptr`` [G+1] are the group offsets over ``M = len(group_of_row)``
+    type-sorted rows (every row's group in ``group_of_row``, non-decreasing).
+    ``padded_rows`` is the static row capacity and must satisfy
+    ``padded_rows >= M + G*tile > M + sum_g (tile-1)`` (room for the
+    worst-case per-group tile padding) and be a tile multiple. Returns
+    ``(row_map [padded_rows], inv_map [M], t2g [padded_rows//tile])`` with
+    the host semantics: pad slots are -1 in ``row_map`` and trailing tiles
+    extend the last group's run.
+    """
+    if padded_rows % tile:
+        raise ValueError("padded_rows must be a tile multiple")
+    num_groups = int(seg_ptr.shape[0]) - 1
+    m = int(group_of_row.shape[0])
+    if padded_rows < m + num_groups * tile:
+        raise ValueError(
+            f"padded_rows={padded_rows} cannot hold {m} rows with "
+            f"{num_groups} groups of up-to-(tile-1) padding each")
+    sizes = seg_ptr[1:] - seg_ptr[:-1]
+    pstart = exclusive_cumsum(((sizes + tile - 1) // tile) * tile)
+    g = group_of_row.long()
+    rows = torch.arange(m, dtype=torch.int32, device=seg_ptr.device)
+    inv_map = pstart[g] + (rows - seg_ptr[g])
+    row_map = scatter_drop(padded_rows, -1, inv_map, rows)
+    t2g = _device_tile_runs(pstart, tile, padded_rows // tile, num_groups)
+    return row_map, inv_map, t2g
+
+
+def device_compose_gather_rows(row_map: torch.Tensor,
+                               idx: torch.Tensor) -> torch.Tensor:
+    """``compose_gather_rows`` on tensors: padded slot -> source row (or
+    -1)."""
+    return torch.where(row_map >= 0, idx[row_map.clamp(min=0).long()],
+                       -1).to(torch.int32)
+
+
+def device_block_csr(dst_ptr: torch.Tensor, dst_sorted: torch.Tensor,
+                     edge_tile: int, node_block: int, padded_edges: int):
+    """``block_csr`` at fixed shapes.
+
+    ``dst_ptr`` [N+1] / ``dst_sorted`` [E] describe the destination-sorted
+    edges. ``padded_edges`` is the static slot capacity and must satisfy
+    ``padded_edges >= E + num_node_blocks*edge_tile`` (worst-case per-block
+    tile padding) and be a tile multiple. Returns ``(edge_map_d
+    [padded_edges], local_dst [padded_edges], t2b)`` where ``edge_map_d``
+    holds **dst-sorted** edge indices (compose with ``perm_dst`` for
+    canonical order), pads are -1 / ``node_block``, and trailing tiles
+    extend the last block's run.
+    """
+    if padded_edges % edge_tile:
+        raise ValueError("padded_edges must be an edge_tile multiple")
+    num_nodes = int(dst_ptr.shape[0]) - 1
+    e = int(dst_sorted.shape[0])
+    nb = (num_nodes + node_block - 1) // node_block
+    if padded_edges < e + nb * edge_tile:
+        raise ValueError(
+            f"padded_edges={padded_edges} cannot hold {e} edges over "
+            f"{nb} node blocks")
+    dev = dst_ptr.device
+    bidx = torch.clamp(torch.arange(nb + 1, device=dev) * node_block,
+                       max=num_nodes)
+    bptr = dst_ptr[bidx]                                    # [nb+1]
+    sizes = bptr[1:] - bptr[:-1]
+    pstart = exclusive_cumsum(
+        ((sizes + edge_tile - 1) // edge_tile) * edge_tile)
+    b_of = dst_sorted // node_block                         # [E]
+    bl = b_of.long()
+    edges = torch.arange(e, dtype=torch.int32, device=dev)
+    slot = pstart[bl] + (edges - bptr[bl])
+    edge_map_d = scatter_drop(padded_edges, -1, slot, edges)
+    local_dst = scatter_drop(padded_edges, node_block, slot,
+                             (dst_sorted - b_of * node_block)
+                             .to(torch.int32))
+    t2b = _device_tile_runs(pstart, edge_tile, padded_edges // edge_tile, nb)
+    return edge_map_d, local_dst, t2b

@@ -143,6 +143,53 @@ def blocked_csr_dev(
     )
 
 
+def device_padded_segments(seg_ptr: torch.Tensor,
+                           group_of_row: torch.Tensor, tile: int,
+                           padded_rows: int) -> PaddedSegmentsDev:
+    """``padded_segments_dev`` built on the tensors' device without a
+    readback (``layout.device_pad_segments`` plus K5's work split).
+
+    ``group_tile_ptr`` / ``group_chunk_ptr`` equal the host's; the chunk
+    count, which the host reads off ``group_chunk_ptr[-1]``, is the static
+    bound ``padded_rows / tile / K5_CHUNK_TILES + G`` instead (each group
+    rounds its chunk count up by less than one). K5 launches that many
+    chunks; those past ``group_chunk_ptr[G]`` get an empty tile range and
+    write partials that no group reads."""
+    row_map, inv_map, t2g = L.device_pad_segments(seg_ptr, group_of_row,
+                                                  tile, padded_rows)
+    num_groups = int(seg_ptr.shape[0]) - 1
+    tiles = (seg_ptr[1:] - seg_ptr[:-1] + tile - 1) // tile
+    gtp = L.exclusive_cumsum(tiles)
+    gcp = L.exclusive_cumsum(
+        (tiles + SK.K5_CHUNK_TILES - 1) // SK.K5_CHUNK_TILES)
+    return PaddedSegmentsDev(
+        row_map=row_map, inv_map=inv_map, t2g=t2g, group_tile_ptr=gtp,
+        group_chunk_ptr=gcp, tile=tile, num_groups=num_groups,
+        num_chunks=padded_rows // tile // SK.K5_CHUNK_TILES + num_groups)
+
+
+def device_blocked_csr(dst_ptr: torch.Tensor, dst_sorted: torch.Tensor,
+                       perm_dst: torch.Tensor, edge_to_unique: torch.Tensor,
+                       edge_tile: int, node_block: int,
+                       padded_edges: int) -> BlockedCSRDev:
+    """``blocked_csr_dev`` built on the tensors' device without a readback
+    (``layout.device_block_csr``); ``block_tile_ptr`` is a binary search of
+    the non-decreasing tile -> block map."""
+    em_d, local_dst, t2b = L.device_block_csr(
+        dst_ptr, dst_sorted, edge_tile, node_block, padded_edges)
+    edge_map = torch.where(em_d >= 0, perm_dst[em_d.clamp(min=0).long()], -1)
+    edge_map_u = torch.where(
+        edge_map >= 0, edge_to_unique[edge_map.clamp(min=0).long()], -1)
+    num_nodes = int(dst_ptr.shape[0]) - 1
+    nb = (num_nodes + node_block - 1) // node_block
+    return BlockedCSRDev(
+        edge_map=edge_map.to(torch.int32),
+        edge_map_unique=edge_map_u.to(torch.int32),
+        local_dst=local_dst.reshape(-1, edge_tile), t2b=t2b,
+        block_tile_ptr=L.ptr_of_sorted(t2b, nb), edge_tile=edge_tile,
+        node_block=node_block, num_node_blocks=nb, num_nodes=num_nodes)
+
+
 def pad_rows(x: torch.Tensor, row_map: torch.Tensor,
              fill: float = 0.0) -> torch.Tensor:
     """Gather rows into the padded layout; pad rows get ``fill``."""
@@ -516,11 +563,17 @@ _COUNTED = (SK.segment_mm_gather_padded, TK.seg_stats_padded,
             SK.segment_outer_padded, TK.seg_weighted_agg_gather_padded)
 
 
+def _counted():
+    # K9 lives in ``sampling_ops``, which imports this module
+    from repro_torch.kernels.sampling_ops import candidate_keys
+    return _COUNTED + (candidate_keys,)
+
+
 def launch_counts() -> dict:
     """Launches of each ported kernel so far in this process."""
-    return {fn.__name__: fn.launches for fn in _COUNTED}
+    return {fn.__name__: fn.launches for fn in _counted()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _COUNTED:
+    for fn in _counted():
         fn.launches = 0

@@ -1,10 +1,13 @@
 """Batched RGNN inference serving driver of the PyTorch/CUDA port.
 
-Request batches of seed nodes stream through the fanout sampler (prefetched
-on a background thread, kernel layouts built on the host and copied to the
-card without blocking), and a multi-layer Hector stack runs one generated
-layer per sampled hop, returning per-seed logits. The node-feature table
-lives on the device; each batch gathers its input rows by
+Request batches of seed nodes stream through the fanout sampler (with
+``--sampler host``, prefetched on a background thread, kernel layouts
+built on the host and copied to the card without blocking; with
+``--sampler device``, selected and laid out on the card by the
+``DeviceSampler``, dispatched one batch ahead with no thread and no
+device-to-host synchronization), and a multi-layer Hector stack runs one
+generated layer per sampled hop, returning per-seed logits. The
+node-feature table lives on the device; each batch gathers its input rows by
 ``mb.input_ids``. Reports per-batch latency split into queue-wait
 (sampling + layout, when not hidden by prefetch) and model compute, and
 end-to-end seed throughput — the same lines and stats keys as
@@ -13,6 +16,7 @@ end-to-end seed throughput — the same lines and stats keys as
     PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --device cpu \\
         --dataset aifb --scale 0.05 --dim 16 --hidden 16 --classes 4
+    PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --sampler device
 
 The online runtime, autotuning, feature-store tiers, telemetry and
 data-parallel serving are later slices.
@@ -51,6 +55,7 @@ def serve(
     node_block: int = 32,
     seed: int = 0,
     device=None,
+    sampler: str = "host",
     params=None,
     on_batch=None,
     log=print,
@@ -75,12 +80,12 @@ def serve(
     engine = hector_torch.compile(
         model, graph, layers=layers, dim=dim, hidden=hidden,
         classes=classes, sample=fanouts, tile=tile, node_block=node_block,
-        seed=seed, device=dev)
+        seed=seed, device=dev, sampler=sampler)
     fanouts = engine.cfg.fanouts
     log(f"[serve_rgnn] {model} on {dataset} (scale {scale}): "
         f"{graph.num_nodes} nodes, {graph.num_edges} edges, "
         f"{graph.num_etypes} etypes; fanouts={fanouts} device={dev} "
-        f"(graph build {t_graph:.2f}s)")
+        f"sampler={sampler} (graph build {t_graph:.2f}s)")
     params = engine.init(seed) if params is None else \
         engine.params_from_reference(params)
     feats = torch.from_numpy(feats_np).to(dev)   # the device feature table
@@ -93,6 +98,8 @@ def serve(
     lat, waits, computes, preds = [], [], [], None
     edges_seen = 0
     traces_at_warmup = None
+    dev_sampler = engine.device_sampler
+    sampler_traces_at_warmup = sampler_syncs_at_warmup = None
     t_serve0 = time.perf_counter()
     try:
         while True:
@@ -104,6 +111,9 @@ def serve(
             t_wait = time.perf_counter() - t0
             if len(lat) == warmup_batches:
                 traces_at_warmup = executor.trace_count
+                if dev_sampler is not None:
+                    sampler_traces_at_warmup = dev_sampler.trace_count
+                    sampler_syncs_at_warmup = dev_sampler.count_syncs
             t0 = time.perf_counter()
             logits = engine.apply_blocks(params, mb, feats)
             sync()
@@ -146,11 +156,24 @@ def serve(
         "executor_cache_hits": executor.cache_hits,
         "executor_compiled": executor.num_compiled,
         "retraces_after_warmup": retraces_after_warmup,
-        "sampler": "host",
+        "sampler": loader.mode,
         "host_builds": loader.host_builds,
-        "device_builds": 0,
+        "device_builds": loader.device_builds,
         "device": str(dev),
     }
+    if dev_sampler is not None:
+        stats["sampler_traces"] = dev_sampler.trace_count
+        stats["sampler_retraces_after_warmup"] = (
+            dev_sampler.trace_count - sampler_traces_at_warmup
+            if sampler_traces_at_warmup is not None else 0)
+        stats["sampler_count_syncs"] = dev_sampler.count_syncs
+        stats["sampler_count_syncs_after_warmup"] = (
+            dev_sampler.count_syncs - sampler_syncs_at_warmup
+            if sampler_syncs_at_warmup is not None
+            else dev_sampler.count_syncs)
+        stats["sampler_bucket_overflows"] = dev_sampler.bucket_overflows
+        stats["sampler_bucket_shrinks"] = dev_sampler.bucket_shrinks
+        stats["sampler_overflow_rebuilds"] = dev_sampler.overflow_rebuilds
     log(f"[serve_rgnn] served {n} batches x {batch_size} seeds: "
         f"latency p50 {stats['latency_ms_p50']:.1f} ms / "
         f"p95 {stats['latency_ms_p95']:.1f} ms / "
@@ -162,6 +185,15 @@ def serve(
     log(f"[serve_rgnn] executor: {executor.trace_count} new signatures / "
         f"{executor.cache_hits} repeats "
         f"({retraces_after_warmup} new after warmup)")
+    if dev_sampler is not None:
+        log(f"[serve_rgnn] device sampler: {dev_sampler.trace_count} new "
+            f"programs / {dev_sampler.cache_hits} program-cache hits "
+            f"({stats['sampler_retraces_after_warmup']} new after "
+            f"warmup); {dev_sampler.count_syncs} count syncs, "
+            f"{dev_sampler.bucket_shrinks} bucket shrinks, "
+            f"{dev_sampler.bucket_overflows} overflows "
+            f"({dev_sampler.overflow_rebuilds} batches rebuilt); builds host "
+            f"{loader.host_builds} / device {loader.device_builds}")
     log(f"[serve_rgnn] sample predictions: {preds[:12].tolist()}")
     return stats
 
@@ -187,6 +219,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default; fails without a card) or "
                          "'cpu'")
+    ap.add_argument("--sampler", default="host", choices=["host", "device"],
+                    help="'host': NumPy sampling and layouts on a loader "
+                         "thread; 'device': the DeviceSampler on --device")
     args = ap.parse_args(argv)
     return serve(
         model=args.model, dataset=args.dataset, scale=args.scale,
@@ -195,7 +230,7 @@ def main(argv=None):
         fanouts=parse_fanout(args.fanout, args.layers),
         batch_size=args.batch_size, num_batches=args.num_batches,
         tile=args.tile, node_block=args.node_block, seed=args.seed,
-        device=args.device,
+        device=args.device, sampler=args.sampler,
     )
 
 

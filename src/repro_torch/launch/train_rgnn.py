@@ -17,9 +17,10 @@ step budget, whose held-out loss the sampled run must come within
 
 The task is learnable: labels come from a frozen, randomly initialized
 teacher of the same architecture run over the full graph. Runs on the
-CUDA card unless given ``--device cpu``. Device sampling, feature stores,
-Zipf-skewed streams, autotuning, telemetry and data parallelism are later
-slices.
+CUDA card unless given ``--device cpu``; ``--sampler device`` samples the
+mini-batches and builds their layouts on the device (``DeviceSampler``).
+Feature stores, Zipf-skewed streams, autotuning, telemetry and data
+parallelism are later slices.
 """
 from __future__ import annotations
 
@@ -94,6 +95,7 @@ def train(
     parity: bool = False,
     parity_tol: float = 0.05,
     device=None,
+    sampler: str = "host",
     log=print,
 ):
     """Run the sampled training loop on ``device`` (``None``: the CUDA
@@ -103,13 +105,14 @@ def train(
     cfg = EngineConfig(model=model, layers=layers, dim=dim, hidden=hidden,
                        classes=classes, fanouts=fanouts, tile=tile,
                        node_block=node_block, bucket=bucket, seed=seed,
-                       device=str(dev))
+                       device=str(dev), sampler=sampler)
     engine, feats, labels, train_ids, val_ids = build_task(
         dataset, scale, cfg, seed, val_frac)
     log(f"[train_rgnn] {model} on {dataset} (scale {scale}): "
         f"{engine.graph.num_nodes} nodes, {engine.graph.num_edges} edges, "
         f"{engine.graph.num_etypes} etypes; fanouts={cfg.fanouts}, "
-        f"device={dev}, {len(train_ids)} train / {len(val_ids)} val nodes")
+        f"device={dev}, sampler={sampler}, {len(train_ids)} train / "
+        f"{len(val_ids)} val nodes")
 
     bpe = EpochSeedStream(train_ids, batch_size).batches_per_epoch
     total_steps = epochs * bpe
@@ -140,6 +143,16 @@ def train(
         stats["full_val_loss"] = final_val["loss"]
         stats["full_val_acc"] = final_val["accuracy"]
     stats["device"] = str(dev)
+    stats["sampler"] = sampler
+    dev_sampler = engine.device_sampler
+    if dev_sampler is not None:
+        for k, v in dev_sampler.stats().items():
+            stats[f"sampler_{k}"] = v
+        log(f"[train_rgnn] device sampler: {dev_sampler.trace_count} new "
+            f"programs / {dev_sampler.cache_hits} program-cache hits over "
+            f"{dev_sampler.batches_sampled} batches; "
+            f"{dev_sampler.bucket_shrinks} bucket shrinks, "
+            f"{dev_sampler.bucket_overflows} overflows")
     log(f"[train_rgnn] sampled training done: {stats['steps']} steps, "
         f"step p50 {stats['step_ms_p50']:.1f} ms, "
         f"p99 {stats['step_ms_p99']:.1f} ms, "
@@ -217,6 +230,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default; fails without a card) or "
                          "'cpu'")
+    ap.add_argument("--sampler", default="host", choices=["host", "device"],
+                    help="'host': NumPy sampling and layouts on a loader "
+                         "thread; 'device': the DeviceSampler on --device")
     args = ap.parse_args(argv)
 
     if args.scale is not None:
@@ -238,6 +254,7 @@ def main(argv=None):
         ckpt_every=args.ckpt_every, resume=args.resume,
         eval_every_epochs=args.eval_every_epochs, parity=args.parity,
         parity_tol=args.parity_tol, device=args.device,
+        sampler=args.sampler,
     )
 
 

@@ -1,9 +1,7 @@
 """Hetero mini-batch sampling of the port: host fanout sampling producing
-message-flow-graph blocks, and a prefetching loader that builds each
-block's layouts on the host and copies them to the device.
-
-Device-native sampling (``repro.sampling.device_sampler``) is not ported
-yet.
+message-flow-graph blocks, device sampling (``DeviceSampler``: selection
+and layout build on the device, the same edges as the host sampler), and
+a prefetching loader that takes either.
 """
 from repro_torch.sampling.loader import (  # noqa: F401
     EpochSeedStream,
@@ -11,6 +9,11 @@ from repro_torch.sampling.loader import (  # noqa: F401
     MiniBatchLoader,
     SeedStream,
     build_minibatch,
+)
+from repro_torch.sampling.device_sampler import (  # noqa: F401
+    DeviceBlock,
+    DeviceBlockSequence,
+    DeviceSampler,
 )
 from repro_torch.sampling.sampler import (  # noqa: F401
     Block,

@@ -1,11 +1,16 @@
-"""Prefetching mini-batch loader for sampled RGNN blocks (host mode).
+"""Prefetching mini-batch loader for sampled RGNN blocks.
 
-The counterpart of ``repro.sampling.loader``: a background thread pulls
-seed batches from a deterministic stream, runs the fanout sampler, builds
-every block's ``KernelLayouts`` in NumPy and copies the tensors to the
-device without blocking (pinned host buffers), so sampling, layout build
-and the host-to-device copies overlap the consumer's forward passes. The
-consumer only dequeues device-ready ``MiniBatch`` bundles.
+The counterpart of ``repro.sampling.loader``. In host mode a background
+thread pulls seed batches from a deterministic stream, runs the fanout
+sampler, builds every block's ``KernelLayouts`` in NumPy and copies the
+tensors to the device without blocking (pinned host buffers), so
+sampling, layout build and the host-to-device copies overlap the
+consumer's forward passes. The consumer only dequeues device-ready
+``MiniBatch`` bundles. In device mode (a sampler with
+``sample_minibatch``, i.e. a ``DeviceSampler``) there is no thread: every
+build only enqueues device work, so the loader dispatches batch k+1
+before handing batch k to the consumer, after the sampler's ``settle``
+has checked batch k's counts against its buckets.
 
 Failure contract (as in the reference): an exception anywhere in the
 producer is re-raised in the consumer on its next ``__next__``, after the
@@ -16,11 +21,11 @@ loader then passes the epoch to the sampler, so the same seed batch in a
 later epoch draws a fresh neighborhood. ``start_step`` starts the stream
 mid-way (a resumed run replays the exact remaining batches).
 
-Not ported yet: the LRU block/layout caches, device-sampling mode and
-graph partitions.
+Not ported yet: the LRU block/layout caches and graph partitions.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import queue
 import threading
@@ -33,9 +38,10 @@ from repro_torch.core import codegen
 from repro_torch.core.graph import GraphTensors, HeteroGraph, to_device
 from repro_torch.kernels.layout import pow2ceil
 from repro_torch.sampling.bucketing import pad_block_graph, pad_index
-from repro_torch.sampling.sampler import BlockSequence, FanoutSampler
+from repro_torch.sampling.sampler import BlockSequence
 
-# batches the producer thread builds ahead of the consumer
+# batches built ahead of the consumer (by the producer thread, or
+# dispatched on the device)
 PREFETCH_DEPTH = 2
 
 
@@ -183,8 +189,15 @@ def build_minibatch(seq: BlockSequence, step: int = 0, tile: int = 128,
 
 
 class MiniBatchLoader:
-    """Background-thread prefetch of sampled mini-batches.
+    """Prefetch of sampled mini-batches: a background thread (host mode) or
+    batches dispatched ahead on the device (device mode).
 
+    ``sampler`` is a ``FanoutSampler`` (host mode: sample, then
+    ``build_minibatch`` with the layout arguments, copied to ``device``) or
+    a ``DeviceSampler`` (anything with ``sample_minibatch`` and ``settle``;
+    device mode, ``mode == "device"``: the sampler builds whole
+    mini-batches on its own device; ``device_builds`` counts them,
+    ``host_builds`` the host mode's).
     ``seed_source`` is a ``SeedStream``, an ``EpochSeedStream`` or any
     ``step -> np.ndarray`` callable. Iteration yields ``MiniBatch`` in step
     order from ``start_step``; with ``num_batches`` set the loader raises
@@ -196,7 +209,7 @@ class MiniBatchLoader:
 
     def __init__(
         self,
-        sampler: FanoutSampler,
+        sampler,
         seed_source: Union[SeedStream, EpochSeedStream,
                            Callable[[int], np.ndarray]],
         *,
@@ -218,8 +231,17 @@ class MiniBatchLoader:
         self.bucket = bucket
         self.num_batches = num_batches
         self.device = torch.device(device)
-        self.host_builds = 0
+        self.mode = ("device" if hasattr(sampler, "sample_minibatch")
+                     else "host")
+        self.host_builds = 0     # batches built by the host NumPy pipeline
+        self.device_builds = 0   # batches built by the device sampler
         self._done = False
+        self._thread = None
+        if self.mode == "device":
+            # threadless prefetch: a deque of already-dispatched batches
+            self._next_step = start_step
+            self._pending: collections.deque = collections.deque()
+            return
         self.q: queue.Queue = queue.Queue(maxsize=PREFETCH_DEPTH)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._fill, daemon=True)
@@ -233,6 +255,24 @@ class MiniBatchLoader:
         return build_minibatch(seq, step=step, tile=self.tile,
                                node_block=self.node_block,
                                bucket=self.bucket, device=self.device)
+
+    def _build_device(self, step: int) -> MiniBatch:
+        seeds = self._seeds_for(step)
+        epoch = self._epoch_of(step) if self._epoch_of is not None else None
+        self.device_builds += 1
+        return self.sampler.sample_minibatch(seeds, batch_index=step,
+                                             epoch=epoch, step=step)
+
+    def _pump(self) -> None:
+        """Dispatch device builds until the prefetch window is full: each
+        build only enqueues device work, so batch k+1 is sampled while the
+        consumer runs batch k."""
+        while len(self._pending) < PREFETCH_DEPTH:
+            if (self.num_batches is not None and
+                    self._next_step - self._start_step >= self.num_batches):
+                return
+            self._pending.append(self._build_device(self._next_step))
+            self._next_step += 1
 
     def _fill(self):
         step = self._start_step
@@ -262,6 +302,15 @@ class MiniBatchLoader:
     def __next__(self) -> MiniBatch:
         if self._done:
             raise StopIteration
+        if self.mode == "device":
+            self._pump()
+            if not self._pending:
+                self._done = True
+                raise StopIteration
+            # checked against its counts (rebuilt if it overflowed)
+            mb = self.sampler.settle(self._pending.popleft())
+            self._pump()   # dispatch the next batch before the caller runs
+            return mb
         while True:
             try:
                 item = self.q.get(timeout=0.5)
@@ -285,6 +334,10 @@ class MiniBatchLoader:
         return item
 
     def close(self):
+        if self.mode == "device":
+            self._done = True
+            self._pending.clear()
+            return
         self._stop.set()
         # drain so a blocked producer can observe the stop flag
         try:

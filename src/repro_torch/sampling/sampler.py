@@ -100,6 +100,33 @@ def edge_sample_keys(base_key, pos):
     return mix32(np.asarray(pos).astype(np.uint32) ^ base_key)
 
 
+def _mul32(x, m: int):
+    """``x * m`` modulo 2^32 for int64 tensors ``x`` in [0, 2^32): the
+    product is split at bit 16 of ``m`` so no partial product reaches
+    2^63 (a full 32 x 32-bit product would overflow int64)."""
+    lo = x * (m & 0xFFFF)
+    hi = ((x * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & 0xFFFFFFFF
+
+
+def mix32_torch(x):
+    """``mix32`` over an int64 tensor of uint32 values (torch has no full
+    uint32 arithmetic): the same bits, held in int64, each product masked
+    back to 32 bits."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, int(_MIX_M1))
+    x = x ^ (x >> 13)
+    x = _mul32(x, int(_MIX_M2))
+    return x ^ (x >> 16)
+
+
+def edge_sample_keys_torch(base_key, pos):
+    """``edge_sample_keys`` on a tensor of candidate positions: the same
+    uint32 keys as int64 values (``pos`` wraps to uint32 as in numpy)."""
+    return mix32_torch((pos.long() & 0xFFFFFFFF) ^ (int(base_key)
+                                                     & 0xFFFFFFFF))
+
+
 def normalize_fanout(fanout: FanoutSpec, num_etypes: int) -> np.ndarray:
     """Per-etype fanout vector [R]; -1 means the full neighborhood."""
     if isinstance(fanout, (int, np.integer)):

@@ -4,9 +4,10 @@ training) build one.
 
 The engine owns what is a pure function of (graph, model config, device):
 the lowered per-layer plans, the block executor, the full-graph tensors
-and kernel layouts (built on first use), the fanout sampler, and one
-sampled train-step executor per optimizer. Seed streams and loaders are
-made per driver through ``make_loader``. Tuning, device sampling, feature
+and kernel layouts (built on first use), the fanout sampler (and, with
+``sampler="device"``, the ``DeviceSampler`` over the graph's CSC on the
+device), and one sampled train-step executor per optimizer. Seed streams
+and loaders are made per driver through ``make_loader``. Tuning, feature
 stores and data parallelism are later slices.
 """
 from __future__ import annotations
@@ -21,7 +22,8 @@ from repro_torch.core.graph import HeteroGraph
 from repro_torch.core.module import HectorStack
 from repro_torch.models import (hgt_program, rgat_program, rgcn_cat_program,
                                 rgcn_program)
-from repro_torch.sampling import FanoutSampler, MiniBatchLoader
+from repro_torch.sampling import (DeviceSampler, FanoutSampler,
+                                  MiniBatchLoader)
 
 MODEL_PROGRAMS = {"rgcn": rgcn_program, "rgat": rgat_program,
                   "hgt": hgt_program, "rgcn_cat": rgcn_cat_program}
@@ -71,6 +73,7 @@ class EngineConfig:
     activation: str = "relu"
     seed: int = 0
     device: Optional[str] = None         # None: the CUDA card
+    sampler: str = "host"                # host | device
 
     def __post_init__(self):
         if isinstance(self.model, str):
@@ -82,6 +85,8 @@ class EngineConfig:
                 f"model must be a registry name or a program factory "
                 f"(@hector_torch.model / prog_fn); got "
                 f"{type(self.model).__name__}")
+        if self.sampler not in ("host", "device"):
+            raise ValueError(f"sampler={self.sampler!r}; pick host/device")
         self.fanouts = list(self.fanouts) if self.fanouts is not None \
             else [5] * self.layers
         if len(self.fanouts) != self.layers:
@@ -118,6 +123,13 @@ class RGNNEngine:
                                  activation=cfg.activation,
                                  device=self.device)
         self.sampler = FanoutSampler(graph, cfg.fanouts, seed=cfg.seed)
+        # the device pipeline: the CSC goes to the device once, here; it
+        # shares the host sampler's seed, so both draw the same edges
+        self.device_sampler = None
+        if cfg.sampler == "device":
+            self.device_sampler = DeviceSampler(
+                graph, cfg.fanouts, seed=cfg.seed, tile=cfg.tile,
+                node_block=cfg.node_block, device=self.device)
         # sampled train-step executors, one per optimizer instance (shared
         # by the compile facade and SampledTrainer)
         self._train_execs = {}
@@ -166,9 +178,14 @@ class RGNNEngine:
     ) -> MiniBatchLoader:
         """A prefetching loader over this engine's sampler/layout config,
         delivering (bucketed, unless ``cfg.bucket`` is off) mini-batches on
-        the engine's device from ``start_step`` on."""
+        the engine's device from ``start_step`` on. With
+        ``cfg.sampler == "device"`` it gets the ``DeviceSampler`` and
+        prefetches without a thread (sampling and layouts as enqueued
+        device work)."""
+        active = self.device_sampler if self.device_sampler is not None \
+            else self.sampler
         return MiniBatchLoader(
-            self.sampler, seed_source,
+            active, seed_source,
             tile=self.cfg.tile, node_block=self.cfg.node_block,
             bucket=self.cfg.bucket, start_step=start_step,
             num_batches=num_batches, device=self.device,

@@ -418,6 +418,39 @@ def test_k5_chunks_cover_only_real_tiles():
     assert ps.padded_rows // 8 > 3 * c + 2     # pad tiles outside the runs
 
 
+@pytest.mark.parametrize("grow", [1, 4])
+def test_k5_static_chunk_bound_of_the_device_layout(grow):
+    """Device sampling builds K5's layout with a static chunk count above
+    ``group_chunk_ptr[R]`` (``ops.device_padded_segments``): K5 on it
+    equals K5 on the host layout's exact count, and the reference kernel
+    on every group that owns tiles."""
+    rng = np.random.default_rng(11 + grow)
+    tile, r = 8, 6
+    ptr, m = _segments(rng, r, 40)
+    cap = (m + r * tile) * grow
+    cap += -cap % tile
+    dev = ops.device_padded_segments(
+        _t(ptr.astype(np.int32)),
+        _t(np.repeat(np.arange(r, dtype=np.int32), np.diff(ptr))), tile, cap)
+    ps = L.pad_segments_rows(L.pad_segments(ptr, tile), cap)
+    host = ops.padded_segments_dev(ps)
+    assert dev.num_chunks > int(dev.group_chunk_ptr[-1]) == host.num_chunks
+    x_p = _padded_rows(rng, ps, 16)
+    dy_p = rng.normal(size=(cap, 24)).astype(np.float32)
+    ours = SK.segment_outer_padded(
+        _t(x_p), _t(dy_p), dev.group_tile_ptr, dev.group_chunk_ptr,
+        num_groups=r, num_chunks=dev.num_chunks, tile=tile).numpy()
+    exact = SK.segment_outer_padded(
+        _t(x_p), _t(dy_p), host.group_tile_ptr, host.group_chunk_ptr,
+        num_groups=r, num_chunks=host.num_chunks, tile=tile).numpy()
+    np.testing.assert_array_equal(ours, exact)
+    ref = np.asarray(RSK.segment_outer_padded(
+        jnp.asarray(x_p), jnp.asarray(dy_p), jnp.asarray(ps.tile_to_group),
+        num_groups=r, tile_rows=tile, interpret=True))
+    owns = np.diff(host.group_tile_ptr.numpy()) > 0
+    np.testing.assert_allclose(ours[owns], ref[owns], **TOL)
+
+
 # ---------------------------------------------------------------------------
 # gradients of the ops' autograd Functions against jax.grad of the
 # reference's custom_vjp ops (Pallas interpret)
