@@ -78,12 +78,35 @@ rgcn_cat); any failure exits non-zero:
 10. phase 6's RGAT training with ``sampler="device"``: the first loss
    equal to the host-sampled run's (rtol 1e-4), a falling loss, the
    kernels at their per-step counts (K5 with its static chunk bound), K9
-   twice a sampled batch.
+   twice a sampled batch;
+11. tuning (``--tune``): (a) K6 and K8, the materialized-gather
+   aggregations the tuner selects with ``fuse_gather=False``, against
+   their plain versions at the calls of one RGAT and one RGCN served
+   aifb-b32 batch and one RGAT training step under decisions that force
+   ``fuse_gather=False`` on every key (K6 rtol = atol = 2e-5, K3's; K8
+   1e-5, K7's), plus edge cases (node blocks without tiles, pure-pad
+   tiles, pad rows that must add nothing, d = 1, compact rows through the
+   ops, empty layouts that must not launch), timed at the served batches
+   as phase 2 times the others (K8's library call: ``torch.sparse.mm``);
+   (b) ``{fuse_gather: False}``, ``{tile_rows: 16}`` and ``{tile_rows: 8,
+   fuse_gather: False}`` on every key of an RGAT and an RGCN layer over
+   the aifb graph against the defaults, outputs rtol = atol = 2e-4 and
+   normalized gradients 5e-4 (the reference's ``tests/test_tune.py``
+   bounds), a decision naming another backend refused, and RGAT at layout
+   128/128 against 32/32; (c)
+   ``train_rgnn.train(tune="full")`` at phase 6's RGAT configuration (both
+   layout candidates timed, the loss falls), then ``tune="cached"``: zero
+   measurements, every decision replayed, the same table; (d)
+   ``serve_rgnn.serve(model="rgcn", tune="full")`` at aifb-b32, each
+   batch against the CPU run within 2e-4; (e) ``Tuner.tune_stack`` of a
+   2-layer RGAT over bgs at scale 1.0, each layout candidate's plan time.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: phase
-6's runs of all three models for K1-K7, phases 9 and 10 for K9); the last
-line is ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes
-every number as JSON, ``--trace-dir DIR`` the phase-8 Chrome traces.
+6's runs of all three models for K1-K5 and K7, phases 9 and 10 for K9,
+phase 11's tuned training and serving for K6 and K8, each counted from 0
+just before the run); the last line is ``{"ok": true, "device": {...}}``.
+``--out PATH`` also writes every number as JSON, ``--trace-dir DIR`` the
+phase-8 Chrome traces.
 """
 from __future__ import annotations
 
@@ -110,6 +133,7 @@ K1, K2, K3 = ("segment_mm_gather_padded", "seg_stats_padded",
               "seg_softmax_agg_gather_padded")
 K4, K5, K7 = ("segment_mm_padded", "segment_outer_padded",
               "seg_weighted_agg_gather_padded")
+K6, K8 = "seg_softmax_agg_padded", "seg_weighted_agg_padded"
 K9 = "candidate_keys"
 
 SERVE_DEFAULTS = dict(model="rgat", dataset="aifb", scale=1.0, layers=2,
@@ -172,19 +196,31 @@ KERNELS = {
     K5: dict(source="src/repro_torch/csrc/segment_mm.cu",
              replaces="src/repro/kernels/segment_mm.py:194",
              symbol="segment_outer_", per_call=2),     # partial + combine
+    K6: dict(source="src/repro_torch/csrc/traversal.cu",
+             replaces="src/repro/kernels/traversal.py:142",
+             symbol="seg_softmax_agg_padded_kernel"),
     K7: dict(source="src/repro_torch/csrc/traversal.cu",
              replaces="src/repro/kernels/traversal.py:294",
              symbol="seg_weighted_agg_gather_kernel"),
+    K8: dict(source="src/repro_torch/csrc/traversal.cu",
+             replaces="src/repro/kernels/traversal.py:356",
+             symbol="seg_weighted_agg_padded_kernel"),
     K9: dict(source="src/repro_torch/csrc/sampling.cu",
              replaces="src/repro/kernels/sampling_ops.py:77",
              symbol="candidate_keys_kernel"),
 }
-# where each kernel is timed in phase 2: the captured calls of one served
-# batch ("<model> aifb"), one training step ("<model> step") or the device
-# sampling of one served batch ("<model> aifb device")
+# where each kernel is timed in phase 2 (phase 11 for K6 and K8): the
+# captured calls of one served batch ("<model> aifb"), one training step
+# ("<model> step"), the device sampling of one served batch ("<model> aifb
+# device") or one served batch under decisions that force
+# ``fuse_gather=False`` ("<model> aifb unfused")
 TIMED_AT = {K1: "rgat aifb", K2: "rgat aifb", K3: "rgat aifb",
             K4: "rgat step", K5: "rgat step", K7: "rgcn aifb",
-            K9: "rgat aifb device"}
+            K9: "rgat aifb device", K6: "rgat aifb unfused",
+            K8: "rgcn aifb unfused"}
+# the kernels phase 11 holds to their plain versions (the materialized-
+# gather variants the tuner selects); phase 2 holds the others
+TUNING_KERNELS = (K6, K8)
 # phase 9: the serve runs repeated with ``sampler="device"``; phase 2
 # captures the first device-sampled batch of the RGAT ones
 DEVICE_SERVE_RUNS = (
@@ -265,12 +301,12 @@ def device_ms(torch, fn, symbol: str, reps: int = 20,
                 count += e.count
         if count:
             break
-        log(f"[phase 2] {symbol}: profiler session {session + 1} recorded "
+        log(f"[profiler] {symbol}: session {session + 1} recorded "
             f"none of {reps} launches")
     check(count > 0, f"{symbol}: the profiler recorded none of {reps} "
           f"launches in three sessions")
     if count != reps * per_call:
-        log(f"[phase 2] {symbol}: the profiler recorded {count} of "
+        log(f"[profiler] {symbol}: recorded {count} of "
             f"{reps * per_call} launches; timing the recorded ones")
     return total_us / count * per_call / 1e3
 
@@ -392,6 +428,41 @@ def k7_library(torch, args, kw):
     return lambda: torch.sparse.mm(a, m)
 
 
+def k6_work(torch, args, kw):
+    """K6: each slot's score and destination read once, the message row of
+    each slot that adds one read once (pad slots' rows are never read), the
+    node stats read and the output written once; 2*d + 4 FLOPs per such
+    slot."""
+    scores_p, msg_p, local_dst = args[:3]
+    d = msg_p.shape[-1]
+    nodes = kw["num_node_blocks"] * kw["node_block"]
+    valid = int((local_dst < kw["node_block"]).sum())
+    nbytes = scores_p.numel() * 8 + valid * d * 4 + nodes * 8 \
+        + (kw["num_node_blocks"] + 1) * 4 + nodes * d * 4
+    return nbytes, valid * (2.0 * d + 4)
+
+
+def k8_work(torch, args, kw):
+    """K8: as K6 with a scale in place of the score and no stats; 2*d
+    FLOPs per slot that adds a row."""
+    scale_p, msg_p, local_dst = args[:3]
+    d = msg_p.shape[-1]
+    nodes = kw["num_node_blocks"] * kw["node_block"]
+    valid = int((local_dst < kw["node_block"]).sum())
+    nbytes = scale_p.numel() * 8 + valid * d * 4 \
+        + (kw["num_node_blocks"] + 1) * 4 + nodes * d * 4
+    return nbytes, valid * 2.0 * d
+
+
+def k8_library(torch, args, kw):
+    """K7's yardstick for K8: ``torch.sparse.mm`` of the slots' scales as a
+    CSR [nodes, slots] matrix times the padded messages."""
+    scale_p, msg_p, local_dst, t2b = args[:4]
+    slots = torch.arange(local_dst.numel(), dtype=torch.int32,
+                         device=local_dst.device)
+    return k7_library(torch, (scale_p, msg_p, slots, local_dst, t2b), kw)
+
+
 def k9_work(torch, args, kw):
     """K9: each row's start and count read once, each candidate's key
     written once (int32); no floating-point work."""
@@ -400,7 +471,8 @@ def k9_work(torch, args, kw):
     return rows * 8 + rows * width * 4, 0.0
 
 
-LIBRARY = {K4: ("torch.bmm", k4_library), K7: ("torch.sparse.mm", k7_library)}
+LIBRARY = {K4: ("torch.bmm", k4_library), K7: ("torch.sparse.mm", k7_library),
+           K8: ("torch.sparse.mm", k8_library)}
 
 # K9 is held to its plain version in slices of at most this many
 # candidates (the int64 plain version needs several temporaries of 8 bytes
@@ -478,7 +550,7 @@ def recorded_kernel_calls():
     from repro_torch.kernels import ops, segment_mm
     from repro_torch.kernels import sampling_ops as SO
     calls = {name: [] for name in KERNELS}
-    originals = _recording(ops, (K1, K2, K3, K7), calls)
+    originals = _recording(ops, (K1, K2, K3, K6, K7, K8), calls)
     ops.SK = types.SimpleNamespace(**vars(segment_mm))
     _recording(ops.SK, (K4, K5), calls)
     k9 = _recording(SO, (K9,), calls)[K9]
@@ -492,10 +564,32 @@ def recorded_kernel_calls():
         SO.candidate_keys = k9
 
 
-def capture_main_path_calls(torch, hector_torch, cfg):
+def forced(torch, plans, params, mb, feats, activation="relu", **variant):
+    """A decision table that sets ``variant`` (``GemmVariant`` keywords;
+    the traversals take its ``fuse_gather``) on every key the forward of
+    ``mb`` queries, recorded by one pass under the tuner's recorder."""
+    from repro_torch.core import codegen
+    from repro_torch.tune import GemmVariant, TravVariant, TuningDecisions
+    from repro_torch.tune.tuner import _KeyRecorder
+
+    rec = _KeyRecorder()
+    with torch.no_grad():
+        codegen.execute_block_sequence(
+            plans, list(params), list(mb.tensors), list(mb.layouts),
+            list(mb.dst_locals), mb.seed_perm, feats, activation, rec)
+    d = TuningDecisions()
+    for key in rec.keys:
+        d.set_op(key, GemmVariant(**variant) if key.startswith("gemm") else
+                 TravVariant(fuse_gather=variant.get("fuse_gather")))
+    return d
+
+
+def capture_main_path_calls(torch, hector_torch, cfg, unfused=False):
     """Run the first mini-batch that ``serve(**cfg)`` serves (same graph,
     seeds, weights and features) on the card and record every kernel
-    call's inputs."""
+    call's inputs; with ``unfused``, under decisions that force
+    ``fuse_gather=False`` on every key (K4, K6 and K8 in place of K1, K3
+    and K7)."""
     import numpy as np
 
     from repro_torch.core.graph import table3_graph
@@ -517,6 +611,10 @@ def capture_main_path_calls(torch, hector_torch, cfg):
         mb = next(loader)
     finally:
         loader.close()
+    if unfused:
+        engine.block_executor.set_decisions(forced(
+            torch, engine.plans, params, mb,
+            {"feature": feats[mb.input_ids.long()]}, fuse_gather=False))
     with recorded_kernel_calls() as calls:
         out = engine.apply_blocks(params, mb, feats)
         torch.cuda.synchronize()
@@ -661,7 +759,8 @@ def compare(torch, name, got, want, rtol, atol, exact=False):
 
 
 # tolerance of each kernel against its plain version (see the docstring)
-TOLERANCE = {K1: 1e-5, K4: 1e-5, K3: 2e-5, K5: 1e-6, K7: 1e-5}
+TOLERANCE = {K1: 1e-5, K4: 1e-5, K3: 2e-5, K5: 1e-6, K7: 1e-5,
+             K6: 2e-5, K8: 1e-5}
 
 
 def _shape(name, args, kw) -> str:
@@ -674,7 +773,7 @@ def _shape(name, args, kw) -> str:
                 f"R={args[1].shape[0]}")
     if name == K2:
         return f"slots={args[0].numel()} blocks={kw['num_node_blocks']}"
-    if name in (K3, K7):
+    if name in (K3, K6, K7, K8):
         return (f"slots={args[0].numel()} d={args[1].shape[1]} "
                 f"Em={args[1].shape[0]} blocks={kw['num_node_blocks']}")
     if name == K4:
@@ -692,9 +791,140 @@ CAPTURED_SERVE = ("rgat aifb", "rgat bgs", "rgcn aifb", "rgcn bgs",
                   "hgt aifb")
 
 
+def new_results(names):
+    return {name: dict(calls=[], max_abs_err=0.0, max_abs_err_by={})
+            for name in names}
+
+
+def kernel_tables(torch, SK, TK, SO):
+    """Each kernel's wrapper, its plain version (both without autograd:
+    the training captures hold parameter leaves) and its work count."""
+    plain = {K1: SK.segment_mm_gather_padded_plain,
+             K2: TK.seg_stats_padded_plain,
+             K3: TK.seg_softmax_agg_gather_padded_plain,
+             K4: SK.segment_mm_padded_plain,
+             K5: SK.segment_outer_padded_plain,
+             K6: TK.seg_softmax_agg_padded_plain,
+             K7: TK.seg_weighted_agg_gather_padded_plain,
+             K8: TK.seg_weighted_agg_padded_plain,
+             K9: SO.candidate_keys_plain}
+    kernel = {K1: SK.segment_mm_gather_padded, K2: TK.seg_stats_padded,
+              K3: TK.seg_softmax_agg_gather_padded,
+              K4: SK.segment_mm_padded, K5: SK.segment_outer_padded,
+              K6: TK.seg_softmax_agg_padded,
+              K7: TK.seg_weighted_agg_gather_padded,
+              K8: TK.seg_weighted_agg_padded, K9: SO.candidate_keys}
+    work = {K1: k1_work, K2: k2_work, K3: k3_work, K4: k4_work,
+            K5: k5_work, K6: k6_work, K7: k7_work, K8: k8_work,
+            K9: k9_work}
+    plain = {k: torch.no_grad()(f) for k, f in plain.items()}
+    kernel = {k: torch.no_grad()(f) for k, f in kernel.items()}
+    return plain, kernel, work
+
+
+def compare_runner(torch, SO, plain, kernel):
+    """``run_compare(name, args, kw)``: the kernel against its plain
+    version on the same inputs, at the kernel's tolerance; returns the max
+    abs error."""
+    def run_compare(name, args, kw):
+        if name == K9:
+            return k9_compare(torch, SO, args, kw)
+        got = kernel[name](*args, **kw)
+        want = plain[name](*args, **kw)
+        torch.cuda.synchronize()
+        if name == K2:
+            e1 = compare(torch, name + ".mx", got[0], want[0], 0, 0,
+                         exact=True)
+            e2 = compare(torch, name + ".den", got[1], want[1], 1e-5, 0)
+            return max(e1, e2)
+        tol = TOLERANCE[name]
+        return compare(torch, name, got, want, tol, tol)
+    return run_compare
+
+
+def hold_captured(torch, captured, results, tables, run_compare, phase):
+    """Every captured call of the kernels in ``results`` against its plain
+    version; the calls of ``TIMED_AT`` are timed too (device time under
+    the profiler, wrapper and plain time by CUDA events, the library call,
+    the bound)."""
+    plain, kernel, work = tables
+    for tag, calls in captured.items():
+        for name, lst in calls.items():
+            if not lst or name not in results:
+                continue
+            r = results[name]
+            timed = TIMED_AT[name] == tag
+            errs = []
+            for i, (args, kw) in enumerate(lst):
+                err = run_compare(name, args, kw)
+                errs.append(err)
+                if not timed:
+                    continue
+                fn = lambda: kernel[name](*args, **kw)       # noqa: E731
+                per_call = KERNELS[name].get("per_call", 1)
+                if name == K5 and kw["num_chunks"] == 0:
+                    per_call = 1
+                ms = device_ms(torch, fn, KERNELS[name]["symbol"],
+                               per_call=per_call)
+                wrapper_ms = time_ms(torch, fn)
+                plain_ms = time_ms(torch, lambda: plain[name](*args, **kw))
+                library_ms = None
+                if name in LIBRARY:
+                    lib_name, make = LIBRARY[name]
+                    library_ms = time_ms(torch, make(torch, args, kw))
+                nbytes, flops = work[name](torch, args, kw)
+                b_ms, b_by = bound(nbytes, flops)
+                shape = _shape(name, args, kw)
+                r["calls"].append(dict(shape=shape, ms=ms,
+                                       wrapper_ms=wrapper_ms,
+                                       plain_ms=plain_ms,
+                                       library_ms=library_ms,
+                                       bound_ms=b_ms, bound_by=b_by,
+                                       bytes=nbytes, flops=flops,
+                                       max_abs_err=err))
+                log(f"[{phase}] {name}[{i}] ({tag}) {shape}: max abs err "
+                    f"{err:.3g}; kernel {ms:.5f} ms on the device, wrapper "
+                    f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms"
+                    + (f", {LIBRARY[name][0]} {library_ms:.4f} ms"
+                       if library_ms is not None else "")
+                    + f", bound {b_ms:.5f} ms ({b_by}, {nbytes} B, "
+                    f"{flops:.0f} FLOP)")
+            r["max_abs_err_by"][tag] = max(errs)
+            r["max_abs_err"] = max(r["max_abs_err"], max(errs))
+            if not timed:
+                log(f"[{phase}] {name}: {len(lst)} {tag} calls match the "
+                    f"plain version (max abs err {max(errs):.3g})")
+
+
+def summarize(results, phase):
+    """Each kernel's timed calls summed into its row's numbers."""
+    for name, r in results.items():
+        check(bool(r["calls"]), f"{name}: no timed call")
+        for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms"):
+            r[key] = sum(c[key] for c in r["calls"])
+        r["library_ms"] = (sum(c["library_ms"] for c in r["calls"])
+                           if name in LIBRARY else None)
+        by_bytes = sum(c["bound_ms"] for c in r["calls"]
+                       if c["bound_by"] == "bytes")
+        r["bound_by"] = "bytes" if by_bytes >= r["bound_ms"] / 2 \
+            else "operations"
+        r["timed_at"] = TIMED_AT[name]
+        model, unit = TIMED_AT[name].split(maxsplit=1)
+        unit = {"step": "aifb-b64 training step",
+                "aifb device": "device-sampled aifb batch",
+                "aifb unfused": "served aifb batch (fuse_gather=False)"}.get(
+                    unit, "served aifb batch")
+        log(f"[{phase}] {name}: {len(r['calls'])} calls per {model} {unit}"
+            f", kernel {r['ms']:.5f} ms on the device, wrapper "
+            f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+            + (f", {LIBRARY[name][0]} {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else "")
+            + f", bound {r['bound_ms']:.5f} ms ({r['bound_by']}), max abs "
+            f"err {r['max_abs_err']:.3g}")
+
+
 def phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops, tasks):
-    results = {name: dict(calls=[], max_abs_err=0.0, max_abs_err_by={})
-               for name in KERNELS}
+    results = new_results([n for n in KERNELS if n not in TUNING_KERNELS])
     captured = {}
     runs = dict(SERVE_RUNS)
     for tag in CAPTURED_SERVE:
@@ -729,111 +959,12 @@ def phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops, tasks):
             + ", ".join(f"{k} x{len(v)}"
                         for k, v in captured[f"{model} step"].items() if v))
 
-    plain = {K1: SK.segment_mm_gather_padded_plain,
-             K2: TK.seg_stats_padded_plain,
-             K3: TK.seg_softmax_agg_gather_padded_plain,
-             K4: SK.segment_mm_padded_plain,
-             K5: SK.segment_outer_padded_plain,
-             K7: TK.seg_weighted_agg_gather_padded_plain,
-             K9: SO.candidate_keys_plain}
-    kernel = {K1: SK.segment_mm_gather_padded, K2: TK.seg_stats_padded,
-              K3: TK.seg_softmax_agg_gather_padded,
-              K4: SK.segment_mm_padded, K5: SK.segment_outer_padded,
-              K7: TK.seg_weighted_agg_gather_padded,
-              K9: SO.candidate_keys}
-    work = {K1: k1_work, K2: k2_work, K3: k3_work, K4: k4_work,
-            K5: k5_work, K7: k7_work, K9: k9_work}
-    # the training captures hold parameter leaves: compare and time without
-    # recording gradients
-    plain = {k: torch.no_grad()(f) for k, f in plain.items()}
-    kernel = {k: torch.no_grad()(f) for k, f in kernel.items()}
-
-    def run_compare(name, args, kw):
-        if name == K9:
-            return k9_compare(torch, SO, args, kw)
-        got = kernel[name](*args, **kw)
-        want = plain[name](*args, **kw)
-        torch.cuda.synchronize()
-        if name == K2:
-            e1 = compare(torch, name + ".mx", got[0], want[0], 0, 0,
-                         exact=True)
-            e2 = compare(torch, name + ".den", got[1], want[1], 1e-5, 0)
-            return max(e1, e2)
-        tol = TOLERANCE[name]
-        return compare(torch, name, got, want, tol, tol)
-
-    # every captured call against the plain version; the calls of TIMED_AT
-    # are timed too
-    for tag, calls in captured.items():
-        for name, lst in calls.items():
-            if not lst:
-                continue
-            r = results[name]
-            timed = TIMED_AT[name] == tag
-            errs = []
-            for i, (args, kw) in enumerate(lst):
-                err = run_compare(name, args, kw)
-                errs.append(err)
-                if not timed:
-                    continue
-                fn = lambda: kernel[name](*args, **kw)       # noqa: E731
-                per_call = KERNELS[name].get("per_call", 1)
-                if name == K5 and kw["num_chunks"] == 0:
-                    per_call = 1
-                ms = device_ms(torch, fn, KERNELS[name]["symbol"],
-                               per_call=per_call)
-                wrapper_ms = time_ms(torch, fn)
-                plain_ms = time_ms(torch, lambda: plain[name](*args, **kw))
-                library_ms = None
-                if name in LIBRARY:
-                    lib_name, make = LIBRARY[name]
-                    library_ms = time_ms(torch, make(torch, args, kw))
-                nbytes, flops = work[name](torch, args, kw)
-                b_ms, b_by = bound(nbytes, flops)
-                shape = _shape(name, args, kw)
-                r["calls"].append(dict(shape=shape, ms=ms,
-                                       wrapper_ms=wrapper_ms,
-                                       plain_ms=plain_ms,
-                                       library_ms=library_ms,
-                                       bound_ms=b_ms, bound_by=b_by,
-                                       bytes=nbytes, flops=flops,
-                                       max_abs_err=err))
-                log(f"[phase 2] {name}[{i}] ({tag}) {shape}: max abs err "
-                    f"{err:.3g}; kernel {ms:.5f} ms on the device, wrapper "
-                    f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms"
-                    + (f", {LIBRARY[name][0]} {library_ms:.4f} ms"
-                       if library_ms is not None else "")
-                    + f", bound {b_ms:.5f} ms ({b_by}, {nbytes} B, "
-                    f"{flops:.0f} FLOP)")
-            r["max_abs_err_by"][tag] = max(errs)
-            r["max_abs_err"] = max(r["max_abs_err"], max(errs))
-            if not timed:
-                log(f"[phase 2] {name}: {len(lst)} {tag} calls match the "
-                    f"plain version (max abs err {max(errs):.3g})")
+    tables = kernel_tables(torch, SK, TK, SO)
+    run_compare = compare_runner(torch, SO, *tables[:2])
+    hold_captured(torch, captured, results, tables, run_compare, "phase 2")
     edge_cases(torch, SK, TK, L, ops, R, run_compare, results)
     k9_edge_cases(torch, ops, run_compare, results)
-    for name, r in results.items():
-        check(bool(r["calls"]), f"{name}: no timed call")
-        for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms"):
-            r[key] = sum(c[key] for c in r["calls"])
-        r["library_ms"] = (sum(c["library_ms"] for c in r["calls"])
-                           if name in LIBRARY else None)
-        by_bytes = sum(c["bound_ms"] for c in r["calls"]
-                       if c["bound_by"] == "bytes")
-        r["bound_by"] = "bytes" if by_bytes >= r["bound_ms"] / 2 \
-            else "operations"
-        r["timed_at"] = TIMED_AT[name]
-        model, unit = TIMED_AT[name].split(maxsplit=1)
-        unit = {"step": "aifb-b64 training step",
-                "aifb device": "device-sampled aifb batch"}.get(
-                    unit, "served aifb batch")
-        log(f"[phase 2] {name}: {len(r['calls'])} calls per {model} {unit}"
-            f", kernel {r['ms']:.5f} ms on the device, wrapper "
-            f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
-            + (f", {LIBRARY[name][0]} {r['library_ms']:.4f} ms"
-               if r["library_ms"] is not None else "")
-            + f", bound {r['bound_ms']:.5f} ms ({r['bound_by']}), max abs "
-            f"err {r['max_abs_err']:.3g}")
+    summarize(results, "phase 2")
     return results
 
 
@@ -1156,12 +1287,38 @@ def k9_edge_cases(torch, ops, run_compare, results):
 # ---------------------------------------------------------------------------
 # phases 3 and 4: serving through the driver
 # ---------------------------------------------------------------------------
-def phase_serve(torch, hector_torch, ops, serve_rgnn, cfg, tag):
+def compare_with_cpu(torch, hector_torch, cfg, batches, tol, tag):
+    """The served ``(seq, step, logits)`` batches of ``serve(**cfg)``
+    against the same mini-batches through the port on the CPU (default
+    decisions), at rtol = atol = ``tol``; returns the max abs error."""
     import numpy as np
 
     from repro_torch.core.graph import table3_graph
     from repro_torch.sampling import build_minibatch
 
+    graph = table3_graph(cfg["dataset"], cfg["scale"], cfg["seed"])
+    cpu = hector_torch.compile(
+        cfg["model"], graph, layers=cfg["layers"], dim=cfg["dim"],
+        hidden=cfg["hidden"], classes=cfg["classes"], sample=cfg["fanouts"],
+        tile=cfg["tile"], node_block=cfg["node_block"], seed=cfg["seed"],
+        device="cpu")
+    params = cpu.init(cfg["seed"])
+    feats = torch.from_numpy(np.random.default_rng(cfg["seed"]).normal(
+        size=(graph.num_nodes, cfg["dim"])).astype(np.float32))
+    worst = 0.0
+    for seq, step, logits in batches:
+        mb = build_minibatch(seq, step=step, tile=cfg["tile"],
+                             node_block=cfg["node_block"], bucket=True)
+        want = cpu.apply_blocks(params, mb, feats)
+        err = float((logits - want).abs().max())
+        worst = max(worst, err)
+        check(bool(torch.allclose(logits, want, rtol=tol, atol=tol)),
+              f"{tag}: batch {step} logits differ from the CPU run "
+              f"(max abs err {err:.3g})")
+    return worst
+
+
+def phase_serve(torch, hector_torch, ops, serve_rgnn, cfg, tag):
     batches = []
 
     def keep(mb, logits):
@@ -1191,26 +1348,7 @@ def phase_serve(torch, hector_torch, ops, serve_rgnn, cfg, tag):
         check(bool(torch.isfinite(logits).all()),
               f"{tag}: batch {step} has non-finite logits")
 
-    # the same mini-batches through the port on the CPU
-    graph = table3_graph(cfg["dataset"], cfg["scale"], cfg["seed"])
-    cpu = hector_torch.compile(
-        cfg["model"], graph, layers=cfg["layers"], dim=cfg["dim"],
-        hidden=cfg["hidden"], classes=cfg["classes"], sample=cfg["fanouts"],
-        tile=cfg["tile"], node_block=cfg["node_block"], seed=cfg["seed"],
-        device="cpu")
-    params = cpu.init(cfg["seed"])
-    feats = torch.from_numpy(np.random.default_rng(cfg["seed"]).normal(
-        size=(graph.num_nodes, cfg["dim"])).astype(np.float32))
-    worst = 0.0
-    for seq, step, logits in batches:
-        mb = build_minibatch(seq, step=step, tile=cfg["tile"],
-                             node_block=cfg["node_block"], bucket=True)
-        want = cpu.apply_blocks(params, mb, feats)
-        err = float((logits - want).abs().max())
-        worst = max(worst, err)
-        check(bool(torch.allclose(logits, want, rtol=1e-4, atol=1e-4)),
-              f"{tag}: batch {step} logits differ from the CPU run "
-              f"(max abs err {err:.3g})")
+    worst = compare_with_cpu(torch, hector_torch, cfg, batches, 1e-4, tag)
     log(f"[{tag}] all {len(batches)} batches match the CPU run "
         f"(max abs err {worst:.3g}); latency p50 "
         f"{stats['latency_ms_p50']:.3f} ms, p95 "
@@ -1673,6 +1811,454 @@ def phase_train_profile(torch, task, full, trace_dir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the autotuner (``--tune``) and the kernels only it selects
+# ---------------------------------------------------------------------------
+# the reference's bounds for a forced variant against the defaults
+# (tests/test_tune.py: outputs, and gradients normalized by their max)
+VARIANT_TOL, VARIANT_GRAD_TOL = 2e-4, 5e-4
+# the variants phase 11 forces onto every key of an RGAT and an RGCN plan
+FORCED_VARIANTS = ({"fuse_gather": False}, {"tile_rows": 16},
+                   {"tile_rows": 8, "fuse_gather": False})
+
+
+def capture_unfused_train_calls(torch, task):
+    """One RGAT training step of phase 6's task under decisions forcing
+    ``fuse_gather=False`` on every key, its kernel calls recorded: K2 + K6
+    in place of K2 + K3, K4 in place of K1. The train executor's table is
+    restored afterwards."""
+    ex = task.engine.train_executor(task.opt)
+    feats = {"feature": task.x[task.mb.input_ids.long()]}
+    ex.set_decisions(forced(torch, task.engine.plans, task.state.params,
+                            task.mb, feats, fuse_gather=False))
+    try:
+        with recorded_kernel_calls() as calls:
+            _, metrics = task.step(torch)
+            torch.cuda.synchronize()
+    finally:
+        ex.set_decisions(None)
+    check(bool(torch.isfinite(metrics["loss"])), "unfused RGAT step: "
+          "non-finite loss")
+    check(len(calls[K6]) == 2 and not calls[K1] and not calls[K3],
+          f"unfused RGAT step: {len(calls[K6])} K6, {len(calls[K1])} K1, "
+          f"{len(calls[K3])} K3 calls (expected 2, 0, 0)")
+    return calls
+
+
+def tuning_edge_cases(torch, TK, L, ops, R, run_compare, results):
+    """K6 and K8 at inputs the captured calls may not give them: node
+    blocks without tiles (written as zero rows), pure-pad tiles, pad slots
+    whose padded message rows are not zero (they must add nothing), a
+    scale and ``scale=None``, d = 64 / 16 / 1; the ops with
+    ``fuse_gather=False`` over compact rows (materialized, pads -1) against
+    the oracles; empty layouts, which must not launch."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    dev = torch.device("cuda")
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    n, n_nodes = 0, 300
+    pool = np.concatenate([np.arange(64), np.arange(192, n_nodes)])
+    empty = slice(2 * 32, 6 * 32)        # node blocks 2-5 own no tile
+    for grow in (False, True):
+        dst = rng.choice(pool, 2000).astype(np.int32)
+        perm = np.argsort(dst, kind="stable").astype(np.int32)
+        dptr = np.zeros(n_nodes + 1, np.int64)
+        np.cumsum(np.bincount(dst, minlength=n_nodes), out=dptr[1:])
+        bc = L.block_csr(dptr, 32, 32)
+        if grow:                          # pure-pad tiles at the end
+            bc = L.pad_blocked_csr(bc, L.pow2ceil(bc.padded_edges) * 2)
+        rows_u = rng.integers(0, 700, 2000).astype(np.int32)
+        bcd = ops.blocked_csr_dev(bc, perm, rows_u).to(dev)
+        kw = dict(node_block=32, num_node_blocks=bc.num_node_blocks)
+        scores = t(rng.normal(size=2000).astype(np.float32) * 3)
+        scores_p = ops._padded_scores(scores, bcd)
+        mx, den = TK.seg_stats_padded(scores_p, bcd.local_dst, bcd.t2b,
+                                      bcd.block_tile_ptr, **kw)
+        pad = bcd.local_dst.reshape(-1) >= 32
+        for d in (64, 16, 1):
+            msg = t(rng.normal(size=(2000, d)).astype(np.float32))
+            msg_p = ops.pad_rows(msg, bcd.edge_map)
+            noisy = msg_p.clone()
+            noisy[pad] = 1e3
+            args6 = (scores_p, noisy, bcd.local_dst, bcd.t2b,
+                     bcd.block_tile_ptr, mx, den)
+            results[K6]["max_abs_err"] = max(results[K6]["max_abs_err"],
+                                             run_compare(K6, args6, kw))
+            out6 = TK.seg_softmax_agg_padded(*args6, **kw)
+            check(compare(torch, "K6 pad slots", out6,
+                          TK.seg_softmax_agg_padded(scores_p, msg_p,
+                                                    *args6[2:], **kw),
+                          0, 0, exact=True) == 0.0,
+                  "K6: pad slots changed the output")
+            for scale in (None, t(rng.normal(size=2000).astype(np.float32))):
+                args8 = (ops._padded_scale(scale, bcd, msg), noisy,
+                         bcd.local_dst, bcd.t2b, bcd.block_tile_ptr)
+                results[K8]["max_abs_err"] = max(
+                    results[K8]["max_abs_err"], run_compare(K8, args8, kw))
+                out8 = TK.seg_weighted_agg_padded(*args8, **kw)
+                check(bool((out8[empty] == 0).all()),
+                      "K8: blocks without tiles not zero")
+                n += 1
+            check(bool((out6[empty] == 0).all()),
+                  "K6: blocks without tiles not zero")
+            n += 1
+        # the ops with fuse_gather=False over compact rows, on the card
+        msg_u = t(rng.normal(size=(700, 16)).astype(np.float32))
+        scale = t(rng.normal(size=2000).astype(np.float32))
+        rows = t(rows_u)
+        msg_e = msg_u[rows.long()]
+        got = ops.edge_softmax_agg(scores, msg_u, t(dst), n_nodes, bc=bcd,
+                                   msg_rows=rows, fuse_gather=False)
+        results[K6]["max_abs_err"] = max(
+            results[K6]["max_abs_err"], compare(
+                torch, "edge_softmax_agg(fuse_gather=False)", got,
+                R.softmax_agg_ref(scores, msg_e, t(dst).long(), n_nodes),
+                TOLERANCE[K6], TOLERANCE[K6]))
+        got = ops.weighted_agg(scale, msg_u, t(dst), n_nodes, bc=bcd,
+                               msg_rows=rows, fuse_gather=False)
+        results[K8]["max_abs_err"] = max(
+            results[K8]["max_abs_err"], compare(
+                torch, "weighted_agg(fuse_gather=False)", got,
+                R.weighted_agg_ref(scale, msg_e, t(dst).long(), n_nodes),
+                TOLERANCE[K8], TOLERANCE[K8]))
+        n += 2
+    # empty layouts: nothing launches
+    before = ops.launch_counts()
+    bce = ops.blocked_csr_dev(L.block_csr(np.zeros(9, np.int64), 32, 32),
+                              np.zeros(0, np.int32)).to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    outs = [fn(torch.zeros(0, device=dev), torch.ones(0, 16, device=dev),
+               torch.zeros(0, **i32), 8, bc=bce, fuse_gather=False)
+            for fn in (ops.edge_softmax_agg, ops.weighted_agg)]
+    outs.append(TK.seg_weighted_agg_padded(
+        torch.zeros(0, 32, device=dev), torch.ones(0, 16, device=dev),
+        torch.zeros(0, 32, **i32), torch.zeros(1, **i32),
+        torch.zeros(1, **i32), node_block=32, num_node_blocks=0))
+    outs.append(TK.seg_softmax_agg_padded(
+        torch.zeros(0, 32, device=dev), torch.ones(0, 16, device=dev),
+        torch.zeros(0, 32, **i32), torch.zeros(1, **i32),
+        torch.zeros(1, **i32), torch.zeros(0, 32, device=dev),
+        torch.zeros(0, 32, device=dev), node_block=32, num_node_blocks=0))
+    torch.cuda.synchronize()
+    check([tuple(o.shape) for o in outs] == [(8, 16), (8, 16), (0, 16),
+                                             (0, 16)]
+          and not outs[0].any() and not outs[1].any(),
+          "empty layouts: wrong K6 / K8 outputs")
+    check(ops.launch_counts() == before, "an empty layout launched K6 or K8")
+    log(f"[phase 11] K6 / K8 edge cases: {n} checks passed (node blocks "
+        f"without tiles, pure-pad tiles, noisy pad rows, scale on and off, "
+        f"d = 64 / 16 / 1, the ops over compact rows); empty layouts "
+        f"launched nothing")
+
+
+def phase_forced_variants(torch, ops):
+    """Phase 11 (b): every variant of ``FORCED_VARIANTS`` on every key of
+    one RGAT and one RGCN layer (64 -> 64) over the whole aifb graph, on
+    the card, against the default decisions: outputs and the gradients of
+    ``sum(out ** 2)`` (normalized by their max) at the reference's bounds;
+    the variant's kernels must be the ones that ran; a decision naming the
+    reference's ``xla`` backend must raise. Then RGAT's forward at the
+    layout tile 128 / node block 128 (the tuner's other layout candidate)
+    against 32 / 32."""
+    import numpy as np
+
+    from repro_torch.core import codegen
+    from repro_torch.core.graph import table3_graph
+    from repro_torch.core.module import HectorModule
+    from repro_torch.train import MODEL_PROGRAMS
+    from repro_torch.tune import GemmVariant, TravVariant, TuningDecisions
+    from repro_torch.tune.tuner import _KeyRecorder
+
+    graph = table3_graph("aifb", 1.0, 0)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(graph.num_nodes, 64)).astype(np.float32)).cuda()
+    out = {}
+    for model, agg in (("rgat", K6), ("rgcn", K8)):
+        def module(tile):
+            return HectorModule(MODEL_PROGRAMS[model](64, 64), graph,
+                                tile=tile, node_block=tile, device="cuda")
+        mod = module(32)
+        params = mod.init(torch.Generator().manual_seed(0))
+        name = mod.plan.outputs[0]
+
+        def run(m, decisions):
+            m.executor.set_decisions(decisions)
+            leaves = {k: v.clone().requires_grad_(True)
+                      for k, v in params.items()}
+            ops.reset_launch_counts()
+            y = m.apply(leaves, {"feature": x})[name]
+            torch.sum(y ** 2).backward()
+            torch.cuda.synchronize()
+            return (y.detach(), {k: v.grad for k, v in leaves.items()},
+                    ops.launch_counts())
+
+        base, base_g, _ = run(mod, None)
+        rec = _KeyRecorder()
+        with torch.no_grad():
+            codegen.execute_plan(mod.plan, params, mod.gt, {"feature": x},
+                                 mod.layouts, rec)
+        res = {}
+        for variant in FORCED_VARIANTS:
+            d = TuningDecisions()
+            for key in rec.keys:
+                d.set_op(key, GemmVariant(**variant)
+                         if key.startswith("gemm") else
+                         TravVariant(fuse_gather=variant.get("fuse_gather")))
+            y, g, launched = run(mod, d)
+            tag = f"{model} {json.dumps(variant)}"
+            err = compare(torch, tag, y, base, VARIANT_TOL, VARIANT_TOL)
+            gerr = 0.0
+            for k, want in base_g.items():
+                denom = float(want.abs().max()) + 1e-9
+                gerr = max(gerr, compare(torch, f"{tag} d{k}", g[k] / denom,
+                                         want / denom, VARIANT_GRAD_TOL,
+                                         VARIANT_GRAD_TOL))
+            if variant.get("fuse_gather") is False:
+                check(launched[agg] > 0 and launched[K1] == 0,
+                      f"{tag}: launches {launched}")
+            else:
+                check(launched[agg] == 0 and launched[K1] > 0,
+                      f"{tag}: launches {launched}")
+            res[json.dumps(variant)] = dict(max_abs_err=err,
+                                            grad_max_rel_err=gerr,
+                                            keys=len(rec.keys))
+            log(f"[phase 11] forced {tag} on {len(rec.keys)} keys equals "
+                f"the defaults: max abs err {err:.3g}, gradients "
+                f"{gerr:.3g} (normalized)")
+        # a cached decision naming a backend the card lacks raises
+        bad = TuningDecisions()
+        bad.set_op(rec.keys[0], GemmVariant(backend="xla")
+                   if rec.keys[0].startswith("gemm") else
+                   TravVariant(backend="xla"))
+        mod.executor.set_decisions(bad)
+        try:
+            with torch.no_grad():
+                mod.apply(params, {"feature": x})
+        except ValueError as e:
+            check("names backend 'xla'" in str(e), f"{model}: {e}")
+        else:
+            raise Failed(f"{model}: a decision naming backend 'xla' ran")
+        log(f"[phase 11] {model}: a decision naming backend 'xla' raises")
+        if model == "rgat":
+            with torch.no_grad():
+                y128 = module(128).apply(params, {"feature": x})[name]
+            res["layout 128"] = compare(torch, "rgat layout 128/128", y128,
+                                        base, VARIANT_TOL, VARIANT_TOL)
+            log(f"[phase 11] rgat at layout tile 128 / node block 128 "
+                f"equals 32 / 32: max abs err {res['layout 128']:.3g}")
+        out[model] = res
+    return out
+
+
+def _tuned_entries(path):
+    """The op decisions of a tuning cache file: how many keys chose
+    ``fuse_gather=False``, and the ``tile_rows`` the GEMM keys chose."""
+    import collections
+
+    entries = json.loads(pathlib.Path(path).read_text())["entries"]
+    ops_ = {k: v for k, v in entries.items()
+            if k.startswith(("gemm|", "trav|"))}
+    return dict(
+        entries=len(entries), op_keys=len(ops_),
+        unfused=sum(v.get("fuse_gather") is False for v in ops_.values()),
+        unfused_trav=sum(v.get("fuse_gather") is False
+                         for k, v in ops_.items() if k.startswith("trav|")),
+        tile_rows=dict(collections.Counter(
+            str(v.get("tile_rows")) for k, v in ops_.items()
+            if k.startswith("gemm|"))),
+        layout=[v for k, v in entries.items() if k.startswith("lay|")])
+
+
+def phase_tune_train(torch, ops, train_rgnn, cache_dir):
+    """Phase 11 (c): RGAT training at aifb-b64 (phase 6's configuration, 1
+    epoch) with ``tune="full"`` on a fresh cache: the full-graph layout
+    (both candidates timed), materialization and op variants, then the
+    block-scale variants; then the same run with ``tune="cached"``: zero
+    measurements, every decision replayed, the same decision table."""
+    import numpy as np
+
+    cfg = dict(TRAIN, model="rgat")
+    cache = str(cache_dir / "train.json")
+    lines = []
+
+    def tlog(m):
+        lines.append(m)
+        if not m.startswith("[tune]   ") or "layout" in m:
+            log(f"[phase 11 train] {m}")
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    full = train_rgnn.train(**cfg, eval_every_epochs=0, device="cuda",
+                            tune="full", tune_cache=cache, log=tlog)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(full["tune_measurements"] > 0, "tune=full measured nothing")
+    layouts = [m for m in lines if "layout tile=" in m]
+    check(len(layouts) == 2, f"layout candidates timed: {layouts}")
+    check(launches[K6] > 0, "K6 never launched by tune=full")
+    losses = np.asarray(full["losses"])
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(bool(np.isfinite(losses).all()) and last < first,
+          f"tuned training: loss {first:.4f} -> {last:.4f}")
+    tuned = _tuned_entries(cache)
+    log(f"[phase 11 train] tune=full: {full['tune_measurements']} "
+        f"measurements, {full['tune_tuned_ops']} tuned, "
+        f"{full['tune_cache_hits']} replayed; {tuned['op_keys']} op keys, "
+        f"{tuned['unfused']} chose fuse_gather=False ({tuned['unfused_trav']}"
+        f" of them traversals), tile_rows {tuned['tile_rows']}, layout "
+        f"{tuned['layout']}; loss {first:.4f} -> {last:.4f}; step p50 "
+        f"{full['step_ms_p50']:.3f} ms; launches {json.dumps(launches)}; "
+        f"wall {wall:.2f} s")
+
+    t0 = time.perf_counter()
+    cached = train_rgnn.train(**cfg, eval_every_epochs=0, device="cuda",
+                              tune="cached", tune_cache=cache,
+                              log=lambda m: None)
+    torch.cuda.synchronize()
+    wall_cached = time.perf_counter() - t0
+    want_hits = full["tune_tuned_ops"] + full["tune_cache_hits"] + 1
+    check(cached["tune_measurements"] == 0,
+          f"tune=cached measured {cached['tune_measurements']} times")
+    check(cached["tune_cache_hits"] == want_hits,
+          f"tune=cached replayed {cached['tune_cache_hits']} decisions, "
+          f"the first run made {want_hits}")
+    check(cached["tune_decisions"] == full["tune_decisions"],
+          "tune=cached built another decision table")
+    log(f"[phase 11 train] tune=cached: 0 measurements, "
+        f"{cached['tune_cache_hits']} replayed, decisions "
+        f"{cached['tune_decisions']} (the same); step p50 "
+        f"{cached['step_ms_p50']:.3f} ms; wall {wall_cached:.2f} s")
+    keys = ("tune_measurements", "tune_tuned_ops", "tune_cache_hits",
+            "tune_decisions", "step_ms_p50", "step_ms_p99", "seeds_per_s")
+    return dict(full={k: full[k] for k in keys}, wall_s=wall,
+                cached={k: cached[k] for k in keys}, wall_cached_s=wall_cached,
+                decisions=tuned, layout_lines=layouts, tuner_lines=lines,
+                loss_first10=first, loss_last10=last, launches=launches)
+
+
+def phase_tune_serve(torch, hector_torch, ops, serve_rgnn, cache_dir):
+    """Phase 11 (d): RGCN served at aifb-b32 with ``tune="full"``
+    (materialization at engine build, block-scale variants on a warm
+    batch): every batch's logits equal the same mini-batch on the CPU
+    (default decisions) within rtol = atol = 2e-4."""
+    cfg = dict(SERVE_DEFAULTS, model="rgcn")
+    batches = []
+    lines = []
+
+    def keep(mb, logits):
+        batches.append((mb.seq, mb.step, logits.detach().cpu()))
+
+    ops.reset_launch_counts()
+    stats = serve_rgnn.serve(**cfg, device="cuda", tune="full",
+                             tune_cache=str(cache_dir / "serve.json"),
+                             on_batch=keep, log=lines.append)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(stats["tune_measurements"] > 0, "serve tune=full measured nothing")
+    check(launches[K8] > 0, "K8 never launched by serve tune=full")
+    check(len(batches) == cfg["num_batches"], "tuned serve: batches missing")
+    worst = compare_with_cpu(torch, hector_torch, cfg, batches, 2e-4,
+                             "phase 11 serve")
+    tuned = _tuned_entries(cache_dir / "serve.json")
+    log(f"[phase 11 serve] rgcn aifb-b32 tune=full: "
+        f"{stats['tune_measurements']} measurements, {tuned['op_keys']} op "
+        f"keys, {tuned['unfused']} chose fuse_gather=False, tile_rows "
+        f"{tuned['tile_rows']}; all {len(batches)} batches match the CPU "
+        f"run (max abs err {worst:.3g}); latency p50 "
+        f"{stats['latency_ms_p50']:.3f} ms; launches {json.dumps(launches)}")
+    return dict(latency_ms_p50=stats["latency_ms_p50"],
+                latency_ms_p95=stats["latency_ms_p95"],
+                seeds_per_s=stats["seeds_per_s"],
+                tune_measurements=stats["tune_measurements"],
+                max_abs_err_vs_cpu=worst, decisions=tuned,
+                launches=launches, tuner_lines=lines)
+
+
+def phase_tune_bgs(torch, cache_dir):
+    """Phase 11 (e): the full-graph ``tune_stack`` of a 2-layer RGAT (64 ->
+    64 -> 16) over bgs at scale 1.0: both layout candidates' plan times,
+    materialization and op variants, on the card."""
+    from repro_torch.core.graph import table3_graph
+    from repro_torch.models import rgat_program
+    from repro_torch.tune import Tuner
+
+    graph = table3_graph("bgs", 1.0, 0)
+    lines = []
+    tuner = Tuner(mode="full", cache_path=str(cache_dir / "bgs.json"),
+                  log=lines.append, device="cuda")
+    t0 = time.perf_counter()
+    report = tuner.tune_stack([rgat_program(64, 64), rgat_program(64, 16)],
+                              graph, tile=32, node_block=32,
+                              feat_dims=[64, 64], seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    layouts = [m for m in lines if "layout tile=" in m]
+    check(len(layouts) == 2 and tuner.stats["measurements"] > 0,
+          f"bgs tune_stack: layouts {layouts}, stats {tuner.stats}")
+    tuned = _tuned_entries(cache_dir / "bgs.json")
+    for m in layouts + [m for m in lines if "mat " in m]:
+        log(f"[phase 11 bgs] {m}")
+    csets = [None if c is None else sorted(c) for c in report.compact_vars]
+    log(f"[phase 11 bgs] tune_stack over {graph.num_nodes} nodes / "
+        f"{graph.num_edges} edges: {tuner.stats}, layout "
+        f"{report.tile}/{report.node_block}, compact vars {csets}"
+        f", {tuned['op_keys']} op keys, {tuned['unfused']} chose "
+        f"fuse_gather=False, tile_rows {tuned['tile_rows']}; {wall:.2f} s")
+    return dict(stats=dict(tuner.stats), tile=report.tile,
+                node_block=report.node_block, decisions=tuned, wall_s=wall,
+                layout_lines=layouts, tuner_lines=lines)
+
+
+def phase_tuning(torch, hector_torch, SK, TK, SO, L, R, ops, serve_rgnn,
+                 train_rgnn, task):
+    """Phase 11: (a) K6 and K8 against their plain versions at the calls of
+    one RGAT and one RGCN served aifb-b32 batch and one RGAT training step
+    under decisions forcing ``fuse_gather=False``, plus edge cases, timed
+    at the served batches; (b) forced variants against the defaults; (c)
+    tuned training, full then cached; (d) tuned serving against the CPU;
+    (e) the bgs full-graph tuning. K6's and K8's launches are those of (c)
+    and (d), each counted from 0."""
+    import tempfile
+
+    results = new_results(TUNING_KERNELS)
+    runs = dict(SERVE_RUNS)
+    captured = {}
+    for tag in ("rgat aifb", "rgcn aifb"):
+        calls = capture_main_path_calls(torch, hector_torch, runs[tag],
+                                        unfused=True)
+        agg = K6 if tag.startswith("rgat") else K8
+        check(len(calls[agg]) > 0 and not calls[K1],
+              f"unfused {tag}: {len(calls[agg])} {agg}, {len(calls[K1])} "
+              f"K1 calls")
+        captured[f"{tag} unfused"] = calls
+        log(f"[phase 11] captured {tag} batch 0 under fuse_gather=False: "
+            + ", ".join(f"{k} x{len(v)}" for k, v in calls.items() if v))
+    captured["rgat step unfused"] = capture_unfused_train_calls(torch, task)
+    tables = kernel_tables(torch, SK, TK, SO)
+    run_compare = compare_runner(torch, SO, *tables[:2])
+    hold_captured(torch, captured, results, tables, run_compare,
+                  "phase 11")
+    tuning_edge_cases(torch, TK, L, ops, R, run_compare, results)
+    summarize(results, "phase 11")
+
+    out = dict(kernels=results, forced=phase_forced_variants(torch, ops))
+    with tempfile.TemporaryDirectory() as tmp:
+        cache_dir = pathlib.Path(tmp)
+        out["train"] = phase_tune_train(torch, ops, train_rgnn, cache_dir)
+        out["serve"] = phase_tune_serve(torch, hector_torch, ops, serve_rgnn,
+                                        cache_dir)
+        out["bgs"] = phase_tune_bgs(torch, cache_dir)
+    out["launches"] = {name: out["train"]["launches"][name]
+                       + out["serve"]["launches"][name]
+                       for name in TUNING_KERNELS}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -1763,13 +2349,20 @@ def main(argv=None) -> int:
         device_train = phase_device_train(torch, ops, train_rgnn,
                                           train_cfg["rgat"], train["rgat"])
         seconds["phase 10"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tuning = phase_tuning(torch, hector_torch, SK, TK, SO, L, R, ops,
+                              serve_rgnn, train_rgnn, tasks["rgat"])
+        kernels.update(tuning.pop("kernels"))
+        seconds["phase 11"] = time.perf_counter() - t0
         # the main path's launches, each run from counts set to 0 just
-        # before it: phase 6 of every model (K1-K7), phases 9 and 10 (K9,
-        # the device-sampling path)
+        # before it: phase 6 of every model (K1-K5, K7), phases 9 and 10
+        # (K9, the device-sampling path), phase 11's tuned training and
+        # serving (K6, K8: the tuner's path)
         launches = {name: sum(t["launches"][name] for t in train.values())
                     for name in KERNELS}
         launches[K9] = (sum(r["launches"][K9] for r in device_serve.values())
                         + device_train["launches"][K9])
+        launches.update(tuning["launches"])
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on the main path")
     except Failed as e:
@@ -1802,7 +2395,8 @@ def main(argv=None) -> int:
             card=card, build_s=build_s, seconds=seconds, kernels=kernels,
             serve=serve, profile=prof, train=train, full_graph=full,
             train_profile=train_prof, device_serve=device_serve,
-            device_train=device_train, torch=torch.__version__,
+            device_train=device_train, tuning=tuning,
+            torch=torch.__version__,
             cuda=torch.version.cuda), indent=1))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

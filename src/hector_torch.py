@@ -14,8 +14,10 @@ operations) and ``hector_torch.compile()`` from ``repro_torch.frontend``::
 
 ``sampler="device"`` samples mini-batches and builds their layouts on the
 device (``repro_torch.sampling.DeviceSampler``) in place of the host
-loader thread. Entry points run on the CUDA card unless given
-``device="cpu"``.
+loader thread; ``tune="full"`` / ``"cached"`` runs the autotuner
+(``repro_torch.tune``) on the device, measuring or replaying per-op
+variants with a persistent cache. Entry points run on the CUDA card
+unless given ``device="cpu"``.
 """
 from repro_torch.frontend import *  # noqa: F401,F403
 from repro_torch.frontend import __all__  # noqa: F401

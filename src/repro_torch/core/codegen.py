@@ -7,16 +7,23 @@ edge-softmax(+aggregate) region onto the fused traversal kernels, and the
 rest runs as plain torch ops. Execution is eager; which kernel runs follows
 the device of the tensors (``kernels/ops.py``).
 
-Two departures from the reference, both for the card:
+A ``decisions`` table (``tune.TuningDecisions``, from the autotuner; or
+``None``) picks each op's variant, as in the reference: the GEMMs'
+``tile_rows`` / ``tile_n`` and, for the GEMMs and the fused traversals,
+whether the access-scheme gather runs inside the kernel (K1, K3, K7) or
+over a materialized copy (K4, K6, K8). Where the table is silent the
+default is ``_fits_budget``: the reference's ``_fits_vmem`` with the budget
+of the tensors' device (``tune/device.py``), which is unbounded on a CUDA
+card, where the Hopper kernels gather rows from global memory and nothing
+has to stay resident, so every fusable op fuses there; on the CPU it is the
+reference's VMEM-derived value, so CPU runs take the reference's defaults.
+A decision naming a backend other than ``default`` raises: the port has
+one implementation of each op, its own kernels.
 
-* the gather-fused kernels are taken whenever the access scheme has a
-  padded gather map. The reference's ``_fits_vmem`` budget guarded a TPU
-  source block that had to stay resident in VMEM; the Hopper kernels gather
-  rows from global memory, so no such limit exists (``tune/`` is not used);
-* the per-edge attention that the fused softmax + aggregation region also
-  names is computed only when a plan output or another statement reads it
-  (with or without autograd): JAX's ``jit`` drops it as dead code, eager
-  PyTorch would not.
+The per-edge attention that the fused softmax + aggregation region also
+names is computed only when a plan output or another statement reads it
+(with or without autograd): JAX's ``jit`` drops it as dead code, eager
+PyTorch would not.
 
 Everything here runs under autograd: the ops are differentiable
 (``kernels/ops.py``), so the train executors call ``execute_plan`` and
@@ -37,6 +44,8 @@ from repro_torch.core.ir import inter_op as I
 from repro_torch.core.ir import intra_op as O
 from repro_torch.kernels import layout as L
 from repro_torch.kernels import ops as K
+from repro_torch.tune import device as tunedev
+from repro_torch.tune import space as tspace
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -268,17 +277,19 @@ def execute_plan(
     gt: GraphTensors,
     feats: Dict[str, torch.Tensor],
     kl: KernelLayouts,
+    decisions=None,
 ) -> Dict[str, torch.Tensor]:
-    """Run the lowered layer. Returns {output name: tensor}."""
+    """Run the lowered layer under the per-op ``decisions`` (or the
+    defaults). Returns {output name: tensor}."""
     env = _Env(plan, gt, params, feats)
     derived: Dict[str, torch.Tensor] = {}
     for op in plan.ops:
-        execute_op(op, env, derived, gt, kl)
+        execute_op(op, env, derived, gt, kl, decisions)
     return {name: env.get(name) for name in plan.outputs}
 
 
 def execute_op(op, env: _Env, derived: Dict[str, torch.Tensor],
-               gt: GraphTensors, kl: KernelLayouts) -> None:
+               gt: GraphTensors, kl: KernelLayouts, decisions=None) -> None:
     """Execute ONE lowered op spec against the environment (the loop body
     of ``execute_plan``). ``derived`` carries hoisted weight products
     (``WeightProductSpec`` outputs) that later GEMMs resolve before the
@@ -291,9 +302,9 @@ def execute_op(op, env: _Env, derived: Dict[str, torch.Tensor],
     elif isinstance(op, O.GemmSpec):
         _exec_gemm(op, env,
                    lambda name: derived.get(name, env.params.get(name)),
-                   gt, kl)
+                   gt, kl, decisions)
     elif isinstance(op, O.TraversalSpec):
-        _exec_traversal(op, env, gt, kl)
+        _exec_traversal(op, env, gt, kl, decisions)
     elif isinstance(op, O.FallbackSpec):
         raise NotImplementedError(
             f"fallback op {op.stmt} reached the executor; add a torch "
@@ -322,6 +333,7 @@ def execute_block_sequence(
     seed_perm: torch.Tensor,  # final-frontier row of each requested seed
     feats: Dict[str, torch.Tensor],  # features for the first block's nodes
     activation: str = "relu",
+    decisions=None,
 ) -> torch.Tensor:
     """Run one lowered layer per sampled hop, narrowing to each hop's output
     frontier, and gather the requested seed rows from the last hop."""
@@ -333,7 +345,7 @@ def execute_block_sequence(
     h = None
     last = len(plans) - 1
     for i, (plan, p, gt, kl) in enumerate(zip(plans, params, gts, kls)):
-        out = execute_plan(plan, p, gt, cur, kl)
+        out = execute_plan(plan, p, gt, cur, kl, decisions)
         h = out[plan.outputs[0]][dst_locals[i].long()]
         if i < last:
             cur = {"feature": act(h)}
@@ -346,8 +358,54 @@ _FUSABLE_GATHERS = (O.GatherScheme.BY_EDGE_SRC, O.GatherScheme.BY_EDGE_DST,
                     O.GatherScheme.BY_UNIQUE_SRC)
 
 
+def _fits_budget(arr: torch.Tensor, *index_arrays) -> bool:
+    """Default gather-fusion heuristic (the reference's ``_fits_vmem``):
+    the ungathered source block plus the gather / slot-map index arrays
+    within the fusion budget of the device they lie on
+    (``tune/device.py``: unbounded on a CUDA card; overridable by env)."""
+    total = arr.numel() * arr.element_size()
+    for ix in index_arrays:
+        if ix is not None:
+            total += ix.numel() * ix.element_size()
+    return total <= tunedev.fused_gather_budget_bytes(arr.device)
+
+
+def _checked(dec, key: str):
+    """A decided variant, refused if it names a backend the port lacks."""
+    if dec is not None and dec.backend != tspace.DEFAULT:
+        raise ValueError(
+            f"tuning decision for {key!r} names backend {dec.backend!r}; "
+            f"the port runs its own kernels only (backend "
+            f"{tspace.DEFAULT!r})")
+    return dec
+
+
+def _gemm_decision(decisions, op, lay, x_src, w, has_scale):
+    if decisions is None or lay is None:
+        return None
+    key = tspace.gemm_key(op, lay, int(x_src.shape[0]), int(w.shape[-2]),
+                          int(w.shape[-1]), has_scale, x_src.dtype,
+                          x_src.device)
+    return _checked(decisions.lookup(key), key)
+
+
+def _trav_decision(decisions, kind, msg, compact_msg, kl):
+    if decisions is None:
+        return None
+    key = tspace.trav_key(kind, int(msg.shape[-1]), compact_msg, kl.blocked,
+                          msg.dtype, msg.device)
+    return _checked(decisions.lookup(key), key)
+
+
+def _fuse(dec, *budget_args) -> bool:
+    """The decided ``fuse_gather``, else the budget heuristic."""
+    if dec is not None and dec.fuse_gather is not None:
+        return dec.fuse_gather
+    return _fits_budget(*budget_args)
+
+
 def _exec_gemm(op: O.GemmSpec, env: _Env, weight, gt: GraphTensors,
-               kl: KernelLayouts):
+               kl: KernelLayouts, decisions=None):
     w = weight(op.weight)
 
     scale = None
@@ -380,9 +438,15 @@ def _exec_gemm(op: O.GemmSpec, env: _Env, weight, gt: GraphTensors,
         gmap = gidx = None
 
     typed = op.type_index != O.TypeIndex.NONE
-    if typed and gmap is not None and op.gather in _FUSABLE_GATHERS:
+    dec = _gemm_decision(decisions, op, lay, x_src, w, scale is not None) \
+        if typed else None
+    tiles = {} if dec is None else dict(tile_rows=dec.tile_rows,
+                                         tile_n=dec.tile_n)
+    if (typed and gmap is not None and op.gather in _FUSABLE_GATHERS
+            and _fuse(dec, x_src, gmap)):
         # the gather runs inside K1 from the padded gather-index layout
-        y = K.segment_mm_gather(x_src, w, lay, gmap, row_scale=scale)
+        y = K.segment_mm_gather(x_src, w, lay, gmap, row_scale=scale,
+                                **tiles)
     else:
         x = x_src if gidx is None else x_src[gidx.long()]
         if not typed:
@@ -390,7 +454,7 @@ def _exec_gemm(op: O.GemmSpec, env: _Env, weight, gt: GraphTensors,
             if scale is not None:
                 y = y * scale[:, None]
         else:
-            y = K.segment_mm(x, w, lay, row_scale=scale)
+            y = K.segment_mm(x, w, lay, row_scale=scale, **tiles)
     out = y[:, 0] if (op.out_cols == 1 and y.shape[-1] == 1) else y
     env.set(op.out, out)
 
@@ -426,7 +490,7 @@ def _read_elsewhere(plan: O.Plan, region: O.TraversalSpec, fused_at: int,
 
 
 def _exec_traversal(op: O.TraversalSpec, env: _Env, gt: GraphTensors,
-                    kl: KernelLayouts):
+                    kl: KernelLayouts, decisions=None):
     """Execute a fused traversal region, fusing the canonical softmax(+agg)
     pattern onto the traversal kernels when present."""
     stmts = op.stmts
@@ -449,9 +513,12 @@ def _exec_traversal(op: O.TraversalSpec, env: _Env, gt: GraphTensors,
                 and nxt.scale == att_name
             ):
                 msg, msg_rows, slot_map = _edge_msg(env, gt, kl, nxt.ins[0])
+                dec = _trav_decision(decisions, "softmax_agg", msg,
+                                     msg_rows is not None, kl)
                 out = K.edge_softmax_agg(
                     scores, msg, gt.dst, gt.num_nodes, bc=kl.blocked,
-                    msg_rows=msg_rows, msg_slot_map=slot_map)
+                    msg_rows=msg_rows, msg_slot_map=slot_map,
+                    fuse_gather=_fuse(dec, msg, slot_map))
                 env.set(nxt.out, out)
                 if _read_elsewhere(env.plan, op, i + 7, att_name):
                     env.set(att_name, K.edge_softmax(
@@ -490,6 +557,8 @@ def _exec_traversal(op: O.TraversalSpec, env: _Env, gt: GraphTensors,
                                        torch.zeros_like(mx)))
         elif s.kind == "segment_sum":
             msg, msg_rows, slot_map = _edge_msg(env, gt, kl, s.ins[0])
+            dec = _trav_decision(decisions, "weighted_agg", msg,
+                                 msg_rows is not None, kl)
             scale = None
             if s.scale is not None:
                 scale = env.get_edge_vanilla(s.scale)
@@ -497,7 +566,8 @@ def _exec_traversal(op: O.TraversalSpec, env: _Env, gt: GraphTensors,
                     scale = scale[:, 0]
             out = K.weighted_agg(scale, msg, gt.dst, gt.num_nodes,
                                  bc=kl.blocked, msg_rows=msg_rows,
-                                 msg_slot_map=slot_map)
+                                 msg_slot_map=slot_map,
+                                 fuse_gather=_fuse(dec, msg, slot_map))
             if s.op == "mean":
                 deg = kl.dst_deg.to(out.dtype)
                 out = out / torch.clamp(deg, min=1.0)[:, None]

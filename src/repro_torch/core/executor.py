@@ -10,6 +10,12 @@ signature-keyed counters stay, so the drivers report the same fields:
 graph per signature is the later step that makes those counters mean
 compiled programs again.
 
+Every executor carries the autotuner's ``decisions`` table (or ``None``)
+and passes it to codegen at every call; ``set_decisions`` swaps it. The
+reference keys its compile cache on the table's fingerprint; running
+eagerly, the port has no compiled entry a changed table could leave stale,
+so a new table takes effect at the next call.
+
 * ``PlanExecutor`` — one full-graph layer, in the caller's grad mode;
 * ``BlockExecutor`` — the sampled forward, under ``torch.no_grad()``;
 * ``BlockTrainExecutor`` / ``StackTrainExecutor`` — one SGD step each:
@@ -55,13 +61,19 @@ def signature(args) -> tuple:
 
 
 class _SignatureCounter:
-    """Counts first-seen and repeated argument signatures per executor."""
+    """Counts first-seen and repeated argument signatures per executor, and
+    holds the tuning decisions its calls run under."""
 
-    def __init__(self, plans: Sequence):
+    def __init__(self, plans: Sequence, decisions=None):
         self._static_key = tuple(p.fingerprint() for p in plans)
         self._seen: set = set()
         self.cache_hits = 0
         self.trace_count = 0
+        self.decisions = decisions
+
+    def set_decisions(self, decisions) -> None:
+        """Install a (new) tuning-decision table for the next calls."""
+        self.decisions = decisions
 
     @property
     def num_compiled(self) -> int:
@@ -80,20 +92,22 @@ class PlanExecutor(_SignatureCounter):
     """Full-graph forward of one lowered plan; runs in the caller's grad
     mode, so a train step can differentiate through it."""
 
-    def __init__(self, plan):
-        super().__init__([plan])
+    def __init__(self, plan, decisions=None):
+        super().__init__([plan], decisions)
         self.plan = plan
 
     def __call__(self, params, gt, kl, feats) -> Dict[str, torch.Tensor]:
         self._count((params, gt, kl, feats))
-        return codegen.execute_plan(self.plan, params, gt, feats, kl)
+        return codegen.execute_plan(self.plan, params, gt, feats, kl,
+                                    self.decisions)
 
 
 class BlockExecutor(_SignatureCounter):
     """Sampled-minibatch forward for a stack of per-hop plans."""
 
-    def __init__(self, plans: Sequence, activation: str = "relu"):
-        super().__init__(plans)
+    def __init__(self, plans: Sequence, activation: str = "relu",
+                 decisions=None):
+        super().__init__(plans, decisions)
         self.plans = list(plans)
         self.activation = activation
 
@@ -106,7 +120,7 @@ class BlockExecutor(_SignatureCounter):
             return codegen.execute_block_sequence(
                 self.plans, list(params), list(gts), list(kls),
                 list(dst_locals), seed_perm, feats,
-                activation=self.activation)
+                activation=self.activation, decisions=self.decisions)
 
     def run_minibatch(self, params, mb, global_feats) -> torch.Tensor:
         """Forward over a ``sampling.MiniBatch``: the input features are the
@@ -153,8 +167,9 @@ class BlockTrainExecutor(_SignatureCounter):
     gathered seed rows, the backward through the kernels' autograd
     Functions, and the optimizer update."""
 
-    def __init__(self, plans: Sequence, opt, activation: str = "relu"):
-        super().__init__(plans)
+    def __init__(self, plans: Sequence, opt, activation: str = "relu",
+                 decisions=None):
+        super().__init__(plans, decisions)
         self.plans = list(plans)
         self.opt = opt
         self.activation = activation
@@ -171,7 +186,8 @@ class BlockTrainExecutor(_SignatureCounter):
         def loss_fn(params):
             logits = codegen.execute_block_sequence(
                 self.plans, params, gts, kls, list(mb.dst_locals),
-                mb.seed_perm, feats, activation=self.activation)
+                mb.seed_perm, feats, activation=self.activation,
+                decisions=self.decisions)
             return softmax_xent(logits, labels)
 
         return _sgd_step(self.opt, state, loss_fn)
@@ -184,8 +200,9 @@ class StackTrainExecutor(_SignatureCounter):
     sampled trainer (a full-fanout sampled step reproduces its loss and
     gradients) and the full-graph evaluator."""
 
-    def __init__(self, plans: Sequence, opt, activation: str = "relu"):
-        super().__init__(plans)
+    def __init__(self, plans: Sequence, opt, activation: str = "relu",
+                 decisions=None):
+        super().__init__(plans, decisions)
         self.plans = list(plans)
         self.opt = opt
         self.activation = activation
@@ -196,7 +213,8 @@ class StackTrainExecutor(_SignatureCounter):
         h = None
         last = len(self.plans) - 1
         for i, (plan, p) in enumerate(zip(self.plans, params)):
-            h = codegen.execute_plan(plan, p, gt, cur, kl)[plan.outputs[0]]
+            h = codegen.execute_plan(plan, p, gt, cur, kl,
+                                     self.decisions)[plan.outputs[0]]
             if i < last:
                 cur = {"feature": act(h)}
         return h

@@ -11,6 +11,11 @@ The full-graph ``GraphTensors`` and ``KernelLayouts`` (unbucketed, at the
 stack's tile and node block) are built on the first full-graph call and
 moved to the stack's device once, shared by every layer: a serving process
 that only runs sampled batches never builds them.
+
+The autotuner's results enter here: ``compact_vars`` (per layer, the edge
+variables lowered COMPACT; ``None`` keeps the static policy) shapes the
+lowered plans, and ``decisions`` (a ``tune.TuningDecisions``) picks each
+op's variant at run time.
 """
 from __future__ import annotations
 
@@ -63,19 +68,22 @@ class HectorModule:
         *,
         reorder: bool = True,
         compact: bool = True,
+        compact_vars=None,
         tile: int = 128,
         node_block: int = 128,
         device="cpu",
         full: Optional[FullGraph] = None,
+        decisions=None,
     ):
         self.program = program
         self.graph = graph
-        self.plan = lower_program(program, reorder=reorder, compact=compact)
+        self.plan = lower_program(program, reorder=reorder, compact=compact,
+                                  compact_vars=compact_vars)
         self.device = torch.device(device)
         # shared across the layers of a stack (HectorStack passes its own)
         self.full = full if full is not None else FullGraph(
             graph, tile=tile, node_block=node_block, device=self.device)
-        self.executor = executor.PlanExecutor(self.plan)
+        self.executor = executor.PlanExecutor(self.plan, decisions)
 
     @property
     def gt(self):
@@ -118,24 +126,33 @@ class HectorStack:
         *,
         reorder: bool = True,
         compact: bool = True,
+        compact_vars: Optional[Sequence] = None,   # per-layer COMPACT sets
         tile: int = 128,
         node_block: int = 128,
         activation: str = "relu",
         device="cpu",
+        decisions=None,
     ):
         if not programs:
             raise ValueError("need at least one layer program")
+        if compact_vars is not None and len(compact_vars) != len(programs):
+            raise ValueError("need one compact-var set per layer (None to "
+                             "keep a layer's default)")
         self.graph = graph
         self.device = torch.device(device)
         self.full = FullGraph(graph, tile=tile, node_block=node_block,
                               device=self.device)
-        self.layers = [HectorModule(p, graph, reorder=reorder,
-                                    compact=compact, device=self.device,
-                                    full=self.full) for p in programs]
+        self.layers = [
+            HectorModule(p, graph, reorder=reorder, compact=compact,
+                         compact_vars=(None if compact_vars is None
+                                       else compact_vars[i]),
+                         device=self.device, full=self.full,
+                         decisions=decisions)
+            for i, p in enumerate(programs)]
         self.activation = activation
         self._act = codegen._ACTIVATIONS[activation]
-        self.block_executor = executor.BlockExecutor(self.plans,
-                                                     activation=activation)
+        self.block_executor = executor.BlockExecutor(
+            self.plans, activation=activation, decisions=decisions)
 
     @property
     def num_layers(self) -> int:

@@ -18,7 +18,10 @@
 // 2*k*n FLOPs per row of (k + n) floats read (16 FLOPs per byte at 64 x 64):
 // all at or below the card's ~20 FLOP/byte fp32 ridge.
 //
-// K1/K4 design: one thread block per (row tile, 64-column slice of n). The
+// K1/K4 design: one thread block per (row tile, col_tile-column slice of n;
+// 64 by default, the tuner's tile_n otherwise; the row tile is the layout's
+// tile or, as the tuner's tile_rows, a divisor of it over a sub-tiled
+// tile -> group map, which the caller passes as `tile`). The
 // block stages its tile's rows in shared memory (row stride kd + 1, so
 // threads reading one column of many rows hit distinct banks): K1 pulls them
 // from global memory by gather index, K4 reads them contiguously; 16 bytes
@@ -50,7 +53,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kColTile = 64;
+constexpr int kColTile = 64;   // the default column slice of K1 / K4
 constexpr int kOuterSlice = 64;
 constexpr int kOuterPerThread = kOuterSlice * kOuterSlice / kThreads;
 
@@ -61,11 +64,11 @@ __device__ __forceinline__ void tile_gemm(
     const float* __restrict__ x, const float* __restrict__ w,
     const int* __restrict__ gidx, const int* __restrict__ t2g,
     const float* __restrict__ scale, float* __restrict__ y, int kd, int n,
-    int tile, int vec4, int w_sr, int w_sc) {
+    int tile, int col_tile, int vec4, int w_sr, int w_sc) {
   extern __shared__ float smem[];
   const int ldx = kd + 1;
-  const int col0 = blockIdx.y * kColTile;
-  const int cols = min(kColTile, n - col0);
+  const int col0 = blockIdx.y * col_tile;
+  const int cols = min(col_tile, n - col0);
   const int ldw = cols + 1;
   float* xs = smem;              // [tile][kd + 1]
   float* ws = smem + tile * ldx; // [kd][cols + 1]
@@ -137,8 +140,9 @@ segment_mm_gather_kernel(const float* __restrict__ x,
                          const int* __restrict__ t2g,
                          const float* __restrict__ scale,
                          float* __restrict__ y, int k, int n, int tile,
-                         int vec4) {
-  tile_gemm<true>(x, w, gidx, t2g, scale, y, k, n, tile, vec4, n, 1);
+                         int col_tile, int vec4) {
+  tile_gemm<true>(x, w, gidx, t2g, scale, y, k, n, tile, col_tile, vec4, n,
+                  1);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -147,9 +151,9 @@ segment_mm_padded_kernel(const float* __restrict__ x,
                          const int* __restrict__ t2g,
                          const float* __restrict__ scale,
                          float* __restrict__ y, int kd, int n, int tile,
-                         int vec4, int w_sr, int w_sc) {
-  tile_gemm<false>(x, w, nullptr, t2g, scale, y, kd, n, tile, vec4, w_sr,
-                   w_sc);
+                         int col_tile, int vec4, int w_sr, int w_sc) {
+  tile_gemm<false>(x, w, nullptr, t2g, scale, y, kd, n, tile, col_tile, vec4,
+                   w_sr, w_sc);
 }
 
 // fp64 partial of one chunk of one group's real tiles, for one
@@ -258,9 +262,11 @@ extern "C" const char* repro_error_string(int err) {
 }
 
 // Shared memory one block of segment_mm_gather_f32 / segment_mm_padded_f32
-// asks for, in bytes (kd: the reduction width).
-extern "C" long long segment_mm_smem_bytes(int kd, int n, int tile) {
-  const int cols = n < kColTile ? n : kColTile;
+// asks for, in bytes (kd: the reduction width; col_tile <= 0: the default).
+extern "C" long long segment_mm_smem_bytes(int kd, int n, int tile,
+                                           int col_tile) {
+  if (col_tile <= 0) col_tile = kColTile;
+  const int cols = n < col_tile ? n : col_tile;
   return ((long long)tile * (kd + 1) + (long long)kd * (cols + 1)) *
          sizeof(float);
 }
@@ -274,22 +280,24 @@ extern "C" long long segment_outer_smem_bytes(int k, int n, int tile) {
 
 // K1. x [nx, k], w [R, k, n], gidx [num_tiles * tile], t2g [>= num_tiles],
 // scale [num_tiles * tile] or null, y [num_tiles * tile, n]; all contiguous
-// on one device. Launches on `stream`; returns cudaGetLastError().
+// on one device; col_tile <= 0: the default slice. Launches on `stream`;
+// returns cudaGetLastError().
 extern "C" int segment_mm_gather_f32(const float* x, const float* w,
                                      const int* gidx, const int* t2g,
                                      const float* scale, float* y, int k,
-                                     int n, int num_tiles, int tile, int vec4,
-                                     void* stream) {
+                                     int n, int num_tiles, int tile,
+                                     int col_tile, int vec4, void* stream) {
   if (num_tiles <= 0 || n <= 0 || k <= 0 || tile <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long smem = segment_mm_smem_bytes(k, n, tile);
+  if (col_tile <= 0) col_tile = kColTile;
+  const long long smem = segment_mm_smem_bytes(k, n, tile, col_tile);
   cudaError_t e = allow_smem((const void*)segment_mm_gather_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(num_tiles, (n + kColTile - 1) / kColTile);
+  dim3 grid(num_tiles, (n + col_tile - 1) / col_tile);
   segment_mm_gather_kernel<<<grid, kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
-      x, w, gidx, t2g, scale, y, k, n, tile, vec4);
+      x, w, gidx, t2g, scale, y, k, n, tile, col_tile, vec4);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -300,18 +308,19 @@ extern "C" int segment_mm_gather_f32(const float* x, const float* w,
 extern "C" int segment_mm_padded_f32(const float* x, const float* w,
                                      const int* t2g, const float* scale,
                                      float* y, int kd, int n, int num_tiles,
-                                     int tile, int vec4, int w_sr, int w_sc,
-                                     void* stream) {
+                                     int tile, int col_tile, int vec4,
+                                     int w_sr, int w_sc, void* stream) {
   if (num_tiles <= 0 || n <= 0 || kd <= 0 || tile <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long smem = segment_mm_smem_bytes(kd, n, tile);
+  if (col_tile <= 0) col_tile = kColTile;
+  const long long smem = segment_mm_smem_bytes(kd, n, tile, col_tile);
   cudaError_t e = allow_smem((const void*)segment_mm_padded_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(num_tiles, (n + kColTile - 1) / kColTile);
+  dim3 grid(num_tiles, (n + col_tile - 1) / col_tile);
   segment_mm_padded_kernel<<<grid, kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
-      x, w, t2g, scale, y, kd, n, tile, vec4, w_sr, w_sc);
+      x, w, t2g, scale, y, kd, n, tile, col_tile, vec4, w_sr, w_sc);
   return static_cast<int>(cudaGetLastError());
 }
 

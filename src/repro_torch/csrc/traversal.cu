@@ -13,12 +13,20 @@
 //     out[v] = sum_{e->v} scale_e * msg[mmap[e]]
 //   Replaces traversal.py::seg_weighted_agg_gather_padded
 //   (_weighted_agg_gather_kernel).
+// K6, seg_softmax_agg_padded_f32, and K8, seg_weighted_agg_padded_f32 — K3
+// and K7 over messages already padded into the dst-sorted slots
+// (msg_p [T * tile, d], the materialized-gather variant the tuner picks
+// with fuse_gather = false): the message row of a slot is the slot itself.
+//   Replace traversal.py::seg_softmax_agg_padded (_softmax_agg_kernel) and
+//   ::seg_weighted_agg_padded (_weighted_agg_kernel).
 //
 // Bound on the H100: bytes (a few FLOPs per byte). K2 reads each slot's
 // score and local destination once and writes two floats per node; K3
 // reads each slot's score, destination and message index, one message row
 // of d floats per real slot, the node stats, and writes d floats per node;
-// K7 reads the same without the stats, a scale in place of the score.
+// K7 reads the same without the stats, a scale in place of the score. K6
+// and K8 read no message index; each real slot reads its own message row
+// (pad slots' rows are never read).
 //
 // Design: the TPU kernels run their grid in order and accumulate a node
 // block's consecutive edge tiles into one VMEM output block, scattering with
@@ -29,7 +37,8 @@
 // in place of the sequential grid. Each tile's slots are staged in shared
 // memory. K2 gives every destination node of the block to one thread,
 // which takes the exact max in a first pass over the slots and the sum of
-// exponentials in a second. K3 and K7 share one body (agg_gather_body):
+// exponentials in a second. K3, K6, K7 and K8 share one body (agg_body;
+// K6 and K8 read the message of slot i at row i instead of mmap[i]):
 // each staged slot gets its weight (K3: the attention from the score and
 // K2's stats; K7: the slot's scale), then every (node, column)
 // accumulator in shared memory is owned by exactly one thread, which adds
@@ -103,9 +112,11 @@ __global__ void seg_stats_kernel(const float* __restrict__ scores,
 // One thread block per node block: stage each tile's (weight, message row,
 // destination), then every (node, column) accumulator has one owning
 // thread that adds in slot order. kSoftmax: the weight is the attention
-// exp(score - mx[v]) / max(den[v], 1e-38) (K3); else the slot's scale (K7).
-template <bool kSoftmax>
-__device__ __forceinline__ void agg_gather_body(
+// exp(score - mx[v]) / max(den[v], 1e-38) (K3, K6); else the slot's scale
+// (K7, K8). kGather: the message row is mmap[slot] (K3, K7); else the slot
+// (K6, K8, whose messages are padded into the slots).
+template <bool kSoftmax, bool kGather>
+__device__ __forceinline__ void agg_body(
     const float* __restrict__ weight, const float* __restrict__ msg,
     const int* __restrict__ mmap, const int* __restrict__ local_dst,
     const int* __restrict__ block_tile_ptr, const float* __restrict__ mx,
@@ -138,7 +149,7 @@ __device__ __forceinline__ void agg_gather_body(
         } else {
           a = weight[slot];
         }
-        row = mmap[slot];
+        row = kGather ? mmap[slot] : static_cast<int>(slot);
       }
       s_att[i] = a;
       s_row[i] = row;
@@ -174,8 +185,8 @@ seg_softmax_agg_gather_kernel(const float* __restrict__ scores,
                               const float* __restrict__ den,
                               float* __restrict__ out, int d, int node_block,
                               int tile, int groups, int colw) {
-  agg_gather_body<true>(scores, msg, mmap, local_dst, block_tile_ptr, mx, den,
-                        out, d, node_block, tile, groups, colw);
+  agg_body<true, true>(scores, msg, mmap, local_dst, block_tile_ptr, mx, den,
+                       out, d, node_block, tile, groups, colw);
 }
 
 __global__ void __launch_bounds__(kAggThreads)
@@ -186,8 +197,33 @@ seg_weighted_agg_gather_kernel(const float* __restrict__ scale,
                                const int* __restrict__ block_tile_ptr,
                                float* __restrict__ out, int d, int node_block,
                                int tile, int groups, int colw) {
-  agg_gather_body<false>(scale, msg, mmap, local_dst, block_tile_ptr, nullptr,
-                         nullptr, out, d, node_block, tile, groups, colw);
+  agg_body<false, true>(scale, msg, mmap, local_dst, block_tile_ptr, nullptr,
+                        nullptr, out, d, node_block, tile, groups, colw);
+}
+
+__global__ void __launch_bounds__(kAggThreads)
+seg_softmax_agg_padded_kernel(const float* __restrict__ scores,
+                              const float* __restrict__ msg_p,
+                              const int* __restrict__ local_dst,
+                              const int* __restrict__ block_tile_ptr,
+                              const float* __restrict__ mx,
+                              const float* __restrict__ den,
+                              float* __restrict__ out, int d, int node_block,
+                              int tile, int groups, int colw) {
+  agg_body<true, false>(scores, msg_p, nullptr, local_dst, block_tile_ptr, mx,
+                        den, out, d, node_block, tile, groups, colw);
+}
+
+__global__ void __launch_bounds__(kAggThreads)
+seg_weighted_agg_padded_kernel(const float* __restrict__ scale,
+                               const float* __restrict__ msg_p,
+                               const int* __restrict__ local_dst,
+                               const int* __restrict__ block_tile_ptr,
+                               float* __restrict__ out, int d, int node_block,
+                               int tile, int groups, int colw) {
+  agg_body<false, false>(scale, msg_p, nullptr, local_dst, block_tile_ptr,
+                         nullptr, nullptr, out, d, node_block, tile, groups,
+                         colw);
 }
 
 // Opt a kernel in to more than the default 48 KB of dynamic shared memory.
@@ -209,8 +245,8 @@ extern "C" long long seg_stats_smem_bytes(int tile) {
   return (long long)tile * (sizeof(float) + sizeof(int));
 }
 
-// K3's and K7's dynamic shared memory: the fp64 accumulators and one
-// tile's staged slots.
+// K3's, K6's, K7's and K8's dynamic shared memory: the fp64 accumulators
+// and one tile's staged slots.
 extern "C" long long seg_agg_smem_bytes(int d, int node_block, int tile) {
   return (long long)node_block * d * sizeof(double) +
          (long long)tile * (sizeof(float) + 2 * sizeof(int));
@@ -236,9 +272,9 @@ extern "C" int seg_stats_f32(const float* scores, const int* local_dst,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch K3 or K7 with one thread block per node block: colw consecutive
-// threads cover a row's columns, `groups` such groups take the block's
-// nodes in turn. `args` are the kernel's pointer arguments.
+// Launch K3, K6, K7 or K8 with one thread block per node block: colw
+// consecutive threads cover a row's columns, `groups` such groups take the
+// block's nodes in turn. `args` are the kernel's pointer arguments.
 template <typename Kernel, typename... Args>
 int launch_agg(Kernel* kernel, int d, int num_node_blocks, int node_block,
                int tile, void* stream, Args... args) {
@@ -277,5 +313,28 @@ extern "C" int seg_weighted_agg_gather_f32(
     int num_node_blocks, int node_block, int tile, void* stream) {
   return launch_agg(seg_weighted_agg_gather_kernel, d, num_node_blocks,
                     node_block, tile, stream, scale, msg, mmap, local_dst,
+                    block_tile_ptr, out);
+}
+
+// K6. scores, local_dst [T * tile]; msg_p [T * tile, d] (the messages
+// padded into the slots); mx, den from seg_stats_f32;
+// out [num_node_blocks * node_block, d].
+extern "C" int seg_softmax_agg_padded_f32(
+    const float* scores, const float* msg_p, const int* local_dst,
+    const int* block_tile_ptr, const float* mx, const float* den, float* out,
+    int d, int num_node_blocks, int node_block, int tile, void* stream) {
+  return launch_agg(seg_softmax_agg_padded_kernel, d, num_node_blocks,
+                    node_block, tile, stream, scores, msg_p, local_dst,
+                    block_tile_ptr, mx, den, out);
+}
+
+// K8. scale_p (pad slots 0), local_dst [T * tile]; msg_p [T * tile, d];
+// out [num_node_blocks * node_block, d].
+extern "C" int seg_weighted_agg_padded_f32(
+    const float* scale, const float* msg_p, const int* local_dst,
+    const int* block_tile_ptr, float* out, int d, int num_node_blocks,
+    int node_block, int tile, void* stream) {
+  return launch_agg(seg_weighted_agg_padded_kernel, d, num_node_blocks,
+                    node_block, tile, stream, scale, msg_p, local_dst,
                     block_tile_ptr, out);
 }

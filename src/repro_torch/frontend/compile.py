@@ -11,7 +11,8 @@ other attribute to the underlying ``RGNNEngine``, so it drops into the
 trainers unchanged.
 
 ``device=None`` means the CUDA card, and raises without one: pass
-``device="cpu"`` to run the plain versions on the CPU.
+``device="cpu"`` to run the plain versions on the CPU. ``tune=`` runs the
+autotuner on that device exactly as the drivers' ``--tune`` flag does.
 """
 from __future__ import annotations
 
@@ -114,8 +115,12 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
     seed: int = 0,
     device=None,
     sampler: str = "host",
+    tune: str = "off",
+    tune_cache: Optional[str] = None,
+    tune_full_graph: bool = True,
     config=None,
     model_args: Optional[dict] = None,
+    log=None,
     **model_kwargs,
 ) -> CompiledRGNN:
     """Compile ``model`` for ``graph`` on ``device`` (``None``: the CUDA
@@ -129,6 +134,11 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
     ``sampler``: ``"host"`` (NumPy sampling and layouts on a loader
     thread) or ``"device"`` (``DeviceSampler``: selection and layouts on
     the device; the same edges for the same stream position).
+    ``tune``: ``"off"`` (the defaults), ``"cached"`` (replay the
+    persistent cache at ``tune_cache``, no measurement) or ``"full"``
+    (measure what the cache lacks, on ``device``); ``tune_full_graph=False``
+    (a caller that only runs sampled batches) skips the full-graph layout
+    and op measurements. ``log`` receives the tuner's lines.
     Model hyperparameters ride along as extra keyword arguments, or in
     ``model_args={...}`` where a name collides with a compile keyword
     (e.g. RGCN's ``activation``).
@@ -162,5 +172,6 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
             model=prog_fn, layers=layers, dim=dim, hidden=hidden,
             classes=classes, fanouts=sample, tile=tile,
             node_block=node_block, activation=activation, seed=seed,
-            device=device, sampler=sampler)
-    return CompiledRGNN(RGNNEngine(graph, cfg))
+            device=device, sampler=sampler, tune=tune,
+            tune_cache=tune_cache, tune_full_graph=tune_full_graph)
+    return CompiledRGNN(RGNNEngine(graph, cfg, log=log))

@@ -11,11 +11,20 @@ Every ``custom_vjp`` of the reference on the ported path is a
 * ``segment_mm_gather`` — forward K1; dX by K4 with W transposed and a
   scatter-add to the source rows, dW by K5, ``dscale = Σ dy · y_pre``;
 * ``segment_mm`` — forward K4; the same backward without the scatter;
-* ``edge_softmax_agg`` — forward K2 + K3; the backward is the reference's
-  plain ops, with the attention rebuilt from K2's saved statistics;
+* ``edge_softmax_agg`` — forward K2 + K3 (with ``fuse_gather=False``, K2
+  + K6 over the messages padded into the dst-sorted slots); the backward
+  is the reference's plain ops, with the attention rebuilt from K2's saved
+  statistics;
 * ``edge_softmax`` — forward K2 and its epilogue; backward the softmax VJP;
-* ``weighted_agg`` — forward K7; the backward is the reference's plain
-  ops (``dmsg = scale · g``, scattered into a compact table; ``dscale``).
+* ``weighted_agg`` — forward K7 (``fuse_gather=False``: K8 over padded
+  messages); the backward is the reference's plain ops
+  (``dmsg = scale · g``, scattered into a compact table; ``dscale``).
+
+The GEMMs take the tuner's ``tile_rows`` (a divisor of the layout tile:
+K1 / K4 run over the tile -> group map expanded to sub-tiles, as do the
+dX of the backward; K5 keeps the layout tile, whose fp64 sum over a
+group's rows is the same) and ``tile_n`` (the column slice of a K1 / K4
+thread block).
 
 The backward's scatter-adds (``dx``, the compact ``dmsg``, the softmax
 VJP's ``segment_sum``) are ``index_add_``, as the reference leaves them to
@@ -38,8 +47,10 @@ from repro_torch.kernels import segment_mm as SK
 from repro_torch.kernels import traversal as TK
 from repro_torch.kernels.segment_mm import segment_mm_gather_padded
 from repro_torch.kernels.traversal import (seg_softmax_agg_gather_padded,
+                                           seg_softmax_agg_padded,
                                            seg_stats_padded,
-                                           seg_weighted_agg_gather_padded)
+                                           seg_weighted_agg_gather_padded,
+                                           seg_weighted_agg_padded)
 
 
 # ---------------------------------------------------------------------------
@@ -203,17 +214,67 @@ def pad_rows(x: torch.Tensor, row_map: torch.Tensor,
 # ---------------------------------------------------------------------------
 # segment MM (the GEMM template)
 # ---------------------------------------------------------------------------
+def fit_tile_n(n: int, tile_n: int) -> int:
+    """Largest usable column tile: ``tile_n`` capped at ``n``, falling back
+    to ``n`` itself when it does not divide evenly (the reference's
+    ``_fit_tile_n``)."""
+    tn = min(tile_n, n)
+    return n if n % tn else tn
+
+
+def fit_tile_rows(lay_tile: int, tile_rows: Optional[int]) -> int:
+    """Effective kernel row tile: a requested sub-tile of the layout tile
+    (each sub-tile then still lies within one type segment), or the layout
+    tile itself when unset or not a divisor."""
+    if tile_rows is None or tile_rows <= 0 or lay_tile % tile_rows:
+        return lay_tile
+    return tile_rows
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GemmTiles:
+    """How K1 / K4 cut one GEMM: the row tile, its tile -> group map, and
+    the requested column tile (``None``: the kernel's default)."""
+
+    t2g: torch.Tensor
+    tile: int
+    tile_n: Optional[int] = None
+
+    def cols(self, width: int) -> Optional[int]:
+        """The column slice of a product ``width`` columns wide."""
+        return None if self.tile_n is None else fit_tile_n(width,
+                                                           self.tile_n)
+
+
+def gemm_tiles(lay: PaddedSegmentsDev, tile_rows: Optional[int] = None,
+               tile_n: Optional[int] = None) -> GemmTiles:
+    """The kernel tiling of a GEMM over ``lay`` with the tuner's knobs:
+    ``tile_rows`` splits each layout tile into sub-tiles of the same group,
+    ``tile_n`` sets the column slice."""
+    if tile_n is not None and tile_n <= 0:
+        raise ValueError(f"tile_n={tile_n} must be positive")
+    tr = fit_tile_rows(lay.tile, tile_rows)
+    t2g = lay.t2g
+    if tr != lay.tile:
+        t2g = t2g.repeat_interleave(lay.tile // tr)
+    return GemmTiles(t2g=t2g, tile=tr, tile_n=tile_n)
+
+
 def _gemm_backward(needs, dy, x, w, scale_p, y_pre, lay: PaddedSegmentsDev,
-                   gidx: Optional[torch.Tensor] = None):
+                   gidx: Optional[torch.Tensor] = None,
+                   tiles: Optional[GemmTiles] = None):
     """(dx, dw, dscale) of ``Y_p = X_p @ W[t2g]`` (x ``scale_p``) for the
     inputs ``needs`` flags; ``X_p = x[gidx]`` when ``gidx`` is given, else
-    ``x`` itself. dX is K4 over dY with W transposed (then, for a gather, a
-    scatter-add to the source rows), dW is K5 over the padded rows."""
+    ``x`` itself. dX is K4 over dY with W transposed, cut as the forward
+    (``tiles``; then, for a gather, a scatter-add to the source rows), dW
+    is K5 over the padded rows at the layout tile."""
     dys = dy if scale_p is None else dy * scale_p
     dx = dw = dscale = None
     if needs[0]:
-        dxg = SK.segment_mm_padded(dys, w, lay.t2g, tile=lay.tile,
-                                   transpose_w=True)
+        t = tiles or gemm_tiles(lay)
+        dxg = SK.segment_mm_padded(dys, w, t.t2g, tile=t.tile,
+                                   transpose_w=True,
+                                   tile_n=t.cols(w.shape[1]))
         if gidx is None:
             dx = dxg
         else:
@@ -259,10 +320,11 @@ class _SegmentMM(torch.autograd.Function):
     """``Y_p = X_p @ W[t2g]`` (x scale) over pre-padded rows: K4 forward."""
 
     @staticmethod
-    def forward(ctx, x_p, w, scale_p, lay):
+    def forward(ctx, x_p, w, scale_p, lay, tiles):
         y, y_pre = _gemm_forward(ctx, lambda s: SK.segment_mm_padded(
-            x_p, w, lay.t2g, s, tile=lay.tile), scale_p)
-        ctx.lay = lay
+            x_p, w, tiles.t2g, s, tile=tiles.tile,
+            tile_n=tiles.cols(w.shape[2])), scale_p)
+        ctx.lay, ctx.tiles = lay, tiles
         ctx.save_for_backward(x_p, w, scale_p, y_pre)
         return y
 
@@ -270,17 +332,18 @@ class _SegmentMM(torch.autograd.Function):
     def backward(ctx, dy):
         x_p, w, scale_p, y_pre = ctx.saved_tensors
         return (*_gemm_backward(ctx.needs_input_grad, dy, x_p, w, scale_p,
-                                y_pre, ctx.lay), None)
+                                y_pre, ctx.lay, tiles=ctx.tiles), None, None)
 
 
 class _SegmentMMGather(torch.autograd.Function):
     """``Y_p = X[gidx] @ W[t2g]`` (x scale): K1 forward."""
 
     @staticmethod
-    def forward(ctx, x, w, scale_p, gidx, lay):
+    def forward(ctx, x, w, scale_p, gidx, lay, tiles):
         y, y_pre = _gemm_forward(ctx, lambda s: segment_mm_gather_padded(
-            x, w, gidx, lay.t2g, s, tile=lay.tile), scale_p)
-        ctx.lay = lay
+            x, w, gidx, tiles.t2g, s, tile=tiles.tile,
+            tile_n=tiles.cols(w.shape[2])), scale_p)
+        ctx.lay, ctx.tiles = lay, tiles
         ctx.save_for_backward(x, w, scale_p, gidx, y_pre)
         return y
 
@@ -288,7 +351,8 @@ class _SegmentMMGather(torch.autograd.Function):
     def backward(ctx, dy):
         x, w, scale_p, gidx, y_pre = ctx.saved_tensors
         return (*_gemm_backward(ctx.needs_input_grad, dy, x, w, scale_p,
-                                y_pre, ctx.lay, gidx), None, None)
+                                y_pre, ctx.lay, gidx, ctx.tiles),
+                None, None, None)
 
 
 def segment_mm(
@@ -296,6 +360,8 @@ def segment_mm(
     w: torch.Tensor,                         # [R, k, n]
     lay: PaddedSegmentsDev,
     row_scale: Optional[torch.Tensor] = None,  # [M]
+    tile_n: Optional[int] = None,            # K4's column slice (tuner knob)
+    tile_rows: Optional[int] = None,         # sub-tile of lay.tile (tuner)
 ) -> torch.Tensor:
     """Y = X @ W[type] (+ per-row scale), X presorted by type. -> [M, n].
 
@@ -306,10 +372,13 @@ def segment_mm(
     scale_p = None
     if row_scale is not None:
         scale_p = pad_rows(row_scale, lay.row_map)[:, None]
+    tiles = gemm_tiles(lay, tile_rows, tile_n)
     if _recording(x_p, w, scale_p):
-        y_p = _SegmentMM.apply(x_p, w, scale_p, lay)
+        y_p = _SegmentMM.apply(x_p, w, scale_p, lay, tiles)
     else:
-        y_p = SK.segment_mm_padded(x_p, w, lay.t2g, scale_p, tile=lay.tile)
+        y_p = SK.segment_mm_padded(x_p, w, tiles.t2g, scale_p,
+                                   tile=tiles.tile,
+                                   tile_n=tiles.cols(w.shape[-1]))
     return y_p[lay.inv_map.long()]
 
 
@@ -319,6 +388,8 @@ def segment_mm_gather(
     lay: PaddedSegmentsDev,
     gather_rows: torch.Tensor,               # [Rp] slot -> source row, or -1
     row_scale: Optional[torch.Tensor] = None,  # [M] canonical per-row scale
+    tile_n: Optional[int] = None,            # K1's column slice (tuner knob)
+    tile_rows: Optional[int] = None,         # sub-tile of lay.tile (tuner)
 ) -> torch.Tensor:
     """Y = X[G] @ W[type] with the gather inside K1. -> [M, n].
 
@@ -333,11 +404,14 @@ def segment_mm_gather(
     scale_p = None
     if row_scale is not None:
         scale_p = pad_rows(row_scale, lay.row_map)[:, None]
+    tiles = gemm_tiles(lay, tile_rows, tile_n)
     if _recording(x_src, w, scale_p):
-        y_p = _SegmentMMGather.apply(x_src, w, scale_p, gather_rows, lay)
+        y_p = _SegmentMMGather.apply(x_src, w, scale_p, gather_rows, lay,
+                                     tiles)
     else:
-        y_p = segment_mm_gather_padded(x_src, w, gather_rows, lay.t2g,
-                                       scale_p, tile=lay.tile)
+        y_p = segment_mm_gather_padded(x_src, w, gather_rows, tiles.t2g,
+                                       scale_p, tile=tiles.tile,
+                                       tile_n=tiles.cols(n))
     return y_p[lay.inv_map.long()]
 
 
@@ -385,18 +459,26 @@ def _msg_slot_map(bc: BlockedCSRDev,
 
 
 class _EdgeSoftmaxAgg(torch.autograd.Function):
-    """The fused softmax + aggregation: K2 then K3 forward; the backward
-    is the reference's plain ops on the attention rebuilt from K2's saved
-    ``mx``/``den`` (no second K2 launch)."""
+    """The fused softmax + aggregation: K2 then K3 forward (without a slot
+    map, K6 over the messages padded into the slots: ``msg`` is then in
+    canonical edge order); the backward is the reference's plain ops on the
+    attention rebuilt from K2's saved ``mx``/``den`` (no second K2
+    launch)."""
 
     @staticmethod
     def forward(ctx, scores, msg, dst, msg_rows, num_nodes, bc,
                 msg_slot_map):
         scores_p, mx, den = _stats(scores, bc)
-        out = seg_softmax_agg_gather_padded(
-            scores_p, msg, msg_slot_map, bc.local_dst, bc.t2b,
-            bc.block_tile_ptr, mx, den, node_block=bc.node_block,
-            num_node_blocks=bc.num_node_blocks)
+        kw = dict(node_block=bc.node_block,
+                  num_node_blocks=bc.num_node_blocks)
+        if msg_slot_map is None:
+            out = seg_softmax_agg_padded(
+                scores_p, pad_rows(msg, bc.edge_map), bc.local_dst, bc.t2b,
+                bc.block_tile_ptr, mx, den, **kw)
+        else:
+            out = seg_softmax_agg_gather_padded(
+                scores_p, msg, msg_slot_map, bc.local_dst, bc.t2b,
+                bc.block_tile_ptr, mx, den, **kw)
         ctx.num_nodes = num_nodes
         ctx.save_for_backward(scores, msg, dst, msg_rows, mx, den)
         return out[:num_nodes]
@@ -448,13 +530,17 @@ def edge_softmax_agg(
     bc: Optional[BlockedCSRDev] = None,
     msg_rows: Optional[torch.Tensor] = None,    # [E] edge -> msg row
     msg_slot_map: Optional[torch.Tensor] = None,  # [Ep] precomposed map
+    fuse_gather: bool = True,
 ) -> torch.Tensor:
     """out[v] = Σ_{e→v} softmax(scores)_e · msg_e — the fused traversal
     region, K2 then K3; differentiable in ``scores`` and ``msg``.
 
     ``msg_rows`` lets messages live in a compact storage (the unique
     (src, etype) table with ``edge_to_unique`` as the map); K3 gathers them
-    per slot, so no dst-sorted ``[Ep, d]`` copy is materialized."""
+    per slot, so no dst-sorted ``[Ep, d]`` copy is materialized.
+    ``fuse_gather=False`` materializes that copy (``msg[msg_rows]`` padded
+    into the slots by ``bc.edge_map``) and runs K6 in place of K3, the
+    reference's materialized-gather variant."""
     if dst.shape[0] == 0:
         return msg.new_zeros((num_nodes, msg.shape[-1]))
     if bc is None:
@@ -463,6 +549,10 @@ def edge_softmax_agg(
                              "CSR layout (bc)")
         msg_e = msg if msg_rows is None else msg[msg_rows.long()]
         return R.softmax_agg_ref(scores, msg_e, dst, num_nodes)
+    if not fuse_gather:
+        msg_e = msg if msg_rows is None else msg[msg_rows.long()]
+        return _EdgeSoftmaxAgg.apply(scores, msg_e, dst, None, num_nodes,
+                                     bc, None)
     if msg_slot_map is None:
         msg_slot_map = _msg_slot_map(bc, msg_rows)
     return _EdgeSoftmaxAgg.apply(scores, msg, dst, msg_rows, num_nodes, bc,
@@ -499,16 +589,24 @@ def _padded_scale(scale: Optional[torch.Tensor], bc: BlockedCSRDev,
 
 
 class _WeightedAgg(torch.autograd.Function):
-    """``out[v] = Σ_{e→v} scale_e · msg_e``: K7 forward; the backward is the
+    """``out[v] = Σ_{e→v} scale_e · msg_e``: K7 forward (without a slot map,
+    K8 over the messages padded into the slots); the backward is the
     reference's plain VJP (no second K7 launch)."""
 
     @staticmethod
     def forward(ctx, scale, msg, dst, msg_rows, num_nodes, bc,
                 msg_slot_map):
-        out = seg_weighted_agg_gather_padded(
-            _padded_scale(scale, bc, msg), msg, msg_slot_map, bc.local_dst,
-            bc.t2b, bc.block_tile_ptr, node_block=bc.node_block,
-            num_node_blocks=bc.num_node_blocks)
+        scale_p = _padded_scale(scale, bc, msg)
+        kw = dict(node_block=bc.node_block,
+                  num_node_blocks=bc.num_node_blocks)
+        if msg_slot_map is None:
+            out = seg_weighted_agg_padded(
+                scale_p, pad_rows(msg, bc.edge_map), bc.local_dst, bc.t2b,
+                bc.block_tile_ptr, **kw)
+        else:
+            out = seg_weighted_agg_gather_padded(
+                scale_p, msg, msg_slot_map, bc.local_dst, bc.t2b,
+                bc.block_tile_ptr, **kw)
         ctx.save_for_backward(scale, msg, dst, msg_rows)
         return out[:num_nodes]
 
@@ -540,10 +638,12 @@ def weighted_agg(
     bc: Optional[BlockedCSRDev] = None,
     msg_rows: Optional[torch.Tensor] = None,
     msg_slot_map: Optional[torch.Tensor] = None,
+    fuse_gather: bool = True,
 ) -> torch.Tensor:
     """out[v] = Σ_{e→v} scale_e · msg_e (gather semantics as
-    ``edge_softmax_agg``) — K7 over the blocked CSR ``bc``; differentiable
-    in ``scale`` and ``msg``. Without ``bc``, the CPU oracle."""
+    ``edge_softmax_agg``) — K7 over the blocked CSR ``bc`` (K8 over the
+    padded messages with ``fuse_gather=False``); differentiable in
+    ``scale`` and ``msg``. Without ``bc``, the CPU oracle."""
     if dst.shape[0] == 0:
         return msg.new_zeros((num_nodes, msg.shape[-1]))
     if bc is None:
@@ -552,6 +652,10 @@ def weighted_agg(
                              "layout (bc)")
         msg_e = msg if msg_rows is None else msg[msg_rows.long()]
         return R.weighted_agg_ref(scale, msg_e, dst, num_nodes)
+    if not fuse_gather:
+        msg_e = msg if msg_rows is None else msg[msg_rows.long()]
+        return _WeightedAgg.apply(scale, msg_e, dst, None, num_nodes, bc,
+                                  None)
     if msg_slot_map is None:
         msg_slot_map = _msg_slot_map(bc, msg_rows)
     return _WeightedAgg.apply(scale, msg, dst, msg_rows, num_nodes, bc,
@@ -560,7 +664,8 @@ def weighted_agg(
 
 _COUNTED = (SK.segment_mm_gather_padded, TK.seg_stats_padded,
             TK.seg_softmax_agg_gather_padded, SK.segment_mm_padded,
-            SK.segment_outer_padded, TK.seg_weighted_agg_gather_padded)
+            SK.segment_outer_padded, TK.seg_softmax_agg_padded,
+            TK.seg_weighted_agg_gather_padded, TK.seg_weighted_agg_padded)
 
 
 def _counted():

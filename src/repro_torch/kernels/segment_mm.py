@@ -33,10 +33,10 @@ K5_CHUNK_TILES = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "segment_mm_gather_f32": [_P] * 6 + [_I] * 5 + [_P],
-    "segment_mm_padded_f32": [_P] * 5 + [_I] * 7 + [_P],
+    "segment_mm_gather_f32": [_P] * 6 + [_I] * 6 + [_P],
+    "segment_mm_padded_f32": [_P] * 5 + [_I] * 8 + [_P],
     "segment_outer_f32": [_P] * 6 + [_I] * 6 + [_P],
-    "segment_mm_smem_bytes": [_I] * 3,
+    "segment_mm_smem_bytes": [_I] * 4,
     "segment_outer_smem_bytes": [_I] * 3,
 }
 
@@ -67,6 +67,16 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _col_tile(tile_n: Optional[int], kernel: str) -> int:
+    """The column slice of a K1 / K4 thread block: ``tile_n``, or 0 for the
+    kernel's default (64 columns)."""
+    if tile_n is None:
+        return 0
+    if tile_n <= 0:
+        raise ValueError(f"{kernel}: tile_n={tile_n} must be positive")
+    return int(tile_n)
+
+
 # ---------------------------------------------------------------------------
 # K1: gather-fused segment GEMM
 # ---------------------------------------------------------------------------
@@ -78,8 +88,10 @@ def segment_mm_gather_padded_plain(
     row_scale_p: Optional[torch.Tensor] = None,   # [Rp, 1] or [Rp]
     *,
     tile: int,
+    tile_n: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K1: gather, batched product per tile."""
+    """Plain PyTorch version of K1: gather, batched product per tile
+    (``tile_n``, the kernel's column slice, does not change the result)."""
     rp = int(gidx.shape[0])
     k, n = int(w.shape[1]), int(w.shape[2])
     num_tiles = rp // tile
@@ -104,10 +116,13 @@ def segment_mm_gather_padded(
     row_scale_p: Optional[torch.Tensor] = None,
     *,
     tile: int,
+    tile_n: Optional[int] = None,
 ) -> torch.Tensor:
     """K1: ``Y_p = X[gidx] @ W[t2g[tile]]`` (x ``row_scale_p``) -> [Rp, n].
 
-    The gather runs inside the kernel; ``gidx`` = -1 gives a zero row."""
+    The gather runs inside the kernel; ``gidx`` = -1 gives a zero row.
+    ``tile`` is the row tile (``t2g`` holds one group per tile of it);
+    ``tile_n`` the columns of one thread block (default 64)."""
     rp = int(gidx.shape[0])
     nx, k = x.shape
     r, k2, n = w.shape
@@ -115,6 +130,7 @@ def segment_mm_gather_padded(
         raise ValueError(f"x has k={k} but w has k={k2}")
     if rp % tile:
         raise ValueError(f"{rp} padded rows is not a multiple of tile {tile}")
+    col_tile = _col_tile(tile_n, "segment_mm_gather_padded")
     if _device_or_raise("segment_mm_gather_padded", x):
         return segment_mm_gather_padded_plain(x, w, gidx, t2g, row_scale_p,
                                               tile=tile)
@@ -135,13 +151,14 @@ def segment_mm_gather_padded(
              if row_scale_p is not None else None)
     lib = _library()
     _check_smem("segment_mm_gather_padded",
-                lib.segment_mm_smem_bytes(k, n, tile), f"tile={tile}, k={k}")
+                lib.segment_mm_smem_bytes(k, n, tile, col_tile),
+                f"tile={tile}, k={k}, tile_n={tile_n}")
     vec4 = int(k % 4 == 0 and x.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         rc = lib.segment_mm_gather_f32(
             x.data_ptr(), w.data_ptr(), gidx.data_ptr(), t2g.data_ptr(),
             scale.data_ptr() if scale is not None else None, y.data_ptr(),
-            k, n, num_tiles, tile, vec4, _stream(x.device))
+            k, n, num_tiles, tile, col_tile, vec4, _stream(x.device))
     build.check(lib, rc, "segment_mm_gather_padded")
     segment_mm_gather_padded.launches += 1
     return y
@@ -161,8 +178,10 @@ def segment_mm_padded_plain(
     *,
     tile: int,
     transpose_w: bool = False,
+    tile_n: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K4: one batched product per tile."""
+    """Plain PyTorch version of K4: one batched product per tile (``tile_n``
+    does not change the result)."""
     rp, kd = x_p.shape
     num_tiles = rp // tile
     wt = w[t2g[:num_tiles].long()]
@@ -183,11 +202,13 @@ def segment_mm_padded(
     *,
     tile: int,
     transpose_w: bool = False,
+    tile_n: Optional[int] = None,
 ) -> torch.Tensor:
     """K4: ``Y_p = X_p @ W[t2g[tile]]`` (x ``row_scale_p``) -> [Rp, n].
 
     With ``transpose_w`` the product is with ``W[g]ᵀ`` of a ``w`` of shape
-    [R, n, kd], read by stride inside the kernel (no transposed copy)."""
+    [R, n, kd], read by stride inside the kernel (no transposed copy).
+    ``tile`` and ``tile_n`` as for K1."""
     rp, kd = x_p.shape
     r, a, b = w.shape
     wk, n = (b, a) if transpose_w else (a, b)
@@ -196,6 +217,7 @@ def segment_mm_padded(
                          f"has k={wk}")
     if rp % tile:
         raise ValueError(f"{rp} padded rows is not a multiple of tile {tile}")
+    col_tile = _col_tile(tile_n, "segment_mm_padded")
     if _device_or_raise("segment_mm_padded", x_p):
         return segment_mm_padded_plain(x_p, w, t2g, row_scale_p, tile=tile,
                                        transpose_w=transpose_w)
@@ -216,13 +238,15 @@ def segment_mm_padded(
     w_sr, w_sc = (1, kd) if transpose_w else (n, 1)
     lib = _library()
     _check_smem("segment_mm_padded",
-                lib.segment_mm_smem_bytes(kd, n, tile), f"tile={tile}, k={kd}")
+                lib.segment_mm_smem_bytes(kd, n, tile, col_tile),
+                f"tile={tile}, k={kd}, tile_n={tile_n}")
     vec4 = int(kd % 4 == 0 and x_p.data_ptr() % 16 == 0)
     with torch.cuda.device(x_p.device):
         rc = lib.segment_mm_padded_f32(
             x_p.data_ptr(), w.data_ptr(), t2g.data_ptr(),
             scale.data_ptr() if scale is not None else None, y.data_ptr(),
-            kd, n, num_tiles, tile, vec4, w_sr, w_sc, _stream(x_p.device))
+            kd, n, num_tiles, tile, col_tile, vec4, w_sr, w_sc,
+            _stream(x_p.device))
     build.check(lib, rc, "segment_mm_padded")
     segment_mm_padded.launches += 1
     return y

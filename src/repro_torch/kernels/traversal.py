@@ -1,18 +1,22 @@
-"""Traversal-template kernels K2, K3 and K7 (Hector Algorithm 2) and their
-plain versions, over the blocked destination CSR (``BlockedCSR``).
+"""Traversal-template kernels K2, K3, K6, K7 and K8 (Hector Algorithm 2)
+and their plain versions, over the blocked destination CSR
+(``BlockedCSR``).
 
 ``seg_stats_padded``                per-destination softmax max and Σexp
 ``seg_softmax_agg_gather_padded``   out[v] = Σ_e softmax(score)_e · msg[mmap[e]]
                                     with the message gather inside the kernel
 ``seg_weighted_agg_gather_padded``  out[v] = Σ_e scale_e · msg[mmap[e]],
                                     the same walk with a per-slot scale
+``seg_softmax_agg_padded``          K3 over messages already padded into the
+                                    dst-sorted slots (``msg_p[slot]``)
+``seg_weighted_agg_padded``         K7 over padded messages
 
-Each wrapper dispatches on the tensors' device: CPU runs the plain PyTorch
-version, CUDA launches the hand-written kernel in ``csrc/traversal.cu``
-(replacing ``repro/kernels/traversal.py::seg_stats_padded``,
-``::seg_softmax_agg_gather_padded`` and
-``::seg_weighted_agg_gather_padded``). Nothing falls back; ``.launches``
-on each wrapper counts its kernel launches.
+The last two are the materialized-gather variants the tuner selects with
+``fuse_gather=False`` (``kernels/ops.py``). Each wrapper dispatches on the
+tensors' device: CPU runs the plain PyTorch version, CUDA launches the
+hand-written kernel in ``csrc/traversal.cu`` (replacing the functions of
+the same names in ``repro/kernels/traversal.py``). Nothing falls back;
+``.launches`` on each wrapper counts its kernel launches.
 
 The plain versions index nodes through the tile -> block map ``t2b``; the
 kernels walk each node block's tile range from ``block_tile_ptr``. Pad
@@ -24,10 +28,8 @@ write the blocks without tiles. Inputs and outputs are fp32 (the plain
 versions keep their inputs' dtype); kernels and plain versions alike
 accumulate ``den`` and the outputs in fp64, so the long sums of the
 bucketing pad node stay within fp32 rounding and the two agree at any
-length.
-
-``seg_softmax_agg_padded`` and ``seg_weighted_agg_padded`` (the
-materialized-gather baselines) are not ported yet.
+length. The padded variants read slot ``i``'s message at row ``i`` of
+``msg_p``; a pad slot's row is never added.
 """
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ _SIGNATURES = {
     "seg_stats_f32": [_P] * 5 + [_I] * 3 + [_P],
     "seg_softmax_agg_gather_f32": [_P] * 8 + [_I] * 4 + [_P],
     "seg_weighted_agg_gather_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "seg_softmax_agg_padded_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "seg_weighted_agg_padded_f32": [_P] * 5 + [_I] * 4 + [_P],
     "seg_agg_smem_bytes": [_I] * 3,
 }
 
@@ -163,35 +167,15 @@ def seg_softmax_agg_gather_padded(scores_p, msg, mmap, local_dst_p, t2b,
         return seg_softmax_agg_gather_padded_plain(
             scores_p, msg, mmap, local_dst_p, t2b, block_tile_ptr, mx, den,
             node_block=node_block, num_node_blocks=num_node_blocks)
-    if scores_p.device.type != "cuda":
-        raise ValueError(f"seg_softmax_agg_gather_padded: no kernel for "
-                         f"device {scores_p.device}")
-    dev = scores_p.device
-    build.check_args("seg_softmax_agg_gather_padded", dev,
-                     scores_p=(scores_p, torch.float32),
-                     msg=(msg, torch.float32), mmap=(mmap, torch.int32),
-                     local_dst_p=(local_dst_p, torch.int32),
-                     block_tile_ptr=(block_tile_ptr, torch.int32),
-                     mx=(mx, torch.float32), den=(den, torch.float32))
-    _check_ptr(block_tile_ptr, num_node_blocks,
-               "seg_softmax_agg_gather_padded")
-    tile = int(local_dst_p.shape[-1])
-    d = int(msg.shape[-1])
-    out = torch.empty((num_node_blocks * node_block, d), dtype=torch.float32,
-                      device=dev)
-    if num_node_blocks == 0 or d == 0:
-        return out                # an empty grid is never launched
-    lib = _library()
-    _check_smem(lib, d, node_block, tile, "seg_softmax_agg_gather_padded")
-    args = [t.contiguous() for t in (scores_p, msg, mmap, local_dst_p,
-                                     block_tile_ptr, mx, den)]
-    with torch.cuda.device(dev):
-        rc = lib.seg_softmax_agg_gather_f32(
-            *(t.data_ptr() for t in args), out.data_ptr(), d,
-            num_node_blocks, node_block, tile,
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, rc, "seg_softmax_agg_gather_padded")
-    seg_softmax_agg_gather_padded.launches += 1
+    out, launched = _launch_agg(
+        "seg_softmax_agg_gather_padded", "seg_softmax_agg_gather_f32", msg,
+        dict(scores_p=(scores_p, torch.float32), msg=(msg, torch.float32),
+             mmap=(mmap, torch.int32),
+             local_dst_p=(local_dst_p, torch.int32),
+             block_tile_ptr=(block_tile_ptr, torch.int32),
+             mx=(mx, torch.float32), den=(den, torch.float32)),
+        node_block=node_block, num_node_blocks=num_node_blocks)
+    seg_softmax_agg_gather_padded.launches += launched
     return out
 
 
@@ -229,38 +213,136 @@ def seg_weighted_agg_gather_padded(scale_p, msg, mmap, local_dst_p, t2b,
         return seg_weighted_agg_gather_padded_plain(
             scale_p, msg, mmap, local_dst_p, t2b, block_tile_ptr,
             node_block=node_block, num_node_blocks=num_node_blocks)
-    if scale_p.device.type != "cuda":
-        raise ValueError(f"seg_weighted_agg_gather_padded: no kernel for "
-                         f"device {scale_p.device}")
-    dev = scale_p.device
-    build.check_args("seg_weighted_agg_gather_padded", dev,
-                     scale_p=(scale_p, torch.float32),
-                     msg=(msg, torch.float32), mmap=(mmap, torch.int32),
-                     local_dst_p=(local_dst_p, torch.int32),
-                     block_tile_ptr=(block_tile_ptr, torch.int32))
-    _check_ptr(block_tile_ptr, num_node_blocks,
-               "seg_weighted_agg_gather_padded")
-    tile = int(local_dst_p.shape[-1])
-    d = int(msg.shape[-1])
-    out = torch.empty((num_node_blocks * node_block, d), dtype=torch.float32,
-                      device=dev)
-    if num_node_blocks == 0 or d == 0:
-        return out                # an empty grid is never launched
-    lib = _library()
-    _check_smem(lib, d, node_block, tile, "seg_weighted_agg_gather_padded")
-    args = [t.contiguous() for t in (scale_p, msg, mmap, local_dst_p,
-                                     block_tile_ptr)]
-    with torch.cuda.device(dev):
-        rc = lib.seg_weighted_agg_gather_f32(
-            *(t.data_ptr() for t in args), out.data_ptr(), d,
-            num_node_blocks, node_block, tile,
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, rc, "seg_weighted_agg_gather_padded")
-    seg_weighted_agg_gather_padded.launches += 1
+    out, launched = _launch_agg(
+        "seg_weighted_agg_gather_padded", "seg_weighted_agg_gather_f32", msg,
+        dict(scale_p=(scale_p, torch.float32), msg=(msg, torch.float32),
+             mmap=(mmap, torch.int32),
+             local_dst_p=(local_dst_p, torch.int32),
+             block_tile_ptr=(block_tile_ptr, torch.int32)),
+        node_block=node_block, num_node_blocks=num_node_blocks)
+    seg_weighted_agg_gather_padded.launches += launched
     return out
 
 
 seg_weighted_agg_gather_padded.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6 / K8: the same aggregations over messages padded into the slots
+# ---------------------------------------------------------------------------
+def _slot_rows(local_dst_p: torch.Tensor) -> torch.Tensor:
+    """The slot -> message row map of pre-padded messages: the slot."""
+    return torch.arange(local_dst_p.numel(), dtype=torch.int32,
+                        device=local_dst_p.device)
+
+
+def _check_padded(msg_p, local_dst_p, kernel: str) -> None:
+    if msg_p.shape[0] != local_dst_p.numel():
+        raise ValueError(f"{kernel}: msg_p has {msg_p.shape[0]} rows for "
+                         f"{local_dst_p.numel()} slots")
+
+
+def seg_softmax_agg_padded_plain(scores_p, msg_p, local_dst_p, t2b,
+                                 block_tile_ptr, mx, den, *,
+                                 node_block: int, num_node_blocks: int):
+    """Plain version of K6: K3's with slot ``i`` reading ``msg_p[i]``."""
+    _check_padded(msg_p, local_dst_p, "seg_softmax_agg_padded")
+    return seg_softmax_agg_gather_padded_plain(
+        scores_p, msg_p, _slot_rows(local_dst_p), local_dst_p, t2b,
+        block_tile_ptr, mx, den, node_block=node_block,
+        num_node_blocks=num_node_blocks)
+
+
+def seg_softmax_agg_padded(scores_p, msg_p, local_dst_p, t2b,
+                           block_tile_ptr, mx, den, *, node_block: int,
+                           num_node_blocks: int):
+    """K6: softmax-weighted aggregation over pre-padded messages.
+
+    msg_p: [T * tile, d], the messages in the dst-sorted slots (pad slots'
+    rows are not added); mx, den: K2's outputs."""
+    _check_padded(msg_p, local_dst_p, "seg_softmax_agg_padded")
+    if scores_p.device.type == "cpu":
+        return seg_softmax_agg_padded_plain(
+            scores_p, msg_p, local_dst_p, t2b, block_tile_ptr, mx, den,
+            node_block=node_block, num_node_blocks=num_node_blocks)
+    out, launched = _launch_agg(
+        "seg_softmax_agg_padded", "seg_softmax_agg_padded_f32", msg_p,
+        dict(scores_p=(scores_p, torch.float32), msg_p=(msg_p, torch.float32),
+             local_dst_p=(local_dst_p, torch.int32),
+             block_tile_ptr=(block_tile_ptr, torch.int32),
+             mx=(mx, torch.float32), den=(den, torch.float32)),
+        node_block=node_block, num_node_blocks=num_node_blocks)
+    seg_softmax_agg_padded.launches += launched
+    return out
+
+
+seg_softmax_agg_padded.launches = 0
+
+
+def seg_weighted_agg_padded_plain(scale_p, msg_p, local_dst_p, t2b,
+                                  block_tile_ptr=None, *, node_block: int,
+                                  num_node_blocks: int):
+    """Plain version of K8: K7's with slot ``i`` reading ``msg_p[i]``."""
+    _check_padded(msg_p, local_dst_p, "seg_weighted_agg_padded")
+    return seg_weighted_agg_gather_padded_plain(
+        scale_p, msg_p, _slot_rows(local_dst_p), local_dst_p, t2b,
+        block_tile_ptr, node_block=node_block,
+        num_node_blocks=num_node_blocks)
+
+
+def seg_weighted_agg_padded(scale_p, msg_p, local_dst_p, t2b,
+                            block_tile_ptr, *, node_block: int,
+                            num_node_blocks: int):
+    """K8: scale-weighted aggregation over pre-padded messages.
+
+    scale_p: [T, tile] per-slot scale (pad slots 0); msg_p: [T * tile, d]."""
+    _check_padded(msg_p, local_dst_p, "seg_weighted_agg_padded")
+    if scale_p.device.type == "cpu":
+        return seg_weighted_agg_padded_plain(
+            scale_p, msg_p, local_dst_p, t2b, block_tile_ptr,
+            node_block=node_block, num_node_blocks=num_node_blocks)
+    out, launched = _launch_agg(
+        "seg_weighted_agg_padded", "seg_weighted_agg_padded_f32", msg_p,
+        dict(scale_p=(scale_p, torch.float32), msg_p=(msg_p, torch.float32),
+             local_dst_p=(local_dst_p, torch.int32),
+             block_tile_ptr=(block_tile_ptr, torch.int32)),
+        node_block=node_block, num_node_blocks=num_node_blocks)
+    seg_weighted_agg_padded.launches += launched
+    return out
+
+
+seg_weighted_agg_padded.launches = 0
+
+
+def _launch_agg(kernel: str, entry: str, msg, named, *, node_block: int,
+                num_node_blocks: int):
+    """Launch K3, K6, K7 or K8 (the C entry point ``entry``) on the
+    ``named`` ``(tensor, dtype)`` inputs, in the kernel's argument order;
+    returns ``(out, 1)``, or ``(out, 0)`` for an empty grid, which is
+    never launched. A device without a kernel raises."""
+    first = next(iter(named.values()))[0]
+    dev = first.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {dev}")
+    build.check_args(kernel, dev, **named)
+    block_tile_ptr = named["block_tile_ptr"][0]
+    _check_ptr(block_tile_ptr, num_node_blocks, kernel)
+    tile = int(named["local_dst_p"][0].shape[-1])
+    d = int(msg.shape[-1])
+    out = torch.empty((num_node_blocks * node_block, d), dtype=torch.float32,
+                      device=dev)
+    if num_node_blocks == 0 or d == 0:
+        return out, 0
+    lib = _library()
+    _check_smem(lib, d, node_block, tile, kernel)
+    args = [t.contiguous() for t, _ in named.values()]
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(
+            *(t.data_ptr() for t in args), out.data_ptr(), d,
+            num_node_blocks, node_block, tile,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, rc, kernel)
+    return out, 1
 
 
 def _check_smem(lib, d: int, node_block: int, tile: int,

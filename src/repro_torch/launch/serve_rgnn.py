@@ -17,9 +17,14 @@ end-to-end seed throughput — the same lines and stats keys as
     PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --device cpu \\
         --dataset aifb --scale 0.05 --dim 16 --hidden 16 --classes 4
     PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --sampler device
+    PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --tune full
 
-The online runtime, autotuning, feature-store tiers, telemetry and
-data-parallel serving are later slices.
+``--tune full|cached`` runs the autotuner on the serving device: the
+materialization decisions at engine build (no full-graph layout or op
+measurements: serving never runs the full graph), then the block-scale op
+variants on one warm mini-batch off the serving stream; ``--tune-cache``
+names its persistent cache. The online runtime, feature-store tiers,
+telemetry and data-parallel serving are later slices.
 """
 from __future__ import annotations
 
@@ -56,6 +61,8 @@ def serve(
     seed: int = 0,
     device=None,
     sampler: str = "host",
+    tune: str = "off",
+    tune_cache=None,
     params=None,
     on_batch=None,
     log=print,
@@ -66,7 +73,8 @@ def serve(
     ``params`` overrides the seeded initialization with the reference's
     per-layer params as numpy arrays (checked against the plans).
     ``on_batch(mb, logits)`` is called after every batch. Every batch
-    draws fresh seeds.
+    draws fresh seeds. ``tune`` / ``tune_cache`` as ``--tune`` /
+    ``--tune-cache``; the tuner's counts land in the stats as ``tune_*``.
     """
     warmup_batches = min(WARMUP_BATCHES, num_batches)
     dev = resolve_device(device)
@@ -80,7 +88,8 @@ def serve(
     engine = hector_torch.compile(
         model, graph, layers=layers, dim=dim, hidden=hidden,
         classes=classes, sample=fanouts, tile=tile, node_block=node_block,
-        seed=seed, device=dev, sampler=sampler)
+        seed=seed, device=dev, sampler=sampler, tune=tune,
+        tune_cache=tune_cache, tune_full_graph=False, log=log)
     fanouts = engine.cfg.fanouts
     log(f"[serve_rgnn] {model} on {dataset} (scale {scale}): "
         f"{graph.num_nodes} nodes, {graph.num_edges} edges, "
@@ -89,6 +98,21 @@ def serve(
     params = engine.init(seed) if params is None else \
         engine.params_from_reference(params)
     feats = torch.from_numpy(feats_np).to(dev)   # the device feature table
+
+    if tune != "off":
+        # block-scale tuning on one representative (bucketed) mini-batch,
+        # off the serving stream so traffic is untouched; with a warm
+        # persistent cache this replays decisions with zero measurements
+        warm_seeds = np.random.default_rng(seed + 1).integers(
+            0, graph.num_nodes, batch_size).astype(np.int32)
+        tl = engine.make_loader(lambda step: warm_seeds, num_batches=1)
+        try:
+            engine.tune_minibatch(params, next(tl), feats)
+        finally:
+            tl.close()
+        ts = engine.tuner_stats
+        log(f"[serve_rgnn] tune={tune}: {ts['measurements']} measurements, "
+            f"{ts['cache_hits']} cache replays, {ts['tuned_ops']} tuned")
 
     stream = SeedStream(graph.num_nodes, batch_size, seed=seed)
     loader = engine.make_loader(stream, num_batches=num_batches)
@@ -161,6 +185,10 @@ def serve(
         "device_builds": loader.device_builds,
         "device": str(dev),
     }
+    for k, v in engine.tuner_stats.items():
+        stats[f"tune_{k}"] = v
+    if engine.decisions is not None:
+        stats["tune_decisions"] = engine.decisions.fingerprint()
     if dev_sampler is not None:
         stats["sampler_traces"] = dev_sampler.trace_count
         stats["sampler_retraces_after_warmup"] = (
@@ -222,6 +250,14 @@ def main(argv=None):
     ap.add_argument("--sampler", default="host", choices=["host", "device"],
                     help="'host': NumPy sampling and layouts on a loader "
                          "thread; 'device': the DeviceSampler on --device")
+    ap.add_argument("--tune", default="off", choices=["off", "cached", "full"],
+                    help="autotune on --device: 'full' measures what the "
+                         "cache lacks, 'cached' replays it, 'off' keeps the "
+                         "defaults")
+    ap.add_argument("--tune-cache", default=None,
+                    help="tuning cache path (default "
+                         "$REPRO_TORCH_TUNE_CACHE or "
+                         "~/.cache/repro_torch-tune.json)")
     args = ap.parse_args(argv)
     return serve(
         model=args.model, dataset=args.dataset, scale=args.scale,
@@ -230,7 +266,8 @@ def main(argv=None):
         fanouts=parse_fanout(args.fanout, args.layers),
         batch_size=args.batch_size, num_batches=args.num_batches,
         tile=args.tile, node_block=args.node_block, seed=args.seed,
-        device=args.device, sampler=args.sampler,
+        device=args.device, sampler=args.sampler, tune=args.tune,
+        tune_cache=args.tune_cache,
     )
 
 

@@ -19,8 +19,11 @@ The task is learnable: labels come from a frozen, randomly initialized
 teacher of the same architecture run over the full graph. Runs on the
 CUDA card unless given ``--device cpu``; ``--sampler device`` samples the
 mini-batches and builds their layouts on the device (``DeviceSampler``).
-Feature stores, Zipf-skewed streams, autotuning, telemetry and data
-parallelism are later slices.
+``--tune full|cached`` runs the autotuner (``repro_torch.tune``) on that
+device: the full-graph layout tile, materialization and op variants at
+engine build, then the block-scale op variants on one warm training batch;
+``--tune-cache`` names its persistent cache. Feature stores, Zipf-skewed
+streams, telemetry and data parallelism are later slices.
 """
 from __future__ import annotations
 
@@ -44,9 +47,10 @@ SYNTHETIC_REDUCED_SCALE = 0.2
 
 
 def build_task(dataset: str, scale: float, cfg: EngineConfig, seed: int,
-               val_frac: float = 0.2):
+               val_frac: float = 0.2, log=None):
     """Graph, compiled engine, features and a learnable node-classification
-    task: labels from a frozen teacher forward over the full graph."""
+    task: labels from a frozen teacher forward over the full graph
+    (``log`` receives the tuner's lines, when ``cfg.tune`` is on)."""
     if dataset == "synthetic":
         graph = synthetic_heterograph(
             num_nodes=max(64, int(SYNTHETIC["num_nodes"] * scale)),
@@ -58,7 +62,7 @@ def build_task(dataset: str, scale: float, cfg: EngineConfig, seed: int,
         graph = table3_graph(dataset, scale=scale, seed=seed)
     rng = np.random.default_rng(seed)
     feats = rng.normal(size=(graph.num_nodes, cfg.dim)).astype(np.float32)
-    engine = hector_torch.compile(None, graph, config=cfg)
+    engine = hector_torch.compile(None, graph, config=cfg, log=log)
     teacher = engine.init(seed + 1)
     logits = engine.apply(teacher, torch.from_numpy(feats).to(engine.device))
     labels = torch.argmax(logits, dim=-1).cpu().numpy()
@@ -96,18 +100,22 @@ def train(
     parity_tol: float = 0.05,
     device=None,
     sampler: str = "host",
+    tune: str = "off",
+    tune_cache=None,
     log=print,
 ):
     """Run the sampled training loop on ``device`` (``None``: the CUDA
     card); returns a stats dict (``SampledTrainer.train``'s, plus the
-    final full-graph evaluation and, with ``parity``, the comparison)."""
+    final full-graph evaluation, the tuner's counts as ``tune_*`` and,
+    with ``parity``, the comparison)."""
     dev = resolve_device(device)
     cfg = EngineConfig(model=model, layers=layers, dim=dim, hidden=hidden,
                        classes=classes, fanouts=fanouts, tile=tile,
                        node_block=node_block, bucket=bucket, seed=seed,
-                       device=str(dev), sampler=sampler)
+                       device=str(dev), sampler=sampler, tune=tune,
+                       tune_cache=tune_cache)
     engine, feats, labels, train_ids, val_ids = build_task(
-        dataset, scale, cfg, seed, val_frac)
+        dataset, scale, cfg, seed, val_frac, log=log)
     log(f"[train_rgnn] {model} on {dataset} (scale {scale}): "
         f"{engine.graph.num_nodes} nodes, {engine.graph.num_edges} edges, "
         f"{engine.graph.num_etypes} etypes; fanouts={cfg.fanouts}, "
@@ -121,6 +129,23 @@ def train(
     trainer = SampledTrainer(engine, feats, labels, train_ids, val_ids,
                              opt=opt, ckpt_dir=ckpt_dir, log=log)
     state = trainer.init_state(engine.init(seed))
+
+    if tune != "off":
+        # block-scale tuning on one representative training batch (bucketed
+        # shapes make the decisions valid for the whole epoch stream)
+        warm_seeds = np.sort(np.random.default_rng(seed + 1).choice(
+            train_ids, size=min(batch_size, len(train_ids)),
+            replace=False)).astype(np.int32)
+        tl = engine.make_loader(lambda step: warm_seeds, num_batches=1)
+        try:
+            engine.tune_minibatch(state.params, next(tl),
+                                  torch.from_numpy(feats).to(dev))
+        finally:
+            tl.close()
+        ts = engine.tuner_stats
+        log(f"[train_rgnn] tune={tune}: {ts['measurements']} measurements, "
+            f"{ts['cache_hits']} cache replays, {ts['tuned_ops']} tuned "
+            f"(tile {engine.tile}, node_block {engine.node_block})")
 
     start_step = 0
     if resume:
@@ -144,6 +169,10 @@ def train(
         stats["full_val_acc"] = final_val["accuracy"]
     stats["device"] = str(dev)
     stats["sampler"] = sampler
+    for k, v in engine.tuner_stats.items():
+        stats[f"tune_{k}"] = v
+    if engine.decisions is not None:
+        stats["tune_decisions"] = engine.decisions.fingerprint()
     dev_sampler = engine.device_sampler
     if dev_sampler is not None:
         for k, v in dev_sampler.stats().items():
@@ -233,6 +262,14 @@ def main(argv=None):
     ap.add_argument("--sampler", default="host", choices=["host", "device"],
                     help="'host': NumPy sampling and layouts on a loader "
                          "thread; 'device': the DeviceSampler on --device")
+    ap.add_argument("--tune", default="off", choices=["off", "cached", "full"],
+                    help="autotune on --device: 'full' measures what the "
+                         "cache lacks, 'cached' replays it, 'off' keeps the "
+                         "defaults")
+    ap.add_argument("--tune-cache", default=None,
+                    help="tuning cache path (default "
+                         "$REPRO_TORCH_TUNE_CACHE or "
+                         "~/.cache/repro_torch-tune.json)")
     args = ap.parse_args(argv)
 
     if args.scale is not None:
@@ -254,7 +291,7 @@ def main(argv=None):
         ckpt_every=args.ckpt_every, resume=args.resume,
         eval_every_epochs=args.eval_every_epochs, parity=args.parity,
         parity_tol=args.parity_tol, device=args.device,
-        sampler=args.sampler,
+        sampler=args.sampler, tune=args.tune, tune_cache=args.tune_cache,
     )
 
 

@@ -7,8 +7,12 @@ the lowered per-layer plans, the block executor, the full-graph tensors
 and kernel layouts (built on first use), the fanout sampler (and, with
 ``sampler="device"``, the ``DeviceSampler`` over the graph's CSC on the
 device), and one sampled train-step executor per optimizer. Seed streams
-and loaders are made per driver through ``make_loader``. Tuning, feature
-stores and data parallelism are later slices.
+and loaders are made per driver through ``make_loader``. With
+``tune != "off"`` the engine builds a ``tune.Tuner`` on its device and
+folds its measured (or cache-replayed) decisions into the stack: per-op
+variants, per-layer COMPACT sets and the full-graph layout tile;
+``tune_minibatch`` adds block-scale op variants. Feature stores and data
+parallelism are later slices.
 """
 from __future__ import annotations
 
@@ -59,6 +63,14 @@ class EngineConfig:
 
     ``model`` is a registry name (``MODEL_PROGRAMS``), a DSL-authored
     ``frontend.ModelSpec``, or any ``prog_fn(in_dim, out_dim) -> Program``.
+
+    ``tune`` selects the autotuning mode (``repro_torch.tune``): ``off``
+    keeps the defaults, ``cached`` replays persisted decisions with zero
+    measurements, ``full`` measures whatever the persistent cache
+    (``tune_cache``, default ``~/.cache/repro_torch-tune.json``) is
+    missing. The tuner may override ``tile`` / ``node_block`` of the
+    full-graph layouts with its measured layout decision; sampled blocks
+    keep the configured ones.
     """
 
     model: Union[str, Callable] = "rgat"
@@ -74,6 +86,12 @@ class EngineConfig:
     seed: int = 0
     device: Optional[str] = None         # None: the CUDA card
     sampler: str = "host"                # host | device
+    tune: str = "off"                    # off | cached | full
+    tune_cache: Optional[str] = None     # persistent decision cache path
+    # False for block-path-only callers (serving): keeps the materialization
+    # decisions (they shape the shared lowered plans) but skips the
+    # full-graph layout/op measurements serving traffic never queries
+    tune_full_graph: bool = True
 
     def __post_init__(self):
         if isinstance(self.model, str):
@@ -87,6 +105,8 @@ class EngineConfig:
                 f"{type(self.model).__name__}")
         if self.sampler not in ("host", "device"):
             raise ValueError(f"sampler={self.sampler!r}; pick host/device")
+        if self.tune not in ("off", "cached", "full"):
+            raise ValueError(f"tune={self.tune!r}; pick off/cached/full")
         self.fanouts = list(self.fanouts) if self.fanouts is not None \
             else [5] * self.layers
         if len(self.fanouts) != self.layers:
@@ -110,7 +130,7 @@ class RGNNEngine:
     and sampled mini-batches (``forward_minibatch``,
     ``train_executor(opt)``), sharing plans and parameters."""
 
-    def __init__(self, graph: HeteroGraph, cfg: EngineConfig):
+    def __init__(self, graph: HeteroGraph, cfg: EngineConfig, log=None):
         self.graph = graph
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
@@ -118,10 +138,33 @@ class RGNNEngine:
             else cfg.model
         dims = cfg.dims
         programs = [prog_fn(dims[i], dims[i + 1]) for i in range(cfg.layers)]
-        self.stack = HectorStack(programs, graph, tile=cfg.tile,
-                                 node_block=cfg.node_block,
+
+        # autotuning: measured (or cache-replayed) per-op variants, per-var
+        # materialization and the full-graph layout tile, all folded into
+        # the stack below; the effective tile can differ from cfg.tile
+        self.tuner = None
+        self.decisions = None
+        compact_vars = None
+        self.tile, self.node_block = cfg.tile, cfg.node_block
+        if cfg.tune != "off":
+            from repro_torch.tune.tuner import Tuner  # lazy: imports codegen
+            self.tuner = Tuner(mode=cfg.tune, cache_path=cfg.tune_cache,
+                               log=log, device=self.device)
+            report = self.tuner.tune_stack(
+                programs, graph, tile=cfg.tile, node_block=cfg.node_block,
+                feat_dims=dims[:-1], seed=cfg.seed,
+                tune_layout=cfg.tune_full_graph,
+                tune_ops=cfg.tune_full_graph)
+            self.decisions = report.decisions
+            compact_vars = report.compact_vars
+            self.tile, self.node_block = report.tile, report.node_block
+
+        self.stack = HectorStack(programs, graph, tile=self.tile,
+                                 node_block=self.node_block,
                                  activation=cfg.activation,
-                                 device=self.device)
+                                 device=self.device,
+                                 compact_vars=compact_vars,
+                                 decisions=self.decisions)
         self.sampler = FanoutSampler(graph, cfg.fanouts, seed=cfg.seed)
         # the device pipeline: the CSC goes to the device once, here; it
         # shares the host sampler's seed, so both draw the same edges
@@ -163,7 +206,8 @@ class RGNNEngine:
         ex = self._train_execs.get(id(opt))
         if ex is None:
             ex = executor.BlockTrainExecutor(
-                self.plans, opt, activation=self.cfg.activation)
+                self.plans, opt, activation=self.cfg.activation,
+                decisions=self.decisions)
             self._train_execs[id(opt)] = ex
             while len(self._train_execs) > 4:   # insertion-ordered
                 self._train_execs.pop(next(iter(self._train_execs)))
@@ -178,7 +222,9 @@ class RGNNEngine:
     ) -> MiniBatchLoader:
         """A prefetching loader over this engine's sampler/layout config,
         delivering (bucketed, unless ``cfg.bucket`` is off) mini-batches on
-        the engine's device from ``start_step`` on. With
+        the engine's device from ``start_step`` on. Blocks keep the
+        *configured* tile, not the tuned full-graph one: their op variants
+        are tuned against these layouts by ``tune_minibatch``. With
         ``cfg.sampler == "device"`` it gets the ``DeviceSampler`` and
         prefetches without a thread (sampling and layouts as enqueued
         device work)."""
@@ -199,3 +245,17 @@ class RGNNEngine:
         """Full-graph forward over all nodes, without gradients."""
         with torch.no_grad():
             return self.stack.apply(params, {"feature": feats})
+
+    def tune_minibatch(self, params, mb, global_feats) -> None:
+        """Extend the decision table with block-scale op variants measured
+        (or cache-replayed) on one representative ``MiniBatch``; the
+        executors share the table, so the next call runs them. Without a
+        tuner (``tune="off"``) nothing happens."""
+        if self.tuner is None:
+            return
+        self.tuner.tune_block_sequence(self.plans, params, mb, global_feats,
+                                       activation=self.cfg.activation)
+
+    @property
+    def tuner_stats(self) -> dict:
+        return dict(self.tuner.stats) if self.tuner is not None else {}

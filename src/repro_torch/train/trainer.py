@@ -49,7 +49,8 @@ class FullGraphTrainer:
         self.train_ids = np.asarray(train_ids, dtype=np.int32)
         self.log = log or _quiet
         self.step_exec = executor.StackTrainExecutor(
-            engine.plans, self.opt, activation=engine.cfg.activation)
+            engine.plans, self.opt, activation=engine.cfg.activation,
+            decisions=engine.decisions)
         self._idx = self._device(self.train_ids)
         self._labels_train = self._device(self.labels[self.train_ids])
 

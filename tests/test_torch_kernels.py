@@ -1,9 +1,11 @@
-"""Kernels K1-K5 and K7 of the port (their plain versions, the CPU path)
-against the reference's Pallas kernels run in interpret mode, on the same
-seeded numpy inputs, with the edge cases the card check also drives: gather
+"""Kernels K1-K8 of the port (their plain versions, the CPU path) against
+the reference's Pallas kernels run in interpret mode, on the same seeded
+numpy inputs, with the edge cases the card check also drives: gather
 index -1, groups and node blocks that own no tile, pow2 pad tiles, the
-scale epilogue on and off (K7: ``scale=None``), k = 1 and n = 1, d = 1, a
-transposed W, and empty layouts.
+scale epilogue on and off (K7, K8: ``scale=None``), k = 1 and n = 1, d = 1,
+a transposed W, and empty layouts. K6 and K8 (the materialized-gather
+variants, ``fuse_gather=False``) also through the ops, against the
+reference's ops with ``fuse_gather=False``.
 The autograd Functions of the ops against ``jax.grad`` of the reference's
 ``custom_vjp`` ops (Pallas interpret), and ``gradcheck`` in fp64.
 
@@ -205,6 +207,219 @@ def test_k7_matches_pallas_interpret(grow, d, compact, with_scale):
     np.testing.assert_allclose(out, want, **TOL)
 
 
+# ---------------------------------------------------------------------------
+# K6 / K8: the aggregations over messages padded into the slots
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("grow", [False, True])
+@pytest.mark.parametrize("d", [64, 16, 1])
+def test_k6_matches_pallas_interpret(grow, d):
+    """K6 against the reference's ``seg_softmax_agg_padded`` (interpret),
+    and equal to K3 reading the same rows through a slot map."""
+    rng = np.random.default_rng(200 + d + grow)
+    nb = 8
+    dst, perm, bc = _blocked(rng, nb=nb, grow=grow)
+    e = dst.shape[0]
+    scores = rng.normal(size=e).astype(np.float32) * 3
+    msg = rng.normal(size=(e, d)).astype(np.float32)
+    bcd = ops.blocked_csr_dev(bc, perm)
+    scores_p = ops._padded_scores(_t(scores), bcd)
+    msg_p = ops.pad_rows(_t(msg), bcd.edge_map)
+    assert msg_p.shape == (bcd.local_dst.numel(), d)
+    kw = dict(node_block=nb, num_node_blocks=bc.num_node_blocks)
+    mx, den = TK.seg_stats_padded(scores_p, bcd.local_dst, bcd.t2b,
+                                  bcd.block_tile_ptr, **kw)
+    rout = RTK.seg_softmax_agg_padded(
+        jnp.asarray(scores_p.numpy()), jnp.asarray(msg_p.numpy()),
+        jnp.asarray(bcd.local_dst.numpy()), jnp.asarray(bcd.t2b.numpy()),
+        jnp.asarray(mx.numpy()), jnp.asarray(den.numpy()), interpret=True,
+        **kw)
+    out = TK.seg_softmax_agg_padded(scores_p, msg_p, bcd.local_dst, bcd.t2b,
+                                    bcd.block_tile_ptr, mx, den, **kw)
+    owned = _owned(bc)
+    assert out.shape == (bc.num_node_blocks * nb, d) and not owned.all()
+    np.testing.assert_allclose(out.numpy()[owned], np.asarray(rout)[owned],
+                               **TOL)
+    assert np.all(out.numpy()[~owned] == 0.0)  # blocks without a tile
+    k3 = TK.seg_softmax_agg_gather_padded(
+        scores_p, _t(msg), bcd.edge_map, bcd.local_dst, bcd.t2b,
+        bcd.block_tile_ptr, mx, den, **kw)
+    np.testing.assert_array_equal(out.numpy(), k3.numpy())
+
+
+@pytest.mark.parametrize("grow", [False, True])
+@pytest.mark.parametrize("d", [64, 16, 1])
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_k8_matches_pallas_interpret(grow, d, with_scale):
+    """K8 against the reference's ``seg_weighted_agg_padded`` (interpret),
+    and equal to K7 reading the same rows through a slot map."""
+    rng = np.random.default_rng(300 + d + 2 * grow + with_scale)
+    nb = 8
+    dst, perm, bc = _blocked(rng, nb=nb, grow=grow)
+    e = dst.shape[0]
+    msg = rng.normal(size=(e, d)).astype(np.float32)
+    bcd = ops.blocked_csr_dev(bc, perm)
+    scale = rng.normal(size=e).astype(np.float32) if with_scale else None
+    scale_p = ops._padded_scale(None if scale is None else _t(scale), bcd,
+                                _t(msg))
+    msg_p = ops.pad_rows(_t(msg), bcd.edge_map)
+    kw = dict(node_block=nb, num_node_blocks=bc.num_node_blocks)
+    rout = RTK.seg_weighted_agg_padded(
+        jnp.asarray(scale_p.numpy()), jnp.asarray(msg_p.numpy()),
+        jnp.asarray(bcd.local_dst.numpy()), jnp.asarray(bcd.t2b.numpy()),
+        interpret=True, **kw)
+    out = TK.seg_weighted_agg_padded(scale_p, msg_p, bcd.local_dst, bcd.t2b,
+                                     bcd.block_tile_ptr, **kw)
+    owned = _owned(bc)
+    np.testing.assert_allclose(out.numpy()[owned], np.asarray(rout)[owned],
+                               **TOL)
+    assert np.all(out.numpy()[~owned] == 0.0)
+    k7 = TK.seg_weighted_agg_gather_padded(
+        scale_p, _t(msg), bcd.edge_map, bcd.local_dst, bcd.t2b,
+        bcd.block_tile_ptr, **kw)
+    np.testing.assert_array_equal(out.numpy(), k7.numpy())
+
+
+def test_k6_k8_pad_slots_add_nothing():
+    """A pad slot (``local_dst == node_block``) adds nothing even where its
+    padded message row is not zero, and a row count that is not the slot
+    count is refused."""
+    rng = np.random.default_rng(9)
+    nb = 8
+    dst, perm, bc = _blocked(rng, nb=nb, grow=True)
+    bcd = ops.blocked_csr_dev(bc, perm)
+    e, slots = dst.shape[0], bcd.local_dst.numel()
+    msg_p = ops.pad_rows(_t(rng.normal(size=(e, 4)).astype(np.float32)),
+                         bcd.edge_map)
+    pad = (bcd.local_dst.reshape(-1) >= nb)
+    assert pad.any()
+    noisy = msg_p.clone()
+    noisy[pad] = 1e6
+    kw = dict(node_block=nb, num_node_blocks=bc.num_node_blocks)
+    scale_p = ops._padded_scale(None, bcd, msg_p) + 1.0   # pads too
+    args = (bcd.local_dst, bcd.t2b, bcd.block_tile_ptr)
+    torch.testing.assert_close(
+        TK.seg_weighted_agg_padded(scale_p, noisy, *args, **kw),
+        TK.seg_weighted_agg_padded(scale_p, msg_p, *args, **kw))
+    with pytest.raises(ValueError, match=f"rows for {slots} slots"):
+        TK.seg_weighted_agg_padded(scale_p, msg_p[:-1], *args, **kw)
+    with pytest.raises(ValueError, match=f"rows for {slots} slots"):
+        TK.seg_softmax_agg_padded(scale_p, msg_p[:-1], *args, None, None,
+                                  **kw)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_op_softmax_agg_unfused_matches_reference(compact):
+    """``edge_softmax_agg(fuse_gather=False)`` (K2 + K6) equals the fused op
+    and the reference op with ``fuse_gather=False`` (interpret), forward
+    and gradients (the reference's ``test_kernels.py`` fused-vs-
+    materialized cases)."""
+    rng = np.random.default_rng(81 + compact)
+    n_nodes, d = 13, 4
+    dst, perm, ptr = _all_nodes_dst(rng, n_nodes, 47)
+    e = dst.shape[0]
+    e2u = rng.integers(0, 20, e).astype(np.int32) if compact else None
+    scores = rng.normal(size=e).astype(np.float32)
+    msg = rng.normal(size=(20 if compact else e, d)).astype(np.float32)
+    cot = rng.normal(size=(n_nodes, d)).astype(np.float32)
+    bc = ops.blocked_csr_dev(L.block_csr(ptr, 8, 8), perm, e2u)
+    rbc = rops.blocked_csr_dev(RL.block_csr(ptr, 8, 8), perm, e2u)
+    rows = None if e2u is None else _t(e2u)
+
+    def ours(s, m, fuse=False):
+        out = ops.edge_softmax_agg(s, m, _t(dst), n_nodes, bc=bc,
+                                   msg_rows=rows, fuse_gather=fuse)
+        return torch.sum(out * _t(cot))
+
+    def ref(s, m):
+        out = rops.edge_softmax_agg(
+            s, m, jnp.asarray(dst), n_nodes, bc=rbc,
+            backend="pallas_interpret", fuse_gather=False,
+            msg_rows=None if e2u is None else jnp.asarray(e2u))
+        return jnp.sum(out * cot)
+
+    fwd = ops.edge_softmax_agg(_t(scores), _t(msg), _t(dst), n_nodes, bc=bc,
+                               msg_rows=rows, fuse_gather=False)
+    fused = ops.edge_softmax_agg(_t(scores), _t(msg), _t(dst), n_nodes,
+                                 bc=bc, msg_rows=rows)
+    rfwd = rops.edge_softmax_agg(
+        jnp.asarray(scores), jnp.asarray(msg), jnp.asarray(dst), n_nodes,
+        bc=rbc, backend="pallas_interpret", fuse_gather=False,
+        msg_rows=None if e2u is None else jnp.asarray(e2u))
+    np.testing.assert_allclose(fwd.numpy(), fused.numpy(), **TOL)
+    np.testing.assert_allclose(fwd.numpy(), np.asarray(rfwd), **TOL)
+    got = _torch_grads(ours, scores, msg)
+    want = jax.grad(ref, argnums=(0, 1))(jnp.asarray(scores),
+                                         jnp.asarray(msg))
+    fused_g = _torch_grads(lambda s, m: ours(s, m, True), scores, msg)
+    for a, b, c in zip(got, want, fused_g):
+        np.testing.assert_allclose(a, np.asarray(b), **GRAD_TOL)
+        np.testing.assert_allclose(a, c, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_op_weighted_agg_unfused_matches_reference(compact, with_scale):
+    """``weighted_agg(fuse_gather=False)`` (K8) against the reference op
+    with ``fuse_gather=False`` (interpret), forward and gradients."""
+    rng = np.random.default_rng(91 + 2 * compact + with_scale)
+    n_nodes, d = 9, 5
+    dst, perm, ptr = _all_nodes_dst(rng, n_nodes, 41)
+    e = dst.shape[0]
+    e2u = rng.integers(0, 17, e).astype(np.int32) if compact else None
+    scale = rng.normal(size=e).astype(np.float32)
+    msg = rng.normal(size=(17 if compact else e, d)).astype(np.float32)
+    bc = ops.blocked_csr_dev(L.block_csr(ptr, 8, 8), perm, e2u)
+    rbc = rops.blocked_csr_dev(RL.block_csr(ptr, 8, 8), perm, e2u)
+    rows = None if e2u is None else _t(e2u)
+    rrows = None if e2u is None else jnp.asarray(e2u)
+
+    def ours(*a):
+        s, m = a if with_scale else (None, a[0])
+        return torch.sum(torch.cos(ops.weighted_agg(
+            s, m, _t(dst), n_nodes, bc=bc, msg_rows=rows,
+            fuse_gather=False)))
+
+    def ref(*a):
+        s, m = a if with_scale else (None, a[0])
+        return jnp.sum(jnp.cos(rops.weighted_agg(
+            s, m, jnp.asarray(dst), n_nodes, bc=rbc,
+            backend="pallas_interpret", msg_rows=rrows, fuse_gather=False)))
+
+    inputs = (scale, msg) if with_scale else (msg,)
+    np.testing.assert_allclose(
+        ops.weighted_agg(_t(scale) if with_scale else None, _t(msg), _t(dst),
+                         n_nodes, bc=bc, msg_rows=rows,
+                         fuse_gather=False).numpy(),
+        np.asarray(rops.weighted_agg(
+            jnp.asarray(scale) if with_scale else None, jnp.asarray(msg),
+            jnp.asarray(dst), n_nodes, bc=rbc, backend="pallas_interpret",
+            msg_rows=rrows, fuse_gather=False)), **TOL)
+    got = _torch_grads(ours, *inputs)
+    want = jax.grad(ref, argnums=tuple(range(len(inputs))))(
+        *(jnp.asarray(a) for a in inputs))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(b), **GRAD_TOL)
+
+
+def test_unfused_ops_gradcheck_fp64():
+    rng = np.random.default_rng(52)
+    n_nodes = 20
+    dst = np.concatenate([np.arange(n_nodes - 4),
+                          rng.integers(0, n_nodes, 30)]).astype(np.int32)
+    perm = np.argsort(dst, kind="stable").astype(np.int32)
+    dptr = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n_nodes), out=dptr[1:])
+    e2u = rng.integers(0, 11, dst.shape[0]).astype(np.int32)
+    bc = ops.blocked_csr_dev(L.block_csr(dptr, 4, 4), perm, e2u)
+    scores = torch.from_numpy(rng.normal(size=dst.shape[0])).requires_grad_()
+    msg = torch.from_numpy(rng.normal(size=(11, 3))).requires_grad_()
+    for fn in (ops.edge_softmax_agg, ops.weighted_agg):
+        assert torch.autograd.gradcheck(
+            lambda sc, mg: fn(sc, mg, _t(dst), n_nodes, bc=bc,
+                              msg_rows=_t(e2u), fuse_gather=False),
+            (scores, msg))
+
+
 def _all_nodes_dst(rng, n_nodes, n_extra):
     """Destinations where every node receives an edge, so every node block
     owns a tile (the Pallas kernels leave blocks without one unwritten)."""
@@ -325,6 +540,11 @@ def test_ops_empty_layouts_return_without_a_kernel():
     out = ops.weighted_agg(None, torch.ones(0, 3),
                            torch.zeros(0, dtype=torch.int32), 4, bc=bc)
     assert out.shape == (4, 3) and not out.any()
+    for fn in (ops.edge_softmax_agg, ops.weighted_agg):
+        out = fn(torch.zeros(0), torch.ones(0, 3),
+                 torch.zeros(0, dtype=torch.int32), 4, bc=bc,
+                 fuse_gather=False)
+        assert out.shape == (4, 3) and not out.any()
     assert bc.local_dst.shape == (0, 8)
     assert bc.block_tile_ptr.tolist() == [0, 0]
 
@@ -721,6 +941,22 @@ def test_off_cpu_tensors_never_take_the_plain_path():
             torch.ones(12, 4, device=meta), torch.ones(12, 3, device=meta),
             lay.group_tile_ptr, lay.group_chunk_ptr, num_groups=2,
             num_chunks=lay.num_chunks, tile=4)
+    for fn in (ops.weighted_agg, ops.edge_softmax_agg):
+        name = ("seg_weighted_agg_padded" if fn is ops.weighted_agg
+                else "seg_stats_padded")
+        with pytest.raises(ValueError, match=f"{name}: no kernel for "
+                                             f"device meta"):
+            fn(torch.ones(6, device=meta), torch.ones(6, 3, device=meta),
+               torch.zeros(6, dtype=torch.int32, device=meta), 4, bc=bc,
+               fuse_gather=False)
+    i32 = dict(dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="seg_softmax_agg_padded: no kernel "
+                                         "for device meta"):
+        TK.seg_softmax_agg_padded(
+            torch.ones(2, 4, device=meta), torch.ones(8, 3, device=meta),
+            torch.zeros(2, 4, **i32), torch.zeros(2, **i32),
+            torch.zeros(2, **i32), torch.ones(1, 4, device=meta),
+            torch.ones(1, 4, device=meta), node_block=4, num_node_blocks=1)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         TK.seg_stats_padded(
             torch.ones(2, 4, device=meta),
