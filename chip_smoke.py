@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Card check of the PyTorch/CUDA port: build, kernel-vs-plain, serve, train.
+"""Card check of the PyTorch/CUDA port: build, kernel-vs-plain, serve, train,
+LM serving.
 
     python3 chip_smoke.py            # one CUDA card; a few minutes
 
 Drives the port (``src/repro_torch``, never JAX nor the reference package)
 on one CUDA card, in phases, for the registry's models (RGAT, RGCN, HGT,
-rgcn_cat); any failure exits non-zero:
+rgcn_cat) and the dense LMs (gemma2-2b, qwen3-4b; the reduced variants of
+all four dense configs); any failure exits non-zero:
 
 1. card and build: the card's name and power limit, TF32 off, every kernel
    in ``src/repro_torch/csrc`` built from source (one ``nvcc`` per file,
@@ -99,12 +101,42 @@ rgcn_cat); any failure exits non-zero:
    measurements, every decision replayed, the same table; (d)
    ``serve_rgnn.serve(model="rgcn", tune="full")`` at aifb-b32, each
    batch against the CPU run within 2e-4; (e) ``Tuner.tune_stack`` of a
-   2-layer RGAT over bgs at scale 1.0, each layout candidate's plan time.
+   2-layer RGAT over bgs at scale 1.0, each layout candidate's plan time;
+12. LM serving with K10, the flash attention of prefill and decode: (b)
+   ``repro_torch.launch.serve`` at full width in bf16 (the port's own
+   init): gemma2-2b at batch 4, prompt 4096, gen 32 (26 layers; decode
+   positions past 4096 reach the local layers' window; softcap 50) and
+   qwen3-4b at batch 8, prompt 2048, gen 32 (qk-norm, hd 128, g = 4): K10
+   launched exactly ``num_layers x gen`` times and no other kernel, every
+   logit finite, prefill ms, decode ms per token, tok/s, peak memory; (a)
+   K10 against its plain version at the calls kept from (b) (the first
+   local-window and global layer's prefill call and their calls at the
+   last decode step) and at edge cases (ragged lengths, decode at the
+   first, a middle and the last slot, window 1 and wider than the keys,
+   softcap without causal masking, MQA, g = 5, hd 8 / 16 / 64 / 128 /
+   256, batch 1, rows whose first tiles are all before the window, rows
+   that see no key (they average every value, as the reference's do), a
+   split decode, a cache layer read in place, non-contiguous K / V, an
+   empty query that launches nothing): rtol = atol = 2e-5 in fp32 (the
+   reference's ``tests/test_flash.py`` bound); in bf16 rtol = 2^-7 (one
+   bf16 ulp) and atol = 2e-5, inside the reference's 3e-2; each kept call
+   is held again upcast to fp32 at 2e-5; (d) at the
+   kept calls K10's device time, the wrapper's, the plain version's,
+   ``scaled_dot_product_attention(enable_gqa=True)``'s (the window as an
+   explicit mask; it has no softcap) and the bound (bytes over 3.35 TB/s
+   or the unmasked pairs' FLOPs over the bf16 tensor or fp32 peak); (c)
+   the card against the CPU through the port in fp32 on the same
+   parameters: the four dense configs' reduced variants (prefill + 4
+   decode steps) and gemma2-2b / qwen3-4b at full width with one repeat
+   per stage (batch 2, prompt 256, gen 8): logits within 1e-4, greedy
+   tokens equal wherever the CPU's top-2 margin exceeds 1e-3; then each
+   serve run's prefill and decode loop under ``torch.profiler``.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: phase
 6's runs of all three models for K1-K5 and K7, phases 9 and 10 for K9,
-phase 11's tuned training and serving for K6 and K8, each counted from 0
-just before the run); the last line is ``{"ok": true, "device": {...}}``.
+phase 11's tuned training and serving for K6 and K8, phase 12's serve runs
+for K10, each counted from 0 just before the run); the last line is
+``{"ok": true, "device": {...}}``.
 ``--out PATH`` also writes every number as JSON, ``--trace-dir DIR`` the
 phase-8 Chrome traces.
 """
@@ -134,7 +166,7 @@ K1, K2, K3 = ("segment_mm_gather_padded", "seg_stats_padded",
 K4, K5, K7 = ("segment_mm_padded", "segment_outer_padded",
               "seg_weighted_agg_gather_padded")
 K6, K8 = "seg_softmax_agg_padded", "seg_weighted_agg_padded"
-K9 = "candidate_keys"
+K9, K10 = "candidate_keys", "flash_attention"
 
 SERVE_DEFAULTS = dict(model="rgat", dataset="aifb", scale=1.0, layers=2,
                       dim=64, hidden=64, classes=16, fanouts=[5, 5],
@@ -208,19 +240,25 @@ KERNELS = {
     K9: dict(source="src/repro_torch/csrc/sampling.cu",
              replaces="src/repro/kernels/sampling_ops.py:77",
              symbol="candidate_keys_kernel"),
+    K10: dict(source="src/repro_torch/csrc/flash_attention.cu",
+              replaces="src/repro/kernels/flash_attention.py:75",
+              symbol="flash_"),       # the kernel and its split combine
 }
 # where each kernel is timed in phase 2 (phase 11 for K6 and K8): the
 # captured calls of one served batch ("<model> aifb"), one training step
 # ("<model> step"), the device sampling of one served batch ("<model> aifb
 # device") or one served batch under decisions that force
-# ``fuse_gather=False`` ("<model> aifb unfused")
+# ``fuse_gather=False`` ("<model> aifb unfused"); phase 12 times K10 at
+# the calls it keeps from the LM serve runs ("lm serve")
 TIMED_AT = {K1: "rgat aifb", K2: "rgat aifb", K3: "rgat aifb",
             K4: "rgat step", K5: "rgat step", K7: "rgcn aifb",
             K9: "rgat aifb device", K6: "rgat aifb unfused",
-            K8: "rgcn aifb unfused"}
+            K8: "rgcn aifb unfused", K10: "lm serve"}
 # the kernels phase 11 holds to their plain versions (the materialized-
-# gather variants the tuner selects); phase 2 holds the others
+# gather variants the tuner selects) and the one phase 12 holds (the LM's
+# attention); phase 2 holds the others
 TUNING_KERNELS = (K6, K8)
+LM_KERNELS = (K10,)
 # phase 9: the serve runs repeated with ``sampler="device"``; phase 2
 # captures the first device-sampled batch of the RGAT ones
 DEVICE_SERVE_RUNS = (
@@ -924,7 +962,8 @@ def summarize(results, phase):
 
 
 def phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops, tasks):
-    results = new_results([n for n in KERNELS if n not in TUNING_KERNELS])
+    results = new_results([n for n in KERNELS
+                           if n not in TUNING_KERNELS + LM_KERNELS])
     captured = {}
     runs = dict(SERVE_RUNS)
     for tag in CAPTURED_SERVE:
@@ -2259,6 +2298,459 @@ def phase_tuning(torch, hector_torch, SK, TK, SO, L, R, ops, serve_rgnn,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: LM serving (prefill + KV-cache decode), K10 as the attention core
+# ---------------------------------------------------------------------------
+# (b)'s full-width serve runs through ``repro_torch.launch.serve``
+LM_SERVE_RUNS = (
+    ("gemma2-2b", dict(arch="gemma2-2b", batch=4, prompt_len=4096, gen=32)),
+    ("qwen3-4b", dict(arch="qwen3-4b", batch=8, prompt_len=2048, gen=32)))
+LM_DENSE = ("qwen3-4b", "gemma2-2b", "gemma3-4b", "qwen3-14b")
+# K10 against its plain version, (rtol, atol): fp32 at the reference's
+# tests/test_flash.py bound (test_flash_matches_ref_sweep); bf16 at one
+# bf16 ulp of each value (2^-7 of it) plus 2e-5, since both sides compute
+# in fp32 from the same bf16 inputs and round once. That is far inside the
+# reference's test_flash_bf16 bound, 3e-2, which is about a 4096-key
+# average's typical value and so could not see a wrong late row.
+K10_TOL = {"torch.float32": (2e-5, 2e-5),
+           "torch.bfloat16": (2 ** -7, 2e-5)}
+# the card's logits against the CPU port's, fp32 (phase 3's bound)
+LM_CPU_TOL = 1e-4
+# greedy tokens must agree where the CPU's top-2 margin exceeds this
+LM_MARGIN = 1e-3
+# the dense bf16 tensor-core peak of the H100 SXM: the operations bound of
+# bf16 K10 calls (fp32 calls use FP32_FLOPS)
+BF16_FLOPS = 989e12
+# (b, sq, sk, h, kv, hd, dtype, options) of (a)'s edge cases
+K10_EDGE = (
+    (2, 37, 101, 10, 2, 64, "float32", dict(q_offset=20)),      # ragged, g=5
+    (3, 1, 333, 8, 1, 128, "float32", dict(q_offset=0)),        # MQA decode
+    (3, 1, 333, 8, 1, 128, "float32", dict(q_offset=170)),      # mid-cache
+    (3, 1, 333, 8, 1, 128, "float32", dict(q_offset=332)),      # last slot
+    (1, 70, 90, 4, 4, 256, "float32", dict(window=1, q_offset=20)),
+    (1, 70, 90, 4, 4, 256, "float32", dict(window=500, q_offset=20)),
+    (2, 45, 77, 6, 3, 64, "float32", dict(causal=False, softcap=3.0)),
+    # every row's first tiles lie wholly before its window
+    (1, 130, 4200, 4, 2, 256, "float32", dict(window=64, q_offset=4000)),
+    (1, 200, 300, 10, 2, 128, "float32", dict(window=40, q_offset=100)),
+    (2, 12, 16, 4, 2, 16, "float32", dict(q_offset=0)),         # reduced hd
+    (1, 33, 33, 2, 2, 8, "float32", dict(softcap=5.0)),
+    (2, 1, 4128, 8, 4, 256, "float32",
+     dict(window=4096, q_offset=4126, softcap=50.0)),           # split decode
+    # rows that see no key (the window starts past the last key) average
+    # every value: without causal masking, and in a split decode
+    (2, 70, 90, 4, 2, 64, "float32",
+     dict(causal=False, window=16, q_offset=60)),
+    (1, 1, 4128, 8, 4, 256, "float32", dict(window=8, q_offset=4200)),
+    (2, 300, 300, 8, 4, 256, "bfloat16", dict(window=128, softcap=50.0)),
+    (8, 1, 2080, 40, 8, 128, "bfloat16", dict(q_offset=2079)),  # g=5 decode
+)
+
+
+def lm_capture_points(cfg, gen):
+    """``{call index: tag}`` of the K10 calls (b) keeps from one serve run:
+    the prefill call of the first local-window and of the first global
+    layer, and those layers' calls at the last decode step (one call per
+    layer per step, layers in stage, repeat, pattern order)."""
+    layers = [spec for st in cfg.stages for _ in range(st.repeats)
+              for spec in st.pattern]
+    n, keep = len(layers), {}
+    for kind, pick in (("local", lambda s: s.window is not None),
+                       ("global", lambda s: s.window is None)):
+        i = next((j for j, s in enumerate(layers) if pick(s)), None)
+        if i is not None:
+            keep[i] = f"{cfg.name} prefill {kind}"
+            keep[(gen - 1) * n + i] = f"{cfg.name} decode {kind}"
+    return keep
+
+
+@contextlib.contextmanager
+def recorded_k10_calls(keep):
+    """Wrap the K10 name ``nn.attention`` calls for the block; the inputs of
+    the calls at the indices of ``keep`` are cloned into the yielded dict
+    under their tags (the wrapper, and so the launch count, runs as
+    before)."""
+    from repro_torch.nn import attention as A
+    original, captured, n = A.flash_attention, {}, [0]
+
+    def rec(q, k, v, **kw):
+        if n[0] in keep:
+            captured[keep[n[0]]] = ((q.clone(), k.clone(), v.clone()),
+                                    dict(kw))
+        n[0] += 1
+        return original(q, k, v, **kw)
+
+    A.flash_attention = rec
+    try:
+        yield captured
+    finally:
+        A.flash_attention = original
+
+
+def phase_lm_serve(torch, ops, serve, C, tag, run):
+    """(b): one full-width serve run, bf16, the port's own init: K10 at
+    exactly ``num_layers x gen`` launches and no other kernel, every
+    step's logits finite; returns its numbers and the kept K10 calls."""
+    cfg = C.get_config(run["arch"])
+    keep = lm_capture_points(cfg, run["gen"])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_k10_calls(keep) as captured:
+        out = serve.serve(**run, device="cuda", keep_logits=True,
+                          log=lambda m: log(f"[{tag}] {m}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want = {name: 0 for name in KERNELS}
+    want[K10] = cfg.num_layers * run["gen"]
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    check(sorted(captured) == sorted(keep.values()),
+          f"{tag}: captured {sorted(captured)}")
+    check(out["tokens"].shape == (run["batch"], run["gen"]),
+          f"{tag}: tokens {out['tokens'].shape}")
+    for i, lg in enumerate(out["logits"]):
+        check(bool(torch.isfinite(lg).all()),
+              f"{tag}: step {i} has non-finite logits")
+    res = {k: out[k] for k in ("prefill_ms", "decode_ms",
+                               "decode_ms_per_token", "tok_s",
+                               "peak_mem_gib", "num_layers")}
+    res.update(launches=launches[K10], wall_s=wall, **run)
+    log(f"[{tag}] {cfg.num_layers} layers, batch {run['batch']}, prompt "
+        f"{run['prompt_len']}, gen {run['gen']}: prefill "
+        f"{res['prefill_ms']:.3f} ms, decode {res['decode_ms_per_token']:.3f}"
+        f" ms per token ({res['tok_s']:.1f} tok/s), peak "
+        f"{res['peak_mem_gib']:.3f} GiB; K10 launched {launches[K10]} times "
+        f"(= {cfg.num_layers} layers x {run['gen']}), logits finite (phase "
+        f"wall {wall:.2f} s)")
+    return res, captured
+
+
+def k10_work(torch, args, kw):
+    """Bytes and FLOPs K10 must move/do on these inputs: q read and out
+    written once, each key a row can see read once from k and v; 4 * hd
+    FLOPs per unmasked (query, key) pair and head."""
+    import numpy as np
+
+    q, k, _ = args
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qpos = kw.get("q_offset", 0) + np.arange(sq)
+    hi = (np.minimum(sk - 1, qpos) if kw.get("causal", True)
+          else np.full(sq, sk - 1))
+    window = kw.get("window")
+    lo = (np.maximum(0, qpos - window + 1) if window is not None
+          else np.zeros(sq, dtype=np.int64))
+    pairs = int(np.maximum(0, hi - lo + 1).sum())
+    keys = max(0, int(hi.max()) - int(lo.min()) + 1)
+    nbytes = q.element_size() * (2 * b * sq * h * hd + 2 * b * keys * kv * hd)
+    return nbytes, 4 * b * h * hd * pairs
+
+
+def k10_bound(torch, args, kw):
+    nbytes, flops = k10_work(torch, args, kw)
+    peak = BF16_FLOPS if args[0].dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, flops)
+
+
+def k10_library(torch, F, args, kw):
+    """One ``scaled_dot_product_attention(enable_gqa=True)`` call over the
+    same inputs: ``is_causal`` over the keys a causal prefill sees, else the
+    mask (window, causal bound at ``q_offset``) as an explicit boolean
+    ``attn_mask``. SDPA has no softcap: at gemma2's calls it is the same
+    shapes and masks without the cap."""
+    import torch.nn.functional as Fn
+
+    q, k, v = args
+    sq, sk = q.shape[1], k.shape[1]
+    off, causal = kw.get("q_offset", 0), kw.get("causal", True)
+    window = kw.get("window")
+    if window is not None and window >= off + sq:
+        window = None                                   # masks nothing
+    qt = q.transpose(1, 2)
+    if causal and window is None and off == 0 and sq <= sk:
+        kt, vt = k[:, :sq].transpose(1, 2), v[:, :sq].transpose(1, 2)
+        return lambda: Fn.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    mask = F.attention_mask(off + torch.arange(sq, device=q.device),
+                            torch.arange(sk, device=q.device), window, causal)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: Fn.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def _k10_shape(args, kw) -> str:
+    q, k, _ = args
+    opts = ", ".join(f"{key}={val}" for key, val in sorted(kw.items())
+                     if val is not None)
+    return (f"q={tuple(q.shape)} k={tuple(k.shape)} {str(q.dtype)[6:]}"
+            + (f" {opts}" if opts else ""))
+
+
+def hold_k10(torch, F, captured, results):
+    """(a) and (d) at the kept calls: K10 against its plain version, in the
+    calls' bf16 and again on the same inputs upcast to fp32 (at fp32's
+    bound, so a wrong late row of a long sequence shows), then its device
+    time (profiler; with the split-combine kernel where the call splits its
+    keys), the wrapper's time (CUDA events), the plain version's, SDPA's
+    and the bound."""
+    r = results[K10]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for tag, (args, kw) in captured.items():
+        fn = lambda: F.flash_attention(*args, **kw)          # noqa: E731
+        plain = lambda: F.flash_attention_plain(*args, **kw)  # noqa: E731
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        err = compare(torch, f"{K10} ({tag})", got, want,
+                      *K10_TOL[str(args[0].dtype)])
+        wide = tuple(a.float() for a in args)
+        err32 = compare(torch, f"{K10} ({tag}, fp32)",
+                        F.flash_attention(*wide, **kw),
+                        F.flash_attention_plain(*wide, **kw),
+                        *K10_TOL["torch.float32"])
+        del wide
+        q, k = args[0], args[1]
+        splits, _ = F.key_splits(q.shape[0], k.shape[2],
+                                 q.shape[1] * (q.shape[2] // k.shape[2]),
+                                 k.shape[1], sms)
+        ms = device_ms(torch, fn, "flash_", reps=10,
+                       per_call=2 if splits > 1 else 1)
+        wrapper_ms = time_ms(torch, fn, reps=10, inner=2)
+        plain_ms = time_ms(torch, plain, reps=5, inner=2)
+        lib = k10_library(torch, F, args, kw)
+        library_ms = time_ms(torch, lib, reps=10, inner=2)
+        lib_err = float((lib().transpose(1, 2).float() - want.float()).abs()
+                        .max())
+        b_ms, b_by, nbytes, flops = k10_bound(torch, args, kw)
+        shape = _k10_shape(args, kw)
+        r["calls"].append(dict(tag=tag, shape=shape, ms=ms,
+                               wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                               library_ms=library_ms, bound_ms=b_ms,
+                               bound_by=b_by, bytes=nbytes, flops=flops,
+                               splits=splits, max_abs_err=err,
+                               fp32_max_abs_err=err32,
+                               library_max_abs_diff=lib_err))
+        r["max_abs_err_by"][tag] = err
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        log(f"[phase 12] {K10} ({tag}) {shape}: max abs err {err:.3g} "
+            f"(upcast to fp32: {err32:.3g}); "
+            f"kernel {ms:.5f} ms on the device ({splits} key split"
+            f"{'s' if splits > 1 else ''}), wrapper {wrapper_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+            f"{library_ms:.4f} ms (max abs diff from the plain version "
+            f"{lib_err:.3g}), bound {b_ms:.5f} ms ({b_by}, {nbytes} B, "
+            f"{flops:.0f} FLOP)")
+
+
+def k10_edge_cases(torch, F, ops, results):
+    """(a)'s edge cases (``K10_EDGE``), a KV cache's layer read in place,
+    a non-contiguous k / v (copied by the wrapper), and an empty query
+    that launches nothing."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def hold(name, q, k, v, kw):
+        got = F.flash_attention(q, k, v, **kw)
+        want = F.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = compare(torch, f"{K10} edge {name}", got, want,
+                      *K10_TOL[str(q.dtype)])
+        results[K10]["max_abs_err"] = max(results[K10]["max_abs_err"], err)
+        return err
+
+    errs = []
+    for b, sq, sk, h, kv, hd, dt, kw in K10_EDGE:
+        dtype = getattr(torch, dt)
+        q = randn(b, sq, h, hd, dtype=dtype)
+        k, v = (randn(b, sk, kv, hd, dtype=dtype) for _ in range(2))
+        errs.append(hold(_k10_shape((q, k, v), kw), q, k, v, kw))
+    cache = randn(2, 3, 2, 40, 2, 64, dtype=torch.float32)   # [k|v, R, ...]
+    q = randn(2, 1, 4, 64, dtype=torch.float32)
+    errs.append(hold("cache layer in place", q, cache[0, 1], cache[1, 1],
+                     dict(q_offset=25)))
+    kt = randn(2, 2, 40, 64, dtype=torch.float32).transpose(1, 2)
+    errs.append(hold("non-contiguous k, v", q, kt, kt, dict(q_offset=39)))
+    before = ops.launch_counts()[K10]
+    out = F.flash_attention(randn(2, 0, 4, 64, dtype=torch.float32),
+                            kt, kt)
+    check(out.shape == (2, 0, 4, 64) and ops.launch_counts()[K10] == before,
+          "an empty query launched K10")
+    log(f"[phase 12] K10 edge cases: {len(errs)} kernel-vs-plain checks "
+        f"passed (max abs err {max(errs):.3g}); an empty query launches "
+        f"nothing")
+
+
+def _params_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _params_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_params_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def phase_lm_cpu(torch, C, serve, TransformerLM):
+    """(c): the card against the CPU through the port, fp32, the same
+    parameters moved across: each dense config's reduced variant (prefill
+    + 4 decode steps) and gemma2-2b / qwen3-4b at full width with every
+    stage's repeats cut to 1 (batch 2, prompt 256, gen 8). The card decodes
+    the CPU's tokens; every step's logits within ``LM_CPU_TOL``, and the
+    card's greedy token equal to the CPU's wherever the CPU's top-2 margin
+    exceeds ``LM_MARGIN``."""
+    import dataclasses
+
+    import numpy as np
+
+    runs = [(f"{a} reduced", C.get_reduced(a), 2, 12, 5) for a in LM_DENSE]
+    for a in ("gemma2-2b", "qwen3-4b"):
+        full = C.get_config(a)
+        cut = dataclasses.replace(
+            full, dtype="float32",
+            stages=tuple(dataclasses.replace(st, repeats=1)
+                         for st in full.stages))
+        runs.append((f"{a} full width, 1 repeat", cut, 2, 256, 8))
+    out = {}
+    for tag, cfg, b, plen, gen in runs:
+        t0 = time.perf_counter()
+        cpu = TransformerLM(cfg, device="cpu")
+        params = cpu.init()
+        prompts = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (b, plen)))
+        ref = serve.generate(cpu, params, prompts, gen, keep_logits=True)
+        card = TransformerLM(cfg, device="cuda")
+        pc = _params_to(params, "cuda")
+        lg, caches = card.prefill(pc, prompts.cuda(), cache_len=plen + gen)
+        got = [lg[:, -1]]
+        for i in range(gen - 1):
+            tok = torch.as_tensor(ref["tokens"][:, i:i + 1], device="cuda")
+            lg, caches = card.decode_step(pc, tok, plen + i, caches)
+            got.append(lg[:, -1])
+        worst, decided, agree = 0.0, 0, 0
+        for i, (g, w) in enumerate(zip(got, ref["logits"])):
+            g = g.cpu()
+            err = float((g - w).abs().max())
+            check(bool(torch.allclose(g, w, rtol=LM_CPU_TOL,
+                                      atol=LM_CPU_TOL)),
+                  f"phase 12 {tag} step {i}: card logits differ from the "
+                  f"CPU's (max abs err {err:.3g})")
+            worst = max(worst, err)
+            top2 = w.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > LM_MARGIN
+            same = g.argmax(-1) == w.argmax(-1)
+            decided += int(sure.sum())
+            agree += int((same & sure).sum())
+        check(agree == decided, f"phase 12 {tag}: the card's greedy token "
+              f"differs at {decided - agree} of {decided} positions with a "
+              f"top-2 margin over {LM_MARGIN}")
+        out[tag] = dict(max_abs_err=worst, steps=gen, tokens_decided=decided,
+                        seconds=time.perf_counter() - t0)
+        log(f"[phase 12] {tag}: {cfg.num_layers} layers, {gen} steps, card "
+            f"logits = CPU logits (max abs err {worst:.3g}), greedy tokens "
+            f"equal at all {decided} positions with a top-2 margin over "
+            f"{LM_MARGIN} ({out[tag]['seconds']:.1f} s)")
+        del card, pc, caches
+    return out
+
+
+def phase_lm_profile(torch, C, TransformerLM, tag, run):
+    """Where a serve run's time goes: its prefill and its decode loop (the
+    run of (b), fresh weights of the same seed) each under
+    ``torch.profiler``: wall ms, device busy ms, K10's device ms, and the
+    top device ops (the profiler's host overhead inflates the walls, so the
+    busy shares are lower bounds)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = C.get_config(run["arch"])
+    model = TransformerLM(cfg, device="cuda")
+    params = model.init()
+    b, plen, gen = run["batch"], run["prompt_len"], run["gen"]
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, plen)), device="cuda")
+    state = {}
+
+    def prefill():
+        lg, state["caches"] = model.prefill(params, prompts,
+                                            cache_len=plen + gen)
+        state["tok"] = lg[:, -1].argmax(-1, keepdim=True)
+
+    def decode():
+        for i in range(gen - 1):
+            lg, state["caches"] = model.decode_step(
+                params, state["tok"], plen + i, state["caches"])
+            state["tok"] = lg[:, -1].argmax(-1, keepdim=True)
+
+    out = {}
+    for part, fn in (("prefill", prefill), ("decode", decode)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy_us, k10_us, top = 0.0, 0.0, {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = _device_us(e)
+            busy_us += us
+            if "flash_" in e.key:
+                k10_us += us
+            top[e.key[:60]] = (us, e.count)
+        check(busy_us > 0, f"{tag} {part}: no device time recorded")
+        out[part] = dict(wall_ms=wall, device_busy_ms=busy_us / 1e3,
+                         k10_ms=k10_us / 1e3, busy_share=busy_us / 1e3 / wall,
+                         k10_share=k10_us / busy_us)
+        log(f"[{tag}] {part}: wall {wall:.3f} ms under the profiler, device "
+            f"busy {busy_us / 1e3:.3f} ms (share {out[part]['busy_share']:.4f}"
+            f"), K10 {k10_us / 1e3:.3f} ms ({out[part]['k10_share']:.4f} of "
+            f"the device time)")
+        for key, (us, count) in sorted(top.items(),
+                                       key=lambda kv: -kv[1][0])[:6]:
+            log(f"[{tag}]   {us / 1e3:9.3f} ms  x{count:<6d} {key}")
+    return out
+
+
+def phase_lm(torch, ops, C, F, serve, TransformerLM):
+    """Phase 12: (b) the full-width serve runs, their K10 calls kept;
+    (a) K10 against its plain version there and at the edge cases; (d) its
+    times; (c) the card against the CPU; then where each serve run's time
+    goes. K10's launches are (b)'s, each run counted from 0."""
+    results = new_results([K10])
+    serve_runs, captured = {}, {}
+    for tag, run in LM_SERVE_RUNS:
+        serve_runs[tag], calls = phase_lm_serve(torch, ops, serve, C,
+                                                f"phase 12 {tag}", run)
+        captured.update(calls)
+    hold_k10(torch, F, captured, results)
+    k10_edge_cases(torch, F, ops, results)
+    r = results[K10]
+    for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "library_ms"):
+        r[key] = sum(c[key] for c in r["calls"])
+    by_bytes = sum(c["bound_ms"] for c in r["calls"]
+                   if c["bound_by"] == "bytes")
+    r["bound_by"] = "bytes" if by_bytes >= r["bound_ms"] / 2 else \
+        "operations"
+    r["timed_at"] = TIMED_AT[K10]
+    log(f"[phase 12] {K10}: {len(r['calls'])} calls ({', '.join(captured)})"
+        f": kernel {r['ms']:.5f} ms on the device, wrapper "
+        f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention {r['library_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.5f} ms ({r['bound_by']}), max abs err "
+        f"{r['max_abs_err']:.3g}")
+    del captured
+    cpu = phase_lm_cpu(torch, C, serve, TransformerLM)
+    prof = {tag: phase_lm_profile(torch, C, TransformerLM,
+                                  f"phase 12 profile {tag}", run)
+            for tag, run in LM_SERVE_RUNS}
+    return dict(kernels=results, serve=serve_runs, cpu=cpu, profile=prof,
+                launches=sum(s["launches"] for s in serve_runs.values()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2280,7 +2772,11 @@ def main(argv=None) -> int:
         from repro_torch.kernels import sampling_ops as SO
         from repro_torch.kernels import segment_mm as SK
         from repro_torch.kernels import traversal as TK
+        from repro_torch import configs as C
+        from repro_torch.kernels import flash_attention as F
+        from repro_torch.launch import serve as lm_serve
         from repro_torch.launch import serve_rgnn, train_rgnn
+        from repro_torch.lm.model import TransformerLM
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT}: {e}",
               file=sys.stderr)
@@ -2354,15 +2850,21 @@ def main(argv=None) -> int:
                               serve_rgnn, train_rgnn, tasks["rgat"])
         kernels.update(tuning.pop("kernels"))
         seconds["phase 11"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lm = phase_lm(torch, ops, C, F, lm_serve, TransformerLM)
+        kernels.update(lm.pop("kernels"))
+        seconds["phase 12"] = time.perf_counter() - t0
         # the main path's launches, each run from counts set to 0 just
         # before it: phase 6 of every model (K1-K5, K7), phases 9 and 10
         # (K9, the device-sampling path), phase 11's tuned training and
-        # serving (K6, K8: the tuner's path)
+        # serving (K6, K8: the tuner's path), phase 12's LM serve runs
+        # (K10)
         launches = {name: sum(t["launches"][name] for t in train.values())
                     for name in KERNELS}
         launches[K9] = (sum(r["launches"][K9] for r in device_serve.values())
                         + device_train["launches"][K9])
         launches.update(tuning["launches"])
+        launches[K10] = lm["launches"]
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on the main path")
     except Failed as e:
@@ -2395,7 +2897,7 @@ def main(argv=None) -> int:
             card=card, build_s=build_s, seconds=seconds, kernels=kernels,
             serve=serve, profile=prof, train=train, full_graph=full,
             train_profile=train_prof, device_serve=device_serve,
-            device_train=device_train, tuning=tuning,
+            device_train=device_train, tuning=tuning, lm=lm,
             torch=torch.__version__,
             cuda=torch.version.cuda), indent=1))
     print(json.dumps({"kernels": rows}), flush=True)

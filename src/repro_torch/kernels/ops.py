@@ -45,6 +45,7 @@ from repro_torch.kernels import layout as L
 from repro_torch.kernels import ref as R
 from repro_torch.kernels import segment_mm as SK
 from repro_torch.kernels import traversal as TK
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.segment_mm import segment_mm_gather_padded
 from repro_torch.kernels.traversal import (seg_softmax_agg_gather_padded,
                                            seg_softmax_agg_padded,
@@ -665,7 +666,8 @@ def weighted_agg(
 _COUNTED = (SK.segment_mm_gather_padded, TK.seg_stats_padded,
             TK.seg_softmax_agg_gather_padded, SK.segment_mm_padded,
             SK.segment_outer_padded, TK.seg_softmax_agg_padded,
-            TK.seg_weighted_agg_gather_padded, TK.seg_weighted_agg_padded)
+            TK.seg_weighted_agg_gather_padded, TK.seg_weighted_agg_padded,
+            flash_attention)
 
 
 def _counted():

@@ -1,0 +1,25 @@
+"""Dense gated-SiLU MLP (the port's copy of ``repro.nn.mlp``). The
+products stay ``torch.matmul``: the reference computes them outside any
+Pallas kernel."""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.nn.common import dense_init
+
+
+def init_mlp(generator: Optional[torch.Generator], d_model: int, d_ff: int,
+             dtype: torch.dtype, lead: tuple = ()) -> Dict:
+    return {
+        "w_gate": dense_init((d_model, d_ff), dtype, generator, lead=lead),
+        "w_up": dense_init((d_model, d_ff), dtype, generator, lead=lead),
+        "w_down": dense_init((d_ff, d_model), dtype, generator, fan_in=d_ff,
+                             lead=lead),
+    }
+
+
+def mlp(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    h = torch.nn.functional.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    return h @ params["w_down"]

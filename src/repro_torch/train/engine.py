@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core.graph import HeteroGraph
 from repro_torch.core.module import HectorStack
+from repro_torch.device import resolve_device  # noqa: F401 (re-exported)
 from repro_torch.models import (hgt_program, rgat_program, rgcn_cat_program,
                                 rgcn_program)
 from repro_torch.sampling import (DeviceSampler, FanoutSampler,
@@ -44,17 +45,6 @@ def parse_fanout(spec: str, layers: int) -> List[int]:
             f"--fanout needs 1 or {layers} comma-separated ints, got {spec!r}"
         )
     return parts
-
-
-def resolve_device(device) -> torch.device:
-    """The entry points' device: ``None`` means the CUDA card. Without one
-    this raises instead of running on the CPU unasked."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available: the port runs on the GPU by default; "
-            "pass device='cpu' (or --device cpu) to run on the CPU")
-    return dev
 
 
 @dataclasses.dataclass

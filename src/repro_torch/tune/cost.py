@@ -60,7 +60,7 @@ def score(key: str, variant, plan_backend: str) -> float:
     k, n = info["k"], info["n"]
     rp, x_rows = info["padded_rows"], info["x_rows"]
     tr = variant.tile_rows or info["lay_tile"]
-    tn = min(variant.tile_n or 128, n)
+    tn = min(variant.tile_n or D.default_tile_n(info["device"]), n)
     io = rp * (k + n) * itemsize                     # X in + Y out
     if info["fusable"]:
         resident = x_rows * k * itemsize + rp * 4    # source + gather map

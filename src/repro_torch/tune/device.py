@@ -39,6 +39,12 @@ BUDGET_ENV = "REPRO_FUSED_GATHER_BUDGET_BYTES"
 # "no residency limit": larger than any tensor a card holds
 UNBOUNDED = sys.maxsize
 
+# the column slice of a K1 / K4 thread block when ``tile_n`` is unset
+# (``kColTile`` in ``csrc/segment_mm.cu``), and the reference's default
+# (its Pallas kernels' 128 columns), which the CPU's decisions keep
+CARD_TILE_N = 64
+_CPU_TILE_N = 128
+
 
 def _normalize(device) -> torch.device:
     dev = torch.device("cpu" if device is None else device)
@@ -81,6 +87,14 @@ def budget_for_kind(kind: str) -> int:
     if kind.startswith("cuda"):
         return UNBOUNDED
     return int(vmem_bytes() * _FUSED_GATHER_VMEM_FRACTION)
+
+
+def default_tile_n(kind: str) -> int:
+    """The column tile a GEMM variant without ``tile_n`` runs on a device
+    of ``kind``: the port's kernel default on a CUDA card, the reference's
+    elsewhere (the plain versions ignore it; the CPU's candidates and
+    scores stay the reference's)."""
+    return CARD_TILE_N if kind.startswith("cuda") else _CPU_TILE_N
 
 
 def fused_gather_budget_bytes(device=None) -> int:

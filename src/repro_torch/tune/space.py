@@ -9,7 +9,7 @@ sizes, group counts, power-of-two row buckets), the dtype and the device
 kind. Keys are plain strings, equal to the reference's for the same plan
 and layouts on the CPU (the dtype is written by its numpy name).
 
-Two departures from the reference:
+Three departures from the reference:
 
 * the port has one implementation of every op on a device, its own
   kernels (or their plain versions on the CPU), so the only backend a
@@ -17,7 +17,11 @@ Two departures from the reference:
   its plain oracle, which the card's path never runs. Codegen raises on a
   decision that names another backend;
 * keys take the device of the op's tensors (``gemm_key`` / ``trav_key``'s
-  ``device``) where the reference reads JAX's default backend.
+  ``device``) where the reference reads JAX's default backend;
+* on a CUDA key a GEMM's default column tile is the kernels' own (64
+  columns, ``device.default_tile_n``), not the reference's 128, so for
+  64 < n <= 128 the candidates there also hold ``tile_n=n``. CPU keys
+  keep the reference's default, list and scores.
 """
 from __future__ import annotations
 
@@ -154,12 +158,16 @@ def parse_key(key: str) -> dict:
     raise ValueError(f"unparseable decision key {key!r}")
 
 
-def _col_tile_candidates(n: int) -> List[Optional[int]]:
-    """Column-tile candidates with distinct *effective* tiles: for n <= 128
-    every request clips to the same tile, so only the default survives."""
+def _col_tile_candidates(n: int, default: int) -> List[Optional[int]]:
+    """Column-tile candidates with distinct *effective* tiles: the
+    alternative is dropped where it clips to the device's ``default`` tile
+    (``device.default_tile_n``). On the CPU the default is the reference's
+    128, so for n <= 128 only the default survives, as there; on a card it
+    is the kernels' 64, so for 64 < n <= 128 the list also holds
+    ``tile_n=n``, which the reference's list does not."""
     cands: List[Optional[int]] = [None]          # the default
     alt = min(256, max(_MIN_TILE_ROWS, n))
-    if fit_tile_n(n, alt) != fit_tile_n(n, 128):
+    if fit_tile_n(n, alt) != fit_tile_n(n, default):
         cands.append(alt)
     return cands
 
@@ -186,7 +194,8 @@ def candidates_for_key(key: str, plan_backend: str) -> List:
         return [TravVariant(), TravVariant(fuse_gather=False)]
     out: List = []
     for tr in _row_tile_candidates(info["lay_tile"]):
-        for tn in _col_tile_candidates(info["n"]):
+        for tn in _col_tile_candidates(
+                info["n"], D.default_tile_n(info["device"])):
             for fg in ([None, False] if info["fusable"] else [None]):
                 out.append(GemmVariant(tile_rows=tr, tile_n=tn,
                                        fuse_gather=fg))

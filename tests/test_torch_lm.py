@@ -1,0 +1,324 @@
+"""The LM serving slice of the PyTorch port against the JAX reference, on
+the CPU: the config registry, the ``nn`` primitives, self-attention with
+and without a KV cache, ``TransformerLM`` prefill / decode of the dense
+configs (parameters carried over by ``params_from_reference``), and the
+serving driver. Tolerances: rtol = atol = 1e-4 in fp32 (the port's
+card-vs-CPU bound), the reference's own 2e-2 / 5e-2 where its decode check
+compares two paths of one model.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro import configs as RC
+from repro.lm.config import SHAPES as REF_SHAPES
+from repro.lm.model import TransformerLM as RefLM
+from repro.nn import attention as RA
+from repro.nn import common as RN
+from repro.nn import mlp as RM
+from repro_torch import configs as C
+from repro_torch.kernels import ops
+from repro_torch.launch import serve
+from repro_torch.lm.config import SHAPES, LayerSpec
+from repro_torch.lm.model import TransformerLM, params_from_reference
+from repro_torch.nn import attention as A
+from repro_torch.nn import common as N
+from repro_torch.nn import mlp as M
+
+RNG = np.random.default_rng(0)
+DENSE = ["qwen3-4b", "gemma2-2b", "gemma3-4b", "qwen3-14b"]
+NON_DENSE = [a for a in RC.ARCHS if a not in DENSE]
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def t(x):
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def close(got, want, **tol):
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32), **(tol or TOL))
+
+
+@pytest.fixture(scope="module")
+def models():
+    """Reference and port models of each dense reduced config, on the same
+    parameters (the reference's init carried over)."""
+    out = {}
+    for arch in DENSE:
+        rcfg = RC.get_reduced(arch)
+        rm = RefLM(rcfg, remat=False)
+        rp = rm.init(jax.random.key(0))
+        pnp = jax.tree_util.tree_map(np.asarray, rp)
+        cfg = C.get_reduced(arch)
+        out[arch] = (rm, rp, TransformerLM(cfg, device="cpu"),
+                     params_from_reference(pnp, cfg, "cpu"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the registry
+# ---------------------------------------------------------------------------
+def test_registry_lists_the_reference_archs():
+    assert C.ARCHS == RC.ARCHS
+    assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in REF_SHAPES.items()}
+
+
+@pytest.mark.parametrize("arch", RC.ARCHS)
+def test_configs_equal_the_reference_field_for_field(arch):
+    cfg, rcfg = C.get_config(arch), RC.get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
+    assert dataclasses.asdict(C.get_reduced(arch)) == \
+        dataclasses.asdict(RC.get_reduced(arch))
+    assert cfg.param_count() == rcfg.param_count()
+    assert cfg.active_param_count() == rcfg.active_param_count()
+    assert C.applicable_shapes(arch) == RC.applicable_shapes(arch)
+    assert dataclasses.asdict(C.shrink(cfg, d_model=32)) == \
+        dataclasses.asdict(RC.shrink(rcfg, d_model=32))
+
+
+# ---------------------------------------------------------------------------
+# nn primitives
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("plus_one", [False, True])
+def test_rms_norm_equals_the_reference(plus_one):
+    x = RNG.normal(size=(2, 5, 16)).astype(np.float32)
+    w = RNG.normal(size=(16,)).astype(np.float32)
+    want = RN.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-6, plus_one)
+    close(N.rms_norm(t(x), t(w), 1e-6, plus_one), want)
+
+
+@pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
+def test_rope_equals_the_reference(theta):
+    x = RNG.normal(size=(2, 7, 3, 16)).astype(np.float32)
+    pos = np.arange(40, 47, dtype=np.int32)
+    want = RN.rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    close(N.rope(t(x), torch.from_numpy(pos), theta), want)
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_softcap_equals_the_reference(cap):
+    x = (RNG.normal(size=(4, 9)) * 50).astype(np.float32)
+    close(N.softcap(t(x), cap), RN.softcap(jnp.asarray(x), cap))
+
+
+def test_mlp_equals_the_reference():
+    rp = RM.init_mlp(jax.random.key(1), 16, 32, jnp.float32)
+    x = RNG.normal(size=(2, 5, 16)).astype(np.float32)
+    want = RM.mlp(rp, jnp.asarray(x))
+    close(M.mlp({k: t(v) for k, v in rp.items()}, t(x)), want)
+
+
+def test_init_shapes_and_scale():
+    g = torch.Generator().manual_seed(0)
+    cfg = C.get_reduced("qwen3-4b")
+    p = A.init_attention(g, cfg, torch.float32, lead=(3,))
+    rp = RA.init_attention(jax.random.key(0), RC.get_reduced("qwen3-4b"),
+                           jnp.float32)
+    assert {k: tuple(v.shape) for k, v in p.items()} == \
+        {k: (3,) + tuple(v.shape) for k, v in rp.items()}
+    w = N.dense_init((4096, 64), torch.float32, g)
+    assert abs(float(w.std()) - 4096 ** -0.5) < 1e-3
+    assert N.dense_init((8, 4), torch.float32, None).device.type == "meta"
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+def _attn_case(arch):
+    rcfg, cfg = RC.get_reduced(arch), C.get_reduced(arch)
+    spec = cfg.stages[0].pattern[0]
+    rspec = rcfg.stages[0].pattern[0]
+    rp = RA.init_attention(jax.random.key(3), rcfg, jnp.float32)
+    return rcfg, cfg, rspec, spec, rp, {k: t(v) for k, v in rp.items()}
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b"])
+def test_attention_without_cache_equals_the_reference(arch):
+    rcfg, cfg, rspec, spec, rp, p = _attn_case(arch)
+    x = RNG.normal(size=(2, 11, cfg.d_model)).astype(np.float32)
+    pos = np.arange(11, dtype=np.int32)
+    want, _ = RA.attention(rp, jnp.asarray(x), rcfg, rspec, jnp.asarray(pos))
+    got, cache = A.attention(p, t(x), cfg, spec, torch.from_numpy(pos))
+    assert cache is None
+    close(got, want)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b"])
+@pytest.mark.parametrize("start,q_len", [(0, 9), (9, 1), (13, 1)])
+def test_attention_with_cache_equals_the_reference(arch, start, q_len):
+    """A prefill (at 0) or a decode step into a cache of 16 slots whose
+    earlier slots hold other keys: the write lands at ``cache_index`` in
+    place and the queries attend over the whole cache."""
+    rcfg, cfg, rspec, spec, rp, p = _attn_case(arch)
+    hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
+    kc = RNG.normal(size=(2, 16, kv, hd)).astype(np.float32)
+    vc = RNG.normal(size=(2, 16, kv, hd)).astype(np.float32)
+    x = RNG.normal(size=(2, q_len, cfg.d_model)).astype(np.float32)
+    pos = np.arange(start, start + q_len, dtype=np.int32)
+    want, wcache = RA.attention(
+        rp, jnp.asarray(x), rcfg, rspec, jnp.asarray(pos),
+        kv_cache={"k": jnp.asarray(kc), "v": jnp.asarray(vc)},
+        cache_index=jnp.int32(start))
+    cache = {"k": t(kc), "v": t(vc)}
+    kbuf = cache["k"]
+    got, gcache = A.attention(p, t(x), cfg, spec, torch.from_numpy(pos),
+                              kv_cache=cache, cache_index=start)
+    close(got, want)
+    assert gcache["k"] is kbuf                       # written in place
+    close(gcache["k"], wcache["k"])
+    close(gcache["v"], wcache["v"])
+
+
+def test_cross_attention_is_not_ported_yet():
+    """A dense config given a cross-attention layer, or an encoder-decoder
+    layer, is refused by the model (self-attention has no cross inputs)."""
+    cfg = C.get_reduced("qwen3-4b")
+    for spec in (LayerSpec(kind="cross_attn"), LayerSpec(dec_cross=True)):
+        st = dataclasses.replace(cfg.stages[0], pattern=(spec,))
+        bad = dataclasses.replace(cfg, stages=(st,) + cfg.stages[1:])
+        with pytest.raises(NotImplementedError,
+                           match="cross-attention.*ROADMAP"):
+            TransformerLM(bad, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_and_decode_equal_the_reference(models, arch):
+    """prefill of 12 tokens into a cache of 16, then three decode steps:
+    logits within 1e-4 of the reference's at every step."""
+    rm, rp, m, p = models[arch]
+    b, s = 2, 12
+    toks = RNG.integers(0, m.cfg.vocab_size, (b, s + 3))
+    rl, rc = rm.prefill(rp, jnp.asarray(toks[:, :s], jnp.int32),
+                        cache_len=s + 4)
+    lg, caches = m.prefill(p, torch.from_numpy(toks[:, :s]), cache_len=s + 4)
+    assert lg.shape == (b, 1, m.vp) and lg.dtype == torch.float32
+    close(lg, rl)
+    for i in range(3):
+        tok = toks[:, s + i:s + i + 1]
+        rl, rc = rm.decode_step(rp, jnp.asarray(tok, jnp.int32), s + i, rc)
+        lg, caches = m.decode_step(p, torch.from_numpy(tok), s + i, caches)
+        close(lg, rl)
+    close(caches[0][0]["attn"]["k"], rc[0][0]["attn"]["k"])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_matches_full_forward(models, arch):
+    """The reference's ``test_decode_matches_full_forward`` on the port:
+    prefill(S) + decode(S) logits == forward(S+1) last logits."""
+    _, _, model, params = models[arch]
+    b, s = 2, 12
+    toks = torch.from_numpy(RNG.integers(0, model.cfg.vocab_size,
+                                         (b, s + 1)))
+    hidden = model.backbone(params, toks)
+    lg_pre, caches = model.prefill(params, toks[:, :s], cache_len=s + 4)
+    close(lg_pre, model.logits(params, hidden[:, s - 1:s]).numpy(),
+          rtol=2e-2, atol=2e-2)
+    lg_dec, _ = model.decode_step(params, toks[:, s:s + 1], s, caches)
+    close(lg_dec, model.logits(params, hidden[:, -1:]).numpy(),
+          rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("arch", NON_DENSE)
+def test_non_dense_archs_are_not_ported_yet(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TransformerLM(C.get_reduced(arch), device="cpu")
+
+
+def test_loss_is_not_ported_yet(models):
+    _, _, m, p = models["qwen3-4b"]
+    with pytest.raises(NotImplementedError, match="training path"):
+        m.loss(p, {})
+
+
+def test_port_init_has_the_reference_tree(models):
+    for arch in DENSE:
+        _, rp, m, _ = models[arch]
+        got = m.init(torch.Generator().manual_seed(1))
+        want = jax.tree_util.tree_map(lambda a: tuple(a.shape), rp)
+        assert jax.tree_util.tree_map(lambda a: tuple(a.shape), got) == want
+        assert all(x.dtype == torch.float32
+                   for x in jax.tree_util.tree_leaves(got))
+
+
+def test_params_from_reference_checks_the_tree(models):
+    _, rp, m, _ = models["gemma2-2b"]
+    pnp = jax.tree_util.tree_map(np.asarray, rp)
+    bad = dict(pnp, embed=pnp["embed"][:, :3])
+    with pytest.raises(ValueError, match="embed"):
+        params_from_reference(bad, m.cfg, "cpu")
+    with pytest.raises(ValueError, match="lm_head"):
+        params_from_reference(dict(pnp, lm_head=pnp["embed"]), m.cfg, "cpu")
+
+
+def test_the_model_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TransformerLM(C.get_reduced("gemma2-2b"))
+
+
+# ---------------------------------------------------------------------------
+# the serving driver
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b"])
+def test_driver_matches_the_reference_model(arch):
+    """``--device cpu --reduced``: the port prefills ``prompt_len`` tokens
+    into a cache of ``prompt_len + gen`` and decodes from ``prompt_len``;
+    the reference model called that way, on the port's parameters and
+    prompts, gives the same greedy tokens."""
+    b, plen, gen = 3, 10, 6
+    lines = []
+    out = serve.serve(arch, reduced=True, batch=b, prompt_len=plen, gen=gen,
+                      device="cpu", seed=5, log=lines.append)
+    assert out["tokens"].shape == (b, gen) and len(lines) == 2
+    assert "tok/s" in lines[1] and "sample row" in lines[1]
+    cfg = RC.get_reduced(arch)
+    m = TransformerLM(C.get_reduced(arch), device="cpu")
+    rp = jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()),
+                                m.init(torch.Generator().manual_seed(5)))
+    rm = RefLM(cfg, remat=False)
+    lg, caches = rm.prefill(rp, jnp.asarray(out["prompts"], jnp.int32),
+                            cache_len=plen + gen)
+    tok = jnp.argmax(lg[:, -1], -1).astype(jnp.int32)[:, None]
+    want = [np.asarray(tok)]
+    for i in range(gen - 1):
+        lg, caches = rm.decode_step(rp, tok, plen + i, caches)
+        tok = jnp.argmax(lg[:, -1], -1).astype(jnp.int32)[:, None]
+        want.append(np.asarray(tok))
+    np.testing.assert_array_equal(out["tokens"], np.concatenate(want, 1))
+
+
+def test_driver_main_runs_on_the_cpu_and_counts_no_launch():
+    ops.reset_launch_counts()
+    toks = serve.main(["--device", "cpu", "--reduced", "--arch", "gemma3-4b",
+                       "--batch", "2", "--prompt-len", "5", "--gen", "3"])
+    assert toks.shape == (2, 3)
+    assert not any(ops.launch_counts().values())
+
+
+def test_driver_keeps_each_steps_logits():
+    out = serve.serve("qwen3-14b", reduced=True, batch=2, prompt_len=4,
+                      gen=4, device="cpu", keep_logits=True,
+                      log=lambda m: None)
+    assert len(out["logits"]) == 4
+    got = np.stack([lg.argmax(-1).numpy() for lg in out["logits"]], 1)
+    np.testing.assert_array_equal(got, out["tokens"])
+
+
+def test_driver_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--reduced"])
+
+
+def test_layer_spec_is_the_reference_dataclass_copy():
+    assert dataclasses.asdict(LayerSpec(window=8)) == \
+        dataclasses.asdict(RC.get_reduced("gemma2-2b").stages[0].pattern[0])

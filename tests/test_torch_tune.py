@@ -629,3 +629,32 @@ def test_train_driver_tunes_then_replays(tmp_path):
                              "--tile", "8", "--node-block", "8", "--tune",
                              "cached", "--tune-cache", cache])
     assert stats["tune_measurements"] == 0
+
+
+def test_card_keys_measure_the_kernels_default_column_tile():
+    """On a CUDA key the default column tile is the kernels' 64 columns
+    (``kColTile``), not the reference's 128: for n = 128 the candidates
+    hold ``tile_n=128`` (a distinct kernel configuration), and the cost
+    prior counts 64-column steps for the default. CPU keys keep the
+    reference's default."""
+    card = "cuda:NVIDIA H100 80GB HBM3"
+    key = (f"gemm|edge_src|etype|etype_ptr|k64|n128|s0|t32|g4|"
+           f"rp1024|x512|float32|{card}")
+    cands = space.candidates_for_key(key, "cuda")
+    assert space.GemmVariant(tile_n=128) in cands
+    assert tdevice.default_tile_n(card) == 64
+    steps = 1024 // 32
+    default = cost.score(key, space.GEMM_DEFAULT, "cuda")
+    wide = cost.score(key, space.GemmVariant(tile_n=128), "cuda")
+    assert default - wide == steps * (128 // 64 - 1) * \
+        cost._GRID_STEP_COST_BYTES
+    # n = 64 clips every request to the default on the card too
+    narrow = key.replace("|n128|", "|n64|")
+    assert all(v.tile_n is None
+               for v in space.candidates_for_key(narrow, "cuda"))
+    # the CPU key of the same op keeps the reference's list and score
+    cpu = key.replace(card, "cpu")
+    assert all(v.tile_n is None
+               for v in space.candidates_for_key(cpu, "cpu"))
+    assert cost.score(cpu, space.GEMM_DEFAULT, "cpu") == \
+        rcost.score(cpu, rspace.GEMM_DEFAULT, "pallas_interpret")
