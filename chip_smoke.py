@@ -102,7 +102,10 @@ all four dense configs); any failure exits non-zero:
    ``serve_rgnn.serve(model="rgcn", tune="full")`` at aifb-b32, each
    batch against the CPU run within 2e-4; (e) ``Tuner.tune_stack`` of a
    2-layer RGAT over bgs at scale 1.0, each layout candidate's plan time;
-12. LM serving with K10, the flash attention of prefill and decode: (b)
+12. LM serving with K10, the flash attention of prefill and decode: first
+   K10's kernels as built (ptxas's registers and spills for each, and the
+   HMMA / HGMMA count of each kernel's SASS from ``cuobjdump -sass``: the
+   tensor-core prefill kernel must have some); (b)
    ``repro_torch.launch.serve`` at full width in bf16 (the port's own
    init): gemma2-2b at batch 4, prompt 4096, gen 32 (26 layers; decode
    positions past 4096 reach the local layers' window; softcap 50) and
@@ -117,7 +120,11 @@ all four dense configs); any failure exits non-zero:
    256, batch 1, rows whose first tiles are all before the window, rows
    that see no key (they average every value, as the reference's do), a
    split decode, a cache layer read in place, non-contiguous K / V, an
-   empty query that launches nothing): rtol = atol = 2e-5 in fp32 (the
+   empty query that launches nothing), each in its own dtype and in bf16,
+   and bf16 cases across the tensor-core and decode kernels' tile edges
+   (rows and keys off the tile, chunked prefill, window edges inside a
+   tile, a cache layer read in place with Sk > Sq), so that every route of
+   ``flash_attention.plan`` is held: rtol = atol = 2e-5 in fp32 (the
    reference's ``tests/test_flash.py`` bound); in bf16 rtol = 2^-7 (one
    bf16 ulp) and atol = 2e-5, inside the reference's 3e-2; each kept call
    is held again upcast to fp32 at 2e-5; (d) at the
@@ -2321,7 +2328,9 @@ LM_MARGIN = 1e-3
 # the dense bf16 tensor-core peak of the H100 SXM: the operations bound of
 # bf16 K10 calls (fp32 calls use FP32_FLOPS)
 BF16_FLOPS = 989e12
-# (b, sq, sk, h, kv, hd, dtype, options) of (a)'s edge cases
+# (b, sq, sk, h, kv, hd, dtype, options) of (a)'s edge cases; each runs in
+# its own dtype and again in bf16, so the tensor-core and decode kernels
+# see every mask shape (bf16 at hd 8 / 12 takes the CUDA-core kernel)
 K10_EDGE = (
     (2, 37, 101, 10, 2, 64, "float32", dict(q_offset=20)),      # ragged, g=5
     (3, 1, 333, 8, 1, 128, "float32", dict(q_offset=0)),        # MQA decode
@@ -2344,6 +2353,23 @@ K10_EDGE = (
     (1, 1, 4128, 8, 4, 256, "float32", dict(window=8, q_offset=4200)),
     (2, 300, 300, 8, 4, 256, "bfloat16", dict(window=128, softcap=50.0)),
     (8, 1, 2080, 40, 8, 128, "bfloat16", dict(q_offset=2079)),  # g=5 decode
+)
+# bf16 cases across the tensor-core and decode kernels' tile edges: rows
+# not a multiple of the row block (Sq 37 x g 5), keys not a multiple of the
+# 64-key tile, chunked prefill (q_offset > 0, Sq > 1), window edges inside
+# a tile, hd 16 / 64 / 128 / 256, one exact tile, split prefill without
+# causal masking, and decode-sized row counts up to 63
+K10_TILE_EDGE = (
+    (2, 37, 300, 10, 2, 64, dict(q_offset=263)),
+    (1, 100, 1000, 8, 4, 128, dict(window=100, q_offset=900)),
+    (2, 65, 65, 4, 2, 16, dict()),
+    (1, 200, 333, 4, 1, 256, dict(window=77, softcap=30.0, q_offset=133)),
+    (3, 64, 64, 2, 2, 128, dict()),
+    (2, 96, 150, 6, 3, 64, dict(q_offset=54, window=33)),
+    (1, 64, 2000, 2, 2, 128, dict(causal=False)),
+    (2, 7, 500, 8, 1, 128, dict(q_offset=493)),
+    (4, 3, 1000, 12, 4, 64, dict(window=300, q_offset=997)),
+    (1, 21, 190, 12, 4, 256, dict(q_offset=169, softcap=50.0)),
 )
 
 
@@ -2497,7 +2523,6 @@ def hold_k10(torch, F, captured, results):
     keys), the wrapper's time (CUDA events), the plain version's, SDPA's
     and the bound."""
     r = results[K10]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for tag, (args, kw) in captured.items():
         fn = lambda: F.flash_attention(*args, **kw)          # noqa: E731
         plain = lambda: F.flash_attention_plain(*args, **kw)  # noqa: E731
@@ -2511,12 +2536,9 @@ def hold_k10(torch, F, captured, results):
                         F.flash_attention_plain(*wide, **kw),
                         *K10_TOL["torch.float32"])
         del wide
-        q, k = args[0], args[1]
-        splits, _ = F.key_splits(q.shape[0], k.shape[2],
-                                 q.shape[1] * (q.shape[2] // k.shape[2]),
-                                 k.shape[1], sms)
-        ms = device_ms(torch, fn, "flash_", reps=10,
-                       per_call=2 if splits > 1 else 1)
+        plan = F.plan(args[0], args[1])
+        splits = plan.splits
+        ms = device_ms(torch, fn, "flash_", reps=10, per_call=plan.kernels)
         wrapper_ms = time_ms(torch, fn, reps=10, inner=2)
         plain_ms = time_ms(torch, plain, reps=5, inner=2)
         lib = k10_library(torch, F, args, kw)
@@ -2529,15 +2551,16 @@ def hold_k10(torch, F, captured, results):
                                wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                                library_ms=library_ms, bound_ms=b_ms,
                                bound_by=b_by, bytes=nbytes, flops=flops,
-                               splits=splits, max_abs_err=err,
+                               route=plan.route, splits=splits,
+                               max_abs_err=err,
                                fp32_max_abs_err=err32,
                                library_max_abs_diff=lib_err))
         r["max_abs_err_by"][tag] = err
         r["max_abs_err"] = max(r["max_abs_err"], err)
         log(f"[phase 12] {K10} ({tag}) {shape}: max abs err {err:.3g} "
             f"(upcast to fp32: {err32:.3g}); "
-            f"kernel {ms:.5f} ms on the device ({splits} key split"
-            f"{'s' if splits > 1 else ''}), wrapper {wrapper_ms:.4f} ms, "
+            f"kernel {ms:.5f} ms on the device ({plan.route}, {splits} key "
+            f"split{'s' if splits > 1 else ''}), wrapper {wrapper_ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
             f"{library_ms:.4f} ms (max abs diff from the plain version "
             f"{lib_err:.3g}), bound {b_ms:.5f} ms ({b_by}, {nbytes} B, "
@@ -2545,43 +2568,106 @@ def hold_k10(torch, F, captured, results):
 
 
 def k10_edge_cases(torch, F, ops, results):
-    """(a)'s edge cases (``K10_EDGE``), a KV cache's layer read in place,
-    a non-contiguous k / v (copied by the wrapper), and an empty query
-    that launches nothing."""
+    """(a)'s edge cases (``K10_EDGE`` in their own dtype and in bf16,
+    ``K10_TILE_EDGE`` in bf16), a KV cache's layer read in place (fp32 and
+    bf16, prefill chunk and decode), a non-contiguous k / v (copied by the
+    wrapper), and an empty query that launches nothing. Every route of
+    ``F.plan`` must be taken."""
     gen = torch.Generator(device="cuda").manual_seed(0)
+    routes = {}
 
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     def hold(name, q, k, v, kw):
+        route = F.plan(q, k).route
         got = F.flash_attention(q, k, v, **kw)
         want = F.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
-        err = compare(torch, f"{K10} edge {name}", got, want,
+        err = compare(torch, f"{K10} edge {name} ({route})", got, want,
                       *K10_TOL[str(q.dtype)])
         results[K10]["max_abs_err"] = max(results[K10]["max_abs_err"], err)
+        routes[route] = routes.get(route, 0) + 1
         return err
 
+    cases = [(c, dt) for c in K10_EDGE for dt in sorted({c[6], "bfloat16"})]
+    cases += [(c[:6] + ("bfloat16", c[6]), "bfloat16")
+              for c in K10_TILE_EDGE]
     errs = []
-    for b, sq, sk, h, kv, hd, dt, kw in K10_EDGE:
+    for (b, sq, sk, h, kv, hd, _, kw), dt in cases:
         dtype = getattr(torch, dt)
         q = randn(b, sq, h, hd, dtype=dtype)
         k, v = (randn(b, sk, kv, hd, dtype=dtype) for _ in range(2))
         errs.append(hold(_k10_shape((q, k, v), kw), q, k, v, kw))
-    cache = randn(2, 3, 2, 40, 2, 64, dtype=torch.float32)   # [k|v, R, ...]
+    for dtype in (torch.float32, torch.bfloat16):
+        cache = randn(2, 3, 2, 300, 2, 128, dtype=dtype)  # [k|v, R, ...]
+        k, v = cache[0, 1], cache[1, 1]
+        check(F._operand(k, 128, 4 if dtype == torch.float32 else 8) is k,
+              "a KV cache layer was copied, not read in place")
+        for sq, off in ((70, 200), (1, 299)):
+            q = randn(2, sq, 4, 128, dtype=dtype)
+            errs.append(hold(f"cache layer in place, {sq} queries at {off} "
+                             f"({str(dtype)[6:]})", q, k, v,
+                             dict(q_offset=off)))
     q = randn(2, 1, 4, 64, dtype=torch.float32)
-    errs.append(hold("cache layer in place", q, cache[0, 1], cache[1, 1],
-                     dict(q_offset=25)))
     kt = randn(2, 2, 40, 64, dtype=torch.float32).transpose(1, 2)
     errs.append(hold("non-contiguous k, v", q, kt, kt, dict(q_offset=39)))
+    check(sorted(routes) == sorted(F.ROUTES),
+          f"K10 edge cases took routes {routes}, not all of {F.ROUTES}")
     before = ops.launch_counts()[K10]
     out = F.flash_attention(randn(2, 0, 4, 64, dtype=torch.float32),
                             kt, kt)
     check(out.shape == (2, 0, 4, 64) and ops.launch_counts()[K10] == before,
           "an empty query launched K10")
     log(f"[phase 12] K10 edge cases: {len(errs)} kernel-vs-plain checks "
-        f"passed (max abs err {max(errs):.3g}); an empty query launches "
-        f"nothing")
+        f"passed (max abs err {max(errs):.3g}; routes {routes}); an empty "
+        f"query launches nothing")
+
+
+def k10_build_report(F):
+    """K10's kernels as built: ptxas's registers and spills for each (from
+    this process's build), and the tensor-core instructions (HMMA / HGMMA)
+    in each kernel's SASS (``cuobjdump -sass`` of the library); fails if
+    the tensor-core prefill kernel has none. Returns the SASS counts."""
+    import re
+
+    from repro_torch.kernels import build
+
+    def short(mangled):
+        m = re.search(r"\d+(flash_\w+?)(?:EvNS|ENS)_6ParamsE", mangled)
+        return m.group(1) if m else mangled
+
+    name, report = None, build.build_log.get("flash_attention")
+    for line in (report or "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = short(m.group(1))
+        elif name and ("registers" in line or "spill" in line):
+            log(f"[phase 12] ptxas {name}: "
+                f"{line.split(':', 1)[-1].strip()}")
+    if report is None:
+        log("[phase 12] ptxas: flash_attention was built before this run; "
+            "no report")
+    lib = F._library()
+    cuobjdump = pathlib.Path(build.nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(cuobjdump), "-sass", lib._name],
+                          capture_output=True, text=True, timeout=300)
+    check(dump.returncode == 0, f"cuobjdump -sass failed: {dump.stderr}")
+    counts, name = {}, None
+    for line in dump.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = short(m.group(1))
+            counts[name] = 0
+        elif name and re.search(r"\bH(G)?MMA\.", line):
+            counts[name] += 1
+    for name, n in sorted(counts.items()):
+        log(f"[phase 12] SASS {name}: {n} tensor-core instructions")
+    mma = {n: c for n, c in counts.items()
+           if n.startswith("flash_attention_mma_kernel")}
+    check(bool(mma) and all(c > 0 for c in mma.values()),
+          f"the tensor-core prefill kernel issues no HMMA / HGMMA: {mma}")
+    return counts
 
 
 def _params_to(tree, device):
@@ -2721,6 +2807,7 @@ def phase_lm(torch, ops, C, F, serve, TransformerLM):
     times; (c) the card against the CPU; then where each serve run's time
     goes. K10's launches are (b)'s, each run counted from 0."""
     results = new_results([K10])
+    results[K10]["sass_tensor_instructions"] = k10_build_report(F)
     serve_runs, captured = {}, {}
     for tag, run in LM_SERVE_RUNS:
         serve_runs[tag], calls = phase_lm_serve(torch, ops, serve, C,

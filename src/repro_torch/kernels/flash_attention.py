@@ -2,15 +2,18 @@
 plain version.
 
 ``flash_attention``        the wrapper: a CPU tensor runs the plain version,
-                           a CUDA tensor launches the hand-written Hopper
-                           kernel in ``csrc/flash_attention.cu`` (which
-                           replaces ``repro/kernels/flash_attention.py``'s
-                           Pallas kernel). Nothing falls back: a failed build
+                           a CUDA tensor launches one of the hand-written
+                           Hopper kernels in ``csrc/flash_attention.cu``
+                           (which replace ``repro/kernels/
+                           flash_attention.py``'s Pallas kernel), the one
+                           ``plan`` names. Nothing falls back: a failed build
                            or launch raises. ``flash_attention.launches``
-                           counts its launches.
+                           counts its calls that launch.
 ``flash_attention_plain``  the einsum / softmax of ``repro/nn/attention.py``
                            (and ``tests/test_flash.py::ref_attention``) on
                            tensors, in fp32, for any lengths.
+``plan``                   the kernel a call takes (``route``), its key
+                           splits and how many kernels it launches.
 
 Both take ``q [B, Sq, H, hd]`` and ``k, v [B, Sk, KV, hd]`` (KV divides H;
 head ``h`` reads KV head ``h // (H / KV)``), query ``i`` at position
@@ -23,7 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,20 +34,24 @@ from repro_torch.kernels import build
 
 _NEG = -1e30
 
-# the kernel's tiles (``kRows`` query rows, ``kKeys`` keys a thread block)
+# rows a thread block of the "fma" kernel serves, and of the "mma" kernel
+# (128 at hd 128); the "mma" route takes calls of at least this many rows.
+# Keys a tile of each route's kernel (a key split's chunk is a multiple).
 ROWS_PER_BLOCK = 64
-KEYS_PER_TILE = 32
-# decode's key splits: about this many thread blocks per SM, and at least
-# this many keys a split
+KEY_TILE = {"fma": 32, "mma": 64, "decode": 16}
+# key splits: towards this many thread blocks per SM, at least this many
+# keys a split
 _BLOCKS_PER_SM = 2
 _MIN_SPLIT_KEYS = 128
 MAX_HEAD_DIM = 256
+# the kernels of ``csrc/flash_attention.cu``, by the id the C entry takes
+ROUTES = ("fma", "mma", "decode")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "flash_attention_fwd": ([_P] * 5 + [_I] * 7 + [_L] * 6
+    "flash_attention_fwd": ([_P] * 5 + [_I] * 8 + [_L] * 6
                             + [_I, _I, ctypes.c_float, _I, _I, _I, _P]),
-    "flash_attention_smem_bytes": [_I],
+    "flash_attention_smem_bytes": [_I, _I],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -114,30 +121,78 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def key_splits(b: int, kv: int, rows: int, sk: int,
-               sms: int) -> Tuple[int, int]:
-    """``(splits, chunk)``: how many thread blocks share each (batch, KV
-    head, row tile)'s key range, and the keys of each (a multiple of the
-    key tile). A grid of ``b * kv * ceil(rows / 64)`` blocks that leaves
-    SMs idle (decode) is split towards ``2 * sms`` blocks, at least 128
-    keys a split; it depends on the shapes only, so every decode step over
-    one cache splits alike."""
-    base = b * kv * -(-rows // ROWS_PER_BLOCK)
+class Plan(NamedTuple):
+    """How one call runs on the card: the kernel (``route``), the thread
+    blocks sharing each key range (``splits``) and the keys of each."""
+    route: str
+    splits: int
+    chunk: int
+
+    @property
+    def kernels(self) -> int:
+        """Kernels the call launches: the route's, and the split combine
+        where the keys are split."""
+        return 2 if self.splits > 1 else 1
+
+
+def route(dtype: torch.dtype, hd: int, rows: int) -> str:
+    """The kernel a call takes, by dtype, head dim and its ``Sq * g``
+    flattened (query, head-in-group) rows: ``"mma"`` (tensor cores) for
+    bf16 with ``hd`` a multiple of 16 and at least 64 rows (every prefill),
+    ``"decode"`` (the warps spread over the keys) for the same with fewer
+    rows, and ``"fma"`` (CUDA-core fp32 FMAs) for fp32 inputs and bf16 at
+    other head dims. A dispatch between kernels, not a fallback: each
+    raises if it fails to build or launch."""
+    if dtype != torch.bfloat16 or hd % 16:
+        return "fma"
+    return "mma" if rows >= ROWS_PER_BLOCK else "decode"
+
+
+def key_splits(b: int, kv: int, rows: int, sk: int, sms: int,
+               route: str) -> Tuple[int, int]:
+    """``(splits, chunk)``: how many thread blocks share each key range, and
+    the keys of each (a multiple of ``KEY_TILE[route]``). The grid has
+    ``b * kv`` blocks at decode (one serves every row of a (batch, KV
+    head)), else ``b * kv * ceil(rows / 64)``. A grid that leaves SMs idle
+    is split towards at most ``2 * sms`` blocks, at least 128 keys a split;
+    it depends on the shapes only, so every decode step over one cache
+    splits alike."""
+    base = b * kv * (1 if route == "decode" else -(-rows // ROWS_PER_BLOCK))
     if base >= sms:
         return 1, sk
-    want = -(-_BLOCKS_PER_SM * sms // base)
-    splits = max(1, min(want, -(-sk // _MIN_SPLIT_KEYS)))
+    splits = max(1, min(_BLOCKS_PER_SM * sms // base,
+                        -(-sk // _MIN_SPLIT_KEYS)))
+    tile = KEY_TILE[route]
     chunk = -(-sk // splits)
-    chunk = -(-chunk // KEYS_PER_TILE) * KEYS_PER_TILE
+    chunk = -(-chunk // tile) * tile
     return -(-sk // chunk), chunk
 
 
-def _operand(t: torch.Tensor, hd: int) -> torch.Tensor:
-    """``t`` itself where the kernel can read it in place (unit element
-    stride, heads ``hd`` apart, batch and sequence strides multiples of 4,
-    a 16-byte aligned base), else a contiguous copy."""
-    if (t.stride(3) == 1 and t.stride(2) == hd and t.stride(0) % 4 == 0
-            and t.stride(1) % 4 == 0 and t.data_ptr() % 16 == 0):
+def plan(q: torch.Tensor, k: torch.Tensor,
+         sms: Optional[int] = None) -> Plan:
+    """The ``Plan`` of ``flash_attention(q, k, ...)`` on a card of ``sms``
+    SMs (default: ``q``'s card)."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    rows = sq * (h // kv)
+    if sms is None:
+        index = q.device.index if q.device.index is not None else \
+            torch.cuda.current_device()
+        sms = _sm_count(index)
+    r = route(q.dtype, hd, rows)
+    return Plan(r, *key_splits(b, kv, rows, sk, sms, r))
+
+
+def _operand(t: torch.Tensor, hd: int, align: int) -> torch.Tensor:
+    """``t`` itself where the kernel can read it in place, else a
+    contiguous copy. In place: unit element stride, heads ``hd`` apart,
+    batch and sequence strides multiples of ``align`` elements (16 bytes
+    for the tensor-core and decode kernels' loads, 4 elements for the
+    CUDA-core kernel's), a 16-byte aligned base. A KV cache's ``[B, Sk, KV,
+    hd]`` slice passes (its strides are multiples of ``KV * hd``), so only
+    a layout that breaks one of these is copied."""
+    if (t.stride(3) == 1 and t.stride(2) == hd and t.stride(0) % align == 0
+            and t.stride(1) % align == 0 and t.data_ptr() % 16 == 0):
         return t
     return t.contiguous() if not t.is_contiguous() else t.clone()
 
@@ -169,34 +224,38 @@ def flash_attention(
     if hd % 4 or hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head_dim {hd} must be a multiple "
                          f"of 4 and at most {MAX_HEAD_DIM}")
-    if b * kv > 65535:
-        raise ValueError(f"flash_attention: batch x KV heads = {b * kv} "
-                         f"exceeds the grid's 65535")
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0 or sk == 0:
         return out.zero_()                        # nothing is launched
-    q, k, v = _operand(q, hd), _operand(k, hd), _operand(v, hd)
+    pl = plan(q, k)
+    # the grid's y dimension: (batch, KV head) pairs on the CUDA-core
+    # kernel, row blocks on the tensor-core one, key splits at decode
+    grid_y = {"fma": b * kv, "mma": -(-sq * (h // kv) // ROWS_PER_BLOCK),
+              "decode": pl.splits}[pl.route]
+    if grid_y > 65535:
+        raise ValueError(f"flash_attention: {grid_y} thread blocks in the "
+                         f"grid's y dimension exceed its 65535")
+    align = 4 if pl.route == "fma" else 16 // q.element_size()
+    q, k, v = (_operand(t, hd, align) for t in (q, k, v))
     lib = _library()
-    smem = lib.flash_attention_smem_bytes(hd)
+    smem = lib.flash_attention_smem_bytes(ROUTES.index(pl.route), hd)
     if smem > build.MAX_SMEM_BYTES:
         raise ValueError(f"flash_attention: head_dim {hd} needs {smem} bytes "
                          f"of shared memory per block (limit "
                          f"{build.MAX_SMEM_BYTES})")
-    index = q.device.index if q.device.index is not None else \
-        torch.cuda.current_device()
-    splits, chunk = key_splits(b, kv, sq * (h // kv), sk, _sm_count(index))
     ws = None
-    if splits > 1:
-        ws = torch.empty((splits * b * sq * h * (hd + 2),),
+    if pl.splits > 1:
+        ws = torch.empty((pl.splits * b * sq * h * (hd + 2),),
                          dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             ws.data_ptr() if ws is not None else None, _DTYPES[q.dtype],
-            b, sq, sk, h, kv, hd, q.stride(0), q.stride(1), k.stride(0),
-            k.stride(1), v.stride(0), v.stride(1), int(causal),
-            int(window or 0), float(softcap or 0.0), int(q_offset), splits,
-            chunk, torch.cuda.current_stream(q.device).cuda_stream)
+            ROUTES.index(pl.route), b, sq, sk, h, kv, hd, q.stride(0),
+            q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            int(causal), int(window or 0), float(softcap or 0.0),
+            int(q_offset), pl.splits, pl.chunk,
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, "flash_attention")
     flash_attention.launches += 1
     return out

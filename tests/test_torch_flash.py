@@ -5,7 +5,10 @@ CPU tensor) is held to the reference's Pallas kernel in interpret mode at
 every case of ``tests/test_flash.py``, at that file's tolerances, and to
 its ``ref_attention`` oracle at lengths the Pallas kernel cannot take
 (ragged ``Sq`` / ``Sk``, rows whose leading keys are all outside the
-window), and on rows that see no key. The CUDA kernel itself is checked against the plain version on
+window), and on rows that see no key. The wrapper's choice of kernel
+(``route`` / ``plan``), its key splits against the kernels' walk, and the
+precision argument of the tensor-core kernel's split P @ V are pinned here
+too. The CUDA kernels themselves are checked against the plain version on
 the card by ``chip_smoke.py`` (phase 12).
 """
 import numpy as np
@@ -184,14 +187,131 @@ def test_wrapper_rejects_heads_that_do_not_group():
 def test_key_splits_fill_the_card_at_decode_only():
     sms = 132
     # gemma2-2b prefill at 4096 tokens, batch 4: enough blocks, one split
-    assert F.key_splits(4, 4, 4096 * 2, 4096, sms) == (1, 4096)
-    # its decode over a 4128-slot cache: B * KV = 16 blocks are split
-    splits, chunk = F.key_splits(4, 4, 2, 4128, sms)
-    assert splits > 1 and chunk % F.KEYS_PER_TILE == 0
+    assert F.key_splits(4, 4, 4096 * 2, 4096, sms, "mma") == (1, 4096)
+    # its decode over a 4128-slot cache: one decode block per (batch, KV
+    # head), 16 blocks, split towards at most 2 x 132
+    splits, chunk = F.key_splits(4, 4, 2, 4128, sms, "decode")
+    assert splits > 1 and chunk % F.KEY_TILE["decode"] == 0
     assert (splits - 1) * chunk < 4128 <= splits * chunk
-    assert 16 * splits >= sms and chunk >= 128
-    # a short cache keeps at least 128 keys a split
-    assert F.key_splits(1, 1, 1, 100, sms) == (1, 128)
+    assert 16 * splits <= 2 * sms and chunk >= 128
+    # a short cache keeps at least 128 keys a split: one split
+    splits, chunk = F.key_splits(1, 1, 1, 100, sms, "decode")
+    assert splits == 1 and chunk >= 100
     # qwen3-4b decode, batch 8, 2080 slots
-    splits, chunk = F.key_splits(8, 8, 4, 2080, sms)
-    assert splits * chunk >= 2080 and 64 * splits >= sms
+    splits, chunk = F.key_splits(8, 8, 4, 2080, sms, "decode")
+    assert splits > 1 and splits * chunk >= 2080 and 64 * splits <= 2 * sms
+    # the CUDA-core kernel's 64-row blocks: fp32 decode splits alike
+    splits, chunk = F.key_splits(4, 4, 2, 4128, sms, "fma")
+    assert splits > 1 and chunk % F.KEY_TILE["fma"] == 0
+
+
+@pytest.mark.parametrize("dtype,hd,rows,want", [
+    (torch.bfloat16, 256, 4096 * 2, "mma"),    # gemma2-2b prefill
+    (torch.bfloat16, 128, 2048 * 4, "mma"),    # qwen3-4b prefill
+    (torch.bfloat16, 256, 2, "decode"),        # gemma2-2b decode
+    (torch.bfloat16, 128, 4, "decode"),        # qwen3-4b decode
+    (torch.bfloat16, 64, 64, "mma"),           # the row threshold
+    (torch.bfloat16, 64, 63, "decode"),
+    (torch.bfloat16, 16, 185, "mma"),          # hd 16, Sq 37 x g 5
+    (torch.bfloat16, 8, 8192, "fma"),          # hd not a multiple of 16
+    (torch.bfloat16, 12, 2, "fma"),
+    (torch.float32, 256, 8192, "fma"),         # fp32 stays on FMAs
+    (torch.float32, 128, 4, "fma"),
+])
+def test_route_by_dtype_head_dim_and_rows(dtype, hd, rows, want):
+    assert F.route(dtype, hd, rows) == want
+    assert want in F.ROUTES
+
+
+def test_plan_names_the_route_splits_and_kernels():
+    bf = torch.bfloat16
+    prefill = F.plan(torch.empty(4, 4096, 8, 256, dtype=bf),
+                     torch.empty(4, 4128, 4, 256, dtype=bf), sms=132)
+    assert prefill == F.Plan("mma", 1, 4128) and prefill.kernels == 1
+    decode = F.plan(torch.empty(4, 1, 8, 256, dtype=bf),
+                    torch.empty(4, 4128, 4, 256, dtype=bf), sms=132)
+    assert decode.route == "decode" and decode.splits > 1
+    assert decode.kernels == 2                   # the kernel and the combine
+    fp32 = F.plan(torch.empty(4, 1, 8, 256), torch.empty(4, 4128, 4, 256),
+                  sms=132)
+    assert fp32.route == "fma" and fp32.kernels == 2
+
+
+def _walked_keys(row0, last_row, split, g, sk, chunk, causal, window,
+                 q_offset):
+    """csrc/flash_attention.cu's visible_keys: the keys one block walks."""
+    qpos_lo, qpos_hi = q_offset + row0 // g, q_offset + last_row // g
+    lo, hi = split * chunk, min(sk, split * chunk + chunk)
+    blind_row = window is not None and qpos_hi - window + 1 >= sk
+    if causal:
+        hi = min(hi, qpos_hi + 1)
+    if window is not None and not blind_row:
+        lo = max(lo, qpos_lo - window + 1)
+    return set(range(lo, hi))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,kw", [
+    (1, 1, 4128, 8, 4, dict(q_offset=4127)),               # decode
+    (1, 1, 4128, 8, 4, dict(window=4096, q_offset=4126)),  # window
+    (1, 1, 4128, 8, 4, dict(window=8, q_offset=4200)),     # blind row
+    (2, 3, 1000, 10, 2, dict(q_offset=997)),               # g = 5, chunk
+    (1, 64, 2000, 2, 2, dict(causal=False)),               # split prefill
+    (1, 200, 300, 10, 2, dict(window=40, q_offset=100)),   # g = 5, window
+    (2, 70, 90, 4, 2, dict(causal=False, window=16, q_offset=60)),
+])
+def test_key_splits_cover_exactly_the_keys_each_row_sees(b, sq, sk, h, kv,
+                                                          kw):
+    """Each route's splits partition the keys, and the blocks' walks cover
+    every key a row sees (every key where it sees none) in exactly one
+    split; keys past a walk weigh 0."""
+    g, causal = h // kv, kw.get("causal", True)
+    window, off = kw.get("window"), kw.get("q_offset", 0)
+    sees = F.attention_mask(off + torch.arange(sq), torch.arange(sk),
+                            window, causal)
+    for dtype in (torch.bfloat16, torch.float32):
+        pl = F.plan(torch.empty(b, sq, h, 64, dtype=dtype),
+                    torch.empty(b, sk, kv, 64, dtype=dtype), sms=132)
+        starts = [s * pl.chunk for s in range(pl.splits)]
+        assert starts[-1] < sk <= starts[-1] + pl.chunk
+        rows = sq * g
+        block = rows if pl.route == "decode" else F.ROWS_PER_BLOCK
+        for size in {block, 2 * block if pl.route == "mma" else block}:
+            for row0 in range(0, rows, size):
+                last = min(row0 + size, rows) - 1
+                walks = [_walked_keys(row0, last, s, g, sk, pl.chunk, causal,
+                                      window, off)
+                         for s in range(pl.splits)]
+                walked = set().union(*walks)
+                assert sum(len(w) for w in walks) == len(walked)
+                for row in range(row0, last + 1):
+                    want = sees[row // g].nonzero().flatten().tolist()
+                    assert set(want or range(sk)) <= walked, (row, pl)
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+def test_split_bf16_probabilities_hold_one_ulp(hd):
+    """The tensor-core kernel's P @ V as P_hi @ V + P_lo @ V (P_hi =
+    bf16(p), P_lo = bf16(p - P_hi)), emulated in fp32 on the same bf16
+    inputs, stays within chip_smoke's bf16 bound of K10 (rtol 2^-7, atol
+    2e-5) of the plain version at long rows; P rounded to bf16 alone does
+    not."""
+    rng = np.random.default_rng(hd)
+    sq, sk = 8, 2048
+    q = torch.from_numpy(3 * rng.normal(size=(1, sq, 1, hd))).bfloat16()
+    k = torch.from_numpy(rng.normal(size=(1, sk, 1, hd))).bfloat16()
+    v = torch.from_numpy(rng.normal(size=(1, sk, 1, hd))).bfloat16()
+    want = F.flash_attention_plain(q, k, v, causal=False).float()
+    s = (q[0, :, 0].float() @ k[0, :, 0].float().T) / np.sqrt(hd)
+    p = torch.exp(s - s.max(-1, keepdim=True).values)
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    vf, den = v[0, :, 0].float(), p.sum(-1, keepdim=True)
+
+    def out(weights):
+        return sum(w @ vf for w in weights) / den
+
+    rtol, atol = 2 ** -7, 2e-5
+    torch.testing.assert_close(out([hi, lo]).bfloat16().float(),
+                               want[0, :, 0], rtol=rtol, atol=atol)
+    assert not torch.allclose(out([hi]).bfloat16().float(), want[0, :, 0],
+                              rtol=rtol, atol=atol)
