@@ -18,10 +18,17 @@ hand-written kernel in ``csrc/traversal.cu`` (replacing the functions of
 the same names in ``repro/kernels/traversal.py``). Nothing falls back;
 ``.launches`` on each wrapper counts its kernel launches.
 
-The plain versions index nodes through the tile -> block map ``t2b``; the
-kernels walk each node block's tile range from ``block_tile_ptr``. Pad
-slots carry ``local_dst == node_block`` and contribute nothing (the
-reference gives them scale 0); a message index of -1 contributes nothing.
+The plain versions index nodes through the tile -> block map ``t2b``.
+K2, K3 and K6 walk each node block's tile range from ``block_tile_ptr``
+with one thread block. K7 and K8 split by slots: ``ceil(T /
+chunk_tiles)`` units of ``K7_CHUNK_TILES`` consecutive tiles, each summed
+by one thread block into fp64 partials, and a second kernel that adds up,
+in unit order, the nodes whose slots cross a unit edge (one call, two
+launches, counted once). They rely on the order ``slot_keys`` states,
+which every layout builder keeps: real slots sorted by destination, each
+node block's pads after its real slots. Pad slots carry ``local_dst ==
+node_block`` and contribute nothing (the reference gives them scale 0); a
+message index of -1 contributes nothing.
 A node without edges, and every node of a block that owns no tile, gets
 ``mx = -1e30``, ``den = 0`` and a zero output row: the Pallas kernels never
 write the blocks without tiles. Inputs and outputs are fp32 (the plain
@@ -45,16 +52,21 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "seg_stats_f32": [_P] * 5 + [_I] * 3 + [_P],
     "seg_softmax_agg_gather_f32": [_P] * 8 + [_I] * 4 + [_P],
-    "seg_weighted_agg_gather_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "seg_weighted_agg_gather_f32": [_P] * 8 + [_I] * 7 + [_P],
     "seg_softmax_agg_padded_f32": [_P] * 7 + [_I] * 4 + [_P],
-    "seg_weighted_agg_padded_f32": [_P] * 5 + [_I] * 4 + [_P],
+    "seg_weighted_agg_padded_f32": [_P] * 7 + [_I] * 7 + [_P],
     "seg_agg_smem_bytes": [_I] * 3,
+    "seg_weighted_agg_smem_bytes": [_I] * 4,
 }
+# K7's and K8's work unit: this many consecutive tiles of the slot array
+# (256 slots at tile 32) to a thread block
+K7_CHUNK_TILES = 8
 
 
 def _library() -> ctypes.CDLL:
     return build.load("traversal", _SIGNATURES,
-                      sizes=("seg_agg_smem_bytes",))
+                      sizes=("seg_agg_smem_bytes",
+                             "seg_weighted_agg_smem_bytes"))
 
 
 def _slot_nodes(local_dst_p: torch.Tensor, t2b: torch.Tensor,
@@ -65,6 +77,20 @@ def _slot_nodes(local_dst_p: torch.Tensor, t2b: torch.Tensor,
     valid = ld < node_block
     blk = t2b[:num_tiles].long().repeat_interleave(tile)
     return valid, blk * node_block + torch.where(valid, ld, 0)
+
+
+def slot_keys(local_dst_p: torch.Tensor, t2b: torch.Tensor,
+              node_block: int) -> torch.Tensor:
+    """The sort key of every flat slot, as K7 and K8 compute it: ``2 *``
+    the global destination of a real slot, ``2 *`` the last node of its
+    block ``+ 1`` for a pad. The kernels rely on these keys never
+    decreasing along the slots: the real slots' destinations are sorted,
+    and each node block's pad slots follow its real ones."""
+    num_tiles, tile = local_dst_p.shape
+    ld = local_dst_p.reshape(-1).long()
+    blk = t2b[:num_tiles].long().repeat_interleave(tile)
+    return torch.where(ld < node_block, 2 * (blk * node_block + ld),
+                       2 * (blk + 1) * node_block - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -204,22 +230,28 @@ def seg_weighted_agg_gather_padded_plain(scale_p, msg, mmap, local_dst_p,
 
 def seg_weighted_agg_gather_padded(scale_p, msg, mmap, local_dst_p, t2b,
                                    block_tile_ptr, *, node_block: int,
-                                   num_node_blocks: int):
+                                   num_node_blocks: int,
+                                   chunk_tiles: int = K7_CHUNK_TILES):
     """K7: scale-weighted aggregation with the message gather in-kernel.
 
     scale_p: [T, tile] per-slot scale (pad slots 0); msg: [Em, d] in
-    storage order; mmap: [T * tile] slot -> msg row, or -1."""
+    storage order; mmap: [T * tile] slot -> msg row, or -1. The kernel
+    splits the slots into units of ``chunk_tiles`` tiles (a keyword only
+    for sweeping it; the CPU route ignores it) and reads
+    ``block_tile_ptr`` only for the node blocks that own no tile."""
     if scale_p.device.type == "cpu":
         return seg_weighted_agg_gather_padded_plain(
             scale_p, msg, mmap, local_dst_p, t2b, block_tile_ptr,
             node_block=node_block, num_node_blocks=num_node_blocks)
-    out, launched = _launch_agg(
+    out, launched = _launch_weighted(
         "seg_weighted_agg_gather_padded", "seg_weighted_agg_gather_f32", msg,
         dict(scale_p=(scale_p, torch.float32), msg=(msg, torch.float32),
              mmap=(mmap, torch.int32),
              local_dst_p=(local_dst_p, torch.int32),
+             t2b=(t2b, torch.int32),
              block_tile_ptr=(block_tile_ptr, torch.int32)),
-        node_block=node_block, num_node_blocks=num_node_blocks)
+        node_block=node_block, num_node_blocks=num_node_blocks,
+        chunk_tiles=chunk_tiles)
     seg_weighted_agg_gather_padded.launches += launched
     return out
 
@@ -292,8 +324,10 @@ def seg_weighted_agg_padded_plain(scale_p, msg_p, local_dst_p, t2b,
 
 def seg_weighted_agg_padded(scale_p, msg_p, local_dst_p, t2b,
                             block_tile_ptr, *, node_block: int,
-                            num_node_blocks: int):
-    """K8: scale-weighted aggregation over pre-padded messages.
+                            num_node_blocks: int,
+                            chunk_tiles: int = K7_CHUNK_TILES):
+    """K8: scale-weighted aggregation over pre-padded messages, K7's walk
+    with slot ``i`` reading ``msg_p[i]``.
 
     scale_p: [T, tile] per-slot scale (pad slots 0); msg_p: [T * tile, d]."""
     _check_padded(msg_p, local_dst_p, "seg_weighted_agg_padded")
@@ -301,12 +335,14 @@ def seg_weighted_agg_padded(scale_p, msg_p, local_dst_p, t2b,
         return seg_weighted_agg_padded_plain(
             scale_p, msg_p, local_dst_p, t2b, block_tile_ptr,
             node_block=node_block, num_node_blocks=num_node_blocks)
-    out, launched = _launch_agg(
+    out, launched = _launch_weighted(
         "seg_weighted_agg_padded", "seg_weighted_agg_padded_f32", msg_p,
         dict(scale_p=(scale_p, torch.float32), msg_p=(msg_p, torch.float32),
              local_dst_p=(local_dst_p, torch.int32),
+             t2b=(t2b, torch.int32),
              block_tile_ptr=(block_tile_ptr, torch.int32)),
-        node_block=node_block, num_node_blocks=num_node_blocks)
+        node_block=node_block, num_node_blocks=num_node_blocks,
+        chunk_tiles=chunk_tiles)
     seg_weighted_agg_padded.launches += launched
     return out
 
@@ -316,7 +352,7 @@ seg_weighted_agg_padded.launches = 0
 
 def _launch_agg(kernel: str, entry: str, msg, named, *, node_block: int,
                 num_node_blocks: int):
-    """Launch K3, K6, K7 or K8 (the C entry point ``entry``) on the
+    """Launch K3 or K6 (the C entry point ``entry``) on the
     ``named`` ``(tensor, dtype)`` inputs, in the kernel's argument order;
     returns ``(out, 1)``, or ``(out, 0)`` for an empty grid, which is
     never launched. A device without a kernel raises."""
@@ -340,6 +376,71 @@ def _launch_agg(kernel: str, entry: str, msg, named, *, node_block: int,
         rc = getattr(lib, entry)(
             *(t.data_ptr() for t in args), out.data_ptr(), d,
             num_node_blocks, node_block, tile,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, rc, kernel)
+    return out, 1
+
+
+def _launch_weighted(kernel: str, entry: str, msg, named, *,
+                     node_block: int, num_node_blocks: int,
+                     chunk_tiles: int):
+    """Launch K7 or K8 (the C entry point ``entry``: the unit kernel, then
+    the combine kernel) on the ``named`` ``(tensor, dtype)`` inputs, in the
+    kernel's argument order; returns ``(out, 1)``, or ``(out, 0)`` where
+    there is nothing to sum (no slot, no node or no column): then every
+    row is zero and nothing is launched. A device without a kernel
+    raises.
+
+    The workspace holds a head and a tail partial row of fp64 for every
+    unit: ``ceil(T / chunk_tiles) * 2 * d * 8`` bytes (2,806 units of
+    d = 64 at the bgs full graph, T = 22,447: 2.9 MB); the combine reads
+    only the rows the unit kernel wrote, so it is not cleared."""
+    first = next(iter(named.values()))[0]
+    dev = first.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {dev}")
+    build.check_args(kernel, dev, **named)
+    _check_ptr(named["block_tile_ptr"][0], num_node_blocks, kernel)
+    local_dst_p, t2b = named["local_dst_p"][0], named["t2b"][0]
+    num_tiles, tile = (int(n) for n in local_dst_p.shape)
+    slots = num_tiles * tile
+    for name in ("scale_p", "mmap"):
+        if name in named and named[name][0].numel() != slots:
+            raise ValueError(f"{kernel}: {name} has "
+                             f"{named[name][0].numel()} entries for {slots} "
+                             f"slots")
+    if t2b.numel() < num_tiles:
+        raise ValueError(f"{kernel}: t2b has {t2b.numel()} entries for "
+                         f"{num_tiles} tiles")
+    if chunk_tiles < 1:
+        raise ValueError(f"{kernel}: chunk_tiles={chunk_tiles} below 1")
+    num_nodes = num_node_blocks * node_block
+    if 2 * num_nodes >= 2**31 or slots + chunk_tiles * tile >= 2**31:
+        raise ValueError(f"{kernel}: {num_nodes} nodes or {slots} slots "
+                         f"overflow the kernel's int32 keys")
+    d = int(msg.shape[-1])
+    if num_tiles == 0 or num_nodes == 0 or d == 0:
+        return torch.zeros((num_nodes, d), dtype=torch.float32,
+                           device=dev), 0
+    out = torch.empty((num_nodes, d), dtype=torch.float32, device=dev)
+    args = [t.contiguous() for t, _ in named.values()]
+    # columns a lane loads at once: the widest vector that divides d, fits
+    # the messages' alignment and still spreads a row over 8 lanes
+    msg_ptr = args[1].data_ptr()
+    vec = next(v for v in (4, 2, 1) if v == 1 or (
+        d % v == 0 and msg_ptr % (4 * v) == 0 and d // v >= 8))
+    lib = _library()
+    smem = lib.seg_weighted_agg_smem_bytes(d, tile, chunk_tiles, vec)
+    if smem > build.MAX_SMEM_BYTES:
+        raise ValueError(f"{kernel}: chunk_tiles={chunk_tiles}, tile={tile} "
+                         f"needs {smem} bytes of shared memory per block "
+                         f"(limit {build.MAX_SMEM_BYTES})")
+    units = -(-num_tiles // chunk_tiles)
+    ws = torch.empty((units * 2 * d,), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(
+            *(t.data_ptr() for t in args), out.data_ptr(), ws.data_ptr(), d,
+            num_tiles, num_node_blocks, node_block, tile, chunk_tiles, vec,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, kernel)
     return out, 1

@@ -1,0 +1,183 @@
+"""The slot order that K7 and K8 (``seg_weighted_agg_gather_padded``,
+``seg_weighted_agg_padded``) rely on, pinned for every layout builder of
+the port.
+
+The kernels cut the slot array into units of consecutive tiles and find
+each unit's destinations from the slots alone, so they need the real
+slots' global destinations (``t2b * node_block + local_dst``) never to
+decrease, and every pad slot of a node block's tile range to follow that
+block's real slots: ``traversal.slot_keys`` never decreases. Held here for
+the host ``block_csr``, the bucketed layouts of a served mini-batch (the
+pad node and the pure-pad tail) and ``ops.device_blocked_csr`` on the CPU,
+over sampled aifb / bgs blocks, a hub, nodes without edges and node
+blocks without tiles. The kernels' CPU route, which accepts and ignores
+``chunk_tiles``, is held to the plain versions.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.graph import HeteroGraph, table3_graph
+from repro_torch.kernels import layout as L
+from repro_torch.kernels import ops
+from repro_torch.kernels import traversal as TK
+from repro_torch.sampling.loader import build_minibatch
+from repro_torch.sampling.sampler import FanoutSampler
+
+SEEDS = np.array([3, 50, 7, 119, 0, 64, 201, 33], dtype=np.int32)
+
+
+def _sampled(name, scale):
+    graph = table3_graph(name, scale, seed=0)
+    return FanoutSampler(graph, [4, 4], seed=1).sample(
+        SEEDS % graph.num_nodes, batch_index=0)
+
+
+def _hub():
+    """Node 5 takes 3,000 in-edges, nodes 40-139 none (node blocks without
+    tiles at node_block 32 and 8), and a few nodes one edge each."""
+    rng = np.random.default_rng(3)
+    dst = np.concatenate([np.full(3000, 5), rng.integers(0, 40, 200),
+                          rng.integers(140, 160, 50)]).astype(np.int32)
+    src = rng.integers(0, 160, dst.shape[0]).astype(np.int32)
+    etype = rng.integers(0, 3, dst.shape[0]).astype(np.int32)
+    return HeteroGraph.from_edges(src, dst, etype, 170, 3)
+
+
+def _sparse():
+    """Every third node has an edge; the last 100 nodes none."""
+    rng = np.random.default_rng(4)
+    dst = np.repeat(np.arange(0, 300, 3), rng.integers(1, 4, 100))
+    src = rng.integers(0, 400, dst.shape[0])
+    etype = np.zeros(dst.shape[0], np.int32)
+    return HeteroGraph.from_edges(src, dst, etype, 400, 1)
+
+
+GRAPHS = {
+    "aifb blocks": lambda: [b.graph for b in _sampled("aifb", 0.05).blocks],
+    "bgs blocks": lambda: [b.graph for b in _sampled("bgs", 0.02).blocks],
+    "hub": lambda: [_hub()],
+    "sparse": lambda: [_sparse()],
+}
+
+
+def _host(g, tile, nb):
+    return ops.blocked_csr_dev(L.block_csr(g.dst_ptr, tile, nb), g.perm_dst)
+
+
+def _device(g, tile, nb):
+    """The device builder on the CPU, with two pure-pad tiles of room past
+    the worst-case per-block padding."""
+    num_blocks = -(-g.num_nodes // nb)
+    cap = g.num_edges + num_blocks * tile + 2 * tile
+    cap += -cap % tile
+    return ops.device_blocked_csr(
+        torch.from_numpy(g.dst_ptr), torch.from_numpy(g.dst_sorted),
+        torch.from_numpy(g.perm_dst), torch.from_numpy(g.edge_to_unique),
+        tile, nb, cap)
+
+
+def _layouts(case, builder, tile, nb):
+    if builder == "bucketed":
+        if case in ("aifb blocks", "bgs blocks"):
+            seq = _sampled(*{"aifb blocks": ("aifb", 0.05),
+                             "bgs blocks": ("bgs", 0.02)}[case])
+            mb = build_minibatch(seq, tile=tile, node_block=nb, bucket=True)
+            return [lay.blocked for lay in mb.layouts]
+        from repro_torch.core import codegen
+        from repro_torch.sampling.bucketing import pad_block_graph
+        return [codegen.build_kernel_layouts(pad_block_graph(g), tile, nb,
+                                             bucket=True).blocked
+                for g in GRAPHS[case]()]
+    build = {"host": _host, "device": _device}[builder]
+    return [build(g, tile, nb) for g in GRAPHS[case]()]
+
+
+def _keys_numpy(bcd):
+    ld = bcd.local_dst.numpy().reshape(-1).astype(np.int64)
+    nb = bcd.node_block
+    blk = np.repeat(bcd.t2b.numpy()[:bcd.local_dst.shape[0]],
+                    bcd.local_dst.shape[1]).astype(np.int64)
+    return np.where(ld < nb, 2 * (blk * nb + ld), 2 * (blk + 1) * nb - 1)
+
+
+@pytest.mark.parametrize("tile,nb", [(32, 32), (8, 8)])
+@pytest.mark.parametrize("builder", ["host", "bucketed", "device"])
+@pytest.mark.parametrize("case", sorted(GRAPHS))
+def test_slot_order_of_every_builder(case, builder, tile, nb):
+    for bcd in _layouts(case, builder, tile, nb):
+        ld = bcd.local_dst.reshape(-1).long()
+        real = ld < nb
+        blk = bcd.t2b[:bcd.local_dst.shape[0]].long().repeat_interleave(tile)
+        dst = (blk * nb + ld)[real]
+        assert bool((dst[1:] >= dst[:-1]).all()), "real slots out of order"
+        keys = TK.slot_keys(bcd.local_dst, bcd.t2b, nb)
+        np.testing.assert_array_equal(keys.numpy(), _keys_numpy(bcd))
+        assert bool((keys[1:] >= keys[:-1]).all()), "a pad slot precedes " \
+            "a real slot of its block"
+        assert int(real.sum()) > 0
+
+
+def test_bucketed_layouts_have_the_pad_node_and_a_pure_pad_tail():
+    """The served layouts carry what the slot split must handle: the
+    bucketing pad node, the last destination, with more slots than any
+    other, a run of tiles without a real slot at the end, and node blocks
+    without tiles."""
+    seq = _sampled("bgs", 0.02)
+    bcd = build_minibatch(seq, tile=8, node_block=8, bucket=True).layouts[
+        0].blocked
+    ld = bcd.local_dst.reshape(-1)
+    _, node = TK._slot_nodes(bcd.local_dst, bcd.t2b, 8)
+    real = node[ld < 8]
+    counts = torch.bincount(real)
+    assert int(counts.argmax()) == int(real[-1])
+    assert int(counts.max()) > int(torch.sort(counts).values[-2])
+    tiles_real = (bcd.local_dst < 8).any(dim=1)
+    assert not bool(tiles_real[-1])
+    btp = bcd.block_tile_ptr
+    assert bool((btp[1:] == btp[:-1]).any())
+
+
+def test_slot_keys_see_a_swapped_layout():
+    """The check finds a layout whose tiles are out of block order."""
+    g = _sparse()
+    bcd = _host(g, 8, 8)
+    keys = TK.slot_keys(bcd.local_dst, bcd.t2b, 8)
+    assert bool((keys[1:] >= keys[:-1]).all())
+    ld = bcd.local_dst.clone()
+    ld[[0, -1]] = ld[[-1, 0]]
+    t2b = bcd.t2b.clone()
+    t2b[[0, bcd.local_dst.shape[0] - 1]] = t2b[[bcd.local_dst.shape[0] - 1,
+                                                0]]
+    keys = TK.slot_keys(ld, t2b, 8)
+    assert not bool((keys[1:] >= keys[:-1]).all())
+
+
+@pytest.mark.parametrize("chunk_tiles", [1, 2, 8, 64])
+@pytest.mark.parametrize("kernel", ["K7", "K8"])
+def test_cpu_route_ignores_chunk_tiles(kernel, chunk_tiles):
+    rng = np.random.default_rng(chunk_tiles)
+    g = _hub()
+    bcd = _host(g, 8, 8)
+    e = g.num_edges
+    msg = torch.from_numpy(rng.normal(size=(e, 16)).astype(np.float32))
+    scale_p = ops._padded_scale(
+        torch.from_numpy(rng.normal(size=e).astype(np.float32)), bcd, msg)
+    kw = dict(node_block=8, num_node_blocks=bcd.num_node_blocks)
+    if kernel == "K7":
+        mmap = ops._msg_slot_map(bcd, None).clone()
+        mmap[::5] = -1
+        args = (scale_p, msg, mmap, bcd.local_dst, bcd.t2b,
+                bcd.block_tile_ptr)
+        fn, plain = (TK.seg_weighted_agg_gather_padded,
+                     TK.seg_weighted_agg_gather_padded_plain)
+    else:
+        args = (scale_p, ops.pad_rows(msg, bcd.edge_map), bcd.local_dst,
+                bcd.t2b, bcd.block_tile_ptr)
+        fn, plain = (TK.seg_weighted_agg_padded,
+                     TK.seg_weighted_agg_padded_plain)
+    launches = fn.launches
+    got = fn(*args, **kw, chunk_tiles=chunk_tiles)
+    assert torch.equal(got, plain(*args, **kw))
+    assert torch.equal(got, fn(*args, **kw))
+    assert fn.launches == launches
