@@ -11,7 +11,9 @@ all four dense configs); any failure exits non-zero:
 
 1. card and build: the card's name and power limit, TF32 off, every kernel
    in ``src/repro_torch/csrc`` built from source (one ``nvcc`` per file,
-   all at once), with the build seconds and ptxas's register report;
+   all at once), with the build seconds and ptxas's register report, and
+   the fp64 tensor-core (DMMA) instructions in K5's SASS (``cuobjdump
+   -sass``: the phase fails if there are none);
 2. kernels against their plain PyTorch versions on the card, at the shapes
    real runs give them (all captured): one served mini-batch of each serve
    phase (RGAT aifb-b32 and bgs-b1024: K1-K3; RGCN aifb-b32 and bgs-b1024:
@@ -19,22 +21,28 @@ all four dense configs); any failure exits non-zero:
    sampling and forward of the first device-sampled batch of RGAT at
    aifb-b32 and bgs-b1024 and RGCN at aifb-b32 (K9 at every window, K1-K3
    and K7 on the device-built layouts) and one sampled training step of
-   RGAT, RGCN and HGT (aifb-b64: K1-K5, K7); K7 and K8 (K8 on K7's
-   messages padded into the slots) at every captured K7 call, each at
-   unit sizes ``chunk_tiles`` 1 / 2 / 8 / 64 and bitwise against a second
-   launch, after the slot order they rely on is checked on the card;
+   RGAT, RGCN and HGT (aifb-b64: K1-K5, K7); K3 at every captured K3
+   call and K7 and K8 (K8 on K7's messages padded into the slots) at
+   every captured K7 call, each at unit sizes ``chunk_tiles`` 1 / 2 / 8 /
+   64 and bitwise against a second launch, after the slot order they rely
+   on is checked on the card; K5 bitwise against a second launch at every
+   call;
    plus edge cases (gather index -1, groups and node blocks without tiles,
    pow2 pad tiles, the scale epilogue, k = 1 and n = 1, a transposed W, a
    group long enough for many K5 chunks, the CUDA ``edge_softmax``, K7
    with ``scale=None``, compact rows with -1, d = 1, empty layouts that
    must not launch; K7 and K8 over a 40,000-slot destination across many
    units, unit edges at changes of destination, all-pad units and a
-   pure-pad tail, node blocks without tiles, d = 1 / 8 / 16 / 64 / 96; K9 with counts 0 and C, C = 1, odd row counts and
-   high-bit base keys; K5 with the static chunk bound of device-built
-   layouts). K9 is held bit for bit, decoded, to its plain version and to
-   numpy's ``edge_sample_keys``. Tolerances: K1 and K4 rtol = atol = 1e-5
-   (fp32 sums of at most 64 terms); K2 ``mx`` exact, ``den`` rtol 1e-5;
-   K3 rtol = atol = 2e-5 (the reference's own fused-vs-oracle bound); K5
+   pure-pad tail, node blocks without tiles, d = 1 / 8 / 16 / 64 / 96, and
+   K3 on the same layouts; K5 with single- and multi-chunk groups at
+   chunk sizes 1, 2 and the fitted one, k and n of 1 / 8 / 64, surplus
+   chunks and a launch without real tiles; K9 with counts 0 and C, C = 1,
+   odd row counts and high-bit base keys; K5 with the static chunk bound
+   of device-built layouts). K9 is held bit for bit, decoded, to its plain
+   version and to numpy's ``edge_sample_keys``. Tolerances: K1 and K4
+   rtol = atol = 1e-5 (fp32 sums of at most 64 terms); K2 ``mx`` exact,
+   ``den`` rtol 1e-5; K3 rtol = atol = 2e-5 (the reference's own
+   fused-vs-oracle bound); K5
    rtol = atol = 1e-6 and K7 rtol = atol = 1e-5 (the reference's
    ``test_weighted_agg`` bound; kernel and plain version both sum in fp64,
    so they agree to the final fp32 rounding). At the RGAT aifb served
@@ -42,11 +50,13 @@ all four dense configs); any failure exits non-zero:
    batch (K7) and RGAT's first device-sampled aifb batch (K9): each
    kernel's device time (mean of 20 calls under ``torch.profiler``), the
    wrapper's time per call (CUDA events, median of 25 runs of 10 calls:
-   host cost included), its plain version's time, its bound and, for K4,
-   ``torch.bmm`` on the same tiles, for K7 ``torch.sparse.mm`` of the
-   scales as a CSR matrix; K7 and K8 also at the RGCN bgs-b1024 batch's
-   hop-0 call (and in phase 7 at the RGCN bgs full-graph forward's
-   calls);
+   host cost included), its plain version's time, its bound and, for K1
+   and K4, ``torch.bmm`` on the same tiles, for K5 ``torch.bmm`` over the
+   groups' row runs zero-padded to the longest, for K7 ``torch.sparse.mm``
+   of the scales as a CSR matrix and for K3 of the softmax weights; K7
+   and K8 also at the RGCN bgs-b1024 batch's hop-0 call, K3 at RGAT's
+   (and in phase 7 at the bgs full-graph forward's calls, K5 at a bgs
+   full-graph step's calls);
 3. serving at the driver's defaults (2 layers, 64 wide, aifb at scale 1.0,
    fanout 5, 32 seeds x 8 batches) through
    ``repro_torch.launch.serve_rgnn.serve``, for RGAT, RGCN, HGT and
@@ -70,9 +80,10 @@ all four dense configs); any failure exits non-zero:
    step-parity bounds);
 7. full-graph training (``FullGraphTrainer``) of each: aifb, one step on
    the card against the CPU from phase 6's state, at its bounds; bgs at
-   scale 1.0, 3 steps with a finite loss, timed; for RGCN, K7 and K8 held
-   and timed (as phase 2 times them) at the K7 calls of one bgs
-   full-graph forward;
+   scale 1.0, 3 steps with a finite loss, timed; K5 held and timed at
+   every call of one bgs full-graph step; for RGCN,
+   K7 and K8 held and timed (as phase 2 times them) at the K7 calls of
+   one bgs full-graph forward, for RGAT and HGT K3 at its calls;
 8. one sampled step and one bgs full-graph step of each under
    ``torch.profiler``: device time per kernel and per step, the device's
    busy share, the split between the ``forward`` / ``backward`` /
@@ -225,9 +236,10 @@ FORWARD_LAUNCHES = {
     "hgt": {K1: 4, K2: 2, K3: 2, K4: 6},
 }
 
-# each ported kernel: its source, the TPU kernel it replaces, the name of
-# its ``__global__`` function(s) as the profiler reports them, and how many
-# kernels one call launches
+# each ported kernel: its source, the TPU kernel it replaces, a part of the
+# name of each of its ``__global__`` functions as the profiler reports them
+# (K3, K7, K8: the unit kernel and the combine instantiated for it), and
+# how many kernels one call launches
 KERNELS = {
     K1: dict(source="src/repro_torch/csrc/segment_mm.cu",
              replaces="src/repro/kernels/segment_mm.py:120",
@@ -237,13 +249,13 @@ KERNELS = {
              symbol="seg_stats_kernel"),
     K3: dict(source="src/repro_torch/csrc/traversal.cu",
              replaces="src/repro/kernels/traversal.py:224",
-             symbol="seg_softmax_agg_gather_kernel"),
+             symbol="softmax_agg_gather_", per_call=2),   # unit + combine
     K4: dict(source="src/repro_torch/csrc/segment_mm.cu",
              replaces="src/repro/kernels/segment_mm.py:44",
              symbol="segment_mm_padded_kernel"),
     K5: dict(source="src/repro_torch/csrc/segment_mm.cu",
              replaces="src/repro/kernels/segment_mm.py:194",
-             symbol="segment_outer_", per_call=2),     # partial + combine
+             symbol="segment_outer_kernel"),
     K6: dict(source="src/repro_torch/csrc/traversal.cu",
              replaces="src/repro/kernels/traversal.py:142",
              symbol="seg_softmax_agg_padded_kernel"),
@@ -334,35 +346,43 @@ def device_ms(torch, fn, symbol: str, reps: int = 20,
     ``symbol``...) over ``reps`` calls under ``torch.profiler`` (the host's
     share excluded).
 
-    Back-to-back profiler sessions sometimes drop kernel records (seen: 7
-    of 20 delivered, and once none), so the mean is over the launches it
-    recorded, and a session that recorded none is run again (at most
-    three sessions)."""
+    Back-to-back profiler sessions sometimes drop kernel records (seen: 3
+    of 20 delivered, their mean about 4x a full session's, and up to three
+    sessions in a row that delivered none). A session that recorded fewer
+    than half the launches is run again after a one-second pause (at most
+    three sessions); the mean is over the launches of the session that
+    recorded the most, and the run fails if none recorded a launch."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    want = reps * per_call
+    count, total_us = 0, 0.0
     for session in range(3):
+        if session:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us, count = 0.0, 0
+        got, got_us = 0, 0.0
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA and \
                     symbol in e.key:
-                total_us += _device_us(e)
-                count += e.count
-        if count:
+                got_us += _device_us(e)
+                got += e.count
+        if got > count:
+            count, total_us = got, got_us
+        if 2 * got >= want:
             break
-        log(f"[profiler] {symbol}: session {session + 1} recorded "
-            f"none of {reps} launches")
-    check(count > 0, f"{symbol}: the profiler recorded none of {reps} "
+        log(f"[profiler] {symbol}: session {session + 1} recorded {got} "
+            f"of {want} launches")
+    check(count > 0, f"{symbol}: the profiler recorded none of {want} "
           f"launches in three sessions")
-    if count != reps * per_call:
-        log(f"[profiler] {symbol}: recorded {count} of "
-            f"{reps * per_call} launches; timing the recorded ones")
+    if count != want:
+        log(f"[profiler] {symbol}: recorded {count} of {want} launches; "
+            f"timing the recorded ones")
     return total_us / count * per_call / 1e3
 
 
@@ -435,6 +455,20 @@ def k5_work(torch, args, kw):
     return nbytes, 2.0 * rows * k * n
 
 
+def k1_library(torch, args, kw):
+    """One ``torch.bmm`` over the same tiles, the rows gathered (gather
+    index -1: zero rows) and W's slices gathered beforehand: the yardstick
+    of K1, used nowhere in the port (without the scale epilogue)."""
+    x, w, gidx, t2g = args[:4]
+    tile = kw["tile"]
+    t = gidx.shape[0] // tile
+    xg = torch.where((gidx >= 0)[:, None], x.detach()[gidx.clamp(min=0)
+                                                      .long()], 0.0)
+    xt = xg.reshape(t, tile, x.shape[1]).contiguous()
+    wt = w.detach()[t2g[:t].long()].contiguous()
+    return lambda: torch.bmm(xt, wt)
+
+
 def k4_library(torch, args, kw):
     """One ``torch.bmm`` over the same tiles, W's slices gathered (and
     transposed) beforehand: the yardstick of K4, used nowhere in the port."""
@@ -483,6 +517,49 @@ def k7_library(torch, args, kw):
     return lambda: torch.sparse.mm(a, m)
 
 
+def _softmax_weights(torch, scores_p, local_dst, t2b, mx, den, keep, nb):
+    """Each slot's attention from K2's statistics (0 where ``keep`` is
+    false), as [T, tile]: what K3 and K6 weight the messages by."""
+    tile = local_dst.shape[-1]
+    ld = local_dst.reshape(-1).long()
+    node = (t2b[:local_dst.shape[0]].long().repeat_interleave(tile) * nb
+            + torch.where(ld < nb, ld, 0))
+    s = scores_p.detach().reshape(-1)
+    att = torch.exp(s - mx.reshape(-1)[node]) / torch.clamp(
+        den.reshape(-1)[node], min=1e-38)
+    return torch.where(keep, att, 0.0).reshape(local_dst.shape)
+
+
+def k3_library(torch, args, kw):
+    """K7's yardstick with the softmax weights (computed from K2's ``mx`` /
+    ``den`` beforehand, not timed) in place of the scales:
+    ``torch.sparse.mm`` of a CSR [nodes, Em] matrix times the messages."""
+    scores_p, msg, mmap, local_dst, t2b, _, mx, den = args[:8]
+    keep = (local_dst.reshape(-1) < kw["node_block"]) & (mmap >= 0)
+    att = _softmax_weights(torch, scores_p, local_dst, t2b, mx, den, keep,
+                           kw["node_block"])
+    return k7_library(torch, (att, msg, mmap, local_dst, t2b), kw)
+
+
+def k5_library(torch, args, kw):
+    """One ``torch.bmm`` over the groups' runs of real rows, each
+    zero-padded to the longest run (laid out beforehand, not timed):
+    ``X_gᵀ @ dY_g`` for every group, the yardstick of K5, used nowhere in
+    the port."""
+    x_p, dy_p, gtp = args[:3]
+    tile = kw["tile"]
+    ptr = gtp.long() * tile
+    runs = ptr[1:] - ptr[:-1]
+    longest = max(1, int(runs.max()))
+    idx = ptr[:-1, None] + torch.arange(longest, device=x_p.device)
+    valid = torch.arange(longest, device=x_p.device) < runs[:, None]
+    idx = torch.where(valid, idx, 0)
+    xg = torch.where(valid[..., None], x_p.detach()[idx], 0.0)
+    dg = torch.where(valid[..., None], dy_p.detach()[idx], 0.0)
+    xt = xg.transpose(1, 2).contiguous()
+    return lambda: torch.bmm(xt, dg)
+
+
 def k6_work(torch, args, kw):
     """K6: each slot's score and destination read once, the message row of
     each slot that adds one read once (pad slots' rows are never read), the
@@ -526,7 +603,22 @@ def k9_work(torch, args, kw):
     return rows * 8 + rows * width * 4, 0.0
 
 
-LIBRARY = {K4: ("torch.bmm", k4_library), K7: ("torch.sparse.mm", k7_library),
+def k6_library(torch, args, kw):
+    """K3's yardstick for K6: ``torch.sparse.mm`` of the slots' softmax
+    weights as a CSR [nodes, slots] matrix times the padded messages."""
+    scores_p, msg_p, local_dst, t2b, _, mx, den = args[:7]
+    keep = local_dst.reshape(-1) < kw["node_block"]
+    att = _softmax_weights(torch, scores_p, local_dst, t2b, mx, den, keep,
+                           kw["node_block"])
+    slots = torch.arange(local_dst.numel(), dtype=torch.int32,
+                         device=local_dst.device)
+    return k7_library(torch, (att, msg_p, slots, local_dst, t2b), kw)
+
+
+LIBRARY = {K1: ("torch.bmm", k1_library), K3: ("torch.sparse.mm", k3_library),
+           K4: ("torch.bmm", k4_library), K5: ("torch.bmm", k5_library),
+           K6: ("torch.sparse.mm", k6_library),
+           K7: ("torch.sparse.mm", k7_library),
            K8: ("torch.sparse.mm", k8_library)}
 
 # K9 is held to its plain version in slices of at most this many
@@ -880,15 +972,21 @@ def kernel_tables(torch, SK, TK, SO):
 def compare_runner(torch, SO, plain, kernel):
     """``run_compare(name, args, kw)``: the kernel against its plain
     version on the same inputs, at the kernel's tolerance; returns the max
-    abs error."""
+    abs error. K3, K7 and K8 run at every unit size (``split_compare``),
+    K5 bit for bit against a second launch too."""
     def run_compare(name, args, kw):
         if name == K9:
             return k9_compare(torch, SO, args, kw)
-        if name in (K7, K8):
-            return weighted_compare(torch, name, kernel[name], plain[name],
-                                    args, kw)
+        if name in SLOT_SPLIT:
+            return split_compare(torch, name, kernel[name], plain[name],
+                                 args, kw)
         got = kernel[name](*args, **kw)
         want = plain[name](*args, **kw)
+        if name == K5:
+            again = kernel[name](*args, **kw)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(got, again)), f"{K5}: two launches "
+                  f"differ")
         torch.cuda.synchronize()
         if name == K2:
             e1 = compare(torch, name + ".mx", got[0], want[0], 0, 0,
@@ -900,26 +998,28 @@ def compare_runner(torch, SO, plain, kernel):
     return run_compare
 
 
-# the unit sizes (``chunk_tiles``) at which every K7 and K8 call is held;
-# the wrappers' default is ``traversal.K7_CHUNK_TILES``
-K78_CHUNKS = (1, 2, 8, 64)
+# the kernels that split the slots into units (K3, K7, K8) and the unit
+# sizes (``chunk_tiles``) at which every call of theirs is held; the
+# wrappers' defaults are ``traversal.K3_CHUNK_TILES`` / ``K7_CHUNK_TILES``
+SLOT_SPLIT = (K3, K7, K8)
+UNIT_CHUNKS = (1, 2, 8, 64)
 
 
-def weighted_compare(torch, name, fn, plain, args, kw):
-    """K7 or K8 at one call: first the slot order the kernels rely on,
+def split_compare(torch, name, fn, plain, args, kw):
+    """K3, K7 or K8 at one call: first the slot order the kernels rely on,
     checked on the card (``traversal.slot_keys`` never decreases), then the
-    kernel at every unit size of ``K78_CHUNKS`` against its plain version,
+    kernel at every unit size of ``UNIT_CHUNKS`` against its plain version,
     each launch bit for bit against a second one. Returns the max abs
     error."""
     from repro_torch.kernels import traversal as TK
 
-    local_dst, t2b = args[3:5] if name == K7 else args[2:4]
+    local_dst, t2b = args[2:4] if name == K8 else args[3:5]
     keys = TK.slot_keys(local_dst, t2b, kw["node_block"])
     check(bool((keys[1:] >= keys[:-1]).all()), f"{name}: the slot keys "
           f"decrease: the layout breaks the order the kernel relies on")
     want = plain(*args, **kw)
     err = 0.0
-    for chunk in K78_CHUNKS:
+    for chunk in UNIT_CHUNKS:
         got = fn(*args, **kw, chunk_tiles=chunk)
         again = fn(*args, **kw, chunk_tiles=chunk)
         torch.cuda.synchronize()
@@ -939,33 +1039,62 @@ def k8_args(args):
     return (scale_p, ops.pad_rows(msg, mmap)) + tuple(args[3:6])
 
 
-def time_weighted(torch, tables, run_compare, args, kw, at, phase,
-                  weighted):
-    """K7 at one captured call, and K8 at the same call (``k8_args``):
-    each held to its plain version (``run_compare``), then its device ms,
-    wrapper ms, plain ms, ``torch.sparse.mm`` ms and bound, appended to
-    ``weighted["timed"]``."""
+def time_split(torch, tables, run_compare, name, args, kw, at, phase,
+               split):
+    """K3, K7 or K8 at one captured call: held to its plain version
+    (``run_compare``), then its device ms, wrapper ms, plain ms, library ms
+    and bound, appended to ``split["timed"]``."""
     plain, kernel, work = tables
+    err = run_compare(name, args, kw)
+    split[name] = max(split[name], err)
+    fn = lambda: kernel[name](*args, **kw)                    # noqa: E731
+    ms = device_ms(torch, fn, KERNELS[name]["symbol"], per_call=2)
+    wrapper_ms = time_ms(torch, fn)
+    plain_ms = time_ms(torch, lambda: plain[name](*args, **kw), reps=5,
+                       inner=2)
+    library_ms = time_ms(torch, LIBRARY[name][1](torch, args, kw))
+    nbytes, flops = work[name](torch, args, kw)
+    b_ms, b_by = bound(nbytes, flops)
+    shape = _shape(name, args, kw)
+    split["timed"].append(dict(
+        kernel=name, at=at, shape=shape, ms=ms, wrapper_ms=wrapper_ms,
+        plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+        bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err))
+    log(f"[{phase}] {name} at {at} ({shape}): max abs err {err:.3g}; "
+        f"kernel {ms:.5f} ms on the device, wrapper {wrapper_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, {LIBRARY[name][0]} {library_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}, {nbytes} B)")
+
+
+def time_weighted(torch, tables, run_compare, args, kw, at, phase, split):
+    """K7 at one captured call, and K8 at the same call (``k8_args``), each
+    as ``time_split`` times it."""
     for name, a in ((K7, args), (K8, k8_args(args))):
-        err = run_compare(name, a, kw)
-        weighted[name] = max(weighted[name], err)
-        fn = lambda: kernel[name](*a, **kw)                   # noqa: E731
-        ms = device_ms(torch, fn, KERNELS[name]["symbol"], per_call=2)
-        wrapper_ms = time_ms(torch, fn)
-        plain_ms = time_ms(torch, lambda: plain[name](*a, **kw), reps=5,
-                           inner=2)
-        library_ms = time_ms(torch, LIBRARY[name][1](torch, a, kw))
-        nbytes, flops = work[name](torch, a, kw)
-        b_ms, b_by = bound(nbytes, flops)
-        shape = _shape(name, a, kw)
-        weighted["timed"].append(dict(
-            kernel=name, at=at, shape=shape, ms=ms, wrapper_ms=wrapper_ms,
-            plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-            bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err))
-        log(f"[{phase}] {name} at {at} ({shape}): max abs err {err:.3g}; "
-            f"kernel {ms:.5f} ms on the device, wrapper {wrapper_ms:.4f} ms,"
-            f" plain {plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} "
-            f"ms, bound {b_ms:.5f} ms ({b_by}, {nbytes} B)")
+        time_split(torch, tables, run_compare, name, a, kw, at, phase, split)
+
+
+def time_k5(torch, tables, args, kw, err):
+    """K5 at one captured call, already held to its plain version (max abs
+    error ``err``): its device ms, wrapper ms, plain ms, ``torch.bmm`` ms
+    and bound."""
+    plain, kernel, work = tables
+    fn = lambda: kernel[K5](*args, **kw)                      # noqa: E731
+    nbytes, flops = work[K5](torch, args, kw)
+    b_ms, b_by = bound(nbytes, flops)
+    entry = dict(
+        shape=_shape(K5, args, kw), max_abs_err=err,
+        ms=device_ms(torch, fn, KERNELS[K5]["symbol"]),
+        wrapper_ms=time_ms(torch, fn),
+        plain_ms=time_ms(torch, lambda: plain[K5](*args, **kw), reps=5,
+                         inner=2),
+        library_ms=time_ms(torch, LIBRARY[K5][1](torch, args, kw)),
+        bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+    log(f"[k5] {entry['shape']} chunk_tiles={kw['chunk_tiles']}: kernel "
+        f"{entry['ms']:.5f} ms on the device, wrapper "
+        f"{entry['wrapper_ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
+        f"torch.bmm {entry['library_ms']:.4f} ms, bound "
+        f"{entry['bound_ms']:.5f} ms ({entry['bound_by']})")
+    return entry
 
 
 def hold_captured(torch, captured, results, tables, run_compare, phase):
@@ -986,12 +1115,12 @@ def hold_captured(torch, captured, results, tables, run_compare, phase):
                 errs.append(err)
                 if not timed:
                     continue
+                if name == K5:
+                    r["calls"].append(time_k5(torch, tables, args, kw, err))
+                    continue
                 fn = lambda: kernel[name](*args, **kw)       # noqa: E731
-                per_call = KERNELS[name].get("per_call", 1)
-                if name == K5 and kw["num_chunks"] == 0:
-                    per_call = 1
                 ms = device_ms(torch, fn, KERNELS[name]["symbol"],
-                               per_call=per_call)
+                               per_call=KERNELS[name].get("per_call", 1))
                 wrapper_ms = time_ms(torch, fn)
                 plain_ms = time_ms(torch, lambda: plain[name](*args, **kw))
                 library_ms = None
@@ -1028,6 +1157,8 @@ def summarize(results, phase):
         check(bool(r["calls"]), f"{name}: no timed call")
         for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms"):
             r[key] = sum(c[key] for c in r["calls"])
+        r["calls_per_unit"] = len(r["calls"])
+        r["ms_per_call"] = r["ms"] / len(r["calls"])
         r["library_ms"] = (sum(c["library_ms"] for c in r["calls"])
                            if name in LIBRARY else None)
         by_bytes = sum(c["bound_ms"] for c in r["calls"]
@@ -1041,7 +1172,8 @@ def summarize(results, phase):
                 "aifb unfused": "served aifb batch (fuse_gather=False)"}.get(
                     unit, "served aifb batch")
         log(f"[{phase}] {name}: {len(r['calls'])} calls per {model} {unit}"
-            f", kernel {r['ms']:.5f} ms on the device, wrapper "
+            f", kernel {r['ms']:.5f} ms on the device ({r['ms_per_call']:.5f}"
+            f" a call), wrapper "
             f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
             + (f", {LIBRARY[name][0]} {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "")
@@ -1049,8 +1181,7 @@ def summarize(results, phase):
             f"err {r['max_abs_err']:.3g}")
 
 
-def phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops, tasks,
-                  weighted):
+def phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops, tasks, split):
     results = new_results([n for n in KERNELS
                            if n not in TUNING_KERNELS + LM_KERNELS])
     captured = {}
@@ -1094,17 +1225,21 @@ def phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops, tasks,
     n8 = 0
     for calls in captured.values():
         for args, kw in calls[K7]:
-            weighted[K8] = max(weighted[K8],
-                               run_compare(K8, k8_args(args), kw))
+            split[K8] = max(split[K8], run_compare(K8, k8_args(args), kw))
             n8 += 1
     log(f"[phase 2] {K8}: {n8} captured {K7} calls with padded messages "
-        f"match the plain version (max abs err {weighted[K8]:.3g})")
+        f"match the plain version (max abs err {split[K8]:.3g})")
     args, kw = max(captured["rgcn bgs"][K7],
                    key=lambda call: call[0][0].numel())
     time_weighted(torch, tables, run_compare, args, kw,
-                  "rgcn bgs-b1024 hop 0", "phase 2", weighted)
+                  "rgcn bgs-b1024 hop 0", "phase 2", split)
+    args, kw = max(captured["rgat bgs"][K3],
+                   key=lambda call: call[0][0].numel())
+    time_split(torch, tables, run_compare, K3, args, kw,
+               "rgat bgs-b1024 hop 0", "phase 2", split)
     edge_cases(torch, SK, TK, L, ops, R, run_compare, results)
-    weighted_edge_cases(torch, L, ops, run_compare, weighted)
+    split_edge_cases(torch, L, ops, TK, run_compare, split)
+    k5_edge_cases(torch, SK, L, ops, run_compare, results)
     k9_edge_cases(torch, ops, run_compare, results)
     summarize(results, "phase 2")
     return results
@@ -1263,7 +1398,7 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
     # K4: k = 1 (the transposed dX of an n = 1 GEMM) and n = 1, W as
     # stored and transposed, groups without tiles, pow2 pad tiles, scale
     # on and off; K5 on the same layouts, plus one group of 40,000 rows
-    # (79 chunks of 16 tiles, summed in fp64)
+    # (1,250 tiles, many chunks at the fitted chunk size)
     for grow in (False, True):
         ps = L.pad_segments(ptr, 32)
         if grow:
@@ -1288,7 +1423,8 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
                     results["segment_mm_padded"]["max_abs_err"], err)
                 n_err += 1
             dy = t(rng.normal(size=(ps.padded_rows, n)).astype(np.float32))
-            kw5 = dict(num_groups=10, num_chunks=lay.num_chunks, tile=32)
+            kw5 = dict(num_groups=10, num_chunks=lay.num_chunks, tile=32,
+                       chunk_tiles=lay.chunk_tiles)
             kargs = (x_p, dy, lay.group_tile_ptr, lay.group_chunk_ptr)
             err = run_compare("segment_outer_padded", kargs, kw5)
             dw = SK.segment_outer_padded(*kargs, **kw5)
@@ -1299,7 +1435,8 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
             n_err += 1
     long_ps = L.pad_segments(np.array([0, 5, 40005, 40100]), 32)
     long_lay = ops.padded_segments_dev(long_ps).to(dev)
-    check(long_lay.num_chunks == 1 + 79 + 1, "long group: chunk count")
+    check(long_lay.num_chunks == 1 + -(-1250 // long_lay.chunk_tiles) + 1,
+          "long group: chunk count")
     x_p = t(rng.normal(size=(long_ps.padded_rows, 64)).astype(np.float32))
     x_p[t(long_ps.row_map < 0)] = 0.0
     err = run_compare(
@@ -1307,7 +1444,8 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
         (x_p, t(rng.normal(size=(long_ps.padded_rows, 64))
                 .astype(np.float32)),
          long_lay.group_tile_ptr, long_lay.group_chunk_ptr),
-        dict(num_groups=3, num_chunks=long_lay.num_chunks, tile=32))
+        dict(num_groups=3, num_chunks=long_lay.num_chunks, tile=32,
+             chunk_tiles=long_lay.chunk_tiles))
     results["segment_outer_padded"]["max_abs_err"] = max(
         results["segment_outer_padded"]["max_abs_err"], err)
     n_err += 1
@@ -1348,7 +1486,7 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
     dw0 = SK.segment_outer_padded(
         torch.ones(0, 64, device=dev), torch.ones(0, 8, device=dev),
         lay0.group_tile_ptr, lay0.group_chunk_ptr, num_groups=4,
-        num_chunks=lay0.num_chunks, tile=32)
+        num_chunks=lay0.num_chunks, tile=32, chunk_tiles=lay0.chunk_tiles)
     torch.cuda.synchronize()
     check(z7.shape == (8, 16) and not z7.any() and z7k.shape == (0, 16),
           "empty layouts: wrong K7 outputs")
@@ -1365,14 +1503,15 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
         f" the CUDA weighted_agg); empty layouts launched nothing")
 
 
-def weighted_edge_cases(torch, L, ops, run_compare, weighted):
-    """K7 and K8 where the slot split has its edges: one destination of
+def split_edge_cases(torch, L, ops, TK, run_compare, split):
+    """K3, K7 and K8 where the slot split has its edges: one destination of
     40,000 slots across many units, unit edges exactly at a change of
     destination, all-pad units and the pure-pad tail, node blocks without
     tiles and slot-less nodes between units; d = 1 / 8 / 16 / 64 / 96,
-    compact rows with -1 and ``scale=None``. ``run_compare`` holds each
-    call at every unit size of ``K78_CHUNKS``, bit for bit against a
-    second launch."""
+    compact rows with -1; K7 and K8 with and without ``scale=None``, K3 on
+    K2's statistics of scores in [-9, 9]. ``run_compare`` holds each call
+    at every unit size of ``UNIT_CHUNKS``, bit for bit against a second
+    launch."""
     import numpy as np
 
     rng = np.random.default_rng(18)
@@ -1403,6 +1542,10 @@ def weighted_edge_cases(torch, L, ops, run_compare, weighted):
     for what, (bcd, dst, n_nodes) in layouts:
         kw = dict(node_block=32, num_node_blocks=bcd.num_node_blocks)
         e = dst.numel()
+        scores_p = ops._padded_scores(torch.from_numpy(
+            rng.uniform(-9, 9, e).astype(np.float32)).to(dev), bcd)
+        mx, den = TK.seg_stats_padded(scores_p, bcd.local_dst, bcd.t2b,
+                                      bcd.block_tile_ptr, **kw)
         for d in (1, 8, 16, 64, 96):
             for with_scale in (False, True):
                 msg = torch.from_numpy(rng.normal(size=(700, d)).astype(
@@ -1415,15 +1558,107 @@ def weighted_edge_cases(torch, L, ops, run_compare, weighted):
                     np.float32)).to(dev) if with_scale else None)
                 args = (ops._padded_scale(scale, bcd, msg), msg, mmap,
                         bcd.local_dst, bcd.t2b, bcd.block_tile_ptr)
-                weighted[K7] = max(weighted[K7], run_compare(K7, args, kw))
-                weighted[K8] = max(weighted[K8], run_compare(
-                    K8, k8_args(args), kw))
+                split[K7] = max(split[K7], run_compare(K7, args, kw))
+                split[K8] = max(split[K8], run_compare(K8, k8_args(args),
+                                                       kw))
                 n += 2
-    log(f"[phase 2] K7 / K8 edge cases: {n} calls, each at chunk_tiles "
-        f"{K78_CHUNKS} and bitwise repeatable ("
+                if with_scale:
+                    continue
+                args = (scores_p, msg, mmap, bcd.local_dst, bcd.t2b,
+                        bcd.block_tile_ptr, mx, den)
+                split[K3] = max(split[K3], run_compare(K3, args, kw))
+                out = TK.seg_softmax_agg_gather_padded(*args, **kw)
+                btp = bcd.block_tile_ptr
+                empty = torch.repeat_interleave(btp[1:] == btp[:-1], 32)
+                check(bool((out[empty] == 0).all()), f"{K3}: node blocks "
+                      f"without tiles not zero ({what})")
+                n += 1
+    log(f"[phase 2] K3 / K7 / K8 edge cases: {n} calls, each at "
+        f"chunk_tiles {UNIT_CHUNKS} and bitwise repeatable ("
         + ", ".join(w for w, _ in layouts)
         + f"; d = 1 / 8 / 16 / 64 / 96, compact rows with -1, scale=None); "
-        f"max abs err K7 {weighted[K7]:.3g}, K8 {weighted[K8]:.3g}")
+        f"max abs err K3 {split[K3]:.3g}, K7 {split[K7]:.3g}, K8 "
+        f"{split[K8]:.3g}")
+
+
+# K5's kernel stages the group offsets in shared memory below this many
+# groups and reads them from global memory at or above it (kOuterPtrCap in
+# csrc/segment_mm.cu)
+K5_STAGED_GROUPS = 1024
+
+
+def k5_edge_cases(torch, SK, L, ops, run_compare, results):
+    """K5 where its work split has its edges, each held to its plain version
+    (1e-6) and bit for bit against a second launch: groups that are one
+    chunk each (written directly) and groups of many chunks (added by the
+    last block to arrive) at chunk sizes 1 / 2 / the fitted one, k and n of
+    1 / 8 / 64, surplus chunks past ``group_chunk_ptr[G]`` (host layout),
+    and a launch whose groups own no real tile at all; each with 12 groups
+    (offsets staged in shared memory) and with 1,500 (offsets read from
+    global memory)."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    dev = torch.device("cuda")
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    few = rng.integers(1, 300, 12)
+    few[[2, 9]] = 0
+    few[0] = 20                        # one tile: one chunk at any size
+    few[5] = 3000                      # 94 tiles: many chunks at any size
+    many = rng.integers(0, 80, 1500)
+    many[[7, 700, 1499]] = 3000
+    many[0] = 20
+    check(len(few) < K5_STAGED_GROUPS <= len(many),
+          "K5 edge cases: the group counts do not straddle the staging cap")
+    slices = {12: ((64, 64), (64, 8), (8, 64), (64, 1), (1, 64), (8, 8),
+                   (1, 1)),
+              1500: ((64, 64), (8, 8))}
+    n = 0
+    worst = 0.0
+    fitted = []
+    for sizes in (few, many):
+        groups = len(sizes)
+        ps = L.pad_segments(np.concatenate([[0], np.cumsum(sizes)]), 32)
+        lay = ops.padded_segments_dev(ps).to(dev)
+        fitted.append(lay.chunk_tiles)
+        for ct in (1, 2, lay.chunk_tiles):
+            gcp = SK.outer_chunk_ptr(SK.outer_tile_ptr(ps.seg_sizes, 32), ct)
+            counts = np.diff(gcp)
+            check(bool((counts == 1).any() and (counts > 1).any()),
+                  f"K5 edge case: {groups} groups at chunk_tiles={ct} give "
+                  f"no mix of single- and multi-chunk groups")
+            for k, nn in slices[groups]:
+                x_p = t(rng.normal(size=(ps.padded_rows, k)).astype(
+                    np.float32))
+                x_p[t(ps.row_map < 0)] = 0.0
+                dy = t(rng.normal(size=(ps.padded_rows, nn)).astype(
+                    np.float32))
+                for extra in (0, 7):   # surplus chunks return at once
+                    kw = dict(num_groups=groups,
+                              num_chunks=int(gcp[-1]) + extra, tile=32,
+                              chunk_tiles=ct)
+                    worst = max(worst, run_compare(
+                        K5, (x_p, dy, lay.group_tile_ptr, t(gcp)), kw))
+                    n += 1
+        # no group owns a real tile, yet chunks are launched (a device-
+        # built layout's static bound): dW is zero
+        zero = torch.zeros(groups + 1, dtype=torch.int32, device=dev)
+        dw = SK.segment_outer_padded(
+            torch.ones(64, 64, device=dev), torch.ones(64, 8, device=dev),
+            zero, zero, num_groups=groups, num_chunks=3, tile=32,
+            chunk_tiles=4)
+        torch.cuda.synchronize()
+        check(dw.shape == (groups, 64, 8) and not bool(dw.any()),
+              f"K5: {groups} groups without real tiles not zero")
+    results[K5]["max_abs_err"] = max(results[K5]["max_abs_err"], worst)
+    log(f"[phase 2] K5 edge cases: {n} calls (12 and 1,500 groups, single- "
+        f"and multi-chunk, at chunk_tiles 1 / 2 / fitted {fitted}, k, n in "
+        f"1 / 8 / 64, 7 surplus chunks) match the plain version and a "
+        f"second launch (max abs err {worst:.3g}); launches without real "
+        f"tiles wrote zeros")
 
 
 def k9_edge_cases(torch, ops, run_compare, results):
@@ -1477,7 +1712,7 @@ def k9_edge_cases(torch, ops, run_compare, results):
                           ).to(dev)
     err = run_compare(K5, (x_p, dy, lay.group_tile_ptr, lay.group_chunk_ptr),
                       dict(num_groups=10, num_chunks=lay.num_chunks,
-                           tile=32))
+                           tile=32, chunk_tiles=lay.chunk_tiles))
     results[K5]["max_abs_err"] = max(results[K5]["max_abs_err"], err)
     log(f"[phase 2] K9 edge cases: {n} windows bit-equal to the plain "
         f"version and to numpy (count 0 and C, C = 1 and 3, odd row "
@@ -1865,11 +2100,13 @@ def phase_train(torch, ops, train_rgnn, task, cfg):
                 loss_last10=last, wall_s=wall, step_parity=worst)
 
 
-def phase_full_graph(torch, task, train_rgnn, cfg, weighted):
+def phase_full_graph(torch, task, train_rgnn, cfg, split):
     """Phase 7: full-graph steps of the task's model — aifb on the card
-    against the CPU, then bgs at scale 1.0 for 3 timed steps. For RGCN,
-    K7 and K8 are then held and timed at the K7 calls of one bgs
-    full-graph forward (``time_weighted``)."""
+    against the CPU, then bgs at scale 1.0 for 3 timed steps. Then K5 is
+    held and timed (``time_k5``) at every call of one bgs full-graph
+    step; for RGCN, K7 and K8 at the K7 calls of one
+    bgs full-graph forward (``time_weighted``), for RGAT and HGT, K3 at
+    its calls (``time_split``)."""
     import dataclasses
 
     from repro_torch.train import FullGraphTrainer
@@ -1918,21 +2155,42 @@ def phase_full_graph(torch, task, train_rgnn, cfg, weighted):
         f"first builds the full-graph layouts); peak device memory "
         f"{out['bgs_peak_gib']:.2f} GiB; task build {out['bgs_build_s']:.2f}"
         f" s")
-    if task.engine.cfg.model == "rgcn":
-        from repro_torch.kernels import sampling_ops as SO
-        from repro_torch.kernels import segment_mm as SK
-        from repro_torch.kernels import traversal as TK
+    from repro_torch.kernels import sampling_ops as SO
+    from repro_torch.kernels import segment_mm as SK
+    from repro_torch.kernels import traversal as TK
 
-        with recorded_kernel_calls() as calls:
-            fg.evaluate(state.params)
-        check(len(calls[K7]) == FORWARD_LAUNCHES["rgcn"][K7],
-              f"{tag} bgs: {len(calls[K7])} K7 calls in a forward")
-        tables = kernel_tables(torch, SK, TK, SO)
-        run_compare = compare_runner(torch, SO, *tables[:2])
-        for i, (args, kw) in enumerate(calls[K7]):
-            time_weighted(torch, tables, run_compare, args, kw,
-                          f"rgcn bgs full-graph forward, layer {i}", tag,
-                          weighted)
+    model = task.engine.cfg.model
+    tables = kernel_tables(torch, SK, TK, SO)
+    run_compare = compare_runner(torch, SO, *tables[:2])
+    with recorded_kernel_calls() as calls:
+        fg.step(state)
+        torch.cuda.synchronize()
+    check(len(calls[K5]) == STEP_LAUNCHES[model][K5], f"{tag} bgs: "
+          f"{len(calls[K5])} K5 calls in a full-graph step")
+    k5 = [time_k5(torch, tables, args, kw, run_compare(K5, args, kw))
+          for args, kw in calls[K5]]
+    out["k5_bgs"] = dict(calls=k5, **{key: sum(c[key] for c in k5) for key in
+                                      ("ms", "wrapper_ms", "plain_ms",
+                                       "library_ms", "bound_ms")})
+    log(f"[{tag} bgs] {K5}: {len(k5)} calls in a full-graph step, kernel "
+        f"{out['k5_bgs']['ms']:.5f} ms on the device, wrapper "
+        f"{out['k5_bgs']['wrapper_ms']:.4f} ms, plain "
+        f"{out['k5_bgs']['plain_ms']:.4f} ms, torch.bmm "
+        f"{out['k5_bgs']['library_ms']:.4f} ms, bound "
+        f"{out['k5_bgs']['bound_ms']:.5f} ms")
+    agg = K7 if model == "rgcn" else K3
+    with recorded_kernel_calls() as calls:
+        fg.evaluate(state.params)
+    check(len(calls[agg]) == FORWARD_LAUNCHES[model][agg],
+          f"{tag} bgs: {len(calls[agg])} {agg} calls in a forward")
+    for i, (args, kw) in enumerate(calls[agg]):
+        at = f"{model} bgs full-graph forward, layer {i}"
+        if agg == K7:
+            time_weighted(torch, tables, run_compare, args, kw, at, tag,
+                          split)
+        else:
+            time_split(torch, tables, run_compare, K3, args, kw, at, tag,
+                       split)
     out["bgs_trainer"], out["bgs_state"] = fg, state
     return out
 
@@ -2799,6 +3057,42 @@ def k10_edge_cases(torch, F, ops, results):
         f"query launches nothing")
 
 
+def k5_build_report(SK):
+    """K5's kernel as built: ptxas's registers and spills (from this
+    process's build) and the fp64 tensor-core instructions (DMMA) in its
+    SASS (``cuobjdump -sass`` of the library, counted as phase 12 counts
+    HMMA); fails if it has none. Returns the count."""
+    import re
+
+    from repro_torch.kernels import build
+
+    name = None
+    for line in build.build_log.get("segment_mm", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and "segment_outer_kernel" in name and (
+                "registers" in line or "spill" in line):
+            log(f"[phase 1] ptxas segment_outer_kernel: "
+                f"{line.split(':', 1)[-1].strip()}")
+    lib = SK._library()
+    cuobjdump = pathlib.Path(build.nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(cuobjdump), "-sass", lib._name],
+                          capture_output=True, text=True, timeout=300)
+    check(dump.returncode == 0, f"cuobjdump -sass failed: {dump.stderr}")
+    count, inside = 0, False
+    for line in dump.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inside = "segment_outer_kernel" in m.group(1)
+        elif inside and re.search(r"\bDMMA\b", line):
+            count += 1
+    log(f"[phase 1] SASS segment_outer_kernel: {count} DMMA (fp64 "
+        f"tensor-core) instructions")
+    check(count > 0, "K5's kernel issues no DMMA")
+    return count
+
+
 def k10_build_report(F):
     """K10's kernels as built: ptxas's registers and spills for each (from
     this process's build), and the tensor-core instructions (HMMA / HGMMA)
@@ -3071,12 +3365,13 @@ def main(argv=None) -> int:
                      for m, e in TRAIN_EPOCHS.items()}
         tasks = {m: TrainTask(torch, hector_torch, cfg)
                  for m, cfg in train_cfg.items()}
-        # K7 and K8 beyond their rows' calls: the errors of K8 at K7's
-        # calls and of both at the slot split's edge cases, and their
+        k5_sass = k5_build_report(SK)
+        # K3, K7 and K8 beyond their rows' calls: the errors of K8 at K7's
+        # calls and of all three at the slot split's edge cases, and their
         # timings at the bgs calls (phases 2 and 7)
-        weighted = {K7: 0.0, K8: 0.0, "timed": []}
+        split = {K3: 0.0, K7: 0.0, K8: 0.0, "timed": []}
         kernels = phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops,
-                                tasks, weighted)
+                                tasks, split)
         seconds["phase 2"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         serve, serve_logits = {}, {}
@@ -3095,7 +3390,7 @@ def main(argv=None) -> int:
             seconds[f"phase 6 {model}"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             full[model] = phase_full_graph(torch, task, train_rgnn, TRAIN,
-                                           weighted)
+                                           split)
             seconds[f"phase 7 {model}"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             train_prof[model] = phase_train_profile(torch, task, full[model],
@@ -3116,9 +3411,9 @@ def main(argv=None) -> int:
         tuning = phase_tuning(torch, hector_torch, SK, TK, SO, L, R, ops,
                               serve_rgnn, train_rgnn, tasks["rgat"])
         kernels.update(tuning.pop("kernels"))
-        for name in (K7, K8):
+        for name in SLOT_SPLIT:
             kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
-                                               weighted[name])
+                                               split[name])
         seconds["phase 11"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         lm = phase_lm(torch, ops, C, F, lm_serve, TransformerLM)
@@ -3156,6 +3451,8 @@ def main(argv=None) -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             wrapper_ms=r["wrapper_ms"], timed_at=r["timed_at"],
+            ms_per_call=r.get("ms_per_call"),
+            calls_per_unit=r.get("calls_per_unit"),
             served_launches=sum(v["launches"][name]
                                 for v in serve.values()),
             served_device_ms=(served["device_ms_per_batch"]
@@ -3168,7 +3465,7 @@ def main(argv=None) -> int:
             serve=serve, profile=prof, train=train, full_graph=full,
             train_profile=train_prof, device_serve=device_serve,
             device_train=device_train, tuning=tuning, lm=lm,
-            weighted_timed=weighted["timed"],
+            split_timed=split["timed"], k5_sass=k5_sass,
             torch=torch.__version__,
             cuda=torch.version.cuda), indent=1))
     print(json.dumps({"kernels": rows}), flush=True)

@@ -33,29 +33,28 @@
 // one-hot [node_block x tile] matmul. Here blocks run in parallel, in no
 // order, and nothing carries over between them.
 //
-// K2, K3 and K6: one thread block owns one node block and walks that
-// block's contiguous tile range [block_tile_ptr[b], block_tile_ptr[b+1])
-// (derived from the non-decreasing tile -> block map when the layout is
-// built) with a loop in place of the sequential grid. Each tile's slots
-// are staged in shared memory. K2 gives every destination node of the
-// block to one thread, which takes the exact max in a first pass over the
-// slots and the sum of exponentials in a second. K3 and K6 share one body
-// (agg_body; K6 reads the message of slot i at row i instead of mmap[i]):
-// each staged slot gets its attention from the score and K2's stats, then
-// every (node, column) accumulator in shared memory is owned by exactly
-// one thread, which adds the slots of its node in slot order; the message
-// rows are gathered from global memory by index (-1 contributes nothing),
-// coalesced along the columns. Such a walk takes as long as the largest
-// node block's tile range, and those are skewed: a hub (bgs: in-degree
-// 22,949), bucketing's pad node, and the pure-pad tiles bucketing appends
-// to the last node block.
+// K2 and K6: one thread block owns one node block and walks that block's
+// contiguous tile range [block_tile_ptr[b], block_tile_ptr[b+1]) (derived
+// from the non-decreasing tile -> block map when the layout is built) with
+// a loop in place of the sequential grid. Each tile's slots are staged in
+// shared memory. K2 gives every destination node of the block to one
+// thread, which takes the exact max in a first pass over the slots and the
+// sum of exponentials in a second. K6 (agg_body; the message of slot i at
+// row i): each staged slot gets its attention from the score and K2's
+// stats, then every (node, column) accumulator in shared memory is owned
+// by exactly one thread, which adds the slots of its node in slot order.
+// Such a walk takes as long as the largest node block's tile range, and
+// those are skewed: a hub (bgs: in-degree 22,949), bucketing's pad node,
+// and the pure-pad tiles bucketing appends to the last node block.
 //
-// K7 and K8 split by slots instead (weighted_unit_body, then
+// K3, K7 and K8 split by slots instead (weighted_unit_body, then
 // weighted_combine_body). The grid is ceil(T / chunk_tiles) units of
 // chunk_tiles consecutive tiles, from the shapes alone. The layouts keep
 // every slot's sort key (slot_key) non-decreasing, so a node's real slots
 // form one run and a unit finds its nodes from its own slots and the two
-// slots at its edges. Inside a unit, agents of 8-32 threads take
+// slots at its edges. Each slot's weight is staged with it: K7's and K8's
+// scale, or K3's attention exp(s - mx[v]) / max(den[v], 1e-38) from K2's
+// statistics of the slot's node. Inside a unit, agents of 8-32 threads take
 // contiguous sub-runs of slots, lanes spread over a row's columns in
 // vector loads, several rows in flight, fp64 sums in registers; the
 // agents' boundary nodes are added in agent order in shared memory. A
@@ -64,8 +63,8 @@
 // touches (a unit's head and tail, in a workspace of 2 * units * d
 // doubles), and the combine kernel, launched after it on the same stream,
 // adds them in unit order and writes the row. Shared memory grows with
-// chunk_tiles * tile, never with node_block. No float atomics: both are
-// deterministic, bit for bit from launch to launch.
+// chunk_tiles * tile, never with node_block. No float atomics: all three
+// are deterministic, bit for bit from launch to launch.
 //
 // Node blocks that own no tile are written too (mx = -1e30, den = 0,
 // out = 0), which the TPU kernels never visit; so is every slot-less node.
@@ -135,10 +134,11 @@ __global__ void seg_stats_kernel(const float* __restrict__ scores,
 // One thread block per node block: stage each tile's (weight, message row,
 // destination), then every (node, column) accumulator has one owning
 // thread that adds in slot order. kSoftmax: the weight is the attention
-// exp(score - mx[v]) / max(den[v], 1e-38) (K3, K6); else the slot's scale
+// exp(score - mx[v]) / max(den[v], 1e-38) (K6); else the slot's scale
 // (which no kernel takes now: K7 and K8 run weighted_unit_body). kGather:
-// the message row is mmap[slot] (K3); else the slot (K6, whose messages
-// are padded into the slots).
+// the message row is mmap[slot] (no kernel now: K3 runs
+// weighted_unit_body); else the slot (K6, whose messages are padded into
+// the slots).
 template <bool kSoftmax, bool kGather>
 __device__ __forceinline__ void agg_body(
     const float* __restrict__ weight, const float* __restrict__ msg,
@@ -197,20 +197,6 @@ __device__ __forceinline__ void agg_body(
   for (int i = threadIdx.x; i < node_block * d; i += blockDim.x) {
     ob[i] = static_cast<float>(acc[i]);
   }
-}
-
-__global__ void __launch_bounds__(kAggThreads)
-seg_softmax_agg_gather_kernel(const float* __restrict__ scores,
-                              const float* __restrict__ msg,
-                              const int* __restrict__ mmap,
-                              const int* __restrict__ local_dst,
-                              const int* __restrict__ block_tile_ptr,
-                              const float* __restrict__ mx,
-                              const float* __restrict__ den,
-                              float* __restrict__ out, int d, int node_block,
-                              int tile, int groups, int colw) {
-  agg_body<true, true>(scores, msg, mmap, local_dst, block_tile_ptr, mx, den,
-                       out, d, node_block, tile, groups, colw);
 }
 
 __global__ void __launch_bounds__(kAggThreads)
@@ -360,14 +346,17 @@ __host__ __device__ inline int weighted_lanes(int d, int vec) {
 // nodes after it). Columns past one agent's width (lanes * V) run as
 // further chunks over the same staged slots. (The rows of node blocks that
 // own no tile are the combine kernel's.) kGather: the message row is
-// mmap[slot] (K7), else the slot itself (K8). The weight is the slot's
-// scale; a softmax weight (K3, K6) would read mx / den of the slot's node
-// when the slots are staged.
-template <bool kGather, int V>
+// mmap[slot] (K3, K7), else the slot itself (K8). kSoftmax (K3): `weight`
+// holds the slots' scores, and a real slot's weight is its attention
+// exp(score - mx[n]) / max(den[n], 1e-38) with n its global node, the
+// fp32 expression of agg_body, computed once as the slot is staged; else
+// (K7, K8) `weight` is the slot's scale and mx, den are not read.
+template <bool kGather, int V, bool kSoftmax = false>
 __device__ __forceinline__ void weighted_unit_body(
-    const float* __restrict__ scale, const float* __restrict__ msg,
+    const float* __restrict__ weight, const float* __restrict__ msg,
     const int* __restrict__ mmap, const int* __restrict__ local_dst,
-    const int* __restrict__ t2b, float* __restrict__ out,
+    const int* __restrict__ t2b, const float* __restrict__ mx,
+    const float* __restrict__ den, float* __restrict__ out,
     double* __restrict__ ws, int d, int n_slots, int num_nodes,
     int node_block, int tile, int unit_slots, int lanes) {
   extern __shared__ double smem_unit[];
@@ -388,11 +377,18 @@ __device__ __forceinline__ void weighted_unit_body(
     const int i = u0 + j;
     const int k = slot_key(local_dst, t2b, i, tile, node_block);
     const int row = kGather ? mmap[i] : i;
-    const float w = scale[i];
     const bool real = !(k & 1);
+    float w = 0.f;
+    if (real) {
+      w = weight[i];
+      if (kSoftmax) {
+        const int n = k >> 1;
+        w = expf(w - mx[n]) / fmaxf(den[n], 1e-38f);
+      }
+    }
     s_key[j] = k;
     s_row[j] = real ? row : -1;
-    s_w[j] = real ? w : 0.f;
+    s_w[j] = w;
   }
   const int head = crossing_node(local_dst, t2b, u0, n_slots, tile,
                                  node_block);
@@ -672,9 +668,9 @@ weighted_agg_gather_unit_kernel(const float* __restrict__ scale,
                                 double* __restrict__ ws, int d, int n_slots,
                                 int num_nodes, int node_block, int tile,
                                 int unit_slots, int lanes) {
-  weighted_unit_body<true, V>(scale, msg, mmap, local_dst, t2b, out, ws, d,
-                              n_slots, num_nodes, node_block, tile,
-                              unit_slots, lanes);
+  weighted_unit_body<true, V>(scale, msg, mmap, local_dst, t2b, nullptr,
+                              nullptr, out, ws, d, n_slots, num_nodes,
+                              node_block, tile, unit_slots, lanes);
 }
 
 template <int V>
@@ -687,28 +683,45 @@ weighted_agg_padded_unit_kernel(const float* __restrict__ scale,
                                 double* __restrict__ ws, int d, int n_slots,
                                 int num_nodes, int node_block, int tile,
                                 int unit_slots, int lanes) {
-  weighted_unit_body<false, V>(scale, msg_p, nullptr, local_dst, t2b, out,
-                               ws, d, n_slots, num_nodes, node_block, tile,
-                               unit_slots, lanes);
+  weighted_unit_body<false, V>(scale, msg_p, nullptr, local_dst, t2b,
+                               nullptr, nullptr, out, ws, d, n_slots,
+                               num_nodes, node_block, tile, unit_slots,
+                               lanes);
 }
 
-__global__ void __launch_bounds__(kCombineWarps * 32)
-weighted_agg_gather_combine_kernel(
-    const int* __restrict__ local_dst, const int* __restrict__ t2b,
-    const int* __restrict__ block_tile_ptr, const double* __restrict__ ws,
-    float* __restrict__ out, int d, int n_slots, int num_units,
-    int num_node_blocks, int node_block, int tile, int unit_slots) {
-  weighted_combine_body(local_dst, t2b, block_tile_ptr, ws, out, d, n_slots,
-                        num_units, num_node_blocks, node_block, tile,
-                        unit_slots);
+// K3: K7's unit with the softmax weight
+template <int V>
+__global__ void __launch_bounds__(kUnitThreads)
+softmax_agg_gather_unit_kernel(const float* __restrict__ scores,
+                               const float* __restrict__ msg,
+                               const int* __restrict__ mmap,
+                               const int* __restrict__ local_dst,
+                               const int* __restrict__ t2b,
+                               const float* __restrict__ mx,
+                               const float* __restrict__ den,
+                               float* __restrict__ out,
+                               double* __restrict__ ws, int d, int n_slots,
+                               int num_nodes, int node_block, int tile,
+                               int unit_slots, int lanes) {
+  weighted_unit_body<true, V, true>(scores, msg, mmap, local_dst, t2b, mx,
+                                    den, out, ws, d, n_slots, num_nodes,
+                                    node_block, tile, unit_slots, lanes);
 }
 
+// The combine launch of K3, K7 and K8: one body, instantiated once per
+// kernel so that a profile names each kernel's combine after it (the tag's
+// name shows in the kernel's name).
+struct softmax_agg_gather_combine {};
+struct weighted_agg_gather_combine {};
+struct weighted_agg_padded_combine {};
+
+template <typename Name>
 __global__ void __launch_bounds__(kCombineWarps * 32)
-weighted_agg_padded_combine_kernel(
-    const int* __restrict__ local_dst, const int* __restrict__ t2b,
-    const int* __restrict__ block_tile_ptr, const double* __restrict__ ws,
-    float* __restrict__ out, int d, int n_slots, int num_units,
-    int num_node_blocks, int node_block, int tile, int unit_slots) {
+combine_kernel(const int* __restrict__ local_dst, const int* __restrict__ t2b,
+               const int* __restrict__ block_tile_ptr,
+               const double* __restrict__ ws, float* __restrict__ out, int d,
+               int n_slots, int num_units, int num_node_blocks,
+               int node_block, int tile, int unit_slots) {
   weighted_combine_body(local_dst, t2b, block_tile_ptr, ws, out, d, n_slots,
                         num_units, num_node_blocks, node_block, tile,
                         unit_slots);
@@ -733,8 +746,8 @@ extern "C" long long seg_stats_smem_bytes(int tile) {
   return (long long)tile * (sizeof(float) + sizeof(int));
 }
 
-// K3's and K6's dynamic shared memory: the fp64 accumulators and one
-// tile's staged slots.
+// K6's dynamic shared memory: the fp64 accumulators and one tile's staged
+// slots.
 extern "C" long long seg_agg_smem_bytes(int d, int node_block, int tile) {
   return (long long)node_block * d * sizeof(double) +
          (long long)tile * (sizeof(float) + 2 * sizeof(int));
@@ -760,7 +773,7 @@ extern "C" int seg_stats_f32(const float* scores, const int* local_dst,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch K3 or K6 with one thread block per node block: colw
+// Launch K6 with one thread block per node block: colw
 // consecutive threads cover a row's columns, `groups` such groups take the
 // block's nodes in turn. `args` are the kernel's pointer arguments.
 template <typename Kernel, typename... Args>
@@ -781,18 +794,6 @@ int launch_agg(Kernel* kernel, int d, int num_node_blocks, int node_block,
   return static_cast<int>(cudaGetLastError());
 }
 
-// msg [em, d]; mmap, scores, local_dst [T * tile]; mx, den from
-// seg_stats_f32; out [num_node_blocks * node_block, d].
-extern "C" int seg_softmax_agg_gather_f32(
-    const float* scores, const float* msg, const int* mmap,
-    const int* local_dst, const int* block_tile_ptr, const float* mx,
-    const float* den, float* out, int d, int num_node_blocks, int node_block,
-    int tile, void* stream) {
-  return launch_agg(seg_softmax_agg_gather_kernel, d, num_node_blocks,
-                    node_block, tile, stream, scores, msg, mmap, local_dst,
-                    block_tile_ptr, mx, den, out);
-}
-
 // K6. scores, local_dst [T * tile]; msg_p [T * tile, d] (the messages
 // padded into the slots); mx, den from seg_stats_f32;
 // out [num_node_blocks * node_block, d].
@@ -805,10 +806,10 @@ extern "C" int seg_softmax_agg_padded_f32(
                     block_tile_ptr, mx, den, out);
 }
 
-// K7's and K8's dynamic shared memory, whatever node_block: the agents'
-// first- and last-node partials (two fp64 rows of lanes * vec columns an
-// agent), the unit's staged slots (key, row, scale) and the agents' two
-// node ids.
+// K3's, K7's and K8's dynamic shared memory, whatever node_block: the
+// agents' first- and last-node partials (two fp64 rows of lanes * vec
+// columns an agent), the unit's staged slots (key, row, weight) and the
+// agents' two node ids.
 extern "C" long long seg_weighted_agg_smem_bytes(int d, int tile,
                                                  int chunk_tiles, int vec) {
   const int lanes = weighted_lanes(d, vec);
@@ -827,18 +828,18 @@ cudaError_t launch_unit(Kernel* kernel, int units, long long smem,
   return cudaGetLastError();
 }
 
-// Launch K7 (kGather) or K8: the unit kernel over ceil(num_tiles /
-// chunk_tiles) units, then the combine kernel, one block for
-// kCombineWarps units, on the same stream. ws holds 2 * units * d
+// Launch K3 (kSoftmax), K7 (kGather) or K8: the unit kernel over
+// ceil(num_tiles / chunk_tiles) units, then the combine kernel, one block
+// for kCombineWarps units, on the same stream. ws holds 2 * units * d
 // doubles: a head and a tail partial row a unit. vec (1, 2 or 4) divides
-// d, and msg is aligned to vec floats.
-template <bool kGather>
-int launch_weighted(const float* scale, const float* msg, const int* mmap,
+// d, and msg is aligned to vec floats. mx, den: K3's node statistics.
+template <bool kGather, bool kSoftmax>
+int launch_weighted(const float* weight, const float* msg, const int* mmap,
                     const int* local_dst, const int* t2b,
-                    const int* block_tile_ptr, float* out,
-                    double* ws, int d, int num_tiles, int num_node_blocks,
-                    int node_block, int tile, int chunk_tiles, int vec,
-                    void* stream) {
+                    const int* block_tile_ptr, const float* mx,
+                    const float* den, float* out, double* ws, int d,
+                    int num_tiles, int num_node_blocks, int node_block,
+                    int tile, int chunk_tiles, int vec, void* stream) {
   if (num_tiles <= 0 || num_node_blocks <= 0 || node_block <= 0 || d <= 0 ||
       tile <= 0 || chunk_tiles <= 0 || d % vec != 0 ||
       (vec != 1 && vec != 2 && vec != 4)) {
@@ -853,35 +854,53 @@ int launch_weighted(const float* scale, const float* msg, const int* mmap,
                                                      vec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (kGather) {
+  if constexpr (kSoftmax) {
+    auto* kernel = vec == 4   ? softmax_agg_gather_unit_kernel<4>
+                   : vec == 2 ? softmax_agg_gather_unit_kernel<2>
+                              : softmax_agg_gather_unit_kernel<1>;
+    e = launch_unit(kernel, units, smem, s, weight, msg, mmap, local_dst,
+                    t2b, mx, den, out, ws, d, n_slots, num_nodes, node_block,
+                    tile, unit_slots, lanes);
+  } else if constexpr (kGather) {
     auto* kernel = vec == 4   ? weighted_agg_gather_unit_kernel<4>
                    : vec == 2 ? weighted_agg_gather_unit_kernel<2>
                               : weighted_agg_gather_unit_kernel<1>;
-    e = launch_unit(kernel, units, smem, s, scale, msg, mmap, local_dst, t2b,
-                    out, ws, d, n_slots, num_nodes, node_block, tile,
+    e = launch_unit(kernel, units, smem, s, weight, msg, mmap, local_dst,
+                    t2b, out, ws, d, n_slots, num_nodes, node_block, tile,
                     unit_slots, lanes);
   } else {
     auto* kernel = vec == 4   ? weighted_agg_padded_unit_kernel<4>
                    : vec == 2 ? weighted_agg_padded_unit_kernel<2>
                               : weighted_agg_padded_unit_kernel<1>;
-    e = launch_unit(kernel, units, smem, s, scale, msg, local_dst, t2b, out,
+    e = launch_unit(kernel, units, smem, s, weight, msg, local_dst, t2b, out,
                     ws, d, n_slots, num_nodes, node_block, tile, unit_slots,
                     lanes);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const int combine_blocks = (units + kCombineWarps - 1) / kCombineWarps;
-  if (kGather) {
-    weighted_agg_gather_combine_kernel<<<combine_blocks, kCombineWarps * 32,
-                                          0, s>>>(
-        local_dst, t2b, block_tile_ptr, ws, out, d, n_slots, units,
-        num_node_blocks, node_block, tile, unit_slots);
-  } else {
-    weighted_agg_padded_combine_kernel<<<combine_blocks, kCombineWarps * 32,
-                                          0, s>>>(
-        local_dst, t2b, block_tile_ptr, ws, out, d, n_slots, units,
-        num_node_blocks, node_block, tile, unit_slots);
-  }
+  auto* combine = kSoftmax  ? combine_kernel<softmax_agg_gather_combine>
+                  : kGather ? combine_kernel<weighted_agg_gather_combine>
+                            : combine_kernel<weighted_agg_padded_combine>;
+  combine<<<combine_blocks, kCombineWarps * 32, 0, s>>>(
+      local_dst, t2b, block_tile_ptr, ws, out, d, n_slots, units,
+      num_node_blocks, node_block, tile, unit_slots);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3. scores (pad slots -1e30), mmap, local_dst [T * tile]; t2b [>= T];
+// block_tile_ptr [num_node_blocks + 1]; mx, den
+// [num_node_blocks * node_block] from seg_stats_f32; msg [em, d];
+// out [num_node_blocks * node_block, d]; ws as above.
+extern "C" int seg_softmax_agg_gather_f32(
+    const float* scores, const float* msg, const int* mmap,
+    const int* local_dst, const int* t2b, const int* block_tile_ptr,
+    const float* mx, const float* den, float* out, double* ws, int d,
+    int num_tiles, int num_node_blocks, int node_block, int tile,
+    int chunk_tiles, int vec, void* stream) {
+  return launch_weighted<true, true>(scores, msg, mmap, local_dst, t2b,
+                                     block_tile_ptr, mx, den, out, ws, d,
+                                     num_tiles, num_node_blocks, node_block,
+                                     tile, chunk_tiles, vec, stream);
 }
 
 // K7. scale_p (pad slots 0), mmap, local_dst [T * tile]; t2b [>= T];
@@ -892,10 +911,11 @@ extern "C" int seg_weighted_agg_gather_f32(
     const int* local_dst, const int* t2b, const int* block_tile_ptr,
     float* out, double* ws, int d, int num_tiles, int num_node_blocks,
     int node_block, int tile, int chunk_tiles, int vec, void* stream) {
-  return launch_weighted<true>(scale, msg, mmap, local_dst, t2b,
-                               block_tile_ptr, out, ws, d, num_tiles,
-                               num_node_blocks, node_block, tile, chunk_tiles,
-                               vec, stream);
+  return launch_weighted<true, false>(scale, msg, mmap, local_dst, t2b,
+                                      block_tile_ptr, nullptr, nullptr, out,
+                                      ws, d, num_tiles, num_node_blocks,
+                                      node_block, tile, chunk_tiles, vec,
+                                      stream);
 }
 
 // K8. scale_p (pad slots 0), local_dst [T * tile]; t2b [>= T];
@@ -906,8 +926,9 @@ extern "C" int seg_weighted_agg_padded_f32(
     const int* t2b, const int* block_tile_ptr, float* out, double* ws, int d,
     int num_tiles, int num_node_blocks, int node_block, int tile,
     int chunk_tiles, int vec, void* stream) {
-  return launch_weighted<false>(scale, msg_p, nullptr, local_dst, t2b,
-                                block_tile_ptr, out, ws, d, num_tiles,
-                                num_node_blocks, node_block, tile, chunk_tiles,
-                                vec, stream);
+  return launch_weighted<false, false>(scale, msg_p, nullptr, local_dst, t2b,
+                                       block_tile_ptr, nullptr, nullptr, out,
+                                       ws, d, num_tiles, num_node_blocks,
+                                       node_block, tile, chunk_tiles, vec,
+                                       stream);
 }

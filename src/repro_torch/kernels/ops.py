@@ -67,6 +67,7 @@ class PaddedSegmentsDev:
     tile: int
     num_groups: int
     num_chunks: int
+    chunk_tiles: int               # K5's chunk size (from static shapes)
 
     def to(self, device, non_blocking: bool = False) -> "PaddedSegmentsDev":
         return _move(self, ("row_map", "inv_map", "t2g", "group_tile_ptr",
@@ -101,14 +102,16 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 def padded_segments_dev(ps: L.PaddedSegments) -> PaddedSegmentsDev:
     """Host tensors of a ``PaddedSegments`` (``.to(device)`` moves them),
-    with K5's work split: the real-tile run of every group and its chunks."""
+    with K5's work split: the real-tile run of every group and its chunks
+    of ``outer_chunk_tiles`` of the padded tile count."""
     gtp = SK.outer_tile_ptr(ps.seg_sizes, ps.tile)
-    gcp = SK.outer_chunk_ptr(gtp)
+    ct = SK.outer_chunk_tiles(ps.padded_rows // ps.tile)
+    gcp = SK.outer_chunk_ptr(gtp, ct)
     return PaddedSegmentsDev(
         row_map=_tensor(ps.row_map), inv_map=_tensor(ps.inv_map),
         t2g=_tensor(ps.tile_to_group), group_tile_ptr=_tensor(gtp),
         group_chunk_ptr=_tensor(gcp), tile=ps.tile,
-        num_groups=ps.num_groups, num_chunks=int(gcp[-1]))
+        num_groups=ps.num_groups, num_chunks=int(gcp[-1]), chunk_tiles=ct)
 
 
 def block_tile_ptr(t2b: np.ndarray, num_tiles: int,
@@ -161,23 +164,23 @@ def device_padded_segments(seg_ptr: torch.Tensor,
     """``padded_segments_dev`` built on the tensors' device without a
     readback (``layout.device_pad_segments`` plus K5's work split).
 
-    ``group_tile_ptr`` / ``group_chunk_ptr`` equal the host's; the chunk
-    count, which the host reads off ``group_chunk_ptr[-1]``, is the static
-    bound ``padded_rows / tile / K5_CHUNK_TILES + G`` instead (each group
-    rounds its chunk count up by less than one). K5 launches that many
-    chunks; those past ``group_chunk_ptr[G]`` get an empty tile range and
-    write partials that no group reads."""
+    ``group_tile_ptr`` / ``group_chunk_ptr`` and ``chunk_tiles`` equal the
+    host's at the same ``padded_rows``; the chunk count, which the host
+    reads off ``group_chunk_ptr[-1]``, is the static bound ``padded_rows /
+    tile / chunk_tiles + G`` instead (each group rounds its chunk count up
+    by less than one). K5 launches that many chunks; those past
+    ``group_chunk_ptr[G]`` return before any work."""
     row_map, inv_map, t2g = L.device_pad_segments(seg_ptr, group_of_row,
                                                   tile, padded_rows)
     num_groups = int(seg_ptr.shape[0]) - 1
+    ct = SK.outer_chunk_tiles(padded_rows // tile)
     tiles = (seg_ptr[1:] - seg_ptr[:-1] + tile - 1) // tile
     gtp = L.exclusive_cumsum(tiles)
-    gcp = L.exclusive_cumsum(
-        (tiles + SK.K5_CHUNK_TILES - 1) // SK.K5_CHUNK_TILES)
+    gcp = L.exclusive_cumsum((tiles + ct - 1) // ct)
     return PaddedSegmentsDev(
         row_map=row_map, inv_map=inv_map, t2g=t2g, group_tile_ptr=gtp,
         group_chunk_ptr=gcp, tile=tile, num_groups=num_groups,
-        num_chunks=padded_rows // tile // SK.K5_CHUNK_TILES + num_groups)
+        num_chunks=padded_rows // tile // ct + num_groups, chunk_tiles=ct)
 
 
 def device_blocked_csr(dst_ptr: torch.Tensor, dst_sorted: torch.Tensor,
@@ -285,17 +288,12 @@ def _gemm_backward(needs, dy, x, w, scale_p, y_pre, lay: PaddedSegmentsDev,
                 torch.where(valid, dxg, dxg.new_zeros(())))
     if needs[1]:
         x_p = x if gidx is None else pad_rows(x, gidx)
+        # groups that own no tile get exact zeros from K5 (the reference's
+        # mask)
         dw = SK.segment_outer_padded(
             x_p, dys, lay.group_tile_ptr, lay.group_chunk_ptr,
             num_groups=lay.num_groups, num_chunks=lay.num_chunks,
-            tile=lay.tile)
-        # groups that own no tile: exact zeros (the reference's mask; K5
-        # already writes them so)
-        num_tiles = x_p.shape[0] // lay.tile
-        present = torch.zeros(lay.num_groups, dtype=torch.bool,
-                              device=dw.device).index_fill_(
-            0, lay.t2g[:num_tiles].long(), True)
-        dw = torch.where(present[:, None, None], dw, dw.new_zeros(()))
+            tile=lay.tile, chunk_tiles=lay.chunk_tiles)
     if needs[2]:
         dscale = torch.sum(dy * y_pre, dim=1, keepdim=True)
     return dx, dw, dscale

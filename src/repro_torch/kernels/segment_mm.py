@@ -9,7 +9,9 @@ and their plain versions.
                               forward of ungathered GEMMs and the dX of
                               every GEMM's backward.
 ``segment_outer_padded``      K5: dW[g] = Σ_{tiles t of g} X_tᵀ dY_t, the dW
-                              of every GEMM's backward.
+                              of every GEMM's backward, on the fp64 tensor
+                              cores, the groups' tiles cut into chunks of
+                              ``outer_chunk_tiles`` tiles.
 
 Each wrapper dispatches on the tensors' device: a CPU tensor runs the plain
 PyTorch version, a CUDA tensor launches the hand-written Hopper kernel in
@@ -27,24 +29,29 @@ import torch
 
 from repro_torch.kernels import build
 
-# K5 splits each group's run of real tiles into chunks of at most this many
-# tiles, one thread block each (``outer_chunk_ptr``)
-K5_CHUNK_TILES = 16
+# K5 splits each group's run of real tiles into chunks of at most
+# ``outer_chunk_tiles(T)`` tiles, one thread block each (``outer_chunk_ptr``):
+# about K5_TARGET_CHUNKS chunks for T padded tiles (about one wave of two
+# blocks on each of the H100's 132 SMs), each of K5_MIN_CHUNK_TILES to
+# K5_MAX_CHUNK_TILES tiles: on an H100, 4 tiles were the fastest of 1-64
+# at the aifb-b64 training steps' calls (T <= 1024), 16-32 at the bgs
+# full-graph steps' calls (T = 3-21K)
+K5_TARGET_CHUNKS = 256
+K5_MIN_CHUNK_TILES = 4
+K5_MAX_CHUNK_TILES = 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "segment_mm_gather_f32": [_P] * 6 + [_I] * 6 + [_P],
     "segment_mm_padded_f32": [_P] * 5 + [_I] * 8 + [_P],
-    "segment_outer_f32": [_P] * 6 + [_I] * 6 + [_P],
+    "segment_outer_f32": [_P] * 7 + [_I] * 6 + [_P],
     "segment_mm_smem_bytes": [_I] * 4,
-    "segment_outer_smem_bytes": [_I] * 3,
 }
 
 
 def _library() -> ctypes.CDLL:
     return build.load("segment_mm", _SIGNATURES,
-                      sizes=("segment_mm_smem_bytes",
-                             "segment_outer_smem_bytes"))
+                      sizes=("segment_mm_smem_bytes",))
 
 
 def _device_or_raise(kernel: str, t: torch.Tensor) -> bool:
@@ -269,8 +276,17 @@ def outer_tile_ptr(seg_sizes: np.ndarray, tile: int) -> np.ndarray:
     return ptr
 
 
+def outer_chunk_tiles(num_tiles: int) -> int:
+    """K5's chunk size for a layout of ``num_tiles`` padded tiles (a static
+    shape, never the device's real-tile count): about K5_TARGET_CHUNKS
+    chunks, each between K5_MIN_CHUNK_TILES and K5_MAX_CHUNK_TILES
+    tiles."""
+    return max(K5_MIN_CHUNK_TILES, min(K5_MAX_CHUNK_TILES, -(
+        -int(num_tiles) // K5_TARGET_CHUNKS)))
+
+
 def outer_chunk_ptr(group_tile_ptr: np.ndarray,
-                    chunk_tiles: int = K5_CHUNK_TILES) -> np.ndarray:
+                    chunk_tiles: int) -> np.ndarray:
     """[R + 1] offsets of each group's K5 chunks: its run of real tiles cut
     into pieces of at most ``chunk_tiles`` tiles."""
     counts = (np.diff(np.asarray(group_tile_ptr, np.int64))
@@ -278,6 +294,20 @@ def outer_chunk_ptr(group_tile_ptr: np.ndarray,
     ptr = np.zeros(len(counts) + 1, dtype=np.int32)
     np.cumsum(counts, out=ptr[1:])
     return ptr
+
+
+# K5's arrival counters, one int32 per (group, 64 x 64 slice of dW), by
+# device: zero between launches (the last block of each group resets its
+# own), so no call clears them
+_counters: dict = {}
+
+
+def _outer_counters(dev: torch.device, size: int) -> torch.Tensor:
+    buf = _counters.get(dev)
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(max(size, 1024), dtype=torch.int32, device=dev)
+        _counters[dev] = buf
+    return buf
 
 
 def segment_outer_padded_plain(
@@ -289,11 +319,12 @@ def segment_outer_padded_plain(
     num_groups: int,
     num_chunks: int = 0,
     tile: int,
+    chunk_tiles: int = 1,
 ) -> torch.Tensor:
     """Plain version of K5 -> [R, k, n]: each real tile's ``X_tᵀ dY_t``
     summed into its group, in fp64 (as the kernel), returned in the input
-    dtype. ``group_chunk_ptr`` / ``num_chunks`` are the kernel's work split
-    and do not change the result."""
+    dtype. ``group_chunk_ptr`` / ``num_chunks`` / ``chunk_tiles`` are the
+    kernel's work split and do not change the result."""
     k, n = int(x_p.shape[1]), int(dy_p.shape[1])
     counts = torch.diff(group_tile_ptr.long())
     real = int(counts.sum())
@@ -317,13 +348,17 @@ def segment_outer_padded(
     num_groups: int,
     num_chunks: int,
     tile: int,
+    chunk_tiles: int,
 ) -> torch.Tensor:
     """K5: ``dW[g] = Σ_{real tiles t of g} X_tᵀ dY_t`` -> [R, k, n] fp32.
 
     Only the tiles in ``group_tile_ptr``'s runs are read (the pure-pad
     tiles bucketing appends hold zero rows); a group without real tiles
     gets zeros. ``group_chunk_ptr`` (``outer_chunk_ptr`` at
-    ``K5_CHUNK_TILES``) splits the runs over thread blocks."""
+    ``chunk_tiles``, which the layout carries) splits the runs over thread
+    blocks; ``num_chunks`` blocks are launched (at least
+    ``group_chunk_ptr[R]``; the surplus returns at once). The CPU route
+    ignores the split."""
     rp, k = x_p.shape
     rp2, n = dy_p.shape
     if rp != rp2:
@@ -336,7 +371,8 @@ def segment_outer_padded(
     if _device_or_raise("segment_outer_padded", x_p):
         return segment_outer_padded_plain(
             x_p, dy_p, group_tile_ptr, group_chunk_ptr,
-            num_groups=num_groups, num_chunks=num_chunks, tile=tile)
+            num_groups=num_groups, num_chunks=num_chunks, tile=tile,
+            chunk_tiles=chunk_tiles)
     dev = x_p.device
     build.check_args("segment_outer_padded", dev,
                      x_p=(x_p, torch.float32), dy_p=(dy_p, torch.float32),
@@ -349,19 +385,21 @@ def segment_outer_padded(
         # nothing to sum: no kernel is launched
         return torch.zeros((num_groups, k, n), dtype=torch.float32,
                            device=dev)
+    if chunk_tiles < 1:
+        raise ValueError(f"segment_outer_padded: chunk_tiles={chunk_tiles} "
+                         f"below 1")
     dw = torch.empty((num_groups, k, n), dtype=torch.float32, device=dev)
     partial = torch.empty((num_chunks, k, n), dtype=torch.float64,
                           device=dev)
+    counters = _outer_counters(dev, num_groups * -(-k // 64) * -(-n // 64))
     args = [t.contiguous() for t in (x_p, dy_p, group_tile_ptr,
                                      group_chunk_ptr)]
     lib = _library()
-    _check_smem("segment_outer_padded",
-                lib.segment_outer_smem_bytes(k, n, tile), f"tile={tile}")
     with torch.cuda.device(dev):
         rc = lib.segment_outer_f32(
             *(t.data_ptr() for t in args), partial.data_ptr(),
-            dw.data_ptr(), k, n, tile, num_groups, num_chunks,
-            K5_CHUNK_TILES, _stream(dev))
+            dw.data_ptr(), counters.data_ptr(), k, n, tile, num_groups,
+            num_chunks, chunk_tiles, _stream(dev))
     build.check(lib, rc, "segment_outer_padded")
     segment_outer_padded.launches += 1
     return dw

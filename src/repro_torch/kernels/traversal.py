@@ -19,12 +19,14 @@ the same names in ``repro/kernels/traversal.py``). Nothing falls back;
 ``.launches`` on each wrapper counts its kernel launches.
 
 The plain versions index nodes through the tile -> block map ``t2b``.
-K2, K3 and K6 walk each node block's tile range from ``block_tile_ptr``
-with one thread block. K7 and K8 split by slots: ``ceil(T /
-chunk_tiles)`` units of ``K7_CHUNK_TILES`` consecutive tiles, each summed
-by one thread block into fp64 partials, and a second kernel that adds up,
-in unit order, the nodes whose slots cross a unit edge (one call, two
-launches, counted once). They rely on the order ``slot_keys`` states,
+K2 and K6 walk each node block's tile range from ``block_tile_ptr``
+with one thread block. K3, K7 and K8 split by slots: ``ceil(T /
+chunk_tiles)`` units of ``chunk_tiles`` consecutive tiles (by default
+``K3_CHUNK_TILES`` / ``K7_CHUNK_TILES``), each summed by one thread block
+into fp64 partials, and a second kernel that adds up, in unit order, the
+nodes whose slots cross a unit edge (one call, two launches, counted
+once); K3's weight is the attention from K2's ``mx`` / ``den``, computed
+as the slot is staged. They rely on the order ``slot_keys`` states,
 which every layout builder keeps: real slots sorted by destination, each
 node block's pads after its real slots. Pad slots carry ``local_dst ==
 node_block`` and contribute nothing (the reference gives them scale 0); a
@@ -51,7 +53,7 @@ NEG_INF = -1e30
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "seg_stats_f32": [_P] * 5 + [_I] * 3 + [_P],
-    "seg_softmax_agg_gather_f32": [_P] * 8 + [_I] * 4 + [_P],
+    "seg_softmax_agg_gather_f32": [_P] * 10 + [_I] * 7 + [_P],
     "seg_weighted_agg_gather_f32": [_P] * 8 + [_I] * 7 + [_P],
     "seg_softmax_agg_padded_f32": [_P] * 7 + [_I] * 4 + [_P],
     "seg_weighted_agg_padded_f32": [_P] * 7 + [_I] * 7 + [_P],
@@ -59,8 +61,9 @@ _SIGNATURES = {
     "seg_weighted_agg_smem_bytes": [_I] * 4,
 }
 # K7's and K8's work unit: this many consecutive tiles of the slot array
-# (256 slots at tile 32) to a thread block
+# (256 slots at tile 32) to a thread block; K3's, the same walk
 K7_CHUNK_TILES = 8
+K3_CHUNK_TILES = K7_CHUNK_TILES
 
 
 def _library() -> ctypes.CDLL:
@@ -81,7 +84,7 @@ def _slot_nodes(local_dst_p: torch.Tensor, t2b: torch.Tensor,
 
 def slot_keys(local_dst_p: torch.Tensor, t2b: torch.Tensor,
               node_block: int) -> torch.Tensor:
-    """The sort key of every flat slot, as K7 and K8 compute it: ``2 *``
+    """The sort key of every flat slot, as K3, K7 and K8 compute it: ``2 *``
     the global destination of a real slot, ``2 *`` the last node of its
     block ``+ 1`` for a pad. The kernels rely on these keys never
     decreasing along the slots: the real slots' destinations are sorted,
@@ -183,24 +186,28 @@ def seg_softmax_agg_gather_padded_plain(scores_p, msg, mmap, local_dst_p,
 
 def seg_softmax_agg_gather_padded(scores_p, msg, mmap, local_dst_p, t2b,
                                   block_tile_ptr, mx, den, *,
-                                  node_block: int, num_node_blocks: int):
+                                  node_block: int, num_node_blocks: int,
+                                  chunk_tiles: int = K3_CHUNK_TILES):
     """K3: softmax-weighted aggregation with the message gather in-kernel.
 
     msg: [Em, d] in storage order (canonical edges or the compact
     unique-pair table); mmap: [T * tile] slot -> msg row, or -1; mx, den:
-    K2's outputs."""
+    K2's outputs. K7's slot split, in units of ``chunk_tiles`` tiles (a
+    keyword only for sweeping it; the CPU route ignores it)."""
     if scores_p.device.type == "cpu":
         return seg_softmax_agg_gather_padded_plain(
             scores_p, msg, mmap, local_dst_p, t2b, block_tile_ptr, mx, den,
             node_block=node_block, num_node_blocks=num_node_blocks)
-    out, launched = _launch_agg(
+    out, launched = _launch_weighted(
         "seg_softmax_agg_gather_padded", "seg_softmax_agg_gather_f32", msg,
         dict(scores_p=(scores_p, torch.float32), msg=(msg, torch.float32),
              mmap=(mmap, torch.int32),
              local_dst_p=(local_dst_p, torch.int32),
+             t2b=(t2b, torch.int32),
              block_tile_ptr=(block_tile_ptr, torch.int32),
              mx=(mx, torch.float32), den=(den, torch.float32)),
-        node_block=node_block, num_node_blocks=num_node_blocks)
+        node_block=node_block, num_node_blocks=num_node_blocks,
+        chunk_tiles=chunk_tiles)
     seg_softmax_agg_gather_padded.launches += launched
     return out
 
@@ -352,7 +359,7 @@ seg_weighted_agg_padded.launches = 0
 
 def _launch_agg(kernel: str, entry: str, msg, named, *, node_block: int,
                 num_node_blocks: int):
-    """Launch K3 or K6 (the C entry point ``entry``) on the
+    """Launch K6 (the C entry point ``entry``) on the
     ``named`` ``(tensor, dtype)`` inputs, in the kernel's argument order;
     returns ``(out, 1)``, or ``(out, 0)`` for an empty grid, which is
     never launched. A device without a kernel raises."""
@@ -384,11 +391,11 @@ def _launch_agg(kernel: str, entry: str, msg, named, *, node_block: int,
 def _launch_weighted(kernel: str, entry: str, msg, named, *,
                      node_block: int, num_node_blocks: int,
                      chunk_tiles: int):
-    """Launch K7 or K8 (the C entry point ``entry``: the unit kernel, then
-    the combine kernel) on the ``named`` ``(tensor, dtype)`` inputs, in the
-    kernel's argument order; returns ``(out, 1)``, or ``(out, 0)`` where
-    there is nothing to sum (no slot, no node or no column): then every
-    row is zero and nothing is launched. A device without a kernel
+    """Launch K3, K7 or K8 (the C entry point ``entry``: the unit kernel,
+    then the combine kernel) on the ``named`` ``(tensor, dtype)`` inputs,
+    in the kernel's argument order; returns ``(out, 1)``, or ``(out, 0)``
+    where there is nothing to sum (no slot, no node or no column): then
+    every row is zero and nothing is launched. A device without a kernel
     raises.
 
     The workspace holds a head and a tail partial row of fp64 for every
@@ -404,7 +411,7 @@ def _launch_weighted(kernel: str, entry: str, msg, named, *,
     local_dst_p, t2b = named["local_dst_p"][0], named["t2b"][0]
     num_tiles, tile = (int(n) for n in local_dst_p.shape)
     slots = num_tiles * tile
-    for name in ("scale_p", "mmap"):
+    for name in ("scale_p", "scores_p", "mmap"):
         if name in named and named[name][0].numel() != slots:
             raise ValueError(f"{kernel}: {name} has "
                              f"{named[name][0].numel()} entries for {slots} "
@@ -415,6 +422,11 @@ def _launch_weighted(kernel: str, entry: str, msg, named, *,
     if chunk_tiles < 1:
         raise ValueError(f"{kernel}: chunk_tiles={chunk_tiles} below 1")
     num_nodes = num_node_blocks * node_block
+    for name in ("mx", "den"):
+        if name in named and named[name][0].numel() != num_nodes:
+            raise ValueError(f"{kernel}: {name} has "
+                             f"{named[name][0].numel()} entries for "
+                             f"{num_nodes} nodes")
     if 2 * num_nodes >= 2**31 or slots + chunk_tiles * tile >= 2**31:
         raise ValueError(f"{kernel}: {num_nodes} nodes or {slots} slots "
                          f"overflow the kernel's int32 keys")

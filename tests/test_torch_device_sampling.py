@@ -161,7 +161,8 @@ def test_device_pad_segments_equal_reference_and_host(graph, seg):
               "group_chunk_ptr"):
         _eq(getattr(dev, f), getattr(host, f), f)
     assert dev.num_chunks >= host.num_chunks
-    assert dev.num_chunks == cap // tile // 16 + len(ptr) - 1
+    assert dev.chunk_tiles == host.chunk_tiles
+    assert dev.num_chunks == cap // tile // dev.chunk_tiles + len(ptr) - 1
     src = torch.from_numpy(np.arange(rows.shape[0], dtype=np.int32) * 3)
     _eq(L.device_compose_gather_rows(got[0], src),
         RL.device_compose_gather_rows(jnp.asarray(got[0].numpy()),

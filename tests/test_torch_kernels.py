@@ -615,7 +615,8 @@ def test_k5_matches_pallas_interpret(k, n, grow):
         num_groups=r, tile_rows=tile, interpret=True))
     ours = SK.segment_outer_padded(
         _t(x_p), _t(dy_p), lay.group_tile_ptr, lay.group_chunk_ptr,
-        num_groups=r, num_chunks=lay.num_chunks, tile=tile).numpy()
+        num_groups=r, num_chunks=lay.num_chunks, tile=tile,
+        chunk_tiles=lay.chunk_tiles).numpy()
     owns = np.diff(lay.group_tile_ptr.numpy()) > 0
     assert not owns.all()                      # groups 1 and 3 are empty
     # the Pallas kernel never visits a group without tiles; K5 zeroes it
@@ -624,18 +625,240 @@ def test_k5_matches_pallas_interpret(k, n, grow):
 
 
 def test_k5_chunks_cover_only_real_tiles():
-    """Each group's run of real tiles, cut into chunks of at most
-    ``K5_CHUNK_TILES``; bucketing's pure-pad tiles are in no run."""
-    c = SK.K5_CHUNK_TILES
-    sizes = np.array([0, 3, c * 8 * 2 + 1, 0, 8 * c])   # tile 8
+    """Each group's run of real tiles, cut into chunks of at most the
+    layout's ``chunk_tiles``; bucketing's pure-pad tiles are in no run."""
+    padded_tiles = 4 * SK.K5_TARGET_CHUNKS             # tile 8
+    c = SK.outer_chunk_tiles(padded_tiles)
+    sizes = np.array([0, 3, c * 8 * 2 + 1, 0, 8 * c])
     ps = L.pad_segments(np.concatenate([[0], np.cumsum(sizes)]), 8)
-    ps = L.pad_segments_rows(ps, L.pow2ceil(ps.padded_rows) * 4)
+    ps = L.pad_segments_rows(ps, padded_tiles * 8)
     lay = ops.padded_segments_dev(ps)
+    assert lay.chunk_tiles == c > 1
     assert lay.group_tile_ptr.tolist() == [0, 0, 1, 2 * c + 2, 2 * c + 2,
                                            3 * c + 2]
     assert lay.group_chunk_ptr.tolist() == [0, 0, 1, 4, 4, 5]
     assert lay.num_chunks == 5
     assert ps.padded_rows // 8 > 3 * c + 2     # pad tiles outside the runs
+
+
+@pytest.mark.parametrize("num_tiles", [0, 1, 7, 1000, 2560, 2561, 4096,
+                                       15497, 22447, 10**6])
+def test_k5_chunk_tiles_fit_the_padded_tile_count(num_tiles):
+    """K5's chunk size depends on the layout's padded tile count alone (a
+    static shape): between its floor and its cap (1 <= floor), never
+    decreasing with the count, about K5_TARGET_CHUNKS chunks between them,
+    and the host and device builders agree at the same capacity whatever
+    the real rows."""
+    ct = SK.outer_chunk_tiles(num_tiles)
+    assert 1 <= SK.K5_MIN_CHUNK_TILES <= ct <= SK.K5_MAX_CHUNK_TILES
+    assert ct >= SK.outer_chunk_tiles(max(0, num_tiles - 1))
+    if ct < SK.K5_MAX_CHUNK_TILES:
+        assert -(-num_tiles // ct) <= SK.K5_TARGET_CHUNKS
+    if ct > SK.K5_MIN_CHUNK_TILES:
+        assert -(-num_tiles // (ct - 1)) > SK.K5_TARGET_CHUNKS
+    if 0 < num_tiles <= 4096:
+        rng = np.random.default_rng(num_tiles)
+        tile = 8
+        for real in (0, num_tiles * tile // 3):
+            cuts = np.sort(rng.integers(0, real + 1, 5))
+            ptr = np.concatenate([[0], cuts, [real]]).astype(np.int32)
+            cap = max(num_tiles * tile, real + 6 * tile)
+            cap += -cap % tile
+            host = ops.padded_segments_dev(
+                L.pad_segments_rows(L.pad_segments(ptr, tile), cap))
+            dev = ops.device_padded_segments(
+                _t(ptr), _t(np.repeat(np.arange(6, dtype=np.int32),
+                                      np.diff(ptr))), tile, cap)
+            assert host.chunk_tiles == dev.chunk_tiles == \
+                SK.outer_chunk_tiles(cap // tile)
+            assert dev.group_chunk_ptr.tolist() == \
+                host.group_chunk_ptr.tolist()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_k5_static_chunk_count_covers_the_exact_count(seed):
+    """The device builder's static chunk count is at least the exact count
+    ``group_chunk_ptr[R]`` at every size: sparse and dense groups, empty
+    groups, capacities from tight to 64x."""
+    rng = np.random.default_rng(100 + seed)
+    tile = [8, 32][seed % 2]
+    r = int(rng.integers(1, 130))
+    for _ in range(20):
+        sizes = rng.integers(0, int(rng.choice([2, 40, 3000])), r)
+        sizes[rng.random(r) < 0.3] = 0
+        ptr = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+        need = int(sizes.sum()) + r * tile
+        cap = need * int(rng.choice([1, 2, 64]))
+        cap += -cap % tile
+        dev = ops.device_padded_segments(
+            _t(ptr), _t(np.repeat(np.arange(r, dtype=np.int32), sizes)),
+            tile, cap)
+        exact = int(dev.group_chunk_ptr[-1])
+        assert dev.num_chunks >= exact
+        ct = dev.chunk_tiles
+        assert exact == int(np.sum(-(-(-(-sizes // tile)) // ct)))
+
+
+def _chunked_outer(x_p, dy_p, gtp, gcp, ct, tile, r):
+    """The kernel's arithmetic in numpy: each chunk's X_t^T dY_t summed in
+    fp64 over its rows, a group's chunk partials added in chunk order."""
+    k, n = x_p.shape[1], dy_p.shape[1]
+    dw = np.zeros((r, k, n), np.float64)
+    for g in range(r):
+        parts = []
+        for c in range(gcp[g], gcp[g + 1]):
+            t0 = gtp[g] + (c - gcp[g]) * ct
+            t1 = min(t0 + ct, gtp[g + 1])
+            rows = slice(t0 * tile, t1 * tile)
+            parts.append(x_p[rows].astype(np.float64).T
+                         @ dy_p[rows].astype(np.float64))
+        for p in parts:
+            dw[g] += p
+    return dw.astype(np.float32)
+
+
+@pytest.mark.parametrize("ct", [1, 2, 3, 16, 64])
+def test_k5_chunked_sum_matches_plain_and_pallas(ct):
+    """K5's split (chunks of ``ct`` tiles, fp64 partials added in chunk
+    order) changes only the fp64 summation order: the plain version, which
+    ignores the split, agrees bit for bit at every ``ct``, and both agree
+    with the chunked sum at K5's bound (1e-6) and with the Pallas kernel
+    (fp32 sums) at the kernels' bound (1e-5)."""
+    rng = np.random.default_rng(ct)
+    tile, r = 8, 6
+    ptr, _ = _segments(rng, r, 90)
+    ps = L.pad_segments_rows(L.pad_segments(ptr, tile),
+                             L.pow2ceil(L.pad_segments(ptr, tile)
+                                        .padded_rows) * 2)
+    x_p = _padded_rows(rng, ps, 24)
+    dy_p = rng.normal(size=(ps.padded_rows, 40)).astype(np.float32)
+    gtp = SK.outer_tile_ptr(ps.seg_sizes, tile)
+    gcp = SK.outer_chunk_ptr(gtp, ct)
+    kw = dict(num_groups=r, num_chunks=int(gcp[-1]), tile=tile,
+              chunk_tiles=ct)
+    ours = SK.segment_outer_padded(_t(x_p), _t(dy_p), _t(gtp), _t(gcp),
+                                   **kw).numpy()
+    base = SK.segment_outer_padded_plain(_t(x_p), _t(dy_p), _t(gtp),
+                                         num_groups=r, tile=tile).numpy()
+    np.testing.assert_array_equal(ours, base)
+    np.testing.assert_allclose(
+        ours, _chunked_outer(x_p, dy_p, gtp, gcp, ct, tile, r),
+        rtol=1e-6, atol=1e-6)
+    ref = np.asarray(RSK.segment_outer_padded(
+        jnp.asarray(x_p), jnp.asarray(dy_p), jnp.asarray(ps.tile_to_group),
+        num_groups=r, tile_rows=tile, interpret=True))
+    owns = np.diff(gtp) > 0
+    np.testing.assert_allclose(ours[owns], ref[owns], **TOL)
+    assert np.all(ours[~owns] == 0.0)
+
+
+@pytest.mark.parametrize("gather", [False, True])
+def test_gemm_backward_dw_on_device_layouts(gather):
+    """dW through the ops on a layout built as device sampling builds it
+    (static chunk bound, pure-pad tiles, groups without rows): K5's zeros
+    for the empty groups stand without a mask, and the gradient equals the
+    masked one of the host layout and the reference's ``jax.grad``."""
+    rng = np.random.default_rng(51 + gather)
+    r, tile, k, n = 6, 8, 16, 12
+    ptr, m = _segments(rng, r, 30)
+    cap = L.pow2ceil(L.pad_segments(ptr, tile).padded_rows) * 2
+    group = np.repeat(np.arange(r, dtype=np.int32), np.diff(ptr))
+    dev = ops.device_padded_segments(_t(ptr.astype(np.int32)), _t(group),
+                                     tile, cap)
+    ps = L.pad_segments_rows(L.pad_segments(ptr, tile), cap)
+    host = ops.padded_segments_dev(ps)
+    assert dev.num_chunks > int(dev.group_chunk_ptr[-1])
+    nx = 20
+    x = rng.normal(size=(nx if gather else m, k)).astype(np.float32)
+    w = rng.normal(size=(r, k, n)).astype(np.float32)
+    src = rng.integers(0, nx, m)
+
+    def ours(lay):
+        def f(x, w):
+            if gather:
+                gidx = _t(L.compose_gather_rows(ps, src))
+                y = ops.segment_mm_gather(x, w, lay, gidx)
+            else:
+                y = ops.segment_mm(x, w, lay)
+            return torch.sum(torch.sin(y))
+        return _torch_grads(f, x, w)
+
+    dx, dw = ours(dev)
+    dx_h, dw_h = ours(host)
+    np.testing.assert_array_equal(dw, dw_h)
+    np.testing.assert_array_equal(dx, dx_h)
+    empty = np.diff(ptr) == 0
+    assert empty.any() and np.all(dw[empty] == 0.0)
+    rlay = rops.padded_segments_dev(ps)
+
+    def ref(x, w):
+        if gather:
+            y = rops.segment_mm_gather(
+                x, w, rlay, jnp.asarray(L.compose_gather_rows(ps, src)),
+                backend="pallas_interpret")
+        else:
+            y = rops.segment_mm(x, w, rlay, backend="pallas_interpret")
+        return jnp.sum(jnp.sin(y))
+
+    want = jax.grad(ref, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    np.testing.assert_allclose(dx, np.asarray(want[0]), **GRAD_TOL)
+    np.testing.assert_allclose(dw, np.asarray(want[1]), **GRAD_TOL)
+
+
+# the numbers K5's design rests on: an fp32 x fp32 product is exact in fp64
+# (24 + 24 significant bits <= 53, exponents within fp64's range), so the
+# fp64 tensor cores' products equal the plain version's, and only the fp64
+# summation order differs
+FP32_RANGES = {
+    "normal": (1e-3, 1e3),
+    "large": (1e30, np.finfo(np.float32).max),
+    "tiny normal": (np.finfo(np.float32).tiny, 1e-30),
+    "subnormal": (np.float32(1.4e-45), np.finfo(np.float32).tiny),
+}
+
+
+@pytest.mark.parametrize("a_range,b_range", [
+    ("normal", "normal"), ("large", "large"), ("large", "subnormal"),
+    ("subnormal", "subnormal"), ("tiny normal", "subnormal"),
+    ("normal", "large")])
+def test_fp32_products_are_exact_in_fp64(a_range, b_range):
+    from fractions import Fraction
+
+    rng = np.random.default_rng(len(a_range) * 7 + len(b_range))
+
+    def draw(name, size):
+        lo, hi = (np.log2(float(v)) for v in FP32_RANGES[name])
+        mag = np.exp2(rng.uniform(lo, hi, size)).astype(np.float32)
+        sign = rng.choice(np.array([-1, 1], np.float32), size)
+        return (mag * sign).astype(np.float32)
+
+    a, b = draw(a_range, 400), draw(b_range, 400)
+    assert np.all(np.isfinite(a)) and np.all(np.isfinite(b))
+    prod = a.astype(np.float64) * b.astype(np.float64)
+    for x, y, p in zip(a.tolist(), b.tolist(), prod.tolist()):
+        assert Fraction(p) == Fraction(x) * Fraction(y)
+
+
+@pytest.mark.parametrize("n", [32, 4096, 40000])
+def test_fp64_sums_of_fp32_products_round_within_one_ulp(n):
+    """The same fp32 x fp32 products summed in fp64 in different orders
+    (sequential, chunked, reversed, shuffled: the kernel's split against the
+    plain version's) round to fp32 values at most one fp32 ulp apart."""
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=(n, 8)).astype(np.float32)
+    y = rng.normal(size=(n, 8)).astype(np.float32)
+    terms = x.astype(np.float64) * y.astype(np.float64)
+    sums = [terms.sum(axis=0)]
+    acc = np.zeros(8)
+    for t in terms:
+        acc = acc + t
+    sums.append(acc)
+    sums.append(sum(c.sum(axis=0) for c in np.array_split(terms, 7)))
+    sums.append(terms[::-1].cumsum(axis=0)[-1])
+    sums.append(terms[rng.permutation(n)].cumsum(axis=0)[-1])
+    f32 = np.stack([s.astype(np.float32) for s in sums])
+    ulp = np.spacing(np.abs(f32).max(axis=0))
+    assert np.all(f32.max(axis=0) - f32.min(axis=0) <= ulp)
 
 
 @pytest.mark.parametrize("grow", [1, 4])
@@ -659,10 +882,12 @@ def test_k5_static_chunk_bound_of_the_device_layout(grow):
     dy_p = rng.normal(size=(cap, 24)).astype(np.float32)
     ours = SK.segment_outer_padded(
         _t(x_p), _t(dy_p), dev.group_tile_ptr, dev.group_chunk_ptr,
-        num_groups=r, num_chunks=dev.num_chunks, tile=tile).numpy()
+        num_groups=r, num_chunks=dev.num_chunks, tile=tile,
+        chunk_tiles=dev.chunk_tiles).numpy()
     exact = SK.segment_outer_padded(
         _t(x_p), _t(dy_p), host.group_tile_ptr, host.group_chunk_ptr,
-        num_groups=r, num_chunks=host.num_chunks, tile=tile).numpy()
+        num_groups=r, num_chunks=host.num_chunks, tile=tile,
+        chunk_tiles=host.chunk_tiles).numpy()
     np.testing.assert_array_equal(ours, exact)
     ref = np.asarray(RSK.segment_outer_padded(
         jnp.asarray(x_p), jnp.asarray(dy_p), jnp.asarray(ps.tile_to_group),
@@ -940,7 +1165,7 @@ def test_off_cpu_tensors_never_take_the_plain_path():
         SK.segment_outer_padded(
             torch.ones(12, 4, device=meta), torch.ones(12, 3, device=meta),
             lay.group_tile_ptr, lay.group_chunk_ptr, num_groups=2,
-            num_chunks=lay.num_chunks, tile=4)
+            num_chunks=lay.num_chunks, tile=4, chunk_tiles=lay.chunk_tiles)
     for fn in (ops.weighted_agg, ops.edge_softmax_agg):
         name = ("seg_weighted_agg_padded" if fn is ops.weighted_agg
                 else "seg_stats_padded")

@@ -1,6 +1,6 @@
-"""The slot order that K7 and K8 (``seg_weighted_agg_gather_padded``,
-``seg_weighted_agg_padded``) rely on, pinned for every layout builder of
-the port.
+"""The slot order that K3, K7 and K8 (``seg_softmax_agg_gather_padded``,
+``seg_weighted_agg_gather_padded``, ``seg_weighted_agg_padded``) rely on,
+pinned for every layout builder of the port.
 
 The kernels cut the slot array into units of consecutive tiles and find
 each unit's destinations from the slots alone, so they need the real
@@ -10,17 +10,27 @@ block's real slots: ``traversal.slot_keys`` never decreases. Held here for
 the host ``block_csr``, the bucketed layouts of a served mini-batch (the
 pad node and the pure-pad tail) and ``ops.device_blocked_csr`` on the CPU,
 over sampled aifb / bgs blocks, a hub, nodes without edges and node
-blocks without tiles. The kernels' CPU route, which accepts and ignores
-``chunk_tiles``, is held to the plain versions.
+blocks without tiles, and for every K3 call of RGAT's and HGT's
+host- and device-sampled batches (their compact message maps included).
+The kernels' CPU route, which accepts and ignores ``chunk_tiles``, is held
+to the plain versions, and K3's to the reference's Pallas kernel in
+interpret mode at the layouts the slot split has its edges at: a hub, a
+pure-pad tail and node blocks without tiles.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.graph import HeteroGraph, table3_graph
+from repro.kernels import traversal as RTK
+from repro_torch.core.graph import (HeteroGraph, synthetic_heterograph,
+                                    table3_graph)
+from repro_torch.core.module import HectorStack
 from repro_torch.kernels import layout as L
 from repro_torch.kernels import ops
 from repro_torch.kernels import traversal as TK
+from repro_torch.models import hgt_program, rgat_program
+from repro_torch.sampling import DeviceSampler
 from repro_torch.sampling.loader import build_minibatch
 from repro_torch.sampling.sampler import FanoutSampler
 
@@ -154,7 +164,7 @@ def test_slot_keys_see_a_swapped_layout():
 
 
 @pytest.mark.parametrize("chunk_tiles", [1, 2, 8, 64])
-@pytest.mark.parametrize("kernel", ["K7", "K8"])
+@pytest.mark.parametrize("kernel", ["K3", "K7", "K8"])
 def test_cpu_route_ignores_chunk_tiles(kernel, chunk_tiles):
     rng = np.random.default_rng(chunk_tiles)
     g = _hub()
@@ -164,7 +174,18 @@ def test_cpu_route_ignores_chunk_tiles(kernel, chunk_tiles):
     scale_p = ops._padded_scale(
         torch.from_numpy(rng.normal(size=e).astype(np.float32)), bcd, msg)
     kw = dict(node_block=8, num_node_blocks=bcd.num_node_blocks)
-    if kernel == "K7":
+    if kernel == "K3":
+        mmap = ops._msg_slot_map(bcd, None).clone()
+        mmap[::5] = -1
+        scores_p = ops._padded_scores(
+            torch.from_numpy(rng.normal(size=e).astype(np.float32)), bcd)
+        mx, den = TK.seg_stats_padded(scores_p, bcd.local_dst, bcd.t2b,
+                                      bcd.block_tile_ptr, **kw)
+        args = (scores_p, msg, mmap, bcd.local_dst, bcd.t2b,
+                bcd.block_tile_ptr, mx, den)
+        fn, plain = (TK.seg_softmax_agg_gather_padded,
+                     TK.seg_softmax_agg_gather_padded_plain)
+    elif kernel == "K7":
         mmap = ops._msg_slot_map(bcd, None).clone()
         mmap[::5] = -1
         args = (scale_p, msg, mmap, bcd.local_dst, bcd.t2b,
@@ -181,3 +202,116 @@ def test_cpu_route_ignores_chunk_tiles(kernel, chunk_tiles):
     assert torch.equal(got, plain(*args, **kw))
     assert torch.equal(got, fn(*args, **kw))
     assert fn.launches == launches
+
+
+def _k3_layout(case):
+    """The layouts K3's slot split has its edges at (tile 8, node block
+    8): a hub whose 700 slots span many units, node blocks without tiles
+    (nodes 40-89 have no edge), and a pure-pad tail of 30 tiles."""
+    rng = np.random.default_rng(7)
+    deg = rng.integers(0, 3, 120)
+    deg[40:90] = 0
+    grow = 0
+    if case == "hub":
+        deg[13] = 700
+    elif case == "pure-pad tail":
+        grow = 30
+    ptr = np.zeros(len(deg) + 1, np.int64)
+    np.cumsum(deg, out=ptr[1:])
+    bc = L.block_csr(ptr, 8, 8)
+    if grow:
+        bc = L.pad_blocked_csr(bc, bc.padded_edges + grow * 8)
+    e = int(deg.sum())
+    return ops.blocked_csr_dev(bc, np.arange(e, dtype=np.int32)), e
+
+
+@pytest.mark.parametrize("d", [1, 8, 64])
+@pytest.mark.parametrize("case", ["hub", "pure-pad tail",
+                                  "blocks without tiles"])
+def test_k3_matches_pallas_interpret_at_split_edges(case, d):
+    """K3's CPU route against the reference's Pallas kernel (interpret
+    mode) on K2's statistics, with compact rows and slots without a
+    message; every unit size gives the same result, node blocks without
+    tiles (which the Pallas kernel never writes) are zero."""
+    bcd, e = _k3_layout(case)
+    rng = np.random.default_rng(d)
+    nb, blocks = 8, bcd.num_node_blocks
+    kw = dict(node_block=nb, num_node_blocks=blocks)
+    scores_p = ops._padded_scores(
+        torch.from_numpy(rng.normal(size=e).astype(np.float32) * 3), bcd)
+    msg = torch.from_numpy(rng.normal(size=(97, d)).astype(np.float32))
+    rows = torch.from_numpy(rng.integers(0, 97, e).astype(np.int32))
+    mmap = ops._msg_slot_map(bcd, rows).clone()
+    mmap[::11] = -1
+    mx, den = TK.seg_stats_padded(scores_p, bcd.local_dst, bcd.t2b,
+                                  bcd.block_tile_ptr, **kw)
+    args = (scores_p, msg, mmap, bcd.local_dst, bcd.t2b, bcd.block_tile_ptr,
+            mx, den)
+    got = TK.seg_softmax_agg_gather_padded(*args, **kw)
+    for ct in (1, 2, 8, 64):
+        assert torch.equal(got, TK.seg_softmax_agg_gather_padded(
+            *args, **kw, chunk_tiles=ct))
+    ref = np.asarray(RTK.seg_softmax_agg_gather_padded(
+        jnp.asarray(scores_p.numpy()), jnp.asarray(msg.numpy()),
+        jnp.asarray(mmap.numpy()), jnp.asarray(bcd.local_dst.numpy()),
+        jnp.asarray(bcd.t2b.numpy()), jnp.asarray(mx.numpy()),
+        jnp.asarray(den.numpy()), interpret=True, **kw))
+    btp = bcd.block_tile_ptr.numpy()
+    owned = np.repeat(btp[1:] > btp[:-1], nb)
+    assert not owned.all()
+    got = got.numpy()
+    np.testing.assert_allclose(got[owned], ref[owned], rtol=2e-5, atol=2e-5)
+    assert np.all(got[~owned] == 0.0)
+
+
+@pytest.fixture(scope="module")
+def small_graph():
+    return synthetic_heterograph(num_nodes=150, num_edges=1400, num_ntypes=4,
+                                 num_etypes=7, seed=3)
+
+
+@pytest.mark.parametrize("sampler", ["host", "device"])
+@pytest.mark.parametrize("model", ["rgat", "hgt"])
+def test_k3_calls_of_served_batches_keep_the_slot_order(small_graph, model,
+                                                        sampler,
+                                                        monkeypatch):
+    """Every K3 call of an RGAT or HGT forward over a host-sampled
+    (bucketed) or device-sampled mini-batch: its slot keys never decrease,
+    every pad slot's message index is -1, and a real slot's names a row of
+    its message table (the compact unique-pair table where the plan
+    compacts)."""
+    calls = []
+    real_k3 = ops.seg_softmax_agg_gather_padded
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return real_k3(*args, **kw)
+
+    monkeypatch.setattr(ops, "seg_softmax_agg_gather_padded", recording)
+    prog = {"rgat": rgat_program, "hgt": hgt_program}[model]
+    stack = HectorStack([prog(16, 12), prog(12, 6)], small_graph, tile=8,
+                        node_block=8, device="cpu")
+    params = stack.init(torch.Generator().manual_seed(0))
+    feats = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(small_graph.num_nodes, 16)).astype(np.float32))
+    seeds = np.array([3, 50, 7, 119, 0, 64, 140], dtype=np.int32)
+    for bi in range(3):
+        if sampler == "host":
+            mb = build_minibatch(FanoutSampler(small_graph, [4, 4], seed=5)
+                                 .sample(seeds, batch_index=bi),
+                                 tile=8, node_block=8, bucket=True)
+        else:
+            mb = DeviceSampler(small_graph, [4, 4], seed=5, tile=8,
+                               node_block=8, device="cpu").sample_minibatch(
+                seeds, batch_index=bi)
+        with torch.no_grad():
+            stack.apply_blocks(params, mb, feats)
+    assert len(calls) == 3 * 2
+    for args, kw in calls:
+        scores_p, msg, mmap, local_dst, t2b = args[:5]
+        nb = kw["node_block"]
+        keys = TK.slot_keys(local_dst, t2b, nb)
+        assert bool((keys[1:] >= keys[:-1]).all())
+        pad = local_dst.reshape(-1) >= nb
+        assert bool((mmap[pad] == -1).all())
+        assert bool(((mmap[~pad] >= 0) & (mmap[~pad] < msg.shape[0])).all())
