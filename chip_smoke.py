@@ -21,12 +21,13 @@ all four dense configs); any failure exits non-zero:
    sampling and forward of the first device-sampled batch of RGAT at
    aifb-b32 and bgs-b1024 and RGCN at aifb-b32 (K9 at every window, K1-K3
    and K7 on the device-built layouts) and one sampled training step of
-   RGAT, RGCN and HGT (aifb-b64: K1-K5, K7); K3 at every captured K3
-   call and K7 and K8 (K8 on K7's messages padded into the slots) at
-   every captured K7 call, each at unit sizes ``chunk_tiles`` 1 / 2 / 8 /
-   64 and bitwise against a second launch, after the slot order they rely
-   on is checked on the card; K5 bitwise against a second launch at every
-   call;
+   RGAT, RGCN and HGT (aifb-b64: K1-K5, K7); the slot-split kernels, K2
+   and K3 at every captured K2 / K3 call, K6 (on K3's messages padded into
+   the slots) at every captured K3 call, K7 and K8 (K8 on K7's messages
+   padded into the slots) at every captured K7 call, each at unit sizes
+   ``chunk_tiles`` 1 / 2 / 8 / 64 and bitwise against a second launch,
+   after the slot order they rely on is checked on the card; K5 bitwise
+   against a second launch at every call;
    plus edge cases (gather index -1, groups and node blocks without tiles,
    pow2 pad tiles, the scale epilogue, k = 1 and n = 1, a transposed W, a
    group long enough for many K5 chunks, the CUDA ``edge_softmax``, K7
@@ -34,7 +35,8 @@ all four dense configs); any failure exits non-zero:
    must not launch; K7 and K8 over a 40,000-slot destination across many
    units, unit edges at changes of destination, all-pad units and a
    pure-pad tail, node blocks without tiles, d = 1 / 8 / 16 / 64 / 96, and
-   K3 on the same layouts; K5 with single- and multi-chunk groups at
+   K2, K3 and K6 on the same layouts, one destination's scores spanning
+   [-80, 80]; K5 with single- and multi-chunk groups at
    chunk sizes 1, 2 and the fitted one, k and n of 1 / 8 / 64, surplus
    chunks and a launch without real tiles; K9 with counts 0 and C, C = 1,
    odd row counts and high-bit base keys; K5 with the static chunk bound
@@ -54,7 +56,8 @@ all four dense configs); any failure exits non-zero:
    and K4, ``torch.bmm`` on the same tiles, for K5 ``torch.bmm`` over the
    groups' row runs zero-padded to the longest, for K7 ``torch.sparse.mm``
    of the scales as a CSR matrix and for K3 of the softmax weights; K7
-   and K8 also at the RGCN bgs-b1024 batch's hop-0 call, K3 at RGAT's
+   and K8 also at the RGCN bgs-b1024 batch's hop-0 call, K2, K3 and K6
+   at RGAT's
    (and in phase 7 at the bgs full-graph forward's calls, K5 at a bgs
    full-graph step's calls);
 3. serving at the driver's defaults (2 layers, 64 wide, aifb at scale 1.0,
@@ -83,7 +86,8 @@ all four dense configs); any failure exits non-zero:
    scale 1.0, 3 steps with a finite loss, timed; K5 held and timed at
    every call of one bgs full-graph step; for RGCN,
    K7 and K8 held and timed (as phase 2 times them) at the K7 calls of
-   one bgs full-graph forward, for RGAT and HGT K3 at its calls;
+   one bgs full-graph forward, for RGAT and HGT K2 and K3 at their calls
+   and K6 at K3's;
 8. one sampled step and one bgs full-graph step of each under
    ``torch.profiler``: device time per kernel and per step, the device's
    busy share, the split between the ``forward`` / ``backward`` /
@@ -106,7 +110,8 @@ all four dense configs); any failure exits non-zero:
    their plain versions at the calls of one RGAT and one RGCN served
    aifb-b32 batch and one RGAT training step under decisions that force
    ``fuse_gather=False`` on every key (K6 rtol = atol = 2e-5, K3's; K8
-   1e-5, K7's), plus edge cases (node blocks without tiles, pure-pad
+   1e-5, K7's; each at every unit size, as phase 2 holds the slot-split
+   kernels), plus edge cases (node blocks without tiles, pure-pad
    tiles, pad rows that must add nothing, d = 1, compact rows through the
    ops, empty layouts that must not launch), timed at the served batches
    as phase 2 times the others (K8's library call: ``torch.sparse.mm``);
@@ -238,15 +243,16 @@ FORWARD_LAUNCHES = {
 
 # each ported kernel: its source, the TPU kernel it replaces, a part of the
 # name of each of its ``__global__`` functions as the profiler reports them
-# (K3, K7, K8: the unit kernel and the combine instantiated for it), and
-# how many kernels one call launches
+# (K3, K6, K7, K8: the unit kernel and the combine instantiated for it;
+# K2: the max and sum passes' unit kernels and combines), and how many
+# kernels one call launches
 KERNELS = {
     K1: dict(source="src/repro_torch/csrc/segment_mm.cu",
              replaces="src/repro/kernels/segment_mm.py:120",
              symbol="segment_mm_gather_kernel"),
     K2: dict(source="src/repro_torch/csrc/traversal.cu",
              replaces="src/repro/kernels/traversal.py:75",
-             symbol="seg_stats_kernel"),
+             symbol="stats_", per_call=4),   # two passes, unit + combine
     K3: dict(source="src/repro_torch/csrc/traversal.cu",
              replaces="src/repro/kernels/traversal.py:224",
              symbol="softmax_agg_gather_", per_call=2),   # unit + combine
@@ -258,7 +264,7 @@ KERNELS = {
              symbol="segment_outer_kernel"),
     K6: dict(source="src/repro_torch/csrc/traversal.cu",
              replaces="src/repro/kernels/traversal.py:142",
-             symbol="seg_softmax_agg_padded_kernel"),
+             symbol="softmax_agg_padded_", per_call=2),   # unit + combine
     K7: dict(source="src/repro_torch/csrc/traversal.cu",
              replaces="src/repro/kernels/traversal.py:294",
              symbol="weighted_agg_gather_", per_call=2),   # unit + combine
@@ -972,8 +978,8 @@ def kernel_tables(torch, SK, TK, SO):
 def compare_runner(torch, SO, plain, kernel):
     """``run_compare(name, args, kw)``: the kernel against its plain
     version on the same inputs, at the kernel's tolerance; returns the max
-    abs error. K3, K7 and K8 run at every unit size (``split_compare``),
-    K5 bit for bit against a second launch too."""
+    abs error. K2, K3, K6, K7 and K8 run at every unit size
+    (``split_compare``), K5 bit for bit against a second launch too."""
     def run_compare(name, args, kw):
         if name == K9:
             return k9_compare(torch, SO, args, kw)
@@ -988,32 +994,38 @@ def compare_runner(torch, SO, plain, kernel):
             check(bool(torch.equal(got, again)), f"{K5}: two launches "
                   f"differ")
         torch.cuda.synchronize()
-        if name == K2:
-            e1 = compare(torch, name + ".mx", got[0], want[0], 0, 0,
-                         exact=True)
-            e2 = compare(torch, name + ".den", got[1], want[1], 1e-5, 0)
-            return max(e1, e2)
         tol = TOLERANCE[name]
         return compare(torch, name, got, want, tol, tol)
     return run_compare
 
 
-# the kernels that split the slots into units (K3, K7, K8) and the unit
-# sizes (``chunk_tiles``) at which every call of theirs is held; the
-# wrappers' defaults are ``traversal.K3_CHUNK_TILES`` / ``K7_CHUNK_TILES``
-SLOT_SPLIT = (K3, K7, K8)
+# the kernels that split the slots into units (K2, K3, K6, K7, K8) and the
+# unit sizes (``chunk_tiles``) at which every call of theirs is held; the
+# wrappers' defaults are ``traversal.K2_CHUNK_TILES`` ... ``K7_CHUNK_TILES``
+SLOT_SPLIT = (K2, K3, K6, K7, K8)
 UNIT_CHUNKS = (1, 2, 8, 64)
+# where ``local_dst_p`` and ``t2b`` sit in each slot-split kernel's inputs
+SPLIT_LAYOUT_ARG = {K2: 1, K3: 3, K6: 2, K7: 3, K8: 2}
+
+
+def compare_k2(torch, what, got, want):
+    """K2's outputs against its plain version's: ``mx`` exact, ``den``
+    within rtol 1e-5 (both sum in fp64 from the same fp32 terms)."""
+    return max(compare(torch, what + ".mx", got[0], want[0], 0, 0,
+                       exact=True),
+               compare(torch, what + ".den", got[1], want[1], 1e-5, 0))
 
 
 def split_compare(torch, name, fn, plain, args, kw):
-    """K3, K7 or K8 at one call: first the slot order the kernels rely on,
-    checked on the card (``traversal.slot_keys`` never decreases), then the
-    kernel at every unit size of ``UNIT_CHUNKS`` against its plain version,
-    each launch bit for bit against a second one. Returns the max abs
-    error."""
+    """K2, K3, K6, K7 or K8 at one call: first the slot order the kernels
+    rely on, checked on the card (``traversal.slot_keys`` never
+    decreases), then the kernel at every unit size of ``UNIT_CHUNKS``
+    against its plain version, each launch bit for bit against a second
+    one. Returns the max abs error."""
     from repro_torch.kernels import traversal as TK
 
-    local_dst, t2b = args[2:4] if name == K8 else args[3:5]
+    i = SPLIT_LAYOUT_ARG[name]
+    local_dst, t2b = args[i:i + 2]
     keys = TK.slot_keys(local_dst, t2b, kw["node_block"])
     check(bool((keys[1:] >= keys[:-1]).all()), f"{name}: the slot keys "
           f"decrease: the layout breaks the order the kernel relies on")
@@ -1023,11 +1035,24 @@ def split_compare(torch, name, fn, plain, args, kw):
         got = fn(*args, **kw, chunk_tiles=chunk)
         again = fn(*args, **kw, chunk_tiles=chunk)
         torch.cuda.synchronize()
-        check(bool(torch.equal(got, again)), f"{name}: two launches differ "
-              f"(chunk_tiles={chunk})")
-        err = max(err, compare(torch, f"{name} (chunk_tiles={chunk})", got,
-                               want, TOLERANCE[name], TOLERANCE[name]))
+        same = (all(torch.equal(g, a) for g, a in zip(got, again))
+                if name == K2 else torch.equal(got, again))
+        check(bool(same), f"{name}: two launches differ (chunk_tiles="
+              f"{chunk})")
+        what = f"{name} (chunk_tiles={chunk})"
+        err = max(err, compare_k2(torch, what, got, want) if name == K2
+                  else compare(torch, what, got, want, TOLERANCE[name],
+                               TOLERANCE[name]))
     return err
+
+
+def k6_args(args):
+    """K6's inputs at a K3 call: its messages padded into the slots
+    (``msg_p = pad_rows(msg, mmap)``, as the unfused op builds them)."""
+    from repro_torch.kernels import ops
+
+    scores_p, msg, mmap = args[:3]
+    return (scores_p, ops.pad_rows(msg, mmap)) + tuple(args[3:8])
 
 
 def k8_args(args):
@@ -1041,18 +1066,21 @@ def k8_args(args):
 
 def time_split(torch, tables, run_compare, name, args, kw, at, phase,
                split):
-    """K3, K7 or K8 at one captured call: held to its plain version
-    (``run_compare``), then its device ms, wrapper ms, plain ms, library ms
+    """A slot-split kernel (K2, K3, K6, K7, K8) at one captured call: held
+    to its plain version (``run_compare``), then its device ms, wrapper ms,
+    plain ms, library ms (None for K2, which no one PyTorch call computes)
     and bound, appended to ``split["timed"]``."""
     plain, kernel, work = tables
     err = run_compare(name, args, kw)
     split[name] = max(split[name], err)
     fn = lambda: kernel[name](*args, **kw)                    # noqa: E731
-    ms = device_ms(torch, fn, KERNELS[name]["symbol"], per_call=2)
+    ms = device_ms(torch, fn, KERNELS[name]["symbol"],
+                   per_call=KERNELS[name]["per_call"])
     wrapper_ms = time_ms(torch, fn)
     plain_ms = time_ms(torch, lambda: plain[name](*args, **kw), reps=5,
                        inner=2)
-    library_ms = time_ms(torch, LIBRARY[name][1](torch, args, kw))
+    library_ms = (time_ms(torch, LIBRARY[name][1](torch, args, kw))
+                  if name in LIBRARY else None)
     nbytes, flops = work[name](torch, args, kw)
     b_ms, b_by = bound(nbytes, flops)
     shape = _shape(name, args, kw)
@@ -1062,14 +1090,28 @@ def time_split(torch, tables, run_compare, name, args, kw, at, phase,
         bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err))
     log(f"[{phase}] {name} at {at} ({shape}): max abs err {err:.3g}; "
         f"kernel {ms:.5f} ms on the device, wrapper {wrapper_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, {LIBRARY[name][0]} {library_ms:.4f} ms, "
-        f"bound {b_ms:.5f} ms ({b_by}, {nbytes} B)")
+        f"plain {plain_ms:.4f} ms"
+        + (f", {LIBRARY[name][0]} {library_ms:.4f} ms"
+           if library_ms is not None else "")
+        + f", bound {b_ms:.5f} ms ({b_by}, {nbytes} B)")
 
 
 def time_weighted(torch, tables, run_compare, args, kw, at, phase, split):
     """K7 at one captured call, and K8 at the same call (``k8_args``), each
     as ``time_split`` times it."""
     for name, a in ((K7, args), (K8, k8_args(args))):
+        time_split(torch, tables, run_compare, name, a, kw, at, phase, split)
+
+
+def time_softmax(torch, tables, run_compare, k2_call, k3_call, at, phase,
+                 split):
+    """K2 at one captured call and K3 at the call that consumes its
+    statistics, and K6 at the same call (``k6_args``), each as
+    ``time_split`` times it."""
+    args, kw = k2_call
+    time_split(torch, tables, run_compare, K2, args, kw, at, phase, split)
+    args, kw = k3_call
+    for name, a in ((K3, args), (K6, k6_args(args))):
         time_split(torch, tables, run_compare, name, a, kw, at, phase, split)
 
 
@@ -1221,22 +1263,26 @@ def phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops, tasks, split):
     tables = kernel_tables(torch, SK, TK, SO)
     run_compare = compare_runner(torch, SO, *tables[:2])
     hold_captured(torch, captured, results, tables, run_compare, "phase 2")
-    # K8 at every captured K7 call, its messages padded into the slots
-    n8 = 0
-    for calls in captured.values():
-        for args, kw in calls[K7]:
-            split[K8] = max(split[K8], run_compare(K8, k8_args(args), kw))
-            n8 += 1
-    log(f"[phase 2] {K8}: {n8} captured {K7} calls with padded messages "
-        f"match the plain version (max abs err {split[K8]:.3g})")
+    # K8 at every captured K7 call and K6 at every captured K3 call, their
+    # messages padded into the slots
+    for name, src, pad in ((K8, K7, k8_args), (K6, K3, k6_args)):
+        n = 0
+        for calls in captured.values():
+            for args, kw in calls[src]:
+                split[name] = max(split[name],
+                                  run_compare(name, pad(args), kw))
+                n += 1
+        log(f"[phase 2] {name}: {n} captured {src} calls with padded "
+            f"messages match the plain version (max abs err "
+            f"{split[name]:.3g})")
     args, kw = max(captured["rgcn bgs"][K7],
                    key=lambda call: call[0][0].numel())
     time_weighted(torch, tables, run_compare, args, kw,
                   "rgcn bgs-b1024 hop 0", "phase 2", split)
-    args, kw = max(captured["rgat bgs"][K3],
-                   key=lambda call: call[0][0].numel())
-    time_split(torch, tables, run_compare, K3, args, kw,
-               "rgat bgs-b1024 hop 0", "phase 2", split)
+    calls = captured["rgat bgs"]
+    i = max(range(len(calls[K3])), key=lambda j: calls[K3][j][0][0].numel())
+    time_softmax(torch, tables, run_compare, calls[K2][i], calls[K3][i],
+                 "rgat bgs-b1024 hop 0", "phase 2", split)
     edge_cases(torch, SK, TK, L, ops, R, run_compare, results)
     split_edge_cases(torch, L, ops, TK, run_compare, split)
     k5_edge_cases(torch, SK, L, ops, run_compare, results)
@@ -1504,14 +1550,16 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
 
 
 def split_edge_cases(torch, L, ops, TK, run_compare, split):
-    """K3, K7 and K8 where the slot split has its edges: one destination of
-    40,000 slots across many units, unit edges exactly at a change of
-    destination, all-pad units and the pure-pad tail, node blocks without
-    tiles and slot-less nodes between units; d = 1 / 8 / 16 / 64 / 96,
-    compact rows with -1; K7 and K8 with and without ``scale=None``, K3 on
-    K2's statistics of scores in [-9, 9]. ``run_compare`` holds each call
-    at every unit size of ``UNIT_CHUNKS``, bit for bit against a second
-    launch."""
+    """The slot-split kernels where the split has its edges: one
+    destination of 40,000 slots across many units, unit edges exactly at a
+    change of destination, all-pad units and the pure-pad tail, node blocks
+    without tiles and slot-less nodes between units; d = 1 / 8 / 16 / 64 /
+    96, compact rows with -1; K7 and K8 with and without ``scale=None``;
+    K2 on scores in [-9, 9], the layout's largest destination's spanning
+    [-80, 80] (so the max decides which terms underflow); K3 on K2's
+    statistics, and K6 on K3's messages padded into the slots.
+    ``run_compare`` holds each call at every unit size of ``UNIT_CHUNKS``,
+    bit for bit against a second launch."""
     import numpy as np
 
     rng = np.random.default_rng(18)
@@ -1542,10 +1590,20 @@ def split_edge_cases(torch, L, ops, TK, run_compare, split):
     for what, (bcd, dst, n_nodes) in layouts:
         kw = dict(node_block=32, num_node_blocks=bcd.num_node_blocks)
         e = dst.numel()
-        scores_p = ops._padded_scores(torch.from_numpy(
-            rng.uniform(-9, 9, e).astype(np.float32)).to(dev), bcd)
-        mx, den = TK.seg_stats_padded(scores_p, bcd.local_dst, bcd.t2b,
-                                      bcd.block_tile_ptr, **kw)
+        scores = rng.uniform(-9, 9, e).astype(np.float32)
+        wide = (dst == torch.bincount(dst).argmax()).cpu().numpy()
+        scores[wide] = rng.permutation(np.linspace(-80, 80, int(wide.sum()),
+                                                   dtype=np.float32))
+        scores_p = ops._padded_scores(torch.from_numpy(scores).to(dev), bcd)
+        sargs = (scores_p, bcd.local_dst, bcd.t2b, bcd.block_tile_ptr)
+        split[K2] = max(split[K2], run_compare(K2, sargs, kw))
+        mx, den = TK.seg_stats_padded(*sargs, **kw)
+        btp = bcd.block_tile_ptr
+        empty = torch.repeat_interleave(btp[1:] == btp[:-1], 32)
+        check(bool((mx.reshape(-1)[empty] == -1e30).all()
+                   and (den.reshape(-1)[empty] == 0).all()),
+              f"{K2}: node blocks without tiles not (-1e30, 0) ({what})")
+        n += 1
         for d in (1, 8, 16, 64, 96):
             for with_scale in (False, True):
                 msg = torch.from_numpy(rng.normal(size=(700, d)).astype(
@@ -1567,18 +1625,19 @@ def split_edge_cases(torch, L, ops, TK, run_compare, split):
                 args = (scores_p, msg, mmap, bcd.local_dst, bcd.t2b,
                         bcd.block_tile_ptr, mx, den)
                 split[K3] = max(split[K3], run_compare(K3, args, kw))
-                out = TK.seg_softmax_agg_gather_padded(*args, **kw)
-                btp = bcd.block_tile_ptr
-                empty = torch.repeat_interleave(btp[1:] == btp[:-1], 32)
-                check(bool((out[empty] == 0).all()), f"{K3}: node blocks "
-                      f"without tiles not zero ({what})")
-                n += 1
-    log(f"[phase 2] K3 / K7 / K8 edge cases: {n} calls, each at "
+                split[K6] = max(split[K6], run_compare(K6, k6_args(args),
+                                                       kw))
+                for name, a in ((K3, args), (K6, k6_args(args))):
+                    out = getattr(TK, name)(*a, **kw)
+                    check(bool((out[empty] == 0).all()), f"{name}: node "
+                          f"blocks without tiles not zero ({what})")
+                n += 2
+    log(f"[phase 2] slot-split edge cases: {n} calls, each at "
         f"chunk_tiles {UNIT_CHUNKS} and bitwise repeatable ("
         + ", ".join(w for w, _ in layouts)
-        + f"; d = 1 / 8 / 16 / 64 / 96, compact rows with -1, scale=None); "
-        f"max abs err K3 {split[K3]:.3g}, K7 {split[K7]:.3g}, K8 "
-        f"{split[K8]:.3g}")
+        + f"; d = 1 / 8 / 16 / 64 / 96, compact rows with -1, scale=None, "
+        f"scores over [-80, 80]); max abs err "
+        + ", ".join(f"{k} {split[k]:.3g}" for k in SLOT_SPLIT))
 
 
 # K5's kernel stages the group offsets in shared memory below this many
@@ -2105,8 +2164,8 @@ def phase_full_graph(torch, task, train_rgnn, cfg, split):
     against the CPU, then bgs at scale 1.0 for 3 timed steps. Then K5 is
     held and timed (``time_k5``) at every call of one bgs full-graph
     step; for RGCN, K7 and K8 at the K7 calls of one
-    bgs full-graph forward (``time_weighted``), for RGAT and HGT, K3 at
-    its calls (``time_split``)."""
+    bgs full-graph forward (``time_weighted``), for RGAT and HGT, K2 and
+    K3 at their calls and K6 at K3's (``time_softmax``)."""
     import dataclasses
 
     from repro_torch.train import FullGraphTrainer
@@ -2181,16 +2240,17 @@ def phase_full_graph(torch, task, train_rgnn, cfg, split):
     agg = K7 if model == "rgcn" else K3
     with recorded_kernel_calls() as calls:
         fg.evaluate(state.params)
-    check(len(calls[agg]) == FORWARD_LAUNCHES[model][agg],
-          f"{tag} bgs: {len(calls[agg])} {agg} calls in a forward")
+    for name in (agg, K2) if agg == K3 else (agg,):
+        check(len(calls[name]) == FORWARD_LAUNCHES[model][name],
+              f"{tag} bgs: {len(calls[name])} {name} calls in a forward")
     for i, (args, kw) in enumerate(calls[agg]):
         at = f"{model} bgs full-graph forward, layer {i}"
         if agg == K7:
             time_weighted(torch, tables, run_compare, args, kw, at, tag,
                           split)
         else:
-            time_split(torch, tables, run_compare, K3, args, kw, at, tag,
-                       split)
+            time_softmax(torch, tables, run_compare, calls[K2][i],
+                         (args, kw), at, tag, split)
     out["bgs_trainer"], out["bgs_state"] = fg, state
     return out
 
@@ -3366,10 +3426,11 @@ def main(argv=None) -> int:
         tasks = {m: TrainTask(torch, hector_torch, cfg)
                  for m, cfg in train_cfg.items()}
         k5_sass = k5_build_report(SK)
-        # K3, K7 and K8 beyond their rows' calls: the errors of K8 at K7's
-        # calls and of all three at the slot split's edge cases, and their
-        # timings at the bgs calls (phases 2 and 7)
-        split = {K3: 0.0, K7: 0.0, K8: 0.0, "timed": []}
+        # the slot-split kernels beyond their rows' calls: the errors of K8
+        # at K7's calls, of K6 at K3's and of all five at the slot split's
+        # edge cases, and their timings at the bgs calls (phases 2 and 7)
+        split = {name: 0.0 for name in SLOT_SPLIT}
+        split["timed"] = []
         kernels = phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops,
                                 tasks, split)
         seconds["phase 2"] = time.perf_counter() - t0

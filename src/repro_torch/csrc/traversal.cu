@@ -31,189 +31,65 @@
 // The TPU kernels run their grid in order and accumulate a node block's
 // consecutive edge tiles into one VMEM output block, scattering with a
 // one-hot [node_block x tile] matmul. Here blocks run in parallel, in no
-// order, and nothing carries over between them.
+// order, and nothing carries over between them. A walk of one thread block
+// per node block would take as long as the largest node block's tile
+// range, and those are skewed: a hub (bgs: in-degree 22,949), bucketing's
+// pad node (about 97K slots at 1024 seeds on bgs), and the pure-pad tiles
+// bucketing appends to the last node block. So all five split by slots.
 //
-// K2 and K6: one thread block owns one node block and walks that block's
-// contiguous tile range [block_tile_ptr[b], block_tile_ptr[b+1]) (derived
-// from the non-decreasing tile -> block map when the layout is built) with
-// a loop in place of the sequential grid. Each tile's slots are staged in
-// shared memory. K2 gives every destination node of the block to one
-// thread, which takes the exact max in a first pass over the slots and the
-// sum of exponentials in a second. K6 (agg_body; the message of slot i at
-// row i): each staged slot gets its attention from the score and K2's
-// stats, then every (node, column) accumulator in shared memory is owned
-// by exactly one thread, which adds the slots of its node in slot order.
-// Such a walk takes as long as the largest node block's tile range, and
-// those are skewed: a hub (bgs: in-degree 22,949), bucketing's pad node,
-// and the pure-pad tiles bucketing appends to the last node block.
+// The grid is ceil(T / chunk_tiles) units of chunk_tiles consecutive tiles,
+// from the shapes alone. The layouts keep every slot's sort key (slot_key)
+// non-decreasing, so a node's real slots form one run and a unit finds its
+// nodes from its own slots and the two slots at its edges. A node whose
+// slots all lie in one unit is written by that unit; a node that crosses a
+// unit edge leaves one partial in each unit it touches (a unit's head and
+// tail, in a workspace of 2 * units rows of fp64), and a combine kernel,
+// launched after it on the same stream, reduces them in unit order and
+// writes the node. No float atomics: every kernel here is deterministic, bit
+// for bit from launch to launch.
 //
-// K3, K7 and K8 split by slots instead (weighted_unit_body, then
-// weighted_combine_body). The grid is ceil(T / chunk_tiles) units of
-// chunk_tiles consecutive tiles, from the shapes alone. The layouts keep
-// every slot's sort key (slot_key) non-decreasing, so a node's real slots
-// form one run and a unit finds its nodes from its own slots and the two
-// slots at its edges. Each slot's weight is staged with it: K7's and K8's
-// scale, or K3's attention exp(s - mx[v]) / max(den[v], 1e-38) from K2's
-// statistics of the slot's node. Inside a unit, agents of 8-32 threads take
-// contiguous sub-runs of slots, lanes spread over a row's columns in
-// vector loads, several rows in flight, fp64 sums in registers; the
-// agents' boundary nodes are added in agent order in shared memory. A
-// node whose slots all lie in one unit is written by that unit; a node
-// that crosses a unit edge leaves one fp64 partial in each unit it
-// touches (a unit's head and tail, in a workspace of 2 * units * d
-// doubles), and the combine kernel, launched after it on the same stream,
-// adds them in unit order and writes the row. Shared memory grows with
-// chunk_tiles * tile, never with node_block. No float atomics: all three
-// are deterministic, bit for bit from launch to launch.
+// K3, K6, K7 and K8 (weighted_unit_body, then weighted_combine_body): each
+// slot's weight is staged with it: K7's and K8's scale, or K3's and K6's
+// attention exp(s - mx[v]) / max(den[v], 1e-38) from K2's statistics of the
+// slot's node. Inside a unit, agents of 8-32 threads take contiguous
+// sub-runs of slots, lanes spread over a row's columns in vector loads,
+// several rows in flight, fp64 sums in registers; the agents' boundary
+// nodes are added in agent order in shared memory. Shared memory grows with
+// chunk_tiles * tile, never with node_block.
 //
-// Node blocks that own no tile are written too (mx = -1e30, den = 0,
-// out = 0), which the TPU kernels never visit; so is every slot-less node.
-// Pad slots (local_dst == node_block) add nothing, as the TPU kernels'
-// zero scale for them does.
+// K2 (stats_unit_body, twice, each pass with its combine): the max must be
+// known before a slot's term exp(s - mx[v]) is, so K2 makes two exact
+// passes over the same units. The max pass takes each node's max of its
+// scores, the sum pass the fp64 sum of its fp32 terms exp(s - mx[v]), each
+// term the plain version's expression. A warp is an agent over whole
+// 32-slot rounds: a segmented scan over the key runs by warp shuffles (the
+// run open at a round's end carried into the next), then the agents' first
+// and last nodes in agent order. The max is exact and independent of
+// order; the sum differs from the plain version only in its fp64 order, so
+// den agrees to the final fp32 rounding. An online max would instead
+// rescale every crossing node's partial sums by exp(m_unit - m) and round
+// its terms differently. Shared memory is a few words a warp, whatever
+// chunk_tiles and node_block.
+//
+// Every node without a slot is written too (mx = -1e30, den = 0, out = 0):
+// the unit that holds the first slot after it writes it, and the combine
+// writes the node blocks that own no tile, which the TPU kernels never
+// visit. Pad slots (local_dst == node_block) add nothing, as the TPU
+// kernels' zero scale for them does.
 //
 // Inputs and outputs are fp32; den and out accumulate in fp64. Bucketing
 // routes every pad edge to one pad node, which then sums tens of thousands
-// of slots (about 97K at 1024 seeds on bgs): a sequential fp32 sum of that
-// length drifts by about 1e-5 of its value, an fp64 one stays within the
-// final fp32 rounding. FP64 adds cost nothing here beside the slot walk.
+// of slots: a sequential fp32 sum of that length drifts by about 1e-5 of
+// its value, an fp64 one stays within the final fp32 rounding. FP64 adds
+// cost nothing here beside the slot walk.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kAggThreads = 256;
-
-__global__ void seg_stats_kernel(const float* __restrict__ scores,
-                                 const int* __restrict__ local_dst,
-                                 const int* __restrict__ block_tile_ptr,
-                                 float* __restrict__ mx,
-                                 float* __restrict__ den, int node_block,
-                                 int tile) {
-  extern __shared__ float smem[];
-  float* s_score = smem;                                  // [tile]
-  int* s_dst = reinterpret_cast<int*>(smem + tile);       // [tile]
-  const int b = blockIdx.x;
-  const int t0 = block_tile_ptr[b];
-  const int t1 = block_tile_ptr[b + 1];
-  const int j = threadIdx.x;
-
-  float m = kNegInf;
-  for (int t = t0; t < t1; ++t) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-      s_score[i] = scores[(size_t)t * tile + i];
-      s_dst[i] = local_dst[(size_t)t * tile + i];
-    }
-    __syncthreads();
-    if (j < node_block) {
-      for (int i = 0; i < tile; ++i) {
-        if (s_dst[i] == j) m = fmaxf(m, s_score[i]);
-      }
-    }
-  }
-  double d = 0.0;
-  for (int t = t0; t < t1; ++t) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-      s_score[i] = scores[(size_t)t * tile + i];
-      s_dst[i] = local_dst[(size_t)t * tile + i];
-    }
-    __syncthreads();
-    if (j < node_block) {
-      for (int i = 0; i < tile; ++i) {
-        if (s_dst[i] == j) d += static_cast<double>(expf(s_score[i] - m));
-      }
-    }
-  }
-  if (j < node_block) {
-    mx[(size_t)b * node_block + j] = m;
-    den[(size_t)b * node_block + j] = static_cast<float>(d);
-  }
-}
-
-// One thread block per node block: stage each tile's (weight, message row,
-// destination), then every (node, column) accumulator has one owning
-// thread that adds in slot order. kSoftmax: the weight is the attention
-// exp(score - mx[v]) / max(den[v], 1e-38) (K6); else the slot's scale
-// (which no kernel takes now: K7 and K8 run weighted_unit_body). kGather:
-// the message row is mmap[slot] (no kernel now: K3 runs
-// weighted_unit_body); else the slot (K6, whose messages are padded into
-// the slots).
-template <bool kSoftmax, bool kGather>
-__device__ __forceinline__ void agg_body(
-    const float* __restrict__ weight, const float* __restrict__ msg,
-    const int* __restrict__ mmap, const int* __restrict__ local_dst,
-    const int* __restrict__ block_tile_ptr, const float* __restrict__ mx,
-    const float* __restrict__ den, float* __restrict__ out, int d,
-    int node_block, int tile, int groups, int colw) {
-  extern __shared__ double smem_acc[];
-  double* acc = smem_acc;                                     // [NB][d]
-  float* s_att =
-      reinterpret_cast<float*>(acc + (size_t)node_block * d); // [tile]
-  int* s_row = reinterpret_cast<int*>(s_att + tile);          // [tile]
-  int* s_dst = s_row + tile;                                  // [tile]
-  const int b = blockIdx.x;
-  const int t0 = block_tile_ptr[b];
-  const int t1 = block_tile_ptr[b + 1];
-  const int g = threadIdx.x / colw;
-  const int cx = threadIdx.x - g * colw;
-
-  for (int i = threadIdx.x; i < node_block * d; i += blockDim.x) acc[i] = 0.0;
-  for (int t = t0; t < t1; ++t) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-      const size_t slot = (size_t)t * tile + i;
-      const int v = local_dst[slot];
-      float a = 0.f;
-      int row = -1;
-      if (v < node_block) {
-        if (kSoftmax) {
-          const size_t nv = (size_t)b * node_block + v;
-          a = expf(weight[slot] - mx[nv]) / fmaxf(den[nv], 1e-38f);
-        } else {
-          a = weight[slot];
-        }
-        row = kGather ? mmap[slot] : static_cast<int>(slot);
-      }
-      s_att[i] = a;
-      s_row[i] = row;
-      s_dst[i] = v;
-    }
-    __syncthreads();
-    if (g < groups) {
-      for (int i = 0; i < tile; ++i) {
-        const int row = s_row[i];
-        const int v = s_dst[i];
-        if (row < 0 || v % groups != g) continue;
-        const double a = s_att[i];
-        const float* mr = msg + (size_t)row * d;
-        double* av = acc + (size_t)v * d;
-        for (int c = cx; c < d; c += colw) av[c] = fma(a, (double)mr[c], av[c]);
-      }
-    }
-  }
-  __syncthreads();
-  float* ob = out + (size_t)b * node_block * d;
-  for (int i = threadIdx.x; i < node_block * d; i += blockDim.x) {
-    ob[i] = static_cast<float>(acc[i]);
-  }
-}
-
-__global__ void __launch_bounds__(kAggThreads)
-seg_softmax_agg_padded_kernel(const float* __restrict__ scores,
-                              const float* __restrict__ msg_p,
-                              const int* __restrict__ local_dst,
-                              const int* __restrict__ block_tile_ptr,
-                              const float* __restrict__ mx,
-                              const float* __restrict__ den,
-                              float* __restrict__ out, int d, int node_block,
-                              int tile, int groups, int colw) {
-  agg_body<true, false>(scores, msg_p, nullptr, local_dst, block_tile_ptr, mx,
-                        den, out, d, node_block, tile, groups, colw);
-}
 
 // ---------------------------------------------------------------------------
-// K7 and K8: slot-split weighted aggregation with a fixed-order combine
+// the slot split: units of consecutive slots and a fixed-order combine
 // ---------------------------------------------------------------------------
 constexpr int kUnitThreads = 256;
 constexpr int kRowBytes = 64;       // bytes of messages a lane loads ahead
@@ -282,41 +158,43 @@ __device__ __forceinline__ void store_row(float* __restrict__ p,
   }
 }
 
-// Zero rows lo..hi (inclusive) in the V columns at col.
+// Write `fill` to rows lo..hi (inclusive) in the V columns at col.
 template <int V>
-__device__ __forceinline__ void zero_rows(float* __restrict__ out, int lo,
-                                          int hi, int d, int col, bool on) {
+__device__ __forceinline__ void fill_rows(float* __restrict__ out, int lo,
+                                          int hi, int d, int col, bool on,
+                                          float fill = 0.f) {
   if (!on) return;
   for (int n = lo; n <= hi; ++n) {
     float* p = out + (size_t)n * d + col;
     if constexpr (V == 4) {
-      *reinterpret_cast<float4*>(p) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(p) = make_float4(fill, fill, fill, fill);
     } else if constexpr (V == 2) {
-      *reinterpret_cast<float2*>(p) = make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(p) = make_float2(fill, fill);
     } else {
-      p[0] = 0.f;
+      p[0] = fill;
     }
   }
 }
 
-// Zero the slot-less nodes prev+1 .. hi before a slot of node block bs
+// Fill the slot-less nodes prev+1 .. hi before a slot of node block bs
 // (prev: the node of the slot before it, -1 before the first slot) that
 // lie in prev's block or in bs. The node blocks strictly between own no
-// tile: the combine kernel zeroes those, so a long run of them costs no
+// tile: the combine kernel fills those, so a long run of them costs no
 // agent a serial loop.
 template <int V>
-__device__ __forceinline__ void zero_gap(float* __restrict__ out, int prev,
+__device__ __forceinline__ void fill_gap(float* __restrict__ out, int prev,
                                          int hi, int bs, int node_block,
-                                         int d, int col, bool on) {
+                                         int d, int col, bool on,
+                                         float fill = 0.f) {
   if (hi <= prev) return;
   const int bp = prev >= 0 ? prev / node_block : -1;
   if (bp == bs) {
-    zero_rows<V>(out, prev + 1, hi, d, col, on);
+    fill_rows<V>(out, prev + 1, hi, d, col, on, fill);
     return;
   }
-  if (bp >= 0) zero_rows<V>(out, prev + 1, (bp + 1) * node_block - 1, d, col,
-                            on);
-  zero_rows<V>(out, bs * node_block, hi, d, col, on);
+  if (bp >= 0) fill_rows<V>(out, prev + 1, (bp + 1) * node_block - 1, d, col,
+                            on, fill);
+  fill_rows<V>(out, bs * node_block, hi, d, col, on, fill);
 }
 
 // The lanes an agent spreads a row's columns over, V columns a lane: the
@@ -346,11 +224,12 @@ __host__ __device__ inline int weighted_lanes(int d, int vec) {
 // nodes after it). Columns past one agent's width (lanes * V) run as
 // further chunks over the same staged slots. (The rows of node blocks that
 // own no tile are the combine kernel's.) kGather: the message row is
-// mmap[slot] (K3, K7), else the slot itself (K8). kSoftmax (K3): `weight`
-// holds the slots' scores, and a real slot's weight is its attention
-// exp(score - mx[n]) / max(den[n], 1e-38) with n its global node, the
-// fp32 expression of agg_body, computed once as the slot is staged; else
-// (K7, K8) `weight` is the slot's scale and mx, den are not read.
+// mmap[slot] (K3, K7), else the slot itself (K6, K8). kSoftmax (K3, K6):
+// `weight` holds the slots' scores, and a real slot's weight is its
+// attention exp(score - mx[n]) / max(den[n], 1e-38) with n its global
+// node, the plain version's fp32 expression, computed once as the slot is
+// staged; else (K7, K8) `weight` is the slot's scale and mx, den are not
+// read.
 template <bool kGather, int V, bool kSoftmax = false>
 __device__ __forceinline__ void weighted_unit_body(
     const float* __restrict__ weight, const float* __restrict__ msg,
@@ -434,7 +313,7 @@ __device__ __forceinline__ void weighted_unit_body(
         const int k = s_key[j];
         const int n = k >> 1;
         if (k & 1) {           // a pad: the nodes after prev up to the last
-          zero_gap<V>(out, prev, n, n / node_block, node_block, d, col,
+          fill_gap<V>(out, prev, n, n / node_block, node_block, d, col,
                       on);                   // of its block have no slot
           prev = n;
           continue;
@@ -450,7 +329,7 @@ __device__ __forceinline__ void weighted_unit_body(
               store_row<V>(out + (size_t)cur * d + col, acc);
             }
           }
-          zero_gap<V>(out, prev, n - 1, n / node_block, node_block, d, col,
+          fill_gap<V>(out, prev, n - 1, n / node_block, node_block, d, col,
                       on);
           cur = n;
 #pragma unroll
@@ -478,7 +357,7 @@ __device__ __forceinline__ void weighted_unit_body(
       for (int v = 0; v < V; ++v) dst[a * cw + lane * V + v] = acc[v];
     }
     if (last) {                  // the rest of the last slot's block
-      zero_rows<V>(out, prev + 1, (prev / node_block + 1) * node_block - 1,
+      fill_rows<V>(out, prev + 1, (prev / node_block + 1) * node_block - 1,
                    d, col, on);
     }
     if (lane == 0) {
@@ -525,16 +404,21 @@ __device__ __forceinline__ void weighted_unit_body(
   }
 }
 
-// One block for kCombineWarps units. Each block first zeroes the node
-// blocks that own no tile, a share of them in turn. Then each warp tests
-// one unit: does a node whose first slot lies in the unit run across its
-// tail boundary? Its row is the sum of its partials in unit order: the
-// unit's tail, then the head of every later unit the node reaches. A node
-// that ends in the next unit (most of them) is summed by the warp; for a
-// longer run the whole block takes the node after the others: its threads
-// look for the end of the run 256 units at a time, the heads are cut into
-// one contiguous run a warp, each summed in order, and the warps' sums are
-// added in warp order.
+// One block for kCombineWarps units. Each block first fills the node
+// blocks that own no tile (zero rows; -1e30 for K2's max): block k takes
+// node blocks k, k + gridDim.x, ..., a thread tests one of them, and the
+// block fills the rows of those its threads found (node blocks without a
+// tile often lie together, so the round robin spreads their rows).
+// Then each warp tests one unit (three lanes each load one boundary): does
+// a node whose first slot lies in the unit run across its tail boundary?
+// Its row is the sum (kMax:
+// the max) of its partials in unit order: the unit's tail, then the head of
+// every later unit the node reaches. A node that ends in the next unit
+// (most of them) is reduced by the warp; for a longer run the whole block
+// takes the node after the others: its threads look for the end of the run
+// 256 units at a time, the heads are cut into one contiguous run a warp,
+// each reduced in order, and the warps' results are added in warp order.
+template <bool kMax = false>
 __device__ __forceinline__ void weighted_combine_body(
     const int* __restrict__ local_dst, const int* __restrict__ t2b,
     const int* __restrict__ block_tile_ptr, const double* __restrict__ ws,
@@ -543,37 +427,50 @@ __device__ __forceinline__ void weighted_combine_body(
   __shared__ int s_node[kCombineWarps];
   __shared__ int s_first[kCombineWarps];
   __shared__ double s_sum[kCombineWarps][32 * kCombineCols];
+  __shared__ int s_empty[kCombineWarps * 32];
+  __shared__ int s_count;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int b = blockIdx.x; b < num_node_blocks; b += gridDim.x) {
-    if (block_tile_ptr[b] == block_tile_ptr[b + 1]) {    // owns no tile
-      float* ob = out + (size_t)b * node_block * d;
-      for (int i = threadIdx.x; i < node_block * d; i += blockDim.x) {
-        ob[i] = 0.f;
+  const double ident = kMax ? static_cast<double>(kNegInf) : 0.0;
+  auto op = [](double a, double b) { return kMax ? fmax(a, b) : a + b; };
+  const int rows = node_block * d;
+  for (long long k0 = 0; blockIdx.x + k0 * gridDim.x < num_node_blocks;
+       k0 += blockDim.x) {
+    if (threadIdx.x == 0) s_count = 0;
+    __syncthreads();
+    const long long b = blockIdx.x + (k0 + threadIdx.x) * gridDim.x;
+    if (b < num_node_blocks && block_tile_ptr[b] == block_tile_ptr[b + 1]) {
+      s_empty[atomicAdd(&s_count, 1)] = static_cast<int>(b);  // owns no tile
+    }
+    __syncthreads();
+    for (int e = 0; e < s_count; ++e) {
+      float* ob = out + (size_t)s_empty[e] * rows;
+      for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+        ob[i] = static_cast<float>(ident);
       }
     }
+    __syncthreads();
   }
   {
     const int u = blockIdx.x * kCombineWarps + warp;
-    int v = -1;
-    bool longer = false;
-    if (lane == 0 && u < num_units) {
+    // lanes 0, 1, 2: the nodes crossing the unit's tail boundary, its head
+    // boundary and the next unit's tail boundary
+    int c = -1;
+    if (lane < 3 && u < num_units) {
       const int u0 = u * unit_slots;
-      v = crossing_node(local_dst, t2b, u0 + unit_slots, n_slots, tile,
-                        node_block);
-      if (v >= 0 &&
-          crossing_node(local_dst, t2b, u0, n_slots, tile, node_block) == v) {
-        v = -1;                        // the node started in an earlier unit
-      }
-      longer = v >= 0 && crossing_node(local_dst, t2b, u0 + 2 * unit_slots,
-                                       n_slots, tile, node_block) == v;
+      c = crossing_node(local_dst, t2b,
+                        u0 + (lane == 1 ? 0 : lane == 0 ? 1 : 2) * unit_slots,
+                        n_slots, tile, node_block);
     }
-    v = __shfl_sync(0xffffffffu, v, 0);
-    longer = __shfl_sync(0xffffffffu, longer, 0);
+    int v = __shfl_sync(0xffffffffu, c, 0);
+    const int at_head = __shfl_sync(0xffffffffu, c, 1);
+    const int at_next = __shfl_sync(0xffffffffu, c, 2);
+    if (v >= 0 && at_head == v) v = -1;  // the node started in an earlier unit
+    const bool longer = v >= 0 && at_next == v;
     if (v >= 0 && !longer) {           // the common case: two units
       for (int c = lane; c < d; c += 32) {
-        out[(size_t)v * d + c] = static_cast<float>(
-            ws[(size_t)(2 * u + 1) * d + c] + ws[(size_t)(2 * u + 2) * d + c]);
+        out[(size_t)v * d + c] = static_cast<float>(op(
+            ws[(size_t)(2 * u + 1) * d + c], ws[(size_t)(2 * u + 2) * d + c]));
       }
     }
     if (lane == 0) s_node[warp] = longer ? v : -1;
@@ -610,7 +507,7 @@ __device__ __forceinline__ void weighted_combine_body(
     for (int c0 = 0; c0 < d; c0 += 32 * kCombineCols) {
       double sum[kCombineCols];
 #pragma unroll
-      for (int j = 0; j < kCombineCols; ++j) sum[j] = 0.0;
+      for (int j = 0; j < kCombineCols; ++j) sum[j] = ident;
       int k = k0;
       for (; k + kChainLoads <= k1; k += kChainLoads) {
         double p[kChainLoads][kCombineCols];
@@ -619,20 +516,20 @@ __device__ __forceinline__ void weighted_combine_body(
 #pragma unroll
           for (int j = 0; j < kCombineCols; ++j) {
             const int c = c0 + lane + 32 * j;
-            p[i][j] = c < d ? ws[(size_t)(2 * (k + i)) * d + c] : 0.0;
+            p[i][j] = c < d ? ws[(size_t)(2 * (k + i)) * d + c] : ident;
           }
         }
 #pragma unroll
         for (int i = 0; i < kChainLoads; ++i) {
 #pragma unroll
-          for (int j = 0; j < kCombineCols; ++j) sum[j] += p[i][j];
+          for (int j = 0; j < kCombineCols; ++j) sum[j] = op(sum[j], p[i][j]);
         }
       }
       for (; k < k1; ++k) {
 #pragma unroll
         for (int j = 0; j < kCombineCols; ++j) {
           const int c = c0 + lane + 32 * j;
-          if (c < d) sum[j] += ws[(size_t)(2 * k) * d + c];
+          if (c < d) sum[j] = op(sum[j], ws[(size_t)(2 * k) * d + c]);
         }
       }
 #pragma unroll
@@ -647,7 +544,7 @@ __device__ __forceinline__ void weighted_combine_body(
           if (c >= d) continue;
           double total = ws[(size_t)(2 * u + 1) * d + c];
           for (int w = 0; w < kCombineWarps && w * per < heads; ++w) {
-            total += s_sum[w][lane + 32 * j];
+            total = op(total, s_sum[w][lane + 32 * j]);
           }
           out[(size_t)v * d + c] = static_cast<float>(total);
         }
@@ -708,23 +605,230 @@ softmax_agg_gather_unit_kernel(const float* __restrict__ scores,
                                     node_block, tile, unit_slots, lanes);
 }
 
-// The combine launch of K3, K7 and K8: one body, instantiated once per
-// kernel so that a profile names each kernel's combine after it (the tag's
-// name shows in the kernel's name).
+// K6: K3's unit over messages padded into the slots
+template <int V>
+__global__ void __launch_bounds__(kUnitThreads)
+softmax_agg_padded_unit_kernel(const float* __restrict__ scores,
+                               const float* __restrict__ msg_p,
+                               const int* __restrict__ local_dst,
+                               const int* __restrict__ t2b,
+                               const float* __restrict__ mx,
+                               const float* __restrict__ den,
+                               float* __restrict__ out,
+                               double* __restrict__ ws, int d, int n_slots,
+                               int num_nodes, int node_block, int tile,
+                               int unit_slots, int lanes) {
+  weighted_unit_body<false, V, true>(scores, msg_p, nullptr, local_dst, t2b,
+                                     mx, den, out, ws, d, n_slots, num_nodes,
+                                     node_block, tile, unit_slots, lanes);
+}
+
+// ---------------------------------------------------------------------------
+// K2: the softmax statistics in two passes over the slot split
+// ---------------------------------------------------------------------------
+constexpr int kStatsWarps = kUnitThreads / 32;   // agents of a K2 unit
+constexpr int kNoKey = 0x7fffffff;               // past every slot key
+
+// One pass of K2 over the unit of unit_slots consecutive slots at blockIdx.
+// kSum = false, the max pass: a real slot's value is max(score, -1e30) and
+// out is mx. kSum = true, the sum pass: a real slot's value is its term
+// expf(score - mx[n]) (n its global node, mx from the max pass), widened
+// to fp64, and out is den. A pad's value adds nothing.
+// Each warp is an agent over a contiguous run of whole 32-slot rounds. In a
+// round a lane loads one slot; the warp takes a segmented inclusive scan
+// over the key runs by shuffles (the keys never decrease, so a lane
+// reduces with the lane `off` below it when their keys are equal), the run
+// left open at the round's end carried into the next round's first lane.
+// A run that ends inside the agent and is not the agent's first node is
+// the node's whole reduction and is written to out (a carried run when the
+// next round's first slot starts another); the agent's first and last
+// nodes go to shared memory, and one thread then walks the agents in
+// order, as weighted_unit_body does: the unit's head and tail nodes to the
+// workspace (ws[2u], ws[2u + 1]), the others to out. The lane of a slot
+// that starts a key run writes `fill` (-1e30 for mx, 0 for den) to the
+// slot-less nodes since the previous slot's node, and the array's last
+// slot fills the rest of its block.
+template <bool kSum>
+__device__ __forceinline__ void stats_unit_body(
+    const float* __restrict__ scores, const int* __restrict__ local_dst,
+    const int* __restrict__ t2b, const float* __restrict__ mx,
+    float* __restrict__ out, double* __restrict__ ws, int n_slots,
+    int node_block, int tile, int unit_slots) {
+  __shared__ double s_head[kStatsWarps], s_tail[kStatsWarps];
+  __shared__ int s_hnode[kStatsWarps], s_tnode[kStatsWarps];
+  constexpr unsigned kAll = 0xffffffffu;
+  const double ident = kSum ? 0.0 : static_cast<double>(kNegInf);
+  const float fill = kSum ? 0.f : kNegInf;
+  auto op = [](double a, double b) { return kSum ? a + b : fmax(a, b); };
+
+  const int u = blockIdx.x;
+  const int u0 = u * unit_slots;
+  const int len = min(unit_slots, n_slots - u0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int per = ((len + kStatsWarps - 1) / kStatsWarps + 31) & ~31;
+  const int a0 = min(warp * per, len);
+  const int a1 = min(a0 + per, len);
+
+  // loaded here, used after the rounds: the unit's head and tail nodes
+  int head = -1, tail = -1;
+  if (threadIdx.x == 0) {
+    head = crossing_node(local_dst, t2b, u0, n_slots, tile, node_block);
+    tail = crossing_node(local_dst, t2b, u0 + len, n_slots, tile,
+                         node_block);
+  }
+  // the key of the slot before the round's first, and the reduction of
+  // its run so far in this agent
+  int carry_key = u0 + a0 > 0
+      ? slot_key(local_dst, t2b, u0 + a0 - 1, tile, node_block) : -1;
+  double carry = ident;
+  int first = -1;                        // the agent's first real node
+  for (int j0 = a0; j0 < a1; j0 += 32) {
+    const int i = u0 + j0 + lane;
+    const bool valid = j0 + lane < a1;
+    int k = kNoKey;
+    double v = ident;
+    if (valid) {
+      const float s = scores[i];         // loaded beside the key
+      k = slot_key(local_dst, t2b, i, tile, node_block);
+      if (!(k & 1)) {
+        v = kSum ? static_cast<double>(expf(s - mx[k >> 1]))
+                 : static_cast<double>(fmaxf(s, kNegInf));
+      }
+    }
+    if (lane == 0 && j0 > a0 && k != carry_key && !(carry_key & 1)) {
+      const int n = carry_key >> 1;          // the carried run ended
+      if (n == first) {
+        s_head[warp] = carry;
+      } else {
+        out[n] = static_cast<float>(carry);
+      }
+    }
+    const int up = __shfl_up_sync(kAll, k, 1);
+    const int prev_key = lane == 0 ? carry_key : up;
+    if (valid && k != prev_key) {        // the first slot of its key run
+      const int n = k >> 1;
+      fill_gap<1>(out, prev_key >> 1, (k & 1) ? n : n - 1, n / node_block,
+                  node_block, 1, 0, true, fill);
+    }
+    if (valid && i == n_slots - 1) {     // the rest of the last slot's block
+      const int n = k >> 1;
+      fill_rows<1>(out, n + 1, (n / node_block + 1) * node_block - 1, 1, 0,
+                   true, fill);
+    }
+    if (lane == 0 && k == carry_key) v = op(carry, v);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const double o = __shfl_up_sync(kAll, v, off);
+      const int ok = __shfl_up_sync(kAll, k, off);
+      if (lane >= off && ok == k) v = op(o, v);
+    }
+    const unsigned real = __ballot_sync(kAll, valid && !(k & 1));
+    if (first < 0 && real) {
+      first = __shfl_sync(kAll, k, __ffs(real) - 1) >> 1;
+    }
+    const int last = min(31, a1 - 1 - j0);   // the round's last slot
+    const int down = __shfl_down_sync(kAll, k, 1);
+    if (valid && lane < last && down != k && !(k & 1)) {
+      const int n = k >> 1;                  // a run that ends here
+      if (n == first) {
+        s_head[warp] = v;
+      } else {
+        out[n] = static_cast<float>(v);
+      }
+    }
+    carry_key = __shfl_sync(kAll, k, last);
+    carry = __shfl_sync(kAll, v, last);
+  }
+  if (lane == 0) {
+    int tnode = -1;
+    if (a0 < a1 && !(carry_key & 1)) {       // the run open at the end
+      if ((carry_key >> 1) == first) {
+        s_head[warp] = carry;
+      } else {
+        tnode = carry_key >> 1;
+        s_tail[warp] = carry;
+      }
+    }
+    s_hnode[warp] = first;
+    s_tnode[warp] = tnode;
+  }
+  __syncthreads();
+
+  if (threadIdx.x == 0) {                  // the agents' nodes, in order
+    double acc = ident;
+    int node = -1;
+    auto flush = [&]() {
+      if (node == head) {
+        ws[2 * u] = acc;
+      } else if (node == tail) {
+        ws[2 * u + 1] = acc;
+      } else {
+        out[node] = static_cast<float>(acc);
+      }
+    };
+    for (int b = 0; b < kStatsWarps; ++b) {
+      const int h = s_hnode[b];
+      if (h < 0) continue;
+      if (h == node) {
+        acc = op(acc, s_head[b]);
+      } else {
+        if (node >= 0) flush();
+        node = h;
+        acc = s_head[b];
+      }
+      const int t = s_tnode[b];
+      if (t >= 0) {
+        flush();
+        node = t;
+        acc = s_tail[b];
+      }
+    }
+    if (node >= 0) flush();
+  }
+}
+
+__global__ void __launch_bounds__(kUnitThreads)
+stats_max_unit_kernel(const float* __restrict__ scores,
+                      const int* __restrict__ local_dst,
+                      const int* __restrict__ t2b, float* __restrict__ mx,
+                      double* __restrict__ ws, int n_slots, int node_block,
+                      int tile, int unit_slots) {
+  stats_unit_body<false>(scores, local_dst, t2b, nullptr, mx, ws, n_slots,
+                         node_block, tile, unit_slots);
+}
+
+__global__ void __launch_bounds__(kUnitThreads)
+stats_sum_unit_kernel(const float* __restrict__ scores,
+                      const int* __restrict__ local_dst,
+                      const int* __restrict__ t2b,
+                      const float* __restrict__ mx, float* __restrict__ den,
+                      double* __restrict__ ws, int n_slots, int node_block,
+                      int tile, int unit_slots) {
+  stats_unit_body<true>(scores, local_dst, t2b, mx, den, ws, n_slots,
+                        node_block, tile, unit_slots);
+}
+
+// The combine launches: one body, instantiated once per kernel so that a
+// profile names each kernel's combine after it (the tag's name shows in
+// the kernel's name); K2's max pass takes the max of the partials.
 struct softmax_agg_gather_combine {};
+struct softmax_agg_padded_combine {};
 struct weighted_agg_gather_combine {};
 struct weighted_agg_padded_combine {};
+struct stats_max_combine {};
+struct stats_sum_combine {};
 
-template <typename Name>
+template <typename Name, bool kMax = false>
 __global__ void __launch_bounds__(kCombineWarps * 32)
 combine_kernel(const int* __restrict__ local_dst, const int* __restrict__ t2b,
                const int* __restrict__ block_tile_ptr,
                const double* __restrict__ ws, float* __restrict__ out, int d,
                int n_slots, int num_units, int num_node_blocks,
                int node_block, int tile, int unit_slots) {
-  weighted_combine_body(local_dst, t2b, block_tile_ptr, ws, out, d, n_slots,
-                        num_units, num_node_blocks, node_block, tile,
-                        unit_slots);
+  weighted_combine_body<kMax>(local_dst, t2b, block_tile_ptr, ws, out, d,
+                              n_slots, num_units, num_node_blocks,
+                              node_block, tile, unit_slots);
 }
 
 // Opt a kernel in to more than the default 48 KB of dynamic shared memory.
@@ -742,71 +846,49 @@ extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-extern "C" long long seg_stats_smem_bytes(int tile) {
-  return (long long)tile * (sizeof(float) + sizeof(int));
-}
-
-// K6's dynamic shared memory: the fp64 accumulators and one tile's staged
-// slots.
-extern "C" long long seg_agg_smem_bytes(int d, int node_block, int tile) {
-  return (long long)node_block * d * sizeof(double) +
-         (long long)tile * (sizeof(float) + 2 * sizeof(int));
-}
-
-// scores, local_dst [T * tile]; block_tile_ptr [num_node_blocks + 1];
-// mx, den [num_node_blocks * node_block]. node_block <= 1024.
+// K2. scores, local_dst [T * tile]; t2b [>= T]; block_tile_ptr
+// [num_node_blocks + 1]; mx, den [num_node_blocks * node_block]; ws
+// 2 * ceil(T / chunk_tiles) doubles, which both passes use in turn. Four
+// launches on one stream: the max pass's units and combine, then the sum
+// pass's.
 extern "C" int seg_stats_f32(const float* scores, const int* local_dst,
-                             const int* block_tile_ptr, float* mx, float* den,
-                             int num_node_blocks, int node_block, int tile,
+                             const int* t2b, const int* block_tile_ptr,
+                             float* mx, float* den, double* ws,
+                             int num_tiles, int num_node_blocks,
+                             int node_block, int tile, int chunk_tiles,
                              void* stream) {
-  if (num_node_blocks <= 0 || node_block <= 0 || node_block > 1024 ||
-      tile <= 0) {
+  if (num_tiles <= 0 || num_node_blocks <= 0 || node_block <= 0 ||
+      tile <= 0 || chunk_tiles <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long smem = seg_stats_smem_bytes(tile);
-  cudaError_t e = allow_smem(seg_stats_kernel, smem);
+  const int n_slots = num_tiles * tile;
+  const int unit_slots = chunk_tiles * tile;
+  const int units = (num_tiles + chunk_tiles - 1) / chunk_tiles;
+  const int combine_blocks = (units + kCombineWarps - 1) / kCombineWarps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  stats_max_unit_kernel<<<units, kUnitThreads, 0, s>>>(
+      scores, local_dst, t2b, mx, ws, n_slots, node_block, tile, unit_slots);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int threads = (node_block + 31) / 32 * 32;
-  seg_stats_kernel<<<num_node_blocks, threads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      scores, local_dst, block_tile_ptr, mx, den, node_block, tile);
+  combine_kernel<stats_max_combine, true>
+      <<<combine_blocks, kCombineWarps * 32, 0, s>>>(
+          local_dst, t2b, block_tile_ptr, ws, mx, 1, n_slots, units,
+          num_node_blocks, node_block, tile, unit_slots);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  stats_sum_unit_kernel<<<units, kUnitThreads, 0, s>>>(
+      scores, local_dst, t2b, mx, den, ws, n_slots, node_block, tile,
+      unit_slots);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  combine_kernel<stats_sum_combine>
+      <<<combine_blocks, kCombineWarps * 32, 0, s>>>(
+          local_dst, t2b, block_tile_ptr, ws, den, 1, n_slots, units,
+          num_node_blocks, node_block, tile, unit_slots);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch K6 with one thread block per node block: colw
-// consecutive threads cover a row's columns, `groups` such groups take the
-// block's nodes in turn. `args` are the kernel's pointer arguments.
-template <typename Kernel, typename... Args>
-int launch_agg(Kernel* kernel, int d, int num_node_blocks, int node_block,
-               int tile, void* stream, Args... args) {
-  if (num_node_blocks <= 0 || node_block <= 0 || d <= 0 || tile <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int colw = d < kAggThreads ? d : kAggThreads;
-  int groups = kAggThreads / colw;
-  if (groups > node_block) groups = node_block;
-  const long long smem = seg_agg_smem_bytes(d, node_block, tile);
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<num_node_blocks, colw * groups, smem,
-           static_cast<cudaStream_t>(stream)>>>(args..., d, node_block, tile,
-                                                groups, colw);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K6. scores, local_dst [T * tile]; msg_p [T * tile, d] (the messages
-// padded into the slots); mx, den from seg_stats_f32;
-// out [num_node_blocks * node_block, d].
-extern "C" int seg_softmax_agg_padded_f32(
-    const float* scores, const float* msg_p, const int* local_dst,
-    const int* block_tile_ptr, const float* mx, const float* den, float* out,
-    int d, int num_node_blocks, int node_block, int tile, void* stream) {
-  return launch_agg(seg_softmax_agg_padded_kernel, d, num_node_blocks,
-                    node_block, tile, stream, scores, msg_p, local_dst,
-                    block_tile_ptr, mx, den, out);
-}
-
-// K3's, K7's and K8's dynamic shared memory, whatever node_block: the
+// K3's, K6's, K7's and K8's dynamic shared memory, whatever node_block: the
 // agents' first- and last-node partials (two fp64 rows of lanes * vec
 // columns an agent), the unit's staged slots (key, row, weight) and the
 // agents' two node ids.
@@ -828,11 +910,12 @@ cudaError_t launch_unit(Kernel* kernel, int units, long long smem,
   return cudaGetLastError();
 }
 
-// Launch K3 (kSoftmax), K7 (kGather) or K8: the unit kernel over
-// ceil(num_tiles / chunk_tiles) units, then the combine kernel, one block
-// for kCombineWarps units, on the same stream. ws holds 2 * units * d
-// doubles: a head and a tail partial row a unit. vec (1, 2 or 4) divides
-// d, and msg is aligned to vec floats. mx, den: K3's node statistics.
+// Launch K3 (kGather, kSoftmax), K6 (kSoftmax), K7 (kGather) or K8: the
+// unit kernel over ceil(num_tiles / chunk_tiles) units, then the combine
+// kernel, one block for kCombineWarps units, on the same stream. ws holds
+// 2 * units * d doubles: a head and a tail partial row a unit. vec (1, 2
+// or 4) divides d, and msg is aligned to vec floats. mx, den: K3's and
+// K6's node statistics.
 template <bool kGather, bool kSoftmax>
 int launch_weighted(const float* weight, const float* msg, const int* mmap,
                     const int* local_dst, const int* t2b,
@@ -854,13 +937,20 @@ int launch_weighted(const float* weight, const float* msg, const int* mmap,
                                                      vec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if constexpr (kSoftmax) {
+  if constexpr (kSoftmax && kGather) {
     auto* kernel = vec == 4   ? softmax_agg_gather_unit_kernel<4>
                    : vec == 2 ? softmax_agg_gather_unit_kernel<2>
                               : softmax_agg_gather_unit_kernel<1>;
     e = launch_unit(kernel, units, smem, s, weight, msg, mmap, local_dst,
                     t2b, mx, den, out, ws, d, n_slots, num_nodes, node_block,
                     tile, unit_slots, lanes);
+  } else if constexpr (kSoftmax) {
+    auto* kernel = vec == 4   ? softmax_agg_padded_unit_kernel<4>
+                   : vec == 2 ? softmax_agg_padded_unit_kernel<2>
+                              : softmax_agg_padded_unit_kernel<1>;
+    e = launch_unit(kernel, units, smem, s, weight, msg, local_dst, t2b, mx,
+                    den, out, ws, d, n_slots, num_nodes, node_block, tile,
+                    unit_slots, lanes);
   } else if constexpr (kGather) {
     auto* kernel = vec == 4   ? weighted_agg_gather_unit_kernel<4>
                    : vec == 2 ? weighted_agg_gather_unit_kernel<2>
@@ -878,9 +968,11 @@ int launch_weighted(const float* weight, const float* msg, const int* mmap,
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const int combine_blocks = (units + kCombineWarps - 1) / kCombineWarps;
-  auto* combine = kSoftmax  ? combine_kernel<softmax_agg_gather_combine>
-                  : kGather ? combine_kernel<weighted_agg_gather_combine>
-                            : combine_kernel<weighted_agg_padded_combine>;
+  auto* combine =
+      kSoftmax ? (kGather ? combine_kernel<softmax_agg_gather_combine>
+                          : combine_kernel<softmax_agg_padded_combine>)
+               : (kGather ? combine_kernel<weighted_agg_gather_combine>
+                          : combine_kernel<weighted_agg_padded_combine>);
   combine<<<combine_blocks, kCombineWarps * 32, 0, s>>>(
       local_dst, t2b, block_tile_ptr, ws, out, d, n_slots, units,
       num_node_blocks, node_block, tile, unit_slots);
@@ -901,6 +993,22 @@ extern "C" int seg_softmax_agg_gather_f32(
                                      block_tile_ptr, mx, den, out, ws, d,
                                      num_tiles, num_node_blocks, node_block,
                                      tile, chunk_tiles, vec, stream);
+}
+
+// K6. scores (pad slots -1e30), local_dst [T * tile]; t2b [>= T];
+// block_tile_ptr [num_node_blocks + 1]; msg_p [T * tile, d] (the messages
+// padded into the slots); mx, den from seg_stats_f32;
+// out [num_node_blocks * node_block, d]; ws as above.
+extern "C" int seg_softmax_agg_padded_f32(
+    const float* scores, const float* msg_p, const int* local_dst,
+    const int* t2b, const int* block_tile_ptr, const float* mx,
+    const float* den, float* out, double* ws, int d, int num_tiles,
+    int num_node_blocks, int node_block, int tile, int chunk_tiles, int vec,
+    void* stream) {
+  return launch_weighted<false, true>(scores, msg_p, nullptr, local_dst, t2b,
+                                      block_tile_ptr, mx, den, out, ws, d,
+                                      num_tiles, num_node_blocks, node_block,
+                                      tile, chunk_tiles, vec, stream);
 }
 
 // K7. scale_p (pad slots 0), mmap, local_dst [T * tile]; t2b [>= T];

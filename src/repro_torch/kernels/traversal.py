@@ -19,18 +19,20 @@ the same names in ``repro/kernels/traversal.py``). Nothing falls back;
 ``.launches`` on each wrapper counts its kernel launches.
 
 The plain versions index nodes through the tile -> block map ``t2b``.
-K2 and K6 walk each node block's tile range from ``block_tile_ptr``
-with one thread block. K3, K7 and K8 split by slots: ``ceil(T /
-chunk_tiles)`` units of ``chunk_tiles`` consecutive tiles (by default
-``K3_CHUNK_TILES`` / ``K7_CHUNK_TILES``), each summed by one thread block
-into fp64 partials, and a second kernel that adds up, in unit order, the
-nodes whose slots cross a unit edge (one call, two launches, counted
-once); K3's weight is the attention from K2's ``mx`` / ``den``, computed
-as the slot is staged. They rely on the order ``slot_keys`` states,
-which every layout builder keeps: real slots sorted by destination, each
-node block's pads after its real slots. Pad slots carry ``local_dst ==
-node_block`` and contribute nothing (the reference gives them scale 0); a
-message index of -1 contributes nothing.
+All five kernels split by slots: ``ceil(T / chunk_tiles)`` units of
+``chunk_tiles`` consecutive tiles (by default ``K2_CHUNK_TILES``,
+``K3_CHUNK_TILES``, ``K6_CHUNK_TILES``, ``K7_CHUNK_TILES``), each reduced
+by one thread block into fp64 partials, and a second kernel that reduces,
+in unit order, the nodes whose slots cross a unit edge. K3's and K6's
+weight is the attention from K2's ``mx`` / ``den``, computed as the slot
+is staged (one call, two launches, counted once). K2 makes two such
+passes, the max and then the sum of ``exp(s - mx)`` (four launches,
+counted once). They rely on the order ``slot_keys`` states, which every
+layout builder keeps: real slots sorted by destination, each node block's
+pads after its real slots; ``block_tile_ptr`` is read only for the node
+blocks that own no tile. Pad slots carry ``local_dst == node_block`` and
+contribute nothing (the reference gives them scale 0); a message index of
+-1 contributes nothing.
 A node without edges, and every node of a block that owns no tile, gets
 ``mx = -1e30``, ``den = 0`` and a zero output row: the Pallas kernels never
 write the blocks without tiles. Inputs and outputs are fp32 (the plain
@@ -52,24 +54,23 @@ NEG_INF = -1e30
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "seg_stats_f32": [_P] * 5 + [_I] * 3 + [_P],
+    "seg_stats_f32": [_P] * 7 + [_I] * 5 + [_P],
     "seg_softmax_agg_gather_f32": [_P] * 10 + [_I] * 7 + [_P],
     "seg_weighted_agg_gather_f32": [_P] * 8 + [_I] * 7 + [_P],
-    "seg_softmax_agg_padded_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "seg_softmax_agg_padded_f32": [_P] * 9 + [_I] * 7 + [_P],
     "seg_weighted_agg_padded_f32": [_P] * 7 + [_I] * 7 + [_P],
-    "seg_agg_smem_bytes": [_I] * 3,
     "seg_weighted_agg_smem_bytes": [_I] * 4,
 }
 # K7's and K8's work unit: this many consecutive tiles of the slot array
-# (256 slots at tile 32) to a thread block; K3's, the same walk
+# (256 slots at tile 32) to a thread block; K3's and K6's, the same walk;
+# K2's, the same units (one slot a thread at tile 32)
 K7_CHUNK_TILES = 8
-K3_CHUNK_TILES = K7_CHUNK_TILES
+K3_CHUNK_TILES = K6_CHUNK_TILES = K2_CHUNK_TILES = K7_CHUNK_TILES
 
 
 def _library() -> ctypes.CDLL:
     return build.load("traversal", _SIGNATURES,
-                      sizes=("seg_agg_smem_bytes",
-                             "seg_weighted_agg_smem_bytes"))
+                      sizes=("seg_weighted_agg_smem_bytes",))
 
 
 def _slot_nodes(local_dst_p: torch.Tensor, t2b: torch.Tensor,
@@ -118,12 +119,18 @@ def seg_stats_padded_plain(scores_p, local_dst_p, t2b, block_tile_ptr=None,
 
 
 def seg_stats_padded(scores_p, local_dst_p, t2b, block_tile_ptr, *,
-                     node_block: int, num_node_blocks: int):
+                     node_block: int, num_node_blocks: int,
+                     chunk_tiles: int = K2_CHUNK_TILES):
     """K2: per-destination max and Σexp over dst-sorted edge tiles.
 
     scores_p, local_dst_p: [T, tile] (pad slots: local_dst == node_block);
     t2b: [>= T] tile -> node block; block_tile_ptr: [num_node_blocks + 1].
-    """
+    The kernel splits the slots into units of ``chunk_tiles`` tiles (a
+    keyword only for sweeping it; the CPU route ignores it) and makes two
+    passes, the max and then the sum, each a unit kernel and a combine.
+    The workspace holds two fp64 partials a unit (2,806 units at the bgs
+    full graph: 45 KB); each pass's combine reads only what its unit kernel
+    wrote, so it is not cleared."""
     if scores_p.device.type == "cpu":
         return seg_stats_padded_plain(
             scores_p, local_dst_p, t2b, block_tile_ptr,
@@ -132,30 +139,33 @@ def seg_stats_padded(scores_p, local_dst_p, t2b, block_tile_ptr, *,
         raise ValueError(f"seg_stats_padded: no kernel for device "
                          f"{scores_p.device}")
     dev = scores_p.device
-    build.check_args("seg_stats_padded", dev,
-                     scores_p=(scores_p, torch.float32),
+    kernel = "seg_stats_padded"
+    build.check_args(kernel, dev, scores_p=(scores_p, torch.float32),
                      local_dst_p=(local_dst_p, torch.int32),
+                     t2b=(t2b, torch.int32),
                      block_tile_ptr=(block_tile_ptr, torch.int32))
-    _check_ptr(block_tile_ptr, num_node_blocks, "seg_stats_padded")
-    if not 0 < node_block <= 1024:
-        raise ValueError(f"seg_stats_padded: node_block={node_block} "
-                         f"outside (0, 1024]")
-    tile = int(local_dst_p.shape[-1])
-    mx = torch.empty((num_node_blocks, node_block), dtype=torch.float32,
-                     device=dev)
+    _check_ptr(block_tile_ptr, num_node_blocks, kernel)
+    num_tiles, tile = _check_split(kernel, local_dst_p, t2b, chunk_tiles,
+                                   num_node_blocks * node_block,
+                                   scores_p=scores_p)
+    shape = (num_node_blocks, node_block)
+    if num_tiles == 0 or num_node_blocks == 0:     # nothing is launched
+        return (torch.full(shape, NEG_INF, dtype=torch.float32, device=dev),
+                torch.zeros(shape, dtype=torch.float32, device=dev))
+    mx = torch.empty(shape, dtype=torch.float32, device=dev)
     den = torch.empty_like(mx)
-    if num_node_blocks == 0:
-        return mx, den            # an empty grid is never launched
+    ws = torch.empty((2 * -(-num_tiles // chunk_tiles),), dtype=torch.float64,
+                     device=dev)
     scores_p, local_dst_p = scores_p.contiguous(), local_dst_p.contiguous()
-    block_tile_ptr = block_tile_ptr.contiguous()
+    t2b, block_tile_ptr = t2b.contiguous(), block_tile_ptr.contiguous()
     lib = _library()
     with torch.cuda.device(dev):
         rc = lib.seg_stats_f32(
-            scores_p.data_ptr(), local_dst_p.data_ptr(),
+            scores_p.data_ptr(), local_dst_p.data_ptr(), t2b.data_ptr(),
             block_tile_ptr.data_ptr(), mx.data_ptr(), den.data_ptr(),
-            num_node_blocks, node_block, tile,
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, rc, "seg_stats_padded")
+            ws.data_ptr(), num_tiles, num_node_blocks, node_block, tile,
+            chunk_tiles, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, rc, kernel)
     seg_stats_padded.launches += 1
     return mx, den
 
@@ -294,8 +304,10 @@ def seg_softmax_agg_padded_plain(scores_p, msg_p, local_dst_p, t2b,
 
 def seg_softmax_agg_padded(scores_p, msg_p, local_dst_p, t2b,
                            block_tile_ptr, mx, den, *, node_block: int,
-                           num_node_blocks: int):
-    """K6: softmax-weighted aggregation over pre-padded messages.
+                           num_node_blocks: int,
+                           chunk_tiles: int = K6_CHUNK_TILES):
+    """K6: softmax-weighted aggregation over pre-padded messages, K3's
+    walk with slot ``i`` reading ``msg_p[i]``.
 
     msg_p: [T * tile, d], the messages in the dst-sorted slots (pad slots'
     rows are not added); mx, den: K2's outputs."""
@@ -304,13 +316,15 @@ def seg_softmax_agg_padded(scores_p, msg_p, local_dst_p, t2b,
         return seg_softmax_agg_padded_plain(
             scores_p, msg_p, local_dst_p, t2b, block_tile_ptr, mx, den,
             node_block=node_block, num_node_blocks=num_node_blocks)
-    out, launched = _launch_agg(
+    out, launched = _launch_weighted(
         "seg_softmax_agg_padded", "seg_softmax_agg_padded_f32", msg_p,
         dict(scores_p=(scores_p, torch.float32), msg_p=(msg_p, torch.float32),
              local_dst_p=(local_dst_p, torch.int32),
+             t2b=(t2b, torch.int32),
              block_tile_ptr=(block_tile_ptr, torch.int32),
              mx=(mx, torch.float32), den=(den, torch.float32)),
-        node_block=node_block, num_node_blocks=num_node_blocks)
+        node_block=node_block, num_node_blocks=num_node_blocks,
+        chunk_tiles=chunk_tiles)
     seg_softmax_agg_padded.launches += launched
     return out
 
@@ -357,41 +371,10 @@ def seg_weighted_agg_padded(scale_p, msg_p, local_dst_p, t2b,
 seg_weighted_agg_padded.launches = 0
 
 
-def _launch_agg(kernel: str, entry: str, msg, named, *, node_block: int,
-                num_node_blocks: int):
-    """Launch K6 (the C entry point ``entry``) on the
-    ``named`` ``(tensor, dtype)`` inputs, in the kernel's argument order;
-    returns ``(out, 1)``, or ``(out, 0)`` for an empty grid, which is
-    never launched. A device without a kernel raises."""
-    first = next(iter(named.values()))[0]
-    dev = first.device
-    if dev.type != "cuda":
-        raise ValueError(f"{kernel}: no kernel for device {dev}")
-    build.check_args(kernel, dev, **named)
-    block_tile_ptr = named["block_tile_ptr"][0]
-    _check_ptr(block_tile_ptr, num_node_blocks, kernel)
-    tile = int(named["local_dst_p"][0].shape[-1])
-    d = int(msg.shape[-1])
-    out = torch.empty((num_node_blocks * node_block, d), dtype=torch.float32,
-                      device=dev)
-    if num_node_blocks == 0 or d == 0:
-        return out, 0
-    lib = _library()
-    _check_smem(lib, d, node_block, tile, kernel)
-    args = [t.contiguous() for t, _ in named.values()]
-    with torch.cuda.device(dev):
-        rc = getattr(lib, entry)(
-            *(t.data_ptr() for t in args), out.data_ptr(), d,
-            num_node_blocks, node_block, tile,
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, rc, kernel)
-    return out, 1
-
-
 def _launch_weighted(kernel: str, entry: str, msg, named, *,
                      node_block: int, num_node_blocks: int,
                      chunk_tiles: int):
-    """Launch K3, K7 or K8 (the C entry point ``entry``: the unit kernel,
+    """Launch K3, K6, K7 or K8 (the C entry point ``entry``: the unit kernel,
     then the combine kernel) on the ``named`` ``(tensor, dtype)`` inputs,
     in the kernel's argument order; returns ``(out, 1)``, or ``(out, 0)``
     where there is nothing to sum (no slot, no node or no column): then
@@ -408,28 +391,16 @@ def _launch_weighted(kernel: str, entry: str, msg, named, *,
         raise ValueError(f"{kernel}: no kernel for device {dev}")
     build.check_args(kernel, dev, **named)
     _check_ptr(named["block_tile_ptr"][0], num_node_blocks, kernel)
-    local_dst_p, t2b = named["local_dst_p"][0], named["t2b"][0]
-    num_tiles, tile = (int(n) for n in local_dst_p.shape)
-    slots = num_tiles * tile
-    for name in ("scale_p", "scores_p", "mmap"):
-        if name in named and named[name][0].numel() != slots:
-            raise ValueError(f"{kernel}: {name} has "
-                             f"{named[name][0].numel()} entries for {slots} "
-                             f"slots")
-    if t2b.numel() < num_tiles:
-        raise ValueError(f"{kernel}: t2b has {t2b.numel()} entries for "
-                         f"{num_tiles} tiles")
-    if chunk_tiles < 1:
-        raise ValueError(f"{kernel}: chunk_tiles={chunk_tiles} below 1")
     num_nodes = num_node_blocks * node_block
+    num_tiles, tile = _check_split(
+        kernel, named["local_dst_p"][0], named["t2b"][0], chunk_tiles,
+        num_nodes, **{name: named[name][0] for name in
+                      ("scale_p", "scores_p", "mmap") if name in named})
     for name in ("mx", "den"):
         if name in named and named[name][0].numel() != num_nodes:
             raise ValueError(f"{kernel}: {name} has "
                              f"{named[name][0].numel()} entries for "
                              f"{num_nodes} nodes")
-    if 2 * num_nodes >= 2**31 or slots + chunk_tiles * tile >= 2**31:
-        raise ValueError(f"{kernel}: {num_nodes} nodes or {slots} slots "
-                         f"overflow the kernel's int32 keys")
     d = int(msg.shape[-1])
     if num_tiles == 0 or num_nodes == 0 or d == 0:
         return torch.zeros((num_nodes, d), dtype=torch.float32,
@@ -458,13 +429,25 @@ def _launch_weighted(kernel: str, entry: str, msg, named, *,
     return out, 1
 
 
-def _check_smem(lib, d: int, node_block: int, tile: int,
-                kernel: str) -> None:
-    smem = lib.seg_agg_smem_bytes(d, node_block, tile)
-    if smem > build.MAX_SMEM_BYTES:
-        raise ValueError(f"{kernel}: node_block={node_block}, d={d} needs "
-                         f"{smem} bytes of shared memory per block (limit "
-                         f"{build.MAX_SMEM_BYTES})")
+def _check_split(kernel: str, local_dst_p, t2b, chunk_tiles: int,
+                 num_nodes: int, **per_slot):
+    """The slot split's preconditions; returns ``(num_tiles, tile)``.
+    ``per_slot``: inputs of one entry a slot."""
+    num_tiles, tile = (int(n) for n in local_dst_p.shape)
+    slots = num_tiles * tile
+    for name, t in per_slot.items():
+        if t.numel() != slots:
+            raise ValueError(f"{kernel}: {name} has {t.numel()} entries for "
+                             f"{slots} slots")
+    if t2b.numel() < num_tiles:
+        raise ValueError(f"{kernel}: t2b has {t2b.numel()} entries for "
+                         f"{num_tiles} tiles")
+    if chunk_tiles < 1:
+        raise ValueError(f"{kernel}: chunk_tiles={chunk_tiles} below 1")
+    if 2 * num_nodes >= 2**31 or slots + chunk_tiles * tile >= 2**31:
+        raise ValueError(f"{kernel}: {num_nodes} nodes or {slots} slots "
+                         f"overflow the kernel's int32 keys")
+    return num_tiles, tile
 
 
 def _check_ptr(block_tile_ptr, num_node_blocks: int, kernel: str) -> None:

@@ -1,4 +1,5 @@
-"""The slot order that K3, K7 and K8 (``seg_softmax_agg_gather_padded``,
+"""The slot order that K2, K3, K6, K7 and K8 (``seg_stats_padded``,
+``seg_softmax_agg_gather_padded``, ``seg_softmax_agg_padded``,
 ``seg_weighted_agg_gather_padded``, ``seg_weighted_agg_padded``) rely on,
 pinned for every layout builder of the port.
 
@@ -10,12 +11,12 @@ block's real slots: ``traversal.slot_keys`` never decreases. Held here for
 the host ``block_csr``, the bucketed layouts of a served mini-batch (the
 pad node and the pure-pad tail) and ``ops.device_blocked_csr`` on the CPU,
 over sampled aifb / bgs blocks, a hub, nodes without edges and node
-blocks without tiles, and for every K3 call of RGAT's and HGT's
+blocks without tiles, and for every K2 and K3 call of RGAT's and HGT's
 host- and device-sampled batches (their compact message maps included).
 The kernels' CPU route, which accepts and ignores ``chunk_tiles``, is held
-to the plain versions, and K3's to the reference's Pallas kernel in
-interpret mode at the layouts the slot split has its edges at: a hub, a
-pure-pad tail and node blocks without tiles.
+to the plain versions, and K2's, K3's and K6's to the reference's Pallas
+kernels in interpret mode at the layouts the slot split has its edges at:
+a hub, a pure-pad tail and node blocks without tiles.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -164,7 +165,7 @@ def test_slot_keys_see_a_swapped_layout():
 
 
 @pytest.mark.parametrize("chunk_tiles", [1, 2, 8, 64])
-@pytest.mark.parametrize("kernel", ["K3", "K7", "K8"])
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K6", "K7", "K8"])
 def test_cpu_route_ignores_chunk_tiles(kernel, chunk_tiles):
     rng = np.random.default_rng(chunk_tiles)
     g = _hub()
@@ -174,17 +175,31 @@ def test_cpu_route_ignores_chunk_tiles(kernel, chunk_tiles):
     scale_p = ops._padded_scale(
         torch.from_numpy(rng.normal(size=e).astype(np.float32)), bcd, msg)
     kw = dict(node_block=8, num_node_blocks=bcd.num_node_blocks)
+    scores_p = ops._padded_scores(
+        torch.from_numpy(rng.normal(size=e).astype(np.float32)), bcd)
+    mx, den = TK.seg_stats_padded(scores_p, bcd.local_dst, bcd.t2b,
+                                  bcd.block_tile_ptr, **kw)
+    if kernel == "K2":
+        args = (scores_p, bcd.local_dst, bcd.t2b, bcd.block_tile_ptr)
+        fn, plain = TK.seg_stats_padded, TK.seg_stats_padded_plain
+        launches = fn.launches
+        got = fn(*args, **kw, chunk_tiles=chunk_tiles)
+        for g, w, again in zip(got, plain(*args, **kw), fn(*args, **kw)):
+            assert torch.equal(g, w) and torch.equal(g, again)
+        assert fn.launches == launches
+        return
     if kernel == "K3":
         mmap = ops._msg_slot_map(bcd, None).clone()
         mmap[::5] = -1
-        scores_p = ops._padded_scores(
-            torch.from_numpy(rng.normal(size=e).astype(np.float32)), bcd)
-        mx, den = TK.seg_stats_padded(scores_p, bcd.local_dst, bcd.t2b,
-                                      bcd.block_tile_ptr, **kw)
         args = (scores_p, msg, mmap, bcd.local_dst, bcd.t2b,
                 bcd.block_tile_ptr, mx, den)
         fn, plain = (TK.seg_softmax_agg_gather_padded,
                      TK.seg_softmax_agg_gather_padded_plain)
+    elif kernel == "K6":
+        args = (scores_p, ops.pad_rows(msg, bcd.edge_map), bcd.local_dst,
+                bcd.t2b, bcd.block_tile_ptr, mx, den)
+        fn, plain = (TK.seg_softmax_agg_padded,
+                     TK.seg_softmax_agg_padded_plain)
     elif kernel == "K7":
         mmap = ops._msg_slot_map(bcd, None).clone()
         mmap[::5] = -1
@@ -264,6 +279,92 @@ def test_k3_matches_pallas_interpret_at_split_edges(case, d):
     assert np.all(got[~owned] == 0.0)
 
 
+def _split_edge_scores(bcd, e, seed):
+    """Scores in [-9, 9] for ``_k3_layout``'s edges, those of the
+    destination with the most edges spanning [-80, 80] (so that the max
+    decides which terms underflow), padded into the slots."""
+    rng = np.random.default_rng(seed)
+    scores = rng.uniform(-9, 9, e).astype(np.float32)
+    valid, node = TK._slot_nodes(bcd.local_dst, bcd.t2b, bcd.node_block)
+    dst = np.zeros(e, np.int64)
+    dst[bcd.edge_map.numpy()[valid.numpy()]] = node[valid].numpy()
+    wide = dst == np.bincount(dst).argmax()
+    scores[wide] = rng.permutation(np.linspace(-80, 80, int(wide.sum()),
+                                               dtype=np.float32))
+    return ops._padded_scores(torch.from_numpy(scores), bcd)
+
+
+@pytest.mark.parametrize("case", ["hub", "pure-pad tail",
+                                  "blocks without tiles"])
+def test_k2_matches_pallas_interpret_at_split_edges(case):
+    """K2's CPU route against the reference's Pallas kernel (interpret
+    mode): ``mx`` exact and ``den`` within rtol 1e-5 on the nodes of blocks
+    that own tiles (the reference rescales its sums online; the port sums
+    each node's fp32 terms in fp64); the nodes of blocks without tiles,
+    which the Pallas kernel never writes, are (-1e30, 0); every unit size
+    gives the same result."""
+    bcd, e = _k3_layout(case)
+    nb = 8
+    kw = dict(node_block=nb, num_node_blocks=bcd.num_node_blocks)
+    scores_p = _split_edge_scores(bcd, e, 20)
+    args = (scores_p, bcd.local_dst, bcd.t2b, bcd.block_tile_ptr)
+    mx, den = TK.seg_stats_padded(*args, **kw)
+    for ct in (1, 2, 8, 64):
+        mx_ct, den_ct = TK.seg_stats_padded(*args, **kw, chunk_tiles=ct)
+        assert torch.equal(mx, mx_ct) and torch.equal(den, den_ct)
+    rmx, rden = (np.asarray(a).reshape(-1) for a in RTK.seg_stats_padded(
+        jnp.asarray(scores_p.numpy()), jnp.asarray(bcd.local_dst.numpy()),
+        jnp.asarray(bcd.t2b.numpy()), interpret=True, **kw))
+    btp = bcd.block_tile_ptr.numpy()
+    owned = np.repeat(btp[1:] > btp[:-1], nb)
+    assert not owned.all()
+    mx, den = mx.numpy().reshape(-1), den.numpy().reshape(-1)
+    np.testing.assert_array_equal(mx[owned], rmx[owned])
+    np.testing.assert_allclose(den[owned], rden[owned], rtol=1e-5, atol=0)
+    assert np.all(mx[~owned] == np.float32(-1e30))
+    assert np.all(den[~owned] == 0.0)
+    assert mx.max() == np.float32(80.0)
+
+
+@pytest.mark.parametrize("d", [1, 8, 64])
+@pytest.mark.parametrize("case", ["hub", "pure-pad tail",
+                                  "blocks without tiles"])
+def test_k6_matches_pallas_interpret_at_split_edges(case, d):
+    """K6's CPU route against the reference's Pallas kernel (interpret
+    mode) on K2's statistics, over messages padded into the slots whose pad
+    rows are not zero (they must add nothing): within 2e-5 on the nodes of
+    blocks that own tiles, zero rows for the blocks without tiles; every
+    unit size gives the same result."""
+    bcd, e = _k3_layout(case)
+    rng = np.random.default_rng(d)
+    nb = 8
+    kw = dict(node_block=nb, num_node_blocks=bcd.num_node_blocks)
+    scores_p = _split_edge_scores(bcd, e, d)
+    msg_p = ops.pad_rows(
+        torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32)),
+        bcd.edge_map)
+    msg_p[bcd.local_dst.reshape(-1) >= nb] = 1e3
+    mx, den = TK.seg_stats_padded(scores_p, bcd.local_dst, bcd.t2b,
+                                  bcd.block_tile_ptr, **kw)
+    args = (scores_p, msg_p, bcd.local_dst, bcd.t2b, bcd.block_tile_ptr, mx,
+            den)
+    got = TK.seg_softmax_agg_padded(*args, **kw)
+    for ct in (1, 2, 8, 64):
+        assert torch.equal(got, TK.seg_softmax_agg_padded(
+            *args, **kw, chunk_tiles=ct))
+    ref = np.asarray(RTK.seg_softmax_agg_padded(
+        jnp.asarray(scores_p.numpy()), jnp.asarray(msg_p.numpy()),
+        jnp.asarray(bcd.local_dst.numpy()), jnp.asarray(bcd.t2b.numpy()),
+        jnp.asarray(mx.numpy()), jnp.asarray(den.numpy()), interpret=True,
+        **kw))
+    btp = bcd.block_tile_ptr.numpy()
+    owned = np.repeat(btp[1:] > btp[:-1], nb)
+    assert not owned.all()
+    got = got.numpy()
+    np.testing.assert_allclose(got[owned], ref[owned], rtol=2e-5, atol=2e-5)
+    assert np.all(got[~owned] == 0.0)
+
+
 @pytest.fixture(scope="module")
 def small_graph():
     return synthetic_heterograph(num_nodes=150, num_edges=1400, num_ntypes=4,
@@ -275,19 +376,23 @@ def small_graph():
 def test_k3_calls_of_served_batches_keep_the_slot_order(small_graph, model,
                                                         sampler,
                                                         monkeypatch):
-    """Every K3 call of an RGAT or HGT forward over a host-sampled
+    """Every K2 and K3 call of an RGAT or HGT forward over a host-sampled
     (bucketed) or device-sampled mini-batch: its slot keys never decrease,
-    every pad slot's message index is -1, and a real slot's names a row of
-    its message table (the compact unique-pair table where the plan
-    compacts)."""
-    calls = []
-    real_k3 = ops.seg_softmax_agg_gather_padded
+    K3 runs on the layout K2 ran on just before it, every pad slot's
+    message index is -1, and a real slot's names a row of its message
+    table (the compact unique-pair table where the plan compacts)."""
+    calls, stats = [], []
 
-    def recording(*args, **kw):
-        calls.append((args, kw))
-        return real_k3(*args, **kw)
+    def recording(fn, into):
+        def rec(*args, **kw):
+            into.append((args, kw))
+            return fn(*args, **kw)
+        return rec
 
-    monkeypatch.setattr(ops, "seg_softmax_agg_gather_padded", recording)
+    monkeypatch.setattr(ops, "seg_softmax_agg_gather_padded", recording(
+        ops.seg_softmax_agg_gather_padded, calls))
+    monkeypatch.setattr(ops, "seg_stats_padded", recording(
+        ops.seg_stats_padded, stats))
     prog = {"rgat": rgat_program, "hgt": hgt_program}[model]
     stack = HectorStack([prog(16, 12), prog(12, 6)], small_graph, tile=8,
                         node_block=8, device="cpu")
@@ -306,10 +411,13 @@ def test_k3_calls_of_served_batches_keep_the_slot_order(small_graph, model,
                 seeds, batch_index=bi)
         with torch.no_grad():
             stack.apply_blocks(params, mb, feats)
-    assert len(calls) == 3 * 2
-    for args, kw in calls:
+    assert len(calls) == len(stats) == 3 * 2
+    for (args, kw), (sargs, skw) in zip(calls, stats):
         scores_p, msg, mmap, local_dst, t2b = args[:5]
         nb = kw["node_block"]
+        assert skw == kw
+        assert sargs[0] is scores_p and sargs[1] is local_dst
+        assert sargs[2] is t2b and sargs[3] is args[5]
         keys = TK.slot_keys(local_dst, t2b, nb)
         assert bool((keys[1:] >= keys[:-1]).all())
         pad = local_dst.reshape(-1) >= nb
