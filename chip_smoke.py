@@ -11,9 +11,11 @@ all four dense configs); any failure exits non-zero:
 
 1. card and build: the card's name and power limit, TF32 off, every kernel
    in ``src/repro_torch/csrc`` built from source (one ``nvcc`` per file,
-   all at once), with the build seconds and ptxas's register report, and
-   the fp64 tensor-core (DMMA) instructions in K5's SASS (``cuobjdump
-   -sass``: the phase fails if there are none);
+   all at once), with the build seconds and ptxas's register report, the
+   registers and spills of each of K1's and K4's 14 kernels (both routes,
+   every register tile; the phase fails on a spill), and the fp64
+   tensor-core (DMMA) instructions in K5's SASS (``cuobjdump -sass``: the
+   phase fails if there are none);
 2. kernels against their plain PyTorch versions on the card, at the shapes
    real runs give them (all captured): one served mini-batch of each serve
    phase (RGAT aifb-b32 and bgs-b1024: K1-K3; RGCN aifb-b32 and bgs-b1024:
@@ -26,8 +28,8 @@ all four dense configs); any failure exits non-zero:
    the slots) at every captured K3 call, K7 and K8 (K8 on K7's messages
    padded into the slots) at every captured K7 call, each at unit sizes
    ``chunk_tiles`` 1 / 2 / 8 / 64 and bitwise against a second launch,
-   after the slot order they rely on is checked on the card; K5 bitwise
-   against a second launch at every call;
+   after the slot order they rely on is checked on the card; K1, K4 and
+   K5 bitwise against a second launch at every call;
    plus edge cases (gather index -1, groups and node blocks without tiles,
    pow2 pad tiles, the scale epilogue, k = 1 and n = 1, a transposed W, a
    group long enough for many K5 chunks, the CUDA ``edge_softmax``, K7
@@ -38,7 +40,13 @@ all four dense configs); any failure exits non-zero:
    K2, K3 and K6 on the same layouts, one destination's scores spanning
    [-80, 80]; K5 with single- and multi-chunk groups at
    chunk sizes 1, 2 and the fitted one, k and n of 1 / 8 / 64, surplus
-   chunks and a launch without real tiles; K9 with counts 0 and C, C = 1,
+   chunks and a launch without real tiles; K1 and K4 where their work
+   split (``segment_mm.gemm_plan``) has its edges: group changes inside a
+   piece and a persistent span at tile 8, 16 and 32 on a small and a
+   large layout, a K1 tile of -1 next to a real one, a pure-pad tail, k =
+   7, 30 and 300, n = 1, 3, 8, 16, 17, 64 and 96, a transposed W at k = 1,
+   8 and 64, the scale on both routes, every route and register tile
+   taken; K9 with counts 0 and C, C = 1,
    odd row counts and high-bit base keys; K5 with the static chunk bound
    of device-built layouts). K9 is held bit for bit, decoded, to its plain
    version and to numpy's ``edge_sample_keys``. Tolerances: K1 and K4
@@ -83,8 +91,10 @@ all four dense configs); any failure exits non-zero:
    step-parity bounds);
 7. full-graph training (``FullGraphTrainer``) of each: aifb, one step on
    the card against the CPU from phase 6's state, at its bounds; bgs at
-   scale 1.0, 3 steps with a finite loss, timed; K5 held and timed at
-   every call of one bgs full-graph step; for RGCN,
+   scale 1.0, 3 steps with a finite loss, timed; K1, K4 and K5 held (each
+   bitwise against a second launch too) and timed at every call of one bgs
+   full-graph step (device ms, wrapper ms, plain ms, ``torch.bmm`` ms,
+   bound, and K1's / K4's work split); for RGCN,
    K7 and K8 held and timed (as phase 2 times them) at the K7 calls of
    one bgs full-graph forward, for RGAT and HGT K2 and K3 at their calls
    and K6 at K3's;
@@ -249,7 +259,7 @@ FORWARD_LAUNCHES = {
 KERNELS = {
     K1: dict(source="src/repro_torch/csrc/segment_mm.cu",
              replaces="src/repro/kernels/segment_mm.py:120",
-             symbol="segment_mm_gather_kernel"),
+             symbol="segment_mm_gather_"),      # wide and narrow routes
     K2: dict(source="src/repro_torch/csrc/traversal.cu",
              replaces="src/repro/kernels/traversal.py:75",
              symbol="stats_", per_call=4),   # two passes, unit + combine
@@ -258,7 +268,7 @@ KERNELS = {
              symbol="softmax_agg_gather_", per_call=2),   # unit + combine
     K4: dict(source="src/repro_torch/csrc/segment_mm.cu",
              replaces="src/repro/kernels/segment_mm.py:44",
-             symbol="segment_mm_padded_kernel"),
+             symbol="segment_mm_padded_"),      # wide and narrow routes
     K5: dict(source="src/repro_torch/csrc/segment_mm.cu",
              replaces="src/repro/kernels/segment_mm.py:194",
              symbol="segment_outer_kernel"),
@@ -979,7 +989,8 @@ def compare_runner(torch, SO, plain, kernel):
     """``run_compare(name, args, kw)``: the kernel against its plain
     version on the same inputs, at the kernel's tolerance; returns the max
     abs error. K2, K3, K6, K7 and K8 run at every unit size
-    (``split_compare``), K5 bit for bit against a second launch too."""
+    (``split_compare``); K1, K4 and K5 are held bit for bit against a
+    second launch too."""
     def run_compare(name, args, kw):
         if name == K9:
             return k9_compare(torch, SO, args, kw)
@@ -988,11 +999,12 @@ def compare_runner(torch, SO, plain, kernel):
                                  args, kw)
         got = kernel[name](*args, **kw)
         want = plain[name](*args, **kw)
-        if name == K5:
+        if name in (K1, K4, K5):
             again = kernel[name](*args, **kw)
             torch.cuda.synchronize()
-            check(bool(torch.equal(got, again)), f"{K5}: two launches "
-                  f"differ")
+            check(bool(torch.equal(got.view(torch.int32),
+                                   again.view(torch.int32))),
+                  f"{name}: two launches differ")
         torch.cuda.synchronize()
         tol = TOLERANCE[name]
         return compare(torch, name, got, want, tol, tol)
@@ -1115,28 +1127,44 @@ def time_softmax(torch, tables, run_compare, k2_call, k3_call, at, phase,
         time_split(torch, tables, run_compare, name, a, kw, at, phase, split)
 
 
-def time_k5(torch, tables, args, kw, err):
-    """K5 at one captured call, already held to its plain version (max abs
-    error ``err``): its device ms, wrapper ms, plain ms, ``torch.bmm`` ms
-    and bound."""
+def time_call(torch, tables, name, args, kw, err):
+    """K1, K4 or K5 at one captured call, already held to its plain
+    version (max abs error ``err``): its device ms, wrapper ms, plain ms,
+    ``torch.bmm`` ms and bound."""
     plain, kernel, work = tables
-    fn = lambda: kernel[K5](*args, **kw)                      # noqa: E731
-    nbytes, flops = work[K5](torch, args, kw)
+    fn = lambda: kernel[name](*args, **kw)                    # noqa: E731
+    nbytes, flops = work[name](torch, args, kw)
     b_ms, b_by = bound(nbytes, flops)
     entry = dict(
-        shape=_shape(K5, args, kw), max_abs_err=err,
-        ms=device_ms(torch, fn, KERNELS[K5]["symbol"]),
+        shape=_shape(name, args, kw), max_abs_err=err,
+        ms=device_ms(torch, fn, KERNELS[name]["symbol"]),
         wrapper_ms=time_ms(torch, fn),
-        plain_ms=time_ms(torch, lambda: plain[K5](*args, **kw), reps=5,
+        plain_ms=time_ms(torch, lambda: plain[name](*args, **kw), reps=5,
                          inner=2),
-        library_ms=time_ms(torch, LIBRARY[K5][1](torch, args, kw)),
+        library_ms=time_ms(torch, LIBRARY[name][1](torch, args, kw)),
         bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
-    log(f"[k5] {entry['shape']} chunk_tiles={kw['chunk_tiles']}: kernel "
+    split = (f" chunk_tiles={kw['chunk_tiles']}" if name == K5 else
+             f" {_plan(name, args, kw)}")
+    log(f"[{name}] {entry['shape']}{split}: kernel "
         f"{entry['ms']:.5f} ms on the device, wrapper "
         f"{entry['wrapper_ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
         f"torch.bmm {entry['library_ms']:.4f} ms, bound "
         f"{entry['bound_ms']:.5f} ms ({entry['bound_by']})")
     return entry
+
+
+def _plan(name, args, kw) -> str:
+    """K1's or K4's work split at a call (``segment_mm.gemm_plan``)."""
+    from repro_torch.kernels import segment_mm as SK
+
+    if name == K1:
+        rows, n = args[2].shape[0], args[1].shape[2]
+    else:
+        rows = args[0].shape[0]
+        n = args[1].shape[1] if kw.get("transpose_w") else args[1].shape[2]
+    p = SK.gemm_plan(int(rows), int(n))
+    return (f"{p.route} x{p.per_thread}, {p.row_blocks} x {p.col_blocks} "
+            f"blocks of {p.block_rows} rows")
 
 
 def hold_captured(torch, captured, results, tables, run_compare, phase):
@@ -1158,7 +1186,8 @@ def hold_captured(torch, captured, results, tables, run_compare, phase):
                 if not timed:
                     continue
                 if name == K5:
-                    r["calls"].append(time_k5(torch, tables, args, kw, err))
+                    r["calls"].append(time_call(torch, tables, K5, args, kw,
+                                                err))
                     continue
                 fn = lambda: kernel[name](*args, **kw)       # noqa: E731
                 ms = device_ms(torch, fn, KERNELS[name]["symbol"],
@@ -1284,6 +1313,7 @@ def phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops, tasks, split):
     time_softmax(torch, tables, run_compare, calls[K2][i], calls[K3][i],
                  "rgat bgs-b1024 hop 0", "phase 2", split)
     edge_cases(torch, SK, TK, L, ops, R, run_compare, results)
+    gemm_edge_cases(torch, SK, L, run_compare, results)
     split_edge_cases(torch, L, ops, TK, run_compare, split)
     k5_edge_cases(torch, SK, L, ops, run_compare, results)
     k9_edge_cases(torch, ops, run_compare, results)
@@ -1547,6 +1577,103 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
         f"blocks, d = 5 and 300, K4 k = 1 / n = 1 / transposed W, a K5 "
         f"group of 40,000 rows, K7 scale=None, compact rows with -1, d = 1,"
         f" the CUDA weighted_agg); empty layouts launched nothing")
+
+
+def gemm_edge_cases(torch, SK, L, run_compare, results):
+    """K1 and K4 where their work split (``segment_mm.gemm_plan``) has its
+    edges, each held to its plain version (1e-5) and bitwise against a
+    second launch: group changes inside one piece and one persistent span
+    at tile 8, 16 and 32, on a small layout (about 1,500 rows: TM = 2, a
+    span a piece) and a large one (about 100,000 rows: TM = 8, spans of
+    several pieces); a K1 tile whose gather indices are all -1 next to a
+    real one, and -1 rows inside real tiles; a pure-pad tail; k not a
+    multiple of 4 and wider than one 32-column chunk (7, 30, 300); n = 1,
+    3, 8, 16, 17, 64, 96 (both routes, every narrow width); a transposed W
+    at k = 1, 8 and 64; the scale on both routes. Fails unless every route
+    and width of the plan was taken. Where k > 64 the inputs are small
+    integers (and the scales powers of two), so every product and partial
+    sum is exact in fp32 and the kernel's FMA chain and the plain version's
+    batched product agree exactly: with normal inputs, 300-term sums taken
+    in two orders differ by up to about 1e-4 where they cancel, beyond the
+    1e-5 that holds for the main path's k <= 64."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    dev = torch.device("cuda")
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def normal(shape, k):
+        if k <= 64:
+            return rng.normal(size=shape).astype(np.float32)
+        return rng.integers(-4, 5, size=shape).astype(np.float32)
+
+    def scales(rows, k):
+        if k <= 64:
+            return rng.normal(size=(rows, 1)).astype(np.float32)
+        return np.exp2(rng.integers(-2, 3, size=(rows, 1))).astype(
+            np.float32)
+
+    def layout(sizes, tile):
+        ps = L.pad_segments(np.concatenate([[0], np.cumsum(sizes)]), tile)
+        return L.pad_segments_rows(ps, ps.padded_rows + 5 * tile)
+
+    taken, n_calls = set(), 0
+
+    def hold(name, args, kw):
+        nonlocal n_calls
+        rows = args[2].shape[0] if name == K1 else args[0].shape[0]
+        n = (args[1].shape[1] if kw.get("transpose_w")
+             else args[1].shape[2])
+        plan = SK.gemm_plan(int(rows), int(n))
+        taken.add((plan.route, plan.per_thread))
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           run_compare(name, args, kw))
+        n_calls += 1
+
+    for size, groups, top in (("small", 40, 70), ("large", 1500, 120)):
+        sizes = rng.integers(1, top, groups)
+        sizes[::7] = 0                          # groups without tiles
+        m = int(sizes.sum())
+        k1_cases = ((64, 64, True), (300, 96, False), (64, 1, True),
+                    (7, 8, False), (30, 17, True), (64, 16, False),
+                    (64, 3, True))
+        k4_cases = ((64, 64, False, True), (1, 64, True, False),
+                    (8, 64, True, True), (64, 64, True, False),
+                    (300, 17, False, True), (64, 96, False, False),
+                    (64, 1, False, True), (64, 8, True, False),
+                    (30, 16, False, False))
+        if size == "large":                     # a few, each at every tile
+            k1_cases, k4_cases = k1_cases[:4], k4_cases[:4]
+        for tile in (8, 16, 32):
+            ps = layout(sizes, tile)
+            gidx = L.compose_gather_rows(ps, rng.integers(0, 5000, m))
+            gidx[2 * tile:3 * tile] = -1        # a tile of -1 before a real
+            gidx[np.flatnonzero(gidx >= 0)[::9]] = -1
+            t2g = t(ps.tile_to_group)
+            for k, n, scaled in k1_cases:
+                args = [t(normal((5000, k), k)), t(normal((groups, k, n), k)),
+                        t(gidx), t2g]
+                if scaled:
+                    args.append(t(scales(ps.padded_rows, k)))
+                hold(K1, args, dict(tile=tile))
+            for kd, n, transpose, scaled in k4_cases:
+                x_p = normal((ps.padded_rows, kd), kd)
+                x_p[ps.row_map < 0] = 0.0
+                w = normal((groups, n, kd) if transpose else (groups, kd, n),
+                           kd)
+                args = [t(x_p), t(w), t2g]
+                if scaled:
+                    args.append(t(scales(ps.padded_rows, kd)))
+                hold(K4, args, dict(tile=tile, transpose_w=transpose))
+    want = {("wide", 2), ("wide", 8)} | {
+        ("narrow", c) for c in SK.GEMM_NARROW_WIDTHS}
+    check(taken >= want, f"K1 / K4 edge cases took {sorted(taken)}, not "
+          f"every route of gemm_plan ({sorted(want)})")
+    log(f"[phase 2] K1 / K4 split edge cases: {n_calls} calls (routes "
+        f"{sorted(taken)}) match their plain versions and repeat bit for "
+        f"bit")
 
 
 def split_edge_cases(torch, L, ops, TK, run_compare, split):
@@ -2161,9 +2288,10 @@ def phase_train(torch, ops, train_rgnn, task, cfg):
 
 def phase_full_graph(torch, task, train_rgnn, cfg, split):
     """Phase 7: full-graph steps of the task's model — aifb on the card
-    against the CPU, then bgs at scale 1.0 for 3 timed steps. Then K5 is
-    held and timed (``time_k5``) at every call of one bgs full-graph
-    step; for RGCN, K7 and K8 at the K7 calls of one
+    against the CPU, then bgs at scale 1.0 for 3 timed steps. Then K1, K4
+    and K5 are held (each bitwise against a second launch too) and timed
+    (``time_call``) at every call of one bgs full-graph step; for RGCN,
+    K7 and K8 at the K7 calls of one
     bgs full-graph forward (``time_weighted``), for RGAT and HGT, K2 and
     K3 at their calls and K6 at K3's (``time_softmax``)."""
     import dataclasses
@@ -2224,19 +2352,21 @@ def phase_full_graph(torch, task, train_rgnn, cfg, split):
     with recorded_kernel_calls() as calls:
         fg.step(state)
         torch.cuda.synchronize()
-    check(len(calls[K5]) == STEP_LAUNCHES[model][K5], f"{tag} bgs: "
-          f"{len(calls[K5])} K5 calls in a full-graph step")
-    k5 = [time_k5(torch, tables, args, kw, run_compare(K5, args, kw))
-          for args, kw in calls[K5]]
-    out["k5_bgs"] = dict(calls=k5, **{key: sum(c[key] for c in k5) for key in
-                                      ("ms", "wrapper_ms", "plain_ms",
-                                       "library_ms", "bound_ms")})
-    log(f"[{tag} bgs] {K5}: {len(k5)} calls in a full-graph step, kernel "
-        f"{out['k5_bgs']['ms']:.5f} ms on the device, wrapper "
-        f"{out['k5_bgs']['wrapper_ms']:.4f} ms, plain "
-        f"{out['k5_bgs']['plain_ms']:.4f} ms, torch.bmm "
-        f"{out['k5_bgs']['library_ms']:.4f} ms, bound "
-        f"{out['k5_bgs']['bound_ms']:.5f} ms")
+    for name, key in ((K1, "k1_bgs"), (K4, "k4_bgs"), (K5, "k5_bgs")):
+        check(len(calls[name]) == STEP_LAUNCHES[model][name], f"{tag} bgs: "
+              f"{len(calls[name])} {name} calls in a full-graph step")
+        timed = [time_call(torch, tables, name, args, kw,
+                           run_compare(name, args, kw))
+                 for args, kw in calls[name]]
+        out[key] = dict(calls=timed, **{k: sum(c[k] for c in timed) for k in
+                                        ("ms", "wrapper_ms", "plain_ms",
+                                         "library_ms", "bound_ms")})
+        log(f"[{tag} bgs] {name}: {len(timed)} calls in a full-graph step, "
+            f"kernel {out[key]['ms']:.5f} ms on the device, wrapper "
+            f"{out[key]['wrapper_ms']:.4f} ms, plain "
+            f"{out[key]['plain_ms']:.4f} ms, torch.bmm "
+            f"{out[key]['library_ms']:.4f} ms, bound "
+            f"{out[key]['bound_ms']:.5f} ms")
     agg = K7 if model == "rgcn" else K3
     with recorded_kernel_calls() as calls:
         fg.evaluate(state.params)
@@ -3153,6 +3283,52 @@ def k5_build_report(SK):
     return count
 
 
+def gemm_build_report():
+    """K1's and K4's kernels as built (``segment_mm_gather_*`` /
+    ``segment_mm_padded_*``, every route and register tile): ptxas's
+    registers and spills, from this process's build; fails on a spill or
+    when the build reported none of them. Returns {kernel: report}."""
+    import re
+
+    from repro_torch.kernels import build
+
+    log_text = build.build_log.get("segment_mm")
+    if log_text is None:
+        log("[phase 1] ptxas K1 / K4: segment_mm was built before this run; "
+            "no report")
+        return {}
+    reports, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(segment_mm_(?:gather|padded)_(?:wide|narrow))"
+                          r"(I.*?E)E", m.group(1))
+            name = None
+            if k:                     # ILb1ELi8E -> <true, 8>
+                targs = [("true" if v == "1" else "false") if t == "b" else v
+                         for t, v in re.findall(r"L([bi])(\d+)E",
+                                                k.group(2))]
+                name = f"{k.group(1)}<{', '.join(targs)}>"
+            if name:
+                reports[name] = {}
+        elif name and "spill" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            reports[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "registers" in line:
+            reports[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    for name, rep in sorted(reports.items()):
+        log(f"[phase 1] ptxas {name}: {rep.get('registers')} registers, "
+            f"{rep.get('spill_stores')} / {rep.get('spill_loads')} bytes "
+            f"spilled (stores / loads)")
+        check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
+              f"{name} spills registers: {rep}")
+    check(len(reports) == 14, f"ptxas reported {len(reports)} K1 / K4 "
+          f"kernels, expected 14 (2 routes: wide TM 2 / 8, W as stored or "
+          f"transposed; narrow NC 1 / 4 / 8 / 16; K1 and K4)")
+    return reports
+
+
 def k10_build_report(F):
     """K10's kernels as built: ptxas's registers and spills for each (from
     this process's build), and the tensor-core instructions (HMMA / HGMMA)
@@ -3426,6 +3602,7 @@ def main(argv=None) -> int:
         tasks = {m: TrainTask(torch, hector_torch, cfg)
                  for m, cfg in train_cfg.items()}
         k5_sass = k5_build_report(SK)
+        gemm_ptxas = gemm_build_report()
         # the slot-split kernels beyond their rows' calls: the errors of K8
         # at K7's calls, of K6 at K3's and of all five at the slot split's
         # edge cases, and their timings at the bgs calls (phases 2 and 7)
@@ -3527,6 +3704,7 @@ def main(argv=None) -> int:
             train_profile=train_prof, device_serve=device_serve,
             device_train=device_train, tuning=tuning, lm=lm,
             split_timed=split["timed"], k5_sass=k5_sass,
+            gemm_ptxas=gemm_ptxas,
             torch=torch.__version__,
             cuda=torch.version.cuda), indent=1))
     print(json.dumps({"kernels": rows}), flush=True)

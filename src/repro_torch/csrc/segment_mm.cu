@@ -17,24 +17,52 @@
 // k floats per n outputs (128 FLOPs per 256-byte row at k = n = 64), K5
 // 2*k*n FLOPs per row of (k + n) floats read (16 FLOPs per byte at 64 x 64):
 // all at or below the card's ~20 FLOP/byte fp32 ridge (and K5's below the
-// fp64 tensor cores' 67 TFLOP/s ridge, 20 FLOP/byte).
+// fp64 tensor cores' 67 TFLOP/s ridge, 20 FLOP/byte). At k = n = 64 the
+// bytes and the FMAs are close (0.075 against 0.060 ms for 500 K rows), so
+// K1/K4 must run their FMAs near the fp32 peak to stay on the byte bound.
 //
-// K1/K4 design: one thread block per (row tile, col_tile-column slice of n;
-// 64 by default, the tuner's tile_n otherwise; the row tile is the layout's
-// tile or, as the tuner's tile_rows, a divisor of it over a sub-tiled
-// tile -> group map, which the caller passes as `tile`). The
-// block stages its tile's rows in shared memory (row stride kd + 1, so
-// threads reading one column of many rows hit distinct banks): K1 pulls them
-// from global memory by gather index, K4 reads them contiguously; 16 bytes
-// per thread where the row width is a multiple of 4. The slice of
-// W[t2g[tile]] goes beside them (row stride cols + 1); a transposed W is read
-// with the reduction index fastest, so the global reads stay coalesced and
-// the shared-memory stores conflict-free. Each thread forms whole dot
-// products with fp32 FMAs (no TF32). K1 writes slots whose gather index is
-// -1 as exact zeros; the optional per-row scale is the epilogue. Pad tiles
-// that bucketing appends multiply zero rows. Nothing is kept resident across
-// blocks: the TPU kernel's whole-source VMEM block and scalar prefetch have
-// no counterpart.
+// K1/K4 design. Every output is one fp32 FMA chain over kk = 0 .. k-1 in
+// order, started at +0, with the scale as its epilogue (no TF32, no split,
+// no tensor cores): the results are bit for bit those of a thread forming
+// one output at a time; a slot gathering -1 is an exact zero. The wrapper
+// picks the route and the work split from the shapes alone
+// (segment_mm.py::gemm_plan):
+//
+// * wide (n > 16): 128 threads cover pieces of 128 rows by 64 columns, each
+//   thread an 8 x 8 register tile (two groups of 4 columns, 32 apart; a
+//   warp is 4 x 8 threads) that reads 16 words of 16 bytes from shared
+//   memory a 256 FMAs (a thread forming one output at a time read two
+//   words a FMA, which held the FMAs near 1/8 of their peak). A call too
+//   small to fill the card takes 256 threads of 2 x 4 tiles, 32-row pieces.
+// * narrow (n <= 16: the n = 1 attention products, the n = 8 / 16 output
+//   layers): a row a thread with all its columns, so no thread idles. At
+//   n = 1 each warp stages its 32 rows itself, with no block-wide barrier,
+//   and holds W's column in registers (column_body); at n = 2 .. 16 the
+//   128-row pieces take the shared-memory pipeline, a piece holding up to
+//   kNarrowRuns groups (a W slot each), so the short groups of a served
+//   batch do not wait for one another.
+//
+// The shared-memory pipeline (gemm_body): persistent blocks, in whole waves,
+// each walk a span of at most kSpanMax rows. A span's tile -> group entries
+// make runs of consecutive tiles of one group, cut into pieces; a piece's
+// rows and its groups' W slices stream through a two-stage cp.async ring in
+// chunks of 32 reduction columns, across pieces (the next chunk in flight
+// while one is multiplied), so W is staged once a piece rather than once a
+// tile and shared memory does not grow with k (48 KB at the 8 x 8 tile). X
+// rows sit row-major, their 16-byte quads swizzled so that the rows one
+// instruction reads lie in other banks; W as stored sits [kk][cols]; a
+// transposed W keeps the reduction index fastest (coalesced reads) as
+// [col][kk], quads swizzled by col / 4.
+//
+// K1 reads its gather indices first: a tile whose indices are all -1 (the
+// pure-pad tiles bucketing appends, the padding of tiny groups) is written
+// as zeros without staging or multiplying anything, and a -1 row of a real
+// tile is never staged. K4 multiplies every row: its pad rows are zero only
+// by its callers' contract. Nothing uses atomics; each launch runs on the
+// caller's stream and repeats bit for bit. The tuner's tile_rows only
+// refines the tile -> group map (sub-tiles share their tile's group, so the
+// runs are the same); its tile_n no longer cuts the blocks (the register
+// tile fixes the columns of a block); neither changes a result.
 //
 // K5 design: the TPU kernel walks all tiles on one sequential grid and
 // accumulates each group's run into one VMEM block (is_first flags). Here
@@ -59,123 +87,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kColTile = 64;   // the default column slice of K1 / K4
-
-// One (row tile, column slice) of Y = X_rows @ W[group], W element
-// (red, col) at w[group * kd * n + red * w_sr + col * w_sc].
-template <bool kGather>
-__device__ __forceinline__ void tile_gemm(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const int* __restrict__ gidx, const int* __restrict__ t2g,
-    const float* __restrict__ scale, float* __restrict__ y, int kd, int n,
-    int tile, int col_tile, int vec4, int w_sr, int w_sc) {
-  extern __shared__ float smem[];
-  const int ldx = kd + 1;
-  const int col0 = blockIdx.y * col_tile;
-  const int cols = min(col_tile, n - col0);
-  const int ldw = cols + 1;
-  float* xs = smem;              // [tile][kd + 1]
-  float* ws = smem + tile * ldx; // [kd][cols + 1]
-  const int row0 = blockIdx.x * tile;
-  const int group = t2g[blockIdx.x];
-
-  if (vec4) {
-    const int kq = kd >> 2;
-    for (int i = threadIdx.x; i < tile * kq; i += blockDim.x) {
-      const int r = i / kq;
-      const int q = i - r * kq;
-      const int src = kGather ? gidx[row0 + r] : row0 + r;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (src >= 0) {
-        v = reinterpret_cast<const float4*>(x + (size_t)src * kd)[q];
-      }
-      float* dst = xs + r * ldx + 4 * q;
-      dst[0] = v.x;
-      dst[1] = v.y;
-      dst[2] = v.z;
-      dst[3] = v.w;
-    }
-  } else {
-    for (int i = threadIdx.x; i < tile * kd; i += blockDim.x) {
-      const int r = i / kd;
-      const int c = i - r * kd;
-      const int src = kGather ? gidx[row0 + r] : row0 + r;
-      xs[r * ldx + c] = src >= 0 ? x[(size_t)src * kd + c] : 0.f;
-    }
-  }
-  const float* wg = w + (size_t)group * kd * n + (size_t)col0 * w_sc;
-  if (w_sc == 1) {               // W as stored: columns are contiguous
-    for (int i = threadIdx.x; i < kd * cols; i += blockDim.x) {
-      const int kk = i / cols;
-      const int c = i - kk * cols;
-      ws[kk * ldw + c] = wg[(size_t)kk * w_sr + c];
-    }
-  } else {                       // W transposed: the reduction index is
-    for (int i = threadIdx.x; i < kd * cols; i += blockDim.x) {
-      const int c = i / kd;      // contiguous, read it fastest
-      const int kk = i - c * kd;
-      ws[kk * ldw + c] = wg[(size_t)c * w_sc + (size_t)kk * w_sr];
-    }
-  }
-  __syncthreads();
-
-  for (int o = threadIdx.x; o < tile * cols; o += blockDim.x) {
-    const int r = o / cols;
-    const int c = o - r * cols;
-    const float* xr = xs + r * ldx;
-    float acc = 0.f;
-    for (int kk = 0; kk < kd; ++kk) {
-      acc = fmaf(xr[kk], ws[kk * ldw + c], acc);
-    }
-    const int row = row0 + r;
-    if (kGather && gidx[row] < 0) {
-      acc = 0.f;
-    } else if (scale != nullptr) {
-      acc *= scale[row];
-    }
-    y[(size_t)row * n + col0 + c] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-segment_mm_gather_kernel(const float* __restrict__ x,
-                         const float* __restrict__ w,
-                         const int* __restrict__ gidx,
-                         const int* __restrict__ t2g,
-                         const float* __restrict__ scale,
-                         float* __restrict__ y, int k, int n, int tile,
-                         int col_tile, int vec4) {
-  tile_gemm<true>(x, w, gidx, t2g, scale, y, k, n, tile, col_tile, vec4, n,
-                  1);
-}
-
-__global__ void __launch_bounds__(kThreads)
-segment_mm_padded_kernel(const float* __restrict__ x,
-                         const float* __restrict__ w,
-                         const int* __restrict__ t2g,
-                         const float* __restrict__ scale,
-                         float* __restrict__ y, int kd, int n, int tile,
-                         int col_tile, int vec4, int w_sr, int w_sc) {
-  tile_gemm<false>(x, w, nullptr, t2g, scale, y, kd, n, tile, col_tile, vec4,
-                   w_sr, w_sc);
-}
+constexpr int kThreads = 256;       // threads of a K5 block
 
 // ---------------------------------------------------------------------------
-// K5: dW on fp64 tensor cores
+// cp.async from global to shared memory (K1, K4, K5)
 // ---------------------------------------------------------------------------
-constexpr int kOuterSlice = 64;          // rows and columns of a dW slice
-constexpr int kOuterRows = 32;           // rows of X and dY a stage holds
-constexpr int kOuterLd = kOuterSlice + 8;  // 72: conflict-free fragments
-constexpr int kOuterTile = kOuterRows * kOuterLd;   // floats of one operand
-constexpr int kOuterStages = 2;          // stages in the cp.async ring
-constexpr int kOuterPtrCap = 1024;       // groups whose offsets a block stages
-constexpr int kOuterWarps = kThreads / 32;
-// dynamic shared memory of a K5 block: the ring (36,864 bytes; four
-// stages measured no faster than two on the H100), which the row groups'
-// fp64 sums reuse at the end (at most 28,672 bytes)
-constexpr int kOuterSmem = kOuterStages * 2 * kOuterTile * sizeof(float);
-
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -203,6 +119,808 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
+
+// ---------------------------------------------------------------------------
+// K1 / K4: register-tiled fp32 segment GEMM
+// ---------------------------------------------------------------------------
+constexpr int kKChunk = 32;          // reduction columns a ring stage holds
+constexpr int kGemmStages = 2;       // stages in the cp.async ring
+constexpr int kSpanMax = 1024;       // rows a persistent block walks, at most
+constexpr int kWideCols = 64;        // columns of a wide block
+constexpr int kNarrowThreads = 128;  // narrow: one row a thread
+constexpr int kNarrowRuns = 4;       // narrow: groups a piece may hold
+// n = 1: each warp's own ring of [32 rows][kKChunk] stages
+constexpr int kColumnSmem = kNarrowThreads / 32 * kGemmStages * 32 * kKChunk *
+                            static_cast<int>(sizeof(float));
+// the routes, as segment_mm.py::gemm_plan names them
+constexpr int kRouteWide = 0;
+constexpr int kRouteNarrow = 1;
+// bits of a launch's `vec`: 16-byte X rows (cp.async of 16 bytes), 16-byte
+// W words along a row of W (or, wide, of W^T), float4 stores of Y, and the
+// narrow route's single W column contiguous along the reduction
+constexpr int kVecX = 1;
+constexpr int kVecW = 2;
+constexpr int kVecY = 4;
+constexpr int kVecWCol = 8;
+
+// A thread holds TR rows by TC columns of a piece of RT * TR rows; the
+// block's RT * CT threads cover CT * TC columns, a thread's columns in
+// groups of 4 that lie 4 CT apart (col). Wide: TR = TM and, at TM = 8,
+// TC = 8 (two groups), RT = 16, CT = 8 (a warp is 4 x 8 threads, 32 rows by
+// 64 columns: 16 loads of 16 bytes a 256 FMAs), at TM = 2, TC = 4 and
+// RT = CT = 16. Narrow: TR = 1, TC = NC (4, 8 or 16, >= n), RT = 128,
+// CT = 1 (n = 1 takes column_body).
+template <int TR_, int TC_, int RT_, int CT_>
+struct Tiling {
+  static constexpr int TR = TR_;
+  static constexpr int TC = TC_;
+  static constexpr int RT = RT_;
+  static constexpr int CT = CT_;
+  static constexpr int kRows = RT * TR;           // rows of a piece
+  static constexpr int kCols = CT * TC;           // columns of a block
+  static constexpr int kThreads = RT * CT;
+  // groups a piece may hold: one (wide; a run longer than a piece is cut)
+  // or up to kNarrowRuns (narrow: the W chunk of a group is small, so a
+  // piece stages one a group and its rows need not wait for one another)
+  static constexpr int kRuns = CT == 1 ? kNarrowRuns : 1;
+  // X stage [kRows][kKChunk]; W stage: kRuns slots of [kKChunk][kCols]
+  // (or, W^T, [kCols][kKChunk])
+  static constexpr int kXStage = kRows * kKChunk;
+  static constexpr int kWSlot = kKChunk * kCols;
+  static constexpr int kWStage = kRuns * kWSlot;
+  static constexpr int kSmem =
+      kGemmStages * (kXStage + kWStage) * static_cast<int>(sizeof(float));
+  // the quad swizzle of a staged X row: by register tile, so that the
+  // rows one instruction reads (two or four tiles' at once in a wide warp,
+  // one per thread in a narrow one) lie in other banks
+  static __device__ __forceinline__ int x_key(int rr) {
+    return (rr / TR) & (CT == 1 ? 7 : 3);
+  }
+  // column (in the block) of column j of thread column tx
+  static __device__ __forceinline__ int col(int tx, int j) {
+    return 4 * CT * (j >> 2) + 4 * tx + (j & 3);
+  }
+};
+
+// Offset of reduction column kk in a staged row of kKChunk floats whose
+// 16-byte quads are swizzled by `key` (< 8: kKChunk holds 8 quads).
+__device__ __forceinline__ int quad_pos(int kk, int key) {
+  return 4 * ((kk >> 2) ^ key) + (kk & 3);
+}
+
+// Is any bit of [lo, hi) set in the bit mask m (lo < hi)?
+__device__ __forceinline__ bool any_bits(const unsigned* m, int lo, int hi) {
+  for (int i = lo >> 5; i <= (hi - 1) >> 5; ++i) {
+    const int a = max(lo - 32 * i, 0);
+    const int b = min(hi - 32 * i, 32);
+    const unsigned sel = (b == 32 ? ~0u : (1u << b) - 1u) & ~((1u << a) - 1u);
+    if (m[i] & sel) return true;
+  }
+  return false;
+}
+
+// One persistent block: rows [row0, row0 + span) of the padded layout by
+// columns [col0, col0 + kCols) of Y. W element (red, col) of group g is at
+// w[g * k * n + red * w_sr + col * w_sc]. The span holds tile portions (the
+// parts of layout tiles in it); K1 first marks the portions holding a row
+// whose gather index is >= 0 ("live"): the others are written as zeros and
+// never staged. The live rows are cut into pieces of at most kRows
+// consecutive rows and kRuns groups, and a piece into steps of kKChunk
+// reduction columns; a step stages the piece's rows and its groups' W
+// chunks. Steps flow through a ring of kGemmStages stages across pieces
+// (the next in flight while one is multiplied), and a piece's last step
+// writes its rows. Every output is one fmaf chain over kk in order.
+template <bool kGather, bool kTransW, typename T>
+__device__ __forceinline__ void gemm_body(
+    const float* __restrict__ x, const float* __restrict__ w,
+    const int* __restrict__ gidx, const int* __restrict__ t2g,
+    const float* __restrict__ scale, float* __restrict__ y, int k, int n,
+    int rp, int tile, int span, int w_sr, int w_sc, int vec) {
+  constexpr int TR = T::TR;
+  constexpr int TC = T::TC;
+  constexpr int RT = T::RT;
+  constexpr int CT = T::CT;
+  constexpr int BM = T::kRows;
+  constexpr int BN = T::kCols;
+  constexpr bool kNarrow = CT == 1;
+  extern __shared__ __align__(16) float gemm_smem[];
+  __shared__ int s_src[kSpanMax];            // row -> source row, or -1
+  __shared__ int s_grp[kSpanMax];            // tile portion -> group
+  __shared__ unsigned s_real[kSpanMax / 32]; // rows whose source is >= 0
+  __shared__ unsigned s_live[kSpanMax / 32]; // rows of live tile portions
+  float* xs = gemm_smem;                                 // [stages][X]
+  float* ws = gemm_smem + kGemmStages * T::kXStage;      // [stages][W]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % CT;
+  const int ty = tid / CT;
+  const int row0 = blockIdx.x * span;
+  const int rows = min(span, rp - row0);
+  const int col0 = blockIdx.y * BN;
+  const int cols = min(BN, n - col0);
+  const int t0 = row0 / tile;
+  const int ntl = (row0 + rows - 1) / tile - t0 + 1;   // tile portions
+  const bool x4 = vec & kVecX;
+  const bool w4 = vec & kVecW;
+  const bool y4 = vec & kVecY;
+  auto p_lo = [&](int p) { return max(row0, (t0 + p) * tile) - row0; };
+  auto p_hi = [&](int p) {
+    return min(row0 + rows, (t0 + p + 1) * tile) - row0;
+  };
+
+  for (int r = tid; r < rows; r += T::kThreads) {
+    s_src[r] = kGather ? gidx[row0 + r] : row0 + r;
+    if (r < ntl) s_grp[r] = t2g[t0 + r];
+  }
+  if (kGather) {
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int words = (rows + 31) >> 5;
+    __syncthreads();
+    for (int i = warp; i < words; i += T::kThreads / 32) {
+      const int r = 32 * i + lane;
+      const unsigned b = __ballot_sync(~0u, r < rows && s_src[r] >= 0);
+      if (lane == 0) s_real[i] = b;
+    }
+    __syncthreads();
+    for (int i = warp; i < words; i += T::kThreads / 32) {
+      const int r = 32 * i + lane;
+      bool live = false;
+      if (r < rows) {
+        const int p = (row0 + r) / tile - t0;
+        live = any_bits(s_real, p_lo(p), p_hi(p));
+      }
+      const unsigned b = __ballot_sync(~0u, live);
+      if (lane == 0) s_live[i] = b;
+    }
+  }
+  __syncthreads();
+
+  auto live = [&](int r) {
+    return !kGather || ((s_live[r >> 5] >> (r & 31)) & 1u);
+  };
+  // rows of portions that gather only -1: zeros, never staged
+  if (kGather) {
+    for (int r = ty; r < rows; r += RT) {
+      if (live(r)) continue;
+      float* yr = y + ((size_t)row0 + r) * n + col0;
+#pragma unroll
+      for (int j = 0; j < TC; j += 4) {
+        const int c = T::col(tx, j);
+        if (y4 && c + 3 < cols) {
+          *reinterpret_cast<float4*>(yr + c) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4 && j + u < TC; ++u) {
+            if (c + u < cols) yr[c + u] = 0.f;
+          }
+        }
+      }
+    }
+  }
+
+  // A step: chunk `chunk` of the piece [lo, hi): up to BM consecutive
+  // live rows from `pos` on, of at most T::kRuns groups (a piece ends at a
+  // pad portion, after BM rows, or before a (kRuns + 1)-th group; groups
+  // change only between a wide piece's pieces, so a thread's TR rows
+  // always share one).
+  struct Step {
+    int pos, lo, hi, chunk;
+    bool valid;
+  };
+  const int nch = (k + kKChunk - 1) / kKChunk;
+  auto portion = [&](int r) { return (row0 + r) / tile - t0; };
+  auto next_piece = [&](Step& s) {
+    s.valid = false;
+    if (s.pos >= rows) return;
+    int pp = portion(s.pos);
+    while (pp < ntl && !live(p_lo(pp))) ++pp;
+    if (pp >= ntl) return;
+    const int lo = max(s.pos, p_lo(pp));
+    int g = s_grp[pp];
+    int runs = 1;
+    int hi = min(p_hi(pp), lo + BM);
+    while (hi < lo + BM && ++pp < ntl && live(p_lo(pp))) {
+      const int g2 = s_grp[pp];
+      if (g2 != g) {
+        if (runs == T::kRuns) break;
+        ++runs;
+        g = g2;
+      }
+      hi = min(p_hi(pp), lo + BM);
+    }
+    s.lo = lo;
+    s.hi = hi;
+    s.pos = hi;
+    s.valid = true;
+  };
+  auto advance = [&](Step& s) {
+    if (++s.chunk < nch) return;
+    s.chunk = 0;
+    next_piece(s);
+  };
+  // the W slot of a piece's row r: the groups that start after row lo
+  auto slot_of = [&](int lo, int r) {
+    int slot = 0;
+    int g = s_grp[portion(lo)];
+    for (int pp = portion(lo) + 1; pp <= portion(r); ++pp) {
+      const int g2 = s_grp[pp];
+      slot += g2 != g;
+      g = g2;
+    }
+    return slot;
+  };
+
+  // W chunk (kc reduction rows) of one group, from wg, into a slot at wb
+  auto stage_w = [&](const float* wg, float* wb, int kc) {
+    if (kTransW) {                 // wide, W^T: [col][kk], quads by col / 4
+      if (w4) {
+        const int nq = kc >> 2;
+        for (int i = tid; i < cols * nq; i += T::kThreads) {
+          const int c = i / nq;
+          const int q = i - c * nq;
+          cp_async16(wb + c * kKChunk + 4 * (q ^ ((c >> 2) & 7)),
+                     wg + (size_t)c * w_sc + 4 * q, true);
+        }
+      } else {
+        for (int i = tid; i < cols * kc; i += T::kThreads) {
+          const int c = i / kc;
+          const int kk = i - c * kc;
+          cp_async4(wb + c * kKChunk + quad_pos(kk, (c >> 2) & 7),
+                    wg + (size_t)c * w_sc + kk, true);
+        }
+      }
+    } else if (w4) {               // [kk][BN], rows of W 16 bytes at a time
+      const int cq = cols >> 2;
+      for (int i = tid; i < kc * cq; i += T::kThreads) {
+        const int kk = i / cq;
+        const int c = 4 * (i - kk * cq);
+        cp_async16(wb + kk * BN + c, wg + (size_t)kk * w_sr + c, true);
+      }
+    } else {                       // [kk][BN], a float at a time, in
+      for (int i = tid; i < kc * cols; i += T::kThreads) {   // W's order
+        int kk, c;
+        if (w_sc == 1) {
+          kk = i / cols;
+          c = i - kk * cols;
+        } else {
+          c = i / kc;
+          kk = i - c * kc;
+        }
+        cp_async4(wb + kk * BN + c, wg + (size_t)kk * w_sr + (size_t)c * w_sc,
+                  true);
+      }
+    }
+  };
+
+  // stage step s (its piece's rows, its groups' W chunks) into buffer buf
+  auto issue = [&](const Step& s, int buf) {
+    const int k0 = s.chunk * kKChunk;
+    const int kc = min(kKChunk, k - k0);
+    float* xb = xs + buf * T::kXStage;
+    float* wb = ws + buf * T::kWStage;
+    const int nr = s.hi - s.lo;
+    if (x4) {
+      const int nq = kc >> 2;
+      for (int i = tid; i < nr * nq; i += T::kThreads) {
+        const int rr = i / nq;
+        const int q = i - rr * nq;
+        const int src = s_src[s.lo + rr];
+        if (src >= 0) {
+          cp_async16(xb + rr * kKChunk + 4 * (q ^ T::x_key(rr)),
+                     x + (size_t)src * k + k0 + 4 * q, true);
+        }
+      }
+    } else {
+      for (int i = tid; i < nr * kc; i += T::kThreads) {
+        const int rr = i / kc;
+        const int kk = i - rr * kc;
+        const int src = s_src[s.lo + rr];
+        if (src >= 0) {
+          cp_async4(xb + rr * kKChunk + quad_pos(kk, T::x_key(rr)),
+                    x + (size_t)src * k + k0 + kk, true);
+        }
+      }
+    }
+    int gprev = -1;
+    for (int pp = portion(s.lo), slot = -1; pp <= portion(s.hi - 1); ++pp) {
+      const int g = s_grp[pp];
+      if (g == gprev) continue;
+      gprev = g;
+      ++slot;
+      stage_w(w + (size_t)g * k * n + (size_t)k0 * w_sr + (size_t)col0 * w_sc,
+              wb + slot * T::kWSlot, kc);
+    }
+  };
+
+  float acc[TR][TC];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+#pragma unroll
+    for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
+  }
+  const bool my_cols = 4 * tx < cols;
+  Step in;                           // the next step to stage
+  in.pos = 0;
+  in.chunk = 0;
+  next_piece(in);
+  Step out = in;                     // the next step to multiply
+  int n_in = 0;
+  for (int s = 0; s < kGemmStages; ++s, ++n_in) {   // every stage in flight
+    if (in.valid) {
+      issue(in, n_in % kGemmStages);
+      advance(in);
+    }
+    cp_async_commit();
+  }
+  int my_slot = 0;                   // narrow: the W slot of my row's group
+  for (int n_out = 0; out.valid; ++n_out) {
+    if (n_out == 0) {
+      cp_async_wait<kGemmStages - 1>();   // step 0 has landed
+      __syncthreads();
+    } else {
+      cp_async_wait<kGemmStages - 2>();   // step n_out has landed
+      __syncthreads();                    // and step n_out - 1 is consumed:
+      if (in.valid) {                     // its buffer takes the next step
+        issue(in, n_in % kGemmStages);
+        advance(in);
+      }
+      cp_async_commit();
+      ++n_in;
+    }
+    if (T::kRuns > 1 && out.chunk == 0) {
+      my_slot = slot_of(out.lo, min(out.lo + TR * ty, out.hi - 1));
+    }
+    if (my_cols && TR * ty < out.hi - out.lo) {
+      const int buf = n_out % kGemmStages;
+      const float* xb = xs + buf * T::kXStage + TR * ty * kKChunk;
+      const float* wb = ws + buf * T::kWStage + my_slot * T::kWSlot;
+      const int key = T::x_key(TR * ty);
+      const int kc = min(kKChunk, k - out.chunk * kKChunk);
+      const int kc4 = kc & ~3;
+      for (int q = 0; q < (kc4 >> 2); ++q) {
+        if (!kNarrow) {
+          float wf[4][TC];           // W[4 q + u][col(tx, j)]
+          if (kTransW) {
+#pragma unroll
+            for (int j = 0; j < TC; ++j) {
+              const int c = T::col(tx, j);   // kk 4 q .. 4 q + 3 of c
+              const float4 v = *reinterpret_cast<const float4*>(
+                  wb + c * kKChunk + 4 * (q ^ ((c >> 2) & 7)));
+              wf[0][j] = v.x;
+              wf[1][j] = v.y;
+              wf[2][j] = v.z;
+              wf[3][j] = v.w;
+            }
+          } else {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+#pragma unroll
+              for (int j = 0; j < TC; j += 4) {
+                const float4 v = *reinterpret_cast<const float4*>(
+                    wb + (4 * q + u) * BN + T::col(tx, j));
+                wf[u][j] = v.x;
+                wf[u][j + 1] = v.y;
+                wf[u][j + 2] = v.z;
+                wf[u][j + 3] = v.w;
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < TR; ++i) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                xb + i * kKChunk + 4 * (q ^ key));
+#pragma unroll
+            for (int j = 0; j < TC; ++j) {
+              acc[i][j] = fmaf(v.x, wf[0][j], acc[i][j]);
+              acc[i][j] = fmaf(v.y, wf[1][j], acc[i][j]);
+              acc[i][j] = fmaf(v.z, wf[2][j], acc[i][j]);
+              acc[i][j] = fmaf(v.w, wf[3][j], acc[i][j]);
+            }
+          }
+        } else {
+          const float4 v =
+              *reinterpret_cast<const float4*>(xb + 4 * (q ^ key));
+          const float xv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+#pragma unroll
+            for (int j = 0; j < TC; j += 4) {
+              const float4 u4 = *reinterpret_cast<const float4*>(
+                  wb + (4 * q + u) * BN + j);
+              acc[0][j] = fmaf(xv[u], u4.x, acc[0][j]);
+              acc[0][j + 1] = fmaf(xv[u], u4.y, acc[0][j + 1]);
+              acc[0][j + 2] = fmaf(xv[u], u4.z, acc[0][j + 2]);
+              acc[0][j + 3] = fmaf(xv[u], u4.w, acc[0][j + 3]);
+            }
+          }
+        }
+      }
+      for (int kk = kc4; kk < kc; ++kk) {
+        float wr[TC];
+#pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          const int c = T::col(tx, j);
+          wr[j] = kTransW ? wb[c * kKChunk + quad_pos(kk, (c >> 2) & 7)]
+                          : wb[kk * BN + c];
+        }
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const float v = xb[i * kKChunk + quad_pos(kk, key)];
+#pragma unroll
+          for (int j = 0; j < TC; ++j) acc[i][j] = fmaf(v, wr[j], acc[i][j]);
+        }
+      }
+    }
+    if (out.chunk == nch - 1) {        // the piece's rows are done
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const int r = out.lo + TR * ty + i;
+        if (my_cols && r < out.hi) {
+          const size_t row = (size_t)row0 + r;
+          const bool zero = kGather && s_src[r] < 0;
+          const float f = (scale != nullptr && !zero) ? scale[row] : 1.f;
+          float v[TC];
+#pragma unroll
+          for (int j = 0; j < TC; ++j) {
+            v[j] = zero ? 0.f : (scale != nullptr ? acc[i][j] * f
+                                                  : acc[i][j]);
+          }
+          float* yr = y + row * n + col0;
+#pragma unroll
+          for (int j = 0; j < TC; j += 4) {
+            const int c = T::col(tx, j);
+            if (y4 && c + 3 < cols) {
+              *reinterpret_cast<float4*>(yr + c) =
+                  make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+            } else {
+#pragma unroll
+              for (int u = 0; u < 4 && j + u < TC; ++u) {
+                if (c + u < cols) yr[c + u] = v[j + u];
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
+      }
+    }
+    advance(out);
+  }
+}
+
+// Narrow route at n = 1 (the attention products): a thread a row, and each
+// warp on its own. A warp's 32 rows come in through its own two-stage
+// cp.async ring in chunks of kKChunk reduction columns, 8 lanes a row (4
+// rows an instruction, whole 128-byte lines), with no block-wide barrier;
+// each lane then reads its row back (quads swizzled by row % 8, so the 8
+// lanes of a phase hit 8 banks). W[t2g[row / tile]] is then one column of
+// k floats, contiguous along the reduction (w_sr = 1 whether or not W is
+// transposed), read 4 kk a word through the read-only cache (where a
+// tile's rows share it) into registers as the chunk's rows are staged. A
+// K1 row that gathers -1 is neither staged nor multiplied.
+template <bool kGather>
+__device__ __forceinline__ void column_body(
+    const float* __restrict__ x, const float* __restrict__ w,
+    const int* __restrict__ gidx, const int* __restrict__ t2g,
+    const float* __restrict__ scale, float* __restrict__ y, int k, int n,
+    int rp, int tile, int span, int w_sr, int w_sc, int vec) {
+  extern __shared__ __align__(16) float gemm_smem[];  // [warp][stage][32][32]
+  static_assert(kGemmStages == 2, "column_body turns two stages by hand");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kNarrowThreads + threadIdx.x;
+  const int src = row < rp ? (kGather ? gidx[row] : row) : -1;
+  float* ring = gemm_smem + warp * kGemmStages * 32 * kKChunk;
+  const bool x4 = vec & kVecX;
+  const bool w4 = vec & kVecWCol;
+  const int nch = (k + kKChunk - 1) / kKChunk;
+  // stage chunk c of the warp's rows: lane l copies quad l % 8 of rows
+  // l / 8 + 4 i, i < 8 (16-byte copies), or, where k % 4 != 0, float l of
+  // every row
+  auto issue = [&](int c) {
+    float* buf = ring + (c % kGemmStages) * 32 * kKChunk;
+    const int k0 = c * kKChunk;
+    const int kc = min(kKChunk, k - k0);
+    if (x4) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = lane / 8 + 4 * i;
+        const int q = lane & 7;
+        const int s = __shfl_sync(~0u, src, r);
+        if (s >= 0 && 4 * q < kc) {
+          cp_async16(buf + r * kKChunk + 4 * (q ^ (r & 7)),
+                     x + (size_t)s * k + k0 + 4 * q, true);
+        }
+      }
+    } else {
+      for (int r = 0; r < 32; ++r) {
+        const int s = __shfl_sync(~0u, src, r);
+        if (s >= 0 && lane < kc) {
+          cp_async4(buf + r * kKChunk + quad_pos(lane, r & 7),
+                    x + (size_t)s * k + k0 + lane, true);
+        }
+      }
+    }
+  };
+  if (__all_sync(~0u, src < 0)) {     // a warp of rows that gather -1
+    if (row < rp) y[row] = 0.f;
+    return;
+  }
+  const float* wc = w + (size_t)(src >= 0 ? t2g[row / tile] : 0) * k;
+  // W's column for chunk c into registers, issued with the chunk's rows
+  auto load_w = [&](float (&wr)[kKChunk], int c) {
+    if (src < 0) return;
+    const int k0 = c * kKChunk;
+    const int kc = min(kKChunk, k - k0);
+#pragma unroll
+    for (int j = 0; j < kKChunk; j += 4) {
+      if (j >= kc) break;
+      if (w4) {
+        const float4 u = __ldg(reinterpret_cast<const float4*>(wc + k0 + j));
+        wr[j] = u.x;
+        wr[j + 1] = u.y;
+        wr[j + 2] = u.z;
+        wr[j + 3] = u.w;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (j + u < kc) wr[j + u] = __ldg(wc + k0 + j + u);
+        }
+      }
+    }
+  };
+  float acc = 0.f;
+  // acc += chunk c of my row (staged by the warp) times W's column, in order
+  auto mul = [&](const float (&wr)[kKChunk], int c) {
+    const float* xr =
+        ring + (c % kGemmStages) * 32 * kKChunk + lane * kKChunk;
+    const int kc = min(kKChunk, k - c * kKChunk);
+#pragma unroll
+    for (int j = 0; j < kKChunk; j += 4) {
+      if (j >= kc) break;
+      if (j + 4 <= kc) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            xr + 4 * ((j >> 2) ^ (lane & 7)));
+        acc = fmaf(v.x, wr[j], acc);
+        acc = fmaf(v.y, wr[j + 1], acc);
+        acc = fmaf(v.z, wr[j + 2], acc);
+        acc = fmaf(v.w, wr[j + 3], acc);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (j + u < kc) acc = fmaf(xr[quad_pos(j + u, lane & 7)], wr[j + u],
+                                     acc);
+        }
+      }
+    }
+  };
+  // two stages in turn (chunk c in ring buffer c % 2, W in wa / wb); each
+  // step commits one group after its multiply, so one group stays pending
+  float wa[kKChunk], wb[kKChunk];
+  issue(0);
+  load_w(wa, 0);
+  cp_async_commit();
+  if (nch > 1) {
+    issue(1);
+    load_w(wb, 1);
+  }
+  cp_async_commit();
+  for (int c = 0; c < nch; c += 2) {
+    cp_async_wait<kGemmStages - 1>();
+    __syncwarp();                     // the warp's copies of chunk c landed
+    if (src >= 0) mul(wa, c);
+    __syncwarp();                     // chunk c is read: its buffer is free
+    if (c + 2 < nch) {
+      issue(c + 2);
+      load_w(wa, c + 2);
+    }
+    cp_async_commit();
+    if (c + 1 == nch) break;
+    cp_async_wait<kGemmStages - 1>();
+    __syncwarp();
+    if (src >= 0) mul(wb, c + 1);
+    __syncwarp();
+    if (c + 3 < nch) {
+      issue(c + 3);
+      load_w(wb, c + 3);
+    }
+    cp_async_commit();
+  }
+  if (row < rp) {
+    y[row] = src < 0 ? 0.f : (scale != nullptr ? acc * scale[row] : acc);
+  }
+}
+
+#define GEMM_PARAMS                                                       \
+  const float* __restrict__ x, const float* __restrict__ w,               \
+      const int* __restrict__ gidx, const int* __restrict__ t2g,          \
+      const float* __restrict__ scale, float* __restrict__ y, int k,      \
+      int n, int rp, int tile, int span, int w_sr, int w_sc, int vec
+#define GEMM_ARGS x, w, gidx, t2g, scale, y, k, n, rp, tile, span, w_sr, \
+                  w_sc, vec
+
+// the wide route's tiling at TM rows a thread
+template <int TM>
+using WideTiling = Tiling<TM, TM == 8 ? 8 : 4, 16, TM == 8 ? 8 : 16>;
+
+template <int TM>
+__global__ void __launch_bounds__(WideTiling<TM>::kThreads,
+                                  TM == 8 ? 3 : 2)
+segment_mm_gather_wide(GEMM_PARAMS) {
+  gemm_body<true, false, WideTiling<TM>>(GEMM_ARGS);
+}
+
+template <bool kTransW, int TM>
+__global__ void __launch_bounds__(WideTiling<TM>::kThreads,
+                                  TM == 8 ? 3 : 2)
+segment_mm_padded_wide(GEMM_PARAMS) {
+  gemm_body<false, kTransW, WideTiling<TM>>(GEMM_ARGS);
+}
+
+// the narrow route's tiling at NC columns a thread
+template <int NC>
+using NarrowTiling = Tiling<1, NC, kNarrowThreads, 1>;
+
+template <int NC>
+__global__ void __launch_bounds__(kNarrowThreads)
+segment_mm_gather_narrow(GEMM_PARAMS) {
+  if constexpr (NC == 1) {
+    column_body<true>(GEMM_ARGS);
+  } else {
+    gemm_body<true, false, NarrowTiling<NC>>(GEMM_ARGS);
+  }
+}
+
+template <int NC>
+__global__ void __launch_bounds__(kNarrowThreads)
+segment_mm_padded_narrow(GEMM_PARAMS) {
+  if constexpr (NC == 1) {
+    column_body<false>(GEMM_ARGS);
+  } else {
+    gemm_body<false, false, NarrowTiling<NC>>(GEMM_ARGS);
+  }
+}
+
+#undef GEMM_PARAMS
+#undef GEMM_ARGS
+
+// Launch `kernel` with `smem` bytes of dynamic shared memory, raising its
+// limit first on each device it has not yet run on (`ready`: a bit a
+// device, one word a kernel).
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, unsigned long long& ready, dim3 grid,
+                   int threads, int smem, cudaStream_t stream, Args... args) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(ready & bit)) {
+    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return e;
+    ready |= bit;
+  }
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// The `ready` word of one kernel instantiation.
+template <bool kGather, bool kTransW, int kRoute, int kPer>
+unsigned long long& ready_bits() {
+  static unsigned long long bits = 0;
+  return bits;
+}
+
+// K1 (gather) or K4 as the wrapper planned it: `route` wide (TM =
+// per_thread rows of 4 columns a thread) or narrow (NC = per_thread >= n
+// columns of one row a thread), `span` rows a block. `aligned`: bit 0, x is
+// 16-byte aligned; bit 1, w is.
+template <bool kGather>
+cudaError_t launch_gemm(const float* x, const float* w, const int* gidx,
+                        const int* t2g, const float* scale, float* y, int k,
+                        int n, int rp, int tile, int route, int per_thread,
+                        int span, int aligned, bool transpose,
+                        cudaStream_t stream) {
+  if (rp <= 0 || n <= 0 || k <= 0 || tile <= 0 || span <= 0 ||
+      span > kSpanMax || (kGather && transpose)) {
+    return cudaErrorInvalidValue;
+  }
+  const int w_sr = transpose ? 1 : n;
+  const int w_sc = transpose ? k : 1;
+  const bool wa = aligned & 2;
+  int vec = ((aligned & 1) && k % 4 == 0) ? kVecX : 0;
+  if (n % 4 == 0) vec |= kVecY;
+  if (wa && (transpose ? k % 4 == 0 : n % 4 == 0)) vec |= kVecW;
+#define GEMM_ARGS x, w, gidx, t2g, scale, y, k, n, rp, tile, span, w_sr, \
+                  w_sc, vec
+  if (route == kRouteWide) {
+    if (span % (16 * per_thread)) return cudaErrorInvalidValue;
+    const dim3 grid((rp + span - 1) / span, (n + kWideCols - 1) / kWideCols);
+    static_assert(WideTiling<2>::kCols == kWideCols &&
+                      WideTiling<8>::kCols == kWideCols,
+                  "a wide block covers kWideCols columns");
+    if (per_thread == 2) {
+      constexpr int smem = WideTiling<2>::kSmem;
+      constexpr int threads = WideTiling<2>::kThreads;
+      return kGather
+                 ? launch(segment_mm_gather_wide<2>,
+                          ready_bits<true, false, kRouteWide, 2>(), grid,
+                          threads, smem, stream, GEMM_ARGS)
+             : transpose
+                 ? launch(segment_mm_padded_wide<true, 2>,
+                          ready_bits<false, true, kRouteWide, 2>(), grid,
+                          threads, smem, stream, GEMM_ARGS)
+                 : launch(segment_mm_padded_wide<false, 2>,
+                          ready_bits<false, false, kRouteWide, 2>(), grid,
+                          threads, smem, stream, GEMM_ARGS);
+    }
+    if (per_thread == 8) {
+      constexpr int smem = WideTiling<8>::kSmem;
+      constexpr int threads = WideTiling<8>::kThreads;
+      return kGather
+                 ? launch(segment_mm_gather_wide<8>,
+                          ready_bits<true, false, kRouteWide, 8>(), grid,
+                          threads, smem, stream, GEMM_ARGS)
+             : transpose
+                 ? launch(segment_mm_padded_wide<true, 8>,
+                          ready_bits<false, true, kRouteWide, 8>(), grid,
+                          threads, smem, stream, GEMM_ARGS)
+                 : launch(segment_mm_padded_wide<false, 8>,
+                          ready_bits<false, false, kRouteWide, 8>(), grid,
+                          threads, smem, stream, GEMM_ARGS);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (route != kRouteNarrow || n > per_thread) return cudaErrorInvalidValue;
+  if (transpose) vec &= ~kVecW;           // a W^T row is not contiguous
+  if (wa && per_thread == 1 && w_sr == 1 && k % 4 == 0) vec |= kVecWCol;
+  if (per_thread == 1) {
+    const dim3 grid((rp + kNarrowThreads - 1) / kNarrowThreads);
+    return kGather ? launch(segment_mm_gather_narrow<1>,
+                            ready_bits<true, false, kRouteNarrow, 1>(), grid,
+                            kNarrowThreads, kColumnSmem, stream, GEMM_ARGS)
+                   : launch(segment_mm_padded_narrow<1>,
+                            ready_bits<false, false, kRouteNarrow, 1>(), grid,
+                            kNarrowThreads, kColumnSmem, stream, GEMM_ARGS);
+  }
+  if (span % kNarrowThreads) return cudaErrorInvalidValue;
+  const dim3 grid((rp + span - 1) / span);
+#define NARROW(NC)                                                          \
+  (kGather ? launch(segment_mm_gather_narrow<NC>,                           \
+                    ready_bits<true, false, kRouteNarrow, NC>(), grid,      \
+                    kNarrowThreads, NarrowTiling<NC>::kSmem, stream,        \
+                    GEMM_ARGS)                                              \
+           : launch(segment_mm_padded_narrow<NC>,                           \
+                    ready_bits<false, false, kRouteNarrow, NC>(), grid,     \
+                    kNarrowThreads, NarrowTiling<NC>::kSmem, stream,        \
+                    GEMM_ARGS))
+  switch (per_thread) {
+    case 4: return NARROW(4);
+    case 8: return NARROW(8);
+    case 16: return NARROW(16);
+    default: return cudaErrorInvalidValue;
+  }
+#undef NARROW
+#undef GEMM_ARGS
+}
+
+// ---------------------------------------------------------------------------
+// K5: dW on fp64 tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kOuterSlice = 64;          // rows and columns of a dW slice
+constexpr int kOuterRows = 32;           // rows of X and dY a stage holds
+constexpr int kOuterLd = kOuterSlice + 8;  // 72: conflict-free fragments
+constexpr int kOuterTile = kOuterRows * kOuterLd;   // floats of one operand
+constexpr int kOuterStages = 2;          // stages in the cp.async ring
+constexpr int kOuterPtrCap = 1024;       // groups whose offsets a block stages
+constexpr int kOuterWarps = kThreads / 32;
+// dynamic shared memory of a K5 block: the ring (36,864 bytes; four
+// stages measured no faster than two on the H100), which the row groups'
+// fp64 sums reuse at the end (at most 28,672 bytes)
+constexpr int kOuterSmem = kOuterStages * 2 * kOuterTile * sizeof(float);
 
 // c[16x8] += a[16x4] @ b[4x8] in fp64 (DMMA; sm_90's m16n8k4 shape, which
 // measured no slower than two sm_80 m8n8k4 on the H100). Fragments:
@@ -562,60 +1280,35 @@ extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shared memory one block of segment_mm_gather_f32 / segment_mm_padded_f32
-// asks for, in bytes (kd: the reduction width; col_tile <= 0: the default).
-extern "C" long long segment_mm_smem_bytes(int kd, int n, int tile,
-                                           int col_tile) {
-  if (col_tile <= 0) col_tile = kColTile;
-  const int cols = n < col_tile ? n : col_tile;
-  return ((long long)tile * (kd + 1) + (long long)kd * (cols + 1)) *
-         sizeof(float);
-}
-
-// K1. x [nx, k], w [R, k, n], gidx [num_tiles * tile], t2g [>= num_tiles],
-// scale [num_tiles * tile] or null, y [num_tiles * tile, n]; all contiguous
-// on one device; col_tile <= 0: the default slice. Launches on `stream`;
-// returns cudaGetLastError().
+// K1. x [nx, k], w [R, k, n], gidx [rp], t2g [>= rp / tile], scale [rp] or
+// null, y [rp, n]; all contiguous on one device. `route`, `per_thread` and
+// `span` as segment_mm.py::gemm_plan gives them (route 0: wide, TM =
+// per_thread rows a thread; 1: narrow, NC = per_thread columns a thread;
+// span rows a block); `aligned` bit 0: x is 16-byte aligned, bit 1: w is.
+// Launches on `stream`; returns the launch's error.
 extern "C" int segment_mm_gather_f32(const float* x, const float* w,
                                      const int* gidx, const int* t2g,
                                      const float* scale, float* y, int k,
-                                     int n, int num_tiles, int tile,
-                                     int col_tile, int vec4, void* stream) {
-  if (num_tiles <= 0 || n <= 0 || k <= 0 || tile <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (col_tile <= 0) col_tile = kColTile;
-  const long long smem = segment_mm_smem_bytes(k, n, tile, col_tile);
-  cudaError_t e = allow_smem((const void*)segment_mm_gather_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(num_tiles, (n + col_tile - 1) / col_tile);
-  segment_mm_gather_kernel<<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      x, w, gidx, t2g, scale, y, k, n, tile, col_tile, vec4);
-  return static_cast<int>(cudaGetLastError());
+                                     int n, int rp, int tile, int route,
+                                     int per_thread, int span, int aligned,
+                                     void* stream) {
+  return static_cast<int>(launch_gemm<true>(
+      x, w, gidx, t2g, scale, y, k, n, rp, tile, route, per_thread, span,
+      aligned, false, static_cast<cudaStream_t>(stream)));
 }
 
-// K4. x [num_tiles * tile, kd], w with group stride kd * n and element
-// strides (w_sr, w_sc) for (reduction, column): (n, 1) for W [R, kd, n] as
-// stored, (1, kd) for the transpose of a W [R, n, kd]; t2g [>= num_tiles],
-// scale [num_tiles * tile] or null, y [num_tiles * tile, n].
+// K4. x [rp, kd], w [R, kd, n] or, with `transpose`, [R, n, kd] read as
+// its transpose (the dX of a GEMM); t2g [>= rp / tile], scale [rp] or
+// null, y [rp, n]; the rest as K1's.
 extern "C" int segment_mm_padded_f32(const float* x, const float* w,
                                      const int* t2g, const float* scale,
-                                     float* y, int kd, int n, int num_tiles,
-                                     int tile, int col_tile, int vec4,
-                                     int w_sr, int w_sc, void* stream) {
-  if (num_tiles <= 0 || n <= 0 || kd <= 0 || tile <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (col_tile <= 0) col_tile = kColTile;
-  const long long smem = segment_mm_smem_bytes(kd, n, tile, col_tile);
-  cudaError_t e = allow_smem((const void*)segment_mm_padded_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(num_tiles, (n + col_tile - 1) / col_tile);
-  segment_mm_padded_kernel<<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      x, w, t2g, scale, y, kd, n, tile, col_tile, vec4, w_sr, w_sc);
-  return static_cast<int>(cudaGetLastError());
+                                     float* y, int kd, int n, int rp,
+                                     int tile, int route, int per_thread,
+                                     int span, int aligned, int transpose,
+                                     void* stream) {
+  return static_cast<int>(launch_gemm<false>(
+      x, w, nullptr, t2g, scale, y, kd, n, rp, tile, route, per_thread, span,
+      aligned, transpose != 0, static_cast<cudaStream_t>(stream)));
 }
 
 // K5. x [T * tile, k], dy [T * tile, n], group_tile_ptr and group_chunk_ptr

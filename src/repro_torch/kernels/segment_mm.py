@@ -22,12 +22,37 @@ launch raises. ``<wrapper>.launches`` counts each wrapper's kernel launches.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import build
+
+# K1 / K4 work split (``gemm_plan``, from the shapes alone). n <= 16 takes
+# the narrow route: pieces of GEMM_NARROW_ROWS rows, one row a thread with
+# all n columns (NC = 1, 4, 8 or 16 held in registers; at NC = 1 a block
+# is one piece, each warp on its own). Wider products take the wide route:
+# pieces of 16 * TM rows by GEMM_WIDE_COLS columns, each thread a TM x 8
+# (TM = 8) or TM x 4 (TM = 2) register tile; TM = 8 where that still gives
+# the call at least GEMM_WIDE_MIN_PIECES 128-row pieces (four a
+# multiprocessor on the H100's GEMM_SMS), else TM = 2 (a small call, such
+# as a served aifb batch's, then spreads over the card). Past NC = 1,
+# blocks are persistent: whole waves of GEMM_RESIDENT blocks a
+# multiprocessor (what its registers and shared memory hold), each walking
+# a span of consecutive pieces, at most GEMM_SPAN_MAX rows (``kSpanMax``).
+GEMM_NARROW_MAX_N = 16
+GEMM_NARROW_ROWS = 128
+GEMM_NARROW_WIDTHS = (1, 4, 8, 16)
+GEMM_WIDE_COLS = 64
+GEMM_SMS = 132
+GEMM_WIDE_MIN_PIECES = 4 * GEMM_SMS
+GEMM_RESIDENT = {("wide", 8): 3, ("wide", 2): 2, ("narrow", 4): 4,
+                 ("narrow", 8): 4, ("narrow", 16): 4}
+GEMM_SPAN_MAX = 1024
+_ROUTE_CODE = {"wide": 0, "narrow": 1}    # csrc/segment_mm.cu's kRoute*
 
 # K5 splits each group's run of real tiles into chunks of at most
 # ``outer_chunk_tiles(T)`` tiles, one thread block each (``outer_chunk_ptr``):
@@ -42,16 +67,14 @@ K5_MAX_CHUNK_TILES = 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "segment_mm_gather_f32": [_P] * 6 + [_I] * 6 + [_P],
-    "segment_mm_padded_f32": [_P] * 5 + [_I] * 8 + [_P],
+    "segment_mm_gather_f32": [_P] * 6 + [_I] * 8 + [_P],
+    "segment_mm_padded_f32": [_P] * 5 + [_I] * 9 + [_P],
     "segment_outer_f32": [_P] * 7 + [_I] * 6 + [_P],
-    "segment_mm_smem_bytes": [_I] * 4,
 }
 
 
 def _library() -> ctypes.CDLL:
-    return build.load("segment_mm", _SIGNATURES,
-                      sizes=("segment_mm_smem_bytes",))
+    return build.load("segment_mm", _SIGNATURES)
 
 
 def _device_or_raise(kernel: str, t: torch.Tensor) -> bool:
@@ -64,24 +87,70 @@ def _device_or_raise(kernel: str, t: torch.Tensor) -> bool:
     return False
 
 
-def _check_smem(kernel: str, smem: int, what: str) -> None:
-    if smem > build.MAX_SMEM_BYTES:
-        raise ValueError(f"{kernel}: {what} needs {smem} bytes of shared "
-                         f"memory per block (limit {build.MAX_SMEM_BYTES})")
-
-
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _col_tile(tile_n: Optional[int], kernel: str) -> int:
-    """The column slice of a K1 / K4 thread block: ``tile_n``, or 0 for the
-    kernel's default (64 columns)."""
-    if tile_n is None:
-        return 0
-    if tile_n <= 0:
+def _check_tile_n(tile_n: Optional[int], kernel: str) -> None:
+    """``tile_n`` (the tuner's column tile) must be positive when given;
+    the kernels' blocks no longer follow it (``gemm_plan``)."""
+    if tile_n is not None and tile_n <= 0:
         raise ValueError(f"{kernel}: tile_n={tile_n} must be positive")
-    return int(tile_n)
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """How one K1 / K4 call is cut: the route, what a thread holds (wide:
+    TM rows, of 8 columns at TM = 8 and 4 at TM = 2; narrow: NC >= n
+    columns of one row), the rows of a piece (what the block's threads
+    cover at once), and the grid:
+    ``row_blocks`` blocks, each walking ``block_rows`` rows (a whole number
+    of pieces), by ``col_blocks`` slices of ``block_cols`` columns."""
+
+    route: str
+    per_thread: int
+    piece_rows: int
+    block_rows: int
+    block_cols: int
+    row_blocks: int
+    col_blocks: int
+
+
+@functools.lru_cache(maxsize=4096)
+def gemm_plan(rows: int, n: int) -> GemmPlan:
+    """The route and work split of a K1 / K4 call with ``rows`` padded rows
+    and ``n`` output columns (the reduction width and the tiles do not
+    matter: blocks cut the reduction into chunks and their rows into runs
+    of one group)."""
+    if rows <= 0 or n <= 0:
+        raise ValueError(f"no work to split: rows={rows}, n={n}")
+    if n <= GEMM_NARROW_MAX_N:
+        route, col_blocks, block_cols = "narrow", 1, n
+        per = next(c for c in GEMM_NARROW_WIDTHS if c >= n)
+        piece = GEMM_NARROW_ROWS
+        if per == 1:
+            return GemmPlan(route, per, piece, piece, block_cols,
+                            -(-rows // piece), 1)
+    else:
+        route, block_cols = "wide", GEMM_WIDE_COLS
+        col_blocks = -(-n // GEMM_WIDE_COLS)
+        per = (8 if -(-rows // 128) * col_blocks >= GEMM_WIDE_MIN_PIECES
+               else 2)
+        piece = 16 * per
+    # whole waves of resident blocks, each walking at most GEMM_SPAN_MAX
+    # rows: a part-filled last wave would leave most of the card idle
+    slots = max(1, GEMM_RESIDENT[route, per] * GEMM_SMS // col_blocks)
+    pieces = -(-rows // piece)
+    waves = -(-pieces // (slots * (GEMM_SPAN_MAX // piece)))
+    span = piece * -(-pieces // min(pieces, slots * waves))
+    return GemmPlan(route, per, piece, span, block_cols, -(-rows // span),
+                    col_blocks)
+
+
+def _aligned(x: torch.Tensor, w: torch.Tensor) -> int:
+    """The kernels' ``aligned`` bits: 1 where x is 16-byte aligned, 2 where
+    w is."""
+    return int(x.data_ptr() % 16 == 0) | 2 * int(w.data_ptr() % 16 == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +167,7 @@ def segment_mm_gather_padded_plain(
     tile_n: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K1: gather, batched product per tile
-    (``tile_n``, the kernel's column slice, does not change the result)."""
+    (``tile_n``, the tuner's column tile, does not change the result)."""
     rp = int(gidx.shape[0])
     k, n = int(w.shape[1]), int(w.shape[2])
     num_tiles = rp // tile
@@ -129,7 +198,8 @@ def segment_mm_gather_padded(
 
     The gather runs inside the kernel; ``gidx`` = -1 gives a zero row.
     ``tile`` is the row tile (``t2g`` holds one group per tile of it);
-    ``tile_n`` the columns of one thread block (default 64)."""
+    ``tile_n``, the tuner's column tile, is checked but cuts nothing: the
+    blocks follow ``gemm_plan``, and no result depends on either."""
     rp = int(gidx.shape[0])
     nx, k = x.shape
     r, k2, n = w.shape
@@ -137,7 +207,7 @@ def segment_mm_gather_padded(
         raise ValueError(f"x has k={k} but w has k={k2}")
     if rp % tile:
         raise ValueError(f"{rp} padded rows is not a multiple of tile {tile}")
-    col_tile = _col_tile(tile_n, "segment_mm_gather_padded")
+    _check_tile_n(tile_n, "segment_mm_gather_padded")
     if _device_or_raise("segment_mm_gather_padded", x):
         return segment_mm_gather_padded_plain(x, w, gidx, t2g, row_scale_p,
                                               tile=tile)
@@ -156,16 +226,14 @@ def segment_mm_gather_padded(
     gidx, t2g = gidx.contiguous(), t2g.contiguous()
     scale = (row_scale_p.reshape(rp).contiguous()
              if row_scale_p is not None else None)
+    plan = gemm_plan(rp, n)
     lib = _library()
-    _check_smem("segment_mm_gather_padded",
-                lib.segment_mm_smem_bytes(k, n, tile, col_tile),
-                f"tile={tile}, k={k}, tile_n={tile_n}")
-    vec4 = int(k % 4 == 0 and x.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         rc = lib.segment_mm_gather_f32(
             x.data_ptr(), w.data_ptr(), gidx.data_ptr(), t2g.data_ptr(),
             scale.data_ptr() if scale is not None else None, y.data_ptr(),
-            k, n, num_tiles, tile, col_tile, vec4, _stream(x.device))
+            k, n, rp, tile, _ROUTE_CODE[plan.route], plan.per_thread,
+            plan.block_rows, _aligned(x, w), _stream(x.device))
     build.check(lib, rc, "segment_mm_gather_padded")
     segment_mm_gather_padded.launches += 1
     return y
@@ -224,7 +292,7 @@ def segment_mm_padded(
                          f"has k={wk}")
     if rp % tile:
         raise ValueError(f"{rp} padded rows is not a multiple of tile {tile}")
-    col_tile = _col_tile(tile_n, "segment_mm_padded")
+    _check_tile_n(tile_n, "segment_mm_padded")
     if _device_or_raise("segment_mm_padded", x_p):
         return segment_mm_padded_plain(x_p, w, t2g, row_scale_p, tile=tile,
                                        transpose_w=transpose_w)
@@ -242,17 +310,14 @@ def segment_mm_padded(
     x_p, w, t2g = x_p.contiguous(), w.contiguous(), t2g.contiguous()
     scale = (row_scale_p.reshape(rp).contiguous()
              if row_scale_p is not None else None)
-    w_sr, w_sc = (1, kd) if transpose_w else (n, 1)
+    plan = gemm_plan(rp, n)
     lib = _library()
-    _check_smem("segment_mm_padded",
-                lib.segment_mm_smem_bytes(kd, n, tile, col_tile),
-                f"tile={tile}, k={kd}, tile_n={tile_n}")
-    vec4 = int(kd % 4 == 0 and x_p.data_ptr() % 16 == 0)
     with torch.cuda.device(x_p.device):
         rc = lib.segment_mm_padded_f32(
             x_p.data_ptr(), w.data_ptr(), t2g.data_ptr(),
             scale.data_ptr() if scale is not None else None, y.data_ptr(),
-            kd, n, num_tiles, tile, col_tile, vec4, w_sr, w_sc,
+            kd, n, rp, tile, _ROUTE_CODE[plan.route], plan.per_thread,
+            plan.block_rows, _aligned(x_p, w), int(transpose_w),
             _stream(x_p.device))
     build.check(lib, rc, "segment_mm_padded")
     segment_mm_padded.launches += 1
