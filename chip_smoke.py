@@ -172,7 +172,34 @@ all four dense configs); any failure exits non-zero:
    decode steps) and gemma2-2b / qwen3-4b at full width with one repeat
    per stage (batch 2, prompt 256, gen 8): logits within 1e-4, greedy
    tokens equal wherever the CPU's top-2 margin exceeds 1e-3; then each
-   serve run's prefill and decode loop under ``torch.profiler``.
+   serve run's prefill and decode loop under ``torch.profiler``;
+13. telemetry (``repro_torch.obs``): (a) RGAT aifb-b32 served at phase 3's
+   settings three times, ``obs_mode="off"``, ``"on"`` and ``"on"`` with
+   ``trace_out`` (and ``profile``): every batch's logits bitwise equal,
+   the same ``executor_traces`` and ``retraces_after_warmup``, the
+   registry's ``executor_traces`` counter equal to the stats', one
+   ``serve_batch_ms`` observation a batch, the Chrome trace valid under
+   the port's schema with ``wait`` / ``execute`` / ``sample`` / ``layout``
+   spans (the loader's on another thread track than ``execute``), and as
+   many ``torch.cuda.synchronize`` calls with metrics on as with obs off
+   (counted by wrapping it); each run's p50 printed with the card; (b) the
+   same with ``sampler="device"`` (``sample_device`` / ``layout_device``
+   spans, the ``sampler_traces`` counter equal to
+   ``DeviceSampler.trace_count``); (c) ``CompiledRGNN.profile`` of the last
+   batch (through ``serve(profile=True)``) at aifb-b32 and RGAT
+   bgs-b1024: one row per plan op and one glue row per hop, categories
+   within gemm / traversal / wprod / glue, coverage within [0.8, 1.25] at
+   bgs, the rows and the categories in ms printed; (d) and (e)
+   ``train_rgnn.train`` of phase 6's RGAT with obs off, on, and on with
+   ``trace_out`` and ``profile``: the first loss bitwise equal across
+   the three (the backward's atomics make later ones vary run to run),
+   as many synchronizes on as off, each run's step p50; a ``train_step``
+   span and a ``train_step_ms`` observation per step,
+   ``profile_train_step``'s forward / backward / optimizer / total (all
+   >= 0, total >= forward) beside phase 8's profiler split;
+   phase 11's tuned runs (obs on) have ``tune_*`` counters equal to the
+   tuner's counts. Each run counts its launches from 0 and must launch
+   the kernels of its path.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: phase
 6's runs of all three models for K1-K5 and K7, phases 9 and 10 for K9,
@@ -2767,6 +2794,7 @@ def phase_tune_train(torch, ops, train_rgnn, cache_dir):
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     check(full["tune_measurements"] > 0, "tune=full measured nothing")
+    mirror = dict(full=tune_mirror(full, "phase 11 train tune=full"))
     layouts = [m for m in lines if "layout tile=" in m]
     check(len(layouts) == 2, f"layout candidates timed: {layouts}")
     check(launches[K6] > 0, "K6 never launched by tune=full")
@@ -2798,6 +2826,7 @@ def phase_tune_train(torch, ops, train_rgnn, cache_dir):
           f"the first run made {want_hits}")
     check(cached["tune_decisions"] == full["tune_decisions"],
           "tune=cached built another decision table")
+    mirror["cached"] = tune_mirror(cached, "phase 11 train tune=cached")
     log(f"[phase 11 train] tune=cached: 0 measurements, "
         f"{cached['tune_cache_hits']} replayed, decisions "
         f"{cached['tune_decisions']} (the same); step p50 "
@@ -2807,7 +2836,8 @@ def phase_tune_train(torch, ops, train_rgnn, cache_dir):
     return dict(full={k: full[k] for k in keys}, wall_s=wall,
                 cached={k: cached[k] for k in keys}, wall_cached_s=wall_cached,
                 decisions=tuned, layout_lines=layouts, tuner_lines=lines,
-                loss_first10=first, loss_last10=last, launches=launches)
+                loss_first10=first, loss_last10=last, launches=launches,
+                obs_mirror=mirror)
 
 
 def phase_tune_serve(torch, hector_torch, ops, serve_rgnn, cache_dir):
@@ -2829,6 +2859,7 @@ def phase_tune_serve(torch, hector_torch, ops, serve_rgnn, cache_dir):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     check(stats["tune_measurements"] > 0, "serve tune=full measured nothing")
+    mirror = tune_mirror(stats, "phase 11 serve tune=full")
     check(launches[K8] > 0, "K8 never launched by serve tune=full")
     check(len(batches) == cfg["num_batches"], "tuned serve: batches missing")
     worst = compare_with_cpu(torch, hector_torch, cfg, batches, 2e-4,
@@ -2845,7 +2876,7 @@ def phase_tune_serve(torch, hector_torch, ops, serve_rgnn, cache_dir):
                 seeds_per_s=stats["seeds_per_s"],
                 tune_measurements=stats["tune_measurements"],
                 max_abs_err_vs_cpu=worst, decisions=tuned,
-                launches=launches, tuner_lines=lines)
+                launches=launches, tuner_lines=lines, obs_mirror=mirror)
 
 
 def phase_tune_bgs(torch, cache_dir):
@@ -3543,6 +3574,359 @@ def phase_lm(torch, ops, C, F, serve, TransformerLM):
                 launches=sum(s["launches"] for s in serve_runs.values()))
 
 
+# ---------------------------------------------------------------------------
+# phase 13: telemetry (``repro_torch.obs``) on the card
+# ---------------------------------------------------------------------------
+# the phases each traced serve run must hold, by sampler
+OBS_PHASES = {"host": ("wait", "execute", "sample", "layout"),
+              "device": ("wait", "execute", "sample_device",
+                         "layout_device")}
+# the profile's coverage band at bgs-b1024 (device-bound enough that the
+# prefix differences telescope within noise)
+COVERAGE_BAND = (0.8, 1.25)
+PROFILE_CATEGORIES = {"gemm", "traversal", "wprod", "glue"}
+# the tuner's counts the obs registry mirrors as ``tune_<key>``
+TUNE_STATS = ("measurements", "cache_hits", "tuned_ops")
+
+
+@contextlib.contextmanager
+def counted_syncs(torch):
+    """Count the calls to ``torch.cuda.synchronize`` inside the block
+    (every module of the port looks it up at call time)."""
+    count = [0]
+    orig = torch.cuda.synchronize
+
+    def counted(*args, **kwargs):
+        count[0] += 1
+        return orig(*args, **kwargs)
+
+    torch.cuda.synchronize = counted
+    try:
+        yield count
+    finally:
+        torch.cuda.synchronize = orig
+
+
+@contextlib.contextmanager
+def compiled_engines(hector_torch):
+    """The ``CompiledRGNN`` of every ``hector_torch.compile`` call inside
+    the block (the drivers call it through the module)."""
+    engines = []
+    orig = hector_torch.compile
+
+    def keep(*args, **kwargs):
+        engines.append(orig(*args, **kwargs))
+        return engines[-1]
+
+    hector_torch.compile = keep
+    try:
+        yield engines
+    finally:
+        hector_torch.compile = orig
+
+
+def tune_mirror(stats, what):
+    """The ``tune_*`` counters of a driver's metrics snapshot (obs on, the
+    default), which must equal the tuner's own counts in its stats."""
+    from repro_torch.obs.registry import snapshot_counter_total
+
+    got = {k: snapshot_counter_total(stats["metrics"], f"tune_{k}")
+           for k in TUNE_STATS}
+    want = {k: stats[f"tune_{k}"] for k in TUNE_STATS}
+    check(got == want, f"{what}: the tune_* counters {got} differ from "
+          f"the tuner's counts {want}")
+    return got
+
+
+def check_profile(prof, plans, tag):
+    """One row per plan op (in order, with its label's category) plus one
+    glue row per hop, categories in ``PROFILE_CATEGORIES``; returns
+    {category: ms}."""
+    from repro_torch.obs import profile as P
+
+    want = []
+    for hop, plan in enumerate(plans):
+        want += [(hop, i, P._op_category(op), P._op_label(op))
+                 for i, op in enumerate(plan.ops)]
+        want.append((hop, len(plan.ops), "glue", None))
+    got = [(o["hop"], o["index"], o["category"],
+            None if o["category"] == "glue" else o["label"])
+           for o in prof["ops"]]
+    check(got == want, f"{tag}: profile rows {got} are not the plans' ops "
+          f"plus a glue row per hop {want}")
+    cats = {o["category"] for o in prof["ops"]}
+    check(cats <= PROFILE_CATEGORIES, f"{tag}: categories {cats}")
+    check(prof["backend"] == "cuda", f"{tag}: profiled on "
+          f"{prof['backend']}")
+    check(all(o["seconds"] >= 0 for o in prof["ops"]),
+          f"{tag}: a negative row")
+    by_cat = {k: v / 1e3 for k, v in prof["by_category_us"].items()}
+    log(f"[{tag}] per-op profile: {len(prof['ops'])} rows ({len(plans)} "
+        f"glue), whole {prof['total_us'] / 1e3:.4f} ms, attributed "
+        f"{prof['sum_op_us'] / 1e3:.4f} ms (coverage "
+        f"{prof['coverage']:.4f}); ms by category "
+        + json.dumps({k: round(v, 5) for k, v in sorted(by_cat.items())}))
+    for o in prof["ops"]:
+        log(f"[{tag}]   hop {o['hop']} {o['label']:<40} "
+            f"{o['seconds'] * 1e3:9.5f} ms")
+    return by_cat
+
+
+def obs_serve(torch, hector_torch, ops, serve_rgnn, cfg, tag, trace_dir,
+              card):
+    """Phase 13 (a) / (b), and (c) at aifb: ``cfg`` served three times,
+    ``obs_mode="off"``, ``"on"`` and ``"on"`` with ``trace_out`` (and
+    ``profile``), each counting its ``torch.cuda.synchronize`` calls and
+    its launches from 0: logits bitwise equal, the same signature counts,
+    the registry's counters equal to the stats', a ``serve_batch_ms``
+    count per batch, a valid trace with the required phases (host: the
+    loader's spans on another thread than ``execute``; device:
+    ``sampler_traces`` equal to the sampler's own count), as many
+    synchronizes with metrics on as off."""
+    from repro_torch.obs import schema
+    from repro_torch.obs.registry import (snapshot_counter_total,
+                                          snapshot_histogram)
+
+    sampler = cfg.get("sampler", "host")
+    trace = trace_dir / (tag.replace(" ", "_") + ".json")
+    runs = {}
+    for mode in ("off", "on", "traced"):
+        logits = []
+        kw = dict(obs_mode="off" if mode == "off" else "on")
+        if mode == "traced":
+            kw.update(trace_out=str(trace), profile=True)
+        ops.reset_launch_counts()
+        with compiled_engines(hector_torch) as engines, \
+                counted_syncs(torch) as syncs:
+            stats = serve_rgnn.serve(
+                **cfg, device="cuda", log=lambda m: None,
+                on_batch=lambda mb, y: logits.append(y.detach().clone()),
+                **kw)
+        torch.cuda.synchronize()
+        runs[mode] = dict(stats=stats, logits=logits, syncs=syncs[0],
+                          launches=ops.launch_counts(), engine=engines[-1])
+    off, on, traced = runs["off"], runs["on"], runs["traced"]
+    n = cfg["num_batches"]
+    check(len(off["logits"]) == len(on["logits"]) == len(traced["logits"])
+          == n, f"{tag}: batches missing")
+    for i, (a, b, c) in enumerate(zip(off["logits"], on["logits"],
+                                      traced["logits"])):
+        check(bool(torch.equal(a, b) and torch.equal(a, c)),
+              f"{tag}: batch {i} logits differ between obs off / on / "
+              f"traced")
+    for key in ("executor_traces", "retraces_after_warmup"):
+        vals = [r["stats"][key] for r in runs.values()]
+        check(len(set(vals)) == 1, f"{tag}: {key} off / on / traced {vals}")
+    check("metrics" not in off["stats"], f"{tag}: obs off recorded metrics")
+    for mode in ("on", "traced"):
+        st = runs[mode]["stats"]
+        snap = st["metrics"]
+        check(schema.validate_metrics(snap) == [],
+              f"{tag} {mode}: {schema.validate_metrics(snap)}")
+        check(snapshot_counter_total(snap, "executor_traces")
+              == st["executor_traces"], f"{tag} {mode}: executor_traces "
+              f"counter {snapshot_counter_total(snap, 'executor_traces')}"
+              f", stats {st['executor_traces']}")
+        check(snapshot_histogram(snap, "serve_batch_ms")["count"] == n,
+              f"{tag} {mode}: serve_batch_ms count")
+        if sampler == "device":
+            check(snapshot_counter_total(snap, "sampler_traces")
+                  == st["sampler_traces"] > 0, f"{tag} {mode}: "
+                  f"sampler_traces counter "
+                  f"{snapshot_counter_total(snap, 'sampler_traces')}, "
+                  f"DeviceSampler.trace_count {st['sampler_traces']}")
+    check(on["syncs"] == off["syncs"], f"{tag}: {on['syncs']} "
+          f"torch.cuda.synchronize calls with metrics on, {off['syncs']} "
+          f"with obs off")
+    doc = json.loads(trace.read_text())
+    errs = schema.validate_trace(doc) + schema.require_phases(
+        doc, OBS_PHASES[sampler])
+    check(errs == [], f"{tag}: trace {errs}")
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    tids = {}
+    for e in spans:
+        tids.setdefault(e["name"], set()).add(e["tid"])
+    if sampler == "host":
+        check(not (tids["sample"] | tids["layout"]) & tids["execute"],
+              f"{tag}: sample / layout share a thread track with execute "
+              f"{tids}")
+    launched = {k: v for k, v in off["launches"].items() if v}
+    want = FORWARD_LAUNCHES[cfg["model"]]
+    for name in list(want) + ([K9] if sampler == "device" else []):
+        for mode, r in runs.items():
+            check(r["launches"][name] > 0,
+                  f"{tag} {mode}: {name} never launched")
+    p50 = {m: r["stats"]["latency_ms_p50"] for m, r in runs.items()}
+    log(f"[{tag}] {card}: logits of all {n} batches bitwise equal with obs "
+        f"off / on / traced; executor_traces "
+        f"{on['stats']['executor_traces']} (counter = stats), "
+        f"{on['syncs']} torch.cuda.synchronize calls with metrics on = "
+        f"{off['syncs']} off ({traced['syncs']} traced, with the "
+        f"profile); trace valid, {len(spans)} spans, phases "
+        f"{sorted(tids)}; launches (off) {json.dumps(launched)}; latency "
+        f"p50 ms off {p50['off']:.3f} / on {p50['on']:.3f} / traced "
+        f"{p50['traced']:.3f}")
+    log(f"[{tag}] phase totals (traced, ms): " + json.dumps(
+        {k: round(v["total_s"] * 1e3, 3)
+         for k, v in traced["stats"]["phases"].items()}))
+    by_cat = check_profile(traced["stats"]["profile"],
+                           traced["engine"].plans, tag)
+    return dict(
+        p50_ms=p50, p95_ms={m: r["stats"]["latency_ms_p95"]
+                            for m, r in runs.items()},
+        syncs={m: r["syncs"] for m, r in runs.items()},
+        executor_traces=on["stats"]["executor_traces"],
+        sampler_traces=on["stats"].get("sampler_traces"),
+        phases=traced["stats"]["phases"], spans=len(spans),
+        launches={m: r["launches"] for m, r in runs.items()},
+        profile=traced["stats"]["profile"], profile_ms_by_category=by_cat)
+
+
+def obs_profile_bgs(torch, hector_torch, ops, serve_rgnn, card):
+    """Phase 13 (c) at bgs: RGAT bgs-b1024 served with ``profile=True``
+    (obs on): the last batch's per-op profile, its rows and categories,
+    its coverage inside ``COVERAGE_BAND``."""
+    tag = "phase 13 c rgat bgs"
+    ops.reset_launch_counts()
+    with compiled_engines(hector_torch) as engines:
+        stats = serve_rgnn.serve(**SERVE_LARGE, device="cuda", profile=True,
+                                 log=lambda m: None)
+    torch.cuda.synchronize()
+    prof = stats["profile"]
+    by_cat = check_profile(prof, engines[-1].plans, tag)
+    lo, hi = COVERAGE_BAND
+    check(lo <= prof["coverage"] <= hi, f"{tag}: coverage "
+          f"{prof['coverage']:.4f} outside [{lo}, {hi}]")
+    log(f"[{tag}] {card}: coverage {prof['coverage']:.4f} in [{lo}, {hi}]; "
+        f"latency p50 {stats['latency_ms_p50']:.3f} ms (registry)")
+    return dict(profile=prof, profile_ms_by_category=by_cat,
+                coverage=prof["coverage"],
+                latency_ms_p50=stats["latency_ms_p50"],
+                launches=ops.launch_counts())
+
+
+def obs_train(torch, ops, train_rgnn, trace_dir, phase8, card):
+    """Phase 13 (d) and (e): RGAT aifb-b64 training (phase 6's
+    configuration, 1 epoch) with obs off, on, and on with ``trace_out``
+    and ``profile=True``: the first loss (a forward from the same
+    weights) bitwise equal across the three (later losses are not held:
+    the backward's scatter-adds use atomics on the card), as many
+    ``torch.cuda.synchronize`` calls on as off, the step p50 of each; in
+    the traced run a ``train_step`` span and a ``train_step_ms``
+    observation per step, a valid trace, and ``profile_train_step``'s
+    attribution (all four keys >= 0, the step no shorter than its
+    forward), printed beside phase 8's profiler split of the same
+    model's step."""
+    from repro_torch.obs import schema
+    from repro_torch.obs.registry import snapshot_histogram
+
+    tag = "phase 13 e rgat train"
+    trace = trace_dir / "train.json"
+    runs = {}
+    for mode in ("off", "on"):
+        with counted_syncs(torch) as syncs:
+            st = train_rgnn.train(**dict(TRAIN, model="rgat"),
+                                  eval_every_epochs=0, device="cuda",
+                                  obs_mode=mode, log=lambda m: None)
+        runs[mode] = dict(losses=st["losses"], syncs=syncs[0],
+                          step_ms_p50=st["step_ms_p50"],
+                          retraces=st["retraces_after_warmup"])
+    check(runs["on"]["syncs"] == runs["off"]["syncs"], f"{tag}: "
+          f"{runs['on']['syncs']} torch.cuda.synchronize calls with "
+          f"metrics on, {runs['off']['syncs']} with obs off")
+    ops.reset_launch_counts()
+    stats = train_rgnn.train(**dict(TRAIN, model="rgat"),
+                             eval_every_epochs=0, device="cuda",
+                             trace_out=str(trace), profile=True,
+                             log=lambda m: None)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for name in STEP_LAUNCHES["rgat"]:
+        check(launches[name] > 0, f"{tag}: {name} never launched")
+    doc = json.loads(trace.read_text())
+    errs = schema.validate_trace(doc) + schema.require_phases(
+        doc, ["train_step", "sample", "layout", "execute"])
+    check(errs == [], f"{tag}: trace {errs}")
+    steps = sum(e["ph"] == "X" and e["name"] == "train_step"
+                for e in doc["traceEvents"])
+    hist = snapshot_histogram(stats["metrics"], "train_step_ms")
+    check(steps == stats["steps"] == hist["count"], f"{tag}: {steps} "
+          f"train_step spans, {hist['count']} train_step_ms observations, "
+          f"{stats['steps']} steps")
+    runs["traced"] = dict(losses=stats["losses"],
+                          step_ms_p50=stats["step_ms_p50"],
+                          retraces=stats["retraces_after_warmup"])
+    firsts = {m: r["losses"][0] for m, r in runs.items()}
+    check(len(set(firsts.values())) == 1,
+          f"{tag}: first loss off / on / traced {firsts}")
+    check(len({r["retraces"] for r in runs.values()}) == 1,
+          f"{tag}: new signatures after warmup differ off / on / traced")
+    spread = max(abs(a - b) for a, b in zip(runs["off"]["losses"],
+                                            runs["on"]["losses"]))
+    ph = stats["profile"]
+    check(set(ph) == {"forward", "backward", "optimizer", "total"}
+          and all(v >= 0 for v in ph.values())
+          and ph["total"] >= ph["forward"],
+          f"phase 13 d: step attribution {ph}")
+    p8 = phase8["rgat sampled aifb-b64"]
+    log(f"[{tag}] {card}: {steps} train_step spans = {hist['count']} "
+        f"train_step_ms observations = {stats['steps']} steps; first loss "
+        f"{firsts['off']!r} off = on = traced (max abs loss difference "
+        f"off / on over the epoch {spread:.3g}); "
+        f"{runs['on']['syncs']} torch.cuda.synchronize calls on = off; "
+        f"step p50 ms off {runs['off']['step_ms_p50']:.3f} / on "
+        f"{runs['on']['step_ms_p50']:.3f} / traced "
+        f"{runs['traced']['step_ms_p50']:.3f}; launches (traced) "
+        f"{json.dumps(launches)}")
+    log(f"[phase 13 d rgat aifb-b64] {card}: profile_train_step (host "
+        f"clock, ms) " + json.dumps({k: round(v, 4) for k, v in ph.items()})
+        + "; phase 8 (torch.profiler, device ms by range) "
+        + json.dumps({k: round(v, 4)
+                      for k, v in p8["range_device_ms"].items()})
+        + ", host ms by range " + json.dumps(
+            {k: round(v, 4) for k, v in p8["range_host_ms"].items()})
+        + f", step {p8['step_ms']:.3f} ms under the profiler")
+    return dict(steps=stats["steps"], spans=steps,
+                step_ms_p50={m: r["step_ms_p50"] for m, r in runs.items()},
+                syncs={m: r.get("syncs") for m, r in runs.items()},
+                first_loss=firsts["off"], loss_max_abs_diff=spread,
+                profile_ms=ph,
+                phase8_range_device_ms=p8["range_device_ms"],
+                phase8_range_host_ms=p8["range_host_ms"],
+                phases=stats["phases"], launches=launches)
+
+
+def phase_obs(torch, hector_torch, ops, serve_rgnn, train_rgnn, phase8,
+              tuning, card):
+    """Phase 13: (a) RGAT aifb-b32 served with obs off / on / traced, (b)
+    the same with ``sampler="device"``, (c) the per-op profile of the last
+    batch at aifb-b32 (the traced run of (a)) and bgs-b1024, (d) and (e)
+    traced training with the step attribution; (e) also reads phase 11's
+    tuned runs (obs on): their ``tune_*`` counters equal the tuner's
+    counts (``tune_mirror`` checked them there)."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = pathlib.Path(tmp)
+        out["serve"] = obs_serve(torch, hector_torch, ops, serve_rgnn,
+                                 SERVE_DEFAULTS, "phase 13 a rgat aifb",
+                                 trace_dir, card)
+        out["device_serve"] = obs_serve(
+            torch, hector_torch, ops, serve_rgnn,
+            dict(SERVE_DEFAULTS, sampler="device"),
+            "phase 13 b rgat aifb device", trace_dir, card)
+        out["bgs_profile"] = obs_profile_bgs(torch, hector_torch, ops,
+                                             serve_rgnn, card)
+        out["train"] = obs_train(torch, ops, train_rgnn, trace_dir, phase8,
+                                 card)
+    out["tune_mirror"] = {k: tuning[k]["obs_mirror"]
+                          for k in ("train", "serve")}
+    log(f"[phase 13 e tune] tune_* counters = the tuner's counts in phase "
+        f"11's runs: " + json.dumps(out["tune_mirror"]))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3657,6 +4041,10 @@ def main(argv=None) -> int:
         lm = phase_lm(torch, ops, C, F, lm_serve, TransformerLM)
         kernels.update(lm.pop("kernels"))
         seconds["phase 12"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        obs_out = phase_obs(torch, hector_torch, ops, serve_rgnn,
+                            train_rgnn, train_prof["rgat"], tuning, card)
+        seconds["phase 13"] = time.perf_counter() - t0
         # the main path's launches, each run from counts set to 0 just
         # before it: phase 6 of every model (K1-K5, K7), phases 9 and 10
         # (K9, the device-sampling path), phase 11's tuned training and
@@ -3702,7 +4090,7 @@ def main(argv=None) -> int:
             card=card, build_s=build_s, seconds=seconds, kernels=kernels,
             serve=serve, profile=prof, train=train, full_graph=full,
             train_profile=train_prof, device_serve=device_serve,
-            device_train=device_train, tuning=tuning, lm=lm,
+            device_train=device_train, tuning=tuning, lm=lm, obs=obs_out,
             split_timed=split["timed"], k5_sass=k5_sass,
             gemm_ptxas=gemm_ptxas,
             torch=torch.__version__,

@@ -8,7 +8,9 @@ signature-keyed counters stay, so the drivers report the same fields:
 ``trace_count`` / ``num_compiled`` count signatures seen for the first time,
 ``cache_hits`` the calls whose signature was seen before. Capturing one CUDA
 graph per signature is the later step that makes those counters mean
-compiled programs again.
+compiled programs again. The obs metrics registry mirrors them as
+``executor_traces`` / ``executor_cache_misses`` / ``executor_cache_hits``,
+labelled ``executor=<class name>``, with the same meaning.
 
 Every executor carries the autotuner's ``decisions`` table (or ``None``)
 and passes it to codegen at every call; ``set_decisions`` swaps it. The
@@ -30,6 +32,7 @@ from typing import Dict, List, Sequence
 import torch
 from torch.profiler import record_function
 
+from repro_torch import obs
 from repro_torch.core import codegen
 
 
@@ -80,12 +83,20 @@ class _SignatureCounter:
         return len(self._seen)
 
     def _count(self, args) -> None:
+        """Count the call's signature, mirrored into the obs metrics
+        registry (``executor_traces`` and ``executor_cache_misses`` for a
+        new one, ``executor_cache_hits`` for a repeat; host-side only)."""
         key = (self._static_key, signature(args))
+        name = type(self).__name__
         if key in self._seen:
             self.cache_hits += 1
+            obs.metrics().counter("executor_cache_hits", executor=name).inc()
         else:
             self._seen.add(key)
             self.trace_count += 1
+            obs.metrics().counter("executor_traces", executor=name).inc()
+            obs.metrics().counter("executor_cache_misses",
+                                  executor=name).inc()
 
 
 class PlanExecutor(_SignatureCounter):

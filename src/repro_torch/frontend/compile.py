@@ -6,7 +6,8 @@ Program``) plus a ``HeteroGraph`` and builds the stack: per-layer traced
 programs -> validated/lowered plans -> ``HectorStack`` -> fanout sampler,
 on one device. The returned ``CompiledRGNN`` exposes ``init`` / ``apply`` (full
 graph) / ``apply_blocks`` (sampled mini-batch) / ``init_state`` /
-``train_step`` (one sampled SGD step) / ``describe`` and delegates every
+``train_step`` (one sampled SGD step) / ``profile`` (the per-op
+breakdown of a mini-batch) / ``describe`` and delegates every
 other attribute to the underlying ``RGNNEngine``, so it drops into the
 trainers unchanged.
 
@@ -83,6 +84,20 @@ class CompiledRGNN:
         feats = {"feature": global_feats[mb.input_ids.long()]}
         return self.engine.train_executor(self._optimizer()).grad_and_update(
             state, mb, labels, feats)
+
+    def profile(self, params, mb, global_feats, *, warmup: int = 1,
+                iters: int = 3):
+        """Per-op kernel-time breakdown (the paper's Fig.-9 view) of one
+        sampled mini-batch through this model's block path, on the
+        engine's device: every op instance (plus one glue row per hop)
+        attributed by prefix differencing on the tuner's measurement
+        harness, next to the whole-sequence time. Returns an
+        ``obs.profile.PlanProfile`` (``.table()`` renders the breakdown,
+        ``.to_json()`` exports it)."""
+        from repro_torch.obs import profile as _prof
+        return _prof.profile_minibatch(self.engine, params, mb,
+                                       global_feats, warmup=warmup,
+                                       iters=iters)
 
     def _optimizer(self):
         if self._opt is None:

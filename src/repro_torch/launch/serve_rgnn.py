@@ -23,8 +23,22 @@ end-to-end seed throughput — the same lines and stats keys as
 materialization decisions at engine build (no full-graph layout or op
 measurements: serving never runs the full graph), then the block-scale op
 variants on one warm mini-batch off the serving stream; ``--tune-cache``
-names its persistent cache. The online runtime, feature-store tiers,
-telemetry and data-parallel serving are later slices.
+names its persistent cache.
+
+Telemetry (``repro_torch.obs``), as the reference's: ``--obs on`` (the
+default) serves inside a metrics scope — the ``serve_batch_ms`` /
+``serve_wait_ms`` / ``serve_compute_ms`` histograms, whose p50 / p95 / p99
+become the reported latencies, and the executor, sampler and tuner
+counters, returned as ``stats["metrics"]`` and written to
+``--metrics-out``; ``--trace-out PATH`` adds the ``wait`` / ``sample`` /
+``layout`` / ``execute`` (``sample_device`` / ``layout_device``) phase
+spans as a Chrome trace; ``--profile`` attributes the last batch op by op
+(``stats["profile"]``); ``--obs off`` records nothing. Metrics add no
+device synchronize; tracing adds one per ``execute`` span.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --device cpu \\
+        --scale 0.05 --trace-out trace.json --metrics-out metrics.json \\
+        --profile
 """
 from __future__ import annotations
 
@@ -35,8 +49,10 @@ import numpy as np
 import torch
 
 import hector_torch
+from repro_torch import obs
 from repro_torch.core.graph import CPU_REDUCED_SCALES as REDUCED_SCALES
 from repro_torch.core.graph import table3_graph
+from repro_torch.launch import obs_report, obs_scope
 from repro_torch.sampling import SeedStream
 from repro_torch.train.engine import (MODEL_PROGRAMS, parse_fanout,
                                       resolve_device)
@@ -63,6 +79,10 @@ def serve(
     sampler: str = "host",
     tune: str = "off",
     tune_cache=None,
+    obs_mode: str = "on",
+    trace_out=None,
+    metrics_out=None,
+    profile: bool = False,
     params=None,
     on_batch=None,
     log=print,
@@ -75,155 +95,200 @@ def serve(
     ``on_batch(mb, logits)`` is called after every batch. Every batch
     draws fresh seeds. ``tune`` / ``tune_cache`` as ``--tune`` /
     ``--tune-cache``; the tuner's counts land in the stats as ``tune_*``.
+
+    Observability: with ``obs_mode="on"`` the call runs inside an
+    ``obs.scope`` — latency histograms and executor / sampler / tuner
+    counters land in a metrics registry whose snapshot is returned as
+    ``stats["metrics"]`` (and written to ``metrics_out`` if given), and
+    its percentiles replace the array-side ones. ``trace_out``
+    additionally enables phase tracing (``wait`` / ``sample`` / ``layout``
+    / ``execute`` spans; the phase totals as ``stats["phases"]``) and
+    writes a Chrome-trace JSON there. ``profile=True`` runs the per-op
+    plan profiler on the last served mini-batch and attaches the breakdown
+    as ``stats["profile"]``. ``obs_mode="off"`` serves with observability
+    fully disabled. Logits and signature counts are the same in every
+    mode.
     """
-    warmup_batches = min(WARMUP_BATCHES, num_batches)
-    dev = resolve_device(device)
+    with obs_scope(obs_mode, trace_out) as sc:
+        warmup_batches = min(WARMUP_BATCHES, num_batches)
+        dev = resolve_device(device)
 
-    t0 = time.perf_counter()
-    graph = table3_graph(dataset, scale=scale, seed=seed)
-    rng = np.random.default_rng(seed)
-    feats_np = rng.normal(size=(graph.num_nodes, dim)).astype(np.float32)
-    t_graph = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph = table3_graph(dataset, scale=scale, seed=seed)
+        rng = np.random.default_rng(seed)
+        feats_np = rng.normal(size=(graph.num_nodes, dim)).astype(
+            np.float32)
+        t_graph = time.perf_counter() - t0
 
-    engine = hector_torch.compile(
-        model, graph, layers=layers, dim=dim, hidden=hidden,
-        classes=classes, sample=fanouts, tile=tile, node_block=node_block,
-        seed=seed, device=dev, sampler=sampler, tune=tune,
-        tune_cache=tune_cache, tune_full_graph=False, log=log)
-    fanouts = engine.cfg.fanouts
-    log(f"[serve_rgnn] {model} on {dataset} (scale {scale}): "
-        f"{graph.num_nodes} nodes, {graph.num_edges} edges, "
-        f"{graph.num_etypes} etypes; fanouts={fanouts} device={dev} "
-        f"sampler={sampler} (graph build {t_graph:.2f}s)")
-    params = engine.init(seed) if params is None else \
-        engine.params_from_reference(params)
-    feats = torch.from_numpy(feats_np).to(dev)   # the device feature table
+        engine = hector_torch.compile(
+            model, graph, layers=layers, dim=dim, hidden=hidden,
+            classes=classes, sample=fanouts, tile=tile,
+            node_block=node_block, seed=seed, device=dev, sampler=sampler,
+            tune=tune, tune_cache=tune_cache, tune_full_graph=False, log=log)
+        fanouts = engine.cfg.fanouts
+        log(f"[serve_rgnn] {model} on {dataset} (scale {scale}): "
+            f"{graph.num_nodes} nodes, {graph.num_edges} edges, "
+            f"{graph.num_etypes} etypes; fanouts={fanouts} device={dev} "
+            f"sampler={sampler} (graph build {t_graph:.2f}s)")
+        params = engine.init(seed) if params is None else \
+            engine.params_from_reference(params)
+        feats = torch.from_numpy(feats_np).to(dev)   # the device table
 
-    if tune != "off":
-        # block-scale tuning on one representative (bucketed) mini-batch,
-        # off the serving stream so traffic is untouched; with a warm
-        # persistent cache this replays decisions with zero measurements
-        warm_seeds = np.random.default_rng(seed + 1).integers(
-            0, graph.num_nodes, batch_size).astype(np.int32)
-        tl = engine.make_loader(lambda step: warm_seeds, num_batches=1)
-        try:
-            engine.tune_minibatch(params, next(tl), feats)
-        finally:
-            tl.close()
-        ts = engine.tuner_stats
-        log(f"[serve_rgnn] tune={tune}: {ts['measurements']} measurements, "
-            f"{ts['cache_hits']} cache replays, {ts['tuned_ops']} tuned")
-
-    stream = SeedStream(graph.num_nodes, batch_size, seed=seed)
-    loader = engine.make_loader(stream, num_batches=num_batches)
-    executor = engine.block_executor
-    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
-        else (lambda: None)
-    lat, waits, computes, preds = [], [], [], None
-    edges_seen = 0
-    traces_at_warmup = None
-    dev_sampler = engine.device_sampler
-    sampler_traces_at_warmup = sampler_syncs_at_warmup = None
-    t_serve0 = time.perf_counter()
-    try:
-        while True:
-            t0 = time.perf_counter()
+        if tune != "off":
+            # block-scale tuning on one representative (bucketed)
+            # mini-batch, off the serving stream so traffic is untouched;
+            # with a warm persistent cache this replays decisions with zero
+            # measurements
+            warm_seeds = np.random.default_rng(seed + 1).integers(
+                0, graph.num_nodes, batch_size).astype(np.int32)
+            tl = engine.make_loader(lambda step: warm_seeds, num_batches=1)
             try:
-                mb = next(loader)
-            except StopIteration:
-                break
-            t_wait = time.perf_counter() - t0
-            if len(lat) == warmup_batches:
-                traces_at_warmup = executor.trace_count
-                if dev_sampler is not None:
-                    sampler_traces_at_warmup = dev_sampler.trace_count
-                    sampler_syncs_at_warmup = dev_sampler.count_syncs
-            t0 = time.perf_counter()
-            logits = engine.apply_blocks(params, mb, feats)
-            sync()
-            t_fwd = time.perf_counter() - t0
-            lat.append(t_wait + t_fwd)
-            waits.append(t_wait)
-            computes.append(t_fwd)
-            edges_seen += sum(gt.num_edges for gt in mb.tensors)
-            preds = torch.argmax(logits, dim=-1).cpu().numpy()
-            if on_batch is not None:
-                on_batch(mb, logits)
-            hops = "+".join(str(b.num_src) for b in mb.seq.blocks)
-            log(f"[serve_rgnn] batch {mb.step}: wait {t_wait*1e3:6.1f} ms, "
-                f"forward {t_fwd*1e3:6.1f} ms  (block nodes {hops})")
-    finally:
-        loader.close()
-    t_total = time.perf_counter() - t_serve0
-    retraces_after_warmup = 0
-    if traces_at_warmup is not None:
-        retraces_after_warmup = executor.trace_count - traces_at_warmup
+                engine.tune_minibatch(params, next(tl), feats)
+            finally:
+                tl.close()
+            ts = engine.tuner_stats
+            log(f"[serve_rgnn] tune={tune}: {ts['measurements']} "
+                f"measurements, {ts['cache_hits']} cache replays, "
+                f"{ts['tuned_ops']} tuned")
 
-    n = len(lat)
-    if n == 0:
-        raise RuntimeError("no batches served")
-    lat_arr = np.asarray(lat)
-    stats = {
-        "batches": n,
-        "batch_size": batch_size,
-        "latency_ms_p50": float(np.percentile(lat_arr, 50) * 1e3),
-        "latency_ms_p95": float(np.percentile(lat_arr, 95) * 1e3),
-        "latency_ms_p99": float(np.percentile(lat_arr, 99) * 1e3),
-        "latency_ms_mean": float(lat_arr.mean() * 1e3),
-        "wait_ms_mean": float(np.mean(waits) * 1e3),
-        "compute_ms_mean": float(np.mean(computes) * 1e3),
-        "seeds_per_s": batch_size * n / max(t_total, 1e-9),
-        "edges_per_batch": edges_seen / n,
-        "last_preds": preds,
-        "warmup_batches": warmup_batches,
-        "executor_traces": executor.trace_count,
-        "executor_cache_hits": executor.cache_hits,
-        "executor_compiled": executor.num_compiled,
-        "retraces_after_warmup": retraces_after_warmup,
-        "sampler": loader.mode,
-        "host_builds": loader.host_builds,
-        "device_builds": loader.device_builds,
-        "device": str(dev),
-    }
-    for k, v in engine.tuner_stats.items():
-        stats[f"tune_{k}"] = v
-    if engine.decisions is not None:
-        stats["tune_decisions"] = engine.decisions.fingerprint()
-    if dev_sampler is not None:
-        stats["sampler_traces"] = dev_sampler.trace_count
-        stats["sampler_retraces_after_warmup"] = (
-            dev_sampler.trace_count - sampler_traces_at_warmup
-            if sampler_traces_at_warmup is not None else 0)
-        stats["sampler_count_syncs"] = dev_sampler.count_syncs
-        stats["sampler_count_syncs_after_warmup"] = (
-            dev_sampler.count_syncs - sampler_syncs_at_warmup
-            if sampler_syncs_at_warmup is not None
-            else dev_sampler.count_syncs)
-        stats["sampler_bucket_overflows"] = dev_sampler.bucket_overflows
-        stats["sampler_bucket_shrinks"] = dev_sampler.bucket_shrinks
-        stats["sampler_overflow_rebuilds"] = dev_sampler.overflow_rebuilds
-    log(f"[serve_rgnn] served {n} batches x {batch_size} seeds: "
-        f"latency p50 {stats['latency_ms_p50']:.1f} ms / "
-        f"p95 {stats['latency_ms_p95']:.1f} ms / "
-        f"p99 {stats['latency_ms_p99']:.1f} ms "
-        f"(wait {stats['wait_ms_mean']:.1f} + "
-        f"compute {stats['compute_ms_mean']:.1f} ms avg), "
-        f"throughput {stats['seeds_per_s']:.1f} seeds/s, "
-        f"avg {stats['edges_per_batch']:.0f} sampled edges/batch")
-    log(f"[serve_rgnn] executor: {executor.trace_count} new signatures / "
-        f"{executor.cache_hits} repeats "
-        f"({retraces_after_warmup} new after warmup)")
-    if dev_sampler is not None:
-        log(f"[serve_rgnn] device sampler: {dev_sampler.trace_count} new "
-            f"programs / {dev_sampler.cache_hits} program-cache hits "
-            f"({stats['sampler_retraces_after_warmup']} new after "
-            f"warmup); {dev_sampler.count_syncs} count syncs, "
-            f"{dev_sampler.bucket_shrinks} bucket shrinks, "
-            f"{dev_sampler.bucket_overflows} overflows "
-            f"({dev_sampler.overflow_rebuilds} batches rebuilt); builds host "
-            f"{loader.host_builds} / device {loader.device_builds}")
-    log(f"[serve_rgnn] sample predictions: {preds[:12].tolist()}")
-    return stats
+        stream = SeedStream(graph.num_nodes, batch_size, seed=seed)
+        loader = engine.make_loader(stream, num_batches=num_batches)
+        executor = engine.block_executor
+        sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+            else (lambda: None)
+        metrics = obs.metrics()
+        h_lat = metrics.histogram("serve_batch_ms")
+        h_wait = metrics.histogram("serve_wait_ms")
+        h_compute = metrics.histogram("serve_compute_ms")
+        lat, waits, computes, preds = [], [], [], None
+        last_mb = None
+        edges_seen = 0
+        traces_at_warmup = None
+        dev_sampler = engine.device_sampler
+        sampler_traces_at_warmup = sampler_syncs_at_warmup = None
+        t_serve0 = time.perf_counter()
+        try:
+            while True:
+                t0 = time.perf_counter()
+                with obs.span("wait", batch=len(lat)):
+                    try:
+                        mb = next(loader)
+                    except StopIteration:
+                        break
+                t_wait = time.perf_counter() - t0
+                if len(lat) == warmup_batches:
+                    traces_at_warmup = executor.trace_count
+                    if dev_sampler is not None:
+                        sampler_traces_at_warmup = dev_sampler.trace_count
+                        sampler_syncs_at_warmup = dev_sampler.count_syncs
+                t0 = time.perf_counter()
+                # engine.apply_blocks opens the "execute" span (with a
+                # device sync inside it when tracing is on)
+                logits = engine.apply_blocks(params, mb, feats)
+                sync()
+                t_fwd = time.perf_counter() - t0
+                lat.append(t_wait + t_fwd)
+                waits.append(t_wait)
+                computes.append(t_fwd)
+                h_lat.observe((t_wait + t_fwd) * 1e3)
+                h_wait.observe(t_wait * 1e3)
+                h_compute.observe(t_fwd * 1e3)
+                last_mb = mb
+                edges_seen += sum(gt.num_edges for gt in mb.tensors)
+                preds = torch.argmax(logits, dim=-1).cpu().numpy()
+                if on_batch is not None:
+                    on_batch(mb, logits)
+                hops = "+".join(str(b.num_src) for b in mb.seq.blocks)
+                log(f"[serve_rgnn] batch {mb.step}: wait "
+                    f"{t_wait*1e3:6.1f} ms, forward {t_fwd*1e3:6.1f} ms  "
+                    f"(block nodes {hops})")
+        finally:
+            loader.close()
+        t_total = time.perf_counter() - t_serve0
+        retraces_after_warmup = 0
+        if traces_at_warmup is not None:
+            retraces_after_warmup = executor.trace_count - traces_at_warmup
+
+        n = len(lat)
+        if n == 0:
+            raise RuntimeError("no batches served")
+        lat_arr = np.asarray(lat)
+        stats = {
+            "batches": n,
+            "batch_size": batch_size,
+            "latency_ms_p50": float(np.percentile(lat_arr, 50) * 1e3),
+            "latency_ms_p95": float(np.percentile(lat_arr, 95) * 1e3),
+            "latency_ms_p99": float(np.percentile(lat_arr, 99) * 1e3),
+            "latency_ms_mean": float(lat_arr.mean() * 1e3),
+            "wait_ms_mean": float(np.mean(waits) * 1e3),
+            "compute_ms_mean": float(np.mean(computes) * 1e3),
+            "seeds_per_s": batch_size * n / max(t_total, 1e-9),
+            "edges_per_batch": edges_seen / n,
+            "last_preds": preds,
+            "warmup_batches": warmup_batches,
+            "executor_traces": executor.trace_count,
+            "executor_cache_hits": executor.cache_hits,
+            "executor_compiled": executor.num_compiled,
+            "retraces_after_warmup": retraces_after_warmup,
+            "sampler": loader.mode,
+            "host_builds": loader.host_builds,
+            "device_builds": loader.device_builds,
+            "device": str(dev),
+        }
+        for k, v in engine.tuner_stats.items():
+            stats[f"tune_{k}"] = v
+        if engine.decisions is not None:
+            stats["tune_decisions"] = engine.decisions.fingerprint()
+        if dev_sampler is not None:
+            stats["sampler_traces"] = dev_sampler.trace_count
+            stats["sampler_retraces_after_warmup"] = (
+                dev_sampler.trace_count - sampler_traces_at_warmup
+                if sampler_traces_at_warmup is not None else 0)
+            stats["sampler_count_syncs"] = dev_sampler.count_syncs
+            stats["sampler_count_syncs_after_warmup"] = (
+                dev_sampler.count_syncs - sampler_syncs_at_warmup
+                if sampler_syncs_at_warmup is not None
+                else dev_sampler.count_syncs)
+            stats["sampler_bucket_overflows"] = dev_sampler.bucket_overflows
+            stats["sampler_bucket_shrinks"] = dev_sampler.bucket_shrinks
+            stats["sampler_overflow_rebuilds"] = \
+                dev_sampler.overflow_rebuilds
+        if obs.metrics_enabled():
+            # registry-sourced latency percentiles (the reservoir keeps every
+            # sample at this scale, so these match the array-side numbers)
+            hs = metrics.histogram_summary("serve_batch_ms")
+            stats["latency_ms_p50"] = hs["p50"]
+            stats["latency_ms_p95"] = hs["p95"]
+            stats["latency_ms_p99"] = hs["p99"]
+        log(f"[serve_rgnn] served {n} batches x {batch_size} seeds: "
+            f"latency p50 {stats['latency_ms_p50']:.1f} ms / "
+            f"p95 {stats['latency_ms_p95']:.1f} ms / "
+            f"p99 {stats['latency_ms_p99']:.1f} ms "
+            f"(wait {stats['wait_ms_mean']:.1f} + "
+            f"compute {stats['compute_ms_mean']:.1f} ms avg), "
+            f"throughput {stats['seeds_per_s']:.1f} seeds/s, "
+            f"avg {stats['edges_per_batch']:.0f} sampled edges/batch")
+        log(f"[serve_rgnn] executor: {executor.trace_count} new signatures "
+            f"/ {executor.cache_hits} repeats "
+            f"({retraces_after_warmup} new after warmup)")
+        if dev_sampler is not None:
+            log(f"[serve_rgnn] device sampler: {dev_sampler.trace_count} new "
+                f"programs / {dev_sampler.cache_hits} program-cache hits "
+                f"({stats['sampler_retraces_after_warmup']} new after "
+                f"warmup); {dev_sampler.count_syncs} count syncs, "
+                f"{dev_sampler.bucket_shrinks} bucket shrinks, "
+                f"{dev_sampler.bucket_overflows} overflows "
+                f"({dev_sampler.overflow_rebuilds} batches rebuilt); builds "
+                f"host {loader.host_builds} / device {loader.device_builds}")
+        log(f"[serve_rgnn] sample predictions: {preds[:12].tolist()}")
+
+        if profile and last_mb is not None:
+            p = engine.profile(params, last_mb, feats, warmup=1, iters=5)
+            log("[serve_rgnn] per-op kernel breakdown (last batch):\n"
+                + p.table())
+            stats["profile"] = p.to_json()
+        obs_report(sc, stats, trace_out, metrics_out, log, "serve_rgnn")
+        return stats
 
 
 def main(argv=None):
@@ -258,6 +323,18 @@ def main(argv=None):
                     help="tuning cache path (default "
                          "$REPRO_TORCH_TUNE_CACHE or "
                          "~/.cache/repro_torch-tune.json)")
+    ap.add_argument("--obs", default="on", choices=["on", "off"],
+                    help="observability: 'on' runs inside an obs scope "
+                         "(metrics registry + stats['metrics']); 'off' "
+                         "records nothing")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable phase tracing and write a Chrome-trace "
+                         "JSON (load in chrome://tracing or Perfetto)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics-registry snapshot JSON here")
+    ap.add_argument("--profile", action="store_true",
+                    help="per-op kernel-time breakdown of the last served "
+                         "batch")
     args = ap.parse_args(argv)
     return serve(
         model=args.model, dataset=args.dataset, scale=args.scale,
@@ -267,7 +344,9 @@ def main(argv=None):
         batch_size=args.batch_size, num_batches=args.num_batches,
         tile=args.tile, node_block=args.node_block, seed=args.seed,
         device=args.device, sampler=args.sampler, tune=args.tune,
-        tune_cache=args.tune_cache,
+        tune_cache=args.tune_cache, obs_mode=args.obs,
+        trace_out=args.trace_out, metrics_out=args.metrics_out,
+        profile=args.profile,
     )
 
 

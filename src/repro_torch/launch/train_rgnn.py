@@ -23,7 +23,17 @@ mini-batches and builds their layouts on the device (``DeviceSampler``).
 device: the full-graph layout tile, materialization and op variants at
 engine build, then the block-scale op variants on one warm training batch;
 ``--tune-cache`` names its persistent cache. Feature stores, Zipf-skewed
-streams, telemetry and data parallelism are later slices.
+streams and data parallelism are later slices.
+
+Telemetry (``repro_torch.obs``) mirrors ``serve_rgnn``: ``--obs on`` (the
+default) trains inside a metrics scope (the ``train_step_ms`` histogram,
+executor / sampler / tuner counters; ``stats["metrics"]``,
+``--metrics-out``), ``--trace-out PATH`` adds the ``sample`` / ``layout``
+/ ``train_step`` / ``execute`` phase spans as a Chrome trace, and
+``--profile`` attributes one sampled SGD step on a representative batch
+into forward / backward / optimizer (``obs.profile.profile_train_step``;
+``stats["profile"]`` in ms). ``--obs off`` records nothing; losses are
+the same in every mode.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ import torch
 import hector_torch
 from repro_torch.core.graph import (CPU_REDUCED_SCALES,
                                     synthetic_heterograph, table3_graph)
+from repro_torch.launch import obs_report, obs_scope
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.sampling import EpochSeedStream
 from repro_torch.train import (EngineConfig, MODEL_PROGRAMS, SampledTrainer,
@@ -102,123 +113,162 @@ def train(
     sampler: str = "host",
     tune: str = "off",
     tune_cache=None,
+    obs_mode: str = "on",
+    trace_out=None,
+    metrics_out=None,
+    profile: bool = False,
     log=print,
 ):
     """Run the sampled training loop on ``device`` (``None``: the CUDA
     card); returns a stats dict (``SampledTrainer.train``'s, plus the
     final full-graph evaluation, the tuner's counts as ``tune_*`` and,
-    with ``parity``, the comparison)."""
-    dev = resolve_device(device)
-    cfg = EngineConfig(model=model, layers=layers, dim=dim, hidden=hidden,
-                       classes=classes, fanouts=fanouts, tile=tile,
-                       node_block=node_block, bucket=bucket, seed=seed,
-                       device=str(dev), sampler=sampler, tune=tune,
-                       tune_cache=tune_cache)
-    engine, feats, labels, train_ids, val_ids = build_task(
-        dataset, scale, cfg, seed, val_frac, log=log)
-    log(f"[train_rgnn] {model} on {dataset} (scale {scale}): "
-        f"{engine.graph.num_nodes} nodes, {engine.graph.num_edges} edges, "
-        f"{engine.graph.num_etypes} etypes; fanouts={cfg.fanouts}, "
-        f"device={dev}, sampler={sampler}, {len(train_ids)} train / "
-        f"{len(val_ids)} val nodes")
+    with ``parity``, the comparison).
 
-    bpe = EpochSeedStream(train_ids, batch_size).batches_per_epoch
-    total_steps = epochs * bpe
-    opt = AdamW(learning_rate=cosine_schedule(lr, warmup_steps, total_steps),
-                weight_decay=weight_decay)
-    trainer = SampledTrainer(engine, feats, labels, train_ids, val_ids,
-                             opt=opt, ckpt_dir=ckpt_dir, log=log)
-    state = trainer.init_state(engine.init(seed))
+    Observability mirrors ``serve_rgnn.serve``: ``obs_mode="on"`` wraps
+    the run in an ``obs.scope`` (``stats["metrics"]``, optional
+    ``metrics_out`` export); ``trace_out`` adds phase tracing and writes a
+    Chrome-trace JSON; ``profile=True`` attributes one sampled SGD step
+    into forward / backward / optimizer (``stats["profile"]``, ms)."""
+    with obs_scope(obs_mode, trace_out) as sc:
+        dev = resolve_device(device)
+        cfg = EngineConfig(model=model, layers=layers, dim=dim, hidden=hidden,
+                           classes=classes, fanouts=fanouts, tile=tile,
+                           node_block=node_block, bucket=bucket, seed=seed,
+                           device=str(dev), sampler=sampler, tune=tune,
+                           tune_cache=tune_cache)
+        engine, feats, labels, train_ids, val_ids = build_task(
+            dataset, scale, cfg, seed, val_frac, log=log)
+        log(f"[train_rgnn] {model} on {dataset} (scale {scale}): "
+            f"{engine.graph.num_nodes} nodes, {engine.graph.num_edges} edges, "
+            f"{engine.graph.num_etypes} etypes; fanouts={cfg.fanouts}, "
+            f"device={dev}, sampler={sampler}, {len(train_ids)} train / "
+            f"{len(val_ids)} val nodes")
 
-    if tune != "off":
-        # block-scale tuning on one representative training batch (bucketed
-        # shapes make the decisions valid for the whole epoch stream)
-        warm_seeds = np.sort(np.random.default_rng(seed + 1).choice(
-            train_ids, size=min(batch_size, len(train_ids)),
-            replace=False)).astype(np.int32)
-        tl = engine.make_loader(lambda step: warm_seeds, num_batches=1)
-        try:
-            engine.tune_minibatch(state.params, next(tl),
-                                  torch.from_numpy(feats).to(dev))
-        finally:
-            tl.close()
-        ts = engine.tuner_stats
-        log(f"[train_rgnn] tune={tune}: {ts['measurements']} measurements, "
-            f"{ts['cache_hits']} cache replays, {ts['tuned_ops']} tuned "
-            f"(tile {engine.tile}, node_block {engine.node_block})")
+        bpe = EpochSeedStream(train_ids, batch_size).batches_per_epoch
+        total_steps = epochs * bpe
+        opt = AdamW(learning_rate=cosine_schedule(lr, warmup_steps,
+                                                  total_steps),
+                    weight_decay=weight_decay)
+        trainer = SampledTrainer(engine, feats, labels, train_ids, val_ids,
+                                 opt=opt, ckpt_dir=ckpt_dir, log=log)
+        state = trainer.init_state(engine.init(seed))
 
-    start_step = 0
-    if resume:
-        state, start_step = trainer.resume(state)
-        if start_step:
-            log(f"[train_rgnn] resumed from step {start_step} "
-                f"(epoch {start_step // bpe}, batch {start_step % bpe})")
+        if tune != "off":
+            # block-scale tuning on one representative training batch (bucketed
+            # shapes make the decisions valid for the whole epoch stream)
+            warm_seeds = np.sort(np.random.default_rng(seed + 1).choice(
+                train_ids, size=min(batch_size, len(train_ids)),
+                replace=False)).astype(np.int32)
+            tl = engine.make_loader(lambda step: warm_seeds, num_batches=1)
+            try:
+                engine.tune_minibatch(state.params, next(tl),
+                                      torch.from_numpy(feats).to(dev))
+            finally:
+                tl.close()
+            ts = engine.tuner_stats
+            log(f"[train_rgnn] tune={tune}: {ts['measurements']} "
+                f"measurements, {ts['cache_hits']} cache replays, "
+                f"{ts['tuned_ops']} tuned (tile {engine.tile}, "
+                f"node_block {engine.node_block})")
 
-    state, stats = trainer.train(
-        state, epochs=epochs, batch_size=batch_size, start_step=start_step,
-        ckpt_every=ckpt_every, eval_every_epochs=eval_every_epochs,
-        log_every=max(1, bpe // 2))
+        start_step = 0
+        if resume:
+            state, start_step = trainer.resume(state)
+            if start_step:
+                log(f"[train_rgnn] resumed from step {start_step} "
+                    f"(epoch {start_step // bpe}, batch {start_step % bpe})")
 
-    final_train = trainer.full.evaluate(state.params)
-    final_val = (trainer.full.evaluate(state.params, val_ids)
-                 if len(val_ids) else None)
-    stats["full_train_loss"] = final_train["loss"]
-    stats["full_train_acc"] = final_train["accuracy"]
-    if final_val is not None:
-        stats["full_val_loss"] = final_val["loss"]
-        stats["full_val_acc"] = final_val["accuracy"]
-    stats["device"] = str(dev)
-    stats["sampler"] = sampler
-    for k, v in engine.tuner_stats.items():
-        stats[f"tune_{k}"] = v
-    if engine.decisions is not None:
-        stats["tune_decisions"] = engine.decisions.fingerprint()
-    dev_sampler = engine.device_sampler
-    if dev_sampler is not None:
-        for k, v in dev_sampler.stats().items():
-            stats[f"sampler_{k}"] = v
-        log(f"[train_rgnn] device sampler: {dev_sampler.trace_count} new "
-            f"programs / {dev_sampler.cache_hits} program-cache hits over "
-            f"{dev_sampler.batches_sampled} batches; "
-            f"{dev_sampler.bucket_shrinks} bucket shrinks, "
-            f"{dev_sampler.bucket_overflows} overflows")
-    log(f"[train_rgnn] sampled training done: {stats['steps']} steps, "
-        f"step p50 {stats['step_ms_p50']:.1f} ms, "
-        f"p99 {stats['step_ms_p99']:.1f} ms, "
-        f"{stats['seeds_per_s']:.1f} seeds/s, "
-        f"{stats['retraces_after_warmup']} new signatures after warmup "
-        f"({stats['executor_compiled']} in all)")
-    log(f"[train_rgnn] full-graph eval: train loss {final_train['loss']:.4f} "
-        f"acc {final_train['accuracy']:.2%}"
-        + (f" | val loss {final_val['loss']:.4f} "
-           f"acc {final_val['accuracy']:.2%}" if final_val else ""))
+        state, stats = trainer.train(
+            state, epochs=epochs, batch_size=batch_size, start_step=start_step,
+            ckpt_every=ckpt_every, eval_every_epochs=eval_every_epochs,
+            log_every=max(1, bpe // 2))
 
-    if parity:
-        # dense baseline: same init, same optimizer-step budget; judged on
-        # held-out loss (train loss, with no val split)
-        fg = trainer.full
-        fstate = fg.init_state(engine.init(seed))
-        fstate, _ = fg.train(fstate, steps=total_steps,
-                             log_every=max(1, total_steps // 4))
-        if len(val_ids):
-            split, sampled_loss = "val", final_val["loss"]
-            fg_loss = fg.evaluate(fstate.params, val_ids)["loss"]
-        else:
-            split, sampled_loss = "train", final_train["loss"]
-            fg_loss = fg.evaluate(fstate.params)["loss"]
-        gap = (sampled_loss - fg_loss) / max(fg_loss, 1e-6)
-        stats["parity_full_graph_loss"] = fg_loss
-        stats["parity_gap"] = gap
-        ok = gap <= parity_tol
-        log(f"[train_rgnn] parity ({split} loss): sampled "
-            f"{sampled_loss:.4f} vs full-graph {fg_loss:.4f} "
-            f"(gap {gap:+.1%}, tol {parity_tol:.0%}) -> "
-            f"{'OK' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(
-                f"sampled {split} loss {sampled_loss:.4f} not within "
-                f"{parity_tol:.0%} of full-graph {fg_loss:.4f}")
-    return stats
+        final_train = trainer.full.evaluate(state.params)
+        final_val = (trainer.full.evaluate(state.params, val_ids)
+                     if len(val_ids) else None)
+        stats["full_train_loss"] = final_train["loss"]
+        stats["full_train_acc"] = final_train["accuracy"]
+        if final_val is not None:
+            stats["full_val_loss"] = final_val["loss"]
+            stats["full_val_acc"] = final_val["accuracy"]
+        stats["device"] = str(dev)
+        stats["sampler"] = sampler
+        for k, v in engine.tuner_stats.items():
+            stats[f"tune_{k}"] = v
+        if engine.decisions is not None:
+            stats["tune_decisions"] = engine.decisions.fingerprint()
+        dev_sampler = engine.device_sampler
+        if dev_sampler is not None:
+            for k, v in dev_sampler.stats().items():
+                stats[f"sampler_{k}"] = v
+            log(f"[train_rgnn] device sampler: {dev_sampler.trace_count} new "
+                f"programs / {dev_sampler.cache_hits} program-cache hits over "
+                f"{dev_sampler.batches_sampled} batches; "
+                f"{dev_sampler.bucket_shrinks} bucket shrinks, "
+                f"{dev_sampler.bucket_overflows} overflows")
+        log(f"[train_rgnn] sampled training done: {stats['steps']} steps, "
+            f"step p50 {stats['step_ms_p50']:.1f} ms, "
+            f"p99 {stats['step_ms_p99']:.1f} ms, "
+            f"{stats['seeds_per_s']:.1f} seeds/s, "
+            f"{stats['retraces_after_warmup']} new signatures after warmup "
+            f"({stats['executor_compiled']} in all)")
+        log(f"[train_rgnn] full-graph eval: train loss "
+            f"{final_train['loss']:.4f} acc {final_train['accuracy']:.2%}"
+            + (f" | val loss {final_val['loss']:.4f} "
+               f"acc {final_val['accuracy']:.2%}" if final_val else ""))
+
+        if parity:
+            # dense baseline: same init, same optimizer-step budget; judged on
+            # held-out loss (train loss, with no val split)
+            fg = trainer.full
+            fstate = fg.init_state(engine.init(seed))
+            fstate, _ = fg.train(fstate, steps=total_steps,
+                                 log_every=max(1, total_steps // 4))
+            if len(val_ids):
+                split, sampled_loss = "val", final_val["loss"]
+                fg_loss = fg.evaluate(fstate.params, val_ids)["loss"]
+            else:
+                split, sampled_loss = "train", final_train["loss"]
+                fg_loss = fg.evaluate(fstate.params)["loss"]
+            gap = (sampled_loss - fg_loss) / max(fg_loss, 1e-6)
+            stats["parity_full_graph_loss"] = fg_loss
+            stats["parity_gap"] = gap
+            ok = gap <= parity_tol
+            log(f"[train_rgnn] parity ({split} loss): sampled "
+                f"{sampled_loss:.4f} vs full-graph {fg_loss:.4f} "
+                f"(gap {gap:+.1%}, tol {parity_tol:.0%}) -> "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(
+                    f"sampled {split} loss {sampled_loss:.4f} not within "
+                    f"{parity_tol:.0%} of full-graph {fg_loss:.4f}")
+
+        if profile:
+            # forward / backward / optimizer attribution of ONE sampled step,
+            # on a representative (bucketed) batch off the epoch stream
+            from repro_torch.obs import profile as prof_mod
+            warm_seeds = np.sort(np.random.default_rng(seed + 2).choice(
+                train_ids, size=min(batch_size, len(train_ids)),
+                replace=False)).astype(np.int32)
+            pl = engine.make_loader(lambda step: warm_seeds, num_batches=1)
+            try:
+                mb = next(pl)
+            finally:
+                pl.close()
+            ph = prof_mod.profile_train_step(
+                engine.plans, trainer.opt, state, mb,
+                mb.seq.slice_labels(labels),
+                {"feature": trainer.feats[mb.input_ids.long()]},
+                activation=engine.cfg.activation, decisions=engine.decisions,
+                warmup=1, iters=5)
+            log(f"[train_rgnn] step attribution: "
+                f"forward {ph['forward']*1e3:.2f} ms, "
+                f"backward {ph['backward']*1e3:.2f} ms, "
+                f"optimizer {ph['optimizer']*1e3:.2f} ms "
+                f"(step {ph['total']*1e3:.2f} ms)")
+            stats["profile"] = {k: v * 1e3 for k, v in ph.items()}
+        obs_report(sc, stats, trace_out, metrics_out, log, "train_rgnn")
+        return stats
 
 
 def main(argv=None):
@@ -270,6 +320,18 @@ def main(argv=None):
                     help="tuning cache path (default "
                          "$REPRO_TORCH_TUNE_CACHE or "
                          "~/.cache/repro_torch-tune.json)")
+    ap.add_argument("--obs", default="on", choices=["on", "off"],
+                    help="observability: 'on' runs inside an obs scope "
+                         "(metrics registry + stats['metrics']); 'off' "
+                         "records nothing")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable phase tracing and write a Chrome-trace "
+                         "JSON (load in chrome://tracing or Perfetto)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics-registry snapshot JSON here")
+    ap.add_argument("--profile", action="store_true",
+                    help="attribute one sampled SGD step into forward / "
+                         "backward / optimizer phases")
     args = ap.parse_args(argv)
 
     if args.scale is not None:
@@ -292,6 +354,8 @@ def main(argv=None):
         eval_every_epochs=args.eval_every_epochs, parity=args.parity,
         parity_tol=args.parity_tol, device=args.device,
         sampler=args.sampler, tune=args.tune, tune_cache=args.tune_cache,
+        obs_mode=args.obs, trace_out=args.trace_out,
+        metrics_out=args.metrics_out, profile=args.profile,
     )
 
 

@@ -40,7 +40,10 @@ and edges of the first one.
 
 ``trace_count`` counts the first use of each static bucket tuple, that is,
 program-cache misses: torch runs eagerly, so there is no trace to count,
-but a new tuple is what a retrace would be in the reference.
+but a new tuple is what a retrace would be in the reference. The
+``sampler_traces`` counter of ``repro_torch.obs`` mirrors it, and every
+hop's selection and layout build run inside ``sample_device`` /
+``layout_device`` spans (they time the launches, with no synchronize).
 
 Prefetch overlap needs no thread: every stage only enqueues device work,
 so the loader dispatches batch k+1's sampling before the consumer runs
@@ -56,6 +59,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.graph import HeteroGraph, to_device
 from repro_torch.kernels import sampling_ops as SO
 from repro_torch.kernels.layout import pow2ceil
@@ -160,11 +164,13 @@ class DeviceSampler:
     # ------------------------------------------------------------------
     def _program(self, key, factory):
         """The program of a static bucket tuple, built on its first use
-        (counted in ``trace_count`` and ``cache_misses``)."""
+        (counted in ``trace_count``, ``cache_misses`` and the
+        ``sampler_traces`` counter)."""
         fn = self._programs.get(key)
         if fn is None:
             self.cache_misses += 1
             self.trace_count += 1
+            obs.metrics().counter("sampler_traces").inc()
             fn = factory()
             self._programs[key] = fn
         else:
@@ -289,11 +295,13 @@ class DeviceSampler:
             kmax = max(1, max(k_eff))
             fp = int(frontier.shape[0])
             base = int(hop_base_key(self.seed, int(batch_index), hop, epoch))
-            fn_a = self._program(
-                ("A", fp, k_eff),
-                lambda k_eff=k_eff, fp=fp: SO.make_sample_hop(dg, k_eff, fp))
-            union, sel_src, sel_valid, counts = fn_a(
-                dg.csc_indptr, dg.csc_src, frontier, base)
+            with obs.span("sample_device", step=step, hop=hop):
+                fn_a = self._program(
+                    ("A", fp, k_eff),
+                    lambda k_eff=k_eff, fp=fp: SO.make_sample_hop(
+                        dg, k_eff, fp))
+                union, sel_src, sel_valid, counts = fn_a(
+                    dg.csc_indptr, dg.csc_src, frontier, base)
             # sync-free bucket pick: the signature's current guess (worst
             # case until a drained count vector tightened it); the counts
             # are queued for a later non-blocking inspection. The signature
@@ -309,14 +317,15 @@ class DeviceSampler:
             host_counts, event = self._read_back(counts)
             self._pending.append((sig, fp, guess, host_counts, event))
             checks.append((guess, host_counts, event))
-            fn_b = self._program(
-                ("B", fp, kmax, n_pad, e_pad, u_pad),
-                lambda fp=fp, kmax=kmax, n_pad=n_pad, e_pad=e_pad,
-                u_pad=u_pad: SO.make_build_block(
-                    dg, fp, kmax, n_pad, e_pad, u_pad, self.tile,
-                    self.node_block))
-            gt, kl, node_ids, dst_local, input_gather = fn_b(
-                union, sel_src, sel_valid, frontier, dg.node_type)
+            with obs.span("layout_device", step=step, hop=hop):
+                fn_b = self._program(
+                    ("B", fp, kmax, n_pad, e_pad, u_pad),
+                    lambda fp=fp, kmax=kmax, n_pad=n_pad, e_pad=e_pad,
+                    u_pad=u_pad: SO.make_build_block(
+                        dg, fp, kmax, n_pad, e_pad, u_pad, self.tile,
+                        self.node_block))
+                gt, kl, node_ids, dst_local, input_gather = fn_b(
+                    union, sel_src, sel_valid, frontier, dg.node_type)
             hops.append(dict(gt=gt, kl=kl, node_ids=node_ids,
                              dst_local=dst_local, input_gather=input_gather,
                              num_src=n_pad, num_edges=e_pad, num_dst=fp))

@@ -21,6 +21,10 @@ loader then passes the epoch to the sampler, so the same seed batch in a
 later epoch draws a fresh neighborhood. ``start_step`` starts the stream
 mid-way (a resumed run replays the exact remaining batches).
 
+Telemetry (``repro_torch.obs``): each host build runs inside a ``sample``
+and a ``layout`` span, on the producer thread's own track (the switchboard
+is process-global, so the thread sees the scope the driver opened).
+
 Not ported yet: the LRU block/layout caches and graph partitions.
 """
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Callable, List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import codegen
 from repro_torch.core.graph import GraphTensors, HeteroGraph, to_device
 from repro_torch.kernels.layout import pow2ceil
@@ -251,10 +256,12 @@ class MiniBatchLoader:
         seeds = self._seeds_for(step)
         self.host_builds += 1
         epoch = self._epoch_of(step) if self._epoch_of is not None else None
-        seq = self.sampler.sample(seeds, batch_index=step, epoch=epoch)
-        return build_minibatch(seq, step=step, tile=self.tile,
-                               node_block=self.node_block,
-                               bucket=self.bucket, device=self.device)
+        with obs.span("sample", step=step):
+            seq = self.sampler.sample(seeds, batch_index=step, epoch=epoch)
+        with obs.span("layout", step=step):
+            return build_minibatch(seq, step=step, tile=self.tile,
+                                   node_block=self.node_block,
+                                   bucket=self.bucket, device=self.device)
 
     def _build_device(self, step: int) -> MiniBatch:
         seeds = self._seeds_for(step)

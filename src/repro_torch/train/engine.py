@@ -22,6 +22,7 @@ from typing import Callable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.graph import HeteroGraph
 from repro_torch.core.module import HectorStack
 from repro_torch.device import resolve_device  # noqa: F401 (re-exported)
@@ -228,13 +229,16 @@ class RGNNEngine:
         )
 
     def forward_minibatch(self, params, mb, global_feats) -> torch.Tensor:
-        """Sampled forward: per-seed outputs for a ``MiniBatch``."""
-        return self.stack.apply_blocks(params, mb, global_feats)
+        """Sampled forward: per-seed outputs for a ``MiniBatch``, inside an
+        ``execute`` span (synchronized in the span only when tracing)."""
+        with obs.span("execute", step=mb.step) as sp:
+            return sp.sync(self.stack.apply_blocks(params, mb, global_feats))
 
     def forward_full(self, params, feats: torch.Tensor) -> torch.Tensor:
-        """Full-graph forward over all nodes, without gradients."""
-        with torch.no_grad():
-            return self.stack.apply(params, {"feature": feats})
+        """Full-graph forward over all nodes, without gradients, inside an
+        ``execute`` span."""
+        with obs.span("execute", mode="full_graph") as sp, torch.no_grad():
+            return sp.sync(self.stack.apply(params, {"feature": feats}))
 
     def tune_minibatch(self, params, mb, global_feats) -> None:
         """Extend the decision table with block-scale op variants measured

@@ -16,6 +16,10 @@ on the card the backward's scatter-adds use atomics).
 full-graph step per call. With full-neighborhood fanout the sampled step
 reproduces its loss and gradients.
 
+Telemetry: every sampled step runs inside a ``train_step`` span and lands
+in the ``train_step_ms`` histogram (``repro_torch.obs``); the step already
+ends in a synchronize on a card, so neither adds one.
+
 Not ported yet: feature stores and the Zipf-skewed seed stream (``skew``).
 """
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import executor
 from repro_torch.optim import AdamW, TrainState
@@ -182,10 +187,15 @@ class SampledTrainer:
                 labels_b = self._labels_of(mb)
                 feats_b = {"feature": self.feats[mb.input_ids.long()]}
                 t0 = time.perf_counter()
-                state, metrics = ex.grad_and_update(state, mb, labels_b,
-                                                    feats_b)
-                sync()
+                # one eager step; forward / backward / optimizer attribution
+                # is obs.profile.profile_train_step's (and the profiler's
+                # record_function ranges)
+                with obs.span("train_step", step=step):
+                    state, metrics = ex.grad_and_update(state, mb, labels_b,
+                                                        feats_b)
+                    sync()
                 dt = time.perf_counter() - t0
+                obs.metrics().histogram("train_step_ms").observe(dt * 1e3)
                 loss = float(metrics["loss"])
                 step_times.append(dt)
                 losses.append(loss)

@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import codegen
 from repro_torch.core.ir import passes
 from repro_torch.tune import cost
@@ -147,7 +148,10 @@ class Tuner:
         }
 
     def _bump(self, key: str, n: int = 1) -> None:
+        """Increment a tuner stat, mirrored into the obs metrics registry
+        as ``tune_<key>``."""
         self.stats[key] += n
+        obs.metrics().counter(f"tune_{key}").inc(n)
 
     # ------------------------------------------------------------------
     # measurement
