@@ -7,7 +7,19 @@ LM serving.
 Drives the port (``src/repro_torch``, never JAX nor the reference package)
 on one CUDA card, in phases, for the registry's models (RGAT, RGCN, HGT,
 rgcn_cat) and the dense LMs (gemma2-2b, qwen3-4b; the reduced variants of
-all four dense configs); any failure exits non-zero:
+all four dense configs); any failure exits non-zero. Each phase prints
+``[phase N] start`` first. Phases 3-5, 9, 11, 13 and 14 run the drivers'
+default: the executors capture one CUDA graph per signature at its
+second call and replay it (``core.executor``); phases 6 and 10 train op
+by op and then at that default. A kernel wrapper counts the launches it
+makes, op by op or into a graph being captured, not the kernels a replay
+runs: so the launch counts that are held exactly, and those of the
+``kernels`` line, come from op-by-op runs (phases 6 and 10 first, 11's
+tuned runs, 12), and the captured runs' kernels are counted from
+``torch.profiler`` traces (phases 5 and 14). The phases that record,
+time or profile single kernel calls (2, 7, 8; phase 12's LM path has no
+executor) run op by op (``compiled=False``), so their numbers stay
+comparable across versions:
 
 1. card and build: the card's name and power limit, TF32 off, every kernel
    in ``src/repro_torch/csrc`` built from source (one ``nvcc`` per file,
@@ -77,14 +89,18 @@ all four dense configs); any failure exits non-zero:
    (rtol = atol = 1e-4);
 4. the same at a larger size (bgs at scale 1.0, 1024 seeds x 4 batches),
    for RGAT and RGCN;
-5. every serve run again under ``torch.profiler``: each kernel's device
-   time per launch and per batch, and the device's busy share of the loop;
+5. every serve run again under ``torch.profiler``: the kernels the card
+   ran (replayed graphs included) equal each model's per-forward counts
+   (``FORWARD_LAUNCHES``) times the batches, each kernel's device time per
+   launch and per batch, and the device's busy share of the loop;
 6. sampled training through ``repro_torch.launch.train_rgnn.train`` (aifb
    at scale 1.0, 2 layers, 64 wide, 8 classes, fanout 5, batch 64, 1
-   epoch, HGT 2, lr 1e-2) of RGAT, RGCN and HGT: the kernels launch at each
-   model's per-step counts (``STEP_LAUNCHES``, plus the full-graph
-   forwards' ``FORWARD_LAUNCHES``), the loss is finite and falls (mean of
-   the last 10 steps below the mean of the first 10); then one
+   epoch, HGT 2, lr 1e-2) of RGAT, RGCN and HGT, op by op: the kernels
+   launch at each model's per-step counts (``STEP_LAUNCHES``, plus the
+   full-graph forwards' ``FORWARD_LAUNCHES``), the loss is finite and
+   falls (mean of the last 10 steps below the mean of the first 10); the
+   same captured (the default): the first loss bit for bit, finite and
+   falling, every repeated key replayed; then one
    ``grad_and_update`` on the card and on the CPU from one state (after 5
    card steps; see ``TrainTask``) on one mini-batch: loss rtol 1e-5,
    params and ``mu`` rtol 1e-4 / atol 1e-6 (the reference's own
@@ -111,10 +127,10 @@ all four dense configs); any failure exits non-zero:
    ``torch.cuda.set_sync_debug_mode("error")``, K9 launched; latency,
    wait, compute, seeds/s, peak memory and bucket shrinks beside the
    host-sampled run's;
-10. phase 6's RGAT training with ``sampler="device"``: the first loss
-   equal to the host-sampled run's (rtol 1e-4), a falling loss, the
-   kernels at their per-step counts (K5 with its static chunk bound), K9
-   twice a sampled batch;
+10. phase 6's RGAT training with ``sampler="device"``, op by op: the
+   first loss equal to the host-sampled run's (rtol 1e-4), a falling
+   loss, the kernels at their per-step counts (K5 with its static chunk
+   bound), K9 twice a sampled batch; then captured, as phase 6;
 11. tuning (``--tune``): (a) K6 and K8, the materialized-gather
    aggregations the tuner selects with ``fuse_gather=False``, against
    their plain versions at the calls of one RGAT and one RGCN served
@@ -182,7 +198,9 @@ all four dense configs); any failure exits non-zero:
    the port's schema with ``wait`` / ``execute`` / ``sample`` / ``layout``
    spans (the loader's on another thread track than ``execute``), and as
    many ``torch.cuda.synchronize`` calls with metrics on as with obs off
-   (counted by wrapping it); each run's p50 printed with the card; (b) the
+   and one per batch (counted by wrapping it), the captures'
+   synchronizes (the executor makes one before each) counted
+   apart, one per graph; each run's p50 printed with the card; (b) the
    same with ``sampler="device"`` (``sample_device`` / ``layout_device``
    spans, the ``sampler_traces`` counter equal to
    ``DeviceSampler.trace_count``); (c) ``CompiledRGNN.profile`` of the last
@@ -193,16 +211,43 @@ all four dense configs); any failure exits non-zero:
    ``train_rgnn.train`` of phase 6's RGAT with obs off, on, and on with
    ``trace_out`` and ``profile``: the first loss bitwise equal across
    the three (the backward's atomics make later ones vary run to run),
-   as many synchronizes on as off, each run's step p50; a ``train_step``
+   as many synchronizes on as off and one per step (the captures' apart,
+   one per graph), each run's step p50; a ``train_step``
    span and a ``train_step_ms`` observation per step,
    ``profile_train_step``'s forward / backward / optimizer / total (all
    >= 0, total >= forward) beside phase 8's profiler split;
    phase 11's tuned runs (obs on) have ``tune_*`` counters equal to the
    tuner's counts. Each run counts its launches from 0 and must launch
-   the kernels of its path.
+   the kernels of its path;
+14. loader caches and captured executors: (a) RGAT, RGCN and HGT
+   aifb-b32 served with repeating traffic (``repeat_after=4``, 12
+   batches) and both loader caches on, captured against ``compiled=False``
+   and captured again under ``torch.profiler``: every batch's logits
+   bitwise equal, the kernels the card ran captured (from the trace,
+   replays included) equal to the op-by-op launches, no new key after
+   warmup, one graph per key, a replay per repeated key, 8 block-cache
+   hits, the registry's ``loader_cache_*`` counters equal to
+   ``cache_stats``; (b) RGAT aifb-b32 over 16 fresh batches:
+   ``executor_compiled`` equals the distinct shape signatures among the
+   batches, the graphs captured those that come again; (c)
+   (a) with ``sampler="device"``; (d) RGAT aifb-b64 for one epoch through
+   ``SampledTrainer`` captured against op by op (the first loss bit for
+   bit, the others within rtol 1e-5), and step by step each captured step
+   against an op-by-op step from the same state (the loss bit for bit,
+   params and moments within rtol 1e-4 / atol 1e-6), and RGAT bgs
+   full-graph for 5 such paired steps, the captured step returning its
+   state buffers; (e) K5 captured at its counter buffer's size, replayed
+   before and after the buffer is outgrown, against its plain version and
+   a launch outside the graph; (f) a stress run, twice: 200 captures of
+   the aifb-b64 step and 200 of the bgs-b1024 forward, each by a new
+   executor held in a reference cycle, beside a host loader building and
+   copying bgs-b1024 batches the whole time, a collection forced before
+   every capture, every replay bitwise equal to its first call and no
+   collection while a stream captures. Times are printed, never gated.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: phase
-6's runs of all three models for K1-K5 and K7, phases 9 and 10 for K9,
+6's op-by-op runs of all three models for K1-K5 and K7, phases 9 and 10
+for K9 (the sampler launches K9 outside the executors),
 phase 11's tuned training and serving for K6 and K8, phase 12's serve runs
 for K10, each counted from 0 just before the run); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -806,7 +851,7 @@ def capture_main_path_calls(torch, hector_torch, cfg, unfused=False):
             torch, engine.plans, params, mb,
             {"feature": feats[mb.input_ids.long()]}, fuse_gather=False))
     with recorded_kernel_calls() as calls:
-        out = engine.apply_blocks(params, mb, feats)
+        out = engine.apply_blocks(params, mb, feats, compiled=False)
         torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "captured batch has non-finite "
           "logits")
@@ -836,7 +881,7 @@ def capture_device_calls(torch, hector_torch, cfg):
                        seed=cfg["seed"]).batch(0)
     with recorded_kernel_calls() as calls:
         mb = engine.device_sampler.sample_minibatch(seeds, batch_index=0)
-        out = engine.apply_blocks(params, mb, feats)
+        out = engine.apply_blocks(params, mb, feats, compiled=False)
         torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "captured device-sampled batch "
           "has non-finite logits")
@@ -899,17 +944,18 @@ class TrainTask:
             mb, labels = batch(step, "cuda")
             state, _ = ex.grad_and_update(
                 state, mb, labels.cuda(),
-                {"feature": self.x[mb.input_ids.long()]})
+                {"feature": self.x[mb.input_ids.long()]}, compiled=False)
         self.state = state
         self.state_cpu = tree_map(lambda t: t.cpu(), state)
         self.mb, self.batch_labels_cpu = batch(self.WARM_STEPS, "cuda")
         self.mb_cpu, _ = batch(self.WARM_STEPS, "cpu")
 
     def step(self, torch):
-        """One sampled ``grad_and_update`` on the card from the state."""
+        """One sampled ``grad_and_update`` on the card from the state, op by
+        op (phases 2, 6, 8 and 11 record and time its kernel calls)."""
         return self.engine.train_executor(self.opt).grad_and_update(
             self.state, self.mb, self.batch_labels_cpu.cuda(),
-            {"feature": self.x[self.mb.input_ids.long()]})
+            {"feature": self.x[self.mb.input_ids.long()]}, compiled=False)
 
     def cpu_step(self, torch):
         return self.cpu.train_executor(self.opt).grad_and_update(
@@ -1538,8 +1584,10 @@ def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
             n_err += 1
     long_ps = L.pad_segments(np.array([0, 5, 40005, 40100]), 32)
     long_lay = ops.padded_segments_dev(long_ps).to(dev)
-    check(long_lay.num_chunks == 1 + -(-1250 // long_lay.chunk_tiles) + 1,
-          "long group: chunk count")
+    check(int(long_lay.group_chunk_ptr[-1]) == 1 + -(
+        -1250 // long_lay.chunk_tiles) + 1 and long_lay.num_chunks ==
+        long_ps.padded_rows // 32 // long_lay.chunk_tiles + 3,
+        "long group: chunk count")
     x_p = t(rng.normal(size=(long_ps.padded_rows, 64)).astype(np.float32))
     x_p[t(long_ps.row_map < 0)] = 0.0
     err = run_compare(
@@ -2132,11 +2180,12 @@ def phase_device_serve(torch, ops, serve_rgnn, cfg, tag, host, host_logits):
 
 def phase_device_train(torch, ops, train_rgnn, cfg, host):
     """Phase 10: the sampled training of phase 6 (RGAT) with
-    ``sampler="device"``: the kernels of each step on the device-built
-    layouts (K5 with its static chunk bound), K9 twice a sampled batch
-    (one window a hop), the first step's loss equal to the host-sampled
-    run's (the same batch, the same initial weights), a falling loss, every
-    batch that outgrew its buckets rebuilt."""
+    ``sampler="device"``, op by op as phase 6 counts it: the kernels of
+    each step on the device-built layouts (K5 with its static chunk
+    bound), K9 twice a sampled batch (one window a hop), the first step's
+    loss equal to the host-sampled run's (the same batch, the same initial
+    weights), a falling loss, every batch that outgrew its buckets
+    rebuilt; then again captured (``captured_train_run``)."""
     import numpy as np
 
     model = cfg["model"]
@@ -2144,7 +2193,7 @@ def phase_device_train(torch, ops, train_rgnn, cfg, host):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     stats = train_rgnn.train(**cfg, eval_every_epochs=0, device="cuda",
-                             sampler="device",
+                             sampler="device", compiled=False,
                              log=lambda m: log(f"[{tag}] {m}"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2178,19 +2227,24 @@ def phase_device_train(torch, ops, train_rgnn, cfg, host):
         f"{stats['sampler_bucket_overflows']} overflows "
         f"({stats['sampler_overflow_rebuilds']} batches rebuilt) (phase "
         f"wall {wall:.2f} s)")
+    captured = captured_train_run(torch, train_rgnn, cfg, tag, losses,
+                                  sampler="device")
     keys = ("steps", "step_ms_p50", "step_ms_p99", "seeds_per_s",
             "sampler_bucket_shrinks", "sampler_bucket_overflows",
             "sampler_overflow_rebuilds", "sampler_trace_count")
     return dict({k: stats[k] for k in keys}, launches=launches,
                 loss_first=float(losses[0]), loss_first10=first,
-                loss_last10=last, wall_s=wall)
+                loss_last10=last, wall_s=wall, captured=captured)
 
 
 # ---------------------------------------------------------------------------
 # phase 5: where the device time goes (torch.profiler over a serve run)
 # ---------------------------------------------------------------------------
 def phase_profile(torch, serve_rgnn, cfg, tag):
-    """Serve ``cfg`` again under ``torch.profiler``: each kernel's device
+    """Serve ``cfg`` again (captured, ``serve``'s default) under
+    ``torch.profiler``: the kernels the card ran, counted from the trace
+    (replayed graphs included, which no wrapper counts) and held to the
+    model's per-forward counts times the batches; each kernel's device
     time per launch and per served batch, and the device's busy share of
     the serving loop (the profiler's host overhead inflates the loop, so
     the busy share is a lower bound)."""
@@ -2219,11 +2273,15 @@ def phase_profile(torch, serve_rgnn, cfg, tag):
     for name in served:
         count, t_us = per_kernel.get(name, (0, 0.0))
         check(count > 0, f"{tag}: profiler saw no {name} launch")
+        want = (FORWARD_LAUNCHES[cfg["model"]][name] * stats["batches"]
+                * KERNELS[name].get("per_call", 1))
+        check(count == want, f"{tag}: the profiler saw {count} {name} "
+              f"kernels, {want} expected over {stats['batches']} batches")
         count //= KERNELS[name].get("per_call", 1)     # calls, not kernels
         out[name] = dict(launches=count, device_ms_per_launch=t_us / count
                          / 1e3, device_ms_per_batch=t_us / stats["batches"]
                          / 1e3)
-        log(f"[{tag}] {name}: {count} launches, "
+        log(f"[{tag}] {name}: {count} launches run (profiler), "
             f"{out[name]['device_ms_per_launch']:.5f} ms device time per "
             f"launch, {out[name]['device_ms_per_batch']:.5f} ms per batch")
     busy_share = busy_us / 1e6 / loop_s
@@ -2265,9 +2323,46 @@ def compare_states(torch, tag, state, state_cpu, metrics, metrics_cpu):
     return worst
 
 
+def captured_train_run(torch, train_rgnn, cfg, tag, eager, **kw):
+    """``cfg`` trained again at ``train``'s default (captured): the
+    first loss bit for bit the op-by-op run's (both run their first step
+    op by op), every loss finite, the loss falling, every repeated key
+    served by a replay; returns the run's step times."""
+    import numpy as np
+
+    st = train_rgnn.train(**cfg, eval_every_epochs=0, device="cuda",
+                          log=lambda m: None, **kw)
+    torch.cuda.synchronize()
+    losses = np.asarray(st["losses"])
+    check(len(losses) == len(eager) and losses[0] == eager[0],
+          f"{tag}: captured first loss {losses[0]!r}, op by op "
+          f"{eager[0]!r}")
+    check(bool(np.isfinite(losses).all()), f"{tag}: captured run has a "
+          f"non-finite loss")
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(last < first, f"{tag}: captured loss did not fall ({first:.4f} "
+          f"-> {last:.4f})")
+    check(st["executor_replays"] == st["executor_cache_hits"]
+          and 0 < st["executor_captures"] <= st["executor_compiled"],
+          f"{tag}: {st['executor_captures']} graphs, "
+          f"{st['executor_replays']} replays for "
+          f"{st['executor_cache_hits']} repeated keys")
+    log(f"[{tag}] captured (the default): first loss equal, loss "
+        f"{first:.4f} -> {last:.4f}; {st['executor_compiled']} keys, "
+        f"{st['executor_captures']} graphs, {st['executor_replays']} "
+        f"replays; step p50 {st['step_ms_p50']:.3f} ms, p99 "
+        f"{st['step_ms_p99']:.3f} ms, {st['seeds_per_s']:.1f} seeds/s")
+    keys = ("step_ms_p50", "step_ms_p99", "seeds_per_s",
+            "executor_compiled", "executor_captures", "executor_replays")
+    return {k: st[k] for k in keys}
+
+
 def phase_train(torch, ops, train_rgnn, task, cfg):
-    """Phase 6: sampled training of ``cfg["model"]`` through the driver,
-    then one step on the card against the CPU."""
+    """Phase 6: sampled training of ``cfg["model"]`` through the driver op
+    by op (``compiled=False``: every kernel the card runs goes through
+    its wrapper, so the counts are exact), then at ``train``'s captured
+    default (``captured_train_run``), then one step on the card against
+    the CPU."""
     import numpy as np
 
     model = cfg["model"]
@@ -2275,6 +2370,7 @@ def phase_train(torch, ops, train_rgnn, task, cfg):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     stats = train_rgnn.train(**cfg, eval_every_epochs=0, device="cuda",
+                             compiled=False,
                              log=lambda m: log(f"[{tag}] {m}"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2294,13 +2390,15 @@ def phase_train(torch, ops, train_rgnn, task, cfg):
     first, last = float(losses[:10].mean()), float(losses[-10:].mean())
     check(last < first, f"{tag}: loss did not fall (first 10 steps "
           f"{first:.4f}, last 10 {last:.4f})")
-    log(f"[{tag}] {steps} steps: loss {first:.4f} (mean of the first 10) "
-        f"-> {last:.4f} (last 10); step p50 {stats['step_ms_p50']:.3f} ms, "
+    log(f"[{tag}] {steps} steps op by op: loss {first:.4f} (mean of the "
+        f"first 10) -> {last:.4f} (last 10); step p50 "
+        f"{stats['step_ms_p50']:.3f} ms, "
         f"p99 {stats['step_ms_p99']:.3f} ms, {stats['seeds_per_s']:.1f} "
         f"seeds/s; full-graph eval: val loss {stats['full_val_loss']:.4f} "
         f"acc {stats['full_val_acc']:.4f}, train loss "
         f"{stats['full_train_loss']:.4f} acc {stats['full_train_acc']:.4f} "
         f"(phase wall {wall:.2f} s)")
+    captured = captured_train_run(torch, train_rgnn, cfg, tag, losses)
     state, metrics = task.step(torch)
     state_cpu, metrics_cpu = task.cpu_step(torch)
     worst = compare_states(torch, tag, state, state_cpu, metrics,
@@ -2310,7 +2408,8 @@ def phase_train(torch, ops, train_rgnn, task, cfg):
             "full_train_acc", "executor_compiled")
     return dict({k: stats[k] for k in keys}, launches=launches,
                 loss_first=float(losses[0]), loss_first10=first,
-                loss_last10=last, wall_s=wall, step_parity=worst)
+                loss_last10=last, wall_s=wall, step_parity=worst,
+                captured=captured)
 
 
 def phase_full_graph(torch, task, train_rgnn, cfg, split):
@@ -2328,7 +2427,8 @@ def phase_full_graph(torch, task, train_rgnn, cfg, split):
     tag = f"phase 7 {task.engine.cfg.model}"
     out = {}
     fg = FullGraphTrainer(task.engine, task.feats, task.labels,
-                          task.train_ids, opt=task.opt, log=None)
+                          task.train_ids, opt=task.opt, compiled=False,
+                          log=None)
     fg_cpu = FullGraphTrainer(task.cpu, task.feats, task.labels,
                               task.train_ids, opt=task.opt, log=None)
     t0 = time.perf_counter()
@@ -2346,7 +2446,7 @@ def phase_full_graph(torch, task, train_rgnn, cfg, split):
     torch.cuda.synchronize()
     out["bgs_build_s"] = time.perf_counter() - t0
     fg = FullGraphTrainer(engine, feats, labels, train_ids, opt=task.opt,
-                          log=None)
+                          compiled=False, log=None)
     state = fg.init_state(engine.init(cfg["seed"]))
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
@@ -2771,10 +2871,12 @@ def _tuned_entries(path):
 
 def phase_tune_train(torch, ops, train_rgnn, cache_dir):
     """Phase 11 (c): RGAT training at aifb-b64 (phase 6's configuration, 1
-    epoch) with ``tune="full"`` on a fresh cache: the full-graph layout
-    (both candidates timed), materialization and op variants, then the
-    block-scale variants; then the same run with ``tune="cached"``: zero
-    measurements, every decision replayed, the same decision table."""
+    epoch) with ``tune="full"`` on a fresh cache, op by op (its launches
+    are the ``kernels`` line's for K6): the full-graph layout (both
+    candidates timed), materialization and op variants, then the
+    block-scale variants; then the same run with ``tune="cached"`` at the
+    captured default: zero measurements, every decision replayed, the
+    same decision table, the same first loss bit for bit."""
     import numpy as np
 
     cfg = dict(TRAIN, model="rgat")
@@ -2789,7 +2891,8 @@ def phase_tune_train(torch, ops, train_rgnn, cache_dir):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     full = train_rgnn.train(**cfg, eval_every_epochs=0, device="cuda",
-                            tune="full", tune_cache=cache, log=tlog)
+                            tune="full", tune_cache=cache, compiled=False,
+                            log=tlog)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -2826,10 +2929,14 @@ def phase_tune_train(torch, ops, train_rgnn, cache_dir):
           f"the first run made {want_hits}")
     check(cached["tune_decisions"] == full["tune_decisions"],
           "tune=cached built another decision table")
+    check(cached["losses"][0] == full["losses"][0], f"tune=cached first "
+          f"loss {cached['losses'][0]!r} captured, "
+          f"{full['losses'][0]!r} op by op")
     mirror["cached"] = tune_mirror(cached, "phase 11 train tune=cached")
     log(f"[phase 11 train] tune=cached: 0 measurements, "
         f"{cached['tune_cache_hits']} replayed, decisions "
-        f"{cached['tune_decisions']} (the same); step p50 "
+        f"{cached['tune_decisions']} (the same); captured, first loss "
+        f"equal to the op-by-op run's; step p50 "
         f"{cached['step_ms_p50']:.3f} ms; wall {wall_cached:.2f} s")
     keys = ("tune_measurements", "tune_tuned_ops", "tune_cache_hits",
             "tune_decisions", "step_ms_p50", "step_ms_p99", "seeds_per_s")
@@ -2843,8 +2950,11 @@ def phase_tune_train(torch, ops, train_rgnn, cache_dir):
 def phase_tune_serve(torch, hector_torch, ops, serve_rgnn, cache_dir):
     """Phase 11 (d): RGCN served at aifb-b32 with ``tune="full"``
     (materialization at engine build, block-scale variants on a warm
-    batch): every batch's logits equal the same mini-batch on the CPU
-    (default decisions) within rtol = atol = 2e-4."""
+    batch), op by op (its launches are the ``kernels`` line's for K8):
+    every batch's logits equal the same mini-batch on the CPU (default
+    decisions) within rtol = atol = 2e-4; then served again with
+    ``tune="cached"`` at the captured default: zero measurements, every
+    batch's logits bitwise equal to the op-by-op run's."""
     cfg = dict(SERVE_DEFAULTS, model="rgcn")
     batches = []
     lines = []
@@ -2855,9 +2965,22 @@ def phase_tune_serve(torch, hector_torch, ops, serve_rgnn, cache_dir):
     ops.reset_launch_counts()
     stats = serve_rgnn.serve(**cfg, device="cuda", tune="full",
                              tune_cache=str(cache_dir / "serve.json"),
-                             on_batch=keep, log=lines.append)
+                             compiled=False, on_batch=keep,
+                             log=lines.append)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    replayed = []
+    cached = serve_rgnn.serve(
+        **cfg, device="cuda", tune="cached",
+        tune_cache=str(cache_dir / "serve.json"), log=lambda m: None,
+        on_batch=lambda mb, y: replayed.append(y.detach().cpu()))
+    check(cached["tune_measurements"] == 0 and cached["tune_decisions"]
+          == stats["tune_decisions"], "serve tune=cached measured or built "
+          "another decision table")
+    check(len(replayed) == len(batches) and all(
+        torch.equal(a, b[2]) for a, b in zip(replayed, batches)),
+        "serve tune=cached (captured): logits differ from the op-by-op "
+        "tune=full run's")
     check(stats["tune_measurements"] > 0, "serve tune=full measured nothing")
     mirror = tune_mirror(stats, "phase 11 serve tune=full")
     check(launches[K8] > 0, "K8 never launched by serve tune=full")
@@ -2870,7 +2993,10 @@ def phase_tune_serve(torch, hector_torch, ops, serve_rgnn, cache_dir):
         f"keys, {tuned['unfused']} chose fuse_gather=False, tile_rows "
         f"{tuned['tile_rows']}; all {len(batches)} batches match the CPU "
         f"run (max abs err {worst:.3g}); latency p50 "
-        f"{stats['latency_ms_p50']:.3f} ms; launches {json.dumps(launches)}")
+        f"{stats['latency_ms_p50']:.3f} ms; launches {json.dumps(launches)}; "
+        f"tune=cached captured: logits bitwise equal, "
+        f"{cached['executor_captures']} graphs, latency p50 "
+        f"{cached['latency_ms_p50']:.3f} ms")
     return dict(latency_ms_p50=stats["latency_ms_p50"],
                 latency_ms_p95=stats["latency_ms_p95"],
                 seeds_per_s=stats["seeds_per_s"],
@@ -3592,12 +3718,17 @@ TUNE_STATS = ("measurements", "cache_hits", "tuned_ops")
 @contextlib.contextmanager
 def counted_syncs(torch):
     """Count the calls to ``torch.cuda.synchronize`` inside the block
-    (every module of the port looks it up at call time)."""
-    count = [0]
+    (every module of the port looks it up at call time): ``count[0]``
+    the steady state's, ``count[1]`` those made while an executor
+    captures a graph (the executor synchronizes once before each
+    capture)."""
+    from repro_torch.core import executor
+
+    count = [0, 0]
     orig = torch.cuda.synchronize
 
     def counted(*args, **kwargs):
-        count[0] += 1
+        count[1 if executor.capturing() else 0] += 1
         return orig(*args, **kwargs)
 
     torch.cuda.synchronize = counted
@@ -3704,6 +3835,7 @@ def obs_serve(torch, hector_torch, ops, serve_rgnn, cfg, tag, trace_dir,
                 **kw)
         torch.cuda.synchronize()
         runs[mode] = dict(stats=stats, logits=logits, syncs=syncs[0],
+                          capture_syncs=syncs[1],
                           launches=ops.launch_counts(), engine=engines[-1])
     off, on, traced = runs["off"], runs["on"], runs["traced"]
     n = cfg["num_batches"]
@@ -3735,9 +3867,13 @@ def obs_serve(torch, hector_torch, ops, serve_rgnn, cfg, tag, trace_dir,
                   f"sampler_traces counter "
                   f"{snapshot_counter_total(snap, 'sampler_traces')}, "
                   f"DeviceSampler.trace_count {st['sampler_traces']}")
-    check(on["syncs"] == off["syncs"], f"{tag}: {on['syncs']} "
+    check(on["syncs"] == off["syncs"] == n, f"{tag}: {on['syncs']} "
           f"torch.cuda.synchronize calls with metrics on, {off['syncs']} "
-          f"with obs off")
+          f"with obs off, outside captures, for {n} batches")
+    for mode, r in runs.items():
+        caps = r["stats"]["executor_captures"]
+        check(r["capture_syncs"] == caps > 0, f"{tag} {mode}: "
+              f"{r['capture_syncs']} synchronizes inside {caps} captures")
     doc = json.loads(trace.read_text())
     errs = schema.validate_trace(doc) + schema.require_phases(
         doc, OBS_PHASES[sampler])
@@ -3761,8 +3897,10 @@ def obs_serve(torch, hector_torch, ops, serve_rgnn, cfg, tag, trace_dir,
         f"off / on / traced; executor_traces "
         f"{on['stats']['executor_traces']} (counter = stats), "
         f"{on['syncs']} torch.cuda.synchronize calls with metrics on = "
-        f"{off['syncs']} off ({traced['syncs']} traced, with the "
-        f"profile); trace valid, {len(spans)} spans, phases "
+        f"{off['syncs']} off = one per batch, besides "
+        f"{on['capture_syncs']} in the {on['stats']['executor_captures']} "
+        f"captures ({traced['syncs']} traced, with the profile); trace "
+        f"valid, {len(spans)} spans, phases "
         f"{sorted(tids)}; launches (off) {json.dumps(launched)}; latency "
         f"p50 ms off {p50['off']:.3f} / on {p50['on']:.3f} / traced "
         f"{p50['traced']:.3f}")
@@ -3775,6 +3913,7 @@ def obs_serve(torch, hector_torch, ops, serve_rgnn, cfg, tag, trace_dir,
         p50_ms=p50, p95_ms={m: r["stats"]["latency_ms_p95"]
                             for m, r in runs.items()},
         syncs={m: r["syncs"] for m, r in runs.items()},
+        capture_syncs={m: r["capture_syncs"] for m, r in runs.items()},
         executor_traces=on["stats"]["executor_traces"],
         sampler_traces=on["stats"].get("sampler_traces"),
         phases=traced["stats"]["phases"], spans=len(spans),
@@ -3829,11 +3968,20 @@ def obs_train(torch, ops, train_rgnn, trace_dir, phase8, card):
                                   eval_every_epochs=0, device="cuda",
                                   obs_mode=mode, log=lambda m: None)
         runs[mode] = dict(losses=st["losses"], syncs=syncs[0],
+                          capture_syncs=syncs[1], steps=st["steps"],
+                          graphs=st["executor_captures"],
                           step_ms_p50=st["step_ms_p50"],
                           retraces=st["retraces_after_warmup"])
-    check(runs["on"]["syncs"] == runs["off"]["syncs"], f"{tag}: "
-          f"{runs['on']['syncs']} torch.cuda.synchronize calls with "
-          f"metrics on, {runs['off']['syncs']} with obs off")
+    check(runs["on"]["syncs"] == runs["off"]["syncs"]
+          == runs["off"]["steps"], f"{tag}: {runs['on']['syncs']} "
+          f"torch.cuda.synchronize calls with metrics on, "
+          f"{runs['off']['syncs']} with obs off, outside captures, for "
+          f"{runs['off']['steps']} steps")
+    for mode in ("off", "on"):
+        r = runs[mode]
+        check(r["capture_syncs"] == r["graphs"] > 0, f"{tag} {mode}: "
+              f"{r['capture_syncs']} synchronizes inside {r['graphs']} "
+              f"captures")
     ops.reset_launch_counts()
     stats = train_rgnn.train(**dict(TRAIN, model="rgat"),
                              eval_every_epochs=0, device="cuda",
@@ -3873,7 +4021,10 @@ def obs_train(torch, ops, train_rgnn, trace_dir, phase8, card):
         f"train_step_ms observations = {stats['steps']} steps; first loss "
         f"{firsts['off']!r} off = on = traced (max abs loss difference "
         f"off / on over the epoch {spread:.3g}); "
-        f"{runs['on']['syncs']} torch.cuda.synchronize calls on = off; "
+        f"{runs['on']['syncs']} torch.cuda.synchronize calls on = off "
+        f"outside captures ({runs['on']['steps']} steps), besides "
+        f"{runs['on']['capture_syncs']} in the {runs['on']['graphs']} "
+        f"captures; "
         f"step p50 ms off {runs['off']['step_ms_p50']:.3f} / on "
         f"{runs['on']['step_ms_p50']:.3f} / traced "
         f"{runs['traced']['step_ms_p50']:.3f}; launches (traced) "
@@ -3889,6 +4040,8 @@ def obs_train(torch, ops, train_rgnn, trace_dir, phase8, card):
     return dict(steps=stats["steps"], spans=steps,
                 step_ms_p50={m: r["step_ms_p50"] for m, r in runs.items()},
                 syncs={m: r.get("syncs") for m, r in runs.items()},
+                capture_syncs={m: r.get("capture_syncs")
+                               for m, r in runs.items()},
                 first_loss=firsts["off"], loss_max_abs_diff=spread,
                 profile_ms=ph,
                 phase8_range_device_ms=p8["range_device_ms"],
@@ -3927,6 +4080,677 @@ def phase_obs(torch, hector_torch, ops, serve_rgnn, train_rgnn, phase8,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: loader caches and captured executors
+# ---------------------------------------------------------------------------
+# repeating traffic with both loader caches on (the reference driver's
+# --repeat-after 4 --cache-blocks 64 --cache-layouts 256)
+REPEAT = dict(repeat_after=4, cache_blocks=64, cache_layouts=256,
+              num_batches=12)
+CAPTURE_MODELS = ("rgat", "rgcn", "hgt")
+FRESH_BATCHES = 16
+STRESS_CAPTURES = 200
+BGS_STEPS = 5
+
+
+def cache_counters(snap, name):
+    """``(hits, misses)`` of the loader cache ``name`` in a metrics
+    snapshot."""
+    def total(counter):
+        return sum(it["value"] for it in snap.get("counters", ())
+                   if it["name"] == counter
+                   and it["labels"].get("cache") == name)
+    return total("loader_cache_hits"), total("loader_cache_misses")
+
+
+def kernels_run(torch, prof):
+    """``{wrapper name: calls}`` of every ported kernel the card ran in a
+    ``torch.profiler`` session, counted from the trace (the kernels of
+    replayed graphs included); fails if a count is not a whole number of
+    calls."""
+    raw = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, meta in KERNELS.items():
+            if meta["symbol"] in e.key:
+                raw[name] = raw.get(name, 0) + e.count
+    out = {}
+    for name, n in raw.items():
+        per_call = KERNELS[name].get("per_call", 1)
+        check(n % per_call == 0, f"{name}: {n} kernels traced, not a "
+              f"multiple of {per_call} a call")
+        out[name] = n // per_call
+    return out
+
+
+def captured_against_eager(torch, ops, serve_rgnn, cfg, tag, card):
+    """Phase 14 (a) / (c): ``cfg`` served with the drivers' default
+    (captured), with ``compiled=False`` (its launches counted by the
+    wrappers from 0: every kernel it runs goes through one) and captured
+    again under ``torch.profiler``: every batch's logits bitwise equal
+    across the three, the kernels the card ran in the profiled captured
+    run (replays included) equal to the op-by-op run's launches, no new
+    key after warmup, one graph per key (every key repeats), every
+    repeated key served by a replay, and the registry's loader-cache
+    counters equal to ``cache_stats``. Prints the latency p50 over every
+    batch and over the third pass on (the steady state: replays, and
+    block-cache hits both ways)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = {}
+    for mode in ("captured", "eager", "profiled"):
+        logits = []
+        ops.reset_launch_counts()
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if mode == "profiled" else contextlib.nullcontext()) as prof:
+            stats = serve_rgnn.serve(
+                **cfg, device="cuda", compiled=mode != "eager",
+                log=lambda m: None,
+                on_batch=lambda mb, y: logits.append(y.detach().clone()))
+            torch.cuda.synchronize()
+        runs[mode] = dict(stats=stats, logits=logits,
+                          launches=ops.launch_counts())
+        if prof is not None:
+            runs[mode]["ran"] = kernels_run(torch, prof)
+    cap, eag, prof_run = runs["captured"], runs["eager"], runs["profiled"]
+    n = cfg["num_batches"]
+    check(len(cap["logits"]) == len(eag["logits"])
+          == len(prof_run["logits"]) == n, f"{tag}: batches missing")
+    for i, (a, b, c) in enumerate(zip(cap["logits"], eag["logits"],
+                                      prof_run["logits"])):
+        check(bool(torch.equal(a, b) and torch.equal(c, b)),
+              f"{tag}: batch {i} logits differ captured / op by op / "
+              f"profiled (max abs {float((a - b).abs().max()):.3g})")
+    launched = {k: v for k, v in eag["launches"].items() if v}
+    check(prof_run["ran"] == launched, f"{tag}: kernels run captured "
+          f"(profiler) {prof_run['ran']} / launched op by op {launched}")
+    for name in FORWARD_LAUNCHES[cfg["model"]]:
+        check(launched.get(name, 0) > 0, f"{tag}: {name} never launched")
+    for mode, r in runs.items():
+        st = r["stats"]
+        check(st["retraces_after_warmup"] == 0, f"{tag} {mode}: "
+              f"{st['retraces_after_warmup']} new keys after warmup")
+        for name in ("block_cache", "layout_cache"):
+            if f"{name}_hits" not in st:
+                continue
+            got = cache_counters(st["metrics"], name)
+            want = (st[f"{name}_hits"], st[f"{name}_misses"])
+            check(got == want, f"{tag} {mode}: {name} counters {got}, "
+                  f"cache_stats {want}")
+        if mode != "eager":
+            check(st["executor_captures"] == st["executor_compiled"] > 0
+                  and st["executor_replays"] == st["executor_cache_hits"],
+                  f"{tag} {mode}: {st['executor_captures']} graphs, "
+                  f"{st['executor_replays']} replays for "
+                  f"{st['executor_compiled']} keys, "
+                  f"{st['executor_cache_hits']} repeats")
+    st = cap["stats"]
+    check(st["block_cache_hits"] == n - cfg["repeat_after"],
+          f"{tag}: {st['block_cache_hits']} block-cache hits")
+    p50 = {m: r["stats"]["latency_ms_p50"] for m, r in runs.items()}
+    # from the third pass on: replays captured, cache hits both ways
+    steady = {m: statistics.median(r["stats"]["batch_latency_ms"][
+        2 * cfg["repeat_after"]:]) for m, r in runs.items()}
+    log(f"[{tag}] {card}: logits of all {n} batches bitwise equal "
+        f"captured / op by op / captured under the profiler; kernels run "
+        f"captured (profiler, replays included) = launched op by op "
+        f"{json.dumps(launched)}; "
+        f"{st['executor_compiled']} keys = {st['executor_captures']} "
+        f"graphs, {st['executor_replays']} replays, 0 new after warmup; "
+        f"block cache {st['block_cache_hits']} hits / "
+        f"{st['block_cache_misses']} misses"
+        + (f", layout cache {st['layout_cache_hits']} / "
+           f"{st['layout_cache_misses']}" if "layout_cache_hits" in st
+           else "")
+        + f" (counters = cache_stats); latency p50 ms captured "
+        f"{p50['captured']:.3f} / op by op {p50['eager']:.3f}, from batch "
+        f"{2 * cfg['repeat_after']} on {steady['captured']:.3f} / "
+        f"{steady['eager']:.3f}; compute mean ms "
+        f"{st['compute_ms_mean']:.3f} / "
+        f"{eag['stats']['compute_ms_mean']:.3f} (the captures included)")
+    keys = ("latency_ms_p50", "latency_ms_p95", "compute_ms_mean",
+            "wait_ms_mean", "seeds_per_s", "executor_compiled",
+            "executor_captures", "executor_replays", "block_cache_hits",
+            "block_cache_misses", "layout_cache_hits", "layout_cache_misses")
+    out = {m: {k: r["stats"].get(k) for k in keys}
+           | {"launches": r["launches"], "steady_latency_ms_p50": steady[m]}
+           for m, r in runs.items()}
+    out["profiled"]["kernels_run"] = prof_run["ran"]
+    return out
+
+
+def fresh_signatures(torch, serve_rgnn, card):
+    """Phase 14 (b): RGAT aifb-b32 over 16 fresh batches: the executor
+    counts exactly one key per distinct shape signature and captures one
+    graph per signature that comes again."""
+    from repro_torch.core import executor
+
+    sigs = []
+
+    def keep(mb, _):
+        sigs.append(executor.signature(
+            (mb.tensors, mb.layouts, mb.dst_locals, mb.seed_perm,
+             mb.input_ids)))
+
+    stats = serve_rgnn.serve(**dict(SERVE_DEFAULTS,
+                                    num_batches=FRESH_BATCHES),
+                             device="cuda", on_batch=keep,
+                             log=lambda m: None)
+    torch.cuda.synchronize()
+    seen = {}
+    for sig in sigs:
+        seen[sig] = seen.get(sig, 0) + 1
+    distinct = len(seen)
+    repeated = sum(1 for c in seen.values() if c > 1)
+    check(stats["executor_compiled"] == distinct
+          and stats["executor_captures"] == repeated,
+          f"phase 14 b: {stats['executor_compiled']} keys, "
+          f"{stats['executor_captures']} graphs for {distinct} distinct "
+          f"shape signatures, {repeated} of them repeated")
+    log(f"[phase 14 b rgat aifb] {card}: {FRESH_BATCHES} fresh batches, "
+        f"{distinct} distinct shape signatures ({repeated} repeated), "
+        f"executor_compiled {stats['executor_compiled']}, graphs captured "
+        f"{stats['executor_captures']}; latency p50 "
+        f"{stats['latency_ms_p50']:.3f} ms")
+    return dict(batches=FRESH_BATCHES, distinct_signatures=distinct,
+                repeated_signatures=repeated,
+                executor_compiled=stats["executor_compiled"],
+                captures=stats["executor_captures"],
+                latency_ms_p50=stats["latency_ms_p50"])
+
+
+def states_close(torch, tag, a, b):
+    """Params and moments of two train states within rtol 1e-4 / atol
+    1e-6 (phase 6's step-parity bounds); returns the largest
+    differences."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    worst = {}
+    for part in ("params", "mu", "nu"):
+        err = 0.0
+        for x, y in zip(tree_leaves(getattr(a, part)),
+                        tree_leaves(getattr(b, part))):
+            err = max(err, float((x - y).abs().max()))
+            check(bool(torch.allclose(x, y, rtol=1e-4, atol=1e-6)),
+                  f"{tag}: {part} captured / op by op differ (max abs "
+                  f"{float((x - y).abs().max()):.3g})")
+        worst[part] = err
+    return worst
+
+
+def losses_close(tag, cap, eag):
+    """The first loss bit for bit, every later one within rtol 1e-5."""
+    check(len(cap) == len(eag), f"{tag}: {len(cap)} / {len(eag)} steps")
+    check(cap[0] == eag[0], f"{tag}: first loss {cap[0]!r} captured, "
+          f"{eag[0]!r} op by op")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(cap, eag)):
+        worst = max(worst, abs(a - b))
+        check(abs(a - b) <= 1e-5 * abs(b), f"{tag}: step {i} loss "
+              f"{a!r} captured, {b!r} op by op")
+    return worst
+
+
+def paired_steps(torch, tag, step, batches, state):
+    """Run ``step(state, batch, compiled)`` over ``batches``, captured,
+    and beside every step an op-by-op step from a copy of the same input
+    state: each loss bit for bit (the forward's kernels are deterministic),
+    the new params and moments within rtol 1e-4 / atol 1e-6 (phase 6's
+    one-step bounds; the backward's atomics differ run to run). Returns
+    the captured state, the losses, the largest state differences, both
+    step times and the state buffers' pointers per step."""
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    losses, worst, ptrs = [], {}, []
+    ms = {"captured": [], "eager": []}
+    for i, batch in enumerate(batches):
+        before = tree_map(torch.clone, state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m_c = step(state, batch, True)
+        loss = float(m_c["loss"])
+        ms["captured"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        want, m_e = step(before, batch, False)
+        loss_e = float(m_e["loss"])
+        ms["eager"].append((time.perf_counter() - t0) * 1e3)
+        check(loss == loss_e, f"{tag}: step {i} loss {loss!r} captured, "
+              f"{loss_e!r} op by op from the same state")
+        for part, err in states_close(torch, f"{tag} step {i}", state,
+                                      want).items():
+            worst[part] = max(worst.get(part, 0.0), err)
+        losses.append(loss)
+        ptrs.append([t.data_ptr() for t in tree_leaves(state)])
+    return state, losses, worst, ms, ptrs
+
+
+def captured_training(torch, train_rgnn, card):
+    """Phase 14 (d): captured training against op by op. RGAT aifb-b64 for
+    one epoch, twice: through ``SampledTrainer`` (captured and
+    ``compiled=False`` from the same initial state: the first loss bit for
+    bit, every later one within rtol 1e-5, zero new keys after warmup,
+    every repeated key served by a replay; the final states' difference
+    is printed: the
+    backward's atomics compound over 91 Adam steps), and step by step
+    (``paired_steps``: every captured step against an op-by-op step from
+    the same state). RGAT bgs full-graph (``FullGraphTrainer``) for 5
+    steps with ``paired_steps``; the captured step returns the same state
+    buffers from its first replay on."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import executor
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.sampling import EpochSeedStream
+    from repro_torch.train import (EngineConfig, FullGraphTrainer,
+                                   SampledTrainer)
+
+    out = {}
+    cfg = TRAIN
+    ecfg = EngineConfig(model="rgat", layers=cfg["layers"], dim=cfg["dim"],
+                        hidden=cfg["hidden"], classes=cfg["classes"],
+                        fanouts=cfg["fanouts"], tile=cfg["tile"],
+                        node_block=cfg["node_block"], seed=cfg["seed"],
+                        device="cuda")
+    engine, feats, labels, train_ids, val_ids = train_rgnn.build_task(
+        cfg["dataset"], cfg["scale"], ecfg, cfg["seed"])
+    bpe = EpochSeedStream(train_ids, cfg["batch_size"]).batches_per_epoch
+
+    def opt():
+        return AdamW(learning_rate=cosine_schedule(cfg["lr"], 5, bpe),
+                     weight_decay=0.0)
+
+    runs = {}
+    for mode in ("captured", "eager"):
+        tr = SampledTrainer(engine, feats, labels, train_ids, val_ids,
+                            opt=opt(), compiled=mode == "captured",
+                            log=None)
+        state = tr.init_state(engine.init(cfg["seed"]))
+        state, st = tr.train(state, epochs=1, batch_size=cfg["batch_size"])
+        torch.cuda.synchronize()
+        runs[mode] = dict(state=state, stats=st,
+                          captures=tr.step_exec.captures,
+                          replays=tr.step_exec.replays)
+    cap, eag = runs["captured"], runs["eager"]
+    tag = "phase 14 d rgat aifb-b64"
+    worst = losses_close(tag, cap["stats"]["losses"],
+                         eag["stats"]["losses"])
+    drift = {part: max(float((x - y).abs().max()) for x, y in zip(
+        tree_leaves(getattr(cap["state"], part)),
+        tree_leaves(getattr(eag["state"], part))))
+        for part in ("params", "mu", "nu")}
+    st = cap["stats"]
+    check(st["retraces_after_warmup"] == 0
+          and cap["replays"] == st["executor_cache_hits"]
+          and 0 < cap["captures"] <= st["executor_compiled"],
+          f"{tag}: {cap['captures']} graphs, {cap['replays']} replays, "
+          f"{st['executor_compiled']} keys, {st['executor_cache_hits']} "
+          f"repeats")
+    p50 = {m: r["stats"]["step_ms_p50"] for m, r in runs.items()}
+    log(f"[{tag}] {card}: SampledTrainer, first loss {st['losses'][0]!r} "
+        f"captured = op by op; {st['steps']} losses within rtol 1e-5 (max "
+        f"abs {worst:.3g}); final states differ by "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in drift.items()})
+        + f" (max abs); step p50 ms op by op {p50['eager']:.3f} / captured "
+        f"{p50['captured']:.3f}, p99 {eag['stats']['step_ms_p99']:.3f} / "
+        f"{st['step_ms_p99']:.3f}; {st['executor_compiled']} keys, "
+        f"{cap['captures']} graphs, {cap['replays']} replays, 0 new after "
+        f"warmup")
+    out["aifb_b64"] = {m: dict(
+        step_ms_p50=r["stats"]["step_ms_p50"],
+        step_ms_p99=r["stats"]["step_ms_p99"],
+        seeds_per_s=r["stats"]["seeds_per_s"],
+        executor_compiled=r["stats"]["executor_compiled"],
+        captures=r["captures"]) for m, r in runs.items()}
+    out["aifb_b64"].update(loss_max_abs_diff=worst, state_drift=drift)
+
+    loader = engine.make_loader(EpochSeedStream(
+        train_ids, cfg["batch_size"], seed=cfg["seed"]), num_batches=bpe)
+    try:
+        batches = [(mb, torch.from_numpy(mb.seq.slice_labels(labels))
+                    .cuda()) for mb in loader]
+    finally:
+        loader.close()
+    x = torch.from_numpy(feats).cuda()
+    ex_c = executor.BlockTrainExecutor(engine.plans, opt(),
+                                       decisions=engine.decisions)
+    ex_e = executor.BlockTrainExecutor(engine.plans, ex_c.opt,
+                                       decisions=engine.decisions)
+
+    def sampled_step(state, batch, compiled):
+        mb, lab = batch
+        ex = ex_c if compiled else ex_e
+        return ex.grad_and_update(state, mb, lab,
+                                  {"feature": x[mb.input_ids.long()]},
+                                  compiled=compiled)
+
+    _, losses, worst, ms, _ = paired_steps(
+        torch, tag, sampled_step, batches,
+        ex_c.opt.init(engine.init(cfg["seed"])))
+    log(f"[{tag}] {card}: step by step, each of {len(losses)} captured "
+        f"steps against an op-by-op step from the same state: losses bit "
+        f"for bit, params / mu / nu within rtol 1e-4 / atol 1e-6 (max abs "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()})
+        + f"); {ex_c.captures} graphs; step p50 ms captured "
+        f"{np.median(ms['captured']):.3f} / op by op "
+        f"{np.median(ms['eager']):.3f}")
+    out["aifb_b64"]["paired"] = dict(
+        steps=len(losses), state_max_abs_diff=worst,
+        step_ms_p50={k: float(np.median(v)) for k, v in ms.items()})
+
+    tag = "phase 14 d rgat bgs full-graph"
+    bcfg = dataclasses.replace(ecfg, device="cuda")
+    engine, feats, labels, train_ids, _ = train_rgnn.build_task(
+        "bgs", 1.0, bcfg, cfg["seed"])
+    fg = {c: FullGraphTrainer(engine, feats, labels, train_ids, opt=opt(),
+                              compiled=c, log=None) for c in (True, False)}
+
+    def full_step(state, _, compiled):
+        return fg[compiled].step(state)
+
+    state, losses, worst, ms, ptrs = paired_steps(
+        torch, tag, full_step, range(BGS_STEPS),
+        fg[True].init_state(engine.init(cfg["seed"])))
+    check(fg[True].step_exec.captures == 1
+          and all(p == ptrs[1] for p in ptrs[1:]),
+          f"{tag}: the captured step does not return its state buffers")
+    after = {k: float(np.median(v[2:])) for k, v in ms.items()}
+    log(f"[{tag}] {card}: {BGS_STEPS} captured steps, each against an "
+        f"op-by-op step from the same state: losses {losses} bit for bit, "
+        f"params / mu / nu within rtol 1e-4 / atol 1e-6 (max abs "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()})
+        + f"); one graph, the same state buffers from its first replay on; "
+        f"step ms op by op {[round(v, 3) for v in ms['eager']]}, captured "
+        f"{[round(v, 3) for v in ms['captured']]} (the first runs op by "
+        f"op, the second captures); median after the second "
+        f"{after['eager']:.3f} / {after['captured']:.3f}")
+    out["bgs_full_graph"] = dict(losses=losses, step_ms=ms,
+                                 step_ms_median_after_second=after,
+                                 state_max_abs_diff=worst)
+    return out
+
+
+def k5_counter_growth(torch, SK, L, ops, card):
+    """Phase 14 (e): K5 captured in a graph at the counter buffer's size,
+    replayed, then launched op by op with one more group (the buffer
+    grows into a new one), then replayed again: both replays equal the
+    plain version and a launch outside the graph bit for bit, and the
+    captured (outgrown) buffer reads zero after each."""
+    import gc
+
+    import numpy as np
+
+    # the wrappers key the buffers by the tensors' device, index included
+    dev = torch.device("cuda", torch.cuda.current_device())
+    SK._outer_counters(dev, 1)
+    have = SK._counters[dev].numel()
+    rng = np.random.default_rng(14)
+
+    def inputs(groups):
+        sizes = rng.integers(1, 40, groups)
+        ps = L.pad_segments(np.concatenate([[0], np.cumsum(sizes)]), 32)
+        lay = ops.padded_segments_dev(ps).to(dev)
+        x = torch.from_numpy(rng.normal(size=(ps.padded_rows, 64))
+                             .astype(np.float32)).to(dev)
+        x[torch.from_numpy(ps.row_map < 0).to(dev)] = 0.0
+        dy = torch.from_numpy(rng.normal(size=(ps.padded_rows, 64))
+                              .astype(np.float32)).to(dev)
+        kw = dict(num_groups=groups, num_chunks=lay.num_chunks, tile=32,
+                  chunk_tiles=lay.chunk_tiles)
+        return (x, dy, lay.group_tile_ptr, lay.group_chunk_ptr), kw
+
+    args, kw = inputs(have)           # 64 x 64: one counter per group
+    want = SK.segment_outer_padded(*args, **kw)
+    plain = SK.segment_outer_padded_plain(*(a.cpu() for a in args), **kw)
+    captured_buf = SK._counters[dev]
+    graph = torch.cuda.CUDAGraph()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = SK.segment_outer_padded(*args, **kw)
+    finally:
+        gc.enable()
+
+    def replay(when):
+        graph.replay()
+        torch.cuda.synchronize()
+        check(bool(torch.equal(out, want)), f"phase 14 e: K5 replayed "
+              f"{when} differs from a launch outside the graph")
+        err = float((out.cpu() - plain).abs().max())
+        check(bool(torch.allclose(out.cpu(), plain, rtol=TOLERANCE[K5],
+                                  atol=TOLERANCE[K5])),
+              f"phase 14 e: K5 replayed {when} differs from its plain "
+              f"version (max abs err {err:.3g})")
+        check(not bool(captured_buf.any()), f"phase 14 e: the captured "
+              f"counters are not zero after the replay {when}")
+        return err
+
+    err = replay("before the growth")
+    bigger, kw2 = inputs(have + 1)
+    SK.segment_outer_padded(*bigger, **kw2)
+    grown = SK._counters[dev].numel()
+    check(grown > have and SK._counters[dev] is not captured_buf,
+          f"phase 14 e: the counter buffer did not grow ({have} -> "
+          f"{grown})")
+    # reuse the freed sizes: a freed buffer would now hold these values
+    junk = [torch.full((have,), 7, dtype=torch.int32, device=dev)
+            for _ in range(4)]
+    err = max(err, replay("after the growth"))
+    del junk
+    log(f"[phase 14 e] {card}: K5 replayed before and after its counters "
+        f"grew from {have} to {grown} ({have + 1} groups op by op in "
+        f"between): equal to the plain version (max abs err {err:.3g}) and "
+        f"to a launch outside the graph bit for bit; the captured counters "
+        f"stay zero")
+    return dict(counters_before=have, counters_after=grown,
+                max_abs_err=err)
+
+
+class Drain:
+    """A host loader whose producer thread builds and copies bgs-b1024
+    batches the whole time: a thread takes every batch and drops it."""
+
+    def __init__(self, engine, seed):
+        import threading
+
+        from repro_torch.sampling import SeedStream
+
+        self.loader = engine.make_loader(SeedStream(
+            engine.graph.num_nodes, SERVE_LARGE["batch_size"], seed=seed))
+        self.batches = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        for _ in self.loader:
+            self.batches += 1
+            if self._stop.is_set():
+                return
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=60)
+        self.loader.close()
+
+
+class Cycle:
+    """Holds an executor in a reference cycle: once dropped, only the
+    cyclic collector frees it (and its graphs)."""
+
+    def __init__(self, ex):
+        self.ex = ex
+        self.me = self
+
+
+def stress(torch, hector_torch, ops, card):
+    """Phase 14 (f): 200 captures of the aifb-b64 train step (over an
+    epoch's batches) and 200 of the bgs-b1024 served forward (over 8
+    batches), each by a new executor — a fresh key, called twice: op by
+    op, then captured and replayed — held in a reference cycle and
+    dropped after, beside a host loader (``Drain``) whose producer builds
+    and copies bgs-b1024 batches the whole time. Every capture starts
+    with the last executors' graphs unreachable in cycles. A collection
+    is forced before every capture (``gc.collect(1)``, the young
+    generations the last executors sit in, and a full ``gc.collect()``
+    before every 50th), and the collector's own collections run as they
+    come; all are counted. Every replay equals its first (op-by-op) call
+    bit for bit; no collection runs while a stream captures. Run twice in
+    this process."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.core import executor
+    from repro_torch.core.graph import table3_graph
+    from repro_torch.launch import train_rgnn
+    from repro_torch.optim import AdamW
+    from repro_torch.sampling import EpochSeedStream, SeedStream
+    from repro_torch.train import EngineConfig
+
+    cfg = TRAIN
+    ecfg = EngineConfig(model="rgat", layers=cfg["layers"], dim=cfg["dim"],
+                        hidden=cfg["hidden"], classes=cfg["classes"],
+                        fanouts=cfg["fanouts"], tile=cfg["tile"],
+                        node_block=cfg["node_block"], seed=cfg["seed"],
+                        device="cuda")
+    engine, feats_np, labels, train_ids, _ = train_rgnn.build_task(
+        cfg["dataset"], cfg["scale"], ecfg, cfg["seed"])
+    x = torch.from_numpy(feats_np).cuda()
+    opt = AdamW(learning_rate=cfg["lr"], weight_decay=0.0)
+    state0 = opt.init(engine.init(cfg["seed"]))
+    loader = engine.make_loader(EpochSeedStream(
+        train_ids, cfg["batch_size"], seed=1), num_batches=None)
+    try:
+        steps = [next(loader) for _ in range(64)]
+    finally:
+        loader.close()
+    steps = [(mb, torch.from_numpy(mb.seq.slice_labels(labels)).cuda(),
+              {"feature": x[mb.input_ids.long()]}) for mb in steps]
+
+    scfg = SERVE_LARGE
+    sgraph = table3_graph(scfg["dataset"], scfg["scale"], scfg["seed"])
+    serve_engine = hector_torch.compile(
+        scfg["model"], sgraph, layers=scfg["layers"], dim=scfg["dim"],
+        hidden=scfg["hidden"], classes=scfg["classes"],
+        sample=scfg["fanouts"], tile=scfg["tile"],
+        node_block=scfg["node_block"], seed=scfg["seed"], device="cuda")
+    sparams = serve_engine.init(scfg["seed"])
+    sx = torch.from_numpy(np.random.default_rng(scfg["seed"]).normal(
+        size=(sgraph.num_nodes, scfg["dim"])).astype(np.float32)).cuda()
+    loader = serve_engine.make_loader(SeedStream(
+        sgraph.num_nodes, scfg["batch_size"], seed=100), num_batches=8)
+    try:
+        served = list(loader)
+    finally:
+        loader.close()
+
+    collections = dict(all=0, capturing=0)
+
+    def counted(phase, info):
+        if phase == "start":
+            collections["all"] += 1
+            collections["capturing"] += \
+                torch.cuda.is_current_stream_capturing()
+
+    def collect(i):
+        gc.collect(2 if i % 50 == 0 else 1)
+
+    def train_capture(i):
+        mb, lab, f = steps[i % len(steps)]
+        held = Cycle(executor.BlockTrainExecutor(
+            engine.plans, opt, decisions=engine.decisions))
+        _, m1 = held.ex.grad_and_update(state0, mb, lab, f)
+        collect(i)
+        _, m2 = held.ex.grad_and_update(state0, mb, lab, f)
+        return held, m1["loss"], m2["loss"]
+
+    def serve_capture(i):
+        mb = served[i % len(served)]
+        held = Cycle(executor.BlockExecutor(
+            serve_engine.plans, decisions=serve_engine.decisions))
+        y1 = held.ex.run_minibatch(sparams, mb, sx)
+        collect(i)
+        y2 = held.ex.run_minibatch(sparams, mb, sx)
+        return held, y1, y2
+
+    out = []
+    gc.callbacks.append(counted)
+    try:
+        for run in (1, 2):
+            drain = Drain(serve_engine, 200 + run)
+            before = dict(collections)
+            secs = {}
+            try:
+                for what, fn in (("aifb-b64 step", train_capture),
+                                 ("bgs-b1024 serve", serve_capture)):
+                    t0 = time.perf_counter()
+                    for i in range(STRESS_CAPTURES):
+                        held, a, b = fn(i)
+                        check(held.ex.captures == 1
+                              and held.ex.replays == 1,
+                              f"phase 14 f: {what} was not captured")
+                        check(bool(torch.equal(a, b)), f"phase 14 f run "
+                              f"{run}: {what} capture {i}: the replay "
+                              f"differs from the first call")
+                        del held, a, b
+                    torch.cuda.synchronize()
+                    secs[what] = time.perf_counter() - t0
+            finally:
+                drain.close()
+            n_all = collections["all"] - before["all"]
+            n_cap = collections["capturing"] - before["capturing"]
+            check(n_cap == 0, f"phase 14 f run {run}: {n_cap} collections "
+                  f"while a stream captured")
+            check(drain.batches > 0, f"phase 14 f run {run}: the drained "
+                  f"loader built no batch")
+            log(f"[phase 14 f run {run}] {card}: {STRESS_CAPTURES} captures "
+                f"each of the aifb-b64 step and the bgs-b1024 forward, each "
+                f"by a new executor in a reference cycle, a collection "
+                f"forced before each, every replay equal to its first "
+                f"call bit for bit; "
+                f"{drain.batches} bgs-b1024 batches built and copied by a "
+                f"host loader meanwhile; {n_all} collections ({n_cap} "
+                f"while a stream captured); seconds "
+                + json.dumps({k: round(v, 2) for k, v in secs.items()}))
+            out.append(dict(captures=2 * STRESS_CAPTURES, seconds=secs,
+                            collections=n_all,
+                            collections_in_capture=n_cap,
+                            drained_batches=drain.batches))
+    finally:
+        gc.callbacks.remove(counted)
+    return out
+
+
+def phase_capture(torch, hector_torch, SK, L, ops, serve_rgnn, train_rgnn,
+                  card):
+    """Phase 14: (a) RGAT, RGCN, HGT aifb-b32 served with repeating
+    traffic and both loader caches, captured against op by op; (b) RGAT
+    aifb-b32 over fresh batches, one graph per distinct signature; (c) (a)
+    device-sampled; (d) captured training against op by op; (e) K5's
+    counters outgrown under a captured graph; (f) the capture stress run,
+    twice."""
+    out = {"serve": {}, "device_serve": {}}
+    for model in CAPTURE_MODELS:
+        cfg = dict(SERVE_DEFAULTS, model=model, **REPEAT)
+        out["serve"][model] = captured_against_eager(
+            torch, ops, serve_rgnn, cfg, f"phase 14 a {model} aifb", card)
+    out["fresh"] = fresh_signatures(torch, serve_rgnn, card)
+    for model in CAPTURE_MODELS:
+        cfg = dict(SERVE_DEFAULTS, model=model, sampler="device", **REPEAT)
+        out["device_serve"][model] = captured_against_eager(
+            torch, ops, serve_rgnn, cfg, f"phase 14 c {model} aifb device",
+            card)
+    out["train"] = captured_training(torch, train_rgnn, card)
+    out["k5"] = k5_counter_growth(torch, SK, L, ops, card)
+    out["stress"] = stress(torch, hector_torch, ops, card)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3959,6 +4783,7 @@ def main(argv=None) -> int:
         return 2
 
     # phase 1: card and build
+    log("[phase 1] start")
     t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3980,6 +4805,7 @@ def main(argv=None) -> int:
 
     seconds = {}
     try:
+        log("[phase 2] start")
         t0 = time.perf_counter()
         train_cfg = {m: dict(TRAIN, model=m, epochs=e)
                      for m, e in TRAIN_EPOCHS.items()}
@@ -3999,25 +4825,31 @@ def main(argv=None) -> int:
         serve, serve_logits = {}, {}
         for tag, cfg in SERVE_RUNS:
             phase = "phase 4" if cfg["dataset"] == "bgs" else "phase 3"
+            log(f"[{phase} {tag}] start")
             serve[tag], serve_logits[tag] = phase_serve(
                 torch, hector_torch, ops, serve_rgnn, cfg, f"{phase} {tag}")
+        log("[phase 5] start")
         prof = {tag: phase_profile(torch, serve_rgnn, cfg, "phase 5 " + tag)
                 for tag, cfg in SERVE_RUNS}
         seconds["phases 3-5"] = time.perf_counter() - t0
         train, full, train_prof = {}, {}, {}
         for model, task in tasks.items():
+            log(f"[phase 6 {model}] start")
             t0 = time.perf_counter()
             train[model] = phase_train(torch, ops, train_rgnn, task,
                                        train_cfg[model])
             seconds[f"phase 6 {model}"] = time.perf_counter() - t0
+            log(f"[phase 7 {model}] start")
             t0 = time.perf_counter()
             full[model] = phase_full_graph(torch, task, train_rgnn, TRAIN,
                                            split)
             seconds[f"phase 7 {model}"] = time.perf_counter() - t0
+            log(f"[phase 8 {model}] start")
             t0 = time.perf_counter()
             train_prof[model] = phase_train_profile(torch, task, full[model],
                                                     args.trace_dir)
             seconds[f"phase 8 {model}"] = time.perf_counter() - t0
+        log("[phase 9] start")
         t0 = time.perf_counter()
         device_serve = {
             tag: phase_device_serve(torch, ops, serve_rgnn, cfg,
@@ -4025,10 +4857,12 @@ def main(argv=None) -> int:
                                     serve_logits[tag])
             for tag, cfg in DEVICE_SERVE_RUNS}
         seconds["phase 9"] = time.perf_counter() - t0
+        log("[phase 10] start")
         t0 = time.perf_counter()
         device_train = phase_device_train(torch, ops, train_rgnn,
                                           train_cfg["rgat"], train["rgat"])
         seconds["phase 10"] = time.perf_counter() - t0
+        log("[phase 11] start")
         t0 = time.perf_counter()
         tuning = phase_tuning(torch, hector_torch, SK, TK, SO, L, R, ops,
                               serve_rgnn, train_rgnn, tasks["rgat"])
@@ -4037,18 +4871,27 @@ def main(argv=None) -> int:
             kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
                                                split[name])
         seconds["phase 11"] = time.perf_counter() - t0
+        log("[phase 12] start")
         t0 = time.perf_counter()
         lm = phase_lm(torch, ops, C, F, lm_serve, TransformerLM)
         kernels.update(lm.pop("kernels"))
         seconds["phase 12"] = time.perf_counter() - t0
+        log("[phase 13] start")
         t0 = time.perf_counter()
         obs_out = phase_obs(torch, hector_torch, ops, serve_rgnn,
                             train_rgnn, train_prof["rgat"], tuning, card)
         seconds["phase 13"] = time.perf_counter() - t0
+        log("[phase 14] start")
+        t0 = time.perf_counter()
+        capture = phase_capture(torch, hector_torch, SK, L, ops,
+                                serve_rgnn, train_rgnn, card)
+        seconds["phase 14"] = time.perf_counter() - t0
         # the main path's launches, each run from counts set to 0 just
-        # before it: phase 6 of every model (K1-K5, K7), phases 9 and 10
-        # (K9, the device-sampling path), phase 11's tuned training and
-        # serving (K6, K8: the tuner's path), phase 12's LM serve runs
+        # before it, each run op by op so that every kernel the card runs
+        # goes through its wrapper: phase 6 of every model (K1-K5, K7),
+        # phases 9 and 10 (K9, the device-sampling path; the sampler
+        # launches K9 outside the executors), phase 11's tuned training
+        # and serving (K6, K8: the tuner's path), phase 12's LM serve runs
         # (K10)
         launches = {name: sum(t["launches"][name] for t in train.values())
                     for name in KERNELS}
@@ -4079,8 +4922,11 @@ def main(argv=None) -> int:
             wrapper_ms=r["wrapper_ms"], timed_at=r["timed_at"],
             ms_per_call=r.get("ms_per_call"),
             calls_per_unit=r.get("calls_per_unit"),
-            served_launches=sum(v["launches"][name]
-                                for v in serve.values()),
+            # run on the card while serving (phase 5's profiler; the
+            # replayed graphs' kernels included)
+            served_launches=sum(p["kernels"][name]["launches"]
+                                for p in prof.values()
+                                if name in p["kernels"]),
             served_device_ms=(served["device_ms_per_batch"]
                               if served is not None else None)))
     if args.out:
@@ -4091,6 +4937,7 @@ def main(argv=None) -> int:
             serve=serve, profile=prof, train=train, full_graph=full,
             train_profile=train_prof, device_serve=device_serve,
             device_train=device_train, tuning=tuning, lm=lm, obs=obs_out,
+            capture=capture,
             split_timed=split["timed"], k5_sass=k5_sass,
             gemm_ptxas=gemm_ptxas,
             torch=torch.__version__,

@@ -219,8 +219,9 @@ class _Env:
 
     def get(self, name: str) -> torch.Tensor:
         if name.startswith("scalar:"):
-            return torch.tensor(float(name.split(":", 1)[1]),
-                                dtype=torch.float32, device=self.gt.device)
+            # a fill, not a host-to-device copy: plans may be captured
+            return torch.full((), float(name.split(":", 1)[1]),
+                              dtype=torch.float32, device=self.gt.device)
         if name in self.vals:
             return self.vals[name]
         if name.startswith("node:") and name[5:] in self.vals:

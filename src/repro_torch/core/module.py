@@ -99,10 +99,13 @@ class HectorModule:
                                    self.graph.num_ntypes, generator, dtype,
                                    self.device)
 
-    def apply(self, params, feats: Dict[str, torch.Tensor]):
+    def apply(self, params, feats: Dict[str, torch.Tensor],
+              compiled: bool = True):
         """The layer's outputs over the full graph (autograd records it
-        when grad is enabled)."""
-        return self.executor(params, self.gt, self.layouts, feats)
+        when grad is enabled; without grad on a card, ``compiled`` replays
+        one captured graph per signature)."""
+        return self.executor(params, self.gt, self.layouts, feats,
+                             compiled=compiled)
 
     def describe(self) -> str:
         return self.plan.describe()
@@ -177,23 +180,31 @@ class HectorStack:
         return [layer.init(generator, dtype) for layer in self.layers]
 
     def apply(self, params: Sequence[Dict[str, torch.Tensor]],
-              feats: Dict[str, torch.Tensor]) -> torch.Tensor:
+              feats: Dict[str, torch.Tensor],
+              compiled: bool = True) -> torch.Tensor:
         """Full-graph forward; returns the last layer's primary output."""
         cur = dict(feats)
         h = None
         for i, (layer, p) in enumerate(zip(self.layers, params)):
-            h = layer.apply(p, cur)[layer.plan.outputs[0]]
+            h = layer.apply(p, cur, compiled)[layer.plan.outputs[0]]
             if i < self.num_layers - 1:
                 cur = {"feature": self._act(h)}
         return h
 
     def apply_blocks(self, params: Sequence[Dict[str, torch.Tensor]], mb,
-                     global_feats: torch.Tensor) -> torch.Tensor:
-        """Sampled forward over a ``MiniBatch``; returns [len(seeds), out]."""
+                     global_feats: torch.Tensor,
+                     compiled: bool = True) -> torch.Tensor:
+        """Sampled forward over a ``MiniBatch``; returns [len(seeds), out].
+
+        ``compiled=True`` runs the block sequence through the
+        ``BlockExecutor``'s captured graph of the batch's signature (on a
+        card; the CPU runs op by op either way); ``compiled=False`` is the
+        op-by-op path, as the reference's."""
         if mb.num_hops != self.num_layers:
             raise ValueError(
                 f"minibatch has {mb.num_hops} hops but the stack has "
                 f"{self.num_layers} layers"
             )
         return self.block_executor.run_minibatch(list(params), mb,
-                                                 global_feats)
+                                                 global_feats,
+                                                 compiled=compiled)

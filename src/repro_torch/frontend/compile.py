@@ -51,17 +51,21 @@ class CompiledRGNN:
             num_etypes=self.engine.graph.num_etypes,
             num_ntypes=self.engine.graph.num_ntypes)
 
-    def apply(self, params, feats) -> torch.Tensor:
+    def apply(self, params, feats, compiled: bool = True) -> torch.Tensor:
         """Full-graph forward; ``feats`` is the [N, dim] input feature
         table (or a ``{"feature": table}`` dict) on the engine's device."""
         if isinstance(feats, dict):
             feats = feats["feature"]
-        return self.engine.forward_full(params, feats)
+        return self.engine.forward_full(params, feats, compiled=compiled)
 
-    def apply_blocks(self, params, mb, global_feats) -> torch.Tensor:
+    def apply_blocks(self, params, mb, global_feats,
+                     compiled: bool = True) -> torch.Tensor:
         """Sampled mini-batch forward over a ``sampling.MiniBatch``;
-        returns one row per requested seed."""
-        return self.engine.forward_minibatch(params, mb, global_feats)
+        returns one row per requested seed. ``compiled=True`` replays the
+        captured CUDA graph of the batch's signature on a card;
+        ``compiled=False`` runs op by op."""
+        return self.engine.forward_minibatch(params, mb, global_feats,
+                                             compiled=compiled)
 
     def init_state(self, params_or_seed, opt=None):
         """Optimizer state for ``train_step`` from per-layer params (or a
@@ -79,7 +83,9 @@ class CompiledRGNN:
         """One neighbor-sampled SGD step (block forward -> per-seed
         cross-entropy -> backward -> optimizer update). ``labels`` align
         with the requested seed order (``mb.seq.slice_labels``); returns
-        ``(new_state, {"loss", "accuracy"})``."""
+        ``(new_state, {"loss", "accuracy"})``. Captured on a card: the new
+        state may live in the step's graph buffers, valid until the next
+        step — copy what you keep."""
         labels = torch.as_tensor(labels).to(self.engine.device)
         feats = {"feature": global_feats[mb.input_ids.long()]}
         return self.engine.train_executor(self._optimizer()).grad_and_update(

@@ -103,7 +103,14 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 def padded_segments_dev(ps: L.PaddedSegments) -> PaddedSegmentsDev:
     """Host tensors of a ``PaddedSegments`` (``.to(device)`` moves them),
     with K5's work split: the real-tile run of every group and its chunks
-    of ``outer_chunk_tiles`` of the padded tile count."""
+    of ``outer_chunk_tiles`` of the padded tile count.
+
+    ``num_chunks`` is the static bound ``padded_rows / tile / chunk_tiles
+    + G`` of ``device_padded_segments``, not ``group_chunk_ptr[G]``: every
+    static field is then a function of the layout's shapes alone, so the
+    executors' keys (and the CUDA graphs captured under them) never depend
+    on a batch's group sizes. K5 launches that many chunks; those past
+    ``group_chunk_ptr[G]`` return before any work."""
     gtp = SK.outer_tile_ptr(ps.seg_sizes, ps.tile)
     ct = SK.outer_chunk_tiles(ps.padded_rows // ps.tile)
     gcp = SK.outer_chunk_ptr(gtp, ct)
@@ -111,7 +118,18 @@ def padded_segments_dev(ps: L.PaddedSegments) -> PaddedSegmentsDev:
         row_map=_tensor(ps.row_map), inv_map=_tensor(ps.inv_map),
         t2g=_tensor(ps.tile_to_group), group_tile_ptr=_tensor(gtp),
         group_chunk_ptr=_tensor(gcp), tile=ps.tile,
-        num_groups=ps.num_groups, num_chunks=int(gcp[-1]), chunk_tiles=ct)
+        num_groups=ps.num_groups,
+        num_chunks=static_chunk_count(ps.padded_rows, ps.tile, ct,
+                                      ps.num_groups),
+        chunk_tiles=ct)
+
+
+def static_chunk_count(padded_rows: int, tile: int, chunk_tiles: int,
+                       num_groups: int) -> int:
+    """K5's launch width for a layout: at least ``group_chunk_ptr[G]`` for
+    any group sizes that fit ``padded_rows`` (each group's chunk count
+    rounds up by less than one), from static shapes alone."""
+    return padded_rows // tile // chunk_tiles + num_groups
 
 
 def block_tile_ptr(t2b: np.ndarray, num_tiles: int,
@@ -164,12 +182,9 @@ def device_padded_segments(seg_ptr: torch.Tensor,
     """``padded_segments_dev`` built on the tensors' device without a
     readback (``layout.device_pad_segments`` plus K5's work split).
 
-    ``group_tile_ptr`` / ``group_chunk_ptr`` and ``chunk_tiles`` equal the
-    host's at the same ``padded_rows``; the chunk count, which the host
-    reads off ``group_chunk_ptr[-1]``, is the static bound ``padded_rows /
-    tile / chunk_tiles + G`` instead (each group rounds its chunk count up
-    by less than one). K5 launches that many chunks; those past
-    ``group_chunk_ptr[G]`` return before any work."""
+    Every field equals the host's at the same ``padded_rows``, the chunk
+    count included (``static_chunk_count``). K5 launches that many chunks;
+    those past ``group_chunk_ptr[G]`` return before any work."""
     row_map, inv_map, t2g = L.device_pad_segments(seg_ptr, group_of_row,
                                                   tile, padded_rows)
     num_groups = int(seg_ptr.shape[0]) - 1
@@ -180,7 +195,8 @@ def device_padded_segments(seg_ptr: torch.Tensor,
     return PaddedSegmentsDev(
         row_map=row_map, inv_map=inv_map, t2g=t2g, group_tile_ptr=gtp,
         group_chunk_ptr=gcp, tile=tile, num_groups=num_groups,
-        num_chunks=padded_rows // tile // ct + num_groups, chunk_tiles=ct)
+        num_chunks=static_chunk_count(padded_rows, tile, ct, num_groups),
+        chunk_tiles=ct)
 
 
 def device_blocked_csr(dst_ptr: torch.Tensor, dst_sorted: torch.Tensor,

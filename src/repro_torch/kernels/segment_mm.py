@@ -363,13 +363,18 @@ def outer_chunk_ptr(group_tile_ptr: np.ndarray,
 
 # K5's arrival counters, one int32 per (group, 64 x 64 slice of dW), by
 # device: zero between launches (the last block of each group resets its
-# own), so no call clears them
+# own), so no call clears them. A buffer outgrown by a larger launch is
+# kept, never freed: a CUDA graph that captured a launch holds its
+# pointer for the graph's whole life.
 _counters: dict = {}
+_retired: list = []
 
 
 def _outer_counters(dev: torch.device, size: int) -> torch.Tensor:
     buf = _counters.get(dev)
     if buf is None or buf.numel() < size:
+        if buf is not None:
+            _retired.append(buf)
         buf = torch.zeros(max(size, 1024), dtype=torch.int32, device=dev)
         _counters[dev] = buf
     return buf

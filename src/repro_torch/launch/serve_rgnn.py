@@ -19,6 +19,19 @@ end-to-end seed throughput — the same lines and stats keys as
     PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --sampler device
     PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --tune full
 
+The batch loop runs the block executor's captured CUDA graphs on the
+card, one per bucketed signature, captured at the signature's second
+batch and replayed from then on (``--eager``: op by op). ``--repeat-after N`` wraps the seed stream onto N
+distinct batches (the reference's repeating traffic; 0: fresh seeds every
+batch), ``--skew ALPHA`` draws the seeds from a Zipf law, and
+``--cache-blocks`` / ``--cache-layouts`` size the loader's sampled-block
+and kernel-layout LRU caches, whose hit rates the stats report.
+``warmup_batches`` (default ``repeat_after`` or 2) splits the key counts:
+new keys after it are ``retraces_after_warmup``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --device cpu \
+        --scale 0.05 --repeat-after 4 --cache-blocks 64 --cache-layouts 256
+
 ``--tune full|cached`` runs the autotuner on the serving device: the
 materialization decisions at engine build (no full-graph layout or op
 measurements: serving never runs the full graph), then the block-scale op
@@ -57,7 +70,8 @@ from repro_torch.sampling import SeedStream
 from repro_torch.train.engine import (MODEL_PROGRAMS, parse_fanout,
                                       resolve_device)
 
-# batches served before ``retraces_after_warmup`` starts counting
+# batches served before ``retraces_after_warmup`` starts counting, when
+# the stream does not repeat
 WARMUP_BATCHES = 2
 
 
@@ -79,6 +93,12 @@ def serve(
     sampler: str = "host",
     tune: str = "off",
     tune_cache=None,
+    skew=None,
+    cache_blocks: int = 0,
+    cache_layouts: int = 0,
+    repeat_after=None,
+    compiled: bool = True,
+    warmup_batches=None,
     obs_mode: str = "on",
     trace_out=None,
     metrics_out=None,
@@ -92,9 +112,17 @@ def serve(
 
     ``params`` overrides the seeded initialization with the reference's
     per-layer params as numpy arrays (checked against the plans).
-    ``on_batch(mb, logits)`` is called after every batch. Every batch
-    draws fresh seeds. ``tune`` / ``tune_cache`` as ``--tune`` /
-    ``--tune-cache``; the tuner's counts land in the stats as ``tune_*``.
+    ``on_batch(mb, logits)`` is called after every batch. ``tune`` /
+    ``tune_cache`` as ``--tune`` / ``--tune-cache``; the tuner's counts
+    land in the stats as ``tune_*``.
+
+    ``repeat_after`` wraps the seed stream onto that many distinct batches
+    (``None``: fresh seeds every batch), ``skew`` draws Zipf-skewed seeds,
+    ``cache_blocks`` / ``cache_layouts`` size the loader's LRU caches (0:
+    off), as the reference's. ``warmup_batches`` (default
+    ``repeat_after`` or 2) splits the key counts: new keys after it count
+    as ``retraces_after_warmup``. ``compiled=False`` runs every batch op
+    by op instead of replaying the captured graphs.
 
     Observability: with ``obs_mode="on"`` the call runs inside an
     ``obs.scope`` — latency histograms and executor / sampler / tuner
@@ -109,8 +137,10 @@ def serve(
     fully disabled. Logits and signature counts are the same in every
     mode.
     """
+    if warmup_batches is None:
+        warmup_batches = repeat_after if repeat_after else WARMUP_BATCHES
+    warmup_batches = min(warmup_batches, num_batches)
     with obs_scope(obs_mode, trace_out) as sc:
-        warmup_batches = min(WARMUP_BATCHES, num_batches)
         dev = resolve_device(device)
 
         t0 = time.perf_counter()
@@ -129,7 +159,8 @@ def serve(
         log(f"[serve_rgnn] {model} on {dataset} (scale {scale}): "
             f"{graph.num_nodes} nodes, {graph.num_edges} edges, "
             f"{graph.num_etypes} etypes; fanouts={fanouts} device={dev} "
-            f"sampler={sampler} (graph build {t_graph:.2f}s)")
+            f"sampler={sampler}" + (f" skew={skew}" if skew else "")
+            + f" (graph build {t_graph:.2f}s)")
         params = engine.init(seed) if params is None else \
             engine.params_from_reference(params)
         feats = torch.from_numpy(feats_np).to(dev)   # the device table
@@ -151,8 +182,11 @@ def serve(
                 f"measurements, {ts['cache_hits']} cache replays, "
                 f"{ts['tuned_ops']} tuned")
 
-        stream = SeedStream(graph.num_nodes, batch_size, seed=seed)
-        loader = engine.make_loader(stream, num_batches=num_batches)
+        stream = SeedStream(graph.num_nodes, batch_size, seed=seed,
+                            num_distinct=repeat_after, zipf_alpha=skew)
+        loader = engine.make_loader(stream, num_batches=num_batches,
+                                    cache_blocks=cache_blocks,
+                                    cache_layouts=cache_layouts)
         executor = engine.block_executor
         sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
             else (lambda: None)
@@ -184,7 +218,8 @@ def serve(
                 t0 = time.perf_counter()
                 # engine.apply_blocks opens the "execute" span (with a
                 # device sync inside it when tracing is on)
-                logits = engine.apply_blocks(params, mb, feats)
+                logits = engine.apply_blocks(params, mb, feats,
+                                             compiled=compiled)
                 sync()
                 t_fwd = time.perf_counter() - t0
                 lat.append(t_wait + t_fwd)
@@ -220,6 +255,7 @@ def serve(
             "latency_ms_p95": float(np.percentile(lat_arr, 95) * 1e3),
             "latency_ms_p99": float(np.percentile(lat_arr, 99) * 1e3),
             "latency_ms_mean": float(lat_arr.mean() * 1e3),
+            "batch_latency_ms": [float(x * 1e3) for x in lat],
             "wait_ms_mean": float(np.mean(waits) * 1e3),
             "compute_ms_mean": float(np.mean(computes) * 1e3),
             "seeds_per_s": batch_size * n / max(t_total, 1e-9),
@@ -233,8 +269,14 @@ def serve(
             "sampler": loader.mode,
             "host_builds": loader.host_builds,
             "device_builds": loader.device_builds,
+            "executor_captures": executor.captures,
+            "executor_replays": executor.replays,
             "device": str(dev),
         }
+        for name, cs in loader.cache_stats().items():
+            stats[f"{name}_hits"] = cs["hits"]
+            stats[f"{name}_misses"] = cs["misses"]
+            stats[f"{name}_hit_rate"] = cs["hit_rate"]
         for k, v in engine.tuner_stats.items():
             stats[f"tune_{k}"] = v
         if engine.decisions is not None:
@@ -270,7 +312,10 @@ def serve(
             f"avg {stats['edges_per_batch']:.0f} sampled edges/batch")
         log(f"[serve_rgnn] executor: {executor.trace_count} new signatures "
             f"/ {executor.cache_hits} repeats "
-            f"({retraces_after_warmup} new after warmup)")
+            f"({retraces_after_warmup} new after warmup), "
+            f"{executor.captures} graphs captured"
+            + "".join(f", {k.removesuffix('_hit_rate')} hit rate {v:.0%}"
+                      for k, v in stats.items() if k.endswith("_hit_rate")))
         if dev_sampler is not None:
             log(f"[serve_rgnn] device sampler: {dev_sampler.trace_count} new "
                 f"programs / {dev_sampler.cache_hits} program-cache hits "
@@ -315,6 +360,24 @@ def main(argv=None):
     ap.add_argument("--sampler", default="host", choices=["host", "device"],
                     help="'host': NumPy sampling and layouts on a loader "
                          "thread; 'device': the DeviceSampler on --device")
+    ap.add_argument("--skew", type=float, default=None, metavar="ALPHA",
+                    help="Zipf exponent for the seed stream (power-law "
+                         "traffic; popularity rank r drawn with p ~ "
+                         "(r+1)^-ALPHA). Default: uniform")
+    ap.add_argument("--cache-blocks", type=int, default=0,
+                    help="LRU capacity of the sampled-block cache keyed by "
+                         "(seeds, fanout); 0 disables")
+    ap.add_argument("--cache-layouts", type=int, default=0,
+                    help="LRU capacity of the KernelLayouts cache keyed by "
+                         "block signature; 0 disables")
+    ap.add_argument("--repeat-after", type=int, default=4,
+                    help="wrap the seed stream onto N distinct batches "
+                         "(repeating traffic; every distinct batch is "
+                         "seen during warmup, so steady state adds no "
+                         "key). 0 = fresh random seeds every batch")
+    ap.add_argument("--eager", action="store_true",
+                    help="run every batch op by op instead of replaying "
+                         "the block executor's captured CUDA graphs")
     ap.add_argument("--tune", default="off", choices=["off", "cached", "full"],
                     help="autotune on --device: 'full' measures what the "
                          "cache lacks, 'cached' replays it, 'off' keeps the "
@@ -344,7 +407,10 @@ def main(argv=None):
         batch_size=args.batch_size, num_batches=args.num_batches,
         tile=args.tile, node_block=args.node_block, seed=args.seed,
         device=args.device, sampler=args.sampler, tune=args.tune,
-        tune_cache=args.tune_cache, obs_mode=args.obs,
+        tune_cache=args.tune_cache, skew=args.skew,
+        cache_blocks=args.cache_blocks, cache_layouts=args.cache_layouts,
+        repeat_after=args.repeat_after or None, compiled=not args.eager,
+        obs_mode=args.obs,
         trace_out=args.trace_out, metrics_out=args.metrics_out,
         profile=args.profile,
     )

@@ -22,8 +22,13 @@ mini-batches and builds their layouts on the device (``DeviceSampler``).
 ``--tune full|cached`` runs the autotuner (``repro_torch.tune``) on that
 device: the full-graph layout tile, materialization and op variants at
 engine build, then the block-scale op variants on one warm training batch;
-``--tune-cache`` names its persistent cache. Feature stores, Zipf-skewed
-streams and data parallelism are later slices.
+``--tune-cache`` names its persistent cache. ``--skew ALPHA`` draws the
+seeds from a Zipf law over the train ids, with replacement (nominal
+epochs of ``len(train ids) // batch`` steps). Every step replays the
+train executor's captured CUDA graph of its bucketed signature on the
+card, captured at the signature's second step (its first runs op by op);
+``--eager`` runs every step op by op. Feature stores and data parallelism are later
+slices.
 
 Telemetry (``repro_torch.obs``) mirrors ``serve_rgnn``: ``--obs on`` (the
 default) trains inside a metrics scope (the ``train_step_ms`` histogram,
@@ -75,7 +80,9 @@ def build_task(dataset: str, scale: float, cfg: EngineConfig, seed: int,
     feats = rng.normal(size=(graph.num_nodes, cfg.dim)).astype(np.float32)
     engine = hector_torch.compile(None, graph, config=cfg, log=log)
     teacher = engine.init(seed + 1)
-    logits = engine.apply(teacher, torch.from_numpy(feats).to(engine.device))
+    # one forward: nothing to replay, so nothing to capture
+    logits = engine.apply(teacher, torch.from_numpy(feats).to(engine.device),
+                          compiled=False)
     labels = torch.argmax(logits, dim=-1).cpu().numpy()
     perm = rng.permutation(graph.num_nodes)
     n_val = int(graph.num_nodes * val_frac)
@@ -113,6 +120,8 @@ def train(
     sampler: str = "host",
     tune: str = "off",
     tune_cache=None,
+    skew=None,
+    compiled: bool = True,
     obs_mode: str = "on",
     trace_out=None,
     metrics_out=None,
@@ -122,7 +131,8 @@ def train(
     """Run the sampled training loop on ``device`` (``None``: the CUDA
     card); returns a stats dict (``SampledTrainer.train``'s, plus the
     final full-graph evaluation, the tuner's counts as ``tune_*`` and,
-    with ``parity``, the comparison).
+    with ``parity``, the comparison). ``skew`` as ``--skew``;
+    ``compiled=False`` as ``--eager``.
 
     Observability mirrors ``serve_rgnn.serve``: ``obs_mode="on"`` wraps
     the run in an ``obs.scope`` (``stats["metrics"]``, optional
@@ -141,16 +151,22 @@ def train(
         log(f"[train_rgnn] {model} on {dataset} (scale {scale}): "
             f"{engine.graph.num_nodes} nodes, {engine.graph.num_edges} edges, "
             f"{engine.graph.num_etypes} etypes; fanouts={cfg.fanouts}, "
-            f"device={dev}, sampler={sampler}, {len(train_ids)} train / "
-            f"{len(val_ids)} val nodes")
+            f"device={dev}, sampler={sampler}"
+            + (f", skew={skew}" if skew else "")
+            + f", {len(train_ids)} train / {len(val_ids)} val nodes")
 
-        bpe = EpochSeedStream(train_ids, batch_size).batches_per_epoch
+        # the schedule's length from the stream the trainer will iterate
+        if skew is not None:
+            bpe = max(1, len(train_ids) // batch_size)
+        else:
+            bpe = EpochSeedStream(train_ids, batch_size).batches_per_epoch
         total_steps = epochs * bpe
         opt = AdamW(learning_rate=cosine_schedule(lr, warmup_steps,
                                                   total_steps),
                     weight_decay=weight_decay)
         trainer = SampledTrainer(engine, feats, labels, train_ids, val_ids,
-                                 opt=opt, ckpt_dir=ckpt_dir, log=log)
+                                 opt=opt, ckpt_dir=ckpt_dir,
+                                 compiled=compiled, log=log)
         state = trainer.init_state(engine.init(seed))
 
         if tune != "off":
@@ -181,7 +197,7 @@ def train(
         state, stats = trainer.train(
             state, epochs=epochs, batch_size=batch_size, start_step=start_step,
             ckpt_every=ckpt_every, eval_every_epochs=eval_every_epochs,
-            log_every=max(1, bpe // 2))
+            log_every=max(1, bpe // 2), skew=skew)
 
         final_train = trainer.full.evaluate(state.params)
         final_val = (trainer.full.evaluate(state.params, val_ids)
@@ -320,6 +336,12 @@ def main(argv=None):
                     help="tuning cache path (default "
                          "$REPRO_TORCH_TUNE_CACHE or "
                          "~/.cache/repro_torch-tune.json)")
+    ap.add_argument("--skew", type=float, default=None, metavar="ALPHA",
+                    help="Zipf-skew the seed stream (rank probability "
+                         "(r+1)^-ALPHA, with replacement)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run every step op by op instead of replaying the "
+                         "train executor's captured CUDA graphs")
     ap.add_argument("--obs", default="on", choices=["on", "off"],
                     help="observability: 'on' runs inside an obs scope "
                          "(metrics registry + stats['metrics']); 'off' "
@@ -354,7 +376,7 @@ def main(argv=None):
         eval_every_epochs=args.eval_every_epochs, parity=args.parity,
         parity_tol=args.parity_tol, device=args.device,
         sampler=args.sampler, tune=args.tune, tune_cache=args.tune_cache,
-        obs_mode=args.obs, trace_out=args.trace_out,
+        skew=args.skew, compiled=not args.eager, obs_mode=args.obs, trace_out=args.trace_out,
         metrics_out=args.metrics_out, profile=args.profile,
     )
 

@@ -89,8 +89,9 @@ class AdamW:
     def _lr(self, step: torch.Tensor) -> torch.Tensor:
         if callable(self.learning_rate):
             return self.learning_rate(step)
-        return torch.tensor(self.learning_rate, dtype=torch.float32,
-                            device=step.device)
+        # a fill, not a host-to-device copy: the step may be captured
+        return torch.full((), self.learning_rate, dtype=torch.float32,
+                          device=step.device)
 
     @torch.no_grad()
     def update(self, grads, state: TrainState) -> TrainState:

@@ -21,16 +21,33 @@ loader then passes the epoch to the sampler, so the same seed batch in a
 later epoch draws a fresh neighborhood. ``start_step`` starts the stream
 mid-way (a resumed run replays the exact remaining batches).
 
+Serving traffic repeats, so the loader layers the reference's two LRU
+caches over that pipeline: a **KernelLayouts cache** keyed by block
+signature (a content hash of the block graph plus the tile and bucket
+config; host mode, where it also skips the layouts' host-to-device copies:
+the cached layouts are the device ones) and a **sampled-block cache** keyed
+by ``(seeds, fanout, layout config, epoch)``, whose hit hands back the
+cached device ``MiniBatch`` (re-stamped with the current step) without
+sampling, layout build or copy. ``cache_stats`` / ``build_stats`` report
+the hits, misses and rates; every hit, miss and eviction is mirrored into
+the obs registry (``loader_cache_{hits,misses,evictions}``, gauge
+``loader_cache_hit_rate``, labelled ``cache=<name>``).
+
 Telemetry (``repro_torch.obs``): each host build runs inside a ``sample``
 and a ``layout`` span, on the producer thread's own track (the switchboard
 is process-global, so the thread sees the scope the driver opened).
 
-Not ported yet: the LRU block/layout caches and graph partitions.
+The producer thread never runs a model: executors capture CUDA graphs on
+the consumer's thread only, and they capture in ``thread_local`` mode, so
+the producer's allocations and copies cannot invalidate a capture.
+
+Not ported yet: graph partitions (the reference's ``partition=``).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import queue
 import threading
 from typing import Callable, List, Optional, Union
@@ -50,24 +67,150 @@ from repro_torch.sampling.sampler import BlockSequence
 PREFETCH_DEPTH = 2
 
 
+class LRUCache:
+    """Minimal LRU map with hit/miss/eviction counters, the port's copy of
+    ``repro.sampling.loader.LRUCache`` (single-writer: each loader's
+    producer owns its caches, so no locking).
+
+    ``name`` labels the cache in the obs metrics registry: every hit, miss
+    and eviction is mirrored to ``loader_cache_{hits,misses,evictions}``
+    with a ``cache=<name>`` label, and the ``loader_cache_hit_rate`` gauge
+    follows every lookup (the integer attributes stay the source of
+    truth)."""
+
+    def __init__(self, maxsize: int = 64, name: str = "lru"):
+        if maxsize <= 0:
+            raise ValueError("LRUCache needs a positive maxsize")
+        self.maxsize = maxsize
+        self.name = name
+        self._d: "collections.OrderedDict" = collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get(self, key):
+        try:
+            v = self._d.pop(key)
+        except KeyError:
+            self.misses += 1
+            obs.metrics().counter("loader_cache_misses",
+                                  cache=self.name).inc()
+            self._mirror_rate()
+            return None
+        self._d[key] = v          # re-insert: most recently used
+        self.hits += 1
+        obs.metrics().counter("loader_cache_hits", cache=self.name).inc()
+        self._mirror_rate()
+        return v
+
+    def _mirror_rate(self) -> None:
+        obs.metrics().gauge("loader_cache_hit_rate",
+                            cache=self.name).set(self.hit_rate)
+
+    def put(self, key, value) -> None:
+        self._d.pop(key, None)
+        self._d[key] = value
+        while len(self._d) > self.maxsize:
+            self._d.popitem(last=False)
+            self.evictions += 1
+            obs.metrics().counter("loader_cache_evictions",
+                                  cache=self.name).inc()
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def __contains__(self, key) -> bool:
+        return key in self._d
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+    def stats(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions, "size": len(self._d),
+                "hit_rate": self.hit_rate}
+
+
+def block_signature(hg: HeteroGraph, tile: int, node_block: int,
+                    bucket: bool) -> tuple:
+    """Content key for a block graph's kernel layouts: two blocks with equal
+    signatures produce identical ``KernelLayouts`` (every layout product is
+    a pure function of the edge arrays, node types and tile config)."""
+    h = hashlib.blake2b(digest_size=16)
+    for arr in (hg.src, hg.dst, hg.etype, hg.node_type):
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return (hg.num_nodes, hg.num_ntypes, hg.num_etypes,
+            tile, node_block, bool(bucket), h.digest())
+
+
 class SeedStream:
     """Deterministic seed-node request stream: step -> seed ID batch.
 
-    The port's own copy of ``repro.sampling.loader.SeedStream`` (uniform
-    draws): the same seeds for the same (seed, step), drawn with
-    replacement, fresh for every step. Repeat traffic and the Zipf-skewed
-    and id-restricted streams come with the cache and feature-store slices.
+    The port's copy of ``repro.sampling.loader.SeedStream``: the same
+    seeds for the same arguments (the same numpy generator calls in the
+    same order), drawn with replacement. ``batch(step)`` is a pure function
+    of ``(seed, step)``.
+
+    ``num_distinct`` models repeating traffic: steps wrap onto ``step %
+    num_distinct``, so the stream cycles over a fixed set of seed batches
+    (what the block and layout caches and the executors' graphs pay off
+    on). ``zipf_alpha`` draws seeds from a Zipf law over the population:
+    popularity rank ``r`` (0-based) has probability proportional to ``(r +
+    1) ** -alpha``, and a seed-keyed permutation maps ranks onto ids.
+    ``ids`` restricts the population to an explicit id set (e.g. a train
+    split) instead of ``[0, num_nodes)``.
     """
 
-    def __init__(self, num_nodes: int, batch_size: int = 32, seed: int = 0):
-        self.num_nodes = int(num_nodes)
+    def __init__(self, num_nodes: Optional[int] = None,
+                 batch_size: int = 32, seed: int = 0,
+                 num_distinct: Optional[int] = None,
+                 zipf_alpha: Optional[float] = None,
+                 ids: Optional[np.ndarray] = None):
+        if ids is not None:
+            self.ids = np.asarray(ids, dtype=np.int32)
+            if self.ids.ndim != 1 or self.ids.size == 0:
+                raise ValueError("ids must be a non-empty 1-D int array")
+            self.num_nodes = int(self.ids.size)
+        else:
+            if num_nodes is None:
+                raise ValueError("need num_nodes or ids")
+            self.ids = None
+            self.num_nodes = int(num_nodes)
         self.batch_size = batch_size
         self.seed = seed
+        self.num_distinct = num_distinct
+        self.zipf_alpha = zipf_alpha
+        self._cdf = self._rank2idx = None
+        if zipf_alpha is not None:
+            if zipf_alpha <= 0:
+                raise ValueError("zipf_alpha must be positive")
+            p = np.arange(1, self.num_nodes + 1,
+                          dtype=np.float64) ** -float(zipf_alpha)
+            self._cdf = np.cumsum(p / p.sum())
+            # popularity rank -> population index, keyed off the stream
+            # seed so the hot rows are not simply the lowest ids
+            self._rank2idx = np.random.default_rng(
+                (self.seed, 0x5eed)).permutation(
+                self.num_nodes).astype(np.int64)
 
     def batch(self, step: int) -> np.ndarray:
+        if self.num_distinct:
+            step = step % self.num_distinct
         rng = np.random.default_rng((self.seed, step))
-        return rng.integers(0, self.num_nodes, size=self.batch_size,
-                            dtype=np.int32)
+        if self._cdf is None:
+            # the uniform stream's draw (the dtype is part of the
+            # generator's contract)
+            draw = rng.integers(0, self.num_nodes, size=self.batch_size,
+                                dtype=np.int32)
+        else:
+            # inverse-CDF sampling of popularity ranks, mapped to indices
+            u = rng.random(self.batch_size)
+            ranks = np.searchsorted(self._cdf, u, side="right")
+            draw = self._rank2idx[np.minimum(ranks, self.num_nodes - 1)]
+        out = draw if self.ids is None else self.ids[draw]
+        return out.astype(np.int32)
 
 
 class EpochSeedStream:
@@ -138,7 +281,9 @@ class MiniBatch:
 
 def build_minibatch(seq: BlockSequence, step: int = 0, tile: int = 128,
                     node_block: int = 128, bucket: bool = False,
-                    shape_floors=None, device="cpu") -> MiniBatch:
+                    layout_cache: Optional[LRUCache] = None,
+                    layout_scope=None, shape_floors=None,
+                    device="cpu") -> MiniBatch:
     """Host-side assembly of a ``MiniBatch`` from a sampled ``BlockSequence``,
     its tensors copied to ``device`` without blocking.
 
@@ -147,6 +292,11 @@ def build_minibatch(seq: BlockSequence, step: int = 0, tile: int = 128,
     inert: pad nodes/edges only feed pad rows, which the hop-chaining
     gathers never read). ``shape_floors`` (a ``bucketing.ShapeFloors``)
     pads each hop up to the largest bucket seen for this seed count.
+
+    ``layout_cache`` (an ``LRUCache``) memoizes each hop's ``KernelLayouts``
+    on ``device`` by block signature, skipping the NumPy layout passes and
+    their copies for blocks seen before; ``layout_scope`` (any hashable)
+    namespaces its entries, as in the reference.
     """
     graphs = [b.graph for b in seq.blocks]
     input_ids = seq.input_node_ids
@@ -170,11 +320,25 @@ def build_minibatch(seq: BlockSequence, step: int = 0, tile: int = 128,
         ]
 
     def layouts_for(hop: int, g: HeteroGraph) -> codegen.KernelLayouts:
+        # the floors reach into the layout build, so the cache key carries
+        # their values: a pre-growth entry never replays stale shapes
         rf = (shape_floors.layout_floors(key, hop)
               if bucket and shape_floors is not None else None)
-        return codegen.build_kernel_layouts(
-            g, tile=tile, node_block=node_block, bucket=bucket,
-            row_floors=rf)
+
+        def build():
+            return codegen.build_kernel_layouts(
+                g, tile=tile, node_block=node_block, bucket=bucket,
+                row_floors=rf).to(device, non_blocking=True)
+
+        if layout_cache is None:
+            return build()
+        ck = (layout_scope, block_signature(g, tile, node_block, bucket),
+              None if rf is None else (hop, tuple(sorted(rf.items()))))
+        kl = layout_cache.get(ck)
+        if kl is None:
+            kl = build()
+            layout_cache.put(ck, kl)
+        return kl
 
     def dev(a: np.ndarray) -> torch.Tensor:
         return to_device(torch.from_numpy(np.ascontiguousarray(a)), device,
@@ -185,8 +349,7 @@ def build_minibatch(seq: BlockSequence, step: int = 0, tile: int = 128,
         seq=seq,
         tensors=[g.to_tensors().to(device, non_blocking=True)
                  for g in graphs],
-        layouts=[layouts_for(i, g).to(device, non_blocking=True)
-                 for i, g in enumerate(graphs)],
+        layouts=[layouts_for(i, g) for i, g in enumerate(graphs)],
         input_ids=dev(input_ids),
         dst_locals=[dev(d) for d in dst_locals],
         seed_perm=dev(seq.seed_perm),
@@ -208,6 +371,15 @@ class MiniBatchLoader:
     order from ``start_step``; with ``num_batches`` set the loader raises
     ``StopIteration`` after that many. A source with ``epoch_of(step)``
     keys the sampler by epoch. ``close()`` stops and joins the worker.
+
+    ``cache_blocks`` / ``cache_layouts`` give the two LRU capacities (0
+    disables either), as in the reference. The sampled-block cache is keyed
+    by ``(seeds, fanout, layout config, epoch)``: for serving streams (no
+    epoch) a repeated seed batch returns the device ``MiniBatch`` built at
+    its first occurrence, re-stamped with the current step; for training
+    streams the epoch is part of the key (and re-keys the sampler), so a
+    later epoch draws a fresh neighborhood. The layout cache is host mode
+    only (the device sampler builds its own layouts).
     """
 
     _SENTINEL = object()
@@ -223,6 +395,8 @@ class MiniBatchLoader:
         bucket: bool = False,
         start_step: int = 0,
         num_batches: Optional[int] = None,
+        cache_blocks: int = 0,
+        cache_layouts: int = 0,
         device="cpu",
     ):
         self.sampler = sampler
@@ -236,6 +410,12 @@ class MiniBatchLoader:
         self.bucket = bucket
         self.num_batches = num_batches
         self.device = torch.device(device)
+        self.block_cache = LRUCache(cache_blocks, name="block_cache") \
+            if cache_blocks else None
+        self.layout_cache = LRUCache(cache_layouts, name="layout_cache") \
+            if cache_layouts else None
+        self._fanout_key = tuple(
+            tuple(int(x) for x in f) for f in sampler.fanouts)
         self.mode = ("device" if hasattr(sampler, "sample_minibatch")
                      else "host")
         self.host_builds = 0     # batches built by the host NumPy pipeline
@@ -243,32 +423,82 @@ class MiniBatchLoader:
         self._done = False
         self._thread = None
         if self.mode == "device":
-            # threadless prefetch: a deque of already-dispatched batches
+            # threadless prefetch: a deque of already-dispatched batches,
+            # each with its block-cache key (None: not cached)
             self._next_step = start_step
             self._pending: collections.deque = collections.deque()
             return
         self.q: queue.Queue = queue.Queue(maxsize=PREFETCH_DEPTH)
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._fill, daemon=True)
+        self._thread = threading.Thread(target=self._fill, daemon=True,
+                                        name="MiniBatchLoader-producer")
         self._thread.start()
+
+    def cache_stats(self) -> dict:
+        """Hit/miss counters of both loader caches (empty if disabled)."""
+        out = {}
+        if self.block_cache is not None:
+            out["block_cache"] = self.block_cache.stats()
+        if self.layout_cache is not None:
+            out["layout_cache"] = self.layout_cache.stats()
+        return out
+
+    def build_stats(self) -> dict:
+        """Which pipeline built the batches the caches did not serve, and
+        the caches' hit rates."""
+        out = {"mode": self.mode, "host_builds": self.host_builds,
+               "device_builds": self.device_builds}
+        if self.block_cache is not None:
+            out["block_cache_hit_rate"] = self.block_cache.hit_rate
+        if self.layout_cache is not None:
+            out["layout_cache_hit_rate"] = self.layout_cache.hit_rate
+        return out
+
+    def _cache_key(self, seeds: np.ndarray, epoch) -> tuple:
+        return (np.asarray(seeds).tobytes(), self._fanout_key, self.tile,
+                self.node_block, self.bucket, epoch)
+
+    def _cached(self, step: int, seeds, epoch):
+        """``(cached batch re-stamped with step or None, cache key)``."""
+        if self.block_cache is None:
+            return None, None
+        key = self._cache_key(seeds, epoch)
+        mb = self.block_cache.get(key)
+        if mb is not None:
+            mb = dataclasses.replace(mb, step=step)
+        return mb, key
 
     def _build(self, step: int) -> MiniBatch:
         seeds = self._seeds_for(step)
-        self.host_builds += 1
         epoch = self._epoch_of(step) if self._epoch_of is not None else None
+        mb, key = self._cached(step, seeds, epoch)
+        if mb is not None:
+            return mb
+        self.host_builds += 1
         with obs.span("sample", step=step):
             seq = self.sampler.sample(seeds, batch_index=step, epoch=epoch)
         with obs.span("layout", step=step):
-            return build_minibatch(seq, step=step, tile=self.tile,
-                                   node_block=self.node_block,
-                                   bucket=self.bucket, device=self.device)
+            mb = build_minibatch(seq, step=step, tile=self.tile,
+                                 node_block=self.node_block,
+                                 bucket=self.bucket,
+                                 layout_cache=self.layout_cache,
+                                 device=self.device)
+        if key is not None:
+            self.block_cache.put(key, mb)
+        return mb
 
-    def _build_device(self, step: int) -> MiniBatch:
+    def _build_device(self, step: int):
         seeds = self._seeds_for(step)
         epoch = self._epoch_of(step) if self._epoch_of is not None else None
+        mb, key = self._cached(step, seeds, epoch)
+        if mb is not None:
+            return mb, None
         self.device_builds += 1
-        return self.sampler.sample_minibatch(seeds, batch_index=step,
-                                             epoch=epoch, step=step)
+        mb = self.sampler.sample_minibatch(seeds, batch_index=step,
+                                           epoch=epoch, step=step)
+        if key is not None:
+            self.block_cache.put(key, mb)
+        return mb, key
 
     def _pump(self) -> None:
         """Dispatch device builds until the prefetch window is full: each
@@ -314,10 +544,16 @@ class MiniBatchLoader:
             if not self._pending:
                 self._done = True
                 raise StopIteration
-            # checked against its counts (rebuilt if it overflowed)
-            mb = self.sampler.settle(self._pending.popleft())
+            # checked against its counts (rebuilt if it overflowed); a
+            # cached batch was settled before, so this only reads its
+            # finished counts
+            mb, key = self._pending.popleft()
+            settled = self.sampler.settle(mb)
+            if key is not None and settled is not mb \
+                    and key in self.block_cache:
+                self.block_cache.put(key, settled)   # the rebuilt batch
             self._pump()   # dispatch the next batch before the caller runs
-            return mb
+            return settled
         while True:
             try:
                 item = self.q.get(timeout=0.5)

@@ -11,8 +11,9 @@ and loaders are made per driver through ``make_loader``. With
 ``tune != "off"`` the engine builds a ``tune.Tuner`` on its device and
 folds its measured (or cache-replayed) decisions into the stack: per-op
 variants, per-layer COMPACT sets and the full-graph layout tile;
-``tune_minibatch`` adds block-scale op variants. Feature stores and data
-parallelism are later slices.
+``tune_minibatch`` adds block-scale op variants. The executors capture one
+CUDA graph per signature on a card (``core.executor``). Feature stores and
+data parallelism are later slices.
 """
 from __future__ import annotations
 
@@ -210,6 +211,8 @@ class RGNNEngine:
         *,
         num_batches: Optional[int] = None,
         start_step: int = 0,
+        cache_blocks: int = 0,
+        cache_layouts: int = 0,
     ) -> MiniBatchLoader:
         """A prefetching loader over this engine's sampler/layout config,
         delivering (bucketed, unless ``cfg.bucket`` is off) mini-batches on
@@ -218,27 +221,34 @@ class RGNNEngine:
         are tuned against these layouts by ``tune_minibatch``. With
         ``cfg.sampler == "device"`` it gets the ``DeviceSampler`` and
         prefetches without a thread (sampling and layouts as enqueued
-        device work)."""
+        device work). ``cache_blocks`` / ``cache_layouts`` size the
+        loader's LRU caches (0: off)."""
         active = self.device_sampler if self.device_sampler is not None \
             else self.sampler
         return MiniBatchLoader(
             active, seed_source,
             tile=self.cfg.tile, node_block=self.cfg.node_block,
             bucket=self.cfg.bucket, start_step=start_step,
-            num_batches=num_batches, device=self.device,
+            num_batches=num_batches, cache_blocks=cache_blocks,
+            cache_layouts=cache_layouts, device=self.device,
         )
 
-    def forward_minibatch(self, params, mb, global_feats) -> torch.Tensor:
+    def forward_minibatch(self, params, mb, global_feats,
+                          compiled: bool = True) -> torch.Tensor:
         """Sampled forward: per-seed outputs for a ``MiniBatch``, inside an
-        ``execute`` span (synchronized in the span only when tracing)."""
+        ``execute`` span (synchronized in the span only when tracing);
+        ``compiled=False`` runs op by op."""
         with obs.span("execute", step=mb.step) as sp:
-            return sp.sync(self.stack.apply_blocks(params, mb, global_feats))
+            return sp.sync(self.stack.apply_blocks(params, mb, global_feats,
+                                                   compiled=compiled))
 
-    def forward_full(self, params, feats: torch.Tensor) -> torch.Tensor:
+    def forward_full(self, params, feats: torch.Tensor,
+                     compiled: bool = True) -> torch.Tensor:
         """Full-graph forward over all nodes, without gradients, inside an
-        ``execute`` span."""
+        ``execute`` span; ``compiled=False`` runs op by op."""
         with obs.span("execute", mode="full_graph") as sp, torch.no_grad():
-            return sp.sync(self.stack.apply(params, {"feature": feats}))
+            return sp.sync(self.stack.apply(params, {"feature": feats},
+                                            compiled=compiled))
 
     def tune_minibatch(self, params, mb, global_feats) -> None:
         """Extend the decision table with block-scale op variants measured

@@ -16,11 +16,21 @@ on the card the backward's scatter-adds use atomics).
 full-graph step per call. With full-neighborhood fanout the sampled step
 reproduces its loss and gradients.
 
+On a card both steps are captured (``core.executor``, ``compiled=True``,
+the default): one CUDA graph per bucketed signature, captured at its
+second call and replayed from then on. A replayed step returns the new state in its graph's buffers
+(the reference's donated state), valid until the next step; the trainers
+copy what they keep — checkpoints snapshot the state to host memory, the
+periodic evaluations run before the next step, and ``train`` returns a
+copy. ``compiled=False`` runs every step op by op. ``skew`` switches the
+sampled trainer's seed stream to Zipf-skewed draws with replacement, as
+the reference's.
+
 Telemetry: every sampled step runs inside a ``train_step`` span and lands
 in the ``train_step_ms`` histogram (``repro_torch.obs``); the step already
 ends in a synchronize on a card, so neither adds one.
 
-Not ported yet: feature stores and the Zipf-skewed seed stream (``skew``).
+Not ported yet: feature stores.
 """
 from __future__ import annotations
 
@@ -34,8 +44,14 @@ from repro_torch import obs
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import executor
 from repro_torch.optim import AdamW, TrainState
-from repro_torch.sampling import EpochSeedStream, build_minibatch
+from repro_torch.optim.adamw import tree_map
+from repro_torch.sampling import EpochSeedStream, SeedStream, build_minibatch
 from repro_torch.train.engine import RGNNEngine
+
+
+# LRU capacity of the sampled trainer's kernel-layout cache (the
+# reference trainer's default)
+LAYOUT_CACHE = 128
 
 
 def _quiet(*_a, **_k):
@@ -43,11 +59,14 @@ def _quiet(*_a, **_k):
 
 
 class FullGraphTrainer:
-    """Full-graph SGD over ``StackTrainExecutor``."""
+    """Full-graph SGD over ``StackTrainExecutor`` (captured on a card unless
+    ``compiled=False``)."""
 
     def __init__(self, engine: RGNNEngine, feats, labels, train_ids,
-                 *, opt: Optional[AdamW] = None, log=print):
+                 *, opt: Optional[AdamW] = None, compiled: bool = True,
+                 log=print):
         self.engine = engine
+        self.compiled = compiled
         self.opt = opt or AdamW(learning_rate=3e-3, weight_decay=0.01)
         self.feats = torch.as_tensor(feats).to(engine.device)
         self.labels = np.asarray(labels)
@@ -68,7 +87,8 @@ class FullGraphTrainer:
     def step(self, state: TrainState):
         return self.step_exec.grad_and_update(
             state, self.engine.gt, self.engine.layouts, self._idx,
-            self._labels_train, {"feature": self.feats})
+            self._labels_train, {"feature": self.feats},
+            compiled=self.compiled)
 
     def train(self, state: TrainState, steps: int, log_every: int = 0):
         losses: List[float] = []
@@ -78,7 +98,8 @@ class FullGraphTrainer:
             if log_every and (i + 1) % log_every == 0:
                 self.log(f"[train_full] step {i+1:4d} loss {losses[-1]:.4f} "
                          f"acc {float(metrics['accuracy']):.2%}")
-        return state, losses
+        # a replayed step's state lives in its graph's buffers
+        return tree_map(torch.clone, state), losses
 
     def evaluate(self, params, ids=None) -> Dict[str, float]:
         ids = self.train_ids if ids is None else np.asarray(ids, np.int32)
@@ -101,9 +122,11 @@ class SampledTrainer:
         *,
         opt: Optional[AdamW] = None,
         ckpt_dir: Optional[str] = None,
+        compiled: bool = True,
         log=print,
     ):
         self.engine = engine
+        self.compiled = compiled
         self.opt = opt or AdamW(learning_rate=3e-3, weight_decay=0.01)
         self.feats = torch.as_tensor(feats).to(engine.device)
         self.labels = np.asarray(labels)
@@ -123,7 +146,7 @@ class SampledTrainer:
         if self._full is None:
             self._full = FullGraphTrainer(
                 self.engine, self.feats, self.labels, self.train_ids,
-                opt=self.opt, log=self.log)
+                opt=self.opt, compiled=self.compiled, log=self.log)
         return self._full
 
     def init_state(self, params) -> TrainState:
@@ -152,14 +175,26 @@ class SampledTrainer:
         eval_every_epochs: int = 0,
         warmup_epochs: int = 1,
         log_every: int = 0,
+        skew: Optional[float] = None,
     ):
         """Run ``epochs`` of neighbor-sampled SGD; returns
-        ``(state, stats)``. ``start_step`` (a global step, e.g. from
-        ``resume``) may land mid-epoch: the stream replays the exact
-        remaining batches of that epoch."""
-        stream = EpochSeedStream(self.train_ids, batch_size,
-                                 seed=self.engine.cfg.seed)
-        bpe = stream.batches_per_epoch
+        ``(state, stats)``, the state a copy. ``start_step`` (a global
+        step, e.g. from ``resume``) may land mid-epoch: the stream replays
+        the exact remaining batches of that epoch.
+
+        ``skew`` switches the seed stream to Zipf-skewed sampling with
+        replacement over the train ids (``SeedStream(zipf_alpha=)``), as
+        the reference's: an "epoch" is then nominal (``len(train_ids) //
+        batch_size`` steps), and neighborhoods still resample every step
+        (the sampler is keyed by the global step)."""
+        sseed = self.engine.cfg.seed
+        if skew is not None:
+            stream = SeedStream(ids=self.train_ids, batch_size=batch_size,
+                                seed=sseed, zipf_alpha=skew)
+            bpe = max(1, len(self.train_ids) // stream.batch_size)
+        else:
+            stream = EpochSeedStream(self.train_ids, batch_size, seed=sseed)
+            bpe = stream.batches_per_epoch
         total_steps = epochs * bpe
         if start_step >= total_steps:
             raise ValueError(f"start_step {start_step} beyond "
@@ -168,7 +203,8 @@ class SampledTrainer:
                                         total_steps - start_step)
         loader = self.engine.make_loader(
             stream, start_step=start_step,
-            num_batches=total_steps - start_step)
+            num_batches=total_steps - start_step,
+            cache_layouts=LAYOUT_CACHE)
 
         ex = self.step_exec
         sync = (torch.cuda.synchronize if self.engine.device.type == "cuda"
@@ -187,12 +223,14 @@ class SampledTrainer:
                 labels_b = self._labels_of(mb)
                 feats_b = {"feature": self.feats[mb.input_ids.long()]}
                 t0 = time.perf_counter()
-                # one eager step; forward / backward / optimizer attribution
-                # is obs.profile.profile_train_step's (and the profiler's
-                # record_function ranges)
+                # one step (a graph replay once its signature was
+                # captured); forward / backward / optimizer attribution is
+                # obs.profile.profile_train_step's (and the profiler's
+                # record_function ranges, op by op)
                 with obs.span("train_step", step=step):
-                    state, metrics = ex.grad_and_update(state, mb, labels_b,
-                                                        feats_b)
+                    state, metrics = ex.grad_and_update(
+                        state, mb, labels_b, feats_b,
+                        compiled=self.compiled)
                     sync()
                 dt = time.perf_counter() - t0
                 obs.metrics().histogram("train_step_ms").observe(dt * 1e3)
@@ -206,6 +244,7 @@ class SampledTrainer:
                              f"({step_times[-1]*1e3:.1f} ms)")
                 if self.ckpt is not None and ckpt_every \
                         and (step + 1) % ckpt_every == 0:
+                    # snapshots the state to host memory before returning
                     self.ckpt.save(step + 1, state)
                 if (step + 1) % bpe == 0:
                     epoch = (step + 1) // bpe
@@ -213,9 +252,12 @@ class SampledTrainer:
                     self.log(f"[train_rgnn] epoch {epoch}/{epochs}: "
                              f"mean loss {np.mean(span):.4f}")
                     if eval_every_epochs and epoch % eval_every_epochs == 0:
+                        # runs before the next step changes the state
                         evals.append(self._periodic_eval(state, epoch))
         finally:
             loader.close()
+        # a replayed step's state lives in its graph's buffers
+        state = tree_map(torch.clone, state)
         t_total = time.perf_counter() - t_train0
         if traces_at_warmup is None:
             traces_at_warmup = ex.trace_count
@@ -240,10 +282,16 @@ class SampledTrainer:
             "executor_traces": ex.trace_count,
             "executor_cache_hits": ex.cache_hits,
             "executor_compiled": ex.num_compiled,
+            "executor_captures": ex.captures,
+            "executor_replays": ex.replays,
             "retraces_after_warmup": ex.trace_count - traces_at_warmup,
             "warmup_steps": warmup_steps,
             "evals": evals,
         }
+        for name, cs in loader.cache_stats().items():
+            stats[f"{name}_hits"] = cs["hits"]
+            stats[f"{name}_misses"] = cs["misses"]
+            stats[f"{name}_hit_rate"] = cs["hit_rate"]
         return state, stats
 
     def _periodic_eval(self, state: TrainState, epoch: int) -> Dict:
@@ -274,7 +322,8 @@ class SampledTrainer:
             mb = build_minibatch(seq, step=lo, tile=cfg.tile,
                                  node_block=cfg.node_block, bucket=cfg.bucket,
                                  device=self.engine.device)
-            logits = self.engine.forward_minibatch(params, mb, self.feats)
+            logits = self.engine.forward_minibatch(params, mb, self.feats,
+                                                   compiled=self.compiled)
             loss, acc = executor.softmax_xent(logits, torch.from_numpy(
                 self.labels[chunk]).to(self.engine.device))
             tot_loss += float(loss) * len(chunk)

@@ -152,7 +152,7 @@ def test_device_pad_segments_equal_reference_and_host(graph, seg):
     for a, b, name in zip(got, want, ("row_map", "inv_map", "t2g")):
         _eq(a, b, name)
     # the bundle with K5's work split equals the host bundle at the same
-    # capacity; its chunk count is the static bound
+    # capacity; both chunk counts are the static bound
     dev = ops.device_padded_segments(torch.from_numpy(ptr),
                                      torch.from_numpy(rows), tile, cap)
     host = ops.padded_segments_dev(
@@ -160,7 +160,7 @@ def test_device_pad_segments_equal_reference_and_host(graph, seg):
     for f in ("row_map", "inv_map", "t2g", "group_tile_ptr",
               "group_chunk_ptr"):
         _eq(getattr(dev, f), getattr(host, f), f)
-    assert dev.num_chunks >= host.num_chunks
+    assert dev.num_chunks == host.num_chunks
     assert dev.chunk_tiles == host.chunk_tiles
     assert dev.num_chunks == cap // tile // dev.chunk_tiles + len(ptr) - 1
     src = torch.from_numpy(np.arange(rows.shape[0], dtype=np.int32) * 3)

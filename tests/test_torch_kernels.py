@@ -637,7 +637,8 @@ def test_k5_chunks_cover_only_real_tiles():
     assert lay.group_tile_ptr.tolist() == [0, 0, 1, 2 * c + 2, 2 * c + 2,
                                            3 * c + 2]
     assert lay.group_chunk_ptr.tolist() == [0, 0, 1, 4, 4, 5]
-    assert lay.num_chunks == 5
+    # the launch width is the static bound, past the 5 chunks with work
+    assert lay.num_chunks == padded_tiles // c + 5 > 5
     assert ps.padded_rows // 8 > 3 * c + 2     # pad tiles outside the runs
 
 
@@ -863,10 +864,10 @@ def test_fp64_sums_of_fp32_products_round_within_one_ulp(n):
 
 @pytest.mark.parametrize("grow", [1, 4])
 def test_k5_static_chunk_bound_of_the_device_layout(grow):
-    """Device sampling builds K5's layout with a static chunk count above
-    ``group_chunk_ptr[R]`` (``ops.device_padded_segments``): K5 on it
-    equals K5 on the host layout's exact count, and the reference kernel
-    on every group that owns tiles."""
+    """Both builders give K5's layout a static chunk count above
+    ``group_chunk_ptr[R]`` (``ops.static_chunk_count``): K5 on it equals
+    K5 launched at the exact count, and the reference kernel on every
+    group that owns tiles."""
     rng = np.random.default_rng(11 + grow)
     tile, r = 8, 6
     ptr, m = _segments(rng, r, 40)
@@ -877,7 +878,8 @@ def test_k5_static_chunk_bound_of_the_device_layout(grow):
         _t(np.repeat(np.arange(r, dtype=np.int32), np.diff(ptr))), tile, cap)
     ps = L.pad_segments_rows(L.pad_segments(ptr, tile), cap)
     host = ops.padded_segments_dev(ps)
-    assert dev.num_chunks > int(dev.group_chunk_ptr[-1]) == host.num_chunks
+    exact_chunks = int(host.group_chunk_ptr[-1])
+    assert dev.num_chunks == host.num_chunks > exact_chunks
     x_p = _padded_rows(rng, ps, 16)
     dy_p = rng.normal(size=(cap, 24)).astype(np.float32)
     ours = SK.segment_outer_padded(
@@ -886,7 +888,7 @@ def test_k5_static_chunk_bound_of_the_device_layout(grow):
         chunk_tiles=dev.chunk_tiles).numpy()
     exact = SK.segment_outer_padded(
         _t(x_p), _t(dy_p), host.group_tile_ptr, host.group_chunk_ptr,
-        num_groups=r, num_chunks=host.num_chunks, tile=tile,
+        num_groups=r, num_chunks=exact_chunks, tile=tile,
         chunk_tiles=host.chunk_tiles).numpy()
     np.testing.assert_array_equal(ours, exact)
     ref = np.asarray(RSK.segment_outer_padded(

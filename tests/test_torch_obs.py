@@ -546,15 +546,17 @@ SERVE = dict(model="rgat", dataset="aifb", scale=0.05, layers=2, dim=8,
 
 
 def test_serve_disabled_records_nothing_and_keeps_signatures():
-    """The reference's test without its loader-cache arguments (the
-    port's loader has no caches yet): with fresh seeds every batch, new
-    signatures after warmup may occur, and must be the same either way."""
-    off = serve_rgnn.serve(obs_mode="off", **SERVE)
+    """The reference's test with its loader-cache arguments: repeating
+    traffic over two distinct batches with both caches on keeps zero new
+    signatures after warmup, with obs off and on alike."""
+    kwargs = dict(SERVE, repeat_after=2, cache_blocks=8, cache_layouts=32)
+    off = serve_rgnn.serve(obs_mode="off", **kwargs)
     assert "metrics" not in off
+    assert off["retraces_after_warmup"] == 0
     assert NULL_REGISTRY.counter("executor_traces").value == 0
-    on = serve_rgnn.serve(obs_mode="on", **SERVE)
+    on = serve_rgnn.serve(obs_mode="on", **kwargs)
     assert "metrics" in on
-    assert on["retraces_after_warmup"] == off["retraces_after_warmup"]
+    assert on["retraces_after_warmup"] == 0
     assert on["executor_traces"] == off["executor_traces"]
     assert snapshot_counter_total(on["metrics"], "executor_traces") \
         == on["executor_traces"]
