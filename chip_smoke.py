@@ -8,8 +8,8 @@ Drives the port (``src/repro_torch``, never JAX nor the reference package)
 on one CUDA card, in phases, for the registry's models (RGAT, RGCN, HGT,
 rgcn_cat) and the dense LMs (gemma2-2b, qwen3-4b; the reduced variants of
 all four dense configs); any failure exits non-zero. Each phase prints
-``[phase N] start`` first. Phases 3-5, 9, 11, 13 and 14 run the drivers'
-default: the executors capture one CUDA graph per signature at its
+``[phase N] start`` first. Phases 3-5, 9, 11, 13, 14 and 15 run the
+drivers' default: the executors capture one CUDA graph per signature at its
 second call and replay it (``core.executor``); phases 6 and 10 train op
 by op and then at that default. A kernel wrapper counts the launches it
 makes, op by op or into a graph being captured, not the kernels a replay
@@ -243,7 +243,26 @@ comparable across versions:
    executor held in a reference cycle, beside a host loader building and
    copying bgs-b1024 batches the whole time, a collection forced before
    every capture, every replay bitwise equal to its first call and no
-   collection while a stream captures. Times are printed, never gated.
+   collection while a stream captures. Times are printed, never gated;
+15. tiered feature storage (``--feature-store``, ``repro_torch.feats``),
+   through the drivers at their defaults (captured, the host loader's
+   producer thread on): (a) RGAT and RGCN bgs-b1024 (6 batches of a
+   Zipf-1.2 stream) served once per tier, ``device``, ``host`` and
+   ``cached`` (table/4 rows, the split measured on the stream): every
+   batch's logits bit for bit across the tiers, the first batch within
+   1e-4 of the CPU run, the kernels launched (counted from 0) the device
+   tier's, each store's own device allocation its ``device_bytes()`` (the
+   bytes its build requested from the caching allocator, exactly: the
+   table's, 0, the slab's; ``memory_allocated`` within the allocator's
+   rounding), and, from the allocator's trace of the whole run, no
+   allocation of the table's size with ``host`` or ``cached`` (one with
+   ``device``); per tier p50 / p95, wait and compute, seeds/s, bytes
+   moved, host gathers, peak memory, and the cache's hits, misses,
+   evictions, overflows, hit rate and slot split; (b) RGAT with a
+   512-row cache: overflow, the logits still the device tier's; (c)
+   device-sampled RGAT aifb-b32, ``host`` against ``device``, bit for
+   bit; (d) RGAT aifb-b64 trained for an epoch with ``cached`` against
+   ``device``: the first loss bit for bit, the others within rtol 1e-5.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: phase
 6's op-by-op runs of all three models for K1-K5 and K7, phases 9 and 10
@@ -4751,6 +4770,261 @@ def phase_capture(torch, hector_torch, SK, L, ops, serve_rgnn, train_rgnn,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the feature store (``--feature-store``)
+# ---------------------------------------------------------------------------
+# bgs-b1024 over a Zipf stream (the cached tier sees reuse), 6 batches
+FEATURE_SERVE = dict(SERVE_LARGE, num_batches=6, skew=1.2)
+FEATURE_TIERS = ("device", "host", "cached")
+# a cache of 512 rows overflows: a bgs-b1024 batch reads tens of thousands
+FEATURE_OVERFLOW_BUDGET = 512
+# the caching allocator rounds a block up to 512 bytes, and a block it does
+# not split off a larger segment up to the segment's size: a multiple of 2
+# MiB above 10 MiB (``memory_allocated`` counts the rounded blocks)
+ALLOC_ROUND = 2 << 20
+
+
+def _requested(torch) -> int:
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+@contextlib.contextmanager
+def store_builds(torch, builds):
+    """While active, ``RGNNEngine.make_feature_store`` appends ``(store,
+    requested, allocated)`` to ``builds``: the device bytes the store's
+    build asked the caching allocator for (``requested_bytes``) and the
+    bytes it allocated (``torch.cuda.memory_allocated()``, its rounded
+    blocks), each after minus before, read after a synchronize."""
+    from repro_torch.train.engine import RGNNEngine
+
+    orig = RGNNEngine.make_feature_store
+
+    def build(self, feats, **kw):
+        torch.cuda.synchronize()
+        req, alloc = _requested(torch), torch.cuda.memory_allocated()
+        store = orig(self, feats, **kw)
+        torch.cuda.synchronize()
+        builds.append((store, _requested(torch) - req,
+                       torch.cuda.memory_allocated() - alloc))
+        return store
+
+    RGNNEngine.make_feature_store = build
+    try:
+        yield builds
+    finally:
+        RGNNEngine.make_feature_store = orig
+
+
+@contextlib.contextmanager
+def allocation_sizes(torch, sizes):
+    """While active, the caching allocator records every allocation
+    (``torch.cuda.memory._record_memory_history``, no stacks); on exit
+    ``sizes`` gets each one's size in bytes."""
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context=None, stacks="python", max_entries=4_000_000)
+    try:
+        yield sizes
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+        sizes.extend(e["size"] for trace in snap["device_traces"]
+                     for e in trace if e["action"] == "alloc")
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+
+
+def check_store_alloc(tag, store, req, alloc, want):
+    """The store's own device allocation is its ``device_bytes()``,
+    ``want``: the bytes its build requested equal it exactly, and the
+    bytes allocated are those rounded up by the caching allocator."""
+    check(store.device_bytes() == want, f"{tag}: a {store.kind} store "
+          f"reports {store.device_bytes()} device bytes, not {want}")
+    check(req == want and want <= alloc < want + ALLOC_ROUND
+          and (want or not alloc),
+          f"{tag}: the store requested {req} and allocated {alloc} device "
+          f"bytes; its device_bytes() is {want}")
+
+
+def feature_serve(torch, ops, serve_rgnn, cfg, tier, tag, budget=None):
+    """``serve(**cfg, feature_store=tier)`` on the card, its launches
+    counted from 0: the store's own allocation equals its
+    ``device_bytes()`` (the table's bytes, 0, or the slab's;
+    ``check_store_alloc``), no allocation of the whole table's size is
+    made unless the tier is ``device`` (then at least one: the probe sees
+    it), every batch's logits finite and of their shape. Returns the
+    run."""
+    import numpy as np
+
+    batches, builds, sizes = [], [], []
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with store_builds(torch, builds), allocation_sizes(torch, sizes):
+        stats = serve_rgnn.serve(
+            **cfg, device="cuda", feature_store=tier, feature_budget=budget,
+            on_batch=lambda mb, y: batches.append(
+                (mb.seq, mb.step, y.detach().cpu())),
+            log=lambda m: None)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = ops.launch_counts()
+    check(len(builds) == 1 and builds[0][0].kind == tier,
+          f"{tag}: {len(builds)} feature stores built")
+    store, own, alloc = builds[0]
+    want = {"device": store.table_bytes, "host": 0,
+            "cached": max(getattr(store, "capacity", 0), 1) * store.dim
+            * store.itemsize}[tier]
+    check_store_alloc(tag, store, own, alloc, want)
+    # the allocator's trace records each allocation's requested size
+    full = sum(1 for s in sizes if s == store.table_bytes)
+    check(full > 0 if tier == "device" else full == 0,
+          f"{tag}: {full} allocations of the whole table's size "
+          f"({store.table_bytes} bytes) with feature_store={tier}")
+    check(len(batches) == cfg["num_batches"], f"{tag}: batches missing")
+    for _, step, y in batches:
+        check(y.shape == (cfg["batch_size"], cfg["classes"])
+              and bool(torch.isfinite(y).all()),
+              f"{tag}: batch {step} logits {tuple(y.shape)}, or not finite")
+    n = len(batches)
+    fs = {k.removeprefix("feature_"): v for k, v in stats.items()
+          if k.startswith("feature_")}
+    # the device tier's bytes moved are its one upload of the table
+    per_batch = (fs["bytes_moved"] - (store.table_bytes if tier == "device"
+                                      else 0)) / n
+    line = (f"[{tag}] p50 {stats['latency_ms_p50']:.3f} ms, p95 "
+            f"{stats['latency_ms_p95']:.3f} ms, wait "
+            f"{stats['wait_ms_mean']:.3f} + compute "
+            f"{stats['compute_ms_mean']:.3f} ms, "
+            f"{stats['seeds_per_s']:.1f} seeds/s; store requested {own} "
+            f"device bytes = device_bytes() (allocated {alloc}), {full} "
+            f"allocations of the "
+            f"table's size in {len(sizes)}; bytes moved "
+            f"{fs['bytes_moved']} ({per_batch:.0f} a batch, the table's "
+            f"upload apart), "
+            f"host gathers {fs['host_gathers']}, peak {peak:.3f} GiB")
+    if tier == "cached":
+        line += (f"; hits {fs['hits']}, misses {fs['misses']}, evictions "
+                 f"{fs['evictions']}, overflows {fs['overflows']}, hit rate "
+                 f"{fs['hit_rate']:.4f}, slots per ntype "
+                 f"{np.diff(fs['slot_ptr']).tolist()}")
+    log(line)
+    keys = ("latency_ms_p50", "latency_ms_p95", "wait_ms_mean",
+            "compute_ms_mean", "seeds_per_s", "executor_compiled",
+            "executor_captures", "executor_replays")
+    return dict(stats={k: stats[k] for k in keys}, feature=fs,
+                launches=launches, store_requested_bytes=own,
+                store_allocated_bytes=alloc,
+                table_size_allocs=full, allocs=len(sizes),
+                peak_mem_gib=peak, batches=batches)
+
+
+def same_logits(torch, tag, runs, base):
+    """Every batch's logits of every run bit for bit ``base``'s."""
+    for name, r in runs.items():
+        for (_, step, a), (_, _, b) in zip(r["batches"], base["batches"]):
+            check(torch.equal(a, b), f"{tag}: batch {step} logits of "
+                  f"{name} differ from the device tier's (max abs "
+                  f"{float((a - b).abs().max()):.3g})")
+
+
+def phase_features(torch, hector_torch, ops, serve_rgnn, train_rgnn, card):
+    """Phase 15: the three feature tiers through the drivers at their
+    defaults (captured executors, the host loader's producer thread on).
+    (a) RGAT and RGCN bgs-b1024 on a Zipf stream, once per tier: every
+    batch's logits bit for bit across the tiers and the first batch within
+    1e-4 of the CPU run, the kernels launched the device tier's, each
+    store's allocation its ``device_bytes()``, no whole-table allocation
+    with ``host`` / ``cached``; (b) RGAT with a 512-row cache: overflow,
+    logits still the device tier's; (c) device-sampled RGAT aifb-b32 with
+    the ``host`` tier against the ``device`` tier, bit for bit; (d) RGAT
+    aifb-b64 training for an epoch with the ``cached`` tier against the
+    ``device`` tier: the first loss bit for bit, every later one within
+    rtol 1e-5 (phase 14's bounds for a captured step)."""
+    out = {}
+    for model in ("rgat", "rgcn"):
+        cfg = dict(FEATURE_SERVE, model=model)
+        runs = {}
+        for tier in FEATURE_TIERS:
+            runs[tier] = feature_serve(
+                torch, ops, serve_rgnn, cfg, tier,
+                f"phase 15 a {model} bgs-b1024 {tier}")
+        if model == "rgat":
+            runs["cached 512"] = feature_serve(
+                torch, ops, serve_rgnn, cfg, "cached",
+                f"phase 15 b {model} bgs-b1024 cached "
+                f"{FEATURE_OVERFLOW_BUDGET} rows",
+                budget=FEATURE_OVERFLOW_BUDGET)
+            check(runs["cached 512"]["feature"]["overflows"] > 0,
+                  f"phase 15 b: no overflow at {FEATURE_OVERFLOW_BUDGET} "
+                  f"rows")
+        tag = f"phase 15 a {model} bgs-b1024"
+        base = runs["device"]
+        same_logits(torch, tag, runs, base)
+        for name, r in runs.items():
+            check(r["launches"] == base["launches"],
+                  f"{tag}: {name} launched {r['launches']}, the device "
+                  f"tier {base['launches']}")
+        for name in FORWARD_LAUNCHES[model]:
+            check(base["launches"][name] > 0, f"{tag}: {name} never "
+                  f"launched")
+        err = compare_with_cpu(torch, hector_torch, cfg,
+                               base["batches"][:1], 1e-4, tag)
+        log(f"[{tag}] {card}: every batch's logits bit for bit across "
+            f"{', '.join(runs)}; kernels launched equal "
+            f"{json.dumps({k: v for k, v in base['launches'].items() if v})}"
+            f"; batch 0 within {err:.3g} of the CPU run")
+        out[model] = {name: {k: v for k, v in r.items() if k != "batches"}
+                      | {"cpu_max_abs_err": err} for name, r in runs.items()}
+
+    cfg = dict(SERVE_DEFAULTS, sampler="device")
+    runs = {tier: feature_serve(torch, ops, serve_rgnn, cfg, tier,
+                                f"phase 15 c rgat aifb-b32 device-sampled "
+                                f"{tier}")
+            for tier in ("device", "host")}
+    same_logits(torch, "phase 15 c rgat aifb-b32 device-sampled", runs,
+                runs["device"])
+    log(f"[phase 15 c] {card}: device-sampled logits of the host tier bit "
+        f"for bit the device tier's over {cfg['num_batches']} batches")
+    out["device_sampled"] = {name: {k: v for k, v in r.items()
+                                    if k != "batches"}
+                             for name, r in runs.items()}
+    out["train"] = feature_training(torch, train_rgnn, card)
+    return out
+
+
+def feature_training(torch, train_rgnn, card):
+    """Phase 15 (d): RGAT aifb-b64 for one epoch through
+    ``train_rgnn.train`` at its default (captured), with the ``device``
+    and the ``cached`` tier."""
+    runs = {}
+    for tier in ("device", "cached"):
+        builds = []
+        with store_builds(torch, builds):
+            st = train_rgnn.train(**TRAIN, device="cuda", feature_store=tier,
+                                  log=lambda m: None)
+        torch.cuda.synchronize()
+        store, req, alloc = builds[0]
+        check_store_alloc(f"phase 15 d {tier}", store, req, alloc,
+                          store.table_bytes if tier == "device"
+                          else store.capacity * store.dim * store.itemsize)
+        runs[tier] = st
+    tag = "phase 15 d rgat aifb-b64"
+    cached, dev = runs["cached"], runs["device"]
+    worst = losses_close(tag, cached["losses"], dev["losses"])
+    check(cached["retraces_after_warmup"] == 0, f"{tag}: "
+          f"{cached['retraces_after_warmup']} new keys after warmup")
+    log(f"[{tag}] {card}: cached tier against the device tier, "
+        f"{len(dev['losses'])} steps: first loss {dev['losses'][0]!r} bit "
+        f"for bit, the others within rtol 1e-5 (max abs {worst:.3g}); "
+        f"step p50 ms {dev['step_ms_p50']:.3f} / {cached['step_ms_p50']:.3f}"
+        f", {dev['seeds_per_s']:.1f} / {cached['seeds_per_s']:.1f} seeds/s;"
+        f" cache hit rate {cached['feature_hit_rate']:.4f}, "
+        f"{cached['feature_bytes_moved']} bytes moved in "
+        f"{cached['feature_host_gathers']} host gathers")
+    keys = ("step_ms_p50", "step_ms_p99", "seeds_per_s", "final_loss")
+    return {t: {k: r[k] for k in keys} | {
+        k: v for k, v in r.items() if k.startswith("feature_")}
+        for t, r in runs.items()} | {"loss_max_abs_diff": worst}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -4886,6 +5160,12 @@ def main(argv=None) -> int:
         capture = phase_capture(torch, hector_torch, SK, L, ops,
                                 serve_rgnn, train_rgnn, card)
         seconds["phase 14"] = time.perf_counter() - t0
+        log("[phase 15] start")
+        t0 = time.perf_counter()
+        features = phase_features(torch, hector_torch, ops, serve_rgnn,
+                                  train_rgnn, card)
+        seconds["phase 15"] = time.perf_counter() - t0
+        log(f"[phase 15] {seconds['phase 15']:.2f} s")
         # the main path's launches, each run from counts set to 0 just
         # before it, each run op by op so that every kernel the card runs
         # goes through its wrapper: phase 6 of every model (K1-K5, K7),
@@ -4937,7 +5217,7 @@ def main(argv=None) -> int:
             serve=serve, profile=prof, train=train, full_graph=full,
             train_profile=train_prof, device_serve=device_serve,
             device_train=device_train, tuning=tuning, lm=lm, obs=obs_out,
-            capture=capture,
+            capture=capture, features=features,
             split_timed=split["timed"], k5_sass=k5_sass,
             gemm_ptxas=gemm_ptxas,
             torch=torch.__version__,

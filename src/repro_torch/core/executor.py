@@ -85,6 +85,7 @@ from torch.profiler import record_function
 
 from repro_torch import obs
 from repro_torch.core import codegen
+from repro_torch.feats import gather_input
 from repro_torch.optim.adamw import tree_leaves
 
 _capturing = 0
@@ -350,11 +351,14 @@ class BlockExecutor(_Executor):
                           list(dst_locals), seed_perm, feats),
                          compiled, torch.clone)
 
-    def run_minibatch(self, params, mb, global_feats,
+    def run_minibatch(self, params, mb, global_feats=None, *, feats=None,
                       compiled: bool = True) -> torch.Tensor:
-        """Forward over a ``sampling.MiniBatch``: the input features are the
-        rows of the device table ``global_feats`` at ``mb.input_ids``."""
-        feats = {"feature": global_feats[mb.input_ids.long()]}
+        """Forward over a ``sampling.MiniBatch``. Input features, as the
+        reference's: an explicit ``feats`` dict, then the loader-attached
+        ``mb.feats``, then the rows of the device table ``global_feats``
+        at ``mb.input_ids``."""
+        if feats is None:
+            feats = gather_input(global_feats, mb)
         return self(params, mb.tensors, mb.layouts, mb.dst_locals,
                     mb.seed_perm, feats, compiled=compiled)
 

@@ -192,19 +192,21 @@ class HectorStack:
         return h
 
     def apply_blocks(self, params: Sequence[Dict[str, torch.Tensor]], mb,
-                     global_feats: torch.Tensor,
-                     compiled: bool = True) -> torch.Tensor:
+                     global_feats=None, compiled: bool = True, *,
+                     feats=None) -> torch.Tensor:
         """Sampled forward over a ``MiniBatch``; returns [len(seeds), out].
 
         ``compiled=True`` runs the block sequence through the
         ``BlockExecutor``'s captured graph of the batch's signature (on a
         card; the CPU runs op by op either way); ``compiled=False`` is the
-        op-by-op path, as the reference's."""
+        op-by-op path, as the reference's. The input features: ``feats``,
+        else ``mb.feats``, else ``global_feats`` (a table or a feature
+        store) at ``mb.input_ids``."""
         if mb.num_hops != self.num_layers:
             raise ValueError(
                 f"minibatch has {mb.num_hops} hops but the stack has "
                 f"{self.num_layers} layers"
             )
         return self.block_executor.run_minibatch(list(params), mb,
-                                                 global_feats,
+                                                 global_feats, feats=feats,
                                                  compiled=compiled)

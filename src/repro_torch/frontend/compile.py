@@ -14,6 +14,10 @@ trainers unchanged.
 ``device=None`` means the CUDA card, and raises without one: pass
 ``device="cpu"`` to run the plain versions on the CPU. ``tune=`` runs the
 autotuner on that device exactly as the drivers' ``--tune`` flag does.
+``feature_store=`` / ``feature_budget=`` pick the tier of the node-feature
+table (``repro_torch.feats``): ``compiled.make_feature_store(feats)``
+builds it, and it goes wherever a raw table went (``make_loader``,
+``apply_blocks``, ``train_step``, ``profile``).
 """
 from __future__ import annotations
 
@@ -28,9 +32,9 @@ __all__ = ["compile", "CompiledRGNN"]
 class CompiledRGNN:
     """A compiled multi-layer RGNN bound to one graph and one device."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, opt=None):
         self.engine = engine
-        self._opt = None
+        self._opt = opt
 
     def __getattr__(self, name):
         return getattr(self.engine, name)
@@ -61,9 +65,10 @@ class CompiledRGNN:
     def apply_blocks(self, params, mb, global_feats,
                      compiled: bool = True) -> torch.Tensor:
         """Sampled mini-batch forward over a ``sampling.MiniBatch``;
-        returns one row per requested seed. ``compiled=True`` replays the
-        captured CUDA graph of the batch's signature on a card;
-        ``compiled=False`` runs op by op."""
+        returns one row per requested seed. ``global_feats`` is the device
+        table or a feature store (loader-attached ``mb.feats`` win).
+        ``compiled=True`` replays the captured CUDA graph of the batch's
+        signature on a card; ``compiled=False`` runs op by op."""
         return self.engine.forward_minibatch(params, mb, global_feats,
                                              compiled=compiled)
 
@@ -85,9 +90,11 @@ class CompiledRGNN:
         with the requested seed order (``mb.seq.slice_labels``); returns
         ``(new_state, {"loss", "accuracy"})``. Captured on a card: the new
         state may live in the step's graph buffers, valid until the next
-        step — copy what you keep."""
+        step — copy what you keep. ``global_feats`` is the device table or
+        a feature store (loader-attached ``mb.feats`` win)."""
+        from repro_torch.feats import gather_input
         labels = torch.as_tensor(labels).to(self.engine.device)
-        feats = {"feature": global_feats[mb.input_ids.long()]}
+        feats = gather_input(global_feats, mb)
         return self.engine.train_executor(self._optimizer()).grad_and_update(
             state, mb, labels, feats)
 
@@ -97,7 +104,8 @@ class CompiledRGNN:
         sampled mini-batch through this model's block path, on the
         engine's device: every op instance (plus one glue row per hop)
         attributed by prefix differencing on the tuner's measurement
-        harness, next to the whole-sequence time. Returns an
+        harness, next to the whole-sequence time. ``global_feats`` as in
+        ``apply_blocks`` (a store is read without changing its state). Returns an
         ``obs.profile.PlanProfile`` (``.table()`` renders the breakdown,
         ``.to_json()`` exports it)."""
         from repro_torch.obs import profile as _prof
@@ -132,13 +140,17 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
     sample: Optional[Union[int, Sequence[int]]] = None,
     tile: int = 32,
     node_block: int = 32,
+    bucket: bool = True,
     activation: str = "relu",
     seed: int = 0,
     device=None,
     sampler: str = "host",
+    feature_store: str = "device",
+    feature_budget: Optional[int] = None,
     tune: str = "off",
     tune_cache: Optional[str] = None,
     tune_full_graph: bool = True,
+    opt=None,
     config=None,
     model_args: Optional[dict] = None,
     log=None,
@@ -155,6 +167,15 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
     ``sampler``: ``"host"`` (NumPy sampling and layouts on a loader
     thread) or ``"device"`` (``DeviceSampler``: selection and layouts on
     the device; the same edges for the same stream position).
+    ``bucket=False`` keeps mini-batches at their exact sizes (no
+    power-of-two padding: every new size is a new executor key).
+    ``feature_store`` / ``feature_budget``: where the node-feature table
+    lives (``repro_torch.feats``): ``"device"`` (the whole table on the
+    device), ``"host"`` (host tables, only sampled rows shipped) or
+    ``"cached"`` (the host tier behind a device hot-row cache of
+    ``feature_budget`` rows, default table/4); predictions are the same
+    bit for bit across the three. ``opt`` (a ``repro_torch.optim.AdamW``)
+    is ``train_step``'s optimizer (default lr 3e-3).
     ``tune``: ``"off"`` (the defaults), ``"cached"`` (replay the
     persistent cache at ``tune_cache``, no measurement) or ``"full"``
     (measure what the cache lacks, on ``device``); ``tune_full_graph=False``
@@ -192,7 +213,9 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
         cfg = EngineConfig(
             model=prog_fn, layers=layers, dim=dim, hidden=hidden,
             classes=classes, fanouts=sample, tile=tile,
-            node_block=node_block, activation=activation, seed=seed,
-            device=device, sampler=sampler, tune=tune,
-            tune_cache=tune_cache, tune_full_graph=tune_full_graph)
-    return CompiledRGNN(RGNNEngine(graph, cfg, log=log))
+            node_block=node_block, bucket=bucket, activation=activation,
+            seed=seed, device=device, sampler=sampler,
+            feature_store=feature_store, feature_budget=feature_budget,
+            tune=tune, tune_cache=tune_cache,
+            tune_full_graph=tune_full_graph)
+    return CompiledRGNN(RGNNEngine(graph, cfg, log=log), opt=opt)

@@ -6,9 +6,15 @@ built on the host and copied to the card without blocking; with
 ``--sampler device``, selected and laid out on the card by the
 ``DeviceSampler``, dispatched one batch ahead with no thread and no
 device-to-host synchronization), and a multi-layer Hector stack runs one
-generated layer per sampled hop, returning per-seed logits. The
-node-feature table lives on the device; each batch gathers its input rows by
-``mb.input_ids``. Reports per-batch latency split into queue-wait
+generated layer per sampled hop, returning per-seed logits.
+``--feature-store`` picks where the node-feature table lives
+(``repro_torch.feats``): ``device`` (the whole table on the card, the
+default), ``host`` (per-ntype pinned host tables; only each batch's input
+rows are copied, on the loader's producer) or ``cached`` (the host tier
+behind a hot-row cache on the card of ``--feature-budget`` rows, default
+table/4, its per-ntype split measured on the serving stream). With
+``host`` or ``cached`` the whole table is never put on the card; the
+logits are the same bit for bit across the three. Reports per-batch latency split into queue-wait
 (sampling + layout, when not hidden by prefetch) and model compute, and
 end-to-end seed throughput — the same lines and stats keys as
 ``repro.launch.serve_rgnn`` where they apply.
@@ -18,6 +24,8 @@ end-to-end seed throughput — the same lines and stats keys as
         --dataset aifb --scale 0.05 --dim 16 --hidden 16 --classes 4
     PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --sampler device
     PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --tune full
+    PYTHONPATH=src python -m repro_torch.launch.serve_rgnn \
+        --feature-store cached --feature-budget 4096 --skew 1.2
 
 The batch loop runs the block executor's captured CUDA graphs on the
 card, one per bucketed signature, captured at the signature's second
@@ -91,6 +99,8 @@ def serve(
     seed: int = 0,
     device=None,
     sampler: str = "host",
+    feature_store: str = "device",
+    feature_budget=None,
     tune: str = "off",
     tune_cache=None,
     skew=None,
@@ -114,7 +124,9 @@ def serve(
     per-layer params as numpy arrays (checked against the plans).
     ``on_batch(mb, logits)`` is called after every batch. ``tune`` /
     ``tune_cache`` as ``--tune`` / ``--tune-cache``; the tuner's counts
-    land in the stats as ``tune_*``.
+    land in the stats as ``tune_*``. ``feature_store`` /
+    ``feature_budget`` as ``--feature-store`` / ``--feature-budget``; the
+    store's stats land as ``feature_*``.
 
     ``repeat_after`` wraps the seed stream onto that many distinct batches
     (``None``: fresh seeds every batch), ``skew`` draws Zipf-skewed seeds,
@@ -154,16 +166,29 @@ def serve(
             model, graph, layers=layers, dim=dim, hidden=hidden,
             classes=classes, sample=fanouts, tile=tile,
             node_block=node_block, seed=seed, device=dev, sampler=sampler,
+            feature_store=feature_store, feature_budget=feature_budget,
             tune=tune, tune_cache=tune_cache, tune_full_graph=False, log=log)
         fanouts = engine.cfg.fanouts
         log(f"[serve_rgnn] {model} on {dataset} (scale {scale}): "
             f"{graph.num_nodes} nodes, {graph.num_edges} edges, "
             f"{graph.num_etypes} etypes; fanouts={fanouts} device={dev} "
-            f"sampler={sampler}" + (f" skew={skew}" if skew else "")
+            f"sampler={sampler} feature_store={feature_store}"
+            + (f" skew={skew}" if skew else "")
             + f" (graph build {t_graph:.2f}s)")
         params = engine.init(seed) if params is None else \
             engine.params_from_reference(params)
-        feats = torch.from_numpy(feats_np).to(dev)   # the device table
+
+        stream = SeedStream(graph.num_nodes, batch_size, seed=seed,
+                            num_distinct=repeat_after, zipf_alpha=skew)
+        # the feature store (the device tier holds the whole table on the
+        # device, the others never do); the cached tier's per-ntype split
+        # is measured on this stream
+        store = engine.make_feature_store(feats_np, seed_source=stream)
+        if feature_store == "cached":
+            log(f"[serve_rgnn] feature cache: {store.capacity} device rows "
+                f"({store.device_bytes() / 1e6:.2f} MB vs full table "
+                f"{store.table_bytes / 1e6:.2f} MB), per-ntype slots "
+                f"{store.slot_ptr.tolist()}")
 
         if tune != "off":
             # block-scale tuning on one representative (bucketed)
@@ -174,7 +199,8 @@ def serve(
                 0, graph.num_nodes, batch_size).astype(np.int32)
             tl = engine.make_loader(lambda step: warm_seeds, num_batches=1)
             try:
-                engine.tune_minibatch(params, next(tl), feats)
+                # the store is read without changing its state
+                engine.tune_minibatch(params, next(tl), store)
             finally:
                 tl.close()
             ts = engine.tuner_stats
@@ -182,11 +208,10 @@ def serve(
                 f"measurements, {ts['cache_hits']} cache replays, "
                 f"{ts['tuned_ops']} tuned")
 
-        stream = SeedStream(graph.num_nodes, batch_size, seed=seed,
-                            num_distinct=repeat_after, zipf_alpha=skew)
         loader = engine.make_loader(stream, num_batches=num_batches,
                                     cache_blocks=cache_blocks,
-                                    cache_layouts=cache_layouts)
+                                    cache_layouts=cache_layouts,
+                                    feature_store=store)
         executor = engine.block_executor
         sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
             else (lambda: None)
@@ -217,8 +242,9 @@ def serve(
                         sampler_syncs_at_warmup = dev_sampler.count_syncs
                 t0 = time.perf_counter()
                 # engine.apply_blocks opens the "execute" span (with a
-                # device sync inside it when tracing is on)
-                logits = engine.apply_blocks(params, mb, feats,
+                # device sync inside it when tracing is on); the batch's
+                # rows came with it (mb.feats, gathered by the producer)
+                logits = engine.apply_blocks(params, mb, store,
                                              compiled=compiled)
                 sync()
                 t_fwd = time.perf_counter() - t0
@@ -281,6 +307,8 @@ def serve(
             stats[f"tune_{k}"] = v
         if engine.decisions is not None:
             stats["tune_decisions"] = engine.decisions.fingerprint()
+        for k, v in store.stats().items():
+            stats[f"feature_{k}"] = v
         if dev_sampler is not None:
             stats["sampler_traces"] = dev_sampler.trace_count
             stats["sampler_retraces_after_warmup"] = (
@@ -302,6 +330,13 @@ def serve(
             stats["latency_ms_p50"] = hs["p50"]
             stats["latency_ms_p95"] = hs["p95"]
             stats["latency_ms_p99"] = hs["p99"]
+        if feature_store != "device":
+            log(f"[serve_rgnn] feature store ({feature_store}): "
+                f"{store.host_gathers} host gathers, "
+                f"{store.bytes_moved / 1e6:.2f} MB moved"
+                + (f", hit rate {store.hit_rate:.0%} "
+                   f"({store.evictions} evictions, {store.overflows} "
+                   f"overflows)" if feature_store == "cached" else ""))
         log(f"[serve_rgnn] served {n} batches x {batch_size} seeds: "
             f"latency p50 {stats['latency_ms_p50']:.1f} ms / "
             f"p95 {stats['latency_ms_p95']:.1f} ms / "
@@ -315,7 +350,8 @@ def serve(
             f"({retraces_after_warmup} new after warmup), "
             f"{executor.captures} graphs captured"
             + "".join(f", {k.removesuffix('_hit_rate')} hit rate {v:.0%}"
-                      for k, v in stats.items() if k.endswith("_hit_rate")))
+                      for k, v in stats.items()
+                      if k.endswith("_cache_hit_rate")))
         if dev_sampler is not None:
             log(f"[serve_rgnn] device sampler: {dev_sampler.trace_count} new "
                 f"programs / {dev_sampler.cache_hits} program-cache hits "
@@ -328,7 +364,7 @@ def serve(
         log(f"[serve_rgnn] sample predictions: {preds[:12].tolist()}")
 
         if profile and last_mb is not None:
-            p = engine.profile(params, last_mb, feats, warmup=1, iters=5)
+            p = engine.profile(params, last_mb, store, warmup=1, iters=5)
             log("[serve_rgnn] per-op kernel breakdown (last batch):\n"
                 + p.table())
             stats["profile"] = p.to_json()
@@ -360,6 +396,18 @@ def main(argv=None):
     ap.add_argument("--sampler", default="host", choices=["host", "device"],
                     help="'host': NumPy sampling and layouts on a loader "
                          "thread; 'device': the DeviceSampler on --device")
+    ap.add_argument("--feature-store", default="device",
+                    choices=["device", "host", "cached"],
+                    help="where the node-feature table lives: 'device' = "
+                         "the whole table on --device; 'host' = pinned "
+                         "per-ntype host tables, only sampled rows copied "
+                         "(on the loader's producer); 'cached' = host tier "
+                         "+ a fixed-budget hot-row cache on --device. "
+                         "Logits are the same bit for bit across the three")
+    ap.add_argument("--feature-budget", type=int, default=None,
+                    help="device hot-row count for --feature-store cached "
+                         "(default: num_nodes / 4); the per-ntype split is "
+                         "measured on the serving stream")
     ap.add_argument("--skew", type=float, default=None, metavar="ALPHA",
                     help="Zipf exponent for the seed stream (power-law "
                          "traffic; popularity rank r drawn with p ~ "
@@ -406,7 +454,9 @@ def main(argv=None):
         fanouts=parse_fanout(args.fanout, args.layers),
         batch_size=args.batch_size, num_batches=args.num_batches,
         tile=args.tile, node_block=args.node_block, seed=args.seed,
-        device=args.device, sampler=args.sampler, tune=args.tune,
+        device=args.device, sampler=args.sampler,
+        feature_store=args.feature_store,
+        feature_budget=args.feature_budget, tune=args.tune,
         tune_cache=args.tune_cache, skew=args.skew,
         cache_blocks=args.cache_blocks, cache_layouts=args.cache_layouts,
         repeat_after=args.repeat_after or None, compiled=not args.eager,

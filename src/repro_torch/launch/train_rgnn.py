@@ -27,8 +27,19 @@ seeds from a Zipf law over the train ids, with replacement (nominal
 epochs of ``len(train ids) // batch`` steps). Every step replays the
 train executor's captured CUDA graph of its bucketed signature on the
 card, captured at the signature's second step (its first runs op by op);
-``--eager`` runs every step op by op. Feature stores and data parallelism are later
-slices.
+``--eager`` runs every step op by op. ``--feature-store
+{device,host,cached}`` / ``--feature-budget`` pick where the node-feature
+table lives (``repro_torch.feats``; the cached tier's per-ntype split is
+measured on the training stream): the store goes to the trainer, whose
+loader attaches each batch's rows. With ``host`` or ``cached`` the
+trainer never puts the whole table on the card, so the periodic and final
+evaluations are sampled only (rows read through ``host_rows``) and
+``--parity`` (a full-graph run) needs ``device``; the task's teacher
+labels come from one full-graph forward while the task is made, before
+the store exists. Data parallelism is a later slice.
+
+    PYTHONPATH=src python -m repro_torch.launch.train_rgnn --device cpu \
+        --model rgcn --reduced --feature-store cached --feature-budget 64
 
 Telemetry (``repro_torch.obs``) mirrors ``serve_rgnn``: ``--obs on`` (the
 default) trains inside a metrics scope (the ``train_step_ms`` histogram,
@@ -52,7 +63,7 @@ from repro_torch.core.graph import (CPU_REDUCED_SCALES,
                                     synthetic_heterograph, table3_graph)
 from repro_torch.launch import obs_report, obs_scope
 from repro_torch.optim import AdamW, cosine_schedule
-from repro_torch.sampling import EpochSeedStream
+from repro_torch.sampling import EpochSeedStream, SeedStream
 from repro_torch.train import (EngineConfig, MODEL_PROGRAMS, SampledTrainer,
                                parse_fanout, resolve_device)
 
@@ -118,6 +129,8 @@ def train(
     parity_tol: float = 0.05,
     device=None,
     sampler: str = "host",
+    feature_store: str = "device",
+    feature_budget=None,
     tune: str = "off",
     tune_cache=None,
     skew=None,
@@ -130,28 +143,37 @@ def train(
 ):
     """Run the sampled training loop on ``device`` (``None``: the CUDA
     card); returns a stats dict (``SampledTrainer.train``'s, plus the
-    final full-graph evaluation, the tuner's counts as ``tune_*`` and,
-    with ``parity``, the comparison). ``skew`` as ``--skew``;
-    ``compiled=False`` as ``--eager``.
+    final evaluation, full-graph with the ``device`` feature store and
+    sampled with the others, the tuner's counts as ``tune_*``, the store's
+    as ``feature_*`` and, with ``parity``, the comparison). ``skew`` as
+    ``--skew``; ``feature_store`` / ``feature_budget`` as
+    ``--feature-store`` / ``--feature-budget``; ``compiled=False`` as
+    ``--eager``.
 
     Observability mirrors ``serve_rgnn.serve``: ``obs_mode="on"`` wraps
     the run in an ``obs.scope`` (``stats["metrics"]``, optional
     ``metrics_out`` export); ``trace_out`` adds phase tracing and writes a
     Chrome-trace JSON; ``profile=True`` attributes one sampled SGD step
     into forward / backward / optimizer (``stats["profile"]``, ms)."""
+    if parity and feature_store != "device":
+        raise ValueError("parity runs the full graph, which needs the "
+                         "whole table on the device: feature_store='device'")
     with obs_scope(obs_mode, trace_out) as sc:
         dev = resolve_device(device)
         cfg = EngineConfig(model=model, layers=layers, dim=dim, hidden=hidden,
                            classes=classes, fanouts=fanouts, tile=tile,
                            node_block=node_block, bucket=bucket, seed=seed,
-                           device=str(dev), sampler=sampler, tune=tune,
+                           device=str(dev), sampler=sampler,
+                           feature_store=feature_store,
+                           feature_budget=feature_budget, tune=tune,
                            tune_cache=tune_cache)
         engine, feats, labels, train_ids, val_ids = build_task(
             dataset, scale, cfg, seed, val_frac, log=log)
         log(f"[train_rgnn] {model} on {dataset} (scale {scale}): "
             f"{engine.graph.num_nodes} nodes, {engine.graph.num_edges} edges, "
             f"{engine.graph.num_etypes} etypes; fanouts={cfg.fanouts}, "
-            f"device={dev}, sampler={sampler}"
+            f"device={dev}, sampler={sampler}, "
+            f"feature_store={feature_store}"
             + (f", skew={skew}" if skew else "")
             + f", {len(train_ids)} train / {len(val_ids)} val nodes")
 
@@ -164,7 +186,18 @@ def train(
         opt = AdamW(learning_rate=cosine_schedule(lr, warmup_steps,
                                                   total_steps),
                     weight_decay=weight_decay)
-        trainer = SampledTrainer(engine, feats, labels, train_ids, val_ids,
+        # the feature store; the cached tier's per-ntype split is measured
+        # on the stream the trainer will iterate
+        probe = (SeedStream(ids=train_ids, batch_size=batch_size,
+                            seed=seed, zipf_alpha=skew) if skew is not None
+                 else EpochSeedStream(train_ids, batch_size, seed=seed))
+        store = engine.make_feature_store(feats, seed_source=probe)
+        if feature_store == "cached":
+            log(f"[train_rgnn] feature cache: {store.capacity} device rows "
+                f"({store.device_bytes() / 1e6:.2f} MB vs full table "
+                f"{store.table_bytes / 1e6:.2f} MB), per-ntype slots "
+                f"{store.slot_ptr.tolist()}")
+        trainer = SampledTrainer(engine, store, labels, train_ids, val_ids,
                                  opt=opt, ckpt_dir=ckpt_dir,
                                  compiled=compiled, log=log)
         state = trainer.init_state(engine.init(seed))
@@ -177,8 +210,8 @@ def train(
                 replace=False)).astype(np.int32)
             tl = engine.make_loader(lambda step: warm_seeds, num_batches=1)
             try:
-                engine.tune_minibatch(state.params, next(tl),
-                                      torch.from_numpy(feats).to(dev))
+                # the store is read without changing its state
+                engine.tune_minibatch(state.params, next(tl), store)
             finally:
                 tl.close()
             ts = engine.tuner_stats
@@ -199,14 +232,23 @@ def train(
             ckpt_every=ckpt_every, eval_every_epochs=eval_every_epochs,
             log_every=max(1, bpe // 2), skew=skew)
 
-        final_train = trainer.full.evaluate(state.params)
-        final_val = (trainer.full.evaluate(state.params, val_ids)
-                     if len(val_ids) else None)
-        stats["full_train_loss"] = final_train["loss"]
-        stats["full_train_acc"] = final_train["accuracy"]
+        # full-graph where the table is on the device; a host / cached
+        # store is evaluated sampled (rows read through host_rows)
+        if trainer.tiered:
+            kind = "sampled"
+            final_train = trainer.evaluate_sampled(state.params, train_ids)
+            final_val = (trainer.evaluate_sampled(state.params, val_ids)
+                         if len(val_ids) else None)
+        else:
+            kind = "full"
+            final_train = trainer.full.evaluate(state.params)
+            final_val = (trainer.full.evaluate(state.params, val_ids)
+                         if len(val_ids) else None)
+        stats[f"{kind}_train_loss"] = final_train["loss"]
+        stats[f"{kind}_train_acc"] = final_train["accuracy"]
         if final_val is not None:
-            stats["full_val_loss"] = final_val["loss"]
-            stats["full_val_acc"] = final_val["accuracy"]
+            stats[f"{kind}_val_loss"] = final_val["loss"]
+            stats[f"{kind}_val_acc"] = final_val["accuracy"]
         stats["device"] = str(dev)
         stats["sampler"] = sampler
         for k, v in engine.tuner_stats.items():
@@ -228,7 +270,15 @@ def train(
             f"{stats['seeds_per_s']:.1f} seeds/s, "
             f"{stats['retraces_after_warmup']} new signatures after warmup "
             f"({stats['executor_compiled']} in all)")
-        log(f"[train_rgnn] full-graph eval: train loss "
+        if feature_store != "device":
+            log(f"[train_rgnn] feature store ({feature_store}): "
+                f"{store.host_gathers} host gathers, "
+                f"{store.bytes_moved / 1e6:.2f} MB moved"
+                + (f", hit rate {store.hit_rate:.0%} "
+                   f"({store.evictions} evictions, {store.overflows} "
+                   f"overflows)" if feature_store == "cached" else ""))
+        log(f"[train_rgnn] {'sampled' if trainer.tiered else 'full-graph'} "
+            f"eval: train loss "
             f"{final_train['loss']:.4f} acc {final_train['accuracy']:.2%}"
             + (f" | val loss {final_val['loss']:.4f} "
                f"acc {final_val['accuracy']:.2%}" if final_val else ""))
@@ -262,6 +312,7 @@ def train(
         if profile:
             # forward / backward / optimizer attribution of ONE sampled step,
             # on a representative (bucketed) batch off the epoch stream
+            from repro_torch.feats import gather_input
             from repro_torch.obs import profile as prof_mod
             warm_seeds = np.sort(np.random.default_rng(seed + 2).choice(
                 train_ids, size=min(batch_size, len(train_ids)),
@@ -274,7 +325,7 @@ def train(
             ph = prof_mod.profile_train_step(
                 engine.plans, trainer.opt, state, mb,
                 mb.seq.slice_labels(labels),
-                {"feature": trainer.feats[mb.input_ids.long()]},
+                gather_input(store, mb, read_only=True),
                 activation=engine.cfg.activation, decisions=engine.decisions,
                 warmup=1, iters=5)
             log(f"[train_rgnn] step attribution: "
@@ -336,6 +387,18 @@ def main(argv=None):
                     help="tuning cache path (default "
                          "$REPRO_TORCH_TUNE_CACHE or "
                          "~/.cache/repro_torch-tune.json)")
+    ap.add_argument("--feature-store", default="device",
+                    choices=["device", "host", "cached"],
+                    help="where the node-feature table lives: 'device' = "
+                         "the whole table on --device; 'host' = pinned "
+                         "per-ntype host tables, only sampled rows copied; "
+                         "'cached' = host tier + a fixed-budget hot-row "
+                         "cache on --device (host / cached: evaluation is "
+                         "sampled, --parity needs 'device')")
+    ap.add_argument("--feature-budget", type=int, default=None,
+                    help="device hot-row count for --feature-store cached "
+                         "(default: num_nodes / 4); the per-ntype split is "
+                         "measured on the training stream")
     ap.add_argument("--skew", type=float, default=None, metavar="ALPHA",
                     help="Zipf-skew the seed stream (rank probability "
                          "(r+1)^-ALPHA, with replacement)")
@@ -375,7 +438,9 @@ def main(argv=None):
         ckpt_every=args.ckpt_every, resume=args.resume,
         eval_every_epochs=args.eval_every_epochs, parity=args.parity,
         parity_tol=args.parity_tol, device=args.device,
-        sampler=args.sampler, tune=args.tune, tune_cache=args.tune_cache,
+        sampler=args.sampler, feature_store=args.feature_store,
+        feature_budget=args.feature_budget, tune=args.tune,
+        tune_cache=args.tune_cache,
         skew=args.skew, compiled=not args.eager, obs_mode=args.obs, trace_out=args.trace_out,
         metrics_out=args.metrics_out, profile=args.profile,
     )

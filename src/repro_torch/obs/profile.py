@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.core import codegen
 from repro_torch.core.ir import intra_op as O
+from repro_torch.feats import gather_input, is_feature_store
 from repro_torch.tune.tuner import measure_group
 
 
@@ -291,10 +292,14 @@ def profile_block_sequence(plans: Sequence, params: Sequence, gts, kls,
 def profile_minibatch(engine, params, mb, global_feats, *,
                       warmup: int = 1, iters: int = 3) -> PlanProfile:
     """Convenience entry over an ``RGNNEngine``/``CompiledRGNN`` and a
-    ``sampling.MiniBatch``; ``global_feats`` is the [N, dim] feature table
-    (a tensor or a numpy array), moved to the engine's device."""
-    table = torch.as_tensor(global_feats).to(engine.device)
-    feats = {"feature": table[mb.input_ids.long()]}
+    ``sampling.MiniBatch``. The input features: the loader-attached
+    ``mb.feats``, else ``global_feats``, a feature store (read without
+    changing its state) or the [N, dim] table (a tensor or a numpy array,
+    moved to the engine's device)."""
+    if getattr(mb, "feats", None) is None \
+            and not is_feature_store(global_feats):
+        global_feats = torch.as_tensor(global_feats).to(engine.device)
+    feats = gather_input(global_feats, mb, read_only=True)
     return profile_block_sequence(
         engine.plans, list(params), list(mb.tensors), list(mb.layouts),
         list(mb.dst_locals), mb.seed_perm, feats,

@@ -41,6 +41,16 @@ The producer thread never runs a model: executors capture CUDA graphs on
 the consumer's thread only, and they capture in ``thread_local`` mode, so
 the producer's allocations and copies cannot invalidate a capture.
 
+A loader given a ``feature_store`` (``repro_torch.feats``) attaches each
+batch's input rows as ``mb.feats``, gathered by the producer (the store
+is single-writer: only the producer calls ``gather``), so the rows of
+batch k+1 are gathered and copied while the consumer runs batch k. In
+device mode the rows are gathered when a batch is handed out, after
+``settle``: a batch that outgrew its buckets is rebuilt first, and the
+rows gathered are those of the batch the consumer runs. Batches stay in
+the block cache without ``feats``: every occurrence gathers again, so the
+cached tier's state moves forward with the stream.
+
 Not ported yet: graph partitions (the reference's ``partition=``).
 """
 from __future__ import annotations
@@ -273,6 +283,13 @@ class MiniBatch:
     input_ids: torch.Tensor          # [n_input] global IDs feeding hop 0
     dst_locals: List[torch.Tensor]   # per hop: local rows of the out frontier
     seed_perm: torch.Tensor          # final-frontier row of each seed
+    # ``input_ids`` on the host, where the host pipeline built them (the
+    # host feature tiers read rows there without a device round trip)
+    host_input_ids: Optional[np.ndarray] = None
+    # the batch's input features (``{"feature": [n_input, dim]}``),
+    # attached by a loader given a feature store; ``None``: the consumer
+    # gathers them (``feats.gather_input``)
+    feats: Optional[dict] = None
 
     @property
     def num_hops(self) -> int:
@@ -353,6 +370,7 @@ def build_minibatch(seq: BlockSequence, step: int = 0, tile: int = 128,
         input_ids=dev(input_ids),
         dst_locals=[dev(d) for d in dst_locals],
         seed_perm=dev(seq.seed_perm),
+        host_input_ids=np.asarray(input_ids),
     )
 
 
@@ -373,7 +391,9 @@ class MiniBatchLoader:
     keys the sampler by epoch. ``close()`` stops and joins the worker.
 
     ``cache_blocks`` / ``cache_layouts`` give the two LRU capacities (0
-    disables either), as in the reference. The sampled-block cache is keyed
+    disables either), as in the reference. ``feature_store`` (a
+    ``repro_torch.feats`` store) attaches every batch's input rows as
+    ``mb.feats``. The sampled-block cache is keyed
     by ``(seeds, fanout, layout config, epoch)``: for serving streams (no
     epoch) a repeated seed batch returns the device ``MiniBatch`` built at
     its first occurrence, re-stamped with the current step; for training
@@ -397,9 +417,12 @@ class MiniBatchLoader:
         num_batches: Optional[int] = None,
         cache_blocks: int = 0,
         cache_layouts: int = 0,
+        feature_store=None,
         device="cpu",
     ):
         self.sampler = sampler
+        # single-writer: only this loader's producer calls its gather
+        self.feature_store = feature_store
         self._seeds_for = (seed_source.batch
                            if hasattr(seed_source, "batch") else seed_source)
         # training streams expose epoch_of(step); serving streams don't
@@ -454,6 +477,20 @@ class MiniBatchLoader:
             out["layout_cache_hit_rate"] = self.layout_cache.hit_rate
         return out
 
+    def _attach_feats(self, mb: MiniBatch) -> MiniBatch:
+        """``mb`` with its input rows gathered through the store. The
+        device tier reads the ids where they are (on the device, no
+        synchronize); the host tiers need them on the host, which the
+        host pipeline kept (a device-sampled batch copies them back: the
+        cost of those tiers)."""
+        store = self.feature_store
+        if store is None:
+            return mb
+        ids = mb.input_ids
+        if store.kind != "device" and mb.host_input_ids is not None:
+            ids = mb.host_input_ids
+        return dataclasses.replace(mb, feats=store.gather(ids, step=mb.step))
+
     def _cache_key(self, seeds: np.ndarray, epoch) -> tuple:
         return (np.asarray(seeds).tobytes(), self._fanout_key, self.tile,
                 self.node_block, self.bucket, epoch)
@@ -473,7 +510,7 @@ class MiniBatchLoader:
         epoch = self._epoch_of(step) if self._epoch_of is not None else None
         mb, key = self._cached(step, seeds, epoch)
         if mb is not None:
-            return mb
+            return self._attach_feats(mb)
         self.host_builds += 1
         with obs.span("sample", step=step):
             seq = self.sampler.sample(seeds, batch_index=step, epoch=epoch)
@@ -484,8 +521,8 @@ class MiniBatchLoader:
                                  layout_cache=self.layout_cache,
                                  device=self.device)
         if key is not None:
-            self.block_cache.put(key, mb)
-        return mb
+            self.block_cache.put(key, mb)   # cached without feats
+        return self._attach_feats(mb)
 
     def _build_device(self, step: int):
         seeds = self._seeds_for(step)
@@ -497,7 +534,7 @@ class MiniBatchLoader:
         mb = self.sampler.sample_minibatch(seeds, batch_index=step,
                                            epoch=epoch, step=step)
         if key is not None:
-            self.block_cache.put(key, mb)
+            self.block_cache.put(key, mb)   # cached without feats
         return mb, key
 
     def _pump(self) -> None:
@@ -552,6 +589,7 @@ class MiniBatchLoader:
             if key is not None and settled is not mb \
                     and key in self.block_cache:
                 self.block_cache.put(key, settled)   # the rebuilt batch
+            settled = self._attach_feats(settled)
             self._pump()   # dispatch the next batch before the caller runs
             return settled
         while True:

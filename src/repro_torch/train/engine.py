@@ -12,8 +12,11 @@ and loaders are made per driver through ``make_loader``. With
 folds its measured (or cache-replayed) decisions into the stack: per-op
 variants, per-layer COMPACT sets and the full-graph layout tile;
 ``tune_minibatch`` adds block-scale op variants. The executors capture one
-CUDA graph per signature on a card (``core.executor``). Feature stores and
-data parallelism are later slices.
+CUDA graph per signature on a card (``core.executor``).
+``make_feature_store`` builds the tiered node-feature store the config
+asks for (``feature_store`` / ``feature_budget``, ``repro_torch.feats``),
+the cached tier's per-ntype split measured on the caller's stream; loaders
+attach its rows to every batch. Data parallelism is a later slice.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from repro_torch import obs
 from repro_torch.core.graph import HeteroGraph
 from repro_torch.core.module import HectorStack
 from repro_torch.device import resolve_device  # noqa: F401 (re-exported)
+from repro_torch.feats import gather_input, make_feature_store
 from repro_torch.models import (hgt_program, rgat_program, rgcn_cat_program,
                                 rgcn_program)
 from repro_torch.sampling import (DeviceSampler, FanoutSampler,
@@ -63,6 +67,13 @@ class EngineConfig:
     missing. The tuner may override ``tile`` / ``node_block`` of the
     full-graph layouts with its measured layout decision; sampled blocks
     keep the configured ones.
+
+    ``feature_store`` says where the node-feature table lives
+    (``repro_torch.feats``): ``device`` (the whole table on the device),
+    ``host`` (per-ntype host tables, only sampled rows shipped) or
+    ``cached`` (the host tier behind a device hot-row cache of
+    ``feature_budget`` rows, default table/4). All three give the same
+    predictions bit for bit.
     """
 
     model: Union[str, Callable] = "rgat"
@@ -78,6 +89,8 @@ class EngineConfig:
     seed: int = 0
     device: Optional[str] = None         # None: the CUDA card
     sampler: str = "host"                # host | device
+    feature_store: str = "device"        # device | host | cached
+    feature_budget: Optional[int] = None  # cached: device rows (table/4)
     tune: str = "off"                    # off | cached | full
     tune_cache: Optional[str] = None     # persistent decision cache path
     # False for block-path-only callers (serving): keeps the materialization
@@ -99,6 +112,9 @@ class EngineConfig:
             raise ValueError(f"sampler={self.sampler!r}; pick host/device")
         if self.tune not in ("off", "cached", "full"):
             raise ValueError(f"tune={self.tune!r}; pick off/cached/full")
+        if self.feature_store not in ("device", "host", "cached"):
+            raise ValueError(f"feature_store={self.feature_store!r}; "
+                             f"pick device/host/cached")
         self.fanouts = list(self.fanouts) if self.fanouts is not None \
             else [5] * self.layers
         if len(self.fanouts) != self.layers:
@@ -213,6 +229,7 @@ class RGNNEngine:
         start_step: int = 0,
         cache_blocks: int = 0,
         cache_layouts: int = 0,
+        feature_store=None,
     ) -> MiniBatchLoader:
         """A prefetching loader over this engine's sampler/layout config,
         delivering (bucketed, unless ``cfg.bucket`` is off) mini-batches on
@@ -222,7 +239,8 @@ class RGNNEngine:
         ``cfg.sampler == "device"`` it gets the ``DeviceSampler`` and
         prefetches without a thread (sampling and layouts as enqueued
         device work). ``cache_blocks`` / ``cache_layouts`` size the
-        loader's LRU caches (0: off)."""
+        loader's LRU caches (0: off); ``feature_store`` (a store from
+        ``make_feature_store``) attaches every batch's input rows."""
         active = self.device_sampler if self.device_sampler is not None \
             else self.sampler
         return MiniBatchLoader(
@@ -230,17 +248,45 @@ class RGNNEngine:
             tile=self.cfg.tile, node_block=self.cfg.node_block,
             bucket=self.cfg.bucket, start_step=start_step,
             num_batches=num_batches, cache_blocks=cache_blocks,
-            cache_layouts=cache_layouts, device=self.device,
+            cache_layouts=cache_layouts, feature_store=feature_store,
+            device=self.device,
         )
+
+    def make_feature_store(self, feats, *, seed_source=None,
+                           probe_batches: int = 4):
+        """The ``repro_torch.feats`` store this config asks for
+        (``cfg.feature_store`` / ``cfg.feature_budget``) on the engine's
+        device, from the ``[N, dim]`` host table ``feats``.
+
+        For the cached tier the per-ntype slot split is measured when
+        ``seed_source`` is given: ``tune.feature_budget`` probes
+        ``probe_batches`` seed batches through the host sampler and splits
+        the budget by each ntype's share of the input rows."""
+        kind = self.cfg.feature_store
+        split = None
+        if kind == "cached" and seed_source is not None:
+            from repro_torch.tune.feature_budget import measured_split
+            budget = self.cfg.feature_budget
+            if budget is None:
+                budget = max(1, self.graph.num_nodes // 4)
+            split, _report = measured_split(
+                self.graph, self.sampler, seed_source, budget,
+                probe_batches=probe_batches)
+        return make_feature_store(feats, self.graph, kind=kind,
+                                  budget=self.cfg.feature_budget,
+                                  split=split, device=self.device)
 
     def forward_minibatch(self, params, mb, global_feats,
                           compiled: bool = True) -> torch.Tensor:
         """Sampled forward: per-seed outputs for a ``MiniBatch``, inside an
         ``execute`` span (synchronized in the span only when tracing);
-        ``compiled=False`` runs op by op."""
+        ``compiled=False`` runs op by op. ``global_feats`` is the raw
+        device table or a feature store; loader-attached ``mb.feats``
+        win either way (``feats.gather_input``)."""
         with obs.span("execute", step=mb.step) as sp:
-            return sp.sync(self.stack.apply_blocks(params, mb, global_feats,
-                                                   compiled=compiled))
+            return sp.sync(self.stack.apply_blocks(
+                params, mb, compiled=compiled,
+                feats=gather_input(global_feats, mb)))
 
     def forward_full(self, params, feats: torch.Tensor,
                      compiled: bool = True) -> torch.Tensor:

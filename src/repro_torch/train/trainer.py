@@ -30,10 +30,19 @@ Telemetry: every sampled step runs inside a ``train_step`` span and lands
 in the ``train_step_ms`` histogram (``repro_torch.obs``); the step already
 ends in a synchronize on a card, so neither adds one.
 
-Not ported yet: feature stores.
+Feature stores (``repro_torch.feats``): both trainers take a raw ``[N,
+dim]`` table or a store. ``SampledTrainer`` hands a store to its loader,
+which attaches each batch's rows (the store's stats come back as
+``feature_*``); sampled evaluation reads rows through ``host_rows``
+without touching the store's state (the producer owns it).
+``FullGraphTrainer`` takes the whole table from ``full_table()``: the
+full-graph path needs it on the device, which defeats tiering by design,
+so a sampled trainer over a ``host`` or ``cached`` store evaluates sampled
+only and never builds it.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -43,6 +52,7 @@ import torch
 from repro_torch import obs
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import executor
+from repro_torch.feats import gather_input, is_feature_store
 from repro_torch.optim import AdamW, TrainState
 from repro_torch.optim.adamw import tree_map
 from repro_torch.sampling import EpochSeedStream, SeedStream, build_minibatch
@@ -60,7 +70,8 @@ def _quiet(*_a, **_k):
 
 class FullGraphTrainer:
     """Full-graph SGD over ``StackTrainExecutor`` (captured on a card unless
-    ``compiled=False``)."""
+    ``compiled=False``); ``feats`` is the table or a feature store (its
+    ``full_table()``)."""
 
     def __init__(self, engine: RGNNEngine, feats, labels, train_ids,
                  *, opt: Optional[AdamW] = None, compiled: bool = True,
@@ -68,7 +79,8 @@ class FullGraphTrainer:
         self.engine = engine
         self.compiled = compiled
         self.opt = opt or AdamW(learning_rate=3e-3, weight_decay=0.01)
-        self.feats = torch.as_tensor(feats).to(engine.device)
+        self.feats = (feats.full_table() if is_feature_store(feats)
+                      else torch.as_tensor(feats).to(engine.device))
         self.labels = np.asarray(labels)
         self.train_ids = np.asarray(train_ids, dtype=np.int32)
         self.log = log or _quiet
@@ -128,7 +140,10 @@ class SampledTrainer:
         self.engine = engine
         self.compiled = compiled
         self.opt = opt or AdamW(learning_rate=3e-3, weight_decay=0.01)
-        self.feats = torch.as_tensor(feats).to(engine.device)
+        # a store stays a store: the sampled path reads only batch rows
+        # through it, so a host / cached store keeps the table off the card
+        self.feats = feats if is_feature_store(feats) else \
+            torch.as_tensor(feats).to(engine.device)
         self.labels = np.asarray(labels)
         self.train_ids = np.asarray(train_ids, dtype=np.int32)
         # an empty val split means "no validation", not a zero-row eval
@@ -139,6 +154,12 @@ class SampledTrainer:
         # shared with the compile facade: same opt -> same executor
         self.step_exec = engine.train_executor(self.opt)
         self._full = None
+
+    @property
+    def tiered(self) -> bool:
+        """True for a ``host`` or ``cached`` store: the table is not on the
+        device, and the trainer never puts it there."""
+        return is_feature_store(self.feats) and self.feats.kind != "device"
 
     @property
     def full(self) -> FullGraphTrainer:
@@ -204,7 +225,9 @@ class SampledTrainer:
         loader = self.engine.make_loader(
             stream, start_step=start_step,
             num_batches=total_steps - start_step,
-            cache_layouts=LAYOUT_CACHE)
+            cache_layouts=LAYOUT_CACHE,
+            feature_store=self.feats if is_feature_store(self.feats)
+            else None)
 
         ex = self.step_exec
         sync = (torch.cuda.synchronize if self.engine.device.type == "cuda"
@@ -221,7 +244,8 @@ class SampledTrainer:
                 if traces_at_warmup is None and step >= warmup_steps:
                     traces_at_warmup = ex.trace_count
                 labels_b = self._labels_of(mb)
-                feats_b = {"feature": self.feats[mb.input_ids.long()]}
+                # the loader-attached rows (a store), else the table's
+                feats_b = gather_input(self.feats, mb)
                 t0 = time.perf_counter()
                 # one step (a graph replay once its signature was
                 # captured); forward / backward / optimizer attribution is
@@ -292,26 +316,34 @@ class SampledTrainer:
             stats[f"{name}_hits"] = cs["hits"]
             stats[f"{name}_misses"] = cs["misses"]
             stats[f"{name}_hit_rate"] = cs["hit_rate"]
+        if is_feature_store(self.feats):
+            for k, v in self.feats.stats().items():
+                stats[f"feature_{k}"] = v
         return state, stats
 
     def _periodic_eval(self, state: TrainState, epoch: int) -> Dict:
         out = {"epoch": epoch}
         ids = self.val_ids if self.val_ids is not None else self.train_ids
         split = "val" if self.val_ids is not None else "train"
-        full = self.full.evaluate(state.params, ids)
-        out[f"full_{split}"] = full
+        line = ""
+        if not self.tiered:
+            full = self.full.evaluate(state.params, ids)
+            out[f"full_{split}"] = full
+            line = (f"full-graph {split} loss {full['loss']:.4f} "
+                    f"acc {full['accuracy']:.2%} | ")
         sampled = self.evaluate_sampled(state.params, ids, epoch=epoch)
         out[f"sampled_{split}"] = sampled
-        self.log(f"[train_rgnn]   eval@{epoch}: full-graph {split} "
-                 f"loss {full['loss']:.4f} acc {full['accuracy']:.2%} | "
-                 f"sampled loss {sampled['loss']:.4f} "
+        self.log(f"[train_rgnn]   eval@{epoch}: {line}sampled {split} "
+                 f"loss {sampled['loss']:.4f} "
                  f"acc {sampled['accuracy']:.2%}")
         return out
 
     def evaluate_sampled(self, params, ids, *, batch_size: int = 64,
                          epoch: int = 0) -> Dict[str, float]:
         """Sampled-forward loss and accuracy over ``ids`` with the engine's
-        fanouts (batched, in id order, fresh neighborhoods)."""
+        fanouts (batched, in id order, fresh neighborhoods). A store's
+        rows are read through ``host_rows``: periodic evaluation may run
+        while the loader's producer owns the store's state."""
         ids = np.asarray(ids, dtype=np.int32)
         cfg = self.engine.cfg
         tot_loss, tot_acc, nb = 0.0, 0.0, 0
@@ -322,6 +354,8 @@ class SampledTrainer:
             mb = build_minibatch(seq, step=lo, tile=cfg.tile,
                                  node_block=cfg.node_block, bucket=cfg.bucket,
                                  device=self.engine.device)
+            mb = dataclasses.replace(mb, feats=gather_input(
+                self.feats, mb, read_only=True))
             logits = self.engine.forward_minibatch(params, mb, self.feats,
                                                    compiled=self.compiled)
             loss, acc = executor.softmax_xent(logits, torch.from_numpy(

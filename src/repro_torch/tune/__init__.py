@@ -22,6 +22,7 @@ __all__ = [
     "TuneCache", "default_cache_path", "TuningDecisions", "device_kind",
     "fused_gather_budget_bytes", "GemmVariant", "TravVariant", "gemm_key",
     "trav_key", "Tuner", "TuneReport", "measure", "measure_group",
+    "measured_split",
 ]
 
 
@@ -30,4 +31,8 @@ def __getattr__(name):
     if name in ("Tuner", "TuneReport", "measure", "measure_group"):
         from repro_torch.tune import tuner as _tuner
         return getattr(_tuner, name)
+    if name == "measured_split":
+        # lazy: pulls in repro_torch.feats; keep this __init__ import-light
+        from repro_torch.tune.feature_budget import measured_split
+        return measured_split
     raise AttributeError(name)

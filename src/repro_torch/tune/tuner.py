@@ -39,6 +39,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core import codegen
 from repro_torch.core.ir import passes
+from repro_torch.feats import gather_input
 from repro_torch.tune import cost
 from repro_torch.tune import device as D
 from repro_torch.tune import space as S
@@ -375,9 +376,11 @@ class Tuner:
                             *, activation: str = "relu") -> TuningDecisions:
         """Tune the op variants of a sampled block sequence on a
         representative ``MiniBatch`` (bucketed shapes make the decisions
-        reusable across steady-state traffic). Adds to ``self.decisions``
-        and persists; returns the table."""
-        feats = {"feature": global_feats[mb.input_ids.long()]}
+        reusable across steady-state traffic). ``global_feats`` is the
+        device table or a feature store (read without changing its
+        state). Adds to ``self.decisions`` and persists; returns the
+        table."""
+        feats = gather_input(global_feats, mb, read_only=True)
         plans, params = list(plans), list(params)
         gts, kls = list(mb.tensors), list(mb.layouts)
         dst_locals = list(mb.dst_locals)
