@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Card check of the PyTorch/CUDA port: build, kernel-vs-plain, serve, train,
-LM serving.
+LM serving, online serving.
 
     python3 chip_smoke.py            # one CUDA card; a few minutes
 
@@ -8,7 +8,7 @@ Drives the port (``src/repro_torch``, never JAX nor the reference package)
 on one CUDA card, in phases, for the registry's models (RGAT, RGCN, HGT,
 rgcn_cat) and the dense LMs (gemma2-2b, qwen3-4b; the reduced variants of
 all four dense configs); any failure exits non-zero. Each phase prints
-``[phase N] start`` first. Phases 3-5, 9, 11, 13, 14 and 15 run the
+``[phase N] start`` first. Phases 3-5, 9, 11 and 13-16 run the
 drivers' default: the executors capture one CUDA graph per signature at its
 second call and replay it (``core.executor``); phases 6 and 10 train op
 by op and then at that default. A kernel wrapper counts the launches it
@@ -35,13 +35,14 @@ comparable across versions:
    sampling and forward of the first device-sampled batch of RGAT at
    aifb-b32 and bgs-b1024 and RGCN at aifb-b32 (K9 at every window, K1-K3
    and K7 on the device-built layouts) and one sampled training step of
-   RGAT, RGCN and HGT (aifb-b64: K1-K5, K7); the slot-split kernels, K2
+   RGAT, RGCN and HGT (aifb-b64: K1-K5, K7 (at d = 1 too: the softmax
+   VJP's sum), K11); the slot-split kernels, K2
    and K3 at every captured K2 / K3 call, K6 (on K3's messages padded into
    the slots) at every captured K3 call, K7 and K8 (K8 on K7's messages
    padded into the slots) at every captured K7 call, each at unit sizes
    ``chunk_tiles`` 1 / 2 / 8 / 64 and bitwise against a second launch,
-   after the slot order they rely on is checked on the card; K1, K4 and
-   K5 bitwise against a second launch at every call;
+   after the slot order they rely on is checked on the card; K1, K4, K5
+   and K11 bitwise against a second launch at every call;
    plus edge cases (gather index -1, groups and node blocks without tiles,
    pow2 pad tiles, the scale epilogue, k = 1 and n = 1, a transposed W, a
    group long enough for many K5 chunks, the CUDA ``edge_softmax``, K7
@@ -60,16 +61,22 @@ comparable across versions:
    8 and 64, the scale on both routes, every route and register tile
    taken; K9 with counts 0 and C, C = 1,
    odd row counts and high-bit base keys; K5 with the static chunk bound
-   of device-built layouts). K9 is held bit for bit, decoded, to its plain
+   of device-built layouts; K11 with every target -1, one row taking
+   40,000 entries, runs of 1 to 769 entries and empty rows laid across its
+   256-entry unit edges, with and without leading -1s, and a hub among
+   5,000 rows, each at d = 1 / 7 / 64 / 96 / 300). K9 is held bit for bit, decoded, to its plain
    version and to numpy's ``edge_sample_keys``. Tolerances: K1 and K4
    rtol = atol = 1e-5 (fp32 sums of at most 64 terms); K2 ``mx`` exact,
    ``den`` rtol 1e-5; K3 rtol = atol = 2e-5 (the reference's own
    fused-vs-oracle bound); K5
    rtol = atol = 1e-6 and K7 rtol = atol = 1e-5 (the reference's
    ``test_weighted_agg`` bound; kernel and plain version both sum in fp64,
-   so they agree to the final fp32 rounding). At the RGAT aifb served
+   so they agree to the final fp32 rounding); K11 rtol = atol = 1e-6
+   (both sum in fp64). At the RGAT aifb served
    batch (K1-K3), the RGAT training step (K4, K5), the RGCN aifb served
-   batch (K7) and RGAT's first device-sampled aifb batch (K9): each
+   batch (K7), RGAT's first device-sampled aifb batch (K9) and the RGAT
+   training step (K11, beside ``index_add_``, the atomic scatter it
+   replaced): each
    kernel's device time (mean of 20 calls under ``torch.profiler``), the
    wrapper's time per call (CUDA events, median of 25 runs of 10 calls:
    host cost included), its plain version's time, its bound and, for K1
@@ -107,8 +114,8 @@ comparable across versions:
    step-parity bounds);
 7. full-graph training (``FullGraphTrainer``) of each: aifb, one step on
    the card against the CPU from phase 6's state, at its bounds; bgs at
-   scale 1.0, 3 steps with a finite loss, timed; K1, K4 and K5 held (each
-   bitwise against a second launch too) and timed at every call of one bgs
+   scale 1.0, 3 steps with a finite loss, timed; K1, K4, K5 and K11 held
+   (each bitwise against a second launch too) and timed at every call of one bgs
    full-graph step (device ms, wrapper ms, plain ms, ``torch.bmm`` ms,
    bound, and K1's / K4's work split); for RGCN,
    K7 and K8 held and timed (as phase 2 times them) at the K7 calls of
@@ -117,7 +124,9 @@ comparable across versions:
 8. one sampled step and one bgs full-graph step of each under
    ``torch.profiler``: device time per kernel and per step, the device's
    busy share, the split between the ``forward`` / ``backward`` /
-   ``optimizer`` ranges, and the device ops that take the most time;
+   ``optimizer`` ranges, and the device ops that take the most time; then
+   each step once more under ``torch.use_deterministic_algorithms(True,
+   warn_only=True)`` (a diagnostic: the ops that warn are listed);
 9. device-sampled serving (``sampler="device"``) of RGAT and RGCN at
    aifb-b32 (8 batches) and RGAT at bgs-b1024 (4 batches), the seeds of
    phases 3 and 4: every batch's logits equal the host-sampled ones
@@ -209,8 +218,8 @@ comparable across versions:
    within gemm / traversal / wprod / glue, coverage within [0.8, 1.25] at
    bgs, the rows and the categories in ms printed; (d) and (e)
    ``train_rgnn.train`` of phase 6's RGAT with obs off, on, and on with
-   ``trace_out`` and ``profile``: the first loss bitwise equal across
-   the three (the backward's atomics make later ones vary run to run),
+   ``trace_out`` and ``profile``: every loss bitwise equal across the
+   three (the backward runs in a fixed order: K11, K7; no float atomics),
    as many synchronizes on as off and one per step (the captures' apart,
    one per graph), each run's step p50; a ``train_step``
    span and a ``train_step_ms`` observation per step,
@@ -231,19 +240,22 @@ comparable across versions:
    ``executor_compiled`` equals the distinct shape signatures among the
    batches, the graphs captured those that come again; (c)
    (a) with ``sampler="device"``; (d) RGAT aifb-b64 for one epoch through
-   ``SampledTrainer`` captured against op by op (the first loss bit for
-   bit, the others within rtol 1e-5), and step by step each captured step
-   against an op-by-op step from the same state (the loss bit for bit,
-   params and moments within rtol 1e-4 / atol 1e-6), and RGAT bgs
-   full-graph for 5 such paired steps, the captured step returning its
-   state buffers; (e) K5 captured at its counter buffer's size, replayed
+   ``SampledTrainer`` captured against op by op (every loss and the final
+   params and moments bit for bit), and step by step each captured step
+   against an op-by-op step from the same state (the loss, params and
+   moments bit for bit), and RGAT bgs full-graph for 5 such paired steps,
+   the captured step returning its state buffers; (e) K5 captured at its
+   counter buffer's size, replayed
    before and after the buffer is outgrown, against its plain version and
    a launch outside the graph; (f) a stress run, twice: 200 captures of
    the aifb-b64 step and 200 of the bgs-b1024 forward, each by a new
    executor held in a reference cycle, beside a host loader building and
    copying bgs-b1024 batches the whole time, a collection forced before
    every capture, every replay bitwise equal to its first call and no
-   collection while a stream captures. Times are printed, never gated;
+   collection while a stream captures; (g) two identical runs bit for
+   bit (every loss, the final params and moments): an RGAT and an HGT
+   aifb-b64 epoch, 5 bgs full-graph steps of RGAT, RGCN and HGT. Times are
+   printed, never gated;
 15. tiered feature storage (``--feature-store``, ``repro_torch.feats``),
    through the drivers at their defaults (captured, the host loader's
    producer thread on): (a) RGAT and RGCN bgs-b1024 (6 batches of a
@@ -262,10 +274,31 @@ comparable across versions:
    512-row cache: overflow, the logits still the device tier's; (c)
    device-sampled RGAT aifb-b32, ``host`` against ``device``, bit for
    bit; (d) RGAT aifb-b64 trained for an epoch with ``cached`` against
-   ``device``: the first loss bit for bit, the others within rtol 1e-5.
+   ``device``: every loss bit for bit;
+16. the online serving runtime (``serve_rgnn --runtime online``,
+   ``repro_torch.serve``, calibrated as ``serve_online`` does: floors at
+   the probed maxima) at full width (2 layers, 64 wide, fanout 5,
+   tile and node block 32, bucketed, aifb at scale 1.0, the fine ladder
+   up to 32, max wait 5 ms, request sizes 1 / 2 / 4 / 8), with the
+   runtime's ``coalescer.plan`` and the engine's ``forward_minibatch``
+   wrapped by the script to record the planned and served batches: (a)
+   RGAT, Poisson 200 req/s, 256 requests, SLO 1000 ms; (b) RGCN, bursts
+   of 8 at 200 req/s, the ``cached`` feature tier; (d) RGAT with
+   ``sampler="device"``; each: every request terminal and ``OK``, no new
+   key and no capture after warm-up, every response's rows bit for bit
+   those of an op-by-op forward of its batch, no thread left after
+   ``close()`` ((d) at 100 req/s: the device sampler's launches saturate
+   the execute thread at 200); (c) RGAT and RGCN as two tenants, 128
+   requests each at 100 req/s in all,
+   RGCN calibrated with one warm round and no floor probes (its execute
+   thread captures during traffic): no crash, every response bit for bit
+   its op-by-op forward, RGAT without a new key or a capture after
+   warm-up; (e) SLO 0.5 ms: every request rejected at admission or late,
+   none ``OK`` past its SLO. p50, p99, SLO attainment, batch fill, rung
+   counts and the mean queue and execute ms of each run are printed.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: phase
-6's op-by-op runs of all three models for K1-K5 and K7, phases 9 and 10
+6's op-by-op runs of all three models for K1-K5, K7 and K11, phases 9 and 10
 for K9 (the sampler launches K9 outside the executors),
 phase 11's tuned training and serving for K6 and K8, phase 12's serve runs
 for K10, each counted from 0 just before the run); the last line is
@@ -300,6 +333,7 @@ K4, K5, K7 = ("segment_mm_padded", "segment_outer_padded",
               "seg_weighted_agg_gather_padded")
 K6, K8 = "seg_softmax_agg_padded", "seg_weighted_agg_padded"
 K9, K10 = "candidate_keys", "flash_attention"
+K11 = "seg_sum_sorted"
 
 SERVE_DEFAULTS = dict(model="rgat", dataset="aifb", scale=1.0, layers=2,
                       dim=64, hidden=64, classes=16, fanouts=[5, 5],
@@ -323,16 +357,20 @@ TRAIN = dict(model="rgat", dataset="aifb", scale=1.0, layers=2, dim=64,
 TRAIN_EPOCHS = {"rgat": 1, "rgcn": 1, "hgt": 2}
 # launches per sampled training step (2 layers; layer 0's input needs no
 # dX). RGAT: 3 gathered GEMMs (K1) and one fused softmax + aggregation
-# (K2 + K3) per layer; dX by K4 of the 3 GEMMs of layer 1, dW by K5 of
-# all 6. RGCN: one gathered GEMM (K1) and one mean aggregation (K7) per
-# layer (W_self is untyped: a plain matmul). HGT: 3 node-typed GEMMs (K4)
+# (K2 + K3) per layer; dX by K4 of the 3 GEMMs of layer 1, summed into the
+# source rows by K11, dW by K5 of all 6; each layer's compact message
+# gradient by K11 and its softmax VJP's per-destination sum by K7 at width
+# 1. RGCN: one gathered GEMM (K1) and one mean aggregation (K7) per layer
+# (W_self is untyped: a plain matmul); layer 1's dX by K4 + K11, each
+# layer's compact message gradient by K11. HGT: 3 node-typed GEMMs (K4)
 # and 2 gathered ones (K1) and the fused softmax tail (K2 + K3) per layer;
-# dX by K4 of the 4 gathered GEMMs and of layer 1's 3 node-typed ones,
-# dW by K5 of all 10.
+# dX by K4 of the 4 gathered GEMMs (layer 1's two summed by K11) and of
+# layer 1's 3 node-typed ones, dW by K5 of all 10; per layer the compact
+# message gradient by K11 and the softmax VJP by K7 at width 1.
 STEP_LAUNCHES = {
-    "rgat": {K1: 6, K2: 2, K3: 2, K4: 3, K5: 6},
-    "rgcn": {K1: 2, K7: 2, K4: 1, K5: 2},
-    "hgt": {K1: 4, K2: 2, K3: 2, K4: 13, K5: 10},
+    "rgat": {K1: 6, K2: 2, K3: 2, K4: 3, K5: 6, K7: 2, K11: 5},
+    "rgcn": {K1: 2, K7: 2, K4: 1, K5: 2, K11: 3},
+    "hgt": {K1: 4, K2: 2, K3: 2, K4: 13, K5: 10, K7: 2, K11: 6},
 }
 # launches per 2-layer forward (a full-graph forward; every served batch)
 FORWARD_LAUNCHES = {
@@ -378,6 +416,12 @@ KERNELS = {
     K10: dict(source="src/repro_torch/csrc/flash_attention.cu",
               replaces="src/repro/kernels/flash_attention.py:75",
               symbol="flash_"),       # the kernel and its split combine
+    # no TPU kernel: the backward's scatter-adds, which the reference
+    # leaves to XLA and the port ran as atomic ``index_add_``
+    K11: dict(source="src/repro_torch/csrc/scatter.cu",
+              replaces="none (no TPU kernel): the backward's scatter-add, "
+                       "src/repro/kernels/ops.py:301, :477, :617",
+              symbol="seg_sum_sorted_", per_call=2),   # unit + combine
 }
 # where each kernel is timed in phase 2 (phase 11 for K6 and K8): the
 # captured calls of one served batch ("<model> aifb"), one training step
@@ -387,6 +431,7 @@ KERNELS = {
 # the calls it keeps from the LM serve runs ("lm serve")
 TIMED_AT = {K1: "rgat aifb", K2: "rgat aifb", K3: "rgat aifb",
             K4: "rgat step", K5: "rgat step", K7: "rgcn aifb",
+            K11: "rgat step",
             K9: "rgat aifb device", K6: "rgat aifb unfused",
             K8: "rgcn aifb unfused", K10: "lm serve"}
 # the kernels phase 11 holds to their plain versions (the materialized-
@@ -722,11 +767,43 @@ def k6_library(torch, args, kw):
     return k7_library(torch, (att, msg_p, slots, local_dst, t2b), kw)
 
 
+def k11_work(torch, args, kw):
+    """K11: each sorted entry's index and value row read once, the row
+    offsets read once, each row written once; one add a column an entry
+    (the entries before ``ptr[0]``, target -1, are never read)."""
+    values, perm, ptr, num_rows = args[:4]
+    d = values.shape[1]
+    entries = int(ptr[-1] - ptr[0])
+    nbytes = entries * (4 + d * 4) + (num_rows + 1) * 4 + num_rows * d * 4
+    return nbytes, float(entries * d)
+
+
+def k11_library(torch, args, kw):
+    """One ``index_add_`` of the same value rows into the same rows, in
+    their original order (the targets built beforehand, not timed): the
+    atomic scatter-add K11 took the place of, the yardstick, used nowhere
+    in the port."""
+    values, perm, ptr, num_rows = args[:4]
+    counts = (ptr[1:] - ptr[:-1]).long()
+    rows = torch.repeat_interleave(
+        torch.arange(num_rows, device=values.device), counts)
+    lo = int(ptr[0])
+    target = torch.full((values.shape[0],), -1, dtype=torch.long,
+                        device=values.device)
+    target[perm[lo:lo + rows.numel()].long()] = rows
+    keep = target >= 0
+    index, vals = target[keep], values.detach()[keep].contiguous()
+    out = torch.zeros((num_rows, values.shape[1]), dtype=values.dtype,
+                      device=values.device)
+    return lambda: out.index_add_(0, index, vals)
+
+
 LIBRARY = {K1: ("torch.bmm", k1_library), K3: ("torch.sparse.mm", k3_library),
            K4: ("torch.bmm", k4_library), K5: ("torch.bmm", k5_library),
            K6: ("torch.sparse.mm", k6_library),
            K7: ("torch.sparse.mm", k7_library),
-           K8: ("torch.sparse.mm", k8_library)}
+           K8: ("torch.sparse.mm", k8_library),
+           K11: ("index_add_", k11_library)}
 
 # K9 is held to its plain version in slices of at most this many
 # candidates (the int64 plain version needs several temporaries of 8 bytes
@@ -804,7 +881,7 @@ def recorded_kernel_calls():
     from repro_torch.kernels import ops, segment_mm
     from repro_torch.kernels import sampling_ops as SO
     calls = {name: [] for name in KERNELS}
-    originals = _recording(ops, (K1, K2, K3, K6, K7, K8), calls)
+    originals = _recording(ops, (K1, K2, K3, K6, K7, K8, K11), calls)
     ops.SK = types.SimpleNamespace(**vars(segment_mm))
     _recording(ops.SK, (K4, K5), calls)
     k9 = _recording(SO, (K9,), calls)[K9]
@@ -1015,7 +1092,7 @@ def compare(torch, name, got, want, rtol, atol, exact=False):
 
 # tolerance of each kernel against its plain version (see the docstring)
 TOLERANCE = {K1: 1e-5, K4: 1e-5, K3: 2e-5, K5: 1e-6, K7: 1e-5,
-             K6: 2e-5, K8: 1e-5}
+             K6: 2e-5, K8: 1e-5, K11: 1e-6}
 
 
 def _shape(name, args, kw) -> str:
@@ -1028,6 +1105,10 @@ def _shape(name, args, kw) -> str:
                 f"R={args[1].shape[0]}")
     if name == K2:
         return f"slots={args[0].numel()} blocks={kw['num_node_blocks']}"
+    if name == K11:
+        return (f"entries={int(args[2][-1] - args[2][0])} of "
+                f"{args[1].numel()} values={args[0].shape[0]} "
+                f"d={args[0].shape[1]} rows={args[3]}")
     if name in (K3, K6, K7, K8):
         return (f"slots={args[0].numel()} d={args[1].shape[1]} "
                 f"Em={args[1].shape[0]} blocks={kw['num_node_blocks']}")
@@ -1062,16 +1143,18 @@ def kernel_tables(torch, SK, TK, SO):
              K6: TK.seg_softmax_agg_padded_plain,
              K7: TK.seg_weighted_agg_gather_padded_plain,
              K8: TK.seg_weighted_agg_padded_plain,
-             K9: SO.candidate_keys_plain}
+             K9: SO.candidate_keys_plain,
+             K11: TK.seg_sum_sorted_plain}
     kernel = {K1: SK.segment_mm_gather_padded, K2: TK.seg_stats_padded,
               K3: TK.seg_softmax_agg_gather_padded,
               K4: SK.segment_mm_padded, K5: SK.segment_outer_padded,
               K6: TK.seg_softmax_agg_padded,
               K7: TK.seg_weighted_agg_gather_padded,
-              K8: TK.seg_weighted_agg_padded, K9: SO.candidate_keys}
+              K8: TK.seg_weighted_agg_padded, K9: SO.candidate_keys,
+              K11: TK.seg_sum_sorted}
     work = {K1: k1_work, K2: k2_work, K3: k3_work, K4: k4_work,
             K5: k5_work, K6: k6_work, K7: k7_work, K8: k8_work,
-            K9: k9_work}
+            K9: k9_work, K11: k11_work}
     plain = {k: torch.no_grad()(f) for k, f in plain.items()}
     kernel = {k: torch.no_grad()(f) for k, f in kernel.items()}
     return plain, kernel, work
@@ -1081,7 +1164,7 @@ def compare_runner(torch, SO, plain, kernel):
     """``run_compare(name, args, kw)``: the kernel against its plain
     version on the same inputs, at the kernel's tolerance; returns the max
     abs error. K2, K3, K6, K7 and K8 run at every unit size
-    (``split_compare``); K1, K4 and K5 are held bit for bit against a
+    (``split_compare``); K1, K4, K5 and K11 are held bit for bit against a
     second launch too."""
     def run_compare(name, args, kw):
         if name == K9:
@@ -1091,7 +1174,7 @@ def compare_runner(torch, SO, plain, kernel):
                                  args, kw)
         got = kernel[name](*args, **kw)
         want = plain[name](*args, **kw)
-        if name in (K1, K4, K5):
+        if name in (K1, K4, K5, K11):
             again = kernel[name](*args, **kw)
             torch.cuda.synchronize()
             check(bool(torch.equal(got.view(torch.int32),
@@ -1220,27 +1303,28 @@ def time_softmax(torch, tables, run_compare, k2_call, k3_call, at, phase,
 
 
 def time_call(torch, tables, name, args, kw, err):
-    """K1, K4 or K5 at one captured call, already held to its plain
+    """K1, K4, K5 or K11 at one captured call, already held to its plain
     version (max abs error ``err``): its device ms, wrapper ms, plain ms,
-    ``torch.bmm`` ms and bound."""
+    library ms (``torch.bmm``; K11: ``index_add_``) and bound."""
     plain, kernel, work = tables
     fn = lambda: kernel[name](*args, **kw)                    # noqa: E731
     nbytes, flops = work[name](torch, args, kw)
     b_ms, b_by = bound(nbytes, flops)
     entry = dict(
         shape=_shape(name, args, kw), max_abs_err=err,
-        ms=device_ms(torch, fn, KERNELS[name]["symbol"]),
+        ms=device_ms(torch, fn, KERNELS[name]["symbol"],
+                     per_call=KERNELS[name].get("per_call", 1)),
         wrapper_ms=time_ms(torch, fn),
         plain_ms=time_ms(torch, lambda: plain[name](*args, **kw), reps=5,
                          inner=2),
         library_ms=time_ms(torch, LIBRARY[name][1](torch, args, kw)),
         bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
     split = (f" chunk_tiles={kw['chunk_tiles']}" if name == K5 else
-             f" {_plan(name, args, kw)}")
+             f" {_plan(name, args, kw)}" if name in (K1, K4) else "")
     log(f"[{name}] {entry['shape']}{split}: kernel "
         f"{entry['ms']:.5f} ms on the device, wrapper "
         f"{entry['wrapper_ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
-        f"torch.bmm {entry['library_ms']:.4f} ms, bound "
+        f"{LIBRARY[name][0]} {entry['library_ms']:.4f} ms, bound "
         f"{entry['bound_ms']:.5f} ms ({entry['bound_by']})")
     return entry
 
@@ -1409,8 +1493,71 @@ def phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops, tasks, split):
     split_edge_cases(torch, L, ops, TK, run_compare, split)
     k5_edge_cases(torch, SK, L, ops, run_compare, results)
     k9_edge_cases(torch, ops, run_compare, results)
+    k11_edge_cases(torch, TK, run_compare, results)
+    # the softmax VJP's per-destination sum: K7 at width 1 (its scalar
+    # path), held above at every unit size with the other captured calls
+    d1 = sum(1 for tag, calls in captured.items() if tag.endswith("step")
+             for args, _ in calls[K7] if args[1].shape[-1] == 1)
+    check(d1 > 0, f"{K7}: no call at d = 1 among the training steps")
+    log(f"[phase 2] {K7} at d = 1 (the softmax VJP's sum): {d1} captured "
+        f"calls match the plain version")
     summarize(results, "phase 2")
     return results
+
+
+# K11's unit of sorted entries (``csrc/scatter.cu``: kUnitEntries) and the
+# widths its edge cases run at (one column, a ragged warp, the models', a
+# block's 256 columns exceeded)
+K11_UNIT = 256
+K11_EDGE_D = (1, 7, 64, 96, 300)
+
+
+def k11_edge_cases(torch, TK, run_compare, results):
+    """K11 where its unit split has its edges, each case at every width of
+    ``K11_EDGE_D``, against its plain version (rtol = atol = 1e-6) and bit
+    for bit against a second launch: every entry's target -1 (zero rows),
+    one row taking all 40,000 entries (a combine over 157 units), runs of
+    1, 255, 256, 257, 511, 769 entries and rows without entries laid
+    across unit edges, with and without 300 leading -1s (which move every
+    edge), and a 30,000-entry hub among 5,000 random rows. Returns the
+    number of calls."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    u = K11_UNIT
+    runs = np.array([u - 1, 1, u, u + 1, 2 * u - 1, 0, 1, 1, 3 * u + 1, 0,
+                     0, 17, u])
+    laid = np.repeat(np.arange(runs.size), runs)
+    hub = np.concatenate([rng.integers(0, 5000, 20000),
+                          np.full(30000, 2500)])
+    cases = {
+        "all -1": (np.full(4 * u + 37, -1), 50),
+        "one row, 40000 entries": (np.full(40000, 3), 8),
+        "runs across unit edges": (laid, runs.size),
+        "runs after 300 -1s": (np.concatenate([laid, np.full(300, -1)]),
+                               runs.size),
+        "hub of 30000 among 5000 rows": (hub, 5000),
+    }
+    n = 0
+    for what, (target, num_rows) in cases.items():
+        target = rng.permutation(target).astype(np.int32)
+        t = torch.from_numpy(target).cuda()
+        perm, ptr = TK.sorted_segments(t, num_rows)
+        for d in K11_EDGE_D:
+            values = torch.from_numpy(rng.normal(
+                size=(target.size, d)).astype(np.float32)).cuda()
+            args = (values, perm, ptr, num_rows)
+            err = run_compare(K11, args, {})
+            results[K11]["max_abs_err"] = max(results[K11]["max_abs_err"],
+                                              err)
+            if what == "all -1":
+                check(bool((TK.seg_sum_sorted(*args) == 0).all()),
+                      f"{K11}: rows of an all -1 target are not zero")
+            n += 1
+    log(f"[phase 2] {K11} edge cases: {n} calls ({', '.join(cases)}; d "
+        f"{'/'.join(map(str, K11_EDGE_D))}) match the plain version "
+        f"(rtol = atol = {TOLERANCE[K11]}) and a second launch bit for bit")
+    return n
 
 
 def edge_cases(torch, SK, TK, L, ops, R, run_compare, results):
@@ -2433,9 +2580,9 @@ def phase_train(torch, ops, train_rgnn, task, cfg):
 
 def phase_full_graph(torch, task, train_rgnn, cfg, split):
     """Phase 7: full-graph steps of the task's model — aifb on the card
-    against the CPU, then bgs at scale 1.0 for 3 timed steps. Then K1, K4
-    and K5 are held (each bitwise against a second launch too) and timed
-    (``time_call``) at every call of one bgs full-graph step; for RGCN,
+    against the CPU, then bgs at scale 1.0 for 3 timed steps. Then K1, K4,
+    K5 and K11 are held (each bitwise against a second launch too) and
+    timed (``time_call``) at every call of one bgs full-graph step; for RGCN,
     K7 and K8 at the K7 calls of one
     bgs full-graph forward (``time_weighted``), for RGAT and HGT, K2 and
     K3 at their calls and K6 at K3's (``time_softmax``)."""
@@ -2498,7 +2645,8 @@ def phase_full_graph(torch, task, train_rgnn, cfg, split):
     with recorded_kernel_calls() as calls:
         fg.step(state)
         torch.cuda.synchronize()
-    for name, key in ((K1, "k1_bgs"), (K4, "k4_bgs"), (K5, "k5_bgs")):
+    for name, key in ((K1, "k1_bgs"), (K4, "k4_bgs"), (K5, "k5_bgs"),
+                      (K11, "k11_bgs")):
         check(len(calls[name]) == STEP_LAUNCHES[model][name], f"{tag} bgs: "
               f"{len(calls[name])} {name} calls in a full-graph step")
         timed = [time_call(torch, tables, name, args, kw,
@@ -2510,7 +2658,7 @@ def phase_full_graph(torch, task, train_rgnn, cfg, split):
         log(f"[{tag} bgs] {name}: {len(timed)} calls in a full-graph step, "
             f"kernel {out[key]['ms']:.5f} ms on the device, wrapper "
             f"{out[key]['wrapper_ms']:.4f} ms, plain "
-            f"{out[key]['plain_ms']:.4f} ms, torch.bmm "
+            f"{out[key]['plain_ms']:.4f} ms, {LIBRARY[name][0]} "
             f"{out[key]['library_ms']:.4f} ms, bound "
             f"{out[key]['bound_ms']:.5f} ms")
     agg = K7 if model == "rgcn" else K3
@@ -2534,6 +2682,33 @@ def phase_full_graph(torch, task, train_rgnn, cfg, split):
 RANGES = ("forward", "backward", "optimizer")
 
 
+def deterministic_probe(torch, fn):
+    """The ops of one op-by-op call of ``fn`` that have no deterministic
+    implementation on the card: the warnings
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` raises
+    over it (first lines, deduplicated). A diagnostic, not a setting of
+    the program: the mode is switched off again after the call (and the
+    filling of uninitialized memory it brings stays off, so the call
+    computes what it always does)."""
+    import warnings
+
+    from torch.utils import deterministic
+
+    fill = deterministic.fill_uninitialized_memory
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        deterministic.fill_uninitialized_memory = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            deterministic.fill_uninitialized_memory = fill
+    return sorted({str(w.message).strip().splitlines()[0][:240]
+                   for w in caught})
+
+
 def phase_train_profile(torch, task, full, trace_dir):
     """Phase 8: one sampled step (aifb-b64) and one bgs full-graph step
     under ``torch.profiler``: device time per kernel and per step (kernels
@@ -2541,14 +2716,22 @@ def phase_train_profile(torch, task, full, trace_dir):
     work), the device's busy share of the step, the device time of the
     kernels of the ``forward`` range, of the backward and of the
     ``optimizer`` range, and the 8 device ops that take the most time,
-    with their range."""
+    with their range. Each step runs once more under
+    ``deterministic_probe``: the ops that warn are listed."""
     from torch.profiler import ProfilerActivity, profile
 
     fg, state = full.pop("bgs_trainer"), full.pop("bgs_state")
     model = task.engine.cfg.model
+    # the probe's positive control: a weighted bincount has no
+    # deterministic CUDA implementation, so it must warn
+    control = deterministic_probe(torch, lambda: torch.bincount(
+        torch.zeros(4, dtype=torch.long, device="cuda"),
+        weights=torch.ones(4, device="cuda")))
+    log(f"[phase 8 {model}] deterministic probe control (weighted "
+        f"bincount): {control or 'no warning'}")
     runs = {f"{model} sampled aifb-b64": lambda: task.step(torch),
             f"{model} full-graph bgs": lambda: fg.step(state)}
-    out = {}
+    out = {"deterministic_probe_control": control}
     for tag, fn in runs.items():
         fn()
         torch.cuda.synchronize()
@@ -2623,6 +2806,11 @@ def phase_train_profile(torch, task, full, trace_dir):
             path.mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(
                 str(path / (tag.replace(" ", "_") + ".json")))
+        res["deterministic_warnings"] = deterministic_probe(torch, fn)
+        log(f"[phase 8 {tag}] under use_deterministic_algorithms(True, "
+            f"warn_only=True): {len(res['deterministic_warnings'])} ops "
+            f"warn" + "".join(f"\n[phase 8 {tag}]   warns: {w}"
+                              for w in res["deterministic_warnings"]))
     return out
 
 
@@ -3966,10 +4154,10 @@ def obs_profile_bgs(torch, hector_torch, ops, serve_rgnn, card):
 def obs_train(torch, ops, train_rgnn, trace_dir, phase8, card):
     """Phase 13 (d) and (e): RGAT aifb-b64 training (phase 6's
     configuration, 1 epoch) with obs off, on, and on with ``trace_out``
-    and ``profile=True``: the first loss (a forward from the same
-    weights) bitwise equal across the three (later losses are not held:
-    the backward's scatter-adds use atomics on the card), as many
-    ``torch.cuda.synchronize`` calls on as off, the step p50 of each; in
+    and ``profile=True``: every loss bit for bit across the three (the
+    backward runs in a fixed order on the card: K11 and K7, no float
+    atomics), as many ``torch.cuda.synchronize`` calls on as off, the
+    step p50 of each; in
     the traced run a ``train_step`` span and a ``train_step_ms``
     observation per step, a valid trace, and ``profile_train_step``'s
     attribution (all four keys >= 0, the step no shorter than its
@@ -4024,8 +4212,13 @@ def obs_train(torch, ops, train_rgnn, trace_dir, phase8, card):
                           step_ms_p50=stats["step_ms_p50"],
                           retraces=stats["retraces_after_warmup"])
     firsts = {m: r["losses"][0] for m, r in runs.items()}
-    check(len(set(firsts.values())) == 1,
-          f"{tag}: first loss off / on / traced {firsts}")
+    for m in ("on", "traced"):
+        diff = [i for i, (a, b) in enumerate(zip(runs[m]["losses"],
+                                                 runs["off"]["losses"]))
+                if a != b]
+        check(len(runs[m]["losses"]) == len(runs["off"]["losses"])
+              and not diff, f"{tag}: losses with obs {m} differ from obs "
+              f"off at steps {diff[:5]}")
     check(len({r["retraces"] for r in runs.values()}) == 1,
           f"{tag}: new signatures after warmup differ off / on / traced")
     spread = max(abs(a - b) for a, b in zip(runs["off"]["losses"],
@@ -4037,9 +4230,9 @@ def obs_train(torch, ops, train_rgnn, trace_dir, phase8, card):
           f"phase 13 d: step attribution {ph}")
     p8 = phase8["rgat sampled aifb-b64"]
     log(f"[{tag}] {card}: {steps} train_step spans = {hist['count']} "
-        f"train_step_ms observations = {stats['steps']} steps; first loss "
-        f"{firsts['off']!r} off = on = traced (max abs loss difference "
-        f"off / on over the epoch {spread:.3g}); "
+        f"train_step_ms observations = {stats['steps']} steps; all "
+        f"{stats['steps']} losses bit for bit off = on = traced (first "
+        f"{firsts['off']!r}, max abs difference {spread:.3g}); "
         f"{runs['on']['syncs']} torch.cuda.synchronize calls on = off "
         f"outside captures ({runs['on']['steps']} steps), besides "
         f"{runs['on']['capture_syncs']} in the {runs['on']['graphs']} "
@@ -4280,49 +4473,35 @@ def fresh_signatures(torch, serve_rgnn, card):
                 latency_ms_p50=stats["latency_ms_p50"])
 
 
-def states_close(torch, tag, a, b):
-    """Params and moments of two train states within rtol 1e-4 / atol
-    1e-6 (phase 6's step-parity bounds); returns the largest
-    differences."""
+def states_equal(torch, tag, a, b, what="captured / op by op"):
+    """Params and moments of two train states bit for bit (the backward
+    runs in a fixed order on the card: K11 and K7, no float atomics)."""
     from repro_torch.optim.adamw import tree_leaves
 
-    worst = {}
     for part in ("params", "mu", "nu"):
-        err = 0.0
         for x, y in zip(tree_leaves(getattr(a, part)),
-                        tree_leaves(getattr(b, part))):
-            err = max(err, float((x - y).abs().max()))
-            check(bool(torch.allclose(x, y, rtol=1e-4, atol=1e-6)),
-                  f"{tag}: {part} captured / op by op differ (max abs "
-                  f"{float((x - y).abs().max()):.3g})")
-        worst[part] = err
-    return worst
+                        tree_leaves(getattr(b, part)), strict=True):
+            check(bool(torch.equal(x, y)), f"{tag}: {part} {what} differ "
+                  f"(max abs {float((x - y).abs().max()):.3g})")
 
 
-def losses_close(tag, cap, eag):
-    """The first loss bit for bit, every later one within rtol 1e-5."""
-    check(len(cap) == len(eag), f"{tag}: {len(cap)} / {len(eag)} steps")
-    check(cap[0] == eag[0], f"{tag}: first loss {cap[0]!r} captured, "
-          f"{eag[0]!r} op by op")
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(cap, eag)):
-        worst = max(worst, abs(a - b))
-        check(abs(a - b) <= 1e-5 * abs(b), f"{tag}: step {i} loss "
-              f"{a!r} captured, {b!r} op by op")
-    return worst
+def losses_equal(tag, a, b, what="captured / op by op"):
+    """Every loss of two runs bit for bit."""
+    check(len(a) == len(b), f"{tag}: {len(a)} / {len(b)} steps")
+    diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    check(not diff, f"{tag}: losses {what} differ at steps {diff[:5]} "
+          f"(first: {a[diff[0]]!r} / {b[diff[0]]!r})" if diff else "")
 
 
 def paired_steps(torch, tag, step, batches, state):
     """Run ``step(state, batch, compiled)`` over ``batches``, captured,
     and beside every step an op-by-op step from a copy of the same input
-    state: each loss bit for bit (the forward's kernels are deterministic),
-    the new params and moments within rtol 1e-4 / atol 1e-6 (phase 6's
-    one-step bounds; the backward's atomics differ run to run). Returns
-    the captured state, the losses, the largest state differences, both
-    step times and the state buffers' pointers per step."""
+    state: each loss, the new params and the moments bit for bit. Returns
+    the captured state, the losses, both step times and the state
+    buffers' pointers per step."""
     from repro_torch.optim.adamw import tree_leaves, tree_map
 
-    losses, worst, ptrs = [], {}, []
+    losses, ptrs = [], []
     ms = {"captured": [], "eager": []}
     for i, batch in enumerate(batches):
         before = tree_map(torch.clone, state)
@@ -4337,26 +4516,22 @@ def paired_steps(torch, tag, step, batches, state):
         ms["eager"].append((time.perf_counter() - t0) * 1e3)
         check(loss == loss_e, f"{tag}: step {i} loss {loss!r} captured, "
               f"{loss_e!r} op by op from the same state")
-        for part, err in states_close(torch, f"{tag} step {i}", state,
-                                      want).items():
-            worst[part] = max(worst.get(part, 0.0), err)
+        states_equal(torch, f"{tag} step {i}", state, want)
         losses.append(loss)
         ptrs.append([t.data_ptr() for t in tree_leaves(state)])
-    return state, losses, worst, ms, ptrs
+    return state, losses, ms, ptrs
 
 
 def captured_training(torch, train_rgnn, card):
     """Phase 14 (d): captured training against op by op. RGAT aifb-b64 for
     one epoch, twice: through ``SampledTrainer`` (captured and
-    ``compiled=False`` from the same initial state: the first loss bit for
-    bit, every later one within rtol 1e-5, zero new keys after warmup,
-    every repeated key served by a replay; the final states' difference
-    is printed: the
-    backward's atomics compound over 91 Adam steps), and step by step
+    ``compiled=False`` from the same initial state: every loss and the
+    final params and moments bit for bit, zero new keys after warmup,
+    every repeated key served by a replay), and step by step
     (``paired_steps``: every captured step against an op-by-op step from
-    the same state). RGAT bgs full-graph (``FullGraphTrainer``) for 5
-    steps with ``paired_steps``; the captured step returns the same state
-    buffers from its first replay on."""
+    the same state, bit for bit). RGAT bgs full-graph
+    (``FullGraphTrainer``) for 5 steps with ``paired_steps``; the captured
+    step returns the same state buffers from its first replay on."""
     import dataclasses
 
     import numpy as np
@@ -4396,12 +4571,9 @@ def captured_training(torch, train_rgnn, card):
                           replays=tr.step_exec.replays)
     cap, eag = runs["captured"], runs["eager"]
     tag = "phase 14 d rgat aifb-b64"
-    worst = losses_close(tag, cap["stats"]["losses"],
-                         eag["stats"]["losses"])
-    drift = {part: max(float((x - y).abs().max()) for x, y in zip(
-        tree_leaves(getattr(cap["state"], part)),
-        tree_leaves(getattr(eag["state"], part))))
-        for part in ("params", "mu", "nu")}
+    losses_equal(tag, cap["stats"]["losses"], eag["stats"]["losses"])
+    states_equal(torch, tag, cap["state"], eag["state"],
+                 "of the captured and the op-by-op epoch")
     st = cap["stats"]
     check(st["retraces_after_warmup"] == 0
           and cap["replays"] == st["executor_cache_hits"]
@@ -4410,11 +4582,10 @@ def captured_training(torch, train_rgnn, card):
           f"{st['executor_compiled']} keys, {st['executor_cache_hits']} "
           f"repeats")
     p50 = {m: r["stats"]["step_ms_p50"] for m, r in runs.items()}
-    log(f"[{tag}] {card}: SampledTrainer, first loss {st['losses'][0]!r} "
-        f"captured = op by op; {st['steps']} losses within rtol 1e-5 (max "
-        f"abs {worst:.3g}); final states differ by "
-        + json.dumps({k: float(f"{v:.3g}") for k, v in drift.items()})
-        + f" (max abs); step p50 ms op by op {p50['eager']:.3f} / captured "
+    log(f"[{tag}] {card}: SampledTrainer, captured = op by op: all "
+        f"{st['steps']} losses (first {st['losses'][0]!r}, last "
+        f"{st['losses'][-1]!r}) and the final params, mu and nu bit for bit;"
+        f" step p50 ms op by op {p50['eager']:.3f} / captured "
         f"{p50['captured']:.3f}, p99 {eag['stats']['step_ms_p99']:.3f} / "
         f"{st['step_ms_p99']:.3f}; {st['executor_compiled']} keys, "
         f"{cap['captures']} graphs, {cap['replays']} replays, 0 new after "
@@ -4425,7 +4596,7 @@ def captured_training(torch, train_rgnn, card):
         seeds_per_s=r["stats"]["seeds_per_s"],
         executor_compiled=r["stats"]["executor_compiled"],
         captures=r["captures"]) for m, r in runs.items()}
-    out["aifb_b64"].update(loss_max_abs_diff=worst, state_drift=drift)
+    out["aifb_b64"].update(bitwise=True)
 
     loader = engine.make_loader(EpochSeedStream(
         train_ids, cfg["batch_size"], seed=cfg["seed"]), num_batches=bpe)
@@ -4447,18 +4618,17 @@ def captured_training(torch, train_rgnn, card):
                                   {"feature": x[mb.input_ids.long()]},
                                   compiled=compiled)
 
-    _, losses, worst, ms, _ = paired_steps(
+    _, losses, ms, _ = paired_steps(
         torch, tag, sampled_step, batches,
         ex_c.opt.init(engine.init(cfg["seed"])))
     log(f"[{tag}] {card}: step by step, each of {len(losses)} captured "
-        f"steps against an op-by-op step from the same state: losses bit "
-        f"for bit, params / mu / nu within rtol 1e-4 / atol 1e-6 (max abs "
-        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()})
-        + f"); {ex_c.captures} graphs; step p50 ms captured "
+        f"steps against an op-by-op step from the same state: losses, "
+        f"params, mu and nu bit for bit; {ex_c.captures} graphs; step p50 "
+        f"ms captured "
         f"{np.median(ms['captured']):.3f} / op by op "
         f"{np.median(ms['eager']):.3f}")
     out["aifb_b64"]["paired"] = dict(
-        steps=len(losses), state_max_abs_diff=worst,
+        steps=len(losses),
         step_ms_p50={k: float(np.median(v)) for k, v in ms.items()})
 
     tag = "phase 14 d rgat bgs full-graph"
@@ -4471,7 +4641,7 @@ def captured_training(torch, train_rgnn, card):
     def full_step(state, _, compiled):
         return fg[compiled].step(state)
 
-    state, losses, worst, ms, ptrs = paired_steps(
+    state, losses, ms, ptrs = paired_steps(
         torch, tag, full_step, range(BGS_STEPS),
         fg[True].init_state(engine.init(cfg["seed"])))
     check(fg[True].step_exec.captures == 1
@@ -4479,17 +4649,89 @@ def captured_training(torch, train_rgnn, card):
           f"{tag}: the captured step does not return its state buffers")
     after = {k: float(np.median(v[2:])) for k, v in ms.items()}
     log(f"[{tag}] {card}: {BGS_STEPS} captured steps, each against an "
-        f"op-by-op step from the same state: losses {losses} bit for bit, "
-        f"params / mu / nu within rtol 1e-4 / atol 1e-6 (max abs "
-        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()})
-        + f"); one graph, the same state buffers from its first replay on; "
+        f"op-by-op step from the same state: losses {losses}, params, mu "
+        f"and nu bit for bit; one graph, the same state buffers from its "
+        f"first replay on; "
         f"step ms op by op {[round(v, 3) for v in ms['eager']]}, captured "
         f"{[round(v, 3) for v in ms['captured']]} (the first runs op by "
         f"op, the second captures); median after the second "
         f"{after['eager']:.3f} / {after['captured']:.3f}")
     out["bgs_full_graph"] = dict(losses=losses, step_ms=ms,
-                                 step_ms_median_after_second=after,
-                                 state_max_abs_diff=worst)
+                                 step_ms_median_after_second=after)
+    return out
+
+
+REPEAT_EPOCH_MODELS = ("rgat", "hgt")
+REPEAT_BGS_MODELS = ("rgat", "rgcn", "hgt")
+
+
+def repeatability(torch, train_rgnn, card):
+    """Phase 14 (g): two identical runs give bit-equal final params (and
+    moments, and every loss): an RGAT and an HGT aifb-b64 epoch through
+    ``SampledTrainer`` at its captured default, and ``BGS_STEPS``
+    full-graph steps of RGAT, RGCN and HGT over bgs, each run twice from
+    the same initial weights with a fresh optimizer and trainer."""
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.sampling import EpochSeedStream
+    from repro_torch.train import (EngineConfig, FullGraphTrainer,
+                                   SampledTrainer)
+
+    cfg = TRAIN
+    out = {}
+
+    def ecfg(model):
+        return EngineConfig(model=model, layers=cfg["layers"],
+                            dim=cfg["dim"], hidden=cfg["hidden"],
+                            classes=cfg["classes"], fanouts=cfg["fanouts"],
+                            tile=cfg["tile"], node_block=cfg["node_block"],
+                            seed=cfg["seed"], device="cuda")
+
+    for model in REPEAT_EPOCH_MODELS:
+        engine, feats, labels, train_ids, val_ids = train_rgnn.build_task(
+            cfg["dataset"], cfg["scale"], ecfg(model), cfg["seed"])
+        bpe = EpochSeedStream(train_ids, cfg["batch_size"]).batches_per_epoch
+        runs = []
+        for _ in range(2):
+            tr = SampledTrainer(engine, feats, labels, train_ids, val_ids,
+                                opt=AdamW(learning_rate=cosine_schedule(
+                                    cfg["lr"], 5, bpe), weight_decay=0.0),
+                                log=None)
+            state, st = tr.train(tr.init_state(engine.init(cfg["seed"])),
+                                 epochs=1, batch_size=cfg["batch_size"])
+            torch.cuda.synchronize()
+            runs.append((tree_map(torch.clone, state), st["losses"]))
+        tag = f"phase 14 g {model} aifb-b64"
+        losses_equal(tag, runs[0][1], runs[1][1], "of two runs")
+        states_equal(torch, tag, runs[0][0], runs[1][0], "of two runs")
+        log(f"[{tag}] {card}: two captured epochs from the same weights: "
+            f"all {len(runs[0][1])} losses (last {runs[0][1][-1]!r}) and "
+            f"the final params, mu and nu bit for bit")
+        out[f"{model} aifb-b64"] = dict(steps=len(runs[0][1]),
+                                        final_loss=runs[0][1][-1])
+    for model in REPEAT_BGS_MODELS:
+        engine, feats, labels, train_ids, _ = train_rgnn.build_task(
+            "bgs", 1.0, ecfg(model), cfg["seed"])
+        runs = []
+        for _ in range(2):
+            fg = FullGraphTrainer(engine, feats, labels, train_ids,
+                                  opt=AdamW(learning_rate=cosine_schedule(
+                                      cfg["lr"], 5, BGS_STEPS),
+                                      weight_decay=0.0), log=None)
+            state = fg.init_state(engine.init(cfg["seed"]))
+            losses = []
+            for _ in range(BGS_STEPS):
+                state, m = fg.step(state)
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            runs.append((tree_map(torch.clone, state), losses))
+        tag = f"phase 14 g {model} bgs full-graph"
+        losses_equal(tag, runs[0][1], runs[1][1], "of two runs")
+        states_equal(torch, tag, runs[0][0], runs[1][0], "of two runs")
+        log(f"[{tag}] {card}: two runs of {BGS_STEPS} captured steps from "
+            f"the same weights: losses {runs[0][1]} and the final params, "
+            f"mu and nu bit for bit")
+        out[f"{model} bgs"] = dict(losses=runs[0][1])
     return out
 
 
@@ -4752,7 +4994,7 @@ def phase_capture(torch, hector_torch, SK, L, ops, serve_rgnn, train_rgnn,
     aifb-b32 over fresh batches, one graph per distinct signature; (c) (a)
     device-sampled; (d) captured training against op by op; (e) K5's
     counters outgrown under a captured graph; (f) the capture stress run,
-    twice."""
+    twice; (g) two identical training runs bit for bit."""
     out = {"serve": {}, "device_serve": {}}
     for model in CAPTURE_MODELS:
         cfg = dict(SERVE_DEFAULTS, model=model, **REPEAT)
@@ -4767,6 +5009,7 @@ def phase_capture(torch, hector_torch, SK, L, ops, serve_rgnn, train_rgnn,
     out["train"] = captured_training(torch, train_rgnn, card)
     out["k5"] = k5_counter_growth(torch, SK, L, ops, card)
     out["stress"] = stress(torch, hector_torch, ops, card)
+    out["repeat"] = repeatability(torch, train_rgnn, card)
     return out
 
 
@@ -4936,8 +5179,7 @@ def phase_features(torch, hector_torch, ops, serve_rgnn, train_rgnn, card):
     logits still the device tier's; (c) device-sampled RGAT aifb-b32 with
     the ``host`` tier against the ``device`` tier, bit for bit; (d) RGAT
     aifb-b64 training for an epoch with the ``cached`` tier against the
-    ``device`` tier: the first loss bit for bit, every later one within
-    rtol 1e-5 (phase 14's bounds for a captured step)."""
+    ``device`` tier: every loss bit for bit."""
     out = {}
     for model in ("rgat", "rgcn"):
         cfg = dict(FEATURE_SERVE, model=model)
@@ -5008,12 +5250,13 @@ def feature_training(torch, train_rgnn, card):
         runs[tier] = st
     tag = "phase 15 d rgat aifb-b64"
     cached, dev = runs["cached"], runs["device"]
-    worst = losses_close(tag, cached["losses"], dev["losses"])
+    losses_equal(tag, cached["losses"], dev["losses"], "of the cached and "
+                 "the device tier")
     check(cached["retraces_after_warmup"] == 0, f"{tag}: "
           f"{cached['retraces_after_warmup']} new keys after warmup")
     log(f"[{tag}] {card}: cached tier against the device tier, "
-        f"{len(dev['losses'])} steps: first loss {dev['losses'][0]!r} bit "
-        f"for bit, the others within rtol 1e-5 (max abs {worst:.3g}); "
+        f"{len(dev['losses'])} steps: every loss bit for bit (first "
+        f"{dev['losses'][0]!r}, last {dev['losses'][-1]!r}); "
         f"step p50 ms {dev['step_ms_p50']:.3f} / {cached['step_ms_p50']:.3f}"
         f", {dev['seeds_per_s']:.1f} / {cached['seeds_per_s']:.1f} seeds/s;"
         f" cache hit rate {cached['feature_hit_rate']:.4f}, "
@@ -5022,7 +5265,284 @@ def feature_training(torch, train_rgnn, card):
     keys = ("step_ms_p50", "step_ms_p99", "seeds_per_s", "final_loss")
     return {t: {k: r[k] for k in keys} | {
         k: v for k, v in r.items() if k.startswith("feature_")}
-        for t, r in runs.items()} | {"loss_max_abs_diff": worst}
+        for t, r in runs.items()} | {"losses_bitwise": True}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the online serving runtime (``serve_rgnn --runtime online``)
+# ---------------------------------------------------------------------------
+# full width, as the driver's defaults: 2 layers, 64 wide, fanout 5, tile
+# and node block 32, bucketed, aifb at scale 1.0, the fine ladder up to 32
+ONLINE = dict(dataset="aifb", scale=1.0, layers=2, dim=64, hidden=64,
+              classes=16, fanouts=[5, 5], tile=32, node_block=32, seed=0,
+              max_batch=32, ladder_kind="fine", max_wait_ms=5.0,
+              size_choices=(1, 2, 4, 8))
+ONLINE_RUNS = (
+    ("a rgat poisson", dict(model="rgat", rate_rps=200.0, num_requests=256,
+                            process="poisson", slo_ms=1000.0)),
+    ("b rgcn burst cached", dict(model="rgcn", rate_rps=200.0,
+                                 num_requests=256, process="burst",
+                                 burst_size=8, slo_ms=1000.0,
+                                 feature_store="cached")),
+    # the device sampler's launches (two hops of sampling and layouts, on
+    # the execute thread) cost about the same at every rung, so at 200
+    # req/s its small batches saturate that thread and admission then
+    # shrinks the rungs further: run at half the rate
+    ("d rgat device-sampled", dict(model="rgat", rate_rps=100.0,
+                                   num_requests=256, process="poisson",
+                                   slo_ms=1000.0, sampler="device")),
+    ("e rgat slo 0.5 ms", dict(model="rgat", rate_rps=200.0,
+                               num_requests=64, process="poisson",
+                               slo_ms=0.5)),
+)
+TENANT_REQUESTS = 128
+# req/s over both tenants: one process, so both loaders' host builds and
+# the capturing tenant's op-by-op calls share one interpreter lock
+TENANT_RATE = 100.0
+
+
+class OnlineRecorder:
+    """Hooks a runtime from the smoke script (the runtime itself is left
+    as it is): ``coalescer.plan`` is wrapped to keep every admitted
+    ``PlannedBatch``, and the engine's ``forward_minibatch`` (an attribute
+    of the compiled instance) to keep, from ``start()`` on, every served
+    mini-batch with a copy of its input rows, on the execute thread."""
+
+    def __init__(self, torch, rt):
+        from repro_torch.feats import gather_input
+
+        self.rt, self.batches, self.served = rt, [], {}
+        self.traffic = False
+        plan = rt.coalescer.plan
+
+        def recording_plan(*a, **kw):
+            d = plan(*a, **kw)
+            if d.batch is not None:
+                self.batches.append(d.batch)
+            return d
+
+        rt.coalescer.plan = recording_plan
+        engine = rt.engine
+        self.forward = engine.forward_minibatch
+
+        def recording_forward(params, mb, store, compiled=True):
+            if self.traffic:
+                feats = gather_input(store, mb)
+                self.served[mb.step] = (mb, {k: v.clone()
+                                             for k, v in feats.items()})
+            return self.forward(params, mb, store, compiled=compiled)
+
+        engine.forward_minibatch = recording_forward
+        start = rt.start
+
+        def recording_start():
+            self.traffic = True
+            return start()
+
+        rt.start = recording_start
+
+    def check_responses(self, torch, tag):
+        """Every OK response's rows bit for bit the rows of an op-by-op
+        forward of the mini-batch served for its ``PlannedBatch`` (the
+        same seeds and step, the same input rows); returns the count."""
+        import dataclasses
+
+        import numpy as np
+
+        from repro_torch.serve import OK
+
+        rt = self.rt
+        by_rid = {}
+        for pb in self.batches:
+            for req, sl in zip(pb.requests, pb.slices):
+                by_rid[req.rid] = (pb, sl)
+        eager, n = {}, 0
+        for resp in rt.responses:
+            if resp.status != OK:
+                continue
+            pb, (lo, hi) = by_rid[resp.rid]
+            check(pb.step in self.served, f"{tag}: batch {pb.step} of "
+                  f"request {resp.rid} was not served")
+            mb, feats = self.served[pb.step]
+            check(np.array_equal(np.asarray(mb.seq.seeds), pb.seeds),
+                  f"{tag}: batch {pb.step} served other seeds than planned")
+            if pb.step not in eager:
+                out = self.forward(rt.params,
+                                   dataclasses.replace(mb, feats=feats),
+                                   rt.store, compiled=False)
+                eager[pb.step] = out.cpu().numpy()
+            check(np.array_equal(resp.logits, eager[pb.step][lo:hi]),
+                  f"{tag}: request {resp.rid}'s rows differ from an "
+                  f"op-by-op forward of its batch {pb.step}")
+            n += 1
+        return n
+
+
+def online_summary(tag, st, card):
+    log(f"[phase 16 {tag}] {card}: {st['requests']} requests "
+        f"{json.dumps(st['by_status'])}; latency p50 "
+        f"{st['latency_ms_p50']:.3f} ms, p99 {st['latency_ms_p99']:.3f} ms, "
+        f"SLO attainment {st['slo_attainment']:.4f}, batch fill "
+        f"{st['batch_fill']:.4f}, rungs {json.dumps(st['rung_counts'])}, "
+        f"queue {st['queue_ms_mean']:.3f} ms + execute "
+        f"{st['execute_ms_mean']:.3f} ms (means), ladder {st['ladder']} "
+        f"(calibrated ms {json.dumps({k: round(v, 3) for k, v in st['ladder_ms'].items()})}), "
+        f"{st['shape_floor_growths']} floor growths; "
+        f"{st['executor_traces']} keys, {st['executor_captures']} graphs, "
+        f"{st['retraces_after_warmup']} new keys and "
+        f"{st['captures_after_warmup']} graphs after warm-up")
+    keys = ("requests", "by_status", "latency_ms_p50", "latency_ms_p99",
+            "slo_attainment", "batch_fill", "rung_counts", "queue_ms_mean",
+            "execute_ms_mean", "ladder", "ladder_ms", "executor_traces",
+            "executor_captures", "retraces_after_warmup",
+            "captures_after_warmup", "shape_floor_growths", "batches",
+            "queue_depth_max")
+    return {k: st.get(k) for k in keys}
+
+
+def online_run(torch, serve_rgnn, tag, kw, card):
+    """One ``serve_rgnn.serve_online`` run on the card with its runtime
+    recorded: every request terminal; with the 1000 ms SLO every one OK,
+    no new key and no capture after warm-up, every OK response equal to an
+    op-by-op forward bit for bit; with the 0.5 ms SLO every request
+    rejected at admission or late and none OK past its SLO; no worker
+    thread left after ``close()``."""
+    from repro_torch.serve import LATE, OK, REJECTED_DEADLINE
+
+    rec = {}
+    st = serve_rgnn.serve_online(
+        **ONLINE, **kw, device="cuda",
+        on_runtime=lambda rt: rec.update(r=OnlineRecorder(torch, rt)),
+        log=lambda m: None)
+    r = rec["r"]
+    rt = r.rt
+    n = kw["num_requests"]
+    out = online_summary(tag, st, card)
+    if rt.shape_floors is not None:
+        top = max(rt.coalescer.rungs)
+        out["floors_top_rung"] = {
+            hop: rt.shape_floors._graph.get((top, hop))
+            for hop in range(len(ONLINE["fanouts"]))}
+        log(f"[phase 16 {tag}] padded (nodes, edges, unique pairs) of a "
+            f"rung-{top} batch by hop after calibration: "
+            f"{json.dumps(out['floors_top_rung'])}")
+    missed = sorted((x for x in rt.responses if x.status != OK),
+                    key=lambda x: x.rid)
+    if missed and kw["slo_ms"] >= 1000.0:
+        log(f"[phase 16 {tag}] not OK (rid status latency queue rung): "
+            + "; ".join(f"{x.rid} {x.status} {x.latency_ms:.1f} "
+                        f"{x.queue_ms:.1f} {x.rung}" for x in missed[:40]))
+        slow = sorted(enumerate(rt._exec_ms), key=lambda t: -t[1])[:8]
+        log(f"[phase 16 {tag}] slowest executes (batch, ms): "
+            + ", ".join(f"{i} {ms:.1f}" for i, ms in slow))
+    check(st["submitted"] == st["requests"] == len(rt.responses) == n,
+          f"phase 16 {tag}: {st['requests']} terminal responses for {n} "
+          f"requests")
+    check(all(not t.is_alive() for t in rt.worker_threads()),
+          f"phase 16 {tag}: a worker thread outlived close()")
+    if kw["slo_ms"] >= 1000.0:
+        check(st["by_status"] == {OK: n}, f"phase 16 {tag}: statuses "
+              f"{st['by_status']}, expected all {n} OK")
+        check(st["retraces_after_warmup"] == 0
+              and st["captures_after_warmup"] == 0,
+              f"phase 16 {tag}: {st['retraces_after_warmup']} new keys and "
+              f"{st['captures_after_warmup']} captures after warm-up")
+        eager = r.check_responses(torch, f"phase 16 {tag}")
+        check(eager == n, f"phase 16 {tag}: {eager} of {n} responses "
+              f"held to the op-by-op forward")
+    else:
+        bad = [x.rid for x in rt.responses
+               if not (x.status in (REJECTED_DEADLINE, LATE) or (
+                   x.status == OK and x.latency_ms <= kw["slo_ms"]))]
+        check(not bad, f"phase 16 {tag}: requests {bad[:5]} neither "
+              f"rejected, late nor OK within {kw['slo_ms']} ms")
+        eager = r.check_responses(torch, f"phase 16 {tag}")
+    out["held_to_eager"] = eager
+    return out
+
+
+def online_tenants(torch, hector_torch, card):
+    """Phase 16 (c): RGAT and RGCN as two tenants of one process, 256
+    requests at ``TENANT_RATE`` routed by model. RGAT is calibrated as
+    ``serve_online`` calibrates; RGCN with one
+    warm round and no floor probes, so its keys keep growing and its
+    execute thread captures during traffic, beside RGAT's. Every request
+    OK, no new key or capture after warm-up for RGAT (the other tenant's
+    traffic and captures cross nothing), every OK response equal to an
+    op-by-op forward bit for bit, no thread left."""
+    import numpy as np
+
+    from repro_torch.core.graph import table3_graph
+    from repro_torch.serve import (OK, MultiTenantRuntime, OpenLoopLoad,
+                                   ServingRuntime, ladder)
+
+    cfg = ONLINE
+    graph = table3_graph(cfg["dataset"], scale=cfg["scale"],
+                         seed=cfg["seed"])
+    feats = np.random.default_rng(cfg["seed"]).normal(
+        size=(graph.num_nodes, cfg["dim"])).astype(np.float32)
+    mt = MultiTenantRuntime()
+    recs = {}
+    for model in ("rgat", "rgcn"):
+        engine = hector_torch.compile(
+            model, graph, layers=cfg["layers"], dim=cfg["dim"],
+            hidden=cfg["hidden"], classes=cfg["classes"],
+            sample=cfg["fanouts"], tile=cfg["tile"],
+            node_block=cfg["node_block"], bucket=True, seed=cfg["seed"],
+            device="cuda")
+        rt = mt.add(ServingRuntime(
+            engine, engine.init(cfg["seed"]), engine.make_feature_store(feats),
+            name=model, rungs=ladder(cfg["max_batch"], cfg["ladder_kind"]),
+            max_wait_ms=cfg["max_wait_ms"]))
+        recs[model] = OnlineRecorder(torch, rt)
+    try:
+        mt["rgat"].calibrate(floor_margin=0)       # as serve_online does
+        mt["rgcn"].calibrate(warm_rounds=1, probe_batches=0, floor_margin=0,
+                             batches_per_rung=1, iters=1, validate=False)
+        load = OpenLoopLoad(graph.num_nodes, rate_rps=TENANT_RATE,
+                            num_requests=2 * TENANT_REQUESTS,
+                            size_choices=cfg["size_choices"], slo_ms=1000.0,
+                            models=("rgat", "rgcn"), seed=cfg["seed"])
+        load.replay(mt.submit)
+        mt.drain(timeout=120.0)
+    finally:
+        mt.close()
+    st = mt.stats()
+    tag = "phase 16 c tenants"
+    check(all(not t.is_alive() for t in mt.worker_threads()),
+          f"{tag}: a worker thread outlived close()")
+    out = {}
+    for model, rec in recs.items():
+        s = st["tenants"][model]
+        check(s["by_status"] == {OK: TENANT_REQUESTS}, f"{tag} {model}: "
+              f"statuses {s['by_status']}")
+        held = rec.check_responses(torch, f"{tag} {model}")
+        check(held == TENANT_REQUESTS, f"{tag} {model}: {held} responses "
+              f"held to the op-by-op forward")
+        out[model] = online_summary(f"c tenant {model}", s, card)
+    a = st["tenants"]["rgat"]
+    check(a["retraces_after_warmup"] == 0 and a["captures_after_warmup"] == 0,
+          f"{tag}: rgat made {a['retraces_after_warmup']} keys and "
+          f"{a['captures_after_warmup']} captures after warm-up beside the "
+          f"rgcn tenant")
+    b = st["tenants"]["rgcn"]
+    log(f"[{tag}] {card}: rgcn captured {b['captures_after_warmup']} graphs "
+        f"during traffic on its execute thread ({b['retraces_after_warmup']}"
+        f" new keys) beside rgat's warm replays; no crash, every response "
+        f"bit for bit its op-by-op forward")
+    return out
+
+
+def phase_online(torch, hector_torch, serve_rgnn, card):
+    """Phase 16: the online runtime (``ServingRuntime`` through
+    ``serve_rgnn.serve_online``, and two tenants), at full width."""
+    out = {}
+    for tag, kw in ONLINE_RUNS[:2]:
+        out[tag] = online_run(torch, serve_rgnn, tag, kw, card)
+    out["c tenants"] = online_tenants(torch, hector_torch, card)
+    for tag, kw in ONLINE_RUNS[2:]:
+        out[tag] = online_run(torch, serve_rgnn, tag, kw, card)
+    return out
 
 
 def main(argv=None) -> int:
@@ -5166,6 +5686,11 @@ def main(argv=None) -> int:
                                   train_rgnn, card)
         seconds["phase 15"] = time.perf_counter() - t0
         log(f"[phase 15] {seconds['phase 15']:.2f} s")
+        log("[phase 16] start")
+        t0 = time.perf_counter()
+        online = phase_online(torch, hector_torch, serve_rgnn, card)
+        seconds["phase 16"] = time.perf_counter() - t0
+        log(f"[phase 16] {seconds['phase 16']:.2f} s")
         # the main path's launches, each run from counts set to 0 just
         # before it, each run op by op so that every kernel the card runs
         # goes through its wrapper: phase 6 of every model (K1-K5, K7),
@@ -5217,7 +5742,7 @@ def main(argv=None) -> int:
             serve=serve, profile=prof, train=train, full_graph=full,
             train_profile=train_prof, device_serve=device_serve,
             device_train=device_train, tuning=tuning, lm=lm, obs=obs_out,
-            capture=capture, features=features,
+            capture=capture, features=features, online=online,
             split_timed=split["timed"], k5_sass=k5_sass,
             gemm_ptxas=gemm_ptxas,
             torch=torch.__version__,

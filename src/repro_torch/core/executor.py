@@ -32,9 +32,12 @@ Capture is safe by construction, not by timing:
   the caching allocators' memory back to the driver at every capture, and
   every later op-by-op call and the loader's staging would allocate it
   again;
-* the cyclic collector stays disabled for the whole capture (re-enabled
-  in a ``finally``): an unreachable ``CUDAGraph`` freed mid-capture would
-  reset inside the capture;
+* the cyclic collector stays disabled while any capture runs: an
+  unreachable ``CUDAGraph`` freed mid-capture would reset inside the
+  capture. Captures are serialized across the process by one lock (the
+  serving runtime's tenants capture on their own execute threads), and
+  the collector is turned back on only by the last capture to finish, if
+  it was on before the first began (``_collector_off``);
 * an executor captures on one thread only (the consumer's; the loader
   never runs a model);
 * the executor holds every graph with its static inputs, outputs and
@@ -75,6 +78,7 @@ metrics.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import threading
@@ -89,12 +93,35 @@ from repro_torch.feats import gather_input
 from repro_torch.optim.adamw import tree_leaves
 
 _capturing = 0
+_collector_was_on = False
+_capture_lock = threading.Lock()     # one capture at a time in the process
+_count_lock = threading.Lock()       # guards the two globals above
 _streams: Dict[torch.device, torch.cuda.Stream] = {}
 
 
 def capturing() -> bool:
     """True while an executor captures a graph (setup included)."""
     return _capturing > 0
+
+
+@contextlib.contextmanager
+def _collector_off():
+    """The cyclic collector off while any capture runs: the first capture
+    to begin turns it off (remembering whether it was on), and only the
+    last to finish turns it back on."""
+    global _capturing, _collector_was_on
+    with _count_lock:
+        if _capturing == 0:
+            _collector_was_on = gc.isenabled()
+            gc.disable()
+        _capturing += 1
+    try:
+        yield
+    finally:
+        with _count_lock:
+            _capturing -= 1
+            if _capturing == 0 and _collector_was_on:
+                gc.enable()
 
 
 def _capture_stream(dev) -> torch.cuda.Stream:
@@ -254,7 +281,6 @@ class _Executor:
         return tensors[0].device.type == "cuda"
 
     def _capture(self, fn, args, tensors, own) -> _Graph:
-        global _capturing
         me = threading.get_ident()
         if self._capture_thread is None:
             self._capture_thread = me
@@ -272,22 +298,14 @@ class _Executor:
                   for j, t in enumerate(tensors)]
         static_args = _rebuild(args, iter(inputs))
         graph = torch.cuda.CUDAGraph()
-        collector = gc.isenabled()
-        gc.disable()
-        _capturing += 1
-        try:
-            with torch.cuda.device(dev):
-                torch.cuda.synchronize()
-                with torch.cuda.stream(_capture_stream(dev)):
-                    graph.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        outputs = fn(*static_args)
-                    finally:
-                        graph.capture_end()
-        finally:
-            _capturing -= 1
-            if collector:
-                gc.enable()
+        with _capture_lock, _collector_off(), torch.cuda.device(dev):
+            torch.cuda.synchronize()
+            with torch.cuda.stream(_capture_stream(dev)):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    outputs = fn(*static_args)
+                finally:
+                    graph.capture_end()
         self.captures += 1
         return _Graph(graph, inputs, outputs)
 

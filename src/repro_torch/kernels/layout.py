@@ -55,24 +55,25 @@ class PaddedSegments:
 
 
 def pad_segments(seg_ptr: np.ndarray, tile: int) -> PaddedSegments:
-    """Build a ``PaddedSegments`` layout from segment offsets [R+1]."""
+    """Build a ``PaddedSegments`` layout from segment offsets [R+1] (the
+    reference's per-group loop, vectorized: the same arrays)."""
     seg_ptr = np.asarray(seg_ptr, dtype=np.int64)
     sizes = np.diff(seg_ptr)
     num_groups = len(sizes)
     padded = ((sizes + tile - 1) // tile) * tile
     rp = int(padded.sum())
+    m = int(sizes.sum())
+    starts = np.concatenate([[0], np.cumsum(padded)[:-1]])
+    # a group's rows are one contiguous run, shifted to its padded start
+    pos = (np.arange(m, dtype=np.int32)
+           + np.repeat((starts - seg_ptr[:-1] + seg_ptr[0]).astype(np.int32),
+                       sizes))
     row_map = np.full(rp, -1, dtype=np.int32)
-    inv_map = np.zeros(int(sizes.sum()), dtype=np.int32)
+    row_map[pos] = np.arange(seg_ptr[0], seg_ptr[0] + m, dtype=np.int32)
+    inv_map = pos
     t2g = np.zeros(max(1, rp // tile), dtype=np.int32)
-    off = 0
-    tile_off = 0
-    for r in range(num_groups):
-        s, p = int(sizes[r]), int(padded[r])
-        row_map[off : off + s] = np.arange(seg_ptr[r], seg_ptr[r] + s, dtype=np.int32)
-        inv_map[seg_ptr[r] : seg_ptr[r] + s] = np.arange(off, off + s, dtype=np.int32)
-        t2g[tile_off : tile_off + p // tile] = r
-        off += p
-        tile_off += p // tile
+    t2g[:rp // tile] = np.repeat(np.arange(num_groups, dtype=np.int32),
+                                 padded // tile)
     return PaddedSegments(
         tile=tile, num_groups=num_groups, padded_rows=rp,
         row_map=row_map, inv_map=inv_map, tile_to_group=t2g,
@@ -96,10 +97,11 @@ def compose_gather_rows(ps: PaddedSegments, idx: np.ndarray) -> np.ndarray:
     its own index space — no ``[rows, k]`` copy is materialized between the
     source tensor and the GEMM (paper §3.3's in-kernel access schemes).
     """
-    idx = np.asarray(idx)
-    return np.where(
-        ps.row_map >= 0, idx[np.maximum(ps.row_map, 0)], -1
-    ).astype(np.int32)
+    # the valid slots are exactly ``inv_map``'s (row i sits at slot
+    # inv_map[i]): one gather and one scatter over the rows
+    out = np.full(ps.padded_rows, -1, dtype=np.int32)
+    out[ps.inv_map] = np.asarray(idx)[ps.row_map[ps.inv_map]]
+    return out
 
 
 def pad_segments_rows(ps: PaddedSegments, target_rows: int) -> PaddedSegments:
@@ -197,22 +199,19 @@ def block_csr(dst_ptr: np.ndarray, edge_tile: int, node_block: int) -> BlockedCS
     local_dst = np.full(ep, node_block, dtype=np.int32)  # pads point past block
     t2b = np.zeros(max(1, ep // edge_tile), dtype=np.int32)
 
-    # dst id of each dst-sorted edge
-    dst_of_edge = np.repeat(
-        np.arange(num_nodes, dtype=np.int64), np.diff(dst_ptr)
-    )
-    off = 0
-    toff = 0
-    for b in range(nb):
-        s, p = int(sizes[b]), int(padded[b])
-        lo = int(blk_start[b])
-        edge_map[off : off + s] = np.arange(lo, lo + s, dtype=np.int32)
-        local_dst[off : off + s] = (
-            dst_of_edge[lo : lo + s] - b * node_block
-        ).astype(np.int32)
-        t2b[toff : toff + p // edge_tile] = b
-        off += p
-        toff += p // edge_tile
+    # each dst-sorted edge laid into its node block's padded run (the
+    # reference's per-block loop, vectorized: the same arrays); a block's
+    # edges are one contiguous run of the dst-sorted order
+    starts = np.concatenate([[0], np.cumsum(padded)[:-1]])
+    edges = np.arange(dst_ptr[0], dst_ptr[-1], dtype=np.int32)
+    pos = edges + np.repeat((starts - blk_start).astype(np.int32), sizes)
+    edge_map[pos] = edges
+    local_dst[pos] = (np.repeat(np.arange(num_nodes, dtype=np.int32),
+                                np.diff(dst_ptr))
+                      - np.repeat(np.arange(nb, dtype=np.int32) * node_block,
+                                  sizes))
+    t2b[:ep // edge_tile] = np.repeat(np.arange(nb, dtype=np.int32),
+                                      padded // edge_tile)
     return BlockedCSR(
         edge_tile=edge_tile, node_block=node_block, num_nodes=num_nodes,
         padded_edges=ep, edge_map=edge_map, local_dst=local_dst,

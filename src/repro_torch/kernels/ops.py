@@ -8,17 +8,20 @@ hand-written kernels (``segment_mm.py``, ``traversal.py``) or raises.
 Every ``custom_vjp`` of the reference on the ported path is a
 ``torch.autograd.Function`` here, with the same backward on both devices:
 
-* ``segment_mm_gather`` — forward K1; dX by K4 with W transposed and a
-  scatter-add to the source rows, dW by K5, ``dscale = Σ dy · y_pre``;
+* ``segment_mm_gather`` — forward K1; dX by K4 with W transposed and K11
+  summing its rows into the source rows, dW by K5,
+  ``dscale = Σ dy · y_pre``;
 * ``segment_mm`` — forward K4; the same backward without the scatter;
 * ``edge_softmax_agg`` — forward K2 + K3 (with ``fuse_gather=False``, K2
   + K6 over the messages padded into the dst-sorted slots); the backward
   is the reference's plain ops, with the attention rebuilt from K2's saved
-  statistics;
-* ``edge_softmax`` — forward K2 and its epilogue; backward the softmax VJP;
+  statistics, the compact ``dmsg`` summed by K11 and the softmax VJP's
+  per-destination sum by K7 at width 1 over the forward's blocked CSR;
+* ``edge_softmax`` — forward K2 and its epilogue; backward the softmax VJP
+  (its sum by K7, as above);
 * ``weighted_agg`` — forward K7 (``fuse_gather=False``: K8 over padded
   messages); the backward is the reference's plain ops
-  (``dmsg = scale · g``, scattered into a compact table; ``dscale``).
+  (``dmsg = scale · g``, summed into a compact table by K11; ``dscale``).
 
 The GEMMs take the tuner's ``tile_rows`` (a divisor of the layout tile:
 K1 / K4 run over the tile -> group map expanded to sub-tiles, as do the
@@ -27,9 +30,11 @@ group's rows is the same) and ``tile_n`` (the column slice of a K1 / K4
 thread block).
 
 The backward's scatter-adds (``dx``, the compact ``dmsg``, the softmax
-VJP's ``segment_sum``) are ``index_add_``, as the reference leaves them to
-XLA: on the card they use atomics, so gradients there are deterministic
-only up to the order of fp32 additions.
+VJP's ``segment_sum``), which the reference leaves to XLA, run in a fixed
+order without float atomics: K11 over a stable sort of the target index
+(``traversal.sorted_segments``, built in the backward with static shapes)
+and K7 over the forward's blocked CSR. Gradients on the card are therefore
+bit for bit the same from run to run, captured or op by op.
 """
 from __future__ import annotations
 
@@ -39,7 +44,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import compat
 from repro_torch.core.graph import to_device
 from repro_torch.kernels import layout as L
 from repro_torch.kernels import ref as R
@@ -49,9 +53,10 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.segment_mm import segment_mm_gather_padded
 from repro_torch.kernels.traversal import (seg_softmax_agg_gather_padded,
                                            seg_softmax_agg_padded,
-                                           seg_stats_padded,
+                                           seg_stats_padded, seg_sum_sorted,
                                            seg_weighted_agg_gather_padded,
-                                           seg_weighted_agg_padded)
+                                           seg_weighted_agg_padded,
+                                           sorted_segments)
 
 
 # ---------------------------------------------------------------------------
@@ -151,16 +156,14 @@ def blocked_csr_dev(
     """Compose dst-sorted edge_map with perm_dst -> canonical edge indices;
     with ``edge_to_unique``, also the slot -> compact-row map. Host tensors
     (``.to(device)`` moves them)."""
-    edge_map = np.where(
-        bc.edge_map >= 0, np.asarray(perm_dst)[np.maximum(bc.edge_map, 0)], -1
-    ).astype(np.int32)
+    slots = np.flatnonzero(bc.edge_map >= 0)
+    edge_map = np.full(bc.edge_map.shape, -1, dtype=np.int32)
+    edge_map[slots] = np.asarray(perm_dst)[bc.edge_map[slots]]
     if edge_to_unique is None:
         edge_map_u = edge_map
     else:
-        e2u = np.asarray(edge_to_unique)
-        edge_map_u = np.where(
-            edge_map >= 0, e2u[np.maximum(edge_map, 0)], -1
-        ).astype(np.int32)
+        edge_map_u = np.full(bc.edge_map.shape, -1, dtype=np.int32)
+        edge_map_u[slots] = np.asarray(edge_to_unique)[edge_map[slots]]
     t = bc.num_tiles
     return BlockedCSRDev(
         edge_map=_tensor(edge_map),
@@ -287,7 +290,8 @@ def _gemm_backward(needs, dy, x, w, scale_p, y_pre, lay: PaddedSegmentsDev,
     inputs ``needs`` flags; ``X_p = x[gidx]`` when ``gidx`` is given, else
     ``x`` itself. dX is K4 over dY with W transposed, cut as the forward
     (``tiles``; then, for a gather, a scatter-add to the source rows), dW
-    is K5 over the padded rows at the layout tile."""
+    is K5 over the padded rows at the layout tile. The dX of a gather sums
+    K4's rows into the source rows with K11 (``scatter_rows``)."""
     dys = dy if scale_p is None else dy * scale_p
     dx = dw = dscale = None
     if needs[0]:
@@ -295,13 +299,7 @@ def _gemm_backward(needs, dy, x, w, scale_p, y_pre, lay: PaddedSegmentsDev,
         dxg = SK.segment_mm_padded(dys, w, t.t2g, tile=t.tile,
                                    transpose_w=True,
                                    tile_n=t.cols(w.shape[1]))
-        if gidx is None:
-            dx = dxg
-        else:
-            valid = (gidx >= 0)[:, None]
-            dx = torch.zeros_like(x).index_add_(
-                0, gidx.clamp(min=0).long(),
-                torch.where(valid, dxg, dxg.new_zeros(())))
+        dx = dxg if gidx is None else scatter_rows(dxg, gidx, x.shape[0])
     if needs[1]:
         x_p = x if gidx is None else pad_rows(x, gidx)
         # groups that own no tile get exact zeros from K5 (the reference's
@@ -323,6 +321,14 @@ def _gemm_forward(ctx, kernel, scale_p):
         y_pre = kernel(None)
         return y_pre * scale_p, y_pre
     return kernel(scale_p), None
+
+
+def scatter_rows(values: torch.Tensor, target: torch.Tensor,
+                 num_rows: int) -> torch.Tensor:
+    """``out[r] = Σ_{target[i] = r} values[i]`` (-1: dropped) in a fixed
+    order: K11 over a stable sort of ``target``. -> [num_rows, d]."""
+    perm, ptr = sorted_segments(target, num_rows)
+    return seg_sum_sorted(values, perm, ptr, num_rows)
 
 
 def _recording(*tensors) -> bool:
@@ -456,11 +462,15 @@ def _attention(scores, dst, mx, den):
             / torch.clamp(den.reshape(-1)[d], min=1e-38))
 
 
-def _softmax_vjp(att, datt, dst, num_nodes):
-    """dscores of ``att = edge_softmax(scores)`` given ``datt``."""
-    d = dst.long()
-    c = compat.segment_sum(att * datt, d, num_nodes)
-    return att * (datt - c[d])
+def _softmax_vjp(att, datt, dst, num_nodes, bc: BlockedCSRDev):
+    """dscores of ``att = edge_softmax(scores)`` given ``datt``; the
+    per-destination sum ``Σ_{e→v} att_e · datt_e`` is K7 at width 1 over
+    the forward's blocked CSR (scale 1 on real slots, 0 on pads)."""
+    c = seg_weighted_agg_gather_padded(
+        _padded_scale(None, bc, att), (att * datt)[:, None], bc.edge_map,
+        bc.local_dst, bc.t2b, bc.block_tile_ptr, node_block=bc.node_block,
+        num_node_blocks=bc.num_node_blocks)[:num_nodes, 0]
+    return att * (datt - c[dst.long()])
 
 
 def _msg_slot_map(bc: BlockedCSRDev,
@@ -494,7 +504,7 @@ class _EdgeSoftmaxAgg(torch.autograd.Function):
             out = seg_softmax_agg_gather_padded(
                 scores_p, msg, msg_slot_map, bc.local_dst, bc.t2b,
                 bc.block_tile_ptr, mx, den, **kw)
-        ctx.num_nodes = num_nodes
+        ctx.num_nodes, ctx.bc = num_nodes, bc
         ctx.save_for_backward(scores, msg, dst, msg_rows, mx, den)
         return out[:num_nodes]
 
@@ -512,11 +522,11 @@ class _EdgeSoftmaxAgg(torch.autograd.Function):
             rows = msg_rows.long()
             msg_e = msg[rows]
             if ctx.needs_input_grad[1]:
-                dmsg = torch.zeros_like(msg).index_add_(0, rows,
-                                                        att[:, None] * g)
+                dmsg = scatter_rows(att[:, None] * g, msg_rows,
+                                    msg.shape[0])
         if ctx.needs_input_grad[0]:
             datt = torch.sum(msg_e * g, dim=-1)
-            dscores = _softmax_vjp(att, datt, dst, ctx.num_nodes)
+            dscores = _softmax_vjp(att, datt, dst, ctx.num_nodes, ctx.bc)
         return dscores, dmsg, None, None, None, None, None
 
 
@@ -527,14 +537,15 @@ class _EdgeSoftmax(torch.autograd.Function):
     def forward(ctx, scores, dst, num_nodes, bc):
         _, mx, den = _stats(scores, bc)
         att = _attention(scores, dst, mx, den)
-        ctx.num_nodes = num_nodes
+        ctx.num_nodes, ctx.bc = num_nodes, bc
         ctx.save_for_backward(att, dst)
         return att
 
     @staticmethod
     def backward(ctx, datt):
         att, dst = ctx.saved_tensors
-        return _softmax_vjp(att, datt, dst, ctx.num_nodes), None, None, None
+        return (_softmax_vjp(att, datt, dst, ctx.num_nodes, ctx.bc), None,
+                None, None)
 
 
 def edge_softmax_agg(
@@ -639,7 +650,7 @@ class _WeightedAgg(torch.autograd.Function):
             rows = msg_rows.long()
             msg_e = msg[rows] if ctx.needs_input_grad[0] else None
             if ctx.needs_input_grad[1]:
-                dmsg = torch.zeros_like(msg).index_add_(0, rows, contrib)
+                dmsg = scatter_rows(contrib, msg_rows, msg.shape[0])
         if ctx.needs_input_grad[0]:
             dscale = torch.sum(msg_e * g, dim=-1)
         return dscale, dmsg, None, None, None, None, None
@@ -681,7 +692,7 @@ _COUNTED = (SK.segment_mm_gather_padded, TK.seg_stats_padded,
             TK.seg_softmax_agg_gather_padded, SK.segment_mm_padded,
             SK.segment_outer_padded, TK.seg_softmax_agg_padded,
             TK.seg_weighted_agg_gather_padded, TK.seg_weighted_agg_padded,
-            flash_attention)
+            flash_attention, TK.seg_sum_sorted)
 
 
 def _counted():

@@ -1,6 +1,7 @@
 """Traversal-template kernels K2, K3, K6, K7 and K8 (Hector Algorithm 2)
 and their plain versions, over the blocked destination CSR
-(``BlockedCSR``).
+(``BlockedCSR``); and K11, the backward's scatter-add over a sorted
+target index.
 
 ``seg_stats_padded``                per-destination softmax max and Σexp
 ``seg_softmax_agg_gather_padded``   out[v] = Σ_e softmax(score)_e · msg[mmap[e]]
@@ -10,6 +11,8 @@ and their plain versions, over the blocked destination CSR
 ``seg_softmax_agg_padded``          K3 over messages already padded into the
                                     dst-sorted slots (``msg_p[slot]``)
 ``seg_weighted_agg_padded``         K7 over padded messages
+``seg_sum_sorted``                  out[r] = Σ_{ptr[r] <= j < ptr[r+1]}
+                                    values[perm[j]], K11 (no TPU kernel)
 
 The last two are the materialized-gather variants the tuner selects with
 ``fuse_gather=False`` (``kernels/ops.py``). Each wrapper dispatches on the
@@ -41,6 +44,14 @@ accumulate ``den`` and the outputs in fp64, so the long sums of the
 bucketing pad node stay within fp32 rounding and the two agree at any
 length. The padded variants read slot ``i``'s message at row ``i`` of
 ``msg_p``; a pad slot's row is never added.
+
+K11 (``seg_sum_sorted``, ``csrc/scatter.cu``) is the backward's
+scatter-add without float atomics: the dX of a gathered GEMM and the
+compact message gradients of the traversal ops sum their rows over a
+stable sort of the target index (``sorted_segments``), split by entries
+into units with a fixed-order combine, as the five kernels above split by
+slots. It replaces no TPU kernel (the reference leaves those sums to XLA);
+it makes the card's backward bit for bit repeatable.
 """
 from __future__ import annotations
 
@@ -455,3 +466,94 @@ def _check_ptr(block_tile_ptr, num_node_blocks: int, kernel: str) -> None:
         raise ValueError(f"{kernel}: block_tile_ptr has "
                          f"{block_tile_ptr.shape[0]} entries for "
                          f"{num_node_blocks} node blocks")
+
+
+# ---------------------------------------------------------------------------
+# K11: the backward's scatter-add over a sorted target index
+# ---------------------------------------------------------------------------
+_SCATTER_SIGNATURES = {
+    "seg_sum_sorted_f32": [_P] * 5 + [_I] * 3 + [_P],
+    "seg_sum_sorted_unit_entries": [],
+}
+
+
+def _scatter_library() -> ctypes.CDLL:
+    return build.load("scatter", _SCATTER_SIGNATURES,
+                      sizes=("seg_sum_sorted_unit_entries",))
+
+
+def sorted_segments(target: torch.Tensor, num_rows: int):
+    """K11's ``(perm, ptr)`` for a scatter to ``target`` (one entry a value
+    row; -1: none) over ``num_rows`` rows: ``perm`` a stable sort of the
+    targets (int32; the -1s first), ``ptr`` [num_rows + 1] the first sorted
+    position of each row (int32). Both have static shapes and need no
+    synchronize, so a captured backward builds them too."""
+    key, perm = torch.sort(target, stable=True)
+    bounds = torch.arange(num_rows + 1, dtype=key.dtype, device=key.device)
+    ptr = torch.searchsorted(key, bounds, out_int32=True)
+    return perm.to(torch.int32), ptr
+
+
+def seg_sum_sorted_plain(values, perm, ptr, num_rows: int):
+    """Plain version of K11 -> [num_rows, d]: ``index_add_`` of the sorted
+    entries' value rows into their rows, in fp64, in increasing position
+    (the order K11 sums them in)."""
+    counts = (ptr[1:] - ptr[:-1]).long()
+    rows = torch.repeat_interleave(
+        torch.arange(num_rows, device=values.device), counts)
+    lo = int(ptr[0])
+    take = perm[lo:lo + rows.numel()].long()
+    out = torch.zeros((num_rows, values.shape[1]), dtype=torch.float64,
+                      device=values.device)
+    out.index_add_(0, rows, values[take].double())
+    return out.to(values.dtype)
+
+
+def seg_sum_sorted(values, perm, ptr, num_rows: int):
+    """K11: ``out[r] = Σ_{j = ptr[r]}^{ptr[r+1]-1} values[perm[j]]``.
+
+    values: [n, d] fp32; perm: [m] int32, indices into ``values`` in the
+    stable order of their targets; ptr: [num_rows + 1] int32
+    (``sorted_segments``). Positions before ``ptr[0]`` (target -1) add
+    nothing, rows without entries are zero. The kernel cuts the sorted
+    positions into units of 256, sums each row's run in fp64 and adds the
+    rows that cross a unit edge in unit order (two launches, counted
+    once): bit for bit the same from launch to launch."""
+    if values.device.type == "cpu":
+        return seg_sum_sorted_plain(values, perm, ptr, num_rows)
+    dev = values.device
+    kernel = "seg_sum_sorted"
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {dev}")
+    build.check_args(kernel, dev, values=(values, torch.float32),
+                     perm=(perm, torch.int32), ptr=(ptr, torch.int32))
+    if values.dim() != 2 or perm.dim() != 1:
+        raise ValueError(f"{kernel}: values must be [n, d] and perm [m], "
+                         f"got {tuple(values.shape)} and "
+                         f"{tuple(perm.shape)}")
+    if ptr.shape != (num_rows + 1,):
+        raise ValueError(f"{kernel}: ptr has {ptr.numel()} entries for "
+                         f"{num_rows} rows")
+    n, d = int(perm.numel()), int(values.shape[1])
+    if n + 512 >= 2**31:
+        raise ValueError(f"{kernel}: {n} entries overflow the kernel's "
+                         f"int32 positions")
+    out = torch.zeros((num_rows, d), dtype=torch.float32, device=dev)
+    if n == 0 or num_rows == 0 or d == 0:         # nothing is launched
+        return out
+    lib = _scatter_library()
+    units = -(-n // lib.seg_sum_sorted_unit_entries())
+    ws = torch.empty((units * 2 * d,), dtype=torch.float64, device=dev)
+    values, perm, ptr = values.contiguous(), perm.contiguous(), \
+        ptr.contiguous()
+    with torch.cuda.device(dev):
+        rc = lib.seg_sum_sorted_f32(
+            values.data_ptr(), perm.data_ptr(), ptr.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), d, n, num_rows,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, rc, kernel)
+    seg_sum_sorted.launches += 1
+    return out
+
+
+seg_sum_sorted.launches = 0

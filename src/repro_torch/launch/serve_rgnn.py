@@ -60,6 +60,22 @@ device synchronize; tracing adds one per ``execute`` span.
     PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --device cpu \\
         --scale 0.05 --trace-out trace.json --metrics-out metrics.json \\
         --profile
+
+``--runtime online`` serves open-loop request traffic through the async
+``repro_torch.serve.ServingRuntime`` instead of the batch loop (the
+reference's online mode): seeded ``--arrivals poisson|burst|uniform`` at
+``--rate`` req/s, ``--requests`` of ``--sizes`` seeds each under a
+``--slo-ms`` budget, coalesced by deadline into the rungs of a measured
+``--ladder fine|pow2`` up to ``--batch-size``, holding a partial batch at
+most ``--max-wait-ms``; ``--speedup`` compresses the schedule. It reports
+per-request latency percentiles, SLO attainment, queue depth, rung
+occupancy and the zero-retrace counters (and, on a card, the graphs
+captured after warm-up).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --runtime online \\
+        --device cpu --scale 0.05 --fanout 3 --dim 8 --hidden 8 \\
+        --classes 4 --tile 8 --node-block 8 --rate 200 --requests 24 \\
+        --slo-ms 3000 --sizes 1,2,4
 """
 from __future__ import annotations
 
@@ -372,8 +388,125 @@ def serve(
         return stats
 
 
+def serve_online(
+    model: str = "rgat",
+    dataset: str = "aifb",
+    scale: float = 1.0,
+    layers: int = 2,
+    dim: int = 64,
+    hidden: int = 64,
+    classes: int = 16,
+    fanouts=None,
+    tile: int = 32,
+    node_block: int = 32,
+    seed: int = 0,
+    device=None,
+    sampler: str = "host",
+    feature_store: str = "device",
+    feature_budget=None,
+    skew=None,
+    prefetch_depth: int = 2,
+    cache_layouts: int = 64,
+    rate_rps: float = 100.0,
+    num_requests: int = 64,
+    process: str = "poisson",
+    burst_size: int = 4,
+    slo_ms=1000.0,
+    size_choices=(1, 2, 4, 8),
+    max_batch: int = 32,
+    max_wait_ms: float = 5.0,
+    ladder_kind: str = "fine",
+    speedup: float = 1.0,
+    obs_mode: str = "on",
+    trace_out=None,
+    metrics_out=None,
+    on_runtime=None,
+    log=print,
+):
+    """Online serving on ``device`` (``None``: the CUDA card): open-loop
+    request traffic through the async ``ServingRuntime`` (deadline-aware
+    coalescing, prefetch-overlapped execution on the runtime's execute
+    thread) instead of the batch loop. Returns the runtime's stats dict —
+    per-request latency percentiles, SLO attainment, queue depth, rung
+    occupancy, the zero-retrace counters — with ``submitted`` and
+    ``requests_per_s``. ``on_runtime(runtime)`` is called once the runtime
+    is built, before its calibration."""
+    from repro_torch.serve import OpenLoopLoad, ServingRuntime, ladder
+
+    with obs_scope(obs_mode, trace_out) as sc:
+        dev = resolve_device(device)
+        t0 = time.perf_counter()
+        graph = table3_graph(dataset, scale=scale, seed=seed)
+        rng = np.random.default_rng(seed)
+        feats = rng.normal(size=(graph.num_nodes, dim)).astype(np.float32)
+        engine = hector_torch.compile(
+            model, graph, layers=layers, dim=dim, hidden=hidden,
+            classes=classes, sample=fanouts, tile=tile,
+            node_block=node_block, bucket=True, seed=seed, device=dev,
+            sampler=sampler, feature_store=feature_store,
+            feature_budget=feature_budget, tune_full_graph=False, log=log)
+        params = engine.init(seed)
+        store = engine.make_feature_store(feats)
+        rungs = ladder(max_batch, ladder_kind)
+        log(f"[serve_rgnn] online: {model} on {dataset} (scale {scale}), "
+            f"ladder {rungs}, {rate_rps:g} req/s x {num_requests} "
+            f"({process}), SLO {slo_ms} ms, device={dev} sampler={sampler} "
+            f"feature_store={feature_store} "
+            f"(setup {time.perf_counter() - t0:.2f}s)")
+
+        rt = ServingRuntime(
+            engine, params, store, name=model, rungs=rungs,
+            max_batch=max_batch, max_wait_ms=max_wait_ms,
+            depth=prefetch_depth, cache_layouts=cache_layouts)
+        if on_runtime is not None:
+            on_runtime(rt)
+        try:
+            # floors at the probed maxima (hub probes included), without
+            # the reference's extra pow2 level: every block is padded to
+            # them on the host, so that level doubles the loader's work
+            # for each batch, which bounds the request rate the runtime
+            # sustains (PERF.md, phase 16)
+            rt.calibrate(floor_margin=0, log=log)
+            load = OpenLoopLoad(
+                graph.num_nodes, rate_rps=rate_rps,
+                num_requests=num_requests, process=process,
+                burst_size=burst_size, size_choices=size_choices,
+                slo_ms=slo_ms, zipf_alpha=skew, seed=seed)
+            t_load0 = time.perf_counter()
+            submitted = load.replay(rt.submit, speedup=speedup)
+            rt.drain()
+            t_load = time.perf_counter() - t_load0
+        finally:
+            rt.close()
+
+        stats = rt.stats()
+        stats["submitted"] = submitted
+        stats["requests_per_s"] = submitted / max(t_load, 1e-9)
+        stats["device"] = str(dev)
+        log(f"[serve_rgnn] online: {submitted} requests in {t_load:.2f}s "
+            f"({stats['requests_per_s']:.1f} req/s): "
+            f"latency p50 {stats['latency_ms_p50']:.1f} ms / "
+            f"p99 {stats['latency_ms_p99']:.1f} ms, "
+            f"SLO attainment {stats['slo_attainment']:.1%}, "
+            f"queue depth max {stats['queue_depth_max']}, "
+            f"{stats['batches']} batches "
+            f"(fill {stats['batch_fill']:.0%}, rungs {stats['rung_counts']})")
+        log(f"[serve_rgnn] online executor: {stats['executor_traces']} "
+            f"keys, {stats['retraces_after_warmup']} new after warmup, "
+            f"{stats['executor_captures']} graphs captured "
+            f"({stats['captures_after_warmup']} after warmup), "
+            f"{stats['shape_floor_growths']} shape-floor growths")
+        obs_report(sc, stats, trace_out, metrics_out, log, "serve_rgnn")
+        return stats
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--runtime", default="loop", choices=["loop", "online"],
+                    help="'loop': the batch loop over a seed stream; "
+                         "'online': open-loop request traffic through the "
+                         "async serving runtime (deadline-aware coalescing, "
+                         "per-request SLOs)")
     ap.add_argument("--model", default="rgat", choices=sorted(MODEL_PROGRAMS))
     ap.add_argument("--dataset", default="aifb",
                     choices=sorted(REDUCED_SCALES))
@@ -446,7 +579,51 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="per-op kernel-time breakdown of the last served "
                          "batch")
+    online = ap.add_argument_group("online runtime (--runtime online)")
+    online.add_argument("--rate", type=float, default=100.0,
+                        help="average request arrival rate (req/s)")
+    online.add_argument("--requests", type=int, default=64,
+                        help="number of requests to replay")
+    online.add_argument("--arrivals", default="poisson",
+                        choices=["poisson", "burst", "uniform"],
+                        help="arrival process (open loop: arrivals never "
+                             "wait on completions)")
+    online.add_argument("--burst-size", type=int, default=4,
+                        help="requests per burst for --arrivals burst")
+    online.add_argument("--slo-ms", type=float, default=1000.0,
+                        help="per-request latency budget; admission "
+                             "rejects requests that cannot make it")
+    online.add_argument("--sizes", default="1,2,4,8",
+                        help="comma-separated request sizes (seeds per "
+                             "request)")
+    online.add_argument("--max-wait-ms", type=float, default=5.0,
+                        help="coalescer hold time before dispatching a "
+                             "partial batch")
+    online.add_argument("--ladder", default="fine", choices=["fine", "pow2"],
+                        help="batch-size rung ladder up to --batch-size: "
+                             "'fine' = {2^k, 3*2^k} validated against "
+                             "measured latency, 'pow2' = powers of two only")
+    online.add_argument("--speedup", type=float, default=1.0,
+                        help="compress the arrival schedule by this factor")
     args = ap.parse_args(argv)
+    if args.runtime == "online":
+        return serve_online(
+            model=args.model, dataset=args.dataset, scale=args.scale,
+            layers=args.layers, dim=args.dim, hidden=args.hidden,
+            classes=args.classes,
+            fanouts=parse_fanout(args.fanout, args.layers),
+            tile=args.tile, node_block=args.node_block, seed=args.seed,
+            device=args.device, sampler=args.sampler,
+            feature_store=args.feature_store,
+            feature_budget=args.feature_budget, skew=args.skew,
+            cache_layouts=args.cache_layouts or 64, rate_rps=args.rate,
+            num_requests=args.requests, process=args.arrivals,
+            burst_size=args.burst_size, slo_ms=args.slo_ms,
+            size_choices=tuple(int(x) for x in args.sizes.split(",")),
+            max_batch=args.batch_size, max_wait_ms=args.max_wait_ms,
+            ladder_kind=args.ladder, speedup=args.speedup,
+            obs_mode=args.obs, trace_out=args.trace_out,
+            metrics_out=args.metrics_out)
     return serve(
         model=args.model, dataset=args.dataset, scale=args.scale,
         layers=args.layers, dim=args.dim, hidden=args.hidden,

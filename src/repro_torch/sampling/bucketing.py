@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core.graph import HeteroGraph
+from repro_torch.core.graph import HeteroGraph, _segment_ptr
 from repro_torch.kernels.layout import pow2ceil
 
 
@@ -31,15 +31,16 @@ def pad_block_graph(bg: HeteroGraph, n_target: int = 0, e_target: int = 0,
                     u_target: int = 0) -> HeteroGraph:
     """Return ``bg`` padded so nodes/edges/unique-pairs hit power-of-two
     buckets. The first ``bg.num_nodes`` node IDs and all real edges keep
-    their meaning; everything is rebuilt via ``from_edges`` so every derived
-    product (CSR, compact map, segment pointers) stays consistent.
+    their meaning; every derived product (CSR, compact map, segment
+    pointers) is the one ``from_edges`` builds from the real edges and the
+    pads (``_append_pads``, without sorting again).
 
     ``n_target``/``e_target``/``u_target`` raise the buckets to explicit
     power-of-two sizes (the cross-shard stacking path pads every shard's
     block to the max bucket over shards so the per-hop pytrees stack into
     one ``[P, ...]`` array set); 0 keeps the block's own bucket."""
     n, e, u = bg.num_nodes, bg.num_edges, bg.num_unique
-    num_r, num_t = bg.num_etypes, bg.num_ntypes
+    num_r = bg.num_etypes
 
     u_pad = max(pow2ceil(u + 1), u_target)  # +1: >= 1 pad pair to spend
     k_u = u_pad - u                  # distinct pad (src, etype) pairs needed
@@ -48,31 +49,106 @@ def pad_block_graph(bg: HeteroGraph, n_target: int = 0, e_target: int = 0,
     n_extra = max(1, -(-k_u // num_r))   # pad sources to host k_u pairs
     n_pad = max(pow2ceil(n + n_extra), n_target)
 
-    # distinct pad pairs first, then repeats of pair 0 up to the edge bucket
-    pair_src = (n + np.arange(k_u, dtype=np.int64) // num_r).astype(np.int32)
-    pair_et = (np.arange(k_u, dtype=np.int64) % num_r).astype(np.int32)
-    pick = np.concatenate([np.arange(k_u, dtype=np.int64),
-                           np.zeros(k_e - k_u, dtype=np.int64)])
-    pad_src = pair_src[pick]
-    pad_et = pair_et[pick]
-    pad_dst = np.full(k_e, n, dtype=np.int32)  # all into the first pad node
+    return _append_pads(bg, n_pad, k_u, k_e)
+
+
+def _append_pads(bg: HeteroGraph, n_pad: int, k_u: int,
+                 k_e: int) -> HeteroGraph:
+    """``bg`` with ``n_pad - n`` pad nodes (the last node type) and ``k_e``
+    pad edges into pad node ``n``: ``k_u`` distinct pad pairs (source
+    ``n + i // R``, etype ``i % R``), then repeats of pair 0 — the graph
+    ``HeteroGraph.from_edges`` builds from the real edges followed by those
+    pads, field for field, without sorting again.
+
+    ``bg`` is canonical already, and every pad sorts after the real edges
+    of its etype (the stable etype sort keeps the real ones first), after
+    every real destination (pad node ``n``) and after the real sources of
+    its etype's unique pairs (pad sources are ``>= n``). So each array is
+    the real one shifted into its etype segment plus the pads laid into
+    the gaps: O(E) work, where the padded bucket of a serving rung can be
+    hundreds of times the real block (the runtime's hub-probed floors)."""
+    n, e, u = bg.num_nodes, bg.num_edges, bg.num_unique
+    num_r = bg.num_etypes
+    e_pad, u_pad = e + k_e, u + k_u
+    ptr, uptr = bg.etype_ptr, bg.unique_etype_ptr
+
+    # pads per etype: distinct pair i has etype i % R and rank i // R; the
+    # repeats of pair 0 follow etype 0's distinct pads
+    pad_pairs = np.bincount(np.arange(k_u) % num_r, minlength=num_r)
+    pad_edges = pad_pairs.copy()
+    pad_edges[0] += k_e - k_u
+    new_ptr = np.zeros(num_r + 1, dtype=np.int64)
+    np.cumsum(np.diff(ptr) + pad_edges, out=new_ptr[1:])
+    new_uptr = np.zeros(num_r + 1, dtype=np.int64)
+    np.cumsum(np.diff(uptr) + pad_pairs, out=new_uptr[1:])
+
+    # every array is, etype by etype, the real run then the pad run: the
+    # real entries move by their segment's shift, the pads fill the rest
+    real_edges = np.diff(ptr).astype(np.int64)
+    real_pairs = np.diff(uptr).astype(np.int64)
+    real_pos = (np.arange(e, dtype=np.int64)
+                + (new_ptr[:-1] - ptr[:-1])[bg.etype])
+    real_u = (np.arange(u, dtype=np.int64)
+              + (new_uptr[:-1] - uptr[:-1])[bg.unique_etype])
+    # the distinct pads of each etype in rank order: rank, etype, slot, row
+    rank = _ranks(pad_pairs)
+    pair_et = np.repeat(np.arange(num_r), pad_pairs)
+    pad_slot = new_ptr[pair_et] + real_edges[pair_et] + rank
+    pad_row = new_uptr[pair_et] + real_pairs[pair_et] + rank
+    pad_src = (n + rank).astype(np.int32)
+    rep = slice(int(new_ptr[0] + real_edges[0] + pad_pairs[0]),
+                int(new_ptr[1]))            # the repeats of pair 0
+
+    src = np.full(e_pad, n, dtype=np.int32)
+    src[real_pos] = bg.src
+    src[pad_slot] = pad_src
+    dst = np.full(e_pad, n, dtype=np.int32)
+    dst[real_pos] = bg.dst
+    etype = np.repeat(np.arange(num_r, dtype=np.int32), np.diff(new_ptr))
+    unique_src = np.empty(u_pad, dtype=np.int32)
+    unique_src[real_u] = bg.unique_src
+    unique_src[pad_row] = pad_src
+    unique_etype = np.repeat(np.arange(num_r, dtype=np.int32),
+                             np.diff(new_uptr))
+    edge_to_unique = np.empty(e_pad, dtype=np.int32)
+    edge_to_unique[real_pos] = real_u[bg.edge_to_unique]
+    edge_to_unique[pad_slot] = pad_row
+    edge_to_unique[rep] = new_uptr[0] + real_pairs[0]
+
+    # destination-sorted view: the real edges in their own order (their
+    # positions only grow), then every pad (destination n) in position
+    # order
+    pad_edges_at = new_ptr[:-1] + real_edges       # each etype's pad run
+    perm_dst = np.concatenate([
+        real_pos[bg.perm_dst],
+        np.repeat(pad_edges_at, pad_edges) + _ranks(pad_edges)
+    ]).astype(np.int32)
+    dst_sorted = np.concatenate([bg.dst_sorted,
+                                 np.full(k_e, n, dtype=np.int32)])
+    dst_ptr = np.full(n_pad + 1, e_pad, dtype=np.int32)
+    dst_ptr[:n + 1] = bg.dst_ptr
 
     node_type = np.concatenate([
         bg.node_type,
-        np.full(n_pad - n, num_t - 1, dtype=np.int32),
+        np.full(n_pad - n, bg.num_ntypes - 1, dtype=np.int32),
     ])
-    hg = HeteroGraph.from_edges(
-        np.concatenate([bg.src, pad_src]),
-        np.concatenate([bg.dst, pad_dst]),
-        np.concatenate([bg.etype, pad_et]),
-        num_nodes=n_pad,
-        num_etypes=num_r,
-        node_type=node_type,
-        num_ntypes=num_t,
+    return HeteroGraph(
+        num_nodes=n_pad, num_ntypes=bg.num_ntypes, num_etypes=num_r,
+        src=src, dst=dst, etype=etype,
+        etype_ptr=new_ptr.astype(np.int32), node_type=node_type,
+        ntype_ptr=_segment_ptr(node_type, bg.num_ntypes),
+        perm_dst=perm_dst, dst_sorted=dst_sorted, dst_ptr=dst_ptr,
+        unique_src=unique_src, unique_etype=unique_etype,
+        unique_etype_ptr=new_uptr.astype(np.int32),
+        edge_to_unique=edge_to_unique,
     )
-    assert hg.num_edges == e_pad and hg.num_unique == u_pad, (
-        hg.num_edges, e_pad, hg.num_unique, u_pad)
-    return hg
+
+
+def _ranks(counts: np.ndarray) -> np.ndarray:
+    """``concatenate([arange(c) for c in counts])`` (int64)."""
+    total = int(counts.sum())
+    starts = np.cumsum(counts) - counts
+    return np.arange(total, dtype=np.int64) - np.repeat(starts, counts)
 
 
 class LayoutRowFloors(dict):

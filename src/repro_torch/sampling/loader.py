@@ -77,6 +77,17 @@ from repro_torch.sampling.sampler import BlockSequence
 PREFETCH_DEPTH = 2
 
 
+class _EndOfStream(Exception):
+    """A callable seed source returned ``None``: the stream has ended."""
+
+
+class SourceNotReady(Exception):
+    """Raised by a callable seed source, in device mode, while the loader
+    holds a batch (``pending``): the next batch's seeds are not there yet,
+    so the loader hands out what it holds instead of waiting for them (the
+    serving runtime's plan queue)."""
+
+
 class LRUCache:
     """Minimal LRU map with hit/miss/eviction counters, the port's copy of
     ``repro.sampling.loader.LRUCache`` (single-writer: each loader's
@@ -315,7 +326,7 @@ def build_minibatch(seq: BlockSequence, step: int = 0, tile: int = 128,
     their copies for blocks seen before; ``layout_scope`` (any hashable)
     namespaces its entries, as in the reference.
     """
-    graphs = [b.graph for b in seq.blocks]
+    graphs = raw = [b.graph for b in seq.blocks]
     input_ids = seq.input_node_ids
     dst_locals = [b.dst_local for b in seq.blocks]
     key = int(seq.seed_perm.shape[0])
@@ -338,7 +349,10 @@ def build_minibatch(seq: BlockSequence, step: int = 0, tile: int = 128,
 
     def layouts_for(hop: int, g: HeteroGraph) -> codegen.KernelLayouts:
         # the floors reach into the layout build, so the cache key carries
-        # their values: a pre-growth entry never replays stale shapes
+        # their values: a pre-growth entry never replays stale shapes. A
+        # padded graph is a function of its real block and its padded
+        # sizes, so the key hashes the real block (a small fraction of a
+        # padded one at serving's floors) beside those sizes
         rf = (shape_floors.layout_floors(key, hop)
               if bucket and shape_floors is not None else None)
 
@@ -349,7 +363,9 @@ def build_minibatch(seq: BlockSequence, step: int = 0, tile: int = 128,
 
         if layout_cache is None:
             return build()
-        ck = (layout_scope, block_signature(g, tile, node_block, bucket),
+        ck = (layout_scope,
+              block_signature(raw[hop], tile, node_block, bucket),
+              (g.num_nodes, g.num_edges, g.num_unique),
               None if rf is None else (hop, tuple(sorted(rf.items()))))
         kl = layout_cache.get(ck)
         if kl is None:
@@ -385,15 +401,20 @@ class MiniBatchLoader:
     mini-batches on its own device; ``device_builds`` counts them,
     ``host_builds`` the host mode's).
     ``seed_source`` is a ``SeedStream``, an ``EpochSeedStream`` or any
-    ``step -> np.ndarray`` callable. Iteration yields ``MiniBatch`` in step
-    order from ``start_step``; with ``num_batches`` set the loader raises
-    ``StopIteration`` after that many. A source with ``epoch_of(step)``
+    ``step -> np.ndarray`` callable; a callable that returns ``None`` ends
+    the stream (the serving runtime's drain). Iteration yields
+    ``MiniBatch`` in step order from ``start_step``; with ``num_batches``
+    set the loader raises ``StopIteration`` after that many. ``depth``
+    batches are prefetched. A source with ``epoch_of(step)``
     keys the sampler by epoch. ``close()`` stops and joins the worker.
 
     ``cache_blocks`` / ``cache_layouts`` give the two LRU capacities (0
     disables either), as in the reference. ``feature_store`` (a
     ``repro_torch.feats`` store) attaches every batch's input rows as
-    ``mb.feats``. The sampled-block cache is keyed
+    ``mb.feats``. ``shape_floors`` (a ``bucketing.ShapeFloors``, host mode
+    only: the device sampler keeps its own buckets) pads every block up to
+    the largest bucket seen for its seed count, as serving's ladder rungs
+    need. The sampled-block cache is keyed
     by ``(seeds, fanout, layout config, epoch)``: for serving streams (no
     epoch) a repeated seed batch returns the device ``MiniBatch`` built at
     its first occurrence, re-stamped with the current step; for training
@@ -418,9 +439,13 @@ class MiniBatchLoader:
         cache_blocks: int = 0,
         cache_layouts: int = 0,
         feature_store=None,
+        shape_floors=None,
+        depth: int = PREFETCH_DEPTH,
         device="cpu",
     ):
         self.sampler = sampler
+        self.shape_floors = shape_floors
+        self._depth = max(1, depth)
         # single-writer: only this loader's producer calls its gather
         self.feature_store = feature_store
         self._seeds_for = (seed_source.batch
@@ -450,12 +475,20 @@ class MiniBatchLoader:
             # each with its block-cache key (None: not cached)
             self._next_step = start_step
             self._pending: collections.deque = collections.deque()
+            self._in_hand = 0
             return
-        self.q: queue.Queue = queue.Queue(maxsize=PREFETCH_DEPTH)
+        self.q: queue.Queue = queue.Queue(maxsize=self._depth)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._fill, daemon=True,
                                         name="MiniBatchLoader-producer")
         self._thread.start()
+
+    @property
+    def pending(self) -> int:
+        """Batches built (device mode: dispatched, or about to be handed
+        out) and not yet handed out."""
+        return len(self._pending) + self._in_hand \
+            if self.mode == "device" else self.q.qsize()
 
     def cache_stats(self) -> dict:
         """Hit/miss counters of both loader caches (empty if disabled)."""
@@ -507,6 +540,8 @@ class MiniBatchLoader:
 
     def _build(self, step: int) -> MiniBatch:
         seeds = self._seeds_for(step)
+        if seeds is None:
+            raise _EndOfStream
         epoch = self._epoch_of(step) if self._epoch_of is not None else None
         mb, key = self._cached(step, seeds, epoch)
         if mb is not None:
@@ -519,6 +554,7 @@ class MiniBatchLoader:
                                  node_block=self.node_block,
                                  bucket=self.bucket,
                                  layout_cache=self.layout_cache,
+                                 shape_floors=self.shape_floors,
                                  device=self.device)
         if key is not None:
             self.block_cache.put(key, mb)   # cached without feats
@@ -526,6 +562,8 @@ class MiniBatchLoader:
 
     def _build_device(self, step: int):
         seeds = self._seeds_for(step)
+        if seeds is None:
+            raise _EndOfStream
         epoch = self._epoch_of(step) if self._epoch_of is not None else None
         mb, key = self._cached(step, seeds, epoch)
         if mb is not None:
@@ -541,11 +579,20 @@ class MiniBatchLoader:
         """Dispatch device builds until the prefetch window is full: each
         build only enqueues device work, so batch k+1 is sampled while the
         consumer runs batch k."""
-        while len(self._pending) < PREFETCH_DEPTH:
+        while len(self._pending) < self._depth:
             if (self.num_batches is not None and
                     self._next_step - self._start_step >= self.num_batches):
                 return
-            self._pending.append(self._build_device(self._next_step))
+            try:
+                self._pending.append(self._build_device(self._next_step))
+            except _EndOfStream:
+                self.num_batches = self._next_step - self._start_step
+                return
+            except SourceNotReady:
+                if not self.pending:
+                    raise RuntimeError("the seed source was not ready and "
+                                       "the loader holds no batch") from None
+                return
             self._next_step += 1
 
     def _fill(self):
@@ -559,6 +606,8 @@ class MiniBatchLoader:
                 else:
                     try:
                         item = self._build(step)
+                    except _EndOfStream:
+                        item = self._SENTINEL
                     except BaseException as e:  # surface in the consumer
                         item = e
                     step += 1
@@ -590,7 +639,13 @@ class MiniBatchLoader:
                     and key in self.block_cache:
                 self.block_cache.put(key, settled)   # the rebuilt batch
             settled = self._attach_feats(settled)
-            self._pump()   # dispatch the next batch before the caller runs
+            # dispatch the next batch before the caller runs; the batch
+            # in hand counts as held (``pending``) meanwhile
+            self._in_hand = 1
+            try:
+                self._pump()
+            finally:
+                self._in_hand = 0
             return settled
         while True:
             try:

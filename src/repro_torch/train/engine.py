@@ -230,6 +230,8 @@ class RGNNEngine:
         cache_blocks: int = 0,
         cache_layouts: int = 0,
         feature_store=None,
+        shape_floors=None,
+        depth: int = 2,
     ) -> MiniBatchLoader:
         """A prefetching loader over this engine's sampler/layout config,
         delivering (bucketed, unless ``cfg.bucket`` is off) mini-batches on
@@ -240,7 +242,10 @@ class RGNNEngine:
         prefetches without a thread (sampling and layouts as enqueued
         device work). ``cache_blocks`` / ``cache_layouts`` size the
         loader's LRU caches (0: off); ``feature_store`` (a store from
-        ``make_feature_store``) attaches every batch's input rows."""
+        ``make_feature_store``) attaches every batch's input rows;
+        ``shape_floors`` (a ``bucketing.ShapeFloors``, host sampler only)
+        pins each seed count's block buckets, as the serving runtime's
+        rungs need; ``depth`` batches are prefetched."""
         active = self.device_sampler if self.device_sampler is not None \
             else self.sampler
         return MiniBatchLoader(
@@ -249,7 +254,7 @@ class RGNNEngine:
             bucket=self.cfg.bucket, start_step=start_step,
             num_batches=num_batches, cache_blocks=cache_blocks,
             cache_layouts=cache_layouts, feature_store=feature_store,
-            device=self.device,
+            shape_floors=shape_floors, depth=depth, device=self.device,
         )
 
     def make_feature_store(self, feats, *, seed_source=None,

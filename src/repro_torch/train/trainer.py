@@ -10,7 +10,8 @@ kernels' autograd Functions (K4, K5 and the traversal VJP), AdamW.
 Periodic evaluation runs full-graph and sampled; checkpoints save
 ``(global step, TrainState)`` and resume mid-epoch bit for bit on the CPU
 (the seed stream and the sampler are pure functions of the global step;
-on the card the backward's scatter-adds use atomics).
+on the card the backward's sums run in a fixed order too, K11 and K7, and
+two identical runs end bit for bit equal: ``chip_smoke.py`` phase 14 g).
 
 ``FullGraphTrainer`` is the dense baseline on ``StackTrainExecutor``: one
 full-graph step per call. With full-neighborhood fanout the sampled step

@@ -7,9 +7,15 @@ regression that the port's ``executor_compiled`` equals the reference's
 number of compiled programs on the same fresh RGAT aifb-b32 stream (a
 batch's group sizes once split the keys), the host and device layout
 builders' equal static fields (hypothesis), the skewed trainer stream,
-``--eager`` against the default, and the capture dispatch (a key's second
-call captures, owned tensors stay in place) through a stand-in graph."""
+``--eager`` against the default, the capture dispatch (a key's second
+call captures, owned tensors stay in place) through a stand-in graph, and
+the capture lock's bookkeeping (captures serialized across threads, the
+collector back on only after the last) with stand-ins for the CUDA
+calls."""
+import contextlib
 import dataclasses
+import gc
+import threading
 
 import numpy as np
 import pytest
@@ -386,3 +392,146 @@ def test_flatten_ends_mark_each_argument():
     sig, tensors = executor._flatten(args, ends)
     assert (sig, len(tensors)) == (executor.signature(args), 4)
     assert ends == [1, 2, 4, 4]
+
+
+class _FakeGraph:
+    """``torch.cuda.CUDAGraph``'s stand-in: records, at capture begin and
+    end, the collector's state and how many captures are open."""
+
+    open_now = 0
+    log = []
+    lock = threading.Lock()
+
+    def capture_begin(self, capture_error_mode=None):
+        assert capture_error_mode == "thread_local"
+        with _FakeGraph.lock:
+            _FakeGraph.open_now += 1
+            _FakeGraph.log.append(("begin", _FakeGraph.open_now,
+                                   gc.isenabled()))
+
+    def capture_end(self):
+        with _FakeGraph.lock:
+            _FakeGraph.log.append(("end", _FakeGraph.open_now,
+                                   gc.isenabled()))
+            _FakeGraph.open_now -= 1
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    """Stand-ins for the CUDA calls of ``_Executor._capture``."""
+    _FakeGraph.open_now, _FakeGraph.log = 0, []
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda *a: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda *a: contextlib.nullcontext())
+    monkeypatch.setattr(executor, "_capture_stream", lambda dev: None)
+    was = gc.isenabled()
+    gc.enable()
+    yield _FakeGraph
+    (gc.enable if was else gc.disable)()
+
+
+@pytest.mark.parametrize("collector_on", [True, False])
+def test_captures_on_two_threads_are_serialized(fake_cuda, collector_on):
+    """Two executors capture at once on two threads (two serving tenants):
+    the second waits for the first to finish, the collector is off inside
+    both and is turned back on after the last, as it was before."""
+    if not collector_on:
+        gc.disable()
+    inside = threading.Event()
+    release = threading.Event()
+    seen = {}
+
+    def fn_a(x):
+        inside.set()
+        assert release.wait(10.0)
+        seen["a"] = (gc.isenabled(), executor.capturing())
+        return x + 1
+
+    def fn_b(x):
+        seen["b"] = (gc.isenabled(), executor.capturing())
+        return x + 2
+
+    def capture(fn, out):
+        ex = executor._Executor([])
+        t = torch.zeros(3)
+        out.append(ex._capture(fn, (t,), [t], set()))
+
+    outs = {"a": [], "b": []}
+    ta = threading.Thread(target=capture, args=(fn_a, outs["a"]))
+    tb = threading.Thread(target=capture, args=(fn_b, outs["b"]))
+    ta.start()
+    assert inside.wait(10.0)
+    tb.start()
+    tb.join(0.3)
+    assert tb.is_alive()            # blocked on the capture lock
+    assert [e[0] for e in fake_cuda.log] == ["begin"]
+    release.set()
+    ta.join(10.0)
+    tb.join(10.0)
+    assert not ta.is_alive() and not tb.is_alive()
+    assert len(outs["a"]) == len(outs["b"]) == 1
+    assert [e[:2] for e in fake_cuda.log] == [
+        ("begin", 1), ("end", 1), ("begin", 1), ("end", 1)]
+    assert all(not on for _, _, on in fake_cuda.log)
+    assert seen == {"a": (False, True), "b": (False, True)}
+    assert gc.isenabled() == collector_on
+    assert not executor.capturing()
+
+
+def test_collector_back_on_only_after_the_last_capture():
+    """``_collector_off`` on its own, entered by two threads: the first
+    turns the collector off, the first to leave leaves it off, the last
+    turns it back on."""
+    was = gc.isenabled()
+    gc.enable()
+    try:
+        a_in, b_in, a_out = (threading.Event() for _ in range(3))
+        states = {}
+
+        def a():
+            with executor._collector_off():
+                a_in.set()
+                assert b_in.wait(10.0)
+            states["after_a"] = gc.isenabled()
+            a_out.set()
+
+        def b():
+            assert a_in.wait(10.0)
+            with executor._collector_off():
+                b_in.set()
+                assert a_out.wait(10.0)
+                states["b_inside_after_a"] = gc.isenabled()
+            states["after_b"] = gc.isenabled()
+
+        threads = [threading.Thread(target=f) for f in (a, b)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(10.0)
+        assert states == {"after_a": False, "b_inside_after_a": False,
+                          "after_b": True}
+        assert not executor.capturing()
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
+def test_one_executor_still_captures_on_one_thread(fake_cuda):
+    ex = executor._Executor([])
+    t = torch.zeros(2)
+    ex._capture(lambda x: x, (t,), [t], set())
+    err = []
+
+    def other():
+        try:
+            ex._capture(lambda x: x, (t,), [t], set())
+        except RuntimeError as e:
+            err.append(str(e))
+
+    th = threading.Thread(target=other)
+    th.start()
+    th.join(10.0)
+    assert err and "one thread" in err[0]
+    assert gc.isenabled()

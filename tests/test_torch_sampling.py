@@ -126,3 +126,64 @@ def test_loader_reraises_producer_failure():
         assert not loader._thread.is_alive()
     finally:
         loader.close()
+
+
+@pytest.mark.parametrize("targets", [(0, 0, 0), (1, 1, 1), (2, 1, 3)])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pad_block_graph_identical(seed, targets):
+    """The port builds a padded block without sorting again (the pads laid
+    into the gaps of the canonical arrays): field for field, dtype too,
+    the reference's ``from_edges`` of the real edges plus the pads, for
+    sampled blocks of every hop and the whole graph, at the block's own
+    buckets and at floors raised by ``targets`` pow2 levels."""
+    from repro.sampling.bucketing import pad_block_graph as ref_pad
+    from repro_torch.kernels.layout import pow2ceil
+    from repro_torch.sampling.bucketing import pad_block_graph
+
+    ours_g, ref_g = _graphs("aifb", 0.05, seed)
+    seeds = RefStream(ours_g.num_nodes, 9, seed=seed).batch(0)
+    blocks = [b.graph for b in
+              FanoutSampler(ours_g, [3, 3], seed=seed).sample(seeds).blocks]
+    rblocks = [b.graph for b in
+               RefSampler(ref_g, [3, 3], seed=seed).sample(seeds).blocks]
+    for g, rg in zip(blocks + [ours_g], rblocks + [ref_g]):
+        kw = {}
+        if any(targets):
+            base = (pow2ceil(g.num_nodes + 1), pow2ceil(2 * g.num_edges + 1),
+                    pow2ceil(g.num_unique + 1))
+            kw = dict(zip(("n_target", "e_target", "u_target"),
+                          (b << t for b, t in zip(base, targets))))
+        a, b = pad_block_graph(g, **kw), ref_pad(rg, **kw)
+        _assert_graph_equal(a, b)
+        for f in GRAPH_FIELDS:
+            assert getattr(a, f).dtype == getattr(b, f).dtype, f
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("tile", [1, 8, 32])
+def test_segment_and_block_layouts_identical(seed, tile):
+    """``pad_segments`` and ``block_csr``, vectorized in the port, give the
+    reference's loops' arrays: empty segments and node blocks, a hub."""
+    import dataclasses
+
+    from repro.kernels import layout as RL
+    from repro_torch.kernels import layout as L
+
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(0, 40, 30) * (rng.random(30) < 0.7)
+    sizes[3] = 500
+    seg_ptr = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    a, b = L.pad_segments(seg_ptr, tile), RL.pad_segments(seg_ptr, tile)
+    for f in dataclasses.fields(b):
+        np.testing.assert_array_equal(getattr(a, f.name),
+                                      getattr(b, f.name), err_msg=f.name)
+        assert np.asarray(getattr(a, f.name)).dtype == \
+            np.asarray(getattr(b, f.name)).dtype, f.name
+    for nb in (1, 4, 32):
+        a, b = L.block_csr(seg_ptr, tile, nb), RL.block_csr(seg_ptr, tile, nb)
+        for f in dataclasses.fields(b):
+            np.testing.assert_array_equal(getattr(a, f.name),
+                                          getattr(b, f.name),
+                                          err_msg=f.name)
+            assert np.asarray(getattr(a, f.name)).dtype == \
+                np.asarray(getattr(b, f.name)).dtype, f.name
