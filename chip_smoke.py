@@ -62,9 +62,13 @@ comparable across versions:
    taken; K9 with counts 0 and C, C = 1,
    odd row counts and high-bit base keys; K5 with the static chunk bound
    of device-built layouts; K11 with every target -1, one row taking
-   40,000 entries, runs of 1 to 769 entries and empty rows laid across its
-   256-entry unit edges, with and without leading -1s, and a hub among
-   5,000 rows, each at d = 1 / 7 / 64 / 96 / 300). K9 is held bit for bit, decoded, to its plain
+   40,000 entries, runs of 1 to 3 units + 1 entries and empty rows laid
+   across the unit edges of its plan (``traversal.scatter_plan``), with and
+   without leading -1s, a hub among 5,000 rows, and 5,000 rows over a
+   range of 200,000 (long runs of empty rows), each at 13 widths that take
+   every lane split with both copy widths, and one call captured in a CUDA
+   graph and replayed 3 times, each replay bit for bit the op-by-op
+   result). K9 is held bit for bit, decoded, to its plain
    version and to numpy's ``edge_sample_keys``. Tolerances: K1 and K4
    rtol = atol = 1e-5 (fp32 sums of at most 64 terms); K2 ``mx`` exact,
    ``den`` rtol 1e-5; K3 rtol = atol = 2e-5 (the reference's own
@@ -76,7 +80,9 @@ comparable across versions:
    batch (K1-K3), the RGAT training step (K4, K5), the RGCN aifb served
    batch (K7), RGAT's first device-sampled aifb batch (K9) and the RGAT
    training step (K11, beside ``index_add_``, the atomic scatter it
-   replaced): each
+   replaced; every K11 call of the three training steps is also logged
+   with its shape and the cost of the whole ``ops.scatter_rows``, sort
+   included, beside ``index_add_``): each
    kernel's device time (mean of 20 calls under ``torch.profiler``), the
    wrapper's time per call (CUDA events, median of 25 runs of 10 calls:
    host cost included), its plain version's time, its bound and, for K1
@@ -117,7 +123,8 @@ comparable across versions:
    scale 1.0, 3 steps with a finite loss, timed; K1, K4, K5 and K11 held
    (each bitwise against a second launch too) and timed at every call of one bgs
    full-graph step (device ms, wrapper ms, plain ms, ``torch.bmm`` ms,
-   bound, and K1's / K4's work split); for RGCN,
+   bound, and K1's / K4's work split; K11's shape and ``scatter_rows``
+   cost as in phase 2); for RGCN,
    K7 and K8 held and timed (as phase 2 times them) at the K7 calls of
    one bgs full-graph forward, for RGAT and HGT K2 and K3 at their calls
    and K6 at K3's;
@@ -421,7 +428,7 @@ KERNELS = {
     K11: dict(source="src/repro_torch/csrc/scatter.cu",
               replaces="none (no TPU kernel): the backward's scatter-add, "
                        "src/repro/kernels/ops.py:301, :477, :617",
-              symbol="seg_sum_sorted_", per_call=2),   # unit + combine
+              symbol="seg_sum_sorted_"),   # one kernel a call
 }
 # where each kernel is timed in phase 2 (phase 11 for K6 and K8): the
 # captured calls of one served batch ("<model> aifb"), one training step
@@ -768,14 +775,23 @@ def k6_library(torch, args, kw):
 
 
 def k11_work(torch, args, kw):
-    """K11: each sorted entry's index and value row read once, the row
-    offsets read once, each row written once; one add a column an entry
-    (the entries before ``ptr[0]``, target -1, are never read)."""
-    values, perm, ptr, num_rows = args[:4]
+    """K11: every sorted key read once, each entry's index and value row
+    read once, each row written once; one add a column an entry (the
+    value rows of target -1 are never read)."""
+    values, perm, key, num_rows = args[:4]
     d = values.shape[1]
-    entries = int(ptr[-1] - ptr[0])
-    nbytes = entries * (4 + d * 4) + (num_rows + 1) * 4 + num_rows * d * 4
+    entries = int((key >= 0).sum())
+    nbytes = key.numel() * 4 + entries * (4 + d * 4) + num_rows * d * 4
     return nbytes, float(entries * d)
+
+
+def k11_target(torch, perm, key, n_values):
+    """The scatter's target of every value row (-1: none), rebuilt from
+    K11's ``perm`` and ``key``."""
+    target = torch.full((n_values,), -1, dtype=torch.int32,
+                        device=key.device)
+    target[perm.long()] = key
+    return target
 
 
 def k11_library(torch, args, kw):
@@ -783,16 +799,10 @@ def k11_library(torch, args, kw):
     their original order (the targets built beforehand, not timed): the
     atomic scatter-add K11 took the place of, the yardstick, used nowhere
     in the port."""
-    values, perm, ptr, num_rows = args[:4]
-    counts = (ptr[1:] - ptr[:-1]).long()
-    rows = torch.repeat_interleave(
-        torch.arange(num_rows, device=values.device), counts)
-    lo = int(ptr[0])
-    target = torch.full((values.shape[0],), -1, dtype=torch.long,
-                        device=values.device)
-    target[perm[lo:lo + rows.numel()].long()] = rows
+    values, perm, key, num_rows = args[:4]
+    target = k11_target(torch, perm, key, values.shape[0])
     keep = target >= 0
-    index, vals = target[keep], values.detach()[keep].contiguous()
+    index, vals = target[keep].long(), values.detach()[keep].contiguous()
     out = torch.zeros((num_rows, values.shape[1]), dtype=values.dtype,
                       device=values.device)
     return lambda: out.index_add_(0, index, vals)
@@ -1106,9 +1116,7 @@ def _shape(name, args, kw) -> str:
     if name == K2:
         return f"slots={args[0].numel()} blocks={kw['num_node_blocks']}"
     if name == K11:
-        return (f"entries={int(args[2][-1] - args[2][0])} of "
-                f"{args[1].numel()} values={args[0].shape[0]} "
-                f"d={args[0].shape[1]} rows={args[3]}")
+        return k11_shape(args)
     if name in (K3, K6, K7, K8):
         return (f"slots={args[0].numel()} d={args[1].shape[1]} "
                 f"Em={args[1].shape[0]} blocks={kw['num_node_blocks']}")
@@ -1468,6 +1476,10 @@ def phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops, tasks, split):
     tables = kernel_tables(torch, SK, TK, SO)
     run_compare = compare_runner(torch, SO, *tables[:2])
     hold_captured(torch, captured, results, tables, run_compare, "phase 2")
+    results[K11]["scatter_rows"] = {
+        f"{model} step": k11_scatter_rows(
+            torch, ops, captured[f"{model} step"][K11], f"{model} step",
+            "phase 2") for model in tasks}
     # K8 at every captured K7 call and K6 at every captured K3 call, their
     # messages padded into the slots
     for name, src, pad in ((K8, K7, k8_args), (K6, K3, k6_args)):
@@ -1505,26 +1517,75 @@ def phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops, tasks, split):
     return results
 
 
-# K11's unit of sorted entries (``csrc/scatter.cu``: kUnitEntries) and the
-# widths its edge cases run at (one column, a ragged warp, the models', a
-# block's 256 columns exceeded)
-K11_UNIT = 256
-K11_EDGE_D = (1, 7, 64, 96, 300)
+def k11_shape(args) -> str:
+    """A K11 call's shape: its entries (targets not -1) of all sorted
+    ones, the leading -1s, rows, d, the longest run and the plan's
+    split."""
+    from repro_torch.kernels import traversal as TK
+
+    values, perm, key, num_rows = args[:4]
+    n, d = perm.numel(), values.shape[1]
+    lead = int((key < 0).sum())
+    real = key[lead:].long()
+    longest = int(real.bincount(minlength=num_rows).max()) if lead < n \
+        else 0
+    p = TK.scatter_plan(n, d)
+    return (f"entries={n - lead} of {n} (leading -1s {lead}) "
+            f"values={values.shape[0]} rows={num_rows} d={d} "
+            f"longest run={longest} units={p.units} of {p.unit} "
+            f"(chunk {p.chunk}, {p.lanes} lanes x {p.vec})")
+
+
+def k11_scatter_rows(torch, ops, calls, tag, phase):
+    """Every K11 call of ``calls``: its shape, and what the whole
+    ``ops.scatter_rows`` (the stable sort, the casts, the ticket zeroing
+    and K11) costs a call on the same values and targets, beside the sort
+    alone, a ``torch.zeros`` of the output (the fill K11 now does itself,
+    over the empty rows only) and ``index_add_`` (CUDA events, host cost
+    included). Returns one dict a call."""
+    out = []
+    for i, (args, kw) in enumerate(calls):
+        values, perm, key, num_rows = args[:4]
+        target = k11_target(torch, perm, key, values.shape[0])
+        fn = lambda: ops.scatter_rows(values, target, num_rows)  # noqa: E731
+        row = dict(shape=k11_shape(args), scatter_rows_ms=time_ms(torch, fn),
+                   sort_ms=time_ms(torch, lambda: torch.sort(
+                       target, stable=True)),
+                   zeros_ms=time_ms(torch, lambda: torch.zeros(
+                       (num_rows, values.shape[1]), device=values.device)),
+                   library_ms=time_ms(torch, k11_library(torch, args, kw)))
+        log(f"[{phase}] {K11}[{i}] ({tag}) {row['shape']}: scatter_rows "
+            f"{row['scatter_rows_ms']:.4f} ms a call (sort alone "
+            f"{row['sort_ms']:.4f} ms, an output zero fill "
+            f"{row['zeros_ms']:.4f} ms), index_add_ "
+            f"{row['library_ms']:.4f} ms")
+        out.append(row)
+    return out
+
+
+# the widths of K11's edge cases: with ``traversal.scatter_plan``, every
+# lane split (1 to 32 lanes a group) with 4-byte copies (d % 4 != 0) and
+# with 16-byte ones, and d = 300's three column passes
+K11_EDGE_D = (1, 2, 3, 7, 15, 33, 4, 8, 16, 32, 64, 96, 300)
 
 
 def k11_edge_cases(torch, TK, run_compare, results):
-    """K11 where its unit split has its edges, each case at every width of
-    ``K11_EDGE_D``, against its plain version (rtol = atol = 1e-6) and bit
-    for bit against a second launch: every entry's target -1 (zero rows),
-    one row taking all 40,000 entries (a combine over 157 units), runs of
-    1, 255, 256, 257, 511, 769 entries and rows without entries laid
+    """K11 where its plan (``traversal.scatter_plan``) has its edges, each
+    case at every width of ``K11_EDGE_D``, against its plain version
+    (rtol = atol = 1e-6) and bit for bit against a second launch: every
+    entry's target -1 (zero rows), one row taking all 40,000 entries (a
+    combine over hundreds of units), runs of 1, u - 1, u, u + 1, 2u - 1
+    and 3u + 1 entries (u: the plan's unit) and rows without entries laid
     across unit edges, with and without 300 leading -1s (which move every
-    edge), and a 30,000-entry hub among 5,000 random rows. Returns the
-    number of calls."""
+    edge), a 30,000-entry hub among 5,000 random rows, and 5,000 rows
+    over a range of 200,000 (long runs of empty rows, zeroed by the
+    kernel). Then one call (the hub, d = 64) captured in a CUDA graph and
+    replayed 3 times: each replay (the tickets' zeroing and the kernel)
+    bit for bit the op-by-op result. Returns the number of calls."""
     import numpy as np
 
     rng = np.random.default_rng(11)
-    u = K11_UNIT
+    u = TK.scatter_plan(1, 1).unit
     runs = np.array([u - 1, 1, u, u + 1, 2 * u - 1, 0, 1, 1, 3 * u + 1, 0,
                      0, 17, u])
     laid = np.repeat(np.arange(runs.size), runs)
@@ -1537,16 +1598,23 @@ def k11_edge_cases(torch, TK, run_compare, results):
         "runs after 300 -1s": (np.concatenate([laid, np.full(300, -1)]),
                                runs.size),
         "hub of 30000 among 5000 rows": (hub, 5000),
+        "5000 rows over 200000": (rng.integers(0, 200000, 5000), 200000),
     }
+    splits = {(TK.scatter_plan(1, d).vec, TK.scatter_plan(1, d).lanes)
+              for d in K11_EDGE_D}
+    check(len(splits) == 12, f"{K11}: the edge widths take {len(splits)} "
+          f"of the 12 lane splits x copy widths")
     n = 0
     for what, (target, num_rows) in cases.items():
         target = rng.permutation(target).astype(np.int32)
         t = torch.from_numpy(target).cuda()
-        perm, ptr = TK.sorted_segments(t, num_rows)
+        perm, key = TK.sorted_segments(t)
         for d in K11_EDGE_D:
+            check(TK.scatter_plan(target.size, d).unit == u,
+                  f"{K11}: {what} at d = {d} is not cut at unit {u}")
             values = torch.from_numpy(rng.normal(
                 size=(target.size, d)).astype(np.float32)).cuda()
-            args = (values, perm, ptr, num_rows)
+            args = (values, perm, key, num_rows)
             err = run_compare(K11, args, {})
             results[K11]["max_abs_err"] = max(results[K11]["max_abs_err"],
                                               err)
@@ -1555,8 +1623,34 @@ def k11_edge_cases(torch, TK, run_compare, results):
                       f"{K11}: rows of an all -1 target are not zero")
             n += 1
     log(f"[phase 2] {K11} edge cases: {n} calls ({', '.join(cases)}; d "
-        f"{'/'.join(map(str, K11_EDGE_D))}) match the plain version "
-        f"(rtol = atol = {TOLERANCE[K11]}) and a second launch bit for bit")
+        f"{'/'.join(map(str, K11_EDGE_D))}: {len(splits)} lane splits x "
+        f"copy widths; unit {u}) match the plain version (rtol = atol = "
+        f"{TOLERANCE[K11]}) and a second launch bit for bit")
+    target, num_rows = cases["hub of 30000 among 5000 rows"]
+    perm, key = TK.sorted_segments(torch.from_numpy(
+        rng.permutation(target).astype(np.int32)).cuda())
+    values = torch.from_numpy(rng.normal(
+        size=(target.size, 64)).astype(np.float32)).cuda()
+    eager = TK.seg_sum_sorted(values, perm, key, num_rows)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        TK.seg_sum_sorted(values, perm, key, num_rows)     # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = TK.seg_sum_sorted(values, perm, key, num_rows)
+    for replay in range(3):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        check(bool(torch.equal(out.view(torch.int32),
+                               eager.view(torch.int32))),
+              f"{K11}: CUDA-graph replay {replay + 1} differs from the "
+              f"op-by-op result")
+    log(f"[phase 2] {K11} captured in a CUDA graph (hub of 30000 among "
+        f"5000 rows, d = 64, {TK.scatter_plan(target.size, 64).units} "
+        f"units): 3 replays bit for bit the op-by-op result")
     return n
 
 
@@ -2635,6 +2729,7 @@ def phase_full_graph(torch, task, train_rgnn, cfg, split):
         f"first builds the full-graph layouts); peak device memory "
         f"{out['bgs_peak_gib']:.2f} GiB; task build {out['bgs_build_s']:.2f}"
         f" s")
+    from repro_torch.kernels import ops
     from repro_torch.kernels import sampling_ops as SO
     from repro_torch.kernels import segment_mm as SK
     from repro_torch.kernels import traversal as TK
@@ -2655,6 +2750,9 @@ def phase_full_graph(torch, task, train_rgnn, cfg, split):
         out[key] = dict(calls=timed, **{k: sum(c[k] for c in timed) for k in
                                         ("ms", "wrapper_ms", "plain_ms",
                                          "library_ms", "bound_ms")})
+        if name == K11:
+            out[key]["scatter_rows"] = k11_scatter_rows(
+                torch, ops, calls[name], f"{model} bgs step", tag)
         log(f"[{tag} bgs] {name}: {len(timed)} calls in a full-graph step, "
             f"kernel {out[key]['ms']:.5f} ms on the device, wrapper "
             f"{out[key]['wrapper_ms']:.4f} ms, plain "

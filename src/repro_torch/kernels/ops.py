@@ -327,8 +327,8 @@ def scatter_rows(values: torch.Tensor, target: torch.Tensor,
                  num_rows: int) -> torch.Tensor:
     """``out[r] = Σ_{target[i] = r} values[i]`` (-1: dropped) in a fixed
     order: K11 over a stable sort of ``target``. -> [num_rows, d]."""
-    perm, ptr = sorted_segments(target, num_rows)
-    return seg_sum_sorted(values, perm, ptr, num_rows)
+    perm, key = sorted_segments(target)
+    return seg_sum_sorted(values, perm, key, num_rows)
 
 
 def _recording(*tensors) -> bool:

@@ -11,8 +11,8 @@ target index.
 ``seg_softmax_agg_padded``          K3 over messages already padded into the
                                     dst-sorted slots (``msg_p[slot]``)
 ``seg_weighted_agg_padded``         K7 over padded messages
-``seg_sum_sorted``                  out[r] = Σ_{ptr[r] <= j < ptr[r+1]}
-                                    values[perm[j]], K11 (no TPU kernel)
+``seg_sum_sorted``                  out[r] = Σ_{key[j] = r} values[perm[j]],
+                                    K11 (no TPU kernel)
 
 The last two are the materialized-gather variants the tuner selects with
 ``fuse_gather=False`` (``kernels/ops.py``). Each wrapper dispatches on the
@@ -49,13 +49,16 @@ K11 (``seg_sum_sorted``, ``csrc/scatter.cu``) is the backward's
 scatter-add without float atomics: the dX of a gathered GEMM and the
 compact message gradients of the traversal ops sum their rows over a
 stable sort of the target index (``sorted_segments``), split by entries
-into units with a fixed-order combine, as the five kernels above split by
-slots. It replaces no TPU kernel (the reference leaves those sums to XLA);
-it makes the card's backward bit for bit repeatable.
+into units (``scatter_plan``, from shapes alone) whose crossing rows are
+added in unit order, in one launch. It replaces no TPU kernel (the
+reference leaves those sums to XLA); it makes the card's backward bit for
+bit repeatable.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -472,84 +475,125 @@ def _check_ptr(block_tile_ptr, num_node_blocks: int, kernel: str) -> None:
 # K11: the backward's scatter-add over a sorted target index
 # ---------------------------------------------------------------------------
 _SCATTER_SIGNATURES = {
-    "seg_sum_sorted_f32": [_P] * 5 + [_I] * 3 + [_P],
-    "seg_sum_sorted_unit_entries": [],
+    "seg_sum_sorted_f32": [_P] * 6 + [_I] * 7 + [_P],
 }
+# one stage of K11's shared-memory ring: this many floats of value rows
+# (4 KB; two stages a warp)
+SCATTER_STAGE_FLOATS = 1024
+# a unit's sorted entries: SCATTER_MAX_UNIT, halved while the call makes
+# fewer than SCATTER_TARGET_UNITS units (one warp each: 32 on each of the
+# H100's 132 SMs), down to SCATTER_MIN_UNIT (a hub's combine adds one
+# partial a unit it spans)
+SCATTER_MIN_UNIT, SCATTER_MAX_UNIT = 32, 256
+SCATTER_TARGET_UNITS = 132 * 32
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterPlan:
+    """How one K11 call is cut, from its shapes alone: ``vec`` floats a
+    copy (4: 16-byte ``cp.async`` where d % 4 == 0, else 1), ``lanes``
+    lanes a group (``32 // lanes`` groups each walk their span of a stage;
+    a column pass covers ``lanes * vec`` columns), ``chunk`` entries a
+    ring stage, ``unit`` entries a warp, ``units`` warps (one a block) and
+    the workspace (``ws_doubles``: a head and a tail partial row a unit;
+    ``tickets``: two ints a unit, zeroed)."""
+
+    vec: int
+    lanes: int
+    chunk: int
+    unit: int
+    units: int
+    ws_doubles: int
+    tickets: int
+
+
+@functools.lru_cache(maxsize=4096)
+def scatter_plan(n_entries: int, d: int) -> ScatterPlan:
+    """K11's split of ``n_entries`` sorted entries of width ``d``. Raises
+    on a shape the kernel cannot take."""
+    if n_entries <= 0 or d <= 0:
+        raise ValueError(f"seg_sum_sorted: no work to split: "
+                         f"n_entries={n_entries}, d={d}")
+    vec = 4 if d % 4 == 0 else 1
+    lanes = min(32, 1 << (-(-d // vec) - 1).bit_length())
+    cols = lanes * vec
+    unit = SCATTER_MAX_UNIT
+    while (unit > SCATTER_MIN_UNIT
+           and -(-n_entries // unit) < SCATTER_TARGET_UNITS):
+        unit //= 2
+    chunk = min(unit, SCATTER_STAGE_FLOATS // cols)
+    units = -(-n_entries // unit)
+    if n_entries + unit >= 2**31:
+        raise ValueError(f"seg_sum_sorted: {n_entries} entries overflow the "
+                         f"kernel's int32 positions")
+    return ScatterPlan(vec, lanes, chunk, unit, units, 2 * units * d,
+                       2 * units)
 
 
 def _scatter_library() -> ctypes.CDLL:
-    return build.load("scatter", _SCATTER_SIGNATURES,
-                      sizes=("seg_sum_sorted_unit_entries",))
+    return build.load("scatter", _SCATTER_SIGNATURES)
 
 
-def sorted_segments(target: torch.Tensor, num_rows: int):
-    """K11's ``(perm, ptr)`` for a scatter to ``target`` (one entry a value
-    row; -1: none) over ``num_rows`` rows: ``perm`` a stable sort of the
-    targets (int32; the -1s first), ``ptr`` [num_rows + 1] the first sorted
-    position of each row (int32). Both have static shapes and need no
-    synchronize, so a captured backward builds them too."""
+def sorted_segments(target: torch.Tensor):
+    """K11's ``(perm, key)`` for a scatter to ``target`` (one entry a value
+    row; -1: none): ``perm`` a stable sort of the targets, ``key`` the
+    sorted targets (both int32; the -1s first). Static shapes, no
+    synchronize: a captured backward builds them too."""
     key, perm = torch.sort(target, stable=True)
-    bounds = torch.arange(num_rows + 1, dtype=key.dtype, device=key.device)
-    ptr = torch.searchsorted(key, bounds, out_int32=True)
-    return perm.to(torch.int32), ptr
+    return perm.to(torch.int32), key.to(torch.int32)
 
 
-def seg_sum_sorted_plain(values, perm, ptr, num_rows: int):
+def seg_sum_sorted_plain(values, perm, key, num_rows: int):
     """Plain version of K11 -> [num_rows, d]: ``index_add_`` of the sorted
-    entries' value rows into their rows, in fp64, in increasing position
-    (the order K11 sums them in)."""
-    counts = (ptr[1:] - ptr[:-1]).long()
-    rows = torch.repeat_interleave(
-        torch.arange(num_rows, device=values.device), counts)
-    lo = int(ptr[0])
-    take = perm[lo:lo + rows.numel()].long()
+    entries' value rows into their rows (``key``; -1 adds nothing), in
+    fp64, in increasing position (the order K11 sums a run in)."""
+    keep = key >= 0
     out = torch.zeros((num_rows, values.shape[1]), dtype=torch.float64,
                       device=values.device)
-    out.index_add_(0, rows, values[take].double())
+    out.index_add_(0, key[keep].long(), values[perm[keep].long()].double())
     return out.to(values.dtype)
 
 
-def seg_sum_sorted(values, perm, ptr, num_rows: int):
-    """K11: ``out[r] = Σ_{j = ptr[r]}^{ptr[r+1]-1} values[perm[j]]``.
+def seg_sum_sorted(values, perm, key, num_rows: int):
+    """K11: ``out[r] = Σ_{key[j] = r} values[perm[j]]``.
 
     values: [n, d] fp32; perm: [m] int32, indices into ``values`` in the
-    stable order of their targets; ptr: [num_rows + 1] int32
-    (``sorted_segments``). Positions before ``ptr[0]`` (target -1) add
-    nothing, rows without entries are zero. The kernel cuts the sorted
-    positions into units of 256, sums each row's run in fp64 and adds the
-    rows that cross a unit edge in unit order (two launches, counted
-    once): bit for bit the same from launch to launch."""
+    stable order of their targets; key: [m] int32, those targets, sorted
+    (``sorted_segments``; -1 adds nothing, every other key below
+    ``num_rows``). Rows without entries are zero. One launch, cut by
+    ``scatter_plan``: a warp a unit of sorted entries, its value rows
+    gathered with ``cp.async``, runs summed in fp64, the rows that cross a
+    unit edge added in unit order by the last unit to finish: bit for bit
+    the same from launch to launch."""
     if values.device.type == "cpu":
-        return seg_sum_sorted_plain(values, perm, ptr, num_rows)
+        return seg_sum_sorted_plain(values, perm, key, num_rows)
     dev = values.device
     kernel = "seg_sum_sorted"
     if dev.type != "cuda":
         raise ValueError(f"{kernel}: no kernel for device {dev}")
     build.check_args(kernel, dev, values=(values, torch.float32),
-                     perm=(perm, torch.int32), ptr=(ptr, torch.int32))
-    if values.dim() != 2 or perm.dim() != 1:
-        raise ValueError(f"{kernel}: values must be [n, d] and perm [m], "
-                         f"got {tuple(values.shape)} and "
-                         f"{tuple(perm.shape)}")
-    if ptr.shape != (num_rows + 1,):
-        raise ValueError(f"{kernel}: ptr has {ptr.numel()} entries for "
-                         f"{num_rows} rows")
+                     perm=(perm, torch.int32), key=(key, torch.int32))
+    if values.dim() != 2 or perm.dim() != 1 or key.shape != perm.shape:
+        raise ValueError(f"{kernel}: values must be [n, d], perm and key "
+                         f"[m], got {tuple(values.shape)}, "
+                         f"{tuple(perm.shape)} and {tuple(key.shape)}")
     n, d = int(perm.numel()), int(values.shape[1])
-    if n + 512 >= 2**31:
-        raise ValueError(f"{kernel}: {n} entries overflow the kernel's "
-                         f"int32 positions")
-    out = torch.zeros((num_rows, d), dtype=torch.float32, device=dev)
     if n == 0 or num_rows == 0 or d == 0:         # nothing is launched
-        return out
+        return torch.zeros((num_rows, d), dtype=torch.float32, device=dev)
+    plan = scatter_plan(n, d)
+    values, perm, key = values.contiguous(), perm.contiguous(), \
+        key.contiguous()
+    if plan.vec == 4 and values.data_ptr() % 16:
+        values = values.clone()                   # 16-byte copies
+    out = torch.empty((num_rows, d), dtype=torch.float32, device=dev)
+    ws = torch.empty((plan.ws_doubles,), dtype=torch.float64, device=dev)
+    tickets = torch.zeros((plan.tickets,), dtype=torch.int32, device=dev)
     lib = _scatter_library()
-    units = -(-n // lib.seg_sum_sorted_unit_entries())
-    ws = torch.empty((units * 2 * d,), dtype=torch.float64, device=dev)
-    values, perm, ptr = values.contiguous(), perm.contiguous(), \
-        ptr.contiguous()
     with torch.cuda.device(dev):
         rc = lib.seg_sum_sorted_f32(
-            values.data_ptr(), perm.data_ptr(), ptr.data_ptr(),
-            out.data_ptr(), ws.data_ptr(), d, n, num_rows,
+            values.data_ptr(), perm.data_ptr(), key.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), d, n,
+            num_rows, plan.unit, plan.chunk, plan.lanes, plan.vec,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, kernel)
     seg_sum_sorted.launches += 1
