@@ -8,7 +8,7 @@ Drives the port (``src/repro_torch``, never JAX nor the reference package)
 on one CUDA card, in phases, for the registry's models (RGAT, RGCN, HGT,
 rgcn_cat) and the dense LMs (gemma2-2b, qwen3-4b; the reduced variants of
 all four dense configs); any failure exits non-zero. Each phase prints
-``[phase N] start`` first. Phases 3-5, 9, 11 and 13-16 run the
+``[phase N] start`` first. Phases 3-5, 9, 11 and 13-17 run the
 drivers' default: the executors capture one CUDA graph per signature at its
 second call and replay it (``core.executor``); phases 6 and 10 train op
 by op and then at that default. A kernel wrapper counts the launches it
@@ -288,21 +288,52 @@ comparable across versions:
    tile and node block 32, bucketed, aifb at scale 1.0, the fine ladder
    up to 32, max wait 5 ms, request sizes 1 / 2 / 4 / 8), with the
    runtime's ``coalescer.plan`` and the engine's ``forward_minibatch``
-   wrapped by the script to record the planned and served batches: (a)
-   RGAT, Poisson 200 req/s, 256 requests, SLO 1000 ms; (b) RGCN, bursts
-   of 8 at 200 req/s, the ``cached`` feature tier; (d) RGAT with
+   wrapped by the script to record the planned and served batches, and
+   its ``_calibration_mb`` to time calibration's builds of random full
+   32-seed batches: a run is offered the smaller of its rate and half
+   the request rate the loader sustains (host-sampled: 32 / 3.75, the
+   mean request size, requests per padded build; device-sampled: as
+   many per sampled build plus the top rung's forward, both on the
+   execute thread; the build ms and the rate are printed), each run on a
+   heap collected and frozen just before it (its collections printed): (a)
+   RGAT, Poisson at most 200 req/s, 256 requests, SLO 1000 ms; (b) RGCN,
+   bursts of 8 at most 200 req/s, the ``cached`` feature tier; (d) RGAT with
    ``sampler="device"``; each: every request terminal and ``OK``, no new
    key and no capture after warm-up, every response's rows bit for bit
    those of an op-by-op forward of its batch, no thread left after
-   ``close()`` ((d) at 100 req/s: the device sampler's launches saturate
-   the execute thread at 200); (c) RGAT and RGCN as two tenants, 128
+   ``close()`` ((d) at most 100 req/s: the device sampler's launches
+   saturate the execute thread at 200); (c) RGAT and RGCN as two tenants, 128
    requests each at 100 req/s in all,
    RGCN calibrated with one warm round and no floor probes (its execute
    thread captures during traffic): no crash, every response bit for bit
    its op-by-op forward, RGAT without a new key or a capture after
    warm-up; (e) SLO 0.5 ms: every request rejected at admission or late,
    none ``OK`` past its SLO. p50, p99, SLO attainment, batch fill, rung
-   counts and the mean queue and execute ms of each run are printed.
+   counts and the mean queue and execute ms of each run are printed;
+17. data parallelism (``repro_torch.dist``) at full width over 4 shards of
+   aifb at scale 1.0 (2 layers, 64 wide, fanout 5, tile and node block
+   32): (a) RGAT, RGCN and HGT served, 32 seeds x 8 batches of a stream
+   of 4 distinct batches, through the dist serve step on one rank
+   (captured): every batch's logits against an op-by-op call bit for bit
+   and against the plain ``BlockExecutor`` on the same seeds within 1e-4
+   (bitwise or not, reported), no new key after the 4 warm-up batches,
+   the op-by-op calls' launches (each counted from 0) exactly the
+   forward's counts x 4 shards x 8 batches, the forward p50 of both
+   paths; (b) RGAT (one epoch) and HGT (two: its loss stays at chance
+   over one) trained at batch 64 through ``DistTrainer``: the first
+   step's loss (rtol 1e-5) and moments, and HGT's params, against the
+   plain ``BlockTrainExecutor``'s at the reference's rtol 2e-5 / atol
+   2e-6 (RGAT's params reach 1.16 of that bound at the first step:
+   reported), the params of both one step after 5 steps in, finite
+   falling losses, RGAT without a new key after warm-up and the op-by-op
+   run adding none, the runs (captured, op by op) bit for bit in every
+   loss and the final params, mu and nu, the op-by-op run's launches
+   exactly the step's counts x 4 shards x the steps; step p50 beside the
+   plain captured trainer's; (c) two ranks on the one card (gloo), started by
+   ``train_rgnn.main([..., "--dp", "2", "--partitions", "4"])`` (5 RGAT
+   steps) and ``serve_rgnn.serve(dp=2, partitions=4)`` (4 batches):
+   every loss, the final optimizer state and every batch's logits bit
+   for bit those of the same calls at dp = 1.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: phase
 6's op-by-op runs of all three models for K1-K5, K7 and K11, phases 9 and 10
@@ -5385,7 +5416,7 @@ ONLINE_RUNS = (
     # the device sampler's launches (two hops of sampling and layouts, on
     # the execute thread) cost about the same at every rung, so at 200
     # req/s its small batches saturate that thread and admission then
-    # shrinks the rungs further: run at half the rate
+    # shrinks the rungs further: run at half the rate at most
     ("d rgat device-sampled", dict(model="rgat", rate_rps=100.0,
                                    num_requests=256, process="poisson",
                                    slo_ms=1000.0, sampler="device")),
@@ -5404,13 +5435,33 @@ class OnlineRecorder:
     as it is): ``coalescer.plan`` is wrapped to keep every admitted
     ``PlannedBatch``, and the engine's ``forward_minibatch`` (an attribute
     of the compiled instance) to keep, from ``start()`` on, every served
-    mini-batch with a copy of its input rows, on the execute thread."""
+    mini-batch with a copy of its input rows, on the execute thread.
+    ``_calibration_mb`` is wrapped to time calibration's probe builds of
+    random (not hub) batches at the top rung: the loader's padded build of
+    a full batch on this host (``build_ms``); with the device sampler, its
+    sampling and layouts of the batch up to a synchronize."""
 
     def __init__(self, torch, rt):
         from repro_torch.feats import gather_input
+        from repro_torch.serve.runtime import _PROBE_BASE
 
         self.rt, self.batches, self.served = rt, [], {}
         self.traffic = False
+        self.build_ms = []
+        self.device_sampled = rt.shape_floors is None
+        top = max(rt.coalescer.rungs)
+        cal = rt._calibration_mb
+
+        def timed_calibration_mb(rung, index, hubs=False):
+            t0 = time.perf_counter()
+            mb = cal(rung, index, hubs=hubs)
+            if rung == top and not hubs and index >= _PROBE_BASE:
+                if self.device_sampled:
+                    torch.cuda.synchronize()
+                self.build_ms.append((time.perf_counter() - t0) * 1e3)
+            return mb
+
+        rt._calibration_mb = timed_calibration_mb
         plan = rt.coalescer.plan
 
         def recording_plan(*a, **kw):
@@ -5438,6 +5489,19 @@ class OnlineRecorder:
             return start()
 
         rt.start = recording_start
+
+    def offered_rate(self, rate_rps: float, size_choices) -> float:
+        """The smaller of ``rate_rps`` and half the request rate the
+        loader sustains: full top-rung batches of requests of the mean
+        size, one build (the probes' median) each. The device sampler
+        builds on the execute thread, so there a batch also costs the top
+        rung's calibrated forward."""
+        top = max(self.rt.coalescer.rungs)
+        batch_ms = statistics.median(self.build_ms)
+        if self.device_sampled:
+            batch_ms += self.rt.ladder_report.measured_ms[top]
+        sustained = top / statistics.mean(size_choices) * 1e3 / batch_ms
+        return min(rate_rps, sustained / 2)
 
     def check_responses(self, torch, tag):
         """Every OK response's rows bit for bit the rows of an op-by-op
@@ -5500,22 +5564,50 @@ def online_summary(tag, st, card):
 
 def online_run(torch, serve_rgnn, tag, kw, card):
     """One ``serve_rgnn.serve_online`` run on the card with its runtime
-    recorded: every request terminal; with the 1000 ms SLO every one OK,
+    recorded, offered the smaller of its rate and half the request rate
+    the host loader sustains (``OnlineRecorder.offered_rate``, from
+    calibration's probe builds; the load generator is built after
+    calibration, so ``OpenLoopLoad`` is wrapped for the run): every
+    request terminal; with the 1000 ms SLO every one OK,
     no new key and no capture after warm-up, every OK response equal to an
     op-by-op forward bit for bit; with the 0.5 ms SLO every request
     rejected at admission or late and none OK past its SLO; no worker
     thread left after ``close()``."""
+    import repro_torch.serve as S
     from repro_torch.serve import LATE, OK, REJECTED_DEADLINE
 
     rec = {}
-    st = serve_rgnn.serve_online(
-        **ONLINE, **kw, device="cuda",
-        on_runtime=lambda rt: rec.update(r=OnlineRecorder(torch, rt)),
-        log=lambda m: None)
+    load_cls = S.OpenLoopLoad
+
+    class OfferedLoad(load_cls):
+        def __init__(self, *a, rate_rps, **lkw):
+            r = rec["r"]
+            rec["rate"] = r.offered_rate(rate_rps, lkw["size_choices"])
+            what = ("sampled build (device sampler, up to a synchronize)"
+                    if r.device_sampled else "padded build")
+            fwd = (f" + top-rung forward "
+                   f"{r.rt.ladder_report.measured_ms[max(r.rt.coalescer.rungs)]:.3f} ms"
+                   if r.device_sampled else "")
+            log(f"[phase 16 {tag}] {card}: calibration's {what} of a full "
+                f"batch {statistics.median(r.build_ms):.3f} ms (median of "
+                f"{len(r.build_ms)} probes){fwd} -> offered "
+                f"{rec['rate']:.3f} req/s (asked {rate_rps:g})")
+            super().__init__(*a, rate_rps=rec["rate"], **lkw)
+
+    S.OpenLoopLoad = OfferedLoad
+    try:
+        st = serve_rgnn.serve_online(
+            **ONLINE, **kw, device="cuda",
+            on_runtime=lambda rt: rec.update(r=OnlineRecorder(torch, rt)),
+            log=lambda m: None)
+    finally:
+        S.OpenLoopLoad = load_cls
     r = rec["r"]
     rt = r.rt
     n = kw["num_requests"]
     out = online_summary(tag, st, card)
+    out["offered_rps"] = rec["rate"]
+    out["probe_build_ms"] = r.build_ms
     if rt.shape_floors is not None:
         top = max(rt.coalescer.rungs)
         out["floors_top_rung"] = {
@@ -5631,15 +5723,452 @@ def online_tenants(torch, hector_torch, card):
     return out
 
 
+@contextlib.contextmanager
+def settled_heap(tag, card):
+    """Phase 16 times request latency on the host clock, in a process that
+    holds every earlier phase's objects: a full collection of that heap
+    inside a run stops every thread of the runtime (``timeit`` turns the
+    collector off for the same reason). Collect and freeze the heap before
+    the run, so that the run's collections scan only what it allocates,
+    and unfreeze it after; the collector stays on. The run's collections
+    (count and longest ms, by generation) are printed and yielded."""
+    import gc
+
+    pauses, t0 = [], {}
+
+    def timed(phase, info):
+        if phase == "start":
+            t0["t"] = time.perf_counter()
+        else:
+            pauses.append((info["generation"],
+                           (time.perf_counter() - t0["t"]) * 1e3))
+
+    gc.collect()
+    gc.freeze()
+    by_gen = {}
+    gc.callbacks.append(timed)
+    try:
+        yield by_gen
+    finally:
+        gc.callbacks.remove(timed)
+        gc.unfreeze()
+        for gen, ms in pauses:
+            n, longest = by_gen.get(gen, (0, 0.0))
+            by_gen[gen] = (n + 1, max(longest, ms))
+        log(f"[phase 16 {tag}] {card}: garbage collections during the run, "
+            f"by generation (count, longest ms): "
+            f"{json.dumps({g: [n, round(ms, 3)] for g, (n, ms) in sorted(by_gen.items())})}")
+
+
 def phase_online(torch, hector_torch, serve_rgnn, card):
     """Phase 16: the online runtime (``ServingRuntime`` through
-    ``serve_rgnn.serve_online``, and two tenants), at full width."""
+    ``serve_rgnn.serve_online``, and two tenants), at full width, each run
+    on a settled heap (``settled_heap``)."""
     out = {}
-    for tag, kw in ONLINE_RUNS[:2]:
-        out[tag] = online_run(torch, serve_rgnn, tag, kw, card)
-    out["c tenants"] = online_tenants(torch, hector_torch, card)
-    for tag, kw in ONLINE_RUNS[2:]:
-        out[tag] = online_run(torch, serve_rgnn, tag, kw, card)
+    runs = [(tag, lambda kw=kw, tag=tag: online_run(
+        torch, serve_rgnn, tag, kw, card)) for tag, kw in ONLINE_RUNS]
+    runs.insert(2, ("c tenants",
+                    lambda: online_tenants(torch, hector_torch, card)))
+    for tag, run in runs:
+        with settled_heap(tag, card) as collections:
+            out[tag] = run()
+        out[tag]["collections"] = collections
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: data parallelism (repro_torch.dist)
+# ---------------------------------------------------------------------------
+DIST = dict(dataset="aifb", scale=1.0, layers=2, dim=64, hidden=64,
+            fanouts=[5, 5], tile=32, node_block=32, seed=0)
+DIST_PARTITIONS = 4
+DIST_SERVE = dict(classes=16, batch_size=32, num_batches=8, repeat_after=4)
+DIST_SERVE_MODELS = ("rgat", "rgcn", "hgt")
+DIST_TRAIN = dict(classes=8, batch_size=64, lr=1e-2)
+# (b): per model, its epochs, whether the plain captured trainer is timed
+# beside it, and the parts of the first step's state held against the
+# plain step's; each trains captured and op by op, the two runs held bit
+# for bit. HGT's sampled loss stays at chance (ln 8) over one epoch at
+# every peak lr from 1e-3 to 1e-2 and falls in its second, as in phase
+# 6, so it trains for two. RGAT's first-step params reach 1.16 of the
+# reference's bound (HGT's 0.50): see ``dist_train``
+DIST_TRAIN_RUNS = {"rgat": (1, True, ("mu", "nu")),
+                   "hgt": (TRAIN_EPOCHS["hgt"], False,
+                           ("params", "mu", "nu"))}
+DIST_RANK_STEPS = 5
+DIST_RANK_BATCHES = 4
+# the bound of the dist logits against the plain executor's (the RGNN
+# serving bound of phases 3-4)
+DIST_TOL = 1e-4
+# the reference's dist-vs-plain step bounds (tests/test_dist.py)
+DIST_STEP_RTOL, DIST_STEP_ATOL = 2e-5, 2e-6
+
+
+def dist_serve(torch, hector_torch, ops, model, card, dev="cuda"):
+    """Phase 17 (a): ``model`` served at aifb-b32 over 4 shards on one
+    rank, 8 batches of a stream of 4 distinct batches: the dist step's
+    logits (captured: a key's first call op by op, its second captured,
+    then replayed) against an op-by-op call bit for bit and against the
+    plain ``BlockExecutor`` on the same seeds within ``DIST_TOL`` (whether
+    bitwise is reported), no new key after the 4 warm-up batches, and the
+    op-by-op calls' launches (counts set to 0 just before each and read
+    just after it) exactly ``FORWARD_LAUNCHES`` x the 4 shards x the
+    batches; the forward p50 of both paths and of the batch builds."""
+    import numpy as np
+
+    from repro_torch.core.graph import table3_graph
+    from repro_torch.sampling import SeedStream, build_minibatch
+
+    cfg = DIST
+    graph = table3_graph(cfg["dataset"], scale=cfg["scale"],
+                         seed=cfg["seed"])
+    feats = np.random.default_rng(cfg["seed"]).normal(
+        size=(graph.num_nodes, cfg["dim"])).astype(np.float32)
+    eng = hector_torch.compile(
+        model, graph, layers=cfg["layers"], dim=cfg["dim"],
+        hidden=cfg["hidden"], classes=DIST_SERVE["classes"],
+        sample=cfg["fanouts"], tile=cfg["tile"], node_block=cfg["node_block"],
+        seed=cfg["seed"], device=dev, partitions=DIST_PARTITIONS)
+    params = eng.init(cfg["seed"])
+    own = eng.shard_features(feats)
+    x = torch.from_numpy(feats).to(dev)
+    ex, plain_ex = eng.dist_serve_executor(), eng.block_executor
+    stream = SeedStream(graph.num_nodes, DIST_SERVE["batch_size"],
+                        seed=cfg["seed"],
+                        num_distinct=DIST_SERVE["repeat_after"])
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    warm = DIST_SERVE["repeat_after"]
+    ms = {"dist build": [], "dist forward": [], "plain build": [],
+          "plain forward": []}
+    errs, bitwise, keys_at_warm = [], True, None
+    launches = dict.fromkeys(KERNELS, 0)
+    for step in range(DIST_SERVE["num_batches"]):
+        if step == warm:
+            keys_at_warm = ex.trace_count
+        seeds = stream.batch(step)
+        t0 = time.perf_counter()
+        smb = eng.dist_batcher.build(seeds, step=step)
+        sync()
+        t1 = time.perf_counter()
+        got = ex.run_minibatch(params, smb, own)
+        sync()
+        t2 = time.perf_counter()
+        # a repeated batch is the batcher's cached one, sampled at the
+        # batch's first occurrence
+        seq = eng.sampler.sample(seeds, batch_index=step % warm)
+        mb = build_minibatch(seq, step=step, tile=cfg["tile"],
+                             node_block=cfg["node_block"], bucket=True,
+                             device=dev)
+        sync()
+        t3 = time.perf_counter()
+        want = plain_ex.run_minibatch(params, mb, x)
+        sync()
+        t4 = time.perf_counter()
+        for k, v in zip(ms, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            ms[k].append(v * 1e3)
+        ops.reset_launch_counts()
+        eager = ex.run_minibatch(params, smb, own, compiled=False)
+        for name, n in ops.launch_counts().items():
+            launches[name] += n
+        check(bool(torch.equal(got, eager)), f"phase 17 a {model}: batch "
+              f"{step} captured logits differ from op by op")
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+              f"phase 17 a {model}: batch {step} logits {tuple(got.shape)}")
+        err = float((got - want).abs().max())
+        errs.append(err)
+        bitwise = bitwise and bool(torch.equal(got, want))
+        check(bool(torch.allclose(got, want, rtol=DIST_TOL, atol=DIST_TOL)),
+              f"phase 17 a {model}: batch {step} dist logits differ from the "
+              f"plain executor's by {err:.3g}")
+    new_keys = ex.trace_count - keys_at_warm
+    check(new_keys == 0, f"phase 17 a {model}: {new_keys} new keys after "
+          f"warm-up")
+    if dev == "cuda":
+        want = {name: FORWARD_LAUNCHES[model].get(name, 0) * DIST_PARTITIONS
+                * DIST_SERVE["num_batches"] for name in KERNELS}
+        check(launches == want, f"phase 17 a {model}: op-by-op dist "
+              f"launches {launches}, expected {want}")
+    p50 = {k: statistics.median(v) for k, v in ms.items()}
+    log(f"[phase 17 a {model}] {card}: logits vs plain max abs "
+        f"{max(errs):.3g} ({'bit for bit' if bitwise else 'not bitwise'}); "
+        f"{ex.trace_count} keys, {ex.captures} graphs, {ex.replays} "
+        f"replays, 0 new after warm-up; p50 ms dist build "
+        f"{p50['dist build']:.3f} + forward {p50['dist forward']:.3f}, plain "
+        f"build {p50['plain build']:.3f} + forward "
+        f"{p50['plain forward']:.3f} (captured both)")
+    return dict(max_abs_err=max(errs), bitwise=bitwise, p50_ms=p50,
+                keys=ex.trace_count, captures=ex.captures,
+                replays=ex.replays,
+                launches={k: v for k, v in launches.items() if v})
+
+
+def dist_task(torch, train_rgnn, model, epochs, dev="cuda"):
+    """The driver's task (``train_rgnn.build_task``) over 4 shards, and its
+    optimizer for ``epochs``."""
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.sampling import EpochSeedStream
+    from repro_torch.train import EngineConfig
+
+    cfg = DIST
+    ecfg = EngineConfig(model=model, layers=cfg["layers"], dim=cfg["dim"],
+                        hidden=cfg["hidden"], classes=DIST_TRAIN["classes"],
+                        fanouts=cfg["fanouts"], tile=cfg["tile"],
+                        node_block=cfg["node_block"], seed=cfg["seed"],
+                        device=dev, partitions=DIST_PARTITIONS)
+    task = train_rgnn.build_task(cfg["dataset"], cfg["scale"], ecfg,
+                                 cfg["seed"])
+    stream = EpochSeedStream(task[3], DIST_TRAIN["batch_size"],
+                             seed=cfg["seed"])
+    opt = AdamW(learning_rate=cosine_schedule(
+        DIST_TRAIN["lr"], 5, epochs * stream.batches_per_epoch),
+        weight_decay=0.0)
+    return task, stream, opt
+
+
+def dist_vs_plain_step(torch, tag, eng, feats, labels, stream, opt, state,
+                       step, held, dev):
+    """One dist step and one plain ``BlockTrainExecutor`` step, op by op,
+    from ``state`` on the stream's batch ``step``: the loss and accuracy
+    (bit for bit reported, rtol 1e-5 held) and the ``held`` parts of the
+    new state within the reference's rtol 2e-5 / atol 2e-6; the max abs
+    difference of params, mu and nu reported."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.sampling import build_minibatch
+
+    cfg = DIST
+    seeds = stream.batch(step)
+    epoch = stream.epoch_of(step)
+    smb = eng.dist_batcher.build(seeds, step=step, epoch=epoch)
+    s_d, m_d = eng.dist_train_executor(opt).grad_and_update(
+        state, smb, labels, eng.shard_features(feats), compiled=False)
+    seq = eng.sampler.sample(seeds, batch_index=step, epoch=epoch)
+    mb = build_minibatch(seq, step=step, tile=cfg["tile"],
+                         node_block=cfg["node_block"], bucket=True,
+                         device=dev)
+    x = torch.from_numpy(feats).to(dev)
+    s_p, m_p = eng.train_executor(opt).grad_and_update(
+        state, mb, torch.from_numpy(seq.slice_labels(labels)).to(dev),
+        {"feature": x[mb.input_ids.long()]}, compiled=False)
+    loss_d, loss_p = float(m_d["loss"]), float(m_p["loss"])
+    check(math.isclose(loss_d, loss_p, rel_tol=1e-5),
+          f"{tag}: dist loss {loss_d!r}, plain {loss_p!r}")
+    # per part, the max abs difference and the largest share of its bound
+    # (|a - b| / (atol + rtol |b|): 1 is the bound)
+    worst, share = {}, {}
+    for part in ("params", "mu", "nu"):
+        for a, b in zip(tree_leaves(getattr(s_d, part)),
+                        tree_leaves(getattr(s_p, part)), strict=True):
+            if part in held:
+                check(bool(torch.allclose(a, b, rtol=DIST_STEP_RTOL,
+                                          atol=DIST_STEP_ATOL)),
+                      f"{tag}: {part} differ from the plain step's by "
+                      f"{float((a - b).abs().max()):.3g}")
+            d = (a - b).abs()
+            worst[part] = max(worst.get(part, 0.0), float(d.max()))
+            share[part] = max(share.get(part, 0.0), float(
+                (d / (DIST_STEP_ATOL + DIST_STEP_RTOL * b.abs())).max()))
+    return dict(loss=loss_d, loss_plain=loss_p,
+                loss_bitwise=loss_d == loss_p,
+                accuracy_equal=float(m_d["accuracy"]) ==
+                float(m_p["accuracy"]), max_abs=worst, bound_share=share)
+
+
+def dist_train(torch, ops, train_rgnn, model, card, dev="cuda"):
+    """Phase 17 (b): ``model`` trained at aifb-b64 over 4 shards on one
+    rank through ``DistTrainer`` (``DIST_TRAIN_RUNS``: RGAT one epoch, HGT
+    two). The first step from the initial state against the plain step:
+    the loss (rtol 1e-5) and the moments (the gradients) within rtol 2e-5
+    / atol 2e-6, and HGT's params; RGAT's params' difference is reported
+    and they are held at those bounds one step later, from a state 5
+    steps in, as HGT's are (AdamW's first update divides each gradient
+    entry by its own magnitude plus 1e-8, so entries near 1e-8 turn the
+    summation order's noise into param changes of 1e-5; see
+    ``TrainTask``).
+    Then the run captured and op by op: finite, falling losses, (one
+    epoch) zero new keys after warm-up, the two runs' losses and final
+    params, mu and nu bit for bit, and the op-by-op run's launches (counts
+    from 0) exactly ``STEP_LAUNCHES`` x the 4 shards x the steps. Step p50
+    of the captured run beside, for RGAT, the plain captured trainer's
+    (``SampledTrainer``) on the same task."""
+    from repro_torch.dist import DistTrainer
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train import SampledTrainer
+
+    tag = f"phase 17 b {model}"
+    epochs, time_plain, first_held = DIST_TRAIN_RUNS[model]
+    marks = [("start", time.perf_counter())]
+    (eng, feats, labels, train_ids, val_ids), stream, opt = dist_task(
+        torch, train_rgnn, model, epochs, dev)
+    state0 = opt.init(eng.init(DIST["seed"]))
+    marks.append(("task", time.perf_counter()))
+    out = {"first_step": dist_vs_plain_step(
+        torch, f"{tag} first step", eng, feats, labels, stream, opt,
+        state0, 0, first_held, dev)}
+    ex = eng.dist_train_executor(opt)
+    state = state0
+    own = eng.shard_features(feats)
+    for step in range(5):
+        state, _ = ex.grad_and_update(
+            state, eng.dist_batcher.build(stream.batch(step), step=step,
+                                          epoch=stream.epoch_of(step)),
+            labels, own, compiled=False)
+    out["step_5"] = dist_vs_plain_step(
+        torch, f"{tag} step 5", eng, feats, labels, stream, opt, state, 5,
+        ("params", "mu", "nu"), dev)
+    marks.append(("against plain", time.perf_counter()))
+
+    runs, keys = {}, []
+    for name in ("captured", "op by op"):
+        compiled = name == "captured"
+        tr = DistTrainer(eng, feats, labels, train_ids, val_ids, opt=opt,
+                         compiled=compiled, log=None)
+        if not compiled:
+            ops.reset_launch_counts()
+        st, stats = tr.train(tree_map(torch.clone, state0), epochs=epochs,
+                             batch_size=DIST_TRAIN["batch_size"])
+        if not compiled:
+            launches = ops.launch_counts()
+        runs[name] = (st, stats)
+        keys.append(ex.trace_count)
+        marks.append((name, time.perf_counter()))
+    st, stats = runs["captured"]
+    losses = stats["losses"]
+    check(all(math.isfinite(v) for v in losses), f"{tag}: a loss is not "
+          f"finite")
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    check(last < first, f"{tag}: loss did not fall ({first:.4f} -> "
+          f"{last:.4f})")
+    # one epoch: the warm-up is the run (the reference's count); over two,
+    # the second epoch's fresh neighborhoods meet new bucket combinations
+    # (logged). Either way the op-by-op run adds no key
+    if epochs == 1:
+        check(stats["retraces_after_warmup"] == 0, f"{tag}: "
+              f"{stats['retraces_after_warmup']} new keys after warm-up")
+    check(keys[-1] == keys[0], f"{tag}: the op-by-op run added "
+          f"{keys[-1] - keys[0]} keys")
+    losses_equal(tag, losses, runs["op by op"][1]["losses"],
+                 "captured / op by op")
+    states_equal(torch, tag, st, runs["op by op"][0], "captured / op by op")
+    want = {name: STEP_LAUNCHES[model].get(name, 0) * stats["steps"]
+            * DIST_PARTITIONS for name in KERNELS}
+    if dev == "cuda":
+        check(launches == want, f"{tag}: op-by-op dist launches "
+              f"{launches}, expected {want}")
+    plain_p50 = None
+    if time_plain:
+        plain = SampledTrainer(eng, feats, labels, train_ids, val_ids,
+                               opt=opt, log=None)
+        _, pstats = plain.train(tree_map(torch.clone, state0),
+                                epochs=epochs,
+                                batch_size=DIST_TRAIN["batch_size"])
+        plain_p50 = pstats["step_ms_p50"]
+        marks.append(("plain", time.perf_counter()))
+    seconds = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    log(f"[{tag}] {card}: {stats['steps']} steps, loss {first:.4f} -> "
+        f"{last:.4f}; first step loss {out['first_step']['loss']!r} vs "
+        f"plain {out['first_step']['loss_plain']!r} (bit for bit: "
+        f"{out['first_step']['loss_bitwise']}), state max abs "
+        f"{json.dumps(out['first_step']['max_abs'])}, share of the bound "
+        f"{json.dumps(out['first_step']['bound_share'])} (held: "
+        f"{', '.join(first_held)}); "
+        f"step 5 state max abs {json.dumps(out['step_5']['max_abs'])}; "
+        f"step p50 dist captured {stats['step_ms_p50']:.3f} ms "
+        f"({stats['executor_compiled']} keys, {stats['executor_captures']} "
+        f"graphs, {stats['retraces_after_warmup']} new after the first "
+        f"epoch's warm-up, none in the op-by-op run) vs plain captured "
+        f"{plain_p50} ms, dist op by op "
+        f"{runs['op by op'][1]['step_ms_p50']:.3f} ms; 2 runs bit for "
+        f"bit; launches op by op = P x per-step counts x steps: "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}")
+    out.update(steps=stats["steps"], loss_first10=first, loss_last10=last,
+               seconds=seconds,
+               step_ms_p50=stats["step_ms_p50"],
+               plain_step_ms_p50=plain_p50,
+               eager_step_ms_p50=runs["op by op"][1]["step_ms_p50"],
+               keys=stats["executor_compiled"],
+               retraces_after_warmup=stats["retraces_after_warmup"],
+               captures=stats["executor_captures"],
+               launches={k: v for k, v in launches.items() if v},
+               launches_expected={k: v for k, v in want.items() if v})
+    return out
+
+
+def dist_ranks(torch, serve_rgnn, train_rgnn, card, dev="cuda"):
+    """Phase 17 (c): two ranks on the one card (gloo: both ranks share the
+    card), started by the drivers: ``train_rgnn.main([... "--dp", "2",
+    "--partitions", "4"])`` for 5 RGAT steps and ``serve_rgnn.serve(dp=2,
+    partitions=4)`` for 4 batches, against the same calls at dp = 1 in
+    this process: every loss, the final params, mu, nu and step, and every
+    served batch's logits bit for bit."""
+    import numpy as np
+
+    cfg = DIST
+    argv = ["--device", dev, "--model", "rgat", "--dataset", cfg["dataset"],
+            "--scale", str(cfg["scale"]), "--dim", str(cfg["dim"]),
+            "--hidden", str(cfg["hidden"]), "--classes",
+            str(DIST_TRAIN["classes"]), "--fanout", "5", "--tile",
+            str(cfg["tile"]), "--node-block", str(cfg["node_block"]),
+            "--batch-size", str(DIST_TRAIN["batch_size"]), "--epochs", "1",
+            "--max-steps", str(DIST_RANK_STEPS), "--partitions",
+            str(DIST_PARTITIONS), "--obs", "off"]
+    skw = dict(model="rgat", dataset=cfg["dataset"], scale=cfg["scale"],
+               layers=cfg["layers"], dim=cfg["dim"], hidden=cfg["hidden"],
+               classes=DIST_SERVE["classes"], fanouts=cfg["fanouts"],
+               batch_size=DIST_SERVE["batch_size"],
+               num_batches=DIST_RANK_BATCHES, tile=cfg["tile"],
+               node_block=cfg["node_block"], seed=cfg["seed"], device=dev,
+               partitions=DIST_PARTITIONS, keep_logits=True, obs_mode="off")
+    out, t = {}, {}
+    for dp in (1, 2):
+        t0 = time.perf_counter()
+        tr = train_rgnn.main(argv + ["--dp", str(dp)])
+        sv = serve_rgnn.serve(**skw, dp=dp, log=lambda *a: None)
+        t[dp] = time.perf_counter() - t0
+        out[dp] = (tr, sv)
+    (t1, s1), (t2, s2) = out[1], out[2]
+    tag = "phase 17 c two ranks"
+    check(t2["dp"] == 2 and s2["dp"] == 2 and t2["steps"] == DIST_RANK_STEPS,
+          f"{tag}: dp {t2['dp']} / {s2['dp']}, {t2['steps']} steps")
+    losses_equal(tag, t1["losses"], t2["losses"], "dp=1 / dp=2")
+    check(len(t1["final_state"]) == len(t2["final_state"]) and all(
+        np.array_equal(a, b) for a, b in zip(t1["final_state"],
+                                             t2["final_state"])),
+          f"{tag}: the optimizer state after {DIST_RANK_STEPS} steps "
+          f"differs between dp=1 and dp=2")
+    check(len(s1["logits"]) == len(s2["logits"]) == DIST_RANK_BATCHES and all(
+        np.array_equal(a, b) for a, b in zip(s1["logits"], s2["logits"])),
+          f"{tag}: served logits differ between dp=1 and dp=2")
+    log(f"[{tag}] {card}: gloo, 2 ranks on the one card; {DIST_RANK_STEPS} "
+        f"RGAT steps (losses {t2['losses']}) and {DIST_RANK_BATCHES} served "
+        f"batches bit for bit equal to dp=1; step p50 dp=1 "
+        f"{t1['step_ms_p50']:.3f} ms vs dp=2 {t2['step_ms_p50']:.3f} ms, "
+        f"serve p50 dp=1 {s1['latency_ms_p50']:.3f} ms vs dp=2 "
+        f"{s2['latency_ms_p50']:.3f} ms; wall s dp=1 {t[1]:.2f}, dp=2 "
+        f"{t[2]:.2f} (ranks started included)")
+    return dict(losses=t2["losses"], step_ms_p50={1: t1["step_ms_p50"],
+                                                  2: t2["step_ms_p50"]},
+                serve_ms_p50={1: s1["latency_ms_p50"],
+                              2: s2["latency_ms_p50"]},
+                wall_s=t, backend="gloo")
+
+
+def phase_dist(torch, hector_torch, ops, serve_rgnn, train_rgnn, card,
+               dev="cuda"):
+    """Phase 17: data parallelism at full width, over 4 shards of aifb at
+    scale 1.0: (a) serving, (b) training on one rank, (c) two ranks."""
+    seconds, t0 = {}, time.perf_counter()
+    out = {"serve": {m: dist_serve(torch, hector_torch, ops, m, card, dev)
+                     for m in DIST_SERVE_MODELS}}
+    seconds["a"], t0 = time.perf_counter() - t0, time.perf_counter()
+    out["train"] = {m: dist_train(torch, ops, train_rgnn, m, card, dev)
+                    for m in DIST_TRAIN_RUNS}
+    seconds["b"], t0 = time.perf_counter() - t0, time.perf_counter()
+    out["ranks"] = dist_ranks(torch, serve_rgnn, train_rgnn, card, dev)
+    seconds["c"] = time.perf_counter() - t0
+    log(f"[phase 17] seconds per part: "
+        f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}")
+    out["seconds"] = seconds
     return out
 
 
@@ -5789,6 +6318,12 @@ def main(argv=None) -> int:
         online = phase_online(torch, hector_torch, serve_rgnn, card)
         seconds["phase 16"] = time.perf_counter() - t0
         log(f"[phase 16] {seconds['phase 16']:.2f} s")
+        log("[phase 17] start")
+        t0 = time.perf_counter()
+        dist = phase_dist(torch, hector_torch, ops, serve_rgnn, train_rgnn,
+                          card)
+        seconds["phase 17"] = time.perf_counter() - t0
+        log(f"[phase 17] {seconds['phase 17']:.2f} s")
         # the main path's launches, each run from counts set to 0 just
         # before it, each run op by op so that every kernel the card runs
         # goes through its wrapper: phase 6 of every model (K1-K5, K7),
@@ -5840,7 +6375,7 @@ def main(argv=None) -> int:
             serve=serve, profile=prof, train=train, full_graph=full,
             train_profile=train_prof, device_serve=device_serve,
             device_train=device_train, tuning=tuning, lm=lm, obs=obs_out,
-            capture=capture, features=features, online=online,
+            capture=capture, features=features, online=online, dist=dist,
             split_timed=split["timed"], k5_sass=k5_sass,
             gemm_ptxas=gemm_ptxas,
             torch=torch.__version__,

@@ -1,6 +1,6 @@
 """Architecture registry: the 10 assigned LM configs, with ``reduced()``
-smoke-test variants (the port's copy of ``repro.configs``; the RGNN
-configs of ``repro/configs/rgnn.py`` are not ported yet).
+smoke-test variants (the port's copy of ``repro.configs``); the paper's
+RGNN configs are in ``repro_torch.configs.rgnn``.
 
 ``get_config(arch_id)`` returns the exact published full config;
 ``get_reduced(arch_id)`` returns a structurally identical small config

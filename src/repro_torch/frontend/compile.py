@@ -17,7 +17,8 @@ autotuner on that device exactly as the drivers' ``--tune`` flag does.
 ``feature_store=`` / ``feature_budget=`` pick the tier of the node-feature
 table (``repro_torch.feats``): ``compiled.make_feature_store(feats)``
 builds it, and it goes wherever a raw table went (``make_loader``,
-``apply_blocks``, ``train_step``, ``profile``).
+``apply_blocks``, ``train_step``, ``profile``). ``dp=`` / ``partitions=``
+turn on data-parallel execution (``repro_torch.dist``).
 """
 from __future__ import annotations
 
@@ -145,6 +146,8 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
     seed: int = 0,
     device=None,
     sampler: str = "host",
+    dp: int = 1,
+    partitions: Optional[int] = None,
     feature_store: str = "device",
     feature_budget: Optional[int] = None,
     tune: str = "off",
@@ -174,7 +177,14 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
     device), ``"host"`` (host tables, only sampled rows shipped) or
     ``"cached"`` (the host tier behind a device hot-row cache of
     ``feature_budget`` rows, default table/4); predictions are the same
-    bit for bit across the three. ``opt`` (a ``repro_torch.optim.AdamW``)
+    bit for bit across the three. ``dp`` / ``partitions``: data-parallel
+    execution (``repro_torch.dist``): the graph is edge-cut into
+    ``partitions`` shards (default one per rank) and the multi-shard train
+    and serve steps run them on ``dp`` ranks (``dp > 1`` inside the ranks
+    ``launch.mesh.launch_ranks`` starts), the halo-feature all-gather and
+    the gradient sum included. The engine then exposes ``dist_batcher`` /
+    ``dist_train_executor(opt)`` / ``dist_serve_executor()`` /
+    ``shard_features(feats)``. ``opt`` (a ``repro_torch.optim.AdamW``)
     is ``train_step``'s optimizer (default lr 3e-3).
     ``tune``: ``"off"`` (the defaults), ``"cached"`` (replay the
     persistent cache at ``tune_cache``, no measurement) or ``"full"``
@@ -214,8 +224,8 @@ def compile(  # noqa: A001 - deliberate: the hector_torch.compile() front door
             model=prog_fn, layers=layers, dim=dim, hidden=hidden,
             classes=classes, fanouts=sample, tile=tile,
             node_block=node_block, bucket=bucket, activation=activation,
-            seed=seed, device=device, sampler=sampler,
-            feature_store=feature_store, feature_budget=feature_budget,
+            seed=seed, device=device, sampler=sampler, dp=dp,
+            partitions=partitions, feature_store=feature_store, feature_budget=feature_budget,
             tune=tune, tune_cache=tune_cache,
             tune_full_graph=tune_full_graph)
     return CompiledRGNN(RGNNEngine(graph, cfg, log=log), opt=opt)

@@ -76,6 +76,20 @@ captured after warm-up).
         --device cpu --scale 0.05 --fanout 3 --dim 8 --hidden 8 \\
         --classes 4 --tile 8 --node-block 8 --rate 200 --requests 24 \\
         --slo-ms 3000 --sizes 1,2,4
+
+``--reduced`` scales the dataset to its CPU size (``CPU_REDUCED_SCALES``;
+an explicit ``--scale`` wins), ``--no-bucket`` serves every batch at its
+exact shapes (each new shape is a new executor key; the online runtime
+always buckets). ``--dp N`` / ``--partitions P`` serve data-parallel
+(``repro_torch.dist``): the graph is edge-cut into ``P`` shards (default
+one per rank), every request batch is routed to its owner shards, sampled
+per shard and run by the multi-shard step. With ``N > 1`` the driver
+starts its ``N`` ranks itself (``launch.mesh.launch_ranks``: ``cuda:r``
+where there are ``N`` cards, the one card otherwise, or the CPU with
+``--device cpu``); rank 0 prints and returns the stats.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_rgnn --device cpu \\
+        --reduced --dp 2 --partitions 4
 """
 from __future__ import annotations
 
@@ -90,6 +104,7 @@ from repro_torch import obs
 from repro_torch.core.graph import CPU_REDUCED_SCALES as REDUCED_SCALES
 from repro_torch.core.graph import table3_graph
 from repro_torch.launch import obs_report, obs_scope
+from repro_torch.launch.mesh import in_ranks, launch_ranks
 from repro_torch.sampling import SeedStream
 from repro_torch.train.engine import (MODEL_PROGRAMS, parse_fanout,
                                       resolve_device)
@@ -131,6 +146,10 @@ def serve(
     profile: bool = False,
     params=None,
     on_batch=None,
+    bucket: bool = True,
+    dp: int = 1,
+    partitions=None,
+    keep_logits: bool = False,
     log=print,
 ):
     """Run the serving loop on ``device`` (``None``: the CUDA card); returns
@@ -164,7 +183,19 @@ def serve(
     as ``stats["profile"]``. ``obs_mode="off"`` serves with observability
     fully disabled. Logits and signature counts are the same in every
     mode.
+
+    ``bucket=False`` serves every batch at its exact shapes. ``dp`` /
+    ``partitions`` serve data-parallel through ``repro_torch.dist`` (with
+    ``dp > 1`` on ``dp`` ranks this call starts; rank 0's stats come
+    back). ``keep_logits=True`` returns every batch's logits as
+    ``stats["logits"]`` (numpy).
     """
+    if dp > 1 and not in_ranks():
+        if on_batch is not None:
+            raise ValueError("on_batch runs in this process; with dp > 1 "
+                             "the batches run on the ranks")
+        kw = {k: v for k, v in locals().items() if k not in ("device", "log")}
+        return launch_ranks(serve, dp, device, kw)
     if warmup_batches is None:
         warmup_batches = repeat_after if repeat_after else WARMUP_BATCHES
     warmup_batches = min(warmup_batches, num_batches)
@@ -181,7 +212,8 @@ def serve(
         engine = hector_torch.compile(
             model, graph, layers=layers, dim=dim, hidden=hidden,
             classes=classes, sample=fanouts, tile=tile,
-            node_block=node_block, seed=seed, device=dev, sampler=sampler,
+            node_block=node_block, bucket=bucket, seed=seed, device=dev,
+            sampler=sampler, dp=dp, partitions=partitions,
             feature_store=feature_store, feature_budget=feature_budget,
             tune=tune, tune_cache=tune_cache, tune_full_graph=False, log=log)
         fanouts = engine.cfg.fanouts
@@ -205,6 +237,11 @@ def serve(
                 f"({store.device_bytes() / 1e6:.2f} MB vs full table "
                 f"{store.table_bytes / 1e6:.2f} MB), per-ntype slots "
                 f"{store.slot_ptr.tolist()}")
+
+        if engine.cfg.distributed:
+            return _serve_dist(engine, store, params, stream, num_batches,
+                               warmup_batches, compiled, keep_logits,
+                               on_batch, sc, trace_out, metrics_out, log)
 
         if tune != "off":
             # block-scale tuning on one representative (bucketed)
@@ -236,6 +273,7 @@ def serve(
         h_wait = metrics.histogram("serve_wait_ms")
         h_compute = metrics.histogram("serve_compute_ms")
         lat, waits, computes, preds = [], [], [], None
+        kept = []
         last_mb = None
         edges_seen = 0
         traces_at_warmup = None
@@ -273,6 +311,8 @@ def serve(
                 last_mb = mb
                 edges_seen += sum(gt.num_edges for gt in mb.tensors)
                 preds = torch.argmax(logits, dim=-1).cpu().numpy()
+                if keep_logits:
+                    kept.append(logits.cpu().numpy())
                 if on_batch is not None:
                     on_batch(mb, logits)
                 hops = "+".join(str(b.num_src) for b in mb.seq.blocks)
@@ -315,6 +355,8 @@ def serve(
             "executor_replays": executor.replays,
             "device": str(dev),
         }
+        if keep_logits:
+            stats["logits"] = kept
         for name, cs in loader.cache_stats().items():
             stats[f"{name}_hits"] = cs["hits"]
             stats[f"{name}_misses"] = cs["misses"]
@@ -380,12 +422,116 @@ def serve(
         log(f"[serve_rgnn] sample predictions: {preds[:12].tolist()}")
 
         if profile and last_mb is not None:
-            p = engine.profile(params, last_mb, store, warmup=1, iters=5)
+            # on a card 100 rounds, not the reference's 5: the eager block
+            # path is host-bound, and a minimum of 5 host-clock samples per
+            # prefix let the coverage of a bgs-b1024 batch stray to 0.76 and
+            # 1.38 on an H100 80GB HBM3 at 700 W (25 rounds: 0.85, 50: 1.14)
+            rounds = 100 if torch.device(engine.device).type == "cuda" else 5
+            p = engine.profile(params, last_mb, store, warmup=1,
+                               iters=rounds)
             log("[serve_rgnn] per-op kernel breakdown (last batch):\n"
                 + p.table())
             stats["profile"] = p.to_json()
         obs_report(sc, stats, trace_out, metrics_out, log, "serve_rgnn")
         return stats
+
+
+def _serve_dist(engine, store, params, stream, num_batches, warmup_batches,
+                compiled, keep_logits, on_batch, sc, trace_out, metrics_out,
+                log):
+    """The multi-shard serving loop: route each request batch to its owner
+    shards, sample per shard, run the multi-shard step and report
+    request-order predictions; the stats keys mirror the single-box
+    loop's, as the reference's do.
+
+    The per-owner feature slabs are read through the feature store
+    (``host_rows``): with a host / cached store the whole table never
+    goes to the device, each rank holds only its shards' rows."""
+    cfg = engine.cfg
+    dev = engine.device
+    log(f"[serve_rgnn] distributed: {cfg.num_partitions} shards over "
+        f"{cfg.dp} ranks ({engine.data_mesh.backend or 'one process'})\n"
+        + engine.partition.describe())
+    batcher = engine.dist_batcher
+    serve_ex = engine.dist_serve_executor()
+    own_feats = engine.shard_features(store)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    metrics = obs.metrics()
+    h_lat = metrics.histogram("serve_batch_ms")
+    lat, waits, computes, preds, kept = [], [], [], None, []
+    traces_at_warmup = None
+    t_serve0 = time.perf_counter()
+    for step in range(num_batches):
+        if step == warmup_batches:
+            traces_at_warmup = serve_ex.trace_count
+        t0 = time.perf_counter()
+        with obs.span("wait", batch=step):
+            smb = batcher.build(stream.batch(step), step=step)
+        t_wait = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with obs.span("execute", step=step):
+            logits = serve_ex.run_minibatch(params, smb, own_feats,
+                                            compiled=compiled)
+            sync()
+        t_fwd = time.perf_counter() - t0
+        lat.append(t_wait + t_fwd)
+        waits.append(t_wait)
+        computes.append(t_fwd)
+        h_lat.observe((t_wait + t_fwd) * 1e3)
+        preds = torch.argmax(logits, dim=-1).cpu().numpy()
+        if keep_logits:
+            kept.append(logits.cpu().numpy())
+        if on_batch is not None:
+            on_batch(smb, logits)
+        log(f"[serve_rgnn] batch {step}: route+sample {t_wait*1e3:6.1f} ms, "
+            f"forward {t_fwd*1e3:6.1f} ms")
+    t_total = time.perf_counter() - t_serve0
+    if traces_at_warmup is None:
+        traces_at_warmup = serve_ex.trace_count
+
+    lat_arr = np.asarray(lat)
+    batch_size = int(stream.batch_size)
+    stats = {
+        "batches": num_batches,
+        "batch_size": batch_size,
+        "dp": cfg.dp,
+        "num_partitions": cfg.num_partitions,
+        "latency_ms_p50": float(np.percentile(lat_arr, 50) * 1e3),
+        "latency_ms_p95": float(np.percentile(lat_arr, 95) * 1e3),
+        "latency_ms_p99": float(np.percentile(lat_arr, 99) * 1e3),
+        "latency_ms_mean": float(lat_arr.mean() * 1e3),
+        "wait_ms_mean": float(np.mean(waits) * 1e3),
+        "compute_ms_mean": float(np.mean(computes) * 1e3),
+        "seeds_per_s": batch_size * num_batches / max(t_total, 1e-9),
+        "last_preds": preds,
+        "warmup_batches": warmup_batches,
+        "executor_traces": serve_ex.trace_count,
+        "executor_cache_hits": serve_ex.cache_hits,
+        "executor_compiled": serve_ex.num_compiled,
+        "executor_captures": serve_ex.captures,
+        "executor_replays": serve_ex.replays,
+        "retraces_after_warmup": serve_ex.trace_count - traces_at_warmup,
+        "host_builds": batcher.host_builds,
+        "device_builds": 0,
+        "sampler": "sharded",
+        "device": str(dev),
+    }
+    if keep_logits:
+        stats["logits"] = kept
+    for k, v in batcher.stats().items():
+        stats[f"batcher_{k}"] = v
+    for k, v in store.stats().items():
+        stats[f"feature_{k}"] = v
+    log(f"[serve_rgnn] served {num_batches} batches x {batch_size} seeds "
+        f"on {cfg.num_partitions} shards / {cfg.dp} ranks: "
+        f"latency p50 {stats['latency_ms_p50']:.1f} ms "
+        f"(route+sample {stats['wait_ms_mean']:.1f} + "
+        f"compute {stats['compute_ms_mean']:.1f} ms avg), "
+        f"{stats['retraces_after_warmup']} new keys after warmup")
+    log(f"[serve_rgnn] sample predictions: {preds[:12].tolist()}")
+    obs_report(sc, stats, trace_out, metrics_out, log, "serve_rgnn")
+    return stats
 
 
 def serve_online(
@@ -510,8 +656,11 @@ def main(argv=None):
     ap.add_argument("--model", default="rgat", choices=sorted(MODEL_PROGRAMS))
     ap.add_argument("--dataset", default="aifb",
                     choices=sorted(REDUCED_SCALES))
-    ap.add_argument("--scale", type=float, default=1.0,
-                    help="dataset scale factor")
+    ap.add_argument("--reduced", action="store_true",
+                    help="scale the dataset to its CPU size")
+    ap.add_argument("--scale", type=float, default=None,
+                    help="explicit dataset scale factor (overrides "
+                         "--reduced; default 1.0)")
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--dim", type=int, default=64)
     ap.add_argument("--hidden", type=int, default=64)
@@ -522,6 +671,19 @@ def main(argv=None):
     ap.add_argument("--num-batches", type=int, default=8)
     ap.add_argument("--tile", type=int, default=32)
     ap.add_argument("--node-block", type=int, default=32)
+    ap.add_argument("--no-bucket", action="store_true",
+                    help="serve every batch at its exact shapes (no "
+                         "power-of-two padding: each new shape is a new "
+                         "executor key); the online runtime always buckets")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel ranks: shard the graph and serve "
+                         "every request batch across all shards; N > 1 "
+                         "starts N ranks (rank r on cuda:r with N cards, "
+                         "else on the one card or --device cpu)")
+    ap.add_argument("--partitions", type=int, default=None,
+                    help="graph shard count (default: one per --dp rank; "
+                         "a multiple of --dp folds extra shards onto ranks "
+                         "with bit-identical results)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default; fails without a card) or "
@@ -606,9 +768,15 @@ def main(argv=None):
     online.add_argument("--speedup", type=float, default=1.0,
                         help="compress the arrival schedule by this factor")
     args = ap.parse_args(argv)
+    if args.scale is not None:
+        scale = args.scale
+    elif args.reduced:
+        scale = REDUCED_SCALES[args.dataset]
+    else:
+        scale = 1.0
     if args.runtime == "online":
         return serve_online(
-            model=args.model, dataset=args.dataset, scale=args.scale,
+            model=args.model, dataset=args.dataset, scale=scale,
             layers=args.layers, dim=args.dim, hidden=args.hidden,
             classes=args.classes,
             fanouts=parse_fanout(args.fanout, args.layers),
@@ -625,7 +793,7 @@ def main(argv=None):
             obs_mode=args.obs, trace_out=args.trace_out,
             metrics_out=args.metrics_out)
     return serve(
-        model=args.model, dataset=args.dataset, scale=args.scale,
+        model=args.model, dataset=args.dataset, scale=scale,
         layers=args.layers, dim=args.dim, hidden=args.hidden,
         classes=args.classes,
         fanouts=parse_fanout(args.fanout, args.layers),
@@ -639,7 +807,8 @@ def main(argv=None):
         repeat_after=args.repeat_after or None, compiled=not args.eager,
         obs_mode=args.obs,
         trace_out=args.trace_out, metrics_out=args.metrics_out,
-        profile=args.profile,
+        profile=args.profile, bucket=not args.no_bucket, dp=args.dp,
+        partitions=args.partitions,
     )
 
 

@@ -36,7 +36,22 @@ trainer never puts the whole table on the card, so the periodic and final
 evaluations are sampled only (rows read through ``host_rows``) and
 ``--parity`` (a full-graph run) needs ``device``; the task's teacher
 labels come from one full-graph forward while the task is made, before
-the store exists. Data parallelism is a later slice.
+the store exists.
+
+``--dp N`` / ``--partitions P`` train data-parallel (``repro_torch.dist``,
+``DistTrainer``): the graph is edge-cut into ``P`` shards (default one per
+rank), every step runs each shard's block forward and backward, sums the
+per-shard gradients over the gathered shard axis (the same bits at every
+``N``) and takes one AdamW step; the final evaluation is full-graph. With
+``N > 1`` the driver starts its ``N`` ranks itself
+(``launch.mesh.launch_ranks``: ``cuda:r`` where there are ``N`` cards, the
+one card otherwise, or the CPU with ``--device cpu``); rank 0 prints and
+returns the stats, the final optimizer state among them. ``--max-steps``
+stops such a run early. ``--parity``, ``--profile``, ``--ckpt-dir`` and
+``--resume`` are refused with them, as in the reference.
+
+    PYTHONPATH=src python -m repro_torch.launch.train_rgnn --device cpu \
+        --model rgat --reduced --epochs 1 --dp 2 --partitions 4
 
     PYTHONPATH=src python -m repro_torch.launch.train_rgnn --device cpu \
         --model rgcn --reduced --feature-store cached --feature-budget 64
@@ -62,6 +77,7 @@ import hector_torch
 from repro_torch.core.graph import (CPU_REDUCED_SCALES,
                                     synthetic_heterograph, table3_graph)
 from repro_torch.launch import obs_report, obs_scope
+from repro_torch.launch.mesh import in_ranks, launch_ranks
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.sampling import EpochSeedStream, SeedStream
 from repro_torch.train import (EngineConfig, MODEL_PROGRAMS, SampledTrainer,
@@ -139,6 +155,9 @@ def train(
     trace_out=None,
     metrics_out=None,
     profile: bool = False,
+    dp: int = 1,
+    partitions=None,
+    max_steps=None,
     log=print,
 ):
     """Run the sampled training loop on ``device`` (``None``: the CUDA
@@ -154,7 +173,14 @@ def train(
     the run in an ``obs.scope`` (``stats["metrics"]``, optional
     ``metrics_out`` export); ``trace_out`` adds phase tracing and writes a
     Chrome-trace JSON; ``profile=True`` attributes one sampled SGD step
-    into forward / backward / optimizer (``stats["profile"]``, ms)."""
+    into forward / backward / optimizer (``stats["profile"]``, ms).
+
+    ``dp`` / ``partitions`` train data-parallel (``DistTrainer``; with
+    ``dp > 1`` on ``dp`` ranks this call starts, returning rank 0's
+    stats); ``max_steps`` stops that run early."""
+    if dp > 1 and not in_ranks():
+        kw = {k: v for k, v in locals().items() if k not in ("device", "log")}
+        return launch_ranks(train, dp, device, kw)
     if parity and feature_store != "device":
         raise ValueError("parity runs the full graph, which needs the "
                          "whole table on the device: feature_store='device'")
@@ -166,7 +192,8 @@ def train(
                            device=str(dev), sampler=sampler,
                            feature_store=feature_store,
                            feature_budget=feature_budget, tune=tune,
-                           tune_cache=tune_cache)
+                           tune_cache=tune_cache, dp=dp,
+                           partitions=partitions)
         engine, feats, labels, train_ids, val_ids = build_task(
             dataset, scale, cfg, seed, val_frac, log=log)
         log(f"[train_rgnn] {model} on {dataset} (scale {scale}): "
@@ -197,6 +224,11 @@ def train(
                 f"({store.device_bytes() / 1e6:.2f} MB vs full table "
                 f"{store.table_bytes / 1e6:.2f} MB), per-ntype slots "
                 f"{store.slot_ptr.tolist()}")
+        if cfg.distributed:
+            return _train_dist(engine, store, labels, train_ids, val_ids,
+                               opt, epochs, batch_size, bpe, seed, parity,
+                               profile, ckpt_dir, resume, compiled,
+                               max_steps, sc, trace_out, metrics_out, log)
         trainer = SampledTrainer(engine, store, labels, train_ids, val_ids,
                                  opt=opt, ckpt_dir=ckpt_dir,
                                  compiled=compiled, log=log)
@@ -338,6 +370,60 @@ def train(
         return stats
 
 
+def _train_dist(engine, store, labels, train_ids, val_ids, opt, epochs,
+                batch_size, bpe, seed, parity, profile, ckpt_dir, resume,
+                compiled, max_steps, sc, trace_out, metrics_out, log):
+    """The data-parallel training loop (``--dp`` / ``--partitions``):
+    sharded sampling and one multi-shard step per batch, metrics read
+    once after the loop; the final evaluation runs the full-graph step.
+    The stats carry the final optimizer state as ``final_state`` (numpy,
+    ``tree_leaves`` order: params, mu, nu, step)."""
+    if parity or profile or ckpt_dir or resume:
+        raise ValueError("--parity/--profile/--ckpt-dir/--resume are not "
+                         "supported together with --dp/--partitions")
+    from repro_torch.dist import DistTrainer
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import FullGraphTrainer
+    cfg = engine.cfg
+    log(f"[train_rgnn] distributed: {cfg.num_partitions} shards over "
+        f"{cfg.dp} ranks ({engine.data_mesh.backend or 'one process'})\n"
+        + engine.partition.describe())
+    trainer = DistTrainer(engine, store, labels, train_ids, val_ids,
+                          opt=opt, compiled=compiled, log=log)
+    state = trainer.init_state(engine.init(seed))
+    state, stats = trainer.train(state, epochs=epochs,
+                                 batch_size=batch_size,
+                                 log_every=max(1, bpe // 2),
+                                 max_steps=max_steps)
+
+    full = FullGraphTrainer(engine, store, labels, train_ids, opt=opt,
+                            compiled=compiled, log=log)
+    final_train = full.evaluate(state.params)
+    final_val = (full.evaluate(state.params, val_ids)
+                 if len(val_ids) else None)
+    stats["full_train_loss"] = final_train["loss"]
+    stats["full_train_acc"] = final_train["accuracy"]
+    if final_val is not None:
+        stats["full_val_loss"] = final_val["loss"]
+        stats["full_val_acc"] = final_val["accuracy"]
+    stats["device"] = str(engine.device)
+    stats["final_state"] = [t.cpu().numpy() for t in tree_leaves(state)]
+    log(f"[train_rgnn] dist training done: {stats['steps']} steps on "
+        f"{cfg.num_partitions} shards / {cfg.dp} ranks, "
+        f"step p50 {stats['step_ms_p50']:.1f} ms, "
+        f"{stats['seeds_per_s']:.1f} seeds/s, "
+        f"{stats['retraces_after_warmup']} new keys after warmup "
+        f"({stats['executor_compiled']} in all)")
+    log(f"[train_rgnn] full-graph eval: train loss {final_train['loss']:.4f} "
+        f"acc {final_train['accuracy']:.2%}"
+        + (f" | val loss {final_val['loss']:.4f} "
+           f"acc {final_val['accuracy']:.2%}" if final_val else ""))
+    for k, v in store.stats().items():
+        stats[f"feature_{k}"] = v
+    obs_report(sc, stats, trace_out, metrics_out, log, "train_rgnn")
+    return stats
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--model", default="rgat", choices=sorted(MODEL_PROGRAMS))
@@ -360,6 +446,18 @@ def main(argv=None):
     ap.add_argument("--tile", type=int, default=32)
     ap.add_argument("--node-block", type=int, default=32)
     ap.add_argument("--no-bucket", action="store_true")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel ranks: shard the graph and run each "
+                         "SGD step across all shards; N > 1 starts N ranks "
+                         "(rank r on cuda:r with N cards, else on the one "
+                         "card or --device cpu)")
+    ap.add_argument("--partitions", type=int, default=None,
+                    help="graph shard count (default: one per --dp rank; "
+                         "a multiple of --dp folds extra shards onto ranks "
+                         "with bit-identical results)")
+    ap.add_argument("--max-steps", type=int, default=None,
+                    help="stop a --dp / --partitions run after this many "
+                         "steps")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--val-frac", type=float, default=0.2)
     ap.add_argument("--ckpt-dir", default=None)
@@ -442,7 +540,8 @@ def main(argv=None):
         feature_budget=args.feature_budget, tune=args.tune,
         tune_cache=args.tune_cache,
         skew=args.skew, compiled=not args.eager, obs_mode=args.obs, trace_out=args.trace_out,
-        metrics_out=args.metrics_out, profile=args.profile,
+        metrics_out=args.metrics_out, profile=args.profile, dp=args.dp,
+        partitions=args.partitions, max_steps=args.max_steps,
     )
 
 

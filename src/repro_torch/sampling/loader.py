@@ -51,7 +51,10 @@ rows gathered are those of the batch the consumer runs. Batches stay in
 the block cache without ``feats``: every occurrence gathers again, so the
 cached tier's state moves forward with the stream.
 
-Not ported yet: graph partitions (the reference's ``partition=``).
+``partition=`` names the graph shard a loader samples from (a
+``repro_torch.dist.GraphPartition``, a ``(partition, shard)`` pair or any
+hashable id), as the reference's: it joins every block and layout cache
+key, so shards sharing a process never replay each other's entries.
 """
 from __future__ import annotations
 
@@ -390,6 +393,22 @@ def build_minibatch(seq: BlockSequence, step: int = 0, tile: int = 128,
     )
 
 
+def _partition_token(partition):
+    """Stable hashable identity of a graph partition (or shard thereof):
+    ``None`` (unpartitioned), a ``GraphPartition`` (its shard bounds), a
+    ``(GraphPartition, shard_index)`` pair, or any hashable token the
+    caller chooses."""
+    if partition is None:
+        return None
+    if isinstance(partition, tuple) and len(partition) == 2:
+        return (_partition_token(partition[0]), partition[1])
+    bounds = getattr(partition, "bounds", None)
+    if bounds is not None:
+        return ("part", int(getattr(partition, "num_parts", 0)),
+                np.asarray(bounds).tobytes())
+    return partition
+
+
 class MiniBatchLoader:
     """Prefetch of sampled mini-batches: a background thread (host mode) or
     batches dispatched ahead on the device (device mode).
@@ -420,7 +439,8 @@ class MiniBatchLoader:
     its first occurrence, re-stamped with the current step; for training
     streams the epoch is part of the key (and re-keys the sampler), so a
     later epoch draws a fresh neighborhood. The layout cache is host mode
-    only (the device sampler builds its own layouts).
+    only (the device sampler builds its own layouts). ``partition`` (see
+    ``_partition_token``) joins both caches' keys.
     """
 
     _SENTINEL = object()
@@ -440,10 +460,14 @@ class MiniBatchLoader:
         cache_layouts: int = 0,
         feature_store=None,
         shape_floors=None,
+        partition=None,
         depth: int = PREFETCH_DEPTH,
         device="cpu",
     ):
         self.sampler = sampler
+        # loaders of different shards of one graph may share a process
+        # (and a layout cache): the token keeps their entries apart
+        self._partition_key = _partition_token(partition)
         self.shape_floors = shape_floors
         self._depth = max(1, depth)
         # single-writer: only this loader's producer calls its gather
@@ -526,7 +550,7 @@ class MiniBatchLoader:
 
     def _cache_key(self, seeds: np.ndarray, epoch) -> tuple:
         return (np.asarray(seeds).tobytes(), self._fanout_key, self.tile,
-                self.node_block, self.bucket, epoch)
+                self.node_block, self.bucket, epoch, self._partition_key)
 
     def _cached(self, step: int, seeds, epoch):
         """``(cached batch re-stamped with step or None, cache key)``."""
@@ -554,6 +578,7 @@ class MiniBatchLoader:
                                  node_block=self.node_block,
                                  bucket=self.bucket,
                                  layout_cache=self.layout_cache,
+                                 layout_scope=self._partition_key,
                                  shape_floors=self.shape_floors,
                                  device=self.device)
         if key is not None:

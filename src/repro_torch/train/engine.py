@@ -16,7 +16,14 @@ CUDA graph per signature on a card (``core.executor``).
 ``make_feature_store`` builds the tiered node-feature store the config
 asks for (``feature_store`` / ``feature_budget``, ``repro_torch.feats``),
 the cached tier's per-ntype split measured on the caller's stream; loaders
-attach its rows to every batch. Data parallelism is a later slice.
+attach its rows to every batch.
+
+With ``dp`` / ``partitions`` (``repro_torch.dist``) the engine also builds,
+eagerly, an edge-cut ``partition`` of the graph, this rank's
+``data_mesh`` (``launch.mesh.DataGroup``) and the ``dist_batcher``, which
+lays out the shards this rank runs on its device; ``shard_features``,
+``dist_serve_executor`` and ``dist_train_executor(opt)`` complete the
+data-parallel surface.
 """
 from __future__ import annotations
 
@@ -97,6 +104,11 @@ class EngineConfig:
     # decisions (they shape the shared lowered plans) but skips the
     # full-graph layout/op measurements serving traffic never queries
     tune_full_graph: bool = True
+    # data-parallel execution: ``dp`` ranks over a ``partitions``-way
+    # edge-cut partition of the graph (default: one shard per rank);
+    # extra shards fold onto ranks with bit-identical results
+    dp: int = 1
+    partitions: Optional[int] = None
 
     def __post_init__(self):
         if isinstance(self.model, str):
@@ -119,6 +131,21 @@ class EngineConfig:
             else [5] * self.layers
         if len(self.fanouts) != self.layers:
             raise ValueError("one fanout per layer required")
+        if self.dp < 1:
+            raise ValueError("dp must be >= 1")
+        if self.partitions is not None and self.partitions % self.dp:
+            raise ValueError(
+                f"partitions={self.partitions} must be a multiple of "
+                f"dp={self.dp} (shards fold evenly onto ranks)")
+
+    @property
+    def num_partitions(self) -> int:
+        """Graph shards P (defaults to one per data-parallel rank)."""
+        return self.partitions if self.partitions is not None else self.dp
+
+    @property
+    def distributed(self) -> bool:
+        return self.num_partitions > 1 or self.dp > 1
 
     @property
     def dims(self) -> List[int]:
@@ -185,6 +212,25 @@ class RGNNEngine:
         # by the compile facade and SampledTrainer)
         self._train_execs = {}
 
+        # data-parallel pieces, built eagerly (cheap host work) so config
+        # errors surface at compile time: the partition, this rank's data
+        # group (dp > 1 needs the ranks launch.mesh.launch_ranks starts)
+        # and the batcher of the shards it runs
+        self.partition = None
+        self.dist_batcher = None
+        self.data_mesh = None
+        self._dist_execs = {}
+        if cfg.distributed:
+            from repro_torch.dist import ShardedBatcher, partition_graph
+            from repro_torch.launch.mesh import make_data_mesh
+            self.partition = partition_graph(graph, cfg.num_partitions)
+            self.data_mesh = make_data_mesh(cfg.dp, device=self.device)
+            self.dist_batcher = ShardedBatcher(
+                self.partition, cfg.fanouts, seed=cfg.seed, tile=cfg.tile,
+                node_block=cfg.node_block,
+                shards=self.data_mesh.shards(cfg.num_partitions),
+                device=self.device)
+
     @property
     def plans(self):
         return self.stack.plans
@@ -219,6 +265,69 @@ class RGNNEngine:
             self._train_execs[id(opt)] = ex
             while len(self._train_execs) > 4:   # insertion-ordered
                 self._train_execs.pop(next(iter(self._train_execs)))
+        return ex
+
+    # ------------------------------------------------------------------
+    # data-parallel surface (cfg.dp / cfg.partitions)
+    # ------------------------------------------------------------------
+    def _require_dist(self):
+        if self.partition is None:
+            raise ValueError(
+                "distributed execution needs dp > 1 or partitions > 1 in "
+                "the EngineConfig (e.g. hector_torch.compile(..., "
+                "partitions=4))")
+
+    def shard_features(self, feats) -> torch.Tensor:
+        """This rank's resident feature slabs ``[L, n_own, d]`` on its
+        device (slab ``i`` holds shard ``shards[i]``'s owned rows, pad rows
+        zero; the steps all-gather them for halo access).
+
+        ``feats`` may be a raw ``[N, d]`` table or a ``repro_torch.feats``
+        store: with a store each slab is read through ``host_rows``, so
+        the whole table never goes to the device."""
+        self._require_dist()
+        from repro_torch.feats import is_feature_store
+        part = self.partition
+        shards = self.dist_batcher.shards
+        if is_feature_store(feats):
+            out = np.zeros((len(shards), part.max_owned, feats.dim),
+                           dtype=feats.dtype)
+            for i, p in enumerate(shards):
+                lo, hi = int(part.bounds[p]), int(part.bounds[p + 1])
+                out[i, : hi - lo] = feats.host_rows(
+                    np.arange(lo, hi, dtype=np.int64))
+        else:
+            table = feats.cpu().numpy() if isinstance(feats, torch.Tensor) \
+                else np.asarray(feats)
+            out = part.shard_features(table)[list(shards)]
+        return torch.from_numpy(np.ascontiguousarray(out)).to(self.device)
+
+    def dist_serve_executor(self):
+        """The multi-shard inference step (cached)."""
+        self._require_dist()
+        ex = self._dist_execs.get("serve")
+        if ex is None:
+            from repro_torch.dist import ShardedServeExecutor
+            ex = ShardedServeExecutor(
+                self.plans, self.data_mesh, activation=self.cfg.activation,
+                decisions=self.decisions)
+            self._dist_execs["serve"] = ex
+        return ex
+
+    def dist_train_executor(self, opt):
+        """The multi-shard SGD step for ``opt`` (cached per optimizer
+        instance, like ``train_executor``)."""
+        self._require_dist()
+        ex = self._dist_execs.get(id(opt))
+        if ex is None:
+            from repro_torch.dist import ShardedTrainExecutor
+            ex = ShardedTrainExecutor(
+                self.plans, opt, self.data_mesh,
+                activation=self.cfg.activation, decisions=self.decisions)
+            self._dist_execs[id(opt)] = ex
+            while len(self._dist_execs) > 5:   # never evict the serve step
+                self._dist_execs.pop(next(
+                    k for k in self._dist_execs if k != "serve"))
         return ex
 
     def make_loader(
