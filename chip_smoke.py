@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Card check of the PyTorch/CUDA port: build, kernel-vs-plain, serve, train,
-LM serving, online serving.
+LM serving, online serving, data parallelism, LM training.
 
     python3 chip_smoke.py            # one CUDA card; a few minutes
 
@@ -333,13 +333,31 @@ comparable across versions:
    ``train_rgnn.main([..., "--dp", "2", "--partitions", "4"])`` (5 RGAT
    steps) and ``serve_rgnn.serve(dp=2, partitions=4)`` (4 batches):
    every loss, the final optimizer state and every batch's logits bit
-   for bit those of the same calls at dp = 1.
+   for bit those of the same calls at dp = 1;
+18. LM training (``TransformerLM.loss``; K10's forward a kernel under
+   autograd, its backward the plain version's VJP): (a) reduced qwen3-4b
+   and gemma2-2b in fp32 (B 2, S 64), the same params and batch on the
+   card and the CPU: the loss within rtol 1e-5 and every gradient leaf
+   finite, not all zero and within rtol 1e-4 / atol 1e-6 of the CPU's,
+   with remat on and off, K10 launched exactly twice a layer with remat
+   (the recompute) and once without; one step under
+   ``use_deterministic_algorithms(True, warn_only=True)``, what warns
+   listed; (b) full-width qwen3-4b in bf16 with its 36 repeats cut to 8,
+   B 4, S 2048, 12 steps through ``launch.train.train`` (remat off, as
+   the reference driver builds it): finite losses, K10 launched exactly 8
+   x 12 times and no other kernel, step p50 / p99, tokens/s, peak GiB,
+   one profiled step (K10's and the attention backward's device shares),
+   a bf16 leaf of the state through ``Checkpointer`` bit for bit; (c) the
+   driver's drills on the card: qwen3-4b ``--simulate-failure 6
+   --ckpt-every 3`` and gemma2-2b ``--resume`` (6 steps, then 9), each
+   bit for bit the uninterrupted run's losses.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: phase
 6's op-by-op runs of all three models for K1-K5, K7 and K11, phases 9 and 10
 for K9 (the sampler launches K9 outside the executors),
 phase 11's tuned training and serving for K6 and K8, phase 12's serve runs
-for K10, each counted from 0 just before the run); the last line is
+and phase 18's full-width training for K10, each counted from 0 just
+before the run); the last line is
 ``{"ok": true, "device": {...}}``.
 ``--out PATH`` also writes every number as JSON, ``--trace-dir DIR`` the
 phase-8 Chrome traces.
@@ -6172,6 +6190,422 @@ def phase_dist(torch, hector_torch, ops, serve_rgnn, train_rgnn, card,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: LM training (``TransformerLM.loss``, K10 under autograd, the
+# driver ``repro_torch.launch.train``, bf16 checkpoints)
+# ---------------------------------------------------------------------------
+# (a): reduced configs, fp32, (B, S); the card against the CPU port at the
+# CPU tests' bounds against the reference: loss rtol, gradients (rtol, atol)
+LM_TRAIN_ARCHS = ("qwen3-4b", "gemma2-2b")
+LM_TRAIN_SHAPE = (2, 64)
+LM_TRAIN_LOSS_RTOL = 1e-5
+LM_TRAIN_GRAD_TOL = (1e-4, 1e-6)
+# (b): full-width qwen3-4b in bf16, one stage's repeats cut from 36 to 8
+# (the state and the functional update of 36 layers need ~88 GB), trained
+# through ``launch.train.train`` as the reference driver builds its step
+# (remat off)
+LM_TRAIN_FULL = dict(arch="qwen3-4b", repeats=8, batch=4, seq=2048,
+                     steps=12)
+# (b)'s first step with K10's kernel against the same step with the plain
+# version in its place (the same bf16 params and batch): the loss's
+# relative error and each gradient leaf's relative (Frobenius) error, about
+# 4x what the card gave (1.39e-05 and at most 5.67e-03 over the 13 leaves,
+# "NVIDIA H100 80GB HBM3, 700.00 W")
+LM_TRAIN_FULL_LOSS_RTOL = 1e-4
+LM_TRAIN_FULL_GRAD_REL = 2e-2
+# (c): the drills of tests/test_torch_train_driver.py, on the card
+LM_DRILL = dict(failure=("qwen3-4b", 10, 4, 32, 3, 6),
+                resume=("gemma2-2b", 6, 9, 2, 16, 3))
+
+
+def lm_loss_and_grads(torch, model, params, batch):
+    """``model.loss`` and the gradient of every parameter leaf (in
+    ``tree_leaves`` order)."""
+    from repro_torch.optim.adamw import tree_leaves, tree_like
+
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = model.loss(tree_like(params, leaves), batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def lm_train_grads(torch, ops, C, TransformerLM, dev="cuda"):
+    """(a): each reduced config's loss and gradients on ``dev`` against
+    the CPU port's, the same params and batch on both: every leaf's
+    gradient finite and not all zero (with K10's forward a kernel, this is
+    what shows it inside autograd), within ``LM_TRAIN_GRAD_TOL``; K10
+    launched once a layer a forward, so twice with ``remat=True`` (the
+    recompute) and once without. Then one card step under
+    ``deterministic_probe``."""
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.lm.config import ShapeCell
+
+    b, s = LM_TRAIN_SHAPE
+    out = {}
+    for arch in LM_TRAIN_ARCHS:
+        tag = f"phase 18 a {arch}"
+        t0 = time.perf_counter()
+        cfg = C.get_reduced(arch)
+        host = SyntheticLMStream(cfg, ShapeCell("a", s, b, "train")).batch(0)
+        cpu = TransformerLM(cfg, device="cpu")
+        params = cpu.init()
+        want_loss, want = lm_loss_and_grads(
+            torch, cpu, params, {k: torch.as_tensor(v)
+                                 for k, v in host.items()})
+        pd = _params_to(params, dev)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+        res = {}
+        for remat in (True, False):
+            model = TransformerLM(cfg, device=dev, remat=remat)
+            ops.reset_launch_counts()
+            loss, grads = lm_loss_and_grads(torch, model, pd, batch)
+            launches = ops.launch_counts()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                want_l = {name: 0 for name in KERNELS}
+                want_l[K10] = (2 if remat else 1) * cfg.num_layers
+                check(launches == want_l, f"{tag} remat={remat}: launches "
+                      f"{launches}, expected {want_l}")
+            rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+            check(rel <= LM_TRAIN_LOSS_RTOL, f"{tag} remat={remat}: loss "
+                  f"{float(loss)!r} vs the CPU's {float(want_loss)!r}")
+            worst = 0.0
+            for i, (g, w) in enumerate(zip(grads, want)):
+                g = g.float().cpu()
+                check(bool(torch.isfinite(g).all()),
+                      f"{tag} remat={remat}: gradient {i} not finite")
+                check(bool((g != 0).any()),
+                      f"{tag} remat={remat}: gradient {i} is all zero")
+                rtol, atol = LM_TRAIN_GRAD_TOL
+                err = float((g - w).abs().max())
+                check(bool(torch.allclose(g, w, rtol=rtol, atol=atol)),
+                      f"{tag} remat={remat}: gradient {i} {tuple(g.shape)} "
+                      f"differs from the CPU's by {err:.3g}")
+                worst = max(worst, err)
+            res[f"remat={remat}"] = dict(
+                loss=float(loss), loss_rel_err=rel, grad_max_abs_err=worst,
+                k10_launches=launches.get(K10, 0), grads=grads)
+        same = all(torch.equal(x, y) for x, y in zip(
+            res["remat=True"].pop("grads"), res["remat=False"].pop("grads")))
+        res.update(cpu_loss=float(want_loss), leaves=len(want),
+                   remat_bitwise=same, seconds=time.perf_counter() - t0)
+        out[arch] = res
+        log(f"[{tag}] {cfg.num_layers} layers, B {b}, S {s}: loss "
+            f"{res['remat=True']['loss']:.6f} (CPU {res['cpu_loss']:.6f}, "
+            f"rel err {res['remat=True']['loss_rel_err']:.3g}); {len(want)} "
+            f"gradient leaves finite, nonzero, max abs err "
+            f"{res['remat=True']['grad_max_abs_err']:.3g} (remat) / "
+            f"{res['remat=False']['grad_max_abs_err']:.3g}; K10 launches "
+            f"{res['remat=True']['k10_launches']} (remat) / "
+            f"{res['remat=False']['k10_launches']}; remat on = off bit for "
+            f"bit: {same} ({res['seconds']:.1f} s)")
+    if dev == "cuda":
+        cfg = C.get_reduced(LM_TRAIN_ARCHS[0])
+        model = TransformerLM(cfg, device=dev)
+        params = model.init()
+        host = SyntheticLMStream(cfg, ShapeCell("a", s, b, "train")).batch(0)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+        warns = deterministic_probe(
+            torch, lambda: lm_loss_and_grads(torch, model, params, batch))
+        out["deterministic_warnings"] = warns
+        log(f"[phase 18 a] one {cfg.name} loss + backward under "
+            f"use_deterministic_algorithms(True, warn_only=True): "
+            f"{len(warns)} ops warn"
+            + "".join(f"\n[phase 18 a]   warns: {w}" for w in warns))
+    return out
+
+
+def lm_cut(C, arch, repeats):
+    """``arch``'s full config with one stage's repeats cut to
+    ``repeats``."""
+    import dataclasses
+
+    cfg = C.get_config(arch)
+    check(len(cfg.stages) == 1, f"{arch}: {len(cfg.stages)} stages")
+    return dataclasses.replace(cfg, stages=(dataclasses.replace(
+        cfg.stages[0], repeats=repeats),))
+
+
+def lm_step_profile(torch, lm_steps, cfg, state, batch_np, seq, batch):
+    """One train step of ``state`` under ``torch.profiler``: the wall ms,
+    the device busy ms, and the device ms and shares of K10's forward
+    kernels and of the attention backward (the plain VJP: the kernels
+    inside the ``flash_attention.backward`` range's GPU-side spans; the
+    range's CPU events' device totals beside them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.lm.config import ShapeCell
+
+    bundle = lm_steps.build_step(cfg, ShapeCell("p", seq, batch, "train"),
+                                 "cuda", remat=False)
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in
+            batch_np.items()}
+    torch.cuda.synchronize()
+    label = "flash_attention.backward"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        new_state, metrics = bundle.fn(state, data)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del new_state
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in dev_events
+             if e.name == label]
+    busy_us = k10_us = bwd_us = 0.0
+    top = {}
+    for e in dev_events:
+        if e.name == label:
+            continue
+        t = e.time_range.elapsed_us()
+        busy_us += t
+        if "flash_" in e.name:
+            k10_us += t
+        if any(lo <= e.time_range.start <= hi for lo, hi in spans):
+            bwd_us += t
+        c0, d0 = top.get(e.name[:60], (0, 0.0))
+        top[e.name[:60]] = (c0 + 1, d0 + t)
+    check(busy_us > 0, "phase 18 b profile: no device time recorded")
+    bwd_cpu_us = sum(getattr(e, "device_time_total", 0.0)
+                     for e in prof.events() if e.name == label and
+                     e.device_type == torch.autograd.DeviceType.CPU)
+    res = dict(step_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+               busy_share=busy_us / wall_us, k10_ms=k10_us / 1e3,
+               k10_share=k10_us / busy_us, attn_backward_ms=bwd_us / 1e3,
+               attn_backward_share=bwd_us / busy_us,
+               attn_backward_spans=len(spans),
+               attn_backward_cpu_device_ms=bwd_cpu_us / 1e3,
+               top=[dict(name=n, launches=c, device_ms=t / 1e3)
+                    for n, (c, t) in sorted(top.items(),
+                                            key=lambda kv: -kv[1][1])[:8]])
+    log(f"[phase 18 b profile] one step {res['step_ms']:.3f} ms under the "
+        f"profiler, device busy {res['device_busy_ms']:.3f} ms (share "
+        f"{res['busy_share']:.4f}); K10 forward {res['k10_ms']:.3f} ms "
+        f"({res['k10_share']:.4f} of the device time); attention backward "
+        f"(plain VJP, {len(spans)} spans) {res['attn_backward_ms']:.3f} ms "
+        f"({res['attn_backward_share']:.4f}; its CPU ranges' device total "
+        f"{res['attn_backward_cpu_device_ms']:.3f} ms)")
+    for op in res["top"]:
+        log(f"[phase 18 b profile]   {op['device_ms']:9.3f} ms  "
+            f"x{op['launches']:<5d} {op['name']}")
+    return res
+
+
+def lm_full_vs_plain(torch, ops, cfg, run, dev="cuda"):
+    """(b)'s first step (its params, from seed 0, and its batch, step 0 of
+    the stream), loss and gradients, through K10's kernel forward and the
+    plain VJP, against the same step with ``flash_attention_plain`` in
+    the kernel's place: the loss within ``LM_TRAIN_FULL_LOSS_RTOL``, every
+    gradient leaf finite and within ``LM_TRAIN_FULL_GRAD_REL`` of the
+    plain step's (relative Frobenius error, leaf by leaf). The plain step
+    runs with remat on, which gives remat off's values (phase 18 (a)) and
+    keeps one layer's fp32 probabilities alive instead of eight. Its
+    launches are the comparison's and are not (b)'s."""
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.lm.config import ShapeCell
+    from repro_torch.lm.model import TransformerLM
+    from repro_torch.nn import attention as NA
+
+    tag = "phase 18 b vs plain"
+    model = TransformerLM(cfg, device=dev, remat=False)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    host = SyntheticLMStream(cfg, ShapeCell("b", run["seq"], run["batch"],
+                                            "train"), seed=0).batch(0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    ops.reset_launch_counts()
+    loss, grads = lm_loss_and_grads(torch, model, params, batch)
+    torch.cuda.synchronize()
+    check(ops.launch_counts()[K10] == cfg.num_layers,
+          f"{tag}: K10 launches {ops.launch_counts()[K10]}, expected "
+          f"{cfg.num_layers}")
+    kernel = NA.flash_attention
+    NA.flash_attention = (lambda q, k, v, **kw:
+                          F.flash_attention_plain(q, k, v, **kw))
+    try:
+        want_loss, want = lm_loss_and_grads(
+            torch, TransformerLM(cfg, device=dev, remat=True), params,
+            batch)
+        torch.cuda.synchronize()
+    finally:
+        NA.flash_attention = kernel
+    check(ops.launch_counts()[K10] == cfg.num_layers,
+          f"{tag}: the plain step launched K10")
+    loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    check(loss_rel <= LM_TRAIN_FULL_LOSS_RTOL, f"{tag}: loss "
+          f"{float(loss)!r} vs the plain step's {float(want_loss)!r}")
+    rels = []
+    for i, (g, w) in enumerate(zip(grads, want)):
+        check(g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape,
+              f"{tag}: gradient {i} {g.dtype} {tuple(g.shape)} vs "
+              f"{w.dtype} {tuple(w.shape)}")
+        g, w = g.float(), w.float()
+        check(bool(torch.isfinite(g).all()), f"{tag}: gradient {i} not "
+              f"finite")
+        rel = float(torch.linalg.vector_norm(g - w)
+                    / torch.linalg.vector_norm(w))
+        check(rel <= LM_TRAIN_FULL_GRAD_REL, f"{tag}: gradient {i} "
+              f"{tuple(g.shape)} has relative error {rel:.4g}")
+        rels.append(rel)
+    del params, grads, want, g, w
+    torch.cuda.empty_cache()
+    out = dict(loss=float(loss), plain_loss=float(want_loss),
+               loss_rel_err=loss_rel, grad_rel_err=rels,
+               grad_rel_err_max=max(rels))
+    log(f"[{tag}] first step: loss {out['loss']!r} vs {out['plain_loss']!r}"
+        f" (rel err {loss_rel:.4g}, bound {LM_TRAIN_FULL_LOSS_RTOL}); "
+        f"{len(rels)} bf16 gradient leaves finite, relative error max "
+        f"{max(rels):.4g} (bound {LM_TRAIN_FULL_GRAD_REL}), per leaf "
+        + ", ".join(f"{r:.3g}" for r in rels))
+    return out
+
+
+def lm_train_full(torch, ops, C, lm_train, lm_steps, ckpt_root, dev="cuda"):
+    """(b): full-width qwen3-4b, bf16, 8 repeats: first its first step
+    against the plain version's (``lm_full_vs_plain``), then through
+    ``launch.train.train``: 12 finite losses, K10 launched exactly
+    ``8 x 12`` times (remat off: once a layer a forward; the backward is
+    the plain VJP) and no other kernel; the warm-up (first) step's ms,
+    step p50 / p99 of the steps after it, tokens/s, peak GiB; one
+    profiled step; a bf16 leaf of the state through ``Checkpointer`` bit
+    for bit."""
+    import numpy as np
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.lm.config import ShapeCell
+    from repro_torch.optim.adamw import tree_leaves
+
+    run = LM_TRAIN_FULL
+    cfg = lm_cut(C, run["arch"], run["repeats"])
+    tag = "phase 18 b"
+    vs_plain = (lm_full_vs_plain(torch, ops, cfg, run, dev)
+                if dev == "cuda" else None)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = lm_train.train(cfg, steps=run["steps"], batch=run["batch"],
+                         seq=run["seq"], ckpt_dir=str(ckpt_root / "b"),
+                         ckpt_every=0, device=dev, seed=0,
+                         log=lambda m: log(f"[{tag}] {m}"))
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if dev == "cuda":
+        want = {name: 0 for name in KERNELS}
+        want[K10] = cfg.num_layers * run["steps"]
+        check(launches == want, f"{tag}: launches {launches}, expected "
+              f"{want}")
+    losses = res["losses"]
+    check(len(losses) == run["steps"] and all(math.isfinite(x)
+                                              for x in losses),
+          f"{tag}: losses {losses}")
+    check(vs_plain is None or losses[0] == vs_plain["loss"],
+          f"{tag}: the first loss {losses[0]!r} is not the compared "
+          f"step's {vs_plain and vs_plain['loss']!r}")
+    ms = np.asarray(res["step_ms"][1:])      # after the warm-up step
+    out = dict(losses=losses, step_ms=res["step_ms"],
+               warmup_ms=res["step_ms"][0],
+               p50_ms=float(np.percentile(ms, 50)),
+               p99_ms=float(np.percentile(ms, 99)),
+               vs_plain=vs_plain, tokens_per_s=res["tokens_per_s"],
+               peak_mem_gib=res["peak_mem_gib"], launches=launches[K10],
+               wall_s=wall, num_layers=cfg.num_layers,
+               params=sum(t.numel() for t in tree_leaves(res["state"].params)),
+               **run)
+    log(f"[{tag}] {cfg.name} at full width, {cfg.num_layers} layers, bf16, "
+        f"B {run['batch']}, S {run['seq']}, {out['params']} parameters: "
+        f"{run['steps']} finite losses {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(the first the compared step's, bit for bit); warm-up step "
+        f"{out['warmup_ms']:.3f} ms, then step p50 {out['p50_ms']:.3f} ms, "
+        f"p99 {out['p99_ms']:.3f} ms, {out['tokens_per_s']:.1f} tokens/s "
+        f"(steps 2-{run['steps']}), peak {out['peak_mem_gib']}"
+        f" GiB; K10 launched {launches[K10]} times (= {cfg.num_layers} "
+        f"layers x {run['steps']} steps; wall {wall:.2f} s)")
+    state = res.pop("state")
+    cell = ShapeCell("b", run["seq"], run["batch"], "train")
+    if dev == "cuda":
+        out["profile"] = lm_step_profile(
+            torch, lm_steps, cfg, state,
+            SyntheticLMStream(cfg, cell).batch(run["steps"]), run["seq"],
+            run["batch"])
+    leaf = state.params["stages"][0]["l0"]["attn"]["wq"]
+    check(leaf.dtype == torch.bfloat16, f"{tag}: wq is {leaf.dtype}")
+    ck = Checkpointer(str(ckpt_root / "bf16"))
+    ck.save(run["steps"], {"wq": leaf})
+    back = ck.restore({"wq": leaf})["wq"]
+    check(back.dtype == torch.bfloat16 and back.device == leaf.device
+          and torch.equal(back.view(torch.int16), leaf.view(torch.int16)),
+          f"{tag}: a bf16 leaf did not round-trip through Checkpointer bit "
+          f"for bit")
+    out["bf16_roundtrip_bytes"] = leaf.numel() * 2
+    log(f"[{tag}] bf16 leaf wq {tuple(leaf.shape)} through Checkpointer: "
+        f"bit for bit")
+    del state, leaf, back
+    return out
+
+
+def lm_train_drills(torch, lm_train, ckpt_root, dev="cuda"):
+    """(c): the driver's failure drill and ``--resume`` on ``dev``, each
+    against an uninterrupted run, bit for bit."""
+    common = ["--device", dev, "--reduced"]
+    arch, steps, batch, seq, every, fail = LM_DRILL["failure"]
+    args = common + ["--arch", arch, "--steps", str(steps), "--batch",
+                     str(batch), "--seq", str(seq), "--ckpt-every",
+                     str(every)]
+    plain = lm_train.main(args + ["--ckpt-dir", str(ckpt_root / "c0")])
+    drill = lm_train.main(args + ["--ckpt-dir", str(ckpt_root / "c1"),
+                                  "--simulate-failure", str(fail)])
+    check(len(drill) == steps + 1 and drill[fail] == drill[fail + 1]
+          and drill[:fail + 1] + drill[fail + 2:] == plain,
+          f"phase 18 c {arch}: the drill's losses {drill} are not the "
+          f"uninterrupted {plain} with step {fail} repeated")
+    log(f"[phase 18 c] {arch} --simulate-failure {fail} --ckpt-every "
+        f"{every}: {len(drill)} losses, the uninterrupted run's bit for "
+        f"bit with step {fail} repeated after the restore")
+    arch, first, total, batch, seq, every = LM_DRILL["resume"]
+    args = common + ["--arch", arch, "--batch", str(batch), "--seq",
+                     str(seq), "--ckpt-every", str(every)]
+    lm_train.main(args + ["--steps", str(first), "--ckpt-dir",
+                          str(ckpt_root / "c2")])
+    resumed = lm_train.main(args + ["--steps", str(total), "--ckpt-dir",
+                                    str(ckpt_root / "c2"), "--resume"])
+    whole = lm_train.main(args + ["--steps", str(total), "--ckpt-dir",
+                                  str(ckpt_root / "c3")])
+    check(resumed == whole[first:], f"phase 18 c {arch}: resumed "
+          f"{resumed} != {whole[first:]}")
+    log(f"[phase 18 c] {arch} --resume after {first} of {total} steps: "
+        f"{len(resumed)} losses, the uninterrupted run's last "
+        f"{total - first} bit for bit")
+    return dict(failure=dict(plain=plain, drill=drill),
+                resume=dict(resumed=resumed, whole=whole))
+
+
+def phase_lm_train(torch, ops, C, TransformerLM, lm_train, lm_steps):
+    """Phase 18: (a) loss and gradients, card against CPU; (b) full-width
+    training through the driver, profiled; (c) the drills. K10's launches
+    are (b)'s, counted from 0."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-lm-") as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        grads = lm_train_grads(torch, ops, C, TransformerLM)
+        seconds["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        full = lm_train_full(torch, ops, C, lm_train, lm_steps, root)
+        seconds["b"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        drills = lm_train_drills(torch, lm_train, root)
+        seconds["c"] = time.perf_counter() - t0
+    log(f"[phase 18] parts' seconds " + json.dumps(
+        {k: round(v, 2) for k, v in seconds.items()}))
+    return dict(grads=grads, full=full, drills=drills, seconds=seconds,
+                launches=full["launches"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -6196,6 +6630,8 @@ def main(argv=None) -> int:
         from repro_torch import configs as C
         from repro_torch.kernels import flash_attention as F
         from repro_torch.launch import serve as lm_serve
+        from repro_torch.launch import steps as lm_steps
+        from repro_torch.launch import train as lm_train
         from repro_torch.launch import serve_rgnn, train_rgnn
         from repro_torch.lm.model import TransformerLM
     except ImportError as e:
@@ -6324,19 +6760,25 @@ def main(argv=None) -> int:
                           card)
         seconds["phase 17"] = time.perf_counter() - t0
         log(f"[phase 17] {seconds['phase 17']:.2f} s")
+        log("[phase 18] start")
+        t0 = time.perf_counter()
+        lm_training = phase_lm_train(torch, ops, C, TransformerLM, lm_train,
+                                     lm_steps)
+        seconds["phase 18"] = time.perf_counter() - t0
+        log(f"[phase 18] {seconds['phase 18']:.2f} s")
         # the main path's launches, each run from counts set to 0 just
         # before it, each run op by op so that every kernel the card runs
         # goes through its wrapper: phase 6 of every model (K1-K5, K7),
         # phases 9 and 10 (K9, the device-sampling path; the sampler
         # launches K9 outside the executors), phase 11's tuned training
         # and serving (K6, K8: the tuner's path), phase 12's LM serve runs
-        # (K10)
+        # (K10), and phase 18's full-width training (K10)
         launches = {name: sum(t["launches"][name] for t in train.values())
                     for name in KERNELS}
         launches[K9] = (sum(r["launches"][K9] for r in device_serve.values())
                         + device_train["launches"][K9])
         launches.update(tuning["launches"])
-        launches[K10] = lm["launches"]
+        launches[K10] = lm["launches"] + lm_training["launches"]
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on the main path")
     except Failed as e:
@@ -6376,6 +6818,7 @@ def main(argv=None) -> int:
             train_profile=train_prof, device_serve=device_serve,
             device_train=device_train, tuning=tuning, lm=lm, obs=obs_out,
             capture=capture, features=features, online=online, dist=dist,
+            lm_training=lm_training,
             split_timed=split["timed"], k5_sass=k5_sass,
             gemm_ptxas=gemm_ptxas,
             torch=torch.__version__,

@@ -12,7 +12,11 @@
   device and in the dtype of ``like``'s tensor at the same place.
 
 The layout is the reference's: ``shard_000.npz`` with ``leaf_<i>`` arrays
-in tree order, and a ``manifest.json``.
+in tree order, and a ``manifest.json``. numpy has no bfloat16, so a bf16
+tensor is stored as its raw 16-bit pattern (an ``int16`` array) and the
+manifest records ``"bfloat16"`` for it; ``restore`` views the bits back,
+so a bf16 tree round-trips bit for bit. Every other dtype is stored as
+numpy gives it, the files the same as before.
 """
 from __future__ import annotations
 
@@ -30,6 +34,19 @@ import torch
 from repro_torch.optim.adamw import tree_leaves, tree_like
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` as numpy can hold it: bf16 as its bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return np.array(t)
+
+
+def _from_host(a: np.ndarray, dtype: str) -> torch.Tensor:
+    t = torch.from_numpy(a)
+    return t.view(torch.bfloat16) if dtype == "bfloat16" else t
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = pathlib.Path(directory)
@@ -41,7 +58,10 @@ class Checkpointer:
     def save(self, step: int, tree: Any) -> None:
         """Snapshot ``tree``'s tensors to host memory, then write them."""
         self.wait()
-        host = [np.array(t.detach().cpu()) for t in tree_leaves(tree)]
+        leaves = tree_leaves(tree)
+        host = [_to_host(t) for t in leaves]
+        dtypes = ["bfloat16" if t.dtype == torch.bfloat16 else str(a.dtype)
+                  for t, a in zip(leaves, host)]
 
         def write():
             try:
@@ -55,7 +75,7 @@ class Checkpointer:
                 manifest = {
                     "step": step,
                     "num_leaves": len(host),
-                    "dtypes": [str(a.dtype) for a in host],
+                    "dtypes": dtypes,
                     "shapes": [list(a.shape) for a in host],
                 }
                 (tmp / "manifest.json").write_text(json.dumps(manifest))
@@ -99,11 +119,14 @@ class Checkpointer:
         step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
-        with np.load(self.dir / f"step_{step:08d}" / "shard_000.npz") as data:
+        path = self.dir / f"step_{step:08d}"
+        dtypes = json.loads((path / "manifest.json").read_text())["dtypes"]
+        with np.load(path / "shard_000.npz") as data:
             refs = tree_leaves(like)
             if len(data.files) != len(refs):
                 raise ValueError(f"checkpoint {step} has {len(data.files)} "
                                  f"tensors, the tree {len(refs)}")
-            leaves = [torch.from_numpy(data[f"leaf_{i}"]).to(
-                device=r.device, dtype=r.dtype) for i, r in enumerate(refs)]
+            leaves = [_from_host(data[f"leaf_{i}"], dt).to(
+                device=r.device, dtype=r.dtype)
+                for i, (r, dt) in enumerate(zip(refs, dtypes))]
         return tree_like(like, leaves)

@@ -14,6 +14,15 @@ plain version.
                            tensors, in fp32, for any lengths.
 ``plan``                   the kernel a call takes (``route``), its key
                            splits and how many kernels it launches.
+``FlashAttention``         K10 under autograd, which ``flash_attention``
+                           goes through whenever a gradient is wanted: the
+                           forward as above; the backward recomputes the
+                           plain version from the saved ``q, k, v`` and
+                           takes its VJP. The reference has no backward
+                           kernel either: its training attention is XLA's
+                           autodiff of the same einsum / softmax
+                           (``repro/nn/attention.py``), which is what the
+                           plain version computes.
 
 Both take ``q [B, Sq, H, hd]`` and ``k, v [B, Sk, KV, hd]`` (KV divides H;
 head ``h`` reads KV head ``h // (H / KV)``), query ``i`` at position
@@ -197,6 +206,54 @@ def _operand(t: torch.Tensor, hd: int, align: int) -> torch.Tensor:
     return t.contiguous() if not t.is_contiguous() else t.clone()
 
 
+# the bytes of one fp32 [rows, h, Sq, Sk] score tensor of the backward's
+# recompute: a batch whose tensor would be larger is taken a few rows at a
+# time. The plain VJP keeps several such tensors alive at once (the
+# scores, the masked copy, the probabilities and their gradients), so its
+# peak is a few times this
+_BACKWARD_SCORE_BYTES = 1 << 30
+
+
+class FlashAttention(torch.autograd.Function):
+    """K10 under autograd. Only ``q, k, v`` are saved, never the ``[B, KV,
+    g, Sq, Sk]`` probabilities: the backward recomputes the plain version
+    under ``enable_grad`` (a few batch rows at a time, so each of its fp32
+    score tensors stays near ``_BACKWARD_SCORE_BYTES``) and returns its
+    VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        q_offset=q_offset)
+        return _forward(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        want = ctx.needs_input_grad[:3]
+        b, sq, h, _ = q.shape
+        per_row = 4 * h * sq * k.shape[1]
+        rows = max(1, min(b, _BACKWARD_SCORE_BYTES // max(1, per_row)))
+        grads = [[] for _ in range(3)]
+        with torch.profiler.record_function("flash_attention.backward"), \
+                torch.enable_grad():
+            for lo in range(0, b, rows):
+                part = [t[lo:lo + rows].detach().requires_grad_(w)
+                        for t, w in zip((q, k, v), want)]
+                out = flash_attention_plain(*part, **ctx.opts)
+                got = torch.autograd.grad(
+                    out, [t for t in part if t.requires_grad],
+                    dout[lo:lo + rows])
+                it = iter(got)
+                for i, w in enumerate(want):
+                    if w:
+                        grads[i].append(next(it))
+        dq, dk, dv = (torch.cat(g) if len(g) > 1 else (g[0] if g else None)
+                      for g in grads)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: Optional[int] = None,
@@ -205,12 +262,27 @@ def flash_attention(
     """K10: attention of ``q`` over ``k, v`` (see the module docstring),
     reading a KV cache's ``[B, Sk, KV, hd]`` slice in place. ``window``
     (at least 1) and ``softcap`` (positive) are optional; ``q_offset`` is a
-    run-time argument of the kernel."""
-    b, sq, h, hd, sk, kv = _check_shapes(q, k, v)
+    run-time argument of the kernel. Where grad is enabled and an input
+    requires it, the call goes through ``FlashAttention`` (the same
+    forward, a backward); serving's calls (no input requires grad) do not.
+    """
+    _check_shapes(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window={window} must be >= 1")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention: softcap={softcap} must be > 0")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, softcap,
+                                    q_offset)
+    return _forward(q, k, v, causal=causal, window=window, softcap=softcap,
+                    q_offset=q_offset)
+
+
+def _forward(q, k, v, *, causal, window, softcap, q_offset):
+    """The forward of K10 on checked arguments: the plain version on a CPU
+    tensor, the kernel on a CUDA one."""
+    b, sq, h, hd, sk, kv = _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, q_offset=q_offset)

@@ -22,9 +22,13 @@ where there are ``dp`` cards, on the one card otherwise, or on the CPU.
 It returns rank 0's result; the drivers' ``--dp`` goes through it, so one
 command serves or trains on all ranks.
 
-``plan_elastic_mesh(..., data_only=True)`` is the reference's data-only
-planner: after failures every survivor is a rank and the logical shards
-refold (``shards_per_rank = P // dp``).
+``plan_elastic_mesh`` is the reference's planner. ``data_only=True``:
+after failures every survivor is a rank and the logical shards refold
+(``shards_per_rank = P // dp``). Otherwise the LM plans: a ``("data",
+"model")`` (or ``("pod", "data", "model")``) shape that keeps the
+model-parallel degree and shrinks the data axis. Nothing in the port runs
+a model axis above 1 yet (``ROADMAP.md`` §1.3, the mesh / partitioning
+item): the LM training driver refuses such a plan.
 """
 from __future__ import annotations
 
@@ -138,26 +142,43 @@ class ElasticPlan:
 
     @property
     def dp_degree(self) -> int:
-        return self.used_devices
+        mp = self.shape[-1] if self.axes[-1] == "model" else 1
+        return self.used_devices // mp
 
 
 def plan_elastic_mesh(surviving: int, model_parallel: int = 16,
                       pods: int = 1, data_only: bool = False) -> ElasticPlan:
-    """The data group after failures, as the reference's
-    ``data_only=True`` plans it: every survivor is a rank and the logical
-    graph shards refold onto them (``shards_per_rank = P // dp``). The
-    reference's LM plans (a ``"model"`` axis) wait for the port's LM
-    meshes and raise ``NotImplementedError``."""
-    if not data_only:
-        raise NotImplementedError(
-            "only data-only plans are ported (the LM meshes are not)")
-    if model_parallel != 1 or pods > 1:
-        raise ValueError("data_only plans have no model/pod axes")
-    if surviving < 1:
-        raise ValueError(f"no surviving device ({surviving}); cannot form "
-                         f"a data group")
-    return ElasticPlan(shape=(surviving,), axes=("data",),
-                       used_devices=surviving, dropped_devices=0)
+    """Largest usable mesh after failures, as the reference plans it.
+
+    ``data_only=True``: a 1-D ``("data",)`` group of every survivor (the
+    logical graph shards refold onto them). Otherwise the model-parallel
+    degree is preserved (a TP group that loses one device loses its shard
+    of every weight) and the data axis shrinks to ``surviving //
+    model_parallel``; the remaining devices idle. The trailing ``"model"``
+    axis stays even at ``model_parallel=1``. Fewer survivors than one TP
+    group raise ``ValueError``."""
+    if data_only:
+        if model_parallel != 1 or pods > 1:
+            raise ValueError("data_only plans have no model/pod axes")
+        if surviving < 1:
+            raise ValueError(f"no surviving device ({surviving}); cannot "
+                             f"form a data group")
+        return ElasticPlan(shape=(surviving,), axes=("data",),
+                           used_devices=surviving, dropped_devices=0)
+    if surviving < model_parallel:
+        raise ValueError(
+            f"fewer surviving devices ({surviving}) than one TP group "
+            f"({model_parallel}); cannot form a mesh")
+    dp = surviving // model_parallel
+    used = dp * model_parallel
+    if pods > 1 and dp % pods == 0:
+        shape = (pods, dp // pods, model_parallel)
+        axes = ("pod", "data", "model")
+    else:
+        shape = (dp, model_parallel)
+        axes = ("data", "model")
+    return ElasticPlan(shape=shape, axes=axes, used_devices=used,
+                       dropped_devices=surviving - used)
 
 
 def in_ranks() -> bool:

@@ -1,0 +1,196 @@
+"""LM training driver of the PyTorch/CUDA port: the synthetic data
+pipeline, the train step, asynchronous checkpoints, heartbeat / straggler
+monitoring and the elastic restart drill (the port's counterpart of
+``repro.launch.train``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --reduced --steps 20 --batch 8 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
+        --steps 10 --batch 4 --seq 2048          # on the card
+
+Failure drill (``--simulate-failure N``): at step N the one host,
+``"host0"``, stops heartbeating; the controller drains, replans the mesh
+from the survivors, rebuilds the step, restores the last checkpoint and
+resumes from its step on a fresh prefetch iterator. The data stream is a
+pure function of the step, so no batch is skipped and the resumed losses
+are the uninterrupted run's, bit for bit. ``--resume`` starts from the
+latest checkpoint in ``--ckpt-dir``.
+
+As in the reference, the step applies ``build_step``'s optimizer; the
+driver's own ``AdamW(cosine_schedule(3e-4, 10, max(steps, 20)))`` only
+initializes the state (the two share every hyperparameter but the
+schedule, which ``init`` does not read). The step is built with
+``remat=False``, as the reference driver builds it. The driver trains on
+one device, so its plan, and the drill's replan, is the one-device plan;
+the reference's model axis of 16 waits for the mesh / partitioning item
+(``ROADMAP.md`` §1.3). ``--device`` (default the card; it raises without
+one) and ``--seed`` (weights and stream) are the port's, as in
+``launch/serve.py``; ``--ckpt-every 0`` saves nothing.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+from typing import Callable, Dict, Union
+
+import torch
+
+from repro_torch import configs as C
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.data.pipeline import PrefetchIterator, SyntheticLMStream
+from repro_torch.launch.mesh import plan_elastic_mesh
+from repro_torch.launch.steps import build_step
+from repro_torch.lm.config import LMConfig, ShapeCell
+from repro_torch.optim import AdamW, cosine_schedule
+from repro_torch.runtime.fault import (
+    ElasticController, HeartbeatMonitor, StragglerPolicy,
+)
+
+DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
+def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
+          reduced: bool = False, steps: int = 20, batch: int = 8,
+          seq: int = 64, ckpt_dir: str = DEFAULT_CKPT_DIR,
+          ckpt_every: int = 5, simulate_failure: int = -1,
+          resume: bool = False, device=None, seed: int = 0,
+          log: Callable[[str], None] = print) -> Dict:
+    """Train ``cfg_or_arch`` (a config, or an arch id: its full config, or
+    its reduced one with ``reduced``) for ``steps`` steps of ``batch`` x
+    ``seq`` tokens on ``device`` (``None``: the CUDA card). Returns the
+    losses (the repeated step of a drill included), each step's wall ms
+    (the host clock around the step, which ends in reading the loss), the
+    final ``TrainState``, the start step, the controller's failure events,
+    the plan, the tokens/s of the steps after the first (the warm-up:
+    their tokens over the sum of their ms; ``None`` with fewer than two
+    steps) and the peak device memory (GiB, from the end of
+    initialization; ``None`` on the CPU)."""
+    if isinstance(cfg_or_arch, LMConfig):
+        cfg = cfg_or_arch
+    else:
+        cfg = (C.get_reduced(cfg_or_arch) if reduced
+               else C.get_config(cfg_or_arch))
+    cell = ShapeCell("custom", seq, batch, "train")
+    plan = plan_elastic_mesh(1, model_parallel=1)
+    bundle = build_step(cfg, cell, device, remat=False)
+    model = bundle.model
+    dev = model.device
+    log(f"[train] {cfg.name}: mesh={plan.shape} devices={plan.used_devices} "
+        f"device={dev}")
+
+    opt = AdamW(learning_rate=cosine_schedule(3e-4, 10, max(steps, 20)))
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    state = opt.init(params)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    ckpt = Checkpointer(ckpt_dir)
+    start_step = 0
+    if resume and ckpt.latest_step() is not None:
+        state = ckpt.restore(state)
+        start_step = ckpt.latest_step()
+        log(f"[train] resumed from step {start_step}")
+
+    stream = SyntheticLMStream(cfg, cell, seed=seed)
+    it = PrefetchIterator(stream, start_step=start_step)
+    hosts = ["host0"]
+    monitor = HeartbeatMonitor(hosts, timeout=1e9)
+    policy = StragglerPolicy()
+    controller = ElasticController(monitor, devices_per_host=1,
+                                   model_parallel=plan.shape[-1])
+
+    losses, step_ms = [], []
+    step = start_step
+    try:
+        while step < steps:
+            got_step, host_batch = next(it)
+            if got_step != step:
+                raise RuntimeError(f"the stream gave step {got_step} at "
+                                   f"step {step}")
+            t0 = time.perf_counter()
+            data = {k: torch.as_tensor(v, device=dev)
+                    for k, v in host_batch.items()}
+            state, metrics = bundle.fn(state, data)
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            losses.append(loss)
+            step_ms.append(dt * 1e3)
+            for h in hosts:
+                monitor.heartbeat(h, step=step, step_time=dt)
+            actions = policy.decide(monitor)
+            if actions:
+                log(f"[train] straggler actions: {actions}")
+
+            if simulate_failure == step:
+                log(f"[train] !! simulating host failure at step {step}")
+                monitor.hosts["host0"].last_heartbeat = -1e12
+                monitor.timeout = 1.0
+                ev = controller.check(step)
+                if ev is None:
+                    raise RuntimeError("the controller saw no failure")
+                # drain -> replan -> rebuild -> restore -> resume
+                ckpt.wait()
+                new_plan = plan_elastic_mesh(1, model_parallel=plan.shape[-1])
+                bundle = build_step(cfg, cell, device, remat=False)
+                restore_step = ckpt.latest_step()
+                if restore_step is not None:
+                    state = ckpt.restore(state)
+                    it.close()
+                    step = restore_step
+                    it = PrefetchIterator(stream, start_step=step)
+                    log(f"[train] re-meshed to {new_plan.shape}, resumed at "
+                        f"step {step}")
+                monitor.timeout = 1e9
+                monitor.heartbeat("host0")
+                simulate_failure = -1
+                continue
+
+            step += 1
+            if ckpt_every > 0 and step % ckpt_every == 0:
+                ckpt.save(step, state)           # async write
+            if step % 5 == 0 or step == steps:
+                log(f"[train] step {step:5d} loss {loss:.4f} "
+                    f"({dt * 1e3:.0f} ms)")
+        ckpt.wait()
+    finally:
+        it.close()
+    if losses:
+        log(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else None)
+    warm = step_ms[1:]
+    tok_s = batch * seq * len(warm) / (sum(warm) / 1e3) if warm else None
+    return {"arch": cfg.name, "losses": losses, "step_ms": step_ms,
+            "state": state, "start_step": start_step,
+            "events": controller.events, "plan": plan,
+            "tokens_per_s": tok_s, "peak_mem_gib": peak}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen3-4b", choices=C.ARCHS)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
+    ap.add_argument("--ckpt-every", type=int, default=5,
+                    help="save every N steps (0: never)")
+    ap.add_argument("--simulate-failure", type=int, default=-1)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+    return train(args.arch, reduced=args.reduced, steps=args.steps,
+                 batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
+                 ckpt_every=args.ckpt_every,
+                 simulate_failure=args.simulate_failure, resume=args.resume,
+                 device=args.device, seed=args.seed)["losses"]
+
+
+if __name__ == "__main__":
+    main()

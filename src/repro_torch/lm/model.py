@@ -8,9 +8,13 @@
 * ``prefill`` / ``decode_step`` serve from a preallocated KV cache (also
   stacked per stage) that attention writes in place. The attention core is
   K10 (``kernels/flash_attention.py``).
-* ``backbone(mode="train")`` is the cache-free forward the reference's
-  decode-vs-forward check compares against; ``loss`` and training are not
-  ported yet.
+* ``backbone(mode="train")`` is the cache-free forward; ``loss`` is the
+  reference's sequence-chunked next-token cross-entropy over it. Under
+  autograd K10 runs its kernel forward and the plain version's VJP
+  (``kernels/flash_attention.FlashAttention``). ``remat=True`` (the
+  reference's default) recomputes each repeat of a stage in the backward
+  (``torch.utils.checkpoint``, the counterpart of the reference's
+  ``jax.checkpoint(nothing_saveable)``), and only while grad is enabled.
 
 Not ported yet (``ROADMAP.md`` §1, the LM substrate): Mamba layers, MoE
 MLPs, cross-attention and encoder-decoder layers, encoders and frontends;
@@ -22,6 +26,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.lm.config import LayerSpec, LMConfig, Stage
 from repro_torch.nn import attention as A
@@ -64,12 +69,15 @@ class TransformerLM:
     """The dense LM on one device (``None``: the CUDA card, which must
     exist; ``"cpu"`` runs the plain versions)."""
 
-    def __init__(self, cfg: LMConfig, *, device=None):
+    def __init__(self, cfg: LMConfig, *, device=None, remat: bool = True,
+                 loss_chunk: int = 2048):
         why = _unsupported(cfg)
         if why:
             raise NotImplementedError(f"{cfg.name}: {why}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.remat = remat
+        self.loss_chunk = loss_chunk
         self.vp = padded_vocab(cfg.vocab_size)
         self.dtype = getattr(torch, cfg.dtype)
 
@@ -136,12 +144,22 @@ class TransformerLM:
 
     def _run_stage(self, stage: Stage, sp: Dict, x, positions, *,
                    caches=None, cache_index=None):
-        for r in range(stage.repeats):
+        def body(x, lp, cache):
             for i, spec in enumerate(stage.pattern):
                 x = self._apply_layer(
-                    spec, _take(sp[f"l{i}"], r), x, positions,
-                    cache=_take(caches[i], r) if caches is not None else None,
+                    spec, lp[f"l{i}"], x, positions,
+                    cache=cache[i] if cache is not None else None,
                     cache_index=cache_index)
+            return x
+        remat = self.remat and caches is None and torch.is_grad_enabled()
+        for r in range(stage.repeats):
+            lp = _take(sp, r)
+            cache = (None if caches is None
+                     else [_take(c, r) for c in caches])
+            # the model draws no random numbers: no RNG state to keep
+            x = (checkpoint(body, x, lp, cache, use_reentrant=False,
+                            preserve_rng_state=False)
+                 if remat else body(x, lp, cache))
         return x
 
     # ------------------------------------------------------------ forward
@@ -177,10 +195,33 @@ class TransformerLM:
         return softcap(torch.matmul(hidden, head).float(),
                        self.cfg.logit_softcap)
 
-    def loss(self, params, batch):
-        raise NotImplementedError(_TODO.format(
-            "the LM loss", "the training path (loss, launch/train.py, "
-            "launch/steps.py)"))
+    def loss(self, params: Dict, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+        """Mean next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["targets"]`` (both ``[B, S]``), as the reference computes
+        it: the head runs over chunks of ``min(loss_chunk, S)`` positions
+        (which must divide ``S``), each chunk's logits in fp32 and
+        softcapped, ``logsumexp - gold`` summed and divided by ``B * S``.
+        Returns ``(loss, {"nll", "moe_aux"})``; the dense family has no
+        router, so ``moe_aux`` is 0 and ``loss`` is ``nll`` (the
+        reference's ``coef * aux / num_layers`` term comes with MoE)."""
+        tokens, targets = batch["tokens"], batch["targets"].long()
+        hidden = self.backbone(params, tokens, mode="train")
+        b, s, _ = hidden.shape
+        chunk = min(self.loss_chunk, s)
+        if s % chunk:
+            raise ValueError(f"sequence length {s} is not a multiple of the "
+                             f"loss chunk {chunk}")
+        head = (params["embed"].T if self.cfg.tie_embeddings
+                else params["lm_head"])
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c in range(0, s, chunk):
+            lg = softcap(torch.matmul(hidden[:, c:c + chunk], head).float(),
+                         self.cfg.logit_softcap)
+            gold = lg.gather(-1, targets[:, c:c + chunk, None])[..., 0]
+            total = total + torch.sum(torch.logsumexp(lg, dim=-1) - gold)
+        nll = total / (b * s)
+        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        return nll, {"nll": nll, "moe_aux": aux}
 
     # ------------------------------------------------------------ serving
     def prefill(self, params: Dict, tokens: torch.Tensor, *,

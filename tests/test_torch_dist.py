@@ -421,8 +421,11 @@ def test_data_group_and_elastic_plan():
         assert (a.shape, a.axes, a.used_devices, a.dropped_devices,
                 a.dp_degree) == (b.shape, b.axes, b.used_devices,
                                  b.dropped_devices, b.dp_degree)
-    with pytest.raises(NotImplementedError):   # the LM plans: not ported
-        mesh.plan_elastic_mesh(32, model_parallel=16)
+    a = mesh.plan_elastic_mesh(32, model_parallel=16)   # an LM plan
+    b = rmesh.plan_elastic_mesh(32, model_parallel=16)
+    assert (a.shape, a.axes, a.used_devices, a.dropped_devices,
+            a.dp_degree) == (b.shape, b.axes, b.used_devices,
+                             b.dropped_devices, b.dp_degree)
     with pytest.raises(ValueError):
         mesh.plan_elastic_mesh(3, model_parallel=2, data_only=True)
 

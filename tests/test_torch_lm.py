@@ -234,9 +234,19 @@ def test_non_dense_archs_are_not_ported_yet(arch):
 
 
 def test_loss_is_not_ported_yet(models):
+    """The dense family's loss is ported (``tests/test_torch_lm_train.py``);
+    every non-dense config's loss still raises: neither the model nor the
+    train step builds for it."""
+    from repro_torch.launch.steps import build_step
     _, _, m, p = models["qwen3-4b"]
-    with pytest.raises(NotImplementedError, match="training path"):
-        m.loss(p, {})
+    loss, metrics = m.loss(p, {"tokens": torch.zeros(1, 4, dtype=torch.long),
+                               "targets": torch.ones(1, 4, dtype=torch.long)})
+    assert bool(torch.isfinite(loss)) and set(metrics) == {"nll", "moe_aux"}
+    for arch in NON_DENSE:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TransformerLM(C.get_reduced(arch), device="cpu").loss(p, {})
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_step(C.get_reduced(arch), SHAPES["train_4k"], "cpu")
 
 
 def test_port_init_has_the_reference_tree(models):
