@@ -1,9 +1,12 @@
 """Batched LM serving driver of the PyTorch/CUDA port: prefill a prompt
-batch into a KV cache, then decode greedily.
+batch into a cache (K/V for attention, the conv window and state for
+Mamba), then decode greedily.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
         --batch 8 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --reduced --arch jamba-v0.1-52b
 
 Each of ``--batch`` rows gets a random prompt of ``--prompt-len`` tokens
 (numpy, seeded), which is prefilled into a cache of ``prompt_len + gen``
@@ -14,19 +17,23 @@ prompt_len + 1, ...``, each feeding back the previous step's greedy token.
 ``prompt_len + gen`` tokens and then decodes from ``prompt_len``; the port
 does what both docstrings describe.) Weights are random, from ``--seed``.
 Prints the reference driver's line (prefill ms, decode ms, tok/s, a sample
-row) and the peak device memory. One device, no mesh; the dense family
-only (``lm/model.py``).
+row) and the peak device memory. One device, no mesh. Every config but
+the cross-attention ones (whisper-medium, llama-3.2-vision-11b;
+``ROADMAP.md`` §1.3) serves: dense, MoE, Mamba2 and the hybrid
+(``lm/model.py``). A Mamba config's prompt needs at least ``ssm_conv - 1``
+tokens.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Union
 
 import numpy as np
 import torch
 
 from repro_torch import configs as C
+from repro_torch.lm.config import LMConfig
 from repro_torch.lm.model import TransformerLM
 
 
@@ -63,16 +70,21 @@ def generate(model: TransformerLM, params: Dict, prompts: torch.Tensor,
             "prefill_s": t_pre, "decode_s": t_dec, "logits": kept}
 
 
-def serve(arch: str = "gemma2-2b", *, reduced: bool = False, batch: int = 4,
-          prompt_len: int = 32, gen: int = 16, seed: int = 0, device=None,
-          keep_logits: bool = False,
+def serve(arch: Union[str, LMConfig] = "gemma2-2b", *, reduced: bool = False,
+          batch: int = 4, prompt_len: int = 32, gen: int = 16, seed: int = 0,
+          device=None, keep_logits: bool = False,
           log: Callable[[str], None] = print) -> Dict:
-    """Serve one prompt batch on ``device`` (``None``: the CUDA card), the
-    weights and prompts drawn from ``seed``. Returns the prompts, the
+    """Serve one prompt batch of ``arch`` (a config, or an arch id: its
+    full config, or its reduced one with ``reduced``) on ``device``
+    (``None``: the CUDA card), the weights and prompts drawn from
+    ``seed``. Returns the prompts, the
     generated tokens, the times, tok/s, the peak device memory from the
     end of initialization on (GiB, the weights included; ``None`` on the
     CPU) and, with ``keep_logits``, each step's logits."""
-    cfg = C.get_reduced(arch) if reduced else C.get_config(arch)
+    if isinstance(arch, LMConfig):
+        cfg = arch
+    else:
+        cfg = C.get_reduced(arch) if reduced else C.get_config(arch)
     model = TransformerLM(cfg, device=device)
     dev = model.device
     log(f"[serve] {cfg.name}: device={dev}, {cfg.num_layers} layers, "

@@ -7,6 +7,12 @@ monitoring and the elastic restart drill (the port's counterpart of
         --reduced --steps 20 --batch 8 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
         --steps 10 --batch 4 --seq 2048          # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch jamba-v0.1-52b --reduced --steps 6 --batch 2 --seq 32
+
+Every config but the cross-attention ones (whisper-medium,
+llama-3.2-vision-11b; ``ROADMAP.md`` §1.3) trains: dense, MoE (the loss
+carries the routers' load-balance term), Mamba2 and the hybrid.
 
 Failure drill (``--simulate-failure N``): at step N the one host,
 ``"host0"``, stops heartbeating; the controller drains, replans the mesh
@@ -65,8 +71,9 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
     final ``TrainState``, the start step, the controller's failure events,
     the plan, the tokens/s of the steps after the first (the warm-up:
     their tokens over the sum of their ms; ``None`` with fewer than two
-    steps) and the peak device memory (GiB, from the end of
-    initialization; ``None`` on the CPU)."""
+    steps), the peak device memory (GiB, from the end of
+    initialization; ``None`` on the CPU) and each step's ``moe_aux`` (the
+    MoE layers' summed load-balance loss; 0 without MoE)."""
     if isinstance(cfg_or_arch, LMConfig):
         cfg = cfg_or_arch
     else:
@@ -102,7 +109,7 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
     controller = ElasticController(monitor, devices_per_host=1,
                                    model_parallel=plan.shape[-1])
 
-    losses, step_ms = [], []
+    losses, step_ms, moe_aux = [], [], []
     step = start_step
     try:
         while step < steps:
@@ -117,6 +124,7 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
             losses.append(loss)
+            moe_aux.append(float(metrics["moe_aux"]))
             step_ms.append(dt * 1e3)
             for h in hosts:
                 monitor.heartbeat(h, step=step, step_time=dt)
@@ -153,7 +161,8 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
                 ckpt.save(step, state)           # async write
             if step % 5 == 0 or step == steps:
                 log(f"[train] step {step:5d} loss {loss:.4f} "
-                    f"({dt * 1e3:.0f} ms)")
+                    + (f"moe_aux {moe_aux[-1]:.4f} " if cfg.num_experts
+                       else "") + f"({dt * 1e3:.0f} ms)")
         ckpt.wait()
     finally:
         it.close()
@@ -166,7 +175,7 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
     return {"arch": cfg.name, "losses": losses, "step_ms": step_ms,
             "state": state, "start_step": start_step,
             "events": controller.events, "plan": plan,
-            "tokens_per_s": tok_s, "peak_mem_gib": peak}
+            "tokens_per_s": tok_s, "peak_mem_gib": peak, "moe_aux": moe_aux}
 
 
 def main(argv=None):

@@ -1,24 +1,30 @@
-"""TransformerLM for LM serving: the dense family (the port's counterpart of
-``repro.lm.model``).
+"""TransformerLM for LM serving and training: the dense, MoE, SSM and
+hybrid families (the port's counterpart of ``repro.lm.model``).
 
 * Parameters keep the reference's layout, stacked over each stage's
   repeats (``params["stages"][i]["l<j>"]...`` with a leading ``[repeats]``
   dimension), so ``params_from_reference`` only converts arrays. Layers run
   as a Python loop over the repeats.
-* ``prefill`` / ``decode_step`` serve from a preallocated KV cache (also
-  stacked per stage) that attention writes in place. The attention core is
+* Layer kinds: self-attention (``nn/attention.py``) or a Mamba2 layer
+  (``nn/ssm.py``), then a dense MLP (``nn/mlp.py``) or an MoE MLP
+  (``nn/moe.py``) per ``LayerSpec.moe``; a Mamba layer of a config without
+  ``d_ff`` has no MLP.
+* ``prefill`` / ``decode_step`` serve from a preallocated cache (also
+  stacked per stage) that the layers write in place: K/V for attention,
+  the conv window and the recurrent state for Mamba. The attention core is
   K10 (``kernels/flash_attention.py``).
 * ``backbone(mode="train")`` is the cache-free forward; ``loss`` is the
-  reference's sequence-chunked next-token cross-entropy over it. Under
-  autograd K10 runs its kernel forward and the plain version's VJP
-  (``kernels/flash_attention.FlashAttention``). ``remat=True`` (the
+  reference's sequence-chunked next-token cross-entropy over it, plus
+  ``MOE_AUX_COEF`` times the MoE layers' load-balance loss over the number
+  of layers. Under autograd K10 runs its kernel forward and the plain
+  version's VJP (``kernels/flash_attention.FlashAttention``). ``remat=True`` (the
   reference's default) recomputes each repeat of a stage in the backward
   (``torch.utils.checkpoint``, the counterpart of the reference's
   ``jax.checkpoint(nothing_saveable)``), and only while grad is enabled.
 
-Not ported yet (``ROADMAP.md`` §1, the LM substrate): Mamba layers, MoE
-MLPs, cross-attention and encoder-decoder layers, encoders and frontends;
-a config that needs any of them raises ``NotImplementedError``.
+Not ported yet (``ROADMAP.md`` §1, the LM substrate): cross-attention and
+encoder-decoder layers, encoders and frontends; a config that needs any of
+them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,8 +37,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.lm.config import LayerSpec, LMConfig, Stage
 from repro_torch.nn import attention as A
 from repro_torch.nn import mlp as M
+from repro_torch.nn import moe as MOE
+from repro_torch.nn import ssm as S
 from repro_torch.nn.common import dense_init, init_device, rms_norm, softcap
 from repro_torch.device import resolve_device
+
+# The load-balance loss's weight in ``loss`` (the reference's default).
+MOE_AUX_COEF = 0.01
 
 _TODO = "{} is not ported yet (ROADMAP.md §1, LM substrate: {})"
 
@@ -42,16 +53,12 @@ def padded_vocab(v: int, multiple: int = 128) -> int:
 
 
 def _unsupported(cfg: LMConfig) -> Optional[str]:
-    """Why the port cannot run ``cfg`` yet, or ``None`` (a dense model)."""
+    """Why the port cannot run ``cfg`` yet, or ``None``."""
     for st in cfg.stages:
         for spec in st.pattern:
-            if spec.kind == "mamba":
-                return _TODO.format("a Mamba layer", "SSM, nn/ssm.py")
-            if spec.kind != "self_attn" or spec.dec_cross:
+            if spec.kind not in ("self_attn", "mamba") or spec.dec_cross:
                 return _TODO.format("cross-attention",
                                     "cross-attention and encoder/frontend")
-            if spec.moe:
-                return _TODO.format("an MoE MLP", "MoE, nn/moe.py")
     if cfg.encoder_layers or cfg.frontend_tokens or cfg.frontend_dim:
         return _TODO.format("an encoder or frontend",
                             "cross-attention and encoder/frontend")
@@ -66,8 +73,8 @@ def _take(tree, r: int):
 
 
 class TransformerLM:
-    """The dense LM on one device (``None``: the CUDA card, which must
-    exist; ``"cpu"`` runs the plain versions)."""
+    """The LM on one device (``None``: the CUDA card, which must exist;
+    ``"cpu"`` runs the plain versions)."""
 
     def __init__(self, cfg: LMConfig, *, device=None, remat: bool = True,
                  loss_chunk: int = 2048):
@@ -87,8 +94,16 @@ class TransformerLM:
         dev = init_device(g)
         ones = lambda: torch.ones(lead + (cfg.d_model,), dtype=dt,   # noqa: E731
                                   device=dev)
-        p = {"norm": ones(), "attn": A.init_attention(g, cfg, dt, lead)}
-        if cfg.d_ff > 0:
+        p = {"norm": ones()}
+        if spec.kind == "mamba":
+            p["mamba"] = S.init_mamba(g, cfg, dt, lead)
+        else:
+            p["attn"] = A.init_attention(g, cfg, dt, lead)
+        if spec.moe and (spec.kind != "mamba" or cfg.d_ff > 0):
+            p["mlp_norm"] = ones()
+            p["moe"] = MOE.init_moe(g, cfg.d_model, cfg.moe_d_ff or cfg.d_ff,
+                                    cfg.num_experts, dt, lead)
+        elif cfg.d_ff > 0:
             p["mlp_norm"] = ones()
             p["mlp"] = M.init_mlp(g, cfg.d_model, cfg.d_ff, dt, lead)
         return p
@@ -119,57 +134,83 @@ class TransformerLM:
         return self._build(generator)
 
     def init_cache(self, batch: int, cache_len: int) -> List[List[Dict]]:
-        """Zeroed K/V per stage and pattern layer: ``{"attn": {"k", "v":
-        [repeats, batch, cache_len, KV, hd]}}``."""
+        """Zeroed caches per stage and pattern layer, stacked over the
+        repeats: ``{"attn": {"k", "v": [repeats, batch, cache_len, KV,
+        hd]}}`` (model dtype) for attention, ``{"mamba": {"conv":
+        [repeats, batch, ssm_conv - 1, d_inner + 2 g n]`` (model dtype),
+        ``"state": [repeats, batch, h, p, n]`` (fp32)``}}`` for Mamba."""
         cfg = self.cfg
-        shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-        zeros = lambda st: torch.zeros((st.repeats,) + shape,   # noqa: E731
-                                       dtype=self.dtype, device=self.device)
-        return [[{"attn": {"k": zeros(st), "v": zeros(st)}}
-                 for _ in st.pattern] for st in cfg.stages]
+
+        def zeros(st, shape, dtype=self.dtype):
+            return torch.zeros((st.repeats, batch) + shape, dtype=dtype,
+                               device=self.device)
+
+        kv = (cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        conv = (cfg.ssm_conv - 1,
+                cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state)
+        state = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+        return [[{"mamba": {"conv": zeros(st, conv),
+                            "state": zeros(st, state, torch.float32)}}
+                 if spec.kind == "mamba" else
+                 {"attn": {"k": zeros(st, kv), "v": zeros(st, kv)}}
+                 for spec in st.pattern] for st in cfg.stages]
 
     # ------------------------------------------------------------ layers
     def _apply_layer(self, spec: LayerSpec, p: Dict, x, positions, *,
-                     cache=None, cache_index=None):
+                     cache=None, cache_index=None, prefill=False):
+        """``(x, lb_loss)``: the layer's output and its MoE load-balance
+        loss (``None`` without an MoE MLP)."""
         cfg = self.cfg
         h = rms_norm(x, p["norm"], cfg.norm_eps)
-        h, _ = A.attention(p["attn"], h, cfg, spec, positions,
-                           kv_cache=cache["attn"] if cache else None,
-                           cache_index=cache_index)
+        if spec.kind == "mamba":
+            h, _ = S.mamba_forward(p["mamba"], h, cfg,
+                                   cache=cache["mamba"] if cache else None,
+                                   prefill=prefill)
+        else:
+            h, _ = A.attention(p["attn"], h, cfg, spec, positions,
+                               kv_cache=cache["attn"] if cache else None,
+                               cache_index=cache_index)
         x = x + h
+        aux = None
         if "mlp_norm" in p:
             h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-            x = x + M.mlp(p["mlp"], h)
-        return x
+            if "moe" in p:
+                h, moe_aux = MOE.moe_ffn(p["moe"], h, cfg.num_experts,
+                                         cfg.experts_per_tok,
+                                         cfg.capacity_factor)
+                aux = moe_aux["lb_loss"]
+            else:
+                h = M.mlp(p["mlp"], h)
+            x = x + h
+        return x, aux
 
-    def _run_stage(self, stage: Stage, sp: Dict, x, positions, *,
-                   caches=None, cache_index=None):
-        def body(x, lp, cache):
+    def _run_stage(self, stage: Stage, sp: Dict, x, positions, aux, *,
+                   caches=None, cache_index=None, prefill=False):
+        """The stage's repeats in order; ``aux`` (train mode) sums the MoE
+        layers' load-balance losses, layer by layer."""
+        def body(x, aux, lp, cache):
             for i, spec in enumerate(stage.pattern):
-                x = self._apply_layer(
+                x, a = self._apply_layer(
                     spec, lp[f"l{i}"], x, positions,
                     cache=cache[i] if cache is not None else None,
-                    cache_index=cache_index)
-            return x
+                    cache_index=cache_index, prefill=prefill)
+                if a is not None and aux is not None:
+                    aux = aux + a
+            return x, aux
         remat = self.remat and caches is None and torch.is_grad_enabled()
         for r in range(stage.repeats):
             lp = _take(sp, r)
             cache = (None if caches is None
                      else [_take(c, r) for c in caches])
             # the model draws no random numbers: no RNG state to keep
-            x = (checkpoint(body, x, lp, cache, use_reentrant=False,
-                            preserve_rng_state=False)
-                 if remat else body(x, lp, cache))
-        return x
+            x, aux = (checkpoint(body, x, aux, lp, cache, use_reentrant=False,
+                                 preserve_rng_state=False)
+                      if remat else body(x, aux, lp, cache))
+        return x, aux
 
     # ------------------------------------------------------------ forward
-    def backbone(self, params: Dict, tokens: torch.Tensor, *,
-                 mode: str = "train", caches=None,
-                 cache_index: Optional[int] = None) -> torch.Tensor:
-        """Final-normed hidden states ``[B, S, D]``. ``train``: the
-        cache-free forward at positions ``0..S-1``; ``prefill``: the same,
-        writing K/V into ``caches`` at 0; ``decode``: positions
-        ``cache_index + 0..S-1``, writing there."""
+    def _backbone(self, params: Dict, tokens: torch.Tensor, mode: str,
+                  caches, cache_index: Optional[int]):
         cfg = self.cfg
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
@@ -182,12 +223,25 @@ class TransformerLM:
         if cfg.scale_embed:
             x = x * torch.tensor(float(cfg.d_model), dtype=torch.float32
                                  ).sqrt().to(self.dtype)
+        aux = (torch.zeros((), dtype=torch.float32, device=self.device)
+               if mode == "train" else None)
         for i, stage in enumerate(cfg.stages):
-            x = self._run_stage(
-                stage, params["stages"][i], x, positions,
+            x, aux = self._run_stage(
+                stage, params["stages"][i], x, positions, aux,
                 caches=caches[i] if caches is not None else None,
-                cache_index=None if caches is None else start)
-        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+                cache_index=None if caches is None else start,
+                prefill=mode == "prefill")
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+    def backbone(self, params: Dict, tokens: torch.Tensor, *,
+                 mode: str = "train", caches=None,
+                 cache_index: Optional[int] = None) -> torch.Tensor:
+        """Final-normed hidden states ``[B, S, D]``. ``train``: the
+        cache-free forward at positions ``0..S-1``; ``prefill``: the same,
+        writing the caches (K/V at 0, Mamba's conv window and state);
+        ``decode``: positions ``cache_index + 0..S-1`` (Mamba layers take
+        one token), writing there."""
+        return self._backbone(params, tokens, mode, caches, cache_index)[0]
 
     def logits(self, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
         head = (params["embed"].T if self.cfg.tie_embeddings
@@ -201,11 +255,11 @@ class TransformerLM:
         it: the head runs over chunks of ``min(loss_chunk, S)`` positions
         (which must divide ``S``), each chunk's logits in fp32 and
         softcapped, ``logsumexp - gold`` summed and divided by ``B * S``.
-        Returns ``(loss, {"nll", "moe_aux"})``; the dense family has no
-        router, so ``moe_aux`` is 0 and ``loss`` is ``nll`` (the
-        reference's ``coef * aux / num_layers`` term comes with MoE)."""
+        ``loss`` adds ``MOE_AUX_COEF * moe_aux / max(1, num_layers)``,
+        where ``moe_aux`` sums the MoE layers' load-balance losses (0
+        without MoE). Returns ``(loss, {"nll", "moe_aux"})``."""
         tokens, targets = batch["tokens"], batch["targets"].long()
-        hidden = self.backbone(params, tokens, mode="train")
+        hidden, aux = self._backbone(params, tokens, "train", None, None)
         b, s, _ = hidden.shape
         chunk = min(self.loss_chunk, s)
         if s % chunk:
@@ -220,8 +274,8 @@ class TransformerLM:
             gold = lg.gather(-1, targets[:, c:c + chunk, None])[..., 0]
             total = total + torch.sum(torch.logsumexp(lg, dim=-1) - gold)
         nll = total / (b * s)
-        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        return nll, {"nll": nll, "moe_aux": aux}
+        loss = nll + MOE_AUX_COEF * aux / max(1, self.cfg.num_layers)
+        return loss, {"nll": nll, "moe_aux": aux}
 
     # ------------------------------------------------------------ serving
     def prefill(self, params: Dict, tokens: torch.Tensor, *,

@@ -1,8 +1,9 @@
 """The LM serving slice of the PyTorch port against the JAX reference, on
 the CPU: the config registry, the ``nn`` primitives, self-attention with
-and without a KV cache, ``TransformerLM`` prefill / decode of the dense
-configs (parameters carried over by ``params_from_reference``), and the
-serving driver. Tolerances: rtol = atol = 1e-4 in fp32 (the port's
+and without a KV cache, ``TransformerLM`` prefill / decode of the dense,
+MoE, SSM and hybrid configs (parameters carried over by
+``params_from_reference``), the arch smoke of ``tests/test_lm_archs.py``,
+and the serving driver. Tolerances: rtol = atol = 1e-4 in fp32 (the port's
 card-vs-CPU bound), the reference's own 2e-2 / 5e-2 where its decode check
 compares two paths of one model.
 """
@@ -31,7 +32,10 @@ from repro_torch.nn import mlp as M
 
 RNG = np.random.default_rng(0)
 DENSE = ["qwen3-4b", "gemma2-2b", "gemma3-4b", "qwen3-14b"]
-NON_DENSE = [a for a in RC.ARCHS if a not in DENSE]
+MOE_SSM = ["moonshot-v1-16b-a3b", "grok-1-314b", "mamba2-780m",
+           "jamba-v0.1-52b"]
+PORTED = DENSE + MOE_SSM
+UNPORTED = [a for a in RC.ARCHS if a not in PORTED]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -46,10 +50,10 @@ def close(got, want, **tol):
 
 @pytest.fixture(scope="module")
 def models():
-    """Reference and port models of each dense reduced config, on the same
+    """Reference and port models of each ported reduced config, on the same
     parameters (the reference's init carried over)."""
     out = {}
-    for arch in DENSE:
+    for arch in PORTED:
         rcfg = RC.get_reduced(arch)
         rm = RefLM(rcfg, remat=False)
         rp = rm.init(jax.random.key(0))
@@ -190,10 +194,11 @@ def test_cross_attention_is_not_ported_yet():
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_prefill_and_decode_equal_the_reference(models, arch):
     """prefill of 12 tokens into a cache of 16, then three decode steps:
-    logits within 1e-4 of the reference's at every step."""
+    logits within 1e-4 of the reference's at every step, and the caches
+    (K/V, Mamba's conv window and state) the reference's."""
     rm, rp, m, p = models[arch]
     b, s = 2, 12
     toks = RNG.integers(0, m.cfg.vocab_size, (b, s + 3))
@@ -207,14 +212,21 @@ def test_prefill_and_decode_equal_the_reference(models, arch):
         rl, rc = rm.decode_step(rp, jnp.asarray(tok, jnp.int32), s + i, rc)
         lg, caches = m.decode_step(p, torch.from_numpy(tok), s + i, caches)
         close(lg, rl)
-    close(caches[0][0]["attn"]["k"], rc[0][0]["attn"]["k"])
+    for stage, rstage in zip(caches, rc):
+        for layer, rlayer in zip(stage, rstage):
+            for kind, entry in layer.items():
+                for name, buf in entry.items():
+                    close(buf, rlayer[kind][name])
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_decode_matches_full_forward(models, arch):
     """The reference's ``test_decode_matches_full_forward`` on the port:
-    prefill(S) + decode(S) logits == forward(S+1) last logits."""
+    prefill(S) + decode(S) logits == forward(S+1) last logits (capacity
+    factor 8, as there: no MoE drops in either path)."""
     _, _, model, params = models[arch]
+    model = TransformerLM(dataclasses.replace(model.cfg, capacity_factor=8.0),
+                          device="cpu")
     b, s = 2, 12
     toks = torch.from_numpy(RNG.integers(0, model.cfg.vocab_size,
                                          (b, s + 1)))
@@ -227,22 +239,25 @@ def test_decode_matches_full_forward(models, arch):
           rtol=5e-2, atol=5e-2)
 
 
-@pytest.mark.parametrize("arch", NON_DENSE)
+@pytest.mark.parametrize("arch", UNPORTED)
 def test_non_dense_archs_are_not_ported_yet(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Cross-attention, encoders and frontends (whisper, llama-vision) are
+    not ported yet."""
+    assert sorted(UNPORTED) == ["llama-3.2-vision-11b", "whisper-medium"]
+    with pytest.raises(NotImplementedError, match="cross-attention.*ROADMAP"):
         TransformerLM(C.get_reduced(arch), device="cpu")
 
 
 def test_loss_is_not_ported_yet(models):
-    """The dense family's loss is ported (``tests/test_torch_lm_train.py``);
-    every non-dense config's loss still raises: neither the model nor the
-    train step builds for it."""
+    """The loss of every ported config runs (``tests/test_torch_lm_train.py``
+    holds it to the reference); an unported config's still raises: neither
+    the model nor the train step builds for it."""
     from repro_torch.launch.steps import build_step
     _, _, m, p = models["qwen3-4b"]
     loss, metrics = m.loss(p, {"tokens": torch.zeros(1, 4, dtype=torch.long),
                                "targets": torch.ones(1, 4, dtype=torch.long)})
     assert bool(torch.isfinite(loss)) and set(metrics) == {"nll", "moe_aux"}
-    for arch in NON_DENSE:
+    for arch in UNPORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TransformerLM(C.get_reduced(arch), device="cpu").loss(p, {})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -250,13 +265,74 @@ def test_loss_is_not_ported_yet(models):
 
 
 def test_port_init_has_the_reference_tree(models):
-    for arch in DENSE:
+    for arch in PORTED:
         _, rp, m, _ = models[arch]
         got = m.init(torch.Generator().manual_seed(1))
         want = jax.tree_util.tree_map(lambda a: tuple(a.shape), rp)
         assert jax.tree_util.tree_map(lambda a: tuple(a.shape), got) == want
         assert all(x.dtype == torch.float32
                    for x in jax.tree_util.tree_leaves(got))
+
+
+FP32_LEAVES = {"router", "A_log", "dt_bias", "D_skip"}
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "grok-1-314b"])
+def test_params_from_reference_keeps_fp32_leaves_in_bf16(arch):
+    """In a bf16 config the router and Mamba's ``A_log``, ``dt_bias`` and
+    ``D_skip`` stay fp32 (the reference's values exactly), as the port's
+    own init makes them; every other leaf is bf16."""
+    rcfg = dataclasses.replace(RC.get_reduced(arch), dtype="bfloat16")
+    cfg = dataclasses.replace(C.get_reduced(arch), dtype="bfloat16")
+    rp = RefLM(rcfg).init(jax.random.key(0))
+    got = params_from_reference(jax.tree_util.tree_map(np.asarray, rp), cfg,
+                                "cpu")
+    own = TransformerLM(cfg, device="cpu").init()
+    paths = jax.tree_util.tree_leaves_with_path(rp)
+    leaves = jax.tree_util.tree_leaves(got)
+    assert len(paths) == len(leaves) == len(jax.tree_util.tree_leaves(own))
+    seen = set()
+    for (path, want), g, o in zip(paths, leaves,
+                                  jax.tree_util.tree_leaves(own)):
+        name = getattr(path[-1], "key", None)
+        fp32 = name in FP32_LEAVES
+        seen |= {name} & FP32_LEAVES
+        assert g.dtype == o.dtype == (torch.float32 if fp32
+                                      else torch.bfloat16), path
+        assert str(want.dtype) == ("float32" if fp32 else "bfloat16"), path
+        if fp32:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(want))
+    assert seen == (FP32_LEAVES if arch.startswith("jamba") else {"router"})
+
+
+@pytest.mark.parametrize("arch", MOE_SSM)
+def test_arch_smoke_forward_and_train_step(arch):
+    """``tests/test_lm_archs.py::test_arch_smoke_forward_and_train_step`` on
+    the port: the port's own init, forward shapes, finite hidden states and
+    loss, and one SGD step that keeps the loss finite."""
+    cfg = C.get_reduced(arch)
+    model = TransformerLM(cfg, device="cpu", remat=False)
+    params = model.init(torch.Generator().manual_seed(0))
+    b, s = 2, 16
+    batch = {"tokens": torch.from_numpy(RNG.integers(0, cfg.vocab_size,
+                                                     (b, s))),
+             "targets": torch.from_numpy(RNG.integers(0, cfg.vocab_size,
+                                                      (b, s)))}
+    hidden = model.backbone(params, batch["tokens"])
+    assert hidden.shape == (b, s, cfg.d_model)
+    assert bool(torch.isfinite(hidden).all())
+    loss, metrics = model.loss(params, batch)
+    assert bool(torch.isfinite(loss))
+    assert (float(metrics["moe_aux"]) > 0) == (cfg.num_experts > 0)
+    from repro_torch.optim.adamw import tree_leaves, tree_like
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    grads = torch.autograd.grad(model.loss(tree_like(params, leaves),
+                                           batch)[0], leaves)
+    params2 = tree_like(params, [p - 1e-2 * g for p, g in zip(leaves,
+                                                              grads)])
+    with torch.no_grad():
+        loss2, _ = model.loss(params2, batch)
+    assert bool(torch.isfinite(loss2))
 
 
 def test_params_from_reference_checks_the_tree(models):
@@ -278,7 +354,8 @@ def test_the_model_defaults_to_the_card(monkeypatch):
 # ---------------------------------------------------------------------------
 # the serving driver
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b", "mamba2-780m",
+                                  "jamba-v0.1-52b"])
 def test_driver_matches_the_reference_model(arch):
     """``--device cpu --reduced``: the port prefills ``prompt_len`` tokens
     into a cache of ``prompt_len + gen`` and decodes from ``prompt_len``;

@@ -194,7 +194,8 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro\b|hector\b)", re.M)
 
 def test_port_imports_nothing_of_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "src" / "hector_torch.py", ROOT / "chip_smoke.py"]
+    files += [ROOT / "src" / "hector_torch.py", ROOT / "chip_smoke.py",
+              ROOT / "tenant_probe.py"]
     assert len(files) > 20
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
