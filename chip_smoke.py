@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Card check of the PyTorch/CUDA port: build, kernel-vs-plain, serve, train,
 LM serving, online serving, data parallelism, LM training, the MoE and SSM
-LM families.
+LM families, cross-attention and the encoder.
 
     python3 chip_smoke.py            # one CUDA card; a few minutes
 
 Drives the port (``src/repro_torch``, never JAX nor the reference package)
 on one CUDA card, in phases, for the registry's models (RGAT, RGCN, HGT,
 rgcn_cat), the dense LMs (gemma2-2b, qwen3-4b; the reduced variants of
-all four dense configs) and the MoE, SSM and hybrid LMs (moonshot, grok,
-mamba2, jamba); any failure exits non-zero. Each phase prints
+all four dense configs), the MoE, SSM and hybrid LMs (moonshot, grok,
+mamba2, jamba) and the cross-attention LMs (whisper-medium,
+llama-3.2-vision-11b); any failure exits non-zero. Each phase prints
 ``[phase N] start`` first. Phases 3-5, 9, 11 and 13-17 run the
 drivers' default: the executors capture one CUDA graph per signature at its
 second call and replay it (``core.executor``); phases 6 and 10 train op
@@ -192,7 +193,9 @@ comparable across versions:
    empty query that launches nothing), each in its own dtype and in bf16,
    and bf16 cases across the tensor-core and decode kernels' tile edges
    (rows and keys off the tile, chunked prefill, window edges inside a
-   tile, a cache layer read in place with Sk > Sq), so that every route of
+   tile, a cache layer read in place with Sk > Sq, non-causal decode-route
+   calls with and without key splits, a non-causal prefill with Sq > Sk),
+   so that every route of
    ``flash_attention.plan`` is held: rtol = atol = 2e-5 in fp32 (the
    reference's ``tests/test_flash.py`` bound); in bf16 rtol = 2^-7 (one
    bf16 ulp) and atol = 2e-5, inside the reference's 3e-2; each kept call
@@ -206,7 +209,11 @@ comparable across versions:
    decode steps) and gemma2-2b / qwen3-4b at full width with one repeat
    per stage (batch 2, prompt 256, gen 8): logits within 1e-4, greedy
    tokens equal wherever the CPU's top-2 margin exceeds 1e-3; then each
-   serve run's prefill and decode loop under ``torch.profiler``;
+   serve run's prefill and decode loop under ``torch.profiler``. Every LM
+   cell of phases 12, 18, 19 and 20 logs its analytic bound on the card
+   (``launch/roofline.py``: ``max(model_flops / 989e12,
+   analytic_memory_bytes / 3.35e12)`` for the config as run) beside its
+   measured ms (prefill, decode ms per token, step p50);
 13. telemetry (``repro_torch.obs``): (a) RGAT aifb-b32 served at phase 3's
    settings three times, ``obs_mode="off"``, ``"on"`` and ``"on"`` with
    ``trace_out`` (and ``profile``): every batch's logits bitwise equal,
@@ -393,15 +400,38 @@ comparable across versions:
    fall, ``moe_aux`` every step, K10 launched exactly (attention layers) x
    steps times, a second run's losses bit for bit, one more step under
    ``use_deterministic_algorithms(True, warn_only=True)``, what warns
-   listed.
+   listed;
+20. cross-attention, the encoder and the frontend stubs (whisper-medium's
+   encoder-decoder, llama-3.2-vision-11b's image cross-attention layers;
+   K10 without causal masking): (a) the card against the CPU in fp32,
+   the two reduced configs and both at full width with one repeat (and
+   one encoder layer), B 2, prompt 12 / 64, gen 4, the same stubbed
+   frontend on both: logits within 1e-4 and every cache after the last
+   step (K/V, the cross K/V) within 1e-4; the reduced configs' loss and
+   every gradient leaf as phase 18 (a); (b) full-width bf16 serving,
+   every layer, the reference's stubbed frontends: whisper at B 8, 1500
+   frames, prompt 416, gen 32 (its decoder context is 448) and
+   llama-vision at B 4, 1600 patches, prompt 2048, gen 32: K10 launched
+   exactly (attention calls a forward) x gen + the encoder's layers, and
+   no other kernel, every logit finite, then the decode-continues-full-
+   forward check at 0.2 (as phase 19's bf16); (c) full-width bf16
+   training through ``launch.train.train`` (B 4, S 2048, 6 steps; whisper
+   all 24 + 24 layers, llama-vision one 5-layer period): the first step's
+   every gradient leaf finite and nonzero, the encoder's and
+   ``frontend_proj``'s included, finite losses, the trained params' loss
+   on step 0's batch below the initial one, K10 launched exactly
+   (attention calls + encoder layers) x steps, a second run bit for bit;
+   (d) K10 against its plain version and timed beside SDPA (as phase 12
+   (a), (d)) at the encoder's call, and the cross-attention prefill and
+   last-decode calls of (b).
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: phase
 6's op-by-op runs of all three models for K1-K5, K7 and K11, phases 9 and 10
 for K9 (the sampler launches K9 outside the executors),
 phase 11's tuned training and serving for K6 and K8, phase 12's serve runs,
-phase 18's full-width training and phase 19's full-width serving and
-training for K10, each counted from 0 just before the run); the last line
-is
+phase 18's full-width training, phase 19's full-width serving and
+training and phase 20's for K10, each counted from 0 just before the run);
+the last line is
 ``{"ok": true, "device": {...}}``.
 ``--out PATH`` also writes every number as JSON, ``--trace-dir DIR`` the
 phase-8 Chrome traces.
@@ -593,7 +623,7 @@ def _device_us(event) -> float:
 
 
 def device_ms(torch, fn, symbol: str, reps: int = 20,
-              per_call: int = 1) -> float:
+              per_call: int = 1, events=None) -> float:
     """Mean device time of one call of ``fn`` (``per_call`` kernels named
     ``symbol``...) over ``reps`` calls under ``torch.profiler`` (the host's
     share excluded).
@@ -603,7 +633,12 @@ def device_ms(torch, fn, symbol: str, reps: int = 20,
     sessions in a row that delivered none). A session that recorded fewer
     than half the launches is run again after a one-second pause (at most
     three sessions); the mean is over the launches of the session that
-    recorded the most, and the run fails if none recorded a launch."""
+    recorded the most, and the run fails if none recorded a launch, unless
+    ``events`` is given: a call timed with CUDA events, whose ms are then
+    returned (and logged as such), for where the profiler shows no
+    device time (seen late in a long run: a
+    phase 20 call's three sessions recorded none of 10 launches, while
+    longer sessions of the same process recorded K10)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -630,6 +665,11 @@ def device_ms(torch, fn, symbol: str, reps: int = 20,
             break
         log(f"[profiler] {symbol}: session {session + 1} recorded {got} "
             f"of {want} launches")
+    if count == 0 and events is not None:
+        ms = events()
+        log(f"[profiler] {symbol}: no session recorded a launch; {ms:.5f} ms "
+            f"a call from CUDA events instead")
+        return ms
     check(count > 0, f"{symbol}: the profiler recorded none of {want} "
           f"launches in three sessions")
     if count != want:
@@ -3511,9 +3551,11 @@ ROUTER_MARGIN = 1e-5
 
 
 def attn_layers(cfg) -> int:
-    """The self-attention layers of ``cfg``: K10 runs once in each a
-    forward (a Mamba layer has none)."""
-    return sum(st.repeats * sum(spec.kind == "self_attn"
+    """K10's calls in one forward of ``cfg``'s decoder: once in each self-
+    or cross-attention layer, twice in an encoder-decoder layer (``dec_cross
+    ``: self, then cross), none in a Mamba layer. An encoder adds
+    ``encoder_layers`` calls to each prefill and training forward."""
+    return sum(st.repeats * sum((spec.kind != "mamba") + spec.dec_cross
                                 for spec in st.pattern)
                for st in cfg.stages)
 # the dense bf16 tensor-core peak of the H100 SXM: the operations bound of
@@ -3561,7 +3603,49 @@ K10_TILE_EDGE = (
     (2, 7, 500, 8, 1, 128, dict(q_offset=493)),
     (4, 3, 1000, 12, 4, 64, dict(window=300, q_offset=997)),
     (1, 21, 190, 12, 4, 256, dict(q_offset=169, softcap=50.0)),
+    # the non-causal calls of cross-attention and the encoder (phase 20):
+    # decode-route rows (Sq 1-3 x g 1 / 4) over keys off the 16-key tile,
+    # with key splits (b * kv below the SMs) and without, hd 64 and 128;
+    # a prefill with more queries than keys
+    (1, 1, 1501, 16, 16, 64, dict(causal=False)),
+    (8, 1, 1601, 32, 8, 128, dict(causal=False)),
+    (9, 3, 1503, 16, 16, 64, dict(causal=False, q_offset=7)),
+    (17, 2, 999, 32, 8, 128, dict(causal=False)),
+    (2, 300, 77, 8, 4, 128, dict(causal=False)),
 )
+
+
+def lm_bound(cfg, mode, batch, seq, measured_ms, tag):
+    """An LM cell's analytic bound on one H100 (``launch/roofline.py``:
+    ``max(model_flops / 989e12, analytic_memory_bytes / 3.35e12)`` for
+    ``cfg`` as run, its cut layers included; a decode cell is one token
+    against a cache of ``seq``) beside the measured ms, logged and
+    returned."""
+    from repro_torch.launch import roofline as RL
+    from repro_torch.lm.config import ShapeCell
+
+    cell = ShapeCell(mode, seq, batch, mode)
+    t_ops = RL.model_flops(cfg, cell) / RL.HW_H100.peak_flops * 1e3
+    t_bytes = (RL.analytic_memory_bytes(cfg, cell, 1) / RL.HW_H100.hbm_bw
+               * 1e3)
+    b_ms = RL.bound_s(cfg, cell) * 1e3
+    out = dict(bound_ms=b_ms, bound_by="operations" if t_ops >= t_bytes
+               else "bytes", measured_ms=measured_ms,
+               ratio=measured_ms / b_ms)
+    log(f"[{tag}] {mode} bound {b_ms:.5f} ms ({out['bound_by']}; B {batch}"
+        f", S {seq}, {cfg.num_layers} layers): measured {measured_ms:.3f} "
+        f"ms = {out['ratio']:.3f} x the bound")
+    return out
+
+
+def lm_serve_bounds(cfg, run, tag):
+    """``lm_bound`` of a serve run's prefill (its prompt) and of its decode
+    ms per token (one token against the ``prompt + gen`` cache)."""
+    b, plen, gen = run["batch"], run["prompt_len"], run["gen"]
+    return dict(prefill=lm_bound(cfg, "prefill", b, plen, run["prefill_ms"],
+                                 tag),
+                decode=lm_bound(cfg, "decode", b, plen + gen,
+                                run["decode_ms_per_token"], tag))
 
 
 def lm_capture_points(cfg, gen):
@@ -3633,6 +3717,7 @@ def phase_lm_serve(torch, ops, serve, C, tag, run):
                                "decode_ms_per_token", "tok_s",
                                "peak_mem_gib", "num_layers")}
     res.update(launches=launches[K10], wall_s=wall, **run)
+    res["bounds"] = lm_serve_bounds(cfg, res, tag)
     log(f"[{tag}] {cfg.num_layers} layers, batch {run['batch']}, prompt "
         f"{run['prompt_len']}, gen {run['gen']}: prefill "
         f"{res['prefill_ms']:.3f} ms, decode {res['decode_ms_per_token']:.3f}"
@@ -3676,8 +3761,9 @@ def k10_bound(torch, args, kw):
 
 def k10_library(torch, F, args, kw):
     """One ``scaled_dot_product_attention(enable_gqa=True)`` call over the
-    same inputs: ``is_causal`` over the keys a causal prefill sees, else the
-    mask (window, causal bound at ``q_offset``) as an explicit boolean
+    same inputs: no mask without causal masking or a window (cross-attention,
+    the encoder), ``is_causal`` over the keys a causal prefill sees, else
+    the mask (window, causal bound at ``q_offset``) as an explicit boolean
     ``attn_mask``. SDPA has no softcap: at gemma2's calls it is the same
     shapes and masks without the cap."""
     import torch.nn.functional as Fn
@@ -3689,6 +3775,10 @@ def k10_library(torch, F, args, kw):
     if window is not None and window >= off + sq:
         window = None                                   # masks nothing
     qt = q.transpose(1, 2)
+    if not causal and window is None:                   # no mask at all
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        return lambda: Fn.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True)
     if causal and window is None and off == 0 and sq <= sk:
         kt, vt = k[:, :sq].transpose(1, 2), v[:, :sq].transpose(1, 2)
         return lambda: Fn.scaled_dot_product_attention(
@@ -3708,13 +3798,15 @@ def _k10_shape(args, kw) -> str:
             + (f" {opts}" if opts else ""))
 
 
-def hold_k10(torch, F, captured, results):
+def hold_k10(torch, F, captured, results, phase="phase 12", reps=10,
+             events=False):
     """(a) and (d) at the kept calls: K10 against its plain version, in the
     calls' bf16 and again on the same inputs upcast to fp32 (at fp32's
     bound, so a wrong late row of a long sequence shows), then its device
-    time (profiler; with the split-combine kernel where the call splits its
-    keys), the wrapper's time (CUDA events), the plain version's, SDPA's
-    and the bound."""
+    time (profiler, ``reps`` calls a session; with the split-combine kernel
+    where the call splits its keys; with ``events``, CUDA events where no
+    session records a launch), the wrapper's time (CUDA events), the plain
+    version's, SDPA's and the bound."""
     r = results[K10]
     for tag, (args, kw) in captured.items():
         fn = lambda: F.flash_attention(*args, **kw)          # noqa: E731
@@ -3731,7 +3823,9 @@ def hold_k10(torch, F, captured, results):
         del wide
         plan = F.plan(args[0], args[1])
         splits = plan.splits
-        ms = device_ms(torch, fn, "flash_", reps=10, per_call=plan.kernels)
+        ms = device_ms(torch, fn, "flash_", reps=reps, per_call=plan.kernels,
+                       events=(lambda: time_ms(torch, fn, reps=10,
+                                               inner=20)) if events else None)
         wrapper_ms = time_ms(torch, fn, reps=10, inner=2)
         plain_ms = time_ms(torch, plain, reps=5, inner=2)
         lib = k10_library(torch, F, args, kw)
@@ -3750,7 +3844,7 @@ def hold_k10(torch, F, captured, results):
                                library_max_abs_diff=lib_err))
         r["max_abs_err_by"][tag] = err
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        log(f"[phase 12] {K10} ({tag}) {shape}: max abs err {err:.3g} "
+        log(f"[{phase}] {K10} ({tag}) {shape}: max abs err {err:.3g} "
             f"(upcast to fp32: {err32:.3g}); "
             f"kernel {ms:.5f} ms on the device ({plan.route}, {splits} key "
             f"split{'s' if splits > 1 else ''}), wrapper {wrapper_ms:.4f} ms, "
@@ -4028,11 +4122,15 @@ def routing_flips(torch, got, want, tag):
                 margins=margins)
 
 
-def lm_card_vs_cpu(torch, serve, TransformerLM, runs, phase, dev="cuda"):
+def lm_card_vs_cpu(torch, serve, TransformerLM, runs, phase, dev="cuda",
+                   caches=False):
     """The card against the CPU through the port, fp32, the same
     parameters moved across, for each ``(tag, cfg, batch, prompt, gen)``:
     prefill then ``gen - 1`` decode steps, the card decoding the CPU's
-    tokens. Every MoE routing is compared: a token may route differently
+    tokens; a config with cross-attention prefills the same stubbed
+    frontend (``serve.stub_frontend``, drawn after the prompts) on both.
+    With ``caches`` every cache tensor after the last step (K/V, the cross
+    K/V) is held to the CPU's at ``LM_CPU_TOL`` too. Every MoE routing is compared: a token may route differently
     only where the CPU's gap between its k-th and (k+1)-th expert
     probability is below ``ROUTER_MARGIN`` (a routing flip moves that
     token's output by O(1), and through the capacity other tokens' drops).
@@ -4048,21 +4146,27 @@ def lm_card_vs_cpu(torch, serve, TransformerLM, runs, phase, dev="cuda"):
         t0 = time.perf_counter()
         cpu = TransformerLM(cfg, device="cpu")
         params = cpu.init()
-        prompts = torch.as_tensor(np.random.default_rng(0).integers(
-            0, cfg.vocab_size, (b, plen)))
+        rng = np.random.default_rng(0)
+        prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                               (b, plen)))
+        fe = serve.stub_frontend(cfg, b, rng)
+        fe = None if fe is None else torch.as_tensor(fe)
         with recorded_routing() as cpu_routes:
-            ref = serve.generate(cpu, params, prompts, gen, keep_logits=True)
+            ref = serve.generate(cpu, params, prompts, gen, frontend=fe,
+                                 keep_logits=True)
         card = TransformerLM(cfg, device=dev)
         pc = _params_to(params, dev)
+        kept = {}
 
         def run_card():
-            lg, caches = card.prefill(pc, prompts.to(dev),
-                                      cache_len=plen + gen)
+            lg, cc = card.prefill(pc, prompts.to(dev), cache_len=plen + gen,
+                                  frontend=None if fe is None else fe.to(dev))
             got = [lg[:, -1].cpu()]
             for i in range(gen - 1):
                 tok = torch.as_tensor(ref["tokens"][:, i:i + 1], device=dev)
-                lg, caches = card.decode_step(pc, tok, plen + i, caches)
+                lg, cc = card.decode_step(pc, tok, plen + i, cc)
                 got.append(lg[:, -1].cpu())
+            kept["caches"] = cc
             return got
 
         with recorded_routing() as card_routes:
@@ -4094,8 +4198,30 @@ def lm_card_vs_cpu(torch, serve, TransformerLM, runs, phase, dev="cuda"):
         check(agree == decided, f"{phase} {tag}: the card's greedy token "
               f"differs at {decided - agree} of {decided} positions with a "
               f"top-2 margin over {LM_MARGIN}")
+        cache_err = {}
+        if caches:
+            for si, (st, wst) in enumerate(zip(kept["caches"],
+                                               ref["caches"])):
+                for li, (layer, want_layer) in enumerate(zip(st, wst)):
+                    check(sorted(layer) == sorted(want_layer),
+                          f"{phase} {tag}: cache entries {sorted(layer)} "
+                          f"against the CPU's {sorted(want_layer)}")
+                    for kind, entry in layer.items():
+                        for name, g in entry.items():
+                            g = g.float().cpu()
+                            w = want_layer[kind][name].float()
+                            err = float((g - w).abs().max())
+                            key = f"{kind}.{name}"
+                            cache_err[key] = max(cache_err.get(key, 0.0),
+                                                 err)
+                            check(bool(torch.allclose(
+                                g, w, rtol=LM_CPU_TOL, atol=LM_CPU_TOL)),
+                                f"{phase} {tag}: cache stage {si} layer "
+                                f"{li} {key} differs from the CPU's by "
+                                f"{err:.3g}")
         out[tag] = dict(max_abs_err=worst, steps=gen, tokens_decided=decided,
                         routing=routes, forced=bool(routes["flips"]),
+                        cache_max_abs_err=cache_err,
                         seconds=time.perf_counter() - t0)
         held = (f"card logits = CPU logits (max abs err {worst:.3g}), greedy "
                 f"tokens equal at all {decided} positions with a top-2 "
@@ -4104,10 +4230,14 @@ def lm_card_vs_cpu(torch, serve, TransformerLM, runs, phase, dev="cuda"):
             held = (f"{routes['flips']} routing flips at CPU margins "
                     f"{routes['margins']} (< {ROUTER_MARGIN}); with the "
                     f"CPU's routing forced, {held}")
+        if caches:
+            held += (", caches = CPU caches (max abs err "
+                     + ", ".join(f"{k} {v:.3g}" for k, v in
+                                 sorted(cache_err.items())) + ")")
         log(f"[{phase}] {tag}: {cfg.num_layers} layers, {gen} steps, "
             f"{routes['calls']} routings compared; {held} "
             f"({out[tag]['seconds']:.1f} s)")
-        del card, pc
+        del card, pc, kept, ref
     return out
 
 
@@ -4123,13 +4253,13 @@ def phase_lm_cpu(torch, C, serve, TransformerLM):
 
 
 def lm_one_repeat(C, arch):
-    """``arch``'s full config in fp32 with every stage's repeats cut to
-    1."""
+    """``arch``'s full config in fp32 with every stage's repeats, and an
+    encoder's layers, cut to 1."""
     import dataclasses
 
     full = C.get_config(arch)
     return dataclasses.replace(
-        full, dtype="float32",
+        full, dtype="float32", encoder_layers=min(full.encoder_layers, 1),
         stages=tuple(dataclasses.replace(st, repeats=1)
                      for st in full.stages))
 
@@ -6449,8 +6579,8 @@ def lm_train_grads(torch, ops, C, TransformerLM, dev="cuda",
     gradient finite and not all zero (with K10's forward a kernel, this is
     what shows it inside autograd), within ``LM_TRAIN_GRAD_TOL`` (or the
     config's ``LM_TRAIN_DEEP_GRAD_TOL``); K10 launched once an attention
-    layer a forward, so twice with ``remat=True`` (the recompute) and once
-    without. MoE routings are compared as in ``lm_card_vs_cpu``: a flip
+    call a forward (``attn_layers`` and the encoder's layers), so twice
+    with ``remat=True`` (the recompute) and once without. MoE routings are compared as in ``lm_card_vs_cpu``: a flip
     (allowed only below ``ROUTER_MARGIN``) is reported, and the loss and
     gradients held are then those of a card run with the CPU's experts
     forced through ``nn.moe.route``. Then, with ``probe``, one card step
@@ -6495,7 +6625,8 @@ def lm_train_grads(torch, ops, C, TransformerLM, dev="cuda",
             if dev == "cuda":
                 torch.cuda.synchronize()
                 want_l = {name: 0 for name in KERNELS}
-                want_l[K10] = (2 if remat else 1) * attn_layers(cfg)
+                want_l[K10] = (2 if remat else 1) * (attn_layers(cfg)
+                                                     + cfg.encoder_layers)
                 check(launches == want_l, f"{tag} remat={remat}: launches "
                       f"{launches}, expected {want_l}")
             forced = routes["flips"] > 0
@@ -6768,6 +6899,8 @@ def lm_train_full(torch, ops, C, lm_train, lm_steps, ckpt_root, dev="cuda"):
         f"(steps 2-{run['steps']}), peak {out['peak_mem_gib']}"
         f" GiB; K10 launched {launches[K10]} times (= {attn_layers(cfg)} "
         f"attention layers x {run['steps']} steps; wall {wall:.2f} s)")
+    out["bound"] = lm_bound(cfg, "train", run["batch"], run["seq"],
+                            out["p50_ms"], tag)
     state = res.pop("state")
     cell = ShapeCell("b", run["seq"], run["batch"], "train")
     if dev == "cuda":
@@ -7116,7 +7249,8 @@ def mamba_layer_checks(torch, C):
     return out
 
 
-def profiled_prefill(torch, model, params, tokens, cache_len, tag):
+def profiled_prefill(torch, model, params, tokens, cache_len, tag,
+                     frontend=None):
     """``model.prefill`` under ``torch.profiler``: its logits and caches,
     and where its device time went (busy ms over the wall, the top
     kernels; the profiler's host cost inflates the wall)."""
@@ -7126,7 +7260,8 @@ def profiled_prefill(torch, model, params, tokens, cache_len, tag):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        lg, caches = model.prefill(params, tokens, cache_len=cache_len)
+        lg, caches = model.prefill(params, tokens, cache_len=cache_len,
+                                   frontend=frontend)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     busy_us, top = 0.0, {}
@@ -7150,7 +7285,8 @@ def profiled_prefill(torch, model, params, tokens, cache_len, tag):
     return lg, caches, out
 
 
-def decode_vs_full(torch, TransformerLM, cfg, prompts, first, tag, bound):
+def decode_vs_full(torch, TransformerLM, cfg, prompts, first, tag, bound,
+                   frontend=None):
     """The reference's decode-continues-full-forward check on the card,
     capacity factor ``DECODE_CAPACITY``, weights from seed 0: prefill(S)
     logits against the forward over S + 1 tokens at S - 1, then decode(S)
@@ -7161,11 +7297,15 @@ def decode_vs_full(torch, TransformerLM, cfg, prompts, first, tag, bound):
     compared token by token: at most ``DECODE_FLIP_SHARE`` of them may
     flip, each is reported with its gap and its probabilities' change, and
     a row whose checked token flipped in any layer is not held (at least
-    half the rows must be)."""
+    half the rows must be). A config with cross-attention gets
+    ``frontend`` (numpy) in the forward and the prefill; its decode reads
+    the cross K/V from the cache."""
     import dataclasses
 
     import numpy as np
 
+    fe = (None if frontend is None
+          else torch.as_tensor(frontend, device="cuda"))
     model = TransformerLM(dataclasses.replace(
         cfg, capacity_factor=DECODE_CAPACITY), device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -7174,13 +7314,14 @@ def decode_vs_full(torch, TransformerLM, cfg, prompts, first, tag, bound):
                            device="cuda")
     with torch.no_grad():
         with recorded_routing() as full_routes:
-            hidden = model.backbone(params, toks)
+            hidden = model.backbone(params, toks, frontend=fe)
         full_prev = model.logits(params, hidden[:, s - 1:s])
         full_last = model.logits(params, hidden[:, s:s + 1])
         del hidden
         with recorded_routing() as pre_routes:
             lg_pre, caches, prof = profiled_prefill(torch, model, params,
-                                                    toks[:, :s], s + 4, tag)
+                                                    toks[:, :s], s + 4, tag,
+                                                    frontend=fe)
         flat = [(t, t.data_ptr()) for st in caches for layer in st
                 for entry in layer.values() for t in entry.values()]
         states = [entry["state"].clone() for st in caches for layer in st
@@ -7253,7 +7394,7 @@ def decode_vs_full(torch, TransformerLM, cfg, prompts, first, tag, bound):
                          bound=tol, row_max_abs_err=rows,
                          argmax_equal=int((got.argmax(-1) == want.argmax(-1))
                                           .sum()))
-    del model, params, caches, after, states, now, flat
+    del model, params, caches, after, states, now, flat, fe
     torch.cuda.empty_cache()
     return res
 
@@ -7317,6 +7458,8 @@ def moe_ssm_serve(torch, ops, serve, C, TransformerLM, card):
                                    "decode_ms_per_token", "tok_s",
                                    "peak_mem_gib", "num_layers")}
         res.update(arch=arch, batch=b, prompt_len=plen, gen=gen,
+                   bounds=lm_serve_bounds(cfg, dict(
+                       run, batch=b, prompt_len=plen, gen=gen), tag),
                    attention_layers=attn_layers(cfg), moe_layers=n_moe,
                    k10_launches=got[K10], prefill_dropped=dropped,
                    repeat_tokens_equal=True, repeat_logits_equal=same_logits,
@@ -7402,6 +7545,8 @@ def moe_ssm_train(torch, ops, C, lm_train, lm_steps, ckpt_root):
         ms = np.asarray(res["step_ms"][1:])
         row = dict(losses=losses, moe_aux=aux, step_ms=res["step_ms"],
                    p50_ms=float(np.percentile(ms, 50)),
+                   bound=lm_bound(cfg, "train", b, s,
+                                  float(np.percentile(ms, 50)), tag),
                    tokens_per_s=res["tokens_per_s"],
                    peak_mem_gib=res["peak_mem_gib"], k10_launches=got[K10],
                    num_layers=cfg.num_layers, batch=b, seq=s)
@@ -7477,6 +7622,273 @@ def phase_moe_ssm(torch, ops, C, serve, TransformerLM, lm_train, lm_steps,
         {k: round(v, 2) for k, v in seconds.items()}))
     return dict(layers=layers, cpu=cpu, grads=grads, serve=served,
                 train=trained, seconds=seconds, launches=n_serve + n_train)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: cross-attention, the encoder and the frontend stubs
+# (whisper-medium, llama-3.2-vision-11b)
+# ---------------------------------------------------------------------------
+LM_CROSS = ("whisper-medium", "llama-3.2-vision-11b")
+# (b): full-width bf16 serving, every layer: (arch, batch, prompt, gen);
+# whisper's decoder context is 448 (prompt 416 + gen 32)
+CROSS_SERVE = (("whisper-medium", 8, 416, 32),
+               ("llama-3.2-vision-11b", 4, 2048, 32))
+# (c): full-width bf16 training through ``launch.train.train``: (arch,
+# repeats kept of its one stage, None for all of them, batch, seq, steps).
+# llama-vision keeps one 5-layer period (4 self + 1 cross: 2.15 B
+# parameters, 1.05 B of them the embedding and the head): the functional
+# AdamW update holds ~24 bytes a parameter (old and new bf16 params and
+# fp32 moments, the gradients and their clipped copy), 235 GB for all 40
+# layers
+CROSS_TRAIN = (("whisper-medium", None, 4, 2048, 6),
+               ("llama-3.2-vision-11b", 1, 4, 2048, 6))
+
+
+def cross_capture_points(cfg, gen):
+    """``{call index: tag}`` of the K10 calls (d) keeps from one serve run
+    of a cross-attention config: the encoder's first call (the prefill's
+    first calls are the encoder's), the first cross-attention call of the
+    prefill, and the same layer's call at the last decode step."""
+    order = []
+    for st in cfg.stages:
+        for _ in range(st.repeats):
+            for spec in st.pattern:
+                if spec.kind != "mamba":
+                    order.append("self" if spec.kind == "self_attn"
+                                 else "cross")
+                if spec.dec_cross:
+                    order.append("cross")
+    n, enc, i = len(order), cfg.encoder_layers, order.index("cross")
+    keep = {enc + i: f"{cfg.name} cross prefill",
+            enc + n + (gen - 2) * n + i: f"{cfg.name} cross decode"}
+    if enc:
+        keep[0] = f"{cfg.name} encoder"
+    return keep
+
+
+def leaf_paths(tree, prefix=""):
+    """The paths of a parameter tree's tensors, in ``tree_leaves`` order
+    (dict keys sorted, lists in order)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix[1:]]
+
+
+def cross_serve(torch, ops, C, F, serve, TransformerLM, card):
+    """(b): each config of ``CROSS_SERVE`` at full width in bf16 (the
+    port's own init, the reference's stubbed frontend from the seed)
+    through ``launch.serve.serve``: K10 launched exactly ``attn_layers x
+    gen`` times plus the encoder's layers once, and no other kernel;
+    every step's logits finite; then the decode-continues-full-forward
+    check on the served prompts and frontend at ``DECODE_BF16_TOL``; (d)
+    K10 against its plain version and timed (``hold_k10``) at the calls
+    ``cross_capture_points`` keeps."""
+    results = new_results([K10])
+    out, launches, captured = {}, 0, {}
+    for arch, b, plen, gen in CROSS_SERVE:
+        t0 = time.perf_counter()
+        tag = f"phase 20 b {arch}"
+        cfg = C.get_config(arch)
+        torch.cuda.empty_cache()
+        keep = cross_capture_points(cfg, gen)
+        ops.reset_launch_counts()
+        with recorded_k10_calls(keep) as calls:
+            run = serve.serve(cfg, batch=b, prompt_len=plen, gen=gen,
+                              device="cuda", seed=0, keep_logits=True,
+                              log=lambda m: log(f"[{tag}] {m}"))
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        want = {name: 0 for name in KERNELS}
+        want[K10] = attn_layers(cfg) * gen + cfg.encoder_layers
+        check(got == want, f"{tag}: launches {got}, expected {want}")
+        check(sorted(calls) == sorted(keep.values()),
+              f"{tag}: captured {sorted(calls)}")
+        launches += got[K10]
+        captured.update(calls)
+        check(run["tokens"].shape == (b, gen), f"{tag}: tokens "
+              f"{run['tokens'].shape}")
+        for i, lg in enumerate(run.pop("logits")):
+            check(bool(torch.isfinite(lg).all()),
+                  f"{tag}: step {i} has non-finite logits")
+        torch.cuda.empty_cache()
+        bf16 = decode_vs_full(torch, TransformerLM, cfg, run["prompts"],
+                              run["tokens"], f"{tag} bf16", DECODE_BF16_TOL,
+                              frontend=run["frontend"])
+        res = {k: run[k] for k in ("prefill_ms", "decode_ms",
+                                   "decode_ms_per_token", "tok_s",
+                                   "peak_mem_gib", "num_layers")}
+        res.update(arch=arch, batch=b, prompt_len=plen, gen=gen,
+                   memory=tuple(run["frontend"].shape),
+                   encoder_layers=cfg.encoder_layers,
+                   k10_launches=got[K10], decode_bf16=bf16, card=card,
+                   params=cfg.param_count())
+        res["bounds"] = lm_serve_bounds(cfg, res, tag)
+        res["seconds"] = time.perf_counter() - t0
+        out[arch] = res
+        log(f"[{tag}] {cfg.num_layers} decoder layers + "
+            f"{cfg.encoder_layers} encoder layers, {cfg.param_count()} "
+            f"parameters, bf16, B {b}, prompt {plen}, gen {gen}, memory "
+            f"{res['memory']}: prefill {res['prefill_ms']:.3f} ms, decode "
+            f"{res['decode_ms_per_token']:.3f} ms per token "
+            f"({res['tok_s']:.1f} tok/s), peak {res['peak_mem_gib']:.3f} "
+            f"GiB; K10 {got[K10]} launches (= {attn_layers(cfg)} x {gen} + "
+            f"{cfg.encoder_layers}), logits finite; decode continues the "
+            f"full forward in bf16 (held at {DECODE_BF16_TOL}): prefill max "
+            f"abs err {bf16['prefill']['max_abs_err']:.3g}, decode per row "
+            f"{[round(x, 4) for x in bf16['decode']['row_max_abs_err']]}, "
+            f"greedy token equal in {bf16['decode']['argmax_equal']} of {b}"
+            f" rows ({res['seconds']:.1f} s)")
+        del run
+    hold_k10(torch, F, captured, results, phase="phase 20 d", reps=50,
+             events=True)
+    del captured
+    return out, launches, results[K10]
+
+
+def cross_train(torch, ops, C, TransformerLM, lm_train, ckpt_root):
+    """(c): each config of ``CROSS_TRAIN`` at full width in bf16: first
+    its first step's loss and gradients (seed 0, step 0 of the stream):
+    every leaf finite and nonzero, the encoder's and ``frontend_proj``'s
+    included (K10 feeds their gradients through its plain VJP), K10
+    launched once an attention call; then ``launch.train.train`` (remat
+    off): finite losses, the first the checked step's bit for bit, the
+    trained params' loss on step 0's batch below the initial one, K10
+    launched exactly (``attn_layers`` + encoder layers) x steps and no
+    other kernel, a second identical run's losses bit for bit."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.lm.config import ShapeCell
+
+    out, launches = {}, 0
+    for arch, repeats, b, s, steps in CROSS_TRAIN:
+        t0 = time.perf_counter()
+        tag = f"phase 20 c {arch}"
+        cfg = (C.get_config(arch) if repeats is None
+               else lm_cut(C, arch, repeats))
+        calls = attn_layers(cfg) + cfg.encoder_layers
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = TransformerLM(cfg, device="cuda", remat=False)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        host = SyntheticLMStream(cfg, ShapeCell("c", s, b, "train"),
+                                 seed=0).batch(0)
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in host.items()}
+        ops.reset_launch_counts()
+        loss0, grads = lm_loss_and_grads(torch, model, params, batch)
+        torch.cuda.synchronize()
+        check(ops.launch_counts()[K10] == calls, f"{tag}: K10 launches "
+              f"{ops.launch_counts()[K10]} in one step, expected {calls}")
+        paths = leaf_paths(params)
+        frontend_leaves = [p for p in paths
+                           if p.startswith(("encoder", "frontend_proj"))]
+        check(bool(frontend_leaves), f"{tag}: no encoder or frontend_proj")
+        for path, g in zip(paths, grads):
+            check(bool(torch.isfinite(g).all()), f"{tag}: gradient {path} "
+                  f"not finite")
+            check(bool((g != 0).any()), f"{tag}: gradient {path} is all "
+                  f"zero")
+        grad_peak = torch.cuda.max_memory_allocated() / 2**30
+        del params, grads, model
+        torch.cuda.empty_cache()
+        kw = dict(steps=steps, batch=b, seq=s, ckpt_every=0, device="cuda",
+                  seed=0)
+        ops.reset_launch_counts()
+        res = lm_train.train(cfg, ckpt_dir=str(ckpt_root / f"{arch}-a"),
+                             log=lambda m: log(f"[{tag}] {m}"), **kw)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        want = {name: 0 for name in KERNELS}
+        want[K10] = calls * steps
+        check(got == want, f"{tag}: launches {got}, expected {want}")
+        launches += got[K10]
+        losses = res["losses"]
+        check(len(losses) == steps and all(math.isfinite(x)
+                                           for x in losses),
+              f"{tag}: losses {losses}")
+        check(losses[0] == float(loss0), f"{tag}: the first loss "
+              f"{losses[0]!r} is not the checked step's {float(loss0)!r}")
+        with torch.no_grad():
+            after, _ = TransformerLM(cfg, device="cuda").loss(
+                res["state"].params, batch)
+        check(float(after) < float(loss0), f"{tag}: step 0's batch has "
+              f"loss {float(after)!r} after {steps} steps, "
+              f"{float(loss0)!r} before")
+        ms = np.asarray(res["step_ms"][1:])
+        row = dict(losses=losses, step0_loss_after=float(after),
+                   step_ms=res["step_ms"], p50_ms=float(np.percentile(ms, 50)),
+                   tokens_per_s=res["tokens_per_s"],
+                   peak_mem_gib=res["peak_mem_gib"],
+                   grad_check_peak_gib=grad_peak, k10_launches=got[K10],
+                   num_layers=cfg.num_layers,
+                   encoder_layers=cfg.encoder_layers,
+                   params=cfg.param_count(), batch=b, seq=s,
+                   frontend_leaves=len(frontend_leaves))
+        row["bound"] = lm_bound(cfg, "train", b, s, row["p50_ms"], tag)
+        del res, batch
+        torch.cuda.empty_cache()
+        again = lm_train.train(cfg, ckpt_dir=str(ckpt_root / f"{arch}-b"),
+                               log=lambda m: None, **kw)
+        check(again["losses"] == losses, f"{tag}: a second identical run "
+              f"gave losses {again['losses']}")
+        del again
+        torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t0
+        out[arch] = row
+        log(f"[{tag}] {cfg.num_layers} decoder layers + "
+            f"{cfg.encoder_layers} encoder layers, {row['params']} "
+            f"parameters, bf16, B {b}, S {s}: first step's {len(paths)} "
+            f"gradient leaves finite and nonzero ({len(frontend_leaves)} of "
+            f"the encoder / frontend_proj; peak {grad_peak:.3f} GiB); "
+            f"{steps} finite losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
+            f"step 0's batch {float(loss0):.4f} -> {float(after):.4f}; step "
+            f"p50 {row['p50_ms']:.3f} ms (steps 2-{steps}), "
+            f"{row['tokens_per_s']:.1f} tokens/s, peak "
+            f"{row['peak_mem_gib']:.3f} GiB; K10 {got[K10]} launches (= "
+            f"{calls} x {steps}); a second run bit for bit "
+            f"({row['seconds']:.1f} s)")
+    return out, launches
+
+
+def phase_cross(torch, ops, C, F, serve, TransformerLM, lm_train, card):
+    """Phase 20: (a) the reduced configs and both at full width one repeat
+    (one encoder layer), card against CPU in fp32 (logits and every cache,
+    the cross K/V included; loss and every gradient leaf of the reduced);
+    (b) full-width bf16 serving, with (d) K10 at its calls; (c) full-width
+    bf16 training. K10's launches are (b)'s and (c)'s, each run counted
+    from 0."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    seconds = {}
+    t0 = time.perf_counter()
+    runs = [(f"{a} reduced", C.get_reduced(a), 2, 12, 4) for a in LM_CROSS]
+    runs += [(f"{a} full width, 1 repeat", lm_one_repeat(C, a), 2, 64, 4)
+             for a in LM_CROSS]
+    cpu = lm_card_vs_cpu(torch, serve, TransformerLM, runs, "phase 20 a",
+                         caches=True)
+    grads = lm_train_grads(torch, ops, C, TransformerLM, archs=LM_CROSS,
+                           phase="phase 20 a", probe=False)
+    seconds["a"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    served, n_serve, k10 = cross_serve(torch, ops, C, F, serve,
+                                       TransformerLM, card)
+    seconds["b, d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-cross-") as tmp:
+        trained, n_train = cross_train(torch, ops, C, TransformerLM,
+                                       lm_train, pathlib.Path(tmp))
+    seconds["c"] = time.perf_counter() - t0
+    log(f"[phase 20] parts' seconds " + json.dumps(
+        {k: round(v, 2) for k, v in seconds.items()}))
+    return dict(cpu=cpu, grads=grads, serve=served, train=trained, k10=k10,
+                seconds=seconds, launches=n_serve + n_train)
 
 
 def main(argv=None) -> int:
@@ -7645,21 +8057,30 @@ def main(argv=None) -> int:
                                 lm_train, lm_steps, card)
         seconds["phase 19"] = time.perf_counter() - t0
         log(f"[phase 19] {seconds['phase 19']:.2f} s")
+        log("[phase 20] start")
+        t0 = time.perf_counter()
+        cross = phase_cross(torch, ops, C, F, lm_serve, TransformerLM,
+                            lm_train, card)
+        kernels[K10]["max_abs_err"] = max(kernels[K10]["max_abs_err"],
+                                          cross["k10"]["max_abs_err"])
+        seconds["phase 20"] = time.perf_counter() - t0
+        log(f"[phase 20] {seconds['phase 20']:.2f} s")
         # the main path's launches, each run from counts set to 0 just
         # before it, each run op by op so that every kernel the card runs
         # goes through its wrapper: phase 6 of every model (K1-K5, K7),
         # phases 9 and 10 (K9, the device-sampling path; the sampler
         # launches K9 outside the executors), phase 11's tuned training
         # and serving (K6, K8: the tuner's path), phase 12's LM serve runs
-        # (K10), phase 18's full-width training (K10), and phase 19's
-        # full-width MoE / SSM serving and training (K10)
+        # (K10), phase 18's full-width training (K10), phase 19's
+        # full-width MoE / SSM serving and training (K10), and phase 20's
+        # full-width cross-attention serving and training (K10)
         launches = {name: sum(t["launches"][name] for t in train.values())
                     for name in KERNELS}
         launches[K9] = (sum(r["launches"][K9] for r in device_serve.values())
                         + device_train["launches"][K9])
         launches.update(tuning["launches"])
         launches[K10] = (lm["launches"] + lm_training["launches"]
-                         + moe_ssm["launches"])
+                         + moe_ssm["launches"] + cross["launches"])
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on the main path")
     except Failed as e:
@@ -7699,7 +8120,7 @@ def main(argv=None) -> int:
             train_profile=train_prof, device_serve=device_serve,
             device_train=device_train, tuning=tuning, lm=lm, obs=obs_out,
             capture=capture, features=features, online=online, dist=dist,
-            lm_training=lm_training, moe_ssm=moe_ssm,
+            lm_training=lm_training, moe_ssm=moe_ssm, cross=cross,
             split_timed=split["timed"], k5_sass=k5_sass,
             gemm_ptxas=gemm_ptxas,
             torch=torch.__version__,

@@ -27,7 +27,7 @@ after failures every survivor is a rank and the logical shards refold
 (``shards_per_rank = P // dp``). Otherwise the LM plans: a ``("data",
 "model")`` (or ``("pod", "data", "model")``) shape that keeps the
 model-parallel degree and shrinks the data axis. Nothing in the port runs
-a model axis above 1 yet (``ROADMAP.md`` §1.3, the mesh / partitioning
+a model axis above 1 yet (``ROADMAP.md`` §1, the mesh / partitioning
 item): the LM training driver refuses such a plan.
 """
 from __future__ import annotations

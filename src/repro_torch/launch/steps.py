@@ -11,12 +11,15 @@
   "moe_aux"})``: ``TransformerLM.loss``, ``torch.autograd.grad`` over the
   parameter leaves, then ``AdamW.update`` with the reference's optimizer,
   ``AdamW(cosine_schedule(3e-4, 200, 20_000))``.
-* ``prefill``: ``fn(params, tokens) -> (logits, caches)`` into a cache of
-  ``seq_len`` positions; ``decode``: ``fn(params, token, index, caches)``
-  (``index`` a Python int) against that cache, written in place.
+* ``prefill``: ``fn(params, tokens, frontend=None) -> (logits, caches)``
+  into a cache of ``seq_len`` positions (``frontend``: the stubbed frontend
+  embeddings of a config with cross-attention); ``decode``: ``fn(params,
+  token, index, caches, frontend=None)`` (``index`` a Python int) against
+  that cache, written in place (the frontend is ignored: the memory's K/V
+  are cached). The train step passes ``batch["frontend"]`` to the loss.
 
 Differences by design: one device, so there is no ``Partitioner`` and no
-sharding tree (the model axis waits for ``ROADMAP.md`` §1.3's mesh /
+sharding tree (the model axis waits for ``ROADMAP.md`` §1's mesh /
 partitioning item). Nothing is donated: ``AdamW.update`` stays functional
 (it is shared with the RGNN trainers and their bitwise invariants), so the
 old state lives until the caller drops it; an in-place update waits in
@@ -77,8 +80,8 @@ class StepBundle:
 def build_step(cfg: LMConfig, cell: ShapeCell, device=None, *,
                remat: bool = True) -> StepBundle:
     """The step of ``cell.mode`` for ``cfg`` on ``device`` (``None``: the
-    CUDA card). Configs the port's model cannot run raise
-    ``NotImplementedError``."""
+    CUDA card), for every config of the registry. ``abstract_args`` holds
+    the frontend's meta tensor where the prefill takes one."""
     model = TransformerLM(cfg, device=device, remat=remat)
     meta = TransformerLM(cfg, device="meta")
     data = input_specs(cfg, cell)
@@ -106,14 +109,18 @@ def build_step(cfg: LMConfig, cell: ShapeCell, device=None, *,
 
     if cell.mode == "prefill":
         @torch.no_grad()
-        def serve_prefill(params, tokens):
-            return model.prefill(params, tokens, cache_len=s)
+        def serve_prefill(params, tokens, frontend=None):
+            return model.prefill(params, tokens, frontend=frontend,
+                                 cache_len=s)
 
+        args = (a_params, data["tokens"])
+        if "frontend" in data:
+            args += (data["frontend"],)
         return StepBundle(f"{cfg.name}:{cell.name}:prefill", serve_prefill,
-                          (a_params, data["tokens"]), model, "prefill")
+                          args, model, "prefill")
 
     @torch.no_grad()
-    def serve_step(params, token, index: int, caches: Any):
+    def serve_step(params, token, index: int, caches: Any, frontend=None):
         return model.decode_step(params, token, index, caches)
 
     return StepBundle(f"{cfg.name}:{cell.name}:decode", serve_step,

@@ -10,9 +10,11 @@ monitoring and the elastic restart drill (the port's counterpart of
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch jamba-v0.1-52b --reduced --steps 6 --batch 2 --seq 32
 
-Every config but the cross-attention ones (whisper-medium,
-llama-3.2-vision-11b; ``ROADMAP.md`` §1.3) trains: dense, MoE (the loss
-carries the routers' load-balance term), Mamba2 and the hybrid.
+Every config of the registry trains: dense, MoE (the loss carries the
+routers' load-balance term), Mamba2, the hybrid, and the cross-attention
+configs (whisper-medium, llama-3.2-vision-11b), whose batches carry the
+stream's stubbed ``frontend`` embeddings (cast to the model dtype by the
+model).
 
 Failure drill (``--simulate-failure N``): at step N the one host,
 ``"host0"``, stops heartbeating; the controller drains, replans the mesh
@@ -29,7 +31,7 @@ schedule, which ``init`` does not read). The step is built with
 ``remat=False``, as the reference driver builds it. The driver trains on
 one device, so its plan, and the drill's replan, is the one-device plan;
 the reference's model axis of 16 waits for the mesh / partitioning item
-(``ROADMAP.md`` §1.3). ``--device`` (default the card; it raises without
+(``ROADMAP.md`` §1). ``--device`` (default the card; it raises without
 one) and ``--seed`` (weights and stream) are the port's, as in
 ``launch/serve.py``; ``--ckpt-every 0`` saves nothing.
 """

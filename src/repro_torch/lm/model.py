@@ -1,18 +1,28 @@
-"""TransformerLM for LM serving and training: the dense, MoE, SSM and
-hybrid families (the port's counterpart of ``repro.lm.model``).
+"""TransformerLM for LM serving and training: the dense, MoE, SSM, hybrid,
+vision-language and encoder-decoder families (the port's counterpart of
+``repro.lm.model``).
 
 * Parameters keep the reference's layout, stacked over each stage's
   repeats (``params["stages"][i]["l<j>"]...`` with a leading ``[repeats]``
   dimension), so ``params_from_reference`` only converts arrays. Layers run
   as a Python loop over the repeats.
-* Layer kinds: self-attention (``nn/attention.py``) or a Mamba2 layer
+* Layer kinds: self-attention (``nn/attention.py``), cross-attention over
+  the memory (``cross_attn``, llama-vision's image layers), self- then
+  cross-attention (``dec_cross``, whisper's decoder) or a Mamba2 layer
   (``nn/ssm.py``), then a dense MLP (``nn/mlp.py``) or an MoE MLP
   (``nn/moe.py``) per ``LayerSpec.moe``; a Mamba layer of a config without
   ``d_ff`` has no MLP.
+* The memory of the cross-attention layers comes from the stubbed
+  frontend embeddings (``frontend``): through the encoder
+  (``encoder_layers`` non-causal self-attention layers and their MLPs,
+  then a final norm; whisper) or through ``frontend_proj``
+  (llama-vision). The frontend is cast to the model dtype on entry (the
+  reference lets a float32 frontend promote a bf16 model's encoder).
 * ``prefill`` / ``decode_step`` serve from a preallocated cache (also
   stacked per stage) that the layers write in place: K/V for attention,
-  the conv window and the recurrent state for Mamba. The attention core is
-  K10 (``kernels/flash_attention.py``).
+  the memory's K/V for cross-attention (at prefill; decode reads them and
+  needs no frontend), the conv window and the recurrent state for Mamba.
+  The attention core is K10 (``kernels/flash_attention.py``).
 * ``backbone(mode="train")`` is the cache-free forward; ``loss`` is the
   reference's sequence-chunked next-token cross-entropy over it, plus
   ``MOE_AUX_COEF`` times the MoE layers' load-balance loss over the number
@@ -21,10 +31,6 @@ hybrid families (the port's counterpart of ``repro.lm.model``).
   reference's default) recomputes each repeat of a stage in the backward
   (``torch.utils.checkpoint``, the counterpart of the reference's
   ``jax.checkpoint(nothing_saveable)``), and only while grad is enabled.
-
-Not ported yet (``ROADMAP.md`` §1, the LM substrate): cross-attention and
-encoder-decoder layers, encoders and frontends; a config that needs any of
-them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,24 +51,13 @@ from repro_torch.device import resolve_device
 # The load-balance loss's weight in ``loss`` (the reference's default).
 MOE_AUX_COEF = 0.01
 
-_TODO = "{} is not ported yet (ROADMAP.md §1, LM substrate: {})"
-
 
 def padded_vocab(v: int, multiple: int = 128) -> int:
     return ((v + multiple - 1) // multiple) * multiple
 
 
-def _unsupported(cfg: LMConfig) -> Optional[str]:
-    """Why the port cannot run ``cfg`` yet, or ``None``."""
-    for st in cfg.stages:
-        for spec in st.pattern:
-            if spec.kind not in ("self_attn", "mamba") or spec.dec_cross:
-                return _TODO.format("cross-attention",
-                                    "cross-attention and encoder/frontend")
-    if cfg.encoder_layers or cfg.frontend_tokens or cfg.frontend_dim:
-        return _TODO.format("an encoder or frontend",
-                            "cross-attention and encoder/frontend")
-    return None
+# the encoder's layer (whisper): self-attention, run without causal masking
+_ENCODER_LAYER = LayerSpec(kind="self_attn")
 
 
 def _take(tree, r: int):
@@ -78,9 +73,6 @@ class TransformerLM:
 
     def __init__(self, cfg: LMConfig, *, device=None, remat: bool = True,
                  loss_chunk: int = 2048):
-        why = _unsupported(cfg)
-        if why:
-            raise NotImplementedError(f"{cfg.name}: {why}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.remat = remat
@@ -98,7 +90,11 @@ class TransformerLM:
         if spec.kind == "mamba":
             p["mamba"] = S.init_mamba(g, cfg, dt, lead)
         else:
-            p["attn"] = A.init_attention(g, cfg, dt, lead)
+            p["attn"] = A.init_attention(g, cfg, dt, lead,
+                                         cross=spec.kind == "cross_attn")
+            if spec.dec_cross:
+                p["cross_norm"] = ones()
+                p["cross"] = A.init_attention(g, cfg, dt, lead, cross=True)
         if spec.moe and (spec.kind != "mamba" or cfg.d_ff > 0):
             p["mlp_norm"] = ones()
             p["moe"] = MOE.init_moe(g, cfg.d_model, cfg.moe_d_ff or cfg.d_ff,
@@ -123,6 +119,16 @@ class TransformerLM:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init((cfg.d_model, self.vp), dt, g)
+        if cfg.frontend_dim:
+            params["frontend_proj"] = dense_init(
+                (cfg.frontend_dim, cfg.d_model), dt, g)
+        if cfg.encoder_layers:
+            params["encoder"] = {
+                "stages": [{"l0": self._init_layer(
+                    g, _ENCODER_LAYER, (cfg.encoder_layers,))}],
+                "final_norm": torch.ones((cfg.d_model,), dtype=dt,
+                                         device=dev),
+            }
         return params
 
     def init(self, generator: Optional[torch.Generator] = None) -> Dict:
@@ -136,41 +142,72 @@ class TransformerLM:
     def init_cache(self, batch: int, cache_len: int) -> List[List[Dict]]:
         """Zeroed caches per stage and pattern layer, stacked over the
         repeats: ``{"attn": {"k", "v": [repeats, batch, cache_len, KV,
-        hd]}}`` (model dtype) for attention, ``{"mamba": {"conv":
-        [repeats, batch, ssm_conv - 1, d_inner + 2 g n]`` (model dtype),
-        ``"state": [repeats, batch, h, p, n]`` (fp32)``}}`` for Mamba."""
+        hd]}}`` (model dtype) for self-attention, ``{"cross": {"k", "v":
+        [repeats, batch, mem_len, KV, hd]}}`` (model dtype; ``mem_len`` is
+        ``encoder_seq or frontend_tokens``) for cross-attention (a
+        ``dec_cross`` layer has both), ``{"mamba": {"conv": [repeats,
+        batch, ssm_conv - 1, d_inner + 2 g n]`` (model dtype), ``"state":
+        [repeats, batch, h, p, n]`` (fp32)``}}`` for Mamba."""
         cfg = self.cfg
 
         def zeros(st, shape, dtype=self.dtype):
             return torch.zeros((st.repeats, batch) + shape, dtype=dtype,
                                device=self.device)
 
-        kv = (cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        heads = (cfg.num_kv_heads, cfg.resolved_head_dim)
+        mem_len = cfg.encoder_seq or cfg.frontend_tokens
         conv = (cfg.ssm_conv - 1,
                 cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state)
         state = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
-        return [[{"mamba": {"conv": zeros(st, conv),
-                            "state": zeros(st, state, torch.float32)}}
-                 if spec.kind == "mamba" else
-                 {"attn": {"k": zeros(st, kv), "v": zeros(st, kv)}}
-                 for spec in st.pattern] for st in cfg.stages]
+
+        def layer(st, spec):
+            if spec.kind == "mamba":
+                return {"mamba": {"conv": zeros(st, conv),
+                                  "state": zeros(st, state, torch.float32)}}
+            c = {}
+            if spec.kind == "self_attn":
+                c["attn"] = {n: zeros(st, (cache_len,) + heads)
+                             for n in ("k", "v")}
+            if spec.kind == "cross_attn" or spec.dec_cross:
+                c["cross"] = {n: zeros(st, (mem_len,) + heads)
+                              for n in ("k", "v")}
+            return c
+
+        return [[layer(st, spec) for spec in st.pattern]
+                for st in cfg.stages]
 
     # ------------------------------------------------------------ layers
     def _apply_layer(self, spec: LayerSpec, p: Dict, x, positions, *,
-                     cache=None, cache_index=None, prefill=False):
+                     memory=None, cache=None, cache_index=None,
+                     prefill=False, causal=True):
         """``(x, lb_loss)``: the layer's output and its MoE load-balance
-        loss (``None`` without an MoE MLP)."""
+        loss (``None`` without an MoE MLP). A cross-attention reads
+        ``memory`` (training, prefill; a prefill writes its K/V into the
+        cache's ``"cross"`` entry) or, at decode, that cache entry."""
         cfg = self.cfg
+
+        def cross(params, h):
+            return A.attention(params, h, cfg, spec, positions,
+                               memory=memory,
+                               cross_kv=cache["cross"] if cache else None,
+                               store_cross=prefill, cache_index=cache_index)
+
         h = rms_norm(x, p["norm"], cfg.norm_eps)
         if spec.kind == "mamba":
             h, _ = S.mamba_forward(p["mamba"], h, cfg,
                                    cache=cache["mamba"] if cache else None,
                                    prefill=prefill)
+        elif spec.kind == "cross_attn":
+            h, _ = cross(p["attn"], h)
         else:
             h, _ = A.attention(p["attn"], h, cfg, spec, positions,
                                kv_cache=cache["attn"] if cache else None,
-                               cache_index=cache_index)
+                               cache_index=cache_index, causal=causal)
         x = x + h
+        if spec.dec_cross:
+            h, _ = cross(p["cross"], rms_norm(x, p["cross_norm"],
+                                              cfg.norm_eps))
+            x = x + h
         aux = None
         if "mlp_norm" in p:
             h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
@@ -185,15 +222,16 @@ class TransformerLM:
         return x, aux
 
     def _run_stage(self, stage: Stage, sp: Dict, x, positions, aux, *,
-                   caches=None, cache_index=None, prefill=False):
+                   memory=None, caches=None, cache_index=None,
+                   prefill=False, causal=True):
         """The stage's repeats in order; ``aux`` (train mode) sums the MoE
         layers' load-balance losses, layer by layer."""
-        def body(x, aux, lp, cache):
+        def body(x, aux, lp, cache, memory):
             for i, spec in enumerate(stage.pattern):
                 x, a = self._apply_layer(
-                    spec, lp[f"l{i}"], x, positions,
+                    spec, lp[f"l{i}"], x, positions, memory=memory,
                     cache=cache[i] if cache is not None else None,
-                    cache_index=cache_index, prefill=prefill)
+                    cache_index=cache_index, prefill=prefill, causal=causal)
                 if a is not None and aux is not None:
                     aux = aux + a
             return x, aux
@@ -203,14 +241,56 @@ class TransformerLM:
             cache = (None if caches is None
                      else [_take(c, r) for c in caches])
             # the model draws no random numbers: no RNG state to keep
-            x, aux = (checkpoint(body, x, aux, lp, cache, use_reentrant=False,
+            x, aux = (checkpoint(body, x, aux, lp, cache, memory,
+                                 use_reentrant=False,
                                  preserve_rng_state=False)
-                      if remat else body(x, aux, lp, cache))
+                      if remat else body(x, aux, lp, cache, memory))
         return x, aux
+
+    # ------------------------------------------------------------ memory
+    @property
+    def needs_frontend(self) -> bool:
+        """Whether the config has cross-attention layers, whose memory
+        comes from the stubbed frontend embeddings."""
+        return any(spec.kind == "cross_attn" or spec.dec_cross
+                   for st in self.cfg.stages for spec in st.pattern)
+
+    def _encode(self, params: Dict, frames: torch.Tensor) -> torch.Tensor:
+        """The whisper-style encoder over frame embeddings ``[B, M, D]``:
+        ``encoder_layers`` non-causal self-attention layers (RoPE at
+        positions ``0..M-1``) with their MLPs, then the encoder's final
+        norm."""
+        enc = params["encoder"]
+        pos = torch.arange(frames.shape[1], device=frames.device)
+        x, _ = self._run_stage(Stage((_ENCODER_LAYER,),
+                                     self.cfg.encoder_layers),
+                               enc["stages"][0], frames, pos, None,
+                               causal=False)
+        return rms_norm(x, enc["final_norm"], self.cfg.norm_eps)
+
+    def _memory(self, params: Dict,
+                frontend: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """The cross-attention memory ``[B, M, D]`` from the stubbed
+        frontend embeddings (cast to the model dtype): encoded, projected
+        by ``frontend_proj``, or as given. ``None`` for a config without
+        cross-attention; such a config given no frontend raises
+        ``ValueError`` (the reference would run its cross layers as
+        self-attention)."""
+        if not self.needs_frontend:
+            return None
+        if frontend is None:
+            raise ValueError(f"{self.cfg.name} has cross-attention layers: "
+                             f"pass its frontend embeddings (frontend=)")
+        x = frontend.to(device=self.device, dtype=self.dtype)
+        if self.cfg.encoder_layers:
+            return self._encode(params, x)
+        if self.cfg.frontend_dim:
+            return torch.matmul(x, params["frontend_proj"])
+        return x
 
     # ------------------------------------------------------------ forward
     def _backbone(self, params: Dict, tokens: torch.Tensor, mode: str,
-                  caches, cache_index: Optional[int]):
+                  caches, cache_index: Optional[int], frontend=None):
         cfg = self.cfg
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
@@ -225,23 +305,32 @@ class TransformerLM:
                                  ).sqrt().to(self.dtype)
         aux = (torch.zeros((), dtype=torch.float32, device=self.device)
                if mode == "train" else None)
+        # decode reads the memory's K/V from the cache
+        memory = (None if mode == "decode"
+                  else self._memory(params, frontend))
         for i, stage in enumerate(cfg.stages):
             x, aux = self._run_stage(
-                stage, params["stages"][i], x, positions, aux,
+                stage, params["stages"][i], x, positions, aux, memory=memory,
                 caches=caches[i] if caches is not None else None,
                 cache_index=None if caches is None else start,
                 prefill=mode == "prefill")
         return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
     def backbone(self, params: Dict, tokens: torch.Tensor, *,
-                 mode: str = "train", caches=None,
+                 frontend: Optional[torch.Tensor] = None, mode: str = "train",
+                 caches=None,
                  cache_index: Optional[int] = None) -> torch.Tensor:
         """Final-normed hidden states ``[B, S, D]``. ``train``: the
         cache-free forward at positions ``0..S-1``; ``prefill``: the same,
-        writing the caches (K/V at 0, Mamba's conv window and state);
-        ``decode``: positions ``cache_index + 0..S-1`` (Mamba layers take
-        one token), writing there."""
-        return self._backbone(params, tokens, mode, caches, cache_index)[0]
+        writing the caches (K/V at 0, the memory's cross K/V, Mamba's conv
+        window and state); ``decode``: positions ``cache_index + 0..S-1``
+        (Mamba layers take one token), writing there. ``frontend``: the
+        stubbed frontend embeddings of a config with cross-attention
+        (``[B, encoder_seq, d_model]`` or ``[B, frontend_tokens,
+        frontend_dim]``), which train and prefill need and decode
+        ignores."""
+        return self._backbone(params, tokens, mode, caches, cache_index,
+                              frontend)[0]
 
     def logits(self, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
         head = (params["embed"].T if self.cfg.tie_embeddings
@@ -257,9 +346,12 @@ class TransformerLM:
         softcapped, ``logsumexp - gold`` summed and divided by ``B * S``.
         ``loss`` adds ``MOE_AUX_COEF * moe_aux / max(1, num_layers)``,
         where ``moe_aux`` sums the MoE layers' load-balance losses (0
-        without MoE). Returns ``(loss, {"nll", "moe_aux"})``."""
+        without MoE). A config with cross-attention takes its frontend
+        embeddings from ``batch["frontend"]``. Returns ``(loss, {"nll",
+        "moe_aux"})``."""
         tokens, targets = batch["tokens"], batch["targets"].long()
-        hidden, aux = self._backbone(params, tokens, "train", None, None)
+        hidden, aux = self._backbone(params, tokens, "train", None, None,
+                                     batch.get("frontend"))
         b, s, _ = hidden.shape
         chunk = min(self.loss_chunk, s)
         if s % chunk:
@@ -279,20 +371,24 @@ class TransformerLM:
 
     # ------------------------------------------------------------ serving
     def prefill(self, params: Dict, tokens: torch.Tensor, *,
+                frontend: Optional[torch.Tensor] = None,
                 cache_len: Optional[int] = None) -> Tuple[torch.Tensor, list]:
-        """Run the prompt into a fresh cache of ``cache_len`` (default: the
-        prompt's length); returns ``(logits [B, 1, V] of the last prompt
-        token, caches)``."""
+        """Run the prompt (and, with cross-attention, the ``frontend``) into
+        a fresh cache of ``cache_len`` (default: the prompt's length);
+        returns ``(logits [B, 1, V] of the last prompt token, caches)``."""
         cache_len = cache_len or tokens.shape[1]
         caches = self.init_cache(tokens.shape[0], cache_len)
-        hidden = self.backbone(params, tokens, mode="prefill", caches=caches)
+        hidden = self.backbone(params, tokens, frontend=frontend,
+                               mode="prefill", caches=caches)
         return self.logits(params, hidden[:, -1:]), caches
 
     def decode_step(self, params: Dict, token: torch.Tensor, index: int,
-                    caches: list) -> Tuple[torch.Tensor, list]:
+                    caches: list, *, frontend: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, list]:
         """One token per row (``token [B, 1]``) at position ``index`` (a
         Python int): ``(logits [B, 1, V], caches)``, the caches updated in
-        place."""
+        place. ``frontend`` is ignored, as in the reference: the memory's
+        K/V are in the cache since the prefill."""
         hidden = self.backbone(params, token, mode="decode", caches=caches,
                                cache_index=int(index))
         return self.logits(params, hidden), caches

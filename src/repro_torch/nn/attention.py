@@ -1,17 +1,18 @@
-"""GQA self-attention with qk-norm, RoPE, logit softcap, sliding windows and
-KV-cache decode (the port's copy of ``repro.nn.attention``).
+"""GQA attention with qk-norm, RoPE, logit softcap, sliding windows,
+cross-attention and KV-cache decode (the port's copy of
+``repro.nn.attention``).
 
 The attention core is K10 (``kernels/flash_attention.py``): its Hopper
 kernel on CUDA tensors, its plain version (the reference's einsum /
 softmax, with the reference's ``_mask`` as ``attention_mask``) on CPU
 ones. KV heads are never replicated. Where the reference
 returns a new cache from ``dynamic_update_slice``, the port writes the
-step's K/V into the preallocated cache in place and attends over it.
+step's K/V into the preallocated cache in place and attends over it; at
+prefill a cross-attention layer likewise writes the K/V of its memory into
+the preallocated cross cache.
 
-Not ported yet (``ROADMAP.md`` §1, the LM substrate): cross-attention
-(``memory`` / ``cross_kv``, for whisper and llama-vision; ``TransformerLM``
-refuses a config that has it) and the sequence-sharded decode of a mesh
-(``_seqshard_decode_attention``).
+Not ported yet (``ROADMAP.md`` §1, the model axis): the sequence-sharded
+decode of a mesh (``_seqshard_decode_attention``).
 """
 from __future__ import annotations
 
@@ -25,9 +26,11 @@ from repro_torch.nn.common import dense_init, init_device, rms_norm, rope
 
 
 def init_attention(generator: Optional[torch.Generator], cfg: LMConfig,
-                   dtype: torch.dtype, lead: tuple = ()) -> Dict:
-    """Self-attention parameters (``lead``: stacked repeat dims; a ``None``
-    generator gives shapes only, on the meta device)."""
+                   dtype: torch.dtype, lead: tuple = (),
+                   cross: bool = False) -> Dict:
+    """Attention parameters (``lead``: stacked repeat dims; a ``None``
+    generator gives shapes only, on the meta device). A cross-attention
+    layer (``cross``) has no qk-norm."""
     d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
     p = {
@@ -37,7 +40,7 @@ def init_attention(generator: Optional[torch.Generator], cfg: LMConfig,
         "wo": dense_init((h, hd, d), dtype, generator, fan_in=h * hd,
                          lead=lead),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         dev = init_device(generator)
         p["q_norm"] = torch.ones(tuple(lead) + (hd,), dtype=dtype, device=dev)
         p["k_norm"] = torch.ones(tuple(lead) + (hd,), dtype=dtype, device=dev)
@@ -58,31 +61,63 @@ def attention(
     spec: LayerSpec,
     q_positions: torch.Tensor,          # [Q] consecutive, batch-shared
     *,
+    memory: Optional[torch.Tensor] = None,   # cross K/V source [B, M, D]
+    cross_kv: Optional[Dict] = None,    # cross cache {"k", "v": [B, M, KV, hd]}
+    store_cross: bool = False,          # prefill: fill / return the cross K/V
     kv_cache: Optional[Dict] = None,    # {"k", "v": [B, S, KV, hd]}
     cache_index: Optional[int] = None,  # write position (a Python int)
+    causal: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """One self-attention block: ``(out [B, Q, D], cache)``.
+    """One attention block: ``(out [B, Q, D], cache)``.
 
-    With ``kv_cache`` the step's K/V are written into it at
-    ``cache_index`` (in place) and the queries, at positions
-    ``cache_index + arange(Q)``, attend over the whole cache; the returned
-    cache is the same tensors. Without it the queries attend over their own
-    K/V. ``q_positions`` are consecutive in both cases (every caller of the
-    model passes an ``arange``), which is what K10's ``q_offset`` encodes.
+    Self-attention (no ``memory``, no ``cross_kv``): with ``kv_cache`` the
+    step's K/V are written into it at ``cache_index`` (in place) and the
+    queries, at positions ``cache_index + arange(Q)``, attend over the whole
+    cache; the returned cache is the same tensors. Without it the queries
+    attend over their own K/V, causally unless ``causal=False`` (the
+    encoder). ``q_positions`` are consecutive in both cases (every caller of
+    the model passes an ``arange``), which is what K10's ``q_offset``
+    encodes.
+
+    Cross-attention: K/V are projected from ``memory`` (prefill, training)
+    or read from ``cross_kv`` (decode); no RoPE, no k-norm, and every query
+    sees every memory position. With ``store_cross`` and ``memory`` the
+    projected K/V are returned as the cross cache: written in place into
+    ``cross_kv`` where it is given (the preallocated cache), else as new
+    tensors (the reference's ``store_cross``).
     """
     h = cfg.num_heads
+    is_cross = memory is not None or cross_kv is not None
     q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    if memory is not None:
+        k = _project(memory, params["wk"])
+        v = _project(memory, params["wv"])
+    elif cross_kv is not None:
+        k, v = cross_kv["k"], cross_kv["v"]
+    else:
+        k = _project(x, params["wk"])
+        v = _project(x, params["wv"])
     if cfg.qk_norm and "q_norm" in params:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    q = rope(q, q_positions, cfg.rope_theta)
-    k = rope(k, q_positions, cfg.rope_theta)
+        if not is_cross:
+            k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    if not is_cross:
+        q = rope(q, q_positions, cfg.rope_theta)
+        k = rope(k, q_positions, cfg.rope_theta)
 
     new_cache = None
     q_offset = 0
-    if kv_cache is not None:
+    if is_cross:
+        if store_cross and memory is not None:
+            if cross_kv is not None:
+                cross_kv["k"].copy_(k)
+                cross_kv["v"].copy_(v)
+                new_cache = cross_kv
+            else:
+                new_cache = {"k": k, "v": v}
+        causal = False
+        q_offset = int(cache_index or 0)
+    elif kv_cache is not None:
         kc, vc = kv_cache["k"], kv_cache["v"]
         q_len = x.shape[1]
         kc[:, cache_index:cache_index + q_len] = k.to(kc.dtype)
@@ -91,7 +126,7 @@ def attention(
         k, v = kc, vc
         q_offset = int(cache_index)
 
-    out = flash_attention(q, k, v, window=spec.window,
+    out = flash_attention(q, k, v, causal=causal, window=spec.window,
                           softcap=cfg.attn_softcap, q_offset=q_offset)
     b, q_len = out.shape[:2]
     wo = params["wo"]

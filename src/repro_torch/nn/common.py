@@ -2,8 +2,9 @@
 of ``repro.nn.common``).
 
 The reference's sharding hooks (``shard``, ``mesh_ctx``) are not copied:
-on one device they do nothing, and they come with the data-parallel slice
-(``ROADMAP.md``).
+on one device they do nothing. They belong to the model axis
+(``ROADMAP.md`` §1, partitioning), which the data-parallel slice
+(``repro_torch.dist``) did not need.
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ einsums outside any Pallas kernel (its docstring's "feeds
 Differences by design: only the reference's dense dispatch
 (``_moe_ffn_dense``) is ported. Its expert-parallel path (``_moe_ffn_ep``,
 an all-to-all over the model axis) needs the sharding context, which comes
-with the mesh / partitioning item (``ROADMAP.md`` §1.3). The dispatch
+with the mesh / partitioning item (``ROADMAP.md`` §1). The dispatch
 writes only the kept rows, with a plain index assignment: kept ``(expert,
 position)`` pairs are unique, so it needs neither the reference's
 accumulating scatter nor its trash row, and its backward is a gather (the

@@ -1,9 +1,11 @@
 """The LM serving slice of the PyTorch port against the JAX reference, on
 the CPU: the config registry, the ``nn`` primitives, self-attention with
-and without a KV cache, ``TransformerLM`` prefill / decode of the dense,
-MoE, SSM and hybrid configs (parameters carried over by
-``params_from_reference``), the arch smoke of ``tests/test_lm_archs.py``,
-and the serving driver. Tolerances: rtol = atol = 1e-4 in fp32 (the port's
+and without a KV cache, cross-attention with and without its cache, the
+encoder, ``TransformerLM`` prefill / decode of the dense, MoE, SSM,
+hybrid, vision-language and encoder-decoder configs (parameters carried
+over by ``params_from_reference``, the stubbed frontends drawn with
+numpy), the arch smoke of ``tests/test_lm_archs.py``, the cross K/V cache
+of ``tests/test_perf_variants.py``, and the serving driver. Tolerances: rtol = atol = 1e-4 in fp32 (the port's
 card-vs-CPU bound), the reference's own 2e-2 / 5e-2 where its decode check
 compares two paths of one model.
 """
@@ -24,7 +26,7 @@ from repro.nn import mlp as RM
 from repro_torch import configs as C
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
-from repro_torch.lm.config import SHAPES, LayerSpec
+from repro_torch.lm.config import SHAPES, LayerSpec, Stage
 from repro_torch.lm.model import TransformerLM, params_from_reference
 from repro_torch.nn import attention as A
 from repro_torch.nn import common as N
@@ -34,8 +36,8 @@ RNG = np.random.default_rng(0)
 DENSE = ["qwen3-4b", "gemma2-2b", "gemma3-4b", "qwen3-14b"]
 MOE_SSM = ["moonshot-v1-16b-a3b", "grok-1-314b", "mamba2-780m",
            "jamba-v0.1-52b"]
-PORTED = DENSE + MOE_SSM
-UNPORTED = [a for a in RC.ARCHS if a not in PORTED]
+CROSS = ["whisper-medium", "llama-3.2-vision-11b"]
+PORTED = DENSE + MOE_SSM + CROSS
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -46,6 +48,26 @@ def t(x):
 def close(got, want, **tol):
     np.testing.assert_allclose(got.detach().float().numpy(),
                                np.asarray(want, np.float32), **(tol or TOL))
+
+
+def frontend_np(cfg, b, rng=RNG):
+    """The reference drivers' stubbed frontend of ``cfg`` (float32 normal),
+    or ``None`` for a config without cross-attention."""
+    if cfg.encoder_layers:
+        return rng.normal(size=(b, cfg.encoder_seq, cfg.d_model)).astype(
+            np.float32)
+    if cfg.frontend_tokens:
+        return rng.normal(size=(b, cfg.frontend_tokens,
+                                cfg.frontend_dim)).astype(np.float32)
+    return None
+
+
+def as_jax(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def as_torch(x):
+    return None if x is None else torch.from_numpy(x)
 
 
 @pytest.fixture(scope="module")
@@ -179,16 +201,70 @@ def test_attention_with_cache_equals_the_reference(arch, start, q_len):
     close(gcache["v"], wcache["v"])
 
 
-def test_cross_attention_is_not_ported_yet():
-    """A dense config given a cross-attention layer, or an encoder-decoder
-    layer, is refused by the model (self-attention has no cross inputs)."""
-    cfg = C.get_reduced("qwen3-4b")
-    for spec in (LayerSpec(kind="cross_attn"), LayerSpec(dec_cross=True)):
-        st = dataclasses.replace(cfg.stages[0], pattern=(spec,))
-        bad = dataclasses.replace(cfg, stages=(st,) + cfg.stages[1:])
-        with pytest.raises(NotImplementedError,
-                           match="cross-attention.*ROADMAP"):
-            TransformerLM(bad, device="cpu")
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-11b",
+                                  "qwen3-4b"])
+def test_cross_attention_equals_the_reference(arch):
+    """A cross-attention layer (no qk-norm, even in qwen3's config; no
+    RoPE; every query sees every memory position) over a memory of 16:
+    ``memory=`` with ``store_cross=True`` for 9 queries, then one query at
+    position 9 from ``cross_kv=`` alone, each within 1e-4 of the
+    reference's, the cross K/V the reference's. The port's prefill form
+    writes them in place into a preallocated cache."""
+    rcfg, cfg = RC.get_reduced(arch), C.get_reduced(arch)
+    rspec, spec = LayerSpec(kind="cross_attn"), LayerSpec(kind="cross_attn")
+    rp = RA.init_attention(jax.random.key(5), rcfg, jnp.float32, cross=True)
+    p = {k: t(v) for k, v in rp.items()}
+    assert sorted(p) == sorted(A.init_attention(
+        None, cfg, torch.float32, cross=True)) == ["wk", "wo", "wq", "wv"]
+    mem = RNG.normal(size=(2, 16, cfg.d_model)).astype(np.float32)
+    x = RNG.normal(size=(2, 9, cfg.d_model)).astype(np.float32)
+    x1 = RNG.normal(size=(2, 1, cfg.d_model)).astype(np.float32)
+    want, wkv = RA.attention(rp, jnp.asarray(x), rcfg, rspec,
+                             jnp.arange(9, dtype=jnp.int32),
+                             memory=jnp.asarray(mem), store_cross=True)
+    got, kv = A.attention(p, t(x), cfg, spec, torch.arange(9),
+                          memory=t(mem), store_cross=True)
+    close(got, want)
+    for name in ("k", "v"):
+        close(kv[name], wkv[name])
+    heads = (cfg.num_kv_heads, cfg.resolved_head_dim)
+    cache = {n: torch.zeros((2, 16) + heads) for n in ("k", "v")}
+    kbuf = cache["k"]
+    got, kv = A.attention(p, t(x), cfg, spec, torch.arange(9),
+                          memory=t(mem), cross_kv=cache, store_cross=True,
+                          cache_index=0)
+    assert kv["k"] is kbuf                           # written in place
+    close(got, want)
+    close(kbuf, wkv["k"])
+    want, none = RA.attention(rp, jnp.asarray(x1), rcfg, rspec,
+                              jnp.asarray([9], jnp.int32), cross_kv=wkv)
+    got, ret = A.attention(p, t(x1), cfg, spec, torch.tensor([9]),
+                           cross_kv=cache, cache_index=9)
+    assert none is None and ret is None
+    close(got, want)
+
+
+def test_encoder_equals_the_reference():
+    """whisper's encoder (non-causal self-attention layers with RoPE at
+    ``0..M-1``, their MLPs, the final norm) against the reference's
+    ``_encode`` on the same frames, 1e-4; a causal encoder would not be."""
+    rcfg, cfg = RC.get_reduced("whisper-medium"), C.get_reduced(
+        "whisper-medium")
+    rm = RefLM(rcfg, remat=False)
+    rp = rm.init(jax.random.key(2))
+    m = TransformerLM(cfg, device="cpu")
+    p = params_from_reference(jax.tree_util.tree_map(np.asarray, rp), cfg,
+                              "cpu")
+    frames = frontend_np(cfg, 2)
+    want = rm._encode(rp, jnp.asarray(frames))
+    got = m._encode(p, t(frames))
+    close(got, want)
+    assert cfg.encoder_layers == 2
+    causal, _ = m._run_stage(Stage((LayerSpec(),), cfg.encoder_layers),
+                             p["encoder"]["stages"][0], t(frames),
+                             torch.arange(frames.shape[1]), None)
+    causal = N.rms_norm(causal, p["encoder"]["final_norm"], cfg.norm_eps)
+    assert float((causal - got).abs().max()) > 1e-2
 
 
 # ---------------------------------------------------------------------------
@@ -198,13 +274,16 @@ def test_cross_attention_is_not_ported_yet():
 def test_prefill_and_decode_equal_the_reference(models, arch):
     """prefill of 12 tokens into a cache of 16, then three decode steps:
     logits within 1e-4 of the reference's at every step, and the caches
-    (K/V, Mamba's conv window and state) the reference's."""
+    (K/V, the cross K/V, Mamba's conv window and state) the reference's,
+    entry for entry."""
     rm, rp, m, p = models[arch]
     b, s = 2, 12
     toks = RNG.integers(0, m.cfg.vocab_size, (b, s + 3))
+    fe = frontend_np(m.cfg, b)
     rl, rc = rm.prefill(rp, jnp.asarray(toks[:, :s], jnp.int32),
-                        cache_len=s + 4)
-    lg, caches = m.prefill(p, torch.from_numpy(toks[:, :s]), cache_len=s + 4)
+                        frontend=as_jax(fe), cache_len=s + 4)
+    lg, caches = m.prefill(p, torch.from_numpy(toks[:, :s]),
+                           frontend=as_torch(fe), cache_len=s + 4)
     assert lg.shape == (b, 1, m.vp) and lg.dtype == torch.float32
     close(lg, rl)
     for i in range(3):
@@ -214,6 +293,7 @@ def test_prefill_and_decode_equal_the_reference(models, arch):
         close(lg, rl)
     for stage, rstage in zip(caches, rc):
         for layer, rlayer in zip(stage, rstage):
+            assert sorted(layer) == sorted(rlayer)
             for kind, entry in layer.items():
                 for name, buf in entry.items():
                     close(buf, rlayer[kind][name])
@@ -230,38 +310,84 @@ def test_decode_matches_full_forward(models, arch):
     b, s = 2, 12
     toks = torch.from_numpy(RNG.integers(0, model.cfg.vocab_size,
                                          (b, s + 1)))
-    hidden = model.backbone(params, toks)
-    lg_pre, caches = model.prefill(params, toks[:, :s], cache_len=s + 4)
+    fe = as_torch(frontend_np(model.cfg, b))
+    hidden = model.backbone(params, toks, frontend=fe)
+    lg_pre, caches = model.prefill(params, toks[:, :s], frontend=fe,
+                                   cache_len=s + 4)
     close(lg_pre, model.logits(params, hidden[:, s - 1:s]).numpy(),
           rtol=2e-2, atol=2e-2)
-    lg_dec, _ = model.decode_step(params, toks[:, s:s + 1], s, caches)
+    lg_dec, _ = model.decode_step(params, toks[:, s:s + 1], s, caches,
+                                  frontend=fe)
     close(lg_dec, model.logits(params, hidden[:, -1:]).numpy(),
           rtol=5e-2, atol=5e-2)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_non_dense_archs_are_not_ported_yet(arch):
-    """Cross-attention, encoders and frontends (whisper, llama-vision) are
-    not ported yet."""
-    assert sorted(UNPORTED) == ["llama-3.2-vision-11b", "whisper-medium"]
-    with pytest.raises(NotImplementedError, match="cross-attention.*ROADMAP"):
-        TransformerLM(C.get_reduced(arch), device="cpu")
+def test_cross_kv_cache_consistency(models):
+    """``tests/test_perf_variants.py::test_cross_kv_cache_consistency`` on
+    the port: after a prefill with the frontend, a decode step given no
+    frontend reads the cross K/V from the cache and continues the full
+    forward (within the reference's 5e-2)."""
+    for arch in CROSS:
+        _, _, model, params = models[arch]
+        b, s = 2, 12
+        toks = torch.from_numpy(RNG.integers(0, model.cfg.vocab_size,
+                                             (b, s + 1)))
+        fe = as_torch(frontend_np(model.cfg, b))
+        want = model.logits(params, model.backbone(params, toks,
+                                                   frontend=fe)[:, -1:])
+        _, caches = model.prefill(params, toks[:, :s], frontend=fe,
+                                  cache_len=s + 4)
+        got, _ = model.decode_step(params, toks[:, s:], s, caches)
+        assert float((got - want).abs().max()) < 5e-2, arch
 
 
-def test_loss_is_not_ported_yet(models):
-    """The loss of every ported config runs (``tests/test_torch_lm_train.py``
-    holds it to the reference); an unported config's still raises: neither
-    the model nor the train step builds for it."""
-    from repro_torch.launch.steps import build_step
+@pytest.mark.parametrize("arch", CROSS)
+def test_cross_configs_need_a_frontend(models, arch):
+    """A config with cross-attention raises ``ValueError`` in ``prefill``,
+    ``backbone`` and ``loss`` without its frontend (the reference would run
+    its cross layers as self-attention); a config without cross-attention
+    needs none."""
+    _, _, m, p = models[arch]
+    toks = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(ValueError, match="frontend"):
+        m.prefill(p, toks)
+    with pytest.raises(ValueError, match="frontend"):
+        m.backbone(p, toks)
+    with pytest.raises(ValueError, match="frontend"):
+        m.loss(p, {"tokens": toks, "targets": toks})
+    assert m.needs_frontend
+    assert not models["jamba-v0.1-52b"][2].needs_frontend
+
+
+def test_loss_runs_and_reports_its_metrics(models):
+    """The loss of a ported config runs (``tests/test_torch_lm_train.py``
+    holds every config's to the reference) and reports ``nll`` and
+    ``moe_aux``."""
     _, _, m, p = models["qwen3-4b"]
     loss, metrics = m.loss(p, {"tokens": torch.zeros(1, 4, dtype=torch.long),
                                "targets": torch.ones(1, 4, dtype=torch.long)})
     assert bool(torch.isfinite(loss)) and set(metrics) == {"nll", "moe_aux"}
-    for arch in UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TransformerLM(C.get_reduced(arch), device="cpu").loss(p, {})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_step(C.get_reduced(arch), SHAPES["train_4k"], "cpu")
+
+
+@pytest.mark.parametrize("arch", CROSS)
+def test_frontend_is_cast_to_the_model_dtype(arch):
+    """A float32 frontend given to a bf16 model is cast on entry: the
+    memory, and so the cross cache, stays bf16 (the reference would promote
+    the encoder to float32); the logits match the same model fed the
+    frontend already cast."""
+    cfg = dataclasses.replace(C.get_reduced(arch), dtype="bfloat16")
+    m = TransformerLM(cfg, device="cpu")
+    p = m.init()
+    fe = torch.from_numpy(frontend_np(cfg, 2))
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 6)))
+    lg, caches = m.prefill(p, toks, frontend=fe, cache_len=8)
+    cross = [layer["cross"] for st in caches for layer in st
+             if "cross" in layer]
+    assert cross and all(e[n].dtype == torch.bfloat16 for e in cross
+                         for n in ("k", "v"))
+    assert bool(torch.isfinite(lg).all())
+    lg2, _ = m.prefill(p, toks, frontend=fe.to(torch.bfloat16), cache_len=8)
+    assert torch.equal(lg, lg2)
 
 
 def test_port_init_has_the_reference_tree(models):
@@ -305,7 +431,7 @@ def test_params_from_reference_keeps_fp32_leaves_in_bf16(arch):
     assert seen == (FP32_LEAVES if arch.startswith("jamba") else {"router"})
 
 
-@pytest.mark.parametrize("arch", MOE_SSM)
+@pytest.mark.parametrize("arch", MOE_SSM + CROSS)
 def test_arch_smoke_forward_and_train_step(arch):
     """``tests/test_lm_archs.py::test_arch_smoke_forward_and_train_step`` on
     the port: the port's own init, forward shapes, finite hidden states and
@@ -318,7 +444,10 @@ def test_arch_smoke_forward_and_train_step(arch):
                                                      (b, s))),
              "targets": torch.from_numpy(RNG.integers(0, cfg.vocab_size,
                                                       (b, s)))}
-    hidden = model.backbone(params, batch["tokens"])
+    if arch in CROSS:
+        batch["frontend"] = as_torch(frontend_np(cfg, b))
+    hidden = model.backbone(params, batch["tokens"],
+                            frontend=batch.get("frontend"))
     assert hidden.shape == (b, s, cfg.d_model)
     assert bool(torch.isfinite(hidden).all())
     loss, metrics = model.loss(params, batch)
@@ -355,12 +484,13 @@ def test_the_model_defaults_to_the_card(monkeypatch):
 # the serving driver
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b", "mamba2-780m",
-                                  "jamba-v0.1-52b"])
+                                  "jamba-v0.1-52b", "whisper-medium",
+                                  "llama-3.2-vision-11b"])
 def test_driver_matches_the_reference_model(arch):
     """``--device cpu --reduced``: the port prefills ``prompt_len`` tokens
     into a cache of ``prompt_len + gen`` and decodes from ``prompt_len``;
-    the reference model called that way, on the port's parameters and
-    prompts, gives the same greedy tokens."""
+    the reference model called that way, on the port's parameters, prompts
+    and stubbed frontend, gives the same greedy tokens."""
     b, plen, gen = 3, 10, 6
     lines = []
     out = serve.serve(arch, reduced=True, batch=b, prompt_len=plen, gen=gen,
@@ -372,7 +502,9 @@ def test_driver_matches_the_reference_model(arch):
     rp = jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()),
                                 m.init(torch.Generator().manual_seed(5)))
     rm = RefLM(cfg, remat=False)
+    assert (out["frontend"] is None) == (arch not in CROSS)
     lg, caches = rm.prefill(rp, jnp.asarray(out["prompts"], jnp.int32),
+                            frontend=as_jax(out["frontend"]),
                             cache_len=plen + gen)
     tok = jnp.argmax(lg[:, -1], -1).astype(jnp.int32)[:, None]
     want = [np.asarray(tok)]

@@ -2,9 +2,11 @@
 
 ``TransformerLM.loss`` and the gradient of every parameter leaf are held
 to ``jax.value_and_grad`` of the reference's ``TransformerLM.loss`` for
-the four dense and the four MoE / SSM / hybrid reduced configs (fp32, B 2,
-S 32, four loss chunks; the MoE configs' loss with its ``MOE_AUX_COEF *
-aux / num_layers`` term), on the reference's parameters carried across by
+the four dense, the four MoE / SSM / hybrid and the two cross-attention
+reduced configs (fp32, B 2, S 32, four loss chunks; the MoE configs' loss
+with its ``MOE_AUX_COEF * aux / num_layers`` term; the cross-attention
+configs' batch with a stubbed frontend, whose gradient reaches the encoder
+and ``frontend_proj``), on the reference's parameters carried across by
 ``params_from_reference``. K10
 under autograd (``flash_attention.FlashAttention``: its forward, and the
 plain version's VJP recomputed from ``q, k, v``) is held to ``jax.vjp`` of
@@ -42,7 +44,8 @@ from test_flash import ref_attention
 DENSE = ["qwen3-4b", "gemma2-2b", "gemma3-4b", "qwen3-14b"]
 MOE_SSM = ["moonshot-v1-16b-a3b", "grok-1-314b", "mamba2-780m",
            "jamba-v0.1-52b"]
-PORTED = DENSE + MOE_SSM
+CROSS = ["whisper-medium", "llama-3.2-vision-11b"]
+PORTED = DENSE + MOE_SSM + CROSS
 B, S, CHUNK = 2, 32, 8
 LOSS_RTOL = 1e-5
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -66,9 +69,19 @@ def one_thread():
 
 
 def batch_np(cfg, seed=1, b=B, s=S):
-    toks = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    """Tokens and targets, and the stubbed frontend (float32 normal) of a
+    config with an encoder or image patches."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    out = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.encoder_layers:
+        out["frontend"] = rng.normal(
+            size=(b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    elif cfg.frontend_tokens:
+        out["frontend"] = rng.normal(
+            size=(b, cfg.frontend_tokens, cfg.frontend_dim)).astype(
+                np.float32)
+    return out
 
 
 def to_torch(batch):
@@ -280,7 +293,8 @@ def test_input_specs_equal_the_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-2b",
-                                  "moonshot-v1-16b-a3b", "mamba2-780m"])
+                                  "moonshot-v1-16b-a3b", "mamba2-780m"]
+                         + CROSS)
 def test_train_step_equals_the_reference_step(arch, one_thread):
     rm, rp, cfg, p = ref_setup(arch)
     batch = batch_np(cfg, seed=2)
@@ -360,8 +374,28 @@ def test_serve_steps_carry_the_mamba_cache():
     assert torch.equal(got, want_lg)
 
 
-@pytest.mark.parametrize("arch", [a for a in RC.ARCHS if a not in PORTED])
-def test_build_step_refuses_non_dense_configs(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.build_step(C.get_reduced(arch), ShapeCell("t", S, B, "train"),
-                         "cpu")
+@pytest.mark.parametrize("arch", CROSS)
+def test_serve_steps_take_the_frontend(arch):
+    """A cross-attention config's prefill step takes the frontend (its meta
+    tensor in ``abstract_args``, shaped as ``input_specs`` says) and equals
+    the model's prefill; the decode step ignores a frontend (the memory's
+    K/V are cached) and equals the model's decode."""
+    _, _, cfg, p = ref_setup(arch)
+    model = TransformerLM(cfg, device="cpu")
+    data = batch_np(cfg)
+    toks = torch.from_numpy(data["tokens"][:, :12])
+    fe = torch.from_numpy(data["frontend"])
+    pre = steps.build_step(cfg, ShapeCell("p", 16, B, "prefill"), "cpu")
+    assert len(pre.abstract_args) == 3
+    a_fe = pre.abstract_args[2]
+    assert a_fe.device.type == "meta" and a_fe.shape == fe.shape
+    lg, caches = pre.fn(p, toks, fe)
+    want, wcaches = model.prefill(p, toks, frontend=fe, cache_len=16)
+    assert torch.equal(lg, want)
+    dec = steps.build_step(cfg, ShapeCell("d", 16, B, "decode"), "cpu")
+    kinds = [sorted(layer) for layer in dec.abstract_args[3][0]]
+    assert kinds == [sorted(layer) for layer in caches[0]]
+    assert any("cross" in k for k in kinds)
+    got, _ = dec.fn(p, toks[:, -1:], 12, caches, fe)
+    want, _ = model.decode_step(p, toks[:, -1:], 12, wcaches)
+    assert torch.equal(got, want)

@@ -137,6 +137,28 @@ def test_driver_trains_the_moe_and_ssm_families(arch, tmp_path):
 
 
 @pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-11b"])
-def test_driver_refuses_non_dense_configs(arch, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.main(args(tmp_path, "ck", arch, 1, 2, 16))
+def test_driver_trains_the_cross_attention_configs(arch, tmp_path):
+    """The encoder-decoder and vision-language configs train through the
+    driver on the stream's stubbed frontends: finite losses, every
+    parameter leaf moved (the encoder's and ``frontend_proj`` included),
+    and the failure drill (``--simulate-failure 4 --ckpt-every 2``) the
+    uninterrupted run's losses bit for bit, step 4 repeated."""
+    kw = dict(reduced=True, steps=6, batch=2, seq=16, ckpt_every=2,
+              device="cpu", log=lambda m: None)
+    out = T.train(arch, ckpt_dir=str(tmp_path / "a"), **kw)
+    losses = out["losses"]
+    assert len(losses) == 6 and all(math.isfinite(x) for x in losses)
+    from repro_torch import configs as C
+    from repro_torch.lm.model import TransformerLM
+    from repro_torch.optim.adamw import tree_leaves
+    init = TransformerLM(C.get_reduced(arch), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    params = out["state"].params
+    assert ("encoder" in params) == (arch == "whisper-medium")
+    assert ("frontend_proj" in params) == (arch != "whisper-medium")
+    assert all(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(params), tree_leaves(init)))
+    drill = T.train(arch, ckpt_dir=str(tmp_path / "b"), simulate_failure=4,
+                    **kw)["losses"]
+    assert len(drill) == 7 and drill[4] == drill[5]
+    assert drill[:5] + drill[6:] == losses
