@@ -424,13 +424,40 @@ comparable across versions:
    (d) K10 against its plain version and timed beside SDPA (as phase 12
    (a), (d)) at the encoder's call, and the cross-attention prefill and
    last-decode calls of (b).
+21. the model axis (``launch/partitioning.py``: the reference's sharding
+   rules; a ``(data, model)`` mesh of gloo ranks on the one card,
+   ``launch.mesh.launch_ranks``; each rank stores only its shards and
+   splits attention heads, the MLP width and the vocabulary), in one
+   launch of four ranks ((a) on (2, 2); then ranks 0-1, a world of their
+   own: (a) on (1, 2), (b), (c)):
+   (a) reduced qwen3-4b (2 KV heads) and gemma2-2b in fp32 on meshes
+   (1, 2) and (2, 2), the CPU's parameters sharded, against the CPU's
+   one-device port: the shards gathered back bit for bit, the train
+   step's loss, every gradient leaf (1e-4 / 1e-6) and the new state,
+   prefill + 3 decodes (logits, caches) within 1e-4, every rank's
+   resident parameter and moment bytes exactly the sum of its shard
+   shapes, K10 launched once an attention layer a forward at the rank's
+   local heads; the ms of one fp32 all-reduce over ``model``; (b)
+   qwen3-4b at full width, all 36 layers, bf16, B 4, prompt 2048, gen 32,
+   served on (1, 2) against (1, 1) on the same card: logits within 0.2 up
+   to each row's first token that differs, and the tokens the (1, 1)
+   run's up to the first position where its top-2 gap is below the
+   logits' difference; K10 launched 36 x 32 times on rank 0; (c) qwen3-4b
+   at full width, 8 of 36 layers, B 4, S 2048, remat off, trained 6 steps
+   on (1, 2): each of the six losses within 2e-3 of phase 18 (b)'s
+   (1, 1) run's, the losses and every rank's state digest bit for bit on
+   a second run, K10 launched 8 x 6 times on rank 0 in each. Each rank's
+   peak GiB is logged beside the (1, 1) run's, and step, prefill and
+   decode ms: gloo stages each all-reduce through the host, so these show
+   correctness and memory, not speed.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: phase
 6's op-by-op runs of all three models for K1-K5, K7 and K11, phases 9 and 10
 for K9 (the sampler launches K9 outside the executors),
 phase 11's tuned training and serving for K6 and K8, phase 12's serve runs,
 phase 18's full-width training, phase 19's full-width serving and
-training and phase 20's for K10, each counted from 0 just before the run);
+training, phase 20's and phase 21's (b) and (c) on rank 0 for K10, each
+counted from 0 just before the run);
 the last line is
 ``{"ok": true, "device": {...}}``.
 ``--out PATH`` also writes every number as JSON, ``--trace-dir DIR`` the
@@ -4152,7 +4179,9 @@ def lm_card_vs_cpu(torch, serve, TransformerLM, runs, phase, dev="cuda",
         fe = serve.stub_frontend(cfg, b, rng)
         fe = None if fe is None else torch.as_tensor(fe)
         with recorded_routing() as cpu_routes:
-            ref = serve.generate(cpu, params, prompts, gen, frontend=fe,
+            ref = serve.generate(*serve.serve_steps(cfg, b, plen + gen,
+                                                    device="cpu"),
+                                 params, prompts, gen, frontend=fe,
                                  keep_logits=True)
         card = TransformerLM(cfg, device=dev)
         pc = _params_to(params, dev)
@@ -7891,6 +7920,372 @@ def phase_cross(torch, ops, C, F, serve, TransformerLM, lm_train, card):
                 seconds=seconds, launches=n_serve + n_train)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the model axis (``launch/partitioning.py``; a mesh of gloo ranks
+# on the one card)
+# ---------------------------------------------------------------------------
+MODEL_AXIS_ARCHS = ("qwen3-4b", "gemma2-2b")
+MODEL_AXIS_MESHES = ((2, 2), (1, 2))
+# (a)'s train batch, prompt and generated length
+MODEL_AXIS_SHAPE = dict(batch=4, seq=16, prompt=8, gen=4)
+MODEL_AXIS_TOL = 1e-4
+MODEL_AXIS_GRAD_TOL = (1e-4, 1e-6)
+# (b): served bf16 at full width on (1, 2) against (1, 1), logits held at
+# the bound phase 19 holds served bf16 to
+MODEL_AXIS_SERVE = dict(arch="qwen3-4b", batch=4, prompt_len=2048, gen=32,
+                        mesh=(1, 2))
+MODEL_AXIS_SERVE_TOL = 0.2
+# (c): trained at full width, phase 18 (b)'s cut, on (1, 2)
+MODEL_AXIS_TRAIN = dict(arch="qwen3-4b", repeats=8, batch=4, seq=2048,
+                        steps=6, mesh=(1, 2))
+# every step's loss against phase 18 (b)'s first steps (the same cut, seed,
+# stream and optimizer on one device): about 10x the largest difference the
+# card gave over the six steps (1.89e-4 at step 6, wo / w_down partial sums
+# then taken from fp32 operands; "NVIDIA H100 80GB HBM3, 700.00 W")
+MODEL_AXIS_LOSS_TOL = 2e-3
+MODEL_AXIS_TIMEOUT = 900
+
+
+def model_axis_inputs(cfg):
+    """(a)'s train batch and prompts, from a seed."""
+    import numpy as np
+
+    sh = MODEL_AXIS_SHAPE
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (sh["batch"], sh["seq"] + 1)).astype(np.int32)
+    return ({"tokens": toks[:, :-1], "targets": toks[:, 1:]},
+            rng.integers(0, cfg.vocab_size, (sh["batch"], sh["prompt"])))
+
+
+def model_axis_ranks(cases, launched, serve, train, device=None,
+                     log=print):
+    """A rank of phase 21's one launch of four ranks (rank 0's result is
+    kept): (a) ``torch_mesh_probe.mesh_probe`` (``tests/``) of every case
+    on (2, 2) and the ms of one fp32 all-reduce over ``model``; then the
+    world splits into
+    two worlds of two ranks (0-1 and 2-3, each its own
+    ``torch.distributed`` group, gloo), and ranks 0-1 run (a) on (1, 2),
+    the all-reduce's ms, (b) the serving driver with ``serve`` and (c) the
+    training driver with ``train``, twice. Each part carries the rank's
+    kernel launches (counted from 0 in it) and its seconds; ``started`` is
+    the seconds from the launch to the rank's first work."""
+    import datetime
+    import os
+    import tempfile
+
+    started = time.time() - launched
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.kernels import ops
+    import torch_mesh_probe as probe
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import train as lm_train
+
+    def counted(fn, **kw):
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(device=device, log=log, **kw)
+        return out, ops.launch_counts(), time.perf_counter() - t0
+
+    def probes(shape):
+        a = [counted(probe.mesh_probe, shape=shape, **kw) for kw in cases]
+        return dict(results=[r for r, _, _ in a],
+                    seconds=[s for _, _, s in a],
+                    launches={k: sum(l[k] for _, l, _ in a) for k in a[0][1]},
+                    all_reduce_ms=model_axis_wire(device))
+
+    out = dict(started=started, a={(2, 2): probes((2, 2))})
+    rank = tdist.get_rank()
+    tdist.barrier()
+    tdist.destroy_process_group()
+    tdist.init_process_group(
+        backend="gloo", world_size=2, rank=rank % 2,
+        init_method="file://" + os.path.join(
+            tempfile.gettempdir(),
+            f"chip_smoke-axis-{launched!r}-{rank // 2}"),
+        timeout=datetime.timedelta(seconds=MODEL_AXIS_TIMEOUT))
+    if rank >= 2:
+        return None
+    out["a"][(1, 2)] = probes((1, 2))
+    r, launches, seconds = counted(lm_serve.serve, **serve)
+    out["b"] = dict(r, launches=launches, seconds=seconds)
+    out["c"] = []
+    for i in range(2):          # the run and its repeat
+        r, launches, seconds = counted(
+            lm_train.train, ckpt_dir=f"{train['ckpt_dir']}/{i}",
+            **{k: v for k, v in train.items() if k != "ckpt_dir"})
+        out["c"].append(dict(r, launches=launches, seconds=seconds))
+    return out
+
+
+def model_axis_wire(device):
+    """The ms of one fp32 all-reduce over ``model`` on this mesh (staged
+    through pinned host memory by gloo), at qwen3-4b's prefill partial
+    sums ``[4, 2048, 2560]`` and at its decode's ``[4, 1, 2560]``."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((tdist.get_world_size() // 2, 2), ("data", "model"),
+                     device)
+    out = {}
+    for shape, reps in (((4, 2048, 2560), 5), ((4, 1, 2560), 50)):
+        x = torch.ones(shape, device=mesh.device)
+        mesh.all_reduce(x, ("model",))
+        torch.cuda.synchronize(mesh.device)
+        tdist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            mesh.all_reduce(x, ("model",))
+        torch.cuda.synchronize(mesh.device)
+        out["x".join(map(str, shape))] = (time.perf_counter() - t0) / reps \
+            * 1e3
+    return out
+
+
+def model_axis_cases(C):
+    """(a)'s cases (each config with the CPU's parameters, seed 0, which
+    the ranks shard) and the CPU's one-device results."""
+    import torch_mesh_probe as probe
+    from repro_torch.lm.model import TransformerLM
+    from repro_torch.optim.adamw import tree_leaves, tree_like
+
+    sh = MODEL_AXIS_SHAPE
+    cases, want = [], {}
+    for arch in MODEL_AXIS_ARCHS:
+        cfg = C.get_reduced(arch)
+        batch, prompts = model_axis_inputs(cfg)
+        want[arch] = probe.one_device(cfg, batch=batch, prompts=prompts,
+                                      gen=sh["gen"], device="cpu")
+        p = TransformerLM(cfg, device="cpu").init()
+        cases.append(dict(cfg=cfg, batch=batch, prompts=prompts,
+                          gen=sh["gen"], params_np=tree_like(
+                              p, [t.numpy() for t in tree_leaves(p)])))
+    return cases, want
+
+
+def model_axis_checks(C, shape, got, want):
+    """(a): each reduced config on the ``shape`` mesh against the CPU's
+    one device."""
+    import numpy as np
+
+    sh = MODEL_AXIS_SHAPE
+    out, calls = {}, 0
+    for arch, g in zip(MODEL_AXIS_ARCHS, got["results"]):
+        tag = f"phase 21 a {arch} {shape}"
+        w = want[arch]
+        calls += attn_layers(C.get_reduced(arch)) * (2 + sh["gen"])
+        check(all(np.array_equal(x, y) for x, y in
+                  zip(g["params"], w["params"])),
+              f"{tag}: the ranks' shards, gathered, are not the CPU's "
+              f"parameters bit for bit")
+        errs = {}
+        for key, (rtol, atol) in (("grads", MODEL_AXIS_GRAD_TOL),
+                                  ("state", (MODEL_AXIS_TOL,) * 2),
+                                  ("logits", (MODEL_AXIS_TOL,) * 2),
+                                  ("caches", (MODEL_AXIS_TOL,) * 2)):
+            check(len(g[key]) == len(w[key]), f"{tag}: {key} count")
+            worst = 0.0
+            for i, (x, y) in enumerate(zip(g[key], w[key])):
+                check(x.shape == y.shape and bool(np.allclose(
+                    x, y, rtol=rtol, atol=atol)), f"{tag}: {key} {i} "
+                    f"{x.shape} off by {float(np.abs(x - y).max()):.3g}")
+                worst = max(worst, float(np.abs(x - y).max()))
+            errs[key] = worst
+        loss, wl = g["metrics"]["loss"], w["metrics"]["loss"]
+        check(abs(loss - wl) <= MODEL_AXIS_TOL * abs(wl),
+              f"{tag}: loss {loss!r} vs one device's {wl!r}")
+        check(np.array_equal(g["tokens"], w["tokens"]),
+              f"{tag}: greedy tokens differ")
+        for res in (g["resident"], g["resident_after"]):
+            check(len(res) == shape[0] * shape[1] and all(
+                r[k]["bytes"] == r[k]["expected"] and r[k]["exact"]
+                for r in res for k in ("params", "moments")),
+                f"{tag}: resident bytes {res}")
+        out[arch] = dict(loss=loss, cpu_loss=wl, max_abs_err=errs,
+                         resident=g["resident"])
+        log(f"[{tag}] the CPU's params sharded, gathered back bit for bit; "
+            f"loss {loss:.6f} (CPU {wl:.6f}); max abs err grads "
+            f"{errs['grads']:.3g}, state {errs['state']:.3g}, logits "
+            f"{errs['logits']:.3g}, caches {errs['caches']:.3g}; resident "
+            f"params / moments per rank "
+            + ", ".join(f"{r['params']['bytes']} / {r['moments']['bytes']} B"
+                        for r in g["resident"])
+            + " = the sum of each rank's shard shapes")
+    check(got["launches"].get(K10, 0) == calls, f"phase 21 a {shape}: K10 "
+          f"launched {got['launches'].get(K10)} times on rank 0, expected "
+          f"{calls}")
+    log(f"[phase 21 a {shape}] K10 launched {calls} times on rank 0 "
+        f"(attention layers x (2 forwards of the step + prefill + "
+        f"{sh['gen'] - 1} decodes)); the cases took "
+        + ", ".join(f"{x:.1f}" for x in got["seconds"])
+        + " s; one fp32 all-reduce over model on rank 0 (gloo through "
+        "pinned host memory): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in got["all_reduce_ms"].items()))
+    return dict(configs=out, launches=calls, seconds=got["seconds"],
+                all_reduce_ms=got["all_reduce_ms"])
+
+
+def model_axis_serve(torch, got, one, one_logits, cfg, card):
+    """(b): full-width bf16 serving on (1, 2) against (1, 1)."""
+    run = MODEL_AXIS_SERVE
+    tag = "phase 21 b"
+    want_k10 = attn_layers(cfg) * run["gen"]
+    check(got["launches"].get(K10, 0) == want_k10, f"{tag}: K10 launched "
+          f"{got['launches'].get(K10)} times on rank 0, expected {want_k10}")
+    logits = [t.float() for t in got["logits"]]
+    worst, held, first_diff = 0.0, 0, []
+    for row in range(run["batch"]):
+        diff_at = None
+        for i in range(run["gen"]):
+            a, b = logits[i][row], one_logits[i][row]
+            check(bool(torch.isfinite(a).all()), f"{tag}: logits not finite")
+            d = float((a - b).abs().max())
+            worst = max(worst, d)
+            check(d <= MODEL_AXIS_SERVE_TOL, f"{tag}: row {row} step {i}: "
+                  f"logits differ from (1, 1)'s by {d:.4g}")
+            held += 1
+            if got["tokens"][row, i] != one["tokens"][row, i]:
+                top = torch.topk(b, 2).values
+                gap = float(top[0] - top[1])
+                check(gap < d, f"{tag}: row {row} step {i}: token "
+                      f"{got['tokens'][row, i]} vs (1, 1)'s "
+                      f"{one['tokens'][row, i]} at a top-2 gap {gap:.4g} "
+                      f"above the logits' difference {d:.4g}")
+                diff_at = i
+                break                 # later steps decode other tokens
+        first_diff.append(diff_at)
+    out = dict(prefill_ms=got["prefill_ms"],
+               decode_ms_per_token=got["decode_ms_per_token"],
+               tok_s=got["tok_s"], one_prefill_ms=one["prefill_ms"],
+               one_decode_ms_per_token=one["decode_ms_per_token"],
+               max_abs_logit_diff=worst, steps_held=held,
+               first_token_diff=first_diff,
+               rank_peak_gib=got["rank_peak_gib"],
+               one_peak_gib=one["peak_mem_gib"], launches=want_k10,
+               seconds=got["seconds"], **run)
+    log(f"[{tag}] {cfg.name} {cfg.num_layers} layers, {cfg.dtype}, B "
+        f"{run['batch']}, prompt {run['prompt_len']}, gen {run['gen']} on "
+        f"{run['mesh']}: logits within {worst:.4g} of (1, 1)'s over {held} "
+        f"row-steps (bound {MODEL_AXIS_SERVE_TOL}); first differing token "
+        f"per row {first_diff}; prefill {got['prefill_ms']:.3f} ms, decode "
+        f"{got['decode_ms_per_token']:.3f} ms a token (gloo through the "
+        f"host; (1, 1): {one['prefill_ms']:.3f} / "
+        f"{one['decode_ms_per_token']:.3f}); peak GiB per rank "
+        f"{got['rank_peak_gib']} against (1, 1)'s {one['peak_mem_gib']}; "
+        f"K10 launched {want_k10} times on rank 0; served in "
+        f"{got['seconds']:.1f} s; {card}")
+    return out
+
+
+def model_axis_train(runs, cfg, one_losses, one_peak, card):
+    """(c): full-width bf16 training on (1, 2), and its repeat, every
+    step's loss against ``one_losses`` (phase 18 (b)'s on one device)."""
+    import numpy as np
+
+    run = MODEL_AXIS_TRAIN
+    tag = "phase 21 c"
+    a, b = runs
+    losses = a["losses"]
+    check(len(losses) == run["steps"] and all(math.isfinite(x)
+                                              for x in losses),
+          f"{tag}: losses {losses}")
+    one_losses = list(one_losses[:run["steps"]])
+    diffs = [abs(x - y) for x, y in zip(losses, one_losses)]
+    check(len(one_losses) == run["steps"]
+          and max(diffs) <= MODEL_AXIS_LOSS_TOL, f"{tag}: losses {losses} "
+          f"vs (1, 1)'s {one_losses} (bound {MODEL_AXIS_LOSS_TOL})")
+    check(a["losses"] == b["losses"] and a["state_digest"]
+          == b["state_digest"], f"{tag}: a second run differs: losses "
+          f"{a['losses']} / {b['losses']}")
+    want_k10 = attn_layers(cfg) * run["steps"]
+    for r in (a, b):
+        check(r["launches"].get(K10, 0) == want_k10, f"{tag}: K10 launched "
+              f"{r['launches'].get(K10)} times on rank 0, expected "
+              f"{want_k10}")
+    check(all(r[k]["bytes"] == r[k]["expected"] and r[k]["exact"]
+              for r in a["resident"] for k in ("params", "moments")),
+          f"{tag}: resident bytes {a['resident']}")
+    ms = np.asarray(a["step_ms"][1:])
+    out = dict(losses=losses, one_losses=one_losses, loss_diffs=diffs,
+               step_ms=a["step_ms"],
+               p50_ms=float(np.percentile(ms, 50)),
+               tokens_per_s=a["tokens_per_s"],
+               rank_peak_gib=a["rank_peak_gib"], one_peak_gib=one_peak,
+               resident=a["resident"], launches=want_k10,
+               seconds=[a["seconds"], b["seconds"]], **run)
+    log(f"[{tag}] {cfg.name} at full width, {cfg.num_layers} layers, "
+        f"{cfg.dtype}, B {run['batch']}, S {run['seq']} on {run['mesh']}: "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, each within "
+        f"{max(diffs):.3g} of (1, 1)'s (phase 18 b; per step "
+        + ", ".join(f"{d:.3g}" for d in diffs) + f"; bound "
+        f"{MODEL_AXIS_LOSS_TOL}); a second run bit for bit (losses and every rank's state digest); "
+        f"step p50 {out['p50_ms']:.3f} ms (steps 2-{run['steps']}; gloo "
+        f"through the host), warm-up {a['step_ms'][0]:.3f} ms; peak GiB per "
+        f"rank {a['rank_peak_gib']} against (1, 1)'s {one_peak}; resident "
+        f"params / moments per rank "
+        + ", ".join(f"{r['params']['bytes']} / {r['moments']['bytes']} B"
+                    for r in a["resident"])
+        + f" = the sum of each rank's shard shapes; K10 launched {want_k10} "
+        f"times on rank 0 in each run; the runs took {a['seconds']:.1f} / "
+        f"{b['seconds']:.1f} s; {card}")
+    return out
+
+
+def phase_model_axis(torch, C, lm_serve, lm_training, card):
+    """Phase 21: (a) reduced configs on (2, 2) and (1, 2) against the CPU,
+    (b) full-width serving and (c) training on (1, 2), in one launch of
+    four ranks (``model_axis_ranks``). K10's launches are (b)'s and (c)'s
+    first run's on rank 0, each counted from 0 in the rank."""
+    import tempfile
+
+    from repro_torch.launch.mesh import launch_ranks
+
+    seconds, out = {}, {}
+    t0 = time.perf_counter()
+    cases, want = model_axis_cases(C)
+    serve_cfg = C.get_config(MODEL_AXIS_SERVE["arch"])
+    tr = MODEL_AXIS_TRAIN
+    train_cfg = lm_cut(C, tr["arch"], tr["repeats"])
+    run = MODEL_AXIS_SERVE
+    serve_kw = dict(batch=run["batch"], prompt_len=run["prompt_len"],
+                    gen=run["gen"], keep_logits=True, seed=0)
+    one = lm_serve.serve(serve_cfg, device="cuda",
+                         log=lambda m: log(f"[phase 21 b] {m}"), **serve_kw)
+    one_logits = [t.float().cpu() for t in one.pop("logits")]
+    seconds["cpu and (1, 1)"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    dp, mp = run["mesh"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-axis-") as tmp:
+        got = launch_ranks(model_axis_ranks, 4, "cuda", dict(
+            cases=cases, launched=time.time(),
+            serve=dict(serve_kw, arch=serve_cfg, model_parallel=mp, dp=dp),
+            train=dict(cfg_or_arch=train_cfg, steps=tr["steps"],
+                       batch=tr["batch"], seq=tr["seq"], ckpt_every=0,
+                       ckpt_dir=tmp, seed=0, model_parallel=mp, dp=dp)),
+            timeout_s=MODEL_AXIS_TIMEOUT)
+    seconds["ranks"] = time.perf_counter() - t0
+    log(f"[phase 21] rank 0 started {got['started']:.1f} s after the "
+        f"launch of four ranks; the launch took {seconds['ranks']:.1f} s")
+    out["a"] = {str(shape): model_axis_checks(C, shape, got["a"][shape],
+                                              want)
+                for shape in MODEL_AXIS_MESHES}
+    out["b"] = model_axis_serve(torch, got["b"], one, one_logits, serve_cfg,
+                                card)
+    out["c"] = model_axis_train(got["c"], train_cfg,
+                                lm_training["full"]["losses"],
+                                lm_training["full"]["peak_mem_gib"], card)
+    out["seconds"] = seconds
+    out["launches"] = out["b"]["launches"] + out["c"]["launches"]
+    log(f"[phase 21] parts' seconds " + json.dumps(
+        {k: round(v, 2) for k, v in seconds.items()}))
+    return out
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -7904,6 +8299,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))   # phase 21's torch_mesh_probe
     try:
         import hector_torch
         from repro_torch.kernels import build, ops
@@ -8065,6 +8461,11 @@ def main(argv=None) -> int:
                                           cross["k10"]["max_abs_err"])
         seconds["phase 20"] = time.perf_counter() - t0
         log(f"[phase 20] {seconds['phase 20']:.2f} s")
+        log("[phase 21] start")
+        t0 = time.perf_counter()
+        model_axis = phase_model_axis(torch, C, lm_serve, lm_training, card)
+        seconds["phase 21"] = time.perf_counter() - t0
+        log(f"[phase 21] {seconds['phase 21']:.2f} s")
         # the main path's launches, each run from counts set to 0 just
         # before it, each run op by op so that every kernel the card runs
         # goes through its wrapper: phase 6 of every model (K1-K5, K7),
@@ -8072,15 +8473,18 @@ def main(argv=None) -> int:
         # launches K9 outside the executors), phase 11's tuned training
         # and serving (K6, K8: the tuner's path), phase 12's LM serve runs
         # (K10), phase 18's full-width training (K10), phase 19's
-        # full-width MoE / SSM serving and training (K10), and phase 20's
-        # full-width cross-attention serving and training (K10)
+        # full-width MoE / SSM serving and training (K10), phase 20's
+        # full-width cross-attention serving and training (K10), and phase
+        # 21's full-width serving and training on the (1, 2) mesh (K10, on
+        # rank 0, counted there)
         launches = {name: sum(t["launches"][name] for t in train.values())
                     for name in KERNELS}
         launches[K9] = (sum(r["launches"][K9] for r in device_serve.values())
                         + device_train["launches"][K9])
         launches.update(tuning["launches"])
         launches[K10] = (lm["launches"] + lm_training["launches"]
-                         + moe_ssm["launches"] + cross["launches"])
+                         + moe_ssm["launches"] + cross["launches"]
+                         + model_axis["launches"])
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on the main path")
     except Failed as e:
@@ -8121,6 +8525,7 @@ def main(argv=None) -> int:
             device_train=device_train, tuning=tuning, lm=lm, obs=obs_out,
             capture=capture, features=features, online=online, dist=dist,
             lm_training=lm_training, moe_ssm=moe_ssm, cross=cross,
+            model_axis=model_axis,
             split_timed=split["timed"], k5_sass=k5_sass,
             gemm_ptxas=gemm_ptxas,
             torch=torch.__version__,

@@ -11,6 +11,14 @@
 * ``restore(like)`` rebuilds ``like``'s structure, each tensor on the
   device and in the dtype of ``like``'s tensor at the same place.
 
+On a mesh of ranks (``Checkpointer(..., mesh=)``, ``save(..., shardings=)``
+/ ``restore(..., shardings=)``, the port's counterpart of the reference's
+``restore(..., shardings=)``): every rank takes part in gathering each leaf
+whole from its shards under its spec, rank 0 alone writes, ``wait()``
+ends in a barrier of every rank, and ``restore`` slices each whole leaf to
+this rank's shard. The files hold whole leaves either way, so a
+checkpoint moves between meshes of any shape and one device.
+
 The layout is the reference's: ``shard_000.npz`` with ``leaf_<i>`` arrays
 in tree order, and a ``manifest.json``. numpy has no bfloat16, so a bf16
 tensor is stored as its raw 16-bit pattern (an ``int16`` array) and the
@@ -31,6 +39,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch import partitioning as PT
 from repro_torch.optim.adamw import tree_leaves, tree_like
 
 
@@ -47,18 +56,35 @@ def _from_host(a: np.ndarray, dtype: str) -> torch.Tensor:
     return t.view(torch.bfloat16) if dtype == "bfloat16" else t
 
 
+def _specs(shardings) -> list:
+    """Specs in leaf order from a list or tree of specs or shardings."""
+    return [getattr(x, "spec", x) for x in PT.flat_leaves(shardings)]
+
+
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, mesh=None):
         self.dir = pathlib.Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
 
-    def save(self, step: int, tree: Any) -> None:
-        """Snapshot ``tree``'s tensors to host memory, then write them."""
+    @property
+    def _writer(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def save(self, step: int, tree: Any, shardings=None) -> None:
+        """Snapshot ``tree``'s tensors to host memory, then write them. With
+        ``shardings`` (specs of ``tree``'s leaves, on this ``mesh``) every
+        rank must call it: each leaf is gathered whole first."""
         self.wait()
         leaves = tree_leaves(tree)
+        if shardings is not None:
+            leaves = [PT.gather_whole(t, sp, self.mesh) if self.mesh else t
+                      for t, sp in zip(leaves, _specs(shardings))]
+        if not self._writer:
+            return
         host = [_to_host(t) for t in leaves]
         dtypes = ["bfloat16" if t.dtype == torch.bfloat16 else str(a.dtype)
                   for t, a in zip(leaves, host)]
@@ -96,6 +122,9 @@ class Checkpointer:
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+        if self.mesh is not None:
+            import torch.distributed as tdist
+            tdist.barrier()
 
     def _gc(self) -> None:
         for s in self.steps()[: -self.keep]:
@@ -113,8 +142,9 @@ class Checkpointer:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Any) -> Any:
-        """The latest checkpoint in the structure of ``like``."""
+    def restore(self, like: Any, shardings=None) -> Any:
+        """The latest checkpoint in the structure of ``like``; with
+        ``shardings`` each leaf sliced to this rank's shard of its spec."""
         self.wait()
         step = self.latest_step()
         if step is None:
@@ -126,7 +156,13 @@ class Checkpointer:
             if len(data.files) != len(refs):
                 raise ValueError(f"checkpoint {step} has {len(data.files)} "
                                  f"tensors, the tree {len(refs)}")
-            leaves = [_from_host(data[f"leaf_{i}"], dt).to(
-                device=r.device, dtype=r.dtype)
-                for i, (r, dt) in enumerate(zip(refs, dtypes))]
+            specs = (_specs(shardings) if shardings is not None
+                     else [None] * len(refs))
+            leaves = []
+            for i, (r, dt, sp) in enumerate(zip(refs, dtypes, specs)):
+                t = _from_host(data[f"leaf_{i}"], dt)
+                if sp is not None and self.mesh is not None:
+                    t = PT.local_shard(t, sp, self.mesh)
+                leaves.append(t.to(device=r.device, dtype=r.dtype,
+                                   copy=True))
         return tree_like(like, leaves)

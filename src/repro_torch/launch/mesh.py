@@ -1,34 +1,50 @@
-"""The data-parallel group of the port, and the launcher that starts its
-ranks: the data-only part of ``repro.launch.mesh``.
+"""The port's meshes of ranks, and the launcher that starts them (the
+port's counterpart of ``repro.launch.mesh``).
 
-Where the reference builds a 1-D ``("data",)`` device mesh for
-``shard_map``, the port has one process per data-parallel rank, joined by
-``torch.distributed``. ``make_data_mesh(dp)`` returns this process's
-``DataGroup``: ``dp``, its rank, the graph shards it runs (``L = P / dp``
-of them, contiguous in shard order: rank ``r`` runs shards ``[r * L,
-(r + 1) * L)``), its device, and its process group (none at ``dp = 1``).
-``DataGroup.all_gather`` concatenates every rank's ``[L, ...]`` tensor
-into ``[P, ...]`` in shard order; the executors' only collective.
+Where the reference builds a device mesh for ``jit`` / ``shard_map``, the
+port has one process per rank, joined by ``torch.distributed``.
+
+* ``make_mesh(shape, axes)`` is the port's ``jax.make_mesh``: this
+  process's ``RankMesh`` over ``prod(shape)`` ranks, laid out row-major
+  with the last axis (``"model"``) fastest, as ``jax.make_mesh`` lays out
+  devices (rank = ``d * tp + m`` on ``("data", "model")``). It carries the
+  axis sizes, this rank's coordinate, its device and one process group per
+  set of axes (the ranks that share every other coordinate), and the
+  collectives the LM run time uses: ``all_reduce``, ``all_gather``, and
+  the autograd-aware ``copy_to`` (Megatron's f), ``reduce_from`` (g, in
+  fp32) and ``gather_from`` (gradient reduce-scattered). The rules of
+  ``launch/partitioning.py`` read only its ``axis_names`` and ``shape``.
+  A mesh of one rank needs no process group.
+* ``make_production_mesh(multi_pod)`` gives the reference's ``(16, 16)``
+  and ``(2, 16, 16)`` shapes as a ``MeshShape``, touching no device.
+* ``make_data_mesh(dp)`` returns this process's ``DataGroup`` (the RGNN
+  data parallelism of ``dist/``): ``dp``, its rank, the graph shards it
+  runs (``L = P / dp`` of them, contiguous in shard order: rank ``r`` runs
+  shards ``[r * L, (r + 1) * L)``), its device, and its process group
+  (none at ``dp = 1``). ``DataGroup.all_gather`` concatenates every rank's
+  ``[L, ...]`` tensor into ``[P, ...]`` in shard order; the executors'
+  only collective.
 
 The backend follows the ranks' devices, chosen explicitly: ``nccl`` when
 every rank has its own card, ``gloo`` otherwise (the CPU, or several ranks
-on one card; on a card the group copies each operand to the host and the
-result back, as gloo needs). A failed collective raises.
+on one card; on a card each operand is copied to pinned host memory and
+the result back, as gloo needs; the ranks of one launch talk over the
+loopback). NCCL is unverified: the port has run on one card only. A
+failed collective raises.
 
-``launch_ranks(fn, dp, device, kwargs)`` runs ``fn(**kwargs)`` on ``dp``
+``launch_ranks(fn, n, device, kwargs)`` runs ``fn(**kwargs)`` on ``n``
 ranks (``torch.multiprocessing``, spawned), joined through a file
 rendezvous in a fresh temporary directory: rank ``r`` runs on ``cuda:r``
-where there are ``dp`` cards, on the one card otherwise, or on the CPU.
-It returns rank 0's result; the drivers' ``--dp`` goes through it, so one
-command serves or trains on all ranks.
+where there are ``n`` cards, on the one card otherwise, or on the CPU.
+It returns rank 0's result; the drivers' ``--dp`` / ``--model-parallel``
+go through it, so one command serves or trains on all ranks. The ranks
+split the host's cores between them (intra-op threads).
 
 ``plan_elastic_mesh`` is the reference's planner. ``data_only=True``:
 after failures every survivor is a rank and the logical shards refold
 (``shards_per_rank = P // dp``). Otherwise the LM plans: a ``("data",
 "model")`` (or ``("pod", "data", "model")``) shape that keeps the
-model-parallel degree and shrinks the data axis. Nothing in the port runs
-a model axis above 1 yet (``ROADMAP.md`` §1, the mesh / partitioning
-item): the LM training driver refuses such a plan.
+model-parallel degree and shrinks the data axis.
 """
 from __future__ import annotations
 
@@ -38,8 +54,9 @@ import os
 import pickle
 import shutil
 import tempfile
+import itertools
 import time
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as tdist
@@ -133,6 +150,211 @@ def make_data_mesh(num_devices: Optional[int] = None,
                      backend=tdist.get_backend(), pg=tdist.group.WORLD)
 
 
+# ---------------------------------------------------------------------------
+# the LM's mesh of ranks
+# ---------------------------------------------------------------------------
+def _prod(xs) -> int:
+    out = 1
+    for x in xs:
+        out *= int(x)
+    return out
+
+
+def _host(t: torch.Tensor, backend: Optional[str]) -> torch.Tensor:
+    """The operand as the backend takes it, in storage of its own: gloo on
+    a card stages it through pinned host memory."""
+    if backend == "gloo" and t.device.type == "cuda":
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return buf.copy_(t)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RankMesh:
+    """This process's place in a mesh of ranks: ``axis_names`` and
+    ``shape`` (as the rules read them), its ``rank``, its ``coord`` on
+    every axis, its ``device``, the backend, and one process group per set
+    of axes (keyed by the axes in mesh order; none on one rank)."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    rank: int
+    device: torch.device
+    backend: Optional[str] = None
+    groups: Dict[Tuple[str, ...], object] = dataclasses.field(
+        default_factory=dict)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return _prod(self.sizes)
+
+    @property
+    def coord(self) -> Dict[str, int]:
+        out, r = {}, self.rank
+        for a, n in reversed(tuple(zip(self.axis_names, self.sizes))):
+            out[a] = r % n
+            r //= n
+        return {a: out[a] for a in self.axis_names}
+
+    def _axes(self, axes) -> Tuple[str, ...]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def group_size(self, axes) -> int:
+        return _prod(self.shape[a] for a in self._axes(axes))
+
+    def index(self, axes) -> int:
+        """This rank's position among the ranks of ``axes`` (row-major)."""
+        i, c = 0, self.coord
+        for a in self._axes(axes):
+            i = i * self.shape[a] + c[a]
+        return i
+
+    # ------------------------------------------------------------ collectives
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"):
+        """``t`` reduced (``"sum"`` / ``"max"``) over the ranks of
+        ``axes``; a new tensor on ``t``'s device (``t`` itself on one
+        rank)."""
+        axes = self._axes(axes)
+        if self.group_size(axes) == 1:
+            return t
+        buf = _host(t.detach(), self.backend)
+        tdist.all_reduce(buf, op={"sum": tdist.ReduceOp.SUM,
+                                  "max": tdist.ReduceOp.MAX}[op],
+                         group=self.groups[axes])
+        return buf.to(t.device)
+
+    def all_gather(self, t: torch.Tensor, axes, dim: int):
+        """Every rank of ``axes``' ``t`` concatenated along ``dim`` in
+        their order."""
+        axes = self._axes(axes)
+        n = self.group_size(axes)
+        if n == 1:
+            return t
+        src = _host(t.detach(), self.backend)
+        out = [torch.empty_like(src) for _ in range(n)]
+        tdist.all_gather(out, src, group=self.groups[axes])
+        return torch.cat(out, dim=dim).to(t.device)
+
+    def local(self, t: torch.Tensor, axes, dim: int):
+        """This rank's piece of ``t`` split over ``axes`` along ``dim``."""
+        n = self.group_size(axes)
+        if n == 1:
+            return t
+        k = t.shape[dim] // n
+        return t.narrow(dim, self.index(axes) * k, k)
+
+    def copy_to(self, x: torch.Tensor, axes):
+        """Identity forward; the gradient summed over ``axes`` (in fp32,
+        cast back)."""
+        if self.group_size(axes) == 1 or not x.requires_grad:
+            return x
+        return _CopyTo.apply(x, self, axes)
+
+    def reduce_from(self, x: torch.Tensor, axes, dtype=None):
+        """The sum over ``axes`` in fp32, cast to ``dtype`` (default
+        ``x``'s); identity backward."""
+        dtype = dtype or x.dtype
+        if self.group_size(axes) == 1:
+            return x.to(dtype)
+        return _ReduceFrom.apply(x.float(), self, axes).to(dtype)
+
+    def gather_from(self, x: torch.Tensor, axes, dim: int):
+        """All-gather along ``dim``; the gradient reduce-scattered back."""
+        if self.group_size(axes) == 1:
+            return x
+        return _GatherFrom.apply(x, self, axes, dim)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.float(), ctx.axes).to(g.dtype), None, \
+            None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh.all_reduce(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.mesh.all_reduce(g.float(), ctx.axes).to(g.dtype)
+        return ctx.mesh.local(g, ctx.axes, ctx.dim).contiguous(), None, \
+            None, None
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              device=None) -> RankMesh:
+    """This process's ``RankMesh`` over ``shape`` / ``axes`` (the port's
+    ``jax.make_mesh``). One rank needs no ``torch.distributed``; more need
+    it initialized with world size ``prod(shape)`` (``launch_ranks`` does
+    it), and every rank must call this in the same order (it makes the
+    process groups). ``device`` is this rank's device (``None``:
+    ``rank_device``)."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} do not match")
+    n = _prod(shape)
+    if n == 1:
+        return RankMesh(axes, shape, 0, torch.device(
+            "cuda" if device is None else device))
+    ready = in_ranks()
+    world = tdist.get_world_size() if ready else None
+    if world != n:
+        raise ValueError(
+            f"mesh shape {shape} needs torch.distributed initialized with "
+            f"world size {n} (got {world or 'none'}); the drivers start "
+            f"their ranks through launch.mesh.launch_ranks")
+    rank = tdist.get_rank()
+    dev = rank_device(rank, n) if device is None else torch.device(device)
+    coords = [dict(zip(axes, c)) for c in itertools.product(
+        *(range(k) for k in shape))]       # row-major: coords[r] is rank r's
+    groups = {}
+    for k in range(1, len(axes) + 1):
+        for sub in itertools.combinations(axes, k):
+            rest = [a for a in axes if a not in sub]
+            classes: Dict[tuple, list] = {}
+            for r, c in enumerate(coords):
+                classes.setdefault(tuple(c[a] for a in rest), []).append(r)
+            for ranks in classes.values():    # every rank makes every group
+                pg = tdist.new_group(ranks) if len(ranks) > 1 else None
+                if rank in ranks:
+                    groups[sub] = pg
+    return RankMesh(axes, shape, rank, dev, tdist.get_backend(), groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production shapes, as axis names and sizes only:
+    ``(16, 16)`` over ``("data", "model")``, or ``(2, 16, 16)`` over
+    ``("pod", "data", "model")``."""
+    from repro_torch.launch.partitioning import MeshShape
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
 @dataclasses.dataclass(frozen=True)
 class ElasticPlan:
     shape: Tuple[int, ...]
@@ -194,13 +416,19 @@ def _quiet(*_a, **_k):
     pass
 
 
-def _rank_main(rank, fn, dp, device, init, out_dir, kwargs, timeout_s):
-    dev = rank_device(rank, dp, device)
+def _rank_main(rank, fn, n, device, init, out_dir, kwargs, timeout_s):
+    if os.path.exists("/sys/class/net/lo"):
+        # every rank runs on this host: gloo's pairs over the loopback
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    # the ranks share this host's cores (a lower setting stays)
+    torch.set_num_threads(max(1, min(torch.get_num_threads(),
+                                     len(os.sched_getaffinity(0)) // n)))
+    dev = rank_device(rank, n, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     tdist.init_process_group(
-        backend=choose_backend(dp, device), init_method=init,
-        world_size=dp, rank=rank,
+        backend=choose_backend(n, device), init_method=init,
+        world_size=n, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s))
     try:
         out = fn(**kwargs, device=str(dev),
@@ -213,23 +441,23 @@ def _rank_main(rank, fn, dp, device, init, out_dir, kwargs, timeout_s):
         tdist.destroy_process_group()
 
 
-def launch_ranks(fn, dp: int, device=None, kwargs=None,
+def launch_ranks(fn, n: int, device=None, kwargs=None,
                  timeout_s: float = 1800.0):
     """``fn(**kwargs, device=<rank's device>, log=<print on rank 0>)`` on
-    ``dp`` spawned ranks joined by ``torch.distributed`` (the backend from
+    ``n`` spawned ranks joined by ``torch.distributed`` (the backend from
     ``choose_backend``, a file rendezvous in a fresh temporary directory).
     Returns rank 0's result (it must pickle). A rank that raises fails
     the call; ranks still running after ``timeout_s`` are terminated and
     the call raises ``TimeoutError``."""
     import torch.multiprocessing as mp
-    if dp < 2:
+    if n < 2:
         raise ValueError("launch_ranks starts 2 or more ranks")
     out_dir = tempfile.mkdtemp(prefix="repro_torch-ranks-")
     try:
         init = "file://" + os.path.join(out_dir, "rendezvous")
-        ctx = mp.spawn(_rank_main, args=(fn, dp, device, init, out_dir,
+        ctx = mp.spawn(_rank_main, args=(fn, n, device, init, out_dir,
                                          dict(kwargs or {}), timeout_s),
-                       nprocs=dp, join=False)
+                       nprocs=n, join=False)
         deadline = time.monotonic() + timeout_s
         while not ctx.join(timeout=1.0):
             if time.monotonic() > deadline:
@@ -238,7 +466,7 @@ def launch_ranks(fn, dp: int, device=None, kwargs=None,
                         p.terminate()
                 for p in ctx.processes:
                     p.join()
-                raise TimeoutError(f"{dp} ranks still running after "
+                raise TimeoutError(f"{n} ranks still running after "
                                    f"{timeout_s:g} s")
         with open(os.path.join(out_dir, "result.pkl"), "rb") as f:
             return pickle.load(f)

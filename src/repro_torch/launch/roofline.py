@@ -11,7 +11,9 @@ constants in ``HW_H100``:
 ``model_flops`` (6 N D train, 2 N D prefill, 2 N_active B decode),
 ``analytic_memory_bytes`` and ``_cache_bytes`` are the reference's
 functions number for number; like the reference's, ``_cache_bytes``
-counts no cross-attention K/V (``ROADMAP.md`` §3).
+counts no cross-attention K/V (``repro/launch/roofline.py:440-453``),
+kept so that the two agree (``ROADMAP.md`` §3, the differences kept from
+the reference).
 
 Difference by design: the reference's other half parses XLA's optimized
 HLO text (``parse_hlo``, ``analyze_hlo``: trip counts of ``while`` loops,

@@ -9,6 +9,8 @@ monitoring and the elastic restart drill (the port's counterpart of
         --steps 10 --batch 4 --seq 2048          # on the card
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch jamba-v0.1-52b --reduced --steps 6 --batch 2 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch qwen3-4b --reduced --model-parallel 2 --dp 2 --steps 6
 
 Every config of the registry trains: dense, MoE (the loss carries the
 routers' load-balance term), Mamba2, the hybrid, and the cross-attention
@@ -28,12 +30,17 @@ As in the reference, the step applies ``build_step``'s optimizer; the
 driver's own ``AdamW(cosine_schedule(3e-4, 10, max(steps, 20)))`` only
 initializes the state (the two share every hyperparameter but the
 schedule, which ``init`` does not read). The step is built with
-``remat=False``, as the reference driver builds it. The driver trains on
-one device, so its plan, and the drill's replan, is the one-device plan;
-the reference's model axis of 16 waits for the mesh / partitioning item
-(``ROADMAP.md`` §1). ``--device`` (default the card; it raises without
-one) and ``--seed`` (weights and stream) are the port's, as in
-``launch/serve.py``; ``--ckpt-every 0`` saves nothing.
+``remat=False``, as the reference driver builds it. ``--model-parallel N
+--dp M`` trains on the ``plan_elastic_mesh(N * M, model_parallel=N)``
+mesh, ``(M, N)`` over ``("data", "model")``, whose ranks the driver
+starts itself (``launch.mesh.launch_ranks``): each rank holds its shards
+of the state (``launch.steps.init_state``), every rank reads the same
+global batch and the step takes its rows; checkpoints are written whole by
+rank 0 and restored to each rank's shards, and the drill replans the same
+mesh, re-meshes (new process groups) and restores on it. Without them the
+plan is the one-device ``(1, 1)``. ``--device`` (default the card; it
+raises without one) and ``--seed`` (weights and stream) are the port's, as
+in ``launch/serve.py``; ``--ckpt-every 0`` saves nothing.
 """
 from __future__ import annotations
 
@@ -48,10 +55,13 @@ import torch
 from repro_torch import configs as C
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.data.pipeline import PrefetchIterator, SyntheticLMStream
-from repro_torch.launch.mesh import plan_elastic_mesh
+from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import (in_ranks, launch_ranks, make_mesh,
+                                     plan_elastic_mesh)
 from repro_torch.launch.steps import build_step
 from repro_torch.lm.config import LMConfig, ShapeCell
 from repro_torch.optim import AdamW, cosine_schedule
+from repro_torch.optim.adamw import tree_leaves
 from repro_torch.runtime.fault import (
     ElasticController, HeartbeatMonitor, StragglerPolicy,
 )
@@ -64,6 +74,7 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
           seq: int = 64, ckpt_dir: str = DEFAULT_CKPT_DIR,
           ckpt_every: int = 5, simulate_failure: int = -1,
           resume: bool = False, device=None, seed: int = 0,
+          model_parallel: int = 1, dp: int = 1,
           log: Callable[[str], None] = print) -> Dict:
     """Train ``cfg_or_arch`` (a config, or an arch id: its full config, or
     its reduced one with ``reduced``) for ``steps`` steps of ``batch`` x
@@ -75,31 +86,55 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
     their tokens over the sum of their ms; ``None`` with fewer than two
     steps), the peak device memory (GiB, from the end of
     initialization; ``None`` on the CPU) and each step's ``moe_aux`` (the
-    MoE layers' summed load-balance loss; 0 without MoE)."""
+    MoE layers' summed load-balance loss; 0 without MoE).
+
+    ``model_parallel`` x ``dp`` above 1 trains on that mesh of ranks
+    (started here unless this process is one of them); the result is rank
+    0's, with every rank's peak GiB (``rank_peak_gib``), resident state
+    bytes against its shards' (``resident``, ``launch.steps.resident``)
+    and fp64 sum of each leaf (``state_digest``); its ``state`` is
+    ``None`` (the shards stay on the ranks)."""
+    n = model_parallel * dp
+    if n > 1 and not in_ranks():
+        return launch_ranks(train, n, device, dict(
+            cfg_or_arch=cfg_or_arch, reduced=reduced, steps=steps,
+            batch=batch, seq=seq, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+            simulate_failure=simulate_failure, resume=resume, seed=seed,
+            model_parallel=model_parallel, dp=dp))
     if isinstance(cfg_or_arch, LMConfig):
         cfg = cfg_or_arch
     else:
         cfg = (C.get_reduced(cfg_or_arch) if reduced
                else C.get_config(cfg_or_arch))
     cell = ShapeCell("custom", seq, batch, "train")
-    plan = plan_elastic_mesh(1, model_parallel=1)
-    bundle = build_step(cfg, cell, device, remat=False)
-    model = bundle.model
+    plan = plan_elastic_mesh(n, model_parallel=model_parallel)
+
+    def build(plan):
+        mesh = make_mesh(plan.shape, plan.axes, device) if n > 1 else None
+        return mesh, build_step(cfg, cell, None if mesh else device,
+                                mesh=mesh, remat=False)
+    mesh, bundle = build(plan)
+    model, part = bundle.model, bundle.partitioner
+    specs = ST.state_specs(part, model) if part else None
     dev = model.device
     log(f"[train] {cfg.name}: mesh={plan.shape} devices={plan.used_devices} "
         f"device={dev}")
 
     opt = AdamW(learning_rate=cosine_schedule(3e-4, 10, max(steps, 20)))
-    params = model.init(torch.Generator(device=dev).manual_seed(seed))
-    state = opt.init(params)
-    del params
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if part is not None:
+        state = ST.init_state(opt, model, part, g)
+    else:
+        params = model.init(g)
+        state = opt.init(params)
+        del params
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
-    ckpt = Checkpointer(ckpt_dir)
+    ckpt = Checkpointer(ckpt_dir, mesh=mesh)
     start_step = 0
     if resume and ckpt.latest_step() is not None:
-        state = ckpt.restore(state)
+        state = ckpt.restore(state, shardings=specs)
         start_step = ckpt.latest_step()
         log(f"[train] resumed from step {start_step}")
 
@@ -108,7 +143,7 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
     hosts = ["host0"]
     monitor = HeartbeatMonitor(hosts, timeout=1e9)
     policy = StragglerPolicy()
-    controller = ElasticController(monitor, devices_per_host=1,
+    controller = ElasticController(monitor, devices_per_host=n,
                                    model_parallel=plan.shape[-1])
 
     losses, step_ms, moe_aux = [], [], []
@@ -143,11 +178,14 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
                     raise RuntimeError("the controller saw no failure")
                 # drain -> replan -> rebuild -> restore -> resume
                 ckpt.wait()
-                new_plan = plan_elastic_mesh(1, model_parallel=plan.shape[-1])
-                bundle = build_step(cfg, cell, device, remat=False)
+                new_plan = plan_elastic_mesh(n, model_parallel=plan.shape[-1])
+                mesh, bundle = build(new_plan)
+                part = bundle.partitioner
+                specs = ST.state_specs(part, model) if part else None
+                ckpt.mesh = mesh
                 restore_step = ckpt.latest_step()
                 if restore_step is not None:
-                    state = ckpt.restore(state)
+                    state = ckpt.restore(state, shardings=specs)
                     it.close()
                     step = restore_step
                     it = PrefetchIterator(stream, start_step=step)
@@ -160,7 +198,7 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
 
             step += 1
             if ckpt_every > 0 and step % ckpt_every == 0:
-                ckpt.save(step, state)           # async write
+                ckpt.save(step, state, shardings=specs)   # async write
             if step % 5 == 0 or step == steps:
                 log(f"[train] step {step:5d} loss {loss:.4f} "
                     + (f"moe_aux {moe_aux[-1]:.4f} " if cfg.num_experts
@@ -174,10 +212,23 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
             if dev.type == "cuda" else None)
     warm = step_ms[1:]
     tok_s = batch * seq * len(warm) / (sum(warm) / 1e3) if warm else None
-    return {"arch": cfg.name, "losses": losses, "step_ms": step_ms,
-            "state": state, "start_step": start_step,
-            "events": controller.events, "plan": plan,
-            "tokens_per_s": tok_s, "peak_mem_gib": peak, "moe_aux": moe_aux}
+    out = {"arch": cfg.name, "losses": losses, "step_ms": step_ms,
+           "state": state, "start_step": start_step,
+           "events": controller.events, "plan": plan,
+           "tokens_per_s": tok_s, "peak_mem_gib": peak, "moe_aux": moe_aux}
+    if mesh is not None:
+        peaks = mesh.all_gather(torch.tensor([peak or 0.0],
+                                             dtype=torch.float64),
+                                mesh.axis_names, 0)
+        out["rank_peak_gib"] = peaks.tolist() if peak is not None else None
+        out["resident"] = ST.resident(state, part, model)
+        # every rank's fp64 sum of each of its leaves: a fingerprint of
+        # the whole state for bitwise comparisons across runs
+        out["state_digest"] = mesh.all_gather(torch.tensor(
+            [[float(t.double().sum()) for t in tree_leaves(state)]],
+            dtype=torch.float64), mesh.axis_names, 0).tolist()
+        out["state"] = None
+    return out
 
 
 def main(argv=None):
@@ -195,12 +246,17 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks on the model axis")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="ranks on the data axis")
     args = ap.parse_args(argv)
     return train(args.arch, reduced=args.reduced, steps=args.steps,
                  batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
                  ckpt_every=args.ckpt_every,
                  simulate_failure=args.simulate_failure, resume=args.resume,
-                 device=args.device, seed=args.seed)["losses"]
+                 device=args.device, seed=args.seed,
+                 model_parallel=args.model_parallel, dp=args.dp)["losses"]
 
 
 if __name__ == "__main__":

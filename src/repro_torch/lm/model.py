@@ -31,6 +31,17 @@ vision-language and encoder-decoder families (the port's counterpart of
   reference's default) recomputes each repeat of a stage in the backward
   (``torch.utils.checkpoint``, the counterpart of the reference's
   ``jax.checkpoint(nothing_saveable)``), and only while grad is enabled.
+* On a mesh (a resolver installed by ``launch/steps.py``; see
+  ``launch/partitioning.py``) the model sees each rank's shards: a
+  vocabulary-split ``embed`` looks up the rows it holds and all-reduces
+  (Megatron's masked lookup), attention and the dense MLP split their
+  heads and width (``nn/attention.py``, ``nn/mlp.py``), an MoE layer
+  gathers the batch's tokens over its axes and runs the whole dispatch,
+  the logits of a vocabulary-split head are all-gathered, and ``loss`` is
+  a vocabulary-parallel log-softmax (the max, the sum of exps and the
+  target logit each all-reduced over ``model``). ``init(keep=)`` draws
+  every leaf whole from the generator, one leaf at a time, and keeps the
+  rank's slice, so a mesh's parameters are the one device's bit for bit.
 """
 from __future__ import annotations
 
@@ -45,7 +56,8 @@ from repro_torch.nn import attention as A
 from repro_torch.nn import mlp as M
 from repro_torch.nn import moe as MOE
 from repro_torch.nn import ssm as S
-from repro_torch.nn.common import dense_init, init_device, rms_norm, softcap
+from repro_torch.nn.common import (dense_init, init_device, init_hook,
+                                   mesh_ctx, rms_norm, shard, softcap)
 from repro_torch.device import resolve_device
 
 # The load-balance loss's weight in ``loss`` (the reference's default).
@@ -58,6 +70,19 @@ def padded_vocab(v: int, multiple: int = 128) -> int:
 
 # the encoder's layer (whisper): self-attention, run without causal masking
 _ENCODER_LAYER = LayerSpec(kind="self_attn")
+
+
+def _insertion_paths(tree, prefix=()):
+    """``(path, leaf)`` in the order ``_build`` made the leaves (dicts in
+    insertion order)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _insertion_paths(v, prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _insertion_paths(v, prefix + (i,))
+    else:
+        yield "/".join(str(k) for k in prefix), tree
 
 
 def _take(tree, r: int):
@@ -131,13 +156,45 @@ class TransformerLM:
             }
         return params
 
-    def init(self, generator: Optional[torch.Generator] = None) -> Dict:
+    def init(self, generator: Optional[torch.Generator] = None, *,
+             keep=None) -> Dict:
         """Random parameters on the model's device, drawn from
         ``generator`` (a generator on that device; default: one seeded
-        with 0)."""
+        with 0). ``keep(path, leaf)``, where given, returns the part of
+        each whole leaf to keep (a rank's shard; ``path`` as
+        ``launch/partitioning.py`` spells it): it is applied as each leaf
+        is drawn, so no more than one whole leaf exists at a time, and the
+        values are those of ``keep=None``'s leaves."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        return self._build(generator)
+        if keep is None:
+            return self._build(generator)
+
+        def kept(path, t):
+            out = keep(path, t)
+            return out if out is t else out.clone()
+
+        drawn = []
+        with init_hook(lambda t: drawn.append(t) or t):
+            meta = self._build(None)
+        order = {id(t): i for i, t in enumerate(drawn)}
+        paths = [None] * len(drawn)
+        for path, t in _insertion_paths(meta):
+            if id(t) in order:
+                paths[order[id(t)]] = path
+        it = iter(paths)
+        with init_hook(lambda t: kept(next(it), t)):
+            params = self._build(generator)
+        done = set(paths)
+
+        def rest(tree, prefix=()):
+            if isinstance(tree, dict):
+                return {k: rest(v, prefix + (k,)) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [rest(v, prefix + (i,)) for i, v in enumerate(tree)]
+            path = "/".join(str(k) for k in prefix)
+            return tree if path in done else kept(path, tree)
+        return rest(params)
 
     def init_cache(self, batch: int, cache_len: int) -> List[List[Dict]]:
         """Zeroed caches per stage and pattern layer, stacked over the
@@ -212,14 +269,20 @@ class TransformerLM:
         if "mlp_norm" in p:
             h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
             if "moe" in p:
+                # a mesh runs the dispatch over the whole batch's tokens
+                ctx = mesh_ctx()
+                h, mine = (ctx.gather_batch(h) if ctx is not None
+                           else (h, None))
                 h, moe_aux = MOE.moe_ffn(p["moe"], h, cfg.num_experts,
                                          cfg.experts_per_tok,
                                          cfg.capacity_factor)
+                if mine is not None:
+                    h = mine(h)
                 aux = moe_aux["lb_loss"]
             else:
                 h = M.mlp(p["mlp"], h)
             x = x + h
-        return x, aux
+        return shard("activation", x), aux
 
     def _run_stage(self, stage: Stage, sp: Dict, x, positions, aux, *,
                    memory=None, caches=None, cache_index=None,
@@ -289,6 +352,23 @@ class TransformerLM:
         return x
 
     # ------------------------------------------------------------ forward
+    def _embed(self, table: torch.Tensor, tokens: torch.Tensor):
+        """The embedding rows of ``tokens``; on a vocabulary-split mesh the
+        rank looks up the rows it holds (zero elsewhere) and the ranks'
+        rows are summed over ``model``."""
+        ctx = mesh_ctx()
+        if ctx is None or not ctx.splits("embed"):
+            return table[tokens].to(self.dtype)
+        n = table.shape[0]
+        idx = tokens.long() - ctx.model_index() * n
+        mine = (idx >= 0) & (idx < n)
+        rows = table[idx.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
+        return ctx.reduce_model(rows, self.dtype)
+
+    def _head(self, params: Dict) -> torch.Tensor:
+        return (params["embed"].T if self.cfg.tie_embeddings
+                else params["lm_head"])
+
     def _backbone(self, params: Dict, tokens: torch.Tensor, mode: str,
                   caches, cache_index: Optional[int], frontend=None):
         cfg = self.cfg
@@ -299,10 +379,11 @@ class TransformerLM:
         start = cache_index if mode == "decode" else 0
         positions = torch.arange(start, start + tokens.shape[1],
                                  device=self.device)
-        x = params["embed"][tokens].to(self.dtype)
+        x = self._embed(params["embed"], tokens)
         if cfg.scale_embed:
             x = x * torch.tensor(float(cfg.d_model), dtype=torch.float32
                                  ).sqrt().to(self.dtype)
+        x = shard("activation", x)
         aux = (torch.zeros((), dtype=torch.float32, device=self.device)
                if mode == "train" else None)
         # decode reads the memory's K/V from the cache
@@ -333,10 +414,15 @@ class TransformerLM:
                               frontend)[0]
 
     def logits(self, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
-        head = (params["embed"].T if self.cfg.tie_embeddings
-                else params["lm_head"])
-        return softcap(torch.matmul(hidden, head).float(),
-                       self.cfg.logit_softcap)
+        """fp32, softcapped logits over the padded vocabulary (on a
+        vocabulary-split mesh each rank's part, all-gathered)."""
+        ctx = mesh_ctx()
+        split = ctx is not None and ctx.splits("lm_head")
+        if split:
+            hidden = ctx.to_model(hidden)
+        lg = softcap(torch.matmul(hidden, self._head(params)).float(),
+                     self.cfg.logit_softcap)
+        return ctx.gather_model(lg, -1) if split else lg
 
     def loss(self, params: Dict, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
@@ -357,13 +443,20 @@ class TransformerLM:
         if s % chunk:
             raise ValueError(f"sequence length {s} is not a multiple of the "
                              f"loss chunk {chunk}")
-        head = (params["embed"].T if self.cfg.tie_embeddings
-                else params["lm_head"])
+        head = self._head(params)
+        ctx = mesh_ctx()
+        split = ctx is not None and ctx.splits("lm_head")
+        if split:
+            hidden = ctx.to_model(hidden)
         total = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for c in range(0, s, chunk):
             lg = softcap(torch.matmul(hidden[:, c:c + chunk], head).float(),
                          self.cfg.logit_softcap)
-            gold = lg.gather(-1, targets[:, c:c + chunk, None])[..., 0]
+            tgt = targets[:, c:c + chunk]
+            if split:
+                total = total + torch.sum(_vocab_parallel_nll(ctx, lg, tgt))
+                continue
+            gold = lg.gather(-1, tgt[..., None])[..., 0]
             total = total + torch.sum(torch.logsumexp(lg, dim=-1) - gold)
         nll = total / (b * s)
         loss = nll + MOE_AUX_COEF * aux / max(1, self.cfg.num_layers)
@@ -392,6 +485,23 @@ class TransformerLM:
         hidden = self.backbone(params, token, mode="decode", caches=caches,
                                cache_index=int(index))
         return self.logits(params, hidden), caches
+
+
+def _vocab_parallel_nll(ctx, lg: torch.Tensor,
+                        targets: torch.Tensor) -> torch.Tensor:
+    """``logsumexp - gold`` per position from each rank's vocabulary part
+    ``lg [b, c, V / tp]``: the max, the sum of exps and the target's logit
+    each all-reduced over ``model`` (the max carries no gradient; the sums'
+    all-reduce is the identity backward, so each rank backpropagates
+    through its own part)."""
+    n = lg.shape[-1]
+    m = ctx.max_model(lg.detach().amax(-1))
+    se = ctx.reduce_model(torch.exp(lg - m[..., None]).sum(-1))
+    idx = targets - ctx.model_index() * n
+    mine = (idx >= 0) & (idx < n)
+    gold = lg.gather(-1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    gold = ctx.reduce_model(gold * mine.to(gold.dtype))
+    return m + torch.log(se) - gold
 
 
 def _convert(ref, want, path: str, device):

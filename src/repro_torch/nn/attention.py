@@ -11,8 +11,16 @@ step's K/V into the preallocated cache in place and attends over it; at
 prefill a cross-attention layer likewise writes the K/V of its memory into
 the preallocated cross cache.
 
-Not ported yet (``ROADMAP.md`` §1, the model axis): the sequence-sharded
-decode of a mesh (``_seqshard_decode_attention``).
+On a mesh whose resolver splits the heads (``launch/partitioning.py``)
+the block is Megatron's: the input goes through ``to_model`` (its gradient
+summed over ``model``), the rank projects and attends with its own query
+heads and the KV heads they group with (the split ones, or, where ``tp``
+does not divide the KV heads, its group's of the whole set it computes),
+and ``wo``'s partial sums are all-reduced (``rp_einsum``). The cache given
+holds the KV heads the rank computes.
+
+Not ported yet (``ROADMAP.md`` §1): the sequence-sharded decode of the
+reference's v-C (``_seqshard_decode_attention``).
 """
 from __future__ import annotations
 
@@ -22,7 +30,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.lm.config import LayerSpec, LMConfig
-from repro_torch.nn.common import dense_init, init_device, rms_norm, rope
+from repro_torch.nn.common import (dense_init, init_device, mesh_ctx,
+                                   rms_norm, rope, rp_einsum, shard)
 
 
 def init_attention(generator: Optional[torch.Generator], cfg: LMConfig,
@@ -86,8 +95,13 @@ def attention(
     ``cross_kv`` where it is given (the preallocated cache), else as new
     tensors (the reference's ``store_cross``).
     """
-    h = cfg.num_heads
     is_cross = memory is not None or cross_kv is not None
+    ctx = mesh_ctx()
+    split = ctx is not None and ctx.splits("wo")
+    if split:
+        x = ctx.to_model(x)
+        if memory is not None:
+            memory = ctx.to_model(memory)
     q = _project(x, params["wq"])
     if memory is not None:
         k = _project(memory, params["wk"])
@@ -126,10 +140,11 @@ def attention(
         k, v = kc, vc
         q_offset = int(cache_index)
 
+    if split:
+        lo, hi = ctx.kv_rows(k.shape[2])
+        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
     out = flash_attention(q, k, v, causal=causal, window=spec.window,
                           softcap=cfg.attn_softcap, q_offset=q_offset)
-    b, q_len = out.shape[:2]
-    wo = params["wo"]
-    out = torch.matmul(out.reshape(b, q_len, h * wo.shape[1]),
-                       wo.reshape(h * wo.shape[1], wo.shape[2]))
-    return out, new_cache
+    out = shard("attn_out_heads", out)
+    return rp_einsum("bqhk,hkd->bqd", out, params["wo"], leaf="wo"), \
+        new_cache

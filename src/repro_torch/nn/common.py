@@ -1,16 +1,126 @@
-"""Shared LM primitives: norms, RoPE, initializers, softcap (the port's copy
-of ``repro.nn.common``).
+"""Shared LM primitives: norms, RoPE, initializers, softcap and the
+sharding hooks (the port's copy of ``repro.nn.common``).
 
-The reference's sharding hooks (``shard``, ``mesh_ctx``) are not copied:
-on one device they do nothing. They belong to the model axis
-(``ROADMAP.md`` §1, partitioning), which the data-parallel slice
-(``repro_torch.dist``) did not need.
+The hooks: model code names its logical tensors (``shard``) and its
+row-parallel contractions (``rp_einsum``); the step installs a resolver
+(``sharding_context``, ``launch/partitioning.LogicalResolver``). With no
+resolver installed each hook is the identity it is in the reference, so
+every single-device path is unchanged. Under a resolver ``shard`` checks
+the local shape against the resolver's spec (it copies nothing), and
+``rp_einsum`` all-reduces its partial sums over ``model`` where the
+resolver splits the contracted weight. The bf16 wire of the reference's
+v-D (``bf16_reduce``) waits with the other perf variants (ROADMAP.md §1).
+
+``init_hook`` lets a caller see every ``dense_init`` draw as it is made
+(the sharded initialization keeps each rank's slice of one leaf at a
+time).
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+from typing import Callable, Optional
 
 import torch
+
+_SHARDING_CTX: contextvars.ContextVar[Optional[Callable]] = \
+    contextvars.ContextVar("repro_torch_sharding_ctx", default=None)
+_INIT_HOOK: contextvars.ContextVar[Optional[Callable]] = \
+    contextvars.ContextVar("repro_torch_init_hook", default=None)
+
+
+@contextlib.contextmanager
+def sharding_context(resolver: Callable[[str, torch.Tensor], torch.Tensor]):
+    token = _SHARDING_CTX.set(resolver)
+    try:
+        yield
+    finally:
+        _SHARDING_CTX.reset(token)
+
+
+def shard(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The active resolver's check of logical tensor ``name`` (the
+    identity without one)."""
+    resolver = _SHARDING_CTX.get()
+    if resolver is None:
+        return x
+    return resolver(name, x)
+
+
+def mesh_ctx():
+    """The active resolver object (mesh, axis and run-time metadata), or
+    ``None``."""
+    return _SHARDING_CTX.get()
+
+
+def _contract(pattern: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The two row-parallel contractions of the layers as the matmuls the
+    single-device path runs (``torch.einsum`` for any other pattern)."""
+    if pattern == "bqhk,hkd->bqd":
+        h, k, d = b.shape
+        return torch.matmul(a.reshape(a.shape[0], a.shape[1], h * k),
+                            b.reshape(h * k, d))
+    if pattern == "bsf,fd->bsd":
+        return a @ b
+    return torch.einsum(pattern, a, b)
+
+
+class _Partials(torch.autograd.Function):
+    """``a @ b`` of bf16 / fp16 matrices with fp32 output: the tensor-core
+    GEMM accumulates in fp32 and writes its partial sums without rounding
+    them (``torch.mm``'s ``out_dtype`` on CUDA; the CPU widens the operands,
+    whose products fp32 holds exactly). The backward runs in the operands'
+    dtype, as the single-device matmul's does."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return a.float() @ b.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (g @ b.t() if ctx.needs_input_grad[0] else None,
+                a.t() @ g if ctx.needs_input_grad[1] else None)
+
+
+def _partials(pattern: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The contraction's fp32 partial sums from operands in their own
+    dtype (fp32 ones contract as ``_contract`` does)."""
+    if a.dtype not in (torch.bfloat16, torch.float16):
+        return _contract(pattern, a, b)
+    if pattern == "bqhk,hkd->bqd":
+        b = b.reshape(-1, b.shape[-1])
+    elif pattern != "bsf,fd->bsd":
+        raise ValueError(f"no fp32-output form of {pattern!r}")
+    out = _Partials.apply(a.reshape(-1, b.shape[0]), b)
+    return out.reshape(a.shape[0], a.shape[1], b.shape[1])
+
+
+def rp_einsum(pattern: str, a: torch.Tensor, b: torch.Tensor, *,
+              leaf: str) -> torch.Tensor:
+    """Row-parallel einsum: where the resolver splits ``leaf`` (``"wo"``,
+    ``"w_down"``) over ``model``, the contraction's partial sums are taken
+    in fp32 from operands in the model dtype, all-reduced over ``model``
+    and cast to ``a``'s dtype (XLA's hoisted-fp32 all-reduce in the
+    reference); otherwise, and with no resolver, the plain contraction."""
+    ctx = mesh_ctx()
+    if ctx is None or not ctx.splits(leaf):
+        return _contract(pattern, a, b)
+    return ctx.reduce_model(_partials(pattern, a, b), a.dtype)
+
+
+@contextlib.contextmanager
+def init_hook(fn: Callable[[torch.Tensor], torch.Tensor]):
+    """Within the block, ``dense_init`` returns ``fn(weights)``."""
+    token = _INIT_HOOK.set(fn)
+    try:
+        yield
+    finally:
+        _INIT_HOOK.reset(token)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
@@ -57,7 +167,9 @@ def dense_init(shape, dtype: torch.dtype,
     fan = fan_in if fan_in is not None else shape[0]
     w = torch.randn(tuple(lead) + tuple(shape), generator=generator,
                     device=init_device(generator), dtype=torch.float32)
-    return w.mul_(1.0 / max(1, fan) ** 0.5).to(dtype)   # one fp32 transient
+    w = w.mul_(1.0 / max(1, fan) ** 0.5).to(dtype)      # one fp32 transient
+    hook = _INIT_HOOK.get()
+    return w if hook is None else hook(w)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

@@ -1,13 +1,15 @@
 """Dense gated-SiLU MLP (the port's copy of ``repro.nn.mlp``). The
 products stay ``torch.matmul``: the reference computes them outside any
-Pallas kernel."""
+Pallas kernel. Where the resolver splits the width over ``model`` the
+input goes through ``to_model`` and ``w_down``'s partial sums are
+all-reduced (``rp_einsum``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
 
-from repro_torch.nn.common import dense_init
+from repro_torch.nn.common import dense_init, mesh_ctx, rp_einsum, shard
 
 
 def init_mlp(generator: Optional[torch.Generator], d_model: int, d_ff: int,
@@ -21,5 +23,9 @@ def init_mlp(generator: Optional[torch.Generator], d_model: int, d_ff: int,
 
 
 def mlp(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    ctx = mesh_ctx()
+    if ctx is not None and ctx.splits("w_down"):
+        x = ctx.to_model(x)
     h = torch.nn.functional.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    h = shard("ffn_hidden", h)
+    return rp_einsum("bsf,fd->bsd", h, params["w_down"], leaf="w_down")

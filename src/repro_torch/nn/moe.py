@@ -11,9 +11,11 @@ einsums outside any Pallas kernel (its docstring's "feeds
 ``kernels/segment_mm.py``" is not what its code does).
 
 Differences by design: only the reference's dense dispatch
-(``_moe_ffn_dense``) is ported. Its expert-parallel path (``_moe_ffn_ep``,
-an all-to-all over the model axis) needs the sharding context, which comes
-with the mesh / partitioning item (``ROADMAP.md`` §1). The dispatch
+(``_moe_ffn_dense``) is ported. On a mesh the expert stacks are gathered
+whole and the batch's tokens gathered over its axes (``lm/model.py``), so
+every rank runs this dispatch; the expert-parallel path (``_moe_ffn_ep``,
+an all-to-all over the model axis, the reference's v-B) waits in
+``ROADMAP.md`` §1. The dispatch
 writes only the kept rows, with a plain index assignment: kept ``(expert,
 position)`` pairs are unique, so it needs neither the reference's
 accumulating scatter nor its trash row, and its backward is a gather (the
@@ -28,7 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.nn.common import dense_init
+from repro_torch.nn.common import dense_init, shard
 
 
 def init_moe(generator: Optional[torch.Generator], d_model: int, d_ff: int,
@@ -99,11 +101,12 @@ def moe_ffn(params: Dict, x: torch.Tensor, num_experts: int, k: int,
     sel = keep.reshape(-1).nonzero()[:, 0]
     buf = x.new_zeros((e, cap, d)).index_put(
         (idx_flat[sel], pos.reshape(-1)[sel]), xf[sel // k])
+    buf = shard("moe_dispatch", buf)
 
     # per-expert segment GEMMs (the typed linear layer)
     h = F.silu(torch.bmm(buf, params["w_gate"]))
-    h = h * torch.bmm(buf, params["w_up"])
-    y = torch.bmm(h, params["w_down"])                           # [E, cap, D]
+    h = shard("moe_hidden", h * torch.bmm(buf, params["w_up"]))
+    y = shard("moe_dispatch", torch.bmm(h, params["w_down"]))   # [E, cap, D]
 
     # combine: gather each (token, choice) row, fuse the gate scalar
     out = y[idx, torch.clamp(pos, max=cap - 1)]                  # [T, k, D]

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.lm.config import LMConfig
-from repro_torch.nn.common import dense_init, init_device, rms_norm
+from repro_torch.nn.common import dense_init, init_device, rms_norm, shard
 
 
 def init_mamba(generator: Optional[torch.Generator], cfg: LMConfig,
@@ -216,7 +216,7 @@ def mamba_forward(
     hpg = nh // g
     bmat = bc[..., :g * ns].reshape(bsz, l, g, ns).repeat_interleave(hpg, 2)
     cmat = bc[..., g * ns:].reshape(bsz, l, g, ns).repeat_interleave(hpg, 2)
-    xh = xin.reshape(bsz, l, nh, hd)
+    xh = shard("ssm_heads", xin.reshape(bsz, l, nh, hd))
     dt = F.softplus(dt.float() + params["dt_bias"])
     a = -torch.exp(params["A_log"])
 
