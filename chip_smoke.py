@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Card check of the PyTorch/CUDA port: build, kernel-vs-plain, serve, train,
 LM serving, online serving, data parallelism, LM training, the MoE and SSM
-LM families, cross-attention and the encoder.
+LM families, cross-attention and the encoder, the model axis and the perf
+variants.
 
     python3 chip_smoke.py            # one CUDA card; a few minutes
 
@@ -177,9 +178,10 @@ comparable across versions:
    HMMA / HGMMA count of each kernel's SASS from ``cuobjdump -sass``: the
    tensor-core prefill kernel must have some); (b)
    ``repro_torch.launch.serve`` at full width in bf16 (the port's own
-   init): gemma2-2b at batch 4, prompt 4096, gen 32 (26 layers; decode
-   positions past 4096 reach the local layers' window; softcap 50) and
-   qwen3-4b at batch 8, prompt 2048, gen 32 (qk-norm, hd 128, g = 4): K10
+   init), the depth cut to about half: gemma2-2b at batch 4, prompt 4096,
+   gen 32 (14 of 26 layers; decode positions past 4096 reach the local
+   layers' window; softcap 50) and qwen3-4b at batch 8, prompt 2048, gen
+   32 (18 of 36 layers; qk-norm, hd 128, g = 4): K10
    launched exactly ``num_layers x gen`` times and no other kernel, every
    logit finite, prefill ms, decode ms per token, tok/s, peak memory; (a)
    K10 against its plain version at the calls kept from (b) (the first
@@ -263,8 +265,8 @@ comparable across versions:
    the captured step returning its state buffers; (e) K5 captured at its
    counter buffer's size, replayed
    before and after the buffer is outgrown, against its plain version and
-   a launch outside the graph; (f) a stress run, twice: 200 captures of
-   the aifb-b64 step and 200 of the bgs-b1024 forward, each by a new
+   a launch outside the graph; (f) a stress run, twice: 100 captures of
+   the aifb-b64 step and 100 of the bgs-b1024 forward, each by a new
    executor held in a reference cycle, beside a host loader building and
    copying bgs-b1024 batches the whole time, a collection forced before
    every capture, every replay bitwise equal to its first call and no
@@ -443,20 +445,44 @@ comparable across versions:
    to each row's first token that differs, and the tokens the (1, 1)
    run's up to the first position where its top-2 gap is below the
    logits' difference; K10 launched 36 x 32 times on rank 0; (c) qwen3-4b
-   at full width, 8 of 36 layers, B 4, S 2048, remat off, trained 6 steps
-   on (1, 2): each of the six losses within 2e-3 of phase 18 (b)'s
+   at full width, 8 of 36 layers, B 4, S 2048, remat off, trained 4 steps
+   on (1, 2): each of the four losses within 2e-3 of phase 18 (b)'s
    (1, 1) run's, the losses and every rank's state digest bit for bit on
-   a second run, K10 launched 8 x 6 times on rank 0 in each. Each rank's
+   a second run, K10 launched 8 x 4 times on rank 0 in each. Each rank's
    peak GiB is logged beside the (1, 1) run's, and step, prefill and
    decode ms: gloo stages each all-reduce through the host, so these show
    correctness and memory, not speed.
+22. the perf variants' run time (``launch/partitioning.Partitioner.run_for``;
+   one launch of four gloo ranks, as phase 21): (a) reduced moonshot
+   with ``moe_ep`` (v-B), qwen3-4b and gemma2-2b with
+   ``seq_shard_kv_decode`` (v-C), a bf16 qwen3-4b with ``bf16_reduce``
+   (v-D) and qwen3-4b with ``seq_shard_activations`` (v-E), on (2, 2)
+   and (1, 2), against the CPU (v-B against ``nn.moe.moe_ffn_ep_plain``,
+   the one-device yardstick, at the mesh's shape; v-D within its
+   budget), each rank counting that its variant ran; the ms of one bf16
+   all-to-all; (b) moonshot 8 of 48 layers, bf16, B 4, prompt 2048, gen
+   16, served with ``moe_ep`` on (1, 2) against the yardstick on (1, 1):
+   the first MoE layer's prefill routings flipped only where the
+   yardstick's gap is within twice the token's probability change between
+   the runs (later layers' inputs move with every flip), then, with each
+   rank's experts forced to the yardstick's, logits within 0.2 up to a
+   row's first differing token; each rank's peak GiB; (c)
+   moonshot 2 layers, B 4, S 2048, trained 4 steps with ``moe_ep``, and
+   again with each rank's experts forced to the yardstick's, whose losses
+   are held within 2e-3 of the yardstick's (the unforced run's, moved by
+   routing flips, are reported); (d) qwen3-4b, 36 layers,
+   decoded with v-C against phase 21 (b)'s (1, 1) logits (0.2); (e)
+   qwen3-4b 8 of 36 layers trained 4 steps with v-D and v-E, its losses
+   within 2e-3 of phase 18 (b)'s. Step, prefill and decode ms are
+   records: gloo stages every collective through the host.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: phase
 6's op-by-op runs of all three models for K1-K5, K7 and K11, phases 9 and 10
 for K9 (the sampler launches K9 outside the executors),
 phase 11's tuned training and serving for K6 and K8, phase 12's serve runs,
 phase 18's full-width training, phase 19's full-width serving and
-training, phase 20's and phase 21's (b) and (c) on rank 0 for K10, each
+training, phase 20's, phase 21's (b) and (c) and phase 22's (b)-(e)
+on rank 0 for K10, each
 counted from 0 just before the run);
 the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3554,9 +3580,14 @@ def phase_tuning(torch, hector_torch, SK, TK, SO, L, R, ops, serve_rgnn,
 # phase 12: LM serving (prefill + KV-cache decode), K10 as the attention core
 # ---------------------------------------------------------------------------
 # (b)'s full-width serve runs through ``repro_torch.launch.serve``
+# full width, the depth cut to about half (to keep the whole run inside its
+# time as phases joined it): every layer of a config has the shapes of the
+# full depth's, so K10's kept and timed calls are the full depth's
 LM_SERVE_RUNS = (
-    ("gemma2-2b", dict(arch="gemma2-2b", batch=4, prompt_len=4096, gen=32)),
-    ("qwen3-4b", dict(arch="qwen3-4b", batch=8, prompt_len=2048, gen=32)))
+    ("gemma2-2b", dict(arch="gemma2-2b", repeats=7, batch=4, prompt_len=4096,
+                       gen=32)),
+    ("qwen3-4b", dict(arch="qwen3-4b", repeats=18, batch=8, prompt_len=2048,
+                      gen=32)))
 LM_DENSE = ("qwen3-4b", "gemma2-2b", "gemma3-4b", "qwen3-14b")
 # K10 against its plain version, (rtol, atol): fp32 at the reference's
 # tests/test_flash.py bound (test_flash_matches_ref_sweep); bf16 at one
@@ -3720,12 +3751,14 @@ def phase_lm_serve(torch, ops, serve, C, tag, run):
     """(b): one full-width serve run, bf16, the port's own init: K10 at
     exactly ``attention layers x gen`` launches and no other kernel, every
     step's logits finite; returns its numbers and the kept K10 calls."""
-    cfg = C.get_config(run["arch"])
+    cfg = lm_cut(C, run["arch"], run["repeats"])
     keep = lm_capture_points(cfg, run["gen"])
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with recorded_k10_calls(keep) as captured:
-        out = serve.serve(**run, device="cuda", keep_logits=True,
+        out = serve.serve(cfg, batch=run["batch"],
+                          prompt_len=run["prompt_len"], gen=run["gen"],
+                          device="cuda", keep_logits=True,
                           log=lambda m: log(f"[{tag}] {m}"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4302,7 +4335,7 @@ def phase_lm_profile(torch, C, TransformerLM, tag, run):
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = C.get_config(run["arch"])
+    cfg = lm_cut(C, run["arch"], run["repeats"])
     model = TransformerLM(cfg, device="cuda")
     params = model.init()
     b, plen, gen = run["batch"], run["prompt_len"], run["gen"]
@@ -4784,7 +4817,9 @@ REPEAT = dict(repeat_after=4, cache_blocks=64, cache_layouts=256,
               num_batches=12)
 CAPTURE_MODELS = ("rgat", "rgcn", "hgt")
 FRESH_BATCHES = 16
-STRESS_CAPTURES = 200
+# captures of each kind in a stress run (200 until the whole run outgrew its
+# time: 100 still crosses two full collections, at captures 0 and 50)
+STRESS_CAPTURES = 100
 BGS_STEPS = 5
 
 
@@ -5332,9 +5367,9 @@ class Cycle:
 
 
 def stress(torch, hector_torch, ops, card):
-    """Phase 14 (f): 200 captures of the aifb-b64 train step (over an
-    epoch's batches) and 200 of the bgs-b1024 served forward (over 8
-    batches), each by a new executor — a fresh key, called twice: op by
+    """Phase 14 (f): ``STRESS_CAPTURES`` captures of the aifb-b64 train
+    step (over an epoch's batches) and as many of the bgs-b1024 served
+    forward (over 8 batches), each by a new executor — a fresh key, called twice: op by
     op, then captured and replayed — held in a reference cycle and
     dropped after, beside a host loader (``Drain``) whose producer builds
     and copies bgs-b1024 batches the whole time. Every capture starts
@@ -7935,9 +7970,10 @@ MODEL_AXIS_GRAD_TOL = (1e-4, 1e-6)
 MODEL_AXIS_SERVE = dict(arch="qwen3-4b", batch=4, prompt_len=2048, gen=32,
                         mesh=(1, 2))
 MODEL_AXIS_SERVE_TOL = 0.2
-# (c): trained at full width, phase 18 (b)'s cut, on (1, 2)
+# (c): trained at full width, phase 18 (b)'s cut, on (1, 2) (4 steps: 6
+# until the whole run outgrew its time)
 MODEL_AXIS_TRAIN = dict(arch="qwen3-4b", repeats=8, batch=4, seq=2048,
-                        steps=6, mesh=(1, 2))
+                        steps=4, mesh=(1, 2))
 # every step's loss against phase 18 (b)'s first steps (the same cut, seed,
 # stream and optimizer on one device): about 10x the largest difference the
 # card gave over the six steps (1.89e-4 at step 6, wo / w_down partial sums
@@ -8282,9 +8318,578 @@ def phase_model_axis(torch, C, lm_serve, lm_training, card):
                                 lm_training["full"]["peak_mem_gib"], card)
     out["seconds"] = seconds
     out["launches"] = out["b"]["launches"] + out["c"]["launches"]
+    # phase 22 (d) holds v-C's decode to this (1, 1) run (not written out)
+    out["one"] = dict(logits=one_logits, tokens=one["tokens"])
     log(f"[phase 21] parts' seconds " + json.dumps(
         {k: round(v, 2) for k, v in seconds.items()}))
     return out
+
+# ---------------------------------------------------------------------------
+# phase 22: the perf variants' run time (v-B expert-parallel MoE, v-C
+# sequence-sharded decode, v-D's bf16 wire, v-E sequence-parallel
+# activations; gloo ranks on the one card)
+# ---------------------------------------------------------------------------
+# (a): reduced configs, each with its flags and dtype (None: fp32)
+VARIANT_CASES = (("moonshot-v1-16b-a3b", ("moe_ep",), None),
+                 ("qwen3-4b", ("seq_shard_kv_decode",), None),
+                 ("gemma2-2b", ("seq_shard_kv_decode",), None),
+                 ("qwen3-4b", ("bf16_reduce",), "bfloat16"),
+                 ("qwen3-4b", ("seq_shard_activations",), None))
+# v-D in (a), bf16 against the CPU's one device: each row-parallel sum
+# rounds its two partials to bf16 and sums them in bf16 (one device
+# rounds the sum once), about one bf16 ulp more a contraction; the card's
+# and the CPU's bf16 GEMMs round apart besides (the CPU test's budget)
+VARIANT_BF16_BUDGET = dict(logits=0.1, loss=2e-2)
+# (b): moonshot served with moe_ep on (1, 2) against the yardstick
+# (nn.moe.moe_ffn_ep_plain at (1, 2)'s shape) on (1, 1), the same card
+VARIANT_EP_SERVE = dict(arch="moonshot-v1-16b-a3b", repeats=8, batch=4,
+                        prompt_len=2048, gen=16, mesh=(1, 2))
+# (c): moonshot trained with moe_ep on (1, 2) against the yardstick's run
+VARIANT_EP_TRAIN = dict(arch="moonshot-v1-16b-a3b", repeats=2, batch=4,
+                        seq=2048, steps=4, mesh=(1, 2))
+# (d): qwen3-4b, all 36 layers, decoded with v-C on (1, 2) against phase 21
+# (b)'s (1, 1) logits (its prompts; the first ``gen`` steps)
+VARIANT_KV_SERVE = dict(arch="qwen3-4b", batch=4, prompt_len=2048, gen=16,
+                        mesh=(1, 2))
+# (e): qwen3-4b trained with v-D and v-E together on (1, 2) against phase
+# 18 (b)'s losses (the same cut, seed and stream on one device)
+VARIANT_DE_TRAIN = dict(arch="qwen3-4b", repeats=8, batch=4, seq=2048,
+                        steps=4, mesh=(1, 2))
+VARIANT_SERVE_TOL = 0.2
+VARIANT_LOSS_TOL = 2e-3
+
+
+@contextlib.contextmanager
+def ep_yardstick(tp, dp=1):
+    """Within the block the one-device model's MoE layers are
+    ``moe_ffn_ep_plain`` at a ``(dp, tp)`` mesh's shape."""
+    import functools
+
+    from repro_torch.nn import moe as MOE
+    dense = MOE.moe_ffn
+    MOE.moe_ffn = functools.partial(MOE.moe_ffn_ep_plain, tp=tp, dp=dp)
+    try:
+        yield
+    finally:
+        MOE.moe_ffn = dense
+
+
+def variant_case(C, arch, flags, dtype):
+    """(a)'s case for ``arch`` with ``flags``: the config, its train batch
+    and prompts (phase 21's), the CPU's parameters (seed 0) as numpy."""
+    import dataclasses
+
+    from repro_torch.lm.model import TransformerLM
+    from repro_torch.optim.adamw import tree_leaves, tree_like
+
+    cfg = C.get_reduced(arch)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    batch, prompts = model_axis_inputs(cfg)
+    p = TransformerLM(cfg, device="cpu").init()
+    return dict(cfg=cfg, batch=batch, prompts=prompts,
+                gen=MODEL_AXIS_SHAPE["gen"],
+                part_kwargs={f: True for f in flags},
+                params_np=tree_like(p, [t.float().numpy()
+                                        for t in tree_leaves(p)]))
+
+
+def variant_cpu(C, shape):
+    """(a)'s CPU one-device results at ``shape`` (v-B's through the
+    yardstick at that shape), in ``VARIANT_CASES``' order."""
+    import torch_mesh_probe as probe
+
+    out = []
+    for arch, flags, dtype in VARIANT_CASES:
+        case = variant_case(C, arch, flags, dtype)
+        kw = dict(batch=case["batch"], prompts=case["prompts"],
+                  gen=case["gen"], device="cpu", params_np=case["params_np"])
+        if "moe_ep" in flags:
+            with ep_yardstick(shape[1], shape[0]):
+                out.append(probe.one_device(case["cfg"], **kw))
+        else:
+            out.append(probe.one_device(case["cfg"], **kw))
+    return out
+
+
+def variant_all_to_all(device):
+    """The ms of one bf16 all-to-all over ``model`` (gloo through pinned
+    host memory), at (b)'s prefill dispatch buffer (moonshot: 64 experts,
+    top-6, 4096 tokens a slice, capacity 480: ``[2, 15360, 2048]``) and at
+    its decode's (``[2, 256, 2048]``)."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 2), ("data", "model"), device)
+    out = {}
+    for shape, reps in (((2, 15360, 2048), 3), ((2, 256, 2048), 20)):
+        x = torch.ones(shape, dtype=torch.bfloat16, device=mesh.device)
+        mesh.all_to_all(x, ("model",))
+        torch.cuda.synchronize(mesh.device)
+        tdist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            mesh.all_to_all(x, ("model",))
+        torch.cuda.synchronize(mesh.device)
+        out["x".join(map(str, shape))] = (time.perf_counter() - t0) / reps \
+            * 1e3
+    return out
+
+
+def variant_ranks(cases, launched, ep_serve, ep_forced, ep_train,
+                  ep_train_forced, kv_serve, de_train, device=None,
+                  log=print):
+    """A rank of phase 22's one launch of four ranks (rank 0's result is
+    kept): (a) ``torch_mesh_probe.variant_probe`` of every case on (2, 2);
+    then the world splits into two worlds of two ranks, as phase 21's, and
+    ranks 0-1 run (a) on (1, 2), the all-to-all's ms, (b) serving with
+    ``ep_serve`` (both ranks' routing of the first MoE layer's prefill
+    kept) and again with model rank ``m``'s experts forced to
+    ``ep_forced[m]``, (c) training with ``ep_train``, and again forced to
+    ``ep_train_forced[m]``, (d) serving with ``kv_serve`` and (e) training
+    with ``de_train``. Each part carries the rank's kernel launches
+    (counted from 0 in it) and its seconds."""
+    import datetime
+    import os
+    import tempfile
+
+    started = time.time() - launched
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.kernels import ops
+    import torch_mesh_probe as probe
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import train as lm_train
+
+    def counted(fn, **kw):
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(device=device, log=log, **kw)
+        return out, ops.launch_counts(), time.perf_counter() - t0
+
+    def probes(shape):
+        a = [counted(probe.variant_probe, shape=shape, **kw) for kw in cases]
+        return dict(results=[r for r, _, _ in a],
+                    seconds=[s for _, _, s in a],
+                    launches={k: sum(l[k] for _, l, _ in a) for k in a[0][1]})
+
+    out = dict(started=started, a={(2, 2): probes((2, 2))})
+    rank = tdist.get_rank()
+    tdist.barrier()
+    tdist.destroy_process_group()
+    tdist.init_process_group(
+        backend="gloo", world_size=2, rank=rank % 2,
+        init_method="file://" + os.path.join(
+            tempfile.gettempdir(),
+            f"chip_smoke-variants-{launched!r}-{rank // 2}"),
+        timeout=datetime.timedelta(seconds=MODEL_AXIS_TIMEOUT))
+    if rank >= 2:
+        return None
+    out["a"][(1, 2)] = probes((1, 2))
+    out["all_to_all_ms"] = variant_all_to_all(device)
+    with recorded_routing() as routes:
+        r, launches, seconds = counted(lm_serve.serve, **ep_serve)
+    first = [None, None]
+    tdist.all_gather_object(first, tuple(
+        t.cpu() if torch.is_tensor(t) else t for t in routes[0]))
+    del routes
+    out["b"] = dict(r, launches=launches, seconds=seconds, first=first)
+    with forced_routing(torch, ep_forced[rank]):
+        r, launches, seconds = counted(lm_serve.serve, **ep_serve)
+    out["b_forced"] = dict(r, launches=launches, seconds=seconds)
+    r, launches, seconds = counted(lm_train.train, **ep_train)
+    out["c"] = dict(r, launches=launches, seconds=seconds)
+    with forced_routing(torch, ep_train_forced[rank]):
+        r, launches, seconds = counted(lm_train.train, **ep_train)
+    out["c_forced"] = dict(r, launches=launches, seconds=seconds)
+    for part, fn, kw in (("d", lm_serve.serve, kv_serve),
+                         ("e", lm_train.train, de_train)):
+        r, launches, seconds = counted(fn, **kw)
+        out[part] = dict(r, launches=launches, seconds=seconds)
+    return out
+
+
+def variant_checks(torch, C, shape, got, want):
+    """(a): each case on the ``shape`` mesh against the CPU's one device
+    (v-B's yardstick), and the variant's path run on every rank. The bf16
+    case holds its loss and logits to ``VARIANT_BF16_BUDGET``, each row up
+    to a first differing token that must sit at a top-2 gap below the
+    logits' difference (the card's and the CPU's bf16 GEMMs round apart)."""
+    import numpy as np
+
+    out, calls = {}, 0
+    for (arch, flags, dtype), g, w in zip(VARIANT_CASES, got["results"],
+                                          want):
+        tag = f"phase 22 a {arch} {'+'.join(flags)} {shape}"
+        cfg = C.get_reduced(arch)
+        calls += attn_layers(cfg) * (2 + 1 + ("seq_shard_kv_decode" not in
+                                              flags) * (g["tokens"].shape[1]
+                                                        - 1))
+        check(all(np.array_equal(x, y) for x, y in
+                  zip(g["params"], w["params"])),
+              f"{tag}: the ranks' shards, gathered, are not the CPU's "
+              f"parameters bit for bit")
+        errs = {}
+        keys = () if dtype else (
+            ("grads", MODEL_AXIS_GRAD_TOL), ("state", (MODEL_AXIS_TOL,) * 2),
+            ("logits", (MODEL_AXIS_TOL,) * 2),
+            ("caches", (MODEL_AXIS_TOL,) * 2))
+        for key, tol in keys:
+            check(len(g[key]) == len(w[key]), f"{tag}: {key} count")
+            worst = 0.0
+            for i, (x, y) in enumerate(zip(g[key], w[key])):
+                d = float(np.abs(x - y).max())
+                check(x.shape == y.shape and bool(np.allclose(
+                    x, y, rtol=tol[0], atol=tol[1])),
+                    f"{tag}: {key} {i} {x.shape} off by {d:.3g}")
+                worst = max(worst, d)
+            errs[key] = worst
+        loss, wl = g["metrics"]["loss"], w["metrics"]["loss"]
+        check(abs(loss - wl) <= (VARIANT_BF16_BUDGET["loss"] if dtype
+                                 else MODEL_AXIS_TOL * abs(wl)),
+              f"{tag}: loss {loss!r} vs one device's {wl!r}")
+        if dtype:
+            errs["logits"], _, errs["first_token_diff"] = variant_logits(
+                torch, tag, g, w["logits"], w["tokens"], dict(
+                    batch=g["tokens"].shape[0], gen=g["tokens"].shape[1]),
+                VARIANT_BF16_BUDGET["logits"])
+        else:
+            check(np.array_equal(g["tokens"], w["tokens"]),
+                  f"{tag}: greedy tokens differ")
+        for res in (g["resident"], g["resident_after"]):
+            check(len(res) == shape[0] * shape[1] and all(
+                r[k]["bytes"] == r[k]["expected"] and r[k]["exact"]
+                for r in res for k in ("params", "moments")),
+                f"{tag}: resident bytes {res}")
+        ran = {"moe_ep": "exchange", "seq_shard_kv_decode": "kv_seq",
+               "seq_shard_activations": "seq_slice"}
+        for c in g["counts"]:
+            for flag, name in ran.items():
+                check((c[name] > 0) == (flag in flags),
+                      f"{tag}: {name} ran {c[name]} times on a rank")
+            if "moe_ep" in flags:
+                check(c["ep_experts"] == cfg.num_experts // shape[1],
+                      f"{tag}: an EP call read {c['ep_experts']} experts")
+            if "bf16_reduce" in flags:
+                check(c["all_reduce"].get("bfloat16", 0) == 2 * cfg.num_layers
+                      * (2 + 1 + g["tokens"].shape[1] - 1),
+                      f"{tag}: bf16 all-reduces {c['all_reduce']}")
+        out["+".join((arch,) + flags)] = dict(
+            loss=loss, cpu_loss=wl, max_abs_err=errs,
+            counts=g["counts"][0], resident=g["resident"])
+        log(f"[{tag}] {cfg.dtype if not dtype else dtype}: the CPU's params "
+            f"sharded, gathered back bit for bit; loss {loss:.6f} (CPU "
+            f"{wl:.6f}); max abs err "
+            + ", ".join(f"{k} {v}" for k, v in errs.items())
+            + f"; rank 0 ran {g['counts'][0]['exchange']} all-to-alls, "
+            f"{g['counts'][0]['kv_seq']} sequence-split decodes, "
+            f"{g['counts'][0]['seq_slice']} sequence slices, all-reduces "
+            f"{g['counts'][0]['all_reduce']}; resident params / moments per "
+            f"rank " + ", ".join(f"{r['params']['bytes']} / "
+                                 f"{r['moments']['bytes']} B"
+                                 for r in g["resident"])
+            + " = the sum of each rank's shard shapes")
+    check(got["launches"].get(K10, 0) == calls, f"phase 22 a {shape}: K10 "
+          f"launched {got['launches'].get(K10)} times on rank 0, expected "
+          f"{calls}")
+    log(f"[phase 22 a {shape}] K10 launched {calls} times on rank 0; the "
+        f"cases took " + ", ".join(f"{x:.1f}" for x in got["seconds"])
+        + " s")
+    return dict(configs=out, launches=calls, seconds=got["seconds"])
+
+
+def variant_logits(torch, tag, got, want_logits, want_tokens, run,
+                   tol=VARIANT_SERVE_TOL):
+    """Every row-step's logits within ``tol`` of the reference run's up to
+    the row's first differing token, which must sit where the reference's
+    top-2 gap is below the logits' difference. Returns the worst
+    difference, the row-steps held and each row's first differing step
+    (None: none)."""
+    logits = [torch.as_tensor(t).float() for t in got["logits"]]
+    want_logits = [torch.as_tensor(t).float() for t in want_logits]
+    worst, held, first_diff = 0.0, 0, []
+    for row in range(run["batch"]):
+        diff_at = None
+        for i in range(run["gen"]):
+            a, b = logits[i][row], want_logits[i][row]
+            check(bool(torch.isfinite(a).all()), f"{tag}: logits not finite")
+            d = float((a - b).abs().max())
+            worst = max(worst, d)
+            check(d <= tol, f"{tag}: row {row} step {i}: "
+                  f"logits differ from the reference's by {d:.4g}")
+            held += 1
+            if got["tokens"][row, i] != want_tokens[row, i]:
+                top = torch.topk(b, 2).values
+                gap = float(top[0] - top[1])
+                check(gap < d, f"{tag}: row {row} step {i}: token "
+                      f"{got['tokens'][row, i]} vs {want_tokens[row, i]} at "
+                      f"a top-2 gap {gap:.4g} above the logits' difference "
+                      f"{d:.4g}")
+                diff_at = i
+                break
+        first_diff.append(diff_at)
+    return worst, held, first_diff
+
+
+def variant_ep_serve(torch, C, got, forced, one, card):
+    """(b): moonshot served with ``moe_ep`` on (1, 2) against the
+    yardstick on (1, 1). Routing is discontinuous, bf16's rounding of the
+    split attention moves the router's inputs, and a flip in one layer
+    moves every later layer's inputs (attention mixes the tokens): so
+    both ranks' routings of the first MoE layer's prefill, where the two
+    runs' inputs differ by rounding only, are compared, and a token may
+    flip only where the yardstick's k-th / (k+1)-th probability gap is
+    within twice the largest change of its probabilities between the two
+    runs (what rounding can swap; in bf16 that change reaches past
+    ``ROUTER_MARGIN``, the fp32 bound, which is reported beside it); the
+    logits are held, as ``variant_logits`` holds them, on the run with
+    each rank's experts forced to the yardstick's (``forced``: EP's
+    dispatch, all-to-alls and combine on the same routing), as phase 19
+    reruns a flipped routing forced."""
+    run = VARIANT_EP_SERVE
+    tag = "phase 22 b"
+    cfg = lm_cut(C, run["arch"], run["repeats"])
+    n_moe = moe_layer_count(cfg)
+    want_k10 = attn_layers(cfg) * run["gen"]
+    for r in (got, forced):
+        check(r["launches"].get(K10, 0) == want_k10, f"{tag}: K10 launched "
+              f"{r['launches'].get(K10)} times on rank 0, expected "
+              f"{want_k10}")
+    routes = routing_flips(torch, got["first"], one["first"], tag)
+    moved, unexplained, above = 0.0, 0, 0
+    for (pg, ig, k), (pw, iw, _) in zip(got["first"], one["first"]):
+        flip = (ig.sort(-1).values != iw.sort(-1).values).any(-1)
+        top = pw.topk(k + 1, dim=-1).values
+        gap = top[:, k - 1] - top[:, k]
+        change = (pg - pw).abs().amax(-1)
+        moved = max(moved, float(change.max()))
+        unexplained += int((flip & (gap > 2 * change)).sum())
+        above += int((flip & (gap >= ROUTER_MARGIN)).sum())
+    routes.update(largest_probability_change=moved, above_margin=above)
+    check(unexplained == 0, f"{tag}: {unexplained} routings of the first "
+          f"MoE layer's prefill flipped at a gap wider than twice their "
+          f"probabilities' change (flips {routes['flips']}, gaps "
+          f"{routes['margins']})")
+    worst, held, first_diff = variant_logits(
+        torch, tag, forced, one["logits"], one["tokens"], run)
+    natural = [int(i) for i in (got["tokens"] != one["tokens"]).any(1)]
+    out = dict(prefill_ms=got["prefill_ms"],
+               decode_ms_per_token=got["decode_ms_per_token"],
+               tok_s=got["tok_s"], one_prefill_ms=one["prefill_ms"],
+               one_decode_ms_per_token=one["decode_ms_per_token"],
+               max_abs_logit_diff=worst, steps_held=held,
+               first_token_diff=first_diff, first_layer_routing=routes,
+               natural_rows_differing=natural, moe_layers=n_moe,
+               rank_peak_gib=got["rank_peak_gib"],
+               one_peak_gib=one["peak_mem_gib"], launches=2 * want_k10,
+               seconds=[got["seconds"], forced["seconds"]], **run)
+    log(f"[{tag}] {cfg.name} {cfg.num_layers} layers ({n_moe} MoE), "
+        f"{cfg.dtype}, B {run['batch']}, prompt {run['prompt_len']}, gen "
+        f"{run['gen']}, moe_ep on {run['mesh']}: the first MoE layer's "
+        f"prefill routing against the yardstick's (moe_ffn_ep_plain on (1, "
+        f"1)): {routes['flips']} flips of {run['batch'] * run['prompt_len']}"
+        f" tokens, at gaps {routes['margins']}, each within twice its "
+        f"probabilities' change (the largest {moved:.3g}); {above} at a gap "
+        f"past {ROUTER_MARGIN}; with the yardstick's experts forced, logits "
+        f"within {worst:.4g} over {held} row-steps (bound "
+        f"{VARIANT_SERVE_TOL}), first differing token per row {first_diff}; "
+        f"unforced, rows whose tokens differ {natural}; prefill "
+        f"{got['prefill_ms']:.3f} ms, decode {got['decode_ms_per_token']:.3f}"
+        f" ms a token (gloo through the host; (1, 1): "
+        f"{one['prefill_ms']:.3f} / {one['decode_ms_per_token']:.3f}); peak "
+        f"GiB per rank {got['rank_peak_gib']} against (1, 1)'s "
+        f"{one['peak_mem_gib']}; K10 launched {want_k10} times on rank 0 in "
+        f"each run; served in {got['seconds']:.1f} s (forced "
+        f"{forced['seconds']:.1f} s); {card}")
+    return out
+
+
+def variant_train(tag, run, cfg, got, want_losses, want_peak, card, what):
+    """(c) / (e): every step's loss within ``VARIANT_LOSS_TOL`` of the
+    one-device run's; K10 launched attention layers x steps on rank 0;
+    every rank's resident bytes its shards'."""
+    import numpy as np
+
+    losses = got["losses"]
+    check(len(losses) == run["steps"] and all(math.isfinite(x)
+                                              for x in losses),
+          f"{tag}: losses {losses}")
+    want_losses = list(want_losses[:run["steps"]])
+    diffs = [abs(x - y) for x, y in zip(losses, want_losses)]
+    check(len(want_losses) == run["steps"]
+          and max(diffs) <= VARIANT_LOSS_TOL, f"{tag}: losses {losses} vs "
+          f"{what} {want_losses} (bound {VARIANT_LOSS_TOL})")
+    want_k10 = attn_layers(cfg) * run["steps"]
+    check(got["launches"].get(K10, 0) == want_k10, f"{tag}: K10 launched "
+          f"{got['launches'].get(K10)} times on rank 0, expected {want_k10}")
+    check(all(r[k]["bytes"] == r[k]["expected"] and r[k]["exact"]
+              for r in got["resident"] for k in ("params", "moments")),
+          f"{tag}: resident bytes {got['resident']}")
+    ms = np.asarray(got["step_ms"][1:])
+    out = dict(losses=losses, want_losses=want_losses, loss_diffs=diffs,
+               step_ms=got["step_ms"], p50_ms=float(np.percentile(ms, 50)),
+               tokens_per_s=got["tokens_per_s"],
+               rank_peak_gib=got["rank_peak_gib"], one_peak_gib=want_peak,
+               resident=got["resident"], launches=want_k10,
+               seconds=got["seconds"], **run)
+    log(f"[{tag}] {cfg.name} {cfg.num_layers} layers, {cfg.dtype}, B "
+        f"{run['batch']}, S {run['seq']} on {run['mesh']}: losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, each within {max(diffs):.3g} "
+        f"of {what} (per step " + ", ".join(f"{d:.3g}" for d in diffs)
+        + f"; bound {VARIANT_LOSS_TOL}); step p50 {out['p50_ms']:.3f} ms "
+        f"(steps 2-{run['steps']}; gloo through the host), warm-up "
+        f"{got['step_ms'][0]:.3f} ms; peak GiB per rank "
+        f"{got['rank_peak_gib']} against one device's {want_peak}; resident "
+        f"params / moments per rank "
+        + ", ".join(f"{r['params']['bytes']} / {r['moments']['bytes']} B"
+                    for r in got["resident"])
+        + f" = the sum of each rank's shard shapes; K10 launched {want_k10} "
+        f"times on rank 0; the run took {got['seconds']:.1f} s; {card}")
+    return out
+
+
+def phase_variants(torch, C, lm_serve, lm_train, lm_training, model_axis,
+                   card):
+    """Phase 22: (a) reduced configs with each variant on (2, 2) and (1, 2)
+    against the CPU; (b) moonshot served and (c) trained with ``moe_ep``
+    against the yardstick; (d) qwen3-4b decoded with v-C against phase 21
+    (b)'s (1, 1) logits; (e) qwen3-4b trained with v-D and v-E against
+    phase 18 (b)'s losses; all in one launch of four ranks
+    (``variant_ranks``). K10's launches are (b)'s to (e)'s on rank 0."""
+    import tempfile
+
+    from repro_torch.launch.mesh import launch_ranks
+
+    seconds, out = {}, {}
+    t0 = time.perf_counter()
+    cases = [variant_case(C, *c) for c in VARIANT_CASES]
+    want = {shape: variant_cpu(C, shape) for shape in MODEL_AXIS_MESHES}
+    seconds["cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ep = VARIANT_EP_SERVE
+    ep_cfg = lm_cut(C, ep["arch"], ep["repeats"])
+    serve_kw = dict(batch=ep["batch"], prompt_len=ep["prompt_len"],
+                    gen=ep["gen"], keep_logits=True, seed=0)
+    with ep_yardstick(2), recorded_routing() as routes:
+        one = lm_serve.serve(ep_cfg, device="cuda",
+                             log=lambda m: log(f"[phase 22 b] {m}"),
+                             **serve_kw)
+    one["logits"] = [t.float().cpu() for t in one["logits"]]
+    # the first MoE layer's prefill, both slices; each model rank's calls
+    one["first"] = [(p.cpu(), idx.cpu(), k) for p, idx, k in routes[:2]]
+    ep_forced = [[(None, idx.cpu(), k) for _, idx, k in routes[m::2]]
+                 for m in (0, 1)]
+    del routes
+    torch.cuda.empty_cache()
+    et = VARIANT_EP_TRAIN
+    et_cfg = lm_cut(C, et["arch"], et["repeats"])
+    train_kw = dict(steps=et["steps"], batch=et["batch"], seq=et["seq"],
+                    ckpt_every=0, seed=0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-variants-") as tmp, \
+            ep_yardstick(2), recorded_routing() as routes:
+        one_train = lm_train.train(et_cfg, device="cuda", ckpt_dir=tmp,
+                                   log=lambda m: log(f"[phase 22 c] {m}"),
+                                   **train_kw)
+    one_train.pop("state")
+    et_forced = [[(None, idx.cpu(), k) for _, idx, k in routes[m::2]]
+                 for m in (0, 1)]
+    del routes
+    torch.cuda.empty_cache()
+    seconds["(1, 1)"] = time.perf_counter() - t0
+    kv, de = VARIANT_KV_SERVE, VARIANT_DE_TRAIN
+    de_cfg = lm_cut(C, de["arch"], de["repeats"])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-variants-") as tmp:
+        got = launch_ranks(variant_ranks, 4, "cuda", dict(
+            cases=cases, launched=time.time(),
+            ep_serve=dict(serve_kw, arch=ep_cfg, model_parallel=2, dp=1,
+                          part_kwargs=dict(moe_ep=True)),
+            ep_forced=ep_forced,
+            ep_train=dict(train_kw, cfg_or_arch=et_cfg, ckpt_dir=tmp + "/c",
+                          model_parallel=2, dp=1,
+                          part_kwargs=dict(moe_ep=True)),
+            ep_train_forced=et_forced,
+            kv_serve=dict(arch=C.get_config(kv["arch"]), batch=kv["batch"],
+                          prompt_len=kv["prompt_len"], gen=kv["gen"],
+                          keep_logits=True, seed=0, model_parallel=2, dp=1,
+                          part_kwargs=dict(seq_shard_kv_decode=True)),
+            de_train=dict(cfg_or_arch=de_cfg, steps=de["steps"],
+                          batch=de["batch"], seq=de["seq"], ckpt_every=0,
+                          ckpt_dir=tmp + "/e", seed=0, model_parallel=2,
+                          dp=1, part_kwargs=dict(bf16_reduce=True,
+                                                 seq_shard_activations=True))),
+            timeout_s=MODEL_AXIS_TIMEOUT)
+    seconds["ranks"] = time.perf_counter() - t0
+    log(f"[phase 22] rank 0 started {got['started']:.1f} s after the "
+        f"launch of four ranks; the launch took {seconds['ranks']:.1f} s; "
+        f"one bf16 all-to-all over model on rank 0 (gloo through pinned "
+        f"host memory): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in got["all_to_all_ms"].items()))
+    out["a"] = {str(shape): variant_checks(torch, C, shape, got["a"][shape],
+                                           want[shape])
+                for shape in MODEL_AXIS_MESHES}
+    out["all_to_all_ms"] = got["all_to_all_ms"]
+    out["b"] = variant_ep_serve(torch, C, got["b"], got["b_forced"], one,
+                                card)
+    # (c): routing flips move bf16 MoE training's losses (the natural run's
+    # are reported); the run with the yardstick's experts forced is held
+    out["c"] = variant_train("phase 22 c", et, et_cfg, got["c_forced"],
+                             one_train["losses"], one_train["peak_mem_gib"],
+                             card, "the yardstick's (1, 1) run's, its "
+                             "experts forced on the ranks,")
+    natural = got["c"]["losses"]
+    out["c"].update(natural_losses=natural, natural_step_ms=got["c"][
+        "step_ms"], natural_seconds=got["c"]["seconds"],
+        launches=out["c"]["launches"] + got["c"]["launches"].get(K10, 0))
+    log(f"[phase 22 c] unforced, the losses {natural}, each within "
+        f"{max(abs(x - y) for x, y in zip(natural, one_train['losses'])):.3g}"
+        f" of the yardstick's (the routing flips as in (b)); step ms "
+        f"{got['c']['step_ms']}")
+    # (d): v-C against phase 21 (b)'s (1, 1) run, its first gen steps
+    tag = "phase 22 d"
+    kv_cfg = C.get_config(kv["arch"])
+    d = got["d"]
+    ref = model_axis["one"]
+    check(d["tokens"].shape == (kv["batch"], kv["gen"]), f"{tag}: tokens")
+    want_k10 = attn_layers(kv_cfg)        # the prefill; v-C decodes in torch
+    check(d["launches"].get(K10, 0) == want_k10, f"{tag}: K10 launched "
+          f"{d['launches'].get(K10)} times on rank 0, expected {want_k10}")
+    worst, held, first_diff = variant_logits(
+        torch, tag, d, ref["logits"], ref["tokens"], kv)
+    out["d"] = dict(prefill_ms=d["prefill_ms"],
+                    decode_ms_per_token=d["decode_ms_per_token"],
+                    tok_s=d["tok_s"], max_abs_logit_diff=worst,
+                    steps_held=held, first_token_diff=first_diff,
+                    rank_peak_gib=d["rank_peak_gib"], launches=want_k10,
+                    seconds=d["seconds"], **kv)
+    log(f"[{tag}] {kv_cfg.name} {kv_cfg.num_layers} layers, "
+        f"{kv_cfg.dtype}, B {kv['batch']}, prompt {kv['prompt_len']}, gen "
+        f"{kv['gen']}, seq_shard_kv_decode on {kv['mesh']}: logits within "
+        f"{worst:.4g} of phase 21 b's (1, 1) run over {held} row-steps "
+        f"(bound {VARIANT_SERVE_TOL}); first differing token per row "
+        f"{first_diff}; prefill {d['prefill_ms']:.3f} ms, decode "
+        f"{d['decode_ms_per_token']:.3f} ms a token (phase 21 b's (1, 2): "
+        f"{model_axis['b']['prefill_ms']:.3f} / "
+        f"{model_axis['b']['decode_ms_per_token']:.3f}); peak GiB per rank "
+        f"{d['rank_peak_gib']}; K10 launched {want_k10} times on rank 0 "
+        f"(the prefill); served in {d['seconds']:.1f} s; {card}")
+    out["e"] = variant_train("phase 22 e", de, de_cfg, got["e"],
+                             lm_training["full"]["losses"],
+                             lm_training["full"]["peak_mem_gib"], card,
+                             "phase 18 b's (1, 1) run's")
+    log(f"[phase 22 e] step p50 {out['e']['p50_ms']:.3f} ms with v-D and "
+        f"v-E against phase 21 c's {model_axis['c']['p50_ms']:.3f} ms on "
+        f"(1, 2) (records, not claims)")
+    out["seconds"] = seconds
+    out["launches"] = sum(out[k]["launches"] for k in "bcde")
+    log(f"[phase 22] parts' seconds " + json.dumps(
+        {k: round(v, 2) for k, v in seconds.items()}))
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -8466,6 +9071,13 @@ def main(argv=None) -> int:
         model_axis = phase_model_axis(torch, C, lm_serve, lm_training, card)
         seconds["phase 21"] = time.perf_counter() - t0
         log(f"[phase 21] {seconds['phase 21']:.2f} s")
+        log("[phase 22] start")
+        t0 = time.perf_counter()
+        variants = phase_variants(torch, C, lm_serve, lm_train, lm_training,
+                                  model_axis, card)
+        model_axis.pop("one")
+        seconds["phase 22"] = time.perf_counter() - t0
+        log(f"[phase 22] {seconds['phase 22']:.2f} s")
         # the main path's launches, each run from counts set to 0 just
         # before it, each run op by op so that every kernel the card runs
         # goes through its wrapper: phase 6 of every model (K1-K5, K7),
@@ -8475,8 +9087,8 @@ def main(argv=None) -> int:
         # (K10), phase 18's full-width training (K10), phase 19's
         # full-width MoE / SSM serving and training (K10), phase 20's
         # full-width cross-attention serving and training (K10), and phase
-        # 21's full-width serving and training on the (1, 2) mesh (K10, on
-        # rank 0, counted there)
+        # 21's full-width serving and training on the (1, 2) mesh and phase
+        # 22's with the perf variants (K10, on rank 0, counted there)
         launches = {name: sum(t["launches"][name] for t in train.values())
                     for name in KERNELS}
         launches[K9] = (sum(r["launches"][K9] for r in device_serve.values())
@@ -8484,7 +9096,7 @@ def main(argv=None) -> int:
         launches.update(tuning["launches"])
         launches[K10] = (lm["launches"] + lm_training["launches"]
                          + moe_ssm["launches"] + cross["launches"]
-                         + model_axis["launches"])
+                         + model_axis["launches"] + variants["launches"])
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on the main path")
     except Failed as e:
@@ -8525,7 +9137,7 @@ def main(argv=None) -> int:
             device_train=device_train, tuning=tuning, lm=lm, obs=obs_out,
             capture=capture, features=features, online=online, dist=dist,
             lm_training=lm_training, moe_ssm=moe_ssm, cross=cross,
-            model_axis=model_axis,
+            model_axis=model_axis, variants=variants,
             split_timed=split["timed"], k5_sass=k5_sass,
             gemm_ptxas=gemm_ptxas,
             torch=torch.__version__,

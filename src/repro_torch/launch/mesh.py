@@ -10,10 +10,19 @@ port has one process per rank, joined by ``torch.distributed``.
   devices (rank = ``d * tp + m`` on ``("data", "model")``). It carries the
   axis sizes, this rank's coordinate, its device and one process group per
   set of axes (the ranks that share every other coordinate), and the
-  collectives the LM run time uses: ``all_reduce``, ``all_gather``, and
-  the autograd-aware ``copy_to`` (Megatron's f), ``reduce_from`` (g, in
-  fp32) and ``gather_from`` (gradient reduce-scattered). The rules of
-  ``launch/partitioning.py`` read only its ``axis_names`` and ``shape``.
+  collectives the LM run time uses: ``all_reduce`` (sum or max),
+  ``all_gather``, ``all_to_all``, and the autograd-aware pairs, each
+  backward the forward's transpose: ``copy_to`` (Megatron's f; gradient
+  all-reduced), ``reduce_from`` (g: a sum in fp32, or in the model dtype
+  on v-D's wire; identity backward), ``gather_from`` (gradient
+  reduce-scattered: for consumers whose gradients are partial),
+  ``gather_replicated`` (gradient sliced: for replicated consumers),
+  ``slice_to`` (this rank's piece; gradient all-gathered),
+  ``reduce_scatter_from`` (gradient all-gathered) and ``exchange`` (an
+  all-to-all; gradient the reverse all-to-all). A reduce-scatter is an
+  all-reduce of which the rank keeps its piece (gloo's reduce-scatter is
+  not used). The rules of ``launch/partitioning.py`` read only its
+  ``axis_names`` and ``shape``.
   A mesh of one rank needs no process group.
 * ``make_production_mesh(multi_pod)`` gives the reference's ``(16, 16)``
   and ``(2, 16, 16)`` shapes as a ``MeshShape``, touching no device.
@@ -248,6 +257,25 @@ class RankMesh:
         k = t.shape[dim] // n
         return t.narrow(dim, self.index(axes) * k, k)
 
+    def all_to_all(self, t: torch.Tensor, axes):
+        """``t``'s dimension 0 in equal chunks, chunk ``j`` sent to the
+        rank at position ``j`` of ``axes``: the chunks received, in the
+        senders' order (``t`` itself on one rank)."""
+        axes = self._axes(axes)
+        if self.group_size(axes) == 1:
+            return t
+        src = _host(t.detach(), self.backend)
+        out = torch.empty_like(src)
+        tdist.all_to_all_single(out, src, group=self.groups[axes])
+        return out.to(t.device)
+
+    def reduce_scatter(self, t: torch.Tensor, axes, dim: int):
+        """The sum of ``t`` over ``axes``, this rank's piece along
+        ``dim`` (an all-reduce, then the piece)."""
+        if self.group_size(axes) == 1:
+            return t
+        return self.local(self.all_reduce(t, axes), axes, dim).contiguous()
+
     def copy_to(self, x: torch.Tensor, axes):
         """Identity forward; the gradient summed over ``axes`` (in fp32,
         cast back)."""
@@ -255,19 +283,51 @@ class RankMesh:
             return x
         return _CopyTo.apply(x, self, axes)
 
-    def reduce_from(self, x: torch.Tensor, axes, dtype=None):
-        """The sum over ``axes`` in fp32, cast to ``dtype`` (default
-        ``x``'s); identity backward."""
+    def reduce_from(self, x: torch.Tensor, axes, dtype=None,
+                    wire=torch.float32):
+        """The sum over ``axes`` in ``wire``'s dtype (fp32 by default),
+        cast to ``dtype`` (default ``x``'s); identity backward."""
         dtype = dtype or x.dtype
         if self.group_size(axes) == 1:
             return x.to(dtype)
-        return _ReduceFrom.apply(x.float(), self, axes).to(dtype)
+        return _ReduceFrom.apply(x.to(wire), self, axes).to(dtype)
+
+    def reduce_scatter_from(self, x: torch.Tensor, axes, dim: int,
+                            dtype=None, wire=torch.float32):
+        """``reduce_from``'s sum, this rank's piece along ``dim``; the
+        gradient all-gathered."""
+        dtype = dtype or x.dtype
+        if self.group_size(axes) == 1:
+            return x.to(dtype)
+        return _ReduceScatter.apply(x.to(wire), self, axes, dim).to(dtype)
 
     def gather_from(self, x: torch.Tensor, axes, dim: int):
-        """All-gather along ``dim``; the gradient reduce-scattered back."""
+        """All-gather along ``dim``; the gradient reduce-scattered back
+        (every rank's consumer contributes part of it)."""
         if self.group_size(axes) == 1:
             return x
         return _GatherFrom.apply(x, self, axes, dim)
+
+    def gather_replicated(self, x: torch.Tensor, axes, dim: int):
+        """All-gather along ``dim``; the gradient sliced back (every rank
+        holds the same whole gradient)."""
+        if self.group_size(axes) == 1:
+            return x
+        return _GatherReplicated.apply(x, self, axes, dim)
+
+    def slice_to(self, x: torch.Tensor, axes, dim: int):
+        """This rank's piece of ``x`` along ``dim`` (storage of its own);
+        the gradient all-gathered."""
+        if self.group_size(axes) == 1:
+            return x
+        return _SliceTo.apply(x, self, axes, dim)
+
+    def exchange(self, x: torch.Tensor, axes):
+        """``all_to_all`` under autograd: the gradient goes back by the
+        reverse all-to-all (the same exchange)."""
+        if self.group_size(axes) == 1:
+            return x
+        return _Exchange.apply(x, self, axes)
 
 
 class _CopyTo(torch.autograd.Function):
@@ -292,6 +352,17 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.reduce_scatter(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g, ctx.axes, ctx.dim), None, None, None
+
+
 class _GatherFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes, dim):
@@ -300,9 +371,42 @@ class _GatherFrom(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = ctx.mesh.all_reduce(g.float(), ctx.axes).to(g.dtype)
+        return ctx.mesh.reduce_scatter(g.float(), ctx.axes, ctx.dim).to(
+            g.dtype), None, None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
         return ctx.mesh.local(g, ctx.axes, ctx.dim).contiguous(), None, \
             None, None
+
+
+class _SliceTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.local(x, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g, ctx.axes, ctx.dim), None, None, None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh.all_to_all(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_to_all(g.contiguous(), ctx.axes), None, None
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str],

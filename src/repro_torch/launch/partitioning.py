@@ -39,9 +39,28 @@ on anything but the batch or the split KV heads) and its gradient sliced
 back. The batch runs split over ``batch_dims(B)``; where that is ``None``
 every rank runs the whole batch.
 
-The perf variants' run time waits: ``seq_shard_kv_decode`` (v-C),
-``moe_ep`` (v-B), ``bf16_reduce`` (v-D) and ``seq_shard_activations``
-(v-E) are ported as rules only; ``runtime_check`` refuses them.
+**The perf variants** (``Run``: what a step takes at its shapes, decided
+once a step call by ``run_for``, where the reference decides in the
+layers). ``moe_ep`` (v-B): where the reference takes its EP branch
+(``ep_dup``), the expert stacks are used as stored, ``"ep"``: each rank
+runs its ``E / tp`` experts on the tokens an all-to-all brings it (FSDP
+over ``data`` still gathered); with fewer experts than ranks (``dup``
+copies of each) they are gathered whole over ``model`` and each copy's
+gradient summed (``"partial"``); the router's gradient is summed over
+``model`` (each rank routes its own slice of the tokens). Elsewhere the
+dense dispatch runs on gathered experts, as the reference falls back.
+``seq_shard_kv_decode`` (v-C, decode only, a cache length ``tp``
+divides): the self-attention cache is used split on the sequence, every
+rank attends with every head and ``wo`` splits on heads where it is
+stored so; ``wq`` / ``wk`` / ``wv`` project
+the heads they hold, split as stored, and the step's q, k and v are
+all-gathered over heads. ``seq_shard_activations`` (v-E,
+where the reference's ``"activation"`` spec puts ``model`` on the
+sequence): the token stream between blocks is the rank's slice of the
+sequence, and the norms applied to it sum their gradients over
+``model``. ``bf16_reduce`` (v-D) changes no plan: ``rp_einsum``'s
+partial sums ride the wire in the model dtype. On one rank every flag is
+the identity.
 """
 from __future__ import annotations
 
@@ -167,6 +186,21 @@ def map_with_path(fn, tree):
 # the Megatron pairs: the (unstacked) dimension each leaf splits its math on
 _SPLIT_DIM = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "embed": 0, "lm_head": 1}
 _DENSE_MLP_DIM = {"w_gate": 1, "w_up": 1, "w_down": 0}
+# the norms of the token stream (v-E: applied to the rank's slice of it)
+_STREAM_NORMS = ("norm", "mlp_norm", "cross_norm", "final_norm")
+_EXPERTS = ("w_gate", "w_up", "w_down")
+
+
+@dataclasses.dataclass(frozen=True)
+class Run:
+    """The perf variants one step call takes at its shapes: ``ep`` the
+    copies of each expert on v-B's EP branch (0: the dense dispatch),
+    ``seq`` v-E's split token stream, ``kv_seq`` v-C's decode over the
+    sequence-split cache."""
+
+    ep: int = 0
+    seq: bool = False
+    kv_seq: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -401,13 +435,60 @@ class Partitioner:
         return self._tree_specs(cache_tree, self.cache_spec)
 
     # ------------------------------------------------------------ logical
-    def logical_resolver(self, batch: Optional[int] = None
+    def logical_resolver(self, batch: Optional[int] = None,
+                         seq: Optional[int] = None,
+                         cache_len: Optional[int] = None
                          ) -> "LogicalResolver":
         """Resolver installed via ``nn.common.sharding_context``: callable
         (the shape check by logical name) and carrying the mesh / axis
-        metadata and the run-time collectives the layers need. ``batch``:
-        the global batch of the step it runs (the shape check needs it)."""
-        return LogicalResolver(self, batch)
+        metadata, the step's ``Run`` and the run-time collectives the
+        layers need. ``batch`` / ``seq``: the global batch and token length
+        of the step it runs (the shape check needs the batch; the variants
+        both); ``cache_len``: a decode's cache length."""
+        run = (self.run_for(batch, seq, cache_len)
+               if batch is not None and seq is not None else Run())
+        return LogicalResolver(self, batch, run)
+
+    # ------------------------------------------------------------ variants
+    def ep_dup(self, batch: int, seq: int) -> int:
+        """v-B at ``batch`` x ``seq`` tokens: each expert's copies on the
+        reference's EP branch (``moe_ep``, ``E % tp == 0`` or ``tp % E ==
+        0``, a sharded batch, ``tp`` dividing the rank's tokens:
+        ``repro/nn/moe.py:57-62``, ``:163-164``); 0 where it falls back to
+        the dense dispatch."""
+        e, tp = self.cfg.num_experts, self.tp
+        if not (self.moe_ep and e and (e % tp == 0 or tp % e == 0)):
+            return 0
+        dpb = self.batch_dims(batch)
+        if dpb is None or (batch // _prod(self.mesh.shape[a] for a in dpb)
+                           * seq) % tp:
+            return 0
+        return 1 if e % tp == 0 else tp // e
+
+    def seq_split(self, batch: int, seq: int) -> bool:
+        """v-E: whether the ``[batch, seq, D]`` token stream runs split
+        over ``model`` on the sequence (the reference's ``"activation"``
+        spec puts ``model`` there)."""
+        if not self.seq_shard_activations or self.tp == 1:
+            return False
+        spec = self._resolve_fn()("activation",
+                                  (batch, seq, self.cfg.d_model))
+        return spec[1] == self.tp_axis
+
+    def kv_seq_split(self, cache_len: int) -> bool:
+        """v-C: whether a decode attends over a cache of ``cache_len``
+        split over ``model`` on the sequence (``cache_spec``'s rule)."""
+        return (self.seq_shard_kv_decode and self.mode == "decode"
+                and self.tp > 1 and cache_len % self.tp == 0)
+
+    def run_for(self, batch: int, seq: int,
+                cache_len: Optional[int] = None) -> Run:
+        """The variants a step of ``batch`` x ``seq`` tokens (a decode's:
+        one token against ``cache_len``) takes."""
+        return Run(ep=self.ep_dup(batch, seq),
+                   seq=self.seq_split(batch, seq),
+                   kv_seq=(cache_len is not None and seq == 1
+                           and self.kv_seq_split(cache_len)))
 
     def _resolve_fn(self):
         tp, ax = self.tp, self.tp_axis
@@ -473,17 +554,6 @@ class Partitioner:
         return resolve
 
     # ------------------------------------------------------------ run time
-    def runtime_check(self) -> None:
-        """Raise for the flags whose run time is not ported (the rules
-        are)."""
-        for flag, item in (("seq_shard_kv_decode", "v-C"), ("moe_ep", "v-B"),
-                           ("bf16_reduce", "v-D"),
-                           ("seq_shard_activations", "v-E")):
-            if getattr(self, flag):
-                raise NotImplementedError(
-                    f"{flag}=True ({item}) has rules but no run time yet "
-                    f"(ROADMAP.md §1)")
-
     def _inner(self, name: str) -> Tuple[int, ...]:
         """The unstacked shape of an attention or dense-MLP leaf of this
         config."""
@@ -532,12 +602,25 @@ class Partitioner:
         vp = -(-self.cfg.vocab_size // 128) * 128
         return self.tp > 1 and vp % self.tp == 0
 
-    def _model_use(self, path: str, spec: list) -> Tuple[str, Optional[int]]:
+    def _model_use(self, path: str, spec: list,
+                   run: Run) -> Tuple[str, Optional[int]]:
         """``(decision, split dim)`` over ``model`` for one leaf."""
         parts = path.split("/")
         leaf = parts[-1]
         on_model = self.tp_axis in spec
         block = parts[-2] if len(parts) > 1 else ""
+        if run.seq and leaf in _STREAM_NORMS and parts[0] != "encoder":
+            return "partial", None
+        if run.ep and block == "moe":
+            if leaf == "router":
+                return "partial", None
+            if leaf in _EXPERTS:
+                return ("ep", 0) if run.ep == 1 else ("partial", None)
+        if run.kv_seq and block in ("attn", "cross"):
+            dim = _SPLIT_DIM.get(leaf)
+            if dim is not None and spec[dim] == self.tp_axis:
+                return "split", dim
+            return ("gather" if on_model else "whole"), None
         if block in ("attn", "cross") and self.attn_split:
             if leaf in ("wq", "wo"):
                 return "split", _SPLIT_DIM[leaf]
@@ -552,30 +635,34 @@ class Partitioner:
             return "split", _SPLIT_DIM[leaf]
         return ("gather" if on_model else "whole"), None
 
-    def plan(self, path: str, leaf) -> LeafPlan:
-        """The run-time decision for parameter ``path``: its stored spec,
-        split / gather / partial / whole over ``model``, and the spec the
-        math sees."""
+    def plan(self, path: str, leaf, run: Run = Run()) -> LeafPlan:
+        """The run-time decision for parameter ``path`` in a step taking
+        ``run``: its stored spec, split / ep / gather / partial / whole
+        over ``model``, and the spec the math sees."""
         spec = self.param_spec(path, leaf)
         stacked = self._stacked(path)
-        model, dim = self._model_use(path, list(spec)[stacked:])
+        model, dim = self._model_use(path, list(spec)[stacked:], run)
         use = [None] * len(spec)
         if dim is not None:
             use[dim + stacked] = self.tp_axis
         return LeafPlan(spec, model, P(*use))
 
-    def cache_plan(self, path: str, leaf) -> LeafPlan:
+    def cache_plan(self, path: str, leaf, run: Run = Run()) -> LeafPlan:
         """A cache leaf's stored spec and the spec the layers see: the
         batch's axes, and ``model`` on the KV heads of a KV-split
-        attention; everything else gathered (and written back)."""
+        attention or (v-C) on the sequence of a self-attention cache;
+        everything else gathered (and written back)."""
         spec = self.cache_spec(path, leaf)
         use = [None] * len(spec)
         use[1] = spec[1]
-        name = path.split("/")[-1]
+        parts = path.split("/")
         model = "gather" if self.tp_axis in spec.all_axes() else "whole"
-        if name in ("k", "v") and spec[3] == self.tp_axis and self.kv_split:
-            use[3] = self.tp_axis
-            model = "split"
+        if parts[-1] in ("k", "v"):
+            if run.kv_seq:
+                if parts[-2] == "attn" and spec[2] == self.tp_axis:
+                    use[2], model = self.tp_axis, "split"
+            elif spec[3] == self.tp_axis and self.kv_split:
+                use[3], model = self.tp_axis, "split"
         return LeafPlan(spec, model, P(*use))
 
 
@@ -586,10 +673,12 @@ class LogicalResolver:
     x)`` checks that ``x``, a rank's local tensor, has the global shape
     divided by the spec the run time keeps (the batch's axes, and ``model``
     where the math is split), raises on a mismatch and returns ``x``
-    itself. On a ``RankMesh`` the resolver also carries the run time's
-    collectives (``to_model``, ``reduce_model``, ``gather_batch``)."""
+    itself. On a ``RankMesh`` the resolver also carries the step's
+    ``run`` and the run time's collectives (``to_model``,
+    ``reduce_model``, ``gather_batch``, the variants')."""
 
-    def __init__(self, part: Partitioner, batch: Optional[int] = None):
+    def __init__(self, part: Partitioner, batch: Optional[int] = None,
+                 run: Run = Run()):
         self.part = part
         self._fn = part._resolve_fn()
         self.mesh = part.mesh
@@ -603,15 +692,22 @@ class LogicalResolver:
         self.moe_ep = part.moe_ep
         self.bf16_reduce = part.bf16_reduce
         self.batch = batch
-        self.attn_split = part.attn_split
-        self.kv_split = part.kv_split
+        self.run = run
+        # v-C attends with every head on every rank: the projections and
+        # ``wo`` split as stored, q, k and v are gathered over heads
+        self.attn_split = part.attn_split and not run.kv_seq
+        self.kv_split = part.kv_split and not run.kv_seq
+        self.wo_split = (part._tp_on("wo", 0) if run.kv_seq
+                         else self.attn_split)
+        self.q_split = run.kv_seq and part._tp_on("wq", 1)
+        self.kv_heads_split = run.kv_seq and part._tp_on("wk", 1)
         self.mlp_split = part.mlp_split
         self.vocab_split = part.vocab_split
 
     def splits(self, leaf: str) -> bool:
         """Whether the math of ``leaf`` (``"wo"``, ``"w_down"``,
         ``"embed"``, ``"lm_head"``) runs split over ``model``."""
-        return {"wo": self.attn_split, "w_down": self.mlp_split,
+        return {"wo": self.wo_split, "w_down": self.mlp_split,
                 "embed": self.vocab_split,
                 "lm_head": self.vocab_split}[leaf]
 
@@ -676,13 +772,49 @@ class LogicalResolver:
         gradient."""
         return self.mesh.copy_to(x, (self.tp_axis,))
 
-    def reduce_model(self, x, dtype=None):
-        """Megatron's g: fp32 all-reduce over ``model`` (identity
-        backward), cast to ``dtype``."""
-        return self.mesh.reduce_from(x, (self.tp_axis,), dtype)
+    def reduce_model(self, x, dtype=None, wire=torch.float32):
+        """Megatron's g: all-reduce over ``model`` in ``wire``'s dtype
+        (identity backward), cast to ``dtype``."""
+        return self.mesh.reduce_from(x, (self.tp_axis,), dtype, wire)
 
     def max_model(self, x):
-        return self.mesh.all_reduce(x, (self.tp_axis,), op="max")
+        """The max over ``model`` (no gradient)."""
+        return self.mesh.all_reduce(x.detach(), (self.tp_axis,), op="max")
+
+    # v-E: the token stream split over ``model`` on the sequence (dim 1)
+    def seq_slice(self, x):
+        """This rank's slice of the sequence; the gradient all-gathered."""
+        return self.mesh.slice_to(x, (self.tp_axis,), 1)
+
+    def seq_gather(self, x, partial: bool):
+        """The whole sequence from every rank's slice; the gradient
+        reduce-scattered where the consumer's is ``partial`` (split over
+        ``model``), else sliced."""
+        if partial:
+            return self.mesh.gather_from(x, (self.tp_axis,), 1)
+        return self.mesh.gather_replicated(x, (self.tp_axis,), 1)
+
+    def seq_reduce_scatter(self, x, dtype=None, wire=torch.float32):
+        """Row-parallel partial sums summed over ``model``, this rank's
+        slice of the sequence kept; the gradient all-gathered."""
+        return self.mesh.reduce_scatter_from(x, (self.tp_axis,), 1, dtype,
+                                             wire)
+
+    # v-B: the tokens of a data shard, split over ``model``
+    def model_slice(self, x, dim: int = 0):
+        """This rank's piece over ``model`` along ``dim``; the gradient
+        all-gathered (the input is replicated over ``model``)."""
+        return self.mesh.slice_to(x, (self.tp_axis,), dim)
+
+    def model_gather(self, x, dim: int = 0):
+        """Every model rank's piece along ``dim``; the gradient sliced (the
+        consumers are replicated over ``model``)."""
+        return self.mesh.gather_replicated(x, (self.tp_axis,), dim)
+
+    def exchange(self, x):
+        """An all-to-all over ``model`` of ``x``'s dimension 0 (under
+        autograd)."""
+        return self.mesh.exchange(x, (self.tp_axis,))
 
     def gather_model(self, x, dim: int):
         """All-gather over ``model`` along ``dim`` (no gradient)."""
@@ -717,6 +849,32 @@ class LogicalResolver:
         group = cfg.num_heads // cfg.num_kv_heads
         lo = self.model_index() * hq // group
         return lo, lo + math.ceil(hq / group)
+
+
+# ---------------------------------------------------------------------------
+# the drivers' flags (the reference's ``launch/dryrun.py`` names)
+# ---------------------------------------------------------------------------
+VARIANT_FLAGS = (("--moe-ep", "moe_ep", "v-B: expert-parallel MoE dispatch "
+                  "(an all-to-all over the model axis)"),
+                 ("--seq-shard-kv", "seq_shard_kv_decode",
+                  "v-C: sequence-sharded decode KV cache"),
+                 ("--bf16-reduce", "bf16_reduce",
+                  "v-D: bf16 partial-sum collectives"),
+                 ("--seq-shard", "seq_shard_activations",
+                  "v-E: sequence-parallel activations"))
+
+
+def add_variant_flags(ap) -> None:
+    """The perf variants' flags on an ``argparse`` parser."""
+    for flag, _, text in VARIANT_FLAGS:
+        ap.add_argument(flag, action="store_true", help=text)
+
+
+def variant_kwargs(args) -> Optional[Dict[str, bool]]:
+    """The ``Partitioner`` flags the parsed ``args`` set (``None``: none)."""
+    out = {name: True for flag, name, _ in VARIANT_FLAGS
+           if getattr(args, flag[2:].replace("-", "_"))}
+    return out or None
 
 
 # ---------------------------------------------------------------------------

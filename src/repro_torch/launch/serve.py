@@ -32,7 +32,10 @@ itself (``launch.mesh.launch_ranks``): each rank draws the weights whole,
 one leaf at a time, and keeps its shards, prefills its rows of the batch
 through ``launch.steps.build_step``'s prefill step and decodes through its
 decode step (the weights resharded where the decode's rules differ); the
-logits are replicated, so every rank feeds back the same tokens. Every
+logits are replicated, so every rank feeds back the same tokens;
+``--moe-ep``, ``--seq-shard-kv``, ``--bf16-reduce`` and ``--seq-shard``
+set the perf variants v-B, v-C, v-D and v-E (``launch/partitioning.py``).
+Every
 config of the
 registry serves: dense, MoE, Mamba2, the hybrid, the vision-language and
 the encoder-decoder one (``lm/model.py``). A Mamba config's prompt needs
@@ -48,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs as C
+from repro_torch.launch import partitioning as PT
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import in_ranks, launch_ranks, make_mesh
 from repro_torch.lm.config import LMConfig, ShapeCell
@@ -88,7 +92,8 @@ def generate(pre, dec, params: Dict, prompts: torch.Tensor, gen: int, *,
     cross-attention) through ``pre``, then ``gen - 1`` greedy decode steps
     through ``dec``: the ``serve_steps`` of a cache of ``P + gen``
     positions. On a mesh ``params`` are the rank's shards under ``pre``'s
-    rules, resharded to ``dec``'s after the prefill where they differ, and
+    rules, resharded to ``dec``'s after the prefill where they differ (the
+    caches too: v-C's decode splits them on the sequence), and
     ``prompts`` / ``frontend`` the whole batch. Returns the generated
     tokens ``[B, gen]`` (on the host), the prefill and decode wall times
     (each ending in a device synchronize), the caches after the last step
@@ -108,9 +113,13 @@ def generate(pre, dec, params: Dict, prompts: torch.Tensor, gen: int, *,
     sync()
     t_pre = time.perf_counter() - t0
     part = pre.partitioner
-    if part is not None:
+    if part is not None:        # the decode's rules where they differ
         params = ST.reshard(params, ST.param_specs(part, pre.model),
                             ST.param_specs(dec.partitioner, dec.model),
+                            part.mesh)
+        a_cache = dec.abstract_args[3]
+        caches = ST.reshard(caches, ST.cache_specs(part, a_cache),
+                            ST.cache_specs(dec.partitioner, a_cache),
                             part.mesh)
     tokens, kept = [tok], [logits[:, -1]] if keep_logits else None
     t0 = time.perf_counter()
@@ -130,7 +139,8 @@ def generate(pre, dec, params: Dict, prompts: torch.Tensor, gen: int, *,
 def serve(arch: Union[str, LMConfig] = "gemma2-2b", *, reduced: bool = False,
           batch: int = 4, prompt_len: int = 32, gen: int = 16, seed: int = 0,
           device=None, keep_logits: bool = False, model_parallel: int = 1,
-          dp: int = 1, log: Callable[[str], None] = print) -> Dict:
+          dp: int = 1, part_kwargs: Optional[Dict] = None,
+          log: Callable[[str], None] = print) -> Dict:
     """Serve one prompt batch of ``arch`` (a config, or an arch id: its
     full config, or its reduced one with ``reduced``) on ``device``
     (``None``: the CUDA card), the weights and prompts drawn from
@@ -141,13 +151,14 @@ def serve(arch: Union[str, LMConfig] = "gemma2-2b", *, reduced: bool = False,
     and, with ``keep_logits``, each step's logits. ``model_parallel`` x
     ``dp`` above 1 serves on that mesh of ranks (started here unless this
     process is one of them): the result is rank 0's, its logits on the
-    host, with every rank's peak GiB (``rank_peak_gib``)."""
+    host, with every rank's peak GiB (``rank_peak_gib``). ``part_kwargs``:
+    the mesh's ``Partitioner`` flags (the perf variants)."""
     n = model_parallel * dp
     if n > 1 and not in_ranks():
         return launch_ranks(serve, n, device, dict(
             arch=arch, reduced=reduced, batch=batch, prompt_len=prompt_len,
             gen=gen, seed=seed, keep_logits=keep_logits,
-            model_parallel=model_parallel, dp=dp))
+            model_parallel=model_parallel, dp=dp, part_kwargs=part_kwargs))
     if isinstance(arch, LMConfig):
         cfg = arch
     else:
@@ -161,7 +172,7 @@ def serve(arch: Union[str, LMConfig] = "gemma2-2b", *, reduced: bool = False,
         + (f", mesh=({dp}, {model_parallel})" if mesh else ""))
     g = torch.Generator(device=dev).manual_seed(seed)
     pre, dec = serve_steps(cfg, batch, prompt_len + gen, device=dev,
-                           mesh=mesh)
+                           mesh=mesh, part_kwargs=part_kwargs)
     params = (ST.init_params(model, pre.partitioner, g) if mesh is not None
               else model.init(g))
     if dev.type == "cuda":          # the peak of serving: weights included,
@@ -208,11 +219,12 @@ def main(argv=None):
                     help="ranks on the model axis")
     ap.add_argument("--dp", type=int, default=1,
                     help="ranks on the data axis")
+    PT.add_variant_flags(ap)
     args = ap.parse_args(argv)
     return serve(args.arch, reduced=args.reduced, batch=args.batch,
                  prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
                  device=args.device, model_parallel=args.model_parallel,
-                 dp=args.dp)["tokens"]
+                 dp=args.dp, part_kwargs=PT.variant_kwargs(args))["tokens"]
 
 
 if __name__ == "__main__":

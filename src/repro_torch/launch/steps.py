@@ -34,10 +34,18 @@ slices of parameter, gradient and moments; a parameter's updated slices
 are all-gathered over ``data`` where its moments are sharded further. The
 outputs (loss, logits) are replicated, as the reference's
 ``out_shardings`` make them; the caches come back sharded per
-``cache_spec``. ``mesh=None`` is the one-device step, unchanged. The run
-time of the perf variants waits (``Partitioner.runtime_check``): v-B's
-expert-parallel MoE and v-C's sequence-sharded decode first
-(``ROADMAP.md`` §1).
+``cache_spec``. ``mesh=None`` is the one-device step, unchanged.
+
+The perf variants' flags (``part_kwargs``: ``moe_ep``, v-B;
+``seq_shard_kv_decode``, v-C; ``bf16_reduce``, v-D;
+``seq_shard_activations``, v-E) reach the ``Partitioner`` of every mode.
+Each step call asks it which variants its shapes take
+(``Partitioner.run_for``: the global batch, the token length, a
+decode's cache length), installs the resolver of that ``Run`` and uses
+the parameters and caches under the plans of that ``Run``: the gradients
+are reduced and sliced by the same plans. A v-C decode's caches are
+stored split on the sequence, the prefill's on heads: ``launch.serve.
+generate`` re-lays them once in between.
 
 Differences by design: nothing is donated: ``AdamW.update`` stays functional
 (it is shared with the RGNN trainers and their bitwise invariants), so the
@@ -204,6 +212,12 @@ def param_specs(part: Partitioner, model: TransformerLM) -> list:
     return [s.spec for s in PT.flat_leaves(part.param_shardings(meta))]
 
 
+def cache_specs(part: Partitioner, a_cache) -> list:
+    """The spec of every leaf of the cache tree ``a_cache`` (meta tensors;
+    ``tree_leaves`` order)."""
+    return [s.spec for s in PT.flat_leaves(part.cache_shardings(a_cache))]
+
+
 def resident(state: TrainState, part: Partitioner,
              model: TransformerLM) -> list:
     """Every rank's resident parameter and moment bytes beside the sum of
@@ -260,18 +274,29 @@ def _build_mesh_step(cfg, cell, mesh, device, remat, part_kwargs):
     if device is not None and torch.device(device) != mesh.device:
         raise ValueError(f"device {device} is not the mesh's {mesh.device}")
     part = Partitioner(mesh, cfg, mode=cell.mode, **part_kwargs)
-    part.runtime_check()
     model = TransformerLM(cfg, device=mesh.device, remat=remat)
     meta = TransformerLM(cfg, device="meta")
     data = input_specs(cfg, cell)
     b, s = cell.global_batch, cell.seq_len
     a_params = meta._build(None)
-    plans = [part.plan(PT._path_str(kp), leaf)
-             for kp, leaf in PT.tree_paths(a_params)]
+    a_cache = meta.init_cache(b, s) if cell.mode != "train" else None
+    known: Dict[Any, list] = {}
 
-    def use_params(params):
+    def plans_for(run: PT.Run, cache: bool = False) -> list:
+        """Every parameter's (or cache leaf's) plan in a step taking
+        ``run``."""
+        if (run, cache) not in known:
+            plan = part.cache_plan if cache else part.plan
+            known[run, cache] = [plan(PT._path_str(kp), leaf, run) for kp, leaf
+                                 in PT.tree_paths(a_cache if cache
+                                                  else a_params)]
+        return known[run, cache]
+
+    plans = plans_for(PT.Run())     # the stored specs: the same in any run
+
+    def use_params(params, run):
         return tree_like(params, [PT.to_use(p, pl, mesh) for p, pl in
-                                  zip(tree_leaves(params), plans)])
+                                  zip(tree_leaves(params), plans_for(run))])
 
     def batch_axes(batch_size):
         axes = part.batch_dims(batch_size)
@@ -300,18 +325,18 @@ def _build_mesh_step(cfg, cell, mesh, device, remat, part_kwargs):
 
         def grad_fn(params, batch: Dict[str, torch.Tensor]):
             axes, n = batch_axes(batch["tokens"].shape[0])
-            resolver = part.logical_resolver(batch["tokens"].shape[0])
+            resolver = part.logical_resolver(*batch["tokens"].shape)
             local = {k: _rows(mesh, axes, v) for k, v in batch.items()}
             with torch.enable_grad():
                 leaves = [u.detach().requires_grad_(True) for u in
-                          tree_leaves(use_params(params))]
+                          tree_leaves(use_params(params, resolver.run))]
                 with sharding_context(resolver):
                     loss, metrics = model.loss(tree_like(params, leaves),
                                                local)
                 grads = torch.autograd.grad(loss, leaves)
             del leaves
             grads = [reduce_grad(g, pl, axes, n)
-                     for g, pl in zip(grads, plans)]
+                     for g, pl in zip(grads, plans_for(resolver.run))]
             out = {"loss": loss.detach(),
                    **{k: v.detach() for k, v in metrics.items()}}
             if n > 1:
@@ -354,10 +379,6 @@ def _build_mesh_step(cfg, cell, mesh, device, remat, part_kwargs):
                           (opt.init(a_params), data), model, "train", part,
                           grad_fn)
 
-    a_cache = meta.init_cache(b, s)
-    cplans = [part.cache_plan(PT._path_str(kp), leaf)
-              for kp, leaf in PT.tree_paths(a_cache)]
-
     def replicated(logits, axes):
         return mesh.all_gather(logits, axes, 0) if axes else logits
 
@@ -365,12 +386,14 @@ def _build_mesh_step(cfg, cell, mesh, device, remat, part_kwargs):
         @torch.no_grad()
         def serve_prefill(params, tokens, frontend=None):
             axes, _ = batch_axes(tokens.shape[0])
+            resolver = part.logical_resolver(*tokens.shape)
+            cplans = plans_for(resolver.run, cache=True)
             cache = tree_like(a_cache, [torch.zeros(
                 PT.shard_shape(mesh, pl.use, leaf.shape), dtype=leaf.dtype,
                 device=mesh.device) for leaf, pl in
                 zip(tree_leaves(a_cache), cplans)])
-            up = use_params(params)
-            with sharding_context(part.logical_resolver(tokens.shape[0])):
+            up = use_params(params, resolver.run)
+            with sharding_context(resolver):
                 hidden = model.backbone(
                     up, _rows(mesh, axes, tokens),
                     frontend=(None if frontend is None
@@ -390,10 +413,12 @@ def _build_mesh_step(cfg, cell, mesh, device, remat, part_kwargs):
     @torch.no_grad()
     def serve_step(params, token, index: int, caches: Any, frontend=None):
         axes, _ = batch_axes(token.shape[0])
+        resolver = part.logical_resolver(*token.shape, cache_len=s)
+        cplans = plans_for(resolver.run, cache=True)
         stored = tree_leaves(caches)
         use = [PT.to_use(c, pl, mesh) for c, pl in zip(stored, cplans)]
-        with sharding_context(part.logical_resolver(token.shape[0])):
-            logits, _ = model.decode_step(use_params(params),
+        with sharding_context(resolver):
+            logits, _ = model.decode_step(use_params(params, resolver.run),
                                           _rows(mesh, axes, token), index,
                                           tree_like(caches, use))
         for c, u, pl in zip(stored, use, cplans):

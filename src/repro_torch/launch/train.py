@@ -38,7 +38,10 @@ of the state (``launch.steps.init_state``), every rank reads the same
 global batch and the step takes its rows; checkpoints are written whole by
 rank 0 and restored to each rank's shards, and the drill replans the same
 mesh, re-meshes (new process groups) and restores on it. Without them the
-plan is the one-device ``(1, 1)``. ``--device`` (default the card; it
+plan is the one-device ``(1, 1)``. On a mesh ``--moe-ep``,
+``--seq-shard-kv``, ``--bf16-reduce`` and ``--seq-shard`` (the reference's
+``launch/dryrun.py`` names) set the perf variants v-B, v-C, v-D and v-E
+(``launch/partitioning.py``). ``--device`` (default the card; it
 raises without one) and ``--seed`` (weights and stream) are the port's, as
 in ``launch/serve.py``; ``--ckpt-every 0`` saves nothing.
 """
@@ -48,13 +51,14 @@ import argparse
 import os
 import tempfile
 import time
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
 from repro_torch import configs as C
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.data.pipeline import PrefetchIterator, SyntheticLMStream
+from repro_torch.launch import partitioning as PT
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import (in_ranks, launch_ranks, make_mesh,
                                      plan_elastic_mesh)
@@ -75,6 +79,7 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
           ckpt_every: int = 5, simulate_failure: int = -1,
           resume: bool = False, device=None, seed: int = 0,
           model_parallel: int = 1, dp: int = 1,
+          part_kwargs: Optional[Dict] = None,
           log: Callable[[str], None] = print) -> Dict:
     """Train ``cfg_or_arch`` (a config, or an arch id: its full config, or
     its reduced one with ``reduced``) for ``steps`` steps of ``batch`` x
@@ -93,14 +98,15 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
     0's, with every rank's peak GiB (``rank_peak_gib``), resident state
     bytes against its shards' (``resident``, ``launch.steps.resident``)
     and fp64 sum of each leaf (``state_digest``); its ``state`` is
-    ``None`` (the shards stay on the ranks)."""
+    ``None`` (the shards stay on the ranks). ``part_kwargs``: the mesh's
+    ``Partitioner`` flags (the perf variants; ignored on one device)."""
     n = model_parallel * dp
     if n > 1 and not in_ranks():
         return launch_ranks(train, n, device, dict(
             cfg_or_arch=cfg_or_arch, reduced=reduced, steps=steps,
             batch=batch, seq=seq, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
             simulate_failure=simulate_failure, resume=resume, seed=seed,
-            model_parallel=model_parallel, dp=dp))
+            model_parallel=model_parallel, dp=dp, part_kwargs=part_kwargs))
     if isinstance(cfg_or_arch, LMConfig):
         cfg = cfg_or_arch
     else:
@@ -112,7 +118,8 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
     def build(plan):
         mesh = make_mesh(plan.shape, plan.axes, device) if n > 1 else None
         return mesh, build_step(cfg, cell, None if mesh else device,
-                                mesh=mesh, remat=False)
+                                mesh=mesh, remat=False,
+                                part_kwargs=part_kwargs)
     mesh, bundle = build(plan)
     model, part = bundle.model, bundle.partitioner
     specs = ST.state_specs(part, model) if part else None
@@ -250,13 +257,15 @@ def main(argv=None):
                     help="ranks on the model axis")
     ap.add_argument("--dp", type=int, default=1,
                     help="ranks on the data axis")
+    PT.add_variant_flags(ap)
     args = ap.parse_args(argv)
     return train(args.arch, reduced=args.reduced, steps=args.steps,
                  batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
                  ckpt_every=args.ckpt_every,
                  simulate_failure=args.simulate_failure, resume=args.resume,
                  device=args.device, seed=args.seed,
-                 model_parallel=args.model_parallel, dp=args.dp)["losses"]
+                 model_parallel=args.model_parallel, dp=args.dp,
+                 part_kwargs=PT.variant_kwargs(args))["losses"]
 
 
 if __name__ == "__main__":

@@ -36,10 +36,19 @@ vision-language and encoder-decoder families (the port's counterpart of
   vocabulary-split ``embed`` looks up the rows it holds and all-reduces
   (Megatron's masked lookup), attention and the dense MLP split their
   heads and width (``nn/attention.py``, ``nn/mlp.py``), an MoE layer
-  gathers the batch's tokens over its axes and runs the whole dispatch,
-  the logits of a vocabulary-split head are all-gathered, and ``loss`` is
+  gathers the batch's tokens over its axes and runs the whole dispatch
+  (or, on v-B's EP branch, keeps its data shard's tokens and runs
+  ``nn/moe._moe_ffn_ep``), the logits of a vocabulary-split head are
+  all-gathered, and ``loss`` is
   a vocabulary-parallel log-softmax (the max, the sum of exps and the
-  target logit each all-reduced over ``model``). ``init(keep=)`` draws
+  target logit each all-reduced over ``model``). Under v-E (the
+  resolver's ``run.seq``) the decoder's token stream between blocks is
+  the rank's slice of the sequence: the norms run on it, attention, the
+  MLPs, Mamba and the head all-gather it first (an MoE layer gathers the
+  whole sequence and then takes its token slice, a contiguous run of the
+  flattened rows, not the sequence slice) and the blocks' outputs come
+  back as the slice. The encoder's stream (whisper) stays whole: the
+  split would change its memory only. ``init(keep=)`` draws
   every leaf whole from the generator, one leaf at a time, and keeps the
   rank's slice, so a mesh's parameters are the one device's bit for bit.
 """
@@ -236,30 +245,41 @@ class TransformerLM:
     # ------------------------------------------------------------ layers
     def _apply_layer(self, spec: LayerSpec, p: Dict, x, positions, *,
                      memory=None, cache=None, cache_index=None,
-                     prefill=False, causal=True):
+                     prefill=False, causal=True, seq=False):
         """``(x, lb_loss)``: the layer's output and its MoE load-balance
         loss (``None`` without an MoE MLP). A cross-attention reads
         ``memory`` (training, prefill; a prefill writes its K/V into the
-        cache's ``"cross"`` entry) or, at decode, that cache entry."""
+        cache's ``"cross"`` entry) or, at decode, that cache entry.
+        ``seq`` (v-E): ``x`` is the rank's slice of the sequence."""
         cfg = self.cfg
+        ctx = mesh_ctx()
 
         def cross(params, h):
             return A.attention(params, h, cfg, spec, positions,
                                memory=memory,
                                cross_kv=cache["cross"] if cache else None,
-                               store_cross=prefill, cache_index=cache_index)
+                               store_cross=prefill, cache_index=cache_index,
+                               seq=seq)
+
+        def whole(fn, h):
+            """``fn`` on the whole sequence, replicated over ``model``."""
+            if not seq:
+                return fn(h)
+            out, aux = fn(ctx.seq_gather(h, partial=False))
+            return ctx.seq_slice(out), aux
 
         h = rms_norm(x, p["norm"], cfg.norm_eps)
         if spec.kind == "mamba":
-            h, _ = S.mamba_forward(p["mamba"], h, cfg,
-                                   cache=cache["mamba"] if cache else None,
-                                   prefill=prefill)
+            h, _ = whole(lambda h: S.mamba_forward(
+                p["mamba"], h, cfg, cache=cache["mamba"] if cache else None,
+                prefill=prefill), h)
         elif spec.kind == "cross_attn":
             h, _ = cross(p["attn"], h)
         else:
             h, _ = A.attention(p["attn"], h, cfg, spec, positions,
                                kv_cache=cache["attn"] if cache else None,
-                               cache_index=cache_index, causal=causal)
+                               cache_index=cache_index, causal=causal,
+                               seq=seq)
         x = x + h
         if spec.dec_cross:
             h, _ = cross(p["cross"], rms_norm(x, p["cross_norm"],
@@ -269,24 +289,28 @@ class TransformerLM:
         if "mlp_norm" in p:
             h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
             if "moe" in p:
-                # a mesh runs the dispatch over the whole batch's tokens
-                ctx = mesh_ctx()
-                h, mine = (ctx.gather_batch(h) if ctx is not None
-                           else (h, None))
-                h, moe_aux = MOE.moe_ffn(p["moe"], h, cfg.num_experts,
-                                         cfg.experts_per_tok,
-                                         cfg.capacity_factor)
-                if mine is not None:
-                    h = mine(h)
-                aux = moe_aux["lb_loss"]
+                h, aux = whole(lambda h: self._moe(p["moe"], h, ctx), h)
             else:
-                h = M.mlp(p["mlp"], h)
+                h = M.mlp(p["mlp"], h, seq=seq)
             x = x + h
         return shard("activation", x), aux
 
+    def _moe(self, p: Dict, h, ctx):
+        """``(out, lb_loss)`` of an MoE MLP: on v-B's EP branch over the
+        rank's data shard; otherwise (one device, or a mesh falling back to
+        the dense dispatch) over the whole batch's tokens, gathered over the
+        batch's axes."""
+        cfg = self.cfg
+        mine = None
+        if ctx is not None and not ctx.run.ep:
+            h, mine = ctx.gather_batch(h)
+        h, moe_aux = MOE.moe_ffn(p, h, cfg.num_experts, cfg.experts_per_tok,
+                                 cfg.capacity_factor)
+        return (h if mine is None else mine(h)), moe_aux["lb_loss"]
+
     def _run_stage(self, stage: Stage, sp: Dict, x, positions, aux, *,
                    memory=None, caches=None, cache_index=None,
-                   prefill=False, causal=True):
+                   prefill=False, causal=True, seq=False):
         """The stage's repeats in order; ``aux`` (train mode) sums the MoE
         layers' load-balance losses, layer by layer."""
         def body(x, aux, lp, cache, memory):
@@ -294,7 +318,8 @@ class TransformerLM:
                 x, a = self._apply_layer(
                     spec, lp[f"l{i}"], x, positions, memory=memory,
                     cache=cache[i] if cache is not None else None,
-                    cache_index=cache_index, prefill=prefill, causal=causal)
+                    cache_index=cache_index, prefill=prefill, causal=causal,
+                    seq=seq)
                 if a is not None and aux is not None:
                     aux = aux + a
             return x, aux
@@ -389,13 +414,28 @@ class TransformerLM:
         # decode reads the memory's K/V from the cache
         memory = (None if mode == "decode"
                   else self._memory(params, frontend))
+        ctx = mesh_ctx()
+        seq = ctx is not None and ctx.run.seq
+        if seq:
+            x = ctx.seq_slice(x)
         for i, stage in enumerate(cfg.stages):
             x, aux = self._run_stage(
                 stage, params["stages"][i], x, positions, aux, memory=memory,
                 caches=caches[i] if caches is not None else None,
                 cache_index=None if caches is None else start,
-                prefill=mode == "prefill")
+                prefill=mode == "prefill", seq=seq)
         return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+    @staticmethod
+    def _whole_stream(hidden, split_head: bool):
+        """The final-normed stream for the head: under v-E all-gathered
+        over the sequence (the gradient reduce-scattered where the head
+        splits the vocabulary, else sliced); otherwise, for a split head,
+        ``to_model``."""
+        ctx = mesh_ctx()
+        if ctx is not None and ctx.run.seq:
+            return ctx.seq_gather(hidden, partial=split_head)
+        return ctx.to_model(hidden) if split_head else hidden
 
     def backbone(self, params: Dict, tokens: torch.Tensor, *,
                  frontend: Optional[torch.Tensor] = None, mode: str = "train",
@@ -410,8 +450,8 @@ class TransformerLM:
         (``[B, encoder_seq, d_model]`` or ``[B, frontend_tokens,
         frontend_dim]``), which train and prefill need and decode
         ignores."""
-        return self._backbone(params, tokens, mode, caches, cache_index,
-                              frontend)[0]
+        return self._whole_stream(self._backbone(
+            params, tokens, mode, caches, cache_index, frontend)[0], False)
 
     def logits(self, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
         """fp32, softcapped logits over the padded vocabulary (on a
@@ -438,16 +478,15 @@ class TransformerLM:
         tokens, targets = batch["tokens"], batch["targets"].long()
         hidden, aux = self._backbone(params, tokens, "train", None, None,
                                      batch.get("frontend"))
+        ctx = mesh_ctx()
+        split = ctx is not None and ctx.splits("lm_head")
+        hidden = self._whole_stream(hidden, split)
         b, s, _ = hidden.shape
         chunk = min(self.loss_chunk, s)
         if s % chunk:
             raise ValueError(f"sequence length {s} is not a multiple of the "
                              f"loss chunk {chunk}")
         head = self._head(params)
-        ctx = mesh_ctx()
-        split = ctx is not None and ctx.splits("lm_head")
-        if split:
-            hidden = ctx.to_model(hidden)
         total = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for c in range(0, s, chunk):
             lg = softcap(torch.matmul(hidden[:, c:c + chunk], head).float(),

@@ -17,13 +17,29 @@ summed over ``model``), the rank projects and attends with its own query
 heads and the KV heads they group with (the split ones, or, where ``tp``
 does not divide the KV heads, its group's of the whole set it computes),
 and ``wo``'s partial sums are all-reduced (``rp_einsum``). The cache given
-holds the KV heads the rank computes.
+holds the KV heads the rank computes. Under v-E (``seq``) the input is
+the rank's slice of the sequence, all-gathered first (its gradient
+reduce-scattered where the heads split), and ``wo``'s sums are
+reduce-scattered back to the slice.
 
-Not ported yet (``ROADMAP.md`` §1): the sequence-sharded decode of the
-reference's v-C (``_seqshard_decode_attention``).
+v-C (the resolver's ``run.kv_seq``: a decode over a self-attention cache
+split on the sequence) is the reference's ``_seqshard_decode_attention``:
+each rank projects the heads its weights hold and the token's q, k and v
+are all-gathered over heads (as XLA gathers them before the reference's
+``shard_map``), the rank whose slice holds the position writes the
+token's K/V, each rank scores its ``S / tp`` keys and the
+``(max, numerator, denominator)`` of its partial softmax are combined over
+``model`` (the max all-reduced, both sums in fp32); then ``wo`` (split on
+heads where stored so) through ``rp_einsum``. Like the reference it runs
+outside the attention kernel, as plain torch ops; the scores are taken
+from fp32 operands (the reference's from the model dtype). A cross
+attention in such a decode also computes every head (its cache gathered)
+(its q gathered over heads, its cache gathered) and keeps its heads for a
+split ``wo``.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -31,7 +47,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.lm.config import LayerSpec, LMConfig
 from repro_torch.nn.common import (dense_init, init_device, mesh_ctx,
-                                   rms_norm, rope, rp_einsum, shard)
+                                   rms_norm, rope, rp_einsum, shard, softcap)
 
 
 def init_attention(generator: Optional[torch.Generator], cfg: LMConfig,
@@ -76,6 +92,7 @@ def attention(
     kv_cache: Optional[Dict] = None,    # {"k", "v": [B, S, KV, hd]}
     cache_index: Optional[int] = None,  # write position (a Python int)
     causal: bool = True,
+    seq: bool = False,                  # v-E: x is the rank's sequence slice
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One attention block: ``(out [B, Q, D], cache)``.
 
@@ -97,11 +114,17 @@ def attention(
     """
     is_cross = memory is not None or cross_kv is not None
     ctx = mesh_ctx()
-    split = ctx is not None and ctx.splits("wo")
-    if split:
+    if (ctx is not None and ctx.run.kv_seq and kv_cache is not None
+            and not is_cross):
+        return _seqshard_decode(params, x, cfg, spec, q_positions, kv_cache,
+                                cache_index, ctx)
+    split = ctx is not None and ctx.attn_split
+    if seq:
+        x = ctx.seq_gather(x, partial=split)
+    elif split:
         x = ctx.to_model(x)
-        if memory is not None:
-            memory = ctx.to_model(memory)
+    if split and memory is not None:
+        memory = ctx.to_model(memory)
     q = _project(x, params["wq"])
     if memory is not None:
         k = _project(memory, params["wk"])
@@ -118,6 +141,8 @@ def attention(
     if not is_cross:
         q = rope(q, q_positions, cfg.rope_theta)
         k = rope(k, q_positions, cfg.rope_theta)
+    if ctx is not None and ctx.q_split:           # v-C: every head here
+        q = ctx.gather_model(q, 2)
 
     new_cache = None
     q_offset = 0
@@ -146,5 +171,61 @@ def attention(
     out = flash_attention(q, k, v, causal=causal, window=spec.window,
                           softcap=cfg.attn_softcap, q_offset=q_offset)
     out = shard("attn_out_heads", out)
+    if not split and ctx is not None and ctx.splits("wo"):
+        out = ctx.model_slice(out, 2)       # v-C: the heads of the split wo
+    return rp_einsum("bqhk,hkd->bqd", out, params["wo"], leaf="wo",
+                     seq=seq), new_cache
+
+
+def _qkv(params: Dict, x: torch.Tensor, cfg: LMConfig,
+         positions: torch.Tensor):
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    if cfg.qk_norm and "q_norm" in params:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def _seqshard_decode(params: Dict, x: torch.Tensor, cfg: LMConfig,
+                     spec: LayerSpec, q_positions: torch.Tensor,
+                     kv_cache: Dict, cache_index: int, ctx):
+    """v-C: one token a row against this rank's slice ``[B, S / tp, KV,
+    hd]`` of a sequence-split cache (written in place where the slice
+    holds ``cache_index``); ``(out [B, 1, D], cache)``."""
+    q, k, v = _qkv(params, x, cfg, q_positions)
+    if ctx.q_split:
+        q = ctx.gather_model(q, 2)
+    if ctx.kv_heads_split:
+        k, v = ctx.gather_model(k, 2), ctx.gather_model(v, 2)
+    kc, vc = kv_cache["k"], kv_cache["v"]
+    s_l = kc.shape[1]
+    lo = ctx.model_index() * s_l
+    if lo <= cache_index < lo + s_l:
+        kc[:, cache_index - lo:cache_index - lo + 1] = k.to(kc.dtype)
+        vc[:, cache_index - lo:cache_index - lo + 1] = v.to(vc.dtype)
+    b, _, h, hd = q.shape
+    kv = kc.shape[2]
+    k_pos = lo + torch.arange(s_l, device=kc.device)
+    qg = q.float().reshape(b, 1, kv, h // kv, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, kc.float())
+    scores = softcap(scores / math.sqrt(hd), cfg.attn_softcap)
+    valid = k_pos[None, :] <= q_positions[:, None]
+    if spec.window is not None:
+        valid &= k_pos[None, :] > q_positions[:, None] - spec.window
+    scores = scores.masked_fill(~valid, -1e30)
+    m_l = scores.amax(dim=-1)                              # [b, kv, g, 1]
+    p = torch.exp(scores - m_l[..., None])
+    num_l = torch.einsum("bkgqs,bskd->bkgqd", p, vc.float())
+    m_g = ctx.max_model(m_l)
+    corr = torch.exp(m_l - m_g)
+    num = ctx.reduce_model(num_l * corr[..., None])
+    den = ctx.reduce_model(p.sum(dim=-1) * corr)
+    out = num / torch.clamp(den, min=1e-38)[..., None]     # [b, kv, g, 1, hd]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(q.dtype)
+    if ctx.splits("wo"):
+        out = ctx.model_slice(out, 2)
     return rp_einsum("bqhk,hkd->bqd", out, params["wo"], leaf="wo"), \
-        new_cache
+        {"k": kc, "v": vc}

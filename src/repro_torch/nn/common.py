@@ -8,8 +8,11 @@ resolver installed each hook is the identity it is in the reference, so
 every single-device path is unchanged. Under a resolver ``shard`` checks
 the local shape against the resolver's spec (it copies nothing), and
 ``rp_einsum`` all-reduces its partial sums over ``model`` where the
-resolver splits the contracted weight. The bf16 wire of the reference's
-v-D (``bf16_reduce``) waits with the other perf variants (ROADMAP.md §1).
+resolver splits the contracted weight: in fp32, or, with v-D's
+``bf16_reduce``, in the model dtype (the partials produced and summed in
+it: 2 bytes an element on the wire); under v-E (``seq=True``) the sum is
+a reduce-scatter over the sequence, and an unsplit contraction keeps the
+rank's slice of the sequence.
 
 ``init_hook`` lets a caller see every ``dense_init`` draw as it is made
 (the sharded initialization keeps each rank's slice of one leaf at a
@@ -101,16 +104,27 @@ def _partials(pattern: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rp_einsum(pattern: str, a: torch.Tensor, b: torch.Tensor, *,
-              leaf: str) -> torch.Tensor:
+              leaf: str, seq: bool = False) -> torch.Tensor:
     """Row-parallel einsum: where the resolver splits ``leaf`` (``"wo"``,
     ``"w_down"``) over ``model``, the contraction's partial sums are taken
     in fp32 from operands in the model dtype, all-reduced over ``model``
     and cast to ``a``'s dtype (XLA's hoisted-fp32 all-reduce in the
-    reference); otherwise, and with no resolver, the plain contraction."""
+    reference); with ``bf16_reduce`` (v-D) the partials are produced and
+    all-reduced in ``a``'s dtype. ``seq`` (v-E: ``a`` holds the whole
+    sequence, the result the rank's slice of it) reduce-scatters over the
+    sequence instead, or slices an unsplit contraction. Otherwise, and
+    with no resolver, the plain contraction."""
     ctx = mesh_ctx()
     if ctx is None or not ctx.splits(leaf):
-        return _contract(pattern, a, b)
-    return ctx.reduce_model(_partials(pattern, a, b), a.dtype)
+        out = _contract(pattern, a, b)
+        return ctx.seq_slice(out) if seq else out
+    if ctx.bf16_reduce:
+        part, wire = _contract(pattern, a, b), a.dtype
+    else:
+        part, wire = _partials(pattern, a, b), torch.float32
+    if seq:
+        return ctx.seq_reduce_scatter(part, a.dtype, wire)
+    return ctx.reduce_model(part, a.dtype, wire)
 
 
 @contextlib.contextmanager

@@ -34,6 +34,7 @@ import functools
 import os
 import pathlib
 import pickle
+import signal
 import subprocess
 import sys
 import textwrap
@@ -212,28 +213,37 @@ def _groups():
 
 class Group:
     """One subprocess running ``code`` (``src`` and ``tests`` on the path,
-    one intra-op thread); ``result()`` waits for it, within its own
-    timeout, and unpickles what it wrote to ``OUT``."""
+    one intra-op thread, ``env`` added to the environment); ``result()``
+    waits for it, within its own timeout, and unpickles what it wrote to
+    ``OUT``."""
 
-    def __init__(self, name, code, timeout):
+    def __init__(self, name, code, timeout, env=None):
         self.out = pathlib.Path(os.environ.get("TMPDIR", "/tmp")) / \
             f"torch-model-axis-{os.getpid()}-{name}.pkl"
         env = dict(os.environ, OMP_NUM_THREADS="1",
                    PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
-                                               str(ROOT / "tests")]))
+                                               str(ROOT / "tests")]),
+                   **(env or {}))
         prog = f"OUT = {str(self.out)!r}\n" + textwrap.dedent(code)
+        # a session of its own: stop() ends the ranks it spawned too
         self.proc = subprocess.Popen([sys.executable, "-c", prog], cwd=ROOT,
                                      env=env, stdout=subprocess.PIPE,
-                                     stderr=subprocess.PIPE, text=True)
+                                     stderr=subprocess.PIPE, text=True,
+                                     start_new_session=True)
         self.timeout, self._value = timeout, None
+
+    def stop(self):
+        """Kill the subprocess and every process it started, if running."""
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.communicate()
 
     def result(self):
         if self._value is None:
             try:
                 _, err = self.proc.communicate(timeout=self.timeout)
             except subprocess.TimeoutExpired:
-                self.proc.kill()
-                self.proc.communicate()
+                self.stop()
                 raise
             assert self.proc.returncode == 0, err[-4000:]
             with open(self.out, "rb") as f:
@@ -248,9 +258,7 @@ def runs():
               for name, code in _groups().items()}
     yield groups
     for g in groups.values():
-        if g.proc.poll() is None:
-            g.proc.kill()
-            g.proc.communicate()
+        g.stop()
 
 
 def probe_result(runs, key):

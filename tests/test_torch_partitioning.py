@@ -207,12 +207,16 @@ def test_partition_spec_normalizes_as_jax():
 
 
 def test_variants_have_rules_but_no_run_time():
+    """Every variant flag has its run time now (``tests/
+    test_torch_perf_variants.py``): nothing refuses one, and each reaches
+    the resolver."""
+    assert not hasattr(PT.Partitioner, "runtime_check")
     for flag in ("seq_shard_kv_decode", "moe_ep", "bf16_reduce",
                  "seq_shard_activations"):
         part = PT.Partitioner(PT.MeshShape(("data", "model"), (1, 2)),
                               C.get_reduced("qwen3-4b"), **{flag: True})
-        with pytest.raises(NotImplementedError, match=flag):
-            part.runtime_check()
+        res = part.logical_resolver(4, 16)
+        assert getattr(res, flag, True) and getattr(part, flag)
 
 
 # ---------------------------------------------------------------------------

@@ -20,13 +20,19 @@ shapes from the rules (``launch.steps.resident``). ``part_kwargs`` go to
 every step's ``Partitioner`` (the tests lower its thresholds so that FSDP
 and ZeRO-1 shard the reduced configs). ``one_device(...)`` returns the
 same keys from the one-device step (``mesh=None``); ``mesh_steps(...)``
-runs a few train steps on a mesh or one device.
+runs a few train steps on a mesh or one device. ``variant_probe(...)``
+is ``mesh_probe`` with every rank counting what the perf variants ran
+(``counting``); ``moe_probe(...)`` runs the MoE layer alone on the ranks
+(v-B's EP branch from whole numpy parameters, outputs and gradients
+gathered whole).
 
 A helper of ``tests/test_torch_model_axis.py`` and of ``chip_smoke.py``
 phase 21, which import it with ``tests/`` on ``sys.path``.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -181,3 +187,130 @@ def mesh_steps(cfg: LMConfig, shape: Sequence[int], batches: Sequence[Dict],
     if mesh is not None and mesh.rank != 0:
         return None
     return {"losses": losses, "state": [_np(t) for t in final]}
+
+
+@contextlib.contextmanager
+def counting():
+    """Within the block, count on this rank what the perf variants run:
+    v-B's all-to-alls (``exchange``) and the experts each EP call holds
+    (``ep_experts``: the largest expert count of a ``w_gate`` it read),
+    v-C's decodes (``kv_seq``), v-E's sequence slices (``seq_slice``), and
+    the dtypes of every all-reduce's operand (``all_reduce``)."""
+    import torch.distributed as tdist
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import moe as MOE
+    counts = {"exchange": 0, "ep_calls": 0, "ep_experts": 0, "kv_seq": 0,
+              "seq_slice": 0, "all_reduce": {}}
+    saved = [(PT.LogicalResolver, "exchange"), (PT.LogicalResolver,
+             "seq_slice"), (A, "_seqshard_decode"), (MOE, "_moe_ffn_ep"),
+             (tdist, "all_reduce")]
+    old = {(o, n): getattr(o, n) for o, n in saved}
+
+    def wrap(obj, name, note):
+        fn = old[obj, name]
+
+        def wrapped(*a, **k):
+            note(*a, **k)
+            return fn(*a, **k)
+        setattr(obj, name, wrapped)
+
+    def bump(key):
+        def note(*a, **k):
+            counts[key] += 1
+        return note
+
+    def ep(params, *a, **k):
+        counts["ep_calls"] += 1
+        counts["ep_experts"] = max(counts["ep_experts"],
+                                   params["w_gate"].shape[0])
+
+    def reduce(t, *a, **k):
+        key = str(t.dtype).replace("torch.", "")
+        counts["all_reduce"][key] = counts["all_reduce"].get(key, 0) + 1
+
+    wrap(PT.LogicalResolver, "exchange", bump("exchange"))
+    wrap(PT.LogicalResolver, "seq_slice", bump("seq_slice"))
+    wrap(A, "_seqshard_decode", bump("kv_seq"))
+    wrap(MOE, "_moe_ffn_ep", ep)
+    wrap(tdist, "all_reduce", reduce)
+    try:
+        yield counts
+    finally:
+        for (o, n), fn in old.items():
+            setattr(o, n, fn)
+
+
+def variant_probe(cfg: LMConfig, shape: Sequence[int], *, device=None,
+                  log: Callable[[str], None] = print, **kw):
+    """``mesh_probe`` counting on every rank what the variants ran; rank 0
+    returns its results with ``counts``, every rank's counts in rank
+    order."""
+    import torch.distributed as tdist
+    with counting() as counts:
+        out = mesh_probe(cfg, shape, device=device, log=log, **kw)
+    every = [None] * tdist.get_world_size()
+    tdist.all_gather_object(every, counts)
+    if out is not None:
+        out["counts"] = every
+    return out
+
+
+def moe_probe(cases: Sequence[Dict], shape: Sequence[int], *, device=None,
+              log: Callable[[str], None] = print):
+    """The MoE layer alone on a ``(data, model)`` mesh with ``moe_ep``, for
+    each case (``params``: whole numpy leaves ``router`` / ``w_gate`` /
+    ``w_up`` / ``w_down``; ``x`` ``[B, S, D]``; ``e``, ``k``, ``cf``):
+    each rank keeps its shards of the parameters (the rules of an
+    unstacked ``moe/<leaf>``), uses them under the EP branch's plans and
+    runs ``moe_ffn`` on its rows of ``x``. Rank 0 returns, per case, the
+    output gathered whole, ``lb_loss``, ``dropped``, the gradients of
+    ``sum(out ** 2)`` over the whole batch (reduced per plan, summed over
+    the batch's axes, gathered whole) and every rank's expert count read
+    by the EP call."""
+    import torch.distributed as tdist
+    from repro_torch import configs as C
+    from repro_torch.nn import moe as MOE
+    from repro_torch.nn.common import sharding_context
+    mesh = make_mesh(shape, ("data", "model"), device)
+    results = []
+    for case in cases:
+        e, k, cf = case["e"], case["k"], case["cf"]
+        cfg = dataclasses.replace(C.get_reduced("moonshot-v1-16b-a3b"),
+                                  num_experts=e, experts_per_tok=k)
+        part = PT.Partitioner(mesh, cfg, moe_ep=True)
+        x = torch.as_tensor(case["x"], device=mesh.device)
+        b, s, _ = x.shape
+        res = part.logical_resolver(b, s)
+        assert res.run.ep, (e, shape)
+        names = ("router", "w_gate", "w_up", "w_down")
+        plans, uses = [], []
+        for name in names:
+            whole = torch.as_tensor(case["params"][name], device=mesh.device)
+            pl = part.plan(f"moe/{name}", whole, res.run)
+            stored = PT.owned(PT.local_shard(whole, pl.spec, mesh), whole)
+            plans.append(pl)
+            uses.append(PT.to_use(stored, pl, mesh).requires_grad_(True))
+        axes = tuple(part.batch_dims(b))
+        with counting() as counts, sharding_context(res):
+            out, aux = MOE.moe_ffn(dict(zip(names, uses)),
+                                   mesh.local(x, axes, 0), e, k, cf)
+        grads = torch.autograd.grad(torch.sum(out ** 2), uses)
+        whole_grads = []
+        for g, pl in zip(grads, plans):
+            if pl.model == "partial":
+                g = mesh.all_reduce(g, ("model",))
+            g = mesh.all_reduce(g, axes)
+            whole_grads.append(_np(PT.gather_whole(
+                PT.from_use(g, pl, mesh).contiguous(), pl.spec, mesh)))
+        every = [None] * tdist.get_world_size()
+        tdist.all_gather_object(every, counts["ep_experts"])
+        # the model ranks' means, averaged over the batch's axes as the
+        # step averages its metrics
+        aux = {n: float(mesh.all_reduce(v.detach(), axes))
+               / mesh.group_size(axes) for n, v in aux.items()}
+        results.append(dict(
+            out=_np(mesh.all_gather(out.detach(), axes, 0)),
+            lb_loss=aux["lb_loss"], dropped=aux["dropped"],
+            grads=dict(zip(names, whole_grads)), ep_experts=every,
+            models=[pl.model for pl in plans]))
+    return results if mesh.rank == 0 else None
