@@ -211,7 +211,8 @@ comparable across versions:
    decode steps) and gemma2-2b / qwen3-4b at full width with one repeat
    per stage (batch 2, prompt 256, gen 8): logits within 1e-4, greedy
    tokens equal wherever the CPU's top-2 margin exceeds 1e-3; then each
-   serve run's prefill and decode loop under ``torch.profiler``. Every LM
+   serve run's prefill and its first 8 decode steps under
+   ``torch.profiler``. Every LM
    cell of phases 12, 18, 19 and 20 logs its analytic bound on the card
    (``launch/roofline.py``: ``max(model_flops / 989e12,
    analytic_memory_bytes / 3.35e12)`` for the config as run) beside its
@@ -265,8 +266,8 @@ comparable across versions:
    the captured step returning its state buffers; (e) K5 captured at its
    counter buffer's size, replayed
    before and after the buffer is outgrown, against its plain version and
-   a launch outside the graph; (f) a stress run, twice: 100 captures of
-   the aifb-b64 step and 100 of the bgs-b1024 forward, each by a new
+   a launch outside the graph; (f) a stress run, twice: 50 captures of
+   the aifb-b64 step and 50 of the bgs-b1024 forward, each by a new
    executor held in a reference cycle, beside a host loader building and
    copying bgs-b1024 batches the whole time, a collection forced before
    every capture, every replay bitwise equal to its first call and no
@@ -314,9 +315,11 @@ comparable across versions:
    those of an op-by-op forward of its batch, no thread left after
    ``close()`` ((d) at most 100 req/s: the device sampler's launches
    saturate the execute thread at 200); (c) RGAT and RGCN as two tenants, 128
-   requests each, offered in all the smaller of 100 req/s and an eighth
-   of the rate RGAT's loader sustains (both loaders and RGCN's growing
-   keys share one interpreter lock), RGCN calibrated with one warm round
+   requests each, offered in all the smaller of 100 req/s and a quarter
+   of the rate one interpreter sustains at one build a request, priced by
+   RGAT's probe builds at each request size's rung (both loaders and
+   RGCN's growing keys share one interpreter lock; the threads' CPU
+   seconds a second are printed), RGCN calibrated with one warm round
    and no floor probes (its execute thread captures during traffic, at
    least one graph): no crash, every response bit for bit its op-by-op
    forward, RGAT without a new key or a capture after warm-up; (e) SLO 0.5 ms: every request rejected at admission or late,
@@ -386,13 +389,13 @@ comparable across versions:
    (B 2, prompt 256, gen 8), routings compared as in (a); (c) full-width
    bf16 serving through ``launch.serve.serve``, stages cut by ``lm_cut``:
    moonshot 8 of 48 layers (B 4, prompt 2048, gen 32), grok 2 of 64 (B 4,
-   1024, 16), mamba2 48 of 48 (B 8, 2048, 32), jamba 8 of 32 (B 4, 2048,
+   1024, 16), mamba2 24 of 48 (B 8, 2048, 32), jamba 8 of 32 (B 4, 2048,
    32): K10 launched exactly (attention layers) x gen times and no other
    kernel, every step's logits finite, the prefill's MoE ``dropped``, a
    second identical run's tokens bit for bit; then the reference's
    decode-continues-full-forward check at capacity factor 8 on the served
    prompts, held at its 2e-2 / 5e-2 in fp32 (moonshot 8 layers, grok 1,
-   mamba2 48, jamba 8 at B 2) and at 0.2 in the served bf16 model, the
+   mamba2 24, jamba 8 at B 2) and at 0.2 in the served bf16 model, the
    decode writing the prefill's caches in place, the two paths' routings
    compared token by token (at most 1e-3 of them may flip; a row whose
    checked token flipped is not held, and at least half the rows are),
@@ -417,7 +420,7 @@ comparable across versions:
    exactly (attention calls a forward) x gen + the encoder's layers, and
    no other kernel, every logit finite, then the decode-continues-full-
    forward check at 0.2 (as phase 19's bf16); (c) full-width bf16
-   training through ``launch.train.train`` (B 4, S 2048, 6 steps; whisper
+   training through ``launch.train.train`` (B 4, S 2048, 4 steps; whisper
    all 24 + 24 layers, llama-vision one 5-layer period): the first step's
    every gradient leaf finite and nonzero, the encoder's and
    ``frontend_proj``'s included, finite losses, the trained params' loss
@@ -440,15 +443,15 @@ comparable across versions:
    resident parameter and moment bytes exactly the sum of its shard
    shapes, K10 launched once an attention layer a forward at the rank's
    local heads; the ms of one fp32 all-reduce over ``model``; (b)
-   qwen3-4b at full width, all 36 layers, bf16, B 4, prompt 2048, gen 32,
-   served on (1, 2) against (1, 1) on the same card: logits within 0.2 up
+   qwen3-4b at full width, 8 of 36 layers, bf16, B 4, prompt 2048, gen
+   16, served on (1, 2) against (1, 1) on the same card: logits within 0.2 up
    to each row's first token that differs, and the tokens the (1, 1)
    run's up to the first position where its top-2 gap is below the
-   logits' difference; K10 launched 36 x 32 times on rank 0; (c) qwen3-4b
-   at full width, 8 of 36 layers, B 4, S 2048, remat off, trained 4 steps
-   on (1, 2): each of the four losses within 2e-3 of phase 18 (b)'s
+   logits' difference; K10 launched 8 x 16 times on rank 0; (c) qwen3-4b
+   at full width, 8 of 36 layers, B 4, S 2048, remat off, trained 2 steps
+   on (1, 2): each of the two losses within 2e-3 of phase 18 (b)'s
    (1, 1) run's, the losses and every rank's state digest bit for bit on
-   a second run, K10 launched 8 x 4 times on rank 0 in each. Each rank's
+   a second run, K10 launched 8 x 2 times on rank 0 in each. Each rank's
    peak GiB is logged beside the (1, 1) run's, and step, prefill and
    decode ms: gloo stages each all-reduce through the host, so these show
    correctness and memory, not speed.
@@ -467,22 +470,46 @@ comparable across versions:
    the runs (later layers' inputs move with every flip), then, with each
    rank's experts forced to the yardstick's, logits within 0.2 up to a
    row's first differing token; each rank's peak GiB; (c)
-   moonshot 2 layers, B 4, S 2048, trained 4 steps with ``moe_ep``, and
+   moonshot 2 layers, B 4, S 2048, trained 2 steps with ``moe_ep``, and
    again with each rank's experts forced to the yardstick's, whose losses
    are held within 2e-3 of the yardstick's (the unforced run's, moved by
-   routing flips, are reported); (d) qwen3-4b, 36 layers,
+   routing flips, are reported); (d) qwen3-4b, 8 of 36 layers,
    decoded with v-C against phase 21 (b)'s (1, 1) logits (0.2); (e)
-   qwen3-4b 8 of 36 layers trained 4 steps with v-D and v-E, its losses
+   qwen3-4b 8 of 36 layers trained 2 steps with v-D and v-E, its losses
    within 2e-3 of phase 18 (b)'s. Step, prefill and decode ms are
    records: gloo stages every collective through the host.
+23. the pod axis (one launch of eight gloo ranks on the card; each part
+   logs the card's name and power limit): (a) ``compressed_psum`` over
+   four pod ranks of one full-width qwen3-4b layer's gradient shapes
+   (about 101 M fp32 values a rank), every member's result the same bits
+   and a numpy emulation's (the MAX of the members' block scales, the
+   int8 payloads summed in int32), within 0.05 x scale + 1e-3 of the
+   exact sum, and ``ErrorFeedback`` over 3 steps on the card bit for bit
+   the CPU's; (b) qwen3-4b at full width, 8 of 36 layers, bf16, served
+   (B 8, prompt 512, 8 tokens) and trained (2 steps of B 8, S 512) on
+   ``(pod, data, model) = (2, 2, 2)`` against one device on the same
+   card (logits within 0.2 up to each row's first differing token, which
+   is allowed only where one device's top-2 gap is within twice the
+   logits' difference; losses 2e-3), every rank's state bytes its
+   shards', each rank's peak GiB; (c) ``runtime/pipeline.pipeline_forward`` over
+   four pod ranks, a full-width qwen3-4b decoder layer a stage, 8
+   microbatches ``[1, 512, 2560]``: in fp32 the outputs bit for bit, and
+   each stage's gradient and the input's whole gradient on every rank
+   within rtol 1e-5 / atol 1e-6, of the four layers run in sequence, K10
+   launched 8 times a rank; in bf16 the tick time
+   and the measured bubble beside ``bubble_fraction``; (d) the dry run
+   (``launch/dryrun.py``) of qwen3-4b ``train_4k`` on 16x16 and
+   ``decode_32k`` on 2x16x16 on fake tensors, and ``launch/report.py``
+   over those two records; (e) each ``examples/*_torch.py`` on the card,
+   exiting 0.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: phase
 6's op-by-op runs of all three models for K1-K5, K7 and K11, phases 9 and 10
 for K9 (the sampler launches K9 outside the executors),
 phase 11's tuned training and serving for K6 and K8, phase 12's serve runs,
 phase 18's full-width training, phase 19's full-width serving and
-training, phase 20's, phase 21's (b) and (c) and phase 22's (b)-(e)
-on rank 0 for K10, each
+training, phase 20's, phase 21's (b) and (c), phase 22's (b)-(e)
+and phase 23's (b) and (c) on rank 0 for K10, each
 counted from 0 just before the run);
 the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3583,6 +3610,9 @@ def phase_tuning(torch, hector_torch, SK, TK, SO, L, R, ops, serve_rgnn,
 # full width, the depth cut to about half (to keep the whole run inside its
 # time as phases joined it): every layer of a config has the shapes of the
 # full depth's, so K10's kept and timed calls are the full depth's
+# decode steps profiled a serve run (all gen - 1 until the whole run
+# outgrew its time: the profiler's post-processing of them took ~40 s)
+LM_PROFILE_DECODE_STEPS = 8
 LM_SERVE_RUNS = (
     ("gemma2-2b", dict(arch="gemma2-2b", repeats=7, batch=4, prompt_len=4096,
                        gen=32)),
@@ -4327,11 +4357,11 @@ def lm_one_repeat(C, arch):
 
 
 def phase_lm_profile(torch, C, TransformerLM, tag, run):
-    """Where a serve run's time goes: its prefill and its decode loop (the
-    run of (b), fresh weights of the same seed) each under
-    ``torch.profiler``: wall ms, device busy ms, K10's device ms, and the
-    top device ops (the profiler's host overhead inflates the walls, so the
-    busy shares are lower bounds)."""
+    """Where a serve run's time goes: its prefill and its decode loop's
+    first ``LM_PROFILE_DECODE_STEPS`` steps (the run of (b), fresh weights
+    of the same seed) each under ``torch.profiler``: wall ms, device busy
+    ms, K10's device ms, and the top device ops (the profiler's host
+    overhead inflates the walls, so the busy shares are lower bounds)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -4349,7 +4379,7 @@ def phase_lm_profile(torch, C, TransformerLM, tag, run):
         state["tok"] = lg[:, -1].argmax(-1, keepdim=True)
 
     def decode():
-        for i in range(gen - 1):
+        for i in range(min(gen - 1, LM_PROFILE_DECODE_STEPS)):
             lg, state["caches"] = model.decode_step(
                 params, state["tok"], plen + i, state["caches"])
             state["tok"] = lg[:, -1].argmax(-1, keepdim=True)
@@ -4391,15 +4421,20 @@ def phase_lm(torch, ops, C, F, serve, TransformerLM):
     (a) K10 against its plain version there and at the edge cases; (d) its
     times; (c) the card against the CPU; then where each serve run's time
     goes. K10's launches are (b)'s, each run counted from 0."""
+    marks = [("start", time.perf_counter())]
     results = new_results([K10])
     results[K10]["sass_tensor_instructions"] = k10_build_report(F)
+    marks.append(("sass", time.perf_counter()))
     serve_runs, captured = {}, {}
     for tag, run in LM_SERVE_RUNS:
         serve_runs[tag], calls = phase_lm_serve(torch, ops, serve, C,
                                                 f"phase 12 {tag}", run)
         captured.update(calls)
+    marks.append(("serve", time.perf_counter()))
     hold_k10(torch, F, captured, results)
+    marks.append(("k10 held and timed", time.perf_counter()))
     k10_edge_cases(torch, F, ops, results)
+    marks.append(("k10 edge cases", time.perf_counter()))
     r = results[K10]
     for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "library_ms"):
         r[key] = sum(c[key] for c in r["calls"])
@@ -4416,9 +4451,13 @@ def phase_lm(torch, ops, C, F, serve, TransformerLM):
         f"{r['max_abs_err']:.3g}")
     del captured
     cpu = phase_lm_cpu(torch, C, serve, TransformerLM)
+    marks.append(("card vs cpu", time.perf_counter()))
     prof = {tag: phase_lm_profile(torch, C, TransformerLM,
                                   f"phase 12 profile {tag}", run)
             for tag, run in LM_SERVE_RUNS}
+    marks.append(("profiles", time.perf_counter()))
+    log("[phase 12] parts' seconds " + json.dumps(
+        {b[0]: round(b[1] - a[1], 2) for a, b in zip(marks, marks[1:])}))
     return dict(kernels=results, serve=serve_runs, cpu=cpu, profile=prof,
                 launches=sum(s["launches"] for s in serve_runs.values()))
 
@@ -4817,9 +4856,11 @@ REPEAT = dict(repeat_after=4, cache_blocks=64, cache_layouts=256,
               num_batches=12)
 CAPTURE_MODELS = ("rgat", "rgcn", "hgt")
 FRESH_BATCHES = 16
-# captures of each kind in a stress run (200 until the whole run outgrew its
-# time: 100 still crosses two full collections, at captures 0 and 50)
-STRESS_CAPTURES = 100
+# captures of each kind in a stress run (200, then 100, until the whole run
+# outgrew its time) and the full collection's period: 50 still crosses two
+# full collections, at captures 0 and 25
+STRESS_CAPTURES = 50
+STRESS_FULL_EVERY = 25
 BGS_STEPS = 5
 
 
@@ -5376,10 +5417,10 @@ def stress(torch, hector_torch, ops, card):
     with the last executors' graphs unreachable in cycles. A collection
     is forced before every capture (``gc.collect(1)``, the young
     generations the last executors sit in, and a full ``gc.collect()``
-    before every 50th), and the collector's own collections run as they
-    come; all are counted. Every replay equals its first (op-by-op) call
-    bit for bit; no collection runs while a stream captures. Run twice in
-    this process."""
+    before every ``STRESS_FULL_EVERY``-th), and the collector's own
+    collections run as they come; all are counted. Every replay equals its
+    first (op-by-op) call bit for bit; no collection runs while a stream
+    captures. Run twice in this process."""
     import gc
 
     import numpy as np
@@ -5437,7 +5478,7 @@ def stress(torch, hector_torch, ops, card):
                 torch.cuda.is_current_stream_capturing()
 
     def collect(i):
-        gc.collect(2 if i % 50 == 0 else 1)
+        gc.collect(2 if i % STRESS_FULL_EVERY == 0 else 1)
 
     def train_capture(i):
         mb, lab, f = steps[i % len(steps)]
@@ -5814,16 +5855,21 @@ ONLINE_RUNS = (
                                slo_ms=0.5)),
 )
 TENANT_REQUESTS = 128
-# req/s over both tenants at most, and the share of the request rate
-# RGAT's loader sustains (``OnlineRecorder.offered_rate``) that they are
-# offered: one process, so both loaders' host builds and the capturing
-# tenant's op-by-op calls and captures share one interpreter lock. A
-# fixed 100 req/s held the 1000 ms SLO on a quiet host (RGAT p99 near
+# req/s over both tenants at most, and the share of the request rate one
+# interpreter sustains for them that they are offered
+# (``OnlineRecorder.offered_rate(..., per_request=True)``): one process,
+# so both loaders' host builds and the capturing tenant's op-by-op calls
+# and captures share one interpreter lock, and at these rates a batch
+# holds one request, so every request costs a build at its size's rung.
+# A fixed 100 req/s held the 1000 ms SLO on a quiet host (RGAT p99 near
 # 0.5 s) and missed it beside 12 CPU-spinning processes
-# (``tenant_probe.py``); an eighth is 40-60 req/s on a quiet host and
-# less on a slower or busier one
+# (``tenant_probe.py``). An eighth of the rate of full top-rung builds
+# (40-65 req/s on a quiet host) kept the two loader threads at 0.80-1.04
+# CPU seconds a second, the interpreter's whole capacity, and missed the
+# SLO on a busier host; a quarter of the per-request rate is about 25
+# req/s on a quiet host and less on a slower or busier one
 TENANT_RATE = 100.0
-TENANT_SHARE = 1 / 8
+TENANT_SHARE = 1 / 4
 
 
 class OnlineRecorder:
@@ -5833,9 +5879,10 @@ class OnlineRecorder:
     of the compiled instance) to keep, from ``start()`` on, every served
     mini-batch with a copy of its input rows, on the execute thread.
     ``_calibration_mb`` is wrapped to time calibration's probe builds of
-    random (not hub) batches at the top rung: the loader's padded build of
-    a full batch on this host (``build_ms``); with the device sampler, its
-    sampling and layouts of the batch up to a synchronize."""
+    random (not hub) batches at every rung (``rung_build_ms``); at the top
+    rung they are the loader's padded build of a full batch on this host
+    (``build_ms``); with the device sampler, its sampling and layouts of
+    the batch up to a synchronize."""
 
     def __init__(self, torch, rt):
         from repro_torch.feats import gather_input
@@ -5844,6 +5891,7 @@ class OnlineRecorder:
         self.rt, self.batches, self.served = rt, [], {}
         self.traffic = False
         self.build_ms = []
+        self.rung_build_ms = {}
         self.device_sampled = rt.shape_floors is None
         top = max(rt.coalescer.rungs)
         cal = rt._calibration_mb
@@ -5851,10 +5899,13 @@ class OnlineRecorder:
         def timed_calibration_mb(rung, index, hubs=False):
             t0 = time.perf_counter()
             mb = cal(rung, index, hubs=hubs)
-            if rung == top and not hubs and index >= _PROBE_BASE:
+            if not hubs and index >= _PROBE_BASE:
                 if self.device_sampled:
                     torch.cuda.synchronize()
-                self.build_ms.append((time.perf_counter() - t0) * 1e3)
+                ms = (time.perf_counter() - t0) * 1e3
+                self.rung_build_ms.setdefault(rung, []).append(ms)
+                if rung == top:
+                    self.build_ms.append(ms)
             return mb
 
         rt._calibration_mb = timed_calibration_mb
@@ -5886,13 +5937,26 @@ class OnlineRecorder:
 
         rt.start = recording_start
 
+    def request_build_ms(self, size_choices) -> float:
+        """A request's build when it is a batch of its own: the mean, over
+        the request sizes, of the probes' median build at the rung that
+        holds the size."""
+        cover = self.rt.coalescer.covering_rung
+        return statistics.mean(
+            statistics.median(self.rung_build_ms[cover(n)])
+            for n in size_choices)
+
     def offered_rate(self, rate_rps: float, size_choices,
-                     share: float = 0.5) -> float:
+                     share: float = 0.5, per_request: bool = False) -> float:
         """The smaller of ``rate_rps`` and ``share`` of the request rate
         the loader sustains: full top-rung batches of requests of the mean
-        size, one build (the probes' median) each. The device sampler
-        builds on the execute thread, so there a batch also costs the top
-        rung's calibrated forward."""
+        size, one build (the probes' median) each; with ``per_request``,
+        one build a request at its size's rung (``request_build_ms``).
+        The device sampler builds on the execute thread, so there a batch
+        also costs the top rung's calibrated forward."""
+        if per_request:
+            sustained = 1e3 / self.request_build_ms(size_choices)
+            return min(rate_rps, sustained * share)
         top = max(self.rt.coalescer.rungs)
         batch_ms = statistics.median(self.build_ms)
         if self.device_sampled:
@@ -6058,16 +6122,51 @@ def online_run(torch, serve_rgnn, tag, kw, card):
     return out
 
 
+def thread_cpu_s():
+    """{thread name: CPU seconds} of this process's threads, from
+    ``/proc/self/task`` (threads the interpreter did not start are summed
+    as ``native``); empty where there is no such directory."""
+    import os
+    import threading
+
+    task = pathlib.Path("/proc/self/task")
+    if not task.is_dir():
+        return {}
+    names = {t.native_id: t.name for t in threading.enumerate()}
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for d in task.iterdir():
+        try:
+            fields = (d / "stat").read_text().rsplit(")", 1)[1].split()
+        except OSError:           # the thread ended
+            continue
+        name = names.get(int(d.name), "native")
+        out[name] = out.get(name, 0.0) + (int(fields[11])
+                                          + int(fields[12])) / tick
+    return out
+
+
+def cpu_share(before, after, wall_s):
+    """CPU seconds a second of each thread name between two
+    ``thread_cpu_s`` readings, largest first."""
+    d = {k: (v - before.get(k, 0.0)) / wall_s for k, v in after.items()}
+    return {k: round(v, 3) for k, v in sorted(d.items(),
+                                              key=lambda kv: -kv[1])
+            if v > 0}
+
+
 def online_tenants(torch, hector_torch, card):
     """Phase 16 (c): RGAT and RGCN as two tenants of one process, 256
     requests routed by model, offered the smaller of ``TENANT_RATE`` and
-    ``TENANT_SHARE`` of the rate RGAT's loader sustains, from its
-    calibration probes. RGAT is calibrated as ``serve_online``
-    calibrates; RGCN with one warm round and no floor probes, so its keys
-    keep growing and its execute thread captures during traffic (at least
-    one graph), beside RGAT's. Every request OK, no new key or capture after warm-up for RGAT (the other tenant's
+    ``TENANT_SHARE`` of the rate one interpreter sustains at one build a
+    request, from RGAT's calibration probes. RGAT is calibrated as
+    ``serve_online`` calibrates; RGCN with one warm round and no floor
+    probes, so its keys keep growing and its execute thread captures
+    during traffic (at least one graph), beside RGAT's. Every request OK,
+    no new key or capture after warm-up for RGAT (the other tenant's
     traffic and captures cross nothing), every OK response equal to an
-    op-by-op forward bit for bit, no thread left."""
+    op-by-op forward bit for bit, no thread left. Prints the CPU seconds
+    a second of the process's threads during traffic, by name."""
     import numpy as np
 
     from repro_torch.core.graph import table3_graph
@@ -6099,30 +6198,42 @@ def online_tenants(torch, hector_torch, card):
                              batches_per_rung=1, iters=1, validate=False)
         r = recs["rgat"]
         rate = r.offered_rate(TENANT_RATE, cfg["size_choices"],
-                              share=TENANT_SHARE)
-        log(f"[phase 16 c tenants] {card}: calibration's padded build of a "
-            f"full RGAT batch {statistics.median(r.build_ms):.3f} ms "
-            f"(median of {len(r.build_ms)} probes) -> offered {rate:.3f} "
-            f"req/s over both tenants (at most {TENANT_RATE:g})")
+                              share=TENANT_SHARE, per_request=True)
+        probes = {n: round(statistics.median(v), 3)
+                  for n, v in sorted(r.rung_build_ms.items())}
+        log(f"[phase 16 c tenants] {card}: calibration's padded RGAT builds "
+            f"by rung (median ms of {len(r.build_ms)} probes) "
+            f"{json.dumps(probes)}; a request of sizes "
+            f"{list(cfg['size_choices'])} alone in its batch "
+            f"{r.request_build_ms(cfg['size_choices']):.3f} ms -> offered "
+            f"{rate:.3f} req/s over both tenants ({TENANT_SHARE:g} of "
+            f"one build a request, at most {TENANT_RATE:g})")
         load = OpenLoopLoad(graph.num_nodes, rate_rps=rate,
                             num_requests=2 * TENANT_REQUESTS,
                             size_choices=cfg["size_choices"], slo_ms=1000.0,
                             models=("rgat", "rgcn"), seed=cfg["seed"])
+        cpu0, t0 = thread_cpu_s(), time.perf_counter()
         load.replay(mt.submit)
         mt.drain(timeout=120.0)
+        cpu = cpu_share(cpu0, thread_cpu_s(), time.perf_counter() - t0)
     finally:
         mt.close()
     st = mt.stats()
     tag = "phase 16 c tenants"
+    log(f"[{tag}] {card}: CPU seconds a second during traffic, by thread "
+        f"{json.dumps(cpu)}")
     for model in recs:
         log_missed(f"c tenant {model}", mt[model])
     check(all(not t.is_alive() for t in mt.worker_threads()),
           f"{tag}: a worker thread outlived close()")
-    out = {}
+    out = {"thread_cpu_share": cpu}
     for model, rec in recs.items():
         s = st["tenants"][model]
         check(s["by_status"] == {OK: TENANT_REQUESTS}, f"{tag} {model}: "
-              f"statuses {s['by_status']}")
+              f"statuses {s['by_status']} at {rate:.3f} req/s offered; "
+              f"latency p50 {s['latency_ms_p50']:.3f} ms, p99 "
+              f"{s['latency_ms_p99']:.3f} ms; CPU seconds a second "
+              f"{json.dumps(cpu)}")
         held = rec.check_responses(torch, f"{tag} {model}")
         check(held == TENANT_REQUESTS, f"{tag} {model}: {held} responses "
               f"held to the op-by-op forward")
@@ -7071,10 +7182,11 @@ SSD_TOL = 1e-4
 # prompt, gen), then the reference's decode-continues-full-forward check
 # with capacity factor 8 (no MoE drops) on the served prompts: held at its
 # bounds (prefill, decode) in fp32, at (repeats, batch) that fit the card
-# in fp32, and in the served bf16 model at ``DECODE_BF16_TOL``
+# in fp32, and in the served bf16 model at ``DECODE_BF16_TOL`` (mamba2 at
+# 24 of its 48 layers: all 48 until the whole run outgrew its time)
 MOE_SSM_SERVE = (("moonshot-v1-16b-a3b", 8, 4, 2048, 32, (8, 4)),
                  ("grok-1-314b", 2, 4, 1024, 16, (1, 4)),
-                 ("mamba2-780m", 48, 8, 2048, 32, (48, 8)),
+                 ("mamba2-780m", 24, 8, 2048, 32, (24, 8)),
                  ("jamba-v0.1-52b", 1, 4, 2048, 32, (1, 2)))
 DECODE_TOL = (2e-2, 5e-2)
 # in bf16 the two paths round apart by a few bf16 ulps of logits near 4,
@@ -7704,8 +7816,9 @@ CROSS_SERVE = (("whisper-medium", 8, 416, 32),
 # AdamW update holds ~24 bytes a parameter (old and new bf16 params and
 # fp32 moments, the gradients and their clipped copy), 235 GB for all 40
 # layers
-CROSS_TRAIN = (("whisper-medium", None, 4, 2048, 6),
-               ("llama-3.2-vision-11b", 1, 4, 2048, 6))
+# (4 steps each: 6 until the whole run outgrew its time)
+CROSS_TRAIN = (("whisper-medium", None, 4, 2048, 4),
+               ("llama-3.2-vision-11b", 1, 4, 2048, 4))
 
 
 def cross_capture_points(cfg, gen):
@@ -7966,14 +8079,15 @@ MODEL_AXIS_SHAPE = dict(batch=4, seq=16, prompt=8, gen=4)
 MODEL_AXIS_TOL = 1e-4
 MODEL_AXIS_GRAD_TOL = (1e-4, 1e-6)
 # (b): served bf16 at full width on (1, 2) against (1, 1), logits held at
-# the bound phase 19 holds served bf16 to
-MODEL_AXIS_SERVE = dict(arch="qwen3-4b", batch=4, prompt_len=2048, gen=32,
-                        mesh=(1, 2))
+# the bound phase 19 holds served bf16 to (8 of 36 layers and 16 tokens:
+# all 36 and 32 until the whole run outgrew its time)
+MODEL_AXIS_SERVE = dict(arch="qwen3-4b", repeats=8, batch=4, prompt_len=2048,
+                        gen=16, mesh=(1, 2))
 MODEL_AXIS_SERVE_TOL = 0.2
-# (c): trained at full width, phase 18 (b)'s cut, on (1, 2) (4 steps: 6
-# until the whole run outgrew its time)
+# (c): trained at full width, phase 18 (b)'s cut, on (1, 2) (2 steps: 6,
+# then 4, until the whole run outgrew its time)
 MODEL_AXIS_TRAIN = dict(arch="qwen3-4b", repeats=8, batch=4, seq=2048,
-                        steps=4, mesh=(1, 2))
+                        steps=2, mesh=(1, 2))
 # every step's loss against phase 18 (b)'s first steps (the same cut, seed,
 # stream and optimizer on one device): about 10x the largest difference the
 # card gave over the six steps (1.89e-4 at step 6, wo / w_down partial sums
@@ -8284,7 +8398,8 @@ def phase_model_axis(torch, C, lm_serve, lm_training, card):
     seconds, out = {}, {}
     t0 = time.perf_counter()
     cases, want = model_axis_cases(C)
-    serve_cfg = C.get_config(MODEL_AXIS_SERVE["arch"])
+    serve_cfg = lm_cut(C, MODEL_AXIS_SERVE["arch"],
+                       MODEL_AXIS_SERVE["repeats"])
     tr = MODEL_AXIS_TRAIN
     train_cfg = lm_cut(C, tr["arch"], tr["repeats"])
     run = MODEL_AXIS_SERVE
@@ -8345,16 +8460,19 @@ VARIANT_BF16_BUDGET = dict(logits=0.1, loss=2e-2)
 VARIANT_EP_SERVE = dict(arch="moonshot-v1-16b-a3b", repeats=8, batch=4,
                         prompt_len=2048, gen=16, mesh=(1, 2))
 # (c): moonshot trained with moe_ep on (1, 2) against the yardstick's run
+# (2 steps: 4 until the whole run outgrew its time)
 VARIANT_EP_TRAIN = dict(arch="moonshot-v1-16b-a3b", repeats=2, batch=4,
-                        seq=2048, steps=4, mesh=(1, 2))
-# (d): qwen3-4b, all 36 layers, decoded with v-C on (1, 2) against phase 21
-# (b)'s (1, 1) logits (its prompts; the first ``gen`` steps)
-VARIANT_KV_SERVE = dict(arch="qwen3-4b", batch=4, prompt_len=2048, gen=16,
-                        mesh=(1, 2))
+                        seq=2048, steps=2, mesh=(1, 2))
+# (d): qwen3-4b, phase 21 (b)'s 8 of 36 layers (all 36 until the whole run
+# outgrew its time), decoded with v-C on (1, 2) against phase 21 (b)'s
+# (1, 1) logits (its prompts; the first ``gen`` steps)
+VARIANT_KV_SERVE = dict(arch="qwen3-4b", repeats=8, batch=4, prompt_len=2048,
+                        gen=16, mesh=(1, 2))
 # (e): qwen3-4b trained with v-D and v-E together on (1, 2) against phase
-# 18 (b)'s losses (the same cut, seed and stream on one device)
+# 18 (b)'s losses (the same cut, seed and stream on one device; 2 steps: 4
+# until the whole run outgrew its time)
 VARIANT_DE_TRAIN = dict(arch="qwen3-4b", repeats=8, batch=4, seq=2048,
-                        steps=4, mesh=(1, 2))
+                        steps=2, mesh=(1, 2))
 VARIANT_SERVE_TOL = 0.2
 VARIANT_LOSS_TOL = 2e-3
 
@@ -8813,7 +8931,8 @@ def phase_variants(torch, C, lm_serve, lm_train, lm_training, model_axis,
                           model_parallel=2, dp=1,
                           part_kwargs=dict(moe_ep=True)),
             ep_train_forced=et_forced,
-            kv_serve=dict(arch=C.get_config(kv["arch"]), batch=kv["batch"],
+            kv_serve=dict(arch=lm_cut(C, kv["arch"], kv["repeats"]),
+                          batch=kv["batch"],
                           prompt_len=kv["prompt_len"], gen=kv["gen"],
                           keep_logits=True, seed=0, model_parallel=2, dp=1,
                           part_kwargs=dict(seq_shard_kv_decode=True)),
@@ -8851,7 +8970,7 @@ def phase_variants(torch, C, lm_serve, lm_train, lm_training, model_axis,
         f"{got['c']['step_ms']}")
     # (d): v-C against phase 21 (b)'s (1, 1) run, its first gen steps
     tag = "phase 22 d"
-    kv_cfg = C.get_config(kv["arch"])
+    kv_cfg = lm_cut(C, kv["arch"], kv["repeats"])
     d = got["d"]
     ref = model_axis["one"]
     check(d["tokens"].shape == (kv["batch"], kv["gen"]), f"{tag}: tokens")
@@ -8887,6 +9006,654 @@ def phase_variants(torch, C, lm_serve, lm_train, lm_training, model_axis,
     out["seconds"] = seconds
     out["launches"] = sum(out[k]["launches"] for k in "bcde")
     log(f"[phase 22] parts' seconds " + json.dumps(
+        {k: round(v, 2) for k, v in seconds.items()}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the pod axis (the compressed cross-pod all-reduce, LM steps on
+# (pod, data, model) ranks, the GPipe pipeline), the dry run and the
+# examples (gloo ranks on the one card)
+# ---------------------------------------------------------------------------
+POD_SHAPE = (2, 2, 2)
+# (b): qwen3-4b at full width, 8 of 36 layers, bf16, on (2, 2, 2) against
+# one device on the same card (the bounds of phases 21-22)
+POD_SERVE = dict(arch="qwen3-4b", repeats=8, batch=8, prompt_len=512, gen=8)
+POD_TRAIN = dict(arch="qwen3-4b", repeats=8, batch=8, seq=512, steps=2)
+POD_SERVE_TOL = 0.2
+POD_LOSS_TOL = 2e-3
+# (a): 4 pod ranks, one full-width qwen3-4b layer's gradient shapes a rank;
+# ErrorFeedback over 3 steps on the same shapes
+PSUM_PODS = 4
+EF_STEPS = 3
+# (c): 4 pod ranks, a full-width qwen3-4b decoder layer a stage, M
+# microbatches [mb, seq, d_model]; fp32 against the layers in sequence
+PIPE = dict(arch="qwen3-4b", microbatches=8, mb=1, seq=512)
+PIPE_GRAD_TOL = (1e-5, 1e-6)
+POD_TIMEOUT = 900
+EXAMPLES = ("quickstart_torch.py", "train_rgnn_torch.py", "serve_lm_torch.py",
+            "train_lm_torch.py")
+
+
+def layer_grad_shapes(C, arch):
+    """The leaves of one decoder layer of ``arch`` at full width (name,
+    unstacked shape): a layer's gradient shapes."""
+    from repro_torch.lm.model import TransformerLM
+    from repro_torch.launch import partitioning as PT
+
+    cfg = lm_cut(C, arch, 1)
+    stage = TransformerLM(cfg, device="meta")._build(None)["stages"][0]
+    return [(PT._path_str(kp), tuple(t.shape[1:]))
+            for kp, t in PT.tree_paths(stage)]
+
+
+def psum_input(shape, leaf: int, rank: int):
+    """Member ``rank``'s fp32 input for leaf ``leaf`` (numpy, from a seed):
+    normal values scaled by ``4 ** rank``, so that the shared scale of a
+    block is one member's."""
+    import numpy as np
+
+    rng = np.random.default_rng([23, leaf, rank])
+    return rng.standard_normal(shape, dtype=np.float32) * np.float32(
+        4.0 ** rank)
+
+
+def pod_psum(shapes, device, log):
+    """(a) on a rank of 4 pods: ``compressed_psum`` of every leaf over
+    ``("pod",)`` (timed), every rank's results' digests; each rank also
+    holds its share of the leaves (``leaf % 4 == rank``) bit for bit
+    against the numpy emulation and within the reference test's bound of
+    the exact sum, and rank 0 gathers the verdicts (the digests say every
+    rank holds the same bits)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compression import compressed_psum
+    from torch_mesh_probe import psum_emulate
+
+    mesh = make_mesh((PSUM_PODS,), ("pod",), device)
+    xs = [torch.as_tensor(psum_input(s, i, mesh.rank), device=mesh.device)
+          for i, (_, s) in enumerate(shapes)]
+    torch.cuda.synchronize(mesh.device)
+    tdist.barrier()
+    t0 = time.perf_counter()
+    ys = [compressed_psum(x, mesh, ("pod",)) for x in xs]
+    torch.cuda.synchronize(mesh.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    host = [y.cpu().numpy() for y in ys]
+    del xs, ys
+    digest = [hashlib.sha256(h.tobytes()).hexdigest() for h in host]
+    every = [None] * PSUM_PODS
+    tdist.all_gather_object(every, digest)
+    out = dict(ms=ms, values=sum(h.size for h in host),
+               same=all(d == every[0] for d in every))
+    exact, bound_ok, worst_rel = True, True, 0.0
+    for i, ((name, s), got) in enumerate(zip(shapes, host)):
+        if i % PSUM_PODS != mesh.rank:
+            continue
+        ins = [psum_input(s, i, r) for r in range(PSUM_PODS)]
+        exact &= bool(np.array_equal(got, psum_emulate(ins)))
+        want = np.sum([x.astype(np.float64) for x in ins], axis=0)
+        err = float(np.max(np.abs(got - want)))
+        scale = float(np.max(np.abs(want)))
+        worst_rel = max(worst_rel, err / scale)
+        bound_ok &= err < 0.05 * scale + 1e-3
+    verdicts = [None] * PSUM_PODS
+    tdist.all_gather_object(verdicts, (exact, bound_ok, worst_rel))
+    out.update(emulated=all(v[0] for v in verdicts),
+               bound_ok=all(v[1] for v in verdicts),
+               worst_err_over_scale=max(v[2] for v in verdicts))
+    return out
+
+
+def pipe_stage(model, spec, positions):
+    """A stage of (c): one decoder layer (``TransformerLM._apply_layer``)."""
+    def stage(p, h):
+        return model._apply_layer(spec, p, h, positions)[0]
+    return stage
+
+
+def pod_pipeline(C, device, log):
+    """(c) on a rank of 4 pods: ``pipeline_forward`` with a full-width
+    qwen3-4b layer a stage, in fp32 against the four layers in sequence on
+    this rank (outputs bit for bit, this stage's gradient slice and the
+    input's whole gradient within rtol / atol), K10's launches of the
+    pipeline's forward; then in bf16
+    without grad, the wall time, the tick time and this rank's busy share
+    (its stage's calls, CUDA events) beside ``bubble_fraction``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.lm.model import TransformerLM
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.runtime.pipeline import bubble_fraction, pipeline_forward
+
+    mesh = make_mesh((PSUM_PODS,), ("pod",), device)
+    dev, p = mesh.device, PSUM_PODS
+    m, mb, s = PIPE["microbatches"], PIPE["mb"], PIPE["seq"]
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(lm_cut(C, PIPE["arch"], p), dtype=dtype)
+        model = TransformerLM(cfg, device=dev, remat=False)
+        spec = cfg.stages[0].pattern[0]
+        g = torch.Generator(device=dev).manual_seed(0)
+        params = model._init_layer(g, spec, (p,))        # stacked [P, ...]
+        x = torch.randn((m, mb, s, cfg.d_model), generator=g, device=dev,
+                        dtype=torch.float32).to(model.dtype)
+        stage = pipe_stage(model, spec, torch.arange(s, device=dev))
+        if dtype == "float32":
+            leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+            x.requires_grad_(True)
+            torch.cuda.synchronize(dev)
+            ops.reset_launch_counts()
+            y = pipeline_forward(stage, params, x, mesh)
+            launches = ops.launch_counts().get(K10, 0)
+            *grads, gx = torch.autograd.grad(torch.sum(y.float() ** 2),
+                                             leaves + [x])
+            # the four layers in sequence, a microbatch at a time
+            outs = []
+            for j in range(m):
+                h = x[j]
+                for i in range(p):
+                    h = stage(tree_map(lambda a: a[i], params), h)
+                outs.append(h)
+            ref = torch.stack(outs)
+            *want, want_x = torch.autograd.grad(
+                torch.sum(ref.float() ** 2), leaves + [x])
+            y, ref = y.detach(), ref.detach()
+            i = mesh.coord["pod"]
+            rtol, atol = PIPE_GRAD_TOL
+            close = all(bool(torch.allclose(a[i], b[i], rtol=rtol, atol=atol))
+                        for a, b in zip(grads, want))
+            err = max(float((a[i] - b[i]).abs().max())
+                      for a, b in zip(grads, want))
+            rel = max(float((a[i] - b[i]).abs().max()
+                            / b[i].abs().max().clamp_min(1e-30))
+                      for a, b in zip(grads, want))
+            out["fp32"] = dict(
+                bitwise=bool(torch.equal(y, ref)),
+                max_abs_out=float((y - ref).abs().max()),
+                grads_close=close, grad_max_abs_err=err,
+                grad_max_rel_err=rel, launches=launches,
+                others_zero=all(bool((a[k] == 0).all()) for a in grads
+                                for k in range(p) if k != i),
+                input_close=bool(torch.allclose(gx, want_x, rtol=rtol,
+                                                atol=atol)),
+                input_max_abs_err=float((gx - want_x).abs().max()),
+                d_model=cfg.d_model)
+            del y, ref, grads, want, outs, leaves, gx, want_x
+        else:
+            ev = []
+
+            def timed(pp, h):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                o = stage(pp, h)
+                b.record()
+                ev.append((a, b))
+                return o
+            with torch.no_grad():
+                pipeline_forward(stage, params, x, mesh)     # warm-up
+                walls = []
+                for _ in range(3):
+                    ev.clear()
+                    torch.cuda.synchronize(dev)
+                    tdist.barrier()
+                    t0 = time.perf_counter()
+                    pipeline_forward(timed, params, x, mesh)
+                    torch.cuda.synchronize(dev)
+                    walls.append((time.perf_counter() - t0) * 1e3)
+            busy = sum(a.elapsed_time(b) for a, b in ev)
+            wall = min(walls)
+            out["bf16"] = dict(wall_ms=walls, tick_ms=wall / (m + p - 1),
+                               stage_ms=busy / m, busy_ms=busy,
+                               bubble=1.0 - busy / walls[walls.index(wall)],
+                               bubble_fraction=bubble_fraction(m, p))
+        del params, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def pod_ranks(launched, serve, train, psum_shapes, device=None, log=print):
+    """A rank of phase 23's one launch of eight ranks (rank 0's result is
+    kept): (b) the serving driver and the training driver on (2, 2, 2)
+    (``pods=2``); then the world splits into two worlds of four ranks (0-3
+    and 4-7, each its own gloo group) and ranks 0-3, four pods, run (a)
+    ``pod_psum`` and (c) ``pod_pipeline``. Each part carries the rank's
+    kernel launches (counted from 0 in it) and its seconds."""
+    import datetime
+    import os
+    import tempfile
+
+    started = time.time() - launched
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch import configs as C
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import train as lm_train
+
+    def counted(fn, **kw):
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(device=device, log=log, **kw)
+        return out, ops.launch_counts(), time.perf_counter() - t0
+
+    out = dict(started=started)
+    r, launches, seconds = counted(lm_serve.serve, **serve)
+    out["serve"] = dict(r, launches=launches, seconds=seconds)
+    r, launches, seconds = counted(lm_train.train, **train)
+    r.pop("state")
+    out["train"] = dict(r, launches=launches, seconds=seconds)
+    rank = tdist.get_rank()
+    tdist.barrier()
+    tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    tdist.init_process_group(
+        backend="gloo", world_size=PSUM_PODS, rank=rank % PSUM_PODS,
+        init_method="file://" + os.path.join(
+            tempfile.gettempdir(),
+            f"chip_smoke-pod-{launched!r}-{rank // PSUM_PODS}"),
+        timeout=datetime.timedelta(seconds=POD_TIMEOUT))
+    if rank >= PSUM_PODS:
+        return None
+    t0 = time.perf_counter()
+    out["psum"] = pod_psum(psum_shapes, device, log)
+    out["psum"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["pipe"] = pod_pipeline(C, device, log)
+    out["pipe"]["seconds"] = time.perf_counter() - t0
+    every = [None] * PSUM_PODS
+    tdist.all_gather_object(every, out["pipe"])
+    out["pipe_ranks"] = every
+    return out
+
+
+def ef_check(torch, shapes, meanwhile, dev="cuda"):
+    """(a)'s ``ErrorFeedback``: 3 steps over one layer's gradient shapes on
+    the card against the CPU, bit for bit, and the telescoping sum (what
+    was applied plus the last residual is what came in). The card's run
+    goes first and hands its memory back; the CPU's runs in a thread while
+    ``meanwhile()`` (the ranks) runs here. Returns the verdict with each
+    run's seconds, and ``meanwhile``'s result."""
+    import concurrent.futures
+
+    import numpy as np
+
+    from repro_torch.optim.compression import ErrorFeedback as EF
+
+    steps = [{name: psum_input(s, i, 10 + t)
+              for i, (name, s) in enumerate(shapes)}
+             for t in range(EF_STEPS)]
+
+    def run(device):
+        res = applied = None
+        for host in steps:
+            g = {k: torch.as_tensor(v, device=device)
+                 for k, v in host.items()}
+            if res is None:
+                res = EF.init(g)
+            comp, res = EF.compress(g, res)
+            applied = comp if applied is None else {
+                k: applied[k] + comp[k] for k in comp}
+        return ({k: v.cpu() for k, v in applied.items()},
+                {k: v.cpu() for k, v in res.items()})
+    def timed(device):
+        t0 = time.perf_counter()
+        if device != "cpu":
+            return run(device), time.perf_counter() - t0
+        # beside the eight ranks: two of the host's cores
+        threads = torch.get_num_threads()
+        torch.set_num_threads(2)
+        try:
+            return run(device), time.perf_counter() - t0
+        finally:
+            torch.set_num_threads(threads)
+
+    card, card_s = timed(dev)
+    torch.cuda.empty_cache()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu_run = pool.submit(timed, "cpu")
+        during = meanwhile()
+        cpu, cpu_s = cpu_run.result()
+    bitwise = all(torch.equal(card[i][k], cpu[i][k]) for i in (0, 1)
+                  for k in card[0])
+    worst = 0.0
+    for name, _ in shapes:
+        came = sum(st[name].astype(np.float64) for st in steps)
+        got = card[0][name].double().numpy() + card[1][name].double().numpy()
+        worst = max(worst, float(np.max(np.abs(got - came))
+                                 / np.max(np.abs(came))))
+    return dict(bitwise=bitwise, telescoping_rel_err=worst,
+                seconds=dict(card=card_s, cpu=cpu_s)), during
+
+
+def pod_serve_checks(torch, got, one, one_logits, cfg, card):
+    """(b): serving on (2, 2, 2) against one device."""
+    run = POD_SERVE
+    tag = "phase 23 b serve"
+    want_k10 = attn_layers(cfg) * run["gen"]
+    check(got["mesh"] == POD_SHAPE, f"{tag}: mesh {got['mesh']}")
+    check(got["launches"].get(K10, 0) == want_k10, f"{tag}: K10 launched "
+          f"{got['launches'].get(K10)} times on rank 0, expected {want_k10}")
+    logits = [t.float() for t in got["logits"]]
+    worst, held, first_diff = 0.0, 0, []
+    for row in range(run["batch"]):
+        diff_at = None
+        for i in range(run["gen"]):
+            a, b = logits[i][row], one_logits[i][row]
+            check(bool(torch.isfinite(a).all()), f"{tag}: logits not finite")
+            d = float((a - b).abs().max())
+            worst = max(worst, d)
+            check(d <= POD_SERVE_TOL, f"{tag}: row {row} step {i}: logits "
+                  f"differ from one device's by {d:.4g}")
+            held += 1
+            if got["tokens"][row, i] != one["tokens"][row, i]:
+                # a flip moves the two tokens' logits toward each other by
+                # at least one device's top-2 gap, each by at most d
+                top = torch.topk(b, 2).values
+                gap = float(top[0] - top[1])
+                check(gap <= 2 * d, f"{tag}: row {row} step {i}: token "
+                      f"{got['tokens'][row, i]} vs one device's "
+                      f"{one['tokens'][row, i]} at a top-2 gap {gap:.4g} "
+                      f"above twice the logits' difference {d:.4g}")
+                diff_at = i
+                break
+        first_diff.append(diff_at)
+    out = dict(prefill_ms=got["prefill_ms"],
+               decode_ms_per_token=got["decode_ms_per_token"],
+               one_prefill_ms=one["prefill_ms"],
+               one_decode_ms_per_token=one["decode_ms_per_token"],
+               max_abs_logit_diff=worst, steps_held=held,
+               first_token_diff=first_diff,
+               rank_peak_gib=got["rank_peak_gib"],
+               one_peak_gib=one["peak_mem_gib"], launches=want_k10,
+               seconds=got["seconds"], **run)
+    log(f"[{tag}] {cfg.name} {cfg.num_layers} layers, {cfg.dtype}, B "
+        f"{run['batch']}, prompt {run['prompt_len']}, gen {run['gen']} on "
+        f"(pod, data, model) = {POD_SHAPE}: logits within {worst:.4g} of "
+        f"one device's over {held} row-steps (bound {POD_SERVE_TOL}); "
+        f"first differing token per row {first_diff}; prefill "
+        f"{got['prefill_ms']:.3f} ms, decode "
+        f"{got['decode_ms_per_token']:.3f} ms a token (gloo through the "
+        f"host; one device: {one['prefill_ms']:.3f} / "
+        f"{one['decode_ms_per_token']:.3f}); peak GiB per rank "
+        f"{got['rank_peak_gib']} against one device's "
+        f"{one['peak_mem_gib']}; K10 launched {want_k10} times on rank 0; "
+        f"served in {got['seconds']:.1f} s; {card}")
+    return out
+
+
+def pod_train_checks(got, cfg, one, card):
+    """(b): training on (2, 2, 2) against one device."""
+    run = POD_TRAIN
+    tag = "phase 23 b train"
+    losses = got["losses"]
+    check(got["plan"].shape == POD_SHAPE, f"{tag}: plan {got['plan']}")
+    check(len(losses) == run["steps"] and all(math.isfinite(x)
+                                              for x in losses),
+          f"{tag}: losses {losses}")
+    diffs = [abs(x - y) for x, y in zip(losses, one["losses"])]
+    check(max(diffs) <= POD_LOSS_TOL, f"{tag}: losses {losses} vs one "
+          f"device's {one['losses']} (bound {POD_LOSS_TOL})")
+    want_k10 = attn_layers(cfg) * run["steps"]
+    check(got["launches"].get(K10, 0) == want_k10, f"{tag}: K10 launched "
+          f"{got['launches'].get(K10)} times on rank 0, expected {want_k10}")
+    check(len(got["resident"]) == 8 and all(
+        r[k]["bytes"] == r[k]["expected"] and r[k]["exact"]
+        for r in got["resident"] for k in ("params", "moments")),
+        f"{tag}: resident bytes {got['resident']}")
+    out = dict(losses=losses, one_losses=one["losses"], loss_diffs=diffs,
+               step_ms=got["step_ms"], one_step_ms=one["step_ms"],
+               rank_peak_gib=got["rank_peak_gib"],
+               one_peak_gib=one["peak_mem_gib"], resident=got["resident"],
+               launches=want_k10, seconds=got["seconds"], **run)
+    log(f"[{tag}] {cfg.name} at full width, {cfg.num_layers} layers, "
+        f"{cfg.dtype}, B {run['batch']}, S {run['seq']} on {POD_SHAPE}: "
+        f"losses {losses}, each within {max(diffs):.3g} of one device's "
+        f"(bound {POD_LOSS_TOL}); step ms {got['step_ms']} (one device "
+        f"{one['step_ms']}; gloo through the host); peak GiB per rank "
+        f"{got['rank_peak_gib']} against one device's "
+        f"{one['peak_mem_gib']}; resident params / moments per rank "
+        + ", ".join(f"{r['params']['bytes']} / {r['moments']['bytes']} B"
+                    for r in got["resident"])
+        + f" = the sum of each rank's shard shapes; K10 launched {want_k10} "
+        f"times on rank 0; trained in {got['seconds']:.1f} s; {card}")
+    return out
+
+
+def pod_psum_checks(got, ef, card):
+    tag = "phase 23 a"
+    a = got["psum"]
+    check(a["same"], f"{tag}: the pod members' results differ")
+    check(a["emulated"], f"{tag}: the results are not the numpy "
+          f"emulation's bit for bit")
+    check(a["bound_ok"], f"{tag}: error beyond 0.05 x scale + 1e-3 "
+          f"({a['worst_err_over_scale']:.4g} of the scale)")
+    check(ef["bitwise"], f"{tag}: ErrorFeedback on the card differs from "
+          f"the CPU's")
+    check(ef["telescoping_rel_err"] < 1e-5, f"{tag}: ErrorFeedback applied "
+          f"+ residual off the inputs by {ef['telescoping_rel_err']:.3g}")
+    log(f"[{tag}] compressed_psum over 4 pod ranks, {a['values']} fp32 "
+        f"values a rank (one qwen3-4b layer's gradient shapes): every "
+        f"member's result the same bits and the numpy emulation's; worst "
+        f"error {a['worst_err_over_scale']:.4g} of the sum's scale (bound "
+        f"0.05); {a['ms']:.3f} ms on rank 0 (gloo through pinned host "
+        f"memory, one MAX and one int32 SUM a leaf); ErrorFeedback over "
+        f"{EF_STEPS} steps on the card bit for bit the CPU's, applied + "
+        f"residual within {ef['telescoping_rel_err']:.3g} of the inputs' "
+        f"sum; {card}")
+    return dict(a, ef=ef)
+
+
+def pod_pipe_checks(got, card):
+    from repro_torch.runtime.pipeline import bubble_fraction
+
+    tag = "phase 23 c"
+    m = PIPE["microbatches"]
+    for r, pr in enumerate(got["pipe_ranks"]):
+        f = pr["fp32"]
+        check(f["bitwise"], f"{tag}: rank {r}: the pipeline's fp32 outputs "
+              f"differ from the layers in sequence by {f['max_abs_out']:.3g}")
+        check(f["grads_close"], f"{tag}: rank {r}: stage gradient off by "
+              f"{f['grad_max_abs_err']:.3g} (rtol / atol {PIPE_GRAD_TOL})")
+        check(f["others_zero"], f"{tag}: rank {r}: gradient outside its "
+              f"stage")
+        check(f["input_close"], f"{tag}: rank {r}: the input's gradient off "
+              f"by {f['input_max_abs_err']:.3g} (rtol / atol "
+              f"{PIPE_GRAD_TOL})")
+        check(f["launches"] == m, f"{tag}: rank {r}: K10 launched "
+              f"{f['launches']} times in the pipeline's forward, expected "
+              f"{m}")
+    b = [pr["bf16"] for pr in got["pipe_ranks"]]
+    bf = bubble_fraction(m, PSUM_PODS)
+    rel = max(pr["fp32"]["grad_max_rel_err"] for pr in got["pipe_ranks"])
+    log(f"[{tag}] pipeline_forward over 4 pod ranks, a full-width qwen3-4b "
+        f"layer a stage, {m} microbatches [{PIPE['mb']}, {PIPE['seq']}, "
+        f"{got['pipe']['fp32']['d_model']}]: fp32 outputs bit for bit the "
+        f"four layers in sequence on every rank, each stage's gradient "
+        f"within "
+        + ", ".join(f"{pr['fp32']['grad_max_abs_err']:.3g}"
+                    for pr in got["pipe_ranks"])
+        + f" (rel {rel:.3g}), the input's whole gradient on every rank "
+        f"within " + ", ".join(f"{pr['fp32']['input_max_abs_err']:.3g}"
+                               for pr in got["pipe_ranks"])
+        + f" (rtol / atol {PIPE_GRAD_TOL}); K10 launched {m} "
+        f"times a rank; bf16 "
+        f"without grad: wall ms (3 runs, rank 0) {b[0]['wall_ms']}, tick "
+        + ", ".join(f"{x['tick_ms']:.3f}" for x in b) + " ms, stage "
+        + ", ".join(f"{x['stage_ms']:.3f}" for x in b) + " ms a call, "
+        f"measured bubble (1 - busy / wall) per rank "
+        + ", ".join(f"{x['bubble']:.4f}" for x in b)
+        + f" beside bubble_fraction({m}, {PSUM_PODS}) = {bf:.4f} (ranks "
+        f"share one card: their stages run side by side); {card}")
+    return dict(ranks=got["pipe_ranks"], bubble_fraction=bf,
+                launches=got["pipe"]["fp32"]["launches"])
+
+
+def pod_dryrun(torch):
+    """(d): the dry run of qwen3-4b ``train_4k`` on 16x16 and
+    ``decode_32k`` on 2x16x16 on fake tensors, then the report of those
+    two records."""
+    import tempfile
+
+    from repro_torch.launch import dryrun, report
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-dryrun-") as tmp:
+        for shape, multi in (("train_4k", False), ("decode_32k", True)):
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell("qwen3-4b", shape, multi, verbose=False)
+            dryrun.save(rec, tmp)
+            check(rec["reason"] == "" and rec["cost"]["flops"] > 0
+                  and rec["collectives"]["collective_bytes"] > 0,
+                  f"phase 23 d: {shape}: {rec['reason']}")
+            out[shape] = dict(
+                mesh=rec["mesh"], seconds=time.perf_counter() - t0,
+                argument_bytes=rec["memory"]["argument_bytes"],
+                flops=rec["cost"]["flops"],
+                collective_bytes=rec["collectives"]["collective_bytes"],
+                mem_bytes_proxy=rec["mem_bytes_proxy"],
+                dominant=rec["roofline_raw"]["dominant"],
+                model_flops_ratio=rec["model_flops_ratio"])
+        text = report.render(report.load(directory=tmp))
+    for head in ("## Dry-run (2 records", "### mesh 16x16",
+                 "### mesh 2x16x16", "## Roofline", "### Collective "
+                 "breakdown", "### Hillclimb picks"):
+        check(head in text, f"phase 23 d: the report lacks {head!r}")
+    for shape, r in out.items():
+        log(f"[phase 23 d] qwen3-4b {shape} on {r['mesh']}, rank 0 on fake "
+            f"tensors ({torch.__version__}, beside the examples): "
+            f"{r['seconds']:.1f} s, "
+            f"arguments {r['argument_bytes'] / 2**30:.3f} GiB, "
+            f"{r['flops']:.4g} FLOPs, {r['collective_bytes']:.4g} wire "
+            f"bytes, memory proxy {r['mem_bytes_proxy']:.4g} B, dominant "
+            f"{r['dominant']}, MODEL/counted FLOPs "
+            f"{r['model_flops_ratio']:.3f}")
+    log("[phase 23 d] report: " + " / ".join(
+        l for l in text.splitlines() if l.startswith("- ")))
+    out["report_lines"] = len(text.splitlines())
+    return out
+
+
+def pod_examples(meanwhile):
+    """(e): every ``examples/*_torch.py`` on the card (its default, no
+    ``--device``), all at once, each exiting 0, while ``meanwhile()`` runs
+    in this process; returns the examples' results and ``meanwhile``'s."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    procs, out = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-examples-") as tmp:
+        for name in EXAMPLES:
+            args = [sys.executable, str(ROOT / "examples" / name)]
+            if name == "train_rgnn_torch.py":
+                args += ["--ckpt", os.path.join(tmp, "rgnn")]
+            elif name == "train_lm_torch.py":
+                args += ["--ckpt-dir", os.path.join(tmp, "lm")]
+            procs[name] = (subprocess.Popen(
+                args, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True), time.perf_counter())
+        try:
+            during = meanwhile()
+            for name, (p, t0) in procs.items():
+                so, se = p.communicate(timeout=POD_TIMEOUT)
+                out[name] = dict(rc=p.returncode,
+                                 seconds=time.perf_counter() - t0)
+                check(p.returncode == 0, f"phase 23 e: {name} exited "
+                      f"{p.returncode}: {se[-2000:]}")
+                last = [l for l in so.splitlines() if l.strip()][-1:]
+                log(f"[phase 23 e] {name} on the card: exit 0 in "
+                    f"{out[name]['seconds']:.1f} s; {last}")
+        finally:
+            for p, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    return out, during
+
+
+def phase_pod(torch, C, lm_serve, lm_train, card, dev="cuda"):
+    """Phase 23: (a) ``compressed_psum`` over 4 pod ranks and
+    ``ErrorFeedback``; (b) qwen3-4b served and trained on (2, 2, 2)
+    against one device; (c) ``pipeline_forward`` over 4 pod ranks; all in
+    one launch of eight ranks (``pod_ranks``); (d) the dry run and the
+    report, while (e) the torch examples run. K10's launches are (b)'s
+    and (c)'s pipeline forward on rank 0."""
+    import tempfile
+
+    from repro_torch.launch.mesh import launch_ranks
+
+    seconds, out = {}, {}
+    shapes = layer_grad_shapes(C, "qwen3-4b")
+    t0 = time.perf_counter()
+    sv, tr = POD_SERVE, POD_TRAIN
+    serve_cfg = lm_cut(C, sv["arch"], sv["repeats"])
+    train_cfg = lm_cut(C, tr["arch"], tr["repeats"])
+    serve_kw = dict(batch=sv["batch"], prompt_len=sv["prompt_len"],
+                    gen=sv["gen"], keep_logits=True, seed=0)
+    train_kw = dict(steps=tr["steps"], batch=tr["batch"], seq=tr["seq"],
+                    ckpt_every=0, seed=0)
+    one = lm_serve.serve(serve_cfg, device=dev,
+                         log=lambda m: log(f"[phase 23 b] {m}"), **serve_kw)
+    one_logits = [t.float().cpu() for t in one.pop("logits")]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-pod-") as tmp:
+        one_train = lm_train.train(train_cfg, device=dev, ckpt_dir=tmp,
+                                   log=lambda m: log(f"[phase 23 b] {m}"),
+                                   **train_kw)
+    one_train.pop("state")
+    torch.cuda.empty_cache()
+    seconds["(b) one device"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pods, dp, mp = POD_SHAPE
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-pod-") as tmp:
+        # (a)'s ErrorFeedback, its CPU half in this process beside the ranks
+        ef, got = ef_check(torch, shapes, lambda: launch_ranks(
+            pod_ranks, pods * dp * mp, dev, dict(
+                launched=time.time(),
+                serve=dict(serve_kw, arch=serve_cfg, pods=pods, dp=dp,
+                           model_parallel=mp),
+                train=dict(train_kw, cfg_or_arch=train_cfg, ckpt_dir=tmp,
+                           pods=pods, dp=dp, model_parallel=mp),
+                psum_shapes=shapes),
+            timeout_s=POD_TIMEOUT), dev)
+    seconds["(a) error feedback, ranks"] = time.perf_counter() - t0
+    log(f"[phase 23] rank 0 started {got['started']:.1f} s after the launch "
+        f"of eight ranks; ErrorFeedback's card half and the launch took "
+        f"{seconds['(a) error feedback, ranks']:.1f} s (serve "
+        f"{got['serve']['seconds']:.1f}, train {got['train']['seconds']:.1f}"
+        f", psum {got['psum']['seconds']:.1f}, pipeline "
+        f"{got['pipe']['seconds']:.1f}; ErrorFeedback on the card "
+        f"{ef['seconds']['card']:.1f}, on the CPU beside the ranks "
+        f"{ef['seconds']['cpu']:.1f})")
+    out["a"] = pod_psum_checks(got, ef, card)
+    out["b"] = dict(
+        serve=pod_serve_checks(torch, got["serve"], one, one_logits,
+                               serve_cfg, card),
+        train=pod_train_checks(got["train"], train_cfg, one_train, card))
+    out["c"] = pod_pipe_checks(got, card)
+    t0 = time.perf_counter()
+    # the dry run (host work on fake tensors) while the examples run
+    out["e"], out["d"] = pod_examples(lambda: pod_dryrun(torch))
+    seconds["(d) dry run, (e) examples"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    out["launches"] = (out["b"]["serve"]["launches"]
+                       + out["b"]["train"]["launches"] + out["c"]["launches"])
+    log(f"[phase 23] parts' seconds " + json.dumps(
         {k: round(v, 2) for k, v in seconds.items()}))
     return out
 
@@ -8964,6 +9731,7 @@ def main(argv=None) -> int:
         kernels = phase_kernels(torch, hector_torch, SK, TK, SO, L, R, ops,
                                 tasks, split)
         seconds["phase 2"] = time.perf_counter() - t0
+        log(f"[phase 2] {seconds['phase 2']:.2f} s")
         t0 = time.perf_counter()
         serve, serve_logits = {}, {}
         for tag, cfg in SERVE_RUNS:
@@ -8975,6 +9743,7 @@ def main(argv=None) -> int:
         prof = {tag: phase_profile(torch, serve_rgnn, cfg, "phase 5 " + tag)
                 for tag, cfg in SERVE_RUNS}
         seconds["phases 3-5"] = time.perf_counter() - t0
+        log(f"[phases 3-5] {seconds['phases 3-5']:.2f} s")
         train, full, train_prof = {}, {}, {}
         for model, task in tasks.items():
             log(f"[phase 6 {model}] start")
@@ -8982,16 +9751,19 @@ def main(argv=None) -> int:
             train[model] = phase_train(torch, ops, train_rgnn, task,
                                        train_cfg[model])
             seconds[f"phase 6 {model}"] = time.perf_counter() - t0
+            log(f"[phase 6 {model}] {seconds[f'phase 6 {model}']:.2f} s")
             log(f"[phase 7 {model}] start")
             t0 = time.perf_counter()
             full[model] = phase_full_graph(torch, task, train_rgnn, TRAIN,
                                            split)
             seconds[f"phase 7 {model}"] = time.perf_counter() - t0
+            log(f"[phase 7 {model}] {seconds[f'phase 7 {model}']:.2f} s")
             log(f"[phase 8 {model}] start")
             t0 = time.perf_counter()
             train_prof[model] = phase_train_profile(torch, task, full[model],
                                                     args.trace_dir)
             seconds[f"phase 8 {model}"] = time.perf_counter() - t0
+            log(f"[phase 8 {model}] {seconds[f'phase 8 {model}']:.2f} s")
         log("[phase 9] start")
         t0 = time.perf_counter()
         device_serve = {
@@ -9000,11 +9772,13 @@ def main(argv=None) -> int:
                                     serve_logits[tag])
             for tag, cfg in DEVICE_SERVE_RUNS}
         seconds["phase 9"] = time.perf_counter() - t0
+        log(f"[phase 9] {seconds['phase 9']:.2f} s")
         log("[phase 10] start")
         t0 = time.perf_counter()
         device_train = phase_device_train(torch, ops, train_rgnn,
                                           train_cfg["rgat"], train["rgat"])
         seconds["phase 10"] = time.perf_counter() - t0
+        log(f"[phase 10] {seconds['phase 10']:.2f} s")
         log("[phase 11] start")
         t0 = time.perf_counter()
         tuning = phase_tuning(torch, hector_torch, SK, TK, SO, L, R, ops,
@@ -9014,21 +9788,25 @@ def main(argv=None) -> int:
             kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
                                                split[name])
         seconds["phase 11"] = time.perf_counter() - t0
+        log(f"[phase 11] {seconds['phase 11']:.2f} s")
         log("[phase 12] start")
         t0 = time.perf_counter()
         lm = phase_lm(torch, ops, C, F, lm_serve, TransformerLM)
         kernels.update(lm.pop("kernels"))
         seconds["phase 12"] = time.perf_counter() - t0
+        log(f"[phase 12] {seconds['phase 12']:.2f} s")
         log("[phase 13] start")
         t0 = time.perf_counter()
         obs_out = phase_obs(torch, hector_torch, ops, serve_rgnn,
                             train_rgnn, train_prof["rgat"], tuning, card)
         seconds["phase 13"] = time.perf_counter() - t0
+        log(f"[phase 13] {seconds['phase 13']:.2f} s")
         log("[phase 14] start")
         t0 = time.perf_counter()
         capture = phase_capture(torch, hector_torch, SK, L, ops,
                                 serve_rgnn, train_rgnn, card)
         seconds["phase 14"] = time.perf_counter() - t0
+        log(f"[phase 14] {seconds['phase 14']:.2f} s")
         log("[phase 15] start")
         t0 = time.perf_counter()
         features = phase_features(torch, hector_torch, ops, serve_rgnn,
@@ -9078,6 +9856,11 @@ def main(argv=None) -> int:
         model_axis.pop("one")
         seconds["phase 22"] = time.perf_counter() - t0
         log(f"[phase 22] {seconds['phase 22']:.2f} s")
+        log("[phase 23] start")
+        t0 = time.perf_counter()
+        pod = phase_pod(torch, C, lm_serve, lm_train, card)
+        seconds["phase 23"] = time.perf_counter() - t0
+        log(f"[phase 23] {seconds['phase 23']:.2f} s")
         # the main path's launches, each run from counts set to 0 just
         # before it, each run op by op so that every kernel the card runs
         # goes through its wrapper: phase 6 of every model (K1-K5, K7),
@@ -9087,8 +9870,9 @@ def main(argv=None) -> int:
         # (K10), phase 18's full-width training (K10), phase 19's
         # full-width MoE / SSM serving and training (K10), phase 20's
         # full-width cross-attention serving and training (K10), and phase
-        # 21's full-width serving and training on the (1, 2) mesh and phase
-        # 22's with the perf variants (K10, on rank 0, counted there)
+        # 21's full-width serving and training on the (1, 2) mesh, phase
+        # 22's with the perf variants and phase 23's on (2, 2, 2) and in
+        # the pipeline's stages (K10, on rank 0, counted there)
         launches = {name: sum(t["launches"][name] for t in train.values())
                     for name in KERNELS}
         launches[K9] = (sum(r["launches"][K9] for r in device_serve.values())
@@ -9096,10 +9880,13 @@ def main(argv=None) -> int:
         launches.update(tuning["launches"])
         launches[K10] = (lm["launches"] + lm_training["launches"]
                          + moe_ssm["launches"] + cross["launches"]
-                         + model_axis["launches"] + variants["launches"])
+                         + model_axis["launches"] + variants["launches"]
+                         + pod["launches"])
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on the main path")
     except Failed as e:
+        log(f"[timing] seconds per phase until the failure: "
+            + json.dumps({k: round(v, 2) for k, v in seconds.items()}))
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     seconds["total"] = time.perf_counter() - t_start
@@ -9137,7 +9924,7 @@ def main(argv=None) -> int:
             device_train=device_train, tuning=tuning, lm=lm, obs=obs_out,
             capture=capture, features=features, online=online, dist=dist,
             lm_training=lm_training, moe_ssm=moe_ssm, cross=cross,
-            model_axis=model_axis, variants=variants,
+            model_axis=model_axis, variants=variants, pod=pod,
             split_timed=split["timed"], k5_sass=k5_sass,
             gemm_ptxas=gemm_ptxas,
             torch=torch.__version__,

@@ -33,9 +33,10 @@ last key) averages every value, as the Pallas kernel's does.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -279,7 +280,42 @@ def flash_attention(
                     q_offset=q_offset)
 
 
-def _forward(q, k, v, *, causal, window, softcap, q_offset):
+_WATCHERS: list = []
+
+
+@contextlib.contextmanager
+def watch_forward(before: Callable[[], None],
+                  after: Callable[..., None]):
+    """While inside, ``before()`` runs before every forward of K10 and
+    ``after(q, k, v, out)`` after it (``out`` ``None`` if it raised): for
+    tools that account for K10 as one kernel, such as the dry run's
+    memory proxy, which skips the plain version's ops between the two."""
+    pair = (before, after)
+    _WATCHERS.append(pair)
+    try:
+        yield
+    finally:
+        _WATCHERS.remove(pair)
+
+
+def _forward(q, k, v, **opts):
+    """The forward of K10 on checked arguments, inside the watchers'
+    ``before`` / ``after`` (``watch_forward``)."""
+    if not _WATCHERS:
+        return _run(q, k, v, **opts)
+    watchers = list(_WATCHERS)
+    for before, _ in watchers:
+        before()
+    out = None
+    try:
+        out = _run(q, k, v, **opts)
+        return out
+    finally:
+        for _, after in watchers:
+            after(q, k, v, out)
+
+
+def _run(q, k, v, *, causal, window, softcap, q_offset):
     """The forward of K10 on checked arguments: the plain version on a CPU
     tensor, the kernel on a CUDA one."""
     b, sq, h, hd, sk, kv = _check_shapes(q, k, v)

@@ -19,7 +19,10 @@ port has one process per rank, joined by ``torch.distributed``.
   ``gather_replicated`` (gradient sliced: for replicated consumers),
   ``slice_to`` (this rank's piece; gradient all-gathered),
   ``reduce_scatter_from`` (gradient all-gathered) and ``exchange`` (an
-  all-to-all; gradient the reverse all-to-all). A reduce-scatter is an
+  all-to-all; gradient the reverse all-to-all); for the pipeline over
+  ``pod``, ``send_recv`` (a ring shift along one axis, gloo ``isend`` /
+  ``irecv``) and ``broadcast`` (one position's tensor to every rank of an
+  axis). A reduce-scatter is an
   all-reduce of which the rank keeps its piece (gloo's reduce-scatter is
   not used). The rules of ``launch/partitioning.py`` read only its
   ``axis_names`` and ``shape``.
@@ -268,6 +271,42 @@ class RankMesh:
         out = torch.empty_like(src)
         tdist.all_to_all_single(out, src, group=self.groups[axes])
         return out.to(t.device)
+
+    def rank_at(self, axis: str, position: int) -> int:
+        """The global rank that shares this rank's coordinates but sits at
+        ``position`` on ``axis``."""
+        coord = dict(self.coord, **{axis: position % self.shape[axis]})
+        r = 0
+        for a, n in zip(self.axis_names, self.sizes):
+            r = r * n + coord[a]
+        return r
+
+    def send_recv(self, t: torch.Tensor, axis: str, shift: int = 1):
+        """``t`` sent to the rank ``shift`` places on along ``axis`` (a
+        ring); what the rank ``shift`` places back sent, on ``t``'s device
+        (``t`` itself on one rank)."""
+        n = self.group_size(axis)
+        if n == 1:
+            return t
+        i = self.coord[axis]
+        src = _host(t.detach(), self.backend)
+        out = torch.empty_like(src)
+        group = self.groups[(axis,)]
+        reqs = [tdist.isend(src, self.rank_at(axis, i + shift), group=group),
+                tdist.irecv(out, self.rank_at(axis, i - shift), group=group)]
+        for r in reqs:
+            r.wait()
+        return out.to(t.device)
+
+    def broadcast(self, t: torch.Tensor, axis: str, position: int):
+        """The tensor of the rank at ``position`` on ``axis``, on every rank
+        of that axis (``t``'s shape and dtype; ``t`` itself on one rank)."""
+        if self.group_size(axis) == 1:
+            return t
+        buf = _host(t.detach(), self.backend)
+        tdist.broadcast(buf, self.rank_at(axis, position),
+                        group=self.groups[(axis,)])
+        return buf.to(t.device)
 
     def reduce_scatter(self, t: torch.Tensor, axes, dim: int):
         """The sum of ``t`` over ``axes``, this rank's piece along

@@ -53,7 +53,8 @@ import torch
 from repro_torch import configs as C
 from repro_torch.launch import partitioning as PT
 from repro_torch.launch import steps as ST
-from repro_torch.launch.mesh import in_ranks, launch_ranks, make_mesh
+from repro_torch.launch.mesh import (in_ranks, launch_ranks, make_mesh,
+                                     plan_elastic_mesh)
 from repro_torch.lm.config import LMConfig, ShapeCell
 from repro_torch.lm.model import TransformerLM
 
@@ -139,7 +140,7 @@ def generate(pre, dec, params: Dict, prompts: torch.Tensor, gen: int, *,
 def serve(arch: Union[str, LMConfig] = "gemma2-2b", *, reduced: bool = False,
           batch: int = 4, prompt_len: int = 32, gen: int = 16, seed: int = 0,
           device=None, keep_logits: bool = False, model_parallel: int = 1,
-          dp: int = 1, part_kwargs: Optional[Dict] = None,
+          dp: int = 1, pods: int = 1, part_kwargs: Optional[Dict] = None,
           log: Callable[[str], None] = print) -> Dict:
     """Serve one prompt batch of ``arch`` (a config, or an arch id: its
     full config, or its reduced one with ``reduced``) on ``device``
@@ -151,25 +152,31 @@ def serve(arch: Union[str, LMConfig] = "gemma2-2b", *, reduced: bool = False,
     and, with ``keep_logits``, each step's logits. ``model_parallel`` x
     ``dp`` above 1 serves on that mesh of ranks (started here unless this
     process is one of them): the result is rank 0's, its logits on the
-    host, with every rank's peak GiB (``rank_peak_gib``). ``part_kwargs``:
-    the mesh's ``Partitioner`` flags (the perf variants)."""
-    n = model_parallel * dp
+    host, with every rank's peak GiB (``rank_peak_gib``). ``pods`` above 1
+    (no driver flag, as in ``launch.train.train``) serves on ``(pods, dp,
+    model_parallel)`` ranks over ``("pod", "data", "model")``; the mesh
+    is the plan's (``plan_elastic_mesh(..., pods=)``), as training's.
+    ``part_kwargs``: the mesh's ``Partitioner`` flags (the perf
+    variants)."""
+    n = model_parallel * dp * pods
     if n > 1 and not in_ranks():
         return launch_ranks(serve, n, device, dict(
             arch=arch, reduced=reduced, batch=batch, prompt_len=prompt_len,
             gen=gen, seed=seed, keep_logits=keep_logits,
-            model_parallel=model_parallel, dp=dp, part_kwargs=part_kwargs))
+            model_parallel=model_parallel, dp=dp, pods=pods,
+            part_kwargs=part_kwargs))
     if isinstance(arch, LMConfig):
         cfg = arch
     else:
         cfg = C.get_reduced(arch) if reduced else C.get_config(arch)
-    mesh = (make_mesh((dp, model_parallel), ("data", "model"), device)
-            if n > 1 else None)
+    plan = plan_elastic_mesh(n, model_parallel=model_parallel, pods=pods)
+    shape = plan.shape
+    mesh = make_mesh(shape, plan.axes, device) if n > 1 else None
     model = TransformerLM(cfg, device=mesh.device if mesh else device)
     dev = model.device
     log(f"[serve] {cfg.name}: device={dev}, {cfg.num_layers} layers, "
         f"batch={batch}, prompt={prompt_len}, gen={gen}"
-        + (f", mesh=({dp}, {model_parallel})" if mesh else ""))
+        + (f", mesh={shape}" if mesh else ""))
     g = torch.Generator(device=dev).manual_seed(seed)
     pre, dec = serve_steps(cfg, batch, prompt_len + gen, device=dev,
                            mesh=mesh, part_kwargs=part_kwargs)
@@ -202,7 +209,7 @@ def serve(arch: Union[str, LMConfig] = "gemma2-2b", *, reduced: bool = False,
             "decode_ms_per_token": t_dec * 1e3 / max(1, gen - 1),
             "tok_s": tps, "peak_mem_gib": peak, "logits": out["logits"],
             "num_layers": cfg.num_layers,
-            "mesh": (dp, model_parallel), "rank_peak_gib": rank_peaks}
+            "mesh": shape, "rank_peak_gib": rank_peaks}
 
 
 def main(argv=None):

@@ -78,7 +78,7 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
           seq: int = 64, ckpt_dir: str = DEFAULT_CKPT_DIR,
           ckpt_every: int = 5, simulate_failure: int = -1,
           resume: bool = False, device=None, seed: int = 0,
-          model_parallel: int = 1, dp: int = 1,
+          model_parallel: int = 1, dp: int = 1, pods: int = 1,
           part_kwargs: Optional[Dict] = None,
           log: Callable[[str], None] = print) -> Dict:
     """Train ``cfg_or_arch`` (a config, or an arch id: its full config, or
@@ -98,22 +98,27 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
     0's, with every rank's peak GiB (``rank_peak_gib``), resident state
     bytes against its shards' (``resident``, ``launch.steps.resident``)
     and fp64 sum of each leaf (``state_digest``); its ``state`` is
-    ``None`` (the shards stay on the ranks). ``part_kwargs``: the mesh's
-    ``Partitioner`` flags (the perf variants; ignored on one device)."""
-    n = model_parallel * dp
+    ``None`` (the shards stay on the ranks). ``pods`` above 1 (no driver
+    flag: the reference's drivers build no pod mesh) trains on ``(pods,
+    dp, model_parallel)`` ranks over ``("pod", "data", "model")``, the
+    plan's (``plan_elastic_mesh(..., pods=)``). ``part_kwargs``: the
+    mesh's ``Partitioner`` flags (the perf variants; ignored on one
+    device)."""
+    n = model_parallel * dp * pods
     if n > 1 and not in_ranks():
         return launch_ranks(train, n, device, dict(
             cfg_or_arch=cfg_or_arch, reduced=reduced, steps=steps,
             batch=batch, seq=seq, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
             simulate_failure=simulate_failure, resume=resume, seed=seed,
-            model_parallel=model_parallel, dp=dp, part_kwargs=part_kwargs))
+            model_parallel=model_parallel, dp=dp, pods=pods,
+            part_kwargs=part_kwargs))
     if isinstance(cfg_or_arch, LMConfig):
         cfg = cfg_or_arch
     else:
         cfg = (C.get_reduced(cfg_or_arch) if reduced
                else C.get_config(cfg_or_arch))
     cell = ShapeCell("custom", seq, batch, "train")
-    plan = plan_elastic_mesh(n, model_parallel=model_parallel)
+    plan = plan_elastic_mesh(n, model_parallel=model_parallel, pods=pods)
 
     def build(plan):
         mesh = make_mesh(plan.shape, plan.axes, device) if n > 1 else None
@@ -185,7 +190,8 @@ def train(cfg_or_arch: Union[str, LMConfig] = "qwen3-4b", *,
                     raise RuntimeError("the controller saw no failure")
                 # drain -> replan -> rebuild -> restore -> resume
                 ckpt.wait()
-                new_plan = plan_elastic_mesh(n, model_parallel=plan.shape[-1])
+                new_plan = plan_elastic_mesh(n, model_parallel=plan.shape[-1],
+                                             pods=pods)
                 mesh, bundle = build(new_plan)
                 part = bundle.partitioner
                 specs = ST.state_specs(part, model) if part else None

@@ -7,7 +7,11 @@ to int32 and dequantizes: 4x fewer bytes on the wire than fp32. The
 shared scale is an all-reduce MAX (exact) and the payload an all-reduce
 SUM of integers (exact, in any order), so the result is the same bits on
 every member and in every order: the port's rule of no float all-reduce
-holds. ``ErrorFeedback`` carries each step's quantization residual into
+holds. The collectives go through the caller's ``launch.mesh.RankMesh``
+over its ``axes`` (the pods: ``("pod",)``), so gloo on a card gets the
+host staging that every other collective of the mesh gets; without a mesh
+(one member) nothing is exchanged. A failed collective raises.
+``ErrorFeedback`` carries each step's quantization residual into
 the next (EF-SGD), which removes the bias. Rounding is half-to-even, as
 ``jnp.round``'s.
 """
@@ -16,7 +20,6 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 import torch
-import torch.distributed as tdist
 
 from repro_torch.optim.adamw import tree_like, tree_leaves, tree_map
 
@@ -30,6 +33,14 @@ def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:
     return flat.reshape(-1, block).to(torch.float32)
 
 
+def _scale(blocks: torch.Tensor) -> torch.Tensor:
+    """Each block's ``max |x| / 127``, a true division (CUDA divides by a
+    Python scalar as a product with its rounded reciprocal, which can
+    differ from the quotient in the last bit)."""
+    amax = torch.amax(torch.abs(blocks), dim=1, keepdim=True)
+    return amax / torch.full_like(amax, 127.0)
+
+
 def _quantize(blocks: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
 
@@ -39,7 +50,7 @@ def quantize_int8(x: torch.Tensor,
     """Blockwise symmetric int8 quantization: ``(q [n, block] int8,
     scales [n, 1] fp32)``."""
     blocks = _blocks(x, block)
-    scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / 127.0
+    scale = _scale(blocks)
     scale = torch.clamp(scale, min=1e-12)
     return _quantize(blocks, scale), scale
 
@@ -53,21 +64,22 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, shape,
     return flat[:n].reshape(tuple(shape)).to(dtype)
 
 
-def compressed_psum(x: torch.Tensor, group: Optional[Any] = None,
+def compressed_psum(x: torch.Tensor, mesh: Optional[Any] = None,
+                    axes: Tuple[str, ...] = ("pod",),
                     block: int = 256) -> torch.Tensor:
-    """The sum of ``x`` over the members of ``group`` (a
-    ``torch.distributed`` process group; ``None``: one member) in the int8
-    wire format: quantize against the per-block MAX of the members'
-    scales, sum the int8 payload in int32, dequantize. Every member
-    returns the same tensor, in ``x``'s shape and dtype."""
+    """The sum of ``x`` over the ranks of ``mesh``'s ``axes`` (a
+    ``launch.mesh.RankMesh``; ``None``: one member) in the int8 wire
+    format: quantize against the per-block MAX of the members' scales,
+    sum the int8 payload in int32, dequantize. Every member returns the
+    same tensor, in ``x``'s shape and dtype."""
     blocks = _blocks(x, block)
-    scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / 127.0
-    if group is not None:
-        tdist.all_reduce(scale, op=tdist.ReduceOp.MAX, group=group)
+    scale = _scale(blocks)
+    if mesh is not None:
+        scale = mesh.all_reduce(scale, axes, op="max")
     scale = torch.clamp(scale, min=1e-12)
     acc = _quantize(blocks, scale).to(torch.int32)
-    if group is not None:
-        tdist.all_reduce(acc, op=tdist.ReduceOp.SUM, group=group)
+    if mesh is not None:
+        acc = mesh.all_reduce(acc, axes, op="sum")
     out = (acc.to(torch.float32) * scale).reshape(-1)
     return out[:x.numel()].reshape(x.shape).to(x.dtype)
 

@@ -7,7 +7,8 @@ grow and are captured during traffic; its check wants every request
 runs phase 16 (a) and (b) first (``--warm``, as ``chip_smoke.py`` does),
 then, for each count of spinning processes, runs (c) ``--runs`` times at
 each offered rate: ``rule`` is the script's (the smaller of
-``TENANT_RATE`` and ``TENANT_SHARE`` of the rate RGAT's loader sustains),
+``TENANT_RATE`` and ``TENANT_SHARE`` of the rate one interpreter sustains
+at one build a request, from RGAT's calibration probes),
 a number is a fixed rate in req/s whatever the host. One JSON line a run;
 the exit code is 0 when every run ended, passed or not.
 
@@ -80,7 +81,8 @@ def main(argv=None) -> int:
                                       for m in ("rgat", "rgcn")
                                       for q in (50, 99)},
                                    rgcn_captures=out["rgcn"][
-                                       "captures_after_warmup"])
+                                       "captures_after_warmup"],
+                                   thread_cpu_share=out["thread_cpu_share"])
                     except CS.Failed as e:
                         rec.update(ok=False, failed=str(e))
                     print(json.dumps(rec), flush=True)

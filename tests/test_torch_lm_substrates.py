@@ -169,13 +169,15 @@ import pickle, sys
 import numpy as np
 import torch
 import torch.distributed as dist
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.optim.compression import compressed_psum
 rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 dist.init_process_group("gloo", init_method=init, world_size=2, rank=rank)
 try:
     x = np.random.default_rng(rank).normal(size=(700,)).astype(np.float32)
     x *= 10.0 ** rank
-    y = compressed_psum(torch.from_numpy(x), dist.group.WORLD)
+    mesh = make_mesh((2,), ("pod",), "cpu")
+    y = compressed_psum(torch.from_numpy(x), mesh, ("pod",))
     with open(out, "wb") as f:
         pickle.dump(y.numpy(), f)
 finally:
@@ -184,7 +186,7 @@ finally:
 
 
 def test_compressed_psum_two_members(tmp_path):
-    """Two gloo ranks: both get the same bits, which are a numpy
+    """Two gloo ranks of a ``("pod",)`` mesh: both get the same bits, which are a numpy
     emulation's (the MAX of the members' block scales, the int8 payloads
     summed in int32), within one shared scale of the exact sum."""
     env = dict(os.environ, OMP_NUM_THREADS="1",

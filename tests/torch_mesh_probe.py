@@ -24,10 +24,14 @@ runs a few train steps on a mesh or one device. ``variant_probe(...)``
 is ``mesh_probe`` with every rank counting what the perf variants ran
 (``counting``); ``moe_probe(...)`` runs the MoE layer alone on the ranks
 (v-B's EP branch from whole numpy parameters, outputs and gradients
-gathered whole).
+gathered whole). For the pod axis: ``psum_emulate(...)``, the numpy
+yardstick of ``compressed_psum``; ``psum_probe(...)`` and
+``pipeline_probe(...)``, ``compressed_psum`` and ``pipeline_forward`` on
+the ranks; ``dryrun_probe(...)``, the dry run's step on real ranks.
 
-A helper of ``tests/test_torch_model_axis.py`` and of ``chip_smoke.py``
-phase 21, which import it with ``tests/`` on ``sys.path``.
+A helper of the ``tests/test_torch_*`` mesh tests and of
+``chip_smoke.py`` phases 21-23, which import it with ``tests/`` on
+``sys.path``.
 """
 from __future__ import annotations
 
@@ -46,6 +50,8 @@ from repro_torch.lm.config import LMConfig, ShapeCell
 from repro_torch.lm.model import TransformerLM, params_from_reference
 from repro_torch.optim import AdamW
 from repro_torch.optim.adamw import tree_leaves, tree_like
+from repro_torch.optim.compression import compressed_psum
+from repro_torch.runtime.pipeline import pipeline_forward
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -314,3 +320,94 @@ def moe_probe(cases: Sequence[Dict], shape: Sequence[int], *, device=None,
             grads=dict(zip(names, whole_grads)), ep_experts=every,
             models=[pl.model for pl in plans]))
     return results if mesh.rank == 0 else None
+
+
+def psum_emulate(xs, block=256):
+    """The reference's ``compressed_psum`` over members ``xs`` (numpy
+    arrays of one shape), in numpy: the per-block MAX of the members'
+    scales, each member's int8 payload summed in int32."""
+    n = xs[0].size
+    pad = (-n) % block
+    blocks = [np.pad(x.reshape(-1), (0, pad)).reshape(-1, block)
+              for x in xs]
+    scale = np.maximum.reduce([np.abs(b).max(1, keepdims=True)
+                               / np.float32(127) for b in blocks])
+    scale = np.maximum(scale, np.float32(1e-12))
+    acc = np.zeros(blocks[0].shape, dtype=np.int32)
+    for b in blocks:
+        acc += np.clip(np.rint(b / scale), -127, 127).astype(np.int32)
+    return (acc.astype(np.float32) * scale).reshape(-1)[:n].reshape(
+        xs[0].shape)
+
+
+def psum_probe(shape: Sequence[int], axes: Sequence[str], xs, *,
+               psum_axes: Sequence[str] = ("pod",), device=None,
+               log: Callable[[str], None] = print):
+    """``compressed_psum`` of ``xs[rank]`` (numpy) over ``psum_axes`` of
+    ``make_mesh(shape, axes)``; rank 0 returns every rank's result in rank
+    order (numpy)."""
+    mesh = make_mesh(shape, axes, device)
+    y = compressed_psum(torch.as_tensor(np.asarray(xs[mesh.rank]),
+                                        device=mesh.device), mesh,
+                        tuple(psum_axes))
+    every = mesh.all_gather(y[None].contiguous(), mesh.axis_names, 0)
+    return _np(every) if mesh.rank == 0 else None
+
+
+def tanh_stage(p, h):
+    """The reference test's stage: ``tanh(h @ w)``."""
+    return torch.tanh(h @ p["w"])
+
+
+def pipeline_probe(shape: Sequence[int], axes: Sequence[str], w, x, *,
+                   axis: str = "pod", device=None,
+                   log: Callable[[str], None] = print):
+    """``pipeline_forward(tanh_stage, {"w": w}, x, mesh, axis)`` on the
+    ranks (``w`` ``[P, d, d]``, ``x`` ``[M, mb, d]``, numpy): rank 0
+    returns every rank's outputs, the gradient of ``sum(out ** 2)`` over
+    ``w`` (each stage's slice from its own ranks, summed over ``axis``:
+    the other slices are zeros there), every rank's gradient of its own
+    stage, every rank's gradient of ``x`` and the outputs of a run
+    without grad."""
+    mesh = make_mesh(shape, axes, device)
+    wt = torch.as_tensor(np.asarray(w), device=mesh.device)
+    xt = torch.as_tensor(np.asarray(x), device=mesh.device)
+    leaf = wt.clone().requires_grad_(True)
+    xleaf = xt.clone().requires_grad_(True)
+    out = pipeline_forward(tanh_stage, {"w": leaf}, xleaf, mesh, axis)
+    g, gx = torch.autograd.grad(torch.sum(out ** 2), [leaf, xleaf])
+    with torch.no_grad():
+        plain = pipeline_forward(tanh_stage, {"w": wt}, xt, mesh, axis)
+    own = g[mesh.coord[axis]]
+    outs = mesh.all_gather(out.detach()[None].contiguous(), mesh.axis_names,
+                           0)
+    owns = mesh.all_gather(own[None].contiguous(), mesh.axis_names, 0)
+    gxs = mesh.all_gather(gx[None].contiguous(), mesh.axis_names, 0)
+    whole = mesh.all_reduce(g, (axis,))
+    if mesh.rank:
+        return None
+    return dict(out=_np(outs), grad=_np(whole), own=_np(owns),
+                grad_x=_np(gxs), plain=_np(plain))
+
+
+def dryrun_probe(cfg: LMConfig, cell: ShapeCell, shape: Sequence[int],
+                 axes: Sequence[str] = ("data", "model"), *,
+                 part_kwargs: Optional[Dict] = None, device=None,
+                 log: Callable[[str], None] = print):
+    """``launch.dryrun.run_rank_step`` of ``cell`` on every rank of
+    ``make_mesh(shape, axes)``, its collectives tallied by
+    ``CountingMesh.wrap``; rank 0 returns every rank's result and, for a
+    train cell, ``launch.steps.resident`` of the state the step ran on."""
+    import torch.distributed as tdist
+    from repro_torch.launch import dryrun as D
+    mesh = make_mesh(shape, axes, device)
+    got = D.run_rank_step(cfg, cell, D.CountingMesh.wrap(mesh), part_kwargs)
+    resident = None
+    if cell.mode == "train":
+        bundle = ST.build_step(cfg, cell, mesh=mesh, remat=False,
+                               part_kwargs=part_kwargs)
+        (state, _), _ = D.rank_args(bundle, cfg, cell, mesh)
+        resident = ST.resident(state, bundle.partitioner, bundle.model)
+    every = [None] * tdist.get_world_size()
+    tdist.all_gather_object(every, got)
+    return dict(ranks=every, resident=resident) if mesh.rank == 0 else None
